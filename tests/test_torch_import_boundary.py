@@ -1,0 +1,83 @@
+"""The port's import boundary: trlx_tpu_torch imports torch and numpy, never
+jax, jaxlib, flax or any module of trlx_tpu (whose name it shares as a
+prefix, so module names are matched exactly). Also: the engine's entry point
+runs on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "trlx_tpu_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax") or name == "trlx_tpu" or name.startswith("trlx_tpu.")
+
+
+def test_forbidden_predicate_uses_exact_names():
+    assert _forbidden("trlx_tpu") and _forbidden("trlx_tpu.serving") and _forbidden("jax.numpy")
+    assert not _forbidden("trlx_tpu_torch") and not _forbidden("trlx_tpu_torch.serving.engine")
+
+
+def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
+    mods = list(_modules())
+    assert "trlx_tpu_torch.serving.engine" in mods and "trlx_tpu_torch.ops._kernels" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    import json
+
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, f"trlx_tpu_torch pulled in {bad}"
+    assert "torch" in loaded
+
+
+def test_sources_name_no_forbidden_import():
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def test_engine_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for a host without one")
+    from trlx_tpu_torch.models.presets import PRESETS
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.serving import ServingEngine
+
+    cfg = PRESETS["gpt2"].replace(vocab_size=11, hidden_size=8, num_layers=1, num_heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(TransformerLM(cfg), num_slots=1, max_seq_len=8)
+    ServingEngine(TransformerLM(cfg), num_slots=1, max_seq_len=8, device="cpu")

@@ -1,0 +1,657 @@
+"""Generic causal decoder LM in PyTorch, the counterpart of
+``trlx_tpu/models/transformer.py``.
+
+One configurable module covers gpt2, gpt-neox/pythia, gpt-j, opt and llama:
+positional scheme (learned / rotary neox or gptj style), norm type
+(LayerNorm / RMSNorm), activation, GLU mlp, parallel residual, biases, GQA
+and tied embeddings are config switches. Parameter names follow the flax
+tree (``layers_{i}.attn.q_proj.kernel`` etc., dense kernels ``[in, out]``),
+so a JAX parameter tree loads by name (:mod:`trlx_tpu_torch.models.convert`).
+
+Numerics follow the flax module: matrix products run in ``compute_dtype``
+against the parameters cast per call, norms reduce in f32 with flax's
+one-pass variance, the plain attention path adds a ``-1e9`` mask bias and
+takes the softmax in f32. Two attention kernels serve the serving path: the
+flash forward on multi-token prefill (``attention_impl="flash"``) and the
+paged decode kernel on single-token paged steps.
+
+KV caches are preallocated tensors updated in place (JAX threads them
+functionally): the contiguous prefill cache ``{"k", "v"[, scales], "index"}``
+with per-layer ``[B, Hkv, S, D]`` buffers, and the paged block pools from
+:meth:`TransformerLM.init_paged_cache`.
+
+Not in this slice (each raises ``NotImplementedError``): stacked layouts
+(``scan_layers`` / ``pipeline_stages > 1``), ring attention, ALiBi, LoRA and
+prompt/prefix tuning, sequence sharding, multi-token paged appends.
+"""
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from trlx_tpu_torch.ops.attention import flash_attention
+from trlx_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_pool_layout,
+    write_paged_kv,
+)
+
+KVCache = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """Architecture hyperparameters (the JAX config's fields and defaults;
+    dtypes are torch dtypes). Presets in :mod:`trlx_tpu_torch.models.presets`."""
+
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None  # GQA; None = num_heads
+    head_dim: Optional[int] = None  # None = hidden_size // num_heads
+    intermediate_size: Optional[int] = None  # None = 4*hidden
+    max_position_embeddings: int = 1024
+
+    pos_embedding: str = "learned"  # "learned" | "rotary" | "alibi" | "none"
+    rope_style: str = "neox"  # "neox" (rotate-half) | "gptj" (interleaved)
+    rotary_pct: float = 1.0
+    rope_theta: float = 10000.0
+    pos_offset: int = 0  # OPT uses a +2 offset into its learned table
+
+    norm: str = "layernorm"  # "layernorm" | "rmsnorm"
+    norm_eps: float = 1e-5
+    activation: str = "gelu_new"  # "gelu_new" | "gelu" | "relu" | "silu"
+    glu: bool = False
+    parallel_residual: bool = False
+    shared_parallel_ln: bool = False
+    attn_bias: bool = True
+    mlp_bias: bool = True
+    embed_ln: bool = False
+    head_bias: bool = False
+    tie_word_embeddings: bool = True
+    final_norm: bool = True
+
+    initializer_range: float = 0.02
+    # residual-out projections (o_proj/down_proj) init at
+    # initializer_range / sqrt(2*num_layers), as the JAX config
+    depth_scaled_init: bool = True
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    remat: str = "none"  # training-memory option: no effect on inference
+    attention_impl: str = "xla"  # "xla" (plain) | "flash" (kernel) | "ring" (later slice)
+    kv_cache_quant: bool = False
+    paged_attention_impl: str = "auto"  # "auto" | "pallas" (both: kernel) | "xla" (plain)
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 4
+    scan_layers: bool = False
+
+    @property
+    def stacked(self) -> bool:
+        return self.pipeline_stages > 1 or self.scan_layers
+
+    sequence_sharding: bool = False
+
+    lora_r: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("q_proj", "v_proj")
+    peft_type: str = "none"
+    num_virtual_tokens: int = 0
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def dim_per_head(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+    def residual_init_std(self) -> float:
+        if self.depth_scaled_init:
+            return self.initializer_range / math.sqrt(2 * self.num_layers)
+        return self.initializer_range
+
+    def replace(self, **kw) -> "TransformerConfig":
+        return replace(self, **kw)
+
+
+def check_supported(c: TransformerConfig) -> None:
+    """Raise for the config features later slices of the port bring."""
+    unsupported = [
+        (c.stacked, "stacked layouts (scan_layers / pipeline_stages > 1): pipeline slice"),
+        (c.attention_impl == "ring", "attention_impl='ring': scale-out slice"),
+        (c.pos_embedding == "alibi", "pos_embedding='alibi': model-families slice"),
+        (c.peft_type in ("prompt", "prefix"), "peft prompt/prefix tuning: peft slice"),
+        (c.lora_r > 0, "LoRA (lora_r > 0): peft slice"),
+        (c.sequence_sharding, "sequence_sharding: scale-out slice"),
+    ]
+    for bad, what in unsupported:
+        if bad:
+            raise NotImplementedError(f"trlx_tpu_torch does not port {what} yet")
+    if c.attention_impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
+
+
+def _act(name: str):
+    return {
+        "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu": lambda x: F.gelu(x, approximate="none"),
+        "relu": F.relu,
+        "silu": F.silu,
+    }[name]
+
+
+def make_causal_bias(
+    attention_mask: Optional[torch.Tensor], B: int, T: int, device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positions, additive causal+padding mask bias [B,1,T,T]) for a cache-free forward."""
+    if attention_mask is not None:
+        positions = (torch.cumsum(attention_mask, dim=1) - 1).clamp(min=0).to(torch.int32)
+    else:
+        positions = torch.arange(T, dtype=torch.int32, device=device)[None, :].expand(B, T)
+    causal = torch.ones((T, T), dtype=torch.bool, device=device).tril()[None, None]
+    if attention_mask is not None:
+        causal = causal & attention_mask[:, None, None, :].bool()
+    return positions, _bias_from_mask(causal)
+
+
+def _bias_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    return torch.where(mask, zero, torch.full_like(zero, -1e9))
+
+
+def make_rotary(config: TransformerConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [B, T, rot_dim/2] for the given positions."""
+    rot_dim = int(config.dim_per_head * config.rotary_pct)
+    rot_dim -= rot_dim % 2
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=positions.device) / rot_dim
+    inv_freq = 1.0 / (config.rope_theta ** exponent)
+    freqs = positions[..., None].float() * inv_freq
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, style: str) -> torch.Tensor:
+    """Rotate queries/keys. x: [B, T, H, D]; cos/sin [B, T, rot/2]."""
+    rot_dim = cos.shape[-1] * 2
+    x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    if style == "gptj":
+        x1 = x_rot[..., 0::2]
+        x2 = x_rot[..., 1::2]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        rotated = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    else:
+        half = rot_dim // 2
+        x1 = x_rot[..., :half]
+        x2 = x_rot[..., half:]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        rotated = torch.cat([r1, r2], dim=-1)
+    return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization over the trailing (head) dim:
+    x [..., D] -> (int8 values [..., D], f32 scales [..., 1]). Bit-exact with
+    the JAX scheme: f32 amax, ``max(amax, 1e-8) / 127``, round half to even
+    (``torch.round`` and ``jnp.round`` agree), clip to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp(min=1e-8) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def write_kv_cache(cache: Dict[str, torch.Tensor], kT: torch.Tensor, vT: torch.Tensor, idx: int):
+    """Write [B,H,T,D] rows at slot ``idx`` IN PLACE (the buffers are
+    preallocated; JAX's dynamic_update_slice returns a new array instead).
+    Quantizes when the cache carries scale planes. Returns ``cache``."""
+    T = kT.shape[2]
+    if "k_scale" in cache:
+        kq, ks = quantize_kv_rows(kT)
+        vq, vs = quantize_kv_rows(vT)
+        cache["k"][:, :, idx:idx + T] = kq
+        cache["v"][:, :, idx:idx + T] = vq
+        cache["k_scale"][:, :, idx:idx + T] = ks
+        cache["v_scale"][:, :, idx:idx + T] = vs
+    else:
+        cache["k"][:, :, idx:idx + T] = kT.to(cache["k"].dtype)
+        cache["v"][:, :, idx:idx + T] = vT.to(cache["v"].dtype)
+    return cache
+
+
+def read_kv_cache(cache: Dict[str, torch.Tensor], compute_dtype):
+    """(kh, vh) to attend over; int8 caches dequantize on read (values times
+    the f32 scale at full precision, then cast)."""
+    if "k_scale" in cache:
+        return (
+            (cache["k"].float() * cache["k_scale"]).to(compute_dtype),
+            (cache["v"].float() * cache["v_scale"]).to(compute_dtype),
+        )
+    return cache["k"], cache["v"]
+
+
+def kv_cache_layout(shape: Tuple[int, ...], dtype, quant: bool) -> Dict[str, Tuple]:
+    """Per-layer cache buffers as {key: (shape, dtype)} — int8 values + one f32
+    scale per row when ``quant``."""
+    if quant:
+        return {
+            "k": (shape, torch.int8), "v": (shape, torch.int8),
+            "k_scale": (tuple(shape[:-1]) + (1,), torch.float32),
+            "v_scale": (tuple(shape[:-1]) + (1,), torch.float32),
+        }
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+class Dense(nn.Module):
+    """flax ``Dense`` layout: ``kernel [in, out]`` and ``bias [out]``,
+    computed as ``x @ kernel`` in ``dtype`` with the parameters cast per call."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool, dtype, param_dtype, init_std: float):
+        super().__init__()
+        self.dtype = dtype
+        self.init_std = init_std
+        self.kernel = nn.Parameter(torch.empty(in_features, features, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=param_dtype)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class Norm(nn.Module):
+    """flax LayerNorm / RMSNorm: statistics in f32 with the one-pass variance
+    ``E[x^2] - E[x]^2`` (clipped at 0), ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, output in ``dtype``."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        c = config
+        self.rms = c.norm == "rmsnorm"
+        self.eps = c.norm_eps
+        self.dtype = c.compute_dtype
+        self.scale = nn.Parameter(torch.ones(c.hidden_size, dtype=c.param_dtype))
+        self.bias = None if self.rms else nn.Parameter(torch.zeros(c.hidden_size, dtype=c.param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean2 = (xf * xf).mean(dim=-1, keepdim=True)
+        if self.rms:
+            var, y = mean2, xf
+        else:
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = (mean2 - mean * mean).clamp(min=0.0)
+            y = xf - mean
+        y = y * (torch.rsqrt(var + self.eps) * self.scale.float())
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.dtype)
+
+
+class Embed(nn.Module):
+    """flax ``Embed`` layout: ``embedding [num, features]``, looked up then
+    cast to ``dtype``."""
+
+    def __init__(self, num: int, features: int, dtype, param_dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num, features, dtype=param_dtype))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids.long(), self.embedding).to(self.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        c = self.config = config
+        dense = lambda i, o, bias, std=c.initializer_range: Dense(
+            i, o, bias, c.compute_dtype, c.param_dtype, std
+        )
+        qd, kd = c.num_heads * c.dim_per_head, c.kv_heads * c.dim_per_head
+        self.q_proj = dense(c.hidden_size, qd, c.attn_bias)
+        self.k_proj = dense(c.hidden_size, kd, c.attn_bias)
+        self.v_proj = dense(c.hidden_size, kd, c.attn_bias)
+        self.o_proj = dense(qd, c.hidden_size, c.attn_bias, c.residual_init_std())
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask_bias: Optional[torch.Tensor],
+        positions: torch.Tensor,
+        cache: Optional[Dict[str, Any]] = None,
+        kv_valid: Optional[torch.Tensor] = None,
+    ):
+        """x: [B,T,Hid]; mask_bias additive [B,1,T,S]. ``cache`` is this layer's
+        contiguous cache (``index`` = write slot) or paged cache
+        (``block_tables`` present; single-token steps only). A non-None
+        ``kv_valid`` [B,T] with T > 1 marks a cache-free forward or a
+        prefill from slot 0: with ``attention_impl="flash"`` it attends
+        through the flash kernel over this forward's own k/v."""
+        c = self.config
+        B, T, _ = x.shape
+        scale = 1.0 / math.sqrt(c.dim_per_head)
+        q = self.q_proj(x).reshape(B, T, c.num_heads, c.dim_per_head)
+        k = self.k_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
+        v = self.v_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
+        if c.pos_embedding == "rotary":
+            cos, sin = make_rotary(c, positions)
+            q = apply_rotary(q, cos, sin, c.rope_style)
+            k = apply_rotary(k, cos, sin, c.rope_style)
+
+        if cache is not None and "block_tables" in cache:
+            # paged step (serving engine): the new row lands at position
+            # context_lens, then attention runs over context_lens + 1 tokens
+            # gathered through the block table
+            if T != 1:
+                raise NotImplementedError(
+                    "multi-token paged appends (speculative verify / chunked "
+                    "prefill) come with the paged verify kernel in a later slice"
+                )
+            write_paged_kv(cache, k[:, 0], v[:, 0])
+            out = paged_decode_attention(
+                q[:, 0].contiguous(), cache["k"], cache["v"],
+                cache["block_tables"], cache["context_lens"] + 1,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                scale=scale, impl=c.paged_attention_impl,
+            )
+            out = out.reshape(B, T, c.num_heads * c.dim_per_head).to(c.compute_dtype)
+            return self.o_proj(out), cache
+
+        if cache is not None:
+            write_kv_cache(cache, k.transpose(1, 2), v.transpose(1, 2), cache["index"])
+
+        use_flash = c.attention_impl == "flash" and kv_valid is not None and T > 1
+        k_row_scale = v_row_scale = None
+        if use_flash:
+            out = flash_attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), kv_valid.to(torch.int32).contiguous(),
+                True, scale,
+            )
+            out = out.transpose(1, 2).to(c.compute_dtype)
+        else:
+            if cache is not None:
+                # attend over the cache (prefill on the plain path)
+                if "k_scale" in cache:
+                    # int8 cache: bare dtype convert; the per-row scales fold
+                    # into the scores (k) and the softmax weights (v)
+                    kh = cache["k"].to(c.compute_dtype)
+                    vh = cache["v"].to(c.compute_dtype)
+                    k_row_scale = cache["k_scale"]  # [B, Hkv, S, 1] f32
+                    v_row_scale = cache["v_scale"]
+                else:
+                    kh, vh = read_kv_cache(cache, c.compute_dtype)
+            else:
+                kh = k.transpose(1, 2)
+                vh = v.transpose(1, 2)
+            if c.kv_heads != c.num_heads:
+                rep = c.num_heads // c.kv_heads
+                qg = q.reshape(B, T, c.kv_heads, rep, c.dim_per_head)
+                scores = torch.einsum("btkrd,bksd->bkrts", qg, kh).float() * scale
+                if k_row_scale is not None:
+                    scores = scores * k_row_scale[..., 0][:, :, None, None, :]
+                bias = (
+                    mask_bias[:, :, None]
+                    if mask_bias.shape[1] == 1
+                    else mask_bias.reshape(B, c.kv_heads, rep, *mask_bias.shape[2:])
+                )
+                probs = torch.softmax(scores + bias, dim=-1)
+                if v_row_scale is not None:
+                    probs = probs * v_row_scale[..., 0][:, :, None, None, :]
+                probs = probs.to(c.compute_dtype)
+                out = torch.einsum("bkrts,bksd->btkrd", probs, vh)
+            else:
+                scores = torch.einsum("bthd,bhsd->bhts", q, kh).float() * scale
+                if k_row_scale is not None:
+                    scores = scores * k_row_scale[..., 0][:, :, None, :]
+                probs = torch.softmax(scores + mask_bias, dim=-1)
+                if v_row_scale is not None:
+                    probs = probs * v_row_scale[..., 0][:, :, None, :]
+                probs = probs.to(c.compute_dtype)
+                out = torch.einsum("bhts,bhsd->bthd", probs, vh)
+        out = out.reshape(B, T, c.num_heads * c.dim_per_head)
+        return self.o_proj(out), cache
+
+
+class MLP(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        c = self.config = config
+        dense = lambda i, o, std=c.initializer_range: Dense(
+            i, o, c.mlp_bias, c.compute_dtype, c.param_dtype, std
+        )
+        if c.glu:
+            self.gate_proj = dense(c.hidden_size, c.ffn_dim)
+        self.up_proj = dense(c.hidden_size, c.ffn_dim)
+        self.down_proj = dense(c.ffn_dim, c.hidden_size, c.residual_init_std())
+        self.act = _act(c.activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.config.glu:
+            h = self.act(self.gate_proj(x)) * self.up_proj(x)
+        else:
+            h = self.act(self.up_proj(x))
+        return self.down_proj(h)
+
+
+class Block(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        c = self.config = config
+        self.ln_1 = Norm(c)
+        if not (c.parallel_residual and c.shared_parallel_ln):
+            self.ln_2 = Norm(c)
+        self.attn = Attention(c)
+        self.mlp = MLP(c)
+
+    def forward(self, x, mask_bias, positions, cache=None, kv_valid=None):
+        c = self.config
+        if c.parallel_residual:
+            h1 = self.ln_1(x)
+            h2 = h1 if c.shared_parallel_ln else self.ln_2(x)
+            attn_out, cache = self.attn(h1, mask_bias, positions, cache, kv_valid)
+            return x + attn_out + self.mlp(h2), cache
+        attn_out, cache = self.attn(self.ln_1(x), mask_bias, positions, cache, kv_valid)
+        x = x + attn_out
+        x = x + self.mlp(self.ln_2(x))
+        return x, cache
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM. ``forward`` returns (logits, final_hidden, None,
+    cache) as the JAX module's ``__call__`` does (the third slot, the hydra
+    branch activation, comes with the training slice)."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        check_supported(config)
+        c = self.config = config
+        self.embed_tokens = Embed(c.vocab_size, c.hidden_size, c.compute_dtype, c.param_dtype)
+        if c.embed_ln:
+            self.embed_layernorm = Norm(c)
+        if c.pos_embedding == "learned":
+            self.embed_positions = Embed(
+                c.max_position_embeddings + c.pos_offset, c.hidden_size,
+                c.compute_dtype, c.param_dtype,
+            )
+        # flax names the listed layers layers_0 .. layers_{L-1}
+        for i in range(c.num_layers):
+            setattr(self, f"layers_{i}", Block(c))
+        if c.final_norm:
+            self.ln_f = Norm(c)
+        if not c.tie_word_embeddings:
+            self.lm_head = Dense(
+                c.hidden_size, c.vocab_size, c.head_bias, c.compute_dtype,
+                c.param_dtype, c.initializer_range,
+            )
+        if device is not None:
+            self.to(device)
+
+    @property
+    def layers(self) -> List[Block]:
+        return [getattr(self, f"layers_{i}") for i in range(self.config.num_layers)]
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_tokens.embedding.device
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0) -> "TransformerLM":
+        """Random weights from ``seed`` (a ``torch.Generator`` on the
+        parameters' device): normal(initializer_range) embeddings and dense
+        kernels, residual-out kernels at ``residual_init_std``, zero biases,
+        unit norm scales — the JAX module's initializers, not its bits."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        std = self.config.initializer_range
+        for module in self.modules():
+            if isinstance(module, Dense):
+                module.kernel.normal_(0.0, module.init_std, generator=gen)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, Embed):
+                module.embedding.normal_(0.0, std, generator=gen)
+            elif isinstance(module, Norm):
+                module.scale.fill_(1.0)
+                if module.bias is not None:
+                    module.bias.zero_()
+        return self
+
+    def _final(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits, post-norm hidden)."""
+        c = self.config
+        if c.final_norm:
+            x = self.ln_f(x)
+        if c.tie_word_embeddings:
+            logits = x @ self.embed_tokens.embedding.to(c.compute_dtype).T
+        else:
+            logits = self.lm_head(x)
+        return logits, x
+
+    def embed(self, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = self.embed_tokens(input_ids)
+        if self.config.pos_embedding == "learned":
+            x = x + self.embed_positions(positions + self.config.pos_offset)
+        if self.config.embed_ln:
+            x = self.embed_layernorm(x)
+        return x
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        cache: Optional[KVCache] = None,
+        last_only: bool = False,
+    ):
+        """input_ids [B,T]; attention_mask [B,T] (1 = real token; with a cache
+        it covers the cache length [B,S]). Returns (logits [B,T,V], hidden
+        [B,T,Hid] post-norm, None, cache or None) — the cache is updated in
+        place and its ``index`` advanced by T. ``last_only`` runs the final
+        norm and head on the last position only (logits [B,1,V]): the
+        serving prefill samples from that position alone."""
+        B, T = input_ids.shape
+        dev = input_ids.device
+        if cache is not None:
+            S = cache["k"][0].shape[2]
+            idx = int(cache["index"])
+            if positions is None:
+                positions = idx + torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+            # causal structure over cache *slots* (left padding repeats
+            # position values under the pad mask; slot order is temporal)
+            kv_slot = torch.arange(S, device=dev)[None, None, None, :]
+            q_slot = (idx + torch.arange(T, device=dev))[None, None, :, None]
+            causal = kv_slot <= q_slot
+            if attention_mask is not None:
+                causal = causal & attention_mask[:, None, None, :].bool()
+            mask_bias = _bias_from_mask(causal)
+            # prefill from slot 0: the flash path may attend over this
+            # forward's k/v alone (every later cache slot is still empty)
+            kv_valid = attention_mask[:, :T] if T > 1 and attention_mask is not None and idx == 0 else None
+        else:
+            default_positions, mask_bias = make_causal_bias(attention_mask, B, T, dev)
+            if positions is None:
+                positions = default_positions
+            kv_valid = attention_mask
+        x = self.embed(input_ids, positions)
+        for i, layer in enumerate(self.layers):
+            layer_cache = None
+            if cache is not None:
+                layer_cache = {key: cache[key][i] for key in cache if key != "index"}
+                layer_cache["index"] = cache["index"]
+            x, _ = layer(x, mask_bias, positions, layer_cache, kv_valid)
+        if last_only:
+            x = x[:, -1:]
+        logits, hidden = self._final(x)
+        if cache is not None:
+            cache["index"] = int(cache["index"]) + T
+        return logits, hidden, None, cache
+
+    def init_cache(self, batch_size: int, max_length: int, dtype=None) -> KVCache:
+        """Contiguous per-layer cache buffers on the model's device (zeros)."""
+        c = self.config
+        shape = (batch_size, c.kv_heads, max_length, c.dim_per_head)
+        per_layer = kv_cache_layout(shape, dtype or c.compute_dtype, c.kv_cache_quant)
+        out = {
+            key: [torch.zeros(shp, dtype=dt, device=self.device) for _ in range(c.num_layers)]
+            for key, (shp, dt) in per_layer.items()
+        }
+        out["index"] = 0
+        return out
+
+    def init_paged_cache(
+        self, num_blocks: int, block_size: int, max_blocks_per_seq: int,
+        batch_size: int, dtype=None,
+    ) -> KVCache:
+        """Block-pool cache for the serving engine: per-layer k/v pools
+        ``[num_blocks, block_size, Hkv, D]`` (int8 + f32 row scales under
+        ``kv_cache_quant``) plus shared ``block_tables`` ``[B,
+        max_blocks_per_seq]`` and ``context_lens`` ``[B]``, int32. Block 0
+        is the allocator's reserved null block; fresh tables point at it."""
+        c = self.config
+        layout = paged_pool_layout(
+            num_blocks, block_size, c.kv_heads, c.dim_per_head,
+            dtype or c.compute_dtype, c.kv_cache_quant,
+        )
+        out = {
+            key: [torch.zeros(shp, dtype=dt, device=self.device) for _ in range(c.num_layers)]
+            for key, (shp, dt) in layout.items()
+        }
+        out["block_tables"] = torch.zeros((batch_size, max_blocks_per_seq), dtype=torch.int32, device=self.device)
+        out["context_lens"] = torch.zeros((batch_size,), dtype=torch.int32, device=self.device)
+        return out
+
+    def paged_decode(self, input_ids: torch.Tensor, cache: KVCache):
+        """One decode step against the paged block-pool cache: ``input_ids``
+        [B, 1]. Writes each slot's new K/V row into the pools in place and
+        returns (logits [B, 1, V], hidden [B, 1, Hid], cache with
+        ``context_lens`` replaced by lens + 1). Idle slots (len 0 with a null
+        table row) still produce finite output, which the engine discards."""
+        B, T = input_ids.shape
+        if T != 1:
+            raise ValueError("paged_decode is a single-token step")
+        lens = cache["context_lens"]
+        positions = lens[:, None].to(torch.int32)  # incoming token's position
+        x = self.embed(input_ids, positions)
+        pool_keys = [k for k in cache if k not in ("block_tables", "context_lens")]
+        for i, layer in enumerate(self.layers):
+            layer_cache = {key: cache[key][i] for key in pool_keys}
+            layer_cache["block_tables"] = cache["block_tables"]
+            layer_cache["context_lens"] = lens
+            x, _ = layer(x, None, positions, layer_cache, None)
+        logits, hidden = self._final(x)
+        new_cache = dict(cache)
+        new_cache["context_lens"] = lens + 1
+        return logits, hidden, new_cache

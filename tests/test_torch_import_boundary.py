@@ -1,5 +1,5 @@
 """The port's import boundary: trlx_tpu_torch imports torch and numpy, never
-jax, jaxlib, flax or any module of trlx_tpu (whose name it shares as a
+jax, jaxlib, flax, optax or any module of trlx_tpu (whose name it shares as a
 prefix, so module names are matched exactly). Also: the engine's entry point
 runs on the card unless the caller asks for the CPU."""
 
@@ -27,17 +27,20 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or name == "trlx_tpu" or name.startswith("trlx_tpu.")
+    return top in ("jax", "jaxlib", "flax", "optax") or name == "trlx_tpu" or name.startswith("trlx_tpu.")
 
 
 def test_forbidden_predicate_uses_exact_names():
     assert _forbidden("trlx_tpu") and _forbidden("trlx_tpu.serving") and _forbidden("jax.numpy")
+    assert _forbidden("optax")
     assert not _forbidden("trlx_tpu_torch") and not _forbidden("trlx_tpu_torch.serving.engine")
 
 
 def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
     mods = list(_modules())
-    assert "trlx_tpu_torch.serving.engine" in mods and "trlx_tpu_torch.ops._kernels" in mods
+    for m in ("trlx_tpu_torch.serving.engine", "trlx_tpu_torch.ops._kernels",
+              "trlx_tpu_torch.trainer.ppo_trainer", "trlx_tpu_torch.trlx"):
+        assert m in mods, m
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -55,6 +58,8 @@ def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"trlx_tpu_torch pulled in {bad}"
     assert "torch" in loaded
+    # yaml (and other optional host packages) load only when used
+    assert "yaml" not in loaded
 
 
 def test_sources_name_no_forbidden_import():

@@ -1,4 +1,5 @@
-"""Carry a JAX ``TransformerLM`` parameter tree across to the port.
+"""Carry a JAX ``TransformerLM`` or ``CausalLMWithValueHead`` parameter tree
+across to the port.
 
 The port's modules keep the flax names (``layers_{i}``, ``kernel [in, out]``,
 ``bias``, ``scale``, ``embedding``), so conversion is a flatten of the nested
@@ -26,13 +27,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def params_from_jax(params: Mapping[str, Any], config: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """Nested numpy parameter tree (flax layout) -> ``state_dict`` for
-    :class:`TransformerLM` in ``config.param_dtype``. Raises on any leaf the
-    port's module has no parameter for (LoRA adapters, prompt/prefix
-    embeddings) and on any parameter the tree lacks."""
-    flat = _flatten(params)
-    expected = TransformerLM(config).state_dict()
+def _state_from_tree(tree: Mapping[str, Any], model: torch.nn.Module, dtype) -> Dict[str, torch.Tensor]:
+    """Flatten ``tree`` and match it leaf for leaf against ``model``'s
+    ``state_dict``: raises on any leaf the module has no parameter for (LoRA
+    adapters, prompt/prefix embeddings, value-branch blocks), on any
+    parameter the tree lacks, and on any shape that differs."""
+    flat = _flatten(tree)
+    expected = model.state_dict()
     extra = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
     if extra or missing:
@@ -42,8 +43,24 @@ def params_from_jax(params: Mapping[str, Any], config: TransformerConfig) -> Dic
         arr = np.asarray(value, dtype=np.float32)
         if arr.shape != tuple(expected[name].shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(expected[name].shape)}")
-        state[name] = torch.from_numpy(arr.copy()).to(config.param_dtype)
+        state[name] = torch.from_numpy(arr.copy()).to(dtype)
     return state
+
+
+def params_from_jax(params: Mapping[str, Any], config: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """Nested numpy parameter tree (flax layout) -> ``state_dict`` for
+    :class:`TransformerLM` in ``config.param_dtype``."""
+    return _state_from_tree(params, TransformerLM(config), config.param_dtype)
+
+
+def policy_params_from_jax(tree: Mapping[str, Any], config: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """The numpy tree of the JAX ``CausalLMWithValueHead`` (``transformer``,
+    ``v_head``) -> ``state_dict`` for the port's
+    :class:`~trlx_tpu_torch.models.policy.CausalLMWithValueHead` in
+    ``config.param_dtype``. Raises on any leaf that does not match."""
+    from trlx_tpu_torch.models.policy import CausalLMWithValueHead
+
+    return _state_from_tree(tree, CausalLMWithValueHead(config), config.param_dtype)
 
 
 def load_jax_params(model: TransformerLM, params: Mapping[str, Any]) -> TransformerLM:

@@ -1,8 +1,8 @@
-"""Architecture presets for the generic TransformerLM (copied from
-``trlx_tpu/models/presets.py``; name lookup and HF-config conversion come
-with HF loading in a later slice)."""
+"""Architecture presets for the generic TransformerLM and their name lookup
+(copied from ``trlx_tpu/models/presets.py``; HF-config conversion comes with
+the checkpoint slice)."""
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
@@ -51,3 +51,24 @@ PRESETS: Dict[str, TransformerConfig] = {
     ),
 }
 
+
+def get_preset(name: str, overrides: Optional[Dict[str, Any]] = None) -> TransformerConfig:
+    """Resolve a family preset by name (exact or prefix: "gpt2-imdb" -> gpt2)."""
+    key = name.lower()
+    config = None
+    if key in PRESETS:
+        config = PRESETS[key]
+    else:
+        for family in ("gpt_bigcode", "gpt_neox", "gptj", "gpt2", "llama", "opt", "bloom"):
+            if family.replace("_", "") in key.replace("_", "").replace("-", ""):
+                config = PRESETS[family]
+                break
+        if config is None and ("pythia" in key or "neox" in key):
+            config = PRESETS["gpt_neox"]
+        if config is None and ("starcoder" in key or "santacoder" in key):
+            config = PRESETS["gpt_bigcode"]
+    if config is None:
+        raise ValueError(f"Unknown architecture preset for {name!r}; known: {sorted(PRESETS)}")
+    if overrides:
+        config = config.replace(**overrides)
+    return config

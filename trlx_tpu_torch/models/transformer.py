@@ -11,18 +11,22 @@ so a JAX parameter tree loads by name (:mod:`trlx_tpu_torch.models.convert`).
 Numerics follow the flax module: matrix products run in ``compute_dtype``
 against the parameters cast per call, norms reduce in f32 with flax's
 one-pass variance, the plain attention path adds a ``-1e9`` mask bias and
-takes the softmax in f32. Two attention kernels serve the serving path: the
-flash forward on multi-token prefill (``attention_impl="flash"``) and the
-paged decode kernel on single-token paged steps.
+takes the softmax in f32. With ``attention_impl="flash"`` every multi-token
+forward (prefill, the scoring passes, the training loss) attends through
+the flash kernel, and the training backward through its dK/dV and dQ
+kernels; single-token paged steps use the paged decode kernel, and
+single-token steps over the contiguous cache the plain path (as the JAX
+package's einsum).
 
 KV caches are preallocated tensors updated in place (JAX threads them
 functionally): the contiguous prefill cache ``{"k", "v"[, scales], "index"}``
 with per-layer ``[B, Hkv, S, D]`` buffers, and the paged block pools from
 :meth:`TransformerLM.init_paged_cache`.
 
-Not in this slice (each raises ``NotImplementedError``): stacked layouts
+Not ported yet (each raises ``NotImplementedError``): stacked layouts
 (``scan_layers`` / ``pipeline_stages > 1``), ring attention, ALiBi, LoRA and
-prompt/prefix tuning, sequence sharding, multi-token paged appends.
+prompt/prefix tuning, sequence sharding, multi-token paged appends, the
+hydra branch (``branch_layer``, ``forward_from``) and ``remat``.
 """
 
 import math
@@ -132,6 +136,7 @@ def check_supported(c: TransformerConfig) -> None:
         (c.peft_type in ("prompt", "prefix"), "peft prompt/prefix tuning: peft slice"),
         (c.lora_r > 0, "LoRA (lora_r > 0): peft slice"),
         (c.sequence_sharding, "sequence_sharding: scale-out slice"),
+        (c.remat != "none", f"remat={c.remat!r}: training-memory slice"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -304,9 +309,10 @@ class Embed(nn.Module):
     """flax ``Embed`` layout: ``embedding [num, features]``, looked up then
     cast to ``dtype``."""
 
-    def __init__(self, num: int, features: int, dtype, param_dtype):
+    def __init__(self, num: int, features: int, dtype, param_dtype, init_std: float = 0.02):
         super().__init__()
         self.dtype = dtype
+        self.init_std = init_std
         self.embedding = nn.Parameter(torch.empty(num, features, dtype=param_dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
@@ -470,22 +476,47 @@ class Block(nn.Module):
         return x, cache
 
 
+@torch.no_grad()
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights for every submodule of ``model`` from ``seed`` (a
+    ``torch.Generator`` on the parameters' device): normal(initializer_range)
+    embeddings and dense kernels, residual-out kernels at
+    ``residual_init_std``, zero biases, unit norm scales — the JAX module's
+    initializers, not its bits."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    for module in model.modules():
+        if isinstance(module, Dense):
+            module.kernel.normal_(0.0, module.init_std, generator=gen)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, Embed):
+            module.embedding.normal_(0.0, module.init_std, generator=gen)
+        elif isinstance(module, Norm):
+            module.scale.fill_(1.0)
+            if module.bias is not None:
+                module.bias.zero_()
+    return model
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM. ``forward`` returns (logits, final_hidden, None,
     cache) as the JAX module's ``__call__`` does (the third slot, the hydra
-    branch activation, comes with the training slice)."""
+    branch activation, comes with the hydra slice)."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         check_supported(config)
         c = self.config = config
-        self.embed_tokens = Embed(c.vocab_size, c.hidden_size, c.compute_dtype, c.param_dtype)
+        self.embed_tokens = Embed(
+            c.vocab_size, c.hidden_size, c.compute_dtype, c.param_dtype, c.initializer_range
+        )
         if c.embed_ln:
             self.embed_layernorm = Norm(c)
         if c.pos_embedding == "learned":
             self.embed_positions = Embed(
                 c.max_position_embeddings + c.pos_offset, c.hidden_size,
-                c.compute_dtype, c.param_dtype,
+                c.compute_dtype, c.param_dtype, c.initializer_range,
             )
         # flax names the listed layers layers_0 .. layers_{L-1}
         for i in range(c.num_layers):
@@ -508,26 +539,9 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.embedding.device
 
-    @torch.no_grad()
     def init_params(self, seed: int = 0) -> "TransformerLM":
-        """Random weights from ``seed`` (a ``torch.Generator`` on the
-        parameters' device): normal(initializer_range) embeddings and dense
-        kernels, residual-out kernels at ``residual_init_std``, zero biases,
-        unit norm scales — the JAX module's initializers, not its bits."""
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        std = self.config.initializer_range
-        for module in self.modules():
-            if isinstance(module, Dense):
-                module.kernel.normal_(0.0, module.init_std, generator=gen)
-                if module.bias is not None:
-                    module.bias.zero_()
-            elif isinstance(module, Embed):
-                module.embedding.normal_(0.0, std, generator=gen)
-            elif isinstance(module, Norm):
-                module.scale.fill_(1.0)
-                if module.bias is not None:
-                    module.bias.zero_()
-        return self
+        """Random weights from ``seed`` (:func:`init_params`)."""
+        return init_params(self, seed)
 
     def _final(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, post-norm hidden)."""
@@ -555,13 +569,24 @@ class TransformerLM(nn.Module):
         positions: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
         last_only: bool = False,
+        branch_layer: Optional[int] = None,
     ):
         """input_ids [B,T]; attention_mask [B,T] (1 = real token; with a cache
         it covers the cache length [B,S]). Returns (logits [B,T,V], hidden
         [B,T,Hid] post-norm, None, cache or None) — the cache is updated in
         place and its ``index`` advanced by T. ``last_only`` runs the final
         norm and head on the last position only (logits [B,1,V]): the
-        serving prefill samples from that position alone."""
+        serving prefill samples from that position alone.
+
+        The cache-free multi-token forward trains: gradients flow through
+        every layer, and with ``attention_impl="flash"`` through the flash
+        kernels' backward. ``branch_layer`` (the hydra reference branch's
+        activation capture) raises: it comes with the hydra slice."""
+        if branch_layer is not None:
+            raise NotImplementedError(
+                "trlx_tpu_torch does not port branch_layer capture yet: hydra slice "
+                "(num_layers_unfrozen > 0)"
+            )
         B, T = input_ids.shape
         dev = input_ids.device
         if cache is not None:
@@ -598,6 +623,12 @@ class TransformerLM(nn.Module):
         if cache is not None:
             cache["index"] = int(cache["index"]) + T
         return logits, hidden, None, cache
+
+    def forward_from(self, hidden, attention_mask, positions, start_layer: int):
+        """The hydra frozen-branch forward: comes with the hydra slice."""
+        raise NotImplementedError(
+            "trlx_tpu_torch does not port forward_from yet: hydra slice (num_layers_unfrozen > 0)"
+        )
 
     def init_cache(self, batch_size: int, max_length: int, dtype=None) -> KVCache:
         """Contiguous per-layer cache buffers on the model's device (zeros)."""

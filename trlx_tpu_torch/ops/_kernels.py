@@ -1,10 +1,12 @@
 """Build, load and count the package's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
-compiled by ``nvcc`` into its own shared library under ``_build/`` (listed
-in ``.gitignore``) the first time a CUDA tensor reaches its wrapper, and
-loaded with :mod:`ctypes`. Nothing here runs at import: the package imports
-on a host with no CUDA toolkit, and the CPU paths never build anything.
+Each kernel is a plain C entry point in a ``csrc/*.cu`` file (one file may
+hold several, as ``flash_bwd.cu`` holds dK/dV and dQ). A source is compiled
+by ``nvcc`` into its own shared library under ``_build/`` (listed in
+``.gitignore``) the first time a CUDA tensor reaches one of its wrappers,
+and loaded with :mod:`ctypes`. Nothing here runs at import: the package
+imports on a host with no CUDA toolkit, and the CPU paths never build
+anything.
 
 A library is named after the hash of its source, so an edited kernel is
 rebuilt and an unchanged one is reused within a checkout. ``build()``
@@ -42,6 +44,16 @@ KERNELS = {
         # q, k, v, kv_valid, o, lse, B, H, Hkv, T, S, D, causal, scale, dtype, stream
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
+    "flash_bwd_dkv": (
+        "flash_bwd.cu", "flash_bwd_dkv",
+        # q, k, v, dout, lse, delta, kv_valid, dk, dv, B, H, Hkv, T, S, D, causal, scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd.cu", "flash_bwd_dq",
+        # q, k, v, dout, lse, delta, kv_valid, dq, B, H, Hkv, T, S, D, causal, scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
     "paged_decode": (
         "paged_decode.cu", "paged_decode",
         # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out,
@@ -65,11 +77,12 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-#: nvcc's output per built kernel (``-Xptxas=-v``: registers, shared memory, spills)
+#: nvcc's output per built source stem (``-Xptxas=-v``: registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # source file -> loaded library
+_bound: set = set()  # kernel names whose entry point has its argtypes set
 
 
 def reset_launches() -> None:
@@ -98,56 +111,61 @@ def _nvcc() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
+def _lib_path(source: str) -> Path:
+    src = CSRC / source
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every requested kernel whose library is missing, one ``nvcc``
-    per source, all started together. Returns seconds per kernel built."""
+    """Compile the source of every requested kernel whose library is
+    missing, one ``nvcc`` per source, all started together. Returns seconds
+    per source built (keyed by its stem)."""
     names = list(KERNELS if names is None else names)
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = sorted({KERNELS[n][0] for n in names if not _lib_path(KERNELS[n][0]).exists()})
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
-    for name in todo:
-        out = _lib_path(name)
+    for source in todo:
+        out = _lib_path(source)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        procs[Path(source).stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
     seconds, failures = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for stem, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = log
+        seconds[stem] = time.perf_counter() - t0
+        BUILD_LOG[stem] = log
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failures.append(f"{stem}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a reader never sees a partial library
-        logger.info(f"built {out.name} in {seconds[name]:.1f}s")
+        logger.info(f"built {out.name} in {seconds[stem]:.1f}s")
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return seconds
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing."""
+    """The loaded library holding kernel ``name``, built first if missing,
+    with the kernel's entry point typed."""
+    source, entry, argtypes = KERNELS[name]
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
+            lib = ctypes.CDLL(str(_lib_path(source)))
+            _libs[source] = lib
+        if name not in _bound:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
+            _bound.add(name)
         return lib
 
 

@@ -1,10 +1,25 @@
-"""Host-side prompt batching for generation (counterpart of the helpers at the
-top of ``trlx_tpu/ops/generation.py``). The padded one-shot ``generate`` loop
-belongs to a later slice; the serving engine needs only these two."""
+"""Padded one-shot generation with a contiguous KV cache (counterpart of
+``trlx_tpu/ops/generation.py``): the PPO trainer's default rollout path.
 
-from typing import List, Sequence, Tuple
+Prompts are left-padded to a bucketed length, the cache is preallocated at
+``prompt_len + max_new_tokens``, prefill runs from cache slot 0 through the
+flash kernel (``attention_impl="flash"``), and each decode step attends over
+the contiguous cache on the plain path, as the JAX package's einsum does.
+The loop exits early once every row has finished. Sampling goes through
+:func:`trlx_tpu_torch.ops.sampling.sample_token` with a caller-owned
+``torch.Generator``.
+"""
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from trlx_tpu_torch.ops.sampling import sample_token
+
+# step_fn(ids[B,T], mask[B,S], positions[B,T], cache) -> (logits[B,T',V],
+# hidden[B,T',H], cache); T' may be 1 (the last position only)
+StepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]
 
 
 def pad_to_bucket(length: int, buckets: Sequence[int]) -> int:
@@ -29,3 +44,87 @@ def left_pad_batch(
         out[i, target_len - len(r):] = r
         mask[i, target_len - len(r):] = 1
     return out, mask
+
+
+@torch.no_grad()
+def generate(
+    step_fn: StepFn,
+    init_cache_fn: Callable[[int, int], Any],
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    generator: Optional[torch.Generator],
+    max_new_tokens: int,
+    eos_token_id: Optional[int] = None,
+    pad_token_id: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    do_sample: bool = True,
+    top_k_impl: str = "approx",
+    min_new_tokens: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Generate continuations for left-padded prompts.
+
+    Returns ``sequences`` [B, P+N] (prompt + generation, ``pad_token_id``
+    after eos) and ``response_mask`` [B, N] (1 on generated tokens up to and
+    including eos), as the JAX function. The JAX function's
+    ``logits_processor`` (ILQL's advantage shaping) comes with the ILQL
+    trainer slice."""
+    B, P = input_ids.shape
+    N = int(max_new_tokens)
+    dev = input_ids.device
+    prompt_lens = attention_mask.sum(dim=1).to(torch.int32)
+
+    cache = init_cache_fn(B, P + N)
+    cache["index"] = 0  # prefill from slot 0: the flash prefill path engages
+    # mask over all cache slots; generated slots are enabled as they are written
+    full_mask = torch.cat(
+        [attention_mask.to(torch.int32), torch.zeros((B, N), dtype=torch.int32, device=dev)], dim=1
+    )
+    positions = (torch.cumsum(attention_mask, dim=1) - 1).clamp(min=0).to(torch.int32)
+    logits, _, cache = step_fn(input_ids, full_mask, positions, cache)
+    last_logits = logits[:, -1, :]
+
+    seqs = torch.cat(
+        [input_ids.to(torch.int32), torch.full((B, N), pad_token_id, dtype=torch.int32, device=dev)], dim=1
+    )
+    vocab = torch.arange(last_logits.shape[-1], device=dev)
+
+    def sample_step(step: int, logits: torch.Tensor, finished: torch.Tensor) -> torch.Tensor:
+        if eos_token_id is not None and step < min_new_tokens:
+            logits = torch.where((vocab == eos_token_id)[None, :], torch.full_like(logits, -1e9), logits)
+        tok = sample_token(generator, logits, temperature, top_k, top_p, do_sample, top_k_impl)
+        return torch.where(finished, torch.full_like(tok, pad_token_id), tok)
+
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    tok = sample_step(0, last_logits, finished)
+    if eos_token_id is not None:
+        finished = tok == eos_token_id
+    seqs[:, P] = tok
+    full_mask[:, P] = 1
+
+    step = 1
+    while step < N and not bool(finished.all()):
+        # `tok` sits at sequence slot P+step-1, per-sample position prompt_len+step-1
+        pos = (prompt_lens + step - 1)[:, None]
+        logits, _, cache = step_fn(tok[:, None], full_mask, pos, cache)
+        tok = sample_step(step, logits[:, -1, :], finished)
+        if eos_token_id is not None:
+            finished = finished | (tok == eos_token_id)
+        seqs[:, P + step] = tok
+        full_mask[:, P + step] = 1
+        step += 1
+
+    response_mask = full_mask[:, P:]
+    if eos_token_id is not None:
+        # rebuild the mask from the tokens: nothing after a row's first eos,
+        # and never the slots the early exit left unwritten
+        resp = seqs[:, P:]
+        is_eos = (resp == eos_token_id).to(torch.int32)
+        after_eos = torch.cumsum(torch.nn.functional.pad(is_eos[:, :-1], (1, 0)), dim=1) > 0
+        written = torch.arange(N, device=dev)[None, :] < step
+        response_mask = response_mask * (~after_eos & written).to(torch.int32)
+        seqs = torch.cat(
+            [seqs[:, :P], torch.where(response_mask > 0, resp, torch.full_like(resp, pad_token_id))], dim=1
+        )
+    return {"sequences": seqs, "response_mask": response_mask}

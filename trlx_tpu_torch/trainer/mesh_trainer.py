@@ -1,0 +1,532 @@
+"""MeshRLTrainer — the shared trainer engine, on one device (counterpart of
+``trlx_tpu/trainer/mesh_trainer.py``; the name is kept so the counterpart is
+easy to find, though the port runs no mesh).
+
+Responsibilities: model and optimizer setup (``torch.optim`` with the JAX
+package's schedules and global-norm clipping), the gradient-accumulation
+train step (a Python loop over microbatches that averages their gradients),
+padded one-shot generation, stop-sequence decode, evaluation, the main
+``learn()`` loop with periodic eval / checkpoint / save-best, the port's own
+checkpoints (``torch.save``), and jsonl tracking with the JAX package's stat
+names.
+
+Config blocks of the JAX package that this port does not run yet raise
+``NotImplementedError`` naming their slice (:func:`check_port_config`);
+none is silently ignored.
+"""
+
+import os
+from abc import abstractmethod
+from itertools import product
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.models.hf_loading import torch_dtype
+from trlx_tpu_torch.native import find_stop_positions
+from trlx_tpu_torch.ops.generation import generate as generate_op
+from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
+from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
+from trlx_tpu_torch.trainer import BaseRLTrainer, register_trainer
+from trlx_tpu_torch.utils import (
+    Clock,
+    get_optimizer_class,
+    get_scheduler_class,
+    logging,
+    make_lr_scheduler,
+    set_seed,
+    significant,
+)
+from trlx_tpu_torch.utils.trackers import make_tracker
+
+logger = logging.get_logger(__name__)
+
+#: the shared pow2 padding ladder (8 .. 8192) prompt and response lengths pad to
+POW2_BUCKETS = [2 ** i for i in range(3, 14)]
+
+CHECKPOINT_FILE = "trainer.pt"
+
+
+def resolve_device(device, who: str = "trlx_tpu_torch.train") -> torch.device:
+    """``None`` means the card: with no CUDA the caller must ask for the
+    CPU explicitly (``device="cpu"``); nothing falls back silently."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who} runs on a CUDA device by default and none is available; "
+                "pass device='cpu' to run the plain CPU path"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+def check_port_config(config: TRLConfig) -> None:
+    """Raise ``NotImplementedError`` for every enabled config block that a
+    later slice of the port brings, naming that slice."""
+    t, m, mesh = config.train, config.model, config.mesh
+    later = [
+        (t.async_rollouts.enabled, "train.async_rollouts", "async-rollout slice"),
+        (t.async_rollouts.length_bucket_lookahead > 1, "train.async_rollouts.length_bucket_lookahead",
+         "async-rollout slice"),
+        (t.islands.enabled, "train.islands", "async-rollout slice"),
+        (t.observability.enabled, "train.observability", "observability slice"),
+        (t.profile_dir is not None, "train.profile_dir", "observability slice"),
+        (t.resilience.enabled, "train.resilience", "resilience slice"),
+        (t.self_healing.enabled, "train.self_healing", "resilience slice"),
+        (t.serving.enabled, "train.serving", "serving-in-training slice"),
+        (t.serving_resilience.enabled, "train.serving_resilience", "serving-in-training slice"),
+        (t.serving_tenancy.enabled, "train.serving_tenancy", "serving-in-training slice"),
+        (t.serving_fleet.enabled, "train.serving_fleet", "serving-in-training slice"),
+        (t.online.enabled, "train.online", "GRPO / online slice"),
+        (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
+        (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
+        (mesh.remat != "none", f"mesh.remat={mesh.remat!r}", "training-memory slice"),
+        (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice"),
+        (m.model_arch_type != "causal", f"model.model_arch_type={m.model_arch_type!r}", "seq2seq slice"),
+        (bool(m.peft_config), "model.peft_config", "peft slice"),
+        (m.offload_ref, "model.offload_ref", "training-memory slice"),
+        (getattr(config.method, "overlap_reward_scoring", False), "method.overlap_reward_scoring",
+         "async-rollout slice"),
+    ]
+    for axis in ("data", "fsdp", "pipe", "model"):
+        size = getattr(mesh, axis)
+        later.append((size not in (1, -1), f"mesh.{axis}={size}", "scale-out slice (one device)"))
+    for enabled, what, slice_name in later:
+        if enabled:
+            raise NotImplementedError(f"trlx_tpu_torch does not port {what} yet: {slice_name}")
+    for what in ("train.compilation_cache_dir", "mesh.compilation_cache_dir"):
+        section, key = what.split(".")
+        if getattr(getattr(config, section), key):
+            logger.warning(f"{what} configures XLA's compile cache and has no effect in trlx_tpu_torch")
+
+
+@register_trainer
+class MeshRLTrainer(BaseRLTrainer):
+    """Shared engine; algorithm trainers subclass and provide ``setup_model /
+    gen_step_fn / create_train_dataloader / train_step / prepare_learning``.
+
+    ``device=None`` resolves to ``"cuda"`` and raises when there is no CUDA
+    device; pass ``device="cpu"`` for the CPU."""
+
+    def __init__(self, config: TRLConfig, device=None, **kwargs):
+        super().__init__(config, **kwargs)
+        check_port_config(config)
+        self.device = resolve_device(device, type(self).__name__)
+        self.np_rng = set_seed(config.train.seed)
+        # sampling stream of generate(), one per trainer (the JAX rng key)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(config.train.seed))
+        self.tokenizer = load_tokenizer(config.tokenizer)
+        self.compute_dtype = torch_dtype(config.mesh.compute_dtype)
+        self.param_dtype = torch_dtype(config.mesh.param_dtype)
+
+        self.setup_model()
+        self.setup_optimizer()
+
+        self.iter_count = 0
+        self.nth_evaluation = 0
+        self.best_reward = -float("inf")
+        self.clock = Clock()
+        self.generate_kwargs = dict(getattr(config.method, "gen_kwargs", {}) or {})
+        self.generate_experience_kwargs = getattr(config.method, "gen_experience_kwargs", None)
+        self._warned_hf_export = False
+
+        if config.train.run_name is None:
+            config.train.run_name = (
+                f"{config.model.model_path.split('/')[-1]}/{self.device.type}"
+            ).replace("/", "_")
+        self.tracker = make_tracker(config.train, config.to_dict())
+
+    # ------------------------------------------------------------- model setup
+
+    @abstractmethod
+    def setup_model(self):
+        """Set self.model (the trained module), self.model_config, self.model_type."""
+        ...
+
+    def trainable_path_predicate(self, path: str) -> bool:
+        """Which params receive gradients: with num_layers_unfrozen = N >= 0,
+        only the top N transformer layers and all heads train; -1 trains
+        everything. ``path`` is a ``state_dict`` name."""
+        n_unfrozen = self.config.model.num_layers_unfrozen
+        if n_unfrozen < 0:
+            return True
+        if not path.startswith("transformer."):
+            return True  # heads always train
+        if "layers_" in path:
+            layer = int(path.split("layers_")[1].split(".")[0])
+            return layer >= self.model_config.num_layers - n_unfrozen
+        # embeddings / final norm / lm_head of the trunk
+        return False
+
+    def setup_optimizer(self):
+        """Optimizer and schedule from the registries over the trainable
+        parameters (frozen ones get no gradient and no update, as optax's
+        ``set_to_zero`` partition). The optimizer's base rate is 1 and the
+        schedule sets the rate per step (``make_lr_scheduler``)."""
+        kwargs = dict(self.config.optimizer.kwargs)
+        lr = kwargs.pop("lr", 1e-5)
+        sched_kwargs = dict(self.config.scheduler.kwargs)
+        sched_lr = sched_kwargs.pop("learning_rate", lr)
+        self.lr_schedule = get_scheduler_class(self.config.scheduler.name)(
+            learning_rate=sched_lr, **sched_kwargs
+        )
+        self.max_grad_norm = kwargs.pop("max_grad_norm", None)
+        self.trainable_params = []
+        for name, p in self.model.named_parameters():
+            if self.trainable_path_predicate(name):
+                self.trainable_params.append(p)
+            else:
+                p.requires_grad_(False)
+        self.optimizer = get_optimizer_class(self.config.optimizer.name)(
+            self.trainable_params, learning_rate=1.0, **kwargs
+        )
+        self.scheduler = make_lr_scheduler(self.optimizer, self.lr_schedule)
+
+    # -------------------------------------------------------------- train step
+
+    def clip_grads(self, grads: List[torch.Tensor]) -> None:
+        """optax.clip_by_global_norm in place: past ``max_grad_norm`` every
+        gradient becomes ``g / norm * max_grad_norm``."""
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        keep = norm < self.max_grad_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.max_grad_norm))
+
+    def make_grad_accum_step(self, loss_fn: Callable, num_mb: int):
+        """The optimizer step: a loop over ``num_mb`` microbatches that sums
+        their gradients, divides by ``num_mb``, clips, and takes one
+        optimizer step. ``loss_fn(microbatch) -> (loss, flat stats)``. The
+        step returns the stats averaged over microbatches, plus
+        ``learning_rate_group_0``: the schedule at the step count before the
+        update, the rate the update used."""
+
+        def step(batch) -> Dict[str, float]:
+            self.optimizer.zero_grad(set_to_none=True)
+            per_mb = []
+            for mb in batch.split(num_mb):
+                loss, stats = loss_fn(mb)
+                loss.backward()
+                per_mb.append({k: torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
+                               for k, v in stats.items()})
+            grads = [p.grad for p in self.trainable_params if p.grad is not None]
+            for g in grads:
+                g.div_(num_mb)
+            if self.max_grad_norm:
+                self.clip_grads(grads)
+            lr = self.scheduler.get_last_lr()[0]
+            self.optimizer.step()
+            self.scheduler.step()
+            keys = list(per_mb[0])
+            means = torch.stack([torch.stack([s[k] for s in per_mb]).mean() for k in keys]).tolist()
+            mean_stats = dict(zip(keys, means))
+            mean_stats["learning_rate_group_0"] = float(lr)
+            return mean_stats
+
+        return step
+
+    # -------------------------------------------------------------- generation
+
+    @abstractmethod
+    def gen_step_fn(self):
+        """Return step_fn(ids, mask, positions, cache) -> (logits, hidden,
+        cache) and init_cache_fn(batch, total_len) for :func:`generate`."""
+        ...
+
+    def generate(self, prompts_ids: List[np.ndarray], eval_mode: bool = False, **kwargs):
+        """Generate continuations for a list of ragged prompt id arrays:
+        prompts left-padded to a pow2 bucket, one padded ``generate`` on the
+        trainer's device. Returns host ``(sequences, response_mask, P)``."""
+        gen_kwargs = dict(self.generate_kwargs)
+        if not eval_mode and self.generate_experience_kwargs:
+            gen_kwargs = dict(self.generate_experience_kwargs)
+        gen_kwargs.update(kwargs)
+        gen_kwargs.setdefault("eos_token_id", self.tokenizer.eos_token_id)
+        gen_kwargs.setdefault("pad_token_id", self.tokenizer.pad_token_id)
+        max_new = int(gen_kwargs.pop("max_new_tokens", 16))
+
+        P = pad_to_bucket(max(len(p) for p in prompts_ids), POW2_BUCKETS)
+        ids, mask = left_pad_batch(prompts_ids, gen_kwargs["pad_token_id"], P)
+        step_fn, init_cache_fn = self.gen_step_fn()
+        out = generate_op(
+            step_fn, init_cache_fn,
+            torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
+            self.generator, max_new, **gen_kwargs,
+        )
+        sequences = out["sequences"].cpu().numpy()
+        response_mask = out["response_mask"].cpu().numpy()
+        return sequences, response_mask, P
+
+    def decode(
+        self,
+        prompts: List[np.ndarray],
+        samples: np.ndarray,
+        prompt_pad_len: int,
+        append_eos: bool = False,
+        response_masks: Optional[np.ndarray] = None,
+    ) -> Tuple[List[str], List[str], List[str], List[np.ndarray]]:
+        """Decode generated sequences into (str_samples, str_prompts,
+        str_outputs, trimmed_output_ids), trimming at the first stop sequence
+        and (optionally) re-appending eos — the JAX package's token-level
+        trimming, line for line."""
+        B = len(prompts)
+        resp_all = np.ascontiguousarray(samples[:, prompt_pad_len:], np.int32)
+        eos = self.tokenizer.eos_token_id
+        pad = self.tokenizer.pad_token_id
+        if response_masks is not None:
+            lens = np.asarray(response_masks).sum(axis=1).astype(np.int64)
+        else:
+            valid = resp_all != pad
+            lens = np.where(
+                valid.any(axis=1), resp_all.shape[1] - np.argmax(valid[:, ::-1], axis=1), 0
+            ).astype(np.int64)
+        # response_mask counts the eos token itself; output ids exclude it
+        if eos is not None and B > 0:
+            last = resp_all[np.arange(B), np.maximum(lens - 1, 0)]
+            lens = lens - ((lens > 0) & (last == eos)).astype(np.int64)
+        token_stopped = np.zeros(B, bool)
+        if self.stop_sequences:
+            if not hasattr(self, "_stop_token_ids"):
+                self._stop_token_ids = [
+                    self.tokenizer(s, add_special_tokens=False).input_ids
+                    for s in self.stop_sequences
+                ]
+            stop_pos = find_stop_positions(resp_all, self._stop_token_ids)
+            token_stopped = stop_pos < lens
+            lens = np.minimum(lens, stop_pos)
+
+        str_samples, str_prompts, str_outputs, out_ids = [], [], [], []
+        for i, prompt in enumerate(prompts):
+            str_prompt = self.tokenizer.decode(prompt, skip_special_tokens=True)
+            resp = resp_all[i, : lens[i]]
+            if token_stopped[i]:
+                # drop the whitespace run preceding the stop sequence (token-level)
+                while len(resp) and self.tokenizer.decode(resp[-1:]).strip() == "":
+                    resp = resp[:-1]
+            str_output = self.tokenizer.decode(resp, skip_special_tokens=True)
+            if token_stopped[i]:
+                str_output = str_output.rstrip()
+            for stop in self.stop_sequences:
+                stop_ix = str_output.find(stop)
+                if stop_ix >= 0:  # crossed a token boundary; rare slow path
+                    str_output = str_output[:stop_ix].rstrip()
+                    resp = np.asarray(
+                        self.tokenizer(str_output, add_special_tokens=False).input_ids, np.int32
+                    )
+            trimmed = list(resp)
+            if append_eos and eos is not None:
+                trimmed.append(eos)
+            if len(trimmed) == 0:  # never emit empty responses (breaks PPO shapes)
+                trimmed = [eos or 0]
+            str_samples.append(str_prompt + str_output)
+            str_prompts.append(str_prompt)
+            str_outputs.append(str_output)
+            out_ids.append(np.asarray(trimmed, np.int32))
+        return str_samples, str_prompts, str_outputs, out_ids
+
+    # -------------------------------------------------------------- evaluation
+
+    def call_reward_fn(self, **kwargs):
+        return self.reward_fn(**kwargs)
+
+    def evaluate(self) -> Dict[str, Any]:
+        """Generate on eval prompts, score with reward_fn/metric_fn, log a
+        sample table (list-valued gen_kwargs sweep, one suffix per combo)."""
+        logger.info("Evaluating model")
+        stats: Dict[str, Any] = {}
+        sweep_keys = [k for k, v in self.generate_kwargs.items() if isinstance(v, list)]
+        sweeps = [{}]
+        if sweep_keys:
+            base = {k: v for k, v in self.generate_kwargs.items() if k not in sweep_keys}
+            sweeps = [
+                {**base, **dict(zip(sweep_keys, combo))}
+                for combo in product(*[self.generate_kwargs[k] for k in sweep_keys])
+            ]
+
+        for sweep_kwargs in sweeps:
+            suffix = "".join(f"@{k}={v}" for k, v in sweep_kwargs.items() if k in sweep_keys)
+            # decode per batch with that batch's own prompt pad length
+            str_samples, str_prompts, str_outputs, meta = [], [], [], {}
+            for batch in self.eval_pipeline.create_loader(self.config.train.batch_size):
+                prompts = batch["input_ids"]
+                samples, resp_mask, pad_len = self.generate(prompts, eval_mode=True, **sweep_kwargs)
+                s, p, o, _ = self.decode(prompts, samples, pad_len, response_masks=resp_mask)
+                str_samples.extend(s)
+                str_prompts.extend(p)
+                str_outputs.extend(o)
+                for k, v in batch.items():
+                    if k != "input_ids":
+                        meta.setdefault(k, []).extend(v)
+
+            columns = ["prompt", "output"]
+            columns_data = [str_prompts, str_outputs]
+            if self.reward_fn is not None:
+                rewards = self.call_reward_fn(
+                    samples=str_samples, prompts=str_prompts, outputs=str_outputs,
+                    tokenizer=self.tokenizer, **meta,
+                )
+                rewards = [float(np.sum(r)) if np.ndim(r) > 0 else float(r) for r in rewards]
+                columns.append("reward")
+                columns_data.append(rewards)
+                stats[f"reward/mean{suffix}"] = float(np.mean(rewards))
+                stats[f"reward/std{suffix}"] = float(np.std(rewards))
+            if self.metric_fn is not None:
+                metrics = self.metric_fn(
+                    samples=str_samples, prompts=str_prompts, outputs=str_outputs, **meta
+                )
+                for k, xs in metrics.items():
+                    stats[f"metrics/{k}{suffix}"] = float(np.mean(xs))
+                    if np.ndim(xs) > 0 and len(xs) == len(str_samples):
+                        columns.append(k)
+                        columns_data.append(list(map(float, xs)))
+            rows = list(zip(*columns_data))
+            self.tracker.log_table(f"samples{suffix}", columns, [list(r) for r in rows], self.iter_count)
+            for row in rows[:4]:
+                logger.info(" | ".join(str(c)[:72] for c in row))
+        self.nth_evaluation += 1
+        return stats
+
+    # -------------------------------------------------------------- main loop
+
+    @abstractmethod
+    def create_train_dataloader(self):
+        ...
+
+    @abstractmethod
+    def train_step(self, batch) -> Dict[str, float]:
+        """One optimizer step on a host batch; returns flat stats."""
+        ...
+
+    def prepare_learning(self):
+        pass
+
+    def post_epoch_callback(self, epoch: int):
+        pass
+
+    def post_backward_callback(self):
+        pass
+
+    def learn(self):
+        """Main training loop."""
+        return self._learn_loop()
+
+    def _learn_loop(self):
+        train_config = self.config.train
+        self.iter_count = 0
+        if train_config.resume_from_checkpoint:
+            path = train_config.resume_from_checkpoint
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"train.resume_from_checkpoint={path!r} does not exist; "
+                    "refusing to silently train from scratch"
+                )
+            self.load(path)
+        self.prepare_learning()
+
+        results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
+        self.tracker.log(results, self.iter_count)
+        if self.iter_count >= train_config.total_steps:
+            return results
+
+        for epoch in range(train_config.epochs):
+            for batch in self.create_train_dataloader():
+                self.clock.tick()  # reset: measure train_step alone
+                stats = self.train_step(batch)
+                stats["time/forward_backward"] = self.clock.tick()
+                self.iter_count += 1
+                self.post_backward_callback()
+
+                if train_config.checkpoint_interval and self.iter_count % train_config.checkpoint_interval == 0:
+                    self.save(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                    if not self._warned_hf_export:
+                        logger.warning(
+                            "HF-format export (save_pretrained) comes with the checkpoint slice: "
+                            "interval checkpoints hold the port's own trainer state only"
+                        )
+                        self._warned_hf_export = True
+
+                if (
+                    train_config.eval_interval and self.iter_count % train_config.eval_interval == 0
+                ) or self.iter_count >= train_config.total_steps:
+                    results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
+                    stats.update(results)
+                    if train_config.save_best and "reward/mean" in results:
+                        if results["reward/mean"] > self.best_reward:
+                            self.best_reward = results["reward/mean"]
+                            self.save(os.path.join(train_config.checkpoint_dir, "best_checkpoint"))
+
+                stats = {k: significant(v) if isinstance(v, float) else v for k, v in stats.items()}
+                self.tracker.log(stats, self.iter_count)
+                if self.iter_count % 10 == 0 or self.iter_count == 1:
+                    brief = {k: v for k, v in stats.items() if "loss" in k or "reward" in k}
+                    logger.info(f"step {self.iter_count}/{train_config.total_steps} {brief}")
+
+                if self.iter_count >= train_config.total_steps:
+                    self.save(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                    return results
+            self.post_epoch_callback(epoch)
+        return results
+
+    # ------------------------------------------------------------- checkpoints
+
+    def _checkpoint_name(self, it: Optional[int] = None) -> str:
+        """``checkpoint_<step>`` zero-padded to total_steps' width."""
+        it = self.iter_count if it is None else it
+        return f"checkpoint_{it:0{len(str(self.config.train.total_steps))}d}"
+
+    def _state_dict(self) -> Dict[str, Any]:
+        """Counters and every RNG stream: what continuing the exact sample
+        sequence after a restart needs, beside params and optimizer."""
+        return {
+            "iter_count": self.iter_count,
+            "best_reward": self.best_reward,
+            "nth_evaluation": self.nth_evaluation,
+            "generator": self.generator.get_state(),
+            "np_rng_state": self.np_rng.bit_generator.state,
+            "torch_rng_state": torch.get_rng_state(),
+            **self._extra_state(),
+        }
+
+    def _extra_state(self) -> Dict[str, Any]:
+        """Algorithm-specific additions to the trainer state."""
+        return {}
+
+    def _restore_extra_state(self, state: Dict[str, Any]):
+        pass
+
+    def save(self, directory: str):
+        """The port's own checkpoint: one ``torch.save`` of params, optimizer
+        and scheduler (with ``train.save_optimizer``), counters and RNG
+        states, written to a temporary name and renamed into place."""
+        os.makedirs(directory, exist_ok=True)
+        ckpt = {"params": self.model.state_dict(), "state": self._state_dict()}
+        if self.config.train.save_optimizer:
+            ckpt["optimizer"] = self.optimizer.state_dict()
+            ckpt["scheduler"] = self.scheduler.state_dict()
+        path = os.path.join(directory, CHECKPOINT_FILE)
+        torch.save(ckpt, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        logger.info(f"Saved checkpoint to {os.path.abspath(directory)}")
+
+    def load(self, directory: str):
+        """Restore a checkpoint written by :meth:`save`."""
+        ckpt = torch.load(os.path.join(directory, CHECKPOINT_FILE), map_location=self.device, weights_only=False)
+        self.model.load_state_dict(ckpt["params"])
+        if "optimizer" in ckpt and self.config.train.save_optimizer:
+            self.optimizer.load_state_dict(ckpt["optimizer"])
+            self.scheduler.load_state_dict(ckpt["scheduler"])
+        state = ckpt["state"]
+        self.iter_count = state["iter_count"]
+        self.best_reward = state["best_reward"]
+        self.nth_evaluation = state["nth_evaluation"]
+        self.generator.set_state(state["generator"].cpu())
+        self.np_rng.bit_generator.state = state["np_rng_state"]
+        torch.set_rng_state(state["torch_rng_state"].cpu())
+        self._restore_extra_state(state)
+        logger.info(f"Restored checkpoint from {os.path.abspath(directory)} (iter {self.iter_count})")
+
+    def save_pretrained(self, directory: str):
+        raise NotImplementedError(
+            "trlx_tpu_torch does not export HF-format models yet: checkpoint slice"
+        )

@@ -1,0 +1,329 @@
+"""PPO trainer (counterpart of ``trlx_tpu/trainer/ppo_trainer.py``): rollout
+store management, a full-copy frozen reference model, the KL controllers,
+the serial ``make_experience`` pipeline (generate -> reward -> policy and
+reference scoring forwards -> KL-penalized rewards -> rollout store) and
+the PPO loss and train step.
+
+On the card every multi-token forward (generation prefill, both scoring
+forwards, the loss forward) runs the flash forward kernel when the model
+config says ``attention_impl="flash"``, and every learner backward runs the
+flash dK/dV and dQ kernels once per layer and microbatch.
+
+Not ported yet, each raising ``NotImplementedError`` naming its slice: the
+hydra reference branch (``num_layers_unfrozen > 0``), the value branch,
+seq2seq models, peft, async rollouts and the overlapped reward scoring,
+and rollouts through the serving engine (``train.serving``).
+"""
+
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.data.ppo_types import PPORLBatch, PPORLElement
+from trlx_tpu_torch.methods.ppo import PPOConfig
+from trlx_tpu_torch.models.hf_loading import load_pretrained
+from trlx_tpu_torch.models.policy import CausalLMWithValueHead
+from trlx_tpu_torch.models.transformer import TransformerLM
+from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
+from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.trainer import register_trainer
+from trlx_tpu_torch.trainer.mesh_trainer import POW2_BUCKETS, MeshRLTrainer
+from trlx_tpu_torch.utils import infinite_loader, logging
+from trlx_tpu_torch.utils.modeling import RunningMoments, flatten_dict, logprobs_of_labels
+
+logger = logging.get_logger(__name__)
+
+
+@register_trainer
+class PPOTrainer(MeshRLTrainer):
+    def __init__(self, config: TRLConfig, **kwargs):
+        if not isinstance(config.method, PPOConfig):
+            raise ValueError("PPOTrainer requires method=PPOConfig")
+        super().__init__(config, **kwargs)
+        self.method: PPOConfig = config.method
+
+        self.store = PPORolloutStorage(self.tokenizer.pad_token_id)
+        self.kl_ctl = self.method.kl_controller()
+        self.running_moments = RunningMoments()
+        self.mean_kl = 0.0
+        self.rollout_stats: Dict[str, float] = {}
+        self._train_step_fn = None
+
+        # prompt-stream position: draws from the infinite prompt iterator,
+        # checkpointed and replayed on resume
+        self._prompt_batches_drawn = 0
+        self._resume_prompt_batches = 0
+
+        if config.train.rollout_logging_dir is not None:
+            self.log_rollouts = True
+            self.setup_rollout_logging(config)
+        else:
+            self.log_rollouts = False
+
+    # ------------------------------------------------------------------ model
+
+    def setup_model(self):
+        """Policy + value model, random weights from the seed, and a full
+        frozen copy of the trunk as the KL reference."""
+        overrides = dict(self.config.model.model_overrides or {})
+        overrides.setdefault("param_dtype", self.param_dtype)
+        overrides.setdefault("compute_dtype", self.compute_dtype)
+        overrides.setdefault("remat", self.config.mesh.remat)
+        overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
+        self.model_config, _, self.model_type = load_pretrained(self.config.model.model_path, overrides)
+        n_unfrozen = self.config.model.num_layers_unfrozen
+        if n_unfrozen > self.model_config.num_layers:
+            raise ValueError(
+                f"num_layers_unfrozen={n_unfrozen} exceeds num_layers={self.model_config.num_layers}"
+            )
+        if n_unfrozen > 0:
+            raise NotImplementedError(
+                "trlx_tpu_torch does not port the hydra reference branch (num_layers_unfrozen > 0) "
+                "yet: hydra slice; use num_layers_unfrozen=-1 (full reference copy) or 0"
+            )
+        with torch.device(self.device):
+            self.model = CausalLMWithValueHead(
+                self.model_config, num_value_layers=self.config.method.num_value_layers_unfrozen
+            )
+            self.model.init_params(self.config.train.seed)
+            self.ref_model = TransformerLM(self.model_config)
+        self.ref_model.load_state_dict(self.model.transformer.state_dict())
+        self.ref_model.requires_grad_(False)
+
+    def gen_step_fn(self):
+        trunk = self.model.transformer
+
+        def step(ids, mask, positions, cache):
+            # generate() samples from the last position only
+            logits, hidden, _, cache = trunk(ids, mask, positions, cache, last_only=True)
+            return logits, hidden, cache
+
+        return step, trunk.init_cache
+
+    # ------------------------------------------------------------- experience
+
+    def add_prompt_pipeline(self, pipeline):
+        """Attach the prompt pipeline for rollouts: an endless shuffled
+        stream of ``decode_batch_size`` (default ``chunk_size``) prompts."""
+        batch = self.method.decode_batch_size or self.method.chunk_size
+        self._prompt_pipeline = pipeline
+        loader = pipeline.create_loader(batch, shuffle=True, seed=self.config.train.seed)
+        self.prompt_iterator = infinite_loader(loader)
+
+    def setup_rollout_logging(self, config):
+        import json
+        import os
+        import uuid
+
+        self.run_id = f"run-{uuid.uuid4()}"
+        self.rollout_logging_dir = os.path.join(config.train.rollout_logging_dir, self.run_id)
+        os.makedirs(self.rollout_logging_dir, exist_ok=True)
+        with open(os.path.join(self.rollout_logging_dir, "config.json"), "w") as f:
+            f.write(json.dumps(config.to_dict(), indent=2))
+
+    @torch.no_grad()
+    def score(self, seq: np.ndarray, mask: np.ndarray, P: int, R: int):
+        """Policy logprobs and values and reference logprobs over the
+        response window of ``seq`` (prompt left-padded to P, response
+        right-padded to R): host f32 arrays [B, R]."""
+        seq_t = torch.from_numpy(seq).to(self.device)
+        mask_t = torch.from_numpy(mask).to(self.device)
+        labels = seq_t[:, P:P + R]
+        logits, values, _, _ = self.model(seq_t, mask_t)
+        # the window's logits only: log_softmax is per position
+        logprobs = logprobs_of_labels(logits[:, P - 1:P - 1 + R], labels)
+        values = values[:, P - 1:P - 1 + R].float()
+        del logits
+        ref_logits, _, _, _ = self.ref_model(seq_t, mask_t)
+        ref_logprobs = logprobs_of_labels(ref_logits[:, P - 1:P - 1 + R], labels)
+        return logprobs.cpu().numpy(), values.cpu().numpy(), ref_logprobs.cpu().numpy()
+
+    def _generate_chunks(self, tokenizer):
+        """One generation at decode_batch_size, split into chunk_size
+        sub-chunks for reward_fn and the scoring forward."""
+        batch = next(self.prompt_iterator)
+        self._prompt_batches_drawn += 1
+        prompts = batch["input_ids"]
+        metadata = {k: v for k, v in batch.items() if k != "input_ids"}
+        t0 = time.perf_counter()
+        samples, resp_mask, pad_len = self.generate(prompts, eval_mode=False)
+        self._phase_time["generate"] += time.perf_counter() - t0
+        str_samples, str_prompts, str_outputs, out_ids = self.decode(
+            prompts, samples, pad_len, append_eos=True, response_masks=resp_mask
+        )
+        cs = self.method.chunk_size
+        subs = []
+        for i in range(0, len(prompts), cs):
+            sl = slice(i, i + cs)
+            reward_kwargs = dict(
+                samples=str_samples[sl], prompts=str_prompts[sl],
+                outputs=str_outputs[sl], tokenizer=tokenizer,
+                **{k: v[sl] for k, v in metadata.items()},
+            )
+            subs.append(((prompts[sl], out_ids[sl]), reward_kwargs))
+        return subs
+
+    def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
+        """Roll out prompts -> generations -> rewards -> KL-penalized per-token
+        reward assembly -> rollout store. Seconds spent generating, in
+        reward_fn and scoring land in ``time/rollout_{generate,reward,score}``."""
+        logger.info(f"Collecting {num_rollouts} rollouts")
+        ppo_rl_elements: List[PPORLElement] = []
+        accumulated_kl = []
+        all_scores_log = []
+        self._phase_time = {"generate": 0.0, "reward": 0.0, "score": 0.0}
+        self.clock.tick()
+        while len(ppo_rl_elements) < num_rollouts:
+            for chunk, reward_kwargs in self._generate_chunks(self.tokenizer):
+                t0 = time.perf_counter()
+                scores = self.call_reward_fn(**reward_kwargs)
+                self._phase_time["reward"] += time.perf_counter() - t0
+                self._score_and_store(chunk, scores, ppo_rl_elements, accumulated_kl, all_scores_log)
+
+        self.mean_kl = float(np.mean(accumulated_kl))
+        rollout_time = self.clock.tick()
+        self.rollout_stats = {
+            "rollout_scores/mean": float(np.mean(all_scores_log)),
+            "rollout_scores/std": float(np.std(all_scores_log)),
+            "rollout_scores/running_mean": float(self.running_moments.mean),
+            "rollout_scores/running_std": float(self.running_moments.std),
+            "policy/sqrt_kl": float(np.sqrt(max(self.mean_kl, 0.0))),
+            "kl_ctl_value": float(self.kl_ctl.value),
+            "time/rollout_time": rollout_time,
+            **{f"time/rollout_{k}": v for k, v in self._phase_time.items()},
+        }
+        if self.log_rollouts:
+            self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)
+        self.push_to_store(ppo_rl_elements[:num_rollouts])
+
+    def _score_and_store(self, chunk, scores, ppo_rl_elements, accumulated_kl, all_scores_log):
+        """Normalize scores, run the scoring forwards, and assemble
+        KL-penalized PPORLElements."""
+        prompts, out_ids = chunk
+        dense = np.ndim(scores[0]) > 0
+        if dense:
+            dense_scores = [np.asarray(s, np.float32) for s in scores]
+            scores = np.asarray([s.sum() for s in dense_scores], np.float32)
+        else:
+            dense_scores = None
+            scores = np.asarray(list(scores), np.float32).reshape(-1)
+
+        all_scores_log.extend(scores.tolist())
+        self.running_moments.update(scores)
+        if self.method.cliprange_reward:
+            scores = np.clip(scores, -self.method.cliprange_reward, self.method.cliprange_reward)
+        if self.method.scale_reward == "running":
+            scores = scores / max(self.running_moments.std, 1e-8)
+        elif self.method.scale_reward == "ref":
+            scores = scores / max(self.method.ref_std or 1.0, 1e-8)
+
+        P = pad_to_bucket(max(len(p) for p in prompts), POW2_BUCKETS)
+        R = pad_to_bucket(max(len(o) for o in out_ids), POW2_BUCKETS)
+        q_ids, q_mask = left_pad_batch(prompts, self.tokenizer.pad_token_id, P)
+        r_ids = np.full((len(out_ids), R), self.tokenizer.pad_token_id, np.int32)
+        r_mask = np.zeros((len(out_ids), R), np.int32)
+        for i, o in enumerate(out_ids):
+            r_ids[i, : len(o)] = o
+            r_mask[i, : len(o)] = 1
+        t0 = time.perf_counter()
+        logprobs, values, ref_logprobs = self.score(
+            np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R
+        )
+        self._phase_time["score"] += time.perf_counter() - t0
+
+        # per-token KL penalty & reward assembly (k3 estimator)
+        log_ratio = (logprobs - ref_logprobs) * r_mask
+        kl_per_token = np.exp(log_ratio) - 1.0 - log_ratio
+        # the controller sees the per-SEQUENCE kl sum
+        accumulated_kl.append(kl_per_token.sum(axis=1).mean())
+
+        kl_coef = self.kl_ctl.value
+        for i in range(len(prompts)):
+            n = int(r_mask[i].sum())
+            rewards = -kl_coef * log_ratio[i, :n]
+            if dense:
+                ds = dense_scores[i]
+                rewards[: min(n, len(ds))] += ds[: min(n, len(ds))]
+            else:
+                rewards[n - 1] += scores[i]
+            ppo_rl_elements.append(
+                PPORLElement(
+                    query_tensor=np.asarray(prompts[i], np.int32),
+                    response_tensor=r_ids[i, :n],
+                    logprobs=logprobs[i, :n],
+                    values=values[i, :n],
+                    rewards=rewards.astype(np.float32),
+                )
+            )
+
+    # ------------------------------------------------------------- train loop
+
+    def _extra_state(self):
+        return {"prompt_batches_drawn": self._prompt_batches_drawn}
+
+    def _restore_extra_state(self, state):
+        self._resume_prompt_batches = int(state.get("prompt_batches_drawn", 0))
+
+    def _fast_forward_prompt_stream(self):
+        """Replay the restored number of prompt-batch draws (exact replay:
+        the loader reshuffles per epoch from ``seed + epoch``)."""
+        n = self._resume_prompt_batches
+        self._resume_prompt_batches = 0
+        if n <= 0 or getattr(self, "prompt_iterator", None) is None:
+            return
+        for _ in range(n):
+            next(self.prompt_iterator)
+        self._prompt_batches_drawn = n
+        logger.info(f"Resume: fast-forwarded the prompt stream by {n} batches")
+
+    def prepare_learning(self):
+        bs = self.config.train.batch_size
+        self.num_mb = max(1, bs // (self.config.train.minibatch_size or bs))
+        self._fast_forward_prompt_stream()
+        self.make_experience(self.method.num_rollouts, self.iter_count)
+
+    def create_train_dataloader(self):
+        """ppo_epochs passes over the current rollout store per outer epoch."""
+        loader = self.store.create_loader(
+            self.config.train.batch_size, shuffle=True, seed=self.config.train.seed + self.iter_count
+        )
+        for _ in range(self.method.ppo_epochs):
+            yield from loader
+
+    def loss_fn(self, mb: PPORLBatch):
+        """(loss, flat stats) of one device microbatch: the policy forward
+        over prompt + response, logprobs and values over the response window,
+        GAE, and the clipped PPO loss."""
+        seq = torch.cat([mb.query_tensors, mb.response_tensors], dim=1)
+        mask = torch.cat([mb.attention_mask, mb.response_mask], dim=1)
+        logits, values_pred, _, _ = self.model(seq, mask)
+        start = mb.query_tensors.shape[1] - 1
+        R = mb.response_tensors.shape[1]
+        logprobs = logprobs_of_labels(logits[:, start:start + R], seq[:, start + 1:start + 1 + R])
+        values_pred = values_pred[:, start:start + R].float()
+        advantages, returns = self.method.get_advantages_and_returns(
+            mb.values, mb.rewards, mb.response_mask
+        )
+        loss, stats = self.method.loss(
+            logprobs, values_pred, mb.logprobs, mb.values, advantages, returns, mb.response_mask,
+        )
+        return loss, flatten_dict(stats)
+
+    def train_step(self, batch: PPORLBatch) -> Dict[str, float]:
+        if self._train_step_fn is None:
+            self._train_step_fn = self.make_grad_accum_step(self.loss_fn, self.num_mb)
+        out = self._train_step_fn(batch.to(self.device))
+        out.update(self.rollout_stats)
+        return out
+
+    def post_backward_callback(self):
+        """KL controller update per optimizer step."""
+        self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
+
+    def post_epoch_callback(self, epoch: int):
+        """Discard stale rollouts and collect fresh experience."""
+        self.store.clear_history()
+        self.make_experience(self.method.num_rollouts, self.iter_count)

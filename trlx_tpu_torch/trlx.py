@@ -1,0 +1,86 @@
+"""Public ``train()`` entry (counterpart of ``trlx_tpu/trlx.py``): builds
+the trainer and its pipelines and runs ``learn()``.
+
+Dispatch rows of the JAX package:
+
+==========================  =========================  ======================
+ given                       mode                       in this port
+==========================  =========================  ======================
+ ``reward_fn``               online RL (PPO)            ported
+ ``environment``             environment RL (GRPO)      GRPO / online slice
+ ``samples`` + ``rewards``   offline RL (ILQL)          ILQL trainer slice
+ ``samples``                 supervised (SFT)           SFT trainer slice
+==========================  =========================  ======================
+
+``device=None`` runs on the CUDA device and raises when there is none;
+``device="cpu"`` runs the plain CPU path.
+"""
+
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
+
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.data.default_configs import default_ppo_config
+from trlx_tpu_torch.utils import logging, set_seed
+from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
+
+logger = logging.get_logger(__name__)
+
+
+def train(
+    model_path: Optional[str] = None,
+    reward_fn: Optional[Callable] = None,
+    dataset: Optional[Iterable[Tuple[str, float]]] = None,
+    samples: Optional[List[str]] = None,
+    rewards: Optional[List[float]] = None,
+    prompts: Optional[List[Union[str, Dict]]] = None,
+    eval_prompts: Optional[List[Union[str, Dict]]] = None,
+    metric_fn: Optional[Callable] = None,
+    config: Optional[TRLConfig] = None,
+    stop_sequences: Optional[List[str]] = None,
+    environment=None,
+    device=None,
+):
+    """Fit with PPO from ``reward_fn`` and ``prompts`` (the JAX package's
+    surface plus ``device``); returns the trainer."""
+    if reward_fn is not None and environment is not None:
+        raise ValueError(
+            "`reward_fn` and `environment` are mutually exclusive: an environment IS the reward source"
+        )
+    if environment is not None:
+        raise NotImplementedError("trlx_tpu_torch does not port environment training yet: GRPO / online slice")
+    if reward_fn is None:
+        if dataset is not None or rewards is not None:
+            raise NotImplementedError("trlx_tpu_torch does not port offline RL (ILQL) yet: ILQL trainer slice")
+        if samples is not None:
+            raise NotImplementedError("trlx_tpu_torch does not port supervised fine-tuning yet: SFT trainer slice")
+        raise ValueError("`reward_fn` (PPO) should be given for training")
+    if config is None:
+        logger.warning(
+            "Passing the `config` argument implicitly is depreciated, use or adapt one of the default configs instead"
+        )
+        config = default_ppo_config()
+    if model_path:
+        config.model.model_path = model_path
+
+    set_seed(config.train.seed)
+    trainer = get_trainer(config.train.trainer)(
+        config=config,
+        reward_fn=reward_fn,
+        metric_fn=metric_fn,
+        stop_sequences=stop_sequences,
+        device=device,
+        **config.train.trainer_kwargs,
+    )
+
+    batch_size = config.train.batch_size
+    max_prompt_length = config.train.seq_length - config.method.gen_kwargs.get("max_new_tokens", 0)
+    prompts = prompts or [trainer.tokenizer.bos_token] * batch_size
+    if eval_prompts is None:
+        eval_prompts = prompts[:batch_size]
+    pipeline = get_pipeline(config.train.pipeline)(prompts, max_prompt_length, trainer.tokenizer)
+    trainer.add_prompt_pipeline(pipeline)
+    eval_pipeline = get_pipeline(config.train.pipeline)(eval_prompts, max_prompt_length, trainer.tokenizer)
+    trainer.add_eval_pipeline(eval_pipeline)
+
+    trainer.learn()
+    return trainer

@@ -18,12 +18,17 @@ Phases, each printing one JSON line:
                   dK/dV (K2) and dQ (K3) in f32 and bf16 over MHA, GQA, MQA,
                   ragged T/S, left padding and a fully masked batch row, and
                   the whole autograd path against autograd through the plain
-                  forward. Max abs error within 1e-4 (f32) / 2e-2 (bf16)
+                  forward; the paged verify (K5) over MHA and GQA, Q = 1, 2,
+                  5, a 64-token chunk and more rows than one row tile, f32,
+                  bf16 and int8 pools, ragged lens, block edges, the table's
+                  end and idle slots, and K5 at Q=1 equal to K4 at lens + 1
+                  bit for bit. Max abs error within 1e-4 (f32) / 2e-2 (bf16)
                   times max(1, max|reference|).
 4. ``timing``   — CUDA-event times of kernel, plain version and the library
                   yardstick (SDPA for K1, SDPA's backward for K2 and K3; none
-                  for K4) beside the bound max(bytes / 3.35 TB/s, flops / 989
-                  TFLOP/s); K2 and K3 each alone at the learner's shape.
+                  for K4 and K5) beside the bound max(bytes / 3.35 TB/s,
+                  flops / 989 TFLOP/s); K2 and K3 each alone at the learner's
+                  shape; K5 at the engine's verify shape and a chunk append.
 5. ``parity``   — the engine on the card against the same engine on the CPU
                   (plain versions): gpt2 widths at 2 layers, f32, 8 prompts x
                   16 greedy tokens must be identical.
@@ -37,17 +42,36 @@ Phases, each printing one JSON line:
                   and read just after; every prefill wave must have launched
                   the flash kernel once per layer and every decode step the
                   paged kernel once per layer.
-7. ``train_parity`` — ``PPOTrainer`` on the card against ``PPOTrainer`` on
+7. ``spec_parity`` — speculative decoding and chunked prefill on the card
+                  against the CPU port on the same weights (gpt2 widths at 2
+                  layers, f32, greedy): the engine with (spec_k,
+                  prefill_chunk) in {(4, 0), (0, 8), (3, 5)}, plain and int8
+                  KV, and a 2-step ``PPOTrainer`` rolling out through the
+                  engine (spec_k 4, prefill_chunk 8). Tokens compared
+                  tie-aware (at a split the CPU model may prefer its own
+                  token by at most 1e-3 x max(1, |top logit|)), experience
+                  and losses with ``train_parity``'s tolerances.
+8. ``engine_spec`` — a main path: the engine at full gpt2 width with int8
+                  KV, spec_k 4 and prefill_chunk 64 under the JAX package's
+                  spec-leg traffic (768 requests, every budget 128), a
+                  warm-up and a measured pass; K5 and K1 launched, K4 not;
+                  the first 32 requests held against the one-token engine
+                  with the same chunking, tie-aware (bf16: a preference of
+                  at most 2e-2 x max(1, |top logit|) at a split).
+9. ``train_parity`` — ``PPOTrainer`` on the card against ``PPOTrainer`` on
                   the CPU (2 layers, hidden 64, f32, greedy) from the same
                   weights: one experience phase, 2 optimizer steps; tokens
                   identical, experience within 1e-4, losses within 1e-3.
-8. ``train``    — the other main path: ``trlx_tpu_torch.train`` at full
+10. ``train``   — a main path: ``trlx_tpu_torch.train`` at full
                   gpt2-small width (bf16 compute, f32 params and AdamW,
                   flash attention, the bytes tokenizer): 64 sampled rollouts
                   of 128 tokens per experience phase, 4 optimizer steps of 32
                   rollouts in 2 microbatches. Counts reset just before and
                   read just after: K2 and K3 once per layer and microbatch in
                   every step, K1 in every prefill, scoring and loss forward.
+11. ``train_serving`` — a main path: ``train``'s run with ``train.serving``
+                  on (block size 16, spec_k 4, prefill_chunk 64): rollouts
+                  through the engine, K5 launched in every experience phase.
 
 Then the kernel table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
@@ -64,7 +88,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "train_parity", "train")
+PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity", "engine_spec",
+          "train_parity", "train", "train_serving")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -140,6 +165,25 @@ def paged_call(fn, case):
               case["context_lens"], k_scale=case.get("k_scale"), v_scale=case.get("v_scale"))
 
 
+def verify_case(torch, gen, B, Q, H, Hkv, D, BS, MB, quant, dev, dtype=None, lens=None):
+    """paged_case's pools with q [B, Q, H, D] and PRE-append lens: ragged in
+    [0, MB*BS - Q], every 8th slot (from 1) at BS - 1 so its queries cross a
+    block edge, every 8th (from 2) at MB*BS - Q so its last query reaches
+    the table's end, every 16th idle (null table row, len 0). With ``lens``
+    given, every slot is live at those lens."""
+    case = paged_case(torch, gen, B, H, Hkv, D, BS, MB, quant, dev, dtype)
+    case["q"] = torch.randn(B, Q, H, D, generator=gen, device=dev).to(case["q"].dtype)
+    if lens is None:
+        lens = torch.randint(0, MB * BS - Q + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+        lens[1::8] = min(BS - 1, MB * BS - Q)
+        lens[2::8] = MB * BS - Q
+        lens[::16] = 0
+    else:
+        case["block_tables"] = torch.arange(1, B * MB + 1, dtype=torch.int32, device=dev).reshape(B, MB)
+    case["context_lens"] = lens
+    return case
+
+
 def flash_bound(B, H, Hkv, T, D, elem):
     byts = (2 * B * H * T * D + 2 * B * Hkv * T * D) * elem + B * T * 4
     flops = 2 * B * H * T * T * D  # causal: half of the two 2*T*S*D products
@@ -157,6 +201,25 @@ def paged_bound(case):
     byts += 2 * B * H * D * case["q"].element_size() + case["block_tables"].numel() * 4 + B * 4
     flops = 4 * live * H * D
     return byts, flops
+
+
+def verify_bound(case):
+    """Live K/V read once (the positions the slot's last query sees, scales
+    too under int8), q and out, tables and lens; 4*D flops per head and
+    visible (query, position) pair."""
+    import torch
+
+    lens = case["context_lens"].long()
+    B, Q, H, D = case["q"].shape
+    NB, BS, Hkv, _ = case["k_pool"].shape
+    S = case["block_tables"].shape[1] * BS
+    live = int((lens + Q).clamp(max=S).sum())
+    byts = 2 * live * Hkv * D * case["k_pool"].element_size()
+    if "k_scale" in case:
+        byts += 2 * live * Hkv * 4
+    byts += 2 * B * Q * H * D * case["q"].element_size() + case["block_tables"].numel() * 4 + B * 4
+    pairs = int((lens[:, None] + 1 + torch.arange(Q, device=lens.device)[None, :]).clamp(max=S).sum())
+    return byts, 4 * pairs * H * D
 
 
 def bound_ms(byts, flops):
@@ -200,7 +263,8 @@ def phase_kernels(ctx):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results, errs = [], {"flash_fwd": 0.0, "paged_decode": 0.0, "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
+    results, errs = [], {"flash_fwd": 0.0, "paged_decode": 0.0, "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0,
+                         "paged_verify": 0.0}
     flash_cases = [
         ("gpt2_prefill", dict(B=16, H=12, Hkv=12, T=128, D=64,
                               pad=[int(x) for x in torch.randint(0, 96, (16,), generator=gen, device=dev)])),
@@ -240,6 +304,7 @@ def phase_kernels(ctx):
     results.append({"kernel": "paged_decode", "case": "gpt2_decode", "kv": "f32",
                     "max_abs_err": err, "tol": TOL["float32"], "ok": err <= TOL["float32"]})
     results += check_flash_backward(torch, gen, dev, errs)
+    results += check_paged_verify(torch, gen, dev, errs)
     for r in results:
         emit({"phase": "kernels", **r})
     ctx["max_abs_err"] = errs
@@ -362,6 +427,55 @@ def check_flash_backward(torch, gen, dev, errs):
     return results
 
 
+#: K5 cases: (name, B, Q, H, Hkv, D); BS=16, MB=16 (256 positions per slot)
+VERIFY_CASES = [
+    ("gpt2_verify_q1", 64, 1, 12, 12, 64),
+    ("gpt2_verify_q2", 64, 2, 12, 12, 64),
+    ("gpt2_verify_q5", 256, 5, 12, 12, 64),
+    ("gpt2_chunk_q64", 4, 64, 12, 12, 64),
+    ("mha_q100_two_row_tiles", 4, 100, 12, 12, 64),
+    ("gqa_12_3_q5", 64, 5, 12, 3, 64),
+    ("gqa_12_3_q64_four_row_tiles", 4, 64, 12, 3, 64),
+    ("gqa_32_8_q3_d128", 16, 3, 32, 8, 128),
+]
+
+
+def check_paged_verify(torch, gen, dev, errs):
+    """K5 against paged_verify_attention_reference on the same CUDA tensors
+    over VERIFY_CASES with f32, bf16 and int8 pools (int8 under bf16
+    queries); then K5 at Q=1 with lens against K4 with lens + 1, which must
+    be equal bit for bit (f32, bf16, int8)."""
+    from trlx_tpu_torch.ops.paged_attention import (
+        paged_attention_kernel, paged_verify_attention_kernel, paged_verify_attention_reference,
+    )
+
+    results = []
+    for name, B, Q, H, Hkv, D in VERIFY_CASES:
+        for kv, quant, dtype in (("f32", False, torch.float32), ("bf16", False, torch.bfloat16),
+                                 ("int8", True, torch.bfloat16)):
+            case = verify_case(torch, gen, B, Q, H, Hkv, D, 16, 16, quant, dev, dtype)
+            out = paged_call(paged_verify_attention_kernel, case)
+            ref = paged_call(paged_verify_attention_reference, case)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[str(dtype).split(".")[-1]] * max(1.0, ref.float().abs().max().item())
+            ok = err <= tol and bool(torch.isfinite(out.float()).all()) and out.shape == case["q"].shape
+            results.append({"kernel": "paged_verify", "case": name, "kv": kv, "shape": list(case["q"].shape),
+                            "max_abs_err": err, "tol": tol, "ok": ok})
+            errs["paged_verify"] = max(errs["paged_verify"], err)
+    for kv, quant, dtype in (("f32", False, torch.float32), ("bf16", False, torch.bfloat16),
+                             ("int8", True, torch.bfloat16)):
+        case = verify_case(torch, gen, 256, 1, 12, 12, 64, 16, 16, quant, dev, dtype)
+        verify = paged_call(paged_verify_attention_kernel, case)[:, 0]
+        decode = paged_call(paged_attention_kernel, dict(case, q=case["q"][:, 0].contiguous(),
+                                                         context_lens=case["context_lens"] + 1))
+        torch.cuda.synchronize()
+        results.append({"kernel": "paged_verify", "case": "q1 == paged_decode at lens + 1", "kv": kv,
+                        "max_abs_err": (verify.float() - decode.float()).abs().max().item(),
+                        "ok": bool(torch.equal(verify, decode))})
+    return results
+
+
 def phase_timing(ctx):
     import torch
     import torch.nn.functional as F
@@ -400,9 +514,47 @@ def phase_timing(ctx):
             "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops,
         }
     timings.update(time_flash_backward(torch, F, gen, dev))
+    timings.update(time_paged_verify(torch, gen, dev))
     for name, t in timings.items():
         emit({"phase": "timing", "kernel": name, "card": ctx.get("smi"), **t})
     ctx["timings"] = timings
+
+
+def time_paged_verify(torch, gen, dev):
+    """K5 at the engine's verify shape (256 slots, the pending token + 4
+    drafts, MB=16 blocks of 16, bf16 and int8 KV) and at a chunk append (one
+    slot, 64 tokens onto 64 already there), beside its plain version and its
+    bound; no single PyTorch call computes it. The timed outputs are held
+    against the plain ones with the kernels phase's tolerance."""
+    from trlx_tpu_torch.ops.paged_attention import paged_verify_attention_kernel, paged_verify_attention_reference
+
+    timings = {}
+    shapes = [
+        ("paged_verify", dict(B=256, Q=5, quant=False), None),
+        ("paged_verify_int8", dict(B=256, Q=5, quant=True), None),
+        ("paged_verify_chunk", dict(B=1, Q=64, quant=False), 64),
+    ]
+    for key, shp, lens in shapes:
+        lens = None if lens is None else torch.full((shp["B"],), lens, dtype=torch.int32, device=dev)
+        case = verify_case(torch, gen, shp["B"], shp["Q"], 12, 12, 64, 16, 16, shp["quant"], dev, lens=lens)
+        out = paged_call(paged_verify_attention_kernel, case)
+        ref = paged_call(paged_verify_attention_reference, case)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL["bfloat16"] * max(1.0, ref.float().abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"{key} disagrees with its plain version: {err} > {tol}")
+        byts, flops = verify_bound(case)
+        b_ms, b_by = bound_ms(byts, flops)
+        live = int((case["context_lens"].long() + shp["Q"]).clamp(max=256).sum())
+        timings[key] = {
+            "shape": f"B={shp['B']} Q={shp['Q']} H=12 D=64 BS=16 MB=16 "
+                     f"{'int8' if shp['quant'] else 'bf16'} KV, {live} live tokens",
+            "ms": cuda_time_ms(lambda: paged_call(paged_verify_attention_kernel, case)),
+            "plain_ms": cuda_time_ms(lambda: paged_call(paged_verify_attention_reference, case)),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops, "max_abs_err": err,
+        }
+    return timings
 
 
 def train_valid(torch, gen, B, P, R, dev, r_max=None):
@@ -500,15 +652,22 @@ def gpt2_config(layers: int, dtype, quant: bool = False):
     )
 
 
+def _last_logits(trunk, prompt, generated, pos):
+    """``trunk``'s f32 logits for generated position ``pos`` after the prompt
+    and ``generated[:pos]``."""
+    import torch
+
+    ids = torch.tensor([list(prompt) + list(generated[:pos])], device=trunk.device)
+    with torch.no_grad():
+        return trunk(ids, torch.ones_like(ids))[0][0, -1].float()
+
+
 def _logit_gap(trunk, prompt, generated, pos):
     """Top-2 logit gap of ``trunk`` at generated position ``pos`` (a gap far
     above float noise means the contexts differed, not a near tie)."""
     import torch
 
-    ids = torch.tensor([list(prompt) + list(generated[:pos])], device=trunk.device)
-    with torch.no_grad():
-        logits = trunk(ids, torch.ones_like(ids))[0][0, -1].float()
-    top = torch.topk(logits, 2).values
+    top = torch.topk(_last_logits(trunk, prompt, generated, pos), 2).values
     return float(top[0] - top[1])
 
 
@@ -568,9 +727,10 @@ def serving_traffic(vocab_size: int, seed: int = SEED):
     return prompts, budgets
 
 
-def full_width_engine(quant: bool, state=None):
+def full_width_engine(quant: bool, state=None, num_slots=None, **knobs):
     """(engine, state): gpt2 at full width, 12 layers, bf16, flash prefill,
-    random weights from SEED (or ``state``), SLOTS slots."""
+    random weights from SEED (or ``state``), ``num_slots`` (default SLOTS) slots; ``knobs``
+    (spec_k, prefill_chunk) pass to the engine."""
     import torch
 
     from trlx_tpu_torch.models.transformer import TransformerLM
@@ -579,9 +739,9 @@ def full_width_engine(quant: bool, state=None):
     cfg = gpt2_config(12, torch.bfloat16, quant)
     if state is None:
         state = TransformerLM(cfg, device="cuda").init_params(SEED).state_dict()
-    engine = ServingEngine(TransformerLM(cfg), state, num_slots=SLOTS,
+    engine = ServingEngine(TransformerLM(cfg), state, num_slots=num_slots or SLOTS,
                            max_seq_len=PROMPT_CAP + MAX_NEW,
-                           gen_kwargs=dict(do_sample=False), seed=SEED)
+                           gen_kwargs=dict(do_sample=False), seed=SEED, **knobs)
     return engine, state
 
 
@@ -642,6 +802,209 @@ def phase_engine(ctx):
     ctx["main_path_launches"] = _kernels.launches()
 
 
+def tie_aware_splits(ref_trunk, prompts, generated, ref_generated):
+    """Rows whose generated tokens differ from the reference's, each at its
+    first split: ``logit_gap`` is ``ref_trunk``'s logit of the reference's
+    token minus its logit of the other token, over the common prefix, and
+    ``top_logit`` its largest logit there (None when one row merely ended
+    first). ``generated`` / ``ref_generated``: one token list per prompt."""
+    splits = []
+    for row, (got, want) in enumerate(zip(generated, ref_generated)):
+        got, want = list(got), list(want)
+        if got == want:
+            continue
+        pos = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        split = {"row": row, "position": pos, "lengths": [len(got), len(want)], "logit_gap": None,
+                 "top_logit": None}
+        if pos < min(len(got), len(want)):
+            logits = _last_logits(ref_trunk, prompts[row], want, pos)
+            split.update(tokens=[int(got[pos]), int(want[pos])],
+                         logit_gap=float(logits[want[pos]] - logits[got[pos]]),
+                         top_logit=float(logits.max()))
+        splits.append(split)
+    return splits
+
+
+def near_tie(split, dtype: str) -> bool:
+    """A split is a near tie when the reference's preference for its own
+    token is within the kernels' tolerance for ``dtype``, relative to the
+    logits' magnitude (TIE_GAP[dtype] * max(1, |top logit|)): bf16 logits of
+    magnitude 2-4 are spaced 1/64 apart, so an absolute gap would sit below
+    one rounding step."""
+    return split["logit_gap"] is not None and (
+        split["logit_gap"] <= TIE_GAP[dtype] * max(1.0, abs(split["top_logit"])))
+
+
+def generated_rows(seqs, mask, P):
+    """Per-row generated tokens of a ``generate_batch`` result."""
+    return [list(seqs[i, P:P + int(mask[i].sum())]) for i in range(len(seqs))]
+
+
+def engine_counts(engine):
+    """The engine's counters (its stats without the host-clock seconds)."""
+    return {k: v for k, v in vars(engine.stats).items() if not k.endswith("_s")}
+
+
+#: (spec_k, prefill_chunk) settings of the spec_parity engines
+SPEC_KNOBS = [(4, 0), (0, 8), (3, 5)]
+#: a split is a near tie when the reference prefers its own token by at most
+#: TIE_GAP * max(1, |top logit|) (:func:`near_tie`): f32 / bf16
+TIE_GAP = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def repetitive_prompts(vocab_size, n, seed):
+    """``n`` seeded prompts of 6..60 tokens, each a random 3..12-token
+    segment repeated, then 0..8 own tokens: repetition gives the n-gram
+    draft something to match."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for _ in range(n):
+        seg = rng.integers(1, vocab_size, int(rng.integers(3, 13)))
+        body = np.tile(seg, int(rng.integers(2, 5)))
+        prompts.append(np.concatenate([body, rng.integers(1, vocab_size, int(rng.integers(0, 9)))])
+                       .astype(np.int32)[:60])
+    return prompts
+
+
+def phase_spec_parity(ctx):
+    """Speculative decoding and chunked prefill on the card against the CPU
+    port on the same weights (gpt2 widths at 2 layers, f32, greedy, 8
+    repetitive prompts x 24 tokens through 4 slots), per SPEC_KNOBS setting
+    and KV layout; then a 2-step PPOTrainer rolling out through the engine.
+    Tokens tie-aware; stats, experience and losses as train_parity's."""
+    import torch
+
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.serving import GenerationClient, ServingEngine
+
+    cfg = gpt2_config(2, torch.float32)
+    state = TransformerLM(cfg).init_params(SEED).state_dict()
+    prompts = repetitive_prompts(cfg.vocab_size, 8, SEED + 7)
+    failed = []
+    for quant in (False, True):
+        for spec_k, chunk in SPEC_KNOBS:
+            runs = {}
+            for device in ("cuda", "cpu"):
+                eng = ServingEngine(TransformerLM(cfg.replace(kv_cache_quant=quant)), state, num_slots=4,
+                                    max_seq_len=96, block_size=16, gen_kwargs=dict(do_sample=False),
+                                    seed=SEED, spec_k=spec_k, prefill_chunk=chunk, device=device)
+                seqs, mask, P = GenerationClient(eng).generate_batch(prompts, 24)
+                runs[device] = (generated_rows(seqs, mask, P), eng)
+            (cu, cu_eng), (cp, cp_eng) = runs["cuda"], runs["cpu"]
+            splits = tie_aware_splits(cp_eng.trunk, prompts, cu, cp)
+            s = cu_eng.summary()
+            report = {"phase": "spec_parity", "kv": "int8" if quant else "f32", "spec_k": spec_k,
+                      "prefill_chunk": chunk, "identical": not splits, "splits": splits,
+                      "spec_rounds": s["spec_rounds"], "accepted_tok_per_round": s["accepted_tok_per_round"],
+                      "spec_accept_rate": s["spec_accept_rate"], "chunk_appends": s["chunk_appends"],
+                      "cpu_spec_rounds": cp_eng.stats.spec_rounds,
+                      "blocks_in_use": [cu_eng.allocator.blocks_in_use, cp_eng.allocator.blocks_in_use]}
+            emit(report)
+            if (not all(near_tie(x, "float32") for x in splits)
+                    or report["blocks_in_use"] != [0, 0]
+                    or (spec_k > 0) != (s["spec_rounds"] > 0) or (chunk > 0) != (s["chunk_appends"] > 0)
+                    or (not splits and engine_counts(cu_eng) != engine_counts(cp_eng))):
+                failed.append(report)
+    trainer_report, ok = train_parity_report(
+        {"train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 8}},
+        tie_dtype="float32",
+    )
+    emit({"phase": "spec_parity", "trainer": "train.serving spec_k=4 prefill_chunk=8", **trainer_report})
+    if not ok:
+        failed.append(trainer_report)
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"speculative / chunked engine on the card disagrees with the CPU port: {failed}")
+
+
+def phase_engine_spec(ctx):
+    """A main path: the engine at full gpt2 width, int8 KV, spec_k=4 and
+    prefill_chunk=64, under the JAX package's spec-leg traffic (bench.py
+    ``_serving_perf``: 768 requests of a 64-token shared prefix plus 1..64
+    own tokens, every budget 128, greedy), a warm-up and a measured pass.
+    Launch counts are reset just before and read just after: K5 on every
+    verify round and chunk append, K1 on every prefill wave, K4 never. Then
+    the first 32 requests against the one-token engine (spec_k 0, the same
+    prefill_chunk) on the same weights, tie-aware: this isolates the
+    speculative rounds, and the CPU tests hold chunked against unchunked
+    output exactly in f32."""
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    prompts, _ = serving_traffic(gpt2_config(12, torch.bfloat16).vocab_size)
+    budgets = [MAX_NEW] * len(prompts)
+    eng, state = full_width_engine(True, spec_k=4, prefill_chunk=PROMPT_CAP // 2)
+    L = eng.trunk.config.num_layers
+    first = {}
+    _kernels.reset_launches()
+    for label in ("warmup", "measured"):
+        before = dict(_kernels.launches())
+        stats0 = dict(vars(eng.stats))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+        done = eng.run(uids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delivered = sum(len(done[u].generated) for u in uids)
+        first = {i: list(done[u].generated) for i, u in enumerate(uids[:32])}
+        for u in uids:
+            eng.scheduler.pop_request(u)
+        d = {k: v - stats0[k] for k, v in vars(eng.stats).items()}
+        launched = {k: _kernels.launches()[k] - before[k] for k in before}
+        short = [u for u, n in zip(uids, budgets) if len(done[u].generated) != n]
+        run = {"phase": "engine_spec", "kv": "int8", "pass": label, "card": ctx.get("smi"),
+               "requests": len(prompts), "slots": SLOTS, "spec_k": 4, "prefill_chunk": PROMPT_CAP // 2,
+               "delivered_tokens": delivered, "wall_s": wall, "tok_s": delivered / wall,
+               "decode_rounds": d["decode_steps"], "prefill_waves": d["prefill_waves"],
+               "chunk_appends": d["chunk_appends"],
+               "accepted_tok_per_round": d["delivered_tokens"] / max(1, d["decode_slot_rounds"]),
+               "spec_accept_rate": d["spec_accepted_tokens"] / max(1, d["spec_draft_tokens"]),
+               "prefill_s": d["prefill_s"], "decode_s": d["decode_s"],
+               "flash_launches": launched["flash_fwd"], "verify_launches": launched["paged_verify"],
+               "decode_launches": launched["paged_decode"],
+               "blocks_in_use": eng.allocator.blocks_in_use,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        emit(run)
+        checks = {
+            "K5 launches == (verify rounds + chunk appends) x layers":
+                launched["paged_verify"] == (d["spec_rounds"] + d["chunk_appends"]) * L and d["spec_rounds"] > 0,
+            "K1 launches == prefill waves x layers": launched["flash_fwd"] == d["prefill_waves"] * L > 0,
+            "K4 never launched": launched["paged_decode"] == 0,
+            "chunked prefill ran": d["chunk_appends"] > 0,
+            "no blocks in use at the end": eng.allocator.blocks_in_use == 0,
+            "every request ran its whole budget": not short,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"engine_spec {label}: {failed}")
+    ctx["spec_path_launches"] = _kernels.launches()
+    eng.allocator.check_invariants()
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    n = len(first)
+    ref, _ = full_width_engine(True, state, num_slots=n, prefill_chunk=PROMPT_CAP // 2)
+    uids = [ref.submit(prompts[i], MAX_NEW) for i in range(n)]
+    done = ref.run(uids)
+    want = [list(done[u].generated) for u in uids]
+    splits = tie_aware_splits(ref.trunk, prompts[:n], [first[i] for i in range(n)], want)
+    emit({"phase": "engine_spec", "check": f"first {n} requests vs the one-token engine, tie-aware",
+          "identical_rows": n - len(splits), "splits": splits,
+          "near_ties": sum(near_tie(x, "bfloat16") for x in splits)})
+    ref.close()
+    del ref
+    torch.cuda.empty_cache()
+    bad = [x for x in splits if not near_tie(x, "bfloat16")]
+    if bad:
+        raise AssertionError(f"engine_spec: spec output split from the one-token engine off a tie: {bad}")
+
+
 # ------------------------------------------------------------------ training
 
 
@@ -670,15 +1033,16 @@ def ppo_config(**train_over):
     return TRLConfig.update(base, train_over)
 
 
-def parity_trainer(device, state=None):
+def parity_trainer(device, state=None, **over):
     """PPOTrainer at 2 layers / hidden 64 (4 heads of 16), f32, greedy, on
-    ``device``; ``state`` replaces the seeded initial weights."""
+    ``device``; ``state`` replaces the seeded initial weights; ``over``
+    merges more dotted config overrides."""
     import tempfile
 
     from trlx_tpu_torch.pipeline import PromptPipeline
     from trlx_tpu_torch.utils.loading import get_trainer
 
-    cfg = ppo_config(**{
+    cfg = ppo_config(**over, **{
         "model.model_path": "gpt2",
         "model.model_overrides": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4,
                                       max_position_embeddings=128, attention_impl="flash"),
@@ -707,30 +1071,52 @@ def phase_train_parity(ctx):
     Tokens identical; logprobs / values / rewards within 1e-4; every step's
     losses/* within 1e-3 relative (+1e-6 absolute: the policy loss of the
     first step is ~0 by construction)."""
+    report, ok = train_parity_report({})
+    emit({"phase": "train_parity", **report})
+    if not ok:
+        raise AssertionError(f"PPOTrainer on the card disagrees with the CPU trainer: {report}")
+
+
+def train_parity_report(over, tie_dtype=None):
+    """(report, ok) of parity_trainer (with ``over``) on the card against the
+    CPU: prepare_learning (one experience phase), then 2 optimizer steps.
+    Tokens must be identical — or, with ``tie_dtype``, may split at a near
+    tie (:func:`near_tie` under the CPU policy; experience and
+    losses are then not compared); experience within 1e-4, losses/* within
+    1e-3 relative + 1e-6. Also: no blocks left in a serving engine."""
     import shutil
 
     import numpy as np
     import torch
 
-    cpu = parity_trainer("cpu")
+    cpu = parity_trainer("cpu", **over)
     # sharper logits than the 0.02 init, so greedy ties are far above float noise
     state = {k: v * 3 if v.is_floating_point() else v for k, v in cpu.model.state_dict().items()}
-    cpu = parity_trainer("cpu", state)
-    card = parity_trainer("cuda", state)
-    runs = {}
+    cpu = parity_trainer("cpu", state, **over)
+    card = parity_trainer("cuda", state, **over)
+    runs, blocks = {}, []
     for name, tr in (("cuda", card), ("cpu", cpu)):
         tr.prepare_learning()
         steps = [tr.train_step(batch) for batch in list(tr.create_train_dataloader())[:2]]
         runs[name] = (list(tr.store.history), steps)
+        if tr._serving_engine is not None:
+            blocks.append(tr._serving_engine.allocator.blocks_in_use)
+            tr.on_learn_end()
         shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
     (ce, cs), (pe, ps) = runs["cuda"], runs["cpu"]
     same_tokens = len(ce) == len(pe) and all(
         np.array_equal(a.query_tensor, b.query_tensor) and np.array_equal(a.response_tensor, b.response_tensor)
         for a, b in zip(ce, pe)
     )
-    report = {"phase": "train_parity", "elements": len(ce), "steps": len(cs), "identical_tokens": same_tokens}
-    ok = same_tokens
-    if not same_tokens:
+    report = {"elements": len(ce), "steps": len(cs), "identical_tokens": same_tokens,
+              "serving_blocks_in_use": blocks}
+    ok = same_tokens and not any(blocks)
+    if not same_tokens and tie_dtype is not None:
+        splits = tie_aware_splits(cpu.model.transformer, [e.query_tensor for e in pe],
+                                  [e.response_tensor for e in ce], [e.response_tensor for e in pe])
+        report.update(splits=splits)
+        ok = len(ce) == len(pe) and all(near_tie(x, tie_dtype) for x in splits) and not any(blocks)
+    elif not same_tokens:
         row = next(i for i, (a, b) in enumerate(zip(ce, pe))
                    if not np.array_equal(a.response_tensor, b.response_tensor))
         a, b = ce[row].response_tensor, pe[row].response_tensor
@@ -753,12 +1139,10 @@ def phase_train_parity(ctx):
         report.update(max_element_abs_err=elem_err, max_loss_rel_err=loss_err,
                       losses_cuda=[{k: v for k, v in x.items() if k.startswith("losses/")} for x in cs],
                       losses_cpu=[{k: v for k, v in y.items() if k.startswith("losses/")} for y in ps])
-        ok = all(e <= 1e-4 for e in elem_errs) and loss_ok and len(cs) == 2  # a NaN fails here
-    emit(report)
+        ok = ok and all(e <= 1e-4 for e in elem_errs) and loss_ok and len(cs) == 2  # a NaN fails here
     del card, cpu
     torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"PPOTrainer on the card disagrees with the CPU trainer: {report}")
+    return report, ok
 
 
 #: the full-width train phase's shape (bench.py's gpt2 train leg: B=32, P=N=128)
@@ -929,6 +1313,124 @@ def phase_train(ctx):
     check_main_path_shapes(ctx, seen)
 
 
+def phase_train_serving(ctx):
+    """A main path: the train phase's run (gpt2 full width, 64 sampled
+    rollouts of 128 tokens per experience phase, 4 steps of 32 in 2
+    microbatches) with ``train.serving`` on: block size 16, spec_k 4,
+    prefill_chunk 64, so every rollout goes through the engine's verify
+    rounds and chunk appends (K5) and its prefill waves (K1). Launch counts
+    are reset just before ``train`` and read just after; K5 must have
+    launched in every experience phase and K4 never, K2 and K3 once per
+    layer and microbatch in every step, and the engine must hold no block
+    after every generation."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_serving_")
+    cfg = TRLConfig.update(full_width_train_config(ckpt_dir), {
+        "train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64}})
+    num_mb = TRAIN_B // TRAIN_MB
+    phases, gens, steps = [], [], []  # experience phases, generate calls, learner steps
+    originals = {name: getattr(PPOTrainer, name)
+                 for name in ("make_experience", "_serving_generate", "train_step", "prepare_learning")}
+    params0 = {}
+
+    def measured(name, sink, extra=lambda self, out: {}):
+        fn = originals[name]
+
+        def run(self, *a, **kw):
+            before = dict(_kernels.launches())
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            sink.append({"s": time.perf_counter() - t0,
+                         "launches": {k: _kernels.launches()[k] - before[k] for k in before},
+                         **extra(self, out)})
+            return out
+
+        return run
+
+    def prepare(self, *a, **kw):
+        params0.update({k: v.detach().clone() for k, v in self.model.state_dict().items()})
+        return originals["prepare_learning"](self, *a, **kw)
+
+    PPOTrainer.make_experience = measured("make_experience", phases, lambda self, out: {
+        "generate_s": self._phase_time["generate"], "score_s": self._phase_time["score"],
+        "reward_s": self._phase_time["reward"]})
+    PPOTrainer._serving_generate = measured("_serving_generate", gens, lambda self, out: {
+        "blocks_in_use": self._serving_engine.allocator.blocks_in_use,
+        "summary": self._serving_engine.summary()})
+    PPOTrainer.train_step = measured("train_step", steps, lambda self, out: {"stats": out})
+    PPOTrainer.prepare_learning = prepare
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(
+            reward_fn=byte_share_reward, prompts=byte_prompts(64, 64, 128, SEED + 1),
+            eval_prompts=byte_prompts(32, 64, 128, SEED + 2), config=cfg,
+        )
+    finally:
+        for name, fn in originals.items():
+            setattr(PPOTrainer, name, fn)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches()
+    ctx["serving_train_launches"] = launches
+
+    for i, ph in enumerate(phases):
+        emit({"phase": "train_serving", "experience_phase": i + 1, "card": ctx.get("smi"),
+              "experience_s": ph["s"], "generate_s": ph["generate_s"], "score_s": ph["score_s"],
+              "reward_s": ph["reward_s"], "launches": ph["launches"]})
+    for i, st in enumerate(steps):
+        out = st["stats"]
+        emit({"phase": "train_serving", "step": i + 1, "card": ctx.get("smi"), "learn_s": st["s"],
+              "experience_s": out["time/rollout_time"], "generate_s": out["time/rollout_generate"],
+              "accepted_tok_per_round": out.get("serving/accepted_tok_per_round"),
+              "spec_accept_rate": out.get("serving/spec_accept_rate"),
+              "losses": {k: v for k, v in out.items() if k.startswith("losses/")},
+              "launches": st["launches"]})
+    L = trainer.model_config.num_layers
+    changed = any(not torch.equal(params0[k], v) for k, v in trainer.model.state_dict().items())
+    finite = all(np.isfinite(v) for st in steps for k, v in st["stats"].items() if k.startswith("losses/"))
+    emit({"phase": "train_serving", "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps),
+          "experience_phases": len(phases), "generate_calls": len(gens),
+          "generate_s": [g["s"] for g in gens], "engine_after_each_generate": [
+              {k: g["summary"][k] for k in ("accepted_tok_per_round", "spec_accept_rate", "spec_rounds",
+                                            "chunk_appends", "delivered_tokens", "blocks_in_use")} for g in gens],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
+          "params_changed": changed, "losses_finite": finite})
+    checks = {
+        "4 optimizer steps": len(steps) == 4,
+        "losses finite": finite,
+        "params changed": changed,
+        "rollouts went through the engine": bool(gens) and len(gens) == 2 * len(phases),
+        "K5 launched in every experience phase": bool(phases) and all(
+            ph["launches"]["paged_verify"] > 0 for ph in phases),
+        "K4 never launched": launches["paged_decode"] == 0,
+        "no blocks in use after every generation": all(g["blocks_in_use"] == 0 for g in gens),
+        "K2 and K3: num_layers x num_mb per step": all(
+            st["launches"]["flash_bwd_dkv"] == L * num_mb and st["launches"]["flash_bwd_dq"] == L * num_mb
+            for st in steps),
+        "serving gauges in the step stats": all("serving/accepted_tok_per_round" in st["stats"] for st in steps),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    del trainer
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"train_serving phase: {failed}")
+
+
 def check_main_path_shapes(ctx, seen):
     """K1, K2 and K3 against their plain versions at every shape the train
     phase gave them, each with the first mask the run passed at that shape
@@ -963,29 +1465,28 @@ def check_main_path_shapes(ctx, seen):
 
 def kernel_table(ctx):
     """One row per ported TPU kernel; ``launches`` is the count from the main
-    path that runs it (the engine for K4, the trainer for K2 and K3; K1 runs
-    on both and reports the engine's, with both paths' counts beside it)."""
+    path that runs it (the engine for K1 and K4, the trainer for K2 and K3,
+    the speculative engine for K5), with every main path's count beside it
+    in ``launches_by_path``."""
     t, errs = ctx["timings"], ctx["max_abs_err"]
-    engine, train = ctx["main_path_launches"], ctx["train_launches"]
+    paths = {"engine": ctx["main_path_launches"], "engine_spec": ctx["spec_path_launches"],
+             "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"]}
     rows = [
-        ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", engine),
-        ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", train),
-        ("flash_bwd_dq", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:338", train),
-        ("paged_decode", "trlx_tpu_torch/csrc/paged_decode.cu", "trlx_tpu/ops/paged_attention.py:183", engine),
+        ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
+        ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
+        ("flash_bwd_dq", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:338", "train"),
+        ("paged_decode", "trlx_tpu_torch/csrc/paged_decode.cu", "trlx_tpu/ops/paged_attention.py:183", "engine"),
+        ("paged_verify", "trlx_tpu_torch/csrc/paged_decode.cu", "trlx_tpu/ops/paged_attention.py:244",
+         "engine_spec"),
     ]
     table = []
-    for name, src, rep, launches in rows:
-        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": launches[name], "max_abs_err": errs[name],
-               "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
-               "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"]}
-        if name == "flash_fwd":
-            row["launches_by_path"] = {"engine": engine[name], "train": train[name]}
-        table.append(row)
-    return {"kernels": table, "not_yet_ported": [
-        {"name": "paged_verify", "replaces": "trlx_tpu/ops/paged_attention.py:244",
-         "path": "speculative decoding in the serving engine", "status": "not yet ported"},
-    ]}
+    for name, src, rep, path in rows:
+        table.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                      "launches": paths[path][name], "max_abs_err": errs[name],
+                      "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
+                      "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
+                      "launches_by_path": {p: counts[name] for p, counts in paths.items()}})
+    return {"kernels": table, "not_yet_ported": []}
 
 
 def main(argv=None) -> int:
@@ -1008,7 +1509,9 @@ def main(argv=None) -> int:
     ctx = {}
     runners = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
                "timing": phase_timing, "parity": phase_parity, "engine": phase_engine,
-               "train_parity": phase_train_parity, "train": phase_train}
+               "spec_parity": phase_spec_parity, "engine_spec": phase_engine_spec,
+               "train_parity": phase_train_parity, "train": phase_train,
+               "train_serving": phase_train_serving}
     phase_env(ctx)
     for name in phases:
         if name != "env":

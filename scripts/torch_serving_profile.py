@@ -8,11 +8,16 @@ and a pass under ``torch.profiler`` with CPU and CUDA activities. From the
 profiled pass it prints one JSON object: the engine's host-clock split
 between admission rounds (prefill + pack) and decode rounds, device busy
 time (the union of kernel intervals), the device's idle share, kernels per
-decode step, and the kernels that took the most device time.
+decode step, the kernels that took the most device time, and the host
+operations that took the most host time (self time, which includes the
+waits of synchronising calls).
 
-Usage: ``python3 scripts/torch_serving_profile.py [--kv bf16|int8] [--trace PATH]``
-from the repository root. ``--trace`` also writes the Chrome trace.
-Exits non-zero without a CUDA device.
+Usage: ``python3 scripts/torch_serving_profile.py [--kv bf16|int8] [--spec]
+[--requests N] [--trace PATH]`` from the repository root. ``--spec``
+profiles chip_smoke.py's ``engine_spec`` path instead: int8 KV, spec_k 4,
+prefill_chunk 64, every budget 128. ``--requests N`` keeps the first N
+requests of the traffic (a shorter profile). ``--trace`` also writes the
+Chrome trace. Exits non-zero without a CUDA device.
 """
 
 import argparse
@@ -53,6 +58,8 @@ def _union_us(intervals):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kv", choices=("bf16", "int8"), default="bf16")
+    ap.add_argument("--spec", action="store_true", help="the engine_spec path (implies --kv int8)")
+    ap.add_argument("--requests", type=int, default=None, help="keep the first N requests")
     ap.add_argument("--trace", default=None, help="write the Chrome trace here")
     args = ap.parse_args(argv)
 
@@ -66,8 +73,12 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = chip_smoke.nvidia_smi_line()
-    engine, _ = chip_smoke.full_width_engine(quant=args.kv == "int8")
+    knobs = dict(spec_k=4, prefill_chunk=chip_smoke.PROMPT_CAP // 2) if args.spec else {}
+    engine, _ = chip_smoke.full_width_engine(quant=args.spec or args.kv == "int8", **knobs)
     prompts, budgets = chip_smoke.serving_traffic(engine.trunk.config.vocab_size)
+    if args.spec:
+        budgets = [chip_smoke.MAX_NEW] * len(prompts)
+    prompts, budgets = prompts[:args.requests], budgets[:args.requests]
 
     def one_pass():
         stats0 = dict(vars(engine.stats))
@@ -97,8 +108,11 @@ def main(argv=None) -> int:
         by_name[name] = (calls + 1, us + (e - s))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     steps = max(1, delta["decode_steps"])
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
     print(json.dumps({
-        "card": smi, "kv": args.kv, "slots": chip_smoke.SLOTS, "requests": len(prompts),
+        "card": smi, "kv": "int8" if args.spec else args.kv, "spec": knobs, "slots": chip_smoke.SLOTS,
+        "requests": len(prompts), "spec_rounds": delta["spec_rounds"], "chunk_appends": delta["chunk_appends"],
+        "accepted_tok_per_round": delta["delivered_tokens"] / max(1, delta["decode_slot_rounds"]),
         "unprofiled_wall_s": wall, "unprofiled_tok_s": delivered / wall,
         "profiled_wall_s": prof_wall,
         "prefill_s": delta["prefill_s"], "decode_s": delta["decode_s"],
@@ -108,6 +122,10 @@ def main(argv=None) -> int:
         "top_kernels": [
             {"name": name[:120], "calls": calls, "device_s": us / 1e6, "share_of_busy": us / 1e6 / busy_s}
             for name, (calls, us) in top
+        ],
+        "top_host_ops": [
+            {"name": e.key[:80], "calls": e.count, "self_host_s": e.self_cpu_time_total / 1e6}
+            for e in host
         ],
     }))
     return 0

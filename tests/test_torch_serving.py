@@ -222,7 +222,7 @@ def test_engine_prefix_sharing_stream_and_cancel(shared_weights):
 def test_engine_later_slices_raise(shared_weights):
     _, params = shared_weights
     tcfg = PRESETS["gpt2"].replace(**TINY, compute_dtype=torch.float32)
-    for kw in (dict(spec_k=2), dict(prefill_chunk=4), dict(policy=object()), dict(tenants=object())):
+    for kw in (dict(policy=object()), dict(tenants=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu", **kw)
     with pytest.raises(NotImplementedError):

@@ -165,10 +165,10 @@ UNPORTED = [
     ("train.profile_dir", "prof", "observability slice"),
     ("train.resilience.enabled", True, "resilience slice"),
     ("train.self_healing.enabled", True, "resilience slice"),
-    ("train.serving.enabled", True, "serving-in-training slice"),
-    ("train.serving_resilience.enabled", True, "serving-in-training slice"),
-    ("train.serving_tenancy.enabled", True, "serving-in-training slice"),
-    ("train.serving_fleet.enabled", True, "serving-in-training slice"),
+    ("train.serving.stream_overlap", True, "production-serving slice"),
+    ("train.serving_resilience.enabled", True, "production-serving slice"),
+    ("train.serving_tenancy.enabled", True, "production-serving slice"),
+    ("train.serving_fleet.enabled", True, "production-serving slice"),
     ("train.online.enabled", True, "GRPO / online slice"),
     ("train.learner_overlap.enabled", True, "scale-out slice"),
     ("train.rollout_param_dtype", "bfloat16", "mixed-precision rollout slice"),
@@ -189,8 +189,11 @@ UNPORTED = [
 
 @pytest.mark.parametrize("key,value,slice_name", UNPORTED, ids=[u[0] for u in UNPORTED])
 def test_unported_config_blocks_raise_naming_their_slice(tmp_path, key, value, slice_name):
+    overrides = {key: value}
+    if key.startswith("train.serving."):  # a knob of an enabled engine
+        overrides["train.serving.enabled"] = True
     with pytest.raises(NotImplementedError, match=slice_name):
-        _port_trainer(tmp_path, **{key: value})
+        _port_trainer(tmp_path, **overrides)
 
 
 def test_unported_training_rows_raise_naming_their_slice(tmp_path):

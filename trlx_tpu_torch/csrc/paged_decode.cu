@@ -1,29 +1,42 @@
-// Paged-KV single-token decode attention for Hopper (sm_90a).
+// Paged-KV attention for Hopper (sm_90a): single-token decode (K4) and the
+// multi-token verify / chunk append (K5), one kernel body.
 //
-// Replaces: trlx_tpu/ops/paged_attention.py::_paged_kernel (the Pallas TPU
-// kernel reached through paged_attention_pallas / paged_decode_attention).
-// The same contract: q [B,H,D] (one decode token per slot), per-layer pools
-// [NB,BS,Hkv,D] in the JAX layout (row stride Hkv*D, read as they are), block
-// tables [B,MB] int32, context lens [B] int32 counting this step's token.
+// Replaces: trlx_tpu/ops/paged_attention.py::_paged_kernel (decode, reached
+// through paged_attention_pallas / paged_decode_attention) and
+// ::_paged_verify_kernel (verify, through paged_verify_attention_pallas /
+// paged_verify_attention). Pools [NB,BS,Hkv,D] in the JAX layout (row stride
+// Hkv*D, read as they are), block tables [B,MB] int32, lens [B] int32.
 // int8 pools carry f32 per-row scales [NB,BS,Hkv]: k_scale folds into the
 // scores, and v_scale into the probabilities AFTER they are summed into l
-// (the algebra of paged_attention.py:214-234 and :96-107). A slot with
-// len 0 writes 0; an idle slot at len 1 reads the null block 0 and stays
-// finite.
+// (the algebra of paged_attention.py:214-234 and :96-107).
 //
-// What bounds it on the H100: one query row per head against its whole
-// context, ~4 flops per KV byte, far below the ~295 flops/byte ridge: it
-// is bound by the bytes of live K/V it must read (3.35 TB/s).
+// - decode: q [B,H,D], one token per slot; lens count this step's token;
+//   a query sees positions < lens. A slot with len 0 writes 0.
+// - verify: q [B,Q,H,D], Q tokens appended per slot; lens count the tokens
+//   BEFORE the append; query j sees positions < lens + j + 1.
 //
-// Design: one CTA per (slot, kv head) computing that head's rep = H/Hkv
-// query rows, so grouped K/V are read once for the whole group. There is no
-// scalar prefetch on the GPU: the CTA reads its own block-table row and
-// walks only the ceil(len/BS) blocks that hold live tokens — the TPU kernel
-// walks all MB blocks and masks the dead ones, which contribute exactly 0,
-// so the result is the same with fewer bytes moved. Each block's K/V rows
-// are converted to f32 (int8 in registers) into shared memory with
-// neighbouring threads on neighbouring elements; the flash running max /
-// sum / accumulator live in shared memory, so any D and rep fit one kernel.
+// Both are the same kernel: the Q query tokens fold into the grouped-head
+// row axis (row r is query r / rep, head r % rep of the CTA's kv head), and
+// row r's mask limit is lens + r / rep + offset, with offset 0 for decode
+// and 1 for verify. So verify at Q=1 with lens is decode with lens+1, bit
+// for bit: the same instructions run on the same values.
+//
+// What bounds it on the H100: Q*rep query rows against a slot's context,
+// ~4*Q*rep flops per KV element, far below the ~295 flops/byte ridge at the
+// engine's Q <= 5 (chunked prefill's Q=64 is still under it): it is bound
+// by the bytes of live K/V it must read (3.35 TB/s).
+//
+// Design: one CTA per (slot, kv head, row tile). A tile holds up to
+// ROW_TILE rows (decode: all rep rows in one tile), so shared memory stays
+// bounded for any chunk length; the K/V of each block are read once per
+// tile for all its rows. There is no scalar prefetch on the GPU: the CTA
+// reads its own block-table row and walks only the blocks below its last
+// row's limit, min(ceil(limit/BS), MB) — the TPU kernels walk all MB blocks
+// and mask the dead ones; a block past a row's limit gives p = 0 and
+// alpha = 1 there, so the row's result is unchanged and fewer bytes move.
+// Each block's K/V rows are converted to f32 (int8 in registers) into
+// shared memory with neighbouring threads on neighbouring elements; the
+// flash running max / sum / accumulator live in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -33,6 +46,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr int ROW_TILE = 64;  // verify rows per CTA
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -45,48 +59,58 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-size_t smem_bytes(int rep, int D, int BS) {
-  // q_s [rep][D], acc_s [rep][D], k_s [BS][D+1], v_s [BS][D], p_s [rep][BS],
-  // ks_s/vs_s [BS], m_s/l_s/alpha_s [rep]
+size_t smem_bytes(int rows, int D, int BS) {
+  // q_s [rows][D], acc_s [rows][D], k_s [BS][D+1], v_s [BS][D], p_s [rows][BS],
+  // ks_s/vs_s [BS], m_s/l_s/alpha_s [rows]
   return sizeof(float) *
-         (size_t)(2 * rep * D + BS * (D + 1) + BS * D + rep * BS + 2 * BS + 3 * rep);
+         (size_t)(2 * rows * D + BS * (D + 1) + BS * D + rows * BS + 2 * BS + 3 * rows);
 }
 
+// grid (B, Hkv, row tiles); q/out [B, Q, H, D] (decode: Q = 1)
 template <typename QT, typename KVT, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
-                    const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
-                    const int32_t* __restrict__ lens, QT* __restrict__ out, int H, int Hkv,
-                    int D, int BS, int MB, float scale) {
+paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
+                  const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
+                  const int32_t* __restrict__ lens, QT* __restrict__ out, int Q, int H, int Hkv,
+                  int D, int BS, int MB, int tile_rows, int offset, float scale) {
   const int b = blockIdx.x;
   const int hk = blockIdx.y;
   const int rep = H / Hkv;
+  const int r0 = blockIdx.z * tile_rows;  // first row of this tile in [0, Q*rep)
+  const int rows = min(tile_rows, Q * rep - r0);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int DK = D + 1;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                 // [rep][D]
-  float* acc_s = q_s + rep * D;      // [rep][D]
-  float* k_s = acc_s + rep * D;      // [BS][D+1]
+  float* q_s = smem;                 // [rows][D]
+  float* acc_s = q_s + rows * D;     // [rows][D]
+  float* k_s = acc_s + rows * D;     // [BS][D+1]
   float* v_s = k_s + BS * DK;        // [BS][D]
-  float* p_s = v_s + BS * D;         // [rep][BS]
-  float* ks_s = p_s + rep * BS;      // [BS]
+  float* p_s = v_s + BS * D;         // [rows][BS]
+  float* ks_s = p_s + rows * BS;     // [BS]
   float* vs_s = ks_s + BS;           // [BS]
-  float* m_s = vs_s + BS;            // [rep]
-  float* l_s = m_s + rep;            // [rep]
-  float* alpha_s = l_s + rep;        // [rep]
+  float* m_s = vs_s + BS;            // [rows]
+  float* l_s = m_s + rows;           // [rows]
+  float* alpha_s = l_s + rows;       // [rows]
 
   const int len = lens[b];
-  const int n_blocks = min((len + BS - 1) / BS, MB);
-  const size_t q_row0 = (size_t)b * H + (size_t)hk * rep;
+  // the tile's last row sees the most positions
+  const int limit_max = len + (r0 + rows - 1) / rep + offset;
+  const int n_blocks = min((limit_max + BS - 1) / BS, MB);
 
-  for (int i = tid; i < rep * D; i += THREADS) {
-    q_s[i] = to_f32(q[q_row0 * D + i]);
+  // element (row r, dim d) of q/out: query j = (r0 + r) / rep, head hk*rep + (r0 + r) % rep
+  auto qo_index = [&](int r, int d) -> size_t {
+    const int gr = r0 + r;
+    return (((size_t)b * Q + gr / rep) * H + (size_t)hk * rep + gr % rep) * D + d;
+  };
+
+  for (int i = tid; i < rows * D; i += THREADS) {
+    q_s[i] = to_f32(q[qo_index(i / D, i % D)]);
     acc_s[i] = 0.f;
   }
-  for (int r = tid; r < rep; r += THREADS) {
+  for (int r = tid; r < rows; r += THREADS) {
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
   }
@@ -108,19 +132,19 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     }
     __syncthreads();
 
-    // scores [rep][BS]; tokens at or past len are masked
-    for (int i = tid; i < rep * BS; i += THREADS) {
+    // scores [rows][BS]; tokens at or past the row's limit are masked
+    for (int i = tid; i < rows * BS; i += THREADS) {
       const int r = i / BS, t = i % BS;
       float dot = 0.f;
       for (int d = 0; d < D; ++d) dot = fmaf(q_s[r * D + d], k_s[t * DK + d], dot);
       float s = dot * scale;
       if (QUANT) s *= ks_s[t];
-      p_s[i] = j * BS + t < len ? s : NEG_INF;
+      p_s[i] = j * BS + t < len + (r0 + r) / rep + offset ? s : NEG_INF;
     }
     __syncthreads();
 
     // online-softmax update, one warp per query row
-    for (int r = warp; r < rep; r += WARPS) {
+    for (int r = warp; r < rows; r += WARPS) {
       float m_cur = NEG_INF;
       for (int t = lane; t < BS; t += 32) m_cur = fmaxf(m_cur, p_s[r * BS + t]);
       for (int off = 16; off > 0; off >>= 1)
@@ -146,7 +170,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     }
     __syncthreads();
 
-    for (int i = tid; i < rep * D; i += THREADS) {
+    for (int i = tid; i < rows * D; i += THREADS) {
       const int r = i / D, d = i % D;
       float a = acc_s[i] * alpha_s[r];
       for (int t = 0; t < BS; ++t) a = fmaf(p_s[r * BS + t], v_s[t * D + d], a);
@@ -155,55 +179,82 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
   }
   __syncthreads();
 
-  for (int i = tid; i < rep * D; i += THREADS) {
+  for (int i = tid; i < rows * D; i += THREADS) {
     const float l = l_s[i / D];
-    out[q_row0 * D + i] = from_f32<QT>(acc_s[i] / (l == 0.f ? 1.f : l));
+    out[qo_index(i / D, i % D)] = from_f32<QT>(acc_s[i] / (l == 0.f ? 1.f : l));
   }
 }
 
 template <typename QT, typename KVT, bool QUANT>
 int launch(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
            const float* v_scale, const int32_t* tables, const int32_t* lens, void* out, int B,
-           int H, int Hkv, int D, int BS, int MB, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H / Hkv, D, BS);
-  auto kernel = paged_decode_kernel<QT, KVT, QUANT>;
+           int Q, int H, int Hkv, int D, int BS, int MB, int tile_rows, int offset, float scale,
+           cudaStream_t stream) {
+  const int total_rows = Q * (H / Hkv);
+  const size_t smem = smem_bytes(tile_rows, D, BS);
+  auto kernel = paged_attn_kernel<QT, KVT, QUANT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, Hkv);
+  dim3 grid(B, Hkv, (total_rows + tile_rows - 1) / tile_rows);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), k_scale, v_scale, tables, lens, static_cast<QT*>(out),
-      H, Hkv, D, BS, MB, scale);
+      Q, H, Hkv, D, BS, MB, tile_rows, offset, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q_dtype: 0 = float32, 1 = bfloat16 (out shares it). kv_dtype: the pools'
-// type, the same as q_dtype, or 2 = int8 with k_scale/v_scale given.
-// Returns cudaGetLastError() after the launch (0 on success), -2 for an
-// unsupported dtype pair.
-extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                            const void* k_scale, const void* v_scale, const void* tables,
-                            const void* lens, void* out, int B, int H, int Hkv, int D, int BS,
-                            int MB, float scale, int q_dtype, int kv_dtype, void* stream) {
+int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+             const void* v_scale, const void* tables, const void* lens, void* out, int B, int Q,
+             int H, int Hkv, int D, int BS, int MB, int tile_rows, int offset, float scale,
+             int q_dtype, int kv_dtype, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int32_t* tb = static_cast<const int32_t*>(tables);
   const int32_t* ln = static_cast<const int32_t*>(lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float, false>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, H, Hkv, D,
-                                       BS, MB, scale, st);
+    return launch<float, float, false>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H, Hkv, D,
+                                       BS, MB, tile_rows, offset, scale, st);
   if (q_dtype == 1 && kv_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16, false>(q, k_pool, v_pool, ks, vs, tb, ln, out,
-                                                       B, H, Hkv, D, BS, MB, scale, st);
+                                                       B, Q, H, Hkv, D, BS, MB, tile_rows,
+                                                       offset, scale, st);
   if (q_dtype == 0 && kv_dtype == 2)
-    return launch<float, int8_t, true>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, H, Hkv, D,
-                                       BS, MB, scale, st);
+    return launch<float, int8_t, true>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H, Hkv, D,
+                                       BS, MB, tile_rows, offset, scale, st);
   if (q_dtype == 1 && kv_dtype == 2)
-    return launch<__nv_bfloat16, int8_t, true>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, H,
-                                               Hkv, D, BS, MB, scale, st);
+    return launch<__nv_bfloat16, int8_t, true>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H,
+                                               Hkv, D, BS, MB, tile_rows, offset, scale, st);
   return -2;
+}
+
+}  // namespace
+
+// q_dtype: 0 = float32, 1 = bfloat16 (out shares it). kv_dtype: the pools'
+// type, the same as q_dtype, or 2 = int8 with k_scale/v_scale given.
+// Both entry points return cudaGetLastError() after the launch (0 on
+// success), -2 for an unsupported dtype pair.
+
+// K4: q/out [B,H,D]; lens count this step's token. One tile of rep rows.
+extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                            const void* k_scale, const void* v_scale, const void* tables,
+                            const void* lens, void* out, int B, int H, int Hkv, int D, int BS,
+                            int MB, float scale, int q_dtype, int kv_dtype, void* stream) {
+  return dispatch(q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, B, 1, H, Hkv, D, BS,
+                  MB, H / Hkv, 0, scale, q_dtype, kv_dtype, stream);
+}
+
+// K5: q/out [B,Q,H,D]; lens count the tokens before the append. Tiles of
+// ROW_TILE rows (at least rep, so Q=1 is one tile as in decode).
+extern "C" int paged_verify(const void* q, const void* k_pool, const void* v_pool,
+                            const void* k_scale, const void* v_scale, const void* tables,
+                            const void* lens, void* out, int B, int Q, int H, int Hkv, int D,
+                            int BS, int MB, float scale, int q_dtype, int kv_dtype,
+                            void* stream) {
+  const int rep = H / Hkv;
+  const int widest = rep > ROW_TILE ? rep : ROW_TILE;
+  const int tile_rows = Q * rep < widest ? Q * rep : widest;
+  return dispatch(q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, B, Q, H, Hkv, D, BS,
+                  MB, tile_rows, 1, scale, q_dtype, kv_dtype, stream);
 }

@@ -14,9 +14,10 @@ one-pass variance, the plain attention path adds a ``-1e9`` mask bias and
 takes the softmax in f32. With ``attention_impl="flash"`` every multi-token
 forward (prefill, the scoring passes, the training loss) attends through
 the flash kernel, and the training backward through its dK/dV and dQ
-kernels; single-token paged steps use the paged decode kernel, and
-single-token steps over the contiguous cache the plain path (as the JAX
-package's einsum).
+kernels; single-token paged steps use the paged decode kernel, multi-token
+paged appends (speculative verify, chunked prefill) the paged verify
+kernel, and single-token steps over the contiguous cache the plain path
+(as the JAX package's einsum).
 
 KV caches are preallocated tensors updated in place (JAX threads them
 functionally): the contiguous prefill cache ``{"k", "v"[, scales], "index"}``
@@ -25,7 +26,7 @@ with per-layer ``[B, Hkv, S, D]`` buffers, and the paged block pools from
 
 Not ported yet (each raises ``NotImplementedError``): stacked layouts
 (``scan_layers`` / ``pipeline_stages > 1``), ring attention, ALiBi, LoRA and
-prompt/prefix tuning, sequence sharding, multi-token paged appends, the
+prompt/prefix tuning, sequence sharding, the
 hydra branch (``branch_layer``, ``forward_from``) and ``remat``.
 """
 
@@ -41,7 +42,9 @@ from trlx_tpu_torch.ops.attention import flash_attention
 from trlx_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_pool_layout,
+    paged_verify_attention,
     write_paged_kv,
+    write_paged_kv_multi,
 )
 
 KVCache = Dict[str, Any]
@@ -342,7 +345,7 @@ class Attention(nn.Module):
     ):
         """x: [B,T,Hid]; mask_bias additive [B,1,T,S]. ``cache`` is this layer's
         contiguous cache (``index`` = write slot) or paged cache
-        (``block_tables`` present; single-token steps only). A non-None
+        (``block_tables`` present). A non-None
         ``kv_valid`` [B,T] with T > 1 marks a cache-free forward or a
         prefill from slot 0: with ``attention_impl="flash"`` it attends
         through the flash kernel over this forward's own k/v."""
@@ -358,21 +361,26 @@ class Attention(nn.Module):
             k = apply_rotary(k, cos, sin, c.rope_style)
 
         if cache is not None and "block_tables" in cache:
-            # paged step (serving engine): the new row lands at position
-            # context_lens, then attention runs over context_lens + 1 tokens
-            # gathered through the block table
-            if T != 1:
-                raise NotImplementedError(
-                    "multi-token paged appends (speculative verify / chunked "
-                    "prefill) come with the paged verify kernel in a later slice"
+            # paged step (serving engine). T == 1 is decode: the new row
+            # lands at position context_lens, then attention runs over
+            # context_lens + 1 tokens gathered through the block table.
+            # T > 1 is the speculative-verify / chunked-prefill append: token
+            # j lands at context_lens + j and attends over context_lens + j + 1
+            # tokens (the verify kernel takes the PRE-append lens)
+            kw = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                      scale=scale, impl=c.paged_attention_impl)
+            if T == 1:
+                write_paged_kv(cache, k[:, 0], v[:, 0])
+                out = paged_decode_attention(
+                    q[:, 0].contiguous(), cache["k"], cache["v"],
+                    cache["block_tables"], cache["context_lens"] + 1, **kw,
                 )
-            write_paged_kv(cache, k[:, 0], v[:, 0])
-            out = paged_decode_attention(
-                q[:, 0].contiguous(), cache["k"], cache["v"],
-                cache["block_tables"], cache["context_lens"] + 1,
-                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-                scale=scale, impl=c.paged_attention_impl,
-            )
+            else:
+                write_paged_kv_multi(cache, k, v)
+                out = paged_verify_attention(
+                    q.contiguous(), cache["k"], cache["v"],
+                    cache["block_tables"], cache["context_lens"], **kw,
+                )
             out = out.reshape(B, T, c.num_heads * c.dim_per_head).to(c.compute_dtype)
             return self.o_proj(out), cache
 
@@ -675,14 +683,45 @@ class TransformerLM(nn.Module):
             raise ValueError("paged_decode is a single-token step")
         lens = cache["context_lens"]
         positions = lens[:, None].to(torch.int32)  # incoming token's position
-        x = self.embed(input_ids, positions)
-        pool_keys = [k for k in cache if k not in ("block_tables", "context_lens")]
-        for i, layer in enumerate(self.layers):
-            layer_cache = {key: cache[key][i] for key in pool_keys}
-            layer_cache["block_tables"] = cache["block_tables"]
-            layer_cache["context_lens"] = lens
-            x, _ = layer(x, None, positions, layer_cache, None)
+        x = self._paged_layers(input_ids, positions, cache)
         logits, hidden = self._final(x)
         new_cache = dict(cache)
         new_cache["context_lens"] = lens + 1
         return logits, hidden, new_cache
+
+    def paged_verify(self, input_ids: torch.Tensor, cache: KVCache):
+        """Multi-token paged step (speculative verify / chunked prefill):
+        ``input_ids`` [B, Q]; token j is written through the block table at
+        position ``context_lens + j`` and attends causally over every earlier
+        position plus itself. Returns (logits [B, Q, V], hidden [B, Q, Hid],
+        cache with ``context_lens`` UNCHANGED): the caller decides how far
+        the frontier advances (speculative accept count, chunk length). KV
+        rows written past the accepted frontier stay invisible to the
+        attention mask and are rewritten before they can become valid. The
+        per-layer list layout only (stacked layouts raise at construction)."""
+        lens = cache["context_lens"]
+        Q = input_ids.shape[1]
+        positions = lens[:, None].to(torch.int32) + torch.arange(Q, dtype=torch.int32, device=lens.device)[None, :]
+        x = self._paged_layers(input_ids, positions, cache)
+        logits, hidden = self._final(x)
+        return logits, hidden, dict(cache)
+
+    def _paged_layers(self, input_ids: torch.Tensor, positions: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """Embed and run every layer against the paged cache (pools written
+        in place). Learned positions past the table (an idle slot's frontier
+        grows every round; draft positions reach ``max_seq_len + spec_k - 1``)
+        are clamped into it for the lookup: the JAX package's ``jnp.take``
+        gives NaN rows there instead of an index error. Such rows are never
+        delivered, and NaN-free garbage keeps every masked read exact."""
+        c = self.config
+        emb_positions = positions
+        if c.pos_embedding == "learned":
+            emb_positions = positions.clamp(max=c.max_position_embeddings - 1)
+        x = self.embed(input_ids, emb_positions)
+        pool_keys = [k for k in cache if k not in ("block_tables", "context_lens")]
+        for i, layer in enumerate(self.layers):
+            layer_cache = {key: cache[key][i] for key in pool_keys}
+            layer_cache["block_tables"] = cache["block_tables"]
+            layer_cache["context_lens"] = cache["context_lens"]
+            x, _ = layer(x, None, positions, layer_cache, None)
+        return x

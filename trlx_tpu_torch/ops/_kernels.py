@@ -1,7 +1,8 @@
 """Build, load and count the package's hand-written CUDA kernels.
 
 Each kernel is a plain C entry point in a ``csrc/*.cu`` file (one file may
-hold several, as ``flash_bwd.cu`` holds dK/dV and dQ). A source is compiled
+hold several: ``flash_bwd.cu`` holds dK/dV and dQ, ``paged_decode.cu`` the
+paged decode and verify entry points of one kernel body). A source is compiled
 by ``nvcc`` into its own shared library under ``_build/`` (listed in
 ``.gitignore``) the first time a CUDA tensor reaches one of its wrappers,
 and loaded with :mod:`ctypes`. Nothing here runs at import: the package
@@ -59,6 +60,12 @@ KERNELS = {
         # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out,
         # B, H, Hkv, D, BS, MB, scale, q_dtype, kv_dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "paged_verify": (
+        "paged_decode.cu", "paged_verify",
+        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out,
+        # B, Q, H, Hkv, D, BS, MB, scale, q_dtype, kv_dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
 }
 

@@ -83,3 +83,17 @@ def sample_token(
         choice = _categorical(generator, vals)
         return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
     return _categorical(generator, apply_top_p(logits, top_p)).to(torch.int32)
+
+
+def count_accepted_drafts(sampled: torch.Tensor, proposed: torch.Tensor) -> torch.Tensor:
+    """Leading-match accept count for speculative verify: ``proposed`` ``[B,
+    K+1]`` is what the verify pass scored (the pending token, then K drafts),
+    ``sampled`` ``[B, K+1]`` the model's output at each position. Draft j+1
+    is accepted iff it equals ``sampled[:, j]`` and every earlier draft was
+    accepted: the length of the leading run of ``proposed[:, 1:] ==
+    sampled[:, :K]``, in ``[0, K]``, int32."""
+    K = proposed.shape[1] - 1
+    if K == 0:
+        return torch.zeros((proposed.shape[0],), dtype=torch.int32, device=proposed.device)
+    match = (proposed[:, 1:] == sampled[:, :K]).to(torch.int32)
+    return torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)

@@ -1,5 +1,5 @@
 """Persistent continuous-batching generation engine (counterpart of
-``trlx_tpu/serving/engine.py``, default path).
+``trlx_tpu/serving/engine.py``).
 
 One :class:`ServingEngine` owns a model trunk, per-layer device block pools
 (``trunk.init_paged_cache``), a host-side :class:`PagedBlockAllocator` and an
@@ -18,13 +18,30 @@ The step always runs full-batch; idle slots run against the reserved null
 block and their outputs are discarded. A slot freed by a finished sequence
 is refilled on the next round.
 
-Greedy decoding is byte-identical to the JAX engine on the same weights and
-prompts (tests/test_torch_serving.py). Sampled streams draw from a
-``torch.Generator`` seeded with ``seed`` and do not match JAX's bits.
+Two optional multi-token modes, both through ``TransformerLM.paged_verify``
+(the paged verify kernel per layer):
 
-Not in this slice (``NotImplementedError`` naming the slice): speculative
-decoding (``spec_k``), chunked prefill (``prefill_chunk``), the resilience
-policy, tenancy and generation islands.
+- **speculative decoding** (``spec_k > 0``): a host-side prompt-lookup
+  n-gram draft proposes K tokens per slot; one fixed-shape verify step
+  scores the pending token + K drafts, samples every position, and accepts
+  the longest leading run of drafts that match what the model would have
+  emitted. Greedy output is identical to one-token decode; rejected-draft KV
+  sits past ``context_lens`` and is rewritten before it can become valid.
+- **chunked prefill** (``prefill_chunk > 0``): prompts longer than the chunk
+  prefill their first chunk in the bucketed wave and the rest through
+  per-round batch-1 verify appends interleaved with decode rounds;
+  mid-prefill slots are masked out of the decode batch (null table row,
+  len 0) until their last chunk samples the first token.
+
+Greedy decoding is byte-identical to the JAX engine on the same weights and
+prompts, with and without both modes (tests/test_torch_serving.py,
+tests/test_torch_serving_spec.py). Sampled streams draw from a
+``torch.Generator`` seeded with ``seed`` and do not match JAX's bits; a
+sampled speculative stream differs from a sampled one-token stream by
+construction (other draws per position).
+
+Not in this slice (``NotImplementedError`` naming the slice): the
+resilience policy, tenancy and generation islands.
 
 Thread-safety: ``submit``/``cancel`` may be called from producer threads;
 ``step``/``run`` are serialized by the engine lock.
@@ -39,7 +56,7 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
-from trlx_tpu_torch.ops.sampling import sample_token
+from trlx_tpu_torch.ops.sampling import count_accepted_drafts, sample_token
 from trlx_tpu_torch.serving.allocator import PagedBlockAllocator
 from trlx_tpu_torch.serving.policy import RequestTooLarge
 from trlx_tpu_torch.serving.scheduler import InflightScheduler, Request
@@ -58,6 +75,35 @@ def _pow2_at_least(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _ngram_propose(ctx: np.ndarray, k: int, max_order: int, pad_token: int) -> np.ndarray:
+    """Prompt-lookup drafting: propose ``k`` tokens by matching the longest
+    suffix n-gram (order ``max_order`` down to 1) earlier in the context and
+    continuing from the LATEST such match. Host numpy: the draft must cost
+    far less than the verify pass. No match (or a match flush against the
+    end) pads with ``pad_token``: a wrong draft costs nothing beyond the
+    verify work the fixed-shape step does anyway."""
+    out = np.full((k,), pad_token, np.int32)
+    L = len(ctx)
+    if L < 2:
+        return out
+    for n in range(min(max_order, L - 1), 0, -1):
+        tail = ctx[L - n:]
+        # windows of length n starting at j cover ctx[j : j+n]; the suffix
+        # itself (j = L - n) is excluded so the continuation is a real lookbehind
+        n_cand = L - n
+        m = np.ones((n_cand,), bool)
+        for j in range(n):
+            m &= ctx[j : j + n_cand] == tail[j]
+        hits = np.nonzero(m)[0]
+        if len(hits) == 0:
+            continue
+        start = int(hits[-1]) + n  # continuation of the latest match
+        take = ctx[start : start + k]
+        out[: len(take)] = take
+        return out
+    return out
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card: with no CUDA the caller must ask for the
     CPU explicitly (``device="cpu"``); nothing falls back silently."""
@@ -73,11 +119,20 @@ def resolve_device(device) -> torch.device:
 
 @dataclass
 class ServingStats:
+    # every token a decode round hands to the scheduler: 1 per live slot
+    # plain, 1..K+1 speculative (prefill's first token is prefill accounting)
     delivered_tokens: int = 0
     prefill_tokens: int = 0
     decode_steps: int = 0
     prefill_waves: int = 0
     finished_requests: int = 0
+    # live slots summed over decode rounds: the denominator of
+    # accepted_tok_per_round (exactly 1.0 with spec off)
+    decode_slot_rounds: int = 0
+    spec_rounds: int = 0
+    spec_draft_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    chunk_appends: int = 0
     # host-clock seconds in admission rounds (prefill + pack) and decode
     # rounds; each round ends by copying sampled tokens to the host, so
     # these include the device work they issued
@@ -114,20 +169,26 @@ class ServingEngine:
         ``device`` in place. ``params`` is an optional ``state_dict`` loaded
         into it (e.g. from ``models.convert.params_from_jax``); ``None``
         serves the trunk's own weights. ``device=None`` means ``"cuda"``.
-        ``spec_k``, ``spec_ngram``, ``prefill_chunk``, ``policy`` and
-        ``tenants`` keep the JAX engine's signature; any non-default value
-        raises ``NotImplementedError`` naming the slice that brings it."""
-        for value, what in (
-            (spec_k, "speculative decoding (spec_k > 0)"),
-            (prefill_chunk, "chunked prefill (prefill_chunk > 0)"),
-        ):
-            if value:
-                raise NotImplementedError(f"{what} comes with the paged verify kernel in a later slice")
+
+        ``spec_k`` > 0 turns on speculative decoding (K n-gram drafts
+        verified per round); ``spec_ngram`` caps the draft-match n-gram
+        order. ``prefill_chunk`` > 0 splits admissions longer than the chunk
+        into per-round verify appends interleaved with decode (0 =
+        whole-prompt bucketed prefill). ``policy`` and ``tenants`` keep the
+        JAX engine's signature; a non-default value raises
+        ``NotImplementedError`` naming the slice that brings it."""
         if policy is not None:
             raise NotImplementedError("the serving resilience policy comes in a later slice")
         if tenants is not None:
             raise NotImplementedError("multi-tenant serving comes in a later slice")
-        del spec_ngram  # only meaningful with spec_k > 0
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        self.prefill_chunk = int(prefill_chunk)
+        if self.spec_k < 0 or self.spec_ngram < 1 or self.prefill_chunk < 0:
+            raise ValueError(
+                f"spec_k={spec_k} must be >= 0, spec_ngram={spec_ngram} >= 1, "
+                f"prefill_chunk={prefill_chunk} >= 0"
+            )
         self.device = resolve_device(device)
         self.trunk = trunk.to(self.device)
         if params is not None:
@@ -165,6 +226,9 @@ class ServingEngine:
         self._tables_dirty = True
         # the next input token per slot (sampled last round, not yet written)
         self._pending_tok = np.zeros((self.num_slots,), np.int32)
+        # slots mid chunked-prefill: masked out of the decode batch (their
+        # device table row / len are zeroed) until the final chunk lands
+        self._prefilling = np.zeros((self.num_slots,), bool)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A device COPY of a host array. ``torch.from_numpy`` (and
@@ -191,6 +255,50 @@ class ServingEngine:
     def _decode_step(self, tok: torch.Tensor, new_counts: torch.Tensor) -> torch.Tensor:
         logits, _, self.cache = self.trunk.paged_decode(tok[:, None], self.cache)
         return self._sample(logits[:, -1, :], new_counts)
+
+    def _sample_positions(self, logits: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+        """Per-position sampling for the verify step: ``logits`` [S, Q, V],
+        ``counts`` [S, Q] = each position's generated-token index (the
+        min_new_tokens eos mask as :meth:`_sample` applies it per step:
+        position j of a verify round IS generated token ``len(generated) + j``
+        of the one-token decode it replays). Returns [S, Q] int32."""
+        if self.eos_token_id is not None and self.min_new_tokens > 0:
+            eos_col = torch.arange(logits.shape[-1], device=logits.device) == self.eos_token_id
+            block = (counts[..., None] < self.min_new_tokens) & eos_col[None, None, :]
+            logits = torch.where(block, torch.full_like(logits, -1e9), logits)
+        return sample_token(self._gen, logits, **self.gen_kwargs)
+
+    @torch.no_grad()
+    def _verify_step(self, tok: torch.Tensor, new_counts: torch.Tensor):
+        """Speculative verify round: ``tok`` [S, K+1] = pending token + K
+        n-gram drafts per slot. One widened paged forward scores every
+        position; per-position sampling and the leading-match accept count
+        stay on the device, and ``context_lens`` advances by ``accepted + 1``
+        (rejected-draft KV past the new frontier stays invisible to the mask
+        and is rewritten before it can become valid, so rollback is free).
+        Returns (sampled [S, K+1], accepted [S]) on the device."""
+        lens0 = self.cache["context_lens"]
+        logits, _, self.cache = self.trunk.paged_verify(tok, self.cache)
+        counts = new_counts[:, None] + torch.arange(tok.shape[1], dtype=torch.int32, device=tok.device)[None, :]
+        y = self._sample_positions(logits, counts)
+        accepted = count_accepted_drafts(y, tok)
+        self.cache["context_lens"] = lens0 + accepted + 1
+        return y, accepted
+
+    @torch.no_grad()
+    def _chunk_step(self, ids: torch.Tensor, cache: Dict[str, Any], last_idx: torch.Tensor,
+                    new_counts: torch.Tensor) -> torch.Tensor:
+        """One chunked-prefill append: ``ids`` [n, C] (pad-filled on a final
+        partial chunk) writes all C positions' KV through ``cache``'s table
+        rows (the engine's pools, written in place) and samples a next token
+        from the logit at ``last_idx``: only the final chunk's sample is
+        used. ``context_lens`` is not advanced; the host mirror owns the
+        prefilled frontier. Pad positions write garbage KV past the prompt,
+        which the first decode / verify round overwrites before the mask can
+        expose it."""
+        logits, _, _ = self.trunk.paged_verify(ids, cache)
+        last = logits[torch.arange(ids.shape[0], device=ids.device), last_idx.long()]
+        return self._sample(last, new_counts)
 
     @torch.no_grad()
     def _prefill(self, ids: torch.Tensor, mask: torch.Tensor, new_counts: torch.Tensor):
@@ -266,13 +374,16 @@ class ServingEngine:
         self._tables[slot] = 0
         self._lens[slot] = 0
         self._pending_tok[slot] = self.pad_token_id
+        self._prefilling[slot] = False
         self._tables_dirty = True
 
     def _admit(self) -> List[Request]:
         """One admission round: reap cancels, place pending requests, run
         bucketed prefills, pack pools, sample each new sequence's first
         token. Returns requests that finished during admission (a first
-        token can already be eos)."""
+        token can already be eos). With chunked prefill a prompt longer
+        than the chunk prefills its first chunk here and is marked
+        mid-prefill; :meth:`_advance_prefill_chunks` appends the rest."""
         finished: List[Request] = []
         for slot in self.scheduler.reap_cancelled():
             self._free_slot_state(slot)
@@ -284,9 +395,15 @@ class ServingEngine:
         by_bucket: Dict[int, List[Tuple[int, Request, List[int]]]] = {}
         for slot, req in placements:
             ids_full = req.prefill_ids
+            if 0 < self.prefill_chunk < len(ids_full):
+                self._prefilling[slot] = True
+                req.prefilled = 0
+                first = ids_full[: self.prefill_chunk]
+            else:
+                first = ids_full
             by_bucket.setdefault(
-                pad_to_bucket(len(ids_full), PREFILL_LEN_BUCKETS), []
-            ).append((slot, req, ids_full))
+                pad_to_bucket(len(first), PREFILL_LEN_BUCKETS), []
+            ).append((slot, req, first))
         for P_b, group in sorted(by_bucket.items()):
             n_b = _pow2_at_least(len(group), self.num_slots)
             ids_list = [np.asarray(first, np.int32) for _, _, first in group]
@@ -318,6 +435,12 @@ class ServingEngine:
                 self._tables[slot] = rows[i]
                 self._lens[slot] = len(first)
                 self._tables_dirty = True
+                if self._prefilling[slot]:
+                    # prompt incomplete: the wave's token conditioned on a
+                    # truncated prompt and is discarded; the final chunk
+                    # samples the real first token
+                    req.prefilled = len(first)
+                    continue
                 self._pending_tok[slot] = tok_np[i]
                 done = self.scheduler.on_token(slot, int(tok_np[i]))
                 if done is not None:
@@ -325,18 +448,81 @@ class ServingEngine:
                     self._free_slot_state(slot)
         return finished
 
+    def _advance_prefill_chunks(self) -> List[Request]:
+        """Advance every mid-prefill slot by one chunk (a batch-1 verify
+        append into the shared pools through the slot's own table row),
+        interleaved with decode rounds. The final chunk samples the
+        sequence's first token; after it the slot's state is the one a
+        whole-prompt prefill leaves (lens = prompt length, pending = first
+        token), which keeps chunked output identical to unchunked."""
+        finished: List[Request] = []
+        if not self._prefilling.any():
+            return finished
+        C = self.prefill_chunk
+        for slot in np.nonzero(self._prefilling)[0]:
+            slot = int(slot)
+            req = self.scheduler.slots[slot]
+            if req is None:  # freed (cancel) mid-prefill
+                self._prefilling[slot] = False
+                continue
+            ids_full = req.prefill_ids
+            start = req.prefilled
+            chunk = ids_full[start : start + C]
+            n_v = len(chunk)
+            ids = np.full((1, C), self.pad_token_id, np.int32)
+            ids[0, :n_v] = chunk
+            row = np.zeros((1, self.max_blocks_per_seq), np.int32)
+            blocks = req.seq_blocks.blocks
+            row[0, : len(blocks)] = blocks
+            cache1 = {key: self.cache[key] for key in self._pool_keys}
+            cache1["block_tables"] = self._to_device(row)
+            cache1["context_lens"] = self._to_device(np.array([start], np.int32))
+            tok = self._chunk_step(
+                self._to_device(ids), cache1,
+                self._to_device(np.array([n_v - 1], np.int32)),
+                self._to_device(np.array([len(req.generated)], np.int32)),
+            )
+            req.prefilled = start + n_v
+            self._lens[slot] = req.prefilled
+            self.stats.prefill_tokens += n_v
+            self.stats.chunk_appends += 1
+            if req.prefilled >= len(ids_full):
+                # prompt complete: unmask the slot into the decode batch
+                self._prefilling[slot] = False
+                self._tables_dirty = True
+                tok_i = int(tok.cpu()[0])
+                self._pending_tok[slot] = tok_i
+                done = self.scheduler.on_token(slot, tok_i)
+                if done is not None:
+                    finished.append(done)
+                    self._free_slot_state(slot)
+        return finished
+
     def _push_mirrors(self) -> None:
         """Push the host table/len mirrors to the device when stale (as
-        copies — see :meth:`_to_device`)."""
-        if not self._tables_dirty:
+        copies — see :meth:`_to_device`). While a slot is mid chunked-prefill
+        its real state (partial lens, table row) stays OFF the decode inputs:
+        the pushed copy masks it to the null row / len 0 so the full-batch
+        step treats it as idle, and the mirror stays dirty so completion
+        pushes the real state."""
+        prefill_active = bool(self._prefilling.any())
+        if not (self._tables_dirty or prefill_active):
             return
-        self.cache["block_tables"] = self._to_device(self._tables)
-        self.cache["context_lens"] = self._to_device(self._lens)
-        self._tables_dirty = False
+        tables = np.array(self._tables)
+        lens = np.array(self._lens)
+        if prefill_active:
+            tables[self._prefilling] = 0
+            lens[self._prefilling] = 0
+        self.cache["block_tables"] = self._to_device(tables)
+        self.cache["context_lens"] = self._to_device(lens)
+        self._tables_dirty = prefill_active
 
     def _decode_round(self) -> List[Request]:
         finished: List[Request] = []
-        live = [s for s, r in enumerate(self.scheduler.slots) if r is not None]
+        live = [
+            s for s, r in enumerate(self.scheduler.slots)
+            if r is not None and not self._prefilling[s]
+        ]
         if not live:
             return finished
         self._push_mirrors()
@@ -344,30 +530,70 @@ class ServingEngine:
             [len(r.generated) if r is not None else 0 for r in self.scheduler.slots],
             np.int32,
         )
-        next_tok = self._decode_step(
-            self._to_device(self._pending_tok), self._to_device(new_counts)
-        )
-        # device lens advanced for every slot; mirror so a no-admission next
-        # step needs no host->device push
-        self._lens += 1
-        tok_np = next_tok.cpu().numpy()
+        if self.spec_k > 0:
+            finished.extend(self._spec_round(live, new_counts))
+        else:
+            next_tok = self._decode_step(
+                self._to_device(self._pending_tok), self._to_device(new_counts)
+            )
+            # device lens advanced for every slot; mirror so a no-admission
+            # next step needs no host->device push
+            self._lens += 1
+            tok_np = next_tok.cpu().numpy()
+            for slot in live:
+                self._pending_tok[slot] = tok_np[slot]
+                done = self.scheduler.on_token(slot, int(tok_np[slot]))
+                if done is not None:
+                    finished.append(done)
+                    self._free_slot_state(slot)
+            self.stats.delivered_tokens += len(live)
+        self.scheduler.note_step()
+        self.stats.decode_steps += 1
+        self.stats.decode_slot_rounds += len(live)
+        return finished
+
+    def _spec_round(self, live: List[int], new_counts: np.ndarray) -> List[Request]:
+        """One speculative round over the full slot batch: host n-gram
+        drafts, one verify step, per-slot accept bookkeeping. Emits
+        ``accepted + 1`` tokens per live slot, each what one-token greedy
+        decode would have produced (the accept rule)."""
+        finished: List[Request] = []
+        K = self.spec_k
+        drafts = np.zeros((self.num_slots, K), np.int32)
         for slot in live:
-            self._pending_tok[slot] = tok_np[slot]
-            done = self.scheduler.on_token(slot, int(tok_np[slot]))
+            req = self.scheduler.slots[slot]
+            drafts[slot] = _ngram_propose(
+                np.asarray(req.prefill_ids, np.int32), K, self.spec_ngram, self.pad_token_id,
+            )
+        tok = np.concatenate([self._pending_tok[:, None], drafts], axis=1)
+        y, accepted = self._verify_step(self._to_device(tok), self._to_device(new_counts))
+        acc_np = accepted.cpu().numpy()
+        y_np = y.cpu().numpy()
+        # the device advanced EVERY slot's frontier by accepted + 1 (idle and
+        # masked mid-prefill slots included, off their null-block garbage);
+        # the mirror does the same arithmetic so the two never diverge
+        self._lens += acc_np.astype(np.int32) + 1
+        self.stats.spec_rounds += 1
+        self.stats.spec_draft_tokens += K * len(live)
+        for slot in live:
+            a = int(acc_np[slot])
+            self.stats.spec_accepted_tokens += a
+            self._pending_tok[slot] = y_np[slot, a]
+            done, emitted = self.scheduler.on_tokens(slot, [int(t) for t in y_np[slot, : a + 1]])
+            self.stats.delivered_tokens += emitted
             if done is not None:
                 finished.append(done)
                 self._free_slot_state(slot)
-        self.stats.delivered_tokens += len(live)
-        self.scheduler.note_step()
-        self.stats.decode_steps += 1
         return finished
 
     def step(self) -> List[Request]:
-        """One engine round: admissions (bucketed prefill) + one decode step.
-        Returns requests finished during the round."""
+        """One engine round: admissions (bucketed prefill), one chunk per
+        mid-prefill slot, then one decode (or verify) round. Returns requests
+        finished during the round."""
         with self._lock:
             t0 = time.perf_counter()
             finished = self._admit()
+            finished += self._advance_prefill_chunks()
             t1 = time.perf_counter()
             finished += self._decode_round()
             self.stats.prefill_s += t1 - t0
@@ -409,6 +635,16 @@ class ServingEngine:
                 "finished_requests": float(self.stats.finished_requests),
                 "prefill_s": self.stats.prefill_s,
                 "decode_s": self.stats.decode_s,
+                # tokens emitted per live slot per decode round: exactly 1.0
+                # with spec off; > 1 is the speculative multiplier delivered
+                "accepted_tok_per_round": (
+                    self.stats.delivered_tokens / max(1, self.stats.decode_slot_rounds)
+                ),
+                "spec_accept_rate": (
+                    self.stats.spec_accepted_tokens / max(1, self.stats.spec_draft_tokens)
+                ),
+                "spec_rounds": float(self.stats.spec_rounds),
+                "chunk_appends": float(self.stats.chunk_appends),
             }
         out["mean_slot_occupancy"] = self.scheduler.mean_slot_occupancy
         out["prefix_cache_hit_rate"] = self.allocator.stats.hit_rate
@@ -422,6 +658,7 @@ class ServingEngine:
         for key in (
             "mean_slot_occupancy", "prefix_cache_hit_rate", "blocks_in_use",
             "delivered_tokens", "finished_requests", "pending_depth",
+            "accepted_tok_per_round", "spec_accept_rate",
         ):
             gauges.set(gp + ("slot_occupancy" if key == "mean_slot_occupancy" else key), s[key])
         gauges.set(gp + "live_slots", float(self.scheduler.live_slots))

@@ -75,10 +75,11 @@ def check_port_config(config: TRLConfig) -> None:
         (t.profile_dir is not None, "train.profile_dir", "observability slice"),
         (t.resilience.enabled, "train.resilience", "resilience slice"),
         (t.self_healing.enabled, "train.self_healing", "resilience slice"),
-        (t.serving.enabled, "train.serving", "serving-in-training slice"),
-        (t.serving_resilience.enabled, "train.serving_resilience", "serving-in-training slice"),
-        (t.serving_tenancy.enabled, "train.serving_tenancy", "serving-in-training slice"),
-        (t.serving_fleet.enabled, "train.serving_fleet", "serving-in-training slice"),
+        (t.serving.enabled and t.serving.stream_overlap, "train.serving.stream_overlap",
+         "production-serving slice"),
+        (t.serving_resilience.enabled, "train.serving_resilience", "production-serving slice"),
+        (t.serving_tenancy.enabled, "train.serving_tenancy", "production-serving slice"),
+        (t.serving_fleet.enabled, "train.serving_fleet", "production-serving slice"),
         (t.online.enabled, "train.online", "GRPO / online slice"),
         (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
         (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
@@ -227,6 +228,11 @@ class MeshRLTrainer(BaseRLTrainer):
         return step
 
     # -------------------------------------------------------------- generation
+
+    def gen_logits_processor(self, **kwargs):
+        """Optional decode-time logits processor (ILQL's advantage shaping,
+        with the ILQL trainer slice); ``None`` for PPO."""
+        return None
 
     @abstractmethod
     def gen_step_fn(self):
@@ -408,8 +414,15 @@ class MeshRLTrainer(BaseRLTrainer):
         pass
 
     def learn(self):
-        """Main training loop."""
-        return self._learn_loop()
+        """Main training loop; :meth:`on_learn_end` runs however it exits."""
+        try:
+            return self._learn_loop()
+        finally:
+            self.on_learn_end()
+
+    def on_learn_end(self):
+        """Teardown hook run when :meth:`learn` exits (return or exception)."""
+        pass
 
     def _learn_loop(self):
         train_config = self.config.train

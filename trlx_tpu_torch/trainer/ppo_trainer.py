@@ -2,7 +2,10 @@
 store management, a full-copy frozen reference model, the KL controllers,
 the serial ``make_experience`` pipeline (generate -> reward -> policy and
 reference scoring forwards -> KL-penalized rewards -> rollout store) and
-the PPO loss and train step.
+the PPO loss and train step. With ``train.serving.enabled`` the rollouts
+come from the continuous-batching ``ServingEngine`` (paged decode, and with
+``spec_k`` / ``prefill_chunk`` speculative decoding and chunked prefill)
+instead of the padded ``generate``.
 
 On the card every multi-token forward (generation prefill, both scoring
 forwards, the loss forward) runs the flash forward kernel when the model
@@ -12,7 +15,8 @@ flash dK/dV and dQ kernels once per layer and microbatch.
 Not ported yet, each raising ``NotImplementedError`` naming its slice: the
 hydra reference branch (``num_layers_unfrozen > 0``), the value branch,
 seq2seq models, peft, async rollouts and the overlapped reward scoring,
-and rollouts through the serving engine (``train.serving``).
+and the serving engine's production layers (``train.serving_resilience``,
+``serving_tenancy``, ``serving_fleet``, ``serving.stream_overlap``).
 """
 
 import time
@@ -29,9 +33,11 @@ from trlx_tpu_torch.models.policy import CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.serving import GenerationClient, ServingEngine
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.mesh_trainer import POW2_BUCKETS, MeshRLTrainer
 from trlx_tpu_torch.utils import infinite_loader, logging
+from trlx_tpu_torch.utils.metrics import gauges
 from trlx_tpu_torch.utils.modeling import RunningMoments, flatten_dict, logprobs_of_labels
 
 logger = logging.get_logger(__name__)
@@ -51,6 +57,11 @@ class PPOTrainer(MeshRLTrainer):
         self.mean_kl = 0.0
         self.rollout_stats: Dict[str, float] = {}
         self._train_step_fn = None
+        # the serving engine behind rollouts (train.serving), built by
+        # _resolve_serving in prepare_learning; None keeps the padded generate
+        self._serving_client = None
+        self._serving_engine = None
+        self._serving_max_new = 0
 
         # prompt-stream position: draws from the infinite prompt iterator,
         # checkpointed and replayed on resume
@@ -141,6 +152,84 @@ class PPOTrainer(MeshRLTrainer):
         ref_logprobs = logprobs_of_labels(ref_logits[:, P - 1:P - 1 + R], labels)
         return logprobs.cpu().numpy(), values.cpu().numpy(), ref_logprobs.cpu().numpy()
 
+    # ---------------------------------------------------------------- serving
+
+    def _resolve_serving(self):
+        """Build the continuous-batching ``GenerationClient`` when
+        ``train.serving.enabled`` and the run's generation settings fit the
+        engine; otherwise log why and keep the padded ``generate``
+        (``_serving_client`` stays None). Called from prepare_learning."""
+        cfg = self.config.train.serving
+        if not cfg.enabled or self._serving_client is not None:
+            return
+
+        def fallback(reason):
+            logger.warning(f"train.serving disabled for this run: {reason}")
+
+        if self.config.model.model_arch_type != "causal":
+            return fallback("seq2seq generation is not paged")
+        if self.gen_logits_processor() is not None:
+            return fallback("decode-time logits processor in use")
+        gen_kwargs = dict(self.generate_experience_kwargs or self.generate_kwargs)
+        gen_kwargs.setdefault("eos_token_id", self.tokenizer.eos_token_id)
+        gen_kwargs.setdefault("pad_token_id", self.tokenizer.pad_token_id)
+        max_new = int(gen_kwargs.pop("max_new_tokens", 16))
+        min_new = int(gen_kwargs.pop("min_new_tokens", 0))
+        eos = gen_kwargs.pop("eos_token_id")
+        pad = gen_kwargs.pop("pad_token_id")
+        unknown = set(gen_kwargs) - {"temperature", "top_k", "top_p", "do_sample", "top_k_impl"}
+        if unknown:
+            return fallback(f"unsupported gen_kwargs for the serving engine: {sorted(unknown)}")
+
+        trunk_config = self.model_config.replace(
+            kv_cache_quant=(
+                self.model_config.kv_cache_quant if cfg.kv_cache_quant is None else bool(cfg.kv_cache_quant)
+            ),
+            paged_attention_impl=cfg.attention_impl,
+        )
+        num_slots = cfg.num_slots or (self.method.decode_batch_size or self.method.chunk_size)
+        with torch.device(self.device):
+            trunk = TransformerLM(trunk_config)
+        self._serving_engine = ServingEngine(
+            trunk,
+            None,  # the policy's weights are installed per experience phase
+            num_slots=num_slots,
+            # prompts are admitted unpadded: real prompt lengths (<=
+            # seq_length) plus the decode budget
+            max_seq_len=self.config.train.seq_length + max_new,
+            block_size=cfg.block_size,
+            num_blocks=cfg.num_blocks,
+            eos_token_id=eos,
+            pad_token_id=pad,
+            gen_kwargs=gen_kwargs,
+            min_new_tokens=min_new,
+            prefix_caching=cfg.prefix_caching,
+            seed=self.config.train.seed + 17,
+            spec_k=cfg.spec_k,
+            spec_ngram=cfg.spec_ngram,
+            prefill_chunk=cfg.prefill_chunk,
+            device=self.device,
+        )
+        self._serving_client = GenerationClient(self._serving_engine)
+        self._serving_max_new = max_new
+        logger.info(
+            f"serving engine enabled: slots={num_slots}, block_size={cfg.block_size}, "
+            f"blocks={self._serving_engine.num_blocks}, int8_kv={trunk_config.kv_cache_quant}, "
+            f"impl={cfg.attention_impl}, spec_k={cfg.spec_k}, prefill_chunk={cfg.prefill_chunk}"
+        )
+
+    def _serving_generate(self, prompts):
+        """The engine's replacement for ``self.generate`` in rollouts: the
+        same ``(sequences, response_mask, pad_len)`` contract."""
+        return self._serving_client.generate_batch(prompts, self._serving_max_new)
+
+    def on_learn_end(self):
+        """Close the serving engine (its gauges clear) once learning ends."""
+        engine, self._serving_engine, self._serving_client = self._serving_engine, None, None
+        if engine is not None:
+            logger.info(f"serving engine closed: {engine.summary()}")
+            engine.close()
+
     def _generate_chunks(self, tokenizer):
         """One generation at decode_batch_size, split into chunk_size
         sub-chunks for reward_fn and the scoring forward."""
@@ -149,7 +238,10 @@ class PPOTrainer(MeshRLTrainer):
         prompts = batch["input_ids"]
         metadata = {k: v for k, v in batch.items() if k != "input_ids"}
         t0 = time.perf_counter()
-        samples, resp_mask, pad_len = self.generate(prompts, eval_mode=False)
+        if self._serving_client is not None:
+            samples, resp_mask, pad_len = self._serving_generate(prompts)
+        else:
+            samples, resp_mask, pad_len = self.generate(prompts, eval_mode=False)
         self._phase_time["generate"] += time.perf_counter() - t0
         str_samples, str_prompts, str_outputs, out_ids = self.decode(
             prompts, samples, pad_len, append_eos=True, response_masks=resp_mask
@@ -176,6 +268,10 @@ class PPOTrainer(MeshRLTrainer):
         all_scores_log = []
         self._phase_time = {"generate": 0.0, "reward": 0.0, "score": 0.0}
         self.clock.tick()
+        if self._serving_engine is not None:
+            # the policy changed since the last phase: install it (the
+            # engine flushes its prefix cache, computed under the old weights)
+            self._serving_engine.set_params(self.model.transformer.state_dict())
         while len(ppo_rl_elements) < num_rollouts:
             for chunk, reward_kwargs in self._generate_chunks(self.tokenizer):
                 t0 = time.perf_counter()
@@ -283,6 +379,7 @@ class PPOTrainer(MeshRLTrainer):
         bs = self.config.train.batch_size
         self.num_mb = max(1, bs // (self.config.train.minibatch_size or bs))
         self._fast_forward_prompt_stream()
+        self._resolve_serving()
         self.make_experience(self.method.num_rollouts, self.iter_count)
 
     def create_train_dataloader(self):
@@ -317,6 +414,8 @@ class PPOTrainer(MeshRLTrainer):
             self._train_step_fn = self.make_grad_accum_step(self.loss_fn, self.num_mb)
         out = self._train_step_fn(batch.to(self.device))
         out.update(self.rollout_stats)
+        if self._serving_client is not None:
+            out.update(gauges.snapshot("serving/"))
         return out
 
     def post_backward_callback(self):

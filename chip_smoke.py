@@ -49,15 +49,20 @@ Phases, each printing one JSON line:
                   KV, and a 2-step ``PPOTrainer`` rolling out through the
                   engine (spec_k 4, prefill_chunk 8). Tokens compared
                   tie-aware (at a split the CPU model may prefer its own
-                  token by at most 1e-3 x max(1, |top logit|)), experience
-                  and losses with ``train_parity``'s tolerances.
+                  token by at most 1e-3), experience (of every element
+                  with identical tokens) and losses with ``train_parity``'s
+                  tolerances.
 8. ``engine_spec`` — a main path: the engine at full gpt2 width with int8
                   KV, spec_k 4 and prefill_chunk 64 under the JAX package's
                   spec-leg traffic (768 requests, every budget 128), a
                   warm-up and a measured pass; K5 and K1 launched, K4 not;
-                  the first 32 requests held against the one-token engine
-                  with the same chunking, tie-aware (bf16: a preference of
-                  at most 2e-2 x max(1, |top logit|) at a split).
+                  K5 and K1 replayed against their plain versions at every
+                  shape the passes gave them (their block tables and lens,
+                  their masks); the first 32 requests held against the
+                  one-token engine with the same chunking, tie-aware (bf16:
+                  a preference of at most 2e-2 at a split), and over their
+                  whole length teacher-forced (at every position the dense
+                  model prefers the chosen token, or another by <= 2e-2).
 9. ``train_parity`` — ``PPOTrainer`` on the card against ``PPOTrainer`` on
                   the CPU (2 layers, hidden 64, f32, greedy) from the same
                   weights: one experience phase, 2 optimizer steps; tokens
@@ -68,10 +73,13 @@ Phases, each printing one JSON line:
                   of 128 tokens per experience phase, 4 optimizer steps of 32
                   rollouts in 2 microbatches. Counts reset just before and
                   read just after: K2 and K3 once per layer and microbatch in
-                  every step, K1 in every prefill, scoring and loss forward.
+                  every step, K1 in every prefill, scoring and loss forward;
+                  K1, K2 and K3 replayed at every shape the run gave them.
 11. ``train_serving`` — a main path: ``train``'s run with ``train.serving``
                   on (block size 16, spec_k 4, prefill_chunk 64): rollouts
-                  through the engine, K5 launched in every experience phase.
+                  through the engine, K5 launched in every experience phase;
+                  K1, K2, K3 and K5 replayed at every shape the run gave
+                  them.
 
 Then the kernel table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
@@ -825,14 +833,28 @@ def tie_aware_splits(ref_trunk, prompts, generated, ref_generated):
     return splits
 
 
+def teacher_forced_gaps(ref_trunk, prompts, generated):
+    """For every generated position of every row: ``ref_trunk``'s top logit
+    minus its logit of the row's own token, given the prompt and the row's
+    own earlier tokens (0 where the row took the reference's greedy choice).
+    Unlike :func:`tie_aware_splits` this covers each row over its whole
+    length, whatever happened before."""
+    import torch
+
+    gaps = []
+    for prompt, row in zip(prompts, generated):
+        ids = torch.tensor([list(prompt) + list(row)], device=ref_trunk.device)
+        with torch.no_grad():
+            logits = ref_trunk(ids, torch.ones_like(ids))[0][0, len(prompt) - 1:len(prompt) - 1 + len(row)].float()
+        chosen = logits.gather(1, torch.tensor(list(row), device=logits.device)[:, None])[:, 0]
+        gaps += (logits.max(1).values - chosen).tolist()
+    return gaps
+
+
 def near_tie(split, dtype: str) -> bool:
-    """A split is a near tie when the reference's preference for its own
-    token is within the kernels' tolerance for ``dtype``, relative to the
-    logits' magnitude (TIE_GAP[dtype] * max(1, |top logit|)): bf16 logits of
-    magnitude 2-4 are spaced 1/64 apart, so an absolute gap would sit below
-    one rounding step."""
-    return split["logit_gap"] is not None and (
-        split["logit_gap"] <= TIE_GAP[dtype] * max(1.0, abs(split["top_logit"])))
+    """A split is a near tie when the reference prefers its own token by at
+    most TIE_GAP[dtype] (an absolute logit gap)."""
+    return split["logit_gap"] is not None and split["logit_gap"] <= TIE_GAP[dtype]
 
 
 def generated_rows(seqs, mask, P):
@@ -848,7 +870,7 @@ def engine_counts(engine):
 #: (spec_k, prefill_chunk) settings of the spec_parity engines
 SPEC_KNOBS = [(4, 0), (0, 8), (3, 5)]
 #: a split is a near tie when the reference prefers its own token by at most
-#: TIE_GAP * max(1, |top logit|) (:func:`near_tie`): f32 / bf16
+#: TIE_GAP logits (:func:`near_tie`): f32 / bf16
 TIE_GAP = {"float32": 1e-3, "bfloat16": 2e-2}
 
 
@@ -919,6 +941,57 @@ def phase_spec_parity(ctx):
         raise AssertionError(f"speculative / chunked engine on the card disagrees with the CPU port: {failed}")
 
 
+def engine_spec_pass(ctx, eng, prompts, budgets, label, L):
+    """One pass of engine_spec's traffic through ``eng``, its report line and
+    checks; returns the first 32 requests' generated tokens."""
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    before = dict(_kernels.launches())
+    stats0 = dict(vars(eng.stats))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+    done = eng.run(uids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delivered = sum(len(done[u].generated) for u in uids)
+    first = {i: list(done[u].generated) for i, u in enumerate(uids[:32])}
+    for u in uids:
+        eng.scheduler.pop_request(u)
+    d = {k: v - stats0[k] for k, v in vars(eng.stats).items()}
+    launched = {k: _kernels.launches()[k] - before[k] for k in before}
+    short = [u for u, n in zip(uids, budgets) if len(done[u].generated) != n]
+    run = {"phase": "engine_spec", "kv": "int8", "pass": label, "card": ctx.get("smi"),
+           "requests": len(prompts), "slots": SLOTS, "spec_k": 4, "prefill_chunk": PROMPT_CAP // 2,
+           "delivered_tokens": delivered, "wall_s": wall, "tok_s": delivered / wall,
+           "decode_rounds": d["decode_steps"], "prefill_waves": d["prefill_waves"],
+           "chunk_appends": d["chunk_appends"],
+           "accepted_tok_per_round": d["delivered_tokens"] / max(1, d["decode_slot_rounds"]),
+           "spec_accept_rate": d["spec_accepted_tokens"] / max(1, d["spec_draft_tokens"]),
+           "prefill_s": d["prefill_s"], "decode_s": d["decode_s"],
+           "flash_launches": launched["flash_fwd"], "verify_launches": launched["paged_verify"],
+           "decode_launches": launched["paged_decode"],
+           "blocks_in_use": eng.allocator.blocks_in_use,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(run)
+    checks = {
+        "K5 launches == (verify rounds + chunk appends) x layers":
+            launched["paged_verify"] == (d["spec_rounds"] + d["chunk_appends"]) * L and d["spec_rounds"] > 0,
+        "K1 launches == prefill waves x layers": launched["flash_fwd"] == d["prefill_waves"] * L > 0,
+        "K4 never launched": launched["paged_decode"] == 0,
+        "chunked prefill ran": d["chunk_appends"] > 0,
+        "no blocks in use at the end": eng.allocator.blocks_in_use == 0,
+        "every request ran its whole budget": not short,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"engine_spec {label}: {failed}")
+    return first
+
+
 def phase_engine_spec(ctx):
     """A main path: the engine at full gpt2 width, int8 KV, spec_k=4 and
     prefill_chunk=64, under the JAX package's spec-leg traffic (bench.py
@@ -926,10 +999,14 @@ def phase_engine_spec(ctx):
     own tokens, every budget 128, greedy), a warm-up and a measured pass.
     Launch counts are reset just before and read just after: K5 on every
     verify round and chunk append, K1 on every prefill wave, K4 never. Then
-    the first 32 requests against the one-token engine (spec_k 0, the same
-    prefill_chunk) on the same weights, tie-aware: this isolates the
-    speculative rounds, and the CPU tests hold chunked against unchunked
-    output exactly in f32."""
+    every kernel call shape of the two passes against the plain versions
+    (:func:`check_main_path_shapes`), and the first 32 requests against the
+    one-token engine (spec_k 0, the same prefill_chunk) on the same weights,
+    tie-aware: this isolates the speculative rounds, and the CPU tests hold
+    chunked against unchunked output exactly in f32. Each of those rows is
+    also held over its whole length, teacher-forced: at every position the
+    dense model may prefer another token by at most 2e-2
+    (:func:`teacher_forced_gaps`)."""
     import torch
 
     from trlx_tpu_torch.ops import _kernels
@@ -939,70 +1016,46 @@ def phase_engine_spec(ctx):
     eng, state = full_width_engine(True, spec_k=4, prefill_chunk=PROMPT_CAP // 2)
     L = eng.trunk.config.num_layers
     first = {}
+    seen = {}  # kernel call shapes of the main path (record_kernel_shapes)
+    restore_kernels = record_kernel_shapes(seen)
     _kernels.reset_launches()
-    for label in ("warmup", "measured"):
-        before = dict(_kernels.launches())
-        stats0 = dict(vars(eng.stats))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
-        done = eng.run(uids)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        delivered = sum(len(done[u].generated) for u in uids)
-        first = {i: list(done[u].generated) for i, u in enumerate(uids[:32])}
-        for u in uids:
-            eng.scheduler.pop_request(u)
-        d = {k: v - stats0[k] for k, v in vars(eng.stats).items()}
-        launched = {k: _kernels.launches()[k] - before[k] for k in before}
-        short = [u for u, n in zip(uids, budgets) if len(done[u].generated) != n]
-        run = {"phase": "engine_spec", "kv": "int8", "pass": label, "card": ctx.get("smi"),
-               "requests": len(prompts), "slots": SLOTS, "spec_k": 4, "prefill_chunk": PROMPT_CAP // 2,
-               "delivered_tokens": delivered, "wall_s": wall, "tok_s": delivered / wall,
-               "decode_rounds": d["decode_steps"], "prefill_waves": d["prefill_waves"],
-               "chunk_appends": d["chunk_appends"],
-               "accepted_tok_per_round": d["delivered_tokens"] / max(1, d["decode_slot_rounds"]),
-               "spec_accept_rate": d["spec_accepted_tokens"] / max(1, d["spec_draft_tokens"]),
-               "prefill_s": d["prefill_s"], "decode_s": d["decode_s"],
-               "flash_launches": launched["flash_fwd"], "verify_launches": launched["paged_verify"],
-               "decode_launches": launched["paged_decode"],
-               "blocks_in_use": eng.allocator.blocks_in_use,
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        emit(run)
-        checks = {
-            "K5 launches == (verify rounds + chunk appends) x layers":
-                launched["paged_verify"] == (d["spec_rounds"] + d["chunk_appends"]) * L and d["spec_rounds"] > 0,
-            "K1 launches == prefill waves x layers": launched["flash_fwd"] == d["prefill_waves"] * L > 0,
-            "K4 never launched": launched["paged_decode"] == 0,
-            "chunked prefill ran": d["chunk_appends"] > 0,
-            "no blocks in use at the end": eng.allocator.blocks_in_use == 0,
-            "every request ran its whole budget": not short,
-        }
-        failed = [k for k, ok in checks.items() if not ok]
-        if failed:
-            raise AssertionError(f"engine_spec {label}: {failed}")
+    try:
+        for label in ("warmup", "measured"):
+            first = engine_spec_pass(ctx, eng, prompts, budgets, label, L)
+    finally:
+        restore_kernels()
     ctx["spec_path_launches"] = _kernels.launches()
+    emit({"phase": "engine_spec", "kernel_shapes": kernel_shapes(seen)})
     eng.allocator.check_invariants()
     eng.close()
     del eng
     torch.cuda.empty_cache()
+    check_main_path_shapes(ctx, seen, "engine_spec", ("flash_fwd", "paged_verify"))
 
     n = len(first)
     ref, _ = full_width_engine(True, state, num_slots=n, prefill_chunk=PROMPT_CAP // 2)
     uids = [ref.submit(prompts[i], MAX_NEW) for i in range(n)]
     done = ref.run(uids)
     want = [list(done[u].generated) for u in uids]
-    splits = tie_aware_splits(ref.trunk, prompts[:n], [first[i] for i in range(n)], want)
+    got = [first[i] for i in range(n)]
+    splits = tie_aware_splits(ref.trunk, prompts[:n], got, want)
+    gaps = teacher_forced_gaps(ref.trunk, prompts[:n], got)
+    limit = TIE_GAP["bfloat16"]
+    # tokens held against the one-token engine: whole rows, and each split row up to its split
+    compared = MAX_NEW * (n - len(splits)) + sum(x["position"] for x in splits)
     emit({"phase": "engine_spec", "check": f"first {n} requests vs the one-token engine, tie-aware",
-          "identical_rows": n - len(splits), "splits": splits,
-          "near_ties": sum(near_tie(x, "bfloat16") for x in splits)})
+          "whole_row_matches": n - len(splits), "tokens_compared": compared, "tokens": MAX_NEW * n,
+          "splits": splits, "near_ties": sum(near_tie(x, "bfloat16") for x in splits),
+          "teacher_forced": {"positions": len(gaps), "not_greedy": sum(g > 0 for g in gaps),
+                             "over_limit": sum(g > limit for g in gaps), "max_gap": max(gaps), "limit": limit}})
     ref.close()
     del ref
     torch.cuda.empty_cache()
     bad = [x for x in splits if not near_tie(x, "bfloat16")]
     if bad:
         raise AssertionError(f"engine_spec: spec output split from the one-token engine off a tie: {bad}")
+    if not max(gaps) <= limit:  # a NaN fails here too
+        raise AssertionError(f"engine_spec: a speculative token is {max(gaps)} below the greedy choice (> {limit})")
 
 
 # ------------------------------------------------------------------ training
@@ -1081,9 +1134,12 @@ def train_parity_report(over, tie_dtype=None):
     """(report, ok) of parity_trainer (with ``over``) on the card against the
     CPU: prepare_learning (one experience phase), then 2 optimizer steps.
     Tokens must be identical — or, with ``tie_dtype``, may split at a near
-    tie (:func:`near_tie` under the CPU policy; experience and
-    losses are then not compared); experience within 1e-4, losses/* within
-    1e-3 relative + 1e-6. Also: no blocks left in a serving engine."""
+    tie (:func:`near_tie` under the CPU policy). Experience (logprobs,
+    values, rewards) within 1e-4 for every element whose query and response
+    tokens are identical (``elements_compared``); losses/* within 1e-3
+    relative + 1e-6 when every token is identical (after a split the two
+    learners train on different batches: ``losses_compared`` false). Also:
+    no blocks left in a serving engine."""
     import shutil
 
     import numpy as np
@@ -1104,18 +1160,17 @@ def train_parity_report(over, tie_dtype=None):
             tr.on_learn_end()
         shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
     (ce, cs), (pe, ps) = runs["cuda"], runs["cpu"]
-    same_tokens = len(ce) == len(pe) and all(
-        np.array_equal(a.query_tensor, b.query_tensor) and np.array_equal(a.response_tensor, b.response_tensor)
-        for a, b in zip(ce, pe)
-    )
+    same_elem = [np.array_equal(a.query_tensor, b.query_tensor) and np.array_equal(a.response_tensor, b.response_tensor)
+                 for a, b in zip(ce, pe)] if len(ce) == len(pe) else []
+    same_tokens = bool(same_elem) and all(same_elem)
     report = {"elements": len(ce), "steps": len(cs), "identical_tokens": same_tokens,
-              "serving_blocks_in_use": blocks}
+              "serving_blocks_in_use": blocks, "elements_compared": sum(same_elem), "losses_compared": same_tokens}
     ok = same_tokens and not any(blocks)
     if not same_tokens and tie_dtype is not None:
         splits = tie_aware_splits(cpu.model.transformer, [e.query_tensor for e in pe],
                                   [e.response_tensor for e in ce], [e.response_tensor for e in pe])
         report.update(splits=splits)
-        ok = len(ce) == len(pe) and all(near_tie(x, tie_dtype) for x in splits) and not any(blocks)
+        ok = bool(same_elem) and all(near_tie(x, tie_dtype) for x in splits) and not any(blocks)
     elif not same_tokens:
         row = next(i for i, (a, b) in enumerate(zip(ce, pe))
                    if not np.array_equal(a.response_tensor, b.response_tensor))
@@ -1124,22 +1179,24 @@ def train_parity_report(over, tie_dtype=None):
         report.update(row=row, position=pos,
                       cpu_logit_gap=_logit_gap(cpu.model.transformer, pe[row].query_tensor, b, pos),
                       cuda_logit_gap=_logit_gap(card.model.transformer, pe[row].query_tensor, b, pos))
-    else:
-        elem_errs = [
-            float(np.abs(getattr(a, f) - getattr(b, f)).max()) for a, b in zip(ce, pe)
-            for f in ("logprobs", "values", "rewards")
-        ]
-        elem_err = max(elem_errs)
+    elem_errs = [
+        float(np.abs(getattr(a, f) - getattr(b, f)).max()) for (a, b), same in zip(zip(ce, pe), same_elem) if same
+        for f in ("logprobs", "values", "rewards")
+    ]
+    if elem_errs:
+        report.update(max_element_abs_err=max(elem_errs))
+        ok = ok and all(e <= 1e-4 for e in elem_errs)  # a NaN fails here
+    if same_tokens:
         loss_err = max(
             abs(x[k] - y[k]) / max(abs(y[k]), 1e-3) for x, y in zip(cs, ps) for k in y if k.startswith("losses/")
         )
         loss_ok = all(
             abs(x[k] - y[k]) <= 1e-3 * abs(y[k]) + 1e-6 for x, y in zip(cs, ps) for k in y if k.startswith("losses/")
         )
-        report.update(max_element_abs_err=elem_err, max_loss_rel_err=loss_err,
+        report.update(max_loss_rel_err=loss_err,
                       losses_cuda=[{k: v for k, v in x.items() if k.startswith("losses/")} for x in cs],
                       losses_cpu=[{k: v for k, v in y.items() if k.startswith("losses/")} for y in ps])
-        ok = ok and all(e <= 1e-4 for e in elem_errs) and loss_ok and len(cs) == 2  # a NaN fails here
+        ok = ok and loss_ok and len(cs) == 2
     del card, cpu
     torch.cuda.empty_cache()
     return report, ok
@@ -1186,7 +1243,6 @@ def phase_train(ctx):
 
     import trlx_tpu_torch
     from trlx_tpu_torch.ops import _kernels
-    from trlx_tpu_torch.ops import attention as attn
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -1218,20 +1274,7 @@ def phase_train(ctx):
 
         return timed
 
-    seen = {}  # (kernel, q shape, Hkv, S, dtype, causal, scale[, lse]) -> calls and the first mask
-    cuda_fwd, cuda_bwd = attn._flash_cuda, attn._flash_bwd_cuda
-
-    def record(key, kv_valid):
-        entry = seen.setdefault(key, {"calls": 0, "kv_valid": kv_valid.clone()})
-        entry["calls"] += 1
-
-    def fwd(q, k, v, kv_valid, causal, scale, return_lse):
-        record(("flash_fwd", tuple(q.shape), k.shape[1], k.shape[2], q.dtype, causal, scale, return_lse), kv_valid)
-        return cuda_fwd(q, k, v, kv_valid, causal, scale, return_lse)
-
-    def bwd(q, k, v, kv_valid, out, lse, g, causal, scale):
-        record(("flash_bwd", tuple(q.shape), k.shape[1], k.shape[2], q.dtype, causal, scale), kv_valid)
-        return cuda_bwd(q, k, v, kv_valid, out, lse, g, causal, scale)
+    seen = {}  # kernel call shape -> calls and the first mask (record_kernel_shapes)
 
     params0 = {}
 
@@ -1244,7 +1287,7 @@ def phase_train(ctx):
     for name in originals:
         setattr(PPOTrainer, name, wrap(name))
     PPOTrainer.prepare_learning = snapshot_init
-    attn._flash_cuda, attn._flash_bwd_cuda = fwd, bwd
+    restore_kernels = record_kernel_shapes(seen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -1258,7 +1301,7 @@ def phase_train(ctx):
         for name, fn in originals.items():
             setattr(PPOTrainer, name, fn)
         PPOTrainer.prepare_learning = originals_prepare
-        attn._flash_cuda, attn._flash_bwd_cuda = cuda_fwd, cuda_bwd
+        restore_kernels()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1286,9 +1329,7 @@ def phase_train(ctx):
         "learner_tok_s_mean": sum(st[3][0] * st[3][1] for st in steps) / max(sum(st[0] for st in steps), 1e-9),
         "peak_mem_gib": peak / 2 ** 30, "launches": launches, "params_changed": changed,
         "losses_finite": finite,
-        "kernel_shapes": [{"kernel": key[0], "q": list(key[1]), "kv_heads": key[2], "S": key[3],
-                           "dtype": str(key[4]), "lse": key[7] if len(key) > 7 else None, "calls": e["calls"]}
-                          for key, e in seen.items()],
+        "kernel_shapes": kernel_shapes(seen),
     }
     emit(summary)
     checks = {
@@ -1310,7 +1351,7 @@ def phase_train(ctx):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"train phase: {failed}")
-    check_main_path_shapes(ctx, seen)
+    check_main_path_shapes(ctx, seen, "train", ("flash_fwd", "flash_bwd"))
 
 
 def phase_train_serving(ctx):
@@ -1322,7 +1363,9 @@ def phase_train_serving(ctx):
     are reset just before ``train`` and read just after; K5 must have
     launched in every experience phase and K4 never, K2 and K3 once per
     layer and microbatch in every step, and the engine must hold no block
-    after every generation."""
+    after every generation. Every kernel call shape of the run is recorded
+    and afterwards held against the plain versions
+    (:func:`check_main_path_shapes`)."""
     import shutil
     import tempfile
 
@@ -1370,6 +1413,8 @@ def phase_train_serving(ctx):
         "summary": self._serving_engine.summary()})
     PPOTrainer.train_step = measured("train_step", steps, lambda self, out: {"stats": out})
     PPOTrainer.prepare_learning = prepare
+    seen = {}  # kernel call shapes of the main path (record_kernel_shapes)
+    restore_kernels = record_kernel_shapes(seen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -1382,6 +1427,7 @@ def phase_train_serving(ctx):
     finally:
         for name, fn in originals.items():
             setattr(PPOTrainer, name, fn)
+        restore_kernels()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1409,7 +1455,7 @@ def phase_train_serving(ctx):
               {k: g["summary"][k] for k in ("accepted_tok_per_round", "spec_accept_rate", "spec_rounds",
                                             "chunk_appends", "delivered_tokens", "blocks_in_use")} for g in gens],
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
-          "params_changed": changed, "losses_finite": finite})
+          "params_changed": changed, "losses_finite": finite, "kernel_shapes": kernel_shapes(seen)})
     checks = {
         "4 optimizer steps": len(steps) == 4,
         "losses finite": finite,
@@ -1429,27 +1475,88 @@ def phase_train_serving(ctx):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"train_serving phase: {failed}")
+    check_main_path_shapes(ctx, seen, "train_serving", ("flash_fwd", "flash_bwd", "paged_verify"))
 
 
-def check_main_path_shapes(ctx, seen):
-    """K1, K2 and K3 against their plain versions at every shape the train
-    phase gave them, each with the first mask the run passed at that shape
-    (left-padded prompts, right-padded responses), in the run's dtype and in
-    f32; inputs are seeded normals. Tolerances as in the kernels phase."""
+def record_kernel_shapes(seen):
+    """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
+    (``_flash_bwd_cuda``) and K5's wrapper so that every distinct call shape
+    of a main path is recorded in ``seen`` with its call count and the first
+    mask (K5: block tables and lens) passed at that shape. The wrappers only
+    record; the launches and their counts are the kernels' own. Returns the
+    function that restores the entry points."""
+    from trlx_tpu_torch.ops import attention as attn
+    from trlx_tpu_torch.ops import paged_attention as paged
+
+    cuda_fwd, cuda_bwd, verify = attn._flash_cuda, attn._flash_bwd_cuda, paged.paged_verify_attention_kernel
+
+    def record(key, **first):
+        entry = seen.setdefault(key, {"calls": 0, **{k: v.clone() for k, v in first.items()}})
+        entry["calls"] += 1
+
+    def fwd(q, k, v, kv_valid, causal, scale, return_lse):
+        record(("flash_fwd", tuple(q.shape), k.shape[1], k.shape[2], q.dtype, causal, scale, return_lse),
+               kv_valid=kv_valid)
+        return cuda_fwd(q, k, v, kv_valid, causal, scale, return_lse)
+
+    def bwd(q, k, v, kv_valid, out, lse, g, causal, scale):
+        record(("flash_bwd", tuple(q.shape), k.shape[1], k.shape[2], q.dtype, causal, scale), kv_valid=kv_valid)
+        return cuda_bwd(q, k, v, kv_valid, out, lse, g, causal, scale)
+
+    def paged_verify(q, k_pool, v_pool, block_tables, context_lens, *, k_scale=None, v_scale=None, scale=None):
+        record(("paged_verify", tuple(q.shape), tuple(k_pool.shape), q.dtype, k_pool.dtype, scale),
+               block_tables=block_tables, context_lens=context_lens)
+        return verify(q, k_pool, v_pool, block_tables, context_lens, k_scale=k_scale, v_scale=v_scale, scale=scale)
+
+    attn._flash_cuda, attn._flash_bwd_cuda, paged.paged_verify_attention_kernel = fwd, bwd, paged_verify
+
+    def restore():
+        attn._flash_cuda, attn._flash_bwd_cuda, paged.paged_verify_attention_kernel = cuda_fwd, cuda_bwd, verify
+
+    return restore
+
+
+def kernel_shapes(seen):
+    """The recorded call shapes (:func:`record_kernel_shapes`) as JSON."""
+    out = []
+    for key, e in seen.items():
+        if key[0] == "paged_verify":
+            out.append({"kernel": key[0], "q": list(key[1]), "pool": list(key[2]), "dtype": str(key[3]),
+                        "kv": str(key[4]), "calls": e["calls"]})
+        else:
+            out.append({"kernel": key[0], "q": list(key[1]), "kv_heads": key[2], "S": key[3], "dtype": str(key[4]),
+                        "lse": key[7] if len(key) > 7 else None, "calls": e["calls"]})
+    return out
+
+
+def check_main_path_shapes(ctx, seen, phase, kinds):
+    """Each kernel against its plain version at every shape the phase's main
+    path gave it (:func:`record_kernel_shapes`), in the run's dtype and in
+    f32, on seeded normal inputs: K1, K2 and K3 with the first mask the run
+    passed at that shape (left-padded prompts, right-padded responses, a
+    wave's padding), K5 with the first block tables and PRE-append lens (idle
+    and mid-prefill slots included) over pools of the run's shape and layout
+    (int8 pools quantized from normals). Tolerances as in the kernels phase.
+    Fails when a kernel of ``kinds`` was never recorded."""
     import torch
 
-    if not any(key[0] == "flash_bwd" for key in seen):
-        raise AssertionError("train phase: no flash backward call was recorded")
-    dev = next(iter(seen.values()))["kv_valid"].device
+    missing = [k for k in kinds if not any(key[0] == k for key in seen)]
+    if missing:
+        raise AssertionError(f"{phase} phase: no call of {missing} was recorded")
+    first = next(iter(seen.values()))
+    dev = (first["kv_valid"] if "kv_valid" in first else first["context_lens"]).device
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     errs = ctx.setdefault("max_abs_err", {})
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_verify"):
         errs.setdefault(name, 0.0)
     results = []
     for key, entry in seen.items():
+        if key[0] == "paged_verify":
+            results += replay_paged_verify(torch, gen, key, entry, errs)
+            continue
         kind, (B, H, T, D), Hkv, S, run_dtype, causal, scale = key[:7]
         valid = entry["kv_valid"]
-        case = f"train: {kind} B={B} T={T} S={S}, {entry['calls']} calls"
+        case = f"{phase}: {kind} B={B} T={T} S={S}, {entry['calls']} calls"
         for dtype in dict.fromkeys((run_dtype, torch.float32)):
             q, k, v, g, _ = bwd_case(torch, gen, B, H, Hkv, T, S, D, (), dtype, dev)
             if kind == "flash_fwd":
@@ -1457,10 +1564,46 @@ def check_main_path_shapes(ctx, seen):
             else:
                 results += compare_bwd(torch, case, q, k, v, g, valid, errs, causal=causal, scale=scale)
     for r in results:
-        emit({"phase": "train", "check": "kernel at a main-path shape", **r})
+        emit({"phase": phase, "check": "kernel at a main-path shape", **r})
     bad = [r for r in results if not r["ok"]]
     if bad:
-        raise AssertionError(f"train phase: kernel disagrees with its plain version at a main-path shape: {bad}")
+        raise AssertionError(f"{phase} phase: kernel disagrees with its plain version at a main-path shape: {bad}")
+
+
+def replay_paged_verify(torch, gen, key, entry, errs):
+    """K5 against paged_verify_attention_reference at one recorded main-path
+    shape: the run's block tables and lens, seeded pools of the run's shape
+    (int8 from quantized normals, else the run's dtype), q in the run's dtype
+    and in f32 (f32 pools with it unless int8)."""
+    from trlx_tpu_torch.models.transformer import quantize_kv_rows
+    from trlx_tpu_torch.ops.paged_attention import paged_verify_attention_kernel, paged_verify_attention_reference
+
+    _, (B, Q, H, D), pool_shape, run_dtype, kv_dtype, scale = key
+    tables, lens = entry["block_tables"], entry["context_lens"]
+    dev = lens.device
+    kf = torch.randn(*pool_shape, generator=gen, device=dev)
+    vf = torch.randn(*pool_shape, generator=gen, device=dev)
+    results = []
+    for dtype in dict.fromkeys((run_dtype, torch.float32)):
+        case = dict(q=torch.randn(B, Q, H, D, generator=gen, device=dev).to(dtype), block_tables=tables,
+                    context_lens=lens)
+        if kv_dtype == torch.int8:
+            (kq, ks), (vq, vs) = quantize_kv_rows(kf), quantize_kv_rows(vf)
+            case.update(k_pool=kq, v_pool=vq, k_scale=ks[..., 0].contiguous(), v_scale=vs[..., 0].contiguous())
+        else:
+            case.update(k_pool=kf.to(dtype), v_pool=vf.to(dtype))
+        out = paged_call(lambda *a, **kw: paged_verify_attention_kernel(*a, **kw, scale=scale), case)
+        ref = paged_call(lambda *a, **kw: paged_verify_attention_reference(*a, **kw, scale=scale), case)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL[str(dtype).split(".")[-1]] * max(1.0, ref.float().abs().max().item())
+        ok = err <= tol and bool(torch.isfinite(out.float()).all())
+        results.append({"kernel": "paged_verify", "case": f"B={B} Q={Q} MB={tables.shape[1]}, {entry['calls']} calls, "
+                                                          f"lens {int(lens.min())}..{int(lens.max())}",
+                        "dtype": str(dtype), "kv": str(kv_dtype).split(".")[-1], "max_abs_err": err, "tol": tol,
+                        "ok": ok})
+        errs["paged_verify"] = max(errs["paged_verify"], err)
+    return results
 
 
 def kernel_table(ctx):

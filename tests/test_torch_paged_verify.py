@@ -7,7 +7,9 @@ pools, MHA and GQA, with a prefix-shared block, a query run crossing a block
 edge, ``lens + Q`` reaching the table's end and an idle slot at len 0 on the
 null block. At Q=1 the plain verify must equal the plain decode at lens + 1
 bit for bit; ``write_paged_kv_multi`` (with the drop past the table and a
-null-block landing) and ``count_accepted_drafts`` must equal JAX's."""
+null-block landing) and ``count_accepted_drafts`` must equal JAX's. The
+append rows (``paged_write_rows``) are computed once per multi-token
+forward and shared by its layers, with the same writes."""
 
 import numpy as np
 import pytest
@@ -28,9 +30,13 @@ from trlx_tpu_torch.ops.paged_attention import (
     paged_verify_attention,
     paged_verify_attention_kernel,
     paged_verify_attention_reference,
+    paged_write_rows,
     write_paged_kv,
     write_paged_kv_multi,
 )
+from trlx_tpu_torch.models import transformer as transformer_mod
+from trlx_tpu_torch.models.presets import PRESETS
+from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.sampling import count_accepted_drafts
 
 pytestmark = pytest.mark.torch_port
@@ -148,6 +154,49 @@ def test_write_paged_kv_multi_bit_exact(quant):
     write_paged_kv_multi(multi, torch.from_numpy(k_new[:, :1]), torch.from_numpy(v_new[:, :1]))
     for key in pools:
         assert torch.equal(single[key], multi[key]), key
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8kv"])
+def test_write_rows_computed_once_are_the_same_writes(quant):
+    """``paged_write_rows`` keeps only positions inside the table, and a
+    cache carrying them (as every layer of one forward does) writes exactly
+    what the per-call computation writes."""
+    rng = np.random.default_rng(5)
+    pools = _pools(rng, quant)
+    tables = torch.from_numpy(np.array([[1, 2, 3, 5], [1, 4, 6, 0], [7, 8, 0, 0], [9, 0, 0, 0]], np.int32))
+    lens = torch.from_numpy(np.array([14, 3, 7, 30], np.int32))
+    rows, keep = paged_write_rows(tables, lens, 3, BS)
+    assert keep.tolist() == [0, 1, 3, 4, 5, 6, 7, 8]  # slot 0's third token and slot 3 dropped
+    assert rows.tolist() == [5 * BS + 2, 5 * BS + 3, 1 * BS + 3, 4 * BS + 0, 4 * BS + 1, 8 * BS + 3, 0, 1]
+    k_new = torch.from_numpy(rng.standard_normal((B, 3, HKV, D)).astype(np.float32))
+    v_new = torch.from_numpy(rng.standard_normal((B, 3, HKV, D)).astype(np.float32))
+    caches = []
+    for write_rows in (None, (rows, keep)):
+        cache = {key: torch.from_numpy(val.copy()) for key, val in pools.items()}
+        cache.update(block_tables=tables, context_lens=lens)
+        if write_rows is not None:
+            cache["write_rows"] = write_rows
+        caches.append(write_paged_kv_multi(cache, k_new, v_new))
+    for key in pools:
+        assert torch.equal(caches[0][key], caches[1][key]), key
+
+
+def test_paged_verify_filters_the_append_once_per_forward(monkeypatch):
+    """A multi-token forward computes its append rows (the one host sync of
+    the drop filter) once for all layers, not once per layer."""
+    cfg = PRESETS["gpt2"].replace(vocab_size=37, hidden_size=16, num_layers=3, num_heads=2,
+                                  max_position_embeddings=64, compute_dtype=torch.float32)
+    model = TransformerLM(cfg, device="cpu").init_params(0)
+    cache = model.init_paged_cache(num_blocks=9, block_size=4, max_blocks_per_seq=4, batch_size=2)
+    cache["block_tables"][0] = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    cache["context_lens"][0] = 5
+    calls = []
+    monkeypatch.setattr(transformer_mod, "paged_write_rows", lambda *a: calls.append(a) or paged_write_rows(*a))
+    with torch.no_grad():
+        logits, _, _ = model.paged_verify(torch.tensor([[3, 4, 5], [0, 0, 0]]), cache)
+    assert len(calls) == 1 and logits.shape == (2, 3, 37) and torch.isfinite(logits).all()
+    assert cache["k"][0][2].abs().sum() > 0  # slot 0's tokens landed in block 2 of every layer
+    assert all(cache["k"][i][2].abs().sum() > 0 for i in range(3))
 
 
 def test_count_accepted_drafts_matches_jax():

@@ -15,11 +15,14 @@
 // - verify: q [B,Q,H,D], Q tokens appended per slot; lens count the tokens
 //   BEFORE the append; query j sees positions < lens + j + 1.
 //
-// Both are the same kernel: the Q query tokens fold into the grouped-head
+// Both are one kernel body: the Q query tokens fold into the grouped-head
 // row axis (row r is query r / rep, head r % rep of the CTA's kv head), and
-// row r's mask limit is lens + r / rep + offset, with offset 0 for decode
-// and 1 for verify. So verify at Q=1 with lens is decode with lens+1, bit
-// for bit: the same instructions run on the same values.
+// row r's mask limit is lens + r / rep + OFFSET, with OFFSET 0 for decode
+// and 1 for verify. VERIFY is a template parameter: the decode instance
+// has OFFSET 0, Q = 1 and one tile of rep rows as compile-time constants,
+// so it folds to the single-token kernel; verify at Q=1 with lens runs the
+// same block walk, products and reductions on the same values as decode
+// with lens+1, bit for bit.
 //
 // What bounds it on the H100: Q*rep query rows against a slot's context,
 // ~4*Q*rep flops per KV element, far below the ~295 flops/byte ridge at the
@@ -66,19 +69,21 @@ size_t smem_bytes(int rows, int D, int BS) {
          (size_t)(2 * rows * D + BS * (D + 1) + BS * D + rows * BS + 2 * BS + 3 * rows);
 }
 
-// grid (B, Hkv, row tiles); q/out [B, Q, H, D] (decode: Q = 1)
-template <typename QT, typename KVT, bool QUANT>
+// grid (B, Hkv, row tiles); q/out [B, Q, H, D]. The decode instance
+// (VERIFY false) takes q/out [B, H, D] and ignores Q and tile_rows.
+template <typename QT, typename KVT, bool QUANT, bool VERIFY>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
                   const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
                   const int32_t* __restrict__ lens, QT* __restrict__ out, int Q, int H, int Hkv,
-                  int D, int BS, int MB, int tile_rows, int offset, float scale) {
+                  int D, int BS, int MB, int tile_rows, float scale) {
+  constexpr int OFFSET = VERIFY ? 1 : 0;
   const int b = blockIdx.x;
   const int hk = blockIdx.y;
   const int rep = H / Hkv;
-  const int r0 = blockIdx.z * tile_rows;  // first row of this tile in [0, Q*rep)
-  const int rows = min(tile_rows, Q * rep - r0);
+  const int r0 = VERIFY ? blockIdx.z * tile_rows : 0;  // first row of this tile in [0, Q*rep)
+  const int rows = VERIFY ? min(tile_rows, Q * rep - r0) : rep;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int DK = D + 1;
@@ -96,18 +101,20 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
   float* alpha_s = l_s + rows;       // [rows]
 
   const int len = lens[b];
-  // the tile's last row sees the most positions
-  const int limit_max = len + (r0 + rows - 1) / rep + offset;
-  const int n_blocks = min((limit_max + BS - 1) / BS, MB);
+  // row r sees positions below its limit; the tile's last row sees the most
+  auto row_limit = [&](int r) -> int { return VERIFY ? len + (r0 + r) / rep + OFFSET : len; };
+  const int n_blocks = min((row_limit(rows - 1) + BS - 1) / BS, MB);
 
-  // element (row r, dim d) of q/out: query j = (r0 + r) / rep, head hk*rep + (r0 + r) % rep
-  auto qo_index = [&](int r, int d) -> size_t {
-    const int gr = r0 + r;
-    return (((size_t)b * Q + gr / rep) * H + (size_t)hk * rep + gr % rep) * D + d;
+  // element i = r * D + d of the tile in q/out: row r is query (r0 + r) / rep,
+  // head hk*rep + (r0 + r) % rep (decode: the CTA's rep heads, contiguous)
+  auto qo_index = [&](int i) -> size_t {
+    if (!VERIFY) return ((size_t)b * H + (size_t)hk * rep) * D + i;
+    const int gr = r0 + i / D;
+    return (((size_t)b * Q + gr / rep) * H + (size_t)hk * rep + gr % rep) * D + i % D;
   };
 
   for (int i = tid; i < rows * D; i += THREADS) {
-    q_s[i] = to_f32(q[qo_index(i / D, i % D)]);
+    q_s[i] = to_f32(q[qo_index(i)]);
     acc_s[i] = 0.f;
   }
   for (int r = tid; r < rows; r += THREADS) {
@@ -139,7 +146,7 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
       for (int d = 0; d < D; ++d) dot = fmaf(q_s[r * D + d], k_s[t * DK + d], dot);
       float s = dot * scale;
       if (QUANT) s *= ks_s[t];
-      p_s[i] = j * BS + t < len + (r0 + r) / rep + offset ? s : NEG_INF;
+      p_s[i] = j * BS + t < row_limit(r) ? s : NEG_INF;
     }
     __syncthreads();
 
@@ -181,18 +188,18 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
 
   for (int i = tid; i < rows * D; i += THREADS) {
     const float l = l_s[i / D];
-    out[qo_index(i / D, i % D)] = from_f32<QT>(acc_s[i] / (l == 0.f ? 1.f : l));
+    out[qo_index(i)] = from_f32<QT>(acc_s[i] / (l == 0.f ? 1.f : l));
   }
 }
 
-template <typename QT, typename KVT, bool QUANT>
+template <typename QT, typename KVT, bool QUANT, bool VERIFY>
 int launch(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
            const float* v_scale, const int32_t* tables, const int32_t* lens, void* out, int B,
-           int Q, int H, int Hkv, int D, int BS, int MB, int tile_rows, int offset, float scale,
+           int Q, int H, int Hkv, int D, int BS, int MB, int tile_rows, float scale,
            cudaStream_t stream) {
   const int total_rows = Q * (H / Hkv);
   const size_t smem = smem_bytes(tile_rows, D, BS);
-  auto kernel = paged_attn_kernel<QT, KVT, QUANT>;
+  auto kernel = paged_attn_kernel<QT, KVT, QUANT, VERIFY>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -200,32 +207,33 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const float* k
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), k_scale, v_scale, tables, lens, static_cast<QT*>(out),
-      Q, H, Hkv, D, BS, MB, tile_rows, offset, scale);
+      Q, H, Hkv, D, BS, MB, tile_rows, scale);
   return (int)cudaGetLastError();
 }
 
+template <bool VERIFY>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
              const void* v_scale, const void* tables, const void* lens, void* out, int B, int Q,
-             int H, int Hkv, int D, int BS, int MB, int tile_rows, int offset, float scale,
-             int q_dtype, int kv_dtype, void* stream) {
+             int H, int Hkv, int D, int BS, int MB, int tile_rows, float scale, int q_dtype,
+             int kv_dtype, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int32_t* tb = static_cast<const int32_t*>(tables);
   const int32_t* ln = static_cast<const int32_t*>(lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float, false>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H, Hkv, D,
-                                       BS, MB, tile_rows, offset, scale, st);
+    return launch<float, float, false, VERIFY>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H,
+                                               Hkv, D, BS, MB, tile_rows, scale, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(q, k_pool, v_pool, ks, vs, tb, ln, out,
-                                                       B, Q, H, Hkv, D, BS, MB, tile_rows,
-                                                       offset, scale, st);
+    return launch<__nv_bfloat16, __nv_bfloat16, false, VERIFY>(
+        q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H, Hkv, D, BS, MB, tile_rows, scale, st);
   if (q_dtype == 0 && kv_dtype == 2)
-    return launch<float, int8_t, true>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H, Hkv, D,
-                                       BS, MB, tile_rows, offset, scale, st);
+    return launch<float, int8_t, true, VERIFY>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H,
+                                               Hkv, D, BS, MB, tile_rows, scale, st);
   if (q_dtype == 1 && kv_dtype == 2)
-    return launch<__nv_bfloat16, int8_t, true>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q, H,
-                                               Hkv, D, BS, MB, tile_rows, offset, scale, st);
+    return launch<__nv_bfloat16, int8_t, true, VERIFY>(q, k_pool, v_pool, ks, vs, tb, ln, out, B,
+                                                       Q, H, Hkv, D, BS, MB, tile_rows, scale,
+                                                       st);
   return -2;
 }
 
@@ -241,8 +249,8 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
                             const void* k_scale, const void* v_scale, const void* tables,
                             const void* lens, void* out, int B, int H, int Hkv, int D, int BS,
                             int MB, float scale, int q_dtype, int kv_dtype, void* stream) {
-  return dispatch(q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, B, 1, H, Hkv, D, BS,
-                  MB, H / Hkv, 0, scale, q_dtype, kv_dtype, stream);
+  return dispatch<false>(q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, B, 1, H, Hkv, D,
+                         BS, MB, H / Hkv, scale, q_dtype, kv_dtype, stream);
 }
 
 // K5: q/out [B,Q,H,D]; lens count the tokens before the append. Tiles of
@@ -255,6 +263,6 @@ extern "C" int paged_verify(const void* q, const void* k_pool, const void* v_poo
   const int rep = H / Hkv;
   const int widest = rep > ROW_TILE ? rep : ROW_TILE;
   const int tile_rows = Q * rep < widest ? Q * rep : widest;
-  return dispatch(q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, B, Q, H, Hkv, D, BS,
-                  MB, tile_rows, 1, scale, q_dtype, kv_dtype, stream);
+  return dispatch<true>(q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, B, Q, H, Hkv, D,
+                        BS, MB, tile_rows, scale, q_dtype, kv_dtype, stream);
 }

@@ -43,6 +43,7 @@ from trlx_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_pool_layout,
     paged_verify_attention,
+    paged_write_rows,
     write_paged_kv,
     write_paged_kv_multi,
 )
@@ -719,9 +720,12 @@ class TransformerLM(nn.Module):
             emb_positions = positions.clamp(max=c.max_position_embeddings - 1)
         x = self.embed(input_ids, emb_positions)
         pool_keys = [k for k in cache if k not in ("block_tables", "context_lens")]
+        shared = {"block_tables": cache["block_tables"], "context_lens": cache["context_lens"]}
+        if input_ids.shape[1] > 1:  # every layer appends to the same rows
+            shared["write_rows"] = paged_write_rows(
+                cache["block_tables"], cache["context_lens"], input_ids.shape[1], cache["k"][0].shape[1])
         for i, layer in enumerate(self.layers):
             layer_cache = {key: cache[key][i] for key in pool_keys}
-            layer_cache["block_tables"] = cache["block_tables"]
-            layer_cache["context_lens"] = cache["context_lens"]
+            layer_cache.update(shared)
             x, _ = layer(x, None, positions, layer_cache, None)
         return x

@@ -15,7 +15,8 @@ addresses its tokens through a per-sequence block table.
   :func:`paged_verify_attention_kernel` (the kernel ``paged_verify`` in the
   same source) and :func:`paged_verify_attention`;
 - the in-place pool writes :func:`write_paged_kv` (one token per slot) and
-  :func:`write_paged_kv_multi` (Q tokens per slot).
+  :func:`write_paged_kv_multi` (Q tokens per slot, landing where
+  :func:`paged_write_rows` says).
 
 A wrapper takes the plain version for a CPU tensor; a CUDA tensor launches
 the kernel or raises.
@@ -350,31 +351,43 @@ def write_paged_kv(cache: Dict[str, torch.Tensor], k_new: torch.Tensor, v_new: t
     return cache
 
 
+def paged_write_rows(block_tables: torch.Tensor, context_lens: torch.Tensor, Q: int, block_size: int):
+    """Where a Q-token append lands: ``(rows, keep)``, with ``keep`` the
+    indices into the flattened ``[B * Q]`` tokens whose position
+    ``context_lens + j`` lies inside the table's reach (``max_blocks *
+    block_size``), and ``rows`` their flat rows in the ``(num_blocks *
+    block_size)`` pool. Positions past the reach are dropped (the JAX
+    package's ``mode="drop"``): filtering them costs one device-to-host
+    sync, so a forward computes this once for all its layers."""
+    tables = block_tables.long()
+    MB = tables.shape[1]
+    pos = context_lens.long()[:, None] + torch.arange(Q, device=tables.device)[None, :]
+    pos_c = pos.clamp(max=MB * block_size - 1)
+    blk = torch.gather(tables, 1, pos_c // block_size)
+    keep = torch.nonzero((pos < MB * block_size).reshape(-1))[:, 0]  # the one sync
+    rows = (blk * block_size + pos_c % block_size).reshape(-1)[keep]
+    return rows, keep
+
+
 def write_paged_kv_multi(cache: Dict[str, torch.Tensor], k_new: torch.Tensor, v_new: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Write Q tokens' K/V per slot IN PLACE: ``k_new``/``v_new`` ``[B, Q,
     Hkv, D]``, token j landing at position ``context_lens + j`` through the
     slot's block table (lens = tokens already present, as in
     :func:`write_paged_kv`). Returns ``cache``.
 
-    Positions at or past the table's reach (``max_blocks * block_size``) are
-    dropped (the JAX package's ``mode="drop"``: the indices are filtered,
-    which costs one device-to-host sync per call); positions whose table
-    entry is 0 land in the null block. Quantization is per ``[Hkv, D]`` row
-    through ``quantize_kv_rows``, as the single-token write does, which is
-    what keeps the speculative path bit-identical to one-token decode. Idle
-    slots may write the same null-block rows: the stored value is then any
-    one of them, harmless because the null block is never read as valid."""
+    Positions at or past the table's reach are dropped and positions whose
+    table entry is 0 land in the null block (:func:`paged_write_rows`; a
+    ``cache["write_rows"]`` computed once per forward is used as it is).
+    Quantization is per ``[Hkv, D]`` row through ``quantize_kv_rows``, as the
+    single-token write does, which is what keeps the speculative path
+    bit-identical to one-token decode. Idle slots may write the same
+    null-block rows: the stored value is then any one of them, harmless
+    because the null block is never read as valid."""
     from trlx_tpu_torch.models.transformer import quantize_kv_rows
 
     NB, BS, Hkv, D = cache["k"].shape
     B, Q = k_new.shape[:2]
-    tables = cache["block_tables"].long()
-    MB = tables.shape[1]
-    pos = cache["context_lens"].long()[:, None] + torch.arange(Q, device=tables.device)[None, :]
-    pos_c = pos.clamp(max=MB * BS - 1)
-    blk = torch.gather(tables, 1, pos_c // BS)
-    keep = torch.nonzero((pos < MB * BS).reshape(-1))[:, 0]  # the call's one sync
-    rows = (blk * BS + pos_c % BS).reshape(-1)[keep]  # flat rows in the (NB*BS) pool
+    rows, keep = cache.get("write_rows") or paged_write_rows(cache["block_tables"], cache["context_lens"], Q, BS)
 
     def scatter(pool, vals):
         vals = vals.reshape(B * Q, *pool.shape[2:])[keep]

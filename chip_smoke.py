@@ -11,14 +11,21 @@ Phases, each printing one JSON line:
 1. ``env``      — card name and power limit (the ``nvidia-smi`` line is also
                   printed on its own), torch / CUDA versions; TF32 off.
 2. ``build``    — compile every kernel from ``trlx_tpu_torch/csrc`` (one
-                  nvcc per source, in parallel), seconds taken.
+                  nvcc per source, in parallel), seconds taken, ptxas's
+                  registers and spills per function, and the flash
+                  backward's HMMA (tensor-core) instructions per kernel
+                  instance from ``cuobjdump --dump-sass``: every bf16
+                  instance must have some, and the D=64 ones no spill.
 3. ``kernels``  — each kernel against its plain PyTorch version on the card
                   at the main paths' shapes: flash prefill (K1) in bf16 and
                   f32, paged decode (K4) in bf16 and int8, the flash backward
-                  dK/dV (K2) and dQ (K3) in f32 and bf16 over MHA, GQA, MQA,
-                  ragged T/S, left padding and a fully masked batch row, and
-                  the whole autograd path against autograd through the plain
-                  forward; the paged verify (K5) over MHA and GQA, Q = 1, 2,
+                  dK/dV (K2) and dQ (K3) in f32 and bf16 over MHA, GQA, MQA
+                  (rep 1, 3, 4, 8, 12), ragged T/S, T = S = 16 and 17, every
+                  head dim, left padding, a key tile with no valid key, a
+                  query tile of dead rows, a fully masked batch row and a
+                  non-causal case; two launches of each on the same inputs
+                  equal bit for bit; and the whole autograd path against
+                  autograd through the plain forward; the paged verify (K5) over MHA and GQA, Q = 1, 2,
                   5, a 64-token chunk and more rows than one row tile, f32,
                   bf16 and int8 pools, ragged lens, block edges, the table's
                   end and idle slots, and K5 at Q=1 equal to K4 at lens + 1
@@ -27,8 +34,12 @@ Phases, each printing one JSON line:
 4. ``timing``   — CUDA-event times of kernel, plain version and the library
                   yardstick (SDPA for K1, SDPA's backward for K2 and K3; none
                   for K4 and K5) beside the bound max(bytes / 3.35 TB/s,
-                  flops / 989 TFLOP/s); K2 and K3 each alone at the learner's
-                  shape; K5 at the engine's verify shape and a chunk append.
+                  flops / 989 TFLOP/s); K2, K3 and SDPA's backward (its
+                  backend pinned: the fastest that serves the mask) timed in
+                  turns, five rounds of >= 200 launches and >= 50 ms each,
+                  as median, min and max, at the training shape and the
+                  learner's; K5 at the engine's verify shape and a chunk
+                  append.
 5. ``parity``   — the engine on the card against the same engine on the CPU
                   (plain versions): gpt2 widths at 2 layers, f32, 8 prompts x
                   16 greedy tokens must be identical.
@@ -251,17 +262,65 @@ def phase_env(ctx):
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
 
+def ptxas_per_function(log):
+    """``-Xptxas=-v`` output as {mangled function: {registers, spill_stores,
+    spill_loads}}."""
+    import re
+
+    funcs, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
+        if m:
+            name = m.group(1)
+            funcs.setdefault(name, {})
+        elif name and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
+            funcs[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            funcs[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return funcs
+
+
+def sass_hmma_counts(lib_path):
+    """{mangled function: number of HMMA (tensor-core) instructions} in a
+    built library's SASS (``cuobjdump --dump-sass``, from the CUDA toolkit)."""
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", ln):
+            counts[name] += 1
+    return counts
+
+
 def phase_build(ctx):
+    """Build every source; report ptxas's registers and spills per function
+    and, for the flash backward, the tensor-core (HMMA) instruction count per
+    kernel instance. Fails when a bf16 backward instance has no HMMA or a
+    D=64 one spills."""
     from trlx_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
     per_kernel = _kernels.build()
     for name in _kernels.KERNELS:
         _kernels.library(name)  # load, so a bad library fails here
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for name, log in _kernels.BUILD_LOG.items()}
+    ptxas = {stem: ptxas_per_function(log) for stem, log in _kernels.BUILD_LOG.items()}
+    hmma = sass_hmma_counts(_kernels._lib_path("flash_bwd.cu"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": per_kernel, "ptxas": ptxas})
+          "per_kernel_s": per_kernel, "ptxas": ptxas, "flash_bwd_hmma": hmma})
+    tc = {f: n for f, n in hmma.items() if "_mma_kernel" in f}
+    bad = [f for f in ("dkv_mma_kernel", "dq_mma_kernel") if sum(n > 0 for g, n in tc.items() if f in g) != 5]
+    spills = {f: p for f, p in ptxas.get("flash_bwd", {}).items()
+              if "_mma_kernelILi64E" in f and p.get("spill_stores", 0) + p.get("spill_loads", 0) > 0}
+    if bad or spills:
+        raise AssertionError(f"flash_bwd bf16 instances: no HMMA in {bad} (of {tc}); D=64 spills {spills}")
 
 
 def phase_kernels(ctx):
@@ -390,6 +449,18 @@ BWD_CASES = [
     ("ragged_t37", 3, 4, 4, 37, 37, 64, (0, 3, 36)),
     ("gqa_d128", 2, 8, 2, 100, 100, 128, (17, 0)),
     ("fully_masked_row", 2, 4, 2, 70, 70, 64, (70, 9)),
+    # the tensor-core tiling's edges: T = S below one tile, every head dim,
+    # rep 12, a key tile with no valid key and a query tile of dead rows
+    ("t16", 2, 4, 4, 16, 16, 64, (0, 5)),
+    ("t17", 2, 4, 2, 17, 17, 64, (3, 0)),
+    ("d16", 2, 4, 4, 80, 80, 16, (0, 7)),
+    ("d96_gqa", 2, 4, 2, 80, 80, 96, (9, 0)),
+    ("mqa_rep12", 2, 12, 1, 130, 130, 64, (0, 70)),
+    ("dead_tiles", 2, 4, 4, 200, 200, 64, (64, 130)),
+]
+#: non-causal flash backward cases (the same fields)
+BWD_CASES_NONCAUSAL = [
+    ("noncausal_gqa_t70_s130", 2, 6, 2, 70, 130, 64, (0, 66)),
 ]
 
 
@@ -406,18 +477,37 @@ def bwd_case(torch, gen, B, H, Hkv, T, S, D, pad, dtype, dev):
     return q, k, v, g, valid
 
 
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def check_flash_backward(torch, gen, dev, errs):
     """K2 (dK/dV) and K3 (dQ) against flash_backward_reference on the same
     CUDA tensors (out and lse from K1), f32 and bf16; then the whole autograd
-    path against autograd through attention_reference in f32. Tolerance:
-    max abs error <= TOL[dtype] * max(1, max|grad|)."""
-    from trlx_tpu_torch.ops.attention import attention_reference, flash_attention, set_flash_backward
+    path against autograd through attention_reference in f32, and two
+    launches of each kernel on the same inputs, which must be equal bit for
+    bit. Tolerance: max abs error <= TOL[dtype] * max(1, max|grad|)."""
+    from trlx_tpu_torch.ops.attention import (
+        attention_reference, bwd_delta, flash_attention, flash_bwd_dkv, flash_bwd_dq, set_flash_backward,
+    )
 
     results = []
-    for name, B, H, Hkv, T, S, D, pad in BWD_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, g, valid = bwd_case(torch, gen, B, H, Hkv, T, S, D, pad, dtype, dev)
-            results += compare_bwd(torch, name, q, k, v, g, valid, errs, zero_row=name == "fully_masked_row")
+    for causal, cases in ((True, BWD_CASES), (False, BWD_CASES_NONCAUSAL)):
+        for name, B, H, Hkv, T, S, D, pad in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, g, valid = bwd_case(torch, gen, B, H, Hkv, T, S, D, pad, dtype, dev)
+                results += compare_bwd(torch, name, q, k, v, g, valid, errs, causal=causal,
+                                       zero_row=name == "fully_masked_row")
+    # determinism: no atomics, so two launches on the same inputs give the same bits
+    for dtype in (torch.float32, torch.bfloat16):
+        name, B, H, Hkv, T, S, D, pad = BWD_CASES[0]
+        q, k, v, g, valid = bwd_case(torch, gen, B, H, Hkv, T, S, D, pad, dtype, dev)
+        out, lse = flash_attention(q, k, v, valid, return_lse=True)
+        delta = bwd_delta(q, k, v, valid, out, lse, g)
+        for kernel, fn in (("flash_bwd_dkv", flash_bwd_dkv), ("flash_bwd_dq", flash_bwd_dq)):
+            first, second = (as_tuple(fn(q, k, v, valid, g, lse, delta)) for _ in range(2))
+            results.append({"kernel": kernel, "case": f"{name}: two launches equal", "dtype": str(dtype),
+                            "ok": all(torch.equal(a, b) for a, b in zip(first, second))})
     # the autograd path: flash_attention(...).backward through K1, K2 and K3
     prev = set_flash_backward("pallas")
     try:
@@ -590,9 +680,8 @@ def time_flash_backward(torch, F, gen, dev):
     T=S=257: 128 prompt bytes + 128 sampled tokens + the eos the trainer
     appends), beside their plain versions (each recomputes P and dS as its
     kernel does), the SDPA backward (the library call computing dQ, dK and
-    dV together: ``torch.autograd.grad`` of SDPA's output, timed alone) and
-    each kernel's bound. The timed outputs are held against the plain ones
-    with the kernels phase's tolerance."""
+    dV together: ``torch.autograd.grad`` of SDPA's output, its backend
+    pinned) and each kernel's bound (:func:`time_flash_backward_at`)."""
     timings = time_flash_backward_at(torch, F, gen, dev, 32, 128, 128)
     learner = time_flash_backward_at(torch, F, gen, dev, TRAIN_MB, TRAIN_P, TRAIN_N + 1)
     for name in timings:
@@ -600,7 +689,52 @@ def time_flash_backward(torch, F, gen, dev):
     return timings
 
 
+#: SDPA backends probed for the backward yardstick (torch.nn.attention.SDPBackend names)
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "EFFICIENT_ATTENTION", "FLASH_ATTENTION", "MATH")
+
+
+def interleaved_ms(torch, fns, repeats=5, min_launches=200, min_ms=50.0):
+    """CUDA-event ms per launch of each no-argument call in ``fns``, timed in
+    turns (all calls once per round, ``repeats`` rounds), each timing over
+    max(min_launches, enough launches for min_ms of device time). Returns
+    {name: {"ms": median, "min", "max", "launches", "runs"}}."""
+    per = {name: cuda_time_ms(fn, iters=20, warmup=5) for name, fn in fns.items()}
+    n = {name: max(min_launches, int(min_ms / max(ms, 1e-6)) + 1) for name, ms in per.items()}
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            runs[name].append(cuda_time_ms(fn, iters=n[name], warmup=2))
+    return {name: {"ms": sorted(r)[len(r) // 2], "min": min(r), "max": max(r), "launches": n[name], "runs": r}
+            for name, r in runs.items()}
+
+
+def sdpa_backward_call(torch, F, q, k, v, g, mask):
+    """The fastest SDPA backward over the backends that serve this boolean
+    mask: each backend is pinned with ``sdpa_kernel`` for its forward (the
+    backward runs the node that forward recorded) and timed briefly. Returns
+    (call, backend name, its grad_fn's name, {backend: ms or "unsupported"})."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    probes, calls = {}, {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        except RuntimeError:
+            probes[name] = "unsupported"
+            continue
+        calls[name] = (lambda o=out: torch.autograd.grad(o, (qs, ks, vs), g, retain_graph=True), out.grad_fn.name())
+        probes[name] = cuda_time_ms(calls[name][0])
+    best = min(calls, key=lambda name: probes[name])
+    return calls[best][0], best, calls[best][1], probes
+
+
 def time_flash_backward_at(torch, F, gen, dev, B, P, R, H=12, D=64):
+    """K2, K3 and the pinned SDPA backward at one shape, interleaved
+    (:func:`interleaved_ms`: median, min and max of 5 rounds), the plain
+    versions beside them; the timed outputs are held against the plain ones
+    with the kernels phase's tolerance."""
     from trlx_tpu_torch.ops.attention import (
         bwd_delta, flash_attention, flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
         flash_bwd_dq_reference,
@@ -615,38 +749,47 @@ def time_flash_backward_at(torch, F, gen, dev, B, P, R, H=12, D=64):
     elem = q.element_size()
     io = 4 * B * H * T * D * elem + 2 * B * H * T * 4  # q, k, v, dO; lse and delta
     shape = f"B={B} H={H} T=S={T} D={D} bf16 causal, P={P} left-padded + R={R} right-padded"
-
-    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()[None, None] & (valid > 0)[:, None, None, :]
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
-    library_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g, retain_graph=True))
+    sdpa, backend, grad_fn, probes = sdpa_backward_call(torch, F, q, k, v, g, mask)
 
-    timings = {}
-    # dK/dV: S and dP recomputed, dV and dK produced (4 products); dQ: S, dP, dQ (3)
-    for name, fn, plain, n_mm, out_bytes in (
-        ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, valid, g, lse, delta),
-         lambda: flash_bwd_dkv_reference(q, k, v, valid, out, lse, g), 4, 2 * B * H * T * D * elem),
-        ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, valid, g, lse, delta),
-         lambda: flash_bwd_dq_reference(q, k, v, valid, out, lse, g), 3, B * H * T * D * elem),
-    ):
-        got, ref = fn(), plain()
-        got, ref = (got if isinstance(got, tuple) else (got,)), (ref if isinstance(ref, tuple) else (ref,))
+    kernels = {
+        # dK/dV: S and dP recomputed, dV and dK produced (4 products); dQ: S, dP, dQ (3)
+        "flash_bwd_dkv": (lambda: flash_bwd_dkv(q, k, v, valid, g, lse, delta),
+                          lambda: flash_bwd_dkv_reference(q, k, v, valid, out, lse, g), 4, 2 * B * H * T * D * elem),
+        "flash_bwd_dq": (lambda: flash_bwd_dq(q, k, v, valid, g, lse, delta),
+                         lambda: flash_bwd_dq_reference(q, k, v, valid, out, lse, g), 3, B * H * T * D * elem),
+    }
+    checks = {}
+    for name, (fn, plain, _, _) in kernels.items():
+        got, ref = as_tuple(fn()), as_tuple(plain())
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
         tols = [TOL["bfloat16"] * max(1.0, b.float().abs().max().item()) for b in ref]
         if not all(e <= t for e, t in zip(errs, tols)):  # a NaN fails here too
             raise AssertionError(f"{name} disagrees with its plain version at {shape}: {errs} > {tols}")
+        checks[name] = (max(errs), max(tols))
+    times = interleaved_ms(torch, {"flash_bwd_dkv": kernels["flash_bwd_dkv"][0],
+                                   "flash_bwd_dq": kernels["flash_bwd_dq"][0], "sdpa": sdpa})
+    lib = times["sdpa"]
+    library = {"library_ms": lib["ms"], "library_min_ms": lib["min"], "library_max_ms": lib["max"],
+               "library": f"SDPA backward (dQ, dK, dV together), autograd.grad alone, backend {backend} pinned",
+               "library_backend": backend, "library_grad_fn": grad_fn, "library_probe_ms": probes}
+    timings = {}
+    for name, (fn, plain, n_mm, out_bytes) in kernels.items():
         byts, flops = io + out_bytes, n_mm * 2 * D * pairs
         b_ms, b_by = bound_ms(byts, flops)
+        t = times[name]
         timings[name] = {
-            "shape": shape, "ms": cuda_time_ms(fn), "plain_ms": cuda_time_ms(plain),
-            "library_ms": library_ms, "library": "SDPA backward (dQ, dK, dV together), autograd.grad alone",
+            "shape": shape, "ms": t["ms"], "min_ms": t["min"], "max_ms": t["max"], "launches_per_timing": t["launches"],
+            "plain_ms": cuda_time_ms(plain), **library,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops,
-            "max_abs_err": max(errs), "tol": max(tols),
+            "max_abs_err": checks[name][0], "tol": checks[name][1],
         }
     # the pair's bound: five products over the visible pairs; q, k, v, dO,
     # dQ, dK, dV once each, plus lse and delta
     b_ms, b_by = bound_ms(io + 3 * B * H * T * D * elem, 5 * 2 * D * pairs)
-    timings["flash_bwd_dkv"]["pair_bound_ms"] = timings["flash_bwd_dq"]["pair_bound_ms"] = b_ms
+    pair_ms = times["flash_bwd_dkv"]["ms"] + times["flash_bwd_dq"]["ms"]
+    for name in kernels:
+        timings[name].update(pair_bound_ms=b_ms, pair_ms=pair_ms, pair_over_library=pair_ms / lib["ms"])
     return timings
 
 

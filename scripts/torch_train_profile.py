@@ -5,14 +5,15 @@ Builds chip_smoke.py's full-width trainer (the gpt2 preset at 12 layers,
 hidden 768, vocab 50257, random weights from the seed, bf16 compute, f32
 params and AdamW, flash attention, 32 rollouts of up to 128 prompt bytes +
 128 sampled tokens per learner batch in 2 microbatches), runs one experience phase and
-one learner step to warm up, times a second of each on the host clock, then
+one learner step to warm up, times a second experience phase and five
+learner steps on one batch (their median) on the host clock, then
 profiles one generate call, one scoring call and one learner step under
 ``torch.profiler`` (CPU and CUDA activities). Prints one JSON object: per
 part, the unprofiled wall seconds, the profiled wall, device busy time (the
-union of kernel intervals), the device's idle share, the kernel count and
-the kernels that took the most device time; plus learner tokens/s and peak
-device memory. The shapes are the ones these calls really run: the
-scoring forward's [B, P + R] with R the pow2 bucket of the longest
+union of kernel intervals), the device's idle share, the kernel count, the
+kernels that took the most device time and each of the port's own kernels
+with its share of busy time; plus learner tokens/s and peak device memory.
+The shapes are the ones these calls really run: the scoring forward's [B, P + R] with R the pow2 bucket of the longest
 response (the trainer appends an eos to every response, so 128 sampled
 tokens make 129 and R = 256), and the learner batch's [B, P + R] padded to
 its longest prompt and response; learner tokens/s counts those padded
@@ -34,6 +35,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from torch_serving_profile import _kernel_events, _union_us  # noqa: E402
 
 
+#: the port's hand-written kernels (their CUDA function names), always
+#: listed with their share of device busy time
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "dkv_mma_kernel", "dq_mma_kernel",
+                "paged_attn_kernel")
+#: unprofiled learner steps timed (their median is reported)
+LEARN_STEPS = 5
+
+
 def _profiled(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -51,13 +60,15 @@ def _profiled(fn):
         calls, us = by_name.get(name, (0, 0.0))
         by_name[name] = (calls + 1, us + (e - s))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    port = [kv for kv in by_name.items() if any(k in kv[0] for k in PORT_KERNELS)]
+
+    def rows(items):
+        return [{"name": name[:120], "calls": calls, "device_s": us / 1e6, "share_of_busy": us / 1e6 / busy}
+                for name, (calls, us) in items]
+
     return {
         "profiled_wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
-        "kernels": len(kernels),
-        "top_kernels": [
-            {"name": name[:120], "calls": calls, "device_s": us / 1e6, "share_of_busy": us / 1e6 / busy}
-            for name, (calls, us) in top
-        ],
+        "kernels": len(kernels), "top_kernels": rows(top), "port_kernels": rows(port),
     }
 
 
@@ -102,7 +113,8 @@ def main(argv=None) -> int:
         # one experience phase and one learner step, unprofiled
         experience_s, _ = _timed(lambda: trainer.post_epoch_callback(0))
         batch = next(iter(trainer.create_train_dataloader()))
-        learn_s, _ = _timed(lambda: trainer.train_step(batch))
+        learn_runs = [_timed(lambda: trainer.train_step(batch))[0] for _ in range(LEARN_STEPS)]
+        learn_s = sorted(learn_runs)[LEARN_STEPS // 2]
         split = {k: trainer.rollout_stats[k] for k in
                  ("time/rollout_generate", "time/rollout_reward", "time/rollout_score")}
 
@@ -127,7 +139,7 @@ def main(argv=None) -> int:
             "new_tokens": chip_smoke.TRAIN_N, "microbatches": chip_smoke.TRAIN_B // chip_smoke.TRAIN_MB,
             "score_shape": list(seq.shape), "learn_batch_shape": learn_shape,
             "experience_phase_s": experience_s, "experience_split_s": split,
-            "learner_tok_s": learn_shape[0] * learn_shape[1] / learn_s,
+            "learn_steps_s": learn_runs, "learner_tok_s": learn_shape[0] * learn_shape[1] / learn_s,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "parts": parts,
         }))

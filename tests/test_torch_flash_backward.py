@@ -4,7 +4,13 @@ which chip_smoke.py holds the CUDA kernels against on the card) and its
 autograd path, on CPU tensors, against ``jax.grad`` through trlx_tpu's
 Pallas ``flash_attention`` in interpret mode with ``BACKWARD_IMPL="pallas"``.
 Inputs come from numpy with a fixed seed; f32; tolerance atol 2e-4 /
-rtol 1e-4 (the Pallas backward's own grad-parity tolerance)."""
+rtol 1e-4 (the Pallas backward's own grad-parity tolerance). Besides the
+Pallas tests' own cases, the shapes the Hopper kernels' 64-row tiling makes
+into edges: T = S below one tile (16, 17), every head dim of
+``FLASH_HEAD_DIMS``, query-head groups of 1, 3 and 12, and a key tile with
+no valid key beside a query tile of rows that see no key."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -21,12 +27,25 @@ pytestmark = pytest.mark.torch_port
 
 TOL = dict(atol=2e-4, rtol=1e-4)
 
-# the four grad-parity cases of tests/test_attention.py
+# (B, H, Hkv, T, S, share of batch row 0's keys masked from the left[, D]):
+# the four grad-parity cases of tests/test_attention.py (D = 16), then the
+# kernels' tile edges
 CASES = {
     "mha": (2, 2, 2, 64, 64, 0.0),
     "ragged": (2, 2, 2, 40, 72, 0.25),
     "gqa": (1, 4, 2, 48, 48, 0.3),
     "mqa_ragged": (2, 4, 1, 33, 62, 0.2),
+    "t16": (2, 4, 4, 16, 16, 0.3),
+    "t17": (2, 4, 2, 17, 17, 0.2),
+    "d32": (1, 2, 2, 40, 40, 0.1, 32),
+    "d64": (1, 2, 2, 40, 40, 0.1, 64),
+    "d96": (1, 2, 1, 40, 40, 0.1, 96),
+    "d128": (1, 2, 2, 40, 40, 0.1, 128),
+    "rep3": (1, 6, 2, 48, 48, 0.2),
+    "rep12": (1, 12, 1, 40, 40, 0.2),
+    # row 0: keys 0..63 invalid (one whole 64-key tile), so query rows 0..63
+    # see no key (one whole 64-row tile of lse == NEG_INF)
+    "dead_tiles": (2, 2, 2, 100, 100, 0.64),
 }
 
 
@@ -40,6 +59,13 @@ def _inputs(B, H, Hkv, T, S, maskfrac, D=16, seed=7):
     # a non-uniform cotangent exercises dO properly
     w = (np.arange(B * H * T * D, dtype=np.float32) / (B * H * T * D)).reshape(B, H, T, D)
     return q, k, v, valid, w
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(case):
+    """(inputs, JAX grads) of a CASES entry, computed once per process."""
+    inputs = _inputs(*CASES[case])
+    return inputs, _jax_grads(*inputs)
 
 
 def _jax_grads(q, k, v, valid, w):
@@ -69,8 +95,7 @@ def _torch_grads(q, k, v, valid, w, impl="pallas"):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_autograd_matches_jax_pallas_backward(case):
-    q, k, v, valid, w = _inputs(*CASES[case])
-    ref = _jax_grads(q, k, v, valid, w)
+    (q, k, v, valid, w), ref = _jax_case(case)
     got = _torch_grads(q, k, v, valid, w)
     for a, b, name in zip(got, ref, "qkv"):
         np.testing.assert_allclose(a, b, err_msg=f"d{name}", **TOL)
@@ -80,8 +105,7 @@ def test_autograd_matches_jax_pallas_backward(case):
 def test_flash_backward_reference_matches_jax(case):
     """The plain backward alone, fed the forward's out and lse and the
     loss's output gradient, against the same JAX grads."""
-    q, k, v, valid, w = _inputs(*CASES[case])
-    ref = _jax_grads(q, k, v, valid, w)
+    (q, k, v, valid, w), ref = _jax_case(case)
     qt, kt, vt, vd = map(torch.from_numpy, (q, k, v, valid))
     out, lse = tattn.flash_attention(qt, kt, vt, vd, return_lse=True)
     g = torch.from_numpy(w) + 2 * out  # d/dout of sum(out*w) + sum(out^2)

@@ -151,6 +151,18 @@ def shared_weights():
     return jcfg, params
 
 
+_OPEN_ENGINES = []
+
+
+@pytest.fixture(autouse=True)
+def _close_engines():
+    """Close every engine a test made, so no gauge it exported outlives the test
+    (trlx_tpu's gauges are process-global and later tests assert they are clear)."""
+    yield
+    while _OPEN_ENGINES:
+        _OPEN_ENGINES.pop().close()
+
+
 def _engines(shared_weights, num_slots=3, eos=None, max_seq_len=32, **over):
     jcfg, params = shared_weights
     tcfg = PRESETS["gpt2"].replace(**TINY, compute_dtype=torch.float32, **over)
@@ -158,6 +170,7 @@ def _engines(shared_weights, num_slots=3, eos=None, max_seq_len=32, **over):
               pad_token_id=0, gen_kwargs=dict(do_sample=False), seed=0)
     jeng = JaxEngine(JaxLM(jcfg.replace(**over)), params, **kw)
     teng = ServingEngine(TransformerLM(tcfg), params_from_jax(params, tcfg), device="cpu", **kw)
+    _OPEN_ENGINES.extend((jeng, teng))
     return jeng, teng
 
 

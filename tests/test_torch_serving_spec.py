@@ -47,6 +47,18 @@ def shared_weights():
     return jcfg, jax.tree.map(np.asarray, params)
 
 
+_OPEN_ENGINES = []
+
+
+@pytest.fixture(autouse=True)
+def _close_engines():
+    """Close every engine a test made, so no gauge it exported outlives the test
+    (trlx_tpu's gauges are process-global and later tests assert they are clear)."""
+    yield
+    while _OPEN_ENGINES:
+        _OPEN_ENGINES.pop().close()
+
+
 def _engines(shared_weights, *, quant=False, eos=None, num_slots=3, **knobs):
     jcfg, params = shared_weights
     tcfg = PRESETS["gpt2"].replace(**TINY, compute_dtype=torch.float32, kv_cache_quant=quant)
@@ -54,6 +66,7 @@ def _engines(shared_weights, *, quant=False, eos=None, num_slots=3, **knobs):
               gen_kwargs=dict(do_sample=False), seed=0, **knobs)
     jeng = JaxEngine(JaxLM(jcfg.replace(kv_cache_quant=quant)), params, **kw)
     teng = ServingEngine(TransformerLM(tcfg), params_from_jax(params, tcfg), device="cpu", **kw)
+    _OPEN_ENGINES.extend((jeng, teng))
     return jeng, teng
 
 

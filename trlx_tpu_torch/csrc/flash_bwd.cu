@@ -10,37 +10,61 @@
 // -1e30 (no visible key) give P = 0 and so exactly zero gradients.
 // dS = P * (dP - delta) * scale with dP = dO V^T; dV = P^T dO, dK = dS^T Q
 // summed over the query-head group, dQ = dS K. Sums in f32, outputs cast to
-// the input dtype.
+// the input dtype. Two kernels and no atomics, as the JAX package splits
+// them: no two CTAs write the same output, so a launch gives the same bits
+// every time.
 //
-// What bounds it on the H100: per visible (query, key) pair dkv does four
-// D-long products (recomputing S and dP, then dV and dK) and dq three (S,
-// dP, dQ). At the training shape (T = S = 256, D = 64, bf16, causal) that
-// is ~60 flops per byte of inputs and outputs, below the tensor cores' bf16
-// ridge (~295): a tensor-core version would be bound by bytes. This first
-// version runs the products as f32 FMAs on the CUDA cores out of shared
-// memory (67 TFLOP/s peak, ridge ~20), where operations bound it. wgmma
-// tiles, TMA loads and pipelining are later work.
+// What bounds it on the H100. Per visible (query, key) pair dK/dV does four
+// D-long products (S and dP recomputed, then dV and dK), dQ three. At the
+// training shape (B=32, H=12, T=S=256, D=64, bf16, causal, a P=128
+// left-padded + R=128 right-padded batch) dK/dV's products over the visible
+// pairs are ~4 GFLOP: 0.005 ms at the tensor cores' dense bf16 rate (989
+// TFLOP/s), against 0.023 ms to move its inputs and outputs once at 3.35
+// TB/s. So the kernels are bound by bytes and by latency, not by the
+// tensor cores' issue rate; even at half that rate mma.sync leaves them
+// memory- and latency-bound. That is why this version uses the warp-level
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) and not wgmma with TMA:
+// those are the step after, and only if a profile shows the mma issue rate
+// binding. The first version of this file ran every product as f32 FMAs on
+// the CUDA cores out of f32 shared memory, one shared load per FMA (16-20 GB
+// through shared memory for dK/dV at that shape, ~0.9 ms); that code stays,
+// as the f32 instances below: TF32 keeps ~3 digits, too few for the f32
+// contract.
 //
-// Design. The TPU grids walk their reduction axis sequentially and carry
-// the sum in VMEM scratch; here each CTA loops over that axis itself and
-// keeps the sum in registers, so no two CTAs write the same output and no
-// atomics are needed (the result does not depend on scheduling).
-// - flash_bwd_dkv: one CTA per (64-row kv tile, kv head, batch). K/V of the
-//   tile are staged once in shared memory (f32). The CTA walks the q tiles
-//   that can see the tile (under causality from the tile holding query slot
-//   k0, the pl.when(run) test) and, inside each, the rep = H/Hkv query heads
-//   of the group. For each it stages Q, dO, lse and delta, computes P and dS
-//   for the 64x64 tile (thread (row, sub) owns row `row`, columns sub + 4*j)
-//   into shared memory, then accumulates dV and dK: thread (row, sub) owns
-//   key row `row`, columns sub + 4*c.
-// - flash_bwd_dq: one CTA per (64-row q tile, head, batch), the forward's
-//   layout. Q, dO, lse and delta are staged once; the CTA walks the kv tiles
-//   up to the causal diagonal, computes dS as above and accumulates dQ in
-//   registers (thread (row, sub) owns query row `row`, columns sub + 4*c).
-// Kept as two kernels: a fused one would need f32 atomics on dQ, and the
-// gradient would then depend on timing. The ragged edge (T, S not multiples
-// of 64) is masked in the kernel, so the host pads nothing. Shared rows are
-// padded by one float to keep the access patterns free of bank conflicts.
+// Design of the bf16 instances (4 warps per CTA, 64-row tiles, each warp
+// owning 16 rows of the CTA's tile, every product on the tensor cores):
+// - dkv_mma_kernel: one CTA per (64-key tile, kv head, batch). K and V of
+//   the tile sit in shared memory for the CTA's life. The CTA walks the q
+//   tiles from the causal start (the tile holding slot k0) and, inside each,
+//   the rep = H/Hkv query heads of the group. Each step's Q, dO, lse and
+//   delta are staged with 16-byte cp.async, double-buffered: the next step
+//   loads while this one computes. A warp forms S^T = K Q^T and
+//   dP^T = V dO^T (16 keys x 64 queries) in registers, P^T = exp(S^T*scale
+//   - lse) under the mask and dS^T = P^T (dP^T - delta) scale, rounds both
+//   to bf16 and feeds them straight from the accumulator registers as the A
+//   operand of dV += P^T dO and dK += dS^T Q (FlashAttention-2's reuse of
+//   the C fragment as an A fragment); dO and Q come from shared memory
+//   through ldmatrix.trans. dK and dV stay in f32 registers to the end.
+//   At D=64 this takes 228 registers a thread, two CTAs per SM; forming
+//   S^T and dP^T over two 32-query halves instead cut that to 201 but ran
+//   8 % slower on the H100 (same bits), so the 64-query form stays.
+// - dq_mma_kernel: one CTA per (64-query tile, head, batch). Q and dO are
+//   staged once; K, V and the key flags of each kv tile up to the causal
+//   diagonal are double-buffered. A warp forms S = Q K^T and dP = dO V^T
+//   (16 queries x 64 keys), dS as above, and accumulates dQ += dS K with
+//   dS from registers and K through ldmatrix.trans.
+// - Work skipped: tiles above the causal diagonal; in dq, kv tiles whose
+//   keys are all invalid; in dkv, q steps whose rows all have lse == -1e30
+//   (the learner's left padding makes such tiles). A dkv CTA whose keys are
+//   all invalid, or a dq CTA whose rows all are dead, writes zeros and
+//   exits. The per-element mask is computed only on tiles that need it: the
+//   diagonal, a tile holding an invalid key or a dead row, the ragged edge.
+// - Shared rows are padded by 16 bytes (row stride D + 8 bf16), so the eight
+//   16-byte rows of every ldmatrix phase fall in distinct banks for every
+//   supported D. The ragged edge (T, S not multiples of 64) is zero-filled
+//   by cp.async and masked; the host pads nothing.
+// - Numerics: P and dS are rounded to bf16 before the second products, as
+//   every tensor-core flash backward does; accumulators are f32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,13 +80,13 @@ constexpr int PS = BK + 1;         // row stride of the [BQ][BK] score tiles
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+
+// ---------------------------------------------------------------- f32 (SIMT)
+// The f32 instances: every product as f32 FMAs out of f32 shared memory
+// (this file's first design, unchanged, so f32 results stay bit for bit).
 
 // Stage rows [r0, r0 + 64) of a row-major [len][D] matrix into shared memory
 // as f32 with row stride D + 1; rows at or past len are zero.
@@ -267,6 +291,392 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ------------------------------------------------------- bf16 (tensor cores)
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;  // 16 tile rows per warp
+constexpr int TILE = 64;             // query rows and keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared layout of a [TILE][D] bf16 tile: rows padded by 8 elements (16
+// bytes). A row is then D/8 + 1 16-byte units; for D in {16, 32, 64, 96,
+// 128} that is odd, so the 8 rows one ldmatrix phase reads start in 8
+// distinct 4-bank groups.
+template <int D>
+struct Tile {
+  static constexpr int ROW_BYTES = (D + 8) * 2;
+  static constexpr int BYTES = TILE * ROW_BYTES;
+  static constexpr int CHUNKS = TILE * D / 8;  // 16-byte copies per tile
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronous; zero-filled when !pred.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, `lo` in the low half (the lower k index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [r0, r0 + TILE) of a row-major [len][D] bf16 matrix into a shared
+// tile at `dst`, asynchronously; rows at or past len are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* __restrict__ src, int r0, int len) {
+  constexpr int PER_ROW = D / 8;
+#pragma unroll
+  for (int j = 0; j < Tile<D>::CHUNKS / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / PER_ROW, c = i % PER_ROW;
+    const bool ok = r0 + r < len;
+    cp_async_16(dst + r * Tile<D>::ROW_BYTES + c * 16, src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+// acc[NT][4] += A B^T for this warp: A is 16 rows x D of a shared tile
+// (lane address a_addr, from lane_a), B is NT*8 rows x D of a shared tile
+// (lane address b_addr, from lane_b), both read with ldmatrix. acc[j] holds
+// output columns 8j..8j+7 as mma C fragments.
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + kk * 32);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + np * 16 * Tile<D>::ROW_BYTES + kk * 32);
+      mma_16816(acc[2 * np], a, b[0], b[1]);
+      mma_16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[D/8][4] += A B for this warp: A is 16 rows x 64 given as four k-chunks
+// of A fragments (from registers), B is 64 rows x D of a shared tile read
+// transposed (lane address b_addr, from lane_a).
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[4][4], uint32_t b_addr) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, b_addr + kc * 16 * Tile<D>::ROW_BYTES + dp * 32);
+      mma_16816(acc[2 * dp], a[kc], b[0], b[1]);
+      mma_16816(acc[2 * dp + 1], a[kc], b[2], b[3]);
+    }
+  }
+}
+
+// Per-lane byte offsets into a shared tile for ldmatrix.x4:
+// lane_a: an A operand (16 rows x 16) or a transposed B operand (16 k-rows x
+//   16 n-columns): lanes 0-15 rows 0-15 at column 0, lanes 16-31 at column 8.
+// lane_b: a B operand stored n-major (16 n-rows x 16 k-columns): lanes 0-7
+//   rows 0-7 col 0, 8-15 rows 0-7 col 8, 16-23 rows 8-15 col 0, 24-31 rows
+//   8-15 col 8.
+template <int D>
+__device__ __forceinline__ uint32_t lane_a(int lane) {
+  return (lane % 16) * Tile<D>::ROW_BYTES + (lane / 16) * 16;
+}
+
+template <int D>
+__device__ __forceinline__ uint32_t lane_b(int lane) {
+  return ((lane % 8) + 8 * (lane / 16)) * Tile<D>::ROW_BYTES + ((lane / 8) % 2) * 16;
+}
+
+// Zero rows [r0, min(r0 + TILE, len)) of a row-major [len][D] bf16 matrix.
+template <int D>
+__device__ __forceinline__ void zero_rows(bf16* __restrict__ dst, int r0, int len) {
+  const int n = min(TILE, len - r0) * D / 8;
+  uint4* p = reinterpret_cast<uint4*>(dst + (size_t)r0 * D);
+  for (int i = threadIdx.x; i < n; i += THREADS) p[i] = make_uint4(0, 0, 0, 0);
+}
+
+// Store an accumulator tile (16 rows x D, C fragments) as bf16: rows r_lo and
+// r_lo + 8 of a row-major [len][D] matrix, skipping rows at or past len.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4], int r_lo,
+                                           int len, int tq) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r_lo + 8 * half;
+      if (r < len)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + 8 * j + 2 * tq) =
+            pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+size_t smem_bytes(int row_bytes) {
+  // dkv: K, V + 2 stages of (Q, dO, lse and delta [64] each);
+  // dq: Q, dO + 2 stages of (K, V, key flags [64])
+  return (size_t)6 * TILE * row_bytes + 2 * 2 * TILE * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+               const int32_t* __restrict__ kv_valid, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+               int Hkv, int T_len, int S, int causal, float scale) {
+  using TL = Tile<D>;
+  constexpr int STAGE = 2 * TL::BYTES + 2 * TILE * 4;  // Q, dO, lse, delta
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int k0 = blockIdx.x * TILE, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
+  // this thread's two key rows (the C fragment's rows g and g + 8)
+  const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+  const bool valid_lo = key_lo < S && kv_valid[(size_t)b * S + key_lo] > 0;
+  const bool valid_hi = key_hi < S && kv_valid[(size_t)b * S + key_hi] > 0;
+  // under causality no query slot before k0 sees this tile: start at the q
+  // tile holding slot k0; then every (q tile, query head of the group)
+  const int q_start = causal ? k0 : 0;
+  const int n_items = q_start < T_len ? (T_len - q_start + TILE - 1) / TILE * rep : 0;
+  if (!__syncthreads_or(valid_lo || valid_hi) || n_items == 0) {
+    zero_rows<D>(dk + kv_base, k0, S);
+    zero_rows<D>(dv + kv_base, k0, S);
+    return;
+  }
+  const bool keys_all_valid = __syncthreads_and(valid_lo && valid_hi);
+
+  const uint32_t k_s = smem_addr(smem), v_s = k_s + TL::BYTES, stages = v_s + TL::BYTES;
+  auto issue = [&](int item, int st) {
+    const int q0 = q_start + (item / rep) * TILE;
+    const size_t row_base = (size_t)(b * H + hk * rep + item % rep) * T_len;
+    const uint32_t base = stages + st * STAGE;
+    load_tile_async<D>(base, q + row_base * D, q0, T_len);
+    load_tile_async<D>(base + TL::BYTES, dout + row_base * D, q0, T_len);
+    // lse by threads 0..63, delta by 64..127
+    const int t = q0 + threadIdx.x % TILE;
+    cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4,
+               (threadIdx.x < TILE ? lse : delta) + row_base + (t < T_len ? t : 0), t < T_len);
+  };
+  load_tile_async<D>(k_s, k + kv_base, k0, S);
+  load_tile_async<D>(v_s, v + kv_base, k0, S);
+  issue(0, 0);
+  cp_async_commit();
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+  const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
+  const uint32_t warp_rows = 16 * warp * TL::ROW_BYTES;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) issue(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const int q0 = q_start + (it / rep) * TILE;
+    const uint32_t q_s = stages + (it & 1) * STAGE, do_s = q_s + TL::BYTES;
+    const float* lse_s = reinterpret_cast<const float*>(smem + (q_s - k_s) + 2 * TL::BYTES);
+    const float* delta_s = lse_s + TILE;
+    // a row is live when it exists and sees a key (lse > -1e30)
+    const bool live0 = q0 + lane < T_len && lse_s[lane] > NEG_INF / 2;
+    const bool live1 = q0 + lane + 32 < T_len && lse_s[lane + 32] > NEG_INF / 2;
+    if (__any_sync(FULL, live0 || live1)) {
+      const bool masked = !keys_all_valid || !__all_sync(FULL, live0 && live1) ||
+                          (causal && q0 < k0 + TILE - 1);
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<D, 8>(s, k_s + warp_rows + la, q_s + lb);
+      mma_abt<D, 8>(dp, v_s + warp_rows + la, do_s + lb);
+      // P^T and dS^T, rounded to bf16 as A fragments (k = query)
+      uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;  // this thread's query columns c, c + 1
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = e & 1;
+          p[e] = exp2f(fmaf(s[j][e], scale_log2, -lse_s[c + x] * LOG2E));
+          if (masked) {
+            const int query = q0 + c + x, key = e < 2 ? key_lo : key_hi;
+            const bool ok = (e < 2 ? valid_lo : valid_hi) && query < T_len && lse_s[c + x] > NEG_INF / 2 &&
+                            (!causal || key <= query);
+            p[e] = ok ? p[e] : 0.f;
+          }
+          ds[e] = p[e] * (dp[j][e] - delta_s[c + x]) * scale;
+        }
+        pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      mma_ab<D>(acc_dv, pa, do_s + la);  // dV += P^T dO
+      mma_ab<D>(acc_dk, dsa, q_s + la);  // dK += dS^T Q
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+  store_rows<D>(dk + kv_base, acc_dk, key_lo, S, tq);
+  store_rows<D>(dv + kv_base, acc_dv, key_lo, S, tq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+              const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+              const int32_t* __restrict__ kv_valid, bf16* __restrict__ dq, int H, int Hkv, int T_len, int S,
+              int causal, float scale) {
+  using TL = Tile<D>;
+  constexpr int STAGE = 2 * TL::BYTES + TILE * 4;  // K, V, key flags
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t row_base = (size_t)(b * H + h) * T_len;
+  const size_t q_base = row_base * D, kv_base = (size_t)(b * Hkv + hk) * S * D;
+  // this thread's two query rows (the C fragment's rows g and g + 8)
+  int t[2];
+  float lse2[2], dlt[2];
+  bool live[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    t[half] = q0 + 16 * warp + g + 8 * half;
+    const float l = t[half] < T_len ? lse[row_base + t[half]] : NEG_INF;
+    live[half] = l > NEG_INF / 2;
+    lse2[half] = l * LOG2E;
+    dlt[half] = t[half] < T_len ? delta[row_base + t[half]] : 0.f;
+  }
+  // keys past the tile's last query slot are all causally masked
+  const int kv_end = causal ? min(S, q0 + TILE) : S;
+  const int n_tiles = (kv_end + TILE - 1) / TILE;
+  if (!__syncthreads_or(live[0] || live[1]) || n_tiles == 0) {
+    zero_rows<D>(dq + q_base, q0, T_len);
+    return;
+  }
+  const bool rows_all_live = __syncthreads_and(live[0] && live[1]);
+
+  const uint32_t q_s = smem_addr(smem), do_s = q_s + TL::BYTES, stages = do_s + TL::BYTES;
+  auto issue = [&](int tile, int st) {
+    const int k0 = tile * TILE;
+    const uint32_t base = stages + st * STAGE;
+    load_tile_async<D>(base, k + kv_base, k0, S);
+    load_tile_async<D>(base + TL::BYTES, v + kv_base, k0, S);
+    if (threadIdx.x < TILE) {
+      const int s = k0 + threadIdx.x;
+      cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4, kv_valid + (size_t)b * S + (s < S ? s : 0), s < S);
+    }
+  };
+  load_tile_async<D>(q_s, q + q_base, q0, T_len);
+  load_tile_async<D>(do_s, dout + q_base, q0, T_len);
+  issue(0, 0);
+  cp_async_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
+  const uint32_t warp_rows = 16 * warp * TL::ROW_BYTES;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) issue(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const int k0 = it * TILE;
+    const uint32_t k_s = stages + (it & 1) * STAGE, v_s = k_s + TL::BYTES;
+    const int* valid_s = reinterpret_cast<const int*>(smem + (k_s - q_s) + 2 * TL::BYTES);
+    const bool v0 = valid_s[lane] > 0, v1 = valid_s[lane + 32] > 0;  // zero past S
+    if (__any_sync(FULL, v0 || v1)) {
+      const bool masked = !rows_all_live || !__all_sync(FULL, v0 && v1) || (causal && k0 + TILE - 1 > q0);
+      // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<D, 8>(s, q_s + warp_rows + la, k_s + lb);
+      mma_abt<D, 8>(dp, do_s + warp_rows + la, v_s + lb);
+      // dS, rounded to bf16 as A fragments (k = key)
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tq;  // this thread's key columns c, c + 1
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e / 2, x = e & 1;
+          float p = exp2f(fmaf(s[j][e], scale_log2, -lse2[half]));
+          if (masked) {
+            const bool ok = valid_s[c + x] > 0 && live[half] && (!causal || k0 + c + x <= t[half]);
+            p = ok ? p : 0.f;
+          }
+          ds[e] = p * (dp[j][e] - dlt[half]) * scale;
+        }
+        dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      mma_ab<D>(acc, dsa, k_s + la);  // dQ += dS K
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+  store_rows<D>(dq + q_base, acc, t[0], T_len, tq);
+}
+
+}  // namespace tc
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -307,6 +717,38 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_mma(const Args& a) {
+  using tc::bf16;
+  const size_t smem = tc::smem_bytes(tc::Tile<D>::ROW_BYTES);
+  auto kernel = tc::dkv_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.S + tc::TILE - 1) / tc::TILE, a.Hkv, a.B);
+  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.lse, a.delta, a.kv_valid, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.Hkv, a.T_len, a.S, a.causal, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_mma(const Args& a) {
+  using tc::bf16;
+  const size_t smem = tc::smem_bytes(tc::Tile<D>::ROW_BYTES);
+  auto kernel = tc::dq_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.T_len + tc::TILE - 1) / tc::TILE, a.H, a.B);
+  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.lse, a.delta, a.kv_valid, static_cast<bf16*>(a.dq), a.H,
+      a.Hkv, a.T_len, a.S, a.causal, a.scale);
+  return (int)cudaGetLastError();
+}
+
 // which = 0: dK/dV, 1: dQ. -1 for an unsupported head dim (the wrapper
 // checks D first).
 template <typename T>
@@ -324,9 +766,30 @@ int dispatch_d(int which, int D, const Args& a) {
 #undef TRLX_BWD_CASE
 }
 
+int dispatch_mma(int which, int D, const Args& a) {
+#define TRLX_MMA_CASE(DIM) \
+  case DIM: return which == 0 ? launch_dkv_mma<DIM>(a) : launch_dq_mma<DIM>(a);
+  switch (D) {
+    TRLX_MMA_CASE(16)
+    TRLX_MMA_CASE(32)
+    TRLX_MMA_CASE(64)
+    TRLX_MMA_CASE(96)
+    TRLX_MMA_CASE(128)
+    default: return -1;
+  }
+#undef TRLX_MMA_CASE
+}
+
 int dispatch(int which, int D, int dtype, const Args& a) {
   if (dtype == 0) return dispatch_d<float>(which, D, a);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, a);
+  if (dtype == 1) {
+    // the tensor-core kernels move rows in 16-byte units (null: the other
+    // entry point's output)
+    const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv};
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return -3;
+    return dispatch_mma(which, D, a);
+  }
   return -2;
 }
 
@@ -335,7 +798,7 @@ int dispatch(int which, int D, int dtype, const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
 // it); lse and delta are float32 [B,H,T]. Each returns cudaGetLastError()
 // after its launch (0 on success), -1 for an unsupported head dim, -2 for an
-// unsupported dtype.
+// unsupported dtype, -3 for a bfloat16 tensor not 16-byte aligned.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* kv_valid, void* dk,
                              void* dv, int B, int H, int Hkv, int T_len, int S, int D, int causal,

@@ -12,33 +12,45 @@ Phases, each printing one JSON line:
                   printed on its own), torch / CUDA versions; TF32 off.
 2. ``build``    — compile every kernel from ``trlx_tpu_torch/csrc`` (one
                   nvcc per source, in parallel), seconds taken, ptxas's
-                  registers and spills per function, and the flash
-                  backward's HMMA (tensor-core) instructions per kernel
-                  instance from ``cuobjdump --dump-sass``: every bf16
-                  instance must have some, and the D=64 ones no spill.
+                  registers and spills per function, and the HMMA
+                  (tensor-core) instructions per kernel instance of every
+                  source from ``cuobjdump --dump-sass``: every bf16 instance
+                  of the flash forward, the flash backward and the paged
+                  body must have some, and the D=64 ones no spill.
 3. ``kernels``  — each kernel against its plain PyTorch version on the card
                   at the main paths' shapes: flash prefill (K1) in bf16 and
-                  f32, paged decode (K4) in bf16 and int8, the flash backward
+                  f32, paged decode (K4) in bf16 and int8 at block sizes 8,
+                  16 and 32, the flash backward
                   dK/dV (K2) and dQ (K3) in f32 and bf16 over MHA, GQA, MQA
                   (rep 1, 3, 4, 8, 12), ragged T/S, T = S = 16 and 17, every
                   head dim, left padding, a key tile with no valid key, a
                   query tile of dead rows, a fully masked batch row and a
                   non-causal case; two launches of each on the same inputs
                   equal bit for bit; and the whole autograd path against
-                  autograd through the plain forward; the paged verify (K5) over MHA and GQA, Q = 1, 2,
-                  5, a 64-token chunk and more rows than one row tile, f32,
+                  autograd through the plain forward; the paged verify (K5)
+                  over MHA and GQA, Q = 1, 2, 5, a 64-token chunk and more
+                  rows than one row tile, block sizes 8, 16 and 32, f32,
                   bf16 and int8 pools, ragged lens, block edges, the table's
-                  end and idle slots, and K5 at Q=1 equal to K4 at lens + 1
-                  bit for bit. Max abs error within 1e-4 (f32) / 2e-2 (bf16)
-                  times max(1, max|reference|).
+                  end and idle slots; K5 at Q=1 equal to K4 at lens + 1 bit
+                  for bit at B=256, B=1, GQA and D=128 (f32, bf16, int8),
+                  and every row j of a Q=5 round equal to K4 at lens + j + 1;
+                  two launches of K1, K4 and K5 on the same inputs equal bit
+                  for bit. Max abs error within 1e-4 (f32) / 2e-2 (bf16)
+                  times max(1, max|reference|); K1 and this phase's K4
+                  cases within 1e-4 / 2e-2 absolute.
 4. ``timing``   — CUDA-event times of kernel, plain version and the library
-                  yardstick (SDPA for K1, SDPA's backward for K2 and K3; none
-                  for K4 and K5) beside the bound max(bytes / 3.35 TB/s,
-                  flops / 989 TFLOP/s); K2, K3 and SDPA's backward (its
-                  backend pinned: the fastest that serves the mask) timed in
-                  turns, five rounds of >= 200 launches and >= 50 ms each,
-                  as median, min and max, at the training shape and the
-                  learner's; K5 at the engine's verify shape and a chunk
+                  yardstick (SDPA's forward for K1, SDPA's backward for K2
+                  and K3, each with its backend pinned to the fastest that
+                  serves the boolean mask; none for K4 and K5) beside the
+                  bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s). K1, K4
+                  and K5 as device time per launch (replays of a CUDA graph
+                  of 20 launches), with the eager time through the wrapper
+                  beside it; K1 and SDPA's forward in turns at the engine's
+                  prefill wave and the trainer's two shapes, K2, K3 and
+                  SDPA's backward in turns at the training shape and the
+                  learner's (five rounds of >= 200 launches and >= 50 ms
+                  each, as median, min and max); K4 at the gpt2 decode
+                  shape, K5 at the engine's verify shape and a chunk
                   append.
 5. ``parity``   — the engine on the card against the same engine on the CPU
                   (plain versions): gpt2 widths at 2 layers, f32, 8 prompts x
@@ -52,7 +64,9 @@ Phases, each printing one JSON line:
                   and a measured pass. Launch counts are reset just before
                   and read just after; every prefill wave must have launched
                   the flash kernel once per layer and every decode step the
-                  paged kernel once per layer.
+                  paged kernel once per layer; K1 and K4 replayed against
+                  their plain versions at every shape the passes gave them
+                  (K4 with their block tables and lens).
 7. ``spec_parity`` — speculative decoding and chunked prefill on the card
                   against the CPU port on the same weights (gpt2 widths at 2
                   layers, f32, greedy): the engine with (spec_k,
@@ -70,10 +84,12 @@ Phases, each printing one JSON line:
                   K5 and K1 replayed against their plain versions at every
                   shape the passes gave them (their block tables and lens,
                   their masks); the first 32 requests held against the
-                  one-token engine with the same chunking, tie-aware (bf16:
-                  a preference of at most 2e-2 at a split), and over their
-                  whole length teacher-forced (at every position the dense
-                  model prefers the chosen token, or another by <= 2e-2).
+                  one-token engine with the same chunking and slots (running
+                  the first 256 requests), tie-aware (bf16: a preference of
+                  at most 2e-2 at a split), and over their whole length
+                  teacher-forced through that engine (at every position it
+                  prefers the chosen token, or another by <= 2e-2; on its
+                  own rows, always its own token).
 9. ``train_parity`` — ``PPOTrainer`` on the card against ``PPOTrainer`` on
                   the CPU (2 layers, hidden 64, f32, greedy) from the same
                   weights: one experience phase, 2 optimizer steps; tokens
@@ -203,12 +219,6 @@ def verify_case(torch, gen, B, Q, H, Hkv, D, BS, MB, quant, dev, dtype=None, len
     return case
 
 
-def flash_bound(B, H, Hkv, T, D, elem):
-    byts = (2 * B * H * T * D + 2 * B * Hkv * T * D) * elem + B * T * 4
-    flops = 2 * B * H * T * T * D  # causal: half of the two 2*T*S*D products
-    return byts, flops
-
-
 def paged_bound(case):
     lens = case["context_lens"].long()
     B, H, D = case["q"].shape
@@ -300,11 +310,21 @@ def sass_hmma_counts(lib_path):
     return counts
 
 
+#: the tensor-core (bf16) kernels per source: {stem: {kernel name: instances}}
+#: (one per head dim; the paged body also per pool type, bf16 and int8)
+MMA_KERNELS = {
+    "flash_fwd": {"fwd_mma_kernel": 5},
+    "flash_bwd": {"dkv_mma_kernel": 5, "dq_mma_kernel": 5},
+    "paged_decode": {"paged_mma_kernel": 10},
+}
+
+
 def phase_build(ctx):
     """Build every source; report ptxas's registers and spills per function
-    and, for the flash backward, the tensor-core (HMMA) instruction count per
-    kernel instance. Fails when a bf16 backward instance has no HMMA or a
-    D=64 one spills."""
+    and the tensor-core (HMMA) instruction count per kernel instance of
+    every source. Fails when a bf16 (tensor-core) instance of the flash
+    forward, the flash backward or the paged body has no HMMA, or a D=64 one
+    spills."""
     from trlx_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -312,15 +332,19 @@ def phase_build(ctx):
     for name in _kernels.KERNELS:
         _kernels.library(name)  # load, so a bad library fails here
     ptxas = {stem: ptxas_per_function(log) for stem, log in _kernels.BUILD_LOG.items()}
-    hmma = sass_hmma_counts(_kernels._lib_path("flash_bwd.cu"))
+    hmma = {stem: sass_hmma_counts(_kernels._lib_path(f"{stem}.cu")) for stem in MMA_KERNELS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": per_kernel, "ptxas": ptxas, "flash_bwd_hmma": hmma})
-    tc = {f: n for f, n in hmma.items() if "_mma_kernel" in f}
-    bad = [f for f in ("dkv_mma_kernel", "dq_mma_kernel") if sum(n > 0 for g, n in tc.items() if f in g) != 5]
-    spills = {f: p for f, p in ptxas.get("flash_bwd", {}).items()
-              if "_mma_kernelILi64E" in f and p.get("spill_stores", 0) + p.get("spill_loads", 0) > 0}
+          "per_kernel_s": per_kernel, "ptxas": ptxas, "hmma": hmma})
+    bad, spills = {}, {}
+    for stem, kernels in MMA_KERNELS.items():
+        for kernel, instances in kernels.items():
+            with_hmma = sum(n > 0 for f, n in hmma[stem].items() if kernel in f)
+            if with_hmma != instances:
+                bad[kernel] = {f: n for f, n in hmma[stem].items() if kernel in f}
+        spills.update({f: p for f, p in ptxas.get(stem, {}).items()
+                       if "_mma_kernelILi64E" in f and p.get("spill_stores", 0) + p.get("spill_loads", 0) > 0})
     if bad or spills:
-        raise AssertionError(f"flash_bwd bf16 instances: no HMMA in {bad} (of {tc}); D=64 spills {spills}")
+        raise AssertionError(f"bf16 tensor-core instances: missing HMMA {bad}; D=64 spills {spills}")
 
 
 def phase_kernels(ctx):
@@ -353,6 +377,9 @@ def phase_kernels(ctx):
     paged_cases = [
         ("gpt2_decode", dict(B=256, H=12, Hkv=12, D=64, BS=16, MB=16)),
         ("gqa_rep4_d128", dict(B=64, H=32, Hkv=8, D=128, BS=16, MB=16)),
+        # block sizes other than one k16 step: the walk goes through the table per position
+        ("gpt2_decode_bs8", dict(B=64, H=12, Hkv=12, D=64, BS=8, MB=32)),
+        ("gqa_12_3_bs32", dict(B=64, H=12, Hkv=3, D=64, BS=32, MB=8)),
     ]
     for name, shape in paged_cases:
         for quant in (False, True):
@@ -372,6 +399,7 @@ def phase_kernels(ctx):
                     "max_abs_err": err, "tol": TOL["float32"], "ok": err <= TOL["float32"]})
     results += check_flash_backward(torch, gen, dev, errs)
     results += check_paged_verify(torch, gen, dev, errs)
+    results += check_two_launches(torch, gen, dev)
     for r in results:
         emit({"phase": "kernels", **r})
     ctx["max_abs_err"] = errs
@@ -525,16 +553,28 @@ def check_flash_backward(torch, gen, dev, errs):
     return results
 
 
-#: K5 cases: (name, B, Q, H, Hkv, D); BS=16, MB=16 (256 positions per slot)
+#: K5 cases: (name, B, Q, H, Hkv, D, BS, MB); 256 positions per slot
 VERIFY_CASES = [
-    ("gpt2_verify_q1", 64, 1, 12, 12, 64),
-    ("gpt2_verify_q2", 64, 2, 12, 12, 64),
-    ("gpt2_verify_q5", 256, 5, 12, 12, 64),
-    ("gpt2_chunk_q64", 4, 64, 12, 12, 64),
-    ("mha_q100_two_row_tiles", 4, 100, 12, 12, 64),
-    ("gqa_12_3_q5", 64, 5, 12, 3, 64),
-    ("gqa_12_3_q64_four_row_tiles", 4, 64, 12, 3, 64),
-    ("gqa_32_8_q3_d128", 16, 3, 32, 8, 128),
+    ("gpt2_verify_q1", 64, 1, 12, 12, 64, 16, 16),
+    ("gpt2_verify_q2", 64, 2, 12, 12, 64, 16, 16),
+    ("gpt2_verify_q5", 256, 5, 12, 12, 64, 16, 16),
+    ("gpt2_chunk_q64", 4, 64, 12, 12, 64, 16, 16),
+    ("mha_q100_two_row_tiles", 4, 100, 12, 12, 64, 16, 16),
+    ("gqa_12_3_q5", 64, 5, 12, 3, 64, 16, 16),
+    ("gqa_12_3_q64_four_row_tiles", 4, 64, 12, 3, 64, 16, 16),
+    ("gqa_32_8_q3_d128", 16, 3, 32, 8, 128, 16, 16),
+    # block sizes other than one k16 step
+    ("gpt2_verify_q5_bs8", 64, 5, 12, 12, 64, 8, 32),
+    ("gpt2_chunk_q64_bs32", 4, 64, 12, 12, 64, 32, 8),
+    ("gqa_12_3_q5_bs32", 64, 5, 12, 3, 64, 32, 8),
+]
+#: K5 at Q=1 against K4 at lens + 1: (name, B, H, Hkv, D, lens of every
+#: slot or None for verify_case's ragged mix)
+Q1_EQUAL_CASES = [
+    ("gpt2_b256", 256, 12, 12, 64, None),
+    ("b1", 1, 12, 12, 64, 219),
+    ("gqa_12_3", 64, 12, 3, 64, None),
+    ("gqa_32_8_d128", 16, 32, 8, 128, None),
 ]
 
 
@@ -548,10 +588,10 @@ def check_paged_verify(torch, gen, dev, errs):
     )
 
     results = []
-    for name, B, Q, H, Hkv, D in VERIFY_CASES:
+    for name, B, Q, H, Hkv, D, BS, MB in VERIFY_CASES:
         for kv, quant, dtype in (("f32", False, torch.float32), ("bf16", False, torch.bfloat16),
                                  ("int8", True, torch.bfloat16)):
-            case = verify_case(torch, gen, B, Q, H, Hkv, D, 16, 16, quant, dev, dtype)
+            case = verify_case(torch, gen, B, Q, H, Hkv, D, BS, MB, quant, dev, dtype)
             out = paged_call(paged_verify_attention_kernel, case)
             ref = paged_call(paged_verify_attention_reference, case)
             torch.cuda.synchronize()
@@ -561,16 +601,61 @@ def check_paged_verify(torch, gen, dev, errs):
             results.append({"kernel": "paged_verify", "case": name, "kv": kv, "shape": list(case["q"].shape),
                             "max_abs_err": err, "tol": tol, "ok": ok})
             errs["paged_verify"] = max(errs["paged_verify"], err)
+    for name, B, H, Hkv, D, lens in Q1_EQUAL_CASES:
+        for kv, quant, dtype in (("f32", False, torch.float32), ("bf16", False, torch.bfloat16),
+                                 ("int8", True, torch.bfloat16)):
+            live = None if lens is None else torch.full((B,), lens, dtype=torch.int32, device=dev)
+            case = verify_case(torch, gen, B, 1, H, Hkv, D, 16, 16, quant, dev, dtype, lens=live)
+            verify = paged_call(paged_verify_attention_kernel, case)[:, 0]
+            decode = paged_call(paged_attention_kernel, dict(case, q=case["q"][:, 0].contiguous(),
+                                                             context_lens=case["context_lens"] + 1))
+            torch.cuda.synchronize()
+            results.append({"kernel": "paged_verify", "case": f"{name}: q1 == paged_decode at lens + 1", "kv": kv,
+                            "max_abs_err": (verify.float() - decode.float()).abs().max().item(),
+                            "ok": bool(torch.equal(verify, decode))})
+    # every row of a verify round is the decode step of its own position: a
+    # row's walk, masks and sums do not depend on the round's other rows
     for kv, quant, dtype in (("f32", False, torch.float32), ("bf16", False, torch.bfloat16),
                              ("int8", True, torch.bfloat16)):
-        case = verify_case(torch, gen, 256, 1, 12, 12, 64, 16, 16, quant, dev, dtype)
-        verify = paged_call(paged_verify_attention_kernel, case)[:, 0]
-        decode = paged_call(paged_attention_kernel, dict(case, q=case["q"][:, 0].contiguous(),
-                                                         context_lens=case["context_lens"] + 1))
+        case = verify_case(torch, gen, 256, 5, 12, 12, 64, 16, 16, quant, dev, dtype)
+        verify = paged_call(paged_verify_attention_kernel, case)
+        rows = [paged_call(paged_attention_kernel, dict(case, q=case["q"][:, j].contiguous(),
+                                                        context_lens=case["context_lens"] + j + 1))
+                for j in range(5)]
         torch.cuda.synchronize()
-        results.append({"kernel": "paged_verify", "case": "q1 == paged_decode at lens + 1", "kv": kv,
-                        "max_abs_err": (verify.float() - decode.float()).abs().max().item(),
-                        "ok": bool(torch.equal(verify, decode))})
+        results.append({"kernel": "paged_verify", "case": "gpt2_verify_q5: row j == paged_decode at lens + j + 1",
+                        "kv": kv, "max_abs_err": max((verify[:, j].float() - r.float()).abs().max().item()
+                                                     for j, r in enumerate(rows)),
+                        "ok": all(torch.equal(verify[:, j], r) for j, r in enumerate(rows))})
+    return results
+
+
+def check_two_launches(torch, gen, dev):
+    """K1, K4 and K5 launched twice on the same inputs must give the same
+    bits (no atomics; a fixed-order combine): K1 at the engine's prefill
+    shape with lse, K4 at the gpt2 decode shape, K5 at the verify shape and
+    a chunk append, each in every dtype its kernel serves."""
+    from trlx_tpu_torch.ops.attention import flash_attention
+    from trlx_tpu_torch.ops.paged_attention import paged_attention_kernel, paged_verify_attention_kernel
+
+    results = []
+    pad = [int(x) for x in torch.randint(0, 96, (16,), generator=gen, device=dev)]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, valid = flash_case(torch, gen, 16, 12, 12, 128, 64, dtype, pad, dev)
+        first, second = (flash_attention(q, k, v, valid, return_lse=True) for _ in range(2))
+        results.append({"kernel": "flash_fwd", "case": "gpt2_prefill: two launches equal", "dtype": str(dtype),
+                        "ok": all(torch.equal(a, b) for a, b in zip(first, second))})
+    pools = (("f32", False, torch.float32), ("bf16", False, torch.bfloat16), ("int8", True, torch.bfloat16))
+    for kv, quant, dtype in pools:
+        case = paged_case(torch, gen, B=256, H=12, Hkv=12, D=64, BS=16, MB=16, quant=quant, dev=dev, dtype=dtype)
+        first, second = (paged_call(paged_attention_kernel, case) for _ in range(2))
+        results.append({"kernel": "paged_decode", "case": "gpt2_decode: two launches equal", "kv": kv,
+                        "ok": bool(torch.equal(first, second))})
+        for name, B, Q in (("gpt2_verify_q5", 256, 5), ("gpt2_chunk_q64", 4, 64)):
+            case = verify_case(torch, gen, B, Q, 12, 12, 64, 16, 16, quant, dev, dtype)
+            first, second = (paged_call(paged_verify_attention_kernel, case) for _ in range(2))
+            results.append({"kernel": "paged_verify", "case": f"{name}: two launches equal", "kv": kv,
+                            "ok": bool(torch.equal(first, second))})
     return results
 
 
@@ -578,26 +663,11 @@ def phase_timing(ctx):
     import torch
     import torch.nn.functional as F
 
-    from trlx_tpu_torch.ops.attention import attention_reference, flash_attention
     from trlx_tpu_torch.ops.paged_attention import paged_attention_kernel, paged_attention_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    timings = {}
-    B, H, T, D = 16, 12, 128, 64
-    pad = [int(x) for x in torch.randint(0, 96, (B,), generator=gen, device=dev)]
-    q, k, v, valid = flash_case(torch, gen, B, H, H, T, D, torch.bfloat16, pad, dev)
-    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
-    sdpa_mask = causal[None, None] & (valid > 0)[:, None, None, :]
-    byts, flops = flash_bound(B, H, H, T, D, 2)
-    b_ms, b_by = bound_ms(byts, flops)
-    timings["flash_fwd"] = {
-        "shape": f"B={B} H={H} T=S={T} D={D} bf16 causal, left-padded",
-        "ms": cuda_time_ms(lambda: flash_attention(q, k, v, valid)),
-        "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v, valid)),
-        "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops,
-    }
+    timings = {"flash_fwd": time_flash_fwd(torch, F, gen, dev)}
     for quant in (False, True):
         case = paged_case(torch, gen, B=256, H=12, Hkv=12, D=64, BS=16, MB=16, quant=quant, dev=dev)
         byts, flops = paged_bound(case)
@@ -606,7 +676,7 @@ def phase_timing(ctx):
         timings[key] = {
             "shape": f"B=256 H=12 D=64 BS=16 MB=16 {'int8' if quant else 'bf16'} KV, "
                      f"{int(case['context_lens'].sum())} live tokens",
-            "ms": cuda_time_ms(lambda: paged_call(paged_attention_kernel, case)),
+            **device_and_eager_ms(torch, lambda: paged_call(paged_attention_kernel, case)),
             "plain_ms": cuda_time_ms(lambda: paged_call(paged_attention_reference, case)),
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops,
@@ -616,6 +686,111 @@ def phase_timing(ctx):
     for name, t in timings.items():
         emit({"phase": "timing", "kernel": name, "card": ctx.get("smi"), **t})
     ctx["timings"] = timings
+
+
+#: launches captured per CUDA graph when a kernel is timed by graph replays
+GRAPH_LAUNCHES = 20
+
+
+def graphed(torch, fn, n=GRAPH_LAUNCHES):
+    """A no-argument call that replays ``n`` calls of ``fn`` captured in one
+    CUDA graph: timed with CUDA events and divided by ``n`` it is the
+    device's time per launch without the host's launch overhead (the
+    wrappers' Python checks and the ctypes call). ``fn`` runs once first,
+    outside the capture, so builds and first-call set-up stay out of it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    torch.cuda.synchronize()
+    return graph.replay
+
+
+def device_and_eager_ms(torch, fn):
+    """{"ms": device time per launch (graph replays, :func:`graphed`),
+    "eager_ms": time per call launched eagerly through the wrapper}."""
+    return {"ms": cuda_time_ms(graphed(torch, fn)) / GRAPH_LAUNCHES, "eager_ms": cuda_time_ms(fn)}
+
+
+def sdpa_forward_call(torch, F, q, k, v, mask):
+    """The fastest SDPA forward over the backends that serve this boolean
+    mask: each backend pinned with ``sdpa_kernel`` around its call, timed
+    briefly by graph replays. Returns (call, backend name, {backend: ms or
+    "unsupported"})."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    probes, calls = {}, {}
+    for name in SDPA_BACKENDS:
+        def call(backend=getattr(SDPBackend, name)):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        try:
+            call()
+        except RuntimeError:
+            probes[name] = "unsupported"
+            continue
+        calls[name] = call
+        probes[name] = cuda_time_ms(graphed(torch, call)) / GRAPH_LAUNCHES
+    best = min(calls, key=lambda name: probes[name])
+    return calls[best], best, probes
+
+
+def time_flash_fwd(torch, F, gen, dev, H=12, D=64):
+    """K1 in bf16 at the engine's prefill wave (B=16, T=S=128, left-padded)
+    and at the trainer's two shapes (TRAIN_FWD_CASES: scoring [32, 384] and
+    the loss forward [16, 257], their PPO masks), each against the SDPA
+    forward on the same boolean mask with its backend pinned to the fastest
+    that serves it (:func:`sdpa_forward_call`). Kernel and SDPA are timed in
+    turns (:func:`interleaved_ms`: median, min and max of 5 rounds) as
+    device time per launch (:func:`graphed`); the eager time through the
+    wrapper, the plain version's and the bound stand beside them. The timed
+    output is held against the plain one with the kernels phase's
+    tolerance. Returns the B=16 row with the other shapes under
+    ``at_<name>``."""
+    from trlx_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    shapes = [("gpt2_prefill", 16, 128, None)] + [(name, B, P + R, (P, R, r_max))
+                                                  for name, B, P, R, r_max in TRAIN_FWD_CASES]
+    rows = {}
+    for name, B, T, train in shapes:
+        if train is None:
+            pad = [int(x) for x in torch.randint(0, 96, (B,), generator=gen, device=dev)]
+            q, k, v, valid = flash_case(torch, gen, B, H, H, T, D, torch.bfloat16, pad, dev)
+            shape = f"B={B} H={H} T=S={T} D={D} bf16 causal, left-padded"
+        else:
+            q, k, v, _ = flash_case(torch, gen, B, H, H, T, D, torch.bfloat16, (), dev)
+            valid = train_valid(torch, gen, B, train[0], train[1], dev, train[2])
+            shape = (f"B={B} H={H} T=S={T} D={D} bf16 causal, P={train[0]} left-padded + "
+                     f"R={train[1]} right-padded (responses <= {train[2]})")
+        out, ref = flash_attention(q, k, v, valid), attention_reference(q, k, v, valid)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL["bfloat16"] * max(1.0, ref.float().abs().max().item())
+        if not err <= tol:  # a NaN fails here too
+            raise AssertionError(f"flash_fwd disagrees with its plain version at {shape}: {err} > {tol}")
+        mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()[None, None] & (valid > 0)[:, None, None, :]
+        sdpa, backend, probes = sdpa_forward_call(torch, F, q, k, v, mask)
+        kernel = lambda: flash_attention(q, k, v, valid)  # noqa: E731
+        times = interleaved_ms(torch, {"flash_fwd": graphed(torch, kernel), "sdpa": graphed(torch, sdpa)})
+        t, lib = ({key: times[n][key] / GRAPH_LAUNCHES for key in ("ms", "min", "max")}
+                  for n in ("flash_fwd", "sdpa"))
+        byts = (2 * B * H * T * D + 2 * B * H * T * D) * q.element_size() + B * T * 4
+        b_ms, b_by = bound_ms(byts, 2 * 2 * D * visible_pairs(valid) * H)  # S and P V over the visible pairs
+        rows[name] = {
+            "shape": shape, "ms": t["ms"], "min_ms": t["min"], "max_ms": t["max"],
+            "launches_per_timing": times["flash_fwd"]["launches"] * GRAPH_LAUNCHES, "eager_ms": cuda_time_ms(kernel),
+            "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v, valid)),
+            "library_ms": lib["ms"], "library_min_ms": lib["min"], "library_max_ms": lib["max"],
+            "library": f"SDPA forward, boolean mask, backend {backend} pinned", "library_backend": backend,
+            "library_probe_ms": probes, "library_eager_ms": cuda_time_ms(sdpa),
+            "over_library": t["ms"] / lib["ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": 2 * 2 * D * visible_pairs(valid) * H,
+            "max_abs_err": err, "tol": tol,
+        }
+    first = rows.pop("gpt2_prefill")
+    return {**first, **{f"at_{name}": row for name, row in rows.items()}}
 
 
 def time_paged_verify(torch, gen, dev):
@@ -647,7 +822,7 @@ def time_paged_verify(torch, gen, dev):
         timings[key] = {
             "shape": f"B={shp['B']} Q={shp['Q']} H=12 D=64 BS=16 MB=16 "
                      f"{'int8' if shp['quant'] else 'bf16'} KV, {live} live tokens",
-            "ms": cuda_time_ms(lambda: paged_call(paged_verify_attention_kernel, case)),
+            **device_and_eager_ms(torch, lambda: paged_call(paged_verify_attention_kernel, case)),
             "plain_ms": cuda_time_ms(lambda: paged_call(paged_verify_attention_reference, case)),
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops, "max_abs_err": err,
@@ -903,54 +1078,72 @@ def phase_engine(ctx):
 
     prompts, budgets = serving_traffic(gpt2_config(12, torch.bfloat16).vocab_size)
     state = None
+    seen = {}  # kernel call shapes of the main path (record_kernel_shapes)
+    restore_kernels = record_kernel_shapes(seen)
     _kernels.reset_launches()
-    for quant in (False, True):
-        eng, state = full_width_engine(quant, state)
-        L = eng.trunk.config.num_layers
-        for label in ("warmup", "measured"):
-            before = dict(_kernels.launches())
-            waves0, steps0 = eng.stats.prefill_waves, eng.stats.decode_steps
-            prefill0, decode0 = eng.stats.prefill_s, eng.stats.decode_s
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
-            done = eng.run(uids)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            delivered = sum(len(done[u].generated) for u in uids)
-            for u in uids:
-                eng.scheduler.pop_request(u)
-            waves = eng.stats.prefill_waves - waves0
-            steps = eng.stats.decode_steps - steps0
-            flash = _kernels.launches()["flash_fwd"] - before["flash_fwd"]
-            paged = _kernels.launches()["paged_decode"] - before["paged_decode"]
-            short = [u for u, n in zip(uids, budgets) if len(done[u].generated) != n]
-            run = {"phase": "engine", "kv": "int8" if quant else "bf16", "pass": label,
-                   "card": ctx.get("smi"), "requests": len(prompts), "slots": SLOTS,
-                   "delivered_tokens": delivered, "wall_s": wall, "tok_s": delivered / wall,
-                   "decode_steps": steps, "prefill_waves": waves,
-                   "prefill_s": eng.stats.prefill_s - prefill0,
-                   "decode_s": eng.stats.decode_s - decode0,
-                   "flash_launches": flash, "paged_launches": paged,
-                   "blocks_in_use": eng.allocator.blocks_in_use,
-                   "prefix_cache_hit_rate": eng.allocator.stats.hit_rate,
-                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-            emit(run)
-            checks = {
-                "flash launches == prefill waves x layers": flash == waves * L and flash > 0,
-                "paged launches == decode steps x layers": paged == steps * L and paged > 0,
-                "no blocks in use at the end": eng.allocator.blocks_in_use == 0,
-                "every request ran its whole budget": not short,
-            }
-            failed = [k for k, ok in checks.items() if not ok]
-            if failed:
-                raise AssertionError(f"engine {run['kv']} {label}: {failed}")
-        eng.allocator.check_invariants()
-        eng.close()
-        del eng
-        torch.cuda.empty_cache()
+    try:
+        for quant in (False, True):
+            state = engine_passes(ctx, prompts, budgets, quant, state)
+    finally:
+        restore_kernels()
     ctx["main_path_launches"] = _kernels.launches()
+    emit({"phase": "engine", "kernel_shapes": kernel_shapes(seen)})
+    check_main_path_shapes(ctx, seen, "engine", ("flash_fwd", "paged_decode"))
+
+
+def engine_passes(ctx, prompts, budgets, quant, state):
+    """phase_engine's warm-up and measured pass of one KV layout, their
+    report lines and checks; returns the weights for the next engine."""
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    eng, state = full_width_engine(quant, state)
+    L = eng.trunk.config.num_layers
+    for label in ("warmup", "measured"):
+        before = dict(_kernels.launches())
+        waves0, steps0 = eng.stats.prefill_waves, eng.stats.decode_steps
+        prefill0, decode0 = eng.stats.prefill_s, eng.stats.decode_s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+        done = eng.run(uids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delivered = sum(len(done[u].generated) for u in uids)
+        for u in uids:
+            eng.scheduler.pop_request(u)
+        waves = eng.stats.prefill_waves - waves0
+        steps = eng.stats.decode_steps - steps0
+        flash = _kernels.launches()["flash_fwd"] - before["flash_fwd"]
+        paged = _kernels.launches()["paged_decode"] - before["paged_decode"]
+        short = [u for u, n in zip(uids, budgets) if len(done[u].generated) != n]
+        run = {"phase": "engine", "kv": "int8" if quant else "bf16", "pass": label,
+               "card": ctx.get("smi"), "requests": len(prompts), "slots": SLOTS,
+               "delivered_tokens": delivered, "wall_s": wall, "tok_s": delivered / wall,
+               "decode_steps": steps, "prefill_waves": waves,
+               "prefill_s": eng.stats.prefill_s - prefill0,
+               "decode_s": eng.stats.decode_s - decode0,
+               "flash_launches": flash, "paged_launches": paged,
+               "blocks_in_use": eng.allocator.blocks_in_use,
+               "prefix_cache_hit_rate": eng.allocator.stats.hit_rate,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        emit(run)
+        checks = {
+            "flash launches == prefill waves x layers": flash == waves * L and flash > 0,
+            "paged launches == decode steps x layers": paged == steps * L and paged > 0,
+            "no blocks in use at the end": eng.allocator.blocks_in_use == 0,
+            "every request ran its whole budget": not short,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"engine {run['kv']} {label}: {failed}")
+    eng.allocator.check_invariants()
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return state
 
 
 def tie_aware_splits(ref_trunk, prompts, generated, ref_generated):
@@ -992,6 +1185,83 @@ def teacher_forced_gaps(ref_trunk, prompts, generated):
         chosen = logits.gather(1, torch.tensor(list(row), device=logits.device)[:, None])[:, 0]
         gaps += (logits.max(1).values - chosen).tolist()
     return gaps
+
+
+def engine_forced_gaps(eng, prompts, rows):
+    """Teacher-forced gaps under an engine's own numerics: ``eng``, a
+    one-token engine (spec_k 0) whose prefill chunk every prompt exceeds,
+    runs ``prompts`` with its greedy sampling replaced by ``rows`` (one token
+    list per prompt): at every position, the engine's top logit minus its
+    logit of the row's token, given the prompt and the row's earlier tokens,
+    and the row's token is what the slot takes next. The paged kernels, the
+    int8 KV, the chunking and the decode batch are the one-token engine's,
+    so on the rows it generated itself every gap is exactly 0. Returns one
+    list of gaps per row; raises if a request did not take its row."""
+    import numpy as np
+    import torch
+
+    if eng.spec_k or not all(len(p) > eng.prefill_chunk > 0 for p in prompts):
+        raise ValueError("engine_forced_gaps: a one-token engine whose every prompt is chunked")
+    forced, gaps, order = {}, {}, []  # uid -> row; (uid, position) -> gap; slots of the chunk steps
+
+    def pick(logits, new_counts, rows):
+        """The engine's tokens for ``logits`` with each (row, slot) of
+        ``rows`` forced to its request's next token, whose gap is kept."""
+        out = eng._sample(logits, new_counts).clone()
+        where, toks, keys = [], [], []
+        for i, slot in rows:
+            req = eng.scheduler.slots[slot]
+            if req is None or len(req.generated) >= len(forced[req.uid]):
+                continue
+            where.append(i)
+            toks.append(forced[req.uid][len(req.generated)])
+            keys.append((req.uid, len(req.generated)))
+        if where:
+            w = torch.tensor(where, device=out.device)
+            t = torch.tensor(toks, device=out.device, dtype=out.dtype)
+            lf = logits[w].float()
+            g = lf.max(1).values - lf.gather(1, t.long()[:, None])[:, 0]
+            out[w] = t
+            gaps.update(zip(keys, g.tolist()))
+        return out
+
+    @torch.no_grad()
+    def decode_step(tok, new_counts):
+        logits, _, eng.cache = eng.trunk.paged_decode(tok[:, None], eng.cache)
+        live = [(s, s) for s in range(eng.num_slots) if not eng._prefilling[s]]
+        return pick(logits[:, -1, :], new_counts, live)
+
+    @torch.no_grad()
+    def chunk_step(ids, cache, last_idx, new_counts):
+        logits, _, _ = eng.trunk.paged_verify(ids, cache)
+        last = logits[torch.arange(ids.shape[0], device=ids.device), last_idx.long()]
+        slot = order.pop(0)
+        req = eng.scheduler.slots[slot]
+        if req.prefilled + eng.prefill_chunk < len(req.prefill_ids):
+            return eng._sample(last, new_counts)  # not the final chunk: its token is unused
+        return pick(last, new_counts, [(0, slot)])  # the final chunk samples the first token
+
+    advance = eng._advance_prefill_chunks
+
+    def advance_chunks():
+        # the slots _advance_prefill_chunks steps through, in its order
+        order[:] = [int(s) for s in np.nonzero(eng._prefilling)[0] if eng.scheduler.slots[int(s)] is not None]
+        out = advance()
+        assert not order, "engine_forced_gaps: a chunk step went unseen"
+        return out
+
+    eng._decode_step, eng._chunk_step, eng._advance_prefill_chunks = decode_step, chunk_step, advance_chunks
+    try:
+        uids = [eng.submit(p, len(row)) for p, row in zip(prompts, rows)]
+        forced.update(zip(uids, (list(map(int, row)) for row in rows)))
+        done = eng.run(uids)
+    finally:
+        del eng._decode_step, eng._chunk_step, eng._advance_prefill_chunks
+    for u in uids:
+        if list(done[u].generated) != forced[u] or any((u, i) not in gaps for i in range(len(forced[u]))):
+            raise AssertionError(f"engine_forced_gaps: request {u} did not take its row")
+        eng.scheduler.pop_request(u)
+    return [[gaps[(u, i)] for i in range(len(forced[u]))] for u in uids]
 
 
 def near_tie(split, dtype: str) -> bool:
@@ -1145,11 +1415,17 @@ def phase_engine_spec(ctx):
     every kernel call shape of the two passes against the plain versions
     (:func:`check_main_path_shapes`), and the first 32 requests against the
     one-token engine (spec_k 0, the same prefill_chunk) on the same weights,
-    tie-aware: this isolates the speculative rounds, and the CPU tests hold
+    tie-aware (that engine with this one's slots, running the first SLOTS
+    requests, so the two share the first admission wave and the batch
+    size): this isolates the speculative rounds, and the CPU tests hold
     chunked against unchunked output exactly in f32. Each of those rows is
-    also held over its whole length, teacher-forced: at every position the
-    dense model may prefer another token by at most 2e-2
-    (:func:`teacher_forced_gaps`)."""
+    also held over its whole length, teacher-forced through the one-token
+    engine itself (:func:`engine_forced_gaps`: its kernels, int8 KV and
+    chunking): at every position it may prefer another token by at most
+    2e-2, and on its own rows it must prefer its own token at every
+    position. A split's gap is the same engine's preference at the split.
+    The dense model's teacher-forced gaps (no int8 KV) are reported beside,
+    for the speculative and the one-token rows."""
     import torch
 
     from trlx_tpu_torch.ops import _kernels
@@ -1176,29 +1452,75 @@ def phase_engine_spec(ctx):
     check_main_path_shapes(ctx, seen, "engine_spec", ("flash_fwd", "paged_verify"))
 
     n = len(first)
-    ref, _ = full_width_engine(True, state, num_slots=n, prefill_chunk=PROMPT_CAP // 2)
-    uids = [ref.submit(prompts[i], MAX_NEW) for i in range(n)]
-    done = ref.run(uids)
-    want = [list(done[u].generated) for u in uids]
-    got = [first[i] for i in range(n)]
-    splits = tie_aware_splits(ref.trunk, prompts[:n], got, want)
-    gaps = teacher_forced_gaps(ref.trunk, prompts[:n], got)
-    limit = TIE_GAP["bfloat16"]
-    # tokens held against the one-token engine: whole rows, and each split row up to its split
-    compared = MAX_NEW * (n - len(splits)) + sum(x["position"] for x in splits)
+    ref, _ = full_width_engine(True, state, prefill_chunk=PROMPT_CAP // 2)
+    report, failures = hold_against_one_token(ref, prompts[:SLOTS], [first[i] for i in range(n)], MAX_NEW,
+                                              "bfloat16")
     emit({"phase": "engine_spec", "check": f"first {n} requests vs the one-token engine, tie-aware",
-          "whole_row_matches": n - len(splits), "tokens_compared": compared, "tokens": MAX_NEW * n,
-          "splits": splits, "near_ties": sum(near_tie(x, "bfloat16") for x in splits),
-          "teacher_forced": {"positions": len(gaps), "not_greedy": sum(g > 0 for g in gaps),
-                             "over_limit": sum(g > limit for g in gaps), "max_gap": max(gaps), "limit": limit}})
+          "one_token_engine": f"{SLOTS} slots, the first {SLOTS} requests", **report})
+    ref.allocator.check_invariants()
     ref.close()
     del ref
     torch.cuda.empty_cache()
-    bad = [x for x in splits if not near_tie(x, "bfloat16")]
+    if failures:
+        raise AssertionError(f"engine_spec: {failures}")
+
+
+def hold_against_one_token(ref, prompts, got, budget, dtype):
+    """engine_spec's tie-aware check of the speculative engine's rows ``got``
+    (``budget`` tokens each), those of the first ``len(got)`` of
+    ``prompts``, against ``ref``: a one-token engine (spec_k 0) on the same
+    weights, whose prefill chunk every prompt exceeds, with the speculative
+    engine's slots, so that running all of ``prompts`` it admits them in the
+    same first wave and decodes them in a batch of the same size: the two
+    engines then differ in the speculative rounds only. ``ref`` generates
+    the rows itself, then is teacher-forced onto its own rows (every gap
+    must be 0: the arbiter reproduces the engine) and onto ``got`` in place
+    of its first rows (:func:`engine_forced_gaps`). A split from ``ref``'s
+    row must be a near tie under ``ref``'s own logits at the split, and
+    every position of ``got`` at most TIE_GAP[dtype] below ``ref``'s greedy
+    choice. The dense model's teacher-forced gaps (no int8 KV) are reported,
+    not held. Returns (report, failures)."""
+    n = len(got)
+    uids = [ref.submit(p, budget) for p in prompts]
+    done = ref.run(uids)
+    want = [list(done[u].generated) for u in uids]
+    for u in uids:
+        ref.scheduler.pop_request(u)
+    own = engine_forced_gaps(ref, prompts, want)
+    forced = engine_forced_gaps(ref, prompts, list(got) + want[n:])[:n]
+    prompts, want = prompts[:n], want[:n]
+    splits = tie_aware_splits(ref.trunk, prompts, got, want)
+    for x in splits:  # the one-token engine's own preference at the split (the common prefix)
+        x["dense_logit_gap"] = x["logit_gap"]
+        if x["logit_gap"] is not None:
+            x["logit_gap"] = forced[x["row"]][x["position"]]
+    gaps = [g for row in forced for g in row]
+    limit = TIE_GAP[dtype]
+
+    def over(g):
+        return {"positions": len(g), "not_greedy": sum(x > 0 for x in g), "over_limit": sum(x > limit for x in g),
+                "max_gap": max(g)}
+
+    own_max = max(abs(g) for row in own for g in row)
+    report = {"whole_row_matches": len(got) - len(splits),
+              # tokens held against the one-token engine: whole rows, and each split row up to its split
+              "tokens_compared": sum(map(len, got)) - sum(len(got[x["row"]]) - x["position"] for x in splits),
+              "tokens": sum(map(len, got)),
+              "splits": splits, "near_ties": sum(near_tie(x, dtype) for x in splits),
+              "teacher_forced": {"arbiter": "the one-token engine", **over(gaps), "limit": limit,
+                                 "own_rows_max_abs_gap": own_max},
+              "dense_model_teacher_forced": {
+                  "speculative_rows": over(teacher_forced_gaps(ref.trunk, prompts, got)),
+                  "one_token_rows": over(teacher_forced_gaps(ref.trunk, prompts, want))}}
+    failures = []
+    if own_max != 0:
+        failures.append(f"the forced one-token engine does not reproduce its own rows (gap {own_max})")
+    bad = [x for x in splits if not near_tie(x, dtype)]
     if bad:
-        raise AssertionError(f"engine_spec: spec output split from the one-token engine off a tie: {bad}")
+        failures.append(f"spec output split from the one-token engine off a tie: {bad}")
     if not max(gaps) <= limit:  # a NaN fails here too
-        raise AssertionError(f"engine_spec: a speculative token is {max(gaps)} below the greedy choice (> {limit})")
+        failures.append(f"a speculative token is {max(gaps)} below the greedy choice (> {limit})")
+    return report, failures
 
 
 # ------------------------------------------------------------------ training
@@ -1623,15 +1945,16 @@ def phase_train_serving(ctx):
 
 def record_kernel_shapes(seen):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
-    (``_flash_bwd_cuda``) and K5's wrapper so that every distinct call shape
-    of a main path is recorded in ``seen`` with its call count and the first
-    mask (K5: block tables and lens) passed at that shape. The wrappers only
-    record; the launches and their counts are the kernels' own. Returns the
-    function that restores the entry points."""
+    (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
+    distinct call shape of a main path is recorded in ``seen`` with its call
+    count and the first mask (K4, K5: block tables and lens) passed at that
+    shape. The wrappers only record; the launches and their counts are the
+    kernels' own. Returns the function that restores the entry points."""
     from trlx_tpu_torch.ops import attention as attn
     from trlx_tpu_torch.ops import paged_attention as paged
 
-    cuda_fwd, cuda_bwd, verify = attn._flash_cuda, attn._flash_bwd_cuda, paged.paged_verify_attention_kernel
+    cuda_fwd, cuda_bwd = attn._flash_cuda, attn._flash_bwd_cuda
+    decode, verify = paged.paged_attention_kernel, paged.paged_verify_attention_kernel
 
     def record(key, **first):
         entry = seen.setdefault(key, {"calls": 0, **{k: v.clone() for k, v in first.items()}})
@@ -1646,15 +1969,21 @@ def record_kernel_shapes(seen):
         record(("flash_bwd", tuple(q.shape), k.shape[1], k.shape[2], q.dtype, causal, scale), kv_valid=kv_valid)
         return cuda_bwd(q, k, v, kv_valid, out, lse, g, causal, scale)
 
-    def paged_verify(q, k_pool, v_pool, block_tables, context_lens, *, k_scale=None, v_scale=None, scale=None):
-        record(("paged_verify", tuple(q.shape), tuple(k_pool.shape), q.dtype, k_pool.dtype, scale),
-               block_tables=block_tables, context_lens=context_lens)
-        return verify(q, k_pool, v_pool, block_tables, context_lens, k_scale=k_scale, v_scale=v_scale, scale=scale)
+    def paged_wrapper(kind, fn):
+        def run(q, k_pool, v_pool, block_tables, context_lens, *, k_scale=None, v_scale=None, scale=None):
+            record((kind, tuple(q.shape), tuple(k_pool.shape), q.dtype, k_pool.dtype, scale),
+                   block_tables=block_tables, context_lens=context_lens)
+            return fn(q, k_pool, v_pool, block_tables, context_lens, k_scale=k_scale, v_scale=v_scale, scale=scale)
 
-    attn._flash_cuda, attn._flash_bwd_cuda, paged.paged_verify_attention_kernel = fwd, bwd, paged_verify
+        return run
+
+    attn._flash_cuda, attn._flash_bwd_cuda = fwd, bwd
+    paged.paged_attention_kernel = paged_wrapper("paged_decode", decode)
+    paged.paged_verify_attention_kernel = paged_wrapper("paged_verify", verify)
 
     def restore():
-        attn._flash_cuda, attn._flash_bwd_cuda, paged.paged_verify_attention_kernel = cuda_fwd, cuda_bwd, verify
+        attn._flash_cuda, attn._flash_bwd_cuda = cuda_fwd, cuda_bwd
+        paged.paged_attention_kernel, paged.paged_verify_attention_kernel = decode, verify
 
     return restore
 
@@ -1663,7 +1992,7 @@ def kernel_shapes(seen):
     """The recorded call shapes (:func:`record_kernel_shapes`) as JSON."""
     out = []
     for key, e in seen.items():
-        if key[0] == "paged_verify":
+        if key[0] in ("paged_decode", "paged_verify"):
             out.append({"kernel": key[0], "q": list(key[1]), "pool": list(key[2]), "dtype": str(key[3]),
                         "kv": str(key[4]), "calls": e["calls"]})
         else:
@@ -1690,12 +2019,12 @@ def check_main_path_shapes(ctx, seen, phase, kinds):
     dev = (first["kv_valid"] if "kv_valid" in first else first["context_lens"]).device
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     errs = ctx.setdefault("max_abs_err", {})
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_verify"):
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_decode", "paged_verify"):
         errs.setdefault(name, 0.0)
     results = []
     for key, entry in seen.items():
-        if key[0] == "paged_verify":
-            results += replay_paged_verify(torch, gen, key, entry, errs)
+        if key[0] in ("paged_decode", "paged_verify"):
+            results += replay_paged(torch, gen, key, entry, errs)
             continue
         kind, (B, H, T, D), Hkv, S, run_dtype, causal, scale = key[:7]
         valid = entry["kv_valid"]
@@ -1713,39 +2042,47 @@ def check_main_path_shapes(ctx, seen, phase, kinds):
         raise AssertionError(f"{phase} phase: kernel disagrees with its plain version at a main-path shape: {bad}")
 
 
-def replay_paged_verify(torch, gen, key, entry, errs):
-    """K5 against paged_verify_attention_reference at one recorded main-path
-    shape: the run's block tables and lens, seeded pools of the run's shape
-    (int8 from quantized normals, else the run's dtype), q in the run's dtype
-    and in f32 (f32 pools with it unless int8)."""
+def replay_paged(torch, gen, key, entry, errs):
+    """K4 or K5 against its plain version at one recorded main-path shape:
+    the run's block tables and lens, seeded pools of the run's shape (int8
+    from quantized normals, else the run's dtype), q in the run's dtype and
+    in f32 (f32 pools with it unless int8)."""
     from trlx_tpu_torch.models.transformer import quantize_kv_rows
-    from trlx_tpu_torch.ops.paged_attention import paged_verify_attention_kernel, paged_verify_attention_reference
+    from trlx_tpu_torch.ops import paged_attention as paged
 
-    _, (B, Q, H, D), pool_shape, run_dtype, kv_dtype, scale = key
+    kind, q_shape, pool_shape, run_dtype, kv_dtype, scale = key
+    kernel, plain = {"paged_decode": (paged.paged_attention_kernel, paged.paged_attention_reference),
+                     "paged_verify": (paged.paged_verify_attention_kernel,
+                                      paged.paged_verify_attention_reference)}[kind]
     tables, lens = entry["block_tables"], entry["context_lens"]
     dev = lens.device
     kf = torch.randn(*pool_shape, generator=gen, device=dev)
     vf = torch.randn(*pool_shape, generator=gen, device=dev)
     results = []
     for dtype in dict.fromkeys((run_dtype, torch.float32)):
-        case = dict(q=torch.randn(B, Q, H, D, generator=gen, device=dev).to(dtype), block_tables=tables,
+        case = dict(q=torch.randn(*q_shape, generator=gen, device=dev).to(dtype), block_tables=tables,
                     context_lens=lens)
         if kv_dtype == torch.int8:
             (kq, ks), (vq, vs) = quantize_kv_rows(kf), quantize_kv_rows(vf)
             case.update(k_pool=kq, v_pool=vq, k_scale=ks[..., 0].contiguous(), v_scale=vs[..., 0].contiguous())
         else:
             case.update(k_pool=kf.to(dtype), v_pool=vf.to(dtype))
-        out = paged_call(lambda *a, **kw: paged_verify_attention_kernel(*a, **kw, scale=scale), case)
-        ref = paged_call(lambda *a, **kw: paged_verify_attention_reference(*a, **kw, scale=scale), case)
+        out = paged_call(lambda *a, **kw: kernel(*a, **kw, scale=scale), case)
+        ref = paged_call(lambda *a, **kw: plain(*a, **kw, scale=scale), case)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[str(dtype).split(".")[-1]] * max(1.0, ref.float().abs().max().item())
+        # the plain decode averages over a slot at len 0 where the kernel writes 0
+        live = lens > 0 if kind == "paged_decode" else torch.ones_like(lens, dtype=torch.bool)
+        err = (out.float() - ref.float())[live].abs().max().item()
+        tol = TOL[str(dtype).split(".")[-1]] * max(1.0, ref.float()[live].abs().max().item())
         ok = err <= tol and bool(torch.isfinite(out.float()).all())
-        results.append({"kernel": "paged_verify", "case": f"B={B} Q={Q} MB={tables.shape[1]}, {entry['calls']} calls, "
-                                                          f"lens {int(lens.min())}..{int(lens.max())}",
+        if kind == "paged_decode":
+            ok = ok and bool((out[~live] == 0).all())
+        shape_txt = f"B={q_shape[0]}" + (f" Q={q_shape[1]}" if kind == "paged_verify" else "")
+        results.append({"kernel": kind, "case": f"{shape_txt} MB={tables.shape[1]}, {entry['calls']} calls, "
+                                                f"lens {int(lens.min())}..{int(lens.max())}",
                         "dtype": str(dtype), "kv": str(kv_dtype).split(".")[-1], "max_abs_err": err, "tol": tol,
                         "ok": ok})
-        errs["paged_verify"] = max(errs["paged_verify"], err)
+        errs[kind] = max(errs[kind], err)
     return results
 
 

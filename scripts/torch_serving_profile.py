@@ -8,9 +8,10 @@ and a pass under ``torch.profiler`` with CPU and CUDA activities. From the
 profiled pass it prints one JSON object: the engine's host-clock split
 between admission rounds (prefill + pack) and decode rounds, device busy
 time (the union of kernel intervals), the device's idle share, kernels per
-decode step, the kernels that took the most device time, and the host
-operations that took the most host time (self time, which includes the
-waits of synchronising calls).
+decode step, the kernels that took the most device time, each of the
+port's own kernels with its share of busy time, and the host operations
+that took the most host time (self time, which includes the waits of
+synchronising calls).
 
 Usage: ``python3 scripts/torch_serving_profile.py [--kv bf16|int8] [--spec]
 [--requests N] [--trace PATH]`` from the repository root. ``--spec``
@@ -27,6 +28,12 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+#: the port's hand-written kernels (their CUDA function names), always
+#: listed with their share of device busy time
+PORT_KERNELS = ("flash_fwd_kernel", "fwd_mma_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "dkv_mma_kernel",
+                "dq_mma_kernel", "paged_attn_kernel", "paged_mma_kernel")
 
 
 def _kernel_events(prof):
@@ -122,6 +129,11 @@ def main(argv=None) -> int:
         "top_kernels": [
             {"name": name[:120], "calls": calls, "device_s": us / 1e6, "share_of_busy": us / 1e6 / busy_s}
             for name, (calls, us) in top
+        ],
+        "port_kernels": [
+            {"name": name[:120], "calls": calls, "device_s": us / 1e6, "share_of_busy": us / 1e6 / busy_s}
+            for name, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])
+            if any(k in name for k in PORT_KERNELS)
         ],
         "top_host_ops": [
             {"name": e.key[:80], "calls": e.count, "self_host_s": e.self_cpu_time_total / 1e6}

@@ -32,13 +32,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_serving_profile import _kernel_events, _union_us  # noqa: E402
-
-
-#: the port's hand-written kernels (their CUDA function names), always
-#: listed with their share of device busy time
-PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "dkv_mma_kernel", "dq_mma_kernel",
-                "paged_attn_kernel")
+from torch_serving_profile import PORT_KERNELS, _kernel_events, _union_us  # noqa: E402
 #: unprofiled learner steps timed (their median is reported)
 LEARN_STEPS = 5
 

@@ -70,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // query rows per tile
@@ -295,161 +297,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;  // 16 tile rows per warp
-constexpr int TILE = 64;             // query rows and keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned FULL = 0xffffffffu;
-
-// Shared layout of a [TILE][D] bf16 tile: rows padded by 8 elements (16
-// bytes). A row is then D/8 + 1 16-byte units; for D in {16, 32, 64, 96,
-// 128} that is odd, so the 8 rows one ldmatrix phase reads start in 8
-// distinct 4-bank groups.
-template <int D>
-struct Tile {
-  static constexpr int ROW_BYTES = (D + 8) * 2;
-  static constexpr int BYTES = TILE * ROW_BYTES;
-  static constexpr int CHUNKS = TILE * D / 8;  // 16-byte copies per tile
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronous; zero-filled when !pred.
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair, `lo` in the low half (the lower k index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [r0, r0 + TILE) of a row-major [len][D] bf16 matrix into a shared
-// tile at `dst`, asynchronously; rows at or past len are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* __restrict__ src, int r0, int len) {
-  constexpr int PER_ROW = D / 8;
-#pragma unroll
-  for (int j = 0; j < Tile<D>::CHUNKS / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i / PER_ROW, c = i % PER_ROW;
-    const bool ok = r0 + r < len;
-    cp_async_16(dst + r * Tile<D>::ROW_BYTES + c * 16, src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok);
-  }
-}
-
-// acc[NT][4] += A B^T for this warp: A is 16 rows x D of a shared tile
-// (lane address a_addr, from lane_a), B is NT*8 rows x D of a shared tile
-// (lane address b_addr, from lane_b), both read with ldmatrix. acc[j] holds
-// output columns 8j..8j+7 as mma C fragments.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], uint32_t a_addr, uint32_t b_addr) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_addr + kk * 32);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_addr + np * 16 * Tile<D>::ROW_BYTES + kk * 32);
-      mma_16816(acc[2 * np], a, b[0], b[1]);
-      mma_16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[D/8][4] += A B for this warp: A is 16 rows x 64 given as four k-chunks
-// of A fragments (from registers), B is 64 rows x D of a shared tile read
-// transposed (lane address b_addr, from lane_a).
-template <int D>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[4][4], uint32_t b_addr) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, b_addr + kc * 16 * Tile<D>::ROW_BYTES + dp * 32);
-      mma_16816(acc[2 * dp], a[kc], b[0], b[1]);
-      mma_16816(acc[2 * dp + 1], a[kc], b[2], b[3]);
-    }
-  }
-}
-
-// Per-lane byte offsets into a shared tile for ldmatrix.x4:
-// lane_a: an A operand (16 rows x 16) or a transposed B operand (16 k-rows x
-//   16 n-columns): lanes 0-15 rows 0-15 at column 0, lanes 16-31 at column 8.
-// lane_b: a B operand stored n-major (16 n-rows x 16 k-columns): lanes 0-7
-//   rows 0-7 col 0, 8-15 rows 0-7 col 8, 16-23 rows 8-15 col 0, 24-31 rows
-//   8-15 col 8.
-template <int D>
-__device__ __forceinline__ uint32_t lane_a(int lane) {
-  return (lane % 16) * Tile<D>::ROW_BYTES + (lane / 16) * 16;
-}
-
-template <int D>
-__device__ __forceinline__ uint32_t lane_b(int lane) {
-  return ((lane % 8) + 8 * (lane / 16)) * Tile<D>::ROW_BYTES + ((lane / 8) % 2) * 16;
-}
-
-// Zero rows [r0, min(r0 + TILE, len)) of a row-major [len][D] bf16 matrix.
-template <int D>
-__device__ __forceinline__ void zero_rows(bf16* __restrict__ dst, int r0, int len) {
-  const int n = min(TILE, len - r0) * D / 8;
-  uint4* p = reinterpret_cast<uint4*>(dst + (size_t)r0 * D);
-  for (int i = threadIdx.x; i < n; i += THREADS) p[i] = make_uint4(0, 0, 0, 0);
-}
-
-// Store an accumulator tile (16 rows x D, C fragments) as bf16: rows r_lo and
-// r_lo + 8 of a row-major [len][D] matrix, skipping rows at or past len.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4], int r_lo,
-                                           int len, int tq) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r_lo + 8 * half;
-      if (r < len)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + 8 * j + 2 * tq) =
-            pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
-    }
-  }
-}
+// the shared tensor-core helpers (mma_sm90.cuh): bf16, WARPS, THREADS,
+// TILE, Tile<D>, cp.async, ldmatrix, mma_16816, mma_abt, mma_ab, lane maps.
+// The using-declaration makes THREADS the header's 128, not the SIMT
+// kernels' 256 of the enclosing namespace.
+using namespace ::sm90;
+using sm90::THREADS;
 
 size_t smem_bytes(int row_bytes) {
   // dkv: K, V + 2 stages of (Q, dO, lse and delta [64] each);

@@ -5,29 +5,49 @@
 // contract: q [B,H,T,D], k/v [B,Hkv,S,D] (query head h reads kv head
 // h / (H/Hkv), never expanded), key mask kv_valid[b,s] > 0 combined with
 // slot causality s <= t, f32 online softmax, fully-masked rows written as 0,
-// optional per-row logsumexp m + log(l) (-1e30 on empty rows).
+// optional per-row logsumexp m + log(l) (-1e30 on empty rows; the backward
+// kernels of flash_bwd.cu read it).
 //
-// What bounds it on the H100: at serving-prefill shapes (T = S <= 2048,
-// D = 64..128) attention does 2*T*S*D*2 flops per (b,h) on 2*S*D*2 bytes
-// of K/V, i.e. hundreds of flops per byte: above the card's ~295 bf16
-// flops/byte ridge, so it is bound by operations. This first version runs
-// its products as f32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the
-// tensor cores; wgmma tiles, TMA loads and warp specialisation are later work.
+// What bounds it on the H100: attention does 2*T*S*D*2 flops per (b,h) on
+// 2*S*D*2 bytes of K/V. At the engine's prefill wave (B=16, H=12, T=S=128,
+// D=64, bf16) that is ~0.1 GFLOP over the visible pairs against ~1.6 MB
+// moved: 0.0038 ms of bytes at 3.35 TB/s, 0.0001 ms of tensor-core work at
+// 989 TFLOP/s. At these T the kernel is bound by bytes and by latency (one
+// to six 64-key tiles per query tile), not by the tensor cores' issue rate,
+// so the warp-level mma.sync.m16n8k16 serves; wgmma and TMA would come only
+// if a profile shows the mma issue rate binding at long T.
 //
-// Design: one CTA per (64-row query tile, head, batch). The TPU kernel's
-// sequential kv grid axis and its VMEM scratch carry become a loop inside
-// the CTA over 64-row K/V tiles staged in shared memory (converted to f32
-// once per tile); the running max / sum / accumulator stay in registers.
-// 256 threads: 4 per query row, each owning 16 of the tile's 64 keys for
-// the scores and D/4 output columns for the P@V update. Tiles wholly above
-// the causal diagonal are never visited (the pl.when(run) skip). The ragged
-// edge (T, S not multiples of 64) is masked in the kernel, so the host pads
-// nothing. Shared rows are padded by one float to keep the 4-row / 8-row
-// access patterns free of bank conflicts.
+// Design of the bf16 instances (tc::fwd_mma_kernel; 4 warps, each owning 16
+// rows of a 64-row query tile, every product on the tensor cores): one CTA
+// per (64-query tile, head, batch). Q is staged once with 16-byte cp.async
+// and held in registers as A fragments; K, V and the key flags of each
+// 64-key tile up to the causal diagonal are double-buffered with cp.async,
+// so the next tile loads while this one computes. A warp forms S = Q K^T
+// (16 queries x 64 keys) in f32 registers, keeps the running max, sum and
+// rescaled output in registers, and feeds P straight from the C fragments
+// as the A operand of O += P V, V read through ldmatrix.trans (no P in
+// shared memory). P goes in as two bf16 parts, hi = bf16(p) and lo =
+// bf16(p - hi), so P V keeps ~16 bits of each probability where bf16(p)
+// alone keeps 8: the output then differs from the f32 reference by
+// summation order only, not by a bf16 rounding of P, and twice the P V
+// mma instructions cost no bytes. Work skipped: tiles above the
+// causal diagonal, and kv tiles whose keys are all invalid (a uniform vote
+// on the staged flags). The per-element mask runs only on the diagonal, a
+// tile holding an invalid key, and the ragged edge (keys past S are
+// zero-filled and flagged invalid); a masked score is selected to -1e30 and
+// its probability to 0, never multiplied. Shared rows are padded by 16
+// bytes (conflict-free ldmatrix); the host pads nothing.
+//
+// The f32 instances stay this file's first design, bit for bit: every
+// product as f32 FMAs on the CUDA cores out of f32 shared memory (256
+// threads, 4 per query row), since TF32 keeps too few digits for the f32
+// contract.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -37,14 +57,14 @@ constexpr int THREADS = 256;
 constexpr int TPR = THREADS / BQ;  // threads per query row
 constexpr float NEG_INF = -1e30f;
 
+// ---------------------------------------------------------------- f32 (SIMT)
+// The f32 instances: every product as f32 FMAs out of f32 shared memory
+// (this file's first design, unchanged, so f32 results stay bit for bit).
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 size_t smem_bytes(int D) {
   // q_s [BQ][D+1], k_s [BK][D+1], v_s [BK][D], p_s [BQ][BK+1] floats, valid_s [BK] ints
@@ -196,11 +216,197 @@ int dispatch_d(const void* q, const void* k, const void* v, const int32_t* kv_va
   }
 }
 
+// ------------------------------------------------------- bf16 (tensor cores)
+
+namespace tc {
+
+// the shared tensor-core helpers (mma_sm90.cuh). The using-declaration makes
+// THREADS the header's 128, not the SIMT kernel's 256 of the enclosing
+// namespace.
+using namespace ::sm90;
+using sm90::THREADS;
+
+template <int D>
+size_t fwd_smem_bytes() {
+  // Q tile + 2 stages of (K, V, key flags [TILE])
+  return (size_t)Tile<D>::BYTES + 2 * (2 * Tile<D>::BYTES + TILE * sizeof(int32_t));
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const int32_t* __restrict__ kv_valid, bf16* __restrict__ o, float* __restrict__ lse, int H,
+               int Hkv, int T_len, int S, int causal, float scale) {
+  using TL = Tile<D>;
+  constexpr int STAGE = 2 * TL::BYTES + TILE * 4;  // K, V, key flags
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const size_t row_base = (size_t)(b * H + h) * T_len;
+  const size_t q_base = row_base * D, kv_base = (size_t)(b * Hkv + hk) * S * D;
+  // keys past the tile's last query slot are all causally masked: skip them
+  const int kv_end = causal ? min(S, q0 + TILE) : S;
+  const int n_tiles = (kv_end + TILE - 1) / TILE;
+
+  const uint32_t q_s = smem_addr(smem), stages = q_s + TL::BYTES;
+  auto issue = [&](int tile, int st) {
+    const int k0 = tile * TILE;
+    const uint32_t base = stages + st * STAGE;
+    load_tile_async<D>(base, k + kv_base, k0, S);
+    load_tile_async<D>(base + TL::BYTES, v + kv_base, k0, S);
+    if (threadIdx.x < TILE) {
+      const int s = k0 + threadIdx.x;
+      cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4, kv_valid + (size_t)b * S + (s < S ? s : 0), s < S);
+    }
+  };
+  load_tile_async<D>(q_s, q + q_base, q0, T_len);
+  cp_async_commit();  // group 0: Q
+  if (n_tiles > 0) issue(0, 0);
+  cp_async_commit();  // group 1: kv tile 0
+
+  // this thread's two query rows (the C fragment's rows g and g + 8)
+  const int t_lo = q0 + 16 * warp + g, t_hi = t_lo + 8;
+  const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
+  cp_async_wait_1();  // Q has landed (tile 0 may still be in flight)
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+  load_a_frags<D>(qa, q_s + 16 * warp * TL::ROW_BYTES + la);
+
+  // running max (log2 units: scores times scale * log2 e), this thread's
+  // share of the running sum, and the rescaled output, per row half
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) issue(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const int k0 = it * TILE;
+    const uint32_t k_s = stages + (it & 1) * STAGE, v_s = k_s + TL::BYTES;
+    const int* valid_s = reinterpret_cast<const int*>(smem + (k_s - q_s) + 2 * TL::BYTES);
+    const bool v0 = valid_s[lane] > 0, v1 = valid_s[lane + 32] > 0;  // zero past S
+    if (__any_sync(FULL, v0 || v1)) {
+      const bool masked = !__all_sync(FULL, v0 && v1) || (causal && k0 + TILE - 1 > q0);
+      // S = Q K^T: this warp's 16 queries x 64 keys, in log2 units
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      mma_abt_regs<D, 8>(s, qa, k_s + lb);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale_log2;
+          if (masked) {
+            const int key = 8 * j + 2 * tq + (e & 1);
+            const bool ok = valid_s[key] > 0 && (!causal || k0 + key <= (e < 2 ? t_lo : t_hi));
+            x = ok ? x : NEG_INF;
+          }
+          s[j][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = quad_max(mx[half]);
+        alpha[half] = exp2f(m[half] - mx[half]);  // 0 when m was -1e30 and mx is not
+        m[half] = mx[half];
+        l[half] *= alpha[half];
+      }
+      // P as bf16 hi + lo A fragments (k = key); masked scores give 0
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2f(s[j][e] - m[e / 2]);
+          if (masked) p[e] = s[j][e] > NEG_INF / 2 ? p[e] : 0.f;
+          l[e / 2] += p[e];
+        }
+        pack_bf16_split(p[0], p[1], ph[j / 2][(j % 2) * 2], pl[j / 2][(j % 2) * 2]);
+        pack_bf16_split(p[2], p[3], ph[j / 2][(j % 2) * 2 + 1], pl[j / 2][(j % 2) * 2 + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e / 2];
+      mma_ab_split<D>(acc, ph, pl, v_s + la);  // O += P V
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+  // rows with no visible key (l == 0) write 0 and lse -1e30
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float lt = quad_sum(l[half]);
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][2 * half] *= inv;
+      acc[j][2 * half + 1] *= inv;
+    }
+    const int t = half ? t_hi : t_lo;
+    if (lse != nullptr && tq == 0 && t < T_len)
+      lse[row_base + t] = lt > 0.f ? m[half] * LN2 + logf(lt) : NEG_INF;
+  }
+  store_rows<D>(o + q_base, acc, t_lo, T_len, tq);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const int32_t* kv_valid, void* o, float* lse,
+               int B, int H, int Hkv, int T_len, int S, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<D>();
+  auto kernel = fwd_mma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T_len + TILE - 1) / TILE, H, B);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                          static_cast<const bf16*>(v), kv_valid, static_cast<bf16*>(o), lse,
+                                          H, Hkv, T_len, S, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_mma(const void* q, const void* k, const void* v, const int32_t* kv_valid, void* o, float* lse,
+                 int B, int H, int Hkv, int T_len, int S, int D, int causal, float scale, cudaStream_t stream) {
+  // the kernel moves rows in 16-byte units
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return -3;
+#define TRLX_FWD_CASE(DIM) \
+  case DIM: return launch_mma<DIM>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
+  switch (D) {
+    TRLX_FWD_CASE(16)
+    TRLX_FWD_CASE(32)
+    TRLX_FWD_CASE(64)
+    TRLX_FWD_CASE(96)
+    TRLX_FWD_CASE(128)
+    default: return -1;  // the wrapper checks D first
+  }
+#undef TRLX_FWD_CASE
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). lse may be null.
-// Returns cudaGetLastError() after the launch (0 on success), -1 for an
-// unsupported head dim, -2 for an unsupported dtype.
+// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the tensor-core
+// kernel); q, k, v and o share it. lse may be null. Returns
+// cudaGetLastError() after the launch (0 on success), -1 for an unsupported
+// head dim, -2 for an unsupported dtype, -3 for a bfloat16 tensor not
+// 16-byte aligned.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kv_valid,
                          void* o, void* lse, int B, int H, int Hkv, int T_len, int S, int D,
                          int causal, float scale, int dtype, void* stream) {
@@ -210,7 +416,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, valid, o, lse_f, B, H, Hkv, T_len, S, D, causal, scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, valid, o, lse_f, B, H, Hkv, T_len, S, D, causal,
-                                     scale, st);
+    return tc::dispatch_mma(q, k, v, valid, o, lse_f, B, H, Hkv, T_len, S, D, causal, scale, st);
   return -2;
 }

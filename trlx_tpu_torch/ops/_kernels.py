@@ -9,8 +9,9 @@ and loaded with :mod:`ctypes`. Nothing here runs at import: the package
 imports on a host with no CUDA toolkit, and the CPU paths never build
 anything.
 
-A library is named after the hash of its source, so an edited kernel is
-rebuilt and an unchanged one is reused within a checkout. ``build()``
+A library is named after the hash of its source and of the headers it
+includes (``mma_sm90.cuh``), so an edited kernel or header is rebuilt and
+an unchanged one is reused within a checkout. ``build()``
 starts one ``nvcc`` per missing source, all at once, and waits for all of
 them. A failed build raises; there is no fallback.
 
@@ -22,12 +23,13 @@ path went through the kernels (``reset_launches`` / ``launches``).
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 from trlx_tpu_torch.utils import logging
 
@@ -118,10 +120,32 @@ def _nvcc() -> str:
     )
 
 
-def _lib_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> List[Path]:
+    """``src`` and every file it ``#include``s by quotes from its own
+    directory, transitively, in a fixed order."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [path.parent / name.decode() for name in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def _lib_path(source: str, csrc: Optional[Path] = None) -> Path:
+    """The library of ``source`` (under ``csrc``, default :data:`CSRC`),
+    named after the hash of the source, the headers it includes and the
+    flags: an edited header rebuilds every source that includes it."""
+    src = (csrc or CSRC) / source
+    h = hashlib.sha1()
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

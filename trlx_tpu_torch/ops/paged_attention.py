@@ -45,6 +45,9 @@ from trlx_tpu_torch.ops import _kernels
 
 NEG_INF = -1e30  # kernel-internal mask value (f32 exact, like ops/attention.py)
 
+#: head dims of the tensor-core body (bf16 queries; dispatch_mma in csrc/paged_decode.cu)
+PAGED_MMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+
 
 def paged_attention_reference(
     q: torch.Tensor,
@@ -133,9 +136,10 @@ def paged_attention_kernel(
 
 def _check_kernel_inputs(q, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale) -> None:
     """What both CUDA entry points take: q ``[B, H, D]`` (decode) or ``[B,
-    Q, H, D]`` (verify) in f32 or bf16 on a CUDA device; pools of q's dtype,
-    or int8 with f32 scales; int32 tables ``[B, MB]`` and lens ``[B]``;
-    everything contiguous on q's device. Raises ``ValueError`` otherwise."""
+    Q, H, D]`` (verify) in f32 or bf16 on a CUDA device (bf16: a head dim in
+    :data:`PAGED_MMA_HEAD_DIMS`); pools of q's dtype, or int8 with f32
+    scales; int32 tables ``[B, MB]`` and lens ``[B]``; everything contiguous
+    on q's device. Raises ``ValueError`` otherwise."""
     if q.device.type != "cuda":
         raise ValueError(f"paged attention: no kernel for device {q.device}")
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
@@ -166,6 +170,8 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, context_lens, k_scale,
         raise ValueError(f"paged attention: scales must be float32 [{NB}, {BS}, {Hkv}]")
     if Dk != D or v_pool.shape != k_pool.shape or H % Hkv:
         raise ValueError(f"paged attention: bad shapes q{tuple(q.shape)} pool{tuple(k_pool.shape)}")
+    if q.dtype == torch.bfloat16 and D not in PAGED_MMA_HEAD_DIMS:
+        raise ValueError(f"paged attention: bfloat16 head dim {D} not in {PAGED_MMA_HEAD_DIMS}")
     if (block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32
             or block_tables.shape != (B, MB) or context_lens.shape != (B,)):
         raise ValueError("paged attention: block_tables [B, MB] and context_lens [B] must be int32")

@@ -107,6 +107,28 @@ Phases, each printing one JSON line:
                   through the engine, K5 launched in every experience phase;
                   K1, K2, K3 and K5 replayed at every shape the run gave
                   them.
+12. ``sft_parity`` — ``SFTTrainer`` on the card against ``SFTTrainer`` on
+                  the CPU (the tiny f32 config of tests/test_torch_sft.py)
+                  from the same weights: 3 steps, one on a batch padded
+                  with a fully masked row; every step's loss within 1e-3
+                  relative.
+13. ``sft``     — a main path: ``trlx_tpu_torch.train(samples=...)`` at
+                  full gpt2-small width (bf16 compute, f32 params and
+                  AdamW, flash attention, the bytes tokenizer): 255 byte
+                  dialogues, 8 steps of 32 rows in 2 microbatches at T=256,
+                  the last batch padded with a fully masked row. K1, K2 and
+                  K3 once per layer and microbatch in every step, K1 in
+                  every eval prefill; every recorded shape replayed with its
+                  first mask and its first fully masked row. Then
+                  ``save_pretrained``: a fresh ``load_pretrained`` gives
+                  logits ``torch.equal`` to the trained trunk's (f32), and a
+                  ``PPOTrainer`` from the directory holds the exported
+                  weights bit for bit and takes 2 learner steps.
+14. ``randomwalks`` — the North star's gate, the port alone
+                  (``scripts/torch_ppo_randomwalks.py``): 300 SFT steps on
+                  the example's walks, export, PPO from the export to step
+                  120; eval ``reward/mean`` >= 0.7 at the first eval at or
+                  after step 100.
 
 Then the kernel table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
@@ -124,7 +146,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity", "engine_spec",
-          "train_parity", "train", "train_serving")
+          "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -410,8 +432,8 @@ def phase_kernels(ctx):
 
 def compare_fwd(torch, name, q, k, v, valid, errs, zero_row=False, causal=True, scale=None):
     """K1 (out and lse) against attention_reference on the same CUDA
-    tensors; ``zero_row``: batch row 0 sees no key and must give 0 and
-    lse == -1e30."""
+    tensors; ``zero_row``: some batch row sees no key (all of ``valid``'s
+    row is 0), and every such row must give 0 and lse == -1e30."""
     from trlx_tpu_torch.ops.attention import attention_reference, flash_attention
 
     out, lse = flash_attention(q, k, v, valid, causal, scale, return_lse=True)
@@ -423,7 +445,8 @@ def compare_fwd(torch, name, q, k, v, valid, errs, zero_row=False, causal=True, 
     lse_err = (lse - ref_lse).abs().max().item()
     ok = err <= tol and lse_err <= 1e-3 and bool(torch.isfinite(out.float()).all())
     if zero_row:
-        ok = ok and bool((out[0] == 0).all()) and bool((lse[0] == -1e30).all())
+        dead = (valid == 0).all(dim=1)
+        ok = ok and bool(dead.any()) and bool((out[dead] == 0).all()) and bool((lse[dead] == -1e30).all())
     errs["flash_fwd"] = max(errs["flash_fwd"], err)
     return {"kernel": "flash_fwd", "case": name, "shape": list(q.shape), "dtype": str(q.dtype),
             "max_abs_err": err, "lse_err": lse_err, "tol": tol, "ok": ok}
@@ -432,8 +455,9 @@ def compare_fwd(torch, name, q, k, v, valid, errs, zero_row=False, causal=True, 
 def compare_bwd(torch, name, q, k, v, g, valid, errs, zero_row=False, causal=True, scale=None):
     """K2 (dK/dV) and K3 (dQ) against flash_backward_reference on the same
     CUDA tensors (out and lse from K1). Tolerance per gradient: max abs
-    error <= TOL[dtype] * max(1, max|grad|); ``zero_row``: batch row 0 sees
-    no key and its gradients must be exactly 0."""
+    error <= TOL[dtype] * max(1, max|grad|); ``zero_row``: some batch row
+    sees no key (all of ``valid``'s row is 0), and the gradients of every
+    such row must be exactly 0."""
     from trlx_tpu_torch.ops.attention import flash_attention, flash_backward, flash_backward_reference
 
     out, lse = flash_attention(q, k, v, valid, causal, scale, return_lse=True)
@@ -442,6 +466,7 @@ def compare_bwd(torch, name, q, k, v, g, valid, errs, zero_row=False, causal=Tru
     torch.cuda.synchronize()
     tol_rel = TOL[str(q.dtype).split(".")[-1]]
     results = []
+    dead = (valid == 0).all(dim=1)
     for kernel, idx in (("flash_bwd_dkv", (1, 2)), ("flash_bwd_dq", (0,))):
         # per gradient, so a NaN fails its own comparison (Python's max()
         # would drop it)
@@ -450,7 +475,7 @@ def compare_bwd(torch, name, q, k, v, g, valid, errs, zero_row=False, causal=Tru
         ok = all(e <= t for e, t in zip(errs_i, tols_i)) and all(
             bool(torch.isfinite(got[i]).all()) and bool(torch.isfinite(ref[i]).all()) for i in idx)
         if zero_row:
-            ok = ok and all(bool((got[i][0] == 0).all()) for i in idx)
+            ok = ok and bool(dead.any()) and all(bool((got[i][dead] == 0).all()) for i in idx)
         err, tol = max(errs_i), max(tols_i)
         results.append({"kernel": kernel, "case": name, "shape": list(q.shape), "dtype": str(q.dtype),
                         "max_abs_err": err, "tol": tol, "ok": ok})
@@ -1943,12 +1968,301 @@ def phase_train_serving(ctx):
     check_main_path_shapes(ctx, seen, "train_serving", ("flash_fwd", "flash_bwd", "paged_verify"))
 
 
-def record_kernel_shapes(seen):
+#: the sft phase: 255 seeded byte dialogues (so the last batch of the epoch
+#: has 31 rows: padded to 32, one fully masked row), seq_length 256, batch 32
+#: in 2 microbatches of 16, 8 steps (one epoch)
+SFT_N, SFT_SEQ, SFT_B, SFT_MB, SFT_STEPS = 255, 256, 32, 16, 8
+
+
+def byte_dialogues(n, seed):
+    """``n`` seeded (prompt, output) byte dialogues: prompts of 32..128
+    bytes, outputs of 64..128 bytes."""
+    return [[p, o] for p, o in zip(byte_prompts(n, 32, 128, seed), byte_prompts(n, 64, 128, seed + 1))]
+
+
+def full_width_sft_config(ckpt_dir):
+    """The sft phase's config: the gpt2 preset at full width with flash
+    attention, bf16 compute, f32 params and AdamW, the bytes tokenizer."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    return TRLConfig.update(default_sft_config(), {
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32",
+        "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": SFT_SEQ, "train.batch_size": SFT_B, "train.minibatch_size": SFT_MB,
+        "train.total_steps": SFT_STEPS, "train.eval_interval": 100, "train.checkpoint_interval": 100,
+        "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
+        "train.checkpoint_dir": ckpt_dir, "train.seed": SEED,
+        "optimizer.kwargs": dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6),
+    })
+
+
+def phase_sft(ctx):
+    """A main path: ``trlx_tpu_torch.train(samples=...)`` at full gpt2-small
+    width (12 layers, hidden 768, vocab 50257, random weights from the seed,
+    bf16 compute, f32 params and AdamW, flash attention, the bytes
+    tokenizer): 255 byte dialogues, 8 steps of 32 rows in 2 microbatches of
+    16 at T = 256, the last batch padded to 32 rows with a fully masked one.
+    Launch counts reset just before and read just after: every step must
+    launch K1, K2 and K3 once per layer and microbatch, every eval prefill
+    K1 once per layer, and nothing else; every recorded shape (with its
+    first mask and its first fully masked row) is held against the plain
+    versions. Then the HF-format export: a fresh ``load_pretrained`` of the
+    directory gives logits ``torch.equal`` to the trained trunk's (f32
+    compute), and a ``PPOTrainer`` from ``model_path`` = the directory (the
+    train phase's config) holds the exported weights bit for bit in its
+    trunk and reference and takes 2 learner steps with finite losses."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.hf_loading import load_pretrained
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    num_mb = SFT_B // SFT_MB
+    calls = []  # (kind, seconds, launch deltas, train_step stats, rows, real tokens)
+    originals = {name: getattr(SFTTrainer, name) for name in ("generate", "train_step")}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def timed(self, batch, *a, **kw):
+            before = dict(_kernels.launches())
+            # known on the host: this step pads rows up to num_mb with fully masked ones
+            padded_step[0] = name == "train_step" and len(batch["input_ids"]) % num_mb != 0
+            t0 = time.perf_counter()
+            out = fn(self, batch, *a, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            padded_step[0] = False
+            delta = {k: _kernels.launches()[k] - before[k] for k in before}
+            if name == "train_step":
+                calls.append((name, seconds, delta, out, len(batch["input_ids"]), int(batch["attention_mask"].sum())))
+            else:
+                calls.append((name, seconds, delta, None, len(batch), 0))
+            return out
+
+        return timed
+
+    seen, padded_step = {}, [False]
+    for name in originals:
+        setattr(SFTTrainer, name, wrap(name))
+    restore_kernels = record_kernel_shapes(seen, dead_rows=lambda: padded_step[0])
+    samples = byte_dialogues(SFT_N, SEED + 11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()  # what earlier phases still hold
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(samples=samples, config=full_width_sft_config(ckpt_dir))
+    finally:
+        for name, fn in originals.items():
+            setattr(SFTTrainer, name, fn)
+        restore_kernels()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pick_dead_rows(seen)
+    launches = _kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    L, dev = trainer.model_config.num_layers, trainer.device
+    steps = [c for c in calls if c[0] == "train_step"]
+    gens = [c for c in calls if c[0] == "generate"]
+    losses = [c[3]["losses/loss"] for c in steps]
+    step_s = [c[1] for c in steps]
+    summary = {
+        "phase": "sft", "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps),
+        "step_s": step_s, "step_s_median": statistics.median(step_s) if step_s else None,
+        "rows": [c[4] for c in steps], "real_tokens": [c[5] for c in steps],
+        "learner_real_tok_s": sum(c[5] for c in steps) / max(sum(step_s), 1e-9),
+        "learner_real_tok_s_median_step": statistics.median(c[5] / c[1] for c in steps) if steps else None,
+        "losses": losses, "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30,
+        "launches": launches,
+        "launches_per_step": [c[2] for c in steps], "eval_generate_calls": len(gens),
+        "kernel_shapes": kernel_shapes(seen),
+    }
+    emit(summary)
+    checks = {
+        f"{SFT_STEPS} optimizer steps": len(steps) == SFT_STEPS,
+        "a batch not a multiple of num_mb": any(c[4] % num_mb for c in steps),
+        "losses finite": bool(losses) and all(np.isfinite(x) for x in losses),
+        "K1, K2 and K3: num_layers x num_mb per step": all(
+            c[2]["flash_fwd"] == L * num_mb and c[2]["flash_bwd_dkv"] == L * num_mb
+            and c[2]["flash_bwd_dq"] == L * num_mb for c in steps),
+        "K1 on every eval prefill": bool(gens) and all(c[2]["flash_fwd"] == L for c in gens),
+        "no kernel outside generate / train_step": all(
+            launches[k] == sum(c[2][k] for c in calls) for k in launches),
+        "a fully masked row reached K1 and K2/K3": any(
+            "kv_valid_dead_row" in e for key, e in seen.items() if key[0] == "flash_fwd") and any(
+            "kv_valid_dead_row" in e for key, e in seen.items() if key[0] == "flash_bwd"),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    ctx["sft_launches"] = launches
+    if failed:
+        raise AssertionError(f"sft phase: {failed}")
+    check_main_path_shapes(ctx, seen, "sft", ("flash_fwd", "flash_bwd"))
+
+    # export, reload, PPO from the export
+    export = os.path.join(ckpt_dir, "export")
+    try:
+        t0 = time.perf_counter()
+        trainer.save_pretrained(export)
+        save_s = time.perf_counter() - t0
+        trained = trainer.model.transformer
+        f32 = {"compute_dtype": torch.float32, "attention_impl": "flash"}
+        config, state, model_type = load_pretrained(export, f32)
+        with torch.device(dev):
+            fresh, again = TransformerLM(config), TransformerLM(trained.config.replace(compute_dtype=torch.float32))
+        fresh.load_state_dict(state)
+        again.load_state_dict(trained.state_dict())
+        gen = torch.Generator().manual_seed(SEED + 12)
+        ids = torch.randint(3, 259, (4, 64), generator=gen).to(dev)
+        mask = torch.ones_like(ids, dtype=torch.int32)
+        mask[1, 40:] = 0
+        with torch.no_grad():
+            equal_logits = torch.equal(fresh(ids, mask)[0], again(ids, mask)[0])
+        del fresh, again, trainer
+
+        ppo_cfg = full_width_train_config(os.path.join(ckpt_dir, "ppo"))
+        ppo_cfg.model.model_path = export
+        ppo = PPOTrainer(config=ppo_cfg, reward_fn=byte_share_reward)
+        ppo.add_prompt_pipeline(PromptPipeline(byte_prompts(64, 64, 128, SEED + 1), TRAIN_P, ppo.tokenizer))
+        bit_identical = all(
+            torch.equal(ppo.model.transformer.state_dict()[k].cpu(), v)
+            and torch.equal(ppo.ref_model.state_dict()[k].cpu(), v) for k, v in state.items())
+        t0 = time.perf_counter()
+        ppo.prepare_learning()
+        ppo_stats = [ppo.train_step(b) for b in list(ppo.create_train_dataloader())[:2]]
+        torch.cuda.synchronize()
+        ppo_s = time.perf_counter() - t0
+        ppo_losses = [{k: v for k, v in st.items() if k.startswith("losses/")} for st in ppo_stats]
+        ppo_finite = len(ppo_stats) == 2 and all(np.isfinite(v) for st in ppo_losses for v in st.values())
+        del ppo
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report = {"phase": "sft", "check": "export, reload, PPO from the export", "model_type": model_type,
+              "save_s": save_s, "reload_logits_equal": equal_logits,
+              "ppo_weights_bit_identical": bit_identical, "ppo_losses": ppo_losses, "ppo_s": ppo_s,
+              "ok": equal_logits and bit_identical and ppo_finite}
+    emit(report)
+    if not report["ok"]:
+        raise AssertionError(f"sft phase: export / reload / PPO from the export failed: {report}")
+
+
+#: the CPU test's tiny SFT config (tests/test_torch_sft.py), its samples and seed
+SFT_PARITY_ALPHABET = "abcdefgh "
+SFT_PARITY_SAMPLES = [
+    ["ab", "cd ef"], "hhh a", ["gh", "a b c"], "bad cafe", ["e", "fg ab"], "dead beef", ["a", "bb"],
+]
+
+
+def sft_parity_trainer(device, state=None):
+    """SFTTrainer at 2 layers / hidden 32 (2 heads of 16), f32, flash
+    attention, char tokenizer, batch 4 in 2 microbatches, on ``device``;
+    ``state`` replaces the seeded initial trunk."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.from_dict(dict(
+        method=dict(name="SFTConfig", gen_kwargs=dict(max_new_tokens=4, do_sample=False)),
+        train=dict(seq_length=12, epochs=4, total_steps=3, batch_size=4, minibatch_size=2,
+                   checkpoint_interval=100, eval_interval=100,
+                   checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_sft_parity_"), pipeline="PromptPipeline",
+                   trainer="SFTTrainer", tracker=None, seed=3, save_best=False),
+        model=dict(model_path="gpt2", num_layers_unfrozen=-1, model_overrides=dict(
+            vocab_size=len(SFT_PARITY_ALPHABET) + 3, hidden_size=32, num_layers=2, num_heads=2,
+            intermediate_size=64, max_position_embeddings=64, attention_impl="flash")),
+        tokenizer=dict(tokenizer_path=f"char://{SFT_PARITY_ALPHABET}"),
+        optimizer=dict(name="adamw", kwargs=dict(lr=3e-3, betas=(0.9, 0.95), weight_decay=1e-4, max_grad_norm=1.0)),
+        scheduler=dict(name="cosine_annealing", kwargs=dict(T_max=4, eta_min=1e-4)),
+        mesh=dict(data=1, fsdp=1, model=1, compute_dtype="float32"),
+    ))
+    trainer = get_trainer("SFTTrainer")(config=cfg, device=device)
+    if state is not None:
+        trainer.model.transformer.load_state_dict(state)
+    return trainer
+
+
+def phase_sft_parity(ctx):
+    """SFTTrainer on the card against SFTTrainer on the CPU from the same
+    weights (the tiny f32 config of the CPU test): 3 optimizer steps, one
+    of them on a 3-row batch padded to 4 with a fully masked row; every
+    step's ``losses/loss`` within 1e-3 relative (PERF.md's trainer-parity
+    tolerance)."""
+    import shutil
+
+    import torch
+
+    cpu = sft_parity_trainer("cpu")
+    card = sft_parity_trainer("cuda", cpu.model.transformer.state_dict())
+    runs = {}
+    for name, tr in (("cuda", card), ("cpu", cpu)):
+        tr.make_experience(SFT_PARITY_SAMPLES, tr.config.train.seq_length)
+        tr.prepare_learning()
+        stats, rows = [], []
+        while len(stats) < 3:
+            for batch in tr.create_train_dataloader():
+                rows.append(len(batch["input_ids"]))
+                stats.append(tr.train_step(batch))
+                if len(stats) == 3:
+                    break
+        runs[name] = ([s["losses/loss"] for s in stats], rows)
+        shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    (lc, rc), (lp, rp) = runs["cuda"], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lc, lp)]
+    report = {"phase": "sft_parity", "losses_cuda": lc, "losses_cpu": lp, "rows": rc, "max_rel_err": max(rel),
+              "tol": 1e-3, "ok": rc == rp and 3 in rc and len(lc) == 3 and all(r <= 1e-3 for r in rel)}
+    emit(report)
+    del card, cpu
+    torch.cuda.empty_cache()
+    if not report["ok"]:
+        raise AssertionError(f"SFTTrainer on the card disagrees with the CPU trainer: {report}")
+
+
+def phase_randomwalks(ctx):
+    """The North star's gate run by the port alone
+    (``scripts/torch_ppo_randomwalks.py``): the randomwalks example's recipe
+    on the card, f32 — 300 SFT steps at lr 1e-3 on the sampled walks,
+    ``save_pretrained``, then PPO from the exported directory to step 120.
+    The eval ``reward/mean`` at the first eval at or after step 100 must be
+    >= 0.7. Prints the whole eval curve beside the JAX package's recorded
+    one, the SFT stage's final loss and the seconds."""
+    import torch
+
+    from scripts.torch_ppo_randomwalks import run_gate
+
+    t0 = time.perf_counter()
+    report = run_gate(pretrain_steps=300, ppo_steps=120)
+    torch.cuda.synchronize()
+    emit({"phase": "randomwalks", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
+    torch.cuda.empty_cache()
+    if not report["ok"]:
+        raise AssertionError(f"randomwalks phase: eval reward/mean below the bar: {report['gate_eval']}")
+
+
+def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
     distinct call shape of a main path is recorded in ``seen`` with its call
     count and the first mask (K4, K5: block tables and lens) passed at that
-    shape. The wrappers only record; the launches and their counts are the
+    shape. ``dead_rows``, where given, is a host-side flag (a callable) that
+    is true while the path may pass a fully masked batch row: K1/K2/K3 then
+    also keep a copy of each mask at that shape, and :func:`pick_dead_rows`
+    finds the first with such a row after the run. No wrapper syncs the
+    device. The wrappers only record; the launches and their counts are the
     kernels' own. Returns the function that restores the entry points."""
     from trlx_tpu_torch.ops import attention as attn
     from trlx_tpu_torch.ops import paged_attention as paged
@@ -1959,6 +2273,9 @@ def record_kernel_shapes(seen):
     def record(key, **first):
         entry = seen.setdefault(key, {"calls": 0, **{k: v.clone() for k, v in first.items()}})
         entry["calls"] += 1
+        valid = first.get("kv_valid")
+        if dead_rows is not None and valid is not None and dead_rows():
+            entry.setdefault("dead_row_candidates", []).append(valid.clone())
 
     def fwd(q, k, v, kv_valid, causal, scale, return_lse):
         record(("flash_fwd", tuple(q.shape), k.shape[1], k.shape[2], q.dtype, causal, scale, return_lse),
@@ -1988,6 +2305,17 @@ def record_kernel_shapes(seen):
     return restore
 
 
+def pick_dead_rows(seen):
+    """After the run: the first mask of each shape's ``dead_row_candidates``
+    (:func:`record_kernel_shapes`) with a fully masked batch row becomes
+    ``kv_valid_dead_row``; the candidates are dropped."""
+    for entry in seen.values():
+        for valid in entry.pop("dead_row_candidates", []):
+            if bool((valid == 0).all(dim=1).any()):
+                entry["kv_valid_dead_row"] = valid
+                break
+
+
 def kernel_shapes(seen):
     """The recorded call shapes (:func:`record_kernel_shapes`) as JSON."""
     out = []
@@ -1997,7 +2325,8 @@ def kernel_shapes(seen):
                         "kv": str(key[4]), "calls": e["calls"]})
         else:
             out.append({"kernel": key[0], "q": list(key[1]), "kv_heads": key[2], "S": key[3], "dtype": str(key[4]),
-                        "lse": key[7] if len(key) > 7 else None, "calls": e["calls"]})
+                        "lse": key[7] if len(key) > 7 else None, "calls": e["calls"],
+                        "dead_row_mask": "kv_valid_dead_row" in e})
     return out
 
 
@@ -2027,14 +2356,19 @@ def check_main_path_shapes(ctx, seen, phase, kinds):
             results += replay_paged(torch, gen, key, entry, errs)
             continue
         kind, (B, H, T, D), Hkv, S, run_dtype, causal, scale = key[:7]
-        valid = entry["kv_valid"]
-        case = f"{phase}: {kind} B={B} T={T} S={S}, {entry['calls']} calls"
-        for dtype in dict.fromkeys((run_dtype, torch.float32)):
-            q, k, v, g, _ = bwd_case(torch, gen, B, H, Hkv, T, S, D, (), dtype, dev)
-            if kind == "flash_fwd":
-                results.append(compare_fwd(torch, case, q, k, v, valid, errs, causal=causal, scale=scale))
-            else:
-                results += compare_bwd(torch, case, q, k, v, g, valid, errs, causal=causal, scale=scale)
+        masks = [("", entry["kv_valid"], False)]
+        if "kv_valid_dead_row" in entry:
+            masks.append((", a fully masked row", entry["kv_valid_dead_row"], True))
+        for label, valid, zero_row in masks:
+            case = f"{phase}: {kind} B={B} T={T} S={S}, {entry['calls']} calls{label}"
+            for dtype in dict.fromkeys((run_dtype, torch.float32)):
+                q, k, v, g, _ = bwd_case(torch, gen, B, H, Hkv, T, S, D, (), dtype, dev)
+                if kind == "flash_fwd":
+                    results.append(compare_fwd(torch, case, q, k, v, valid, errs, zero_row=zero_row,
+                                               causal=causal, scale=scale))
+                else:
+                    results += compare_bwd(torch, case, q, k, v, g, valid, errs, zero_row=zero_row,
+                                           causal=causal, scale=scale)
     for r in results:
         emit({"phase": phase, "check": "kernel at a main-path shape", **r})
     bad = [r for r in results if not r["ok"]]
@@ -2093,7 +2427,8 @@ def kernel_table(ctx):
     in ``launches_by_path``."""
     t, errs = ctx["timings"], ctx["max_abs_err"]
     paths = {"engine": ctx["main_path_launches"], "engine_spec": ctx["spec_path_launches"],
-             "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"]}
+             "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"],
+             "sft": ctx["sft_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -2134,7 +2469,8 @@ def main(argv=None) -> int:
                "timing": phase_timing, "parity": phase_parity, "engine": phase_engine,
                "spec_parity": phase_spec_parity, "engine_spec": phase_engine_spec,
                "train_parity": phase_train_parity, "train": phase_train,
-               "train_serving": phase_train_serving}
+               "train_serving": phase_train_serving, "sft_parity": phase_sft_parity, "sft": phase_sft,
+               "randomwalks": phase_randomwalks}
     phase_env(ctx)
     for name in phases:
         if name != "env":

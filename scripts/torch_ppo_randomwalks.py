@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""The randomwalks recipe (``examples/randomwalks/ppo_randomwalks.py``) run
+by the PyTorch port alone: SFT warm start on sampled walks, HF-format
+export, then PPO from the exported directory, with the example's config
+rebuilt on ``trlx_tpu_torch``'s ``TRLConfig`` (f32 compute). PPO's epoch
+budget is raised from the example's 20 to 100 so that it runs to
+``--ppo-steps`` (20 epochs of 4 steps end at step 80).
+
+Usage (on a CUDA host; ``--device cpu`` runs the plain CPU path)::
+
+    python3 scripts/torch_ppo_randomwalks.py [--pretrain-steps 300] [--ppo-steps 120] [--device cpu]
+
+Prints one JSON line: the eval ``reward/mean`` curve, the SFT stage's final
+loss, the seconds of each stage, and whether the first eval at or after
+step 100 reached ``reward/mean`` >= 0.7 (the bar the JAX package's recorded
+curve clears: 0.615@0, 0.851@20, 0.893@60, 0.983@80, 0.95@120). Exits 1 when
+it did not (or when PPO stopped before step 100).
+
+The walks come from ``examples/randomwalks/randomwalks.py`` (numpy only);
+nothing of the JAX package is imported.
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+#: the bar: eval reward/mean at the first eval at or after GATE_STEP
+GATE_STEP, GATE_REWARD = 100, 0.7
+#: the JAX package's recorded PPO curve on this recipe (step, reward/mean)
+JAX_CURVE = [(0, 0.615), (20, 0.851), (60, 0.893), (80, 0.983), (120, 0.95)]
+
+
+def default_config(alphabet: str):
+    """The example's ``default_config`` on the port's TRLConfig."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    return TRLConfig.from_dict(dict(
+        train=dict(
+            seq_length=10, epochs=20, total_steps=1000, batch_size=100, checkpoint_interval=10000,
+            eval_interval=20, pipeline="PromptPipeline", trainer="PPOTrainer",
+            checkpoint_dir="ckpts/randomwalks_ppo", tracker="jsonl",
+        ),
+        model=dict(
+            model_path="gpt2", num_layers_unfrozen=-1,
+            model_overrides=dict(
+                vocab_size=len(alphabet) + 3, hidden_size=144, num_layers=6,
+                num_heads=12, intermediate_size=512, max_position_embeddings=32,
+            ),
+        ),
+        tokenizer=dict(tokenizer_path=f"char://{alphabet}", truncation_side="right"),
+        optimizer=dict(name="adamw", kwargs=dict(lr=3.0e-4, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6)),
+        scheduler=dict(name="cosine_annealing", kwargs=dict(T_max=10000, eta_min=3.0e-4)),
+        method=dict(
+            name="PPOConfig", num_rollouts=128, chunk_size=128, ppo_epochs=4, init_kl_coef=0, target=None,
+            horizon=10000, gamma=1, lam=0.95, cliprange=0.2, cliprange_value=0.2, vf_coef=1.2,
+            scale_reward="ignored", ref_mean=None, ref_std=None, cliprange_reward=1,
+            gen_kwargs=dict(max_new_tokens=9, top_k=0, top_p=1.0, do_sample=True),
+        ),
+        mesh=dict(compute_dtype="float32"),
+    ))
+
+
+#: the gate's own settings on top of the example's ``default_config``: PPO's
+#: step budget, an epoch budget that reaches it, no tracker, a temporary dir
+GATE_OVERRIDES = ("train.epochs", "train.total_steps", "train.tracker", "train.checkpoint_dir")
+
+
+def gate_config(alphabet: str, out_dir: str, ppo_steps: int):
+    """The PPO stage's config: the example's, with :data:`GATE_OVERRIDES`."""
+    config = default_config(alphabet)
+    config.train.tracker = None
+    config.train.checkpoint_dir = out_dir
+    config.train.total_steps = ppo_steps
+    # the example's 20 epochs of ppo_epochs x one full batch end PPO at step
+    # 80; the bar is read at step 100, so the epoch budget is the SFT stage's
+    config.train.epochs = 100
+    return config
+
+
+@contextlib.contextmanager
+def recording(cls, name, sink):
+    """Wrap ``cls.name`` so each call appends (trainer step, result) to ``sink``."""
+    original = getattr(cls, name)
+
+    def wrapped(self, *a, **kw):
+        out = original(self, *a, **kw)
+        sink.append((self.iter_count, out))
+        return out
+
+    setattr(cls, name, wrapped)
+    try:
+        yield sink
+    finally:
+        setattr(cls, name, original)
+
+
+def run_gate(pretrain_steps=300, ppo_steps=120, device=None):
+    """SFT ``pretrain_steps`` at lr 1e-3 (the example's default), export,
+    PPO ``ppo_steps`` from the export, in a temporary directory. Returns the
+    report dict (``ok``: the bar was met)."""
+    import trlx_tpu_torch
+    from examples.randomwalks import generate_random_walks
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.methods.sft import SFTConfig
+    from trlx_tpu_torch.trainer.mesh_trainer import MeshRLTrainer
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    metric_fn, prompts, sample_walks, _, alphabet = generate_random_walks(seed=1002)
+    out_dir = tempfile.mkdtemp(prefix="randomwalks_")
+    config = gate_config(alphabet, out_dir, ppo_steps)
+    report = {"pretrain_steps": pretrain_steps, "ppo_steps": ppo_steps, "device": device or "cuda"}
+    try:
+        # SFT warm start (ppo_randomwalks.pretrain_on_walks)
+        d = config.to_dict()
+        d["method"] = SFTConfig(gen_kwargs=dict(max_new_tokens=9, top_k=1)).to_dict()
+        d["train"].update(trainer="SFTTrainer", total_steps=pretrain_steps, epochs=100, eval_interval=pretrain_steps,
+                          checkpoint_interval=10 * pretrain_steps, checkpoint_dir=out_dir + "/sft_ckpts")
+        d["optimizer"]["kwargs"]["lr"] = 1e-3
+        d["model"]["num_layers_unfrozen"] = -1
+        t0 = time.perf_counter()
+        with recording(SFTTrainer, "train_step", []) as steps:
+            sft = trlx_tpu_torch.train(samples=sample_walks, eval_prompts=["a"], config=TRLConfig.from_dict(d),
+                                       device=device)
+        hf_dir = out_dir + "/sft_model"
+        sft.save_pretrained(hf_dir)
+        report.update(sft_seconds=time.perf_counter() - t0, sft_final_loss=steps[-1][1]["losses/loss"],
+                      sft_first_loss=steps[0][1]["losses/loss"], sft_steps=len(steps))
+        del sft
+
+        # PPO from the export; the architecture comes from its config.json
+        config.model.model_path = hf_dir
+        config.model.model_overrides = None
+        t0 = time.perf_counter()
+        with recording(MeshRLTrainer, "evaluate", []) as evals:
+            ppo = trlx_tpu_torch.train(
+                reward_fn=lambda samples, **kwargs: metric_fn(samples)["optimality"],
+                prompts=prompts, eval_prompts=prompts,
+                metric_fn=lambda samples, **kwargs: metric_fn(samples),
+                config=config, device=device,
+            )
+        report.update(ppo_seconds=time.perf_counter() - t0, ppo_final_step=ppo.iter_count)
+        del ppo
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    curve = [(step, stats["reward/mean"]) for step, stats in evals]
+    at_gate = next(((s, r) for s, r in curve if s >= GATE_STEP), None)
+    report.update(eval_curve=curve, jax_curve=JAX_CURVE, gate={"step": GATE_STEP, "min_reward": GATE_REWARD},
+                  gate_eval=at_gate, ok=at_gate is not None and at_gate[1] >= GATE_REWARD)
+    return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pretrain-steps", type=int, default=300)
+    ap.add_argument("--ppo-steps", type=int, default=120)
+    ap.add_argument("--device", default=None, help="default: the CUDA device (raises without one)")
+    args = ap.parse_args(argv)
+    report = run_gate(args.pretrain_steps, args.ppo_steps, args.device)
+    print(json.dumps(report), flush=True)
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -86,3 +86,40 @@ def test_engine_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(TransformerLM(cfg), num_slots=1, max_seq_len=8)
     ServingEngine(TransformerLM(cfg), num_slots=1, max_seq_len=8, device="cpu")
+
+
+def test_no_module_level_import_of_transformers_or_safetensors():
+    """The checkpoint path reads and writes safetensors and config.json
+    itself: ``safetensors`` is imported nowhere, and ``transformers`` only
+    inside a function (the HF tokenizer-directory branch), never at module
+    level, so the package imports and checkpoints on a host without them."""
+    top_level, anywhere = [], []
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        module_level = set()
+        for node in tree.body:
+            module_level.update(id(n) for n in _outside_functions(node))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            for n in names:
+                top = n.split(".")[0]
+                where = f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                if top == "safetensors":
+                    anywhere.append(where)
+                if top in ("transformers", "safetensors") and id(node) in module_level:
+                    top_level.append(where)
+    assert not top_level, top_level
+    assert not anywhere, anywhere
+
+
+def _outside_functions(node):
+    """``node`` and its descendants that are not inside a function body."""
+    yield node
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+        return
+    for child in ast.iter_child_nodes(node):
+        yield from _outside_functions(child)

@@ -183,7 +183,7 @@ UNPORTED = [
     ("method.num_value_layers_unfrozen", 1, "hydra slice"),
     ("method.overlap_reward_scoring", True, "async-rollout slice"),
     ("optimizer.name", "adamw_8bit_bnb", "int8 optimizer-state slice"),
-    ("tokenizer.tokenizer_path", "gpt2", "checkpoint slice"),
+    ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
 ]
 
 
@@ -202,16 +202,21 @@ def test_unported_training_rows_raise_naming_their_slice(tmp_path):
     from trlx_tpu_torch.utils.loading import get_trainer
 
     cfg = TRLConfig.from_dict(_config_dict(tmp_path))
-    with pytest.raises(NotImplementedError, match="SFT trainer slice"):
-        trlx_tpu_torch.train(samples=["ab"], config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ILQL trainer slice"):
         trlx_tpu_torch.train(samples=["ab"], rewards=[1.0], config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="GRPO / online slice"):
         trlx_tpu_torch.train(environment=object(), config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="RFT trainer slice"):
         get_trainer("RFTTrainer")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        _port_trainer(tmp_path, **{"model.model_path": str(tmp_path)})
+    native = tmp_path / "native"
+    native.mkdir()
+    (native / "native_config.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match="scale-out slice"):
+        _port_trainer(tmp_path, **{"model.model_path": str(native)})
+    bare = tmp_path / "bare"
+    bare.mkdir()
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        _port_trainer(tmp_path, **{"model.model_path": str(bare)})
 
 
 def test_checkpoint_round_trip(tmp_path):

@@ -135,6 +135,9 @@ def test_serving_rollouts_match_jax_and_padded_generate(tmp_path, single_device_
     pt.on_learn_end()  # learn()'s teardown: the engine closes, its gauges clear
     assert pt._serving_client is None and "serving/blocks_in_use" not in pt.train_step(
         next(iter(pt.create_train_dataloader())))
+    # the JAX trainer never closes its engine; its gauges sit in trlx_tpu's
+    # process-global registry until this does (later test files check it)
+    jt._serving_engine.close()
 
 
 def test_serving_falls_back_on_unsupported_gen_kwargs(tmp_path):

@@ -1,5 +1,5 @@
 """Canned default configs (counterpart of ``trlx_tpu/data/default_configs.py``,
-PPO only: the other methods' defaults come with their slices)."""
+PPO and SFT: the other methods' defaults come with their slices)."""
 
 from trlx_tpu_torch.data.configs import (
     MeshConfig,
@@ -11,6 +11,7 @@ from trlx_tpu_torch.data.configs import (
     TRLConfig,
 )
 from trlx_tpu_torch.methods.ppo import PPOConfig
+from trlx_tpu_torch.methods.sft import SFTConfig
 
 
 def default_ppo_config() -> TRLConfig:
@@ -50,5 +51,28 @@ def default_ppo_config() -> TRLConfig:
             cliprange_reward=10,
             gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
         ),
+        mesh=MeshConfig(),
+    )
+
+
+def default_sft_config() -> TRLConfig:
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=1024,
+            epochs=100,
+            total_steps=1000,
+            batch_size=8,
+            checkpoint_interval=10000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="SFTTrainer",
+        ),
+        model=ModelConfig(model_path="gpt2", num_layers_unfrozen=-1),
+        tokenizer=TokenizerConfig(tokenizer_path="gpt2", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw", kwargs=dict(lr=1e-5, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6)
+        ),
+        scheduler=SchedulerConfig(name="cosine_annealing", kwargs=dict(T_max=1000, eta_min=1e-5)),
+        method=SFTConfig(name="SFTConfig", gen_kwargs=dict(max_new_tokens=32)),
         mesh=MeshConfig(),
     )

@@ -1,25 +1,48 @@
-"""Model resolution by path (counterpart of ``trlx_tpu/models/hf_loading.py``
-``load_pretrained``, the preset-name branch only).
+"""HF checkpoint interop (counterpart of ``trlx_tpu/models/hf_loading.py``):
+load a local HF-format directory into a :class:`TransformerLM` state dict,
+export one back, and resolve a preset name to random-init weights.
 
-A model path names a family preset (``"gpt2"``, ``"lvwerra/gpt2-imdb"`` ->
-gpt2, ...) built at its published widths with random weights, which the
-caller initialises from a seed; ``model_overrides`` replace config fields.
-Local and HF checkpoint directories come with the checkpoint slice.
+A model path is one of:
+
+- a local directory with ``config.json`` and weights (``model.safetensors``,
+  a sharded ``model.safetensors.index.json``, or ``pytorch_model.bin[.index.json]``):
+  the config converts through :func:`~trlx_tpu_torch.models.presets.from_hf_config`
+  and the weights through the per-family converters (gpt2, llama, gpt_neox,
+  gptj, opt, gpt_bigcode), copied from the JAX package;
+- a local directory without ``config.json``: ``FileNotFoundError``;
+- anything else, such as a hub name: the family preset at its published
+  widths with random weights, which the caller initialises from a seed.
+
+The port reads and writes safetensors and ``config.json`` itself
+(:mod:`~trlx_tpu_torch.models.safetensors_io`, :func:`make_hf_config`): it
+needs neither ``transformers`` nor ``safetensors``. A bloom directory (ALiBi)
+and the JAX package's native pre-converted store raise
+``NotImplementedError`` naming their slices.
+
+Parameter trees here are nested dicts of numpy arrays in the flax layout
+(``layers_{i}.attn.q_proj.kernel``, kernels ``[in, out]``), which are the
+port's ``state_dict`` names once flattened with ``.``
+(:func:`state_from_params` / :func:`params_from_state`).
 """
 
+import json
 import logging
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
-from trlx_tpu_torch.models.presets import get_preset
+from trlx_tpu_torch.models import safetensors_io
+from trlx_tpu_torch.models.presets import from_hf_config, get_preset
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
 logger = logging.getLogger(__name__)
 
 _DTYPE_FIELDS = ("param_dtype", "compute_dtype")
 
+#: the file that marks the JAX package's native pre-converted store (trlx_tpu/checkpointing.py)
+NATIVE_CONFIG = "native_config.json"
 
 def torch_dtype(x) -> torch.dtype:
     """A torch dtype from a torch dtype or its name (``"bfloat16"``)."""
@@ -30,6 +53,481 @@ def torch_dtype(x) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {x!r}")
     return dtype
+
+
+# --------------------------------------------------------------------------- io
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """bf16 and f16 upcast to f32, as the JAX package's reader does."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
+
+
+def load_torch_state_dict(model_dir: str) -> Dict[str, np.ndarray]:
+    """Load (possibly sharded) weights from a local HF model dir into numpy."""
+    out: Dict[str, np.ndarray] = {}
+
+    def _load_safetensors(path):
+        for k, v in safetensors_io.load_file(path).items():
+            out[k] = _to_numpy(v)
+
+    def _load_bin(path):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        for k, v in sd.items():
+            out[k] = _to_numpy(v)
+
+    for index_name, loader in (
+        ("model.safetensors.index.json", _load_safetensors),
+        ("pytorch_model.bin.index.json", _load_bin),
+    ):
+        index_path = os.path.join(model_dir, index_name)
+        if os.path.exists(index_path):
+            with open(index_path) as f:
+                index = json.load(f)
+            for shard in sorted(set(index["weight_map"].values())):
+                loader(os.path.join(model_dir, shard))
+            return out
+    for name, loader in (("model.safetensors", _load_safetensors), ("pytorch_model.bin", _load_bin)):
+        path = os.path.join(model_dir, name)
+        if os.path.exists(path):
+            loader(path)
+            return out
+    raise FileNotFoundError(f"No weights found in {model_dir}")
+
+
+# ------------------------------------------------------------------ conversions
+
+# Each family: (hf_to_params, params_to_hf). Params trees are plain nested dicts of
+# numpy arrays with TransformerLM naming.
+
+
+def _ln(sd, prefix):
+    d = {"scale": sd[f"{prefix}.weight"]}
+    if f"{prefix}.bias" in sd:
+        d["bias"] = sd[f"{prefix}.bias"]
+    return d
+
+
+def _linear(sd, prefix, transpose=True):
+    d = {"kernel": sd[f"{prefix}.weight"].T if transpose else sd[f"{prefix}.weight"]}
+    if f"{prefix}.bias" in sd:
+        d["bias"] = sd[f"{prefix}.bias"]
+    return d
+
+
+def _gpt2_to_params(sd: Dict[str, np.ndarray], c: TransformerConfig) -> Dict[str, Any]:
+    p: Dict[str, Any] = {
+        "embed_tokens": {"embedding": sd["transformer.wte.weight"]},
+        "embed_positions": {"embedding": sd["transformer.wpe.weight"]},
+        "ln_f": _ln(sd, "transformer.ln_f"),
+    }
+    H = c.hidden_size
+    for i in range(c.num_layers):
+        pre = f"transformer.h.{i}"
+        # HF Conv1D stores [in, out] — no transpose
+        ck = sd[f"{pre}.attn.c_attn.weight"]
+        cb = sd[f"{pre}.attn.c_attn.bias"]
+        p[f"layers_{i}"] = {
+            "ln_1": _ln(sd, f"{pre}.ln_1"),
+            "ln_2": _ln(sd, f"{pre}.ln_2"),
+            "attn": {
+                "q_proj": {"kernel": ck[:, :H], "bias": cb[:H]},
+                "k_proj": {"kernel": ck[:, H : 2 * H], "bias": cb[H : 2 * H]},
+                "v_proj": {"kernel": ck[:, 2 * H :], "bias": cb[2 * H :]},
+                "o_proj": _linear(sd, f"{pre}.attn.c_proj", transpose=False),
+            },
+            "mlp": {
+                "up_proj": _linear(sd, f"{pre}.mlp.c_fc", transpose=False),
+                "down_proj": _linear(sd, f"{pre}.mlp.c_proj", transpose=False),
+            },
+        }
+    return p
+
+
+def _gpt2_from_params(p: Dict[str, Any], c: TransformerConfig) -> Dict[str, np.ndarray]:
+    sd = {
+        "transformer.wte.weight": p["embed_tokens"]["embedding"],
+        "transformer.wpe.weight": p["embed_positions"]["embedding"],
+        "transformer.ln_f.weight": p["ln_f"]["scale"],
+        "transformer.ln_f.bias": p["ln_f"]["bias"],
+    }
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"transformer.h.{i}"
+        sd[f"{pre}.ln_1.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.ln_1.bias"] = L["ln_1"]["bias"]
+        sd[f"{pre}.ln_2.weight"] = L["ln_2"]["scale"]
+        sd[f"{pre}.ln_2.bias"] = L["ln_2"]["bias"]
+        sd[f"{pre}.attn.c_attn.weight"] = np.concatenate(
+            [L["attn"][k]["kernel"] for k in ("q_proj", "k_proj", "v_proj")], axis=1
+        )
+        sd[f"{pre}.attn.c_attn.bias"] = np.concatenate(
+            [L["attn"][k]["bias"] for k in ("q_proj", "k_proj", "v_proj")]
+        )
+        sd[f"{pre}.attn.c_proj.weight"] = L["attn"]["o_proj"]["kernel"]
+        sd[f"{pre}.attn.c_proj.bias"] = L["attn"]["o_proj"]["bias"]
+        sd[f"{pre}.mlp.c_fc.weight"] = L["mlp"]["up_proj"]["kernel"]
+        sd[f"{pre}.mlp.c_fc.bias"] = L["mlp"]["up_proj"]["bias"]
+        sd[f"{pre}.mlp.c_proj.weight"] = L["mlp"]["down_proj"]["kernel"]
+        sd[f"{pre}.mlp.c_proj.bias"] = L["mlp"]["down_proj"]["bias"]
+    return sd
+
+
+def _llama_to_params(sd, c):
+    p = {
+        "embed_tokens": {"embedding": sd["model.embed_tokens.weight"]},
+        "ln_f": {"scale": sd["model.norm.weight"]},
+    }
+    if not c.tie_word_embeddings:
+        p["lm_head"] = _linear(sd, "lm_head")
+    for i in range(c.num_layers):
+        pre = f"model.layers.{i}"
+        p[f"layers_{i}"] = {
+            "ln_1": {"scale": sd[f"{pre}.input_layernorm.weight"]},
+            "ln_2": {"scale": sd[f"{pre}.post_attention_layernorm.weight"]},
+            "attn": {
+                "q_proj": _linear(sd, f"{pre}.self_attn.q_proj"),
+                "k_proj": _linear(sd, f"{pre}.self_attn.k_proj"),
+                "v_proj": _linear(sd, f"{pre}.self_attn.v_proj"),
+                "o_proj": _linear(sd, f"{pre}.self_attn.o_proj"),
+            },
+            "mlp": {
+                "gate_proj": _linear(sd, f"{pre}.mlp.gate_proj"),
+                "up_proj": _linear(sd, f"{pre}.mlp.up_proj"),
+                "down_proj": _linear(sd, f"{pre}.mlp.down_proj"),
+            },
+        }
+    return p
+
+
+def _llama_from_params(p, c):
+    sd = {
+        "model.embed_tokens.weight": p["embed_tokens"]["embedding"],
+        "model.norm.weight": p["ln_f"]["scale"],
+    }
+    if "lm_head" in p:
+        sd["lm_head.weight"] = p["lm_head"]["kernel"].T
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"model.layers.{i}"
+        sd[f"{pre}.input_layernorm.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.post_attention_layernorm.weight"] = L["ln_2"]["scale"]
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[f"{pre}.self_attn.{name}.weight"] = L["attn"][name]["kernel"].T
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            sd[f"{pre}.mlp.{name}.weight"] = L["mlp"][name]["kernel"].T
+    return sd
+
+
+def _neox_to_params(sd, c):
+    p = {
+        "embed_tokens": {"embedding": sd["gpt_neox.embed_in.weight"]},
+        "ln_f": _ln(sd, "gpt_neox.final_layer_norm"),
+        "lm_head": _linear(sd, "embed_out"),
+    }
+    heads, hd, H = c.num_heads, c.dim_per_head, c.hidden_size
+    for i in range(c.num_layers):
+        pre = f"gpt_neox.layers.{i}"
+        qkv_w = sd[f"{pre}.attention.query_key_value.weight"]  # [3H, H], per-head interleave
+        qkv_b = sd[f"{pre}.attention.query_key_value.bias"]
+        w = qkv_w.reshape(heads, 3, hd, H)
+        b = qkv_b.reshape(heads, 3, hd)
+        mk_w = lambda j: w[:, j].reshape(heads * hd, H).T  # -> [H, H] kernel
+        mk_b = lambda j: b[:, j].reshape(heads * hd)
+        p[f"layers_{i}"] = {
+            "ln_1": _ln(sd, f"{pre}.input_layernorm"),
+            "ln_2": _ln(sd, f"{pre}.post_attention_layernorm"),
+            "attn": {
+                "q_proj": {"kernel": mk_w(0), "bias": mk_b(0)},
+                "k_proj": {"kernel": mk_w(1), "bias": mk_b(1)},
+                "v_proj": {"kernel": mk_w(2), "bias": mk_b(2)},
+                "o_proj": _linear(sd, f"{pre}.attention.dense"),
+            },
+            "mlp": {
+                "up_proj": _linear(sd, f"{pre}.mlp.dense_h_to_4h"),
+                "down_proj": _linear(sd, f"{pre}.mlp.dense_4h_to_h"),
+            },
+        }
+    return p
+
+
+def _neox_from_params(p, c):
+    sd = {
+        "gpt_neox.embed_in.weight": p["embed_tokens"]["embedding"],
+        "gpt_neox.final_layer_norm.weight": p["ln_f"]["scale"],
+        "gpt_neox.final_layer_norm.bias": p["ln_f"]["bias"],
+        "embed_out.weight": p["lm_head"]["kernel"].T,
+    }
+    heads, hd, H = c.num_heads, c.dim_per_head, c.hidden_size
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"gpt_neox.layers.{i}"
+        sd[f"{pre}.input_layernorm.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.input_layernorm.bias"] = L["ln_1"]["bias"]
+        sd[f"{pre}.post_attention_layernorm.weight"] = L["ln_2"]["scale"]
+        sd[f"{pre}.post_attention_layernorm.bias"] = L["ln_2"]["bias"]
+        ws = [L["attn"][k]["kernel"].T.reshape(heads, hd, H) for k in ("q_proj", "k_proj", "v_proj")]
+        bs = [L["attn"][k]["bias"].reshape(heads, hd) for k in ("q_proj", "k_proj", "v_proj")]
+        sd[f"{pre}.attention.query_key_value.weight"] = np.stack(ws, axis=1).reshape(3 * H, H)
+        sd[f"{pre}.attention.query_key_value.bias"] = np.stack(bs, axis=1).reshape(3 * H)
+        sd[f"{pre}.attention.dense.weight"] = L["attn"]["o_proj"]["kernel"].T
+        sd[f"{pre}.attention.dense.bias"] = L["attn"]["o_proj"]["bias"]
+        sd[f"{pre}.mlp.dense_h_to_4h.weight"] = L["mlp"]["up_proj"]["kernel"].T
+        sd[f"{pre}.mlp.dense_h_to_4h.bias"] = L["mlp"]["up_proj"]["bias"]
+        sd[f"{pre}.mlp.dense_4h_to_h.weight"] = L["mlp"]["down_proj"]["kernel"].T
+        sd[f"{pre}.mlp.dense_4h_to_h.bias"] = L["mlp"]["down_proj"]["bias"]
+    return sd
+
+
+def _gptj_to_params(sd, c):
+    p = {
+        "embed_tokens": {"embedding": sd["transformer.wte.weight"]},
+        "ln_f": _ln(sd, "transformer.ln_f"),
+        "lm_head": _linear(sd, "lm_head"),
+    }
+    for i in range(c.num_layers):
+        pre = f"transformer.h.{i}"
+        p[f"layers_{i}"] = {
+            "ln_1": _ln(sd, f"{pre}.ln_1"),
+            "attn": {
+                "q_proj": _linear(sd, f"{pre}.attn.q_proj"),
+                "k_proj": _linear(sd, f"{pre}.attn.k_proj"),
+                "v_proj": _linear(sd, f"{pre}.attn.v_proj"),
+                "o_proj": _linear(sd, f"{pre}.attn.out_proj"),
+            },
+            "mlp": {
+                "up_proj": _linear(sd, f"{pre}.mlp.fc_in"),
+                "down_proj": _linear(sd, f"{pre}.mlp.fc_out"),
+            },
+        }
+    return p
+
+
+def _gptj_from_params(p, c):
+    sd = {
+        "transformer.wte.weight": p["embed_tokens"]["embedding"],
+        "transformer.ln_f.weight": p["ln_f"]["scale"],
+        "transformer.ln_f.bias": p["ln_f"]["bias"],
+        "lm_head.weight": p["lm_head"]["kernel"].T,
+    }
+    if "bias" in p["lm_head"]:
+        sd["lm_head.bias"] = p["lm_head"]["bias"]
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"transformer.h.{i}"
+        sd[f"{pre}.ln_1.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.ln_1.bias"] = L["ln_1"]["bias"]
+        for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"), ("o_proj", "out_proj")):
+            sd[f"{pre}.attn.{theirs}.weight"] = L["attn"][ours]["kernel"].T
+        sd[f"{pre}.mlp.fc_in.weight"] = L["mlp"]["up_proj"]["kernel"].T
+        sd[f"{pre}.mlp.fc_in.bias"] = L["mlp"]["up_proj"]["bias"]
+        sd[f"{pre}.mlp.fc_out.weight"] = L["mlp"]["down_proj"]["kernel"].T
+        sd[f"{pre}.mlp.fc_out.bias"] = L["mlp"]["down_proj"]["bias"]
+    return sd
+
+
+def _opt_to_params(sd, c):
+    prefix = "model.decoder" if "model.decoder.embed_tokens.weight" in sd else "decoder"
+    p = {
+        "embed_tokens": {"embedding": sd[f"{prefix}.embed_tokens.weight"]},
+        "embed_positions": {"embedding": sd[f"{prefix}.embed_positions.weight"]},
+    }
+    if f"{prefix}.final_layer_norm.weight" in sd:
+        p["ln_f"] = _ln(sd, f"{prefix}.final_layer_norm")
+    for i in range(c.num_layers):
+        pre = f"{prefix}.layers.{i}"
+        p[f"layers_{i}"] = {
+            "ln_1": _ln(sd, f"{pre}.self_attn_layer_norm"),
+            "ln_2": _ln(sd, f"{pre}.final_layer_norm"),
+            "attn": {
+                "q_proj": _linear(sd, f"{pre}.self_attn.q_proj"),
+                "k_proj": _linear(sd, f"{pre}.self_attn.k_proj"),
+                "v_proj": _linear(sd, f"{pre}.self_attn.v_proj"),
+                "o_proj": _linear(sd, f"{pre}.self_attn.out_proj"),
+            },
+            "mlp": {
+                "up_proj": _linear(sd, f"{pre}.fc1"),
+                "down_proj": _linear(sd, f"{pre}.fc2"),
+            },
+        }
+    return p
+
+
+def _opt_from_params(p, c):
+    prefix = "model.decoder"
+    sd = {
+        f"{prefix}.embed_tokens.weight": p["embed_tokens"]["embedding"],
+        f"{prefix}.embed_positions.weight": p["embed_positions"]["embedding"],
+    }
+    if "ln_f" in p:
+        sd[f"{prefix}.final_layer_norm.weight"] = p["ln_f"]["scale"]
+        sd[f"{prefix}.final_layer_norm.bias"] = p["ln_f"]["bias"]
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"{prefix}.layers.{i}"
+        sd[f"{pre}.self_attn_layer_norm.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.self_attn_layer_norm.bias"] = L["ln_1"]["bias"]
+        sd[f"{pre}.final_layer_norm.weight"] = L["ln_2"]["scale"]
+        sd[f"{pre}.final_layer_norm.bias"] = L["ln_2"]["bias"]
+        for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"), ("o_proj", "out_proj")):
+            sd[f"{pre}.self_attn.{theirs}.weight"] = L["attn"][ours]["kernel"].T
+            sd[f"{pre}.self_attn.{theirs}.bias"] = L["attn"][ours]["bias"]
+        sd[f"{pre}.fc1.weight"] = L["mlp"]["up_proj"]["kernel"].T
+        sd[f"{pre}.fc1.bias"] = L["mlp"]["up_proj"]["bias"]
+        sd[f"{pre}.fc2.weight"] = L["mlp"]["down_proj"]["kernel"].T
+        sd[f"{pre}.fc2.bias"] = L["mlp"]["down_proj"]["bias"]
+    return sd
+
+
+def _bigcode_to_params(sd, c):
+    """GPTBigCode: multi-query attention — c_attn packs [q(H) | k(hd) | v(hd)].
+
+    Only the MQA layout is supported: with ``multi_query=False`` HF interleaves
+    q/k/v per head instead, which this flat slicing would scramble."""
+    if c.kv_heads != 1:
+        raise ValueError(
+            "gpt_bigcode converter supports multi_query=True checkpoints only "
+            f"(got kv_heads={c.kv_heads}); the non-MQA c_attn layout is per-head "
+            "interleaved and not implemented"
+        )
+    p = {
+        "embed_tokens": {"embedding": sd["transformer.wte.weight"]},
+        "embed_positions": {"embedding": sd["transformer.wpe.weight"]},
+        "ln_f": _ln(sd, "transformer.ln_f"),
+    }
+    H = c.hidden_size
+    kv_dim = c.kv_heads * c.dim_per_head
+    for i in range(c.num_layers):
+        pre = f"transformer.h.{i}"
+        cw = sd[f"{pre}.attn.c_attn.weight"]  # [H + 2*kv_dim, H] (nn.Linear layout)
+        cb = sd[f"{pre}.attn.c_attn.bias"]
+        p[f"layers_{i}"] = {
+            "ln_1": _ln(sd, f"{pre}.ln_1"),
+            "ln_2": _ln(sd, f"{pre}.ln_2"),
+            "attn": {
+                "q_proj": {"kernel": cw[:H].T, "bias": cb[:H]},
+                "k_proj": {"kernel": cw[H : H + kv_dim].T, "bias": cb[H : H + kv_dim]},
+                "v_proj": {"kernel": cw[H + kv_dim :].T, "bias": cb[H + kv_dim :]},
+                "o_proj": _linear(sd, f"{pre}.attn.c_proj"),
+            },
+            "mlp": {
+                "up_proj": _linear(sd, f"{pre}.mlp.c_fc"),
+                "down_proj": _linear(sd, f"{pre}.mlp.c_proj"),
+            },
+        }
+    return p
+
+
+def _bigcode_from_params(p, c):
+    if c.kv_heads != 1:
+        raise ValueError("gpt_bigcode export supports multi_query=True configs only")
+    sd = {
+        "transformer.wte.weight": p["embed_tokens"]["embedding"],
+        "transformer.wpe.weight": p["embed_positions"]["embedding"],
+        "transformer.ln_f.weight": p["ln_f"]["scale"],
+        "transformer.ln_f.bias": p["ln_f"]["bias"],
+    }
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"transformer.h.{i}"
+        sd[f"{pre}.ln_1.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.ln_1.bias"] = L["ln_1"]["bias"]
+        sd[f"{pre}.ln_2.weight"] = L["ln_2"]["scale"]
+        sd[f"{pre}.ln_2.bias"] = L["ln_2"]["bias"]
+        sd[f"{pre}.attn.c_attn.weight"] = np.concatenate(
+            [L["attn"][k]["kernel"].T for k in ("q_proj", "k_proj", "v_proj")], axis=0
+        )
+        sd[f"{pre}.attn.c_attn.bias"] = np.concatenate(
+            [L["attn"][k]["bias"] for k in ("q_proj", "k_proj", "v_proj")]
+        )
+        sd[f"{pre}.attn.c_proj.weight"] = L["attn"]["o_proj"]["kernel"].T
+        sd[f"{pre}.attn.c_proj.bias"] = L["attn"]["o_proj"]["bias"]
+        sd[f"{pre}.mlp.c_fc.weight"] = L["mlp"]["up_proj"]["kernel"].T
+        sd[f"{pre}.mlp.c_fc.bias"] = L["mlp"]["up_proj"]["bias"]
+        sd[f"{pre}.mlp.c_proj.weight"] = L["mlp"]["down_proj"]["kernel"].T
+        sd[f"{pre}.mlp.c_proj.bias"] = L["mlp"]["down_proj"]["bias"]
+    return sd
+
+
+CONVERTERS = {
+    "gpt2": (_gpt2_to_params, _gpt2_from_params),
+    "llama": (_llama_to_params, _llama_from_params),
+    "gpt_neox": (_neox_to_params, _neox_from_params),
+    "gptj": (_gptj_to_params, _gptj_from_params),
+    "opt": (_opt_to_params, _opt_from_params),
+    "gpt_bigcode": (_bigcode_to_params, _bigcode_from_params),
+}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def hf_state_dict_to_params(model_type: str, sd: Dict[str, np.ndarray], config: TransformerConfig) -> Dict[str, Any]:
+    if model_type not in CONVERTERS:
+        raise ValueError(f"No converter for model_type {model_type!r}")
+    p = CONVERTERS[model_type][0](sd, config)
+    return _tree_map(lambda x: np.asarray(x, dtype=np.float32), p)
+
+
+def params_to_hf_state_dict(
+    model_type: str, params: Dict[str, Any], config: TransformerConfig
+) -> Dict[str, np.ndarray]:
+    if model_type not in CONVERTERS:
+        raise ValueError(f"No converter for model_type {model_type!r}")
+    params = _tree_map(lambda x: np.asarray(x, dtype=np.float32), params)
+    return CONVERTERS[model_type][1](params, config)
+
+
+def state_from_params(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested flax-layout tree flattened to ``state_dict`` names."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            out.update(state_from_params(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def params_from_state(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A ``state_dict`` (torch tensors or arrays) as the nested flax-layout
+    tree of f32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for name, value in state.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        if isinstance(value, torch.Tensor):
+            value = value.detach().float().cpu().numpy()
+        node[leaf] = np.asarray(value, dtype=np.float32)
+    return tree
+
+
+def merge_loaded_state(model: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """Copy checkpoint tensors over ``model``'s (seed-initialised) parameters,
+    keeping the ones the checkpoint lacks (an OPT without a final norm, new
+    heads): the semantics of the JAX package's ``merge_loaded_params``. A
+    checkpoint tensor the module has no parameter for, or of another shape,
+    raises."""
+    own = model.state_dict()
+    extra = sorted(set(state) - set(own))
+    if extra:
+        raise ValueError(f"checkpoint tensors with no parameter in {type(model).__name__}: {extra}")
+    with torch.no_grad():
+        for name, value in state.items():
+            if tuple(value.shape) != tuple(own[name].shape):
+                raise ValueError(f"{name}: checkpoint shape {tuple(value.shape)} != {tuple(own[name].shape)}")
+            own[name].copy_(value)
+    return model
+
+
+# ------------------------------------------------------------------- top level
 
 
 def _family_of(name: str) -> str:
@@ -46,19 +544,119 @@ def _family_of(name: str) -> str:
 
 def load_pretrained(
     model_path: str, overrides: Optional[Dict[str, Any]] = None
-) -> Tuple[TransformerConfig, None, str]:
-    """(config, None, model_type) for a preset name: the caller random-inits
-    the weights. Dtype overrides may be torch dtypes or their names."""
-    if os.path.isdir(model_path):
-        raise NotImplementedError(
-            f"trlx_tpu_torch does not load checkpoint directories yet ({model_path!r}): "
-            "checkpoint slice; name a preset (e.g. 'gpt2') for random weights from the seed"
-        )
+) -> Tuple[TransformerConfig, Optional[Dict[str, torch.Tensor]], str]:
+    """(config, trunk state or None, model_type) for a model path.
+
+    A local dir with ``config.json`` and weights gives the converted
+    checkpoint as a ``state_dict`` of f32 CPU tensors for
+    :class:`TransformerLM` (lay it over a seed-initialised model with
+    :func:`merge_loaded_state`); a dir without ``config.json`` raises
+    ``FileNotFoundError``. Anything else gives the family preset and None:
+    the caller random-inits. Dtype overrides may be torch dtypes or
+    their names."""
     overrides = dict(overrides or {})
     for key in _DTYPE_FIELDS:
         if key in overrides:
             overrides[key] = torch_dtype(overrides[key])
+    if os.path.isdir(model_path) and os.path.exists(os.path.join(model_path, NATIVE_CONFIG)):
+        raise NotImplementedError(
+            f"trlx_tpu_torch does not read the native pre-converted store ({model_path!r}) yet: "
+            "scale-out slice; export it in HF format (save_pretrained) instead"
+        )
+    config_path = os.path.join(model_path, "config.json")
+    if os.path.isdir(model_path):
+        if not os.path.exists(config_path):
+            raise FileNotFoundError(
+                f"{model_path!r} is a directory without config.json: an HF-format checkpoint needs config.json "
+                "and model.safetensors, model.safetensors.index.json, pytorch_model.bin or "
+                "pytorch_model.bin.index.json"
+            )
+        with open(config_path) as f:
+            hf_config = json.load(f)
+        model_type = hf_config.get("model_type")
+        if model_type == "bloom":
+            raise NotImplementedError(
+                f"trlx_tpu_torch does not run bloom checkpoints ({model_path!r}) yet: ALiBi, "
+                "model-families slice"
+            )
+        config = from_hf_config(hf_config, overrides)
+        params = hf_state_dict_to_params(model_type, load_torch_state_dict(model_path), config)
+        state = {k: torch.from_numpy(v) for k, v in state_from_params(params).items()}
+        return config, state, model_type
     config = get_preset(model_path, overrides)
     model_type = _family_of(model_path)
     logger.warning(f"No local checkpoint at {model_path!r}; using random-init {model_type} preset")
     return config, None, model_type
+
+
+def save_pretrained_hf(
+    out_dir: str,
+    model_type: str,
+    state: Mapping[str, Any],
+    config: TransformerConfig,
+) -> None:
+    """Export a :class:`TransformerLM` ``state_dict`` as an HF-format
+    directory: ``model.safetensors`` (f32) and ``config.json``
+    (:func:`make_hf_config`)."""
+    os.makedirs(out_dir, exist_ok=True)
+    sd = params_to_hf_state_dict(model_type, params_from_state(state), config)
+    safetensors_io.save_file(sd, os.path.join(out_dir, "model.safetensors"), metadata={"format": "pt"})
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        f.write(json.dumps(make_hf_config(model_type, config), indent=2, sort_keys=True) + "\n")
+
+
+def make_hf_config(model_type: str, c: TransformerConfig) -> Dict[str, Any]:
+    """The ``config.json`` dict of an export: ``model_type`` and every
+    field that ``transformers.AutoConfig`` and
+    :func:`from_hf_config` read, written out in full (no field is left to a
+    class default). The values are the ones the JAX package's
+    ``make_hf_config`` passes to the ``transformers`` config classes."""
+    if model_type == "gpt2":
+        fields = dict(
+            vocab_size=c.vocab_size, n_embd=c.hidden_size, n_layer=c.num_layers,
+            n_head=c.num_heads, n_positions=c.max_position_embeddings,
+            n_inner=c.ffn_dim, layer_norm_epsilon=c.norm_eps, activation_function="gelu_new",
+            tie_word_embeddings=True,
+        )
+    elif model_type == "llama":
+        fields = dict(
+            vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+            num_hidden_layers=c.num_layers, num_attention_heads=c.num_heads,
+            num_key_value_heads=c.kv_heads, intermediate_size=c.ffn_dim,
+            max_position_embeddings=c.max_position_embeddings, rms_norm_eps=c.norm_eps,
+            rope_theta=c.rope_theta, tie_word_embeddings=c.tie_word_embeddings, hidden_act="silu",
+        )
+    elif model_type == "gpt_neox":
+        fields = dict(
+            vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+            num_hidden_layers=c.num_layers, num_attention_heads=c.num_heads,
+            intermediate_size=c.ffn_dim, max_position_embeddings=c.max_position_embeddings,
+            rotary_pct=c.rotary_pct, layer_norm_eps=c.norm_eps,
+            use_parallel_residual=c.parallel_residual, tie_word_embeddings=False, hidden_act="gelu",
+        )
+    elif model_type == "gptj":
+        fields = dict(
+            vocab_size=c.vocab_size, n_embd=c.hidden_size, n_layer=c.num_layers,
+            n_head=c.num_heads, n_positions=c.max_position_embeddings,
+            rotary_dim=int(c.dim_per_head * c.rotary_pct), layer_norm_epsilon=c.norm_eps,
+            activation_function="gelu_new", tie_word_embeddings=False,
+        )
+    elif model_type == "opt":
+        fields = dict(
+            vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+            num_hidden_layers=c.num_layers, num_attention_heads=c.num_heads,
+            ffn_dim=c.ffn_dim, max_position_embeddings=c.max_position_embeddings,
+            do_layer_norm_before=True, word_embed_proj_dim=c.hidden_size,
+            activation_function="relu", tie_word_embeddings=True,
+        )
+    elif model_type == "gpt_bigcode":
+        fields = dict(
+            vocab_size=c.vocab_size, n_embd=c.hidden_size, n_layer=c.num_layers,
+            n_head=c.num_heads, n_positions=c.max_position_embeddings,
+            n_inner=c.ffn_dim, layer_norm_epsilon=c.norm_eps,
+            multi_query=c.kv_heads == 1, activation_function="gelu_pytorch_tanh",
+            tie_word_embeddings=True,
+        )
+    else:
+        raise ValueError(f"No HF config factory for {model_type!r}")
+    return {"model_type": model_type, **fields}

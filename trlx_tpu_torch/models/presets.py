@@ -1,6 +1,7 @@
-"""Architecture presets for the generic TransformerLM and their name lookup
-(copied from ``trlx_tpu/models/presets.py``; HF-config conversion comes with
-the checkpoint slice)."""
+"""Architecture presets for the generic TransformerLM, their name lookup and
+the conversion of an HF ``config.json`` (copied from
+``trlx_tpu/models/presets.py``; :func:`from_hf_config` reads the JSON dict
+instead of a ``transformers`` config object)."""
 
 from typing import Any, Dict, Optional
 
@@ -69,6 +70,89 @@ def get_preset(name: str, overrides: Optional[Dict[str, Any]] = None) -> Transfo
             config = PRESETS["gpt_bigcode"]
     if config is None:
         raise ValueError(f"Unknown architecture preset for {name!r}; known: {sorted(PRESETS)}")
+    if overrides:
+        config = config.replace(**overrides)
+    return config
+
+
+#: the HF config classes' defaults for every field :func:`from_hf_config`
+#: reads. ``transformers`` writes ``config.json`` as a diff against its
+#: defaults (``tie_word_embeddings: true`` is left out, for one), so a key
+#: that is missing reads as its family's class default.
+HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
+    "gpt2": dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12, n_inner=None, n_positions=1024,
+                 layer_norm_epsilon=1e-5, tie_word_embeddings=True),
+    "gptj": dict(vocab_size=50400, n_embd=4096, n_layer=28, n_head=16, n_positions=2048, rotary_dim=64,
+                 layer_norm_epsilon=1e-5, tie_word_embeddings=False),
+    "gpt_neox": dict(vocab_size=50432, hidden_size=6144, num_hidden_layers=44, num_attention_heads=64,
+                     intermediate_size=24576, max_position_embeddings=2048, rotary_pct=0.25,
+                     layer_norm_eps=1e-5, use_parallel_residual=True, tie_word_embeddings=False),
+    "opt": dict(vocab_size=50272, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                ffn_dim=3072, max_position_embeddings=2048, tie_word_embeddings=True),
+    "llama": dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=None, intermediate_size=11008, max_position_embeddings=2048,
+                  rope_theta=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=False),
+    "gpt_bigcode": dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12, n_inner=None, n_positions=1024,
+                        layer_norm_epsilon=1e-5, multi_query=True, tie_word_embeddings=True),
+}
+
+
+def from_hf_config(hf_config: Dict[str, Any], overrides: Optional[Dict[str, Any]] = None) -> TransformerConfig:
+    """Convert an HF ``config.json`` dict to TransformerConfig (a missing
+    key reads as its family's :data:`HF_DEFAULTS` entry). Bloom, whose
+    ALiBi the port does not run, is not converted."""
+    mt = hf_config.get("model_type")
+    if mt not in HF_DEFAULTS:
+        raise ValueError(f"Unsupported HF model_type {mt!r}")
+    h = {**HF_DEFAULTS[mt], **hf_config}
+    if mt == "gpt2":
+        config = PRESETS["gpt2"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h["n_embd"], num_layers=h["n_layer"],
+            num_heads=h["n_head"], intermediate_size=h["n_inner"],
+            max_position_embeddings=h["n_positions"], norm_eps=h["layer_norm_epsilon"],
+        )
+    elif mt == "gptj":
+        config = PRESETS["gptj"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h["n_embd"], num_layers=h["n_layer"],
+            num_heads=h["n_head"], max_position_embeddings=h["n_positions"],
+            rotary_pct=h["rotary_dim"] / (h["n_embd"] // h["n_head"]),
+            norm_eps=h["layer_norm_epsilon"],
+        )
+    elif mt == "gpt_neox":
+        config = PRESETS["gpt_neox"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h["hidden_size"],
+            num_layers=h["num_hidden_layers"], num_heads=h["num_attention_heads"],
+            intermediate_size=h["intermediate_size"],
+            max_position_embeddings=h["max_position_embeddings"],
+            rotary_pct=h["rotary_pct"], norm_eps=h["layer_norm_eps"],
+            parallel_residual=h["use_parallel_residual"],
+            tie_word_embeddings=h["tie_word_embeddings"],
+        )
+    elif mt == "opt":
+        config = PRESETS["opt"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h["hidden_size"],
+            num_layers=h["num_hidden_layers"], num_heads=h["num_attention_heads"],
+            intermediate_size=h["ffn_dim"], max_position_embeddings=h["max_position_embeddings"],
+            tie_word_embeddings=h["tie_word_embeddings"],
+        )
+    elif mt == "llama":
+        config = PRESETS["llama"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h["hidden_size"],
+            num_layers=h["num_hidden_layers"], num_heads=h["num_attention_heads"],
+            # the HF class sets a missing num_key_value_heads to num_attention_heads
+            num_kv_heads=h["num_key_value_heads"] or h["num_attention_heads"],
+            intermediate_size=h["intermediate_size"],
+            max_position_embeddings=h["max_position_embeddings"],
+            rope_theta=h["rope_theta"], norm_eps=h["rms_norm_eps"],
+            tie_word_embeddings=h["tie_word_embeddings"],
+        )
+    else:  # gpt_bigcode
+        config = PRESETS["gpt_bigcode"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h["n_embd"], num_layers=h["n_layer"],
+            num_heads=h["n_head"], num_kv_heads=1 if h["multi_query"] else None,
+            intermediate_size=h["n_inner"], max_position_embeddings=h["n_positions"],
+            norm_eps=h["layer_norm_epsilon"],
+        )
     if overrides:
         config = config.replace(**overrides)
     return config

@@ -1,12 +1,77 @@
-"""Prompt pipeline (counterpart of ``trlx_tpu/pipeline/offline_pipeline.py``:
-``PromptPipeline`` only; the dialogue and ILQL stores come with the SFT and
-ILQL slices)."""
+"""Prompt and dialogue pipelines (counterpart of
+``trlx_tpu/pipeline/offline_pipeline.py``): ``PromptPipeline``, and for SFT
+``tokenize_dialogue`` (truncation-side aware interleaved dialogue
+tokenization) and ``DialogStore`` (prompt labels masked with -100). The
+ILQL stores come with the ILQL slice. Collation is numpy; trainers move
+batches to their device."""
 
-from typing import Any, Dict, List, Union
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 
-from trlx_tpu_torch.pipeline import BasePipeline, NumpyLoader, register_datapipeline
+from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, NumpyLoader, register_datapipeline
+
+
+@dataclass
+class DialogMessage:
+    """One dialogue phrase: output (model) or prompt (user) tokens."""
+
+    is_output: bool
+    tokens: Tuple[int, ...]
+
+
+def tokenize_dialogue(dialogue, tokenizer, max_length: int = 2048) -> List[DialogMessage]:
+    """Tokenize an interleaved (prompt_1, output_1, prompt_2, ...) dialogue,
+    or a single string (an output after a bos prompt), to at most
+    ``max_length`` tokens: an eos is appended to the last phrase, truncation
+    takes tokens from the tokenizer's ``truncation_side``, and a bos is
+    re-inserted when the leading prompt was truncated away."""
+    if isinstance(dialogue, str):
+        bos_token = getattr(tokenizer, "bos_token", None) or tokenizer.eos_token
+        dialogue = [bos_token, dialogue]
+    else:
+        dialogue = list(dialogue)
+        if len(dialogue) % 2 != 0:
+            raise ValueError("Dialogue must have an even number of phrases, alternating prompt and output")
+
+    if not dialogue[-1].endswith(tokenizer.eos_token):
+        dialogue[-1] = dialogue[-1] + tokenizer.eos_token
+
+    tokenized = [
+        DialogMessage(is_output=i % 2 == 1, tokens=tuple(tokenizer(dialogue[i], add_special_tokens=False).input_ids))
+        for i in range(len(dialogue))
+    ]
+
+    # flip so truncation always removes from the far end of the chosen side
+    if tokenizer.truncation_side == "left":
+        tokenized = [DialogMessage(m.is_output, m.tokens[::-1]) for m in tokenized[::-1]]
+
+    lengths = [len(t.tokens) for t in tokenized]
+    cumsum_lengths = [sum(lengths[:i]) for i in range(len(lengths))]
+    truncated = [
+        DialogMessage(t.is_output, t.tokens[: max(max_length - cl, 0)])
+        for t, cl in zip(tokenized, cumsum_lengths)
+    ]
+
+    if tokenizer.truncation_side == "left":
+        truncated = [DialogMessage(m.is_output, m.tokens[::-1]) for m in truncated[::-1]]
+
+    out = [t for t in truncated if len(t.tokens) > 0]
+
+    if out and out[0].is_output:
+        # leading prompt was fully truncated: re-insert a bos, trimming one token
+        # if the dialogue already saturates max_length
+        if sum(len(m.tokens) for m in out) == max_length:
+            if tokenizer.truncation_side == "left":
+                out[0] = DialogMessage(out[0].is_output, out[0].tokens[1:])
+            else:
+                out[-1] = DialogMessage(out[-1].is_output, out[-1].tokens[:-1])
+        bos = getattr(tokenizer, "bos_token_id", None)
+        if bos is None:
+            bos = tokenizer.eos_token_id
+        out.insert(0, DialogMessage(False, (bos,)))
+    return out
 
 
 @register_datapipeline
@@ -52,3 +117,49 @@ class PromptPipeline(BasePipeline):
             return out
 
         return NumpyLoader(self, batch_size, collate, shuffle=shuffle, drop_last=drop_last, seed=seed)
+
+
+class DialogStore(BaseRolloutStore):
+    """SFT store of tokenized dialogues: ``input_ids``, ``attention_mask``
+    and ``labels`` with prompt tokens masked as ``IGNORE_INDEX``; batches
+    are right-padded."""
+
+    IGNORE_INDEX = -100
+
+    def __init__(self, dialogs: List[List[DialogMessage]], tokenizer):
+        super().__init__()
+        self.tokenizer = tokenizer
+        self.history = []
+        for d in dialogs:
+            ids = [t for m in d for t in m.tokens]
+            labels = [t if m.is_output else self.IGNORE_INDEX for m in d for t in m.tokens]
+            self.history.append(
+                dict(
+                    input_ids=np.asarray(ids, np.int32),
+                    attention_mask=np.ones(len(ids), np.int32),
+                    labels=np.asarray(labels, np.int32),
+                )
+            )
+
+    def __getitem__(self, ix: int):
+        return self.history[ix]
+
+    def create_loader(self, batch_size: int, shuffle: bool = False, seed: int = 0) -> NumpyLoader:
+        pad = self.tokenizer.pad_token_id
+
+        def collate(xs):
+            return dict(
+                input_ids=_rpad_stack([x["input_ids"] for x in xs], pad),
+                attention_mask=_rpad_stack([x["attention_mask"] for x in xs], 0),
+                labels=_rpad_stack([x["labels"] for x in xs], self.IGNORE_INDEX),
+            )
+
+        return NumpyLoader(self.history, batch_size, collate, shuffle=shuffle, seed=seed)
+
+
+def _rpad_stack(rows: List[np.ndarray], value) -> np.ndarray:
+    T = max(len(r) for r in rows)
+    out = np.full((len(rows), T), value, dtype=np.asarray(rows[0]).dtype)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out

@@ -1,13 +1,18 @@
-"""Tokenizer layer: the builtin offline tokenizers of
-``trlx_tpu/pipeline/tokenization.py`` (copied).
+"""Tokenizer layer (counterpart of ``trlx_tpu/pipeline/tokenization.py``):
+the builtin offline tokenizers (copied) and HF tokenizer directories.
 
 ``tokenizer_path`` resolution:
 - ``"char://<alphabet>"``  -> :class:`CharTokenizer` over the given alphabet
 - ``"bytes"``              -> :class:`ByteTokenizer` (vocab 256 + specials)
-
-HF tokenizers and the from-scratch BPE come with the checkpoint slice.
+- ``"bpe://<file>"``       -> :class:`trlx_tpu_torch.pipeline.bpe.BPETokenizer`
+- a local directory        -> ``transformers.AutoTokenizer`` (imported here,
+  lazily: the only place the port uses ``transformers``; a host without it
+  raises saying so)
+- anything else (a hub name) raises ``NotImplementedError``: the port reads
+  no hub cache.
 """
 
+import os
 from typing import Iterable, List, Union
 
 from trlx_tpu_torch.data.configs import TokenizerConfig
@@ -130,7 +135,25 @@ def load_tokenizer(config: TokenizerConfig):
         return CharTokenizer(path[len("char://"):], config.padding_side, config.truncation_side)
     if path == "bytes":
         return ByteTokenizer(config.padding_side, config.truncation_side)
-    raise NotImplementedError(
-        f"trlx_tpu_torch does not port tokenizer {path!r} yet (HF and bpe:// tokenizers: "
-        "checkpoint slice); use 'char://<alphabet>' or 'bytes'"
-    )
+    if path.startswith("bpe://"):
+        from trlx_tpu_torch.pipeline.bpe import BPETokenizer
+
+        return BPETokenizer.load(path[len("bpe://"):], config.padding_side, config.truncation_side)
+    if not os.path.isdir(path):
+        raise NotImplementedError(
+            f"trlx_tpu_torch does not port tokenizers by hub name ({path!r}) yet: HF-hub slice; "
+            "use a local tokenizer directory, 'bpe://<file>', 'char://<alphabet>' or 'bytes'"
+        )
+    try:
+        import transformers
+    except ImportError as e:
+        raise ImportError(
+            f"tokenizer_path {path!r} is an HF tokenizer directory, which needs the `transformers` "
+            "package, and this host does not have it; use 'bpe://<file>', 'char://<alphabet>' or 'bytes'"
+        ) from e
+    tok = transformers.AutoTokenizer.from_pretrained(path, **config.tokenizer_extra_kwargs)
+    tok.padding_side = config.padding_side
+    tok.truncation_side = config.truncation_side
+    if tok.pad_token is None:
+        tok.pad_token = tok.eos_token
+    return tok

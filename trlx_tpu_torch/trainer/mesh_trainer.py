@@ -7,8 +7,8 @@ package's schedules and global-norm clipping), the gradient-accumulation
 train step (a Python loop over microbatches that averages their gradients),
 padded one-shot generation, stop-sequence decode, evaluation, the main
 ``learn()`` loop with periodic eval / checkpoint / save-best, the port's own
-checkpoints (``torch.save``), and jsonl tracking with the JAX package's stat
-names.
+checkpoints (``torch.save``), the HF-format export (``save_pretrained``),
+and jsonl tracking with the JAX package's stat names.
 
 Config blocks of the JAX package that this port does not run yet raise
 ``NotImplementedError`` naming their slice (:func:`check_port_config`);
@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.models.hf_loading import torch_dtype
+from trlx_tpu_torch.models import safetensors_io
+from trlx_tpu_torch.models.hf_loading import load_pretrained, merge_loaded_state, save_pretrained_hf, torch_dtype
 from trlx_tpu_torch.native import find_stop_positions
 from trlx_tpu_torch.ops.generation import generate as generate_op
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
@@ -131,7 +132,6 @@ class MeshRLTrainer(BaseRLTrainer):
         self.clock = Clock()
         self.generate_kwargs = dict(getattr(config.method, "gen_kwargs", {}) or {})
         self.generate_experience_kwargs = getattr(config.method, "gen_experience_kwargs", None)
-        self._warned_hf_export = False
 
         if config.train.run_name is None:
             config.train.run_name = (
@@ -145,6 +145,26 @@ class MeshRLTrainer(BaseRLTrainer):
     def setup_model(self):
         """Set self.model (the trained module), self.model_config, self.model_type."""
         ...
+
+    def load_trunk(self, build: Callable[[Any], torch.nn.Module]) -> torch.nn.Module:
+        """``build(config)`` on the device for the config of
+        ``load_pretrained(model.model_path)`` (which also sets
+        ``self.model_config`` and ``self.model_type``), random weights from
+        the seed, then a loaded checkpoint's trunk over the module's
+        ``transformer`` (or the module itself when it is the trunk) with
+        ``merge_loaded_state``: heads keep their seed init."""
+        overrides = dict(self.config.model.model_overrides or {})
+        overrides.setdefault("param_dtype", self.param_dtype)
+        overrides.setdefault("compute_dtype", self.compute_dtype)
+        overrides.setdefault("remat", self.config.mesh.remat)
+        overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
+        self.model_config, trunk_state, self.model_type = load_pretrained(self.config.model.model_path, overrides)
+        with torch.device(self.device):
+            module = build(self.model_config)
+            module.init_params(self.config.train.seed)
+        if trunk_state is not None:
+            merge_loaded_state(getattr(module, "transformer", module), trunk_state)
+        return module
 
     def trainable_path_predicate(self, path: str) -> bool:
         """Which params receive gradients: with num_layers_unfrozen = N >= 0,
@@ -452,12 +472,7 @@ class MeshRLTrainer(BaseRLTrainer):
 
                 if train_config.checkpoint_interval and self.iter_count % train_config.checkpoint_interval == 0:
                     self.save(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
-                    if not self._warned_hf_export:
-                        logger.warning(
-                            "HF-format export (save_pretrained) comes with the checkpoint slice: "
-                            "interval checkpoints hold the port's own trainer state only"
-                        )
-                        self._warned_hf_export = True
+                    self.save_pretrained(os.path.join(train_config.checkpoint_dir, "hf_model"))
 
                 if (
                     train_config.eval_interval and self.iter_count % train_config.eval_interval == 0
@@ -540,6 +555,21 @@ class MeshRLTrainer(BaseRLTrainer):
         logger.info(f"Restored checkpoint from {os.path.abspath(directory)} (iter {self.iter_count})")
 
     def save_pretrained(self, directory: str):
-        raise NotImplementedError(
-            "trlx_tpu_torch does not export HF-format models yet: checkpoint slice"
-        )
+        """Export the trunk (``model.transformer``) as an HF-format directory
+        (``model.safetensors`` + ``config.json``) that ``load_pretrained`` of
+        either package reads, and the heads (the value head) to
+        ``heads.safetensors`` under their ``state_dict`` names. Nothing reads
+        the heads file back, as nothing reads the JAX package's
+        ``heads.msgpack``. When the HF export fails (a family with no
+        converter), this warns and writes the heads only, as the JAX
+        package does."""
+        state = self.model.state_dict()
+        trunk = {k[len("transformer."):]: v for k, v in state.items() if k.startswith("transformer.")}
+        heads = {k: v for k, v in state.items() if not k.startswith("transformer.")}
+        os.makedirs(directory, exist_ok=True)
+        try:
+            save_pretrained_hf(directory, self.model_type, trunk, self.model_config)
+        except Exception as e:
+            logger.warning(f"HF export unavailable ({e}); saving native params only")
+        if heads:
+            safetensors_io.save_file(heads, os.path.join(directory, "heads.safetensors"))

@@ -28,7 +28,6 @@ import torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.ppo_types import PPORLBatch, PPORLElement
 from trlx_tpu_torch.methods.ppo import PPOConfig
-from trlx_tpu_torch.models.hf_loading import load_pretrained
 from trlx_tpu_torch.models.policy import CausalLMWithValueHead
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
@@ -77,29 +76,24 @@ class PPOTrainer(MeshRLTrainer):
     # ------------------------------------------------------------------ model
 
     def setup_model(self):
-        """Policy + value model, random weights from the seed, and a full
-        frozen copy of the trunk as the KL reference."""
-        overrides = dict(self.config.model.model_overrides or {})
-        overrides.setdefault("param_dtype", self.param_dtype)
-        overrides.setdefault("compute_dtype", self.compute_dtype)
-        overrides.setdefault("remat", self.config.mesh.remat)
-        overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
-        self.model_config, _, self.model_type = load_pretrained(self.config.model.model_path, overrides)
+        """Policy + value model, random weights from the seed, a loaded
+        checkpoint's trunk over the policy's (the value head keeps its seed
+        init, as ``merge_loaded_params`` in the JAX trainer), and a full
+        frozen copy of the policy trunk as the KL reference."""
         n_unfrozen = self.config.model.num_layers_unfrozen
-        if n_unfrozen > self.model_config.num_layers:
-            raise ValueError(
-                f"num_layers_unfrozen={n_unfrozen} exceeds num_layers={self.model_config.num_layers}"
-            )
-        if n_unfrozen > 0:
-            raise NotImplementedError(
-                "trlx_tpu_torch does not port the hydra reference branch (num_layers_unfrozen > 0) "
-                "yet: hydra slice; use num_layers_unfrozen=-1 (full reference copy) or 0"
-            )
+
+        def build(config):
+            if n_unfrozen > config.num_layers:
+                raise ValueError(f"num_layers_unfrozen={n_unfrozen} exceeds num_layers={config.num_layers}")
+            if n_unfrozen > 0:
+                raise NotImplementedError(
+                    "trlx_tpu_torch does not port the hydra reference branch (num_layers_unfrozen > 0) "
+                    "yet: hydra slice; use num_layers_unfrozen=-1 (full reference copy) or 0"
+                )
+            return CausalLMWithValueHead(config, num_value_layers=self.config.method.num_value_layers_unfrozen)
+
+        self.model = self.load_trunk(build)
         with torch.device(self.device):
-            self.model = CausalLMWithValueHead(
-                self.model_config, num_value_layers=self.config.method.num_value_layers_unfrozen
-            )
-            self.model.init_params(self.config.train.seed)
             self.ref_model = TransformerLM(self.model_config)
         self.ref_model.load_state_dict(self.model.transformer.state_dict())
         self.ref_model.requires_grad_(False)

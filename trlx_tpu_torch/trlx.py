@@ -9,8 +9,11 @@ Dispatch rows of the JAX package:
  ``reward_fn``               online RL (PPO)            ported
  ``environment``             environment RL (GRPO)      GRPO / online slice
  ``samples`` + ``rewards``   offline RL (ILQL)          ILQL trainer slice
- ``samples``                 supervised (SFT)           SFT trainer slice
+ ``samples``                 supervised (SFT)           ported
 ==========================  =========================  ======================
+
+With ``config=None`` the default config is picked by the row: PPO for
+``reward_fn``, SFT for ``samples``.
 
 ``device=None`` runs on the CUDA device and raises when there is none;
 ``device="cpu"`` runs the plain CPU path.
@@ -19,7 +22,7 @@ Dispatch rows of the JAX package:
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ppo_config
+from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
 from trlx_tpu_torch.utils import logging, set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -40,8 +43,9 @@ def train(
     environment=None,
     device=None,
 ):
-    """Fit with PPO from ``reward_fn`` and ``prompts`` (the JAX package's
-    surface plus ``device``); returns the trainer."""
+    """Fit with PPO from ``reward_fn`` and ``prompts``, or with SFT from
+    ``samples`` (strings or (prompt, output, ...) dialogues): the JAX
+    package's surface plus ``device``. Returns the trainer."""
     if reward_fn is not None and environment is not None:
         raise ValueError(
             "`reward_fn` and `environment` are mutually exclusive: an environment IS the reward source"
@@ -51,14 +55,13 @@ def train(
     if reward_fn is None:
         if dataset is not None or rewards is not None:
             raise NotImplementedError("trlx_tpu_torch does not port offline RL (ILQL) yet: ILQL trainer slice")
-        if samples is not None:
-            raise NotImplementedError("trlx_tpu_torch does not port supervised fine-tuning yet: SFT trainer slice")
-        raise ValueError("`reward_fn` (PPO) should be given for training")
+        if samples is None:
+            raise ValueError("One of `reward_fn` (PPO) or `samples` (SFT) should be given for training")
     if config is None:
         logger.warning(
             "Passing the `config` argument implicitly is depreciated, use or adapt one of the default configs instead"
         )
-        config = default_ppo_config()
+        config = default_ppo_config() if reward_fn else default_sft_config()
     if model_path:
         config.model.model_path = model_path
 
@@ -74,11 +77,16 @@ def train(
 
     batch_size = config.train.batch_size
     max_prompt_length = config.train.seq_length - config.method.gen_kwargs.get("max_new_tokens", 0)
-    prompts = prompts or [trainer.tokenizer.bos_token] * batch_size
-    if eval_prompts is None:
-        eval_prompts = prompts[:batch_size]
-    pipeline = get_pipeline(config.train.pipeline)(prompts, max_prompt_length, trainer.tokenizer)
-    trainer.add_prompt_pipeline(pipeline)
+    if reward_fn:
+        prompts = prompts or [trainer.tokenizer.bos_token] * batch_size
+        if eval_prompts is None:
+            eval_prompts = prompts[:batch_size]
+        pipeline = get_pipeline(config.train.pipeline)(prompts, max_prompt_length, trainer.tokenizer)
+        trainer.add_prompt_pipeline(pipeline)
+    else:
+        if eval_prompts is None:
+            eval_prompts = [trainer.tokenizer.bos_token] * batch_size
+        trainer.make_experience(samples, config.train.seq_length)
     eval_pipeline = get_pipeline(config.train.pipeline)(eval_prompts, max_prompt_length, trainer.tokenizer)
     trainer.add_eval_pipeline(eval_pipeline)
 

@@ -79,10 +79,11 @@ Phases, each printing one JSON line:
                   tolerances.
 8. ``engine_spec`` — a main path: the engine at full gpt2 width with int8
                   KV, spec_k 4 and prefill_chunk 64 under the JAX package's
-                  spec-leg traffic (768 requests, every budget 128), a
-                  warm-up and a measured pass; K5 and K1 launched, K4 not;
-                  K5 and K1 replayed against their plain versions at every
-                  shape the passes gave them (their block tables and lens,
+                  spec-leg traffic (768 requests, every budget 128), one
+                  measured pass (no warm-up pass: the kernels and timing
+                  phases have built and loaded K5 by then); K5 and K1
+                  launched, K4 not; K5 and K1 replayed against their plain
+                  versions at every shape the pass gave them (their block tables and lens,
                   their masks); the first 32 requests held against the
                   one-token engine with the same chunking and slots (running
                   the first 256 requests), tie-aware (bf16: a preference of
@@ -129,6 +130,44 @@ Phases, each printing one JSON line:
                   the example's walks, export, PPO from the export to step
                   120; eval ``reward/mean`` >= 0.7 at the first eval at or
                   after step 100.
+15. ``hydra_parity`` — hydra ``PPOTrainer`` (``num_layers_unfrozen=1``,
+                  ``num_value_layers_unfrozen=1``) on the card against the
+                  CPU with ``train_parity``'s trainer and limits.
+16. ``hydra``   — a main path: hydra PPO, ``default_ppo_config()``
+                  (``num_layers_unfrozen=2``) with a value branch of 1
+                  layer, on ``train``'s model and traffic. K1 15 times a
+                  scoring call (12 policy layers, the value block, the
+                  frozen branch's 2 layers), K1 26 and K2/K3 6 times a step;
+                  the 10 lower layers, embeddings, final norm and the frozen
+                  branch bit-identical after the run; every recorded shape
+                  replayed; step, scoring and memory beside ``train``'s.
+17. ``ilql_parity`` — ``ILQLTrainer`` on the card against the CPU (the tiny
+                  f32 config of tests/test_torch_ilql.py): 4 steps with
+                  target syncs, losses within 1e-3; the advantage-shaped
+                  processor within 1e-4.
+18. ``ilql``    — a main path: ``trlx_tpu_torch.train(samples=...,
+                  rewards=...)`` at full gpt2-small width (bf16): 512 byte
+                  samples with seeded rewards, 8 steps of 32 in 2
+                  microbatches at T=256, eval generation through the
+                  processor (beta 4, top_k 20). K1, K2, K3 once per layer
+                  and microbatch a step, K1 in every eval prefill; the
+                  target heads change at the syncs alone, by the Polyak
+                  update; every recorded shape replayed.
+19. ``rft``     — a main path: ``default_rft_config()`` at full gpt2-small
+                  width (bf16): one improve step (8 sampled generations of
+                  64 tokens for 32 prompts, scored, filtered) and 2 SFT
+                  steps on the survivors; K1 in every prefill, K1/K2/K3 per
+                  layer and microbatch a step; every recorded shape
+                  replayed.
+20. ``randomwalks_hydra`` — the randomwalks gate with hydra PPO
+                  (``num_layers_unfrozen=2``): ``reward/mean`` >= 0.7 at the
+                  first eval at or after step 100.
+21. ``randomwalks_ilql`` — ``scripts/torch_ilql_randomwalks.py``: the ILQL
+                  example at top_k=1 over its 1000 steps, optimality >= 0.6
+                  at the final eval.
+22. ``randomwalks_rft`` — ``scripts/torch_rft_randomwalks.py``: 300 SFT
+                  steps, 100 RFT steps, final ``reward/mean`` >= 0.9 and no
+                  lower than its step 0.
 
 Then the kernel table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
@@ -146,7 +185,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity", "engine_spec",
-          "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks")
+          "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks",
+          "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
+          "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1434,10 +1475,10 @@ def phase_engine_spec(ctx):
     """A main path: the engine at full gpt2 width, int8 KV, spec_k=4 and
     prefill_chunk=64, under the JAX package's spec-leg traffic (bench.py
     ``_serving_perf``: 768 requests of a 64-token shared prefix plus 1..64
-    own tokens, every budget 128, greedy), a warm-up and a measured pass.
+    own tokens, every budget 128, greedy), one measured pass.
     Launch counts are reset just before and read just after: K5 on every
     verify round and chunk append, K1 on every prefill wave, K4 never. Then
-    every kernel call shape of the two passes against the plain versions
+    every kernel call shape of the pass against the plain versions
     (:func:`check_main_path_shapes`), and the first 32 requests against the
     one-token engine (spec_k 0, the same prefill_chunk) on the same weights,
     tie-aware (that engine with this one's slots, running the first SLOTS
@@ -1464,8 +1505,7 @@ def phase_engine_spec(ctx):
     restore_kernels = record_kernel_shapes(seen)
     _kernels.reset_launches()
     try:
-        for label in ("warmup", "measured"):
-            first = engine_spec_pass(ctx, eng, prompts, budgets, label, L)
+        first = engine_spec_pass(ctx, eng, prompts, budgets, "measured", L)
     finally:
         restore_kernels()
     ctx["spec_path_launches"] = _kernels.launches()
@@ -1582,6 +1622,7 @@ def parity_trainer(device, state=None, **over):
     merges more dotted config overrides."""
     import tempfile
 
+    from trlx_tpu_torch.models.policy import branch_param_subtree
     from trlx_tpu_torch.pipeline import PromptPipeline
     from trlx_tpu_torch.utils.loading import get_trainer
 
@@ -1602,7 +1643,12 @@ def parity_trainer(device, state=None, **over):
     trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
     if state is not None:
         trainer.model.load_state_dict(state)
-        trainer.ref_model.load_state_dict(trainer.model.transformer.state_dict())
+        trunk = trainer.model.transformer.state_dict()
+        if trainer.frozen_branch is not None:
+            trainer.frozen_branch.load_state_dict(
+                branch_param_subtree(trunk, trainer.branch_start, trainer.model_config))
+        else:
+            trainer.ref_model.load_state_dict(trunk)
     prompts = PromptPipeline(byte_prompts(16, 8, 40, SEED + 3), 48, trainer.tokenizer)
     trainer.add_prompt_pipeline(prompts)
     return trainer
@@ -1618,6 +1664,17 @@ def phase_train_parity(ctx):
     emit({"phase": "train_parity", **report})
     if not ok:
         raise AssertionError(f"PPOTrainer on the card disagrees with the CPU trainer: {report}")
+
+
+def phase_hydra_parity(ctx):
+    """Hydra PPO on the card against the CPU from the same weights, with the
+    train_parity trainer and limits: ``num_layers_unfrozen=1`` (the frozen
+    branch is layer 1, the final norm and the tied head) and
+    ``num_value_layers_unfrozen=1``; one experience phase, 2 steps."""
+    report, ok = train_parity_report({"model.num_layers_unfrozen": 1, "method.num_value_layers_unfrozen": 1})
+    emit({"phase": "hydra_parity", **report})
+    if not ok:
+        raise AssertionError(f"hydra PPOTrainer on the card disagrees with the CPU trainer: {report}")
 
 
 def train_parity_report(over, tie_dtype=None):
@@ -1717,16 +1774,63 @@ def full_width_train_config(ckpt_dir):
 def phase_train(ctx):
     """The main training path at full gpt2-small width: trlx_tpu_torch.train
     with 12 layers, hidden 768, vocab 50257, random weights from the seed,
-    bf16 compute, f32 params and AdamW state, flash attention; 64 rollouts of
-    128 sampled tokens per experience phase, 4 optimizer steps of 32 rollouts
-    in 2 microbatches. Launch counts are reset just before and read just
-    after; every prefill and scoring forward must have launched K1 once per
-    layer and model, and every learner step K1, K2 and K3 once per layer and
-    microbatch. The run records each kernel call's shape and the first mask
-    of each shape; afterwards every such shape is held against the plain
-    versions (:func:`check_main_path_shapes`)."""
-    import shutil
+    bf16 compute, f32 params and AdamW state, flash attention, a full-copy
+    reference (``num_layers_unfrozen=-1``); 64 rollouts of 128 sampled
+    tokens per experience phase, 4 optimizer steps of 32 rollouts in 2
+    microbatches. Every prefill and scoring forward must have launched K1
+    once per layer and model, and every learner step K1, K2 and K3 once per
+    layer and microbatch (:func:`ppo_main_path`)."""
     import tempfile
+
+    L, num_mb = 12, TRAIN_B // TRAIN_MB
+    ctx["train_summary"], ctx["train_launches"] = ppo_main_path(
+        ctx, "train", full_width_train_config(tempfile.mkdtemp(prefix="chip_smoke_train_")),
+        {"loss_fwd": L * num_mb, "bwd": L * num_mb, "prefill": L, "score": 2 * L})
+
+
+def phase_hydra(ctx):
+    """A main path: hydra PPO, ``default_ppo_config()`` as it stands
+    (``num_layers_unfrozen=2``) with ``num_value_layers_unfrozen=1``, on the
+    train phase's model (the gpt2 preset at full width, bf16 compute, f32
+    params, the bytes tokenizer) and traffic (64 rollouts of 128 sampled
+    tokens, 4 steps of 32 in 2 microbatches). The reference is the frozen
+    branch: scoring runs the policy's 12 layers, the value block and the
+    branch's 2 layers (K1 15 times); a learner step runs K1 in the 12 trunk
+    layers and the value block and K2/K3 only in the 2 trained layers and
+    the value block, per microbatch. The 10 lower layers, the embeddings,
+    the final norm and the frozen branch must be ``torch.equal`` before and
+    after, the trained layers and the value branch must move. Step, scoring
+    and memory figures are printed beside the train phase's (full copy)."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    L, num_mb, n_unfrozen = 12, TRAIN_B // TRAIN_MB, 2
+    cfg = TRLConfig.update(full_width_train_config(tempfile.mkdtemp(prefix="chip_smoke_hydra_")), {
+        "model.num_layers_unfrozen": n_unfrozen, "method.num_value_layers_unfrozen": 1})
+    summary, ctx["hydra_launches"] = ppo_main_path(
+        ctx, "hydra", cfg,
+        {"loss_fwd": (L + 1) * num_mb, "bwd": (n_unfrozen + 1) * num_mb, "prefill": L,
+         "score": L + 1 + n_unfrozen})
+    full = ctx.get("train_summary") or {}
+    emit({"phase": "hydra", "check": "beside the train phase (full-copy reference)", "card": ctx.get("smi"),
+          **{f"{k}_{who}": d.get(k) for k in ("score_s", "learn_s", "peak_mem_gib", "peak_over_start_gib")
+             for who, d in (("hydra", summary), ("full_copy", full))}})
+
+
+def ppo_main_path(ctx, phase, cfg, expect):
+    """Drive ``trlx_tpu_torch.train`` (PPO) with ``cfg`` on the card once:
+    launch counts reset just before and read just after; per learner step
+    K1 ``expect["loss_fwd"]`` times and K2, K3 ``expect["bwd"]`` times, K1
+    ``expect["prefill"]`` times per generate and ``expect["score"]`` times
+    per scoring call, and nothing outside them. The run records each kernel
+    call's shape and the first mask of each shape; afterwards every shape is
+    held against the plain versions (:func:`check_main_path_shapes`). With
+    ``model.num_layers_unfrozen = N > 0`` the trunk's lower layers,
+    embeddings and final norm and the frozen branch must be bit-identical
+    after the run, and every trainable tensor but the seed-init value head
+    must have moved. Returns (summary, launches)."""
+    import shutil
 
     import numpy as np
     import torch
@@ -1735,10 +1839,7 @@ def phase_train(ctx):
     from trlx_tpu_torch.ops import _kernels
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    cfg = full_width_train_config(ckpt_dir)
-    L = 12
-    num_mb = TRAIN_B // TRAIN_MB
+    ckpt_dir = cfg.train.checkpoint_dir
     calls = []  # (kind, seconds, launch deltas, train_step stats, [B, T] of the call)
     originals = {name: getattr(PPOTrainer, name) for name in ("generate", "score", "train_step")}
 
@@ -1765,12 +1866,13 @@ def phase_train(ctx):
         return timed
 
     seen = {}  # kernel call shape -> calls and the first mask (record_kernel_shapes)
-
-    params0 = {}
+    params0, branch0 = {}, {}
 
     def snapshot_init(self, *a, **kw):
         if not params0:
             params0.update({k: v.detach().clone() for k, v in self.model.state_dict().items()})
+            if self.frozen_branch is not None:
+                branch0.update({k: v.detach().clone() for k, v in self.frozen_branch.state_dict().items()})
         return originals_prepare(self, *a, **kw)
 
     originals_prepare = PPOTrainer.prepare_learning
@@ -1780,6 +1882,7 @@ def phase_train(ctx):
     restore_kernels = record_kernel_shapes(seen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()  # what earlier phases still hold
     _kernels.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -1803,45 +1906,65 @@ def phase_train(ctx):
     scores = [(sec, d, shp) for kind, sec, d, _, shp in calls if kind == "score"]
     # learner tokens: the padded positions the step computes, B x (P + R)
     for i, (sec, d, out, shp) in enumerate(steps):
-        emit({"phase": "train", "step": i + 1, "card": ctx.get("smi"), "learn_s": sec,
+        emit({"phase": phase, "step": i + 1, "card": ctx.get("smi"), "learn_s": sec,
               "batch_shape": shp, "learner_tok_s": shp[0] * shp[1] / sec,
               "losses": {k: v for k, v in out.items() if k.startswith("losses/")},
               "rollout_s": {k: out[k] for k in ("time/rollout_generate", "time/rollout_reward",
                                                 "time/rollout_score", "time/rollout_time")},
               "launches": d})
-    changed = any(not torch.equal(params0[k], v) for k, v in trainer.model.state_dict().items())
+    state = trainer.model.state_dict()
+    n_unfrozen = cfg.model.num_layers_unfrozen
+    frozen = [k for k in state if not any(p.data_ptr() == state[k].data_ptr() for p in trainer.trainable_params)]
+    moved = [k for k in state if k not in frozen and not torch.equal(params0[k], state[k])]
     finite = all(np.isfinite(v) for _, _, out, _ in steps for k, v in out.items() if k.startswith("losses/"))
     summary = {
-        "phase": "train", "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps),
+        "phase": phase, "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps),
+        "num_layers_unfrozen": n_unfrozen, "reference": "hydra branch" if trainer.frozen_branch is not None
+        else "full copy",
         "generate_calls": len(gens), "generate_s": [g[0] for g in gens],
         "score_calls": len(scores), "score_s": [c[0] for c in scores], "score_shapes": [c[2] for c in scores],
         "learn_s": [st[0] for st in steps], "learn_batch_shapes": [st[3] for st in steps],
         "learner_tok_s_mean": sum(st[3][0] * st[3][1] for st in steps) / max(sum(st[0] for st in steps), 1e-9),
-        "peak_mem_gib": peak / 2 ** 30, "launches": launches, "params_changed": changed,
-        "losses_finite": finite,
-        "kernel_shapes": kernel_shapes(seen),
+        "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30,
+        "launches": launches, "frozen_tensors": len(frozen), "trained_tensors_moved": len(moved),
+        "losses_finite": finite, "kernel_shapes": kernel_shapes(seen),
     }
     emit(summary)
     checks = {
         "4 optimizer steps": len(steps) == 4,
         "losses finite": finite,
-        "params changed": changed,
-        "K2 and K3: num_layers x num_mb per step": all(
-            d["flash_bwd_dkv"] == L * num_mb and d["flash_bwd_dq"] == L * num_mb for _, d, _, _ in steps),
-        "K1 on every loss forward": all(d["flash_fwd"] == L * num_mb for _, d, _, _ in steps),
-        "K1 on every prefill": bool(gens) and all(d["flash_fwd"] == L for _, d, _ in gens),
+        "params changed": bool(moved),
+        "K2 and K3 per step": all(
+            d["flash_bwd_dkv"] == expect["bwd"] and d["flash_bwd_dq"] == expect["bwd"] for _, d, _, _ in steps),
+        "K1 on every loss forward": all(d["flash_fwd"] == expect["loss_fwd"] for _, d, _, _ in steps),
+        "K1 on every prefill": bool(gens) and all(d["flash_fwd"] == expect["prefill"] for _, d, _ in gens),
         "K1 on every scoring forward (policy + reference)": bool(scores) and all(
-            d["flash_fwd"] == 2 * L for _, d, _ in scores),
+            d["flash_fwd"] == expect["score"] for _, d, _ in scores),
         "no kernel outside generate / score / train_step": all(
             launches[k] == sum(c[2][k] for c in calls) for k in launches),
     }
+    if n_unfrozen > 0:
+        L = trainer.model_config.num_layers
+        lower = [k for k in state if k.startswith("transformer.") and not any(
+            k.startswith(f"transformer.layers_{i}.") for i in range(L - n_unfrozen, L))]
+        checks.update({
+            "frozen: exactly the lower layers, embeddings and final norm": sorted(frozen) == sorted(lower),
+            "lower layers, embeddings, final norm bit-identical": all(torch.equal(params0[k], state[k])
+                                                                     for k in lower),
+            "frozen branch bit-identical": bool(branch0) and all(
+                torch.equal(branch0[k], v) for k, v in trainer.frozen_branch.state_dict().items()),
+            "the trained top layers left the frozen branch": not torch.equal(
+                state[f"transformer.layers_{L - 1}.attn.q_proj.kernel"],
+                trainer.frozen_branch.state_dict()[f"layers_{L - 1}.attn.q_proj.kernel"]),
+        })
     failed = [k for k, ok in checks.items() if not ok]
-    ctx["train_launches"] = launches
+    emit({"phase": phase, "checks": checks})
     del trainer
     torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"train phase: {failed}")
-    check_main_path_shapes(ctx, seen, "train", ("flash_fwd", "flash_bwd"))
+        raise AssertionError(f"{phase} phase: {failed}")
+    check_main_path_shapes(ctx, seen, phase, ("flash_fwd", "flash_bwd"))
+    return summary, launches
 
 
 def phase_train_serving(ctx):
@@ -2240,17 +2363,435 @@ def phase_randomwalks(ctx):
     The eval ``reward/mean`` at the first eval at or after step 100 must be
     >= 0.7. Prints the whole eval curve beside the JAX package's recorded
     one, the SFT stage's final loss and the seconds."""
+    import tempfile
+
     import torch
 
     from scripts.torch_ppo_randomwalks import run_gate
 
+    # the SFT export is kept for randomwalks_hydra, whose recipe has the same SFT stage
+    export = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_walks_"), "sft_model")
     t0 = time.perf_counter()
-    report = run_gate(pretrain_steps=300, ppo_steps=120)
+    report = run_gate(pretrain_steps=300, ppo_steps=120, export_to=export)
+    ctx["randomwalks_export"] = export
     torch.cuda.synchronize()
     emit({"phase": "randomwalks", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
     torch.cuda.empty_cache()
     if not report["ok"]:
         raise AssertionError(f"randomwalks phase: eval reward/mean below the bar: {report['gate_eval']}")
+
+
+def phase_randomwalks_hydra(ctx):
+    """The hydra gate (``scripts/torch_ppo_randomwalks.py
+    --num-layers-unfrozen 2``): the randomwalks phase's recipe with the PPO
+    stage as hydra PPO (the top 2 layers train, the reference is the frozen
+    branch); eval ``reward/mean`` >= 0.7 at the first eval at or after step
+    100. The JAX package's recorded hydra run reached 0.943 within 120
+    steps. The SFT stage is the randomwalks phase's when that phase ran
+    (the same recipe and seed), else its own."""
+    import shutil
+
+    import torch
+
+    from scripts.torch_ppo_randomwalks import run_gate
+
+    export = ctx.pop("randomwalks_export", None)
+    t0 = time.perf_counter()
+    try:
+        report = run_gate(pretrain_steps=300, ppo_steps=120, num_layers_unfrozen=2, warm_start=export)
+    finally:
+        if export is not None:
+            shutil.rmtree(os.path.dirname(export), ignore_errors=True)
+    torch.cuda.synchronize()
+    emit({"phase": "randomwalks_hydra", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
+    torch.cuda.empty_cache()
+    if not report["ok"] or report["reference"] != "hydra branch":
+        raise AssertionError(f"randomwalks_hydra phase: below the bar: {report['gate_eval']}")
+
+
+def phase_randomwalks_ilql(ctx):
+    """The ILQL gate (``scripts/torch_ilql_randomwalks.py``): the ILQL
+    randomwalks example's config with eval decoding at top_k=1, its whole
+    budget of 1000 steps; eval optimality >= 0.6 at the final eval (the
+    JAX package's CPU runs of five seeds: 0.654-0.795 at step 992)."""
+    import torch
+
+    from scripts.torch_ilql_randomwalks import run_gate
+
+    t0 = time.perf_counter()
+    report = run_gate(steps=1000)
+    torch.cuda.synchronize()
+    emit({"phase": "randomwalks_ilql", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
+    torch.cuda.empty_cache()
+    if not report["ok"]:
+        raise AssertionError(f"randomwalks_ilql phase: below the bar: {report['gate_eval']}")
+
+
+def phase_randomwalks_rft(ctx):
+    """The RFT gate (``scripts/torch_rft_randomwalks.py``): 300 SFT steps on
+    the walks, export, 100 RFT steps (32 sampled generations per prompt, the
+    top percentile band kept); the final eval ``reward/mean`` >= 0.9 and no
+    lower than the run's step 0 (the JAX package's CPU run at this cut
+    ended at 1.0)."""
+    import torch
+
+    from scripts.torch_rft_randomwalks import run_gate
+
+    t0 = time.perf_counter()
+    report = run_gate(pretrain_steps=300, rft_steps=100)
+    torch.cuda.synchronize()
+    emit({"phase": "randomwalks_rft", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
+    torch.cuda.empty_cache()
+    if not report["ok"]:
+        raise AssertionError(f"randomwalks_rft phase: below the bar: {report['gate_eval']}")
+
+
+#: the ilql phase: 512 seeded byte samples of 64..192 bytes with seeded
+#: rewards, seq_length 256, 8 steps of 32 in 2 microbatches of 16, a target
+#: sync every 4 steps
+ILQL_N, ILQL_SEQ, ILQL_B, ILQL_MB, ILQL_STEPS, ILQL_SYNC = 512, 256, 32, 16, 8, 4
+
+
+def full_width_ilql_config(ckpt_dir):
+    """The ilql phase's config: ``default_ilql_config()`` on the gpt2 preset
+    at full width with flash attention, bf16 compute, f32 params and AdamW,
+    the bytes tokenizer; eval decoding with beta 4 and top_k 20."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+
+    return TRLConfig.update(default_ilql_config(), {
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32",
+        "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": ILQL_SEQ, "train.batch_size": ILQL_B, "train.minibatch_size": ILQL_MB,
+        "train.total_steps": ILQL_STEPS, "train.eval_interval": 100, "train.checkpoint_interval": 100,
+        "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
+        "train.checkpoint_dir": ckpt_dir, "train.seed": SEED,
+        "method.steps_for_target_q_sync": ILQL_SYNC,
+        "method.gen_kwargs": dict(max_new_tokens=32, top_k=20, beta=4.0, temperature=1.0),
+    })
+
+
+def phase_ilql(ctx):
+    """A main path: ``trlx_tpu_torch.train(samples=..., rewards=...)`` (ILQL)
+    at full gpt2-small width (bf16 compute, f32 params and AdamW, flash
+    attention, the bytes tokenizer): 512 seeded byte samples with seeded
+    rewards, 8 steps of 32 rows in 2 microbatches at T = 256, and the eval
+    generation (32 prompts, 32 tokens, beta 4 through the target-Q
+    processor, top_k 20) at steps 0 and 8. Launch counts reset just before
+    and read just after: every step must launch K1, K2 and K3 once per layer
+    and microbatch, every eval prefill K1 once per layer, nothing else;
+    every recorded shape is held against the plain versions. The target Q
+    heads must change at the syncs (steps 4 and 8) alone, each time to
+    ``alpha * q + (1 - alpha) * target``; the losses must be finite."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ilql_")
+    cfg = full_width_ilql_config(ckpt_dir)
+    num_mb = ILQL_B // ILQL_MB
+    calls, syncs = [], []  # (kind, seconds, launch deltas, stats); (step, changed, max |err| vs Polyak)
+    originals = {name: getattr(ILQLTrainer, name) for name in ("generate", "train_step", "post_backward_callback")}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def timed(self, *a, **kw):
+            before = dict(_kernels.launches())
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            calls.append((name, time.perf_counter() - t0, {k: _kernels.launches()[k] - before[k] for k in before},
+                          out if name == "train_step" else None))
+            return out
+
+        return timed
+
+    def sync_checked(self):
+        heads = self.model.ilql_heads
+        q = [t.detach().clone() for h in heads.q_heads for t in h.parameters()]
+        before = [t.detach().clone() for h in heads.target_q_heads for t in h.parameters()]
+        originals["post_backward_callback"](self)
+        after = [t.detach() for h in heads.target_q_heads for t in h.parameters()]
+        changed = any(not torch.equal(a, b) for a, b in zip(after, before))
+        a = self.method.alpha
+        err = max(float((x - (a * qi + (1.0 - a) * b)).abs().max()) for x, qi, b in zip(after, q, before)) \
+            if changed else None
+        syncs.append((self.iter_count, changed, err))
+
+    ILQLTrainer.generate, ILQLTrainer.train_step = wrap("generate"), wrap("train_step")
+    ILQLTrainer.post_backward_callback = sync_checked
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    rng = np.random.default_rng(SEED + 21)
+    samples = byte_prompts(ILQL_N, 64, 192, SEED + 20)
+    rewards = rng.normal(size=ILQL_N).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(samples=samples, rewards=rewards,
+                                       eval_prompts=byte_prompts(ILQL_B, 16, 64, SEED + 22), config=cfg)
+    finally:
+        for name, fn in originals.items():
+            setattr(ILQLTrainer, name, fn)
+        restore_kernels()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = trainer.model_config.num_layers
+    steps = [c for c in calls if c[0] == "train_step"]
+    gens = [c for c in calls if c[0] == "generate"]
+    losses = [c[3]["losses/loss"] for c in steps]
+    summary = {
+        "phase": "ilql", "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps), "step_s": [c[1] for c in steps],
+        "losses": losses, "loss_terms_last": {k: v for k, v in steps[-1][3].items() if k.startswith("losses/")}
+        if steps else None, "eval_generate_s": [c[1] for c in gens], "target_syncs": syncs,
+        "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30, "launches": launches,
+        "launches_per_step": [c[2] for c in steps], "kernel_shapes": kernel_shapes(seen),
+    }
+    emit(summary)
+    checks = {
+        f"{ILQL_STEPS} optimizer steps": len(steps) == ILQL_STEPS,
+        "losses finite": bool(losses) and all(np.isfinite(v) for c in steps for k, v in c[3].items()
+                                               if k.startswith("losses/")),
+        "K1, K2 and K3: num_layers x num_mb per step": all(
+            c[2]["flash_fwd"] == L * num_mb and c[2]["flash_bwd_dkv"] == L * num_mb
+            and c[2]["flash_bwd_dq"] == L * num_mb for c in steps),
+        "K1 on every eval prefill": len(gens) == 2 and all(c[2]["flash_fwd"] == L for c in gens),
+        "no kernel outside generate / train_step": all(launches[k] == sum(c[2][k] for c in calls) for k in launches),
+        "target heads changed at the syncs alone": [st for st, changed, _ in syncs if changed] == list(
+            range(ILQL_SYNC, ILQL_STEPS + 1, ILQL_SYNC)),
+        "every sync is the Polyak update": all(err <= 1e-6 for _, changed, err in syncs if changed),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "ilql", "checks": checks})
+    ctx["ilql_launches"] = launches
+    del trainer
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"ilql phase: {failed}")
+    check_main_path_shapes(ctx, seen, "ilql", ("flash_fwd", "flash_bwd"))
+
+
+#: the CPU test's tiny ILQL samples (tests/test_torch_ilql.py)
+ILQL_PARITY_SAMPLES = [["ab", "cd"], ["ef", "gh"], ["a", "bc"], ["de", "fg"], ["h", "abc d"], ["b a", "e"],
+                       ["cc", "ddd"], ["g", "a"]]
+ILQL_PARITY_REWARDS = [1.0, 0.5, -0.5, 0.25, 0.75, -1.0, 0.0, 2.0]
+
+
+def ilql_parity_trainer(device, state=None):
+    """ILQLTrainer at 2 layers / hidden 32 (2 heads of 16), f32, flash
+    attention, char tokenizer, batch 4 in 2 microbatches, a target sync
+    every 2 steps, on ``device``; ``state`` replaces the seeded weights."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.from_dict(dict(
+        method=dict(name="ILQLConfig", steps_for_target_q_sync=2, two_qs=True, alpha=0.1, beta=0.5,
+                    gen_kwargs=dict(max_new_tokens=4, top_k=4, beta=1.0, do_sample=False)),
+        train=dict(seq_length=16, epochs=4, total_steps=3, batch_size=4, minibatch_size=2,
+                   checkpoint_interval=100, eval_interval=100,
+                   checkpoint_dir=tempfile.mkdtemp(prefix="chip_smoke_ilql_parity_"), pipeline="PromptPipeline",
+                   trainer="ILQLTrainer", tracker=None, seed=2, save_best=False),
+        model=dict(model_path="gpt2", num_layers_unfrozen=-1, model_overrides=dict(
+            vocab_size=len(SFT_PARITY_ALPHABET) + 3, hidden_size=32, num_layers=2, num_heads=2,
+            intermediate_size=64, max_position_embeddings=64, attention_impl="flash")),
+        tokenizer=dict(tokenizer_path=f"char://{SFT_PARITY_ALPHABET}"),
+        optimizer=dict(name="adamw", kwargs=dict(lr=3e-3, betas=(0.9, 0.95), weight_decay=1e-4, max_grad_norm=1.0)),
+        scheduler=dict(name="cosine_annealing", kwargs=dict(T_max=4, eta_min=1e-4)),
+        mesh=dict(data=1, fsdp=1, model=1, compute_dtype="float32"),
+    ))
+    trainer = get_trainer("ILQLTrainer")(config=cfg, device=device)
+    if state is not None:
+        trainer.model.load_state_dict(state)
+    return trainer
+
+
+def phase_ilql_parity(ctx):
+    """ILQLTrainer on the card against ILQLTrainer on the CPU from the same
+    weights (the tiny f32 config of the CPU test, the weights perturbed so
+    the Q heads and their targets differ): 2 epochs of 2 optimizer steps
+    with a target sync every 2 steps, every step's ``losses/*`` within 1e-3
+    relative (+1e-6);
+    then the advantage-shaped processor on one seeded decode state within
+    the f32 kernel tolerance, 1e-4 x max(1, max|ref|)."""
+    import shutil
+
+    import torch
+
+    cpu = ilql_parity_trainer("cpu")
+    gen = torch.Generator().manual_seed(SEED + 23)
+    state = {k: v + 0.05 * torch.randn(v.shape, generator=gen) for k, v in cpu.model.state_dict().items()}
+    cpu = ilql_parity_trainer("cpu", state)
+    card = ilql_parity_trainer("cuda", state)
+    runs = {}
+    for name, tr in (("cuda", card), ("cpu", cpu)):
+        tr.make_experience(ILQL_PARITY_SAMPLES, ILQL_PARITY_REWARDS, tr.config.train.seq_length)
+        tr.prepare_learning()
+        stats = []
+        for _ in range(2):
+            for batch in tr.create_train_dataloader():
+                stats.append(tr.train_step(batch))
+                tr.iter_count += 1
+                tr.post_backward_callback()
+        runs[name] = [{k: v for k, v in st.items() if k.startswith("losses/")} for st in stats]
+        shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    hidden = torch.randn(4, 32, generator=gen)
+    logits = torch.randn(4, len(SFT_PARITY_ALPHABET) + 3, generator=gen)
+    prev = torch.tensor([0, 3, 5, 11])
+    with torch.no_grad():
+        ref = cpu.gen_logits_processor()(hidden, logits, prev)
+        out = card.gen_logits_processor()(hidden.cuda(), logits.cuda(), prev.cuda()).cpu()
+    proc_err = float((out - ref).abs().max())
+    lc, lp = runs["cuda"], runs["cpu"]
+    rel = [abs(x[k] - y[k]) / max(abs(y[k]), 1e-3) for x, y in zip(lc, lp) for k in y]
+    report = {"phase": "ilql_parity", "losses_cuda": lc, "losses_cpu": lp, "max_loss_rel_err": max(rel),
+              "processor_max_abs_err": proc_err, "tol": 1e-3,
+              "ok": len(lc) == len(lp) == 4 and all(abs(x[k] - y[k]) <= 1e-3 * abs(y[k]) + 1e-6
+                                                     for x, y in zip(lc, lp) for k in y)
+              and proc_err <= 1e-4 * max(1.0, float(ref.abs().max()))}
+    emit(report)
+    del card, cpu
+    torch.cuda.empty_cache()
+    if not report["ok"]:
+        raise AssertionError(f"ILQLTrainer on the card disagrees with the CPU trainer: {report}")
+
+
+#: the rft phase: 32 byte prompts, 8 generations of 64 tokens each, batch 32
+#: in 2 microbatches, seq_length 160, 2 SFT steps on the survivors
+RFT_PROMPTS, RFT_GENS, RFT_NEW, RFT_B, RFT_MB, RFT_STEPS = 32, 8, 64, 32, 16, 2
+
+
+def byte_len_reward(samples, prompts, outputs, **_):
+    """Deterministic host reward: the output's length in characters. A
+    random-weight model at vocab 50257 samples a byte token ~0.5 % of the
+    time, so outputs are short and their lengths differ."""
+    return [float(len(o)) for o in outputs]
+
+
+def phase_rft(ctx):
+    """A main path: ``trlx_tpu_torch.train(reward_fn=...)`` with
+    ``default_rft_config()`` at full gpt2-small width (bf16 compute, f32
+    params and AdamW, flash attention, the bytes tokenizer): one improve
+    step (8 sampled generations of 64 tokens for each of 32 prompts, the
+    output length as reward, the 0.7 percentile filter) and 2 SFT steps of 32 rows in 2
+    microbatches on the survivors. Launch counts reset just before and read
+    just after: K1 once per layer in every generation prefill (the improve
+    step's and the eval's), K1, K2 and K3 once per layer and microbatch in
+    every step, nothing else; every recorded shape is held against the plain
+    versions."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_rft_config
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.trainer.rft_trainer import RFTTrainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_rft_")
+    cfg = TRLConfig.update(default_rft_config(), {
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32", "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": 160, "train.batch_size": RFT_B, "train.minibatch_size": RFT_MB,
+        "train.total_steps": RFT_STEPS, "train.eval_interval": 100, "train.checkpoint_interval": 100,
+        "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
+        "train.checkpoint_dir": ckpt_dir, "train.seed": SEED,
+        "method.n_generations_per_prompt": RFT_GENS,
+        "method.gen_kwargs": dict(max_new_tokens=RFT_NEW, temperature=1.0, do_sample=True),
+    })
+    num_mb = RFT_B // RFT_MB
+    calls, improve = [], []
+    originals = {name: getattr(RFTTrainer, name) for name in ("generate", "train_step", "make_experience")}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def timed(self, *a, **kw):
+            before = dict(_kernels.launches())
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            entry = (name, time.perf_counter() - t0, {k: _kernels.launches()[k] - before[k] for k in before},
+                     out if name == "train_step" else None)
+            (improve if name == "make_experience" else calls).append(entry)
+            if name == "make_experience":
+                improve[-1] += (len(self.store.history) if self.store is not None else 0,)
+            return out
+
+        return timed
+
+    for name in originals:
+        setattr(RFTTrainer, name, wrap(name))
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(
+            reward_fn=byte_len_reward, prompts=byte_prompts(RFT_PROMPTS, 16, 64, SEED + 30),
+            eval_prompts=byte_prompts(RFT_B, 16, 64, SEED + 31), config=cfg)
+    finally:
+        for name, fn in originals.items():
+            setattr(RFTTrainer, name, fn)
+        restore_kernels()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = trainer.model_config.num_layers
+    steps = [c for c in calls if c[0] == "train_step"]
+    gens = [c for c in calls if c[0] == "generate"]
+    losses = [c[3]["losses/loss"] for c in steps]
+    summary = {
+        "phase": "rft", "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps), "step_s": [c[1] for c in steps],
+        "losses": losses, "improve_steps": len(improve), "improve_s": [c[1] for c in improve],
+        "kept_samples": [c[4] for c in improve], "generate_calls": len(gens), "generate_s": [c[1] for c in gens],
+        "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30, "launches": launches,
+        "launches_per_step": [c[2] for c in steps], "kernel_shapes": kernel_shapes(seen),
+    }
+    emit(summary)
+    checks = {
+        f"{RFT_STEPS} SFT steps": len(steps) == RFT_STEPS,
+        "one improve step kept samples": len(improve) == 1 and improve[0][4] > RFT_B,
+        "losses finite": bool(losses) and all(np.isfinite(x) for x in losses),
+        "generations: n_generations_per_prompt per prompt batch + 2 evals": len(gens) == RFT_GENS * (
+            -(-RFT_PROMPTS // RFT_B)) + 2,
+        "K1 on every generation prefill": all(c[2]["flash_fwd"] == L for c in gens),
+        "K1, K2 and K3: num_layers x num_mb per step": all(
+            c[2]["flash_fwd"] == L * num_mb and c[2]["flash_bwd_dkv"] == L * num_mb
+            and c[2]["flash_bwd_dq"] == L * num_mb for c in steps),
+        "no kernel outside generate / train_step": all(launches[k] == sum(c[2][k] for c in calls) for k in launches),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "rft", "checks": checks})
+    ctx["rft_launches"] = launches
+    del trainer
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"rft phase: {failed}")
+    check_main_path_shapes(ctx, seen, "rft", ("flash_fwd", "flash_bwd"))
 
 
 def record_kernel_shapes(seen, dead_rows=None):
@@ -2428,7 +2969,8 @@ def kernel_table(ctx):
     t, errs = ctx["timings"], ctx["max_abs_err"]
     paths = {"engine": ctx["main_path_launches"], "engine_spec": ctx["spec_path_launches"],
              "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"],
-             "sft": ctx["sft_launches"]}
+             "sft": ctx["sft_launches"], "hydra": ctx["hydra_launches"], "ilql": ctx["ilql_launches"],
+             "rft": ctx["rft_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -2470,11 +3012,20 @@ def main(argv=None) -> int:
                "spec_parity": phase_spec_parity, "engine_spec": phase_engine_spec,
                "train_parity": phase_train_parity, "train": phase_train,
                "train_serving": phase_train_serving, "sft_parity": phase_sft_parity, "sft": phase_sft,
-               "randomwalks": phase_randomwalks}
+               "randomwalks": phase_randomwalks, "hydra_parity": phase_hydra_parity, "hydra": phase_hydra,
+               "ilql_parity": phase_ilql_parity, "ilql": phase_ilql, "rft": phase_rft,
+               "randomwalks_hydra": phase_randomwalks_hydra, "randomwalks_ilql": phase_randomwalks_ilql,
+               "randomwalks_rft": phase_randomwalks_rft}
     phase_env(ctx)
-    for name in phases:
-        if name != "env":
-            runners[name](ctx)
+    try:
+        for name in phases:
+            if name != "env":
+                runners[name](ctx)
+    finally:
+        if "randomwalks_export" in ctx:  # randomwalks ran without randomwalks_hydra
+            import shutil
+
+            shutil.rmtree(os.path.dirname(ctx["randomwalks_export"]), ignore_errors=True)
     if set(phases) != set(PHASES):
         return 0
     emit(kernel_table(ctx))

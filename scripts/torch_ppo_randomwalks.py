@@ -8,13 +8,18 @@ budget is raised from the example's 20 to 100 so that it runs to
 
 Usage (on a CUDA host; ``--device cpu`` runs the plain CPU path)::
 
-    python3 scripts/torch_ppo_randomwalks.py [--pretrain-steps 300] [--ppo-steps 120] [--device cpu]
+    python3 scripts/torch_ppo_randomwalks.py [--pretrain-steps 300] [--ppo-steps 120]
+        [--num-layers-unfrozen 2] [--device cpu]
 
 Prints one JSON line: the eval ``reward/mean`` curve, the SFT stage's final
 loss, the seconds of each stage, and whether the first eval at or after
 step 100 reached ``reward/mean`` >= 0.7 (the bar the JAX package's recorded
 curve clears: 0.615@0, 0.851@20, 0.893@60, 0.983@80, 0.95@120). Exits 1 when
-it did not (or when PPO stopped before step 100).
+it did not (or when PPO stopped before step 100). ``--num-layers-unfrozen
+2`` runs the PPO stage as hydra PPO (the example's hparam
+``model.num_layers_unfrozen``: the top 2 layers train and the KL reference
+is the frozen branch), whose recorded JAX run reached 0.943 within 120
+steps.
 
 The walks come from ``examples/randomwalks/randomwalks.py`` (numpy only);
 nothing of the JAX package is imported.
@@ -36,6 +41,8 @@ sys.path.insert(0, ROOT)
 GATE_STEP, GATE_REWARD = 100, 0.7
 #: the JAX package's recorded PPO curve on this recipe (step, reward/mean)
 JAX_CURVE = [(0, 0.615), (20, 0.851), (60, 0.893), (80, 0.983), (120, 0.95)]
+#: its recorded hydra run (num_layers_unfrozen=2): 0.943 within 120 steps
+JAX_HYDRA = "reward/mean 0.943 within 120 steps"
 
 
 def default_config(alphabet: str):
@@ -73,9 +80,11 @@ def default_config(alphabet: str):
 GATE_OVERRIDES = ("train.epochs", "train.total_steps", "train.tracker", "train.checkpoint_dir")
 
 
-def gate_config(alphabet: str, out_dir: str, ppo_steps: int):
-    """The PPO stage's config: the example's, with :data:`GATE_OVERRIDES`."""
+def gate_config(alphabet: str, out_dir: str, ppo_steps: int, num_layers_unfrozen: int = -1):
+    """The PPO stage's config: the example's, with :data:`GATE_OVERRIDES`
+    and the hparam ``model.num_layers_unfrozen``."""
     config = default_config(alphabet)
+    config.model.num_layers_unfrozen = num_layers_unfrozen
     config.train.tracker = None
     config.train.checkpoint_dir = out_dir
     config.train.total_steps = ppo_steps
@@ -102,38 +111,59 @@ def recording(cls, name, sink):
         setattr(cls, name, original)
 
 
-def run_gate(pretrain_steps=300, ppo_steps=120, device=None):
-    """SFT ``pretrain_steps`` at lr 1e-3 (the example's default), export,
-    PPO ``ppo_steps`` from the export, in a temporary directory. Returns the
-    report dict (``ok``: the bar was met)."""
+def pretrain_on_walks(config, sample_walks, out_dir: str, steps: int, device=None, report=None) -> str:
+    """The example's SFT warm start (``ppo_randomwalks.pretrain_on_walks``):
+    ``steps`` SFT steps at lr 1e-3 on the walks, every layer trained, then
+    ``save_pretrained``. Returns the exported directory; fills ``report``
+    with the stage's seconds and first and final losses."""
     import trlx_tpu_torch
-    from examples.randomwalks import generate_random_walks
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.methods.sft import SFTConfig
-    from trlx_tpu_torch.trainer.mesh_trainer import MeshRLTrainer
     from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    d = config.to_dict()
+    d["method"] = SFTConfig(gen_kwargs=dict(max_new_tokens=9, top_k=1)).to_dict()
+    d["train"].update(trainer="SFTTrainer", total_steps=steps, epochs=100, eval_interval=steps,
+                      checkpoint_interval=10 * steps, checkpoint_dir=out_dir + "/sft_ckpts")
+    d["optimizer"]["kwargs"]["lr"] = 1e-3
+    d["model"]["num_layers_unfrozen"] = -1
+    t0 = time.perf_counter()
+    with recording(SFTTrainer, "train_step", []) as losses:
+        sft = trlx_tpu_torch.train(samples=sample_walks, eval_prompts=["a"], config=TRLConfig.from_dict(d),
+                                   device=device)
+    hf_dir = out_dir + "/sft_model"
+    sft.save_pretrained(hf_dir)
+    if report is not None:
+        report.update(sft_seconds=time.perf_counter() - t0, sft_final_loss=losses[-1][1]["losses/loss"],
+                      sft_first_loss=losses[0][1]["losses/loss"], sft_steps=len(losses))
+    return hf_dir
+
+
+def run_gate(pretrain_steps=300, ppo_steps=120, device=None, num_layers_unfrozen=-1, warm_start=None,
+             export_to=None):
+    """SFT ``pretrain_steps`` at lr 1e-3 (the example's default), export,
+    PPO ``ppo_steps`` from the export with ``num_layers_unfrozen``, in a
+    temporary directory. ``warm_start`` names an export of this SFT stage
+    made earlier, which replaces it; ``export_to`` keeps this run's export
+    there (the caller removes it). Returns the report dict (``ok``: the bar
+    was met)."""
+    import trlx_tpu_torch
+    from examples.randomwalks import generate_random_walks
+    from trlx_tpu_torch.trainer.mesh_trainer import MeshRLTrainer
 
     metric_fn, prompts, sample_walks, _, alphabet = generate_random_walks(seed=1002)
     out_dir = tempfile.mkdtemp(prefix="randomwalks_")
-    config = gate_config(alphabet, out_dir, ppo_steps)
-    report = {"pretrain_steps": pretrain_steps, "ppo_steps": ppo_steps, "device": device or "cuda"}
+    config = gate_config(alphabet, out_dir, ppo_steps, num_layers_unfrozen)
+    report = {"pretrain_steps": pretrain_steps, "ppo_steps": ppo_steps, "device": device or "cuda",
+              "num_layers_unfrozen": num_layers_unfrozen}
     try:
-        # SFT warm start (ppo_randomwalks.pretrain_on_walks)
-        d = config.to_dict()
-        d["method"] = SFTConfig(gen_kwargs=dict(max_new_tokens=9, top_k=1)).to_dict()
-        d["train"].update(trainer="SFTTrainer", total_steps=pretrain_steps, epochs=100, eval_interval=pretrain_steps,
-                          checkpoint_interval=10 * pretrain_steps, checkpoint_dir=out_dir + "/sft_ckpts")
-        d["optimizer"]["kwargs"]["lr"] = 1e-3
-        d["model"]["num_layers_unfrozen"] = -1
-        t0 = time.perf_counter()
-        with recording(SFTTrainer, "train_step", []) as steps:
-            sft = trlx_tpu_torch.train(samples=sample_walks, eval_prompts=["a"], config=TRLConfig.from_dict(d),
-                                       device=device)
-        hf_dir = out_dir + "/sft_model"
-        sft.save_pretrained(hf_dir)
-        report.update(sft_seconds=time.perf_counter() - t0, sft_final_loss=steps[-1][1]["losses/loss"],
-                      sft_first_loss=steps[0][1]["losses/loss"], sft_steps=len(steps))
-        del sft
+        if warm_start is not None:
+            hf_dir = warm_start
+            report.update(warm_start="an earlier run's SFT export")
+        else:
+            hf_dir = pretrain_on_walks(config, sample_walks, out_dir, pretrain_steps, device, report)
+            if export_to is not None:
+                shutil.copytree(hf_dir, export_to)
 
         # PPO from the export; the architecture comes from its config.json
         config.model.model_path = hf_dir
@@ -146,13 +176,15 @@ def run_gate(pretrain_steps=300, ppo_steps=120, device=None):
                 metric_fn=lambda samples, **kwargs: metric_fn(samples),
                 config=config, device=device,
             )
-        report.update(ppo_seconds=time.perf_counter() - t0, ppo_final_step=ppo.iter_count)
+        report.update(ppo_seconds=time.perf_counter() - t0, ppo_final_step=ppo.iter_count,
+                      reference="hydra branch" if ppo.frozen_branch is not None else "full copy")
         del ppo
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     curve = [(step, stats["reward/mean"]) for step, stats in evals]
     at_gate = next(((s, r) for s, r in curve if s >= GATE_STEP), None)
-    report.update(eval_curve=curve, jax_curve=JAX_CURVE, gate={"step": GATE_STEP, "min_reward": GATE_REWARD},
+    report.update(eval_curve=curve, jax_curve=JAX_HYDRA if num_layers_unfrozen > 0 else JAX_CURVE,
+                  gate={"step": GATE_STEP, "min_reward": GATE_REWARD},
                   gate_eval=at_gate, ok=at_gate is not None and at_gate[1] >= GATE_REWARD)
     return report
 
@@ -161,9 +193,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pretrain-steps", type=int, default=300)
     ap.add_argument("--ppo-steps", type=int, default=120)
+    ap.add_argument("--num-layers-unfrozen", type=int, default=-1,
+                    help="the PPO stage's model.num_layers_unfrozen (2: hydra PPO)")
     ap.add_argument("--device", default=None, help="default: the CUDA device (raises without one)")
     args = ap.parse_args(argv)
-    report = run_gate(args.pretrain_steps, args.ppo_steps, args.device)
+    report = run_gate(args.pretrain_steps, args.ppo_steps, args.device, args.num_layers_unfrozen)
     print(json.dumps(report), flush=True)
     return 0 if report["ok"] else 1
 

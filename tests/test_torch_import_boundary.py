@@ -39,7 +39,9 @@ def test_forbidden_predicate_uses_exact_names():
 def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
     mods = list(_modules())
     for m in ("trlx_tpu_torch.serving.engine", "trlx_tpu_torch.ops._kernels",
-              "trlx_tpu_torch.trainer.ppo_trainer", "trlx_tpu_torch.trlx"):
+              "trlx_tpu_torch.trainer.ppo_trainer", "trlx_tpu_torch.trlx",
+              "trlx_tpu_torch.trainer.ilql_trainer", "trlx_tpu_torch.trainer.rft_trainer",
+              "trlx_tpu_torch.methods.ilql", "trlx_tpu_torch.methods.rft", "trlx_tpu_torch.data.ilql_types"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -60,6 +62,28 @@ def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
     assert "torch" in loaded
     # yaml (and other optional host packages) load only when used
     assert "yaml" not in loaded
+
+
+def _forbidden_imports(paths):
+    offenders = []
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    return offenders
+
+
+def test_chip_smoke_and_the_port_scripts_name_no_forbidden_import():
+    """chip_smoke.py, the port's scripts and the example module its gates
+    take their walks from import nothing of JAX or trlx_tpu either."""
+    paths = [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py")),
+             ROOT / "examples" / "randomwalks" / "__init__.py", ROOT / "examples" / "randomwalks" / "randomwalks.py"]
+    assert len(paths) >= 10
+    assert not _forbidden_imports(paths)
 
 
 def test_sources_name_no_forbidden_import():

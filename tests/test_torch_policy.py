@@ -124,13 +124,11 @@ def test_policy_params_from_jax_rejects_mismatched_trees():
 
 def test_unported_branches_raise_naming_their_slice():
     cfg = PRESETS["gpt2"].replace(vocab_size=11, hidden_size=8, num_layers=2, num_heads=2)
-    with pytest.raises(NotImplementedError, match="hydra slice"):
-        CausalLMWithValueHead(cfg, num_value_layers=1)
-    tm = CausalLMWithValueHead(cfg)
-    ids = torch.ones((1, 3), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="hydra slice"):
-        tm(ids, branch_layer=1)
-    with pytest.raises(NotImplementedError, match="hydra slice"):
-        tm.transformer.forward_from(None, None, None, 1)
     with pytest.raises(NotImplementedError, match="training-memory slice"):
         CausalLMWithValueHead(cfg.replace(remat="full"))
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
+        CausalLMWithValueHead(cfg.replace(scan_layers=True))
+    with pytest.raises(NotImplementedError, match="peft slice"):
+        CausalLMWithValueHead(cfg.replace(lora_r=4))
+    with pytest.raises(ValueError, match="exceeds num_layers"):
+        CausalLMWithValueHead(cfg, num_value_layers=3)

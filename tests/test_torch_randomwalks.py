@@ -163,3 +163,53 @@ def test_gate_config_is_the_examples(tmp_path):
     gate = _flat(gate_config(alphabet, str(tmp_path), 120).to_dict())
     assert {k for k in port if gate[k] != port[k]} == set(GATE_OVERRIDES)
     assert (gate["train.epochs"], gate["train.total_steps"], gate["train.tracker"]) == (100, 120, None)
+
+
+def _example_and_gate(method):
+    """(example config, the port script's copy of it, the gate's config,
+    the gate's GATE_OVERRIDES) for the ILQL and RFT recipes."""
+    from examples.randomwalks import generate_random_walks
+
+    if method == "ilql":
+        from examples.randomwalks.ilql_randomwalks import default_config as example_config
+        from scripts.torch_ilql_randomwalks import GATE_OVERRIDES, default_config, gate_config
+
+        alphabet = generate_random_walks(seed=1002)[-1]
+        return (example_config(alphabet), default_config(alphabet), gate_config(alphabet, "out"),
+                GATE_OVERRIDES)
+    from examples.randomwalks.rft_randomwalks import build_config as example_config
+    from scripts.torch_rft_randomwalks import GATE_OVERRIDES, build_config, gate_config
+
+    alphabet = generate_random_walks(seed=1000)[-1]
+    return example_config(alphabet), build_config(alphabet), gate_config(alphabet, "out", 100), GATE_OVERRIDES
+
+
+@pytest.mark.parametrize("method", ["ilql", "rft"])
+def test_ilql_and_rft_gate_configs_are_the_examples(method):
+    """``scripts/torch_{ilql,rft}_randomwalks.py`` rebuild their example's
+    config on the port's TRLConfig: every key both packages have holds the
+    example's value, and the gate departs from it in ``GATE_OVERRIDES``
+    alone."""
+    example, port, gate, overrides = (c if isinstance(c, tuple) else _flat(c.to_dict())
+                                      for c in _example_and_gate(method))
+    shared = set(example) & set(port)
+    assert {"method.gen_kwargs", "model.model_overrides", "optimizer.kwargs", "train.trainer"} <= shared
+    assert {k: port[k] for k in shared} == {k: example[k] for k in shared}
+    assert port["method.name"] == {"ilql": "ILQLConfig", "rft": "RFTConfig"}[method]
+    assert {k for k in port if gate[k] != port[k]} == set(overrides)
+    if method == "ilql":
+        assert gate["method.gen_kwargs"] == {**port["method.gen_kwargs"], "top_k": 1}
+
+
+def test_hydra_gate_departs_in_num_layers_unfrozen(tmp_path):
+    """The hydra gate is the PPO gate with the example's hparam
+    ``model.num_layers_unfrozen=2``."""
+    from examples.randomwalks import generate_random_walks
+    from scripts.torch_ppo_randomwalks import GATE_OVERRIDES, gate_config
+
+    alphabet = generate_random_walks(seed=1002)[-1]
+    full = _flat(gate_config(alphabet, str(tmp_path), 120).to_dict())
+    hydra = _flat(gate_config(alphabet, str(tmp_path), 120, num_layers_unfrozen=2).to_dict())
+    assert {k for k in full if full[k] != hydra[k]} == {"model.num_layers_unfrozen"}
+    assert (full["model.num_layers_unfrozen"], hydra["model.num_layers_unfrozen"]) == (-1, 2)
+    assert "model.num_layers_unfrozen" not in GATE_OVERRIDES

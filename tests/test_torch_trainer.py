@@ -176,11 +176,9 @@ UNPORTED = [
     ("mesh.remat", "full", "training-memory slice"),
     ("mesh.fsdp", 2, "scale-out slice"),
     ("mesh.sequence_shard", True, "scale-out slice"),
-    ("model.num_layers_unfrozen", 1, "hydra slice"),
     ("model.peft_config", {"r": 4}, "peft slice"),
     ("model.offload_ref", True, "training-memory slice"),
     ("model.model_arch_type", "seq2seq", "seq2seq slice"),
-    ("method.num_value_layers_unfrozen", 1, "hydra slice"),
     ("method.overlap_reward_scoring", True, "async-rollout slice"),
     ("optimizer.name", "adamw_8bit_bnb", "int8 optimizer-state slice"),
     ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
@@ -201,13 +199,19 @@ def test_unported_training_rows_raise_naming_their_slice(tmp_path):
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.utils.loading import get_trainer
 
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+
     cfg = TRLConfig.from_dict(_config_dict(tmp_path))
-    with pytest.raises(NotImplementedError, match="ILQL trainer slice"):
-        trlx_tpu_torch.train(samples=["ab"], rewards=[1.0], config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="GRPO / online slice"):
         trlx_tpu_torch.train(environment=object(), config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="RFT trainer slice"):
-        get_trainer("RFTTrainer")
+    with pytest.raises(NotImplementedError, match="GRPO / online slice"):
+        get_trainer("GRPOTrainer")
+    with pytest.raises(NotImplementedError, match="GRPO / online slice"):
+        TRLConfig.update(cfg, {"method": {"name": "GRPOConfig"}})
+    ilql = TRLConfig.update(default_ilql_config(), {
+        "model.model_arch_type": "seq2seq", "tokenizer.tokenizer_path": f"char://{ALPHABET}"})
+    with pytest.raises(NotImplementedError, match="seq2seq slice"):
+        trlx_tpu_torch.train(samples=[["a", "b"]], rewards=[1.0], config=ilql, device="cpu")
     native = tmp_path / "native"
     native.mkdir()
     (native / "native_config.json").write_text("{}")

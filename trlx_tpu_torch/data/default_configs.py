@@ -1,5 +1,5 @@
-"""Canned default configs (counterpart of ``trlx_tpu/data/default_configs.py``,
-PPO and SFT: the other methods' defaults come with their slices)."""
+"""Canned default configs (counterpart of ``trlx_tpu/data/default_configs.py``):
+PPO, ILQL, SFT and RFT; GRPO's comes with its slice."""
 
 from trlx_tpu_torch.data.configs import (
     MeshConfig,
@@ -10,7 +10,9 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.methods.ilql import ILQLConfig
 from trlx_tpu_torch.methods.ppo import PPOConfig
+from trlx_tpu_torch.methods.rft import RFTConfig
 from trlx_tpu_torch.methods.sft import SFTConfig
 
 
@@ -55,6 +57,40 @@ def default_ppo_config() -> TRLConfig:
     )
 
 
+def default_ilql_config() -> TRLConfig:
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=64,
+            batch_size=128,
+            epochs=100,
+            total_steps=1000,
+            checkpoint_interval=1000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="ILQLTrainer",
+        ),
+        model=ModelConfig(model_path="gpt2", num_layers_unfrozen=-1),
+        tokenizer=TokenizerConfig(tokenizer_path="gpt2", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw", kwargs=dict(lr=5e-5, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6)
+        ),
+        scheduler=SchedulerConfig(name="cosine_annealing", kwargs=dict(T_max=1000, eta_min=5e-5)),
+        method=ILQLConfig(
+            name="ILQLConfig",
+            tau=0.7,
+            gamma=0.99,
+            cql_scale=0.1,
+            awac_scale=1,
+            alpha=0.001,
+            beta=0,
+            steps_for_target_q_sync=5,
+            two_qs=True,
+            gen_kwargs=dict(max_new_tokens=56, top_k=20, beta=4.0, temperature=1.0),
+        ),
+        mesh=MeshConfig(),
+    )
+
+
 def default_sft_config() -> TRLConfig:
     return TRLConfig(
         train=TrainConfig(
@@ -75,4 +111,12 @@ def default_sft_config() -> TRLConfig:
         scheduler=SchedulerConfig(name="cosine_annealing", kwargs=dict(T_max=1000, eta_min=1e-5)),
         method=SFTConfig(name="SFTConfig", gen_kwargs=dict(max_new_tokens=32)),
         mesh=MeshConfig(),
+    )
+
+
+def default_rft_config() -> TRLConfig:
+    config = default_sft_config()
+    return config.evolve(
+        method=RFTConfig(name="RFTConfig").to_dict(),
+        train={"trainer": "RFTTrainer"},
     )

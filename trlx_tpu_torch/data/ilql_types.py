@@ -1,0 +1,48 @@
+"""ILQL datatypes (counterpart of ``trlx_tpu/data/ilql_types.py``, causal
+path): plain dataclasses of host numpy arrays or torch tensors. The JAX
+package makes them ``flax.struct`` pytrees; the port moves a batch to its
+device field by field (:meth:`ILQLBatch.to`) and splits it into
+microbatches (:meth:`ILQLBatch.split`)."""
+
+from dataclasses import dataclass, fields
+from typing import Any
+
+
+@dataclass
+class ILQLElement:
+    """One tokenized sample: its tokens, per-action rewards and the index
+    bookkeeping of :func:`trlx_tpu_torch.trainer.ilql_trainer.make_experience`."""
+
+    input_ids: Any  # [T]
+    attention_mask: Any  # [T]
+    rewards: Any  # [A]
+    states_ixs: Any  # [A+1]
+    actions_ixs: Any  # [A]
+    dones: Any  # [A+1]
+
+
+@dataclass
+class ILQLBatch:
+    """Collated ILQL samples, every field right-padded."""
+
+    input_ids: Any  # [B, T]
+    attention_mask: Any  # [B, T]
+    rewards: Any  # [B, A]
+    states_ixs: Any  # [B, A+1]
+    actions_ixs: Any  # [B, A]
+    dones: Any  # [B, A+1]
+
+    def to(self, device) -> "ILQLBatch":
+        """The batch as torch tensors on ``device``."""
+        import torch
+
+        return ILQLBatch(**{f.name: torch.as_tensor(getattr(self, f.name)).to(device) for f in fields(self)})
+
+    def split(self, n: int):
+        """``n`` equal microbatches along the batch dim (the JAX step's reshape)."""
+        B = len(self.input_ids)
+        if B % n:
+            raise ValueError(f"batch of {B} does not split into {n} microbatches")
+        m = B // n
+        return [ILQLBatch(**{f.name: getattr(self, f.name)[i * m:(i + 1) * m] for f in fields(self)})
+                for i in range(n)]

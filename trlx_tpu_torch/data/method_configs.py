@@ -36,8 +36,6 @@ def get_method(name: str) -> type:
 
 #: methods of the JAX package that later slices of the port bring
 LATER_METHODS = {
-    "ilqlconfig": "ILQL trainer slice",
-    "rftconfig": "RFT trainer slice",
     "grpoconfig": "GRPO / online slice",
 }
 

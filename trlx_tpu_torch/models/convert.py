@@ -1,5 +1,6 @@
-"""Carry a JAX ``TransformerLM`` or ``CausalLMWithValueHead`` parameter tree
-across to the port.
+"""Carry a JAX ``TransformerLM``, ``CausalLMWithValueHead`` (with its value
+branch, ``value_blocks_{i}`` and ``value_ln``) or ``CausalLMWithILQLHeads``
+(``ilql_heads``) parameter tree across to the port.
 
 The port's modules keep the flax names (``layers_{i}``, ``kernel [in, out]``,
 ``bias``, ``scale``, ``embedding``), so conversion is a flatten of the nested
@@ -54,13 +55,20 @@ def params_from_jax(params: Mapping[str, Any], config: TransformerConfig) -> Dic
 
 
 def policy_params_from_jax(tree: Mapping[str, Any], config: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """The numpy tree of the JAX ``CausalLMWithValueHead`` (``transformer``,
-    ``v_head``) -> ``state_dict`` for the port's
-    :class:`~trlx_tpu_torch.models.policy.CausalLMWithValueHead` in
-    ``config.param_dtype``. Raises on any leaf that does not match."""
-    from trlx_tpu_torch.models.policy import CausalLMWithValueHead
+    """The numpy tree of a JAX policy -> ``state_dict`` for its port in
+    ``config.param_dtype``: ``CausalLMWithValueHead`` (``transformer``,
+    ``v_head``, and a value branch ``value_blocks_{i}`` / ``value_ln`` when
+    the tree has one) or, for a tree with ``ilql_heads``,
+    ``CausalLMWithILQLHeads`` (one or two Q heads, as the tree has). Raises
+    on any leaf that does not match."""
+    from trlx_tpu_torch.models.policy import CausalLMWithILQLHeads, CausalLMWithValueHead
 
-    return _state_from_tree(tree, CausalLMWithValueHead(config), config.param_dtype)
+    if "ilql_heads" in tree:
+        model = CausalLMWithILQLHeads(config, two_qs="q_heads_1" in tree["ilql_heads"])
+    else:
+        n_value = sum(1 for key in tree if key.startswith("value_blocks_"))
+        model = CausalLMWithValueHead(config, num_value_layers=n_value)
+    return _state_from_tree(tree, model, config.param_dtype)
 
 
 def load_jax_params(model: TransformerLM, params: Mapping[str, Any]) -> TransformerLM:

@@ -1,22 +1,79 @@
-"""Policy/value model composition for PPO (counterpart of
-``trlx_tpu/models/policy.py``: ``CausalLMWithValueHead`` with the value
-head on the trunk's final hidden state). The separate value branch
-(``num_value_layers > 0``), the hydra reference branch and the ILQL and
-seq2seq models come with later slices.
+"""Policy, value and reference model composition for PPO and ILQL
+(counterpart of ``trlx_tpu/models/policy.py``):
+
+- :class:`CausalLMWithValueHead`: trunk + value head, with an optional
+  trainable value *branch* of top layers (``num_value_layers > 0``) fed from
+  the trunk activation ``num_value_layers`` from the top.
+- The hydra reference branch: :func:`branch_param_subtree` copies the top
+  layers, the final norm and the head (or the tied embedding) of the trunk
+  into a :class:`ModelBranch`, and :meth:`CausalLMWithValueHead.forward_branch`
+  runs it from the activation ``forward(..., branch_layer=start)`` captured.
+- :class:`CausalLMWithILQLHeads`: trunk + ILQL heads read at gathered
+  state / action positions.
+
+The seq2seq models come with the seq2seq slice.
 """
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.heads import ValueHead
-from trlx_tpu_torch.models.transformer import KVCache, TransformerConfig, TransformerLM, init_params
+from trlx_tpu_torch.methods.ilql import batched_index_select
+from trlx_tpu_torch.models.heads import ILQLHeads, ValueHead
+from trlx_tpu_torch.models.transformer import (
+    Block,
+    Dense,
+    Embed,
+    KVCache,
+    Norm,
+    TransformerConfig,
+    TransformerLM,
+    forward_from,
+    init_params,
+    make_causal_bias,
+)
+
+
+class ModelBranch(nn.Module):
+    """The hydra frozen reference branch: ``layers_{start_layer}`` ..
+    ``layers_{L-1}``, the final norm and the output head (``lm_head``, or
+    ``embed_tokens`` when the embedding is tied) of a :class:`TransformerLM`,
+    under the trunk's parameter names. It holds its own tensors: load it from
+    :func:`branch_param_subtree`, never from views of the trained trunk."""
+
+    def __init__(self, config: TransformerConfig, start_layer: int):
+        super().__init__()
+        c = self.config = config
+        self.start_layer = start_layer
+        for i in range(start_layer, c.num_layers):
+            setattr(self, f"layers_{i}", Block(c))
+        if c.final_norm:
+            self.ln_f = Norm(c)
+        if c.tie_word_embeddings:
+            self.embed_tokens = Embed(
+                c.vocab_size, c.hidden_size, c.compute_dtype, c.param_dtype, c.initializer_range
+            )
+        else:
+            self.lm_head = Dense(
+                c.hidden_size, c.vocab_size, c.head_bias, c.compute_dtype, c.param_dtype, c.initializer_range
+            )
+
+    _final = TransformerLM._final
+
+    def forward_from(self, hidden, attention_mask, positions, start_layer: int):
+        """:meth:`TransformerLM.forward_from` over the branch's own layers."""
+        if start_layer != self.start_layer:
+            raise ValueError(f"this branch starts at layer {self.start_layer}, not {start_layer}")
+        return forward_from(self, hidden, attention_mask, positions, start_layer)
 
 
 class CausalLMWithValueHead(nn.Module):
     """Trunk LM + scalar value head. Parameter names follow the flax tree:
-    ``transformer.*`` and ``v_head.value_head.{fc_in,fc_out}.*``."""
+    ``transformer.*``, ``v_head.value_head.{fc_in,fc_out}.*`` and, with a
+    value branch, ``value_blocks_{i}.*`` and ``value_ln.*``.
+    ``branch_layer`` (when set in a call) returns the activation entering
+    that layer, for the hydra reference branch."""
 
     def __init__(self, config: TransformerConfig, num_value_layers: int = 0):
         super().__init__()
@@ -24,23 +81,32 @@ class CausalLMWithValueHead(nn.Module):
             raise ValueError(
                 f"num_value_layers_unfrozen={num_value_layers} exceeds num_layers={config.num_layers}"
             )
-        if num_value_layers > 0:
-            raise NotImplementedError(
-                "trlx_tpu_torch does not port the value branch (num_value_layers_unfrozen > 0) "
-                "yet: hydra slice"
-            )
         self.config = config
         self.num_value_layers = num_value_layers
         self.transformer = TransformerLM(config)
         self.v_head = ValueHead(config)
+        for i in range(num_value_layers):
+            setattr(self, f"value_blocks_{i}", Block(config))
+        if num_value_layers > 0:
+            self.value_ln = Norm(config)
 
     @property
     def device(self) -> torch.device:
         return self.transformer.device
 
     def init_params(self, seed: int = 0) -> "CausalLMWithValueHead":
-        """Random weights from ``seed`` (trunk and head)."""
+        """Random weights from ``seed`` (trunk, heads and value branch)."""
         return init_params(self, seed)
+
+    def _value_branch(self, hidden, attention_mask, positions):
+        B, T, _ = hidden.shape
+        default_positions, mask_bias = make_causal_bias(attention_mask, B, T, hidden.device)
+        if positions is None:
+            positions = default_positions
+        x = hidden
+        for i in range(self.num_value_layers):
+            x, _ = getattr(self, f"value_blocks_{i}")(x, mask_bias, positions, None, attention_mask)
+        return self.v_head(self.value_ln(x))
 
     def forward(
         self,
@@ -50,7 +116,23 @@ class CausalLMWithValueHead(nn.Module):
         cache: Optional[KVCache] = None,
         branch_layer: Optional[int] = None,
     ):
-        """(logits [B,T,V], values [B,T] f32, None, cache)."""
+        """(logits [B,T,V], values [B,T] f32, branch activation or None, cache)."""
+        if self.num_value_layers > 0:
+            if cache is not None:
+                # the trained value fn is value_ln(value_blocks(...)); v_head on the
+                # trunk hidden would silently return meaningless numbers
+                raise NotImplementedError(
+                    "value-branch models do not support cached decode value reads; "
+                    "use lm_only for generation"
+                )
+            value_start = self.config.num_layers - self.num_value_layers
+            capture = sorted({value_start, *(() if branch_layer is None else (branch_layer,))})
+            logits, _, captures, new_cache = self.transformer(
+                input_ids, attention_mask, positions, cache, branch_layer=tuple(capture)
+            )
+            values = self._value_branch(captures[value_start], attention_mask, positions)
+            branch_hidden = None if branch_layer is None else captures[branch_layer]
+            return logits, values, branch_hidden, new_cache
         logits, hidden, branch_hidden, new_cache = self.transformer(
             input_ids, attention_mask, positions, cache, branch_layer=branch_layer
         )
@@ -68,5 +150,104 @@ class CausalLMWithValueHead(nn.Module):
         logits, _, _, new_cache = self.transformer(input_ids, attention_mask, positions, cache)
         return logits, new_cache
 
+    def forward_branch(
+        self,
+        hidden: torch.Tensor,
+        attention_mask: Optional[torch.Tensor],
+        positions: Optional[torch.Tensor],
+        start_layer: int,
+        branch: Optional[ModelBranch] = None,
+    ) -> torch.Tensor:
+        """Hydra branch forward: ``layers[start_layer:]`` + head from a
+        captured activation. ``branch`` is the frozen :class:`ModelBranch`
+        (the JAX method applied with the frozen param subtree); without it
+        the policy's own trunk runs."""
+        model = self.transformer if branch is None else branch
+        return model.forward_from(hidden, attention_mask, positions, start_layer)
+
     def init_cache(self, batch_size: int, max_length: int) -> KVCache:
         return self.transformer.init_cache(batch_size, max_length)
+
+
+class CausalLMWithILQLHeads(nn.Module):
+    """Trunk LM + ILQL {V, Q, target-Q} heads. Parameter names follow the
+    flax tree: ``transformer.*`` and ``ilql_heads.*``."""
+
+    def __init__(self, config: TransformerConfig, two_qs: bool = True):
+        super().__init__()
+        self.config = config
+        self.transformer = TransformerLM(config)
+        self.ilql_heads = ILQLHeads(config, two_qs=two_qs)
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.device
+
+    def init_params(self, seed: int = 0) -> "CausalLMWithILQLHeads":
+        """Random weights from ``seed`` (trunk and heads)."""
+        return init_params(self, seed)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        actions_ixs: Optional[torch.Tensor] = None,
+        states_ixs: Optional[torch.Tensor] = None,
+        cache: Optional[KVCache] = None,
+    ):
+        """(logits [B,T,V], qs, target_qs, vs, cache): the heads read the
+        final hidden state at ``states_ixs`` (V) and ``actions_ixs`` (Q), or
+        at every position when no indices are given."""
+        logits, hidden, _, new_cache = self.transformer(input_ids, attention_mask, positions, cache)
+        if states_ixs is not None:
+            states_hs = batched_index_select(hidden, states_ixs)
+            actions_hs = batched_index_select(hidden, actions_ixs)
+        else:
+            states_hs = actions_hs = hidden
+        qs, target_qs, vs = self.ilql_heads(states_hs, actions_hs)
+        return logits, qs, target_qs, vs, new_cache
+
+    def heads_only(self, hidden: torch.Tensor):
+        """The ILQL heads on trunk hidden states [B, T, H] (the advantage-shaped
+        decode's processor)."""
+        return self.ilql_heads(hidden, hidden)
+
+
+def init_value_branch_from_trunk(
+    state: Dict[str, torch.Tensor], config: TransformerConfig, num_value_layers: int
+) -> Dict[str, torch.Tensor]:
+    """A :class:`CausalLMWithValueHead` ``state_dict`` whose value branch
+    starts as copies of the top ``num_value_layers`` trunk layers and the
+    final norm, so the value function starts from trunk features, not from
+    random weights. The copies share no storage with the trunk."""
+    out = dict(state)
+    start = config.num_layers - num_value_layers
+    for i in range(num_value_layers):
+        src = f"transformer.layers_{start + i}."
+        for name, value in state.items():
+            if name.startswith(src):
+                out[f"value_blocks_{i}." + name[len(src):]] = value.detach().clone()
+    if config.final_norm:
+        for name, value in state.items():
+            if name.startswith("transformer.ln_f."):
+                out["value_ln." + name[len("transformer.ln_f."):]] = value.detach().clone()
+    return out
+
+
+def branch_param_subtree(
+    trunk_state: Dict[str, torch.Tensor], start_layer: int, config: TransformerConfig
+) -> Dict[str, torch.Tensor]:
+    """The frozen reference branch's tensors from a :class:`TransformerLM`
+    ``state_dict``: the layers from ``start_layer`` up, the final norm and the
+    output head (or the tied embedding), as detached copies: a
+    :class:`ModelBranch` loads them."""
+    keep = [f"layers_{i}." for i in range(start_layer, config.num_layers)]
+    if config.final_norm:
+        keep.append("ln_f.")
+    keep.append("embed_tokens." if config.tie_word_embeddings else "lm_head.")
+    return {
+        name: value.detach().clone()
+        for name, value in trunk_state.items()
+        if any(name.startswith(prefix) for prefix in keep)
+    }

@@ -24,10 +24,14 @@ functionally): the contiguous prefill cache ``{"k", "v"[, scales], "index"}``
 with per-layer ``[B, Hkv, S, D]`` buffers, and the paged block pools from
 :meth:`TransformerLM.init_paged_cache`.
 
+The hydra reference branch reads the activation entering a layer
+(``branch_layer`` of :meth:`TransformerLM.forward`) and runs the top layers,
+the final norm and the head from it (:meth:`TransformerLM.forward_from`,
+through the flash kernel with ``attention_impl="flash"``).
+
 Not ported yet (each raises ``NotImplementedError``): stacked layouts
 (``scan_layers`` / ``pipeline_stages > 1``), ring attention, ALiBi, LoRA and
-prompt/prefix tuning, sequence sharding, the
-hydra branch (``branch_layer``, ``forward_from``) and ``remat``.
+prompt/prefix tuning, sequence sharding and ``remat``.
 """
 
 import math
@@ -485,6 +489,23 @@ class Block(nn.Module):
         return x, cache
 
 
+def forward_from(model: nn.Module, hidden, attention_mask, positions, start_layer: int) -> torch.Tensor:
+    """``layers_{start_layer}`` .. ``layers_{L-1}`` of ``model`` (a
+    :class:`TransformerLM`, or the hydra branch that holds only those
+    layers), then its final norm and head, from the activation ``hidden``.
+    With ``attention_impl="flash"`` every layer attends through the flash
+    kernel under the key mask ``attention_mask``."""
+    B, T, _ = hidden.shape
+    default_positions, mask_bias = make_causal_bias(attention_mask, B, T, hidden.device)
+    if positions is None:
+        positions = default_positions
+    x = hidden
+    for i in range(start_layer, model.config.num_layers):
+        x, _ = getattr(model, f"layers_{i}")(x, mask_bias, positions, None, attention_mask)
+    logits, _ = model._final(x)
+    return logits
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random weights for every submodule of ``model`` from ``seed`` (a
@@ -509,9 +530,8 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM. ``forward`` returns (logits, final_hidden, None,
-    cache) as the JAX module's ``__call__`` does (the third slot, the hydra
-    branch activation, comes with the hydra slice)."""
+    """Decoder-only LM. ``forward`` returns (logits, final_hidden,
+    branch activation, cache) as the JAX module's ``__call__`` does."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -578,7 +598,7 @@ class TransformerLM(nn.Module):
         positions: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
         last_only: bool = False,
-        branch_layer: Optional[int] = None,
+        branch_layer=None,
     ):
         """input_ids [B,T]; attention_mask [B,T] (1 = real token; with a cache
         it covers the cache length [B,S]). Returns (logits [B,T,V], hidden
@@ -589,13 +609,9 @@ class TransformerLM(nn.Module):
 
         The cache-free multi-token forward trains: gradients flow through
         every layer, and with ``attention_impl="flash"`` through the flash
-        kernels' backward. ``branch_layer`` (the hydra reference branch's
-        activation capture) raises: it comes with the hydra slice."""
-        if branch_layer is not None:
-            raise NotImplementedError(
-                "trlx_tpu_torch does not port branch_layer capture yet: hydra slice "
-                "(num_layers_unfrozen > 0)"
-            )
+        kernels' backward. ``branch_layer`` captures the activation entering
+        a layer for the hydra branches: an int returns that layer's input in
+        the third slot, a tuple a dict of them by layer."""
         B, T = input_ids.shape
         dev = input_ids.device
         if cache is not None:
@@ -620,7 +636,13 @@ class TransformerLM(nn.Module):
                 positions = default_positions
             kv_valid = attention_mask
         x = self.embed(input_ids, positions)
+        capture_set = ()
+        if branch_layer is not None:
+            capture_set = branch_layer if isinstance(branch_layer, tuple) else (branch_layer,)
+        captures = {}
         for i, layer in enumerate(self.layers):
+            if i in capture_set:
+                captures[i] = x
             layer_cache = None
             if cache is not None:
                 layer_cache = {key: cache[key][i] for key in cache if key != "index"}
@@ -631,13 +653,19 @@ class TransformerLM(nn.Module):
         logits, hidden = self._final(x)
         if cache is not None:
             cache["index"] = int(cache["index"]) + T
-        return logits, hidden, None, cache
+        if isinstance(branch_layer, tuple):
+            branch_out = captures
+        else:
+            branch_out = None if branch_layer is None else captures.get(branch_layer)
+        return logits, hidden, branch_out, cache
 
     def forward_from(self, hidden, attention_mask, positions, start_layer: int):
-        """The hydra frozen-branch forward: comes with the hydra slice."""
-        raise NotImplementedError(
-            "trlx_tpu_torch does not port forward_from yet: hydra slice (num_layers_unfrozen > 0)"
-        )
+        """Run ``layers[start_layer:]``, the final norm and the head from a
+        branch activation ``hidden`` [B, T, Hid]: the hydra frozen-branch
+        forward (reference ``forward_hydra``). ``attention_mask`` is the
+        key mask of the flash path, as in a cache-free forward. Returns
+        logits [B, T, V]."""
+        return forward_from(self, hidden, attention_mask, positions, start_layer)
 
     def init_cache(self, batch_size: int, max_length: int, dtype=None) -> KVCache:
         """Contiguous per-layer cache buffers on the model's device (zeros)."""

@@ -8,6 +8,11 @@ the contiguous cache on the plain path, as the JAX package's einsum does.
 The loop exits early once every row has finished. Sampling goes through
 :func:`trlx_tpu_torch.ops.sampling.sample_token` with a caller-owned
 ``torch.Generator``.
+
+ILQL's advantage-shaped decoding plugs in as a ``logits_processor(hidden,
+logits, prev_token) -> logits`` hook, evaluated on the last position's
+hidden state after the prefill and after every decode step. Without it the
+output is unchanged.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -62,14 +67,15 @@ def generate(
     do_sample: bool = True,
     top_k_impl: str = "approx",
     min_new_tokens: int = 0,
+    logits_processor: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Generate continuations for left-padded prompts.
 
     Returns ``sequences`` [B, P+N] (prompt + generation, ``pad_token_id``
     after eos) and ``response_mask`` [B, N] (1 on generated tokens up to and
-    including eos), as the JAX function. The JAX function's
-    ``logits_processor`` (ILQL's advantage shaping) comes with the ILQL
-    trainer slice."""
+    including eos), as the JAX function. ``logits_processor(hidden [B, H],
+    logits [B, V], prev_token [B])`` reshapes each step's logits before
+    sampling (ILQL's advantage shaping)."""
     B, P = input_ids.shape
     N = int(max_new_tokens)
     dev = input_ids.device
@@ -82,8 +88,10 @@ def generate(
         [attention_mask.to(torch.int32), torch.zeros((B, N), dtype=torch.int32, device=dev)], dim=1
     )
     positions = (torch.cumsum(attention_mask, dim=1) - 1).clamp(min=0).to(torch.int32)
-    logits, _, cache = step_fn(input_ids, full_mask, positions, cache)
+    logits, hidden, cache = step_fn(input_ids, full_mask, positions, cache)
     last_logits = logits[:, -1, :]
+    if logits_processor is not None:
+        last_logits = logits_processor(hidden[:, -1, :], last_logits, input_ids[:, -1])
 
     seqs = torch.cat(
         [input_ids.to(torch.int32), torch.full((B, N), pad_token_id, dtype=torch.int32, device=dev)], dim=1
@@ -107,8 +115,11 @@ def generate(
     while step < N and not bool(finished.all()):
         # `tok` sits at sequence slot P+step-1, per-sample position prompt_len+step-1
         pos = (prompt_lens + step - 1)[:, None]
-        logits, _, cache = step_fn(tok[:, None], full_mask, pos, cache)
-        tok = sample_step(step, logits[:, -1, :], finished)
+        logits, hidden, cache = step_fn(tok[:, None], full_mask, pos, cache)
+        step_logits = logits[:, -1, :]
+        if logits_processor is not None:
+            step_logits = logits_processor(hidden[:, -1, :], step_logits, tok)
+        tok = sample_step(step, step_logits, finished)
         if eos_token_id is not None:
             finished = finished | (tok == eos_token_id)
         seqs[:, P + step] = tok

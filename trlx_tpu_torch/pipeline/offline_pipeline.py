@@ -1,15 +1,16 @@
 """Prompt and dialogue pipelines (counterpart of
 ``trlx_tpu/pipeline/offline_pipeline.py``): ``PromptPipeline``, and for SFT
 ``tokenize_dialogue`` (truncation-side aware interleaved dialogue
-tokenization) and ``DialogStore`` (prompt labels masked with -100). The
-ILQL stores come with the ILQL slice. Collation is numpy; trainers move
-batches to their device."""
+tokenization) and ``DialogStore`` (prompt labels masked with -100), and
+for ILQL ``ILQLRolloutStorage`` with its collate function. Collation is
+numpy; trainers move batches to their device."""
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
 
+from trlx_tpu_torch.data.ilql_types import ILQLBatch, ILQLElement
 from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, NumpyLoader, register_datapipeline
 
 
@@ -163,3 +164,45 @@ def _rpad_stack(rows: List[np.ndarray], value) -> np.ndarray:
     for i, r in enumerate(rows):
         out[i, : len(r)] = r
     return out
+
+
+def ilql_collate_fn(elems: Iterable[ILQLElement]) -> ILQLBatch:
+    """Right-pad every field of the elements into one :class:`ILQLBatch`
+    (zeros; rewards 0.0)."""
+    elems = list(elems)
+    return ILQLBatch(
+        _rpad_stack([x.input_ids for x in elems], 0),
+        _rpad_stack([x.attention_mask for x in elems], 0),
+        _rpad_stack([x.rewards for x in elems], 0.0),
+        _rpad_stack([x.states_ixs for x in elems], 0),
+        _rpad_stack([x.actions_ixs for x in elems], 0),
+        _rpad_stack([x.dones for x in elems], 0),
+    )
+
+
+class ILQLRolloutStorage(BaseRolloutStore):
+    """Offline ILQL storage: per-sample token, reward and index arrays."""
+
+    def __init__(self, input_ids, attention_mask, rewards, states_ixs, actions_ixs, dones):
+        super().__init__()
+        self.input_ids = input_ids
+        self.attention_mask = attention_mask
+        self.rewards = rewards
+        self.states_ixs = states_ixs
+        self.actions_ixs = actions_ixs
+        self.dones = dones
+
+    def __getitem__(self, ix: int) -> ILQLElement:
+        return ILQLElement(
+            self.input_ids[ix], self.attention_mask[ix], self.rewards[ix],
+            self.states_ixs[ix], self.actions_ixs[ix], self.dones[ix],
+        )
+
+    def __len__(self) -> int:
+        return len(self.input_ids)
+
+    def create_loader(self, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                      seed: int = 0) -> NumpyLoader:
+        """Batches of ``batch_size`` (the last partial one dropped), each
+        pass shuffled from ``seed`` + pass number, as the JAX loader."""
+        return NumpyLoader(self, batch_size, ilql_collate_fn, shuffle=shuffle, drop_last=drop_last, seed=seed)

@@ -1,6 +1,6 @@
 """Trainer registry + abstract base (counterpart of ``trlx_tpu/trainer``).
-Importing this package registers the trainers the port brings: PPO and SFT.
-The others come with later slices (:data:`LATER_TRAINERS`)."""
+Importing this package registers the trainers the port brings: PPO, SFT,
+RFT and ILQL. GRPO comes with a later slice (:data:`LATER_TRAINERS`)."""
 
 from abc import abstractmethod
 from typing import Callable, Dict, List, Optional
@@ -15,8 +15,6 @@ register_trainer = make_registry(_TRAINERS)
 
 #: trainers of the JAX package that later slices of the port bring
 LATER_TRAINERS = {
-    "ilqltrainer": "ILQL trainer slice",
-    "rfttrainer": "RFT trainer slice",
     "grpotrainer": "GRPO / online slice",
 }
 
@@ -56,3 +54,5 @@ class BaseRLTrainer:
 from trlx_tpu_torch.trainer.mesh_trainer import MeshRLTrainer  # noqa: E402,F401
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer  # noqa: E402,F401
 from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer  # noqa: E402,F401
+from trlx_tpu_torch.trainer.rft_trainer import RFTTrainer  # noqa: E402,F401
+from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer  # noqa: E402,F401

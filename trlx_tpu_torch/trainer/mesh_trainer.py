@@ -88,7 +88,8 @@ def check_port_config(config: TRLConfig) -> None:
         (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice"),
         (m.model_arch_type != "causal", f"model.model_arch_type={m.model_arch_type!r}", "seq2seq slice"),
         (bool(m.peft_config), "model.peft_config", "peft slice"),
-        (m.offload_ref, "model.offload_ref", "training-memory slice"),
+        # with a hydra reference the trainer warns and ignores it, as the JAX one
+        (m.offload_ref and m.num_layers_unfrozen <= 0, "model.offload_ref", "training-memory slice"),
         (getattr(config.method, "overlap_reward_scoring", False), "method.overlap_reward_scoring",
          "async-rollout slice"),
     ]
@@ -250,9 +251,14 @@ class MeshRLTrainer(BaseRLTrainer):
     # -------------------------------------------------------------- generation
 
     def gen_logits_processor(self, **kwargs):
-        """Optional decode-time logits processor (ILQL's advantage shaping,
-        with the ILQL trainer slice); ``None`` for PPO."""
+        """Optional decode-time logits processor (ILQL's advantage shaping);
+        ``None`` for PPO, SFT and RFT."""
         return None
+
+    def pop_gen_processor_kwargs(self, gen_kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        """Remove and return the gen_kwargs that the logits processor takes
+        rather than the generation loop (ILQL's ``beta``)."""
+        return {}
 
     @abstractmethod
     def gen_step_fn(self):
@@ -271,6 +277,7 @@ class MeshRLTrainer(BaseRLTrainer):
         gen_kwargs.setdefault("eos_token_id", self.tokenizer.eos_token_id)
         gen_kwargs.setdefault("pad_token_id", self.tokenizer.pad_token_id)
         max_new = int(gen_kwargs.pop("max_new_tokens", 16))
+        proc_kwargs = self.pop_gen_processor_kwargs(gen_kwargs)
 
         P = pad_to_bucket(max(len(p) for p in prompts_ids), POW2_BUCKETS)
         ids, mask = left_pad_batch(prompts_ids, gen_kwargs["pad_token_id"], P)
@@ -278,7 +285,7 @@ class MeshRLTrainer(BaseRLTrainer):
         out = generate_op(
             step_fn, init_cache_fn,
             torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
-            self.generator, max_new, **gen_kwargs,
+            self.generator, max_new, logits_processor=self.gen_logits_processor(**proc_kwargs), **gen_kwargs,
         )
         sequences = out["sequences"].cpu().numpy()
         response_mask = out["response_mask"].cpu().numpy()

@@ -1,5 +1,7 @@
 """PPO trainer (counterpart of ``trlx_tpu/trainer/ppo_trainer.py``): rollout
-store management, a full-copy frozen reference model, the KL controllers,
+store management, the frozen reference (a full copy of the trunk, or with
+``num_layers_unfrozen = N > 0`` the hydra branch: a frozen copy of the top N
+layers and the head, run from the trunk's activation), the KL controllers,
 the serial ``make_experience`` pipeline (generate -> reward -> policy and
 reference scoring forwards -> KL-penalized rewards -> rollout store) and
 the PPO loss and train step. With ``train.serving.enabled`` the rollouts
@@ -12,8 +14,7 @@ forwards, the loss forward) runs the flash forward kernel when the model
 config says ``attention_impl="flash"``, and every learner backward runs the
 flash dK/dV and dQ kernels once per layer and microbatch.
 
-Not ported yet, each raising ``NotImplementedError`` naming its slice: the
-hydra reference branch (``num_layers_unfrozen > 0``), the value branch,
+Not ported yet, each raising ``NotImplementedError`` naming its slice:
 seq2seq models, peft, async rollouts and the overlapped reward scoring,
 and the serving engine's production layers (``train.serving_resilience``,
 ``serving_tenancy``, ``serving_fleet``, ``serving.stream_overlap``).
@@ -28,7 +29,12 @@ import torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.ppo_types import PPORLBatch, PPORLElement
 from trlx_tpu_torch.methods.ppo import PPOConfig
-from trlx_tpu_torch.models.policy import CausalLMWithValueHead
+from trlx_tpu_torch.models.policy import (
+    CausalLMWithValueHead,
+    ModelBranch,
+    branch_param_subtree,
+    init_value_branch_from_trunk,
+)
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
@@ -78,25 +84,46 @@ class PPOTrainer(MeshRLTrainer):
     def setup_model(self):
         """Policy + value model, random weights from the seed, a loaded
         checkpoint's trunk over the policy's (the value head keeps its seed
-        init, as ``merge_loaded_params`` in the JAX trainer), and a full
-        frozen copy of the policy trunk as the KL reference."""
+        init, as ``merge_loaded_params`` in the JAX trainer), a value branch
+        copied from the trunk's top layers (``num_value_layers_unfrozen >
+        0``), and the frozen KL reference: with ``num_layers_unfrozen = N >
+        0`` the hydra branch (``frozen_branch``, a copy of the top N layers,
+        the final norm and the head, started at ``branch_start``), otherwise
+        a full copy of the trunk (``ref_model``)."""
         n_unfrozen = self.config.model.num_layers_unfrozen
+        n_value = self.config.method.num_value_layers_unfrozen
 
         def build(config):
             if n_unfrozen > config.num_layers:
                 raise ValueError(f"num_layers_unfrozen={n_unfrozen} exceeds num_layers={config.num_layers}")
-            if n_unfrozen > 0:
-                raise NotImplementedError(
-                    "trlx_tpu_torch does not port the hydra reference branch (num_layers_unfrozen > 0) "
-                    "yet: hydra slice; use num_layers_unfrozen=-1 (full reference copy) or 0"
-                )
-            return CausalLMWithValueHead(config, num_value_layers=self.config.method.num_value_layers_unfrozen)
+            return CausalLMWithValueHead(config, num_value_layers=n_value)
 
         self.model = self.load_trunk(build)
-        with torch.device(self.device):
-            self.ref_model = TransformerLM(self.model_config)
-        self.ref_model.load_state_dict(self.model.transformer.state_dict())
-        self.ref_model.requires_grad_(False)
+        if n_value > 0:
+            state = init_value_branch_from_trunk(self.model.state_dict(), self.model_config, n_value)
+            self.model.load_state_dict(state)
+        if self.config.model.offload_ref and n_unfrozen > 0:
+            # only the FULL-copy reference lives in HBM at size worth offloading;
+            # the hydra ref is already the cheap option — say so instead of
+            # silently ignoring the flag
+            logger.warning(
+                "offload_ref ignored: the reference is a hydra branch / disabled-"
+                "adapter view (num_layers_unfrozen > 0 or peft), not a full copy"
+            )
+        self.ref_model = self.frozen_branch = self.branch_start = None
+        if n_unfrozen > 0:
+            self.branch_start = self.model_config.num_layers - n_unfrozen
+            with torch.device(self.device):
+                self.frozen_branch = ModelBranch(self.model_config, self.branch_start)
+            self.frozen_branch.load_state_dict(
+                branch_param_subtree(self.model.transformer.state_dict(), self.branch_start, self.model_config)
+            )
+            self.frozen_branch.requires_grad_(False)
+        else:
+            with torch.device(self.device):
+                self.ref_model = TransformerLM(self.model_config)
+            self.ref_model.load_state_dict(self.model.transformer.state_dict())
+            self.ref_model.requires_grad_(False)
 
     def gen_step_fn(self):
         trunk = self.model.transformer
@@ -133,16 +160,23 @@ class PPOTrainer(MeshRLTrainer):
     def score(self, seq: np.ndarray, mask: np.ndarray, P: int, R: int):
         """Policy logprobs and values and reference logprobs over the
         response window of ``seq`` (prompt left-padded to P, response
-        right-padded to R): host f32 arrays [B, R]."""
+        right-padded to R): host f32 arrays [B, R]. The hydra reference runs
+        the frozen branch from the activation the policy forward captured at
+        ``branch_start``."""
         seq_t = torch.from_numpy(seq).to(self.device)
         mask_t = torch.from_numpy(mask).to(self.device)
         labels = seq_t[:, P:P + R]
-        logits, values, _, _ = self.model(seq_t, mask_t)
+        logits, values, branch_hidden, _ = self.model(seq_t, mask_t, branch_layer=self.branch_start)
         # the window's logits only: log_softmax is per position
         logprobs = logprobs_of_labels(logits[:, P - 1:P - 1 + R], labels)
         values = values[:, P - 1:P - 1 + R].float()
         del logits
-        ref_logits, _, _, _ = self.ref_model(seq_t, mask_t)
+        if self.frozen_branch is not None:
+            ref_logits = self.model.forward_branch(
+                branch_hidden, mask_t, None, self.branch_start, branch=self.frozen_branch
+            )
+        else:
+            ref_logits, _, _, _ = self.ref_model(seq_t, mask_t)
         ref_logprobs = logprobs_of_labels(ref_logits[:, P - 1:P - 1 + R], labels)
         return logprobs.cpu().numpy(), values.cpu().numpy(), ref_logprobs.cpu().numpy()
 

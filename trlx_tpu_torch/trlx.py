@@ -8,12 +8,13 @@ Dispatch rows of the JAX package:
 ==========================  =========================  ======================
  ``reward_fn``               online RL (PPO)            ported
  ``environment``             environment RL (GRPO)      GRPO / online slice
- ``samples`` + ``rewards``   offline RL (ILQL)          ILQL trainer slice
+ ``samples`` + ``rewards``   offline RL (ILQL)          ported
  ``samples``                 supervised (SFT)           ported
 ==========================  =========================  ======================
 
-With ``config=None`` the default config is picked by the row: PPO for
-``reward_fn``, SFT for ``samples``.
+``reward_fn`` with an ``RFTConfig`` (``train.trainer="RFTTrainer"``) runs
+rejection fine-tuning. With ``config=None`` the default config is picked by
+the row: PPO for ``reward_fn``, ILQL for ``rewards``, SFT for ``samples``.
 
 ``device=None`` runs on the CUDA device and raises when there is none;
 ``device="cpu"`` runs the plain CPU path.
@@ -22,7 +23,7 @@ With ``config=None`` the default config is picked by the row: PPO for
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
+from trlx_tpu_torch.data.default_configs import default_ilql_config, default_ppo_config, default_sft_config
 from trlx_tpu_torch.utils import logging, set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -43,25 +44,33 @@ def train(
     environment=None,
     device=None,
 ):
-    """Fit with PPO from ``reward_fn`` and ``prompts``, or with SFT from
-    ``samples`` (strings or (prompt, output, ...) dialogues): the JAX
-    package's surface plus ``device``. Returns the trainer."""
+    """Fit with PPO (or RFT) from ``reward_fn`` and ``prompts``, with ILQL
+    from ``samples`` and ``rewards``, or with SFT from ``samples`` (strings
+    or (prompt, output, ...) dialogues): the JAX package's surface plus
+    ``device``. Returns the trainer."""
     if reward_fn is not None and environment is not None:
         raise ValueError(
             "`reward_fn` and `environment` are mutually exclusive: an environment IS the reward source"
         )
     if environment is not None:
         raise NotImplementedError("trlx_tpu_torch does not port environment training yet: GRPO / online slice")
-    if reward_fn is None:
-        if dataset is not None or rewards is not None:
-            raise NotImplementedError("trlx_tpu_torch does not port offline RL (ILQL) yet: ILQL trainer slice")
-        if samples is None:
-            raise ValueError("One of `reward_fn` (PPO) or `samples` (SFT) should be given for training")
+    if dataset is not None:
+        logger.warning("the `dataset` argument is being depreciated, split it into `samples` and `rewards` instead")
+        samples, rewards = dataset
+    if reward_fn is None and samples is None:
+        raise ValueError(
+            "One of `samples` (SFT / +`rewards` for ILQL) or `reward_fn` (PPO / RFT) should be given for training"
+        )
     if config is None:
         logger.warning(
             "Passing the `config` argument implicitly is depreciated, use or adapt one of the default configs instead"
         )
-        config = default_ppo_config() if reward_fn else default_sft_config()
+        if reward_fn:
+            config = default_ppo_config()
+        elif rewards:
+            config = default_ilql_config()
+        else:
+            config = default_sft_config()
     if model_path:
         config.model.model_path = model_path
 
@@ -83,6 +92,12 @@ def train(
             eval_prompts = prompts[:batch_size]
         pipeline = get_pipeline(config.train.pipeline)(prompts, max_prompt_length, trainer.tokenizer)
         trainer.add_prompt_pipeline(pipeline)
+    elif rewards is not None:
+        if len(samples) != len(rewards):
+            raise ValueError(f"Number of samples {len(samples)} should match the number of rewards {len(rewards)}")
+        if eval_prompts is None:
+            eval_prompts = [trainer.tokenizer.bos_token] * batch_size
+        trainer.make_experience(samples, rewards, config.train.seq_length)
     else:
         if eval_prompts is None:
             eval_prompts = [trainer.tokenizer.bos_token] * batch_size

@@ -168,6 +168,37 @@ Phases, each printing one JSON line:
 22. ``randomwalks_rft`` — ``scripts/torch_rft_randomwalks.py``: 300 SFT
                   steps, 100 RFT steps, final ``reward/mean`` >= 0.9 and no
                   lower than its step 0.
+23. ``grpo_parity`` — the GRPO learner on the card against the CPU (2
+                  layers, hidden 64, f32) on the same sampled experience: 2
+                  steps, losses/* and group/* within 1e-3 relative, the
+                  group advantages within 1e-5.
+24. ``grpo``    — a main path: ``default_grpo_config()`` (hydra, groups of
+                  4, 40 sampled tokens) at full gpt2 width through
+                  ``train(environment=...)``: 128 rollouts, 4 steps of 32 in
+                  2 microbatches; whole adjacent groups in every decode
+                  batch, value loss 0, group_adv_std > 0; K1 per prefill /
+                  scoring call / step, K2 and K3 in the 2 trained layers.
+25. ``online_grpo`` — a main path: the JAX online leg with one
+                  ``ServingEngine`` (full width, sampled, block 16): 4 waves
+                  of 32 prompts x 4 harvested by a ``PreferenceCollector``,
+                  a ``GRPOTrainer`` on the drained groups (4 steps), the
+                  engine republished and one more wave at version 1;
+                  exactly-once harvest, no KV block left, K1 and K4
+                  launched; K1, K2/K3 and K4 held against their plain
+                  versions at the path's shapes.
+26. ``async``   — a main path: ``train``'s run with
+                  ``train.async_rollouts`` (max_staleness 2), 8 steps; no
+                  producer thread left, the drain ledger balanced, a batch
+                  trained at staleness >= 1; K1/K2/K3 totals exact across
+                  both threads.
+27. ``grpo_synthetic`` — ``scripts/torch_grpo_synthetic.py``: the GRPO
+                  example's recipe, 3 seeds x 200 steps, 64 eval samples;
+                  the mean late ``reward/mean`` within 0.07 of the JAX
+                  runs', the mean rise at least half of theirs, every run
+                  above its step 0.
+28. ``randomwalks_async`` — the randomwalks gate with async rollouts
+                  (max_staleness 1): ``reward/mean`` >= 0.7 at the first
+                  eval at or after step 100.
 
 Then the kernel table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
@@ -187,7 +218,8 @@ sys.path.insert(0, ROOT)
 PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity", "engine_spec",
           "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks",
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
-          "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft")
+          "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
+          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1818,8 +1850,9 @@ def phase_hydra(ctx):
              for who, d in (("hydra", summary), ("full_copy", full))}})
 
 
-def ppo_main_path(ctx, phase, cfg, expect):
-    """Drive ``trlx_tpu_torch.train`` (PPO) with ``cfg`` on the card once:
+def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
+    """Drive ``trlx_tpu_torch.train`` (PPO, or GRPO: ``train_kwargs``
+    replaces the default ``reward_fn`` and prompts) with ``cfg`` on the card once:
     launch counts reset just before and read just after; per learner step
     K1 ``expect["loss_fwd"]`` times and K2, K3 ``expect["bwd"]`` times, K1
     ``expect["prefill"]`` times per generate and ``expect["score"]`` times
@@ -1886,10 +1919,9 @@ def ppo_main_path(ctx, phase, cfg, expect):
     _kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        trainer = trlx_tpu_torch.train(
+        trainer = trlx_tpu_torch.train(config=cfg, **(train_kwargs or dict(
             reward_fn=byte_share_reward, prompts=byte_prompts(64, 64, 128, SEED + 1),
-            eval_prompts=byte_prompts(32, 64, 128, SEED + 2), config=cfg,
-        )
+            eval_prompts=byte_prompts(32, 64, 128, SEED + 2))))
     finally:
         for name, fn in originals.items():
             setattr(PPOTrainer, name, fn)
@@ -1909,6 +1941,7 @@ def ppo_main_path(ctx, phase, cfg, expect):
         emit({"phase": phase, "step": i + 1, "card": ctx.get("smi"), "learn_s": sec,
               "batch_shape": shp, "learner_tok_s": shp[0] * shp[1] / sec,
               "losses": {k: v for k, v in out.items() if k.startswith("losses/")},
+              "group": {k: v for k, v in out.items() if k.startswith("group/")},
               "rollout_s": {k: out[k] for k in ("time/rollout_generate", "time/rollout_reward",
                                                 "time/rollout_score", "time/rollout_time")},
               "launches": d})
@@ -1928,6 +1961,8 @@ def ppo_main_path(ctx, phase, cfg, expect):
         "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30,
         "launches": launches, "frozen_tensors": len(frozen), "trained_tensors_moved": len(moved),
         "losses_finite": finite, "kernel_shapes": kernel_shapes(seen),
+        "step_stats": [{k: v for k, v in out.items() if k.split("/")[0] in ("losses", "group", "time")}
+                       for _, _, out, _ in steps],
     }
     emit(summary)
     checks = {
@@ -2389,19 +2424,13 @@ def phase_randomwalks_hydra(ctx):
     100. The JAX package's recorded hydra run reached 0.943 within 120
     steps. The SFT stage is the randomwalks phase's when that phase ran
     (the same recipe and seed), else its own."""
-    import shutil
-
     import torch
 
     from scripts.torch_ppo_randomwalks import run_gate
 
-    export = ctx.pop("randomwalks_export", None)
     t0 = time.perf_counter()
-    try:
-        report = run_gate(pretrain_steps=300, ppo_steps=120, num_layers_unfrozen=2, warm_start=export)
-    finally:
-        if export is not None:
-            shutil.rmtree(os.path.dirname(export), ignore_errors=True)
+    report = run_gate(pretrain_steps=300, ppo_steps=120, num_layers_unfrozen=2,
+                      warm_start=ctx.get("randomwalks_export"))
     torch.cuda.synchronize()
     emit({"phase": "randomwalks_hydra", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
     torch.cuda.empty_cache()
@@ -2794,6 +2823,515 @@ def phase_rft(ctx):
     check_main_path_shapes(ctx, seen, "rft", ("flash_fwd", "flash_bwd"))
 
 
+#: the GRPO phases' traffic: 32 prompts x groups of 4, 40 sampled tokens;
+#: steps of 32 in 2 microbatches
+GRPO_PROMPTS, GRPO_G, GRPO_N, GRPO_B, GRPO_MB = 32, 4, 40, 32, 16
+
+
+def grpo_parity_trainer(device, state=None):
+    """GRPOTrainer at 2 layers / hidden 64 (4 heads of 16), f32, groups of
+    4 over 16 sampled tokens, a full-copy reference, on ``device``; ``state``
+    replaces the seeded initial weights."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.update(default_grpo_config(), {
+        "model.model_path": "gpt2", "model.num_layers_unfrozen": -1,
+        "model.model_overrides": dict(vocab_size=259, hidden_size=64, num_layers=2, num_heads=4,
+                                      max_position_embeddings=128, attention_impl="flash"),
+        "mesh.compute_dtype": "float32", "mesh.param_dtype": "float32", "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": 64, "train.batch_size": 8, "train.minibatch_size": 4, "train.total_steps": 2,
+        "train.tracker": None, "train.checkpoint_dir": tempfile.mkdtemp(prefix="chip_smoke_grpo_parity_"),
+        "train.seed": SEED, "method.num_rollouts": 16, "method.chunk_size": 8, "method.ppo_epochs": 1,
+        "method.gen_kwargs": dict(max_new_tokens=16, do_sample=True, top_k=0, top_p=1.0),
+        "optimizer.kwargs": dict(lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6),
+        "scheduler.kwargs": dict(T_max=10, eta_min=1e-4),
+    })
+    trainer = get_trainer("GRPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
+    if state is not None:
+        trainer.model.load_state_dict(state)
+        trainer.ref_model.load_state_dict(trainer.model.transformer.state_dict())
+    trainer.add_prompt_pipeline(PromptPipeline(byte_prompts(16, 8, 40, SEED + 3), 48, trainer.tokenizer))
+    return trainer
+
+
+def phase_grpo_parity(ctx):
+    """The GRPO learner on the card against the CPU from the same weights
+    and the same experience: one sampled experience phase on the CPU (16
+    rollouts in groups of 4), its store copied to the card trainer, then 2
+    learner steps on the same batches in both. losses/* and group/* within
+    1e-3 relative + 1e-6 absolute (group/policy_delta + 1e-5: at step 1 it
+    is mean |ratio - 1| of the card's logprobs against the CPU's, f32 noise
+    of ~1e-6, where the CPU reads exactly 0), the per-token group
+    advantages of each batch within 1e-5, losses/value_loss exactly 0."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    cpu = grpo_parity_trainer("cpu")
+    state = {k: v * 3 if v.is_floating_point() else v for k, v in cpu.model.state_dict().items()}
+    cpu, card = grpo_parity_trainer("cpu", state), grpo_parity_trainer("cuda", state)
+    cpu.prepare_learning()
+    card.num_mb = cpu.num_mb
+    card.store.history = list(cpu.store.history)
+    card.rollout_stats = cpu.rollout_stats
+    batches = list(cpu.create_train_dataloader())[:2]
+    stats, adv_err = {"cuda": [], "cpu": []}, 0.0
+    for batch in batches:
+        advs = []
+        for name, tr in (("cuda", card), ("cpu", cpu)):
+            b = batch.to(tr.device)
+            adv, _ = tr.method.get_advantages_and_returns(b.values, b.rewards, b.response_mask)
+            advs.append(adv.float().cpu())
+            stats[name].append(tr.train_step(batch))
+        adv_err = max(adv_err, float((advs[0] - advs[1]).abs().max()))
+    keys = [k for k in stats["cpu"][0] if k.startswith(("losses/", "group/"))]
+    rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-3) for x, y in zip(stats["cuda"], stats["cpu"]) for k in keys)
+    ok_stats = all(abs(x[k] - y[k]) <= 1e-3 * abs(y[k]) + (1e-5 if k == "group/policy_delta" else 1e-6)
+                   for x, y in zip(stats["cuda"], stats["cpu"]) for k in keys)
+    groups = [e.query_tensor.tolist() for e in cpu.store.history]
+    report = {"phase": "grpo_parity", "elements": len(groups), "steps": len(stats["cuda"]), "keys": keys,
+              "max_stat_rel_err": rel, "max_group_adv_abs_err": adv_err,
+              "stats_cuda": [{k: x[k] for k in keys} for x in stats["cuda"]],
+              "stats_cpu": [{k: y[k] for k in keys} for y in stats["cpu"]]}
+    emit(report)
+    checks = {
+        "2 steps": len(stats["cuda"]) == 2,
+        "losses/* and group/* within 1e-3 relative (+ the absolute floors)": ok_stats and len(keys) >= 6,
+        "group advantages within 1e-5": adv_err <= 1e-5,
+        "value loss exactly 0": all(x["losses/value_loss"] == 0.0 for x in stats["cuda"] + stats["cpu"]),
+        "whole adjacent groups": all(groups[i] == groups[i - i % 4] for i in range(len(groups))),
+        "sampled: a group with spread": any(
+            len({tuple(e.response_tensor.tolist()) for e in cpu.store.history[i:i + 4]}) > 1
+            for i in range(0, len(groups), 4)),
+    }
+    emit({"phase": "grpo_parity", "checks": checks})
+    for tr in (cpu, card):
+        shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del card, cpu
+    torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    if failed or not np.isfinite(rel):
+        raise AssertionError(f"grpo_parity phase: {failed}")
+
+
+def byte_environment():
+    """The grpo phase's environment: a ``SyntheticEnvironment`` over the
+    bytes tokenizer's ids (259) whose reward is the share of the action
+    (the output re-encoded) in the 40 sampled tokens: how much of the
+    sample the tokenizer can print. ``SyntheticEnvironment``'s own reward,
+    the share of one target token, has no spread on random weights over
+    gpt2's 50257 ids (about 1 hit in 50257 tokens), and a group without
+    spread has no advantage."""
+    from trlx_tpu_torch.online import SyntheticEnvironment
+
+    class PrintableShare(SyntheticEnvironment):
+        def evaluate(self, prompt, action):
+            return len(action) / GRPO_N
+
+    return PrintableShare(vocab_size=259, prompt_len=4, target_token=100, seed=SEED)
+
+
+def phase_grpo(ctx):
+    """A main path: ``default_grpo_config()`` (hydra reference,
+    ``num_layers_unfrozen=2``, groups of 4, 40 sampled tokens) on the gpt2
+    preset at full width, bf16 compute, f32 params and AdamW, the bytes
+    tokenizer, through ``trlx_tpu_torch.train(environment=...)``: one
+    experience phase of 128 rollouts (32 prompts x 4), then ``ppo_epochs=1``:
+    4 learner steps of 32 in 2 microbatches. Every decode batch must hold
+    whole adjacent groups; losses/value_loss is 0; the gauge
+    online/group_adv_std > 0. K1 once per layer in every prefill, 14 times a
+    scoring call (12 policy layers, the frozen branch's 2), 24 times a step;
+    K2 and K3 4 times a step (2 trained layers x 2 microbatches: the value
+    head takes no attention backward). Prints experience and step seconds,
+    peak memory over the start, group/policy_delta."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.metrics import gauges
+
+    cfg = TRLConfig.update(default_grpo_config(), {
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32", "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": 128 + GRPO_N, "train.batch_size": GRPO_B, "train.minibatch_size": GRPO_MB,
+        "train.total_steps": 4, "train.eval_interval": 100, "train.checkpoint_interval": 100,
+        "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
+        "train.checkpoint_dir": tempfile.mkdtemp(prefix="chip_smoke_grpo_"), "train.seed": SEED,
+        "method.num_rollouts": GRPO_PROMPTS * GRPO_G, "method.chunk_size": GRPO_PROMPTS * GRPO_G,
+        "method.ppo_epochs": 1,
+    })
+    assert cfg.method.group_size == GRPO_G and cfg.method.gen_kwargs["max_new_tokens"] == GRPO_N
+    L, n_unfrozen, num_mb = 12, cfg.model.num_layers_unfrozen, GRPO_B // GRPO_MB
+    batches, generate = [], PPOTrainer.generate
+
+    def grouped_generate(self, prompts, *a, **kw):
+        if not kw.get("eval_mode", a[0] if a else False):
+            batches.append([list(map(int, p)) for p in prompts])
+        return generate(self, prompts, *a, **kw)
+
+    gauges.clear(prefix="online/")
+    PPOTrainer.generate = grouped_generate
+    try:
+        summary, ctx["grpo_launches"] = ppo_main_path(
+            ctx, "grpo", cfg,
+            {"loss_fwd": L * num_mb, "bwd": n_unfrozen * num_mb, "prefill": L, "score": L + n_unfrozen},
+            train_kwargs=dict(environment=byte_environment(),
+                              prompts=byte_prompts(GRPO_PROMPTS * GRPO_G, 64, 128, SEED + 1),
+                              eval_prompts=byte_prompts(GRPO_B, 64, 128, SEED + 2)))
+    finally:
+        PPOTrainer.generate = generate
+    adv_std, raw_std = gauges.get("online/group_adv_std"), gauges.get("online/raw_score_std")
+    steps = summary["step_stats"]
+    value_head_ms = time_value_head(summary["learn_batch_shapes"][0][1])
+    emit({"phase": "grpo", "card": ctx.get("smi"), "experience_s": steps[0]["time/rollout_time"],
+          "experience_split_s": {k: steps[0][f"time/rollout_{k}"] for k in ("generate", "reward", "score")},
+          "learn_s": summary["learn_s"], "peak_over_start_gib": summary["peak_over_start_gib"],
+          "policy_delta": [st["group/policy_delta"] for st in steps], "group_adv_std": adv_std,
+          "raw_score_std": raw_std, "decode_batches": len(batches),
+          "value_head_fwd_ms_per_microbatch": value_head_ms,
+          "value_head_share_of_step": 2 * value_head_ms / 1e3 / min(summary["learn_s"])})
+    checks = {
+        "one experience phase of 128 rollouts in one decode batch": len(batches) == 1
+        and len(batches[0]) == GRPO_PROMPTS * GRPO_G,
+        "every decode batch holds whole adjacent groups": all(
+            b[i] == b[i - i % GRPO_G] for b in batches for i in range(len(b))),
+        "losses/value_loss == 0": all(st["losses/value_loss"] == 0.0 for st in steps),
+        "online/group_adv_std > 0": adv_std > 0,
+    }
+    emit({"phase": "grpo", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"grpo phase: {failed}")
+
+
+def time_value_head(T):
+    """CUDA-event ms of the value head's forward at a learner microbatch
+    [GRPO_MB, T, 768] (bf16 compute, f32 params): what GRPO's loss forward
+    computes and never reads."""
+    import torch
+
+    from trlx_tpu_torch.models.heads import ValueHead
+
+    cfg = gpt2_config(12, torch.bfloat16).replace(param_dtype=torch.float32)
+    head = ValueHead(cfg).to("cuda")
+    hidden = torch.randn(GRPO_MB, T, cfg.hidden_size, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        return cuda_time_ms(lambda: head(hidden))
+
+
+#: online_grpo: 4 waves of 32 prompts x groups of 4, 64-byte prompts, 40 sampled tokens
+ONLINE_WAVES, ONLINE_PROMPT_BYTES = 4, 64
+
+
+def phase_online_grpo(ctx):
+    """A main path: the JAX package's online leg (``bench.py``'s
+    ``_online_grpo_perf``) with its fleet replaced by one ``ServingEngine``
+    (gpt2 at full width, bf16, flash prefill, block 16, sampled, 128
+    slots): 4 waves of 32 prompts x 4, 64-byte prompts, 40 new tokens,
+    harvested by a ``PreferenceCollector`` through ``harvest(engine)``
+    (the JAX leg's reward: the mean token id over the vocab); a
+    ``GRPOTrainer`` (``train.online.enabled``, the same weights) takes the
+    buffer with ``attach_online`` and 4 steps of 32 in 2 microbatches on the
+    drained groups; ``engine.set_params`` republishes its trunk and one more
+    wave is harvested at ``policy_version=1``. Launch counts reset just
+    before and read just after: K1 in every prefill wave, K4 in every decode
+    step, K1/K2/K3 in the learner. Labels harvested 4 x 32 x 4, no
+    duplicate, the post-publish group at version 1, no KV block left. K1,
+    K2/K3 and K4 are then held against their plain versions at every shape
+    this path gave them (:func:`check_main_path_shapes`)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.online import OnlineExperienceBuffer, PreferenceCollector
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.serving import ServingEngine
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.update(default_grpo_config(), {
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32", "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": ONLINE_PROMPT_BYTES + GRPO_N, "train.batch_size": GRPO_B,
+        "train.minibatch_size": GRPO_MB, "train.total_steps": 4, "train.eval_interval": 100,
+        "train.checkpoint_interval": 100, "train.save_best": False, "train.save_optimizer": False,
+        "train.tracker": None, "train.checkpoint_dir": tempfile.mkdtemp(prefix="chip_smoke_online_"),
+        "train.seed": SEED, "method.num_rollouts": GRPO_PROMPTS * GRPO_G,
+        "method.chunk_size": GRPO_PROMPTS * GRPO_G, "method.ppo_epochs": 1,
+        "train.online": dict(enabled=True, group_size=GRPO_G, buffer_capacity=256, max_staleness=4),
+    })
+    trainer = get_trainer("GRPOTrainer")(config=cfg)
+    vocab = trainer.model_config.vocab_size
+    engine = ServingEngine(TransformerLM(gpt2_config(12, torch.bfloat16)), trainer.model.transformer.state_dict(),
+                           num_slots=GRPO_PROMPTS * GRPO_G, max_seq_len=ONLINE_PROMPT_BYTES + GRPO_N,
+                           block_size=16, eos_token_id=trainer.tokenizer.eos_token_id, pad_token_id=0,
+                           gen_kwargs=dict(do_sample=True), seed=SEED)
+
+    def reward_fn(prompt, completions):
+        return [float(np.mean(c)) / vocab for c in completions]
+
+    buffer = OnlineExperienceBuffer(capacity=256, max_staleness=4)
+    collector = PreferenceCollector(buffer, group_size=GRPO_G, reward_fn=reward_fn)
+    prompts = [trainer.tokenizer.encode(p) for p in byte_prompts(GRPO_PROMPTS, ONLINE_PROMPT_BYTES,
+                                                                 ONLINE_PROMPT_BYTES, SEED + 40)]
+
+    def wave(version):
+        for p in prompts:
+            for _ in range(GRPO_G):
+                engine.submit(p, GRPO_N)
+        got = 0
+        while engine.scheduler.has_work:
+            engine.step()
+            got += collector.harvest(engine, policy_version=version)
+        return got + collector.harvest(engine, policy_version=version)
+
+    steps, seen = [], {}
+    restore_kernels = record_kernel_shapes(seen)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        harvested = [wave(0) for _ in range(ONLINE_WAVES)]
+        torch.cuda.synchronize()
+        harvest_s = time.perf_counter() - t0
+        serve_launches = _kernels.launches()
+        trainer.attach_online(buffer)
+        original = trainer.train_step
+
+        def recorded(batch):
+            t_step = time.perf_counter()
+            out = original(batch)
+            torch.cuda.synchronize()
+            steps.append(dict(out, step_s=time.perf_counter() - t_step))
+            return out
+
+        trainer.train_step = recorded
+        t1 = time.perf_counter()
+        trainer.learn()
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - t1
+        engine.set_params(trainer.model.transformer.state_dict())
+        post = wave(1)
+        launches = _kernels.launches()
+        drained = buffer.drain(256, learner_version=1)  # 96 older groups, then the new wave's 32
+        blocks = engine.allocator.blocks_in_use
+    finally:
+        restore_kernels()
+        engine.close()
+        shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+    stats = collector.stats()
+    labels = ONLINE_WAVES * GRPO_PROMPTS * GRPO_G
+    report = {
+        "phase": "online_grpo", "card": ctx.get("smi"), "harvested_per_wave": harvested, "post_publish": post,
+        "collector": stats, "online_labels_per_s": labels / harvest_s,
+        "online_learner_steps_per_s": len(steps) / max(sum(s["step_s"] for s in steps), 1e-9),
+        "harvest_s": harvest_s, "learn_s": learn_s, "step_s": [s["step_s"] for s in steps], "steps": len(steps),
+        "groups_consumed": [s.get("online/groups_consumed") for s in steps],
+        "group_adv_std": [s.get("online/group_adv_std") for s in steps],
+        "policy_delta": [s.get("group/policy_delta") for s in steps], "blocks_in_use": blocks,
+        "serve_launches": serve_launches, "launches": launches, "engine": engine.summary(),
+        "kernel_shapes": kernel_shapes(seen),
+    }
+    emit(report)
+    checks = {
+        "labels harvested 4 x 32 x 4": harvested == [GRPO_PROMPTS * GRPO_G] * ONLINE_WAVES
+        and stats["labels_harvested"] == labels + GRPO_PROMPTS * GRPO_G,
+        "no duplicate harvested": stats["duplicates_dropped"] == 0.0,
+        "4 learner steps on drained groups": len(steps) == 4 and steps[0].get("online/groups_consumed") == 32.0,
+        "losses finite": all(np.isfinite(s["losses/total_loss"]) for s in steps),
+        "post-publish wave at policy_version 1": post == GRPO_PROMPTS * GRPO_G
+        and len(drained) == ONLINE_WAVES * GRPO_PROMPTS
+        and [g.policy_version for g in drained] == [0] * (ONLINE_WAVES - 1) * GRPO_PROMPTS + [1] * GRPO_PROMPTS,
+        "no KV block in use": blocks == 0,
+        "K1 (prefill) and K4 (decode) launched": serve_launches["flash_fwd"] > 0
+        and serve_launches["paged_decode"] > 0 and serve_launches["paged_verify"] == 0,
+        "K2 and K3 in the learner": launches["flash_bwd_dkv"] == launches["flash_bwd_dq"]
+        == 4 * cfg.model.num_layers_unfrozen * (GRPO_B // GRPO_MB),
+    }
+    ctx["online_grpo_launches"] = launches
+    emit({"phase": "online_grpo", "checks": checks})
+    del trainer, engine
+    torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"online_grpo phase: {failed}")
+    check_main_path_shapes(ctx, seen, "online_grpo", ("flash_fwd", "flash_bwd", "paged_decode"))
+
+
+#: the async phase's learner steps
+ASYNC_STEPS = 8
+
+
+def phase_async(ctx):
+    """A main path: the train phase's configuration and traffic (gpt2 full
+    width, 64 sampled rollouts of 128 tokens per refill, steps of 32 in 2
+    microbatches) with ``train.async_rollouts`` on (max_staleness 2,
+    publish_interval 1, staleness_correction), 8 learner steps. The producer
+    thread generates and scores on its snapshot copy while the learner
+    trains. Launch counts reset just before and read just after: K2 and K3
+    exactly once per layer and microbatch in every step (only the learner
+    runs a backward), and K1 exactly 12 per generate call, 24 per scoring
+    call and 24 per step, whichever thread made them. After learn(): no
+    ``rollout-producer`` thread alive; the drain ledger balances (produced
+    == consumed + dropped_stale + leftover + dropped_shutdown); at least one
+    step trained on a batch with staleness >= 1 (the IS branch ran). Prints
+    per-step staleness, collect wait and overlap, and the seconds per step
+    beside the synchronous train phase's."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    cfg = TRLConfig.update(full_width_train_config(ckpt_dir), {
+        "train.total_steps": ASYNC_STEPS, "train.async_rollouts": dict(
+            enabled=True, max_staleness=2, publish_interval=1, staleness_correction=True)})
+    num_mb, L = TRAIN_B // TRAIN_MB, 12
+    lock, counts, steps = threading.Lock(), {"generate": 0, "score": 0}, []
+    originals = {name: getattr(PPOTrainer, name) for name in ("generate", "score", "train_step")}
+
+    def counted(name):
+        fn = originals[name]
+
+        def run(self, *a, **kw):
+            with lock:
+                counts[name] += 1
+            return fn(self, *a, **kw)
+
+        return run
+
+    def train_step(self, batch):
+        t0 = time.perf_counter()
+        out = originals["train_step"](self, batch)
+        steps.append((time.perf_counter() - t0, out))
+        return out
+
+    PPOTrainer.generate, PPOTrainer.score, PPOTrainer.train_step = counted("generate"), counted("score"), train_step
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(
+            reward_fn=byte_share_reward, prompts=byte_prompts(64, 64, 128, SEED + 1),
+            eval_prompts=byte_prompts(32, 64, 128, SEED + 2), config=cfg)
+    finally:
+        for name, fn in originals.items():
+            setattr(PPOTrainer, name, fn)
+        restore_kernels()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    ledger = trainer.rollout_engine_summary or {}
+    alive = [t.name for t in threading.enumerate() if t.name == "rollout-producer" and t.is_alive()]
+    stale = [out.get("rollout/batch_staleness_max", -1.0) for _, out in steps]
+    sync = ctx.get("train_summary") or {}
+    report = {
+        "phase": "async", "card": ctx.get("smi"), "wall_s": wall, "steps": len(steps),
+        "s_per_step": wall / max(len(steps), 1),
+        "sync_train_s_per_step": sync["wall_s"] / sync["steps"] if sync.get("steps") else None,
+        "learn_s": [s for s, _ in steps], "batch_staleness_max": stale,
+        "batch_staleness_mean": [out.get("rollout/batch_staleness_mean") for _, out in steps],
+        "is_weight_mean": [out.get("staleness/is_weight_mean") for _, out in steps],
+        "collect_wait_s": [out.get("rollout/collect_wait_s") for _, out in steps],
+        "overlap_fraction": ledger.get("overlap_fraction"), "ledger": ledger, "producer_threads_alive": alive,
+        "generate_calls": counts["generate"], "score_calls": counts["score"], "launches": launches,
+        "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30,
+        "kernel_shapes": kernel_shapes(seen),
+    }
+    emit(report)
+    balanced = bool(ledger) and ledger["produced"] == (
+        ledger["consumed"] + ledger["dropped_stale"] + ledger["leftover"] + ledger["dropped_shutdown"])
+    checks = {
+        f"{ASYNC_STEPS} optimizer steps": len(steps) == ASYNC_STEPS,
+        "losses finite": all(np.isfinite(out["losses/total_loss"]) for _, out in steps),
+        "no rollout-producer thread alive after learn()": not alive and trainer._engine is None,
+        "drain ledger balances": balanced,
+        "a consumed batch with staleness >= 1 (the IS branch ran)": max(stale, default=-1) >= 1,
+        "the IS weights in every step": all("staleness/is_weight_mean" in out for _, out in steps),
+        "K2 and K3: layers x microbatches per step": launches["flash_bwd_dkv"] == launches["flash_bwd_dq"]
+        == ASYNC_STEPS * L * num_mb,
+        "K1: 12 per generate, 24 per scoring call, 24 per step": launches["flash_fwd"]
+        == L * counts["generate"] + 2 * L * counts["score"] + L * num_mb * ASYNC_STEPS,
+        "no paged kernel": launches["paged_decode"] == launches["paged_verify"] == 0,
+    }
+    ctx["async_launches"] = launches
+    emit({"phase": "async", "checks": checks})
+    del trainer
+    torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"async phase: {failed}")
+    check_main_path_shapes(ctx, seen, "async", ("flash_fwd", "flash_bwd"))
+
+
+def phase_grpo_synthetic(ctx):
+    """The GRPO gate (``scripts/torch_grpo_synthetic.py``): the example's
+    ``build_config`` (char tokenizer, hidden 64, 2 layers, groups of 4, eval
+    every 20) through ``train(environment=SyntheticEnvironment)`` for seeds
+    1-3 and 200 steps, each eval on 64 samples; over the seeds, the mean late
+    ``reward/mean`` (the last three evals) at least the JAX package's CPU
+    runs' less 0.07, the mean rise over step 0 at least half of theirs, and
+    every run's late reward above its step 0. Head dim 32 and the preset's
+    ``attention_impl="xla"``: no kernel."""
+    import torch
+
+    from scripts.torch_grpo_synthetic import run_gate
+
+    t0 = time.perf_counter()
+    report = run_gate()
+    torch.cuda.synchronize()
+    emit({"phase": "grpo_synthetic", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
+    torch.cuda.empty_cache()
+    if not report["ok"]:
+        raise AssertionError(f"grpo_synthetic phase: below the bar: {report['gate']}")
+
+
+def phase_randomwalks_async(ctx):
+    """The randomwalks gate with async rollouts
+    (``scripts/torch_ppo_randomwalks.py --async-max-staleness 1``): the
+    randomwalks phase's recipe with ``train.async_rollouts`` on
+    (max_staleness 1); eval ``reward/mean`` >= 0.7 at the first eval at or
+    after step 100 (the synchronous gate's bar). The JAX package's CPU run
+    of this recipe: 0.517@0 ... 0.992@100. The SFT stage is the randomwalks
+    phase's when that phase ran (the same recipe and seed), else its own."""
+    import torch
+
+    from scripts.torch_ppo_randomwalks import run_gate
+
+    t0 = time.perf_counter()
+    report = run_gate(pretrain_steps=300, ppo_steps=120, warm_start=ctx.get("randomwalks_export"),
+                      async_max_staleness=1)
+    torch.cuda.synchronize()
+    emit({"phase": "randomwalks_async", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
+    torch.cuda.empty_cache()
+    if not report["ok"] or not report.get("async_ledger"):
+        raise AssertionError(f"randomwalks_async phase: below the bar: {report['gate_eval']}")
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -2970,7 +3508,8 @@ def kernel_table(ctx):
     paths = {"engine": ctx["main_path_launches"], "engine_spec": ctx["spec_path_launches"],
              "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"],
              "sft": ctx["sft_launches"], "hydra": ctx["hydra_launches"], "ilql": ctx["ilql_launches"],
-             "rft": ctx["rft_launches"]}
+             "rft": ctx["rft_launches"], "grpo": ctx["grpo_launches"], "online_grpo": ctx["online_grpo_launches"],
+             "async": ctx["async_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -3015,14 +3554,16 @@ def main(argv=None) -> int:
                "randomwalks": phase_randomwalks, "hydra_parity": phase_hydra_parity, "hydra": phase_hydra,
                "ilql_parity": phase_ilql_parity, "ilql": phase_ilql, "rft": phase_rft,
                "randomwalks_hydra": phase_randomwalks_hydra, "randomwalks_ilql": phase_randomwalks_ilql,
-               "randomwalks_rft": phase_randomwalks_rft}
+               "randomwalks_rft": phase_randomwalks_rft, "grpo_parity": phase_grpo_parity, "grpo": phase_grpo,
+               "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
+               "randomwalks_async": phase_randomwalks_async}
     phase_env(ctx)
     try:
         for name in phases:
             if name != "env":
                 runners[name](ctx)
     finally:
-        if "randomwalks_export" in ctx:  # randomwalks ran without randomwalks_hydra
+        if "randomwalks_export" in ctx:  # the randomwalks SFT export, shared by the later gates
             import shutil
 
             shutil.rmtree(os.path.dirname(ctx["randomwalks_export"]), ignore_errors=True)

@@ -9,7 +9,7 @@ budget is raised from the example's 20 to 100 so that it runs to
 Usage (on a CUDA host; ``--device cpu`` runs the plain CPU path)::
 
     python3 scripts/torch_ppo_randomwalks.py [--pretrain-steps 300] [--ppo-steps 120]
-        [--num-layers-unfrozen 2] [--device cpu]
+        [--num-layers-unfrozen 2] [--async-max-staleness 1] [--device cpu]
 
 Prints one JSON line: the eval ``reward/mean`` curve, the SFT stage's final
 loss, the seconds of each stage, and whether the first eval at or after
@@ -19,7 +19,10 @@ it did not (or when PPO stopped before step 100). ``--num-layers-unfrozen
 2`` runs the PPO stage as hydra PPO (the example's hparam
 ``model.num_layers_unfrozen``: the top 2 layers train and the KL reference
 is the frozen branch), whose recorded JAX run reached 0.943 within 120
-steps.
+steps. ``--async-max-staleness 1`` runs the PPO stage with
+``train.async_rollouts`` (a producer thread, staleness cap 1), whose JAX
+CPU run read 0.517@0, 0.867@20, 0.981@40, 0.95@60, 1.0@80, 0.992@100,
+0.95@120 (:data:`JAX_ASYNC`).
 
 The walks come from ``examples/randomwalks/randomwalks.py`` (numpy only);
 nothing of the JAX package is imported.
@@ -43,6 +46,8 @@ GATE_STEP, GATE_REWARD = 100, 0.7
 JAX_CURVE = [(0, 0.615), (20, 0.851), (60, 0.893), (80, 0.983), (120, 0.95)]
 #: its recorded hydra run (num_layers_unfrozen=2): 0.943 within 120 steps
 JAX_HYDRA = "reward/mean 0.943 within 120 steps"
+#: its CPU run with train.async_rollouts at max_staleness 1 (step, reward/mean)
+JAX_ASYNC = [(0, 0.517), (20, 0.867), (40, 0.981), (60, 0.95), (80, 1.0), (100, 0.992), (120, 0.95)]
 
 
 def default_config(alphabet: str):
@@ -140,13 +145,14 @@ def pretrain_on_walks(config, sample_walks, out_dir: str, steps: int, device=Non
 
 
 def run_gate(pretrain_steps=300, ppo_steps=120, device=None, num_layers_unfrozen=-1, warm_start=None,
-             export_to=None):
+             export_to=None, async_max_staleness=None):
     """SFT ``pretrain_steps`` at lr 1e-3 (the example's default), export,
     PPO ``ppo_steps`` from the export with ``num_layers_unfrozen``, in a
     temporary directory. ``warm_start`` names an export of this SFT stage
     made earlier, which replaces it; ``export_to`` keeps this run's export
-    there (the caller removes it). Returns the report dict (``ok``: the bar
-    was met)."""
+    there (the caller removes it); ``async_max_staleness`` runs the PPO
+    stage with ``train.async_rollouts`` at that cap (the report then holds
+    the drain ledger). Returns the report dict (``ok``: the bar was met)."""
     import trlx_tpu_torch
     from examples.randomwalks import generate_random_walks
     from trlx_tpu_torch.trainer.mesh_trainer import MeshRLTrainer
@@ -154,8 +160,11 @@ def run_gate(pretrain_steps=300, ppo_steps=120, device=None, num_layers_unfrozen
     metric_fn, prompts, sample_walks, _, alphabet = generate_random_walks(seed=1002)
     out_dir = tempfile.mkdtemp(prefix="randomwalks_")
     config = gate_config(alphabet, out_dir, ppo_steps, num_layers_unfrozen)
+    if async_max_staleness is not None:
+        config.train.async_rollouts.enabled = True
+        config.train.async_rollouts.max_staleness = async_max_staleness
     report = {"pretrain_steps": pretrain_steps, "ppo_steps": ppo_steps, "device": device or "cuda",
-              "num_layers_unfrozen": num_layers_unfrozen}
+              "num_layers_unfrozen": num_layers_unfrozen, "async_max_staleness": async_max_staleness}
     try:
         if warm_start is not None:
             hf_dir = warm_start
@@ -177,13 +186,15 @@ def run_gate(pretrain_steps=300, ppo_steps=120, device=None, num_layers_unfrozen
                 config=config, device=device,
             )
         report.update(ppo_seconds=time.perf_counter() - t0, ppo_final_step=ppo.iter_count,
-                      reference="hydra branch" if ppo.frozen_branch is not None else "full copy")
+                      reference="hydra branch" if ppo.frozen_branch is not None else "full copy",
+                      async_ledger=ppo.rollout_engine_summary)
         del ppo
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     curve = [(step, stats["reward/mean"]) for step, stats in evals]
     at_gate = next(((s, r) for s, r in curve if s >= GATE_STEP), None)
-    report.update(eval_curve=curve, jax_curve=JAX_HYDRA if num_layers_unfrozen > 0 else JAX_CURVE,
+    jax_curve = JAX_HYDRA if num_layers_unfrozen > 0 else (JAX_CURVE if async_max_staleness is None else JAX_ASYNC)
+    report.update(eval_curve=curve, jax_curve=jax_curve,
                   gate={"step": GATE_STEP, "min_reward": GATE_REWARD},
                   gate_eval=at_gate, ok=at_gate is not None and at_gate[1] >= GATE_REWARD)
     return report
@@ -195,9 +206,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ppo-steps", type=int, default=120)
     ap.add_argument("--num-layers-unfrozen", type=int, default=-1,
                     help="the PPO stage's model.num_layers_unfrozen (2: hydra PPO)")
+    ap.add_argument("--async-max-staleness", type=int, default=None,
+                    help="run the PPO stage with train.async_rollouts at this max_staleness")
     ap.add_argument("--device", default=None, help="default: the CUDA device (raises without one)")
     args = ap.parse_args(argv)
-    report = run_gate(args.pretrain_steps, args.ppo_steps, args.device, args.num_layers_unfrozen)
+    report = run_gate(args.pretrain_steps, args.ppo_steps, args.device, args.num_layers_unfrozen,
+                      async_max_staleness=args.async_max_staleness)
     print(json.dumps(report), flush=True)
     return 0 if report["ok"] else 1
 

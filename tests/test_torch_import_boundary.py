@@ -41,7 +41,10 @@ def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
     for m in ("trlx_tpu_torch.serving.engine", "trlx_tpu_torch.ops._kernels",
               "trlx_tpu_torch.trainer.ppo_trainer", "trlx_tpu_torch.trlx",
               "trlx_tpu_torch.trainer.ilql_trainer", "trlx_tpu_torch.trainer.rft_trainer",
-              "trlx_tpu_torch.methods.ilql", "trlx_tpu_torch.methods.rft", "trlx_tpu_torch.data.ilql_types"):
+              "trlx_tpu_torch.methods.ilql", "trlx_tpu_torch.methods.rft", "trlx_tpu_torch.data.ilql_types",
+              "trlx_tpu_torch.methods.grpo", "trlx_tpu_torch.trainer.grpo_trainer", "trlx_tpu_torch.online",
+              "trlx_tpu_torch.online.collector", "trlx_tpu_torch.online.environment", "trlx_tpu_torch.rollout",
+              "trlx_tpu_torch.rollout.engine", "trlx_tpu_torch.rollout.staleness"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

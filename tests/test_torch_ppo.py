@@ -1,6 +1,7 @@
 """Port parity for the PPO numerics: GAE, whitening, logprobs, running
 moments, both KL controllers, ``PPOConfig.loss`` with its whole flattened
-stats tree, the optimizer with its learning-rate schedules, and the learn
+stats tree (with and without the staleness importance weights), the
+optimizer with its learning-rate schedules, and the learn
 loop's shuffle — the port (torch, CPU) against trlx_tpu (JAX, CPU) on the
 same numpy arrays. f32 throughout; tolerance 1e-5 (rtol and atol) unless a
 test states otherwise."""
@@ -168,11 +169,41 @@ def test_ppo_loss_gradient_matches_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-def test_staleness_branch_raises_naming_its_slice():
-    values, rewards, mask = _rollout()
-    t = torch.from_numpy(values)
-    with pytest.raises(NotImplementedError, match="async-rollout slice"):
-        tppo.PPOConfig().loss(t, t, t, t, t, t, torch.from_numpy(mask), staleness=torch.zeros(6), is_ratio_clip=2.0)
+@pytest.mark.parametrize("rows", ["fresh", "stale", "mixed"])
+def test_staleness_branch_matches_jax(rows):
+    """The staleness importance-weight branch of the loss: loss, stats tree
+    and d loss / d (logprobs, values) against trlx_tpu's on fresh, stale
+    and mixed rows (the clip at 2.0 reached by the log-ratios)."""
+    import jax
+
+    values, rewards, mask = _rollout(seed=5)
+    rng = np.random.default_rng(15)
+    logprobs = (rng.normal(size=values.shape) * 0.5 - 2).astype(np.float32)
+    old_logprobs = (logprobs + rng.normal(size=values.shape) * 0.8).astype(np.float32)
+    staleness = {"fresh": np.zeros(6, np.int32), "stale": np.full(6, 2, np.int32),
+                 "mixed": np.array([0, 1, 0, 3, 2, 0], np.int32)}[rows]
+    cfg_j, cfg_t = jppo.PPOConfig(), tppo.PPOConfig()
+    jadv, jret = cfg_j.get_advantages_and_returns(jnp.asarray(values), jnp.asarray(rewards), jnp.asarray(mask))
+    (jloss, jstats), jg = jax.value_and_grad(
+        lambda lp, v: cfg_j.loss(lp, v, jnp.asarray(old_logprobs), jnp.asarray(values), jadv, jret,
+                                 jnp.asarray(mask), staleness=jnp.asarray(staleness), is_ratio_clip=2.0),
+        argnums=(0, 1), has_aux=True,
+    )(jnp.asarray(logprobs), jnp.asarray(values) + 0.1)
+    lp = torch.from_numpy(logprobs).requires_grad_(True)
+    v = (torch.from_numpy(values) + 0.1).requires_grad_(True)
+    tadv, tret = cfg_t.get_advantages_and_returns(
+        torch.from_numpy(values), torch.from_numpy(rewards), torch.from_numpy(mask)
+    )
+    tloss, tstats = cfg_t.loss(lp, v, torch.from_numpy(old_logprobs), torch.from_numpy(values), tadv, tret,
+                               torch.from_numpy(mask), staleness=torch.from_numpy(staleness), is_ratio_clip=2.0)
+    tg = torch.autograd.grad(tloss, (lp, v))
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), **TOL)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    jflat, tflat = jmod.flatten_dict(jstats), tmod.flatten_dict(tstats)
+    assert sorted(tflat) == sorted(jflat) and "staleness/is_weight_mean" in tflat
+    for key in jflat:
+        np.testing.assert_allclose(float(tflat[key].detach()), float(jflat[key]), err_msg=key, **TOL)
 
 
 SCHEDULES = {

@@ -7,7 +7,8 @@ phases and three optimizer steps (two microbatches each). Checked: every
 rollout element (tokens identical; logprobs, values and rewards within
 1e-4), every step's stats (rtol 1e-3, atol 1e-5), and the final eval
 reward (identical). Also: the default device is the card, every unported
-config block raises naming its slice, and the port's checkpoint round trip.
+config block raises naming its slice, the blocks ported since build, and
+the port's checkpoint round trip.
 """
 
 import numpy as np
@@ -158,9 +159,7 @@ def test_default_device_is_the_card(tmp_path):
 
 
 UNPORTED = [
-    ("train.async_rollouts.enabled", True, "async-rollout slice"),
-    ("train.async_rollouts.length_bucket_lookahead", 4, "async-rollout slice"),
-    ("train.islands.enabled", True, "async-rollout slice"),
+    ("train.islands.enabled", True, "production-serving slice"),
     ("train.observability.enabled", True, "observability slice"),
     ("train.profile_dir", "prof", "observability slice"),
     ("train.resilience.enabled", True, "resilience slice"),
@@ -169,7 +168,6 @@ UNPORTED = [
     ("train.serving_resilience.enabled", True, "production-serving slice"),
     ("train.serving_tenancy.enabled", True, "production-serving slice"),
     ("train.serving_fleet.enabled", True, "production-serving slice"),
-    ("train.online.enabled", True, "GRPO / online slice"),
     ("train.learner_overlap.enabled", True, "scale-out slice"),
     ("train.rollout_param_dtype", "bfloat16", "mixed-precision rollout slice"),
     ("train.tracker", "wandb", "observability slice"),
@@ -179,7 +177,6 @@ UNPORTED = [
     ("model.peft_config", {"r": 4}, "peft slice"),
     ("model.offload_ref", True, "training-memory slice"),
     ("model.model_arch_type", "seq2seq", "seq2seq slice"),
-    ("method.overlap_reward_scoring", True, "async-rollout slice"),
     ("optimizer.name", "adamw_8bit_bnb", "int8 optimizer-state slice"),
     ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
 ]
@@ -194,20 +191,58 @@ def test_unported_config_blocks_raise_naming_their_slice(tmp_path, key, value, s
         _port_trainer(tmp_path, **overrides)
 
 
+PORTED = [
+    ("train.async_rollouts.enabled", True),
+    ("train.async_rollouts.length_bucket_lookahead", 4),
+    ("train.online.enabled", True),
+    ("method.overlap_reward_scoring", True),
+]
+
+
+@pytest.mark.parametrize("key,value", PORTED, ids=[p[0] for p in PORTED])
+def test_ported_config_blocks_build(tmp_path, key, value):
+    """The blocks that raised until the async / online slice build the CPU
+    trainer (``train.online`` with the GRPO method it belongs to)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    d = _config_dict(tmp_path)
+    if key == "train.online.enabled":
+        d["method"].update(name="GRPOConfig", group_size=2)
+        d["train"].update(trainer="GRPOTrainer", online=dict(group_size=2))
+    cfg = TRLConfig.update(TRLConfig.from_dict(d), {key: value})
+    trainer = get_trainer(cfg.train.trainer)(config=cfg, reward_fn=reward_fn, device="cpu")
+    if key == "train.online.enabled":
+        assert trainer.online_buffer is not None
+    if key == "train.async_rollouts.length_bucket_lookahead":
+        from trlx_tpu_torch.pipeline import PromptPipeline
+
+        _attach_pipelines(trainer, PromptPipeline, cfg)
+        batches = [next(trainer.prompt_iterator) for _ in range(4)]
+        lengths = [len(p) for b in batches for p in b["input_ids"]]
+        assert lengths == sorted(lengths)  # one window of 4 batches, sorted by length
+
+
 def test_unported_training_rows_raise_naming_their_slice(tmp_path):
     import trlx_tpu_torch
     from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.method_configs import get_method
+    from trlx_tpu_torch.methods.grpo import GRPOConfig
+    from trlx_tpu_torch.online import SyntheticEnvironment
+    from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
     from trlx_tpu_torch.utils.loading import get_trainer
 
     from trlx_tpu_torch.data.default_configs import default_ilql_config
 
-    cfg = TRLConfig.from_dict(_config_dict(tmp_path))
-    with pytest.raises(NotImplementedError, match="GRPO / online slice"):
-        trlx_tpu_torch.train(environment=object(), config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="GRPO / online slice"):
-        get_trainer("GRPOTrainer")
-    with pytest.raises(NotImplementedError, match="GRPO / online slice"):
-        TRLConfig.update(cfg, {"method": {"name": "GRPOConfig"}})
+    # the GRPO rows resolve since the GRPO / online slice
+    d = _config_dict(tmp_path)
+    d["method"].update(name="GRPOConfig", group_size=2)
+    d["train"].update(trainer="GRPOTrainer", total_steps=1)
+    cfg = TRLConfig.from_dict(d)
+    assert isinstance(cfg.method, GRPOConfig) and get_method("GRPOConfig") is GRPOConfig
+    assert get_trainer("GRPOTrainer") is GRPOTrainer
+    env = SyntheticEnvironment(vocab_size=len(ALPHABET) + 3, prompt_len=3, target_token=3)
+    assert isinstance(trlx_tpu_torch.train(environment=env, prompts=PROMPTS, config=cfg, device="cpu"), GRPOTrainer)
     ilql = TRLConfig.update(default_ilql_config(), {
         "model.model_arch_type": "seq2seq", "tokenizer.tokenizer_path": f"char://{ALPHABET}"})
     with pytest.raises(NotImplementedError, match="seq2seq slice"):

@@ -1,5 +1,5 @@
 """Canned default configs (counterpart of ``trlx_tpu/data/default_configs.py``):
-PPO, ILQL, SFT and RFT; GRPO's comes with its slice."""
+PPO, GRPO, ILQL, SFT and RFT."""
 
 from trlx_tpu_torch.data.configs import (
     MeshConfig,
@@ -10,6 +10,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.methods.grpo import GRPOConfig
 from trlx_tpu_torch.methods.ilql import ILQLConfig
 from trlx_tpu_torch.methods.ppo import PPOConfig
 from trlx_tpu_torch.methods.rft import RFTConfig
@@ -111,6 +112,32 @@ def default_sft_config() -> TRLConfig:
         scheduler=SchedulerConfig(name="cosine_annealing", kwargs=dict(T_max=1000, eta_min=1e-5)),
         method=SFTConfig(name="SFTConfig", gen_kwargs=dict(max_new_tokens=32)),
         mesh=MeshConfig(),
+    )
+
+
+def default_grpo_config() -> TRLConfig:
+    """Critic-free group-relative PPO. Same optimizer / model surface as
+    :func:`default_ppo_config`; the method swaps to :class:`GRPOConfig`
+    (group-normalized advantages, no value loss) and generation samples —
+    groups need diverse completions."""
+    config = default_ppo_config()
+    return config.evolve(
+        method=GRPOConfig(
+            name="GRPOConfig",
+            num_rollouts=128,
+            chunk_size=128,
+            group_size=4,
+            ppo_epochs=4,
+            init_kl_coef=0.001,
+            target=None,
+            horizon=10000,
+            gamma=1.0,
+            cliprange=0.2,
+            scale_reward="ignored",
+            cliprange_reward=10,
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ).to_dict(),
+        train={"trainer": "GRPOTrainer"},
     )
 
 

@@ -18,8 +18,7 @@ register_method = make_registry(_METHODS)
 def get_method(name: str) -> type:
     """Return the registered method config class for ``name``.
 
-    Raises a helpful error listing known methods otherwise; a method of the
-    JAX package that the port does not bring yet names its slice.
+    Raises a helpful error listing known methods otherwise.
     """
     key = name.lower()
     if key in _METHODS:
@@ -29,15 +28,7 @@ def get_method(name: str) -> type:
 
     if key in _METHODS:
         return _METHODS[key]
-    if key in LATER_METHODS:
-        raise NotImplementedError(f"trlx_tpu_torch does not port {name} yet: {LATER_METHODS[key]}")
     raise ValueError(f"Unknown method {name!r}. Registered methods: {sorted(_METHODS)}")
-
-
-#: methods of the JAX package that later slices of the port bring
-LATER_METHODS = {
-    "grpoconfig": "GRPO / online slice",
-}
 
 
 @dataclass

@@ -21,11 +21,17 @@ class PPORLElement:
     rewards: Any  # [R]
     policy_version: Any = 0  # scalar int
 
+    def replace(self, **kw) -> "PPORLElement":
+        return replace(self, **kw)
+
 
 @dataclass
 class PPORLBatch:
     """Collated rollouts: queries left-padded, responses right-padded.
-    ``staleness`` is filled only by the async-rollout path (a later slice)."""
+    ``policy_version`` carries the per-sample sampling version from collate;
+    ``staleness`` (learner_version - policy_version, [B] int32) is filled in
+    by the trainer right before the train step when staleness correction is
+    on (the learner keeps publishing while collated batches wait)."""
 
     query_tensors: Any  # [B, P]
     response_tensors: Any  # [B, R]

@@ -10,6 +10,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
+from trlx_tpu_torch.rollout.staleness import staleness_importance_weights
 from trlx_tpu_torch.utils.modeling import masked_mean, whiten
 
 
@@ -133,11 +134,13 @@ class PPOConfig(MethodConfig):
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Clipped PPO policy + value loss with the JAX package's stats dict.
         All inputs are [B, T_resp] and masked; every sum accumulates in f32.
-        The staleness importance-weight branch comes with async rollouts."""
-        if staleness is not None or is_ratio_clip is not None:
-            raise NotImplementedError(
-                "trlx_tpu_torch does not port the staleness importance weights yet: async-rollout slice"
-            )
+
+        With ``staleness`` ([B] policy-version lag from the async rollout
+        engine) and ``is_ratio_clip`` both set, the policy term of stale
+        samples is reweighted by clipped per-token importance weights
+        against the behavior-policy ``old_logprobs``. The weights are
+        exactly 1.0 at staleness 0, so on-policy losses equal the vanilla
+        path's bit for bit."""
         f32 = torch.float32
         mask = mask.to(values.dtype)
         n = torch.clamp(mask.sum(dtype=f32), min=1.0)
@@ -154,6 +157,14 @@ class PPOConfig(MethodConfig):
         ratio = torch.exp(log_ratio)
         # k3 estimator of approximate KL: mean(exp(-lr) - 1 + lr)
         approx_kl = torch.sum((torch.exp(-log_ratio) - 1.0 + log_ratio) * mask, dtype=f32) / n
+
+        is_weights = None
+        if staleness is not None and is_ratio_clip is not None:
+            # reweight the surrogate's advantages (w > 0 commutes with the
+            # clipped max below); the weights are detached, a fixed
+            # per-token correction, not a second policy-gradient path
+            is_weights = staleness_importance_weights(log_ratio, staleness, is_ratio_clip)
+            advantages = advantages * is_weights
 
         pg_loss1 = -advantages * ratio
         pg_loss2 = -advantages * torch.clamp(ratio, 1.0 - self.cliprange, 1.0 + self.cliprange)
@@ -186,4 +197,10 @@ class PPOConfig(MethodConfig):
             ratio=torch.sum(ratio * mask, dtype=f32) / n,
             padding_percentage=1.0 - n / mask.numel(),
         )
+        if is_weights is not None:
+            stats["staleness"] = dict(
+                mean=torch.mean(staleness.to(f32)),
+                max=torch.max(staleness),
+                is_weight_mean=torch.sum(is_weights * mask, dtype=f32) / n,
+            )
         return loss, stats

@@ -90,6 +90,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # the learner and the rollout producer both launch
 _libs: Dict[str, ctypes.CDLL] = {}  # source file -> loaded library
 _bound: set = set()  # kernel names whose entry point has its argtypes set
 
@@ -104,7 +105,8 @@ def launches() -> Dict[str, int]:
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -1,6 +1,6 @@
 """Trainer registry + abstract base (counterpart of ``trlx_tpu/trainer``).
-Importing this package registers the trainers the port brings: PPO, SFT,
-RFT and ILQL. GRPO comes with a later slice (:data:`LATER_TRAINERS`)."""
+Importing this package registers the trainers the port brings: PPO, GRPO,
+SFT, RFT and ILQL."""
 
 from abc import abstractmethod
 from typing import Callable, Dict, List, Optional
@@ -12,12 +12,6 @@ _TRAINERS: Dict[str, type] = {}
 
 #: Decorator registering a trainer class by (lowercased) name.
 register_trainer = make_registry(_TRAINERS)
-
-#: trainers of the JAX package that later slices of the port bring
-LATER_TRAINERS = {
-    "grpotrainer": "GRPO / online slice",
-}
-
 
 class BaseRLTrainer:
     """Abstract trainer protocol: {learn, push_to_store, add pipelines}."""
@@ -53,6 +47,7 @@ class BaseRLTrainer:
 
 from trlx_tpu_torch.trainer.mesh_trainer import MeshRLTrainer  # noqa: E402,F401
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer  # noqa: E402,F401
+from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer  # noqa: E402,F401
 from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer  # noqa: E402,F401
 from trlx_tpu_torch.trainer.rft_trainer import RFTTrainer  # noqa: E402,F401
 from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer  # noqa: E402,F401

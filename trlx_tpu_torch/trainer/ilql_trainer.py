@@ -115,8 +115,8 @@ class ILQLTrainer(MeshRLTrainer):
 
     # ------------------------------------------------------------- generation
 
-    def gen_step_fn(self):
-        trunk = self.model.transformer
+    def gen_step_fn(self, policy=None):
+        trunk = (self.model if policy is None else policy).transformer
 
         def step(ids, mask, positions, cache):
             # generate() samples from the last position only

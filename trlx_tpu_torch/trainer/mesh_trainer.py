@@ -68,10 +68,7 @@ def check_port_config(config: TRLConfig) -> None:
     later slice of the port brings, naming that slice."""
     t, m, mesh = config.train, config.model, config.mesh
     later = [
-        (t.async_rollouts.enabled, "train.async_rollouts", "async-rollout slice"),
-        (t.async_rollouts.length_bucket_lookahead > 1, "train.async_rollouts.length_bucket_lookahead",
-         "async-rollout slice"),
-        (t.islands.enabled, "train.islands", "async-rollout slice"),
+        (t.islands.enabled, "train.islands", "production-serving slice"),
         (t.observability.enabled, "train.observability", "observability slice"),
         (t.profile_dir is not None, "train.profile_dir", "observability slice"),
         (t.resilience.enabled, "train.resilience", "resilience slice"),
@@ -81,7 +78,6 @@ def check_port_config(config: TRLConfig) -> None:
         (t.serving_resilience.enabled, "train.serving_resilience", "production-serving slice"),
         (t.serving_tenancy.enabled, "train.serving_tenancy", "production-serving slice"),
         (t.serving_fleet.enabled, "train.serving_fleet", "production-serving slice"),
-        (t.online.enabled, "train.online", "GRPO / online slice"),
         (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
         (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
         (mesh.remat != "none", f"mesh.remat={mesh.remat!r}", "training-memory slice"),
@@ -90,8 +86,6 @@ def check_port_config(config: TRLConfig) -> None:
         (bool(m.peft_config), "model.peft_config", "peft slice"),
         # with a hydra reference the trainer warns and ignores it, as the JAX one
         (m.offload_ref and m.num_layers_unfrozen <= 0, "model.offload_ref", "training-memory slice"),
-        (getattr(config.method, "overlap_reward_scoring", False), "method.overlap_reward_scoring",
-         "async-rollout slice"),
     ]
     for axis in ("data", "fsdp", "pipe", "model"):
         size = getattr(mesh, axis)
@@ -222,7 +216,13 @@ class MeshRLTrainer(BaseRLTrainer):
         optimizer step. ``loss_fn(microbatch) -> (loss, flat stats)``. The
         step returns the stats averaged over microbatches, plus
         ``learning_rate_group_0``: the schedule at the step count before the
-        update, the rate the update used."""
+        update, the rate the update used.
+
+        Every trained parameter takes part in every step, as optax's update
+        over the "train" partition does: one that the loss does not reach
+        (GRPO's value head) gets a zero gradient, so AdamW still decays it
+        and advances its moments, where a ``None`` gradient would make
+        ``torch.optim`` skip it."""
 
         def step(batch) -> Dict[str, float]:
             self.optimizer.zero_grad(set_to_none=True)
@@ -232,7 +232,10 @@ class MeshRLTrainer(BaseRLTrainer):
                 loss.backward()
                 per_mb.append({k: torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
                                for k, v in stats.items()})
-            grads = [p.grad for p in self.trainable_params if p.grad is not None]
+            for p in self.trainable_params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in self.trainable_params]
             for g in grads:
                 g.div_(num_mb)
             if self.max_grad_norm:
@@ -261,15 +264,20 @@ class MeshRLTrainer(BaseRLTrainer):
         return {}
 
     @abstractmethod
-    def gen_step_fn(self):
+    def gen_step_fn(self, policy=None):
         """Return step_fn(ids, mask, positions, cache) -> (logits, hidden,
-        cache) and init_cache_fn(batch, total_len) for :func:`generate`."""
+        cache) and init_cache_fn(batch, total_len) for :func:`generate`, for
+        ``policy`` (a module shaped like ``self.model``; default
+        ``self.model``)."""
         ...
 
-    def generate(self, prompts_ids: List[np.ndarray], eval_mode: bool = False, **kwargs):
+    def generate(self, prompts_ids: List[np.ndarray], eval_mode: bool = False, policy=None, generator=None,
+                 **kwargs):
         """Generate continuations for a list of ragged prompt id arrays:
         prompts left-padded to a pow2 bucket, one padded ``generate`` on the
-        trainer's device. Returns host ``(sequences, response_mask, P)``."""
+        trainer's device. ``policy`` and ``generator`` replace the model and
+        the sampling stream (the async producer passes its own). Returns
+        host ``(sequences, response_mask, P)``."""
         gen_kwargs = dict(self.generate_kwargs)
         if not eval_mode and self.generate_experience_kwargs:
             gen_kwargs = dict(self.generate_experience_kwargs)
@@ -281,11 +289,12 @@ class MeshRLTrainer(BaseRLTrainer):
 
         P = pad_to_bucket(max(len(p) for p in prompts_ids), POW2_BUCKETS)
         ids, mask = left_pad_batch(prompts_ids, gen_kwargs["pad_token_id"], P)
-        step_fn, init_cache_fn = self.gen_step_fn()
+        step_fn, init_cache_fn = self.gen_step_fn(policy)
         out = generate_op(
             step_fn, init_cache_fn,
             torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
-            self.generator, max_new, logits_processor=self.gen_logits_processor(**proc_kwargs), **gen_kwargs,
+            self.generator if generator is None else generator, max_new,
+            logits_processor=self.gen_logits_processor(**proc_kwargs), **gen_kwargs,
         )
         sequences = out["sequences"].cpu().numpy()
         response_mask = out["response_mask"].cpu().numpy()

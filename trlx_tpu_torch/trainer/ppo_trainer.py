@@ -9,18 +9,37 @@ come from the continuous-batching ``ServingEngine`` (paged decode, and with
 ``spec_k`` / ``prefill_chunk`` speculative decoding and chunked prefill)
 instead of the padded ``generate``.
 
+With ``train.async_rollouts`` (and ``max_staleness > 0``) a producer thread
+(:class:`~trlx_tpu_torch.rollout.AsyncRolloutEngine`) runs generate ->
+reward -> score continuously on the newest published parameter snapshot
+while the learner trains: the learner publishes a copy of its trained
+state every ``publish_interval`` steps, every element carries the version
+that sampled it, staleness is stamped on each batch just before its step,
+and the loss reweights stale rows with clipped importance weights. The
+producer never runs ``self.model``: it owns a copy of the policy
+(``_producer_model``), loaded from each new snapshot, and samples with its
+own ``torch.Generator``; both threads queue their CUDA work on the default
+stream, which orders each snapshot's clone before the producer's read.
+``evaluate`` pauses the producer. ``method.overlap_reward_scoring`` runs
+reward_fn for one generation's chunks on a worker thread while the next
+generates.
+
 On the card every multi-token forward (generation prefill, both scoring
 forwards, the loss forward) runs the flash forward kernel when the model
 config says ``attention_impl="flash"``, and every learner backward runs the
 flash dK/dV and dQ kernels once per layer and microbatch.
 
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
-seq2seq models, peft, async rollouts and the overlapped reward scoring,
-and the serving engine's production layers (``train.serving_resilience``,
-``serving_tenancy``, ``serving_fleet``, ``serving.stream_overlap``).
+seq2seq models, peft, the island split (``train.islands``), the producer
+supervisor (``train.self_healing``), and the serving engine's production
+layers (``train.serving_resilience``, ``serving_tenancy``,
+``serving_fleet``, ``serving.stream_overlap``).
 """
 
+import copy
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 import numpy as np
@@ -38,6 +57,13 @@ from trlx_tpu_torch.models.policy import (
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.rollout import (
+    AsyncRolloutEngine,
+    ExperienceQueue,
+    ParameterPublisher,
+    StalenessAccountant,
+    length_bucketed,
+)
 from trlx_tpu_torch.serving import GenerationClient, ServingEngine
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.mesh_trainer import POW2_BUCKETS, MeshRLTrainer
@@ -67,6 +93,19 @@ class PPOTrainer(MeshRLTrainer):
         self._serving_client = None
         self._serving_engine = None
         self._serving_max_new = 0
+        # the snapshot the engine holds (async: installed only when it changes)
+        self._serving_param_ref = None
+
+        # async rollouts (train.async_rollouts), started in prepare_learning:
+        # the producer engine, its copy of the policy and its sampling stream
+        self._engine = None
+        self._async_cfg = None
+        self._policy_version = 0
+        self._producer_model = None
+        self._producer_params = None
+        self._producer_generator = None
+        #: the drain ledger of the last async run (set by on_learn_end)
+        self.rollout_engine_summary = None
 
         # prompt-stream position: draws from the infinite prompt iterator,
         # checkpointed and replayed on resume
@@ -125,8 +164,8 @@ class PPOTrainer(MeshRLTrainer):
             self.ref_model.load_state_dict(self.model.transformer.state_dict())
             self.ref_model.requires_grad_(False)
 
-    def gen_step_fn(self):
-        trunk = self.model.transformer
+    def gen_step_fn(self, policy=None):
+        trunk = (self.model if policy is None else policy).transformer
 
         def step(ids, mask, positions, cache):
             # generate() samples from the last position only
@@ -143,7 +182,9 @@ class PPOTrainer(MeshRLTrainer):
         batch = self.method.decode_batch_size or self.method.chunk_size
         self._prompt_pipeline = pipeline
         loader = pipeline.create_loader(batch, shuffle=True, seed=self.config.train.seed)
-        self.prompt_iterator = infinite_loader(loader)
+        self.prompt_iterator = length_bucketed(
+            infinite_loader(loader), self.config.train.async_rollouts.length_bucket_lookahead
+        )
 
     def setup_rollout_logging(self, config):
         import json
@@ -157,22 +198,24 @@ class PPOTrainer(MeshRLTrainer):
             f.write(json.dumps(config.to_dict(), indent=2))
 
     @torch.no_grad()
-    def score(self, seq: np.ndarray, mask: np.ndarray, P: int, R: int):
+    def score(self, seq: np.ndarray, mask: np.ndarray, P: int, R: int, policy=None):
         """Policy logprobs and values and reference logprobs over the
         response window of ``seq`` (prompt left-padded to P, response
         right-padded to R): host f32 arrays [B, R]. The hydra reference runs
         the frozen branch from the activation the policy forward captured at
-        ``branch_start``."""
+        ``branch_start``. ``policy`` replaces ``self.model`` (the async
+        producer passes its snapshot copy)."""
+        policy = self.model if policy is None else policy
         seq_t = torch.from_numpy(seq).to(self.device)
         mask_t = torch.from_numpy(mask).to(self.device)
         labels = seq_t[:, P:P + R]
-        logits, values, branch_hidden, _ = self.model(seq_t, mask_t, branch_layer=self.branch_start)
+        logits, values, branch_hidden, _ = policy(seq_t, mask_t, branch_layer=self.branch_start)
         # the window's logits only: log_softmax is per position
         logprobs = logprobs_of_labels(logits[:, P - 1:P - 1 + R], labels)
         values = values[:, P - 1:P - 1 + R].float()
         del logits
         if self.frozen_branch is not None:
-            ref_logits = self.model.forward_branch(
+            ref_logits = policy.forward_branch(
                 branch_hidden, mask_t, None, self.branch_start, branch=self.frozen_branch
             )
         else:
@@ -246,30 +289,50 @@ class PPOTrainer(MeshRLTrainer):
             f"impl={cfg.attention_impl}, spec_k={cfg.spec_k}, prefill_chunk={cfg.prefill_chunk}"
         )
 
-    def _serving_generate(self, prompts):
+    def _serving_generate(self, prompts, params=None):
         """The engine's replacement for ``self.generate`` in rollouts: the
-        same ``(sequences, response_mask, pad_len)`` contract."""
+        same ``(sequences, response_mask, pad_len)`` contract. ``params`` (a
+        published snapshot of the trained state) is installed in the engine
+        when it is not the snapshot the engine holds; the engine flushes its
+        prefix cache then."""
+        if params is not None and params is not self._serving_param_ref:
+            prefix = "transformer."
+            self._serving_engine.set_params({k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)})
+            self._serving_param_ref = params
         return self._serving_client.generate_batch(prompts, self._serving_max_new)
 
     def on_learn_end(self):
-        """Close the serving engine (its gauges clear) once learning ends."""
-        engine, self._serving_engine, self._serving_client = self._serving_engine, None, None
+        """Stop and join the rollout producer (no thread left, whatever path
+        exited learn()), then close the serving engine (its gauges clear).
+        Producer errors found here are logged, not raised: this runs in
+        learn()'s finally and must not mask the original exception; a
+        producer death during training already surfaced through collect()."""
+        engine, self._engine = self._engine, None
         if engine is not None:
-            logger.info(f"serving engine closed: {engine.summary()}")
-            engine.close()
+            try:
+                self.rollout_engine_summary = engine.stop(timeout=self._async_cfg.drain_timeout_s)
+                logger.info(f"async rollout engine stopped: {self.rollout_engine_summary}")
+            except Exception as e:
+                logger.warning(f"async rollout engine teardown: {type(e).__name__}: {e}")
+        serving, self._serving_engine, self._serving_client = self._serving_engine, None, None
+        if serving is not None:
+            logger.info(f"serving engine closed: {serving.summary()}")
+            serving.close()
 
-    def _generate_chunks(self, tokenizer):
+    def _generate_chunks(self, tokenizer, policy=None, generator=None, params=None):
         """One generation at decode_batch_size, split into chunk_size
-        sub-chunks for reward_fn and the scoring forward."""
+        sub-chunks for reward_fn and the scoring forward. The async producer
+        passes its policy copy, its generator and the snapshot ``params``
+        (which the serving engine installs)."""
         batch = next(self.prompt_iterator)
         self._prompt_batches_drawn += 1
         prompts = batch["input_ids"]
         metadata = {k: v for k, v in batch.items() if k != "input_ids"}
         t0 = time.perf_counter()
         if self._serving_client is not None:
-            samples, resp_mask, pad_len = self._serving_generate(prompts)
+            samples, resp_mask, pad_len = self._serving_generate(prompts, params=params)
         else:
-            samples, resp_mask, pad_len = self.generate(prompts, eval_mode=False)
+            samples, resp_mask, pad_len = self.generate(prompts, eval_mode=False, policy=policy, generator=generator)
         self._phase_time["generate"] += time.perf_counter() - t0
         str_samples, str_prompts, str_outputs, out_ids = self.decode(
             prompts, samples, pad_len, append_eos=True, response_masks=resp_mask
@@ -289,7 +352,12 @@ class PPOTrainer(MeshRLTrainer):
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
         """Roll out prompts -> generations -> rewards -> KL-penalized per-token
         reward assembly -> rollout store. Seconds spent generating, in
-        reward_fn and scoring land in ``time/rollout_{generate,reward,score}``."""
+        reward_fn and scoring land in ``time/rollout_{generate,reward,score}``.
+
+        With ``method.overlap_reward_scoring``, reward_fn for one
+        generation's chunks runs on a worker thread while the next
+        generation runs on the device (with its own copy of the tokenizer);
+        ``time/rollout_reward`` then counts the worker's seconds."""
         logger.info(f"Collecting {num_rollouts} rollouts")
         ppo_rl_elements: List[PPORLElement] = []
         accumulated_kl = []
@@ -300,32 +368,73 @@ class PPOTrainer(MeshRLTrainer):
             # the policy changed since the last phase: install it (the
             # engine flushes its prefix cache, computed under the old weights)
             self._serving_engine.set_params(self.model.transformer.state_dict())
-        while len(ppo_rl_elements) < num_rollouts:
-            for chunk, reward_kwargs in self._generate_chunks(self.tokenizer):
-                t0 = time.perf_counter()
-                scores = self.call_reward_fn(**reward_kwargs)
-                self._phase_time["reward"] += time.perf_counter() - t0
-                self._score_and_store(chunk, scores, ppo_rl_elements, accumulated_kl, all_scores_log)
+        if self.method.overlap_reward_scoring:
+            if not hasattr(self, "_reward_tokenizer"):
+                self._reward_tokenizer = copy.deepcopy(self.tokenizer)
+            generated = 0  # counted at generation time: ppo_rl_elements lags
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                pending = deque()
+                while generated < num_rollouts or pending:
+                    new = []
+                    if generated < num_rollouts:
+                        new = [(chunk, pool.submit(self._timed_reward_fn, **kw))
+                               for chunk, kw in self._generate_chunks(self._reward_tokenizer)]
+                        generated += sum(len(chunk[0]) for chunk, _ in new)
+                    # store the previous generation's chunks while this one's
+                    # rewards run behind the next device generation
+                    while pending:
+                        chunk, fut = pending.popleft()
+                        self._score_and_store(chunk, fut.result(), ppo_rl_elements, accumulated_kl, all_scores_log)
+                    pending.extend(new)
+        else:
+            while len(ppo_rl_elements) < num_rollouts:
+                self._collect_chunks(ppo_rl_elements, accumulated_kl, all_scores_log)
 
         self.mean_kl = float(np.mean(accumulated_kl))
-        rollout_time = self.clock.tick()
-        self.rollout_stats = {
-            "rollout_scores/mean": float(np.mean(all_scores_log)),
-            "rollout_scores/std": float(np.std(all_scores_log)),
-            "rollout_scores/running_mean": float(self.running_moments.mean),
-            "rollout_scores/running_std": float(self.running_moments.std),
-            "policy/sqrt_kl": float(np.sqrt(max(self.mean_kl, 0.0))),
-            "kl_ctl_value": float(self.kl_ctl.value),
-            "time/rollout_time": rollout_time,
-            **{f"time/rollout_{k}": v for k, v in self._phase_time.items()},
-        }
+        self.rollout_stats = self._rollout_stats(all_scores_log, **{"time/rollout_time": self.clock.tick()})
         if self.log_rollouts:
             self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)
         self.push_to_store(ppo_rl_elements[:num_rollouts])
 
-    def _score_and_store(self, chunk, scores, ppo_rl_elements, accumulated_kl, all_scores_log):
+    def _timed_reward_fn(self, **kwargs):
+        """reward_fn, its seconds added to ``time/rollout_reward``."""
+        t0 = time.perf_counter()
+        scores = self.call_reward_fn(**kwargs)
+        self._phase_time["reward"] += time.perf_counter() - t0
+        return scores
+
+    def _collect_chunks(self, elements, kls, scores_log, policy=None, generator=None, params=None):
+        """One decode batch of generate -> reward_fn -> score, its elements,
+        per-sequence KLs and raw scores appended to the three lists.
+        ``policy``, ``generator`` and ``params`` are the async producer's
+        (:meth:`_generate_chunks`); ``policy`` also scores."""
+        for chunk, reward_kwargs in self._generate_chunks(
+            self.tokenizer, policy=policy, generator=generator, params=params
+        ):
+            scores = self._timed_reward_fn(**reward_kwargs)
+            self._score_and_store(chunk, scores, elements, kls, scores_log, policy=policy)
+
+    def _rollout_stats(self, scores_log, **extra) -> Dict[str, float]:
+        """The experience stats the train steps report: the raw scores of
+        this phase (0 when it scored none) and their running moments, the KL
+        controller's view of ``mean_kl``, the seconds of each part of the
+        phase, and ``extra``."""
+        return {
+            "rollout_scores/mean": float(np.mean(scores_log)) if scores_log else 0.0,
+            "rollout_scores/std": float(np.std(scores_log)) if scores_log else 0.0,
+            "rollout_scores/running_mean": float(self.running_moments.mean),
+            "rollout_scores/running_std": float(self.running_moments.std),
+            "policy/sqrt_kl": float(np.sqrt(max(self.mean_kl, 0.0))),
+            "kl_ctl_value": float(self.kl_ctl.value),
+            **{f"time/rollout_{k}": v for k, v in self._phase_time.items()},
+            **extra,
+        }
+
+    def _score_and_store(self, chunk, scores, ppo_rl_elements, accumulated_kl, all_scores_log, policy=None):
         """Normalize scores, run the scoring forwards, and assemble
-        KL-penalized PPORLElements."""
+        KL-penalized PPORLElements. ``policy`` replaces ``self.model`` for
+        the behavior logprobs and values (the async producer passes the
+        snapshot copy it sampled with)."""
         prompts, out_ids = chunk
         dense = np.ndim(scores[0]) > 0
         if dense:
@@ -354,7 +463,7 @@ class PPOTrainer(MeshRLTrainer):
             r_mask[i, : len(o)] = 1
         t0 = time.perf_counter()
         logprobs, values, ref_logprobs = self.score(
-            np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R
+            np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R, policy=policy
         )
         self._phase_time["score"] += time.perf_counter() - t0
 
@@ -383,6 +492,85 @@ class PPOTrainer(MeshRLTrainer):
                 )
             )
 
+    # ---------------------------------------------------------- async rollouts
+
+    def _resolve_async_config(self):
+        """The effective ``train.async_rollouts`` block, or None for the
+        synchronous path. ``max_staleness=0`` means fully on-policy, which
+        is the synchronous path itself."""
+        cfg = self.config.train.async_rollouts
+        if not cfg.enabled:
+            return None
+        if cfg.max_staleness <= 0:
+            logger.warning(
+                "async_rollouts.max_staleness=0 requests fully on-policy data: running the synchronous rollout path"
+            )
+            return None
+        return cfg
+
+    def _start_async_engine(self):
+        """Publish version 0, build the producer's copy of the policy and its
+        generator, and start the producer thread."""
+        cfg = self._async_cfg
+        publisher = ParameterPublisher()
+        self._policy_version = publisher.publish(self.model.state_dict())
+        with torch.device(self.device):
+            self._producer_model = CausalLMWithValueHead(
+                self.model_config, num_value_layers=self.method.num_value_layers_unfrozen
+            )
+        self._producer_model.requires_grad_(False)
+        self._producer_params = None
+        # the producer's own sampling stream: evaluate() keeps self.generator
+        self._producer_generator = torch.Generator(device=self.device).manual_seed(
+            int(self.config.train.seed) + 1
+        )
+        capacity = cfg.queue_capacity or 4 * self.method.num_rollouts
+        queue = ExperienceQueue(capacity, cfg.high_watermark, cfg.low_watermark)
+        self._engine = AsyncRolloutEngine(
+            self._produce_rollout_chunk, publisher, queue, StalenessAccountant(cfg.max_staleness)
+        )
+        self._engine.start()
+        logger.info(
+            f"async rollout engine started: queue_capacity={capacity} "
+            f"(high={queue.high_watermark}, low={queue.low_watermark}), "
+            f"max_staleness={cfg.max_staleness}, publish_interval={cfg.publish_interval}"
+        )
+
+    def _produce_rollout_chunk(self, params, version):
+        """PRODUCER THREAD: one decode batch of generate -> reward -> score,
+        with the published snapshot as both sampling and behavior-scoring
+        policy: the producer's copy of the policy loads a snapshot once, when
+        its version is new. Shares no mutable state with the learner except
+        the float stats below (atomic swaps under the GIL); evaluate() pauses
+        the engine around itself."""
+        with torch.no_grad():
+            if params is not self._producer_params:
+                self._producer_model.load_state_dict(params)
+                self._producer_params = params
+            elements: List[PPORLElement] = []
+            kls: List[float] = []
+            scores_log: List[float] = []
+            self._phase_time = {"generate": 0.0, "reward": 0.0, "score": 0.0}
+            t0 = time.perf_counter()
+            self._collect_chunks(elements, kls, scores_log, policy=self._producer_model,
+                                 generator=self._producer_generator, params=params)
+        if kls:
+            self.mean_kl = float(np.mean(kls))
+        self.rollout_stats = self._rollout_stats(scores_log, **{
+            "time/rollout_chunk_time": time.perf_counter() - t0, "rollout/producer_version": float(version)})
+        return elements
+
+    def _refill_store_async(self):
+        """Pull ``num_rollouts`` staleness-admitted elements from the engine
+        into the rollout store (the async analogue of make_experience)."""
+        n = self.method.num_rollouts
+        t0 = time.perf_counter()
+        elements = self._engine.collect(n, self._policy_version, timeout=self._async_cfg.collect_timeout_s)
+        gauges.set("rollout/collect_wait_s", time.perf_counter() - t0)
+        if self.log_rollouts:
+            self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)
+        self.push_to_store(elements[:n])
+
     # ------------------------------------------------------------- train loop
 
     def _extra_state(self):
@@ -408,7 +596,12 @@ class PPOTrainer(MeshRLTrainer):
         self.num_mb = max(1, bs // (self.config.train.minibatch_size or bs))
         self._fast_forward_prompt_stream()
         self._resolve_serving()
-        self.make_experience(self.method.num_rollouts, self.iter_count)
+        self._async_cfg = self._resolve_async_config()
+        if self._async_cfg is not None:
+            self._start_async_engine()
+            self._refill_store_async()
+        else:
+            self.make_experience(self.method.num_rollouts, self.iter_count)
 
     def create_train_dataloader(self):
         """ppo_epochs passes over the current rollout store per outer epoch."""
@@ -421,7 +614,8 @@ class PPOTrainer(MeshRLTrainer):
     def loss_fn(self, mb: PPORLBatch):
         """(loss, flat stats) of one device microbatch: the policy forward
         over prompt + response, logprobs and values over the response window,
-        GAE, and the clipped PPO loss."""
+        GAE, and the clipped PPO loss; under the async engine with
+        ``staleness_correction``, the batch's staleness and the IS clip."""
         seq = torch.cat([mb.query_tensors, mb.response_tensors], dim=1)
         mask = torch.cat([mb.attention_mask, mb.response_mask], dim=1)
         logits, values_pred, _, _ = self.model(seq, mask)
@@ -432,25 +626,55 @@ class PPOTrainer(MeshRLTrainer):
         advantages, returns = self.method.get_advantages_and_returns(
             mb.values, mb.rewards, mb.response_mask
         )
+        extra = {}
+        if mb.staleness is not None:
+            extra = dict(staleness=mb.staleness, is_ratio_clip=float(self._async_cfg.is_ratio_clip))
         loss, stats = self.method.loss(
-            logprobs, values_pred, mb.logprobs, mb.values, advantages, returns, mb.response_mask,
+            logprobs, values_pred, mb.logprobs, mb.values, advantages, returns, mb.response_mask, **extra,
         )
         return loss, flatten_dict(stats)
 
     def train_step(self, batch: PPORLBatch) -> Dict[str, float]:
+        if self._engine is not None:
+            # staleness is learner-relative and is stamped NOW (the learner
+            # kept publishing while this collated batch waited)
+            stale = np.maximum(0, self._policy_version - np.asarray(batch.policy_version, np.int64)).astype(np.int32)
+            gauges.set("rollout/batch_staleness_mean", float(stale.mean()))
+            gauges.set("rollout/batch_staleness_max", float(stale.max()))
+            if self._async_cfg.staleness_correction:
+                batch = batch.replace(staleness=stale)
         if self._train_step_fn is None:
             self._train_step_fn = self.make_grad_accum_step(self.loss_fn, self.num_mb)
         out = self._train_step_fn(batch.to(self.device))
         out.update(self.rollout_stats)
+        if self._engine is not None:
+            out.update(gauges.snapshot("rollout/"))
         if self._serving_client is not None:
             out.update(gauges.snapshot("serving/"))
         return out
 
     def post_backward_callback(self):
-        """KL controller update per optimizer step."""
+        """KL controller update per optimizer step; under the async engine,
+        also publish a copy of the trained state every ``publish_interval``
+        steps, so the producer's next chunk samples the newest policy."""
         self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
+        if self._engine is not None and self.iter_count % max(1, self._async_cfg.publish_interval) == 0:
+            self._policy_version = self._engine.publisher.publish(self.model.state_dict())
+            gauges.set("rollout/learner_version", float(self._policy_version))
 
     def post_epoch_callback(self, epoch: int):
-        """Discard stale rollouts and collect fresh experience."""
+        """Discard stale rollouts and collect fresh experience (async: drain
+        what the producer generated during the optimizer epochs)."""
         self.store.clear_history()
-        self.make_experience(self.method.num_rollouts, self.iter_count)
+        if self._engine is not None:
+            self._refill_store_async()
+        else:
+            self.make_experience(self.method.num_rollouts, self.iter_count)
+
+    def evaluate(self):
+        """Evaluation shares the tokenizer with the rollout producer: the
+        engine pauses for its duration."""
+        if self._engine is not None and self._engine.running:
+            with self._engine.paused():
+                return super().evaluate()
+        return super().evaluate()

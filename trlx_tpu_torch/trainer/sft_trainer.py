@@ -56,8 +56,8 @@ class SFTTrainer(MeshRLTrainer):
         # parameter names "transformer.*", as the JAX trainer's params tree
         self.model = nn.ModuleDict({"transformer": self.load_trunk(TransformerLM)})
 
-    def gen_step_fn(self):
-        trunk = self.model.transformer
+    def gen_step_fn(self, policy=None):
+        trunk = (self.model if policy is None else policy).transformer
 
         def step(ids, mask, positions, cache):
             # generate() samples from the last position only

@@ -1,20 +1,24 @@
 """Public ``train()`` entry (counterpart of ``trlx_tpu/trlx.py``): builds
 the trainer and its pipelines and runs ``learn()``.
 
-Dispatch rows of the JAX package:
+Dispatch rows, as in the JAX package (``config`` overrides the default
+when given):
 
-==========================  =========================  ======================
- given                       mode                       in this port
-==========================  =========================  ======================
- ``reward_fn``               online RL (PPO)            ported
- ``environment``             environment RL (GRPO)      GRPO / online slice
- ``samples`` + ``rewards``   offline RL (ILQL)          ported
- ``samples``                 supervised (SFT)           ported
-==========================  =========================  ======================
+==========================  =========================  ========================
+ given                       mode                       default config
+==========================  =========================  ========================
+ ``reward_fn``               online RL (PPO/GRPO/RFT)   ``default_ppo_config``
+ ``environment``             environment RL (GRPO)      ``default_grpo_config``
+ ``samples`` + ``rewards``   offline RL (ILQL)          ``default_ilql_config``
+ ``samples``                 supervised (SFT)           ``default_sft_config``
+==========================  =========================  ========================
 
 ``reward_fn`` with an ``RFTConfig`` (``train.trainer="RFTTrainer"``) runs
-rejection fine-tuning. With ``config=None`` the default config is picked by
-the row: PPO for ``reward_fn``, ILQL for ``rewards``, SFT for ``samples``.
+rejection fine-tuning, with a ``GRPOConfig`` (``train.trainer=
+"GRPOTrainer"``) GRPO. ``environment`` is an
+:class:`~trlx_tpu_torch.online.environment.Environment` scored through its
+stateless ``evaluate``: it is adapted into a reward_fn and flows through
+the ``reward_fn`` row.
 
 ``device=None`` runs on the CUDA device and raises when there is none;
 ``device="cpu"`` runs the plain CPU path.
@@ -23,7 +27,13 @@ the row: PPO for ``reward_fn``, ILQL for ``rewards``, SFT for ``samples``.
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ilql_config, default_ppo_config, default_sft_config
+from trlx_tpu_torch.data.default_configs import (
+    default_grpo_config,
+    default_ilql_config,
+    default_ppo_config,
+    default_sft_config,
+)
+from trlx_tpu_torch.online.environment import environment_reward_fn
 from trlx_tpu_torch.utils import logging, set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -44,22 +54,22 @@ def train(
     environment=None,
     device=None,
 ):
-    """Fit with PPO (or RFT) from ``reward_fn`` and ``prompts``, with ILQL
-    from ``samples`` and ``rewards``, or with SFT from ``samples`` (strings
-    or (prompt, output, ...) dialogues): the JAX package's surface plus
-    ``device``. Returns the trainer."""
+    """Fit with PPO (or GRPO, RFT) from ``reward_fn`` and ``prompts``, with
+    GRPO from ``environment`` and ``prompts``, with ILQL from ``samples``
+    and ``rewards``, or with SFT from ``samples`` (strings or (prompt,
+    output, ...) dialogues): the JAX package's surface plus ``device``.
+    Returns the trainer."""
     if reward_fn is not None and environment is not None:
         raise ValueError(
             "`reward_fn` and `environment` are mutually exclusive: an environment IS the reward source"
         )
-    if environment is not None:
-        raise NotImplementedError("trlx_tpu_torch does not port environment training yet: GRPO / online slice")
     if dataset is not None:
         logger.warning("the `dataset` argument is being depreciated, split it into `samples` and `rewards` instead")
         samples, rewards = dataset
-    if reward_fn is None and samples is None:
+    if reward_fn is None and environment is None and samples is None:
         raise ValueError(
-            "One of `samples` (SFT / +`rewards` for ILQL) or `reward_fn` (PPO / RFT) should be given for training"
+            "One of `samples` (SFT / +`rewards` for ILQL), `reward_fn` (PPO / GRPO / RFT) or `environment` "
+            "(GRPO) should be given for training"
         )
     if config is None:
         logger.warning(
@@ -67,10 +77,14 @@ def train(
         )
         if reward_fn:
             config = default_ppo_config()
+        elif environment is not None:
+            config = default_grpo_config()
         elif rewards:
             config = default_ilql_config()
         else:
             config = default_sft_config()
+    if environment is not None:
+        reward_fn = environment_reward_fn(environment)
     if model_path:
         config.model.model_path = model_path
 

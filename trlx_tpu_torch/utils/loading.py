@@ -6,13 +6,11 @@ runs their registry decorators."""
 def get_trainer(name: str) -> type:
     import trlx_tpu_torch.trainer  # noqa: F401 — populate registry
 
-    from trlx_tpu_torch.trainer import _TRAINERS, LATER_TRAINERS
+    from trlx_tpu_torch.trainer import _TRAINERS
 
     key = name.lower()
     if key in _TRAINERS:
         return _TRAINERS[key]
-    if key in LATER_TRAINERS:
-        raise NotImplementedError(f"trlx_tpu_torch does not port {name} yet: {LATER_TRAINERS[key]}")
     raise ValueError(f"Unknown trainer {name!r}. Registered: {sorted(_TRAINERS)}")
 
 

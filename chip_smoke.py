@@ -200,7 +200,21 @@ Phases, each printing one JSON line:
                   (max_staleness 1): ``reward/mean`` >= 0.7 at the first
                   eval at or after step 100.
 
-Then the kernel table (``{"kernels": [...]}``) and, last, the result line
+29. ``resilience`` — a main path: ``train.resilience`` and
+                  ``train.self_healing`` at full gpt2 width with ``train``'s
+                  traffic (:func:`phase_resilience`): a real SIGTERM, the
+                  emergency checkpoint and an auto-resume equal to an
+                  uninterrupted 8-step run (parameters, AdamW state and
+                  stats); the learner's stall per save, sync against
+                  async, and the async checkpoint equal to the state at its
+                  save; ``checkpoint:1``; ``nan-loss:2`` skipped and rolled
+                  back; a halt with its bundle; ``bad-element:1``; the
+                  producer supervisor through ``rollout-producer:1,
+                  producer-wedge:1``; K1/K2/K3 counted and replayed at every
+                  recorded shape.
+
+Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
+table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
 line needs all of them).
 """
@@ -219,7 +233,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks",
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
-          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async")
+          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -3332,6 +3346,380 @@ def phase_randomwalks_async(ctx):
         raise AssertionError(f"randomwalks_async phase: below the bar: {report['gate_eval']}")
 
 
+#: the resilience phase's preempt leg: 8 steps, a checkpoint every 4, and an
+#: eval every 3 (64 rollouts are two learner batches, so an experience epoch
+#: ends at every even step; the SIGTERM is sent during the eval after step
+#: 3, and the flag is polled after step 4, the end of an epoch: only there
+#: does the reference's resume continue the same experience)
+RES_STEPS, RES_CKPT_EVERY, RES_EVAL_EVERY = 8, 4, 3
+#: the supervisor leg's wedge timer: above a full-width produce iteration
+RES_WEDGE_TIMEOUT_S = 6.0
+
+
+def resilience_config(ckpt_dir, **over):
+    """The train phase's model and traffic (64 sampled rollouts of 128
+    tokens, steps of 32 in 2 microbatches, bf16 compute, f32 params and
+    AdamW) with the optimizer saved, greedy evaluation (``gen_kwargs``) and
+    sampled rollouts (``gen_experience_kwargs``): a greedy eval draws
+    nothing from the sampling generator, so a resumed run's first eval
+    leaves the stream where the uninterrupted run has it. ``over`` merges
+    more dotted overrides."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    return TRLConfig.update(full_width_train_config(ckpt_dir), {
+        "train.total_steps": RES_STEPS, "train.checkpoint_interval": RES_CKPT_EVERY,
+        "train.eval_interval": RES_EVAL_EVERY, "train.save_optimizer": True,
+        "method.gen_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=False),
+        "method.gen_experience_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=True, top_k=0, top_p=1.0),
+        **over})
+
+
+def learner_state(trainer):
+    """Device copies of the trainer's parameters and AdamW state."""
+    return ({k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            {i: {k: v.detach().clone() for k, v in s.items()}
+             for i, s in trainer.optimizer.state_dict()["state"].items()})
+
+
+def same_state(a, b):
+    """Whether two :func:`learner_state` copies are ``torch.equal``
+    tensor by tensor (and hold the same tensors)."""
+    import torch
+
+    (pa, oa), (pb, ob) = a, b
+    return (pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+            and oa.keys() == ob.keys() and all(
+                oa[i].keys() == ob[i].keys() and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa))
+
+
+def max_rel_diff(a, b):
+    """Largest |a - b| / max(|a|, 1e-12) over two stats lists of dicts."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        for k in x:
+            worst = max(worst, abs(x[k] - y.get(k, float("nan"))) / max(abs(x[k]), 1e-12))
+    return worst
+
+
+def phase_resilience(ctx):
+    """A main path: resilience and self-healing (``train.resilience``,
+    ``train.self_healing``) through ``trlx_tpu_torch.train`` at gpt2 full
+    width with the train phase's traffic (:func:`resilience_config`). Four
+    legs:
+
+    1. Preempt and resume: an uninterrupted run of 8 steps (a checkpoint
+       every 4); the same run with resilience on (and ``reward:2``, retried),
+       whose reward_fn sends a real SIGTERM to its own process during the
+       eval after step 3, so the run writes a committed emergency checkpoint
+       at step 4 (a blocking write through the async writer, timed against
+       ``grace_period_s``) and returns; a fresh trainer auto-resumes and
+       finishes to step 8. Bar: the parameters and AdamW state at step 8
+       and the stats of steps 5-8 equal to the uninterrupted run's
+       (``torch.equal`` / ``==``), and the interrupted run's steps 1-4
+       equal to the uninterrupted run's (the retried reward faults change
+       nothing). On a mismatch a second uninterrupted run tells a
+       non-deterministic op (the two uninterrupted runs differ) from a
+       resume fault; the leg is then held to 1e-3 relative.
+    2. Async checkpoint under steps, on the resumed trainer: the learner's
+       stall per save for the synchronous ``save`` (the whole 1.5 GB write),
+       a synchronous ``.to("cpu")`` copy of the same state, and the async
+       path (a pinned ``non_blocking`` snapshot behind a CUDA event, then a
+       background commit), with a learner step taken while the commit runs
+       beside one taken with none. Bar: the loaded checkpoint equals the
+       parameters and AdamW state at the save (``torch.equal``). Then
+       ``checkpoint:1``: the write fails, no final directory and no
+       sentinel appear, the error re-raises at ``wait()``, and
+       ``find_latest_committed`` returns the earlier checkpoint.
+    3. Self-healing: ``nan-loss:2`` armed after step 2 (checkpoint 2
+       committing through the async writer) with ``rollback_after`` 2: steps 3 and 4 report
+       ``health/update_applied`` 0 and leave parameters and AdamW state
+       ``torch.equal``; the guard rolls back to checkpoint 2 and the run
+       finishes at step 4 with finite losses. A second run with
+       ``max_rollbacks`` 0 (and ``bad-element:1``) raises
+       ``TrainingHealthError`` whose diagnostics bundle exists, with
+       exactly one element in the quarantine file.
+    4. Producer supervisor: async rollouts under self-healing with
+       ``rollout-producer:1,producer-wedge:1`` (the wedge timer at
+       ``RES_WEDGE_TIMEOUT_S``), 2 steps: two restarts, the drain ledger
+       balances, no producer thread is left.
+
+    Launch counts are reset before the legs and read after them: K2 and K3
+    once per layer and microbatch in every learner step (skipped steps run
+    their backward too), K1 in every run. Every K1/K2/K3 call shape of the
+    legs is then held against the plain versions."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.resilience import chaos, find_latest_committed, is_committed
+    from trlx_tpu_torch.resilience.checkpoint import PAYLOAD_FILE
+    from trlx_tpu_torch.resilience.health import TrainingHealthError
+    from trlx_tpu_torch.resilience.preemption import PreemptionHandler
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.metrics import gauges
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    num_mb = TRAIN_B // TRAIN_MB
+    smi = ctx.get("smi")
+    steps = []  # (run, stats without time/*) of every train_step call
+    hooks = {}  # run -> callable(trainer, n) after its n-th step
+    run = {"name": None}
+    original_step = PPOTrainer.train_step
+
+    def train_step(self, batch):
+        out = original_step(self, batch)
+        steps.append((run["name"], {k: v for k, v in out.items() if not k.startswith("time/")}))
+        hook = hooks.get(run["name"])
+        if hook is not None:
+            hook(self, sum(1 for r, _ in steps if r == run["name"]))
+        return out
+
+    def train(name, cfg, chaos_spec=None, reward=byte_share_reward):
+        run["name"] = name
+        if chaos_spec:
+            os.environ["TRLX_CHAOS"] = chaos_spec  # read by the trainer's Resilience
+        try:
+            return trlx_tpu_torch.train(config=cfg, reward_fn=reward, prompts=byte_prompts(64, 64, 128, SEED + 1),
+                                        eval_prompts=byte_prompts(32, 64, 128, SEED + 2))
+        finally:
+            os.environ.pop("TRLX_CHAOS", None)
+            chaos.configure(None)
+
+    def stats_of(name):
+        return [st for r, st in steps if r == name]
+
+    report = {"phase": "resilience", "card": smi}
+    checks = {}
+    PPOTrainer.train_step = train_step
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t_phase = time.perf_counter()
+    try:
+        # ---- leg 1: preempt and resume
+        t0 = time.perf_counter()
+        whole = train("whole", resilience_config(os.path.join(root, "whole")))
+        L = whole.model_config.num_layers
+        whole_state = learner_state(whole)
+        del whole
+        calls = {"n": 0}
+
+        def signalling_reward(samples, prompts, outputs, **kw):
+            calls["n"] += 1
+            if calls["n"] == 6:  # eval@0, 2 + 2 rollout chunks, then the eval after step 3
+                if not isinstance(getattr(signal.getsignal(signal.SIGTERM), "__self__", None), PreemptionHandler):
+                    raise AssertionError("SIGTERM is not trapped by the PreemptionHandler: not sending it")
+                os.kill(os.getpid(), signal.SIGTERM)
+            return byte_share_reward(samples, prompts, outputs)
+
+        res_cfg = dict(enabled=True, retry_base_delay_s=0.01, retry_max_delay_s=0.02)
+        ckpt = os.path.join(root, "preempt")
+        first = train("first", resilience_config(ckpt, **{"train.resilience": res_cfg}), chaos_spec="reward:2",
+                      reward=signalling_reward)
+        emergency = {"iter": first.iter_count, "seconds": first.emergency_checkpoint_s,
+                     "grace_period_s": first.config.train.resilience.grace_period_s,
+                     "reason": first.resilience.preemption.reason,
+                     "retries": gauges.get("resilience/retries")}
+        del first
+        resumed = train("resumed", resilience_config(ckpt, **{"train.resilience": res_cfg}))
+        resumed_state = learner_state(resumed)
+        exact = {
+            "params and AdamW at step 8": same_state(whole_state, resumed_state),
+            "stats of steps 5-8": stats_of("resumed") == stats_of("whole")[4:],
+            "stats of steps 1-4 (reward:2 retried)": stats_of("first") == stats_of("whole")[:4],
+        }
+        leg1 = {"leg": "preempt_resume", "seconds": time.perf_counter() - t0, "emergency_checkpoint": emergency,
+                "final_iter": resumed.iter_count, "exact": exact,
+                "stats_max_rel_diff_5_8": max_rel_diff(stats_of("whole")[4:], stats_of("resumed"))}
+        checks.update({
+            "a real SIGTERM stopped the run at step 4": emergency["iter"] == 4 and "SIGTERM" in (emergency["reason"] or ""),
+            "the emergency checkpoint is committed": is_committed(os.path.join(ckpt, "checkpoint_4")),
+            "the emergency write fits the grace window": emergency["seconds"] < emergency["grace_period_s"],
+            "reward:2 retried": emergency["retries"] == 2.0,
+            "the resumed run finished at step 8": resumed.iter_count == RES_STEPS,
+        })
+        if all(exact.values()):
+            checks["resume exact (torch.equal)"] = True
+        else:
+            again = train("whole_again", resilience_config(os.path.join(root, "whole_again")))
+            leg1["uninterrupted_runs_equal"] = {
+                "params and AdamW": same_state(whole_state, learner_state(again)),
+                "stats": stats_of("whole_again") == stats_of("whole")}
+            del again
+            deterministic = all(leg1["uninterrupted_runs_equal"].values())
+            # a resume fault if the card repeats itself; else the op that does not
+            # is recorded and the leg is held to the trainer-parity limit
+            checks["resume exact, or the card is not deterministic and within 1e-3"] = (
+                not deterministic and leg1["stats_max_rel_diff_5_8"] <= 1e-3)
+        emit({**report, **leg1})
+
+        # ---- leg 2: async checkpoint under steps (the resumed trainer)
+        t0 = time.perf_counter()
+        batches = list(resumed.create_train_dataloader())
+        writer = resumed.resilience.writer
+        resumed.train_step(batches[0])
+        torch.cuda.synchronize()
+        at_save = learner_state(resumed)
+        leg2 = {"leg": "async_checkpoint", "payload_gib": sum(
+            t.numel() * t.element_size() for t in [*at_save[0].values(), *(
+                t for st in at_save[1].values() for t in st.values())]) / 2 ** 30}
+        t1 = time.perf_counter()
+        resumed.save(os.path.join(root, "sync", "checkpoint_9"))
+        leg2["sync_save_stall_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host = {k: v.to("cpu") for k, v in resumed.model.state_dict().items()}
+        host_opt = {i: {k: v.to("cpu") for k, v in s.items()} for i, s in resumed.optimizer.state_dict()["state"].items()}
+        leg2["sync_to_cpu_stall_s"] = time.perf_counter() - t1
+        del host, host_opt
+        async_dir = os.path.join(root, "async")
+        stalls, commits = [], []
+        for k, name in enumerate(("checkpoint_10", "checkpoint_11")):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            resumed._save_checkpoint(os.path.join(async_dir, name))
+            stalls.append(time.perf_counter() - t1)
+            if k == 0:
+                t1 = time.perf_counter()
+                resumed.train_step(batches[1])  # steps go on while the commit runs
+                torch.cuda.synchronize()
+                leg2["step_during_commit_s"] = time.perf_counter() - t1
+                leg2["commit_in_flight_after_the_step"] = writer.in_flight
+            writer.wait()
+            commits.append(gauges.get("resilience/ckpt_commit_s"))
+            if k == 0:
+                after_step = learner_state(resumed)
+                resumed.load(os.path.join(async_dir, name))
+                checks["async checkpoint == the state at its save (torch.equal)"] = same_state(
+                    at_save, learner_state(resumed))
+                # back to the stepped state, so the second save has new bytes
+                resumed.model.load_state_dict(after_step[0])
+                del after_step
+        t1 = time.perf_counter()
+        resumed.train_step(batches[0])
+        torch.cuda.synchronize()
+        leg2.update({"step_without_commit_s": time.perf_counter() - t1, "async_stall_s": stalls,
+                     "async_commit_s": commits})
+        chaos.configure("checkpoint:1")
+        failed_dir = os.path.join(async_dir, "checkpoint_12")
+        resumed._save_checkpoint(failed_dir)
+        try:
+            writer.wait()
+            raised = False
+        except RuntimeError:
+            raised = True
+        chaos.configure(None)
+        latest = find_latest_committed(async_dir)
+        checks.update({
+            "checkpoint:1: the failed write re-raises at wait()": raised,
+            "checkpoint:1: no final directory, no sentinel": not os.path.exists(failed_dir),
+            "checkpoint:1: find_latest_committed skips it": latest is not None and latest.endswith("checkpoint_11"),
+        })
+        leg2.update({"seconds": time.perf_counter() - t0, "latest_committed": os.path.basename(latest or ""),
+                     "payload_file_gib": os.path.getsize(os.path.join(latest, PAYLOAD_FILE)) / 2 ** 30})
+        emit({**report, **leg2})
+        del resumed, at_save, whole_state, resumed_state
+        torch.cuda.empty_cache()
+
+        # ---- leg 3: self-healing
+        t0 = time.perf_counter()
+        around = {}
+
+        def poison_after_step_2(trainer, n):
+            if n == 2:
+                chaos.configure("nan-loss:2")
+            if n in (2, 3):  # the state before the poisoned steps 3 and 4
+                around[n + 1] = learner_state(trainer)
+            if n in (3, 4):
+                around[n] = same_state(around[n], learner_state(trainer))
+
+        hooks["rollback"] = poison_after_step_2
+        sh = dict(enabled=True, rollback_after=2, max_rollbacks=1)
+        healed = train("rollback", resilience_config(os.path.join(root, "rollback"), **{
+            "train.total_steps": 4, "train.checkpoint_interval": 2, "train.eval_interval": 100,
+            "train.self_healing": sh, "train.resilience": dict(enabled=True, preemption_handling=False)}))
+        applied = [st["health/update_applied"] for st in stats_of("rollback")]
+        summary = healed.self_healing_summary
+        finite = all(np.isfinite(st["losses/total_loss"]) for st in stats_of("rollback")[4:])
+        del healed
+        torch.cuda.empty_cache()
+        halt_dir = os.path.join(root, "halt")
+        bundle = None
+        try:
+            train("halt", resilience_config(halt_dir, **{
+                "train.total_steps": 4, "train.eval_interval": 100,
+                "train.self_healing": dict(enabled=True, rollback_after=1, max_rollbacks=0)}),
+                  chaos_spec="nan-loss:1,bad-element:1")
+        except TrainingHealthError as e:
+            bundle = str(e).rsplit("diagnostics bundle: ", 1)[1]
+        quarantine = os.path.join(halt_dir, "quarantine", "quarantine.jsonl")
+        quarantined = sum(1 for _ in open(quarantine)) if os.path.exists(quarantine) else 0
+        checks.update({
+            "nan-loss:2: update_applied 1,1,0,0, then 1,1 after the rollback": applied == [1.0, 1.0, 0.0, 0.0, 1.0, 1.0],
+            "nan-loss:2: params and AdamW torch.equal across each skipped step": around.get(3) is True
+            and around.get(4) is True,
+            "one rollback, two skipped updates": summary is not None and summary["rollbacks"] == 1
+            and summary["skipped_updates"] == 2,
+            "finite losses after the rollback": finite,
+            "max_rollbacks 0: TrainingHealthError with a bundle": bundle is not None
+            and os.path.isfile(os.path.join(bundle, "bundle.json")),
+            "bad-element:1: exactly one element quarantined": quarantined == 1,
+        })
+        emit({**report, "leg": "self_healing", "seconds": time.perf_counter() - t0, "update_applied": applied,
+              "grad_norm": [st["health/grad_norm"] for st in stats_of("rollback")], "summary": summary,
+              "bundle": bundle, "quarantined": quarantined})
+
+        # ---- leg 4: the producer supervisor
+        t0 = time.perf_counter()
+        sup = train("supervisor", resilience_config(os.path.join(root, "supervisor"), **{
+            "train.total_steps": 2, "train.checkpoint_interval": 100, "train.eval_interval": 100,
+            "train.self_healing": dict(enabled=True, wedge_timeout_s=RES_WEDGE_TIMEOUT_S),
+            "train.async_rollouts": dict(enabled=True, max_staleness=2, publish_interval=1)}),
+            chaos_spec="rollout-producer:1,producer-wedge:1")
+        ledger = sup.rollout_engine_summary or {}
+        alive = [t.name for t in threading.enumerate() if t.name == "rollout-producer" and t.is_alive()]
+        checks.update({
+            "supervisor: two restarts": ledger.get("producer_restarts") == 2
+            and sup.self_healing_summary["producer_restarts"] == 2,
+            "supervisor: the drain ledger balances": bool(ledger) and ledger["produced"] == (
+                ledger["consumed"] + ledger["dropped_stale"] + ledger["leftover"] + ledger["dropped_shutdown"]),
+            "supervisor: no producer thread left": not alive and sup._engine is None,
+            "supervisor: 2 steps": sup.iter_count == 2,
+        })
+        emit({**report, "leg": "supervisor", "seconds": time.perf_counter() - t0, "ledger": ledger,
+              "threads_alive": alive})
+        del sup
+    finally:
+        PPOTrainer.train_step = original_step
+        restore_kernels()
+        os.environ.pop("TRLX_CHAOS", None)
+        chaos.configure(None)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = _kernels.launches()
+    n_steps = len(steps)
+    checks.update({
+        "K2 and K3: layers x microbatches in every learner step": launches["flash_bwd_dkv"]
+        == launches["flash_bwd_dq"] == n_steps * L * num_mb,
+        "K1 launched": launches["flash_fwd"] > 0,
+        "no paged kernel": launches["paged_decode"] == launches["paged_verify"] == 0,
+    })
+    ctx["resilience_launches"] = launches
+    emit({**report, "seconds": time.perf_counter() - t_phase, "learner_steps": n_steps, "launches": launches,
+          "kernel_shapes": kernel_shapes(seen), "checks": checks})
+    torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resilience phase: {failed}")
+    check_main_path_shapes(ctx, seen, "resilience", ("flash_fwd", "flash_bwd"))
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -3509,7 +3897,7 @@ def kernel_table(ctx):
              "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"],
              "sft": ctx["sft_launches"], "hydra": ctx["hydra_launches"], "ilql": ctx["ilql_launches"],
              "rft": ctx["rft_launches"], "grpo": ctx["grpo_launches"], "online_grpo": ctx["online_grpo_launches"],
-             "async": ctx["async_launches"]}
+             "async": ctx["async_launches"], "resilience": ctx["resilience_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -3545,7 +3933,7 @@ def main(argv=None) -> int:
         return 1
     import trlx_tpu_torch  # noqa: F401  (fails in a directory without the package)
 
-    ctx = {}
+    ctx = {"phase_seconds": {}}
     runners = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
                "timing": phase_timing, "parity": phase_parity, "engine": phase_engine,
                "spec_parity": phase_spec_parity, "engine_spec": phase_engine_spec,
@@ -3556,17 +3944,20 @@ def main(argv=None) -> int:
                "randomwalks_hydra": phase_randomwalks_hydra, "randomwalks_ilql": phase_randomwalks_ilql,
                "randomwalks_rft": phase_randomwalks_rft, "grpo_parity": phase_grpo_parity, "grpo": phase_grpo,
                "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
-               "randomwalks_async": phase_randomwalks_async}
+               "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience}
     phase_env(ctx)
     try:
         for name in phases:
             if name != "env":
+                t0 = time.perf_counter()
                 runners[name](ctx)
+                ctx["phase_seconds"][name] = time.perf_counter() - t0
     finally:
         if "randomwalks_export" in ctx:  # the randomwalks SFT export, shared by the later gates
             import shutil
 
             shutil.rmtree(os.path.dirname(ctx["randomwalks_export"]), ignore_errors=True)
+    emit({"phase_seconds": ctx["phase_seconds"], "card": ctx.get("smi")})
     if set(phases) != set(PHASES):
         return 0
     emit(kernel_table(ctx))

@@ -575,7 +575,10 @@ def test_async_ppo_through_the_serving_engine(tmp_path):
     close = ServingEngine.close
 
     def recording_set_params(self, params):
-        installs.append((threading.current_thread().name, id(params)))
+        # the first tensor names the snapshot (the publisher clones new
+        # tensors per version) and stays alive in the list, so identities
+        # cannot be reused the way the id of a freed mapping can
+        installs.append((threading.current_thread().name, next(iter(params.values()))))
         return set_params(self, params)
 
     def recording_close(self):
@@ -590,6 +593,6 @@ def test_async_ppo_through_the_serving_engine(tmp_path):
         ServingEngine.set_params, ServingEngine.close = set_params, close
     assert trainer.iter_count == 4 and blocks == [0]
     assert installs and all(name == "rollout-producer" for name, _ in installs)
-    assert len({key for _, key in installs}) == len(installs)  # each snapshot installed once
+    assert len({id(first) for _, first in installs}) == len(installs)  # each snapshot installed once
     s = trainer.rollout_engine_summary
     assert s["produced"] == s["consumed"] + s["dropped_stale"] + s["leftover"] + s["dropped_shutdown"]

@@ -162,8 +162,6 @@ UNPORTED = [
     ("train.islands.enabled", True, "production-serving slice"),
     ("train.observability.enabled", True, "observability slice"),
     ("train.profile_dir", "prof", "observability slice"),
-    ("train.resilience.enabled", True, "resilience slice"),
-    ("train.self_healing.enabled", True, "resilience slice"),
     ("train.serving.stream_overlap", True, "production-serving slice"),
     ("train.serving_resilience.enabled", True, "production-serving slice"),
     ("train.serving_tenancy.enabled", True, "production-serving slice"),
@@ -196,13 +194,16 @@ PORTED = [
     ("train.async_rollouts.length_bucket_lookahead", 4),
     ("train.online.enabled", True),
     ("method.overlap_reward_scoring", True),
+    ("train.resilience.enabled", True),
+    ("train.self_healing.enabled", True),
 ]
 
 
 @pytest.mark.parametrize("key,value", PORTED, ids=[p[0] for p in PORTED])
 def test_ported_config_blocks_build(tmp_path, key, value):
-    """The blocks that raised until the async / online slice build the CPU
-    trainer (``train.online`` with the GRPO method it belongs to)."""
+    """The blocks that raised until the async / online slice and the
+    resilience slice build the CPU trainer (``train.online`` with the GRPO
+    method it belongs to)."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.utils.loading import get_trainer
 
@@ -221,6 +222,11 @@ def test_ported_config_blocks_build(tmp_path, key, value):
         batches = [next(trainer.prompt_iterator) for _ in range(4)]
         lengths = [len(p) for b in batches for p in b["input_ids"]]
         assert lengths == sorted(lengths)  # one window of 4 batches, sorted by length
+    if key == "train.resilience.enabled":
+        assert trainer.resilience.writer is not None and trainer.resilience.preemption is not None
+    if key == "train.self_healing.enabled":
+        assert trainer.health is not None and trainer._quarantine is not None
+    trainer.resilience.close()  # releases the signal handlers learn() would release
 
 
 def test_unported_training_rows_raise_naming_their_slice(tmp_path):
@@ -282,4 +288,5 @@ def test_checkpoint_round_trip(tmp_path):
     assert sa == sb
     for pa, pb in zip(a.model.parameters(), b.model.parameters()):
         assert torch.equal(pa, pb)
-    assert a._extra_state() == {"prompt_batches_drawn": 2} and b._resume_prompt_batches == 2
+    assert a._extra_state()["prompt_batches_drawn"] == 2 and b._resume_prompt_batches == 2
+    assert b.running_moments.__dict__ == a.running_moments.__dict__ and b.kl_ctl.value == a.kl_ctl.value

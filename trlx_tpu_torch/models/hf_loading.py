@@ -542,6 +542,37 @@ def _family_of(name: str) -> str:
     return "gpt2"
 
 
+def _hf_load_retry_policy():
+    """Retry policy for HF checkpoint reads: transient I/O faults (NFS blips,
+    injected chaos) are retried; a definitively missing file is an answer
+    and fails immediately. Budget is overridable via TRLX_HF_LOAD_RETRIES
+    (and the first delay via TRLX_HF_LOAD_RETRY_DELAY) for constrained CI."""
+    from trlx_tpu_torch.resilience.chaos import ChaosInjectedError
+    from trlx_tpu_torch.resilience.retry import RetryPolicy
+
+    return RetryPolicy(
+        max_retries=int(os.environ.get("TRLX_HF_LOAD_RETRIES", 2)),
+        base_delay_s=float(os.environ.get("TRLX_HF_LOAD_RETRY_DELAY", 1.0)),
+        max_delay_s=15.0,
+        retry_on=(OSError, ChaosInjectedError),
+        giveup_on=(FileNotFoundError, IsADirectoryError, NotADirectoryError),
+    )
+
+
+def _read_hf_weights(model_path: str):
+    """The torch state dict of a local HF dir, under the retry policy above,
+    with the chaos ``hf-load`` fault site inside the retried body so
+    injected faults take the same recovery path as real ones."""
+    from trlx_tpu_torch.resilience.chaos import chaos
+    from trlx_tpu_torch.resilience.retry import retry_call
+
+    def read():
+        chaos.fail_if_armed("hf-load", detail=model_path)
+        return load_torch_state_dict(model_path)
+
+    return retry_call(read, policy=_hf_load_retry_policy(), name=f"hf-load {model_path}")
+
+
 def load_pretrained(
     model_path: str, overrides: Optional[Dict[str, Any]] = None
 ) -> Tuple[TransformerConfig, Optional[Dict[str, torch.Tensor]], str]:
@@ -580,7 +611,7 @@ def load_pretrained(
                 "model-families slice"
             )
         config = from_hf_config(hf_config, overrides)
-        params = hf_state_dict_to_params(model_type, load_torch_state_dict(model_path), config)
+        params = hf_state_dict_to_params(model_type, _read_hf_weights(model_path), config)
         state = {k: torch.from_numpy(v) for k, v in state_from_params(params).items()}
         return config, state, model_type
     config = get_preset(model_path, overrides)

@@ -17,22 +17,28 @@ off-policy staleness control:
 - :mod:`trlx_tpu_torch.rollout.engine` — the producer loop around the
   trainer's generate / score pipeline, tagging every element with the
   policy version it was sampled from.
+- :mod:`trlx_tpu_torch.rollout.supervisor` — restarts a crashed or wedged
+  producer with backoff under a budget (``train.self_healing``).
 
 Enabled via ``TrainConfig.async_rollouts``; the synchronous path stays the
 default and ``max_staleness=0`` falls back to it exactly. Not ported yet:
-the island split and chunked broadcast (``train.islands``) and the producer
-supervisor (``train.self_healing``), each raising naming its slice.
+the island split and chunked broadcast (``train.islands``), raising naming
+its slice.
 """
 
-from trlx_tpu_torch.rollout.engine import AsyncRolloutEngine, length_bucketed
+from trlx_tpu_torch.rollout.engine import PRODUCER_HEARTBEAT, AsyncRolloutEngine, length_bucketed
 from trlx_tpu_torch.rollout.publisher import ParameterPublisher
 from trlx_tpu_torch.rollout.queue import ExperienceQueue, QueueClosed
 from trlx_tpu_torch.rollout.staleness import StalenessAccountant, staleness_importance_weights
+from trlx_tpu_torch.rollout.supervisor import ProducerRestartBudgetExceeded, ProducerSupervisor
 
 __all__ = [
     "AsyncRolloutEngine",
     "ExperienceQueue",
+    "PRODUCER_HEARTBEAT",
     "ParameterPublisher",
+    "ProducerRestartBudgetExceeded",
+    "ProducerSupervisor",
     "QueueClosed",
     "StalenessAccountant",
     "length_bucketed",

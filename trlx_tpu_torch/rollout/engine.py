@@ -20,18 +20,22 @@ Coordination rules (enforced here, relied on by the trainer):
 - ``paused()`` grabs the lock the producer holds across one produce
   iteration; the trainer wraps ``evaluate()`` in it.
 - A producer crash closes the queue and re-raises from ``collect`` /
-  ``stop``, so a dead producer never silently starves the learner.
+  ``stop``, so a dead producer never silently starves the learner. Under a
+  :class:`~trlx_tpu_torch.rollout.supervisor.ProducerSupervisor` the engine
+  is built with ``close_queue_on_death=False``: the crash still re-raises
+  from ``collect``, but the shared queue stays open so a *replacement*
+  engine can keep feeding it (the supervisor catches the raise, ``abandon``s
+  this engine and restarts).
 - ``stop()`` closes the queue (waking a blocked ``put``), joins the thread,
   and reports drain statistics; no thread is left after ``learn()``.
   Elements abandoned mid-``put`` during shutdown count as
   ``dropped_shutdown``, so the drain ledger balances:
   ``produced == consumed + dropped_stale + leftover + dropped_shutdown``.
 
-Not ported here: the watchdog heartbeat and the chaos fault sites of the
-JAX engine (``train.observability`` / ``train.resilience``, later slices),
-and the producer supervisor (``train.self_healing``) with its seam (the
-``close_queue_on_death`` option, ``abandon`` and ``join``): it comes with
-the resilience slice.
+The producer beats the watchdog heartbeat :data:`PRODUCER_HEARTBEAT` after
+each publish and between bounded put retries, and carries the chaos sites
+``rollout-producer`` (the producer dies) and ``producer-wedge`` (it stops
+beating and parks until abandoned or stopped).
 """
 
 import contextlib
@@ -39,6 +43,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
+from trlx_tpu_torch.obs import span, watchdog
+from trlx_tpu_torch.resilience.chaos import chaos
 from trlx_tpu_torch.rollout.publisher import ParameterPublisher
 from trlx_tpu_torch.rollout.queue import ExperienceQueue, QueueClosed
 from trlx_tpu_torch.rollout.staleness import StalenessAccountant
@@ -46,6 +52,9 @@ from trlx_tpu_torch.utils import logging
 from trlx_tpu_torch.utils.metrics import gauges
 
 logger = logging.get_logger(__name__)
+
+#: Watchdog heartbeat name for the producer thread.
+PRODUCER_HEARTBEAT = "rollout-producer"
 
 
 def length_bucketed(batches: Iterator[Dict[str, list]], lookahead: int) -> Iterator[Dict[str, list]]:
@@ -100,12 +109,18 @@ class AsyncRolloutEngine:
         queue: ExperienceQueue,
         accountant: StalenessAccountant,
         name: str = "rollout-producer",
+        close_queue_on_death: bool = True,
     ):
         self._produce = produce_fn
         self.publisher = publisher
         self.queue = queue
         self.accountant = accountant
         self._name = name
+        # True (default, unsupervised): a producer crash closes the queue so
+        # the learner unblocks and the error re-raises. False (supervised):
+        # the queue is shared with successor engines and must outlive us.
+        self._close_queue_on_death = close_queue_on_death
+        self._abandoned = False
         self._stop_evt = threading.Event()
         # held by the producer across one produce iteration; evaluate() takes
         # it to pause production while it shares tokenizer/RNG/generate caches
@@ -132,14 +147,33 @@ class AsyncRolloutEngine:
             self._wall_start = time.monotonic()
             thread = threading.Thread(target=self._loop, name=self._name, daemon=True)
             self._thread = thread
+        # register the heartbeat before the first produce: a producer wedged on
+        # its very first iteration must still be detectable
+        watchdog.beat(PRODUCER_HEARTBEAT)
         thread.start()
 
     def _loop(self):
         try:
             while not self._stop_evt.is_set():
+                # chaos site "producer-wedge": simulate a hang (stuck reward
+                # RPC, wedged decode) — no heartbeats, no exception, no
+                # progress, until abandoned or shut down. Outside the pause
+                # lock so a wedged producer cannot deadlock evaluate(); the
+                # supervisor's wedge timer (or the watchdog's escalation) is
+                # what recovers from this.
+                if chaos.should_fail("producer-wedge"):
+                    logger.warning(
+                        "chaos: rollout producer wedged at site 'producer-wedge' "
+                        "(silent, no heartbeats) — waiting for abandon/stop"
+                    )
+                    self._stop_evt.wait()
+                    break
                 with self._pause_lock:
                     if self._stop_evt.is_set():
                         break
+                    # resilience fault site: kills the producer to prove the
+                    # close-on-death / re-raise-from-collect contract
+                    chaos.fail_if_armed("rollout-producer")
                     version, params = self.publisher.latest()
                     t0 = time.monotonic()
                     elements = self._produce(params, version)
@@ -148,13 +182,17 @@ class AsyncRolloutEngine:
                         self._produced += len(elements)
                 tagged = [e.replace(policy_version=version) for e in elements]
                 # outside the pause lock: backpressure must not block
-                # evaluate(). Bounded puts, so a stop between retries is seen
+                # evaluate(). Bounded puts with heartbeats between retries: a
+                # gated queue (backpressure working as designed) must not read
+                # as a producer stall, and a stop between retries is seen
                 delivered = False
                 try:
-                    while not self._stop_evt.is_set():
-                        if self.queue.put(tagged, timeout=5.0):
-                            delivered = True
-                            break
+                    with span("queue_put"):
+                        while not self._stop_evt.is_set():
+                            if self.queue.put(tagged, timeout=5.0):
+                                delivered = True
+                                break
+                            watchdog.beat(PRODUCER_HEARTBEAT)
                 except QueueClosed:
                     pass
                 if not delivered:
@@ -163,6 +201,7 @@ class AsyncRolloutEngine:
                     with self._stats_lock:
                         self._dropped_shutdown += len(tagged)
                     break
+                watchdog.beat(PRODUCER_HEARTBEAT)
                 self._export_gauges()
         except QueueClosed:
             pass
@@ -171,8 +210,13 @@ class AsyncRolloutEngine:
                 self._error = e
             logger.error(f"async rollout producer died: {type(e).__name__}: {e}")
         finally:
-            # a dead producer must never leave the learner blocked in get()
-            self.queue.close()
+            # a dead producer must never leave the learner blocked in get() —
+            # except under supervision, where the queue is shared with the
+            # replacement engine and collect() detects death by polling
+            with self._stats_lock:
+                close_queue = self._close_queue_on_death and not self._abandoned
+            if close_queue:
+                self.queue.close()
 
     def stop(self, timeout: Optional[float] = 30.0) -> dict:
         """Close the queue, join the producer, return drain statistics."""
@@ -200,15 +244,39 @@ class AsyncRolloutEngine:
             stats["leftover"] = self.queue.qsize()
             return stats
         finally:
-            # a finished producer must not keep its last gauge values
-            # being exported as if still live
+            # a finished producer must neither page the watchdog nor keep its
+            # last gauge values being exported as if still live
+            watchdog.unregister(PRODUCER_HEARTBEAT)
             gauges.clear(prefix="rollout/")
+
+    def abandon(self):
+        """Give up on this engine without draining it (supervisor restart path).
+
+        Sets the stop event (a wedged-by-chaos or healthy producer exits at
+        the next check) but does NOT close the shared queue and does NOT join:
+        a genuinely wedged thread cannot be joined, and as a daemon it is
+        harmless once abandoned. Its finally-clause is told not to close the
+        queue either, so the successor engine keeps feeding the same queue."""
+        with self._stats_lock:
+            self._abandoned = True
+        self._stop_evt.set()
 
     @property
     def running(self) -> bool:
         with self._stats_lock:
             thread = self._thread
         return thread is not None and thread.is_alive()
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Best-effort join of the producer thread without ``stop()`` semantics
+        (the supervisor reaps abandoned generations this way). Returns whether
+        the thread is still alive afterwards."""
+        with self._stats_lock:
+            thread = self._thread
+        if thread is None:
+            return False
+        thread.join(timeout)
+        return thread.is_alive()
 
     @contextlib.contextmanager
     def paused(self):

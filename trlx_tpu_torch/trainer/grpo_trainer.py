@@ -160,7 +160,8 @@ class GRPOTrainer(PPOTrainer):
                 continue  # an empty completion has no last token to score
             chunk = ([list(group.prompt)] * group.group_size, [list(c) for c in group.completions])
             n0 = len(elements)
-            # one group per scoring call keeps the version stamp exact
+            # one group per scoring call keeps the version stamp exact even
+            # when the quarantine screen drops elements mid-chunk
             self._score_and_store(chunk, group.scores, elements, accumulated_kl, all_scores_log)
             for e in elements[n0:]:
                 e.policy_version = group.policy_version

@@ -7,15 +7,28 @@ package's schedules and global-norm clipping), the gradient-accumulation
 train step (a Python loop over microbatches that averages their gradients),
 padded one-shot generation, stop-sequence decode, evaluation, the main
 ``learn()`` loop with periodic eval / checkpoint / save-best, the port's own
-checkpoints (``torch.save``), the HF-format export (``save_pretrained``),
-and jsonl tracking with the JAX package's stat names.
+checkpoints on the atomic-commit protocol (``torch.save`` payload,
+``state.json``, the ``_COMMITTED`` sentinel last), the HF-format export
+(``save_pretrained``), and jsonl tracking with the JAX package's stat
+names.
+
+``train.resilience`` (:class:`~trlx_tpu_torch.resilience.Resilience`) adds
+asynchronous checkpoint commits from host snapshots, SIGTERM/SIGINT
+handling with a blocking emergency checkpoint, auto-resume from the newest
+committed checkpoint and retried reward calls; ``train.self_healing`` adds
+the health guard (a skipped optimizer step on non-finite loss or gradients
+or a grad-norm spike, rollback to the newest committed checkpoint, halt
+with a diagnostics bundle). Both off leave the step as it was; the plain
+``save`` writes the sentinel either way.
 
 Config blocks of the JAX package that this port does not run yet raise
 ``NotImplementedError`` naming their slice (:func:`check_port_config`);
 none is silently ignored.
 """
 
+import json
 import os
+import time
 from abc import abstractmethod
 from itertools import product
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -30,6 +43,18 @@ from trlx_tpu_torch.native import find_stop_positions
 from trlx_tpu_torch.ops.generation import generate as generate_op
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
+from trlx_tpu_torch.resilience import Resilience, chaos_poison_batch, find_latest_committed, host_snapshot
+from trlx_tpu_torch.resilience.checkpoint import (
+    COMMITTED_SENTINEL,
+    PAYLOAD_FILE,
+    STATE_FILE,
+    is_committed,
+    mark_committed,
+    write_json_atomic,
+    write_payload,
+)
+from trlx_tpu_torch.resilience.health import TrainingHealthGuard
+from trlx_tpu_torch.resilience.resume import pack_np_rng, pack_rng_key, restore_np_rng, unpack_rng_key
 from trlx_tpu_torch.trainer import BaseRLTrainer, register_trainer
 from trlx_tpu_torch.utils import (
     Clock,
@@ -46,8 +71,6 @@ logger = logging.get_logger(__name__)
 
 #: the shared pow2 padding ladder (8 .. 8192) prompt and response lengths pad to
 POW2_BUCKETS = [2 ** i for i in range(3, 14)]
-
-CHECKPOINT_FILE = "trainer.pt"
 
 
 def resolve_device(device, who: str = "trlx_tpu_torch.train") -> torch.device:
@@ -71,8 +94,6 @@ def check_port_config(config: TRLConfig) -> None:
         (t.islands.enabled, "train.islands", "production-serving slice"),
         (t.observability.enabled, "train.observability", "observability slice"),
         (t.profile_dir is not None, "train.profile_dir", "observability slice"),
-        (t.resilience.enabled, "train.resilience", "resilience slice"),
-        (t.self_healing.enabled, "train.self_healing", "resilience slice"),
         (t.serving.enabled and t.serving.stream_overlap, "train.serving.stream_overlap",
          "production-serving slice"),
         (t.serving_resilience.enabled, "train.serving_resilience", "production-serving slice"),
@@ -133,6 +154,23 @@ class MeshRLTrainer(BaseRLTrainer):
                 f"{config.model.model_path.split('/')[-1]}/{self.device.type}"
             ).replace("/", "_")
         self.tracker = make_tracker(config.train, config.to_dict())
+        # resilience (async atomic checkpointing / preemption handling /
+        # auto-resume / reward retries); disabled, every hook is a no-op and
+        # reward_fn is wrapped only with the free chaos check
+        self.resilience = Resilience(config.train.resilience)
+        self.reward_fn = self.resilience.wrap_reward_fn(self.reward_fn)
+        # the health guard (skip -> rollback -> halt); None when disabled,
+        # and the optimizer step is then the unguarded one
+        self.health = None
+        sh_config = config.train.self_healing
+        if sh_config.enabled:
+            self.health = TrainingHealthGuard(
+                sh_config,
+                diagnostics_dir=sh_config.diagnostics_dir or os.path.join(config.train.checkpoint_dir, "diagnostics"),
+            )
+        self.self_healing_summary = None
+        #: seconds of the last emergency checkpoint (set on preemption)
+        self.emergency_checkpoint_s = None
 
     # ------------------------------------------------------------- model setup
 
@@ -202,10 +240,17 @@ class MeshRLTrainer(BaseRLTrainer):
 
     # -------------------------------------------------------------- train step
 
-    def clip_grads(self, grads: List[torch.Tensor]) -> None:
+    @staticmethod
+    def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm: the f32 L2 norm over every gradient."""
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+    def clip_grads(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
         """optax.clip_by_global_norm in place: past ``max_grad_norm`` every
-        gradient becomes ``g / norm * max_grad_norm``."""
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        gradient becomes ``g / norm * max_grad_norm`` (``norm``, when given,
+        is :meth:`global_grad_norm` of ``grads``)."""
+        if norm is None:
+            norm = self.global_grad_norm(grads)
         keep = norm < self.max_grad_norm
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.max_grad_norm))
@@ -222,14 +267,27 @@ class MeshRLTrainer(BaseRLTrainer):
         over the "train" partition does: one that the loss does not reach
         (GRPO's value head) gets a zero gradient, so AdamW still decays it
         and advances its moments, where a ``None`` gradient would make
-        ``torch.optim`` skip it."""
+        ``torch.optim`` skip it.
+
+        With the health guard (``train.self_healing``) the step also reads
+        the global norm of the averaged gradients before clipping, and takes
+        the update only if the mean microbatch loss and that norm are finite
+        and the norm is at most ``health.grad_norm_cap()``: the decision
+        comes to the host with the stats, in their one transfer, and a
+        skipped step calls neither ``optimizer.step()`` nor
+        ``scheduler.step()`` (parameters, AdamW's moments and count and the
+        schedule stay as they were). It reports ``health/grad_norm`` and
+        ``health/update_applied``."""
+        guard = self.health
 
         def step(batch) -> Dict[str, float]:
             self.optimizer.zero_grad(set_to_none=True)
-            per_mb = []
+            per_mb, losses = [], []
             for mb in batch.split(num_mb):
                 loss, stats = loss_fn(mb)
                 loss.backward()
+                if guard is not None:
+                    losses.append(loss.detach().float())
                 per_mb.append({k: torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
                                for k, v in stats.items()})
             for p in self.trainable_params:
@@ -238,14 +296,26 @@ class MeshRLTrainer(BaseRLTrainer):
             grads = [p.grad for p in self.trainable_params]
             for g in grads:
                 g.div_(num_mb)
-            if self.max_grad_norm:
-                self.clip_grads(grads)
-            lr = self.scheduler.get_last_lr()[0]
-            self.optimizer.step()
-            self.scheduler.step()
             keys = list(per_mb[0])
-            means = torch.stack([torch.stack([s[k] for s in per_mb]).mean() for k in keys]).tolist()
-            mean_stats = dict(zip(keys, means))
+            means = [torch.stack([s[k] for s in per_mb]).mean() for k in keys]
+            lr = self.scheduler.get_last_lr()[0]
+            if guard is None:
+                if self.max_grad_norm:
+                    self.clip_grads(grads)
+                self.optimizer.step()
+                self.scheduler.step()
+                mean_stats = dict(zip(keys, torch.stack(means).tolist()))
+            else:
+                norm = self.global_grad_norm(grads)
+                ok = torch.isfinite(torch.stack(losses).mean()) & torch.isfinite(norm) & (
+                    norm <= guard.grad_norm_cap())
+                values = torch.stack(means + [norm, ok.float()]).tolist()
+                mean_stats = dict(zip(keys + ["health/grad_norm", "health/update_applied"], values))
+                if mean_stats["health/update_applied"] >= 0.5:
+                    if self.max_grad_norm:
+                        self.clip_grads(grads, norm)
+                    self.optimizer.step()
+                    self.scheduler.step()
             mean_stats["learning_rate_group_0"] = float(lr)
             return mean_stats
 
@@ -450,27 +520,49 @@ class MeshRLTrainer(BaseRLTrainer):
         pass
 
     def learn(self):
-        """Main training loop; :meth:`on_learn_end` runs however it exits."""
+        """Main training loop; :meth:`on_learn_end` runs however it exits,
+        then the checkpoint writer is flushed and the signal handlers are
+        released."""
         try:
             return self._learn_loop()
         finally:
+            if self.health is not None:
+                self.self_healing_summary = self.health.report()
+                logger.info(f"self-healing summary: {self.self_healing_summary}")
             self.on_learn_end()
+            # after the producer drain: the writer flush below may be the
+            # emergency checkpoint, and the producer must not race it
+            self.resilience.close()
 
     def on_learn_end(self):
         """Teardown hook run when :meth:`learn` exits (return or exception)."""
         pass
 
-    def _learn_loop(self):
-        train_config = self.config.train
-        self.iter_count = 0
-        if train_config.resume_from_checkpoint:
-            path = train_config.resume_from_checkpoint
+    def _maybe_resume(self, train_config):
+        """Restore from an explicit resume path (missing: a hard error, never
+        a silent fresh start) or, under resilience auto-resume, from the
+        newest *committed* checkpoint in checkpoint_dir. Runs before
+        prepare_learning, so the first rollouts already use the restored
+        params, RNG streams and prompt-stream position."""
+        path = train_config.resume_from_checkpoint
+        if path:
             if not os.path.exists(path):
                 raise FileNotFoundError(
                     f"train.resume_from_checkpoint={path!r} does not exist; "
                     "refusing to silently train from scratch"
                 )
             self.load(path)
+            return
+        if self.resilience.auto_resume:
+            latest = find_latest_committed(train_config.checkpoint_dir)
+            if latest is not None:
+                logger.info(f"Auto-resume: restoring newest committed checkpoint {latest}")
+                self.load(latest)
+
+    def _learn_loop(self):
+        train_config = self.config.train
+        self.iter_count = 0
+        self._maybe_resume(train_config)
         self.prepare_learning()
 
         results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
@@ -480,14 +572,31 @@ class MeshRLTrainer(BaseRLTrainer):
 
         for epoch in range(train_config.epochs):
             for batch in self.create_train_dataloader():
+                # chaos site "nan-loss": poison the batch to non-finite (free
+                # when unarmed); the health guard must catch it
+                batch = chaos_poison_batch(batch)
                 self.clock.tick()  # reset: measure train_step alone
                 stats = self.train_step(batch)
                 stats["time/forward_backward"] = self.clock.tick()
                 self.iter_count += 1
                 self.post_backward_callback()
 
+                if self.health is not None:
+                    action = self.health.observe(stats, self.iter_count)
+                    if action == "rollback":
+                        # raises TrainingHealthError (with a diagnostics
+                        # bundle) when the rollback budget is spent
+                        self._handle_health_rollback()
+                        # the rest of this epoch's batches came from the
+                        # anomalous policy: re-collect experience instead
+                        # (post_epoch_callback refills the store)
+                        break
+
+                if self.resilience.should_stop(self.iter_count):
+                    return self._preempt_exit(stats)
+
                 if train_config.checkpoint_interval and self.iter_count % train_config.checkpoint_interval == 0:
-                    self.save(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                    self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
                     self.save_pretrained(os.path.join(train_config.checkpoint_dir, "hf_model"))
 
                 if (
@@ -498,7 +607,7 @@ class MeshRLTrainer(BaseRLTrainer):
                     if train_config.save_best and "reward/mean" in results:
                         if results["reward/mean"] > self.best_reward:
                             self.best_reward = results["reward/mean"]
-                            self.save(os.path.join(train_config.checkpoint_dir, "best_checkpoint"))
+                            self._save_checkpoint(os.path.join(train_config.checkpoint_dir, "best_checkpoint"))
 
                 stats = {k: significant(v) if isinstance(v, float) else v for k, v in stats.items()}
                 self.tracker.log(stats, self.iter_count)
@@ -507,7 +616,7 @@ class MeshRLTrainer(BaseRLTrainer):
                     logger.info(f"step {self.iter_count}/{train_config.total_steps} {brief}")
 
                 if self.iter_count >= train_config.total_steps:
-                    self.save(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                    self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
                     return results
             self.post_epoch_callback(epoch)
         return results
@@ -515,20 +624,25 @@ class MeshRLTrainer(BaseRLTrainer):
     # ------------------------------------------------------------- checkpoints
 
     def _checkpoint_name(self, it: Optional[int] = None) -> str:
-        """``checkpoint_<step>`` zero-padded to total_steps' width."""
+        """``checkpoint_<step>`` zero-padded to total_steps' width, so the
+        checkpoint dir's lexicographic order is chronological (the resume
+        scan also parses unpadded names numerically)."""
         it = self.iter_count if it is None else it
         return f"checkpoint_{it:0{len(str(self.config.train.total_steps))}d}"
 
     def _state_dict(self) -> Dict[str, Any]:
-        """Counters and every RNG stream: what continuing the exact sample
-        sequence after a restart needs, beside params and optimizer."""
+        """The JSON trainer state for ``state.json``: counters and every RNG
+        stream (the sampling generator, the host numpy generator, torch's
+        global CPU generator), plus algorithm extras (PPO's prompt-stream
+        position): what continuing the exact sample sequence after a
+        restart needs, beside params and optimizer."""
         return {
             "iter_count": self.iter_count,
             "best_reward": self.best_reward,
             "nth_evaluation": self.nth_evaluation,
-            "generator": self.generator.get_state(),
-            "np_rng_state": self.np_rng.bit_generator.state,
-            "torch_rng_state": torch.get_rng_state(),
+            "rng_key": pack_rng_key(self.generator),
+            "np_rng_state": pack_np_rng(self.np_rng),
+            "torch_rng_state": torch.get_rng_state().tolist(),
             **self._extra_state(),
         }
 
@@ -537,38 +651,152 @@ class MeshRLTrainer(BaseRLTrainer):
         return {}
 
     def _restore_extra_state(self, state: Dict[str, Any]):
+        """Inverse of :meth:`_extra_state` (``state.json``, already loaded)."""
+        pass
+
+    def _checkpoint_payload(self) -> Dict[str, Any]:
+        """What ``trainer.pt`` holds: the parameters, and with
+        ``train.save_optimizer`` the optimizer and the scheduler. The values
+        are the live ``state_dict()`` tensors: the async path hands the
+        writer a :func:`host_snapshot` of this, never the dict itself."""
+        payload = {"params": self.model.state_dict()}
+        if self.config.train.save_optimizer:
+            payload["optimizer"] = self.optimizer.state_dict()
+            payload["scheduler"] = self.scheduler.state_dict()
+        return payload
+
+    def _save_checkpoint(self, directory: str, block: bool = False):
+        """Route one checkpoint through the resilience async writer when
+        there is one (a host snapshot now, serialize + atomic commit on the
+        writer thread; waits only if a *prior* write is in flight), else
+        the synchronous :meth:`save`. ``block=True`` is the emergency path:
+        the commit must land inside the grace window."""
+        writer = self.resilience.writer
+        if writer is None:
+            self.save(directory)
+            return
+        # the writer must never see a live tensor: the next optimizer.step()
+        # changes those in place (the snapshot's copies are queued before it)
+        payload, ready = host_snapshot(self._checkpoint_payload())
+        writer.save(os.path.abspath(directory), payload, self._state_dict(), block=block, ready=ready)
+
+    def _preempt_exit(self, results):
+        """Preemption: a blocking emergency checkpoint inside the grace
+        window, then a clean return (``learn()``'s finally drains the rollout
+        producer, flushes the writer and releases the signal handlers)."""
+        handler = self.resilience.preemption
+        logger.warning(
+            f"Preempted ({handler.reason}); writing emergency checkpoint at "
+            f"step {self.iter_count} ({handler.grace_remaining_s:.0f}s of grace remaining)"
+        )
+        t0 = time.perf_counter()
+        self._save_checkpoint(os.path.join(self.config.train.checkpoint_dir, self._checkpoint_name()), block=True)
+        self.emergency_checkpoint_s = time.perf_counter() - t0
+        remaining = handler.grace_remaining_s
+        if remaining is not None and remaining < 0:
+            logger.warning(
+                f"Emergency checkpoint exceeded the grace window by {-remaining:.0f}s "
+                "— raise resilience.grace_period_s or shrink checkpoint_interval"
+            )
+        return results
+
+    def _handle_health_rollback(self):
+        """The health guard saw ``rollback_after`` consecutive anomalies:
+        restore the newest committed checkpoint if the rollback budget
+        allows, else halt (raises :class:`TrainingHealthError` with a
+        diagnostics bundle path — fail closed, never spin forever)."""
+        if not self.health.rollback_budget_left():
+            self.health.halt(
+                self.iter_count,
+                f"rollback budget exhausted ({self.health.config.max_rollbacks}) "
+                f"with anomalies still occurring",
+            )
+        restored = self._health_rollback()
+        self.health.on_rollback(self.iter_count, restored)
+
+    def _health_rollback(self) -> bool:
+        """Restore the newest committed checkpoint (exact-resume semantics:
+        iter_count, RNG streams, prompt-stream position). False when no
+        committed checkpoint exists yet: the guard still spends a unit of
+        rollback budget, so a run that goes bad before its first checkpoint
+        cannot loop forever."""
+        target = None
+        writer = self.resilience.writer
+        if writer is not None:
+            # an in-flight async commit may be the freshest good state; wait
+            # for it (this also re-raises any writer error now, not later)
+            writer.wait()
+            target = writer.last_committed
+        if target is None:
+            target = find_latest_committed(self.config.train.checkpoint_dir)
+        if target is None:
+            logger.warning(
+                f"health rollback requested but no committed checkpoint exists in "
+                f"{self.config.train.checkpoint_dir} — continuing with current (possibly damaged) state"
+            )
+            return False
+        self.load(target)
+        self._post_rollback_restore()
+        return True
+
+    def _post_rollback_restore(self):
+        """Re-anchor run state that :meth:`load` cannot rebuild by itself
+        after a *mid-run* restore. PPO overrides it: it rebuilds its prompt
+        stream and republishes the restored params."""
         pass
 
     def save(self, directory: str):
-        """The port's own checkpoint: one ``torch.save`` of params, optimizer
-        and scheduler (with ``train.save_optimizer``), counters and RNG
-        states, written to a temporary name and renamed into place."""
-        os.makedirs(directory, exist_ok=True)
-        ckpt = {"params": self.model.state_dict(), "state": self._state_dict()}
-        if self.config.train.save_optimizer:
-            ckpt["optimizer"] = self.optimizer.state_dict()
-            ckpt["scheduler"] = self.scheduler.state_dict()
-        path = os.path.join(directory, CHECKPOINT_FILE)
-        torch.save(ckpt, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        logger.info(f"Saved checkpoint to {os.path.abspath(directory)}")
+        """The synchronous checkpoint, in place: ``trainer.pt`` (a
+        ``torch.save`` of :meth:`_checkpoint_payload`, written through a
+        temporary name), ``state.json`` (written atomically) and the
+        ``_COMMITTED`` sentinel last, so :meth:`load` and auto-resume can
+        tell a whole directory from a torn one. A sentinel left by an
+        earlier save of the same directory is removed first."""
+        path = os.path.abspath(directory)
+        os.makedirs(path, exist_ok=True)
+        sentinel = os.path.join(path, COMMITTED_SENTINEL)
+        if os.path.exists(sentinel):
+            os.remove(sentinel)
+        write_payload(path, self._checkpoint_payload())
+        write_json_atomic(os.path.join(path, STATE_FILE), self._state_dict())
+        mark_committed(path)
+        logger.info(f"Saved checkpoint to {path}")
 
     def load(self, directory: str):
-        """Restore a checkpoint written by :meth:`save`."""
-        ckpt = torch.load(os.path.join(directory, CHECKPOINT_FILE), map_location=self.device, weights_only=False)
+        """Restore a checkpoint written by :meth:`save` or the async writer,
+        copying into the live parameters (``load_state_dict``), so the
+        optimizer's and the publisher's references stay valid. A directory
+        without the sentinel is loaded with a warning: it was asked for by
+        name."""
+        path = os.path.abspath(directory)
+        if not is_committed(path):
+            logger.warning(
+                f"Checkpoint {path} has no {COMMITTED_SENTINEL} sentinel — it may be torn "
+                "(interrupted write); restoring anyway since it was requested explicitly"
+            )
+        # onto the host first: load_state_dict copies the parameters into the
+        # live tensors and moves AdamW's moments to their parameters' device,
+        # leaving its step counts on the CPU where a fresh optimizer has them
+        ckpt = torch.load(os.path.join(path, PAYLOAD_FILE), map_location="cpu", weights_only=False)
         self.model.load_state_dict(ckpt["params"])
         if "optimizer" in ckpt and self.config.train.save_optimizer:
             self.optimizer.load_state_dict(ckpt["optimizer"])
             self.scheduler.load_state_dict(ckpt["scheduler"])
-        state = ckpt["state"]
-        self.iter_count = state["iter_count"]
-        self.best_reward = state["best_reward"]
-        self.nth_evaluation = state["nth_evaluation"]
-        self.generator.set_state(state["generator"].cpu())
-        self.np_rng.bit_generator.state = state["np_rng_state"]
-        torch.set_rng_state(state["torch_rng_state"].cpu())
-        self._restore_extra_state(state)
-        logger.info(f"Restored checkpoint from {os.path.abspath(directory)} (iter {self.iter_count})")
+        state_path = os.path.join(path, STATE_FILE)
+        if os.path.exists(state_path):
+            with open(state_path) as f:
+                state = json.load(f)
+            self.iter_count = state.get("iter_count", 0)
+            self.best_reward = state.get("best_reward", -float("inf"))
+            self.nth_evaluation = state.get("nth_evaluation", self.nth_evaluation)
+            if state.get("rng_key") is not None:
+                unpack_rng_key(state["rng_key"], self.generator)
+            if state.get("np_rng_state") is not None:
+                restore_np_rng(self.np_rng, state["np_rng_state"])
+            if state.get("torch_rng_state") is not None:
+                torch.set_rng_state(torch.tensor(state["torch_rng_state"], dtype=torch.uint8))
+            self._restore_extra_state(state)
+        logger.info(f"Restored checkpoint from {path} (iter {self.iter_count})")
 
     def save_pretrained(self, directory: str):
         """Export the trunk (``model.transformer``) as an HF-format directory

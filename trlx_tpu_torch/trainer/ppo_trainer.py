@@ -29,14 +29,21 @@ forwards, the loss forward) runs the flash forward kernel when the model
 config says ``attention_impl="flash"``, and every learner backward runs the
 flash dK/dV and dQ kernels once per layer and microbatch.
 
+With ``train.self_healing`` the experience quarantine screens every
+assembled element (both the synchronous path and the async producer go
+through ``_score_and_store``), the async producer runs under a
+:class:`~trlx_tpu_torch.rollout.ProducerSupervisor`, and a health-guard
+rollback rebuilds the prompt stream and republishes the restored weights
+(``_post_rollback_restore``).
+
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
-seq2seq models, peft, the island split (``train.islands``), the producer
-supervisor (``train.self_healing``), and the serving engine's production
-layers (``train.serving_resilience``, ``serving_tenancy``,
-``serving_fleet``, ``serving.stream_overlap``).
+seq2seq models, peft, the island split (``train.islands``), and the
+serving engine's production layers (``train.serving_resilience``,
+``serving_tenancy``, ``serving_fleet``, ``serving.stream_overlap``).
 """
 
 import copy
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -57,10 +64,12 @@ from trlx_tpu_torch.models.policy import (
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.resilience.quarantine import ExperienceQuarantine, chaos_corrupt_elements
 from trlx_tpu_torch.rollout import (
     AsyncRolloutEngine,
     ExperienceQueue,
     ParameterPublisher,
+    ProducerSupervisor,
     StalenessAccountant,
     length_bucketed,
 )
@@ -111,6 +120,16 @@ class PPOTrainer(MeshRLTrainer):
         # checkpointed and replayed on resume
         self._prompt_batches_drawn = 0
         self._resume_prompt_batches = 0
+        self._prompt_pipeline = None
+
+        # the experience quarantine (train.self_healing): screens every
+        # assembled element; None trusts every element
+        self._quarantine = None
+        sh_config = config.train.self_healing
+        if sh_config.enabled:
+            self._quarantine = ExperienceQuarantine(
+                sh_config.quarantine_dir or os.path.join(config.train.checkpoint_dir, "quarantine")
+            )
 
         if config.train.rollout_logging_dir is not None:
             self.log_rollouts = True
@@ -188,7 +207,6 @@ class PPOTrainer(MeshRLTrainer):
 
     def setup_rollout_logging(self, config):
         import json
-        import os
         import uuid
 
         self.run_id = f"run-{uuid.uuid4()}"
@@ -474,6 +492,7 @@ class PPOTrainer(MeshRLTrainer):
         accumulated_kl.append(kl_per_token.sum(axis=1).mean())
 
         kl_coef = self.kl_ctl.value
+        new_elements = []
         for i in range(len(prompts)):
             n = int(r_mask[i].sum())
             rewards = -kl_coef * log_ratio[i, :n]
@@ -482,7 +501,7 @@ class PPOTrainer(MeshRLTrainer):
                 rewards[: min(n, len(ds))] += ds[: min(n, len(ds))]
             else:
                 rewards[n - 1] += scores[i]
-            ppo_rl_elements.append(
+            new_elements.append(
                 PPORLElement(
                     query_tensor=np.asarray(prompts[i], np.int32),
                     response_tensor=r_ids[i, :n],
@@ -491,6 +510,13 @@ class PPOTrainer(MeshRLTrainer):
                     rewards=rewards.astype(np.float32),
                 )
             )
+        # experience crosses a trust boundary here: the one choke point the
+        # synchronous path and the async producer both assemble through.
+        # Chaos site "bad-element" fabricates an offender first (free unarmed)
+        new_elements = chaos_corrupt_elements(new_elements)
+        if self._quarantine is not None:
+            new_elements = self._quarantine.filter(new_elements, context=f"iter={self.iter_count}")
+        ppo_rl_elements.extend(new_elements)
 
     # ---------------------------------------------------------- async rollouts
 
@@ -510,7 +536,9 @@ class PPOTrainer(MeshRLTrainer):
 
     def _start_async_engine(self):
         """Publish version 0, build the producer's copy of the policy and its
-        generator, and start the producer thread."""
+        generator, and start the producer thread (under
+        ``train.self_healing``, a supervisor over engine generations that
+        share the queue, the publisher and the accountant)."""
         cfg = self._async_cfg
         publisher = ParameterPublisher()
         self._policy_version = publisher.publish(self.model.state_dict())
@@ -526,12 +554,32 @@ class PPOTrainer(MeshRLTrainer):
         )
         capacity = cfg.queue_capacity or 4 * self.method.num_rollouts
         queue = ExperienceQueue(capacity, cfg.high_watermark, cfg.low_watermark)
-        self._engine = AsyncRolloutEngine(
-            self._produce_rollout_chunk, publisher, queue, StalenessAccountant(cfg.max_staleness)
-        )
+        accountant = StalenessAccountant(cfg.max_staleness)
+        sh_config = self.config.train.self_healing
+        supervised = sh_config.enabled
+
+        def make_engine():
+            # generations share queue/publisher/accountant; under supervision
+            # a dead generation must not close the queue its successor feeds
+            return AsyncRolloutEngine(
+                self._produce_rollout_chunk, publisher, queue, accountant, close_queue_on_death=not supervised
+            )
+
+        if supervised:
+            self._engine = ProducerSupervisor(
+                make_engine,
+                max_restarts=sh_config.max_producer_restarts,
+                backoff_base_s=sh_config.restart_backoff_base_s,
+                backoff_max_s=sh_config.restart_backoff_max_s,
+                wedge_timeout_s=sh_config.wedge_timeout_s,
+                diagnostics_dir=sh_config.diagnostics_dir
+                or os.path.join(self.config.train.checkpoint_dir, "diagnostics"),
+            )
+        else:
+            self._engine = make_engine()
         self._engine.start()
         logger.info(
-            f"async rollout engine started: queue_capacity={capacity} "
+            f"async rollout engine started{' (supervised)' if supervised else ''}: queue_capacity={capacity} "
             f"(high={queue.high_watermark}, low={queue.low_watermark}), "
             f"max_staleness={cfg.max_staleness}, publish_interval={cfg.publish_interval}"
         )
@@ -574,10 +622,24 @@ class PPOTrainer(MeshRLTrainer):
     # ------------------------------------------------------------- train loop
 
     def _extra_state(self):
-        return {"prompt_batches_drawn": self._prompt_batches_drawn}
+        """The prompt-stream position, and (beyond the reference, which
+        restarts both from their initial values on resume) the reward
+        scores' running moments and the KL coefficient: ``scale_reward=
+        "running"`` and the adaptive KL controller read them, and the step
+        stats report them."""
+        rm = self.running_moments
+        return {
+            "prompt_batches_drawn": self._prompt_batches_drawn,
+            "running_moments": {"mean": rm.mean, "std": rm.std, "var": rm.var, "count": rm.count},
+            "kl_ctl_value": self.kl_ctl.value,
+        }
 
     def _restore_extra_state(self, state):
         self._resume_prompt_batches = int(state.get("prompt_batches_drawn", 0))
+        for k, v in state.get("running_moments", {}).items():
+            setattr(self.running_moments, k, v)
+        if "kl_ctl_value" in state:
+            self.kl_ctl.value = state["kl_ctl_value"]
 
     def _fast_forward_prompt_stream(self):
         """Replay the restored number of prompt-batch draws (exact replay:
@@ -670,6 +732,36 @@ class PPOTrainer(MeshRLTrainer):
             self._refill_store_async()
         else:
             self.make_experience(self.method.num_rollouts, self.iter_count)
+
+    def _post_rollback_restore(self):
+        """Mid-run health rollback: re-anchor what :meth:`load` alone cannot.
+        The prompt iterator cannot rewind, so it is rebuilt from the kept
+        pipeline and the restored draw count replayed (the exact-resume
+        mechanics of a restart); the async producer is resynced by
+        publishing the restored params, so its next chunk samples from the
+        good policy (a new snapshot object, so a producer that rolls out
+        through the serving engine installs it there too; the synchronous
+        path installs the live weights at every experience phase); and
+        experience collected from the bad policy is dropped
+        (post_epoch_callback refills the store after the epoch breaks)."""
+
+        def reanchor():
+            if self._prompt_pipeline is not None:
+                self.add_prompt_pipeline(self._prompt_pipeline)
+                self._prompt_batches_drawn = 0
+                self._fast_forward_prompt_stream()
+            if self._engine is not None:
+                self._policy_version = self._engine.publisher.publish(self.model.state_dict())
+                gauges.set("rollout/learner_version", float(self._policy_version))
+
+        if self._engine is not None and self._engine.running:
+            # the producer draws from prompt_iterator between produce
+            # iterations: swap it only while production is paused
+            with self._engine.paused():
+                reanchor()
+        else:
+            reanchor()
+        self.store.clear_history()
 
     def evaluate(self):
         """Evaluation shares the tokenizer with the rollout producer: the

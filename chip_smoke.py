@@ -212,6 +212,21 @@ Phases, each printing one JSON line:
                   producer supervisor through ``rollout-producer:1,
                   producer-wedge:1``; K1/K2/K3 counted and replayed at every
                   recorded shape.
+30. ``observability`` — a main path: ``train.observability`` and
+                  ``train.profile_dir`` at full gpt2 width with ``train``'s
+                  traffic (:func:`phase_observability`): four 4-step runs in
+                  turns (off, on, on, off) with ``losses/*`` equal across
+                  them; spans, step-time percentiles, throughput and MFU
+                  against the card's data-sheet peak, CUDA-allocator memory
+                  gauges (no host RSS), ``trace.json``, the series and
+                  Prometheus exports; request flights on the
+                  ``train.serving`` leg (one terminal event each, engine
+                  phases = latency, no block left); a wedged producer
+                  restarted by the watchdog's escalation; last, a 2-step
+                  "on" run whose torch.profiler window holds step 1 alone,
+                  K1/K2/K3 kernel events inside ``learn``; K1/K2/K3/K5
+                  counted over the runs with the layer on and replayed at
+                  every recorded shape.
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -233,7 +248,8 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks",
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
-          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience")
+          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
+          "observability")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -3720,6 +3736,410 @@ def phase_resilience(ctx):
     check_main_path_shapes(ctx, seen, "resilience", ("flash_fwd", "flash_bwd"))
 
 
+#: the observability phase: the watchdog of the inert/on runs (far above an
+#: experience phase), and the escalation leg's watchdog below the
+#: supervisor's wedge timer (a full-width produce iteration takes 1-3 s)
+OBS_WATCHDOG_S, OBS_ESC_WATCHDOG_S, OBS_ESC_WEDGE_S = 120.0, 5.0, 30.0
+#: the torch.profiler window of the profiled run, [start, end): the window
+#: closes at the top of the next step, so [0, 1) holds learner step 1 alone
+#: (a later window would also hold the experience phase or the final eval
+#: that follows its last step)
+OBS_PROFILE_WINDOW, OBS_PROFILE_STEPS = (0, 1), 2
+#: the kernels the profiled learner steps must show on the card's timeline
+OBS_PROFILED_KERNELS = {"flash_fwd": "fwd_mma_kernel", "flash_bwd_dkv": "dkv_mma_kernel",
+                        "flash_bwd_dq": "dq_mma_kernel"}
+
+
+class _LogCapture:
+    """Collect the port's log records (its root logger does not propagate)."""
+
+    def __init__(self):
+        import logging as py_logging
+
+        self.messages = []
+        capture = self
+
+        class Handler(py_logging.Handler):
+            def emit(self, record):
+                capture.messages.append(record.getMessage())
+
+        self.handler = Handler(level=py_logging.WARNING)
+        self.logger = py_logging.getLogger("trlx_tpu_torch")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def obs_config(ckpt_dir, on, profile=False, **over):
+    """The train phase's model and traffic (:func:`full_width_train_config`)
+    with the jsonl tracker under the checkpoint dir's ``logs`` and, ``on``,
+    ``train.observability`` with every output: the span trace, the series
+    and Prometheus exports, memory gauges every step, the watchdog at
+    ``OBS_WATCHDOG_S`` and MFU's peak detected from the card's name;
+    ``profile`` adds the torch.profiler window ``OBS_PROFILE_WINDOW``."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    train = {"train.tracker": "jsonl", "train.run_name": "obs"}
+    if on:
+        train["train.observability"] = dict(
+            enabled=True, trace_path="trace.json", series_path="series.jsonl", prom_path="metrics.prom",
+            memory_interval=1, watchdog_timeout_s=OBS_WATCHDOG_S)
+    if profile:
+        train.update({"train.profile_dir": os.path.join(ckpt_dir, "profile"),
+                      "train.profile_start_step": OBS_PROFILE_WINDOW[0],
+                      "train.profile_end_step": OBS_PROFILE_WINDOW[1]})
+    return TRLConfig.update(full_width_train_config(ckpt_dir), {**train, **over})
+
+
+def profiled_learn_kernels(profile_dir):
+    """Count, in the torch.profiler trace under ``profile_dir``, the CUDA
+    kernel events of K1/K2/K3 whose start lies inside a ``learn`` range
+    (the span's ``record_function`` range, on the host or the device
+    timeline). Returns (trace path, bytes, counts, learn ranges)."""
+    import glob
+
+    [path] = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == "learn" and e.get("cat") in ("user_annotation", "gpu_user_annotation")
+              and "dur" in e]
+    counts = {k: 0 for k in OBS_PROFILED_KERNELS}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for kind, sub in OBS_PROFILED_KERNELS.items():
+            if sub in e.get("name", "") and any(t0 <= e["ts"] <= t1 for t0, t1 in ranges):
+                counts[kind] += 1
+    return path, os.path.getsize(path), counts, len(ranges)
+
+
+def phase_observability(ctx):
+    """A main path: ``train.observability`` and ``train.profile_dir`` through
+    ``trlx_tpu_torch.train`` at gpt2 full width with the train phase's model
+    and traffic (64 sampled rollouts of 128 tokens, 4 steps of 32 in 2
+    microbatches, bf16 compute, f32 params and AdamW). Three legs:
+
+    1. Inert, then on: four 4-step runs in turns (off, on, on, off). Bar:
+       every ``losses/*`` stat ``==`` across the four runs, step for step;
+       with the layer on, the span, step-time, throughput and memory stats
+       present (``mfu`` in (0, 1] and ``model_tflops_per_sec / mfu`` the
+       table's peak for the card's name), no host RSS, the accountant's
+       parameter count the trained module's, ``trace.json`` with
+       ``generate``, ``learn`` and ``score``, the series and Prometheus
+       files readable, and no stall logged.
+    2. Flights: the train_serving run (block 16, spec_k 4, prefill_chunk 64)
+       for 2 steps with the layer on: every request's flight ends in
+       exactly one terminal event, its engine phases sum to
+       ``Request.latency_s`` within 1e-9 s, the ``obs/flight/*`` gauges are
+       in the step stats and no KV block is left after a generation.
+    3. Escalation: 2 async steps under the producer supervisor with
+       ``producer-wedge:1``, the watchdog at ``OBS_ESC_WATCHDOG_S`` below
+       the supervisor's ``OBS_ESC_WEDGE_S``: the one restart is the
+       watchdog's escalation, the drain ledger balances, no thread is left.
+    4. Profile: leg 1's "on" run cut to ``OBS_PROFILE_STEPS`` steps with
+       the torch.profiler window ``OBS_PROFILE_WINDOW`` over learner step 1,
+       last, because a process ran slower after a profiler window: its
+       losses equal leg 1's first steps, its obs stats as leg 1's, and the
+       trace under ``profile_dir`` holds K1, K2 and K3 kernel events inside
+       ``learn``.
+
+    Launch counts are set to 0 just before each run and read just after
+    it; the path's counts are the sum over the runs with the layer on (the
+    "off" runs are phase ``train``'s path): K2 and K3 once per layer and
+    microbatch in every learner step of those runs, K1 and K5 launched;
+    every recorded K1/K2/K3/K5 shape is replayed against the plain
+    versions."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.obs import Observability, flight, read_jsonl_series, read_prometheus
+    from trlx_tpu_torch.obs.flight import ENGINE_PHASES, TERMINAL_EVENTS
+    from trlx_tpu_torch.obs.throughput import detect_peak_tflops, param_count
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.resilience import chaos
+    from trlx_tpu_torch.rollout import ProducerSupervisor
+    from trlx_tpu_torch.serving import ServingEngine
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    smi, kind = ctx.get("smi"), torch.cuda.get_device_name(0)
+    peak = detect_peak_tflops(kind)
+    root = tempfile.mkdtemp(prefix="chip_smoke_observability_")
+    L, num_mb = 12, TRAIN_B // TRAIN_MB
+    rec = {"run": None}
+    runs = {}  # run -> {"steps": [...], "obs": [...], "experience_s": [...], ...}
+    originals = {"train_step": PPOTrainer.train_step, "make_experience": PPOTrainer.make_experience,
+                 "_serving_generate": PPOTrainer._serving_generate, "step_stats": Observability.step_stats,
+                 "run": ServingEngine.run, "_restart": ProducerSupervisor._restart,
+                 "start": ProducerSupervisor.start}
+
+    def cur():
+        return runs.setdefault(rec["run"], {"steps": [], "learn_s": [], "obs": [], "obs_s": [], "experience_s": [],
+                                            "blocks_after_generate": [], "done": {}, "restarts": []})
+
+    def train_step(self, batch):  # host clock: the step ends in its stats' host transfer
+        t0 = time.perf_counter()
+        out = originals["train_step"](self, batch)
+        cur()["learn_s"].append(time.perf_counter() - t0)
+        cur()["steps"].append(dict(out))
+        return out
+
+    def make_experience(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = originals["make_experience"](self, *a, **kw)
+        cur()["experience_s"].append(time.perf_counter() - t0)
+        return out
+
+    def serving_generate(self, *a, **kw):
+        out = originals["_serving_generate"](self, *a, **kw)
+        cur()["blocks_after_generate"].append(self._serving_engine.allocator.blocks_in_use)
+        return out
+
+    def step_stats(self, *a, **kw):  # host clock: the layer's own per-step cost
+        t0 = time.perf_counter()
+        out = originals["step_stats"](self, *a, **kw)
+        cur()["obs_s"].append(time.perf_counter() - t0)
+        cur()["obs"].append(dict(out))
+        return out
+
+    def engine_run(self, *a, **kw):
+        out = originals["run"](self, *a, **kw)
+        cur()["done"].update(out)
+        return out
+
+    def restart(self, reason, cause=None):
+        cur()["restarts"].append((reason, time.perf_counter()))
+        return originals["_restart"](self, reason, cause)
+
+    def supervisor_start(self):
+        cur()["supervisor_started"] = time.perf_counter()
+        return originals["start"](self)
+
+    def train(name, cfg, chaos_spec=None):
+        rec["run"] = name
+        cur()
+        if chaos_spec:
+            os.environ["TRLX_CHAOS"] = chaos_spec
+        gc.collect()  # a dropped trainer holds reference cycles (its step closure)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs[name]["start_gib"] = torch.cuda.memory_allocated() / 2 ** 30  # what earlier phases still hold
+        t0 = time.perf_counter()
+        _kernels.reset_launches()  # this run's launches alone, read just after it
+        try:
+            trainer = trlx_tpu_torch.train(config=cfg, reward_fn=byte_share_reward,
+                                           prompts=byte_prompts(64, 64, 128, SEED + 1),
+                                           eval_prompts=byte_prompts(32, 64, 128, SEED + 2))
+        finally:
+            runs[name]["launches"] = _kernels.launches()
+            os.environ.pop("TRLX_CHAOS", None)
+            chaos.configure(None)
+        runs[name]["wall_s"] = time.perf_counter() - t0
+        return trainer
+
+    def losses_of(name):
+        return [{k: v for k, v in st.items() if k.startswith("losses/")} for st in runs[name]["steps"]]
+
+    mem_keys = ("mem/bytes_in_use_max_gb", "mem/peak_bytes_in_use_max_gb", "mem/bytes_limit_gb", "mem/utilization")
+
+    def obs_checks(names):
+        """The obs stats of runs with the layer on (step 1 has no step time)."""
+        every = [st for name in names for st in runs[name]["obs"]]
+        later = [st for name in names for st in runs[name]["obs"][1:]]
+        return {
+            "spans generate, score, reward, learn": {"time/span/generate", "time/span/score", "time/span/reward",
+                                                     "time/span/learn"} <= set().union(*every)
+            and all("time/span/learn" in st for st in every),
+            "time/step_p50 and _p95 from step 2": bool(later) and all(
+                "time/step_p50" in st and "time/step_p95" in st for st in later),
+            "tokens/s, model TFLOP/s and mfu from step 2": all(
+                k in st for st in later for k in ("throughput/tokens_per_sec", "throughput/model_tflops_per_sec",
+                                                  "throughput/mfu")),
+            "mfu in (0, 1]": all(0 < st["throughput/mfu"] <= 1 for st in later),
+            "model TFLOP/s / mfu = the card's data-sheet peak": peak is not None and all(
+                abs(st["throughput/model_tflops_per_sec"] / st["throughput/mfu"] - peak) <= 1e-9 * peak
+                for st in later),
+            "mem/* from the CUDA allocator every step": all(k in st for st in every for k in mem_keys),
+            "no host RSS": not any("mem/host_rss_gb" in st for st in every),
+        }
+
+    def kind_of(step):  # what the wall time since the previous step_stats spans
+        return {2: "learner only", 3: "an experience phase", 4: "the final eval"}.get(step)
+
+    def emit_steps(name, leg):
+        for i, st in enumerate(runs[name]["obs"] or [{}] * len(runs[name]["steps"])):
+            emit({"phase": "observability", "leg": leg, "run": name, "step": i + 1, "card": smi,
+                  "spans": kind_of(i + 1), "learn_s": runs[name]["learn_s"][i],
+                  **{k: st.get(k) for k in ("time/step", "throughput/mfu", "throughput/tokens_per_sec",
+                                            "throughput/model_tflops_per_sec", "throughput/total_tokens",
+                                            "mem/peak_bytes_in_use_max_gb", "mem/bytes_in_use_max_gb")}})
+
+    def run_summary(names):
+        return {"learn_s": {n: runs[n]["learn_s"] for n in names},
+                "experience_s": {n: runs[n]["experience_s"] for n in names},
+                "wall_s": {n: runs[n]["wall_s"] for n in names},
+                "start_gib": {n: runs[n]["start_gib"] for n in names},
+                "step_stats_ms": {n: [1e3 * x for x in runs[n]["obs_s"]] for n in names if runs[n]["obs_s"]},
+                "peak_gib": {n: runs[n]["obs"][-1]["mem/peak_bytes_in_use_max_gb"] for n in names if runs[n]["obs"]}}
+
+    def mfu_by_kind(names):
+        return {k: [st["throughput/mfu"] for n in names for i, st in enumerate(runs[n]["obs"]) if kind_of(i + 1) == k]
+                for k in ("learner only", "an experience phase", "the final eval")}
+
+    PPOTrainer.train_step, PPOTrainer.make_experience = train_step, make_experience
+    PPOTrainer._serving_generate, Observability.step_stats = serving_generate, step_stats
+    ServingEngine.run, ProducerSupervisor._restart, ProducerSupervisor.start = engine_run, restart, supervisor_start
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    checks, report = {}, {"phase": "observability", "card": smi, "device_kind": kind, "peak_tflops": peak}
+    t_phase = time.perf_counter()
+    try:
+        # ---- leg 1: inert, then on (off, on, on, off)
+        t0 = time.perf_counter()
+        order = ("off_1", "on_1", "on_2", "off_2")
+        with _LogCapture() as logs:
+            for name in order:
+                trainer = train(name, obs_config(os.path.join(root, name), name.startswith("on")))
+                if name == "on_1":
+                    n_params, accountant = param_count(trainer.model), trainer.obs.accountant
+                    n_module = sum(p.numel() for p in trainer.model.parameters())
+                del trainer  # the next run's memory gauges read its own trainer alone
+        logs_dir = os.path.join(root, "on_1", "logs")
+        with open(os.path.join(logs_dir, "trace.json")) as f:
+            span_names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+        series = read_jsonl_series(os.path.join(logs_dir, "series.jsonl"))
+        prom = read_prometheus(os.path.join(logs_dir, "metrics.prom"))
+        checks.update({
+            "4 runs of 4 steps": all(len(runs[name]["steps"]) == 4 for name in order),
+            "losses/* equal across off, on, on, off": all(losses_of(name) == losses_of("off_1") for name in order)
+            and all(losses_of("off_1")),
+            "off: no obs stats asked": runs["off_1"]["obs"] == runs["off_2"]["obs"] == [],
+            **obs_checks(("on_1", "on_2")),
+            "accountant's parameter count = the trained module's": accountant is not None
+            and accountant.n_params == n_params == n_module,
+            "trace.json: generate, learn, score": {"generate", "learn", "score"} <= span_names,
+            "series and Prometheus files read back": bool(series) and "obs/flight/completed" in prom,
+            "no stall logged": not any("STALL DETECTED" in m for m in logs.messages),
+        })
+        for name in order:
+            emit_steps(name, "inert_then_on")
+        emit({**report, "leg": "inert_then_on", "seconds": time.perf_counter() - t0, "order": order,
+              "n_params": n_params, **run_summary(order), "mfu": mfu_by_kind(("on_1", "on_2")),
+              "tokens_per_sec_learner_only": [runs[name]["obs"][1]["throughput/tokens_per_sec"]
+                                              for name in ("on_1", "on_2")],
+              "bytes_limit_gib": runs["on_1"]["obs"][-1]["mem/bytes_limit_gb"],
+              "span_names": sorted(span_names), "series_keys": len(series), "losses_step_1": losses_of("off_1")[0]})
+
+        # ---- leg 2: flights through the serving engine
+        t0 = time.perf_counter()
+        cfg = obs_config(os.path.join(root, "flights"), True, **{
+            "train.total_steps": 2,
+            "train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64}})
+        train("flights", cfg)  # the trainer is not kept: its flights are in the recorder
+        r = runs["flights"]
+        flights = {uid: flight.get(uid) for uid in r["done"]}
+        terminal = {uid: sum(fl.counts.get(e, 0) for e in TERMINAL_EVENTS) if fl is not None else 0
+                    for uid, fl in flights.items()}
+        gaps = [abs(sum(fl.phases[p] for p in ENGINE_PHASES) - r["done"][uid].latency_s)
+                for uid, fl in flights.items() if fl is not None]
+        pct = flight.phase_percentiles((0.5, 0.95))
+        checks.update({
+            "flights: requests served": len(r["done"]) >= 64,
+            "flights: exactly one terminal event each": bool(terminal) and set(terminal.values()) == {1},
+            "flights: none left active": flight.active_count() == 0,
+            "flights: engine phases sum to latency_s within 1e-9 s": bool(gaps) and max(gaps) <= 1e-9,
+            "flights: obs/flight/* gauges in the step stats": all(
+                st.get("obs/flight/completed", 0) > 0 for st in r["obs"]),
+            "flights: no KV block left after each generation": bool(r["blocks_after_generate"])
+            and all(b == 0 for b in r["blocks_after_generate"]),
+        })
+        emit({**report, "leg": "flights", "seconds": time.perf_counter() - t0, "requests": len(r["done"]),
+              "max_latency_gap_s": max(gaps) if gaps else None,
+              "percentiles_s": {k: v for k, v in pct.items() if k.split("_p")[0] in (
+                  "queue_wait", "prefill", "decode", "store_wait")},
+              "blocks_after_generate": r["blocks_after_generate"]})
+
+        # ---- leg 3: the watchdog's escalation restarts a wedged producer
+        t0 = time.perf_counter()
+        cfg = obs_config(os.path.join(root, "escalation"), True, **{
+            "train.total_steps": 2,
+            "train.observability.watchdog_timeout_s": OBS_ESC_WATCHDOG_S,
+            "train.self_healing": dict(enabled=True, wedge_timeout_s=OBS_ESC_WEDGE_S),
+            "train.async_rollouts": dict(enabled=True, max_staleness=2, publish_interval=1)})
+        sup = train("escalation", cfg, chaos_spec="producer-wedge:1")
+        ledger = sup.rollout_engine_summary or {}
+        alive = [t.name for t in threading.enumerate() if t.name == "rollout-producer" and t.is_alive()]
+        reasons = [reason for reason, _ in runs["escalation"]["restarts"]]
+        restart_after = [t - runs["escalation"].get("supervisor_started", t) for _, t in runs["escalation"]["restarts"]]
+        checks.update({
+            "escalation: one restart, by the watchdog": reasons == ["watchdog escalation: stale producer heartbeat"],
+            "escalation: the drain ledger balances": bool(ledger) and ledger["produced"] == (
+                ledger["consumed"] + ledger["dropped_stale"] + ledger["leftover"] + ledger["dropped_shutdown"]),
+            "escalation: no producer thread left": not alive and sup._engine is None,
+            "escalation: 2 steps": sup.iter_count == 2,
+        })
+        emit({**report, "leg": "escalation", "seconds": time.perf_counter() - t0, "restarts": reasons,
+              "restart_after_supervisor_start_s": restart_after, "watchdog_timeout_s": OBS_ESC_WATCHDOG_S,
+              "wedge_timeout_s": OBS_ESC_WEDGE_S, "ledger": ledger, "threads_alive": alive,
+              "wall_s": runs["escalation"]["wall_s"]})
+        del sup
+
+        # ---- leg 4: leg 1's "on" run with the profiler window, last: after a
+        # torch.profiler window the process ran slower (PERF.md §6)
+        t0 = time.perf_counter()
+        train("profiled", obs_config(os.path.join(root, "profiled"), True, profile=True,
+                                     **{"train.total_steps": OBS_PROFILE_STEPS}))
+        trace_path, trace_bytes, in_learn, learn_ranges = profiled_learn_kernels(
+            os.path.join(root, "profiled", "profile"))
+        checks.update({
+            f"profiled: {OBS_PROFILE_STEPS} steps": len(runs["profiled"]["steps"]) == OBS_PROFILE_STEPS,
+            "profiled: losses/* equal to the unprofiled runs'":
+                losses_of("profiled") == losses_of("off_1")[:OBS_PROFILE_STEPS],
+            **{f"profiled: {k}": v for k, v in obs_checks(("profiled",)).items()},
+            "profiler trace: K1, K2, K3 inside learn": all(n > 0 for n in in_learn.values()),
+        })
+        emit_steps("profiled", "profile")
+        emit({**report, "leg": "profile", "seconds": time.perf_counter() - t0, "window": OBS_PROFILE_WINDOW,
+              **run_summary(("profiled",)), "profile_trace": os.path.basename(trace_path),
+              "profile_trace_mib": trace_bytes / 2 ** 20, "profile_learn_ranges": learn_ranges,
+              "kernels_inside_learn": in_learn})
+    finally:
+        PPOTrainer.train_step, PPOTrainer.make_experience = originals["train_step"], originals["make_experience"]
+        PPOTrainer._serving_generate, Observability.step_stats = originals["_serving_generate"], originals["step_stats"]
+        ServingEngine.run, ProducerSupervisor._restart = originals["run"], originals["_restart"]
+        ProducerSupervisor.start = originals["start"]
+        restore_kernels()
+        shutil.rmtree(root, ignore_errors=True)
+    on_runs = [name for name in runs if not name.startswith("off")]  # the "off" runs are phase train's path
+    launches = {k: sum(runs[name]["launches"][k] for name in on_runs) for k in runs["on_1"]["launches"]}
+    n_steps = sum(len(runs[name]["steps"]) for name in on_runs)
+    checks.update({
+        "K2 and K3: layers x microbatches in every learner step": launches["flash_bwd_dkv"]
+        == launches["flash_bwd_dq"] == n_steps * L * num_mb,
+        "K1 launched": launches["flash_fwd"] > 0,
+        "K5 launched (flights leg)": launches["paged_verify"] > 0,
+        "no K4": launches["paged_decode"] == 0,
+    })
+    ctx["observability_launches"] = launches
+    emit({**report, "seconds": time.perf_counter() - t_phase, "runs_counted": on_runs, "learner_steps": n_steps,
+          "launches": launches, "launches_by_run": {name: runs[name]["launches"] for name in runs},
+          "kernel_shapes": kernel_shapes(seen), "checks": checks})
+    torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"observability phase: {failed}")
+    check_main_path_shapes(ctx, seen, "observability", ("flash_fwd", "flash_bwd", "paged_verify"))
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -3897,7 +4317,8 @@ def kernel_table(ctx):
              "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"],
              "sft": ctx["sft_launches"], "hydra": ctx["hydra_launches"], "ilql": ctx["ilql_launches"],
              "rft": ctx["rft_launches"], "grpo": ctx["grpo_launches"], "online_grpo": ctx["online_grpo_launches"],
-             "async": ctx["async_launches"], "resilience": ctx["resilience_launches"]}
+             "async": ctx["async_launches"], "resilience": ctx["resilience_launches"],
+             "observability": ctx["observability_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -3944,7 +4365,8 @@ def main(argv=None) -> int:
                "randomwalks_hydra": phase_randomwalks_hydra, "randomwalks_ilql": phase_randomwalks_ilql,
                "randomwalks_rft": phase_randomwalks_rft, "grpo_parity": phase_grpo_parity, "grpo": phase_grpo,
                "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
-               "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience}
+               "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
+               "observability": phase_observability}
     phase_env(ctx)
     try:
         for name in phases:

@@ -160,15 +160,12 @@ def test_default_device_is_the_card(tmp_path):
 
 UNPORTED = [
     ("train.islands.enabled", True, "production-serving slice"),
-    ("train.observability.enabled", True, "observability slice"),
-    ("train.profile_dir", "prof", "observability slice"),
     ("train.serving.stream_overlap", True, "production-serving slice"),
     ("train.serving_resilience.enabled", True, "production-serving slice"),
     ("train.serving_tenancy.enabled", True, "production-serving slice"),
     ("train.serving_fleet.enabled", True, "production-serving slice"),
     ("train.learner_overlap.enabled", True, "scale-out slice"),
     ("train.rollout_param_dtype", "bfloat16", "mixed-precision rollout slice"),
-    ("train.tracker", "wandb", "observability slice"),
     ("mesh.remat", "full", "training-memory slice"),
     ("mesh.fsdp", 2, "scale-out slice"),
     ("mesh.sequence_shard", True, "scale-out slice"),
@@ -196,14 +193,18 @@ PORTED = [
     ("method.overlap_reward_scoring", True),
     ("train.resilience.enabled", True),
     ("train.self_healing.enabled", True),
+    ("train.observability.enabled", True),
+    ("train.profile_dir", "prof"),
+    ("train.tracker", "wandb"),
 ]
 
 
 @pytest.mark.parametrize("key,value", PORTED, ids=[p[0] for p in PORTED])
 def test_ported_config_blocks_build(tmp_path, key, value):
-    """The blocks that raised until the async / online slice and the
-    resilience slice build the CPU trainer (``train.online`` with the GRPO
-    method it belongs to)."""
+    """The blocks that raised until the async / online slice, the
+    resilience slice and the observability slice build the CPU trainer
+    (``train.online`` with the GRPO method it belongs to; ``wandb``, not
+    installed, falls back to the jsonl tracker)."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.utils.loading import get_trainer
 
@@ -226,7 +227,17 @@ def test_ported_config_blocks_build(tmp_path, key, value):
         assert trainer.resilience.writer is not None and trainer.resilience.preemption is not None
     if key == "train.self_healing.enabled":
         assert trainer.health is not None and trainer._quarantine is not None
+    if key == "train.observability.enabled":
+        assert trainer.obs.enabled and trainer.obs.series is not None
+    if key == "train.profile_dir":
+        assert trainer.config.train.profile_dir == "prof" and not trainer.obs.enabled
+    if key == "train.tracker":
+        from trlx_tpu_torch.utils.trackers import JsonlTracker
+
+        assert isinstance(trainer.tracker, JsonlTracker)
+        trainer.tracker.finish()
     trainer.resilience.close()  # releases the signal handlers learn() would release
+    trainer.obs.close()  # and what the obs layer holds
 
 
 def test_unported_training_rows_raise_naming_their_slice(tmp_path):

@@ -323,7 +323,8 @@ class IslandConfig:
 
 @dataclass
 class ObservabilityConfig:
-    """Unified observability layer (``trlx_tpu/obs``; docs/observability.md).
+    """Unified observability layer (``trlx_tpu_torch/obs``; the counterpart of
+    ``trlx_tpu/obs``).
 
     When enabled, the trainer times every phase with the hierarchical span
     tracer (per-step ``time/span/*`` stats, optional Chrome-trace ``trace.json``),
@@ -338,22 +339,25 @@ class ObservabilityConfig:
         paths land under the tracker logging dir. None records no events
         (span timings are still aggregated per step).
     :param trace_device: additionally wrap each span in
-        ``jax.profiler.TraceAnnotation`` so host spans appear as named ranges
-        in xprof profiles captured via ``train.profile_dir``.
+        ``torch.profiler.record_function`` so host spans appear as named
+        ranges in the ``torch.profiler`` traces captured via
+        ``train.profile_dir``.
     :param max_trace_events: hard bound on recorded trace events (the trace
         notes how many were dropped past it).
     :param mfu: compute throughput/MFU stats per step.
-    :param peak_device_tflops: per-chip peak TFLOP/s for the MFU denominator.
-        None auto-detects from the device kind (TPU generations with public
-        specs); unknown kinds report model TFLOP/s but omit ``mfu``.
-    :param memory_interval: steps between device-memory samples; 0 disables.
+    :param peak_device_tflops: per-card peak TFLOP/s for the MFU denominator.
+        None auto-detects from the CUDA device's name (the NVIDIA parts of
+        ``obs.throughput.PEAK_TFLOPS_BY_DEVICE_KIND``, from their data
+        sheets); unknown devices report model TFLOP/s but omit ``mfu``.
+    :param memory_interval: steps between device-memory samples (the CUDA
+        caching allocator's counters; the host RSS on the CPU); 0 disables.
     :param watchdog_timeout_s: stall threshold — a warning + all-thread stack
         dump fires when the learner step or producer publish heartbeat goes
         this long without progress. 0 disables the watchdog. Size it well
-        above eval/compile pauses (first-step XLA compiles can take minutes).
+        above eval pauses and a whole experience phase.
     :param watchdog_poll_s: watchdog poll period; None = timeout / 4.
     :param flight: journal per-uid request flights through the serving stack
-        (docs/observability.md "Request flights") — per-phase latency
+        (``obs/flight.py``) — per-phase latency
         decomposition, per-tenant percentile gauges, Perfetto lanes in the
         span trace. No-op when the master switch is off.
     :param flight_ring: completed flights retained for percentiles/trace.
@@ -981,9 +985,9 @@ class TrainConfig:
     # autocast sampling does against its fp32 masters.
     rollout_param_dtype: Optional[str] = None  # e.g. "bfloat16"
 
-    # jax.profiler trace window (TPU equivalent of the reference's NeMo nsys knobs,
-    # configs/nemo_configs/megatron_20b.yaml:128-133): traces steps
-    # [profile_start_step, profile_end_step) into profile_dir.
+    # torch.profiler trace window (CPU activity, plus CUDA on a CUDA device):
+    # traces steps [profile_start_step, profile_end_step) into profile_dir
+    # as a Chrome trace (tensorboard_trace_handler's *.pt.trace.json).
     profile_dir: Optional[str] = None
     profile_start_step: int = 10
     profile_end_step: int = 12

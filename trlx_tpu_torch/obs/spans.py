@@ -20,10 +20,11 @@ A disabled tracer (the default) short-circuits ``span()`` before taking any
 lock or timestamp: the hot path costs one attribute check.
 
 The process-global :data:`tracer` mirrors
-:data:`trlx_tpu_torch.utils.metrics.gauges`: subsystems call the
-module-level :func:`span` without knowing who configured tracing. In this
-slice the checkpoint writer and the diagnostics bundle use it; the trainer
-configures it with the observability slice.
+:data:`trlx_tpu_torch.utils.metrics.gauges`: subsystems (the trainers, the
+rollout producer, the checkpoint writer) call the module-level :func:`span`
+without knowing who configured tracing; the
+:class:`~trlx_tpu_torch.obs.runtime.Observability` runtime configures it
+from ``train.observability`` and drains it once per step.
 """
 
 import contextlib
@@ -174,6 +175,23 @@ class SpanTracer:
         with open(path, "w") as f:
             json.dump(doc, f)
         return path
+
+    @property
+    def epoch(self) -> float:
+        """Timestamp origin every recorded event is relative to — external
+        event producers (the flight recorder's per-uid async lanes) rebase
+        onto this so merged events share the trace's clock."""
+        with self._lock:
+            return self._epoch
+
+    def add_events(self, events: List[Dict[str, Any]]):
+        """Merge externally produced Chrome trace events (the
+        FlightRecorder's per-uid async lanes) into the event stream, under
+        the same ``max_events`` bound as native spans."""
+        with self._lock:
+            room = max(0, self.max_events - len(self._events))
+            self._events.extend(events[:room])
+            self._dropped_events += max(0, len(events) - room)
 
     def reset(self):
         """Drop all accumulated state (tests / a fresh training run)."""

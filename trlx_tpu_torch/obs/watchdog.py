@@ -2,8 +2,9 @@
 stacks (counterpart of ``trlx_tpu/obs/watchdog.py``, a copy).
 
 - Participants call :meth:`StallWatchdog.beat` with their name after each
-  unit of progress (the rollout producer after each queue publish, the
-  checkpoint writer while it commits).
+  unit of progress (the learner after each optimizer step and eval, the
+  rollout producer after each queue publish, the checkpoint writer while it
+  commits).
 - A daemon thread checks every heartbeat's age. When one exceeds
   ``timeout_s``, it logs a warning naming the stalled heartbeat and dumps
   **every** Python thread's stack (``sys._current_frames``).
@@ -16,9 +17,10 @@ stacks (counterpart of ``trlx_tpu/obs/watchdog.py``, a copy).
 
 The process-global :data:`watchdog` is a handle that forwards to a no-op
 watchdog until a real :class:`StallWatchdog` is installed: subsystems beat
-it unconditionally. In this slice nothing installs one (the trainer does
-so with the observability slice), so the supervisor's ``wedge_timeout_s``
-timer is its wedge detector.
+it unconditionally. The trainer's
+:class:`~trlx_tpu_torch.obs.runtime.Observability` installs and starts one
+when ``train.observability.watchdog_timeout_s > 0``; without it the
+supervisor's ``wedge_timeout_s`` timer is the only wedge detector.
 """
 
 import sys

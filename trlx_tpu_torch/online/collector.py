@@ -25,10 +25,10 @@ Three label sources (``train.online.label_type``):
 
 **Exactly-once.** Each uid is harvested at most once (a ``_seen`` set).
 The seeded regression ``TRLX_ONLINE_SEED_REGRESSION=double_harvest``
-disables the dedup so the exactly-once test must fail under it. The JAX
-collector also journals a ``store`` event per harvested uid in its request
-journal (``obs/flight.py``), which comes with the observability slice:
-this collector journals nothing.
+disables the dedup so the exactly-once test must fail under it. Each
+harvested uid journals a ``store`` flight event
+(:mod:`trlx_tpu_torch.obs.flight`; a no-op unless observability is on),
+which closes the flight's ``store_wait`` tail.
 
 Gauges: ``online/labels_harvested``, ``online/groups_ready``,
 ``online/pending_completions``, ``online/duplicates_dropped``.
@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.online.buffer import LabeledGroup, OnlineExperienceBuffer
 from trlx_tpu_torch.online.environment import Environment, run_environment_rollout
 from trlx_tpu_torch.serving.scheduler import FINISH_EOS, FINISH_LENGTH, FINISH_STOP, Request
@@ -139,10 +140,11 @@ class PreferenceCollector:
                     members = self._pending.pop(key)[: self.group_size]
                     version = self._pending_version.pop(key)
                 pending_total = sum(len(v) for v in self._pending.values())
-        # gauge exports outside the collector lock (flat lock order)
+        # gauge/flight exports outside the collector lock (flat lock order)
         if duplicates is not None:
             gauges.set("online/duplicates_dropped", float(duplicates))
             return False
+        flight.record(req.uid, "store")
         gauges.set("online/labels_harvested", float(harvested))
         gauges.set("online/pending_completions", float(pending_total))
         if ready:

@@ -27,9 +27,9 @@ trainer's point of view (``publisher`` / ``start`` / ``collect`` /
   (:meth:`~trlx_tpu_torch.obs.watchdog.StallWatchdog.escalate` on
   ``"rollout-producer"``) sets a flag from the watchdog thread, and a
   supervisor-side fallback restarts when ``collect`` has waited
-  ``wedge_timeout_s`` with a live-but-silent producer. Until the
-  observability slice installs a watchdog in the trainer, the fallback
-  timer is the trainer's only wedge detector.
+  ``wedge_timeout_s`` with a live-but-silent producer. The trainer installs
+  the watchdog with ``train.observability`` (``watchdog_timeout_s > 0``);
+  without it the fallback timer is the only wedge detector.
 
 The restart budget fails closed: exceeding ``max_producer_restarts`` writes
 a diagnostics bundle (gauges, restart history, thread stacks) and raises

@@ -12,6 +12,9 @@
 
 The client serializes engine stepping: concurrent callers interleave their
 requests into the same continuous batch, one caller driving at a time.
+Collecting a batch's results journals a ``store`` flight event per request
+on the scheduler's clock (closing its ``store_wait`` tail) when the flight
+recorder is enabled.
 """
 
 import threading
@@ -19,6 +22,7 @@ from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.ops.generation import pad_to_bucket
 from trlx_tpu_torch.serving.engine import PREFILL_LEN_BUCKETS, ServingEngine
 from trlx_tpu_torch.serving.policy import EngineStoppedError
@@ -94,9 +98,12 @@ class GenerationClient:
         B = len(prompts)
         seqs = np.full((B, P + N), engine.pad_token_id, np.int32)
         mask = np.zeros((B, N), np.int32)
+        t_store = engine.scheduler.clock() if flight.enabled else 0.0
         for i, (uid, p) in enumerate(zip(uids, prompts)):
             req = done[uid]
             engine.scheduler.pop_request(uid)
+            if flight.enabled:
+                flight.record(uid, "store", t=t_store)
             p = np.asarray(p, np.int32)
             gen = np.asarray(req.generated, np.int32)
             seqs[i, P - len(p):P] = p

@@ -43,6 +43,13 @@ construction (other draws per position).
 Not in this slice (``NotImplementedError`` naming the slice): the
 resilience policy, tenancy and generation islands.
 
+Request flights (:mod:`trlx_tpu_torch.obs.flight`): besides the
+scheduler's lifecycle events, the engine journals each chunk append
+(``prefill_chunk``), each decode or verify round a request takes part in
+(``decode_round``, before the device step) and accepted drafts
+(``spec_accept``), all on the scheduler's clock and only when the recorder
+is enabled.
+
 Thread-safety: ``submit``/``cancel`` may be called from producer threads;
 ``step``/``run`` are serialized by the engine lock.
 """
@@ -55,6 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.ops.sampling import count_accepted_drafts, sample_token
 from trlx_tpu_torch.serving.allocator import PagedBlockAllocator
@@ -486,6 +494,8 @@ class ServingEngine:
             self._lens[slot] = req.prefilled
             self.stats.prefill_tokens += n_v
             self.stats.chunk_appends += 1
+            if flight.enabled:
+                flight.record(req.uid, "prefill_chunk", t=self.scheduler.clock())
             if req.prefilled >= len(ids_full):
                 # prompt complete: unmask the slot into the decode batch
                 self._prefilling[slot] = False
@@ -525,6 +535,12 @@ class ServingEngine:
         ]
         if not live:
             return finished
+        if flight.enabled:
+            # journal before the device step: the request may finish inside
+            # it, and the round marks decode participation either way
+            t_round = self.scheduler.clock()
+            for s in live:
+                flight.record(self.scheduler.slots[s].uid, "decode_round", t=t_round)
         self._push_mirrors()
         new_counts = np.array(
             [len(r.generated) if r is not None else 0 for r in self.scheduler.slots],
@@ -578,6 +594,8 @@ class ServingEngine:
         for slot in live:
             a = int(acc_np[slot])
             self.stats.spec_accepted_tokens += a
+            if flight.enabled and a > 0:
+                flight.record(self.scheduler.slots[slot].uid, "spec_accept", t=self.scheduler.clock(), accepted=a)
             self._pending_tok[slot] = y_np[slot, a]
             done, emitted = self.scheduler.on_tokens(slot, [int(t) for t in y_np[slot, : a + 1]])
             self.stats.delivered_tokens += emitted

@@ -21,6 +21,13 @@ admission with KV-pressure preemption re-queueing, and the export/adopt
 replay seam the :class:`~trlx_tpu_torch.serving.supervisor.ServingSupervisor`
 uses to move accepted requests onto a rebuilt engine. Without a policy every
 pass is a no-op and behavior is byte-identical to the original engine.
+
+Every lifecycle transition (submit, admit, finish / shed / expire,
+preempt) is journaled in the request-flight recorder
+(:mod:`trlx_tpu_torch.obs.flight`) on this scheduler's clock; each site
+checks ``flight.enabled`` first, so with observability off it costs one
+attribute read, and the flight context rides ``export_state`` /
+``adopt_state``.
 """
 
 import itertools
@@ -29,6 +36,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.serving.allocator import PagedBlockAllocator, SeqBlocks
 from trlx_tpu_torch.serving.policy import ServingResiliencePolicy
 from trlx_tpu_torch.serving.tenancy import DEFAULT_TENANT, TenantRegistry
@@ -42,6 +50,17 @@ FINISH_CANCELLED = "cancelled"
 # drain. Both are accountable — they land in `finished` like any other end.
 FINISH_DEADLINE = "deadline"
 FINISH_SHED = "shed"
+
+
+def _terminal_flight_event(reason: str) -> str:
+    """Map a finish reason onto the flight vocabulary's terminal event:
+    ``shed`` and ``expire`` are their own events (they are policy outcomes
+    an operator alerts on), everything else is a ``finish``."""
+    if reason == FINISH_SHED:
+        return "shed"
+    if reason == FINISH_DEADLINE:
+        return "expire"
+    return "finish"
 
 
 @dataclass
@@ -197,6 +216,8 @@ class InflightScheduler:
             self._pending.append(req)
             self.requests[req.uid] = req
             self.uid_hwm = max(self.uid_hwm, req.uid + 1)
+        if flight.enabled:
+            flight.record(req.uid, "submit", t=req.submitted_at, tenant_id=tid, slo_class=slo_class)
         return req.uid
 
     def cancel(self, uid: int) -> bool:
@@ -209,6 +230,8 @@ class InflightScheduler:
                     req.finish_reason = FINISH_CANCELLED
                     req.finished_at = self.clock()
                     self.finished[uid] = req
+                    if flight.enabled:
+                        flight.record(uid, "finish", t=req.finished_at, reason=FINISH_CANCELLED)
                     return True
             self._cancelled.add(uid)
         # racy-but-benign read of engine-thread state: a request placed
@@ -262,6 +285,8 @@ class InflightScheduler:
         req.slot = None
         with self._lock:  # `finished` is also written by producer-side cancel()
             self.finished[req.uid] = req
+        if flight.enabled:
+            flight.record(req.uid, _terminal_flight_event(reason), t=req.finished_at, reason=reason)
         return req
 
     def _count_outcome(self, req: Request, key: str) -> None:
@@ -299,6 +324,8 @@ class InflightScheduler:
                     self.finished[req.uid] = req
                     self.expired_count += 1
                     self._count_outcome(req, "expired")
+                    if flight.enabled:
+                        flight.record(req.uid, "expire", t=now, reason=FINISH_DEADLINE)
                     out.append(req)
                 else:
                     kept.append(req)
@@ -324,6 +351,8 @@ class InflightScheduler:
                         self.finished[req.uid] = req
                         self.shed_count += 1
                         self._count_outcome(req, "shed")
+                        if flight.enabled:
+                            flight.record(req.uid, "shed", t=now, reason=FINISH_SHED)
                         out.append(req)
                     else:
                         kept.append(req)
@@ -344,6 +373,8 @@ class InflightScheduler:
                 self.finished[req.uid] = req
                 self.shed_count += 1
                 self._count_outcome(req, "shed")
+                if flight.enabled:
+                    flight.record(req.uid, "shed", t=now, reason=FINISH_SHED)
         return pending
 
     def expire_live(self) -> List[Tuple[int, Request]]:
@@ -383,6 +414,8 @@ class InflightScheduler:
             self.preempted_count += 1
             self._count_outcome(req, "preempted")
             self._pending.insert(0, req)
+        if flight.enabled:
+            flight.record(req.uid, "preempt", t=self.clock())
         return req
 
     def reap_cancelled(self) -> List[int]:
@@ -496,6 +529,10 @@ class InflightScheduler:
                 req.admit_waits += 1
             with self._lock:  # ahead of anything submitted while we placed
                 self._pending = kept + self._pending
+        if placements and flight.enabled:
+            t_admit = self.clock()
+            for _, req in placements:
+                flight.record(req.uid, "admit", t=t_admit)
         return placements
 
     def on_token(self, slot: int, token: int) -> Optional[Request]:
@@ -563,6 +600,9 @@ class InflightScheduler:
                 "tenant_counts": {t: dict(c) for t, c in self.tenant_counts.items()},
                 "class_counts": {k: dict(c) for k, c in self.class_counts.items()},
             }
+        # flight context rides the replay seam: a successor (supervised
+        # restart or cross-replica adoption) continues the SAME flight
+        state["flights"] = flight.export_flights([r.uid for r in state["replay"]]) if flight.enabled else {}
         return state
 
     def adopt_state(self, state: Dict[str, object]) -> None:
@@ -599,6 +639,15 @@ class InflightScheduler:
                 c = self.class_counts.setdefault(cls, {})
                 for key, n in counts.items():
                     c[key] = c.get(key, 0) + n
+        if flight.enabled:
+            # continue the predecessor's flights here; every replayed uid
+            # gets an `adopt` event on this scheduler's clock
+            snaps = state.get("flights", {})
+            t_adopt = self.clock()
+            flight.adopt_flights(snaps, t=t_adopt)
+            for req in state["replay"]:
+                if req.uid not in snaps:
+                    flight.record(req.uid, "adopt", t=t_adopt)
 
     def seat_uid_base(self, base: int) -> None:
         """Seat the uid counter at (at least) ``base``. The fleet router

@@ -174,6 +174,7 @@ class GRPOTrainer(PPOTrainer):
                 f"attached to top up: training on the short batch"
             )
         else:
+            # reward_fn runs under the ``reward`` span (PPOTrainer._timed_reward_fn)
             while len(elements) < num_rollouts:
                 self._collect_chunks(elements, accumulated_kl, all_scores_log)
 

@@ -9,8 +9,17 @@ padded one-shot generation, stop-sequence decode, evaluation, the main
 ``learn()`` loop with periodic eval / checkpoint / save-best, the port's own
 checkpoints on the atomic-commit protocol (``torch.save`` payload,
 ``state.json``, the ``_COMMITTED`` sentinel last), the HF-format export
-(``save_pretrained``), and jsonl tracking with the JAX package's stat
-names.
+(``save_pretrained``), and tracking (jsonl, tensorboard or wandb) with the
+JAX package's stat names.
+
+``train.observability`` (:class:`~trlx_tpu_torch.obs.Observability`) adds
+the span tracer (``generate``, ``evaluate``, ``learn``, ``checkpoint`` here;
+``reward``, ``score``, ``queue_wait`` in PPO), per-step throughput and MFU
+against the card's peak, CUDA memory gauges, request flights, the gauge
+series exporters and the stall watchdog; off, it adds nothing to a step.
+Each span closes after the host fetch that ends its phase, so it times the
+device work and not only its launch. ``train.profile_dir`` traces the
+steps ``[profile_start_step, profile_end_step)`` with ``torch.profiler``.
 
 ``train.resilience`` (:class:`~trlx_tpu_torch.resilience.Resilience`) adds
 asynchronous checkpoint commits from host snapshots, SIGTERM/SIGINT
@@ -40,6 +49,7 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models import safetensors_io
 from trlx_tpu_torch.models.hf_loading import load_pretrained, merge_loaded_state, save_pretrained_hf, torch_dtype
 from trlx_tpu_torch.native import find_stop_positions
+from trlx_tpu_torch.obs import Observability, batch_token_count
 from trlx_tpu_torch.ops.generation import generate as generate_op
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
@@ -92,8 +102,6 @@ def check_port_config(config: TRLConfig) -> None:
     t, m, mesh = config.train, config.model, config.mesh
     later = [
         (t.islands.enabled, "train.islands", "production-serving slice"),
-        (t.observability.enabled, "train.observability", "observability slice"),
-        (t.profile_dir is not None, "train.profile_dir", "observability slice"),
         (t.serving.enabled and t.serving.stream_overlap, "train.serving.stream_overlap",
          "production-serving slice"),
         (t.serving_resilience.enabled, "train.serving_resilience", "production-serving slice"),
@@ -154,6 +162,13 @@ class MeshRLTrainer(BaseRLTrainer):
                 f"{config.model.model_path.split('/')[-1]}/{self.device.type}"
             ).replace("/", "_")
         self.tracker = make_tracker(config.train, config.to_dict())
+        # observability (span tracing / MFU / memory gauges / watchdog /
+        # flights); disabled, every obs call is a near-no-op
+        self.obs = Observability(
+            config.train.observability,
+            config.train.logging_dir or os.path.join(config.train.checkpoint_dir, "logs"),
+            device=self.device,
+        )
         # resilience (async atomic checkpointing / preemption handling /
         # auto-resume / reward retries); disabled, every hook is a no-op and
         # reward_fn is wrapped only with the free chaos check
@@ -360,14 +375,17 @@ class MeshRLTrainer(BaseRLTrainer):
         P = pad_to_bucket(max(len(p) for p in prompts_ids), POW2_BUCKETS)
         ids, mask = left_pad_batch(prompts_ids, gen_kwargs["pad_token_id"], P)
         step_fn, init_cache_fn = self.gen_step_fn(policy)
-        out = generate_op(
-            step_fn, init_cache_fn,
-            torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
-            self.generator if generator is None else generator, max_new,
-            logits_processor=self.gen_logits_processor(**proc_kwargs), **gen_kwargs,
-        )
-        sequences = out["sequences"].cpu().numpy()
-        response_mask = out["response_mask"].cpu().numpy()
+        # the span closes after the host fetch: decode runs asynchronously
+        # until it, so timing the launches alone would undercount
+        with self.obs.span("generate"):
+            out = generate_op(
+                step_fn, init_cache_fn,
+                torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
+                self.generator if generator is None else generator, max_new,
+                logits_processor=self.gen_logits_processor(**proc_kwargs), **gen_kwargs,
+            )
+            sequences = out["sequences"].cpu().numpy()
+            response_mask = out["response_mask"].cpu().numpy()
         return sequences, response_mask, P
 
     def decode(
@@ -522,7 +540,8 @@ class MeshRLTrainer(BaseRLTrainer):
     def learn(self):
         """Main training loop; :meth:`on_learn_end` runs however it exits,
         then the checkpoint writer is flushed and the signal handlers are
-        released."""
+        released, then the obs layer writes its files and stops its
+        watchdog."""
         try:
             return self._learn_loop()
         finally:
@@ -533,6 +552,8 @@ class MeshRLTrainer(BaseRLTrainer):
             # after the producer drain: the writer flush below may be the
             # emergency checkpoint, and the producer must not race it
             self.resilience.close()
+            # after on_learn_end: producer teardown spans still get recorded
+            self.obs.close()
 
     def on_learn_end(self):
         """Teardown hook run when :meth:`learn` exits (return or exception)."""
@@ -564,62 +585,103 @@ class MeshRLTrainer(BaseRLTrainer):
         self.iter_count = 0
         self._maybe_resume(train_config)
         self.prepare_learning()
+        self.obs.configure_model(self.model, getattr(self, "model_config", None))
+        self.obs.beat("learner")
 
-        results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
+        with self.obs.span("evaluate"):
+            results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
         self.tracker.log(results, self.iter_count)
         if self.iter_count >= train_config.total_steps:
             return results
 
-        for epoch in range(train_config.epochs):
-            for batch in self.create_train_dataloader():
-                # chaos site "nan-loss": poison the batch to non-finite (free
-                # when unarmed); the health guard must catch it
-                batch = chaos_poison_batch(batch)
-                self.clock.tick()  # reset: measure train_step alone
-                stats = self.train_step(batch)
-                stats["time/forward_backward"] = self.clock.tick()
-                self.iter_count += 1
-                self.post_backward_callback()
+        profiler = None
+        try:
+            for epoch in range(train_config.epochs):
+                for batch in self.create_train_dataloader():
+                    if train_config.profile_dir:
+                        if self.iter_count == train_config.profile_start_step and profiler is None:
+                            profiler = self._start_profiler(train_config.profile_dir)
+                        elif self.iter_count >= train_config.profile_end_step and profiler is not None:
+                            profiler.stop()
+                            profiler = None
+                    # chaos site "nan-loss": poison the batch to non-finite
+                    # (free when unarmed); the health guard must catch it
+                    batch = chaos_poison_batch(batch)
+                    self.clock.tick()  # reset: measure train_step alone
+                    # the span closes after train_step's one host transfer of
+                    # its stats, which waits for the step's device work
+                    with self.obs.span("learn"):
+                        stats = self.train_step(batch)
+                    stats["time/forward_backward"] = self.clock.tick()
+                    self.iter_count += 1
+                    self.obs.beat("learner")
+                    self.post_backward_callback()
 
-                if self.health is not None:
-                    action = self.health.observe(stats, self.iter_count)
-                    if action == "rollback":
-                        # raises TrainingHealthError (with a diagnostics
-                        # bundle) when the rollback budget is spent
-                        self._handle_health_rollback()
-                        # the rest of this epoch's batches came from the
-                        # anomalous policy: re-collect experience instead
-                        # (post_epoch_callback refills the store)
-                        break
+                    if self.health is not None:
+                        action = self.health.observe(stats, self.iter_count)
+                        if action == "rollback":
+                            # raises TrainingHealthError (with a diagnostics
+                            # bundle) when the rollback budget is spent
+                            self._handle_health_rollback()
+                            # the rest of this epoch's batches came from the
+                            # anomalous policy: re-collect experience instead
+                            # (post_epoch_callback refills the store)
+                            break
 
-                if self.resilience.should_stop(self.iter_count):
-                    return self._preempt_exit(stats)
+                    if self.resilience.should_stop(self.iter_count):
+                        return self._preempt_exit(stats)
 
-                if train_config.checkpoint_interval and self.iter_count % train_config.checkpoint_interval == 0:
-                    self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
-                    self.save_pretrained(os.path.join(train_config.checkpoint_dir, "hf_model"))
+                    if train_config.checkpoint_interval and self.iter_count % train_config.checkpoint_interval == 0:
+                        with self.obs.span("checkpoint"):
+                            self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                            self.save_pretrained(os.path.join(train_config.checkpoint_dir, "hf_model"))
 
-                if (
-                    train_config.eval_interval and self.iter_count % train_config.eval_interval == 0
-                ) or self.iter_count >= train_config.total_steps:
-                    results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
-                    stats.update(results)
-                    if train_config.save_best and "reward/mean" in results:
-                        if results["reward/mean"] > self.best_reward:
-                            self.best_reward = results["reward/mean"]
-                            self._save_checkpoint(os.path.join(train_config.checkpoint_dir, "best_checkpoint"))
+                    if (
+                        train_config.eval_interval and self.iter_count % train_config.eval_interval == 0
+                    ) or self.iter_count >= train_config.total_steps:
+                        with self.obs.span("evaluate"):
+                            results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
+                        self.obs.beat("learner")  # a long eval is not a stall
+                        stats.update(results)
+                        if train_config.save_best and "reward/mean" in results:
+                            if results["reward/mean"] > self.best_reward:
+                                self.best_reward = results["reward/mean"]
+                                self._save_checkpoint(os.path.join(train_config.checkpoint_dir, "best_checkpoint"))
 
-                stats = {k: significant(v) if isinstance(v, float) else v for k, v in stats.items()}
-                self.tracker.log(stats, self.iter_count)
-                if self.iter_count % 10 == 0 or self.iter_count == 1:
-                    brief = {k: v for k, v in stats.items() if "loss" in k or "reward" in k}
-                    logger.info(f"step {self.iter_count}/{train_config.total_steps} {brief}")
+                    if self.obs.enabled:
+                        tokens, samples, seq_len = batch_token_count(batch)
+                        stats.update(self.obs.step_stats(tokens, samples, seq_len))
+                    stats = {k: significant(v) if isinstance(v, float) else v for k, v in stats.items()}
+                    self.tracker.log(stats, self.iter_count)
+                    if self.iter_count % 10 == 0 or self.iter_count == 1:
+                        brief = {k: v for k, v in stats.items() if "loss" in k or "reward" in k}
+                        logger.info(f"step {self.iter_count}/{train_config.total_steps} {brief}")
 
-                if self.iter_count >= train_config.total_steps:
-                    self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
-                    return results
-            self.post_epoch_callback(epoch)
+                    if self.iter_count >= train_config.total_steps:
+                        self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                        return results
+                self.post_epoch_callback(epoch)
+        finally:
+            # the profiler window closes however the loop exits (total_steps,
+            # preemption, a halt, an exception mid-window): its trace is
+            # written only by stop()
+            if profiler is not None:
+                profiler.stop()
         return results
+
+    def _start_profiler(self, profile_dir: str):
+        """Start a ``torch.profiler`` window (CPU activity, plus CUDA on a
+        CUDA device) whose Chrome trace lands under ``profile_dir`` when it
+        stops (``tensorboard_trace_handler``: ``<host>_<pid>.<ns>.pt.trace.json``)."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+        profiler.start()
+        logger.info(f"torch.profiler window opened at step {self.iter_count}, writing under {profile_dir}")
+        return profiler
 
     # ------------------------------------------------------------- checkpoints
 
@@ -690,7 +752,8 @@ class MeshRLTrainer(BaseRLTrainer):
             f"step {self.iter_count} ({handler.grace_remaining_s:.0f}s of grace remaining)"
         )
         t0 = time.perf_counter()
-        self._save_checkpoint(os.path.join(self.config.train.checkpoint_dir, self._checkpoint_name()), block=True)
+        with self.obs.span("checkpoint"):
+            self._save_checkpoint(os.path.join(self.config.train.checkpoint_dir, self._checkpoint_name()), block=True)
         self.emergency_checkpoint_s = time.perf_counter() - t0
         remaining = handler.grace_remaining_s
         if remaining is not None and remaining < 0:

@@ -62,6 +62,7 @@ from trlx_tpu_torch.models.policy import (
     init_value_branch_from_trunk,
 )
 from trlx_tpu_torch.models.transformer import TransformerLM
+from trlx_tpu_torch.obs import span
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.resilience.quarantine import ExperienceQuarantine, chaos_corrupt_elements
@@ -317,7 +318,9 @@ class PPOTrainer(MeshRLTrainer):
             prefix = "transformer."
             self._serving_engine.set_params({k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)})
             self._serving_param_ref = params
-        return self._serving_client.generate_batch(prompts, self._serving_max_new)
+        # the engine's rounds end in host fetches: the span times the decode
+        with self.obs.span("generate"):
+            return self._serving_client.generate_batch(prompts, self._serving_max_new)
 
     def on_learn_end(self):
         """Stop and join the rollout producer (no thread left, whatever path
@@ -415,9 +418,15 @@ class PPOTrainer(MeshRLTrainer):
         self.push_to_store(ppo_rl_elements[:num_rollouts])
 
     def _timed_reward_fn(self, **kwargs):
-        """reward_fn, its seconds added to ``time/rollout_reward``."""
+        """reward_fn under a ``reward`` span (on the worker thread with
+        ``overlap_reward_scoring``, on the producer thread under async
+        rollouts), its seconds added to ``time/rollout_reward``. Every path
+        that calls reward_fn for experience goes through here: the
+        synchronous loop, the overlap pool, the async producer and GRPO's
+        top-up."""
         t0 = time.perf_counter()
-        scores = self.call_reward_fn(**kwargs)
+        with span("reward"):
+            scores = self.call_reward_fn(**kwargs)
         self._phase_time["reward"] += time.perf_counter() - t0
         return scores
 
@@ -480,9 +489,12 @@ class PPOTrainer(MeshRLTrainer):
             r_ids[i, : len(o)] = o
             r_mask[i, : len(o)] = 1
         t0 = time.perf_counter()
-        logprobs, values, ref_logprobs = self.score(
-            np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R, policy=policy
-        )
+        # the span includes score()'s host fetch: the forwards run
+        # asynchronously until it
+        with span("score"):
+            logprobs, values, ref_logprobs = self.score(
+                np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R, policy=policy
+            )
         self._phase_time["score"] += time.perf_counter() - t0
 
         # per-token KL penalty & reward assembly (k3 estimator)
@@ -613,7 +625,8 @@ class PPOTrainer(MeshRLTrainer):
         into the rollout store (the async analogue of make_experience)."""
         n = self.method.num_rollouts
         t0 = time.perf_counter()
-        elements = self._engine.collect(n, self._policy_version, timeout=self._async_cfg.collect_timeout_s)
+        with span("queue_wait"):
+            elements = self._engine.collect(n, self._policy_version, timeout=self._async_cfg.collect_timeout_s)
         gauges.set("rollout/collect_wait_s", time.perf_counter() - t0)
         if self.log_rollouts:
             self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)

@@ -4,9 +4,12 @@ Runtime gauges (:class:`GaugeRegistry` / the module-level :data:`gauges`) are
 thread-safe named floats that subsystems set from worker threads — the
 serving engine exports ``serving/*`` through them. Besides plain
 ``set``/``inc`` gauges, the registry keeps **streaming histograms**:
-``observe(name, value)`` appends to a bounded per-name window and
-``hist_stats(name)`` reduces it to p50/p95/max/mean/count. ``clear(prefix=...)``
-drops a subsystem's gauges when it shuts down.
+``observe(name, value)`` appends to a bounded per-name window,
+``hist_stats(name)`` reduces it to p50/p95/max/mean/count and
+``hist_snapshot(prefix)`` flattens every histogram under a prefix into
+``<name>_p50`` / ``_p95`` / ``_max`` stats (how ``time/step_p95`` reaches the
+trackers). ``clear(prefix=...)`` drops a subsystem's gauges when it shuts
+down.
 
 Copied from ``trlx_tpu/utils/metrics.py`` (the port imports nothing of the
 JAX package); the ROUGE scorers there belong to a later slice.
@@ -78,6 +81,19 @@ class GaugeRegistry:
             "mean": sum(values) / n,
             "count": float(count),
         }
+
+    def hist_snapshot(self, prefix: str = "") -> Dict[str, float]:
+        """Flattened ``{name_p50: v, name_p95: v, name_max: v}`` for every
+        histogram under ``prefix`` — merged into per-step tracker stats."""
+        with self._lock:
+            names = [k for k in self._hists if k.startswith(prefix)]
+        out: Dict[str, float] = {}
+        for name in names:
+            stats = self.hist_stats(name)
+            for key in ("p50", "p95", "max"):
+                if key in stats:
+                    out[f"{name}_{key}"] = stats[key]
+        return out
 
     def snapshot(self, prefix: str = "") -> Dict[str, float]:
         """Copy of the current gauges (optionally filtered by name prefix)."""

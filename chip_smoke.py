@@ -227,6 +227,26 @@ Phases, each printing one JSON line:
                   K1/K2/K3 kernel events inside ``learn``; K1/K2/K3/K5
                   counted over the runs with the layer on and replayed at
                   every recorded shape.
+31. ``production_serving`` — a main path: production serving on one engine
+                  at gpt2 full width (:func:`phase_production_serving`).
+                  ``resilience_parity`` (f32, 32 requests, 8 slots): the
+                  policy without faults ``==`` the plain engine; KV-pressure
+                  preemption and ``serving-prefill:1,serving-decode:1``
+                  under the supervisor equal to the plain run but at near
+                  ties (<= 1e-3); ``serving_chaos`` and ``tenant_scenario``
+                  (bf16; the JAX chaos and tenant legs' card sizes, every
+                  serving chaos site armed): one terminal state per uid, no
+                  block leaked, no quota violation, the SLO order, and the
+                  scheduling facts equal to the same legs run by the port
+                  on the CPU (2 layers, hidden 64); ``stream_overlap``
+                  (``train_serving``'s trainer with ``stream_overlap`` and
+                  ``serving_resilience``, greedy, a 30 ms reward a sample):
+                  serial and streamed phases in turns with the same tokens,
+                  store order and raw scores, logprobs and values within
+                  2e-2, a serialized phase with a lower overlap fraction, a
+                  chaos phase with one reward call per rollout, and one PPO
+                  epoch consuming the staged batches. K1–K5 counted from 0
+                  over the card legs and replayed at every recorded shape.
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -249,7 +269,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability")
+          "observability", "production_serving")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -4140,6 +4160,499 @@ def phase_observability(ctx):
     check_main_path_shapes(ctx, seen, "observability", ("flash_fwd", "flash_bwd", "paged_verify"))
 
 
+#: the device of the production_serving legs (the card)
+PS_DEVICE = "cuda"
+#: phase production_serving, leg resilience_parity: f32 gpt2 at full width,
+#: 32 greedy requests through 8 slots (prompts 16..48 tokens, budgets 32..63),
+#: block 16; the tight pool (24 usable blocks against 8 x 7 worst case) must
+#: preempt, and a lone request (7 blocks) always fits
+PS_PARITY_REQ, PS_PARITY_SLOTS, PS_PARITY_BLOCKS = 32, 8, 25
+#: leg serving_chaos: the card sizes of the JAX package's chaos leg
+#: (bench.py:_serving_chaos_perf): S slots, prompts of 1..P-1 tokens,
+#: budgets N/4..N-1, 8 S requests, block 16
+PS_CHAOS_S, PS_CHAOS_P, PS_CHAOS_N = 64, 128, 64
+#: leg tenant_scenario: the card sizes of bench.py:_serving_tenant_perf
+PS_TEN_S, PS_TEN_P, PS_TEN_N, PS_TEN_LO, PS_TEN_HI = 16, 64, 32, 64, 32
+#: every serving chaos site armed (both scenario legs)
+PS_CHAOS_SPEC = "serving-prefill:1,serving-decode:1,serving-alloc:2,serving-wedge:1"
+#: the wedge timer of the scenario legs (s): a wedged round is aborted after it
+PS_WEDGE_S = 2.0
+#: the stream_overlap leg's reward stand-in sleeps this long a sample
+#: (bench.py:_serving_overlap_perf's reward-RPC stand-in)
+PS_REWARD_SLEEP_S = 0.03
+
+
+def ps_cpu_config():
+    """The CPU reference model of the scenario legs: gpt2 cut to 2 layers of
+    hidden 64 (4 heads of 16), vocab 50257, f32. Scheduling there does not
+    depend on the tokens (no eos: every length is its budget), so the
+    reference's scheduling facts must equal the card's."""
+    import torch
+
+    from trlx_tpu_torch.models.presets import PRESETS
+
+    return PRESETS["gpt2"].replace(num_layers=2, hidden_size=64, num_heads=4, intermediate_size=256,
+                                   compute_dtype=torch.float32, param_dtype=torch.float32, attention_impl="flash")
+
+
+def ps_drive(srv, uids):
+    """Step ``srv`` (an engine or a supervisor) until every uid is terminal;
+    fails when a uid reaches a second terminal state or the engine runs out
+    of work first. Returns {uid: Request}."""
+    terminal = {}
+
+    def collect():
+        for uid, req in srv.scheduler.pop_finished().items():
+            if uid in terminal:
+                raise AssertionError(f"uid {uid} reached a second terminal state")
+            terminal[uid] = req
+
+    collect()
+    while not set(uids) <= set(terminal):
+        if not srv.scheduler.has_work:
+            raise AssertionError(f"engine ran out of work with {set(uids) - set(terminal)} unaccounted")
+        srv.step()
+        collect()
+    return terminal
+
+
+def ps_warm(factory, prompt):
+    """One small pass on a fresh engine of the leg's build (kernels loaded,
+    caches warm) before any wall-clock check: the wedge timers count seconds."""
+    eng = factory()
+    eng.run([eng.submit(prompt[:16], 4)])
+    eng.close()
+
+
+def ps_resilience_parity(ctx):
+    """Leg resilience_parity (f32 on the card): the plain engine on a roomy
+    pool is the reference; the policy with no fault must give its tokens
+    (``==``); preemption under KV pressure and ``serving-prefill:1,
+    serving-decode:1`` under the supervisor must give them too, except at a
+    near tie (the reference prefers its token by <= TIE_GAP f32)."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.resilience.chaos import chaos
+    from trlx_tpu_torch.serving import ServingEngine, ServingResiliencePolicy, ServingSupervisor
+
+    cfg = gpt2_config(12, torch.float32)
+    state = TransformerLM(cfg, device=PS_DEVICE).init_params(SEED).state_dict()
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(16, 49))).astype(np.int32).tolist()
+               for _ in range(PS_PARITY_REQ)]
+    budgets = [32 + i for i in range(PS_PARITY_REQ)]
+
+    def engine(policy=None, num_blocks=0):
+        return ServingEngine(TransformerLM(cfg, device=PS_DEVICE), state, num_slots=PS_PARITY_SLOTS, max_seq_len=112,
+                             block_size=16, num_blocks=num_blocks, gen_kwargs=dict(do_sample=False), seed=SEED,
+                             policy=policy, device=PS_DEVICE)
+
+    def run(srv):
+        t0 = time.perf_counter()
+        uids = [srv.submit(p, n) for p, n in zip(prompts, budgets)]
+        done = ps_drive(srv, uids)
+        torch.cuda.synchronize()
+        return {"rows": [list(done[u].generated) for u in uids], "reasons": [done[u].finish_reason for u in uids],
+                "wall_s": time.perf_counter() - t0, "blocks_in_use": srv.allocator.blocks_in_use,
+                "outcome_counts": srv.scheduler.outcome_counts()}
+
+    ps_warm(engine, prompts[0])
+    plain = engine()
+    runs = {"plain": run(plain)}
+    eng = engine(ServingResiliencePolicy(preemption=True))
+    runs["policy_no_fault"] = run(eng)
+    eng.close()
+    eng = engine(ServingResiliencePolicy(preemption=True), num_blocks=PS_PARITY_BLOCKS)
+    runs["kv_pressure"] = run(eng)
+    eng.allocator.check_invariants()
+    eng.close()
+    sup = ServingSupervisor(lambda: engine(ServingResiliencePolicy(preemption=True)), max_restarts=4,
+                            backoff_base_s=0.01, wedge_timeout_s=None)
+    chaos.configure("serving-prefill:1,serving-decode:1")
+    try:
+        runs["supervised_chaos"] = run(sup)
+    finally:
+        chaos.configure(None)
+        sup.close()
+    sup.allocator.check_invariants()
+    runs["supervised_chaos"]["restarts"] = sup.restarts
+    sup.engine.close()
+    ref = runs["plain"]["rows"]
+    splits = {k: tie_aware_splits(plain.trunk, prompts, runs[k]["rows"], ref) for k in ("kv_pressure",
+                                                                                          "supervised_chaos")}
+    plain.close()
+    emit({"phase": "production_serving", "leg": "resilience_parity", "card": ctx.get("smi"), "dtype": "float32",
+          "requests": PS_PARITY_REQ, "slots": PS_PARITY_SLOTS, "tight_pool_blocks": PS_PARITY_BLOCKS,
+          "runs": {k: {kk: vv for kk, vv in r.items() if kk != "rows"} for k, r in runs.items()},
+          "splits": splits, "tie_gap": TIE_GAP["float32"]})
+    checks = {
+        "policy without faults == plain, token for token": runs["policy_no_fault"]["rows"] == ref,
+        "every request ran its whole budget": all(len(r) == n for r, n in zip(ref, budgets)),
+        "kv pressure preempted": runs["kv_pressure"]["outcome_counts"]["preempted"] >= 1,
+        "supervised run restarted": runs["supervised_chaos"]["restarts"] >= 1,
+        "no block in use at the end": all(r["blocks_in_use"] == 0 for r in runs.values()),
+        "every split a near tie": all(near_tie(s, "float32") for ss in splits.values() for s in ss),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"production_serving resilience_parity: {failed}")
+
+
+def ps_chaos_traffic(vocab):
+    """bench.py:_serving_chaos_perf's traffic: 8 S prompts of 1..P-1 tokens
+    from seed 7, budgets N/4..N-1 rising with the index."""
+    import numpy as np
+
+    S, P, N = PS_CHAOS_S, PS_CHAOS_P, PS_CHAOS_N
+    n_req = 8 * S
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, vocab, 1 + int(rng.integers(0, P - 1))).astype(np.int32).tolist()
+               for _ in range(n_req)]
+    budgets = [N // 4 + (i * (3 * N // 4)) // n_req for i in range(n_req)]
+    return prompts, budgets
+
+
+def ps_serving_chaos_run(cfg, device, diag_dir):
+    """One run of leg serving_chaos on ``device``: the JAX chaos leg's engine
+    (S slots, block 16, a pool of about half the worst case, the policy
+    with max_pending 4 S, watermarks 1.0 / 0.5, preemption, a 300 s TTL)
+    under the supervisor (wedge timer PS_WEDGE_S) with every chaos site
+    armed, all 8 S requests submitted at once."""
+    import numpy as np
+
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.resilience.chaos import chaos
+    from trlx_tpu_torch.serving import ServingEngine, ServingResiliencePolicy, ServingSupervisor
+
+    S, P, N = PS_CHAOS_S, PS_CHAOS_P, PS_CHAOS_N
+    prompts, budgets = ps_chaos_traffic(cfg.vocab_size)
+    state = TransformerLM(cfg, device=device).init_params(SEED).state_dict()
+    policy = ServingResiliencePolicy(request_ttl_s=300.0, max_pending=4 * S, high_watermark=1.0, low_watermark=0.5,
+                                     preemption=True)
+
+    def factory():
+        return ServingEngine(TransformerLM(cfg, device=device), state, num_slots=S, max_seq_len=P + N, block_size=16,
+                             num_blocks=1 + max(2 * S, S * -(-(P + N) // 16) // 2), gen_kwargs=dict(do_sample=False),
+                             seed=SEED, policy=policy, device=device)
+
+    ps_warm(factory, prompts[0])
+    sup = ServingSupervisor(factory, max_restarts=8, backoff_base_s=0.01, wedge_timeout_s=PS_WEDGE_S,
+                            diagnostics_dir=diag_dir)
+    chaos.configure(PS_CHAOS_SPEC)
+    try:
+        t0 = time.perf_counter()
+        uids = [sup.submit(p, n) for p, n in zip(prompts, budgets)]
+        done = ps_drive(sup, uids)
+        wall = time.perf_counter() - t0
+    finally:
+        chaos.configure(None)
+        sup.close()
+    sup.allocator.check_invariants()
+    out = {"reasons": [done[u].finish_reason for u in uids], "outcome_counts": sup.scheduler.outcome_counts(),
+           "restarts": sup.restarts, "blocks_in_use": sup.allocator.blocks_in_use, "wall_s": wall,
+           "latency_s": np.array([done[u].latency_s for u in uids], np.float64),
+           "delivered_tokens": sum(len(done[u].generated) for u in uids), "n_req": len(uids)}
+    sup.engine.close()
+    return out
+
+
+def ps_tenant_run(cfg, device, diag_dir):
+    """One run of leg tenant_scenario on ``device``: bench.py:_serving_tenant_perf
+    through ``run_scenario`` with every chaos site armed."""
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.serving import (
+        ServingEngine,
+        ServingResiliencePolicy,
+        TenantRegistry,
+        TenantTraffic,
+        run_scenario,
+    )
+
+    S, P, N, n_lo, n_hi = PS_TEN_S, PS_TEN_P, PS_TEN_N, PS_TEN_LO, PS_TEN_HI
+    bs = 16
+    max_len = P + N + 4  # +4: pro1 prepends a shared prefix
+    blocks_per_req = -(-max_len // bs)
+    state = TransformerLM(cfg, device=device).init_params(SEED).state_dict()
+    reg = TenantRegistry(class_ttl_s={0: 8.0, 1: 16.0})
+    reg.register("free1", slo_class=0, kv_block_quota=blocks_per_req)
+    reg.register("free2", slo_class=0, kv_block_quota=blocks_per_req)
+    reg.register("pro1", slo_class=1)
+    reg.register("pro2", slo_class=1)
+    policy = ServingResiliencePolicy(max_pending=8, high_watermark=0.75, low_watermark=0.5, preemption=True)
+
+    def factory(tenants=reg):
+        return ServingEngine(TransformerLM(cfg, device=device), state, num_slots=S, max_seq_len=max_len,
+                             block_size=bs, num_blocks=1 + 2 * S * blocks_per_req // 3, eos_token_id=None,
+                             pad_token_id=0, gen_kwargs=dict(do_sample=False), seed=SEED, policy=policy,
+                             prefix_caching=True, tenants=tenants, device=device)
+
+    V = cfg.vocab_size
+    traffic = [
+        TenantTraffic("free1", num_requests=n_lo, arrivals_per_round=2.0, prompt_len=(4, P - 2), max_new=(4, N),
+                      vocab=V),
+        TenantTraffic("free2", num_requests=n_lo, arrivals_per_round=2.0, prompt_len=(4, P - 2), max_new=(4, N),
+                      vocab=V),
+        TenantTraffic("pro1", num_requests=n_hi, arrivals_per_round=0.5, prompt_len=(4, P - 2), max_new=(4, N),
+                      vocab=V, shared_prefix=4),
+        TenantTraffic("pro2", num_requests=n_hi, arrivals_per_round=0.5, prompt_len=(4, P - 2), max_new=(4, N),
+                      vocab=V),
+    ]
+    ps_warm(lambda: factory(None), list(range(1, 17)))
+    t0 = time.perf_counter()
+    report = run_scenario(factory, reg, traffic, chaos_spec=PS_CHAOS_SPEC, dt_s=0.05, max_rounds=800, seed=7,
+                          wedge_timeout_s=PS_WEDGE_S, diagnostics_dir=diag_dir)
+    return report, time.perf_counter() - t0
+
+
+def ps_tenant_facts(report):
+    """The scheduling facts of a ScenarioReport that the card must share with
+    the CPU reference (p99 on the scenario's virtual clock)."""
+    return {"terminal": {int(k): v for k, v in report.terminal.items()}, "shed_by_class": dict(report.shed_by_class),
+            "restarts": report.restarts, "p99_by_class": dict(report.p99_by_class),
+            "outcome_counts": dict(report.outcome_counts)}
+
+
+def ps_scenario_legs(ctx, cpu_refs):
+    """Legs serving_chaos and tenant_scenario on the card (bf16, gpt2 full
+    width), held against ``cpu_refs``: the same legs by the port on the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.serving.scheduler import FINISH_SHED
+
+    cfg = gpt2_config(12, torch.bfloat16)
+    diag = tempfile.mkdtemp(prefix="chip_smoke_ps_diag_")
+    card = ps_serving_chaos_run(cfg, PS_DEVICE, diag)
+    ref = cpu_refs["serving_chaos"]
+    lat = card["latency_s"]
+    shed = card["reasons"].count(FINISH_SHED)
+    emit({"phase": "production_serving", "leg": "serving_chaos", "card": ctx.get("smi"), "dtype": "bfloat16",
+          "slots": PS_CHAOS_S, "requests": card["n_req"], "p50_latency_s": float(np.percentile(lat, 50)),
+          "p99_latency_s": float(np.percentile(lat, 99)), "shed_rate": shed / card["n_req"],
+          "preempted": card["outcome_counts"]["preempted"], "restarts": card["restarts"],
+          "req_s": card["n_req"] / card["wall_s"], "delivered_tok_s": card["delivered_tokens"] / card["wall_s"],
+          "wall_s": card["wall_s"], "outcome_counts": card["outcome_counts"],
+          "cpu_reference": {"outcome_counts": ref["outcome_counts"], "restarts": ref["restarts"],
+                            "wall_s": ref["wall_s"]}})
+    chaos_checks = {
+        "one terminal state per uid (ps_drive) and no block leaked": card["blocks_in_use"] == 0,
+        "terminal reasons == the CPU reference's, uid for uid": card["reasons"] == ref["reasons"],
+        "outcome counts == the CPU reference's": card["outcome_counts"] == ref["outcome_counts"],
+        "restarts == the CPU reference's": card["restarts"] == ref["restarts"] >= 3,
+        "no request expired (300 s TTL)": card["outcome_counts"]["expired"] == 0,
+    }
+
+    report, wall = ps_tenant_run(cfg, PS_DEVICE, diag)
+    facts, ref_facts = ps_tenant_facts(report), cpu_refs["tenant_scenario"]
+    by_class = {}
+    for req in report.requests.values():
+        by_class[req.slo_class] = by_class.get(req.slo_class, 0) + 1
+    emit({"phase": "production_serving", "leg": "tenant_scenario", "card": ctx.get("smi"), "dtype": "bfloat16",
+          "slots": PS_TEN_S, "submitted": report.submitted, "rounds": report.rounds, "restarts": report.restarts,
+          "quota_violations": report.quota_violations, "fairness_jain": report.fairness_jain,
+          "p99_by_class_virtual_s": report.p99_by_class,
+          "shed_rate_by_class": {c: report.shed_by_class.get(c, 0) / n for c, n in sorted(by_class.items())},
+          "outcome_counts": report.outcome_counts, "req_s": report.submitted / wall, "wall_s": wall,
+          "cpu_reference_equal": {k: facts[k] == ref_facts[k] for k in facts}})
+    tenant_checks = {
+        "quota_violations == 0": report.quota_violations == 0,
+        "one terminal state per uid": set(report.terminal) == set(report.requests),
+        "p99 ordering by class": report.p99_ordering_ok(),
+        "no block leaked": report.gauges.get("serving/blocks_in_use") == 0.0,
+        "scheduling facts == the CPU reference's": facts == ref_facts,
+        "restarted under chaos": report.restarts >= 1,
+    }
+    failed = [f"serving_chaos: {k}" for k, ok in chaos_checks.items() if not ok]
+    failed += [f"tenant_scenario: {k}" for k, ok in tenant_checks.items() if not ok]
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"production_serving: {failed}")
+
+
+def ps_stream_overlap(ctx):
+    """Leg stream_overlap: train_serving's trainer (gpt2 full width, bf16
+    compute, 64 greedy rollouts of 128 tokens, spec_k 4, prefill_chunk 64,
+    block 16) with ``stream_overlap`` (2 reward workers, microbuckets of
+    chunk_size) and ``serving_resilience`` (the supervisor wraps the
+    engine), the reward stand-in sleeping PS_REWARD_SLEEP_S a sample. A
+    warm-up phase (prepare_learning), then serial and streamed experience
+    phases in turns on the same weights and prompts, a serialized phase
+    (TRLX_OVERLAP_SEED_REGRESSION=serialize), a streamed phase under
+    ``serving-decode:1,producer-wedge:1``, and one PPO epoch consuming the
+    staged learner batches of that phase."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.resilience.chaos import chaos
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ps_overlap_")
+    cfg = TRLConfig.update(full_width_train_config(ckpt_dir), {
+        "train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64,
+                          "stream_overlap": True, "overlap_reward_workers": 2, "overlap_microbucket": 0},
+        "train.serving_resilience": {"enabled": True, "max_restarts": 4},
+        "method.gen_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=False)})
+    calls, lock = [], threading.Lock()
+
+    def reward_fn(samples, prompts, outputs, **kw):
+        time.sleep(PS_REWARD_SLEEP_S * len(samples))  # a reward-model call
+        with lock:
+            calls.extend(samples)
+        return byte_share_reward(samples, prompts, outputs)
+
+    trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=reward_fn, device=PS_DEVICE)
+    prompts = PromptPipeline(byte_prompts(64, 64, 128, SEED + 1), TRAIN_P, trainer.tokenizer)
+    n = cfg.method.num_rollouts
+    trainer.add_prompt_pipeline(prompts)
+    try:
+        trainer.prepare_learning()  # resolves the supervised engine; a streamed warm-up phase
+        runs = []
+
+        def experience(label, stream, chaos_spec=None, serialize=False):
+            trainer.config.train.serving.stream_overlap = stream
+            trainer.add_prompt_pipeline(prompts)  # the same prompts in every run
+            trainer.store.clear_history()
+            calls.clear()
+            if serialize:
+                os.environ["TRLX_OVERLAP_SEED_REGRESSION"] = "serialize"
+            chaos.configure(chaos_spec)
+            restarts0 = trainer._serving_engine.restarts
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                trainer.make_experience(n, trainer.iter_count)
+                torch.cuda.synchronize()
+            finally:
+                chaos.configure(None)
+                os.environ.pop("TRLX_OVERLAP_SEED_REGRESSION", None)
+            run = {"label": label, "stream": stream, "experience_s": time.perf_counter() - t0,
+                   "rows": list(trainer.store.history), "calls": sorted(calls),
+                   "restarts": trainer._serving_engine.restarts - restarts0,
+                   "overlap": dict(trainer.last_overlap) if stream else None,
+                   "phase_time": dict(trainer._phase_time),
+                   "blocks_in_use": trainer._serving_engine.allocator.blocks_in_use}
+            runs.append(run)
+            return run
+
+        serial = experience("serial", False)
+        streamed = experience("streamed", True)
+        streamed2 = experience("streamed", True)
+        serial2 = experience("serial", False)
+        serialized = experience("serialize", True, serialize=True)
+        chaotic = experience("chaos", True, chaos_spec="serving-decode:1,producer-wedge:1")
+        # one PPO epoch over the chaos phase's store, consuming its staged batches
+        staged0 = len(trainer._staged_learn)
+        pops, pop = [], trainer._pop_staged_learn
+        trainer._pop_staged_learn = lambda batch: pops.append(pop(batch)) or pops[-1]
+        steps = []
+        t0 = time.perf_counter()
+        for batch in trainer.create_train_dataloader():
+            steps.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    finally:
+        trainer.on_learn_end()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def dump(run):
+        return [(np.asarray(e.query_tensor).tolist(), np.asarray(e.response_tensor).tolist()) for e in run["rows"]]
+
+    def close(a, b):
+        return all(np.all(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64))
+                          <= 2e-2 * np.maximum(1.0, np.abs(np.asarray(y, np.float64))))
+                   for ea, eb in zip(a["rows"], b["rows"]) for x, y in ((ea.logprobs, eb.logprobs),
+                                                                      (ea.values, eb.values)))
+
+    ref = dump(serial)
+    differing = sum(1 for a, b in zip(dump(chaotic), ref) if a != b)
+    for run in runs:
+        ov = run["overlap"] or {}
+        emit({"phase": "production_serving", "leg": "stream_overlap", "run": run["label"], "card": ctx.get("smi"),
+              "experience_s": run["experience_s"], "decode_busy_s": ov.get("decode_busy_s"),
+              "overlapped_s": ov.get("overlapped_s"), "overlap_fraction": ov.get("fraction"),
+              "bubble_s": (ov["work_s"] - ov["overlapped_s"]) if ov else None,
+              "phase_time": run["phase_time"], "restarts": run["restarts"], "reward_calls": len(run["calls"])})
+    losses = [v for st in steps for k, v in st.items() if k.startswith("losses/")]
+    emit({"phase": "production_serving", "leg": "stream_overlap", "card": ctx.get("smi"), "epoch_s": epoch_s,
+          "learner_steps": len(steps), "staged_batches": staged0, "consumed_from_stage": sum(p is not None for p in pops),
+          "chaos_rows_differing_from_serial": differing, "losses": {k: v for k, v in steps[-1].items()
+                                                                    if k.startswith("losses/")}})
+    frac = [r["overlap"]["fraction"] for r in (streamed, streamed2)]
+    checks = {
+        "streamed tokens and store order == serial": dump(streamed) == ref == dump(streamed2) == dump(serial2),
+        "raw scores == serial": streamed["calls"] == serial["calls"] and len(serial["calls"]) == n,
+        "logprobs and values within 2e-2 x max(1, |ref|)": close(streamed, serial),
+        "serialize: fraction below the streamed runs' and 0.5": serialized["overlap"]["fraction"] < min(
+            min(frac), 0.5),
+        "chaos: reward_fn once per rollout": len(chaotic["calls"]) == len(set(chaotic["calls"])) == n,
+        "chaos: store whole, in submission order": [q for q, _ in dump(chaotic)] == [q for q, _ in ref],
+        "chaos: the supervisor restarted": chaotic["restarts"] >= 1,
+        "no block in use after a phase": all(r["blocks_in_use"] == 0 for r in runs),
+        "every first-epoch batch from the stage": staged0 == len(steps) == n // TRAIN_B and all(
+            p is not None for p in pops),
+        "losses finite": bool(losses) and all(np.isfinite(v) for v in losses),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    del trainer
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"production_serving stream_overlap: {failed}")
+
+
+def phase_production_serving(ctx):
+    """A main path: production serving on one engine (:func:`ps_resilience_parity`,
+    :func:`ps_scenario_legs`, :func:`ps_stream_overlap`). The CPU references
+    of the two scenario legs run first; then launch counts are set to 0,
+    the four card legs run, and the counts are read: K1 (prefill waves,
+    scoring, the learner's loss forward), K2/K3 (the PPO epoch), K4 (the
+    resilience and scenario engines) and K5 (the trainer's spec engine)
+    must all have launched, and every recorded shape is held against the
+    plain versions."""
+    import tempfile
+
+    from trlx_tpu_torch.ops import _kernels
+
+    cpu = ps_cpu_config()
+    diag = tempfile.mkdtemp(prefix="chip_smoke_ps_cpu_diag_")
+    t0 = time.perf_counter()
+    report, _ = ps_tenant_run(cpu, "cpu", diag)
+    cpu_refs = {"serving_chaos": ps_serving_chaos_run(cpu, "cpu", diag), "tenant_scenario": ps_tenant_facts(report)}
+    emit({"phase": "production_serving", "cpu_references_s": time.perf_counter() - t0})
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    legs = {}
+    _kernels.reset_launches()
+    try:
+        for name, leg in (("resilience_parity", lambda: ps_resilience_parity(ctx)),
+                          ("scenarios", lambda: ps_scenario_legs(ctx, cpu_refs)),
+                          ("stream_overlap", lambda: ps_stream_overlap(ctx))):
+            before, t1 = dict(_kernels.launches()), time.perf_counter()
+            leg()
+            legs[name] = {"s": time.perf_counter() - t1,
+                          "launches": {k: _kernels.launches()[k] - before[k] for k in before}}
+    finally:
+        restore_kernels()
+    launches = _kernels.launches()
+    ctx["production_serving_launches"] = launches
+    emit({"phase": "production_serving", "legs": legs, "launches": launches, "kernel_shapes": kernel_shapes(seen)})
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"production_serving phase: kernels never launched on the path: {missing}")
+    check_main_path_shapes(ctx, seen, "production_serving", ("flash_fwd", "flash_bwd", "paged_decode",
+                                                             "paged_verify"))
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -4318,7 +4831,8 @@ def kernel_table(ctx):
              "sft": ctx["sft_launches"], "hydra": ctx["hydra_launches"], "ilql": ctx["ilql_launches"],
              "rft": ctx["rft_launches"], "grpo": ctx["grpo_launches"], "online_grpo": ctx["online_grpo_launches"],
              "async": ctx["async_launches"], "resilience": ctx["resilience_launches"],
-             "observability": ctx["observability_launches"]}
+             "observability": ctx["observability_launches"],
+             "production_serving": ctx["production_serving_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -4366,7 +4880,7 @@ def main(argv=None) -> int:
                "randomwalks_rft": phase_randomwalks_rft, "grpo_parity": phase_grpo_parity, "grpo": phase_grpo,
                "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
-               "observability": phase_observability}
+               "observability": phase_observability, "production_serving": phase_production_serving}
     phase_env(ctx)
     try:
         for name in phases:

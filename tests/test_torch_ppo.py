@@ -223,6 +223,19 @@ def test_schedules_match_optax(name):
         assert tsched(step) == pytest.approx(float(jsched(step)), rel=1e-5, abs=1e-10), step
 
 
+@pytest.mark.parametrize("warmup,total", [(10, 10), (10, 5)], ids=["total_eq_warmup", "total_lt_warmup"])
+def test_cosine_warmup_without_decay_steps_raises_at_build_as_optax(warmup, total):
+    """optax refuses a warmup cosine with no decay step left when the schedule
+    is built; the port raises the same ValueError there, not mid-run."""
+    kw = dict(learning_rate=1e-3, warmup_steps=warmup, total_steps=total, eta_min=5e-5)
+    with pytest.raises(ValueError) as jerr:
+        jutils.get_scheduler_class("cosine_warmup")(**kw)
+    with pytest.raises(ValueError) as terr:
+        tutils.get_scheduler_class("cosine_warmup")(**kw)
+    assert str(terr.value) == str(jerr.value)
+    assert f"decay_steps={total - warmup}" in str(terr.value)
+
+
 @pytest.mark.parametrize(
     "opt,opt_kwargs",
     [

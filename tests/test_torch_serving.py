@@ -233,12 +233,17 @@ def test_engine_prefix_sharing_stream_and_cancel(shared_weights):
 
 
 def test_engine_later_slices_raise(shared_weights):
+    """Islands still raise, naming the fleet slice; the policy and the
+    tenancy registry build since the production-serving slice."""
+    from trlx_tpu_torch.serving import ServingResiliencePolicy, TenantRegistry
+
     _, params = shared_weights
     tcfg = PRESETS["gpt2"].replace(**TINY, compute_dtype=torch.float32)
-    for kw in (dict(policy=object()), dict(tenants=object())):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
+    for kw in (dict(policy=ServingResiliencePolicy()), dict(tenants=TenantRegistry())):
+        eng = ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu", **kw)
+        assert eng.policy is kw.get("policy") and eng.tenants is kw.get("tenants")
+        eng.close()
+    with pytest.raises(NotImplementedError, match="fleet slice"):
         ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu").attach_island(None)
 
 

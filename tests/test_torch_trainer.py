@@ -159,11 +159,8 @@ def test_default_device_is_the_card(tmp_path):
 
 
 UNPORTED = [
-    ("train.islands.enabled", True, "production-serving slice"),
-    ("train.serving.stream_overlap", True, "production-serving slice"),
-    ("train.serving_resilience.enabled", True, "production-serving slice"),
-    ("train.serving_tenancy.enabled", True, "production-serving slice"),
-    ("train.serving_fleet.enabled", True, "production-serving slice"),
+    ("train.islands.enabled", True, "serving-fleet slice"),
+    ("train.serving_fleet.enabled", True, "serving-fleet slice"),
     ("train.learner_overlap.enabled", True, "scale-out slice"),
     ("train.rollout_param_dtype", "bfloat16", "mixed-precision rollout slice"),
     ("mesh.remat", "full", "training-memory slice"),
@@ -196,15 +193,19 @@ PORTED = [
     ("train.observability.enabled", True),
     ("train.profile_dir", "prof"),
     ("train.tracker", "wandb"),
+    ("train.serving.stream_overlap", True),
+    ("train.serving_resilience.enabled", True),
+    ("train.serving_tenancy.enabled", True),
 ]
 
 
 @pytest.mark.parametrize("key,value", PORTED, ids=[p[0] for p in PORTED])
 def test_ported_config_blocks_build(tmp_path, key, value):
     """The blocks that raised until the async / online slice, the
-    resilience slice and the observability slice build the CPU trainer
-    (``train.online`` with the GRPO method it belongs to; ``wandb``, not
-    installed, falls back to the jsonl tracker)."""
+    resilience slice, the observability slice and the production-serving
+    slice build the CPU trainer (``train.online`` with the GRPO method it
+    belongs to; ``wandb``, not installed, falls back to the jsonl tracker;
+    the serving blocks with ``train.serving`` on)."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.utils.loading import get_trainer
 
@@ -212,7 +213,10 @@ def test_ported_config_blocks_build(tmp_path, key, value):
     if key == "train.online.enabled":
         d["method"].update(name="GRPOConfig", group_size=2)
         d["train"].update(trainer="GRPOTrainer", online=dict(group_size=2))
-    cfg = TRLConfig.update(TRLConfig.from_dict(d), {key: value})
+    over = {key: value}
+    if key.startswith("train.serving"):
+        over["train.serving.enabled"] = True
+    cfg = TRLConfig.update(TRLConfig.from_dict(d), over)
     trainer = get_trainer(cfg.train.trainer)(config=cfg, reward_fn=reward_fn, device="cpu")
     if key == "train.online.enabled":
         assert trainer.online_buffer is not None

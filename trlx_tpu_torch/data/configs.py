@@ -695,6 +695,27 @@ class ServingTenancyConfig:
     def from_dict(cls, config: Dict[str, Any]):
         return cls(**config)
 
+    def build_registry(self):
+        """Materialize the :class:`~trlx_tpu_torch.serving.tenancy.TenantRegistry`
+        this config describes (import deferred: configs must not drag the
+        serving stack in)."""
+        from trlx_tpu_torch.serving.tenancy import TenantRegistry
+
+        registry = TenantRegistry(
+            default_slo_class=self.default_slo_class,
+            default_kv_block_quota=self.default_kv_block_quota,
+            aging_class_boost_rounds=self.aging_class_boost_rounds,
+            class_ttl_s=self.class_ttl_s,
+        )
+        for tenant_id, spec in self.tenants.items():
+            registry.register(
+                tenant_id,
+                slo_class=spec.get("slo_class"),
+                kv_block_quota=spec.get("kv_block_quota"),
+                request_ttl_s=spec.get("request_ttl_s"),
+            )
+        return registry
+
 
 @dataclass
 class ServingFleetConfig:

@@ -46,13 +46,20 @@ class PPORLBatch:
     def replace(self, **kw) -> "PPORLBatch":
         return replace(self, **kw)
 
-    def to(self, device) -> "PPORLBatch":
-        """The batch as torch tensors on ``device`` (None fields stay None)."""
+    def to(self, device, non_blocking: bool = False) -> "PPORLBatch":
+        """The batch as torch tensors on ``device`` (None fields stay None).
+        ``non_blocking`` copies to a CUDA device from pinned host memory
+        without waiting for the copy (the staged learner batches)."""
         import torch
 
+        def move(x):
+            t = torch.as_tensor(x)
+            if non_blocking and torch.device(device).type == "cuda":
+                return t.pin_memory().to(device, non_blocking=True)
+            return t.to(device)
+
         return PPORLBatch(**{
-            f.name: None if getattr(self, f.name) is None
-            else torch.as_tensor(getattr(self, f.name)).to(device)
+            f.name: None if getattr(self, f.name) is None else move(getattr(self, f.name))
             for f in fields(self)
         })
 

@@ -23,11 +23,14 @@ step:
   — bounded gauge time-series with windowed reductions, plus atomic JSONL
   and Prometheus text exporters.
 
+- :mod:`~trlx_tpu_torch.obs.overlap` — the busy-interval ledger of
+  stream-overlapped PPO (decode time against the reward / score /
+  learn-stage work that overlapped it).
+
 ``train.profile_dir`` (a ``torch.profiler`` window over
 ``[profile_start_step, profile_end_step)``) lives in the trainer's loop.
-The JAX package's ``OverlapWindow`` and ``IslandLedger`` come with the
-production-serving slice, with ``train.serving.stream_overlap`` and
-``train.islands`` that read them.
+The JAX package's ``IslandLedger`` comes with ``train.islands`` (the fleet
+slice).
 """
 
 from trlx_tpu_torch.obs.export import (
@@ -38,6 +41,7 @@ from trlx_tpu_torch.obs.export import (
 )
 from trlx_tpu_torch.obs.flight import Flight, FlightRecorder, flight
 from trlx_tpu_torch.obs.memory import device_memory_stats, host_rss_bytes
+from trlx_tpu_torch.obs.overlap import OverlapWindow
 from trlx_tpu_torch.obs.runtime import Observability, batch_token_count
 from trlx_tpu_torch.obs.spans import SpanTracer, span, tracer
 from trlx_tpu_torch.obs.throughput import (
@@ -54,6 +58,7 @@ __all__ = [
     "Flight",
     "FlightRecorder",
     "Observability",
+    "OverlapWindow",
     "PEAK_TFLOPS_BY_DEVICE_KIND",
     "SeriesStore",
     "SpanTracer",

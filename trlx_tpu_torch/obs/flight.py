@@ -48,11 +48,11 @@ disabled, and no site computes anything before that check — the
 observability-off engine stays byte-identical (the existing parity tests
 are the proof).
 
-In this package the scheduler, the engine, the client and the online
-collector journal; the supervisor and fleet-router sites (``re_route``,
-``adopt`` across replicas) and the trainer's stream-overlap sites
-(``reward_dispatch`` / ``reward_done``) come with the production-serving
-slice, as do the serving layers that drive them.
+In this package the scheduler, the engine, the client, the online
+collector, the serving supervisor (``re_route`` on a restart) and the
+trainer's stream-overlap path (``reward_dispatch`` / ``reward_done`` /
+``store``) journal; the fleet router's cross-replica sites come with the
+fleet slice.
 
 Seeded regression: ``TRLX_FLIGHT_SEED_REGRESSION=drop_terminal`` makes the
 recorder silently drop terminal events — the exactly-once accounting check

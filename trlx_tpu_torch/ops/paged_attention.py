@@ -332,13 +332,20 @@ def write_paged_kv(cache: Dict[str, torch.Tensor], k_new: torch.Tensor, v_new: t
 
     Distinct live slots always write distinct rows (the allocator never lets
     a write frontier sit in a shared block); idle slots all write the
-    reserved null block 0, whose contents are never read as valid.
+    reserved null block 0, whose contents are never read as valid. An idle
+    slot's length keeps growing with every step, and once it reaches the
+    table's reach (``max_blocks * block_size``) its write goes to the null
+    block too: JAX's gather / scatter drop that write, a torch gather past
+    the table would fail.
     """
     from trlx_tpu_torch.models.transformer import quantize_kv_rows
 
     NB, BS = cache["k"].shape[:2]
+    tables = cache["block_tables"].long()
     lens = cache["context_lens"].long()
-    block = torch.gather(cache["block_tables"].long(), 1, (lens // BS)[:, None])[:, 0]
+    inside = lens < tables.shape[1] * BS
+    col = torch.where(inside, lens // BS, torch.zeros_like(lens))
+    block = torch.where(inside, torch.gather(tables, 1, col[:, None])[:, 0], torch.zeros_like(lens))
     slot = block * BS + lens % BS  # [B] flat row in the (NB*BS) pool
 
     def scatter(pool, rows):

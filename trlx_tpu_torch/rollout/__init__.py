@@ -19,6 +19,8 @@ off-policy staleness control:
   policy version it was sampled from.
 - :mod:`trlx_tpu_torch.rollout.supervisor` — restarts a crashed or wedged
   producer with backoff under a budget (``train.self_healing``).
+- :mod:`trlx_tpu_torch.rollout.reorder` — reassembles out-of-order
+  completions in submission order (stream-overlapped PPO).
 
 Enabled via ``TrainConfig.async_rollouts``; the synchronous path stays the
 default and ``max_staleness=0`` falls back to it exactly. Not ported yet:
@@ -29,6 +31,7 @@ its slice.
 from trlx_tpu_torch.rollout.engine import PRODUCER_HEARTBEAT, AsyncRolloutEngine, length_bucketed
 from trlx_tpu_torch.rollout.publisher import ParameterPublisher
 from trlx_tpu_torch.rollout.queue import ExperienceQueue, QueueClosed
+from trlx_tpu_torch.rollout.reorder import ReorderBuffer
 from trlx_tpu_torch.rollout.staleness import StalenessAccountant, staleness_importance_weights
 from trlx_tpu_torch.rollout.supervisor import ProducerRestartBudgetExceeded, ProducerSupervisor
 
@@ -40,6 +43,7 @@ __all__ = [
     "ProducerRestartBudgetExceeded",
     "ProducerSupervisor",
     "QueueClosed",
+    "ReorderBuffer",
     "StalenessAccountant",
     "length_bucketed",
     "staleness_importance_weights",

@@ -40,8 +40,29 @@ tests/test_torch_serving_spec.py). Sampled streams draw from a
 sampled speculative stream differs from a sampled one-token stream by
 construction (other draws per position).
 
-Not in this slice (``NotImplementedError`` naming the slice): the
-resilience policy, tenancy and generation islands.
+With a :class:`~trlx_tpu_torch.serving.policy.ServingResiliencePolicy`
+(``policy=``) each admission round first expires and sheds pending
+requests, each decode round expires live ones, and under
+``policy.preemption`` admission is optimistic: before every decode round
+each live slot grows its blocks through ``allocator.extend``, and when the
+pool cannot serve the growth the longest-remaining other sequence is
+preempted (re-queued at the front, re-prefilled later from prompt +
+generated-so-far). With a :class:`~trlx_tpu_torch.serving.tenancy.TenantRegistry`
+(``tenants=``) requests carry a tenant and an SLO class: admission and
+shedding follow the classes, a tenant's KV-block quota gates its admissions
+and preempts its own sequences when one of them grows past it, and the
+victim of KV pressure comes from an over-share tenant first. Both ``None``
+keep every pass a no-op: the engine is then the plain one, token for token.
+
+Four chaos sites (:mod:`trlx_tpu_torch.resilience.chaos`) drive the
+recovery paths: ``serving-prefill`` raises after placement and before the
+prefill wave, ``serving-decode`` before the device step, ``serving-alloc``
+reports one block extension as failed, and ``serving-wedge`` parks
+:meth:`step` under the engine lock until :meth:`request_abort` (then
+:class:`~trlx_tpu_torch.serving.policy.EngineWedgedError`). The
+:class:`~trlx_tpu_torch.serving.supervisor.ServingSupervisor` turns each
+into a restart that replays every request. Generation islands
+(:meth:`attach_island`) come with the fleet slice.
 
 Request flights (:mod:`trlx_tpu_torch.obs.flight`): besides the
 scheduler's lifecycle events, the engine journals each chunk append
@@ -56,6 +77,7 @@ Thread-safety: ``submit``/``cancel`` may be called from producer threads;
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -65,10 +87,20 @@ import torch
 from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.ops.sampling import count_accepted_drafts, sample_token
+from trlx_tpu_torch.resilience.chaos import chaos
 from trlx_tpu_torch.serving.allocator import PagedBlockAllocator
-from trlx_tpu_torch.serving.policy import RequestTooLarge
+from trlx_tpu_torch.serving.policy import (
+    EngineDrainingError,
+    EngineWedgedError,
+    RequestTooLarge,
+    ServingResiliencePolicy,
+)
 from trlx_tpu_torch.serving.scheduler import InflightScheduler, Request
-from trlx_tpu_torch.utils.metrics import gauges
+from trlx_tpu_torch.serving.tenancy import TenantRegistry, select_victim
+from trlx_tpu_torch.utils import logging
+from trlx_tpu_torch.utils.metrics import gauges, nearest_rank
+
+logger = logging.get_logger(__name__)
 
 # prompt-length buckets for prefill (same family the JAX engine uses)
 PREFILL_LEN_BUCKETS = tuple(2 ** i for i in range(3, 14))
@@ -146,6 +178,12 @@ class ServingStats:
     # these include the device work they issued
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    # stream-overlapped PPO: the trainer reports each streaming window's
+    # decode-busy seconds and the reward / score / learn-stage seconds that
+    # overlapped them (:meth:`ServingEngine.note_overlap`)
+    overlap_decode_s: float = 0.0
+    overlap_overlapped_s: float = 0.0
+    overlap_windows: int = 0
 
 
 class ServingEngine:
@@ -164,11 +202,11 @@ class ServingEngine:
         min_new_tokens: int = 0,
         prefix_caching: bool = True,
         seed: int = 0,
-        policy=None,
+        policy: Optional[ServingResiliencePolicy] = None,
         spec_k: int = 0,
         spec_ngram: int = 3,
         prefill_chunk: int = 0,
-        tenants=None,
+        tenants: Optional[TenantRegistry] = None,
         device=None,
     ):
         """``trunk`` is a ``TransformerLM`` (its config decides the KV dtype
@@ -182,13 +220,9 @@ class ServingEngine:
         verified per round); ``spec_ngram`` caps the draft-match n-gram
         order. ``prefill_chunk`` > 0 splits admissions longer than the chunk
         into per-round verify appends interleaved with decode (0 =
-        whole-prompt bucketed prefill). ``policy`` and ``tenants`` keep the
-        JAX engine's signature; a non-default value raises
-        ``NotImplementedError`` naming the slice that brings it."""
-        if policy is not None:
-            raise NotImplementedError("the serving resilience policy comes in a later slice")
-        if tenants is not None:
-            raise NotImplementedError("multi-tenant serving comes in a later slice")
+        whole-prompt bucketed prefill). ``policy`` installs deadlines,
+        shedding and KV-pressure preemption; ``tenants`` the tenancy
+        registry (module docs); ``None`` keeps each pass a no-op."""
         self.spec_k = int(spec_k)
         self.spec_ngram = int(spec_ngram)
         self.prefill_chunk = int(prefill_chunk)
@@ -214,13 +248,26 @@ class ServingEngine:
         self.gen_kwargs = dict(gen_kwargs or {})
         self.min_new_tokens = int(min_new_tokens)
         self.gauge_prefix = GAUGE_PREFIX
+        # typed errors name the raising replica; a lone engine is none
+        self.replica_id = None
 
         self.allocator = PagedBlockAllocator(
             self.num_blocks, self.block_size, prefix_caching=prefix_caching
         )
-        self.scheduler = InflightScheduler(self.num_slots, self.allocator)
+        self.policy = policy
+        self.tenants = tenants
+        self.scheduler = InflightScheduler(self.num_slots, self.allocator, policy=policy, tenants=tenants)
+        # per-tenant / per-class latency windows of the p99 gauges (bounded),
+        # written by step() under the engine lock
+        self._tenant_latency: Dict[str, deque] = {}
+        self._class_latency: Dict[int, deque] = {}
         self.stats = ServingStats()
         self._lock = threading.Lock()
+        # drain() sets _draining so submit() rejects; request_abort() sets
+        # _abort_evt to unstick a wedged step. Events, not the lock: both are
+        # called from other threads while a round (or a wedge) holds the lock
+        self._draining = threading.Event()
+        self._abort_evt = threading.Event()
 
         # device state
         with torch.no_grad():
@@ -348,7 +395,14 @@ class ServingEngine:
         prompt: Sequence[int],
         max_new_tokens: int,
         stop_sequences: Sequence[Sequence[int]] = (),
+        deadline_s: Optional[float] = None,
+        tenant_id: Optional[str] = None,
     ) -> int:
+        spec = self.tenants.resolve(tenant_id) if self.tenants is not None else None
+        tags = dict(tenant_id=spec.tenant_id if spec else None, slo_class=spec.slo_class if spec else None,
+                    replica_id=self.replica_id)
+        if self._draining.is_set():
+            raise EngineDrainingError("engine is draining: new requests are rejected (graceful shutdown)", **tags)
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new {max_new_tokens} exceeds "
@@ -358,11 +412,20 @@ class ServingEngine:
         if worst > self.num_blocks - 1:
             raise RequestTooLarge(
                 f"request needs {worst} KV blocks worst-case but the pool "
-                f"holds {self.num_blocks - 1}: it can never be admitted"
+                f"holds {self.num_blocks - 1}: it can never be admitted", **tags
+            )
+        if spec is not None and spec.kv_block_quota and worst > spec.kv_block_quota:
+            # the same never-admittable check against the tenant's cap, and the
+            # guarantee quota enforcement leans on: any one admitted sequence
+            # fits its tenant's quota alone
+            raise RequestTooLarge(
+                f"request needs {worst} KV blocks worst-case but tenant "
+                f"{spec.tenant_id!r} is capped at {spec.kv_block_quota}: it "
+                f"can never be admitted", **tags
             )
         return self.scheduler.submit(
             prompt, max_new_tokens, eos_token_id=self.eos_token_id,
-            stop_sequences=stop_sequences,
+            stop_sequences=stop_sequences, deadline_s=deadline_s, tenant_id=tenant_id,
         )
 
     def cancel(self, uid: int) -> bool:
@@ -370,6 +433,11 @@ class ServingEngine:
 
     def attach_island(self, island) -> None:
         raise NotImplementedError("generation islands come with the fleet slice")
+
+    @property
+    def serving_version(self) -> int:
+        """The broadcast version served: -1, no island is attached."""
+        return -1
 
     def set_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Swap the weights (a ``state_dict``). Cached prefix K/V was computed
@@ -395,9 +463,15 @@ class ServingEngine:
         finished: List[Request] = []
         for slot in self.scheduler.reap_cancelled():
             self._free_slot_state(slot)
+        # the policy's admission-side pass: expire and shed pending requests
+        # (they hold no device state) before placement
+        finished.extend(self.scheduler.expire_and_shed_pending())
         placements = self.scheduler.admissions()
         if not placements:
             return finished
+        # placed requests hold slots and blocks now: a crash here is the
+        # supervisor's replay case
+        chaos.fail_if_armed("serving-prefill", f"{len(placements)} placements")
         # group by bucketed prefill length so one wave runs per bucket pair;
         # prefill covers prompt + generated-so-far (re-admissions)
         by_bucket: Dict[int, List[Tuple[int, Request, List[int]]]] = {}
@@ -470,7 +544,7 @@ class ServingEngine:
         for slot in np.nonzero(self._prefilling)[0]:
             slot = int(slot)
             req = self.scheduler.slots[slot]
-            if req is None:  # freed (cancel) mid-prefill
+            if req is None:  # freed (cancel / expiry / preemption) mid-prefill
                 self._prefilling[slot] = False
                 continue
             ids_full = req.prefill_ids
@@ -508,6 +582,98 @@ class ServingEngine:
                     self._free_slot_state(slot)
         return finished
 
+    def _tenant_shares(self) -> Dict[str, int]:
+        """Per-tenant block share for fair-share preemption: the tenant's
+        quota when it has one, else an equal split of the pool over the
+        tenants holding blocks. Past its share a tenant is only the
+        preferred victim under KV pressure."""
+        census = self.allocator.owner_census()
+        owners = [t for t in census if t is not None]
+        fair = (self.num_blocks - 1) // max(1, len(owners))
+        return {t: (self.tenants.quota(t) or fair) for t in owners}
+
+    def _pick_victim(self, exclude: int) -> Optional[int]:
+        """The preemption victim: the live sequence with the most decode
+        budget left, never ``exclude``; with a tenancy registry, one of an
+        over-share tenant first (:func:`~trlx_tpu_torch.serving.tenancy.select_victim`)."""
+        candidates = [
+            (slot, req) for slot, req in enumerate(self.scheduler.slots)
+            if req is not None and slot != exclude
+        ]
+        if self.tenants is not None:
+            return select_victim(candidates, self.allocator.owner_census(), self._tenant_shares())
+        best, best_remaining = None, -1
+        for slot, req in candidates:
+            if req.remaining_tokens > best_remaining:
+                best, best_remaining = slot, req.remaining_tokens
+        return best
+
+    def _enforce_quota(self, slot: int, req: Request, need_len: int) -> None:
+        """Keep a live sequence's growth inside its tenant's KV-block quota:
+        while the growth would cross it, preempt the tenant's OWN
+        longest-remaining other sequence (never another tenant's). A lone
+        sequence always fits: submit() rejects a request whose worst case
+        exceeds its quota."""
+        quota = self.tenants.quota(req.tenant_id)
+        if not quota:
+            return
+        while True:
+            grow = self.allocator.blocks_needed(need_len) - len(req.seq_blocks.blocks)
+            if grow <= 0 or self.allocator.owner_usage(req.tenant_id) + grow <= quota:
+                return
+            victim, victim_remaining = None, -1
+            for s, r in enumerate(self.scheduler.slots):
+                if r is None or s == slot or r.tenant_id != req.tenant_id:
+                    continue
+                if r.remaining_tokens > victim_remaining:
+                    victim, victim_remaining = s, r.remaining_tokens
+            if victim is None:
+                return
+            logger.warning(
+                f"quota pressure: preempting uid={self.scheduler.slots[victim].uid} "
+                f"(slot {victim}, tenant {req.tenant_id!r}) to grow slot {slot}"
+            )
+            self.scheduler.preempt(victim)
+            self._free_slot_state(victim)
+
+    def _ensure_decode_capacity(self) -> None:
+        """Optimistic admission (``policy.preemption``): before the decode
+        step every live slot must own blocks covering this round's writes.
+        Growth comes from ``allocator.extend``; when the pool cannot serve
+        it, victims are preempted until it can. Chaos site ``serving-alloc``
+        reports one extension as failed."""
+        if self.policy is None or not self.policy.preemption:
+            return
+        for slot, req in enumerate(self.scheduler.slots):
+            if req is None or self._prefilling[slot]:
+                # mid chunked-prefill: admission reserved the whole prefill
+                # (+1) up front; no growth until decode starts
+                continue
+            # every KV position this round can write: the incoming token plus
+            # spec_k draft positions, clamped to the sequence's cap
+            need_len = min(int(self._lens[slot]) + 1 + self.spec_k, len(req.prompt) + req.max_new_tokens)
+            if self.tenants is not None:
+                self._enforce_quota(slot, req, need_len)
+            before = len(req.seq_blocks.blocks)
+            ok = (not chaos.should_fail("serving-alloc")) and self.allocator.extend(req.seq_blocks, need_len)
+            while not ok:
+                victim = self._pick_victim(exclude=slot)
+                if victim is not None:
+                    logger.warning(
+                        f"kv pressure: preempting uid={self.scheduler.slots[victim].uid} "
+                        f"(slot {victim}) to grow slot {slot}"
+                    )
+                    self.scheduler.preempt(victim)
+                    self._free_slot_state(victim)
+                ok = self.allocator.extend(req.seq_blocks, need_len)
+                if not ok and victim is None:
+                    # submit() bounds every worst case to the pool, so a lone
+                    # sequence always extends: the accounting broke
+                    raise RuntimeError(f"kv pool cannot cover lone slot {slot} at len {need_len}")
+            if len(req.seq_blocks.blocks) != before:
+                self._tables[slot, : len(req.seq_blocks.blocks)] = req.seq_blocks.blocks
+                self._tables_dirty = True
+
     def _push_mirrors(self) -> None:
         """Push the host table/len mirrors to the device when stale (as
         copies — see :meth:`_to_device`). While a slot is mid chunked-prefill
@@ -529,12 +695,17 @@ class ServingEngine:
 
     def _decode_round(self) -> List[Request]:
         finished: List[Request] = []
+        for slot, req in self.scheduler.expire_live():
+            self._free_slot_state(slot)
+            finished.append(req)
+        self._ensure_decode_capacity()
         live = [
             s for s, r in enumerate(self.scheduler.slots)
             if r is not None and not self._prefilling[s]
         ]
         if not live:
             return finished
+        chaos.fail_if_armed("serving-decode", f"{len(live)} live slots")
         if flight.enabled:
             # journal before the device step: the request may finish inside
             # it, and the round marks decode participation either way
@@ -604,11 +775,24 @@ class ServingEngine:
                 self._free_slot_state(slot)
         return finished
 
+    def request_abort(self) -> None:
+        """Unstick a wedged step (the supervisor's wedge timer or the
+        watchdog's escalation, from their threads). Never takes the engine
+        lock: the wedged step holds it."""
+        self._abort_evt.set()
+
     def step(self) -> List[Request]:
         """One engine round: admissions (bucketed prefill), one chunk per
         mid-prefill slot, then one decode (or verify) round. Returns requests
         finished during the round."""
         with self._lock:
+            if chaos.should_fail("serving-wedge"):
+                # a wedged device loop: no progress, no exception, the lock
+                # held, until someone aborts it
+                logger.warning("chaos: serving step wedged, waiting for abort")
+                self._abort_evt.wait()
+                self._abort_evt.clear()
+                raise EngineWedgedError("engine step loop wedged and was aborted")
             t0 = time.perf_counter()
             finished = self._admit()
             finished += self._advance_prefill_chunks()
@@ -620,7 +804,35 @@ class ServingEngine:
                 self.stats.finished_requests += 1
                 if req.latency_s is not None:
                     gauges.observe(self.gauge_prefix + "request_latency_s", req.latency_s)
+                    if self.tenants is not None:
+                        self._tenant_latency.setdefault(req.tenant_id, deque(maxlen=512)).append(req.latency_s)
+                        self._class_latency.setdefault(req.slo_class, deque(maxlen=512)).append(req.latency_s)
         return finished
+
+    def begin_drain(self, shed_pending: bool = True) -> None:
+        """Enter drain mode: reject new submits. ``shed_pending=False`` is the
+        supervisor's mid-drain restart: its replay queue holds requests that
+        were live and must finish, not be shed again."""
+        self._draining.set()
+        if shed_pending:
+            self.scheduler.shed_all_pending()
+
+    def drain(self) -> Dict[int, Request]:
+        """Graceful shutdown: reject new submits (:class:`EngineDrainingError`),
+        shed everything pending with an accountable ``shed`` outcome, and
+        drive rounds until the live slots finish. Returns every request that
+        reached a terminal state during the drain."""
+        self.begin_drain()
+        done: Dict[int, Request] = dict(self.scheduler.pop_finished())
+        while self.scheduler.has_work:  # live slots and preemption re-queues
+            self.step()
+            done.update(self.scheduler.pop_finished())
+        return done
+
+    def adopt(self, state: Dict[str, object]) -> None:
+        """Install a dead predecessor's exported request state (a supervised
+        restart): :meth:`InflightScheduler.adopt_state`."""
+        self.scheduler.adopt_state(state)
 
     def run(self, uids: Optional[Sequence[int]] = None) -> Dict[int, Request]:
         """Drive rounds until the given uids (or all work) complete."""
@@ -643,6 +855,15 @@ class ServingEngine:
 
     # -- observability -------------------------------------------------------
 
+    def note_overlap(self, decode_busy_s: float, overlapped_s: float) -> None:
+        """Record one stream-overlap window (the trainer's interval ledger):
+        ``decode_busy_s`` seconds of engine rounds, ``overlapped_s`` seconds
+        of reward / score / learn-stage work inside them."""
+        with self._lock:
+            self.stats.overlap_decode_s += float(decode_busy_s)
+            self.stats.overlap_overlapped_s += float(overlapped_s)
+            self.stats.overlap_windows += 1
+
     def summary(self) -> Dict[str, float]:
         with self._lock:
             out = {
@@ -663,12 +884,29 @@ class ServingEngine:
                 ),
                 "spec_rounds": float(self.stats.spec_rounds),
                 "chunk_appends": float(self.stats.chunk_appends),
+                # overlapped work / decode time; above 1.0 when several reward
+                # workers hide more than a second per decode second (unclamped)
+                "overlap_fraction": (
+                    self.stats.overlap_overlapped_s / max(1e-9, self.stats.overlap_decode_s)
+                    if self.stats.overlap_windows else 0.0
+                ),
+                "overlap_decode_s": float(self.stats.overlap_decode_s),
+                "overlap_overlapped_s": float(self.stats.overlap_overlapped_s),
+                "overlap_windows": float(self.stats.overlap_windows),
             }
         out["mean_slot_occupancy"] = self.scheduler.mean_slot_occupancy
         out["prefix_cache_hit_rate"] = self.allocator.stats.hit_rate
         out["blocks_in_use"] = float(self.allocator.blocks_in_use)
         out["pending_depth"] = float(self.scheduler.pending_depth)
+        for key, count in self.scheduler.outcome_counts().items():
+            out[key] = float(count)
         return out
+
+    @staticmethod
+    def _p99(window: Sequence[float]) -> float:
+        """Nearest-rank p99 of a latency window (0.0 when empty)."""
+        xs = sorted(window)
+        return nearest_rank(xs, 0.99) if xs else 0.0
 
     def export_gauges(self) -> None:
         s = self.summary()
@@ -676,10 +914,34 @@ class ServingEngine:
         for key in (
             "mean_slot_occupancy", "prefix_cache_hit_rate", "blocks_in_use",
             "delivered_tokens", "finished_requests", "pending_depth",
-            "accepted_tok_per_round", "spec_accept_rate",
+            "accepted_tok_per_round", "spec_accept_rate", "overlap_fraction",
+            "shed", "expired", "preempted",
         ):
             gauges.set(gp + ("slot_occupancy" if key == "mean_slot_occupancy" else key), s[key])
         gauges.set(gp + "live_slots", float(self.scheduler.live_slots))
+        if self.tenants is None:
+            return
+        # per-tenant and per-class breakdowns under <prefix>tenant/* and
+        # <prefix>class/*; every registered tenant is zero-filled so the keys
+        # are stable before its first outcome
+        tenant_counts = self.scheduler.tenant_outcome_counts()
+        for tid in set(self.tenants.tenant_ids()) | set(tenant_counts):
+            counts = tenant_counts.get(tid, {})
+            for key in ("shed", "expired", "preempted"):
+                gauges.set(f"{gp}tenant/{tid}/{key}", float(counts.get(key, 0)))
+        for cls, counts in self.scheduler.class_outcome_counts().items():
+            for key in ("shed", "expired", "preempted"):
+                gauges.set(f"{gp}class/{cls}/{key}", float(counts.get(key, 0)))
+        with self._lock:
+            tenant_lat = {t: list(w) for t, w in self._tenant_latency.items()}
+            class_lat = {c: list(w) for c, w in self._class_latency.items()}
+        for tid, window in tenant_lat.items():
+            gauges.set(f"{gp}tenant/{tid}/p99_latency_s", self._p99(window))
+        for cls, window in class_lat.items():
+            gauges.set(f"{gp}class/{cls}/p99_latency_s", self._p99(window))
+        for tid, used in self.allocator.owner_census().items():
+            if tid is not None:
+                gauges.set(f"{gp}tenant/{tid}/blocks_in_use", float(used))
 
     def close(self) -> None:
         """Clear every gauge under this engine's prefix."""

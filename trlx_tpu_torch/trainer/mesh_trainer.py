@@ -30,11 +30,19 @@ or a grad-norm spike, rollback to the newest committed checkpoint, halt
 with a diagnostics bundle). Both off leave the step as it was; the plain
 ``save`` writes the sentinel either way.
 
+Under ``TRLX_SWEEP`` the loop prints a ``SWEEP_METRIC {json}`` line at each
+eval and a ``SWEEP_RESULT {json}`` line at the end, and returns early when
+the file ``TRLX_SWEEP_STOP_FILE`` names exists (the JAX package's sweep
+hooks; the sweep runner itself is not ported yet). The staged learn seam
+(:meth:`MeshRLTrainer._pop_staged_learn`) hands ``train_step`` a device
+copy of its batch staged during a streamed experience phase.
+
 Config blocks of the JAX package that this port does not run yet raise
 ``NotImplementedError`` naming their slice (:func:`check_port_config`);
 none is silently ignored.
 """
 
+import dataclasses
 import json
 import os
 import time
@@ -68,6 +76,7 @@ from trlx_tpu_torch.resilience.resume import pack_np_rng, pack_rng_key, restore_
 from trlx_tpu_torch.trainer import BaseRLTrainer, register_trainer
 from trlx_tpu_torch.utils import (
     Clock,
+    filter_non_scalars,
     get_optimizer_class,
     get_scheduler_class,
     logging,
@@ -101,12 +110,8 @@ def check_port_config(config: TRLConfig) -> None:
     later slice of the port brings, naming that slice."""
     t, m, mesh = config.train, config.model, config.mesh
     later = [
-        (t.islands.enabled, "train.islands", "production-serving slice"),
-        (t.serving.enabled and t.serving.stream_overlap, "train.serving.stream_overlap",
-         "production-serving slice"),
-        (t.serving_resilience.enabled, "train.serving_resilience", "production-serving slice"),
-        (t.serving_tenancy.enabled, "train.serving_tenancy", "production-serving slice"),
-        (t.serving_fleet.enabled, "train.serving_fleet", "production-serving slice"),
+        (t.islands.enabled, "train.islands", "serving-fleet slice"),
+        (t.serving_fleet.enabled, "train.serving_fleet", "serving-fleet slice"),
         (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
         (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
         (mesh.remat != "none", f"mesh.remat={mesh.remat!r}", "training-memory slice"),
@@ -528,6 +533,56 @@ class MeshRLTrainer(BaseRLTrainer):
         """One optimizer step on a host batch; returns flat stats."""
         ...
 
+    # ----------------------------------------------------- staged learn batches
+    # The learn seam of stream-overlapped PPO: during the streaming window the
+    # experience phase collates upcoming first-epoch learner batches and
+    # copies them to the device while decode runs; the train loop consumes a
+    # staged copy instead of copying again. Only a transfer optimization: the
+    # staged host batch must equal the loader's batch, or the whole stage is
+    # dropped, so the optimizer sees the same data either way.
+
+    def _clear_staged_learn(self) -> None:
+        self._staged_learn: List[Tuple[Any, Any]] = []
+
+    def _stage_learn_batch(self, host_batch, device_batch) -> None:
+        """Record a (host, device) learn-batch pair staged ahead of the loop."""
+        if not hasattr(self, "_staged_learn"):
+            self._clear_staged_learn()
+        self._staged_learn.append((host_batch, device_batch))
+
+    @staticmethod
+    def _host_batches_equal(a, b) -> bool:
+        """Same structure (dataclass fields or dict keys) and equal arrays."""
+        def leaves(x):
+            if dataclasses.is_dataclass(x):
+                return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+            return dict(x)
+
+        if type(a) is not type(b):
+            return False
+        la, lb = leaves(a), leaves(b)
+        if la.keys() != lb.keys():
+            return False
+        for k, x in la.items():
+            y = lb[k]
+            if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+                return False
+        return True
+
+    def _pop_staged_learn(self, batch):
+        """The device copy staged for ``batch``, or None for a fresh copy.
+        Staged batches predict the loader's output in order; the first
+        mismatch (a quarantine drop, a reshuffle) drops the rest."""
+        staged = getattr(self, "_staged_learn", None)
+        if not staged:
+            return None
+        host, dev = staged[0]
+        if self._host_batches_equal(host, batch):
+            staged.pop(0)
+            return dev
+        self._clear_staged_learn()
+        return None
+
     def prepare_learning(self):
         pass
 
@@ -592,6 +647,8 @@ class MeshRLTrainer(BaseRLTrainer):
             results = self.evaluate() if getattr(self, "eval_pipeline", None) else {}
         self.tracker.log(results, self.iter_count)
         if self.iter_count >= train_config.total_steps:
+            # resumed at (or past) the end of training: nothing left to do
+            self._report_sweep_result(results)
             return results
 
         profiler = None
@@ -647,6 +704,10 @@ class MeshRLTrainer(BaseRLTrainer):
                             if results["reward/mean"] > self.best_reward:
                                 self.best_reward = results["reward/mean"]
                                 self._save_checkpoint(os.path.join(train_config.checkpoint_dir, "best_checkpoint"))
+                        if self._sweep_tick(results):
+                            logger.info("Sweep scheduler requested early stop")
+                            self._report_sweep_result(results)
+                            return results
 
                     if self.obs.enabled:
                         tokens, samples, seq_len = batch_token_count(batch)
@@ -659,6 +720,7 @@ class MeshRLTrainer(BaseRLTrainer):
 
                     if self.iter_count >= train_config.total_steps:
                         self._save_checkpoint(os.path.join(train_config.checkpoint_dir, self._checkpoint_name()))
+                        self._report_sweep_result(results)
                         return results
                 self.post_epoch_callback(epoch)
         finally:
@@ -667,7 +729,25 @@ class MeshRLTrainer(BaseRLTrainer):
             # written only by stop()
             if profiler is not None:
                 profiler.stop()
+        self._report_sweep_result(results)
         return results
+
+    def _sweep_tick(self, results) -> bool:
+        """Under a sweep (``TRLX_SWEEP`` set): print this eval's metrics as a
+        ``SWEEP_METRIC {json}`` line for the sweep scheduler and poll the stop
+        file ``TRLX_SWEEP_STOP_FILE``. Returns True when the scheduler asked
+        this trial to stop. One process, so the decision needs no broadcast."""
+        if not os.environ.get("TRLX_SWEEP"):
+            return False
+        print("SWEEP_METRIC " + json.dumps({"step": self.iter_count, **filter_non_scalars(results or {})}),
+              flush=True)
+        stop_file = os.environ.get("TRLX_SWEEP_STOP_FILE")
+        return bool(stop_file and os.path.exists(stop_file))
+
+    def _report_sweep_result(self, results):
+        """The final-metrics line a sweep runner reads (``SWEEP_RESULT {json}``)."""
+        if os.environ.get("TRLX_SWEEP"):
+            print("SWEEP_RESULT " + json.dumps(filter_non_scalars(results or {})), flush=True)
 
     def _start_profiler(self, profile_dir: str):
         """Start a ``torch.profiler`` window (CPU activity, plus CUDA on a

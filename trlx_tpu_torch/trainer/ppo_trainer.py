@@ -36,14 +36,27 @@ through ``_score_and_store``), the async producer runs under a
 rollback rebuilds the prompt stream and republishes the restored weights
 (``_post_rollback_restore``).
 
+The serving engine's production layers: ``train.serving_resilience``
+installs a :class:`~trlx_tpu_torch.serving.ServingResiliencePolicy` and
+wraps the engine in a :class:`~trlx_tpu_torch.serving.ServingSupervisor`
+(a crash or wedge rebuilds the engine and replays every request);
+``train.serving_tenancy`` installs one
+:class:`~trlx_tpu_torch.serving.TenantRegistry`, shared by every engine
+generation. ``train.serving.stream_overlap`` streams the experience phase
+(:meth:`PPOTrainer._make_experience_streamed`): each sequence's reward
+call starts as soon as the engine finishes it, scoring runs in
+microbuckets while the rest of the batch decodes, and the first epoch's
+learner batches are staged on the device before the phase ends.
+
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
-seq2seq models, peft, the island split (``train.islands``), and the
-serving engine's production layers (``train.serving_resilience``,
-``serving_tenancy``, ``serving_fleet``, ``serving.stream_overlap``).
+seq2seq models, peft, the island split (``train.islands``) and the serving
+fleet (``train.serving_fleet``).
 """
 
 import copy
 import os
+import random
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -63,18 +76,27 @@ from trlx_tpu_torch.models.policy import (
 )
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.obs import span
+from trlx_tpu_torch.obs.flight import flight
+from trlx_tpu_torch.obs.overlap import OverlapWindow
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
-from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage, ppo_collate_fn
+from trlx_tpu_torch.resilience.chaos import chaos
 from trlx_tpu_torch.resilience.quarantine import ExperienceQuarantine, chaos_corrupt_elements
 from trlx_tpu_torch.rollout import (
     AsyncRolloutEngine,
     ExperienceQueue,
     ParameterPublisher,
     ProducerSupervisor,
+    ReorderBuffer,
     StalenessAccountant,
     length_bucketed,
 )
-from trlx_tpu_torch.serving import GenerationClient, ServingEngine
+from trlx_tpu_torch.serving import (
+    GenerationClient,
+    ServingEngine,
+    ServingResiliencePolicy,
+    ServingSupervisor,
+)
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.mesh_trainer import POW2_BUCKETS, MeshRLTrainer
 from trlx_tpu_torch.utils import infinite_loader, logging
@@ -82,6 +104,44 @@ from trlx_tpu_torch.utils.metrics import gauges
 from trlx_tpu_torch.utils.modeling import RunningMoments, flatten_dict, logprobs_of_labels
 
 logger = logging.get_logger(__name__)
+
+#: at most this many response-length buckets per (B, P) scoring family on the
+#: streamed path: the JAX package's ``stream_score_ladder`` shape contract
+#: (``trlx_tpu/analysis/rt/contracts.py``), copied as a number
+_STREAM_MAX_R_BUCKETS = 4
+
+
+def overlap_r_buckets(max_new: int) -> List[int]:
+    """The quantized response-length ladder of the streaming microbuckets:
+    at most :data:`_STREAM_MAX_R_BUCKETS` pow2 shapes covering up to
+    ``max_new + 1`` (decode may re-append eos)."""
+    top = max(1, max_new + 1)
+    # ceil(top / d) for d in 8, 4, 2, 1, deduplicated after pow2 padding: at
+    # most 4 entries, the full shape always among them
+    return sorted({pad_to_bucket(max(1, -(-top // d)), POW2_BUCKETS) for d in (8, 4, 2, 1)})
+
+
+def quantize_stream_response(r: int, ladder: List[int]) -> int:
+    """Snap a raw completion length onto the streaming ladder: the one path
+    from a data-dependent length to the scoring forward's R dimension."""
+    for cand in ladder:
+        if r <= cand:
+            return cand
+    return pad_to_bucket(r, POW2_BUCKETS)  # defensive: the ladder covers max_new + 1
+
+
+def check_stream_bucket_family(families, B: int, P: int, R: int, limit: int = _STREAM_MAX_R_BUCKETS):
+    """Record R under the (B, P) family and assert the family stays within
+    ``limit`` shapes: a length escaping the ladder fails loudly instead of
+    growing the set of scoring shapes without bound."""
+    fam = families.setdefault((B, P), set())
+    fam.add(R)
+    if len(fam) > limit:
+        raise AssertionError(
+            f"streaming score-fn bucket family (B={B}, P={P}) grew to "
+            f"{sorted(fam)}; the response-length quantizer must keep "
+            f"<= {limit} shapes per family"
+        )
 
 
 @register_trainer
@@ -103,6 +163,11 @@ class PPOTrainer(MeshRLTrainer):
         self._serving_client = None
         self._serving_engine = None
         self._serving_max_new = 0
+        self._serving_min_new = 0
+        # (B, P) -> R shapes the streamed scoring ran (bounded by the ladder)
+        self._score_fn_families = {}
+        #: the last streamed experience phase's overlap ledger (seconds)
+        self.last_overlap = None
         # the snapshot the engine holds (async: installed only when it changes)
         self._serving_param_ref = None
 
@@ -216,7 +281,6 @@ class PPOTrainer(MeshRLTrainer):
         with open(os.path.join(self.rollout_logging_dir, "config.json"), "w") as f:
             f.write(json.dumps(config.to_dict(), indent=2))
 
-    @torch.no_grad()
     def score(self, seq: np.ndarray, mask: np.ndarray, P: int, R: int, policy=None):
         """Policy logprobs and values and reference logprobs over the
         response window of ``seq`` (prompt left-padded to P, response
@@ -224,9 +288,16 @@ class PPOTrainer(MeshRLTrainer):
         the frozen branch from the activation the policy forward captured at
         ``branch_start``. ``policy`` replaces ``self.model`` (the async
         producer passes its snapshot copy)."""
+        out = self._score_device(torch.from_numpy(seq).to(self.device), torch.from_numpy(mask).to(self.device),
+                                 P, R, policy=policy)
+        return tuple(x.cpu().numpy() for x in out)
+
+    @torch.no_grad()
+    def _score_device(self, seq_t: torch.Tensor, mask_t: torch.Tensor, P: int, R: int, policy=None):
+        """:meth:`score`'s forwards on device tensors, returning device
+        tensors [B, R]: nothing here waits for the device, so the streamed
+        path leaves the work in flight until its harvest."""
         policy = self.model if policy is None else policy
-        seq_t = torch.from_numpy(seq).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
         labels = seq_t[:, P:P + R]
         logits, values, branch_hidden, _ = policy(seq_t, mask_t, branch_layer=self.branch_start)
         # the window's logits only: log_softmax is per position
@@ -240,7 +311,7 @@ class PPOTrainer(MeshRLTrainer):
         else:
             ref_logits, _, _, _ = self.ref_model(seq_t, mask_t)
         ref_logprobs = logprobs_of_labels(ref_logits[:, P - 1:P - 1 + R], labels)
-        return logprobs.cpu().numpy(), values.cpu().numpy(), ref_logprobs.cpu().numpy()
+        return logprobs, values, ref_logprobs
 
     # ---------------------------------------------------------------- serving
 
@@ -263,8 +334,8 @@ class PPOTrainer(MeshRLTrainer):
         gen_kwargs = dict(self.generate_experience_kwargs or self.generate_kwargs)
         gen_kwargs.setdefault("eos_token_id", self.tokenizer.eos_token_id)
         gen_kwargs.setdefault("pad_token_id", self.tokenizer.pad_token_id)
-        max_new = int(gen_kwargs.pop("max_new_tokens", 16))
-        min_new = int(gen_kwargs.pop("min_new_tokens", 0))
+        self._serving_max_new = max_new = int(gen_kwargs.pop("max_new_tokens", 16))
+        self._serving_min_new = int(gen_kwargs.pop("min_new_tokens", 0))
         eos = gen_kwargs.pop("eos_token_id")
         pad = gen_kwargs.pop("pad_token_id")
         unknown = set(gen_kwargs) - {"temperature", "top_k", "top_p", "do_sample", "top_k_impl"}
@@ -278,34 +349,68 @@ class PPOTrainer(MeshRLTrainer):
             paged_attention_impl=cfg.attention_impl,
         )
         num_slots = cfg.num_slots or (self.method.decode_batch_size or self.method.chunk_size)
-        with torch.device(self.device):
-            trunk = TransformerLM(trunk_config)
-        self._serving_engine = ServingEngine(
-            trunk,
-            None,  # the policy's weights are installed per experience phase
-            num_slots=num_slots,
-            # prompts are admitted unpadded: real prompt lengths (<=
-            # seq_length) plus the decode budget
-            max_seq_len=self.config.train.seq_length + max_new,
-            block_size=cfg.block_size,
-            num_blocks=cfg.num_blocks,
-            eos_token_id=eos,
-            pad_token_id=pad,
-            gen_kwargs=gen_kwargs,
-            min_new_tokens=min_new,
-            prefix_caching=cfg.prefix_caching,
-            seed=self.config.train.seed + 17,
-            spec_k=cfg.spec_k,
-            spec_ngram=cfg.spec_ngram,
-            prefill_chunk=cfg.prefill_chunk,
-            device=self.device,
-        )
+        svr = self.config.train.serving_resilience
+        policy = None
+        if svr.enabled:
+            policy = ServingResiliencePolicy(
+                request_ttl_s=svr.request_ttl_s,
+                max_pending_age_s=svr.max_pending_age_s,
+                max_pending=svr.max_pending,
+                high_watermark=svr.high_watermark,
+                low_watermark=svr.low_watermark,
+                preemption=svr.preemption,
+            )
+        svt = self.config.train.serving_tenancy
+        # one registry across engine generations: tenant contracts survive
+        # supervised restarts
+        tenants = svt.build_registry() if svt.enabled else None
+
+        def build_engine():
+            with torch.device(self.device):
+                trunk = TransformerLM(trunk_config)
+            return ServingEngine(
+                trunk,
+                None,  # the policy's weights are installed per experience phase
+                num_slots=num_slots,
+                # prompts are admitted unpadded: real prompt lengths (<=
+                # seq_length) plus the decode budget
+                max_seq_len=self.config.train.seq_length + max_new,
+                block_size=cfg.block_size,
+                num_blocks=cfg.num_blocks,
+                eos_token_id=eos,
+                pad_token_id=pad,
+                gen_kwargs=gen_kwargs,
+                min_new_tokens=self._serving_min_new,
+                prefix_caching=cfg.prefix_caching,
+                seed=self.config.train.seed + 17,
+                policy=policy,
+                spec_k=cfg.spec_k,
+                spec_ngram=cfg.spec_ngram,
+                prefill_chunk=cfg.prefill_chunk,
+                tenants=tenants,
+                device=self.device,
+            )
+
+        if svr.enabled:
+            # a crash or wedge rebuilds the engine with the same arguments and
+            # replays every accepted request
+            self._serving_engine = ServingSupervisor(
+                build_engine,
+                max_restarts=svr.max_restarts,
+                backoff_base_s=svr.restart_backoff_base_s,
+                backoff_max_s=svr.restart_backoff_max_s,
+                wedge_timeout_s=svr.wedge_timeout_s,
+                diagnostics_dir=svr.diagnostics_dir or os.path.join(self.config.train.checkpoint_dir, "diagnostics"),
+            )
+        else:
+            self._serving_engine = build_engine()
         self._serving_client = GenerationClient(self._serving_engine)
-        self._serving_max_new = max_new
         logger.info(
             f"serving engine enabled: slots={num_slots}, block_size={cfg.block_size}, "
             f"blocks={self._serving_engine.num_blocks}, int8_kv={trunk_config.kv_cache_quant}, "
-            f"impl={cfg.attention_impl}, spec_k={cfg.spec_k}, prefill_chunk={cfg.prefill_chunk}"
+            f"impl={cfg.attention_impl}, spec_k={cfg.spec_k}, prefill_chunk={cfg.prefill_chunk}, "
+            f"resilience={'on' if svr.enabled else 'off'}, tenancy={'on' if svt.enabled else 'off'}, "
+            f"stream_overlap={'on' if cfg.stream_overlap else 'off'}"
         )
 
     def _serving_generate(self, prompts, params=None):
@@ -338,7 +443,9 @@ class PPOTrainer(MeshRLTrainer):
         serving, self._serving_engine, self._serving_client = self._serving_engine, None, None
         if serving is not None:
             logger.info(f"serving engine closed: {serving.summary()}")
-            serving.close()
+            serving.close()  # a supervisor unregisters its watchdog escalation
+            if isinstance(serving, ServingSupervisor):
+                serving.engine.close()  # the current generation's gauges clear
 
     def _generate_chunks(self, tokenizer, policy=None, generator=None, params=None):
         """One generation at decode_batch_size, split into chunk_size
@@ -378,7 +485,9 @@ class PPOTrainer(MeshRLTrainer):
         With ``method.overlap_reward_scoring``, reward_fn for one
         generation's chunks runs on a worker thread while the next
         generation runs on the device (with its own copy of the tokenizer);
-        ``time/rollout_reward`` then counts the worker's seconds."""
+        ``time/rollout_reward`` then counts the worker's seconds. With
+        ``train.serving.stream_overlap`` (and the engine on) the phase is
+        streamed (:meth:`_make_experience_streamed`)."""
         logger.info(f"Collecting {num_rollouts} rollouts")
         ppo_rl_elements: List[PPORLElement] = []
         accumulated_kl = []
@@ -389,7 +498,10 @@ class PPOTrainer(MeshRLTrainer):
             # the policy changed since the last phase: install it (the
             # engine flushes its prefix cache, computed under the old weights)
             self._serving_engine.set_params(self.model.transformer.state_dict())
-        if self.method.overlap_reward_scoring:
+        if self._serving_client is not None and self.config.train.serving.stream_overlap:
+            self._make_experience_streamed(num_rollouts, iter_count, ppo_rl_elements, accumulated_kl,
+                                           all_scores_log)
+        elif self.method.overlap_reward_scoring:
             if not hasattr(self, "_reward_tokenizer"):
                 self._reward_tokenizer = copy.deepcopy(self.tokenizer)
             generated = 0  # counted at generation time: ppo_rl_elements lags
@@ -416,6 +528,254 @@ class PPOTrainer(MeshRLTrainer):
         if self.log_rollouts:
             self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)
         self.push_to_store(ppo_rl_elements[:num_rollouts])
+
+    def _make_experience_streamed(self, num_rollouts, iter_count, ppo_rl_elements, accumulated_kl,
+                                  all_scores_log):
+        """The streamed experience phase (``train.serving.stream_overlap``).
+
+        As each sequence finishes in the engine, its reward_fn call goes to
+        a bounded worker pool (``overlap_reward_workers``); sequences whose
+        reward came back are taken in engine completion order (deterministic
+        under greedy decode, whatever the workers' timing) into microbuckets
+        of ``overlap_microbucket`` (default ``chunk_size``) for the scoring
+        forward. The scoring is double-buffered: bucket k's forward is left
+        in flight (enqueued on the device, no host fetch) and harvested when
+        bucket k+1 dispatches or at the end of the batch, so the device runs
+        it while the host goes back to decode. The harvest applies the KL
+        shaping and the quarantine (a dropped element leaves a tombstone in
+        the :class:`~trlx_tpu_torch.rollout.ReorderBuffer`, which hands
+        elements on in submission order), then stages every first-epoch
+        learner batch whose rows are all in (``overlap_learn_stage``):
+        collated, copied to the device from pinned memory without blocking,
+        and consumed by ``train_step`` when it matches the loader's batch.
+
+        Rollout tokens and store order equal the serial serving path's; the
+        scores are normalized per microbucket instead of per chunk, so the
+        running moments group differently. An
+        :class:`~trlx_tpu_torch.obs.OverlapWindow` measures decode-busy time
+        against the reward / score / learn-stage work inside it
+        (``serving/overlap_fraction``).
+        ``TRLX_OVERLAP_SEED_REGRESSION=serialize`` blocks on every reward and
+        every scoring bucket before the next engine round: the seeded
+        regression the overlap fraction must expose."""
+        cfg = self.config.train.serving
+        serialize = os.environ.get("TRLX_OVERLAP_SEED_REGRESSION", "") == "serialize"
+        mb = int(cfg.overlap_microbucket or self.method.chunk_size)
+        pad_id = self.tokenizer.pad_token_id
+        r_ladder = overlap_r_buckets(self._serving_max_new)
+        on_cuda = self.device.type == "cuda"
+        # the reward workers must not share the main thread's tokenizer
+        if not hasattr(self, "_reward_tokenizer"):
+            self._reward_tokenizer = copy.deepcopy(self.tokenizer)
+
+        window = OverlapWindow()
+        reorder = ReorderBuffer()
+        reward_lock = threading.Lock()  # the workers add to _phase_time["reward"]
+        # one clock for flight events: the engine scheduler's
+        flight_clock = self._serving_client.engine.scheduler.clock
+        pending = deque()  # (gidx, future, prompt, out_ids, uid) in completion order
+        ready = deque()  # reward resolved, waiting for a full microbucket
+        inflight = [None]  # the dispatched, not yet harvested scoring bucket
+        dropped = [False]  # the quarantine broke the 1:1 index map: stop staging
+        cur = {"P": 0}  # the current prompt batch's prompt bucket
+        stage = {"perm": None, "next": 0}
+
+        def to_device(arr):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            return t.pin_memory().to(self.device, non_blocking=True) if on_cuda else t.to(self.device)
+
+        def stream_reward(kw):
+            # chaos site "producer-wedge" on the streamed path: this reward
+            # call stalls (a stuck scorer the bounded pool rides out)
+            if chaos.should_fail("producer-wedge"):
+                logger.warning("chaos: streamed reward wedged at site 'producer-wedge'")
+                time.sleep(0.2)
+            t0 = time.perf_counter()
+            with span("reward"):
+                out = self.reward_fn(**kw)
+            t1 = time.perf_counter()
+            window.note_work(t0, t1)
+            with reward_lock:
+                self._phase_time["reward"] += t1 - t0
+            return out
+
+        def dispatch(items):
+            # harvest bucket k-1 first: its device work had a bucket's worth of
+            # decode and reward time to finish, so the fetch is short
+            harvest()
+            t0 = time.perf_counter()
+            raw = [it[3] for it in items]
+            if np.ndim(raw[0]) > 0:
+                dense_scores = [np.asarray(x, np.float32) for x in raw]
+                scores = np.asarray([x.sum() for x in dense_scores], np.float32)
+            else:
+                dense_scores = None
+                scores = np.asarray(raw, np.float32).reshape(-1)
+            all_scores_log.extend(scores.tolist())
+            # normalization per microbucket, in completion order
+            self.running_moments.update(scores)
+            if self.method.cliprange_reward:
+                scores = np.clip(scores, -self.method.cliprange_reward, self.method.cliprange_reward)
+            if self.method.scale_reward == "running":
+                scores = scores / max(self.running_moments.std, 1e-8)
+            elif self.method.scale_reward == "ref":
+                scores = scores / max(self.method.ref_std or 1.0, 1e-8)
+
+            padded = list(items) + [items[-1]] * (mb - len(items))
+            R = quantize_stream_response(max(len(it[2]) for it in padded), r_ladder)
+            check_stream_bucket_family(self._score_fn_families, mb, cur["P"], R)
+            q_ids, q_mask = left_pad_batch([it[1] for it in padded], pad_id, cur["P"])
+            r_ids = np.full((mb, R), pad_id, np.int32)
+            r_mask = np.zeros((mb, R), np.int32)
+            for j, it in enumerate(padded):
+                r_ids[j, : len(it[2])] = it[2]
+                r_mask[j, : len(it[2])] = 1
+            # no host fetch here: the forward stays in flight until harvest
+            with span("score"):
+                out = self._score_device(to_device(np.concatenate([q_ids, r_ids], axis=1)),
+                                         to_device(np.concatenate([q_mask, r_mask], axis=1)), cur["P"], R)
+            t1 = time.perf_counter()
+            window.note_work(t0, t1)
+            self._phase_time["score"] += t1 - t0
+            inflight[0] = (items, scores, dense_scores, r_mask, out)
+            if serialize:
+                harvest()
+
+        def harvest():
+            if inflight[0] is None:
+                return
+            items, scores, dense_scores, rm, out = inflight[0]
+            inflight[0] = None
+            t0 = time.perf_counter()
+            n = len(items)
+            lp, v, rlp = (x.cpu().numpy()[:n] for x in out)
+            rm = rm[:n]
+            # per-token KL penalty and reward assembly: _score_and_store's
+            # k3 math, per microbucket
+            log_ratio = (lp - rlp) * rm
+            kl_per_token = np.exp(log_ratio) - 1.0 - log_ratio
+            accumulated_kl.append(kl_per_token.sum(axis=1).mean())
+            kl_coef = self.kl_ctl.value
+            t_store = flight_clock() if flight.enabled else 0.0
+            new_elements = []
+            for j in range(n):
+                _, prompt, resp, _, uid = items[j]
+                if flight.enabled:
+                    flight.record(uid, "store", t=t_store)
+                m = int(rm[j].sum())
+                rewards = -kl_coef * log_ratio[j, :m]
+                if dense_scores is not None:
+                    ds = dense_scores[j]
+                    rewards[: min(m, len(ds))] += ds[: min(m, len(ds))]
+                else:
+                    rewards[m - 1] += scores[j]
+                new_elements.append(PPORLElement(
+                    query_tensor=np.asarray(prompt, np.int32), response_tensor=np.asarray(resp, np.int32),
+                    logprobs=lp[j, :m], values=v[j, :m], rewards=rewards.astype(np.float32),
+                ))
+            # the trust boundary of _score_and_store; chaos replaces by
+            # position, so new_elements[j] still belongs to items[j]
+            new_elements = chaos_corrupt_elements(new_elements)
+            kept = new_elements
+            if self._quarantine is not None:
+                kept = self._quarantine.filter(new_elements, context=f"iter={self.iter_count}")
+            kept_ids = {id(e) for e in kept}
+            for j, elem in enumerate(new_elements):
+                if id(elem) in kept_ids:
+                    reorder.add(items[j][0], elem)
+                else:
+                    dropped[0] = True
+                    reorder.add(items[j][0], None)  # tombstone: never stalls the cursor
+            ppo_rl_elements.extend(reorder.pop_ready())
+            maybe_stage_learn()
+            t1 = time.perf_counter()
+            window.note_work(t0, t1)
+            self._phase_time["score"] += t1 - t0
+
+        def maybe_stage_learn():
+            if not cfg.overlap_learn_stage or dropped[0]:
+                return
+            bs = self.config.train.batch_size
+            if stage["perm"] is None:
+                # the first-epoch permutation of the loader create_train_dataloader
+                # builds over the store (seed + iter_count, epoch 0); a mismatch
+                # at consume time falls back to a fresh copy
+                idxs = list(range(num_rollouts))
+                random.Random(self.config.train.seed + iter_count).shuffle(idxs)
+                stage["perm"] = idxs
+            avail = min(len(ppo_rl_elements), num_rollouts)
+            while (stage["next"] + 1) * bs <= num_rollouts:
+                rows = stage["perm"][stage["next"] * bs:(stage["next"] + 1) * bs]
+                if any(ix >= avail for ix in rows):
+                    break
+                t0 = time.perf_counter()
+                with span("learn_stage"):
+                    host = ppo_collate_fn(pad_id, [ppo_rl_elements[ix] for ix in rows])
+                    self._stage_learn_batch(host, host.to(self.device, non_blocking=True))
+                window.note_work(t0, time.perf_counter())
+                stage["next"] += 1
+
+        def pump(block=False):
+            # FIFO-completed rewards to ready: buckets follow engine
+            # completion order, never worker timing
+            while pending:
+                gidx, fut, prompt, resp, uid = pending[0]
+                if not (block or fut.done()):
+                    break
+                pending.popleft()
+                result = fut.result()[0]
+                if flight.enabled:
+                    flight.record(uid, "reward_done", t=flight_clock())
+                ready.append((gidx, prompt, resp, result, uid))
+            while len(ready) >= mb:
+                dispatch([ready.popleft() for _ in range(mb)])
+
+        self._clear_staged_learn()
+        generated = 0
+        t_phase = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=max(1, int(cfg.overlap_reward_workers)),
+                                thread_name_prefix="overlap-reward") as pool:
+            while generated < num_rollouts:
+                batch = next(self.prompt_iterator)
+                self._prompt_batches_drawn += 1
+                prompts = batch["input_ids"]
+                metadata = {k: v for k, v in batch.items() if k != "input_ids"}
+                base = generated
+                generated += len(prompts)
+                cur["P"] = pad_to_bucket(max((len(p) for p in prompts), default=1), POW2_BUCKETS)
+
+                def on_finish(i, req, _base=base, _prompts=prompts, _meta=metadata):
+                    prompt = np.asarray(_prompts[i], np.int32)
+                    gen = np.asarray(req.generated, np.int32)
+                    str_samples, str_prompts, str_outputs, out_ids = self.decode(
+                        [prompt], np.concatenate([prompt, gen])[None, :], len(prompt), append_eos=True,
+                        response_masks=np.ones((1, len(gen)), np.int32),
+                    )
+                    kw = dict(samples=str_samples, prompts=str_prompts, outputs=str_outputs,
+                              tokenizer=self._reward_tokenizer, **{k: [v[i]] for k, v in _meta.items()})
+                    fut = pool.submit(stream_reward, kw)
+                    if flight.enabled:
+                        flight.record(req.uid, "reward_dispatch", t=flight_clock())
+                    pending.append((_base + i, fut, prompt, out_ids[0], req.uid))
+                    if serialize:
+                        fut.result()  # the seeded regression: serial consumption
+                    pump()
+
+                t0 = time.perf_counter()
+                with self.obs.span("decode"):
+                    self._serving_client.stream_batch(prompts, self._serving_max_new, on_finish,
+                                                      on_step=window.note_decode)
+                self._phase_time["generate"] += time.perf_counter() - t0
+                # drain before the next batch can change the prompt bucket
+                pump(block=True)
+                if ready:
+                    dispatch([ready.popleft() for _ in range(len(ready))])
+                harvest()
+        self._serving_engine.note_overlap(window.decode_busy_s, window.overlapped_s)
+        self._serving_engine.export_gauges()
+        self.last_overlap = {"decode_busy_s": window.decode_busy_s, "overlapped_s": window.overlapped_s,
+                             "work_s": window.work_s, "fraction": window.fraction,
+                             "experience_s": time.perf_counter() - t_phase}
 
     def _timed_reward_fn(self, **kwargs):
         """reward_fn under a ``reward`` span (on the worker thread with
@@ -720,7 +1080,12 @@ class PPOTrainer(MeshRLTrainer):
                 batch = batch.replace(staleness=stale)
         if self._train_step_fn is None:
             self._train_step_fn = self.make_grad_accum_step(self.loss_fn, self.num_mb)
-        out = self._train_step_fn(batch.to(self.device))
+        # the stream-overlap learn seam: the device copy staged during the
+        # decode window when it matches this batch exactly, else a fresh copy
+        dbatch = self._pop_staged_learn(batch)
+        if dbatch is None:
+            dbatch = batch.to(self.device)
+        out = self._train_step_fn(dbatch)
         out.update(self.rollout_stats)
         if self._engine is not None:
             out.update(gauges.snapshot("rollout/"))

@@ -13,7 +13,7 @@ import random
 import time
 from enum import Enum
 from numbers import Number
-from typing import Any, Callable, Iterable, Iterator
+from typing import Any, Callable, Dict, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -36,6 +36,17 @@ def significant(x: Any, ndigits: int = 3) -> Any:
     if not isinstance(x, Number) or x == 0 or not math.isfinite(x):
         return x
     return round(x, ndigits - int(math.floor(math.log10(abs(x)))) - 1)
+
+
+def filter_non_scalars(xs: Dict) -> Dict:
+    """Keep only numeric leaves of a flat stats dict (for tracker logging)."""
+    ys = {}
+    for k, v in xs.items():
+        try:
+            ys[k] = float(v)
+        except (TypeError, ValueError):
+            continue
+    return ys
 
 
 class Clock:
@@ -169,9 +180,15 @@ def get_scheduler_class(name) -> Callable:
             # optax.warmup_cosine_decay_schedule(0, learning_rate, ...): a linear
             # warmup joined at warmup_steps to a cosine over the remaining steps
             warmup_steps = int(warmup_steps)
+            decay_steps = max(int(total_steps), 1) - warmup_steps
+            if decay_steps <= 0:
+                # optax refuses the schedule when it is built, not mid-run
+                raise ValueError(
+                    f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}."
+                )
             alpha = 0.0 if learning_rate == 0.0 else eta_min / learning_rate
             warm = _linear(0.0, learning_rate, warmup_steps) if warmup_steps > 0 else None
-            cos = _cosine(learning_rate, max(int(total_steps), 1) - warmup_steps, alpha)
+            cos = _cosine(learning_rate, decay_steps, alpha)
             return lambda count: warm(count) if count < warmup_steps else cos(count - warmup_steps)
 
         return make_warmup

@@ -247,6 +247,31 @@ Phases, each printing one JSON line:
                   chaos phase with one reward call per rollout, and one PPO
                   epoch consuming the staged batches. K1–K5 counted from 0
                   over the card legs and replayed at every recorded shape.
+32. ``serving_fleet`` — a main path: serving across engines at gpt2 full
+                  width (:func:`phase_serving_fleet`). ``fleet_of_one``: a
+                  ``FleetRouter`` of one replica ``==`` the bare engine on 128
+                  requests (64 slots). ``fleet_scenario``: the JAX fleet
+                  leg's card sizes (3 replicas of 16 slots, 4 tenants in 2
+                  classes, one replica kill and two mis-routes, the
+                  autoscaler between 1 and 4), its scheduling facts equal to
+                  the same leg run by the port on the CPU (2 layers, hidden
+                  64). ``fleet_trainer``: ``train_serving``'s trainer
+                  (greedy) with ``train.serving_fleet`` (2 replicas) and
+                  ``serving_resilience``, 2 steps: one terminal state per
+                  uid, both seats routed, the store whole and in order, no
+                  block left. ``online_fleet``: ``online_grpo``'s traffic
+                  through 2 replicas x 64 slots with a replica kill in wave
+                  2, harvested exactly once, no SLO burn, 4 GRPO steps,
+                  ``set_params`` to every replica, the next wave at version
+                  1. ``islands_bubble``: a saturated 64-slot engine as a
+                  ``GenerationIsland`` beside a learner publishing chunked
+                  broadcasts, 3 s windows in turns (chunked, blocking,
+                  chunked, blocking): no torn version, one flush per swap,
+                  a ``broadcast-chunk:1`` abort that burns its version.
+                  ``islands_trainer``: the ``async`` trainer with the
+                  engine and ``train.islands``, 4 steps. Device memory back
+                  within 64 MiB after every leg; K1–K5 counted from 0 over
+                  the card legs and replayed at every recorded shape.
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -255,6 +280,7 @@ line needs all of them).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -269,7 +295,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability", "production_serving")
+          "observability", "production_serving", "serving_fleet")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -4653,6 +4679,816 @@ def phase_production_serving(ctx):
                                                              "paged_verify"))
 
 
+#: phase serving_fleet, leg fleet_of_one: the first SF_ONE_REQ requests of
+#: serving_traffic through SF_ONE_SLOTS slots, a bare engine against a fleet
+#: of one replica
+SF_ONE_REQ, SF_ONE_SLOTS = 128, 64
+#: leg fleet_scenario: the card sizes of the JAX package's fleet leg
+#: (bench.py:_fleet_perf): S slots a replica, prompts 4..P-2 tokens, budgets
+#: 4..N, LO requests per free tenant and HI per pro tenant, block 16
+SF_S, SF_P, SF_N, SF_LO, SF_HI = 16, 64, 32, 64, 32
+#: the fleet chaos of that leg: one replica kill, two mis-routes
+SF_CHAOS_SPEC = "fleet-replica-kill:1,fleet-route:2"
+#: leg online_fleet: replicas x slots serving the online_grpo traffic
+SF_ONLINE_REPLICAS, SF_ONLINE_SLOTS = 2, 64
+#: leg islands_bubble: slots of the saturated engine, each request's budget,
+#: the measured window (s), chunk_layers and the pause between chunks (s)
+SF_BUBBLE_SLOTS, SF_BUBBLE_N, SF_BUBBLE_WINDOW_S, SF_BUBBLE_CHUNKS, SF_BUBBLE_PAUSE_S = 64, 64, 3.0, 2, 0.002
+#: leg islands_trainer and fleet_trainer: learner steps
+SF_ISLAND_STEPS, SF_FLEET_STEPS = 4, 2
+#: after each leg, device memory must be back within this many bytes of
+#: where the leg started (a retired replica drops its trunk and KV pools)
+SF_MEM_SLACK = 64 * 2 ** 20
+
+
+class SfRuns:
+    """The launch counts of phase serving_fleet's runs on its path (a router,
+    a fleet trainer, an island): each run is counted from 0, the counts set
+    to 0 just before it and read just after, and the path's launches are the
+    sum over its runs. A leg's references (bare engines, the single-engine
+    trainer, warm-ups) run outside every window and count for no path."""
+
+    def __init__(self):
+        self.runs = {}
+
+    @contextlib.contextmanager
+    def count(self, name):
+        from trlx_tpu_torch.ops import _kernels
+
+        _kernels.reset_launches()
+        try:
+            yield
+        finally:
+            self.runs[name] = _kernels.launches()
+
+    def total(self, names=None):
+        names = list(self.runs) if names is None else names
+        return {k: sum(self.runs[n][k] for n in names) for k in next(iter(self.runs.values()))}
+
+
+def sf_memory():
+    """Allocated device bytes once garbage is collected (cycles between an
+    engine and its island are freed only by the collector)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def sf_fleet_of_one(ctx, runs):
+    """Leg fleet_of_one: a ``FleetRouter`` of one replica and a bare
+    ``ServingEngine`` (gpt2 full width, bf16, greedy, 64 slots) on the same
+    128 requests of ``serving_traffic``: uids, tokens and finish reasons
+    ``==`` (seat 0 counts uids from 0 and samples from the engine's seed),
+    after a second bare engine has repeated the first token for token."""
+    import torch
+
+    from trlx_tpu_torch.fleet import FleetRouter
+
+    prompts, budgets = serving_traffic(gpt2_config(12, torch.bfloat16).vocab_size)
+    prompts, budgets = prompts[:SF_ONE_REQ], budgets[:SF_ONE_REQ]
+
+    def run(srv):
+        t0 = time.perf_counter()
+        uids = [srv.submit(p, n) for p, n in zip(prompts, budgets)]
+        done = ps_drive(srv, uids)
+        torch.cuda.synchronize()
+        return {"uids": uids, "rows": [list(done[u].generated) for u in uids],
+                "reasons": [done[u].finish_reason for u in uids], "wall_s": time.perf_counter() - t0}
+
+    bare, state = full_width_engine(False, num_slots=SF_ONE_SLOTS)
+    ref = run(bare)
+    ref["blocks_in_use"] = bare.allocator.blocks_in_use
+    bare.close()
+    # a second bare engine: the engine repeats itself on the card (each
+    # shared prefix slot is written once a wave, engine.pack_targets)
+    again = full_width_engine(False, state, num_slots=SF_ONE_SLOTS)[0]
+    repeat = run(again)
+    again.close()
+    with runs.count("fleet_of_one"):
+        router = FleetRouter(lambda seat: full_width_engine(False, state, num_slots=SF_ONE_SLOTS)[0], 1,
+                             wedge_timeout_s=None)
+        got = run(router)
+        got["blocks_in_use"] = sum(h.supervisor.engine.allocator.blocks_in_use for h in router._live_handles())
+        summary = router.summary()
+        router.close()
+    tokens = sum(len(r) for r in got["rows"])
+    emit({"phase": "serving_fleet", "leg": "fleet_of_one", "card": ctx.get("smi"), "requests": SF_ONE_REQ,
+          "slots": SF_ONE_SLOTS, "bare_wall_s": [ref["wall_s"], repeat["wall_s"]], "fleet_wall_s": got["wall_s"],
+          "rows_off_the_bare_engine": sum(a != b for a, b in zip(got["rows"], ref["rows"])),
+          "bare_tok_s": tokens / ref["wall_s"], "fleet_tok_s": tokens / got["wall_s"],
+          "fleet_routed": summary["fleet_routed"]})
+    return {
+        "a second bare engine repeats the first, token for token": repeat["rows"] == ref["rows"],
+        "uids == the bare engine's": got["uids"] == ref["uids"] == list(range(SF_ONE_REQ)),
+        "tokens == the bare engine's": got["rows"] == ref["rows"],
+        "finish reasons == the bare engine's": got["reasons"] == ref["reasons"],
+        "no block in use": got["blocks_in_use"] == ref["blocks_in_use"] == 0,
+    }
+
+
+def sf_scenario_run(cfg, device, diag_dir, runs=None):
+    """One run of leg fleet_scenario on ``device``: bench.py:_fleet_perf through
+    ``run_fleet_scenario`` (3 replicas of SF_S slots, 4 tenants in 2 classes,
+    SF_CHAOS_SPEC, the autoscaler between 1 and 4 replicas, seed 7, the
+    wedge timer PS_WEDGE_S). Replica i samples from seed i. With ``runs``
+    the scenario (not its warm-up) is counted as run ``fleet_scenario``.
+    Returns (report, wall seconds)."""
+    from trlx_tpu_torch.fleet import run_fleet_scenario
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.serving import ServingEngine, ServingResiliencePolicy, TenantRegistry, TenantTraffic
+
+    S, P, N, n_lo, n_hi = SF_S, SF_P, SF_N, SF_LO, SF_HI
+    bs = 16
+    max_len = P + N + 4  # +4: the pro tenants prepend a shared prefix
+    blocks_per_req = -(-max_len // bs)
+    state = TransformerLM(cfg, device=device).init_params(SEED).state_dict()
+    reg = TenantRegistry(class_ttl_s={0: 8.0, 1: 16.0})
+    reg.register("free1", slo_class=0, kv_block_quota=blocks_per_req)
+    reg.register("free2", slo_class=0, kv_block_quota=blocks_per_req)
+    reg.register("pro1", slo_class=1)
+    reg.register("pro2", slo_class=1)
+    policy = ServingResiliencePolicy(max_pending=16, high_watermark=1.0, low_watermark=0.5, preemption=True)
+
+    def factory(seat, tenants=reg):
+        return ServingEngine(TransformerLM(cfg, device=device), state, num_slots=S, max_seq_len=max_len,
+                             block_size=bs, num_blocks=1 + 2 * S * blocks_per_req // 3, eos_token_id=None,
+                             pad_token_id=0, gen_kwargs=dict(do_sample=False), seed=seat, policy=policy,
+                             prefix_caching=True, tenants=tenants, device=device)
+
+    V = cfg.vocab_size
+    traffic = [TenantTraffic(t, num_requests=n, arrivals_per_round=rate, prompt_len=(4, P - 2), max_new=(4, N),
+                             vocab=V, shared_prefix=prefix)
+               for t, n, rate, prefix in (("free1", n_lo, 2.0, 0), ("free2", n_lo, 2.0, 0), ("pro1", n_hi, 0.5, 4),
+                                          ("pro2", n_hi, 0.5, 4))]
+    ps_warm(lambda: factory(0, None), list(range(1, 17)))
+    t0 = time.perf_counter()
+    with runs.count("fleet_scenario") if runs is not None else contextlib.nullcontext():
+        report = run_fleet_scenario(factory, reg, traffic, num_replicas=3, chaos_spec=SF_CHAOS_SPEC, dt_s=0.05,
+                                    max_rounds=800, seed=7, wedge_timeout_s=PS_WEDGE_S, diagnostics_dir=diag_dir,
+                                    autoscale=True, min_replicas=1, max_replicas=4, scale_down_occupancy=0.3,
+                                    breach_rounds=3, cooldown_rounds=4, idle_tail_rounds=30)
+    return report, time.perf_counter() - t0
+
+
+def sf_scenario_facts(report):
+    """The scheduling facts of a fleet scenario that the card must share with
+    the CPU reference: each uid's terminal reason and accepting seat (its uid
+    block), kills, re-routes, restarts, autoscale events, the affinity hit
+    rate and its random baseline, quota violations, outcome counts, the
+    fleet's size, and p99 by class on the scenario's virtual clock. (At
+    these sizes both hit rates are 0: the pro tenants' 4-token shared prefix
+    fills no 16-token block, so no replica ever holds a warm prefix block.)"""
+    from trlx_tpu_torch.fleet import UID_STRIDE
+
+    return {"terminal": {int(u): [r, int(u) // UID_STRIDE] for u, r in report.terminal.items()},
+            "replica_kills": report.replica_kills, "reroutes": report.reroutes, "restarts": report.restarts,
+            "autoscale_events": [list(e) for e in report.autoscale_events],
+            "affinity_hit_rate": report.affinity_hit_rate, "random_hit_rate": report.random_hit_rate,
+            "quota_violations": report.quota_violations, "outcome_counts": dict(report.outcome_counts),
+            "replicas_peak": report.replicas_peak, "replicas_final": report.replicas_final,
+            "p99_by_class": dict(report.p99_by_class)}
+
+
+def sf_fleet_scenario(ctx, cpu_facts, runs):
+    """Leg fleet_scenario on the card (bf16, gpt2 full width), held against
+    ``cpu_facts``: the same leg by the port on the CPU (2 layers, hidden 64)."""
+    import tempfile
+
+    import torch
+
+    report, wall = sf_scenario_run(gpt2_config(12, torch.bfloat16), PS_DEVICE,
+                                   tempfile.mkdtemp(prefix="chip_smoke_sf_diag_"), runs)
+    facts = sf_scenario_facts(report)
+    tokens = sum(len(r.generated) for r in report.requests.values())
+    # each live replica's own pool (its per-tenant census gauges keep a
+    # tenant's last non-zero count, as the reference's do)
+    blocks = {k: v for k, v in report.gauges.items()
+              if k.startswith("serving/replica/") and k.count("/") == 3 and k.endswith("/blocks_in_use")}
+    emit({"phase": "serving_fleet", "leg": "fleet_scenario", "card": ctx.get("smi"), "dtype": "bfloat16",
+          "slots_per_replica": SF_S, "submitted": report.submitted, "rounds": report.rounds,
+          "req_s": report.submitted / wall, "delivered_tok_s": tokens / wall, "wall_s": wall,
+          "p99_by_class_virtual_s": report.p99_by_class, "affinity_hit_rate": report.affinity_hit_rate,
+          "random_hit_rate": report.random_hit_rate, "sticky_hit_rate": report.sticky_hit_rate,
+          "replica_kills": report.replica_kills, "reroutes": report.reroutes, "restarts": report.restarts,
+          "autoscale_events": report.autoscale_events, "replicas_peak": report.replicas_peak,
+          "replicas_final": report.replicas_final, "quota_violations": report.quota_violations,
+          "outcome_counts": report.outcome_counts, "fairness_jain": report.fairness_jain,
+          "cpu_reference_equal": {k: facts[k] == cpu_facts[k] for k in facts}})
+    return {
+        "scheduling facts == the CPU reference's": facts == cpu_facts,
+        "one terminal state per accepted uid": set(report.terminal) == set(report.requests)
+        and len(report.terminal) == report.submitted - report.rejected,
+        "one replica killed, its requests re-routed": report.replica_kills == 1 and report.reroutes >= 1,
+        "autoscaled (an up or a drain)": bool(report.autoscale_events),
+        "quota_violations == 0": report.quota_violations == 0,
+        "p99 ordering by class": report.p99_ordering_ok(),
+        "no block left on a replica": bool(blocks) and all(v == 0.0 for v in blocks.values()),
+    }
+
+
+def sf_fleet_trainer(ctx, runs):
+    """Leg fleet_trainer: train_serving's trainer (gpt2 full width, 64 greedy
+    rollouts of 128 tokens, spec_k 4, prefill_chunk 64, block 16) with
+    ``train.serving_fleet`` (2 replicas, autoscale on, at most 2, no
+    tenant stickiness) and ``serving_resilience``, through
+    ``trlx_tpu_torch.train`` for 2 steps.
+    Its first experience phase is set beside a single-engine trainer's at
+    the same seed (greedy): rows that differ are reported with their
+    tie-aware splits (replicas batch differently), not held.
+    Before it, the same trainer at the fleet's default weights takes its
+    first experience phase: with one tenant, stickiness (0.25 per recent
+    route) outgrows the load term (2.0 per ``num_slots`` requests), so every
+    route lands on seat 0, as in the reference
+    (tests/test_torch_serving_fleet.py)."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.fleet import FleetRouter
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    prompts = byte_prompts(64, 64, 128, SEED + 1)
+
+    def config(fleet, **weights):
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_sf_trainer_")
+        over = {"train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64},
+                "method.gen_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=False),
+                "train.total_steps": SF_FLEET_STEPS}
+        if fleet:
+            over.update({"train.serving_fleet": dict(enabled=True, num_replicas=2, autoscale=True, max_replicas=2,
+                                                     **weights),
+                         "train.serving_resilience": dict(enabled=True, max_restarts=4)})
+        return TRLConfig.update(full_width_train_config(ckpt), over)
+
+    def first_experience(cfg):
+        """A trainer's first experience phase only; returns its trainer and rows."""
+        trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=PS_DEVICE)
+        trainer.add_prompt_pipeline(PromptPipeline(prompts, TRAIN_P, trainer.tokenizer))
+        trainer.prepare_learning()
+        rows = list(trainer.store.history)
+        trainer.on_learn_end()
+        trainer.resilience.close()  # what learn() would release
+        trainer.obs.close()
+        return trainer, rows
+
+    # the single-engine reference, outside every counted run
+    ref_cfg = config(False)
+    ref, ref_rows = first_experience(ref_cfg)
+    default_cfg = config(True)
+
+    routes, popped, phases, gens, steps, routers = [], [], [], [], [], []
+    originals = {"submit": FleetRouter.submit, "_pop_finished": FleetRouter._pop_finished,
+                 "push_to_store": PPOTrainer.push_to_store, "_serving_generate": PPOTrainer._serving_generate,
+                 "train_step": PPOTrainer.train_step, "on_learn_end": PPOTrainer.on_learn_end}
+
+    def submit(self, *a, **kw):
+        uid = originals["submit"](self, *a, **kw)
+        routes.append((uid, self.replica_of(uid)))
+        return uid
+
+    def pop_finished(self):
+        out = originals["_pop_finished"](self)
+        popped.extend(out)
+        return out
+
+    def push_to_store(self, data):
+        phases.append(list(data))
+        return originals["push_to_store"](self, data)
+
+    def serving_generate(self, *a, **kw):
+        out = originals["_serving_generate"](self, *a, **kw)
+        gens.append(sum(h.supervisor.engine.allocator.blocks_in_use for h in self._serving_engine._live_handles()))
+        return out
+
+    def train_step(self, batch):
+        before = dict(_kernels.launches())
+        out = originals["train_step"](self, batch)
+        steps.append((out, {k: _kernels.launches()[k] - before[k] for k in before}))
+        return out
+
+    def on_learn_end(self):
+        routers.append(self._serving_engine)
+        return originals["on_learn_end"](self)
+
+    FleetRouter.submit, FleetRouter._pop_finished = submit, pop_finished
+    PPOTrainer.push_to_store, PPOTrainer._serving_generate = push_to_store, serving_generate
+    PPOTrainer.train_step, PPOTrainer.on_learn_end = train_step, on_learn_end
+    # tenant_weight 0 for the trained run, so that both seats take rollouts
+    cfg = config(True, tenant_weight=0.0)
+    try:
+        with runs.count("fleet_trainer_default_weights"):
+            first_experience(default_cfg)
+        default_routes, default_popped = list(routes), collections.Counter(popped)
+        for recorded in (routes, popped, phases, gens, steps, routers):
+            recorded.clear()
+        t0 = time.perf_counter()
+        with runs.count("fleet_trainer"):
+            trlx_tpu_torch.train(reward_fn=byte_share_reward, prompts=prompts,
+                                 eval_prompts=byte_prompts(32, 64, 128, SEED + 2), config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        FleetRouter.submit, FleetRouter._pop_finished = originals["submit"], originals["_pop_finished"]
+        for name in ("push_to_store", "_serving_generate", "train_step", "on_learn_end"):
+            setattr(PPOTrainer, name, originals[name])
+        for c in (cfg, ref_cfg, default_cfg):
+            shutil.rmtree(c.train.checkpoint_dir, ignore_errors=True)
+
+    def dump(rows):
+        return [(np.asarray(e.query_tensor).tolist(), np.asarray(e.response_tensor).tolist()) for e in rows]
+
+    got, want = dump(phases[0]), dump(ref_rows)
+    splits = tie_aware_splits(ref.model.transformer, [q for q, _ in want], [r for _, r in got],
+                              [r for _, r in want])
+    router = routers[0]
+    engines_released = all(h.supervisor.engine.trunk is None for h in router._all_handles())
+    summary = {k: v for k, v in steps[-1][0].items() if k.startswith("fleet/")}
+    L, num_mb = 12, TRAIN_B // TRAIN_MB
+    counts = collections.Counter(popped)
+    finite = all(np.isfinite(v) for out, _ in steps for k, v in out.items() if k.startswith("losses/"))
+    emit({"phase": "serving_fleet", "leg": "fleet_trainer", "card": ctx.get("smi"), "wall_s": wall,
+          "steps": len(steps), "experience_phases": len(phases), "routes_by_seat": dict(collections.Counter(
+              s for _, s in routes)), "default_weights_routes_by_seat": dict(collections.Counter(
+              s for _, s in default_routes)), "fleet_gauges_last_step": summary,
+          "rows_differing_from_single_engine": len(splits), "splits": splits,
+          "losses": {k: v for k, v in steps[-1][0].items() if k.startswith("losses/")}})
+    return {
+        f"{SF_FLEET_STEPS} optimizer steps, losses finite": len(steps) == SF_FLEET_STEPS and finite,
+        "one terminal state per uid": bool(routes) and set(counts) == {u for u, _ in routes}
+        and set(counts.values()) == {1},
+        "both seats receive routes (tenant_weight 0)": {s for _, s in routes} == {0, 1},
+        "default weights: every route on seat 0, as the reference": len(default_routes) == 64
+        and {s for _, s in default_routes} == {0},
+        "default weights: one terminal state per uid": set(default_popped) == {u for u, _ in default_routes}
+        and set(default_popped.values()) == {1},
+        "store whole and in order": len(got) == len(want) == 64 and [q for q, _ in got] == [q for q, _ in want],
+        "no KV block left on any replica after a generation": bool(gens) and all(b == 0 for b in gens),
+        "K2 and K3 per step": all(d["flash_bwd_dkv"] == d["flash_bwd_dq"] == L * num_mb for _, d in steps),
+        "fleet gauges in the step stats": summary.get("fleet/routed", 0) > 0,
+        "every replica released after learn()": engines_released,
+    }
+
+
+def sf_online_fleet(ctx, runs):
+    """Leg online_fleet: phase online_grpo's traffic (4 waves of 32 prompts x
+    4, 64-byte prompts, 40 sampled tokens) through a ``FleetRouter`` of 2
+    replicas x 64 slots (gpt2 full width, bf16, block 16), harvested by a
+    ``PreferenceCollector`` with ``harvest(router)``; ``fleet-replica-kill:1``
+    fires during wave 2. A ``GRPOTrainer`` takes 4 steps on the drained
+    groups, ``router.set_params`` republishes its trunk to every live
+    replica, and one more wave is banked at ``policy_version=1``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+    from trlx_tpu_torch.fleet import FleetRouter
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.online import OnlineExperienceBuffer, PreferenceCollector
+    from trlx_tpu_torch.resilience.chaos import chaos
+    from trlx_tpu_torch.serving import ServingEngine
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.update(default_grpo_config(), {
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32", "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": ONLINE_PROMPT_BYTES + GRPO_N, "train.batch_size": GRPO_B,
+        "train.minibatch_size": GRPO_MB, "train.total_steps": 4, "train.eval_interval": 100,
+        "train.checkpoint_interval": 100, "train.save_best": False, "train.save_optimizer": False,
+        "train.tracker": None, "train.checkpoint_dir": tempfile.mkdtemp(prefix="chip_smoke_sf_online_"),
+        "train.seed": SEED, "method.num_rollouts": GRPO_PROMPTS * GRPO_G,
+        "method.chunk_size": GRPO_PROMPTS * GRPO_G, "method.ppo_epochs": 1,
+        "train.online": dict(enabled=True, group_size=GRPO_G, buffer_capacity=256, max_staleness=4),
+    })
+    trainer = get_trainer("GRPOTrainer")(config=cfg, device=PS_DEVICE)
+    vocab = trainer.model_config.vocab_size
+    state = trainer.model.transformer.state_dict()
+
+    def factory(seat):
+        return ServingEngine(TransformerLM(gpt2_config(12, torch.bfloat16)), state, num_slots=SF_ONLINE_SLOTS,
+                             max_seq_len=ONLINE_PROMPT_BYTES + GRPO_N, block_size=16,
+                             eos_token_id=trainer.tokenizer.eos_token_id, pad_token_id=0,
+                             gen_kwargs=dict(do_sample=True), seed=SEED + seat, device=PS_DEVICE)
+
+    def reward_fn(prompt, completions):
+        return [float(np.mean(c)) / vocab for c in completions]
+
+    with runs.count("online_fleet"):  # the router's build to its close, the GRPO steps between
+        router = FleetRouter(factory, SF_ONLINE_REPLICAS, wedge_timeout_s=None, backoff_base_s=0.01)
+        buffer = OnlineExperienceBuffer(capacity=256, max_staleness=4)
+        collector = PreferenceCollector(buffer, group_size=GRPO_G, reward_fn=reward_fn)
+        prompts = [trainer.tokenizer.encode(p) for p in byte_prompts(GRPO_PROMPTS, ONLINE_PROMPT_BYTES,
+                                                                     ONLINE_PROMPT_BYTES, SEED + 40)]
+        delivered = {}
+        pop = router._pop_finished
+
+        def recorded_pop():
+            out = pop()
+            delivered.update(out)
+            return out
+
+        router._pop_finished = recorded_pop  # the collector's harvest(router) pops through here
+        routes_by_seat = {}
+
+        def wave(version, kill=False):
+            uids = [router.submit(p, GRPO_N) for p in prompts for _ in range(GRPO_G)]
+            for uid in uids:
+                seat = router.replica_of(uid)
+                routes_by_seat[seat] = routes_by_seat.get(seat, 0) + 1
+            got = 0
+            if kill:
+                router.step()
+                chaos.configure("fleet-replica-kill:1")
+            try:
+                while router.scheduler.has_work:
+                    router.step()
+                    got += collector.harvest(router, policy_version=version)
+            finally:
+                chaos.configure(None)
+            router.export_gauges()
+            return got + collector.harvest(router, policy_version=version), uids
+
+        steps = []
+        t0 = time.perf_counter()
+        try:
+            waves = [wave(0, kill=(i == 1)) for i in range(ONLINE_WAVES)]
+            torch.cuda.synchronize()
+            harvest_s = time.perf_counter() - t0
+            kills = router.ledger.summary()["fleet_replica_kills"]
+            first_pass = collector.stats()
+            replay = collector.harvest(dict(delivered), policy_version=0)
+            trainer.attach_online(buffer)
+            original = trainer.train_step
+
+            def recorded(batch):
+                out = original(batch)
+                steps.append(out)
+                return out
+
+            trainer.train_step = recorded
+            t1 = time.perf_counter()
+            trainer.learn()
+            torch.cuda.synchronize()
+            learn_s = time.perf_counter() - t1
+            router.set_params(trainer.model.transformer.state_dict())
+            trunk = {k: v.to(torch.bfloat16) for k, v in trainer.model.transformer.state_dict().items()}
+            republished = [all(torch.equal(v, trunk[k]) for k, v in h.supervisor.engine.trunk.state_dict().items())
+                           for h in router._live_handles()]
+            post, _ = wave(1)
+            drained = buffer.drain(256, learner_version=1)
+            burn = router.ledger.burn_rates()
+            blocks = sum(h.supervisor.engine.allocator.blocks_in_use for h in router._live_handles())
+            summary = router.summary()
+            stats = collector.stats()
+        finally:
+            router.close()
+        shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+    labels = ONLINE_WAVES * GRPO_PROMPTS * GRPO_G
+    emit({"phase": "serving_fleet", "leg": "online_fleet", "card": ctx.get("smi"),
+          "harvested_per_wave": [g for g, _ in waves], "post_publish": post, "replica_kills": kills,
+          "replay_harvested": replay, "collector_before_replay": first_pass, "collector": stats,
+          "routes_by_seat": routes_by_seat, "online_labels_per_s": labels / harvest_s,
+          "harvest_s": harvest_s, "learn_s": learn_s, "steps": len(steps), "burn_rates": burn,
+          "fleet": {k: summary[k] for k in ("fleet_routed", "fleet_reroutes", "fleet_affinity_hit_rate",
+                                            "fleet_random_hit_rate", "replicas")}})
+    per_wave = GRPO_PROMPTS * GRPO_G
+    all_uids = [u for _, uids in waves for u in uids]
+    return {
+        "every uid harvested exactly once": [g for g, _ in waves] == [per_wave] * ONLINE_WAVES
+        and set(delivered) >= set(all_uids) and first_pass["duplicates_dropped"] == 0.0
+        and first_pass["labels_harvested"] == len(set(all_uids)),
+        "a replica killed in wave 2": kills == 1,
+        "a replay of the delivered stream harvests 0": replay == 0,
+        "slo_held (no SLO burn)": burn["firing"] == 0.0,
+        "4 GRPO steps on the drained groups": len(steps) == 4 and steps[0].get("online/groups_consumed") == 32.0
+        and all(np.isfinite(s["losses/total_loss"]) for s in steps),
+        "set_params republished to every live replica": bool(republished) and all(republished),
+        "next wave banked at policy_version 1": post == per_wave
+        and [g.policy_version for g in drained][-GRPO_PROMPTS:] == [1] * GRPO_PROMPTS,
+        "no KV block left": blocks == 0,
+        # every prompt goes out GRPO_G times a wave, so warm prefixes exist
+        "prefix affinity beats the random baseline": summary["fleet_affinity_hit_rate"]
+        > summary["fleet_random_hit_rate"],
+    }
+
+
+def sf_bubble_run(engine, learner_state, prompts, mode, chaos_check=False):
+    """One islands_bubble window: ``engine`` (saturated by a driver thread)
+    as a ``GenerationIsland``, a learner thread alternating an in-place
+    x0.999 update of ``learner_state`` (synced through a CUDA event) with a
+    chunked publish through the island's gate. ``mode`` "blocking" sets
+    TRLX_ISLAND_SEED_REGRESSION=blocking_broadcast for the publisher.
+    Returns the run's numbers and checks."""
+    import threading
+
+    import torch
+
+    from trlx_tpu_torch.resilience.chaos import ChaosInjectedError, chaos
+    from trlx_tpu_torch.rollout import ChunkedParameterPublisher
+    from trlx_tpu_torch.serving import GenerationIsland
+    from trlx_tpu_torch.utils.metrics import gauges
+
+    island = GenerationIsland(engine)
+    if mode == "blocking":
+        os.environ["TRLX_ISLAND_SEED_REGRESSION"] = "blocking_broadcast"
+    try:
+        pub = ChunkedParameterPublisher(chunk_layers=SF_BUBBLE_CHUNKS, chunk_pause_s=SF_BUBBLE_PAUSE_S,
+                                        round_gate=island.round_gate)
+    finally:
+        os.environ.pop("TRLX_ISLAND_SEED_REGRESSION", None)
+    island.bind_publisher(pub)
+    installed = []
+    poll = island.poll_swap
+
+    def poll_swap(last_seen):
+        upd = poll(last_seen)
+        if upd is not None:
+            installed[:] = [upd]  # the committed snapshot the engine is about to install
+        return upd
+
+    island.poll_swap = poll_swap
+    flushes = []
+    flush = engine.allocator.flush_prefix_cache
+    engine.allocator.flush_prefix_cache = lambda: (flushes.append(1), flush())[1]
+    pub.publish(learner_state)
+    live, stop, errors = set(), threading.Event(), []
+
+    def drive():
+        i = 0
+        try:
+            while not stop.is_set():
+                while len(live) < SF_BUBBLE_SLOTS:
+                    live.add(engine.submit(prompts[i % len(prompts)], SF_BUBBLE_N))
+                    i += 1
+                engine.step()
+                for uid in engine.scheduler.pop_finished():
+                    engine.scheduler.pop_request(uid)
+                    live.discard(uid)
+        except BaseException as e:  # surfaced by the caller after join
+            errors.append(e)
+
+    def learn():
+        try:
+            with torch.no_grad():
+                while not stop.is_set():
+                    t0 = time.monotonic()
+                    torch._foreach_mul_(list(learner_state.values()), 0.999)
+                    done = torch.cuda.Event()
+                    done.record()
+                    done.synchronize()
+                    island.note_learn(t0, time.monotonic())
+                    t1 = time.monotonic()
+                    pub.publish(learner_state)
+                    island.note_learn(t1, time.monotonic())
+        except BaseException as e:
+            errors.append(e)
+
+    driver = threading.Thread(target=drive, name="sf-bubble-decode", daemon=True)
+    driver.start()
+    time.sleep(0.5)  # warm: slots full, the first version installed
+    island.open_window()
+    learner = threading.Thread(target=learn, name="sf-bubble-learn", daemon=True)
+    learner.start()
+    time.sleep(SF_BUBBLE_WINDOW_S)
+    summary = island.summary()
+    stop.set()
+    learner.join(timeout=60)
+    driver.join(timeout=60)
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    stats = pub.stats()
+    version = engine.serving_version
+    last_version, last_params = installed[0]
+    trunk = engine.trunk.state_dict()
+    out = {"mode": mode, **summary, "bytes_s": stats["last_bytes_s"], "broadcast_s": stats["last_broadcast_s"],
+           "published": stats["version"] + 1, "chunks": pub.manifest().num_chunks,
+           "chunk_bytes": pub.manifest().total_bytes, "flushes": len(flushes),
+           "threads_alive": driver.is_alive() or learner.is_alive()}
+    checks = {
+        "swaps >= 1": summary["swaps"] >= 1,
+        "serving the committed snapshot of its serving_version (no torn version)": version == last_version
+        and all(torch.equal(trunk[k], last_params[k]) for k in trunk),
+        "one prefix flush per swap": len(flushes) == island.summary()["swaps"],
+        "no thread left": not out["threads_alive"],
+    }
+    if chaos_check:
+        engine.step()  # installs the newest committed version
+        v0 = engine.serving_version
+        chaos.configure("broadcast-chunk:1")
+        try:
+            pub.publish(learner_state)
+            aborted_raised = False
+        except ChaosInjectedError:
+            aborted_raised = True
+        finally:
+            chaos.configure(None)
+        aborted = gauges.get("rollout/broadcast/aborted")
+        engine.step()
+        kept = engine.serving_version == v0 == pub.version and all(
+            torch.equal(v, pub.latest()[1][k]) for k, v in engine.trunk.state_dict().items())
+        burned = pub.publish(learner_state) == v0 + 2
+        checks.update({"broadcast-chunk:1 aborts the publish": aborted_raised and aborted == 1.0,
+                       "the engine keeps serving the previous version": kept,
+                       "the aborted version number is burned": burned})
+        out["chaos"] = {"aborted_gauge": aborted, "version_kept": v0}
+    for uid in list(live):
+        engine.cancel(uid)
+    engine.run()
+    for uid in engine.scheduler.pop_finished():
+        engine.scheduler.pop_request(uid)
+    island.close()
+    engine.allocator.flush_prefix_cache = flush
+    return out, checks
+
+
+def sf_islands_bubble(ctx, runs):
+    """Leg islands_bubble (bench.py:_island_perf at full width): a saturated
+    64-slot engine (gpt2, bf16, greedy, budgets of 64) driven by one thread as
+    a ``GenerationIsland``; a learner thread alternating an in-place x0.999
+    update of a clone of the trunk's state with a chunked publish
+    (chunk_layers 2, 2 ms pauses) through the island's gate; a 3 s window
+    after warm-up, in turns: chunked, blocking_broadcast, chunked,
+    blocking_broadcast. The last run also publishes under
+    ``broadcast-chunk:1``. On one CUDA stream the broadcast's copies queue
+    behind decode work: ``broadcast_hidden_frac`` is the host-clock overlap."""
+    results, failed = [], []
+    with runs.count("islands_bubble"):
+        engine, _ = full_width_engine(False, num_slots=SF_BUBBLE_SLOTS)
+        learner_state = {k: v.clone() for k, v in engine.trunk.state_dict().items()}
+        prompts, _ = serving_traffic(engine.trunk.config.vocab_size, seed=SEED + 50)
+        for i, mode in enumerate(("chunked", "blocking", "chunked", "blocking")):
+            out, checks = sf_bubble_run(engine, learner_state, prompts, mode, chaos_check=i == 3)
+            out["checks"] = checks
+            results.append(out)
+            emit({"phase": "serving_fleet", "leg": "islands_bubble", "card": ctx.get("smi"), "run": i + 1, **out})
+            failed += [f"run {i + 1} ({mode}): {k}" for k, ok in checks.items() if not ok]
+        engine.close()
+    emit({"phase": "serving_fleet", "leg": "islands_bubble", "card": ctx.get("smi"),
+          "gen_idle_frac": {r["mode"]: [x["gen_idle_frac"] for x in results if x["mode"] == r["mode"]]
+                            for r in results}})
+    return {**{k: False for k in failed}, "every run's checks": not failed}
+
+
+def sf_islands_trainer(ctx, runs):
+    """Leg islands_trainer: the async phase's trainer (gpt2 full width, 64
+    sampled rollouts of 128 tokens, max_staleness 2, publish_interval 1) with
+    train_serving's engine (spec_k 4, prefill_chunk 64) and ``train.islands``
+    (chunk_layers 2), 4 steps through ``trlx_tpu_torch.train``: the producer
+    thread generates through the engine while the learner publishes chunked
+    broadcasts the engine swaps at its round boundaries."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.rollout import ChunkedParameterPublisher
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.metrics import gauges
+
+    threads0 = {t.ident for t in threading.enumerate()}
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_sf_islands_")
+    cfg = TRLConfig.update(full_width_train_config(ckpt), {
+        "train.total_steps": SF_ISLAND_STEPS,
+        "train.async_rollouts": dict(enabled=True, max_staleness=2, publish_interval=1, staleness_correction=True),
+        "train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64},
+        "train.islands": dict(enabled=True, chunk_layers=2)})
+    seen, steps = {}, []
+    originals = {name: getattr(PPOTrainer, name) for name in ("_start_async_engine", "on_learn_end", "train_step")}
+
+    def start(self):
+        originals["_start_async_engine"](self)
+        pub = self._engine.publisher
+        seen.update(island=self._island is not None, chunked=type(pub) is ChunkedParameterPublisher,
+                    shared_gate=self._island is not None and pub._gate is self._island.round_gate,
+                    attached=self._island is not None and self._serving_engine._island is self._island,
+                    seed_version=pub.version, chunks=list(pub.manifest().chunk_names))
+
+    def on_learn_end(self):
+        if self._island is not None:
+            seen.update(summary=self._island.summary(), serving_version=self._serving_engine.serving_version,
+                        param_ref_untouched=self._serving_param_ref is None, published=self._policy_version)
+        originals["on_learn_end"](self)
+        seen.update(island_gauges=gauges.snapshot("serving/island/"), broadcast_gauges=gauges.snapshot(
+            "rollout/broadcast/"))
+
+    def train_step(self, batch):
+        before = dict(_kernels.launches())
+        out = originals["train_step"](self, batch)
+        steps.append((out, {k: _kernels.launches()[k] - before[k] for k in before}))
+        return out
+
+    PPOTrainer._start_async_engine, PPOTrainer.on_learn_end = start, on_learn_end
+    PPOTrainer.train_step = train_step
+    t0 = time.perf_counter()
+    try:
+        with runs.count("islands_trainer"):
+            trlx_tpu_torch.train(reward_fn=byte_share_reward, prompts=byte_prompts(64, 64, 128, SEED + 1),
+                                 eval_prompts=byte_prompts(32, 64, 128, SEED + 2), config=cfg)
+    finally:
+        for name, fn in originals.items():
+            setattr(PPOTrainer, name, fn)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    left = [t.name for t in threading.enumerate() if t.ident not in threads0 and t.is_alive()]
+    finite = all(np.isfinite(out["losses/total_loss"]) for out, _ in steps)
+    L, num_mb = 12, TRAIN_B // TRAIN_MB
+    stale = [out.get("rollout/batch_staleness_max") for out, _ in steps]
+    emit({"phase": "serving_fleet", "leg": "islands_trainer", "card": ctx.get("smi"), "wall_s": wall,
+          "steps": len(steps), "island": seen.get("summary"), "serving_version": seen.get("serving_version"),
+          "learner_version": seen.get("published"), "chunks": seen.get("chunks"), "batch_staleness_max": stale,
+          "island_gauges_in_steps": {k: v for k, v in steps[-1][0].items() if k.startswith("serving/island/")},
+          "threads_left": left})
+    return {
+        f"{SF_ISLAND_STEPS} optimizer steps, losses finite": len(steps) == SF_ISLAND_STEPS and finite,
+        "a ChunkedParameterPublisher sharing the island's gate": seen.get("island") and seen.get("chunked")
+        and seen.get("shared_gate") and seen.get("attached"),
+        "the seed version committed": seen.get("seed_version") == 0,
+        "_serving_param_ref untouched": seen.get("param_ref_untouched") is True,
+        "serving_version advanced": (seen.get("serving_version") or -1) >= 1,
+        "island and broadcast gauges empty after on_learn_end": seen.get("island_gauges") == {}
+        and seen.get("broadcast_gauges") == {},
+        "K2 and K3 per step": all(d["flash_bwd_dkv"] == d["flash_bwd_dq"] == L * num_mb for _, d in steps),
+        "no thread left": not left,
+    }
+
+
+def phase_serving_fleet(ctx):
+    """A main path: serving across engines at gpt2 full width
+    (:func:`sf_fleet_of_one`, :func:`sf_fleet_scenario`,
+    :func:`sf_fleet_trainer`, :func:`sf_online_fleet`,
+    :func:`sf_islands_bubble`, :func:`sf_islands_trainer`). The CPU
+    reference of the fleet scenario runs first. Each run on the path (a
+    router, a fleet trainer, an island) is counted from 0 (:class:`SfRuns`);
+    a leg's references (bare engines, the single-engine trainer, warm-ups)
+    run between the windows. Over the runs' sum K1 (prefill waves, scoring,
+    loss forwards), K2/K3 (the trainers and the GRPO learner), K4 (the
+    replicas' and the island engine's decode rounds) and K5 (the trainers'
+    spec engines) must all have launched, and every recorded shape is held
+    against the plain versions. Device memory must be back within 64 MiB of
+    its start after every leg."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    cpu_report, _ = sf_scenario_run(ps_cpu_config(), "cpu", tempfile.mkdtemp(prefix="chip_smoke_sf_cpu_diag_"))
+    cpu_facts = sf_scenario_facts(cpu_report)
+    emit({"phase": "serving_fleet", "cpu_reference_s": time.perf_counter() - t0,
+          "cpu_reference": {k: v for k, v in cpu_facts.items() if k != "terminal"}})
+    seen = {}
+    restore_kernels = record_kernel_shapes(seen)
+    legs, failed, runs = {}, [], SfRuns()
+    try:
+        for name, leg in (("fleet_of_one", lambda: sf_fleet_of_one(ctx, runs)),
+                          ("fleet_scenario", lambda: sf_fleet_scenario(ctx, cpu_facts, runs)),
+                          ("fleet_trainer", lambda: sf_fleet_trainer(ctx, runs)),
+                          ("online_fleet", lambda: sf_online_fleet(ctx, runs)),
+                          ("islands_bubble", lambda: sf_islands_bubble(ctx, runs)),
+                          ("islands_trainer", lambda: sf_islands_trainer(ctx, runs))):
+            mem0 = sf_memory()
+            counted, t1 = set(runs.runs), time.perf_counter()
+            checks = leg()  # its engines, routers and trainers are garbage once it returns
+            legs[name] = {"s": time.perf_counter() - t1,
+                          "launches": runs.total([n for n in runs.runs if n not in counted])}
+            mem1 = sf_memory()
+            legs[name].update(memory_before_b=mem0, memory_after_b=mem1)
+            checks["device memory back within 64 MiB"] = abs(mem1 - mem0) <= SF_MEM_SLACK
+            emit({"phase": "serving_fleet", "leg": name, "checks": checks})
+            failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    finally:
+        restore_kernels()
+    launches = runs.total()
+    ctx["serving_fleet_launches"] = launches
+    emit({"phase": "serving_fleet", "legs": legs, "launches": launches, "launches_by_run": runs.runs,
+          "kernel_shapes": kernel_shapes(seen)})
+    if failed:
+        raise AssertionError(f"serving_fleet phase: {failed}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"serving_fleet phase: kernels never launched on the path: {missing}")
+    check_main_path_shapes(ctx, seen, "serving_fleet", ("flash_fwd", "flash_bwd", "paged_decode", "paged_verify"))
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -4832,7 +5668,8 @@ def kernel_table(ctx):
              "rft": ctx["rft_launches"], "grpo": ctx["grpo_launches"], "online_grpo": ctx["online_grpo_launches"],
              "async": ctx["async_launches"], "resilience": ctx["resilience_launches"],
              "observability": ctx["observability_launches"],
-             "production_serving": ctx["production_serving_launches"]}
+             "production_serving": ctx["production_serving_launches"],
+             "serving_fleet": ctx["serving_fleet_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -4880,7 +5717,8 @@ def main(argv=None) -> int:
                "randomwalks_rft": phase_randomwalks_rft, "grpo_parity": phase_grpo_parity, "grpo": phase_grpo,
                "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
-               "observability": phase_observability, "production_serving": phase_production_serving}
+               "observability": phase_observability, "production_serving": phase_production_serving,
+               "serving_fleet": phase_serving_fleet}
     phase_env(ctx)
     try:
         for name in phases:

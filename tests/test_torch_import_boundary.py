@@ -44,7 +44,11 @@ def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
               "trlx_tpu_torch.methods.ilql", "trlx_tpu_torch.methods.rft", "trlx_tpu_torch.data.ilql_types",
               "trlx_tpu_torch.methods.grpo", "trlx_tpu_torch.trainer.grpo_trainer", "trlx_tpu_torch.online",
               "trlx_tpu_torch.online.collector", "trlx_tpu_torch.online.environment", "trlx_tpu_torch.rollout",
-              "trlx_tpu_torch.rollout.engine", "trlx_tpu_torch.rollout.staleness"):
+              "trlx_tpu_torch.rollout.engine", "trlx_tpu_torch.rollout.staleness",
+              "trlx_tpu_torch.fleet", "trlx_tpu_torch.fleet.router", "trlx_tpu_torch.fleet.ledger",
+              "trlx_tpu_torch.fleet.autoscaler", "trlx_tpu_torch.fleet.scenario", "trlx_tpu_torch.rollout.broadcast",
+              "trlx_tpu_torch.serving.island", "trlx_tpu_torch.obs.islands", "trlx_tpu_torch.parallel",
+              "trlx_tpu_torch.parallel.mesh"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

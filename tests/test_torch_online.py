@@ -8,8 +8,11 @@ reward-fn adapter, ``SyntheticEnvironment`` prompts per seed. Added: a
 harvest from the port's CPU ``ServingEngine`` against the JAX engine's on
 the same weights (greedy), and the port's ``GRPOTrainer`` draining the same
 ``LabeledGroup``s as the JAX ``GRPOTrainer`` (experience within 1e-4).
-The JAX test file's fleet cases (replica kill, learn-tenant gating, the
-soak) need the fleet router, which the port does not bring yet.
+The JAX test file's fleet cases: a harvest through a replica kill (every
+uid exactly once, a replay harvests nothing) and the router's learn-tenant
+gating, each through both packages' ``FleetRouter`` and, on the port's
+delivered stream, through both packages' collectors. (The soak's GRPO
+learner is the chip script's ``serving_fleet`` phase, leg ``online_fleet``.)
 """
 
 import numpy as np
@@ -286,6 +289,106 @@ def test_harvest_from_the_port_engine_matches_the_jax_engine():
     assert got == 6 and len(groups) == 3 and blocks == 0 and stats["duplicates_dropped"] == 0.0
     assert sorted(u for g in groups for u in g[4]) == sorted(uids)
     assert all(len(c) == 4 for g in groups for c in g[1])
+
+
+# ----------------------------------------------------- fleet harvest (chaos)
+
+
+def _fleet_pair(tmp_path, num_replicas=2, learn_tenants=None):
+    """A 2-slot greedy engine factory per package over the tiny gpt2 weights,
+    and each package's FleetRouter class with its chaos: [(jax), (port)]."""
+    import trlx_tpu.fleet as jfleet
+    import trlx_tpu_torch.fleet as tfleet
+    from trlx_tpu.models.presets import PRESETS as JAX_PRESETS
+    from trlx_tpu.models.transformer import TransformerLM as JaxLM
+    from trlx_tpu.resilience.chaos import chaos as jax_chaos
+    from trlx_tpu.serving import ServingEngine as JaxEngine
+    from trlx_tpu_torch.models.convert import params_from_jax
+    from trlx_tpu_torch.models.presets import PRESETS
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.resilience.chaos import chaos
+    from trlx_tpu_torch.serving import ServingEngine
+
+    tiny = dict(vocab_size=37, hidden_size=16, num_layers=2, num_heads=2, max_position_embeddings=64)
+    jcfg = JAX_PRESETS["gpt2"].replace(**tiny, compute_dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, JaxLM(jcfg).init(
+        jax.random.PRNGKey(0), jnp.ones((1, 4), jnp.int32), jnp.ones((1, 4), jnp.int32))["params"])
+    tcfg = PRESETS["gpt2"].replace(**tiny, compute_dtype=torch.float32)
+    state = params_from_jax(params, tcfg)
+    kw = dict(num_slots=2, max_seq_len=32, block_size=4, eos_token_id=None, pad_token_id=0,
+              gen_kwargs=dict(do_sample=False), seed=0)
+    routers = []
+    for name, fleet, make, ch in (
+            ("jax", jfleet, lambda seat: JaxEngine(JaxLM(jcfg), params, **kw), jax_chaos),
+            ("port", tfleet, lambda seat: ServingEngine(TransformerLM(tcfg), state, device="cpu", **kw), chaos)):
+        routers.append((fleet.FleetRouter(make, num_replicas, wedge_timeout_s=None, backoff_base_s=0.01,
+                                          diagnostics_dir=str(tmp_path / name), learn_tenants=learn_tenants), ch))
+    return routers
+
+
+def _delivered(done):
+    return {u: (list(r.prompt), list(r.generated), r.finish_reason, r.learn_eligible) for u, r in done.items()}
+
+
+def test_fleet_kill_harvest_exactly_once_matches_jax(tmp_path):
+    """Chaos kills a replica mid-flight; the re-routed requests surface once,
+    the collector banks every uid into exactly one group and a replay of the
+    delivered stream harvests nothing — the same in both packages, and the
+    JAX collector fed the port's stream agrees with the port's."""
+    prompts = [[1, 2, 3], [4, 5, 6], [7, 8, 9]]
+    out, streams = [], []
+    routers = _fleet_pair(tmp_path)
+    try:
+        for (router, ch), pkg in zip(routers, (jon, ton)):
+            uids = [router.submit(list(p), 4) for p in prompts for _ in range(2)]
+            router.step()  # a decoded token, so the replay carries state
+            ch.configure("fleet-replica-kill:1")
+            delivered = {}
+            for _ in range(100):
+                router.step()
+                delivered.update(router.scheduler.pop_finished())
+                if len(delivered) == len(uids):
+                    break
+            ch.configure(None)
+            col = pkg.PreferenceCollector(pkg.OnlineExperienceBuffer(), group_size=2, reward_fn=_len_reward)
+            first, replay = col.harvest(delivered), col.harvest(delivered)
+            out.append((uids, _delivered(delivered), router.ledger.summary()["fleet_replica_kills"], first, replay,
+                        col.stats(), _groups(col.buffer.drain(10))))
+            streams.append(delivered)
+    finally:
+        for router, ch in routers:
+            ch.configure(None)
+            router.close()
+    assert out[0] == out[1]
+    uids, delivered, kills, first, replay, stats, groups = out[1]
+    assert set(delivered) == set(uids) and kills == 1 and first == len(uids) and replay == 0
+    assert stats["duplicates_dropped"] == float(len(uids)) and len(groups) == len(prompts)
+    assert sorted(u for g in groups for u in g[4]) == sorted(uids)
+    assert all(d[3] is True for d in delivered.values())  # every success stamped learn-eligible
+    jcol = jon.PreferenceCollector(jon.OnlineExperienceBuffer(), group_size=2, reward_fn=_len_reward)
+    assert jcol.harvest(streams[1]) == first and _groups(jcol.buffer.drain(10)) == groups
+
+
+def test_router_learn_tenant_gating_matches_jax(tmp_path):
+    """``learn_tenants`` narrows harvest eligibility: a successful finish from
+    a tenant not opted in is stamped ineligible and never banked, in both
+    packages; the JAX collector reads the port's stamps the same way."""
+    out = []
+    routers = _fleet_pair(tmp_path, num_replicas=1, learn_tenants=["opted_in"])
+    try:
+        for (router, _), pkg in zip(routers, (jon, ton)):
+            u_yes = router.submit([1, 2, 3], 3, tenant_id="opted_in")
+            u_no = router.submit([1, 2, 3], 3)
+            done = router.run([u_yes, u_no])
+            col = pkg.PreferenceCollector(pkg.OnlineExperienceBuffer(), group_size=2, reward_fn=_len_reward)
+            jcol = jon.PreferenceCollector(jon.OnlineExperienceBuffer(), group_size=2, reward_fn=_len_reward)
+            out.append(([u_yes, u_no], _delivered(done), col.harvest(done), jcol.harvest(done), col.stats()))
+    finally:
+        for router, _ in routers:
+            router.close()
+    assert out[0] == out[1]
+    (u_yes, u_no), delivered, n, n_jax, _ = out[1]
+    assert delivered[u_yes][3] is True and delivered[u_no][3] is False and n == n_jax == 1
 
 
 # ------------------------------------------------------------ trainer drain

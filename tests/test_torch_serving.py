@@ -233,9 +233,11 @@ def test_engine_prefix_sharing_stream_and_cancel(shared_weights):
 
 
 def test_engine_later_slices_raise(shared_weights):
-    """Islands still raise, naming the fleet slice; the policy and the
-    tenancy registry build since the production-serving slice."""
-    from trlx_tpu_torch.serving import ServingResiliencePolicy, TenantRegistry
+    """No engine knob of a later slice is left: the policy and the tenancy
+    registry build since the production-serving slice, and an island
+    attaches since the serving-fleet slice (tests/test_torch_islands.py
+    drives it); the engine then serves version -1 until its first swap."""
+    from trlx_tpu_torch.serving import GenerationIsland, ServingResiliencePolicy, TenantRegistry
 
     _, params = shared_weights
     tcfg = PRESETS["gpt2"].replace(**TINY, compute_dtype=torch.float32)
@@ -243,8 +245,47 @@ def test_engine_later_slices_raise(shared_weights):
         eng = ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu", **kw)
         assert eng.policy is kw.get("policy") and eng.tenants is kw.get("tenants")
         eng.close()
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu").attach_island(None)
+    eng = ServingEngine(TransformerLM(tcfg), num_slots=1, max_seq_len=8, device="cpu")
+    island = GenerationIsland(eng)
+    assert eng._island is island and eng.serving_version == -1
+    island.close()
+    eng.close()
+
+
+def test_prefill_pack_writes_each_pool_slot_once():
+    """Rows sharing prefix blocks name the same pool slots; the pack writes
+    each slot once, from the last row naming it (a sequential scatter's
+    result), so the card cannot keep an arbitrary duplicate."""
+    from trlx_tpu_torch.serving.engine import pack_targets
+
+    BS, P = 4, 8
+    rows = np.array([[1, 2, 0], [1, 2, 0], [1, 3, 0]], np.int32)  # rows 0-1 share blocks 1-2, row 2 block 1
+    lens = np.array([8, 6, 5])
+    dest, src = pack_targets(rows, lens, P, BS, 3)
+    assert len(np.unique(dest)) == len(dest)
+    writers = {}
+    for r in range(3):  # the sequential reference: later rows overwrite earlier ones
+        for p in range(P):
+            logical = p - (P - lens[r])
+            if logical >= 0:
+                writers[rows[r, logical // BS] * BS + logical % BS] = r * P + p
+    assert dict(zip(dest.tolist(), src.tolist())) == writers
+    assert sorted(src.tolist()) == src.tolist()  # the wave's order is kept
+
+
+def test_prefill_pack_without_prefix_caching_keeps_every_position():
+    """Without prefix caching no two rows share a block: the pack skips the
+    dedupe and returns every non-padding position in the wave's order, the
+    same targets the deduped pack gives for disjoint rows."""
+    from trlx_tpu_torch.serving.engine import pack_targets
+
+    BS, P = 4, 8
+    rows = np.array([[1, 2, 0], [3, 4, 0], [5, 6, 0]], np.int32)
+    lens = np.array([8, 6, 5])
+    dest, src = pack_targets(rows, lens, P, BS, 3, shared=False)
+    assert len(dest) == len(src) == int(lens.sum()) and len(np.unique(dest)) == len(dest)
+    want = pack_targets(rows, lens, P, BS, 3)
+    assert dest.tolist() == want[0].tolist() and src.tolist() == want[1].tolist()
 
 
 # ----------------------------------------------------------------- sampling

@@ -159,8 +159,6 @@ def test_default_device_is_the_card(tmp_path):
 
 
 UNPORTED = [
-    ("train.islands.enabled", True, "serving-fleet slice"),
-    ("train.serving_fleet.enabled", True, "serving-fleet slice"),
     ("train.learner_overlap.enabled", True, "scale-out slice"),
     ("train.rollout_param_dtype", "bfloat16", "mixed-precision rollout slice"),
     ("mesh.remat", "full", "training-memory slice"),
@@ -196,16 +194,19 @@ PORTED = [
     ("train.serving.stream_overlap", True),
     ("train.serving_resilience.enabled", True),
     ("train.serving_tenancy.enabled", True),
+    ("train.serving_fleet.enabled", True),
+    ("train.islands.enabled", True),
 ]
 
 
 @pytest.mark.parametrize("key,value", PORTED, ids=[p[0] for p in PORTED])
 def test_ported_config_blocks_build(tmp_path, key, value):
     """The blocks that raised until the async / online slice, the
-    resilience slice, the observability slice and the production-serving
-    slice build the CPU trainer (``train.online`` with the GRPO method it
-    belongs to; ``wandb``, not installed, falls back to the jsonl tracker;
-    the serving blocks with ``train.serving`` on)."""
+    resilience slice, the observability slice, the production-serving
+    slice and the serving-fleet slice build the CPU trainer
+    (``train.online`` with the GRPO method it belongs to; ``wandb``, not
+    installed, falls back to the jsonl tracker; the serving blocks with
+    ``train.serving`` on, the fleet resolving its replicas)."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.utils.loading import get_trainer
 
@@ -240,6 +241,15 @@ def test_ported_config_blocks_build(tmp_path, key, value):
 
         assert isinstance(trainer.tracker, JsonlTracker)
         trainer.tracker.finish()
+    if key == "train.serving_fleet.enabled":
+        from trlx_tpu_torch.fleet import FleetRouter
+
+        trainer._resolve_serving()
+        assert isinstance(trainer._serving_engine, FleetRouter)
+        assert trainer._serving_engine.num_replicas == cfg.train.serving_fleet.num_replicas
+        trainer.on_learn_end()  # retires every replica
+    if key == "train.islands.enabled":
+        assert trainer.config.train.islands.enabled and trainer._island is None  # wired by the async start
     trainer.resilience.close()  # releases the signal handlers learn() would release
     trainer.obs.close()  # and what the obs layer holds
 

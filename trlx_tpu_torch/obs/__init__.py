@@ -26,11 +26,11 @@ step:
 - :mod:`~trlx_tpu_torch.obs.overlap` — the busy-interval ledger of
   stream-overlapped PPO (decode time against the reward / score /
   learn-stage work that overlapped it).
+- :mod:`~trlx_tpu_torch.obs.islands` — per-island idle-bubble ledgers of
+  the generation / learner split (``train.islands``).
 
 ``train.profile_dir`` (a ``torch.profiler`` window over
 ``[profile_start_step, profile_end_step)``) lives in the trainer's loop.
-The JAX package's ``IslandLedger`` comes with ``train.islands`` (the fleet
-slice).
 """
 
 from trlx_tpu_torch.obs.export import (
@@ -40,6 +40,7 @@ from trlx_tpu_torch.obs.export import (
     write_prometheus,
 )
 from trlx_tpu_torch.obs.flight import Flight, FlightRecorder, flight
+from trlx_tpu_torch.obs.islands import IslandLedger
 from trlx_tpu_torch.obs.memory import device_memory_stats, host_rss_bytes
 from trlx_tpu_torch.obs.overlap import OverlapWindow
 from trlx_tpu_torch.obs.runtime import Observability, batch_token_count
@@ -57,6 +58,7 @@ from trlx_tpu_torch.obs.watchdog import StallWatchdog, format_all_stacks, watchd
 __all__ = [
     "Flight",
     "FlightRecorder",
+    "IslandLedger",
     "Observability",
     "OverlapWindow",
     "PEAK_TFLOPS_BY_DEVICE_KIND",

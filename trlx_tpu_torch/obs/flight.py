@@ -49,10 +49,10 @@ observability-off engine stays byte-identical (the existing parity tests
 are the proof).
 
 In this package the scheduler, the engine, the client, the online
-collector, the serving supervisor (``re_route`` on a restart) and the
+collector, the serving supervisor (``re_route`` on a restart), the fleet
+router (``re_route`` on a replica kill, with the adopting seat) and the
 trainer's stream-overlap path (``reward_dispatch`` / ``reward_done`` /
-``store``) journal; the fleet router's cross-replica sites come with the
-fleet slice.
+``store``) journal.
 
 Seeded regression: ``TRLX_FLIGHT_SEED_REGRESSION=drop_terminal`` makes the
 recorder silently drop terminal events — the exactly-once accounting check

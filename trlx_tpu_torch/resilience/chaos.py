@@ -61,9 +61,9 @@ the shape of a transient outage.
 Every site of the JAX package parses here, so one ``TRLX_CHAOS`` spec
 drives both packages. The port checks ``reward``, ``rollout-producer``,
 ``hf-load``, ``checkpoint``, ``preempt-step``, ``producer-wedge``,
-``nan-loss``, ``bad-element`` and the four serving sites (``serving-*``);
-``broadcast-chunk`` and the fleet sites (``fleet-*``) belong to the fleet
-slice, and nothing checks them yet.
+``nan-loss``, ``bad-element``, the four serving sites (``serving-*``),
+``broadcast-chunk`` (:mod:`trlx_tpu_torch.rollout.broadcast`) and the two
+fleet sites (``fleet-*``, :mod:`trlx_tpu_torch.fleet.router`).
 
 The process-global handle is ``trlx_tpu_torch.resilience.chaos.chaos``. It reads the
 env var at each :meth:`reload_from_env`; the ``Resilience`` runtime calls that

@@ -21,13 +21,15 @@ off-policy staleness control:
   producer with backoff under a budget (``train.self_healing``).
 - :mod:`trlx_tpu_torch.rollout.reorder` — reassembles out-of-order
   completions in submission order (stream-overlapped PPO).
+- :mod:`trlx_tpu_torch.rollout.broadcast` — the chunked, layer-by-layer
+  parameter broadcast with an atomic commit (``train.islands``: the
+  generation island swaps committed versions at round boundaries).
 
 Enabled via ``TrainConfig.async_rollouts``; the synchronous path stays the
-default and ``max_staleness=0`` falls back to it exactly. Not ported yet:
-the island split and chunked broadcast (``train.islands``), raising naming
-its slice.
+default and ``max_staleness=0`` falls back to it exactly.
 """
 
+from trlx_tpu_torch.rollout.broadcast import BroadcastManifest, ChunkedParameterPublisher, layer_chunks
 from trlx_tpu_torch.rollout.engine import PRODUCER_HEARTBEAT, AsyncRolloutEngine, length_bucketed
 from trlx_tpu_torch.rollout.publisher import ParameterPublisher
 from trlx_tpu_torch.rollout.queue import ExperienceQueue, QueueClosed
@@ -37,6 +39,8 @@ from trlx_tpu_torch.rollout.supervisor import ProducerRestartBudgetExceeded, Pro
 
 __all__ = [
     "AsyncRolloutEngine",
+    "BroadcastManifest",
+    "ChunkedParameterPublisher",
     "ExperienceQueue",
     "PRODUCER_HEARTBEAT",
     "ParameterPublisher",
@@ -45,6 +49,7 @@ __all__ = [
     "QueueClosed",
     "ReorderBuffer",
     "StalenessAccountant",
+    "layer_chunks",
     "length_bucketed",
     "staleness_importance_weights",
 ]

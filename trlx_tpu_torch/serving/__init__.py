@@ -12,14 +12,17 @@
 - :mod:`tenancy` — TenantRegistry: SLO classes, KV-block quotas, fair-share
   preemption
 - :mod:`scenario` — deterministic multi-tenant chaos scenario harness
+- :mod:`island` — GenerationIsland: the engine as the generation island of
+  the Sebulba split (round gate, atomic swaps, idle-bubble ledgers)
 
-Generation islands (``trlx_tpu/serving/island.py``) come with the fleet
-slice.
+Serving across engines (the router, autoscaler and SLO ledger) is
+:mod:`trlx_tpu_torch.fleet`.
 """
 
 from trlx_tpu_torch.serving.allocator import PagedBlockAllocator, SeqBlocks
 from trlx_tpu_torch.serving.client import GenerationClient
 from trlx_tpu_torch.serving.engine import ServingEngine
+from trlx_tpu_torch.serving.island import GenerationIsland
 from trlx_tpu_torch.serving.policy import (
     EngineDrainingError,
     EngineStoppedError,
@@ -40,6 +43,7 @@ __all__ = [
     "EngineStoppedError",
     "EngineWedgedError",
     "GenerationClient",
+    "GenerationIsland",
     "InflightScheduler",
     "PagedBlockAllocator",
     "Request",

@@ -96,9 +96,17 @@ class GenerationClient:
             yield tok
         self._raise_if_failed(req, f"request uid={req.uid}")
 
+    def _replica_of(self, uid: int) -> Optional[int]:
+        """Replica attribution for typed errors: a fleet router knows which
+        replica served the uid (``replica_of``); a bare engine or supervisor
+        is its own replica (``replica_id``, None outside a fleet)."""
+        fn = getattr(self.engine, "replica_of", None)
+        if fn is not None:
+            return fn(uid)
+        return getattr(self.engine, "replica_id", None)
+
     def _tags(self, req: Request) -> Dict[str, object]:
-        return dict(tenant_id=req.tenant_id, slo_class=req.slo_class,
-                    replica_id=getattr(self.engine, "replica_id", None))
+        return dict(tenant_id=req.tenant_id, slo_class=req.slo_class, replica_id=self._replica_of(req.uid))
 
     def _raise_if_failed(self, req: Request, what: str) -> None:
         """The typed error of a shed or expired request (nothing otherwise)."""

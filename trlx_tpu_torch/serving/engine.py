@@ -61,8 +61,19 @@ reports one block extension as failed, and ``serving-wedge`` parks
 :meth:`step` under the engine lock until :meth:`request_abort` (then
 :class:`~trlx_tpu_torch.serving.policy.EngineWedgedError`). The
 :class:`~trlx_tpu_torch.serving.supervisor.ServingSupervisor` turns each
-into a restart that replays every request. Generation islands
-(:meth:`attach_island`) come with the fleet slice.
+into a restart that replays every request.
+
+Generation islands (:meth:`attach_island`, :class:`~trlx_tpu_torch.serving.island.GenerationIsland`):
+every :meth:`step` first touches the island's round gate (serializing
+against a chunk install of the
+:class:`~trlx_tpu_torch.rollout.broadcast.ChunkedParameterPublisher`),
+polls for a newly committed broadcast and installs it through
+:meth:`set_params` (one prefix-cache flush per version, between rounds,
+never torn), and reports the round's busy interval to the island's ledger.
+In a fleet (:class:`~trlx_tpu_torch.fleet.FleetRouter`) each replica writes
+its gauges under ``serving/replica/<seat>/`` (``gauge_prefix``) and tags
+its typed errors with its seat (``replica_id``); a retired replica drops
+its trunk and pools (:meth:`release_device_state`).
 
 Request flights (:mod:`trlx_tpu_torch.obs.flight`): besides the
 scheduler's lifecycle events, the engine journals each chunk append
@@ -144,6 +155,33 @@ def _ngram_propose(ctx: np.ndarray, k: int, max_order: int, pad_token: int) -> n
     return out
 
 
+def pack_targets(rows: np.ndarray, lens: np.ndarray, P: int, block_size: int, max_blocks: int,
+                 shared: bool = True):
+    """(pool positions, source rows) of a prefill pack: the flat pool slot
+    (``block * block_size + offset``) of every non-padding position of a
+    left-padded ``[n, P]`` wave, and its index into the wave's ``n * P``
+    positions. With ``shared`` (prefix caching on), rows whose prompts share
+    a cached prefix block name the same slots, and their values differ in
+    the last bits (each row computed them at its own padding). A CUDA
+    ``index_put_`` with repeated indices keeps an arbitrary one, so two
+    identical runs could serve different prefix K/V; each slot is therefore
+    written once, by the last row that names it (what a sequential CPU
+    scatter keeps). Without prefix caching no two rows share a block and
+    the positions are returned as they are."""
+    pos = np.arange(P)[None, :] - (P - lens[:, None])  # logical position, <0 on padding
+    keep = pos >= 0
+    pos_c = np.clip(pos, 0, max_blocks * block_size - 1)
+    blk = np.take_along_axis(rows, pos_c // block_size, axis=1)
+    dest = (blk * block_size + pos_c % block_size).reshape(-1)
+    src = np.flatnonzero(keep.reshape(-1))
+    dest = dest[src]
+    if not shared:
+        return dest.astype(np.int64), src.astype(np.int64)
+    _, last_rev = np.unique(dest[::-1], return_index=True)
+    last = np.sort(len(dest) - 1 - last_rev)
+    return dest[last].astype(np.int64), src[last].astype(np.int64)
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card: with no CUDA the caller must ask for the
     CPU explicitly (``device="cpu"``); nothing falls back silently."""
@@ -207,6 +245,8 @@ class ServingEngine:
         spec_ngram: int = 3,
         prefill_chunk: int = 0,
         tenants: Optional[TenantRegistry] = None,
+        gauge_prefix: str = GAUGE_PREFIX,
+        replica_id: Optional[int] = None,
         device=None,
     ):
         """``trunk`` is a ``TransformerLM`` (its config decides the KV dtype
@@ -222,7 +262,11 @@ class ServingEngine:
         into per-round verify appends interleaved with decode (0 =
         whole-prompt bucketed prefill). ``policy`` installs deadlines,
         shedding and KV-pressure preemption; ``tenants`` the tenancy
-        registry (module docs); ``None`` keeps each pass a no-op."""
+        registry (module docs); ``None`` keeps each pass a no-op.
+        ``gauge_prefix`` namespaces every gauge the engine writes (and the
+        prefix ``close()`` clears): a fleet gives each replica
+        ``serving/replica/<i>/``. ``replica_id`` tags typed errors with the
+        raising replica (None outside a fleet)."""
         self.spec_k = int(spec_k)
         self.spec_ngram = int(spec_ngram)
         self.prefill_chunk = int(prefill_chunk)
@@ -247,9 +291,12 @@ class ServingEngine:
         self.pad_token_id = int(pad_token_id)
         self.gen_kwargs = dict(gen_kwargs or {})
         self.min_new_tokens = int(min_new_tokens)
-        self.gauge_prefix = GAUGE_PREFIX
-        # typed errors name the raising replica; a lone engine is none
-        self.replica_id = None
+        self.gauge_prefix = str(gauge_prefix)
+        self.replica_id = None if replica_id is None else int(replica_id)
+        # the generation island (attach_island) and the broadcast version
+        # installed from it; -1 before the first swap or with no island
+        self._island = None
+        self._island_version = -1
 
         self.allocator = PagedBlockAllocator(
             self.num_blocks, self.block_size, prefix_caching=prefix_caching
@@ -371,15 +418,13 @@ class ServingEngine:
         pools IN PLACE (``cont``: k/v [n,Hkv,P,D], scales [n,Hkv,P,1];
         ``rows`` [n, MB] block-table rows; ``lens`` [n] prompt lengths).
         Padding positions are dropped. Rewriting a shared prefix block stores
-        the values it already holds (same tokens, same weights)."""
+        the values it already holds (same tokens, same weights), up to the
+        rounding of the row that computed them: each pool position is written
+        once (:func:`pack_targets`)."""
         n, P = rows.shape[0], cont["k"][0].shape[2]
-        BS = self.block_size
-        pos = np.arange(P)[None, :] - (P - lens[:, None])  # logical position, <0 on padding
-        keep = pos >= 0
-        pos_c = np.clip(pos, 0, self.max_blocks_per_seq * BS - 1)
-        blk = np.take_along_axis(rows, pos_c // BS, axis=1)
-        flat = self._to_device((blk * BS + pos_c % BS)[keep].astype(np.int64))
-        src = self._to_device(keep.reshape(-1))
+        dest, src = pack_targets(rows, lens, P, self.block_size, self.max_blocks_per_seq,
+                                 shared=self.allocator.prefix_caching)
+        flat, src = self._to_device(dest), self._to_device(src)
         for key in self._pool_keys:
             for pool, cl in zip(self.cache[key], cont[key]):
                 if key.endswith("_scale"):
@@ -432,12 +477,33 @@ class ServingEngine:
         return self.scheduler.cancel(uid)
 
     def attach_island(self, island) -> None:
-        raise NotImplementedError("generation islands come with the fleet slice")
+        """Run this engine as a generation island
+        (:class:`~trlx_tpu_torch.serving.island.GenerationIsland`): every
+        :meth:`step` touches the island's round gate, polls its publisher for
+        a newly committed chunked broadcast, installs it through
+        :meth:`set_params` (one prefix-cache flush per version, between
+        rounds) and reports the round's busy interval to the island's ledger.
+
+        Called only on a quiescent engine: at wiring time before the first
+        step, or by the supervisor on a freshly built successor before it
+        adopts the replay state."""
+        self._island = island
+        self._island_version = -1
 
     @property
     def serving_version(self) -> int:
-        """The broadcast version served: -1, no island is attached."""
-        return -1
+        """The broadcast version the engine serves (-1 before the first
+        island swap, or with no island attached)."""
+        return self._island_version
+
+    def release_device_state(self) -> None:
+        """Drop the trunk and the KV pools (a retired fleet replica): the
+        host-side scheduler and allocator stay readable for the fleet's
+        counters, and the device memory returns to the caching allocator
+        once nothing else holds the tensors. The engine cannot step again."""
+        with self._lock:
+            self.trunk = None
+            self.cache = None
 
     def set_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Swap the weights (a ``state_dict``). Cached prefix K/V was computed
@@ -784,7 +850,22 @@ class ServingEngine:
     def step(self) -> List[Request]:
         """One engine round: admissions (bucketed prefill), one chunk per
         mid-prefill slot, then one decode (or verify) round. Returns requests
-        finished during the round."""
+        finished during the round. With an island attached the round
+        boundary is also the weight-swap point: the gate touch waits out an
+        in-flight chunk install, and a committed broadcast is installed
+        before (never during) the round."""
+        island = self._island
+        t_round0 = 0.0
+        if island is not None:
+            gate = island.round_gate
+            gate.acquire()
+            gate.release()
+            upd = island.poll_swap(self._island_version)
+            if upd is not None:
+                version, params = upd
+                self.set_params(params)  # one prefix-cache flush per version
+                self._island_version = version
+            t_round0 = time.monotonic()
         with self._lock:
             if chaos.should_fail("serving-wedge"):
                 # a wedged device loop: no progress, no exception, the lock
@@ -807,6 +888,8 @@ class ServingEngine:
                     if self.tenants is not None:
                         self._tenant_latency.setdefault(req.tenant_id, deque(maxlen=512)).append(req.latency_s)
                         self._class_latency.setdefault(req.slo_class, deque(maxlen=512)).append(req.latency_s)
+        if island is not None:
+            island.note_round(t_round0, time.monotonic())
         return finished
 
     def begin_drain(self, shed_pending: bool = True) -> None:

@@ -96,6 +96,7 @@ class ServingSupervisor:
         self._engine = engine_factory()
         self._params = None
         self._params_set = False
+        self._island = None
         self._draining = False
         self.restarts = 0
         self.restart_history: List[Dict[str, Any]] = []
@@ -163,8 +164,15 @@ class ServingSupervisor:
         engine.set_params(params)
 
     def attach_island(self, island) -> None:
-        """Generation islands come with the fleet slice (the engine raises)."""
-        self.engine.attach_island(island)
+        """Attach the generation island, remembered so every restarted
+        generation is re-attached: the successor's first round re-polls the
+        island's publisher and installs the newest committed broadcast (its
+        swap cursor starts at -1, so recovery is a fresh install, never a
+        torn one)."""
+        with self._lock:
+            self._island = island
+            engine = self._engine
+        engine.attach_island(island)
 
     @property
     def serving_version(self) -> int:
@@ -218,6 +226,7 @@ class ServingSupervisor:
             old = self._engine
             params_set = self._params_set
             params = self._params
+            island = self._island
             draining = self._draining
         gauges.set(old.gauge_prefix + "restarts", float(n))
         if n > self.max_restarts:
@@ -257,6 +266,8 @@ class ServingSupervisor:
         new = self._factory()
         if params_set:
             new.set_params(params)
+        if island is not None:
+            new.attach_island(island)
         new.adopt(state)
         if draining:
             # mid-drain restart: keep rejecting new submits, but do NOT shed

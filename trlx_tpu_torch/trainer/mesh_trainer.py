@@ -110,8 +110,6 @@ def check_port_config(config: TRLConfig) -> None:
     later slice of the port brings, naming that slice."""
     t, m, mesh = config.train, config.model, config.mesh
     later = [
-        (t.islands.enabled, "train.islands", "serving-fleet slice"),
-        (t.serving_fleet.enabled, "train.serving_fleet", "serving-fleet slice"),
         (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
         (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
         (mesh.remat != "none", f"mesh.remat={mesh.remat!r}", "training-memory slice"),

@@ -48,9 +48,20 @@ call starts as soon as the engine finishes it, scoring runs in
 microbuckets while the rest of the batch decodes, and the first epoch's
 learner batches are staged on the device before the phase ends.
 
+Serving across engines: ``train.serving_fleet`` puts N supervised replicas
+behind a :class:`~trlx_tpu_torch.fleet.FleetRouter` (replica ``i`` samples
+from ``seed + 17 + i``, so a fleet of one is the bare engine), with the
+:class:`~trlx_tpu_torch.fleet.FleetAutoscaler` observing after every
+generation when ``autoscale`` is on. ``train.islands`` (with async rollouts
+and the engine) makes the engine a
+:class:`~trlx_tpu_torch.serving.GenerationIsland`: the learner publishes
+through a :class:`~trlx_tpu_torch.rollout.ChunkedParameterPublisher` that
+shares the island's round gate, the engine swaps each committed version at
+its own round boundaries (the producer installs nothing), and the train
+step and the publish are the learner island's busy intervals.
+
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
-seq2seq models, peft, the island split (``train.islands``) and the serving
-fleet (``train.serving_fleet``).
+seq2seq models and peft.
 """
 
 import copy
@@ -67,6 +78,7 @@ import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.ppo_types import PPORLBatch, PPORLElement
+from trlx_tpu_torch.fleet import FleetAutoscaler, fleet_factory
 from trlx_tpu_torch.methods.ppo import PPOConfig
 from trlx_tpu_torch.models.policy import (
     CausalLMWithValueHead,
@@ -79,11 +91,13 @@ from trlx_tpu_torch.obs import span
 from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.obs.overlap import OverlapWindow
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
+from trlx_tpu_torch.parallel.mesh import carve_islands
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage, ppo_collate_fn
 from trlx_tpu_torch.resilience.chaos import chaos
 from trlx_tpu_torch.resilience.quarantine import ExperienceQuarantine, chaos_corrupt_elements
 from trlx_tpu_torch.rollout import (
     AsyncRolloutEngine,
+    ChunkedParameterPublisher,
     ExperienceQueue,
     ParameterPublisher,
     ProducerSupervisor,
@@ -93,6 +107,7 @@ from trlx_tpu_torch.rollout import (
 )
 from trlx_tpu_torch.serving import (
     GenerationClient,
+    GenerationIsland,
     ServingEngine,
     ServingResiliencePolicy,
     ServingSupervisor,
@@ -170,6 +185,10 @@ class PPOTrainer(MeshRLTrainer):
         self.last_overlap = None
         # the snapshot the engine holds (async: installed only when it changes)
         self._serving_param_ref = None
+        # train.serving_fleet's autoscaler (None: no fleet, or autoscale off)
+        self._serving_autoscaler = None
+        # train.islands: the engine as the generation island (async only)
+        self._island = None
 
         # async rollouts (train.async_rollouts), started in prepare_learning:
         # the producer engine, its copy of the policy and its sampling stream
@@ -365,7 +384,9 @@ class PPOTrainer(MeshRLTrainer):
         # supervised restarts
         tenants = svt.build_registry() if svt.enabled else None
 
-        def build_engine():
+        def build_engine(replica_seat=0):
+            # each fleet seat samples from its own stream; seat 0 keeps the
+            # single-engine seed, so a fleet of one is the bare engine
             with torch.device(self.device):
                 trunk = TransformerLM(trunk_config)
             return ServingEngine(
@@ -382,7 +403,7 @@ class PPOTrainer(MeshRLTrainer):
                 gen_kwargs=gen_kwargs,
                 min_new_tokens=self._serving_min_new,
                 prefix_caching=cfg.prefix_caching,
-                seed=self.config.train.seed + 17,
+                seed=self.config.train.seed + 17 + replica_seat,
                 policy=policy,
                 spec_k=cfg.spec_k,
                 spec_ngram=cfg.spec_ngram,
@@ -391,17 +412,33 @@ class PPOTrainer(MeshRLTrainer):
                 device=self.device,
             )
 
-        if svr.enabled:
+        svf = self.config.train.serving_fleet
+        supervision = dict(
+            max_restarts=svr.max_restarts,
+            backoff_base_s=svr.restart_backoff_base_s,
+            backoff_max_s=svr.restart_backoff_max_s,
+            wedge_timeout_s=svr.wedge_timeout_s,
+            diagnostics_dir=svr.diagnostics_dir or os.path.join(self.config.train.checkpoint_dir, "diagnostics"),
+        )
+        if svf.enabled:
+            # N supervised replicas behind the prefix-affinity router; a
+            # replica's death re-routes its requests through the supervisor's
+            # export / adopt seam
+            self._serving_engine = fleet_factory(build_engine, svf, **supervision)
+            if svf.autoscale:
+                self._serving_autoscaler = FleetAutoscaler(
+                    self._serving_engine,
+                    min_replicas=svf.min_replicas,
+                    max_replicas=svf.max_replicas,
+                    scale_up_pending_per_slot=svf.scale_up_pending_per_slot,
+                    scale_down_occupancy=svf.scale_down_occupancy,
+                    breach_rounds=svf.breach_rounds,
+                    cooldown_rounds=svf.cooldown_rounds,
+                )
+        elif svr.enabled:
             # a crash or wedge rebuilds the engine with the same arguments and
             # replays every accepted request
-            self._serving_engine = ServingSupervisor(
-                build_engine,
-                max_restarts=svr.max_restarts,
-                backoff_base_s=svr.restart_backoff_base_s,
-                backoff_max_s=svr.restart_backoff_max_s,
-                wedge_timeout_s=svr.wedge_timeout_s,
-                diagnostics_dir=svr.diagnostics_dir or os.path.join(self.config.train.checkpoint_dir, "diagnostics"),
-            )
+            self._serving_engine = ServingSupervisor(build_engine, **supervision)
         else:
             self._serving_engine = build_engine()
         self._serving_client = GenerationClient(self._serving_engine)
@@ -410,22 +447,34 @@ class PPOTrainer(MeshRLTrainer):
             f"blocks={self._serving_engine.num_blocks}, int8_kv={trunk_config.kv_cache_quant}, "
             f"impl={cfg.attention_impl}, spec_k={cfg.spec_k}, prefill_chunk={cfg.prefill_chunk}, "
             f"resilience={'on' if svr.enabled else 'off'}, tenancy={'on' if svt.enabled else 'off'}, "
-            f"stream_overlap={'on' if cfg.stream_overlap else 'off'}"
+            f"stream_overlap={'on' if cfg.stream_overlap else 'off'}, "
+            f"fleet={svf.num_replicas if svf.enabled else 'off'}"
         )
+
+    @staticmethod
+    def _trunk_state(params):
+        """The trunk's ``state_dict`` inside the policy's full one (the
+        ``transformer.`` keys, prefix stripped): what the engine serves."""
+        prefix = "transformer."
+        return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
 
     def _serving_generate(self, prompts, params=None):
         """The engine's replacement for ``self.generate`` in rollouts: the
         same ``(sequences, response_mask, pad_len)`` contract. ``params`` (a
         published snapshot of the trained state) is installed in the engine
         when it is not the snapshot the engine holds; the engine flushes its
-        prefix cache then."""
-        if params is not None and params is not self._serving_param_ref:
-            prefix = "transformer."
-            self._serving_engine.set_params({k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)})
+        prefix cache then. With an island the install is skipped: the engine
+        swaps to the newest committed broadcast at its own round boundaries,
+        and the producer's snapshot stays the behavior-scoring policy."""
+        if self._island is None and params is not None and params is not self._serving_param_ref:
+            self._serving_engine.set_params(self._trunk_state(params))
             self._serving_param_ref = params
         # the engine's rounds end in host fetches: the span times the decode
         with self.obs.span("generate"):
-            return self._serving_client.generate_batch(prompts, self._serving_max_new)
+            out = self._serving_client.generate_batch(prompts, self._serving_max_new)
+        if self._serving_autoscaler is not None:
+            self._serving_autoscaler.observe()
+        return out
 
     def on_learn_end(self):
         """Stop and join the rollout producer (no thread left, whatever path
@@ -440,6 +489,12 @@ class PPOTrainer(MeshRLTrainer):
                 logger.info(f"async rollout engine stopped: {self.rollout_engine_summary}")
             except Exception as e:
                 logger.warning(f"async rollout engine teardown: {type(e).__name__}: {e}")
+        island, self._island = self._island, None
+        if island is not None:
+            # the final numbers before the prefix-aware gauge clear
+            logger.info(f"generation island closed: {island.summary()}")
+            island.close()
+        self._serving_autoscaler = None
         serving, self._serving_engine, self._serving_client = self._serving_engine, None, None
         if serving is not None:
             logger.info(f"serving engine closed: {serving.summary()}")
@@ -773,6 +828,8 @@ class PPOTrainer(MeshRLTrainer):
                 harvest()
         self._serving_engine.note_overlap(window.decode_busy_s, window.overlapped_s)
         self._serving_engine.export_gauges()
+        if self._serving_autoscaler is not None:
+            self._serving_autoscaler.observe()
         self.last_overlap = {"decode_busy_s": window.decode_busy_s, "overlapped_s": window.overlapped_s,
                              "work_s": window.work_s, "fraction": window.fraction,
                              "experience_s": time.perf_counter() - t_phase}
@@ -912,7 +969,29 @@ class PPOTrainer(MeshRLTrainer):
         ``train.self_healing``, a supervisor over engine generations that
         share the queue, the publisher and the accountant)."""
         cfg = self._async_cfg
-        publisher = ParameterPublisher()
+        icfg = self.config.train.islands
+        if icfg.enabled and self._serving_engine is None:
+            logger.warning(
+                "train.islands requires train.serving (the generation island IS the continuous-batching "
+                "engine): running the monolithic publish path"
+            )
+        if icfg.enabled and self._serving_engine is not None:
+            # the placement is logged, as the reference's; the port runs both
+            # islands on self.device, so that is the carve it logs (shared)
+            placement = carve_islands(icfg.gen_devices, devices=[self.device])
+            # published snapshots are the policy's full state_dict; the engine
+            # serves the trunk's keys
+            self._island = GenerationIsland(self._serving_engine, param_selector=self._trunk_state)
+            publisher = ChunkedParameterPublisher(
+                chunk_layers=icfg.chunk_layers, chunk_pause_s=icfg.chunk_pause_s, round_gate=self._island.round_gate
+            )
+            self._island.bind_publisher(publisher)
+            logger.info(
+                f"generation island carved: gen={len(placement.gen)} device(s), learn={len(placement.learn)} "
+                f"device(s), shared={placement.shared}, chunk_layers={icfg.chunk_layers}"
+            )
+        else:
+            publisher = ParameterPublisher()
         self._policy_version = publisher.publish(self.model.state_dict())
         with torch.device(self.device):
             self._producer_model = CausalLMWithValueHead(
@@ -1032,6 +1111,11 @@ class PPOTrainer(MeshRLTrainer):
         self._fast_forward_prompt_stream()
         self._resolve_serving()
         self._async_cfg = self._resolve_async_config()
+        if self.config.train.islands.enabled and self._async_cfg is None:
+            logger.warning(
+                "train.islands requires train.async_rollouts (the bounded experience queue is the island seam): "
+                "islands disabled"
+            )
         if self._async_cfg is not None:
             self._start_async_engine()
             self._refill_store_async()
@@ -1085,12 +1169,19 @@ class PPOTrainer(MeshRLTrainer):
         dbatch = self._pop_staged_learn(batch)
         if dbatch is None:
             dbatch = batch.to(self.device)
+        t_learn0 = time.monotonic()
         out = self._train_step_fn(dbatch)
+        if self._island is not None:
+            # the step's stats reached the host: the interval covers the
+            # forward and backward (the optimizer update may still be queued)
+            self._island.note_learn(t_learn0, time.monotonic())
+            self._island.export_gauges()
         out.update(self.rollout_stats)
         if self._engine is not None:
             out.update(gauges.snapshot("rollout/"))
         if self._serving_client is not None:
             out.update(gauges.snapshot("serving/"))
+            out.update(gauges.snapshot("fleet/"))
         return out
 
     def post_backward_callback(self):
@@ -1099,8 +1190,13 @@ class PPOTrainer(MeshRLTrainer):
         steps, so the producer's next chunk samples the newest policy."""
         self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
         if self._engine is not None and self.iter_count % max(1, self._async_cfg.publish_interval) == 0:
+            t_pub0 = time.monotonic()
             self._policy_version = self._engine.publisher.publish(self.model.state_dict())
             gauges.set("rollout/learner_version", float(self._policy_version))
+            if self._island is not None:
+                # the broadcast runs on the learner's thread: learner busy
+                # time, even though the chunks hide under decode
+                self._island.note_learn(t_pub0, time.monotonic())
 
     def post_epoch_callback(self, epoch: int):
         """Discard stale rollouts and collect fresh experience (async: drain

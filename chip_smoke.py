@@ -273,6 +273,34 @@ Phases, each printing one JSON line:
                   within 64 MiB after every leg; K1–K5 counted from 0 over
                   the card legs and replayed at every recorded shape.
 
+33. ``families_seq2seq`` — a main path: the optimizers, bloom, seq2seq and
+                  the sweep (:func:`phase_families_seq2seq`). ``optimizers``:
+                  the ``train`` phase's gpt2 trainer at full width with
+                  each of sgd (momentum 0.9, decay 0.01), lion, adafactor
+                  and rmsprop, one experience phase and 2 steps: losses
+                  finite, parameters moved, the optimizer state's bytes
+                  equal to the formula of ``fs_state_bytes_formula``, K2
+                  and K3 once per layer and microbatch, every recorded
+                  K1/K2/K3 shape held against the plain versions; each
+                  then on the card against the CPU with ``train_parity``'s
+                  trainer and limits. ``bloom``: PPO on bloom-560m (24
+                  layers, hidden 1024, vocab 250880, bf16 compute) for 2
+                  steps through the padded generate, ``save_pretrained``
+                  -> ``load_pretrained`` logits ``torch.equal``, and a
+                  narrow f32 bloom on the card against the CPU (greedy
+                  tokens identical, logits within 1e-5). ``seq2seq``: at
+                  t5-small widths SFT 4 steps with its export reloaded to
+                  ``torch.equal`` logits, PPO 2 steps with a full frozen
+                  reference and 2 with the decoder-top branch, ILQL 4
+                  steps, greedy decode with the int8 decoder cache against
+                  bf16 (every differing row at a near tie, 2e-2), and a
+                  2 + 2-layer f32 PPO on the card against the CPU. K1–K5
+                  launch 0 times in the bloom and T5 legs (the reference
+                  keeps ALiBi and T5 off its kernels). ``sweep``: ``python
+                  -m trlx_tpu_torch.sweep scripts/torch_ppo_randomwalks.py``
+                  over a 2-trial grid: both trials recorded with their
+                  metric, and the report written.
+
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the result
@@ -295,7 +323,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability", "production_serving", "serving_fleet")
+          "observability", "production_serving", "serving_fleet", "families_seq2seq")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1724,10 +1752,21 @@ def ppo_config(**train_over):
     return TRLConfig.update(base, train_over)
 
 
-def parity_trainer(device, state=None, **over):
+def with_optimizer(cfg, name, kwargs):
+    """``cfg`` with its optimizer block replaced by ``name`` and ``kwargs``
+    (``TRLConfig.update`` would merge the kwargs into the old ones)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    d = cfg.to_dict()
+    d["optimizer"] = dict(name=name, kwargs=dict(kwargs))
+    return TRLConfig.from_dict(d)
+
+
+def parity_trainer(device, state=None, optimizer=None, **over):
     """PPOTrainer at 2 layers / hidden 64 (4 heads of 16), f32, greedy, on
     ``device``; ``state`` replaces the seeded initial weights; ``over``
-    merges more dotted config overrides."""
+    merges more dotted config overrides; ``optimizer`` = (name, kwargs)
+    replaces the optimizer block (:func:`with_optimizer`)."""
     import tempfile
 
     from trlx_tpu_torch.models.policy import branch_param_subtree
@@ -1748,6 +1787,8 @@ def parity_trainer(device, state=None, **over):
         "optimizer.kwargs": dict(lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6),
         "scheduler.kwargs": dict(T_max=10, eta_min=1e-4),
     })
+    if optimizer is not None:
+        cfg = with_optimizer(cfg, *optimizer)
     trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
     if state is not None:
         trainer.model.load_state_dict(state)
@@ -1785,7 +1826,7 @@ def phase_hydra_parity(ctx):
         raise AssertionError(f"hydra PPOTrainer on the card disagrees with the CPU trainer: {report}")
 
 
-def train_parity_report(over, tie_dtype=None):
+def train_parity_report(over, tie_dtype=None, optimizer=None):
     """(report, ok) of parity_trainer (with ``over``) on the card against the
     CPU: prepare_learning (one experience phase), then 2 optimizer steps.
     Tokens must be identical — or, with ``tie_dtype``, may split at a near
@@ -1800,11 +1841,11 @@ def train_parity_report(over, tie_dtype=None):
     import numpy as np
     import torch
 
-    cpu = parity_trainer("cpu", **over)
+    cpu = parity_trainer("cpu", optimizer=optimizer, **over)
     # sharper logits than the 0.02 init, so greedy ties are far above float noise
     state = {k: v * 3 if v.is_floating_point() else v for k, v in cpu.model.state_dict().items()}
-    cpu = parity_trainer("cpu", state, **over)
-    card = parity_trainer("cuda", state, **over)
+    cpu = parity_trainer("cpu", state, optimizer=optimizer, **over)
+    card = parity_trainer("cuda", state, optimizer=optimizer, **over)
     runs, blocks = {}, []
     for name, tr in (("cuda", card), ("cpu", cpu)):
         tr.prepare_learning()
@@ -5489,6 +5530,574 @@ def phase_serving_fleet(ctx):
     check_main_path_shapes(ctx, seen, "serving_fleet", ("flash_fwd", "flash_bwd", "paged_decode", "paged_verify"))
 
 
+# ------------------------------------------------ families and seq2seq (the optimizers, bloom, T5, the sweep)
+
+#: the optimizer legs: each registry name with its kwargs beside lr
+FS_OPTIMIZERS = {"sgd": dict(momentum=0.9, weight_decay=0.01), "lion": {}, "adafactor": {}, "rmsprop": {}}
+FS_OPT_LR = 1e-5
+#: the bloom leg: 8 prompts of <= 32 bytes, 32 new tokens, 2 steps of 4 rows in 2 microbatches
+FS_BLOOM_PROMPTS, FS_BLOOM_NEW, FS_BLOOM_B, FS_BLOOM_MB = 8, 32, 4, 2
+#: the narrow bloom of the card-against-CPU check
+FS_NARROW_BLOOM = dict(num_layers=2, hidden_size=64, num_heads=4, vocab_size=1024, max_position_embeddings=128)
+#: the T5 legs: t5-small widths (T5Config()), bytes tokenizer
+FS_T5_PROMPTS, FS_T5_NEW, FS_T5_B, FS_T5_MB = 16, 32, 8, 4
+#: the T5 of the card-against-CPU check: 2 + 2 layers, f32
+FS_NARROW_T5 = dict(vocab_size=512, d_model=64, d_kv=16, d_ff=128, num_layers=2, num_decoder_layers=2, num_heads=4,
+                    relative_attention_num_buckets=8)
+
+
+def fs_state_bytes_formula(name, params):
+    """The optimizer state's bytes from the trained parameters' shapes (f32
+    state): SGD with momentum, Lion and RMSprop one moment per parameter;
+    Adafactor a row and a column factor (numel / largest dim + numel /
+    second-largest dim) for every tensor whose two largest dims are both
+    >= 128, a full second moment for every other."""
+    total = 0
+    for p in params:
+        n = p.numel()
+        if name == "adafactor":
+            dims = sorted(p.shape)
+            total += n // dims[-1] + n // dims[-2] if len(dims) >= 2 and dims[-2] >= 128 else n
+        else:
+            total += n
+    return 4 * total
+
+
+def fs_optimizer_run(ctx, name, device="cuda"):
+    """The train phase's gpt2 trainer at full width with optimizer ``name``:
+    one experience phase (64 rollouts of 128 sampled tokens), then 2 learner
+    steps of 32 rollouts in 2 microbatches; launch counts from 0 over the
+    run. Returns (report, checks, launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.utils.loading import get_trainer
+    from trlx_tpu_torch.utils.optim import state_bytes
+
+    cfg = with_optimizer(full_width_train_config(tempfile.mkdtemp(prefix=f"chip_smoke_fs_{name}_")), name,
+                         dict(lr=FS_OPT_LR, **FS_OPTIMIZERS[name]))
+    trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
+    trainer.add_prompt_pipeline(PromptPipeline(byte_prompts(64, 64, 128, SEED + 1), TRAIN_P, trainer.tokenizer))
+    params0 = [p.detach().clone() for p in trainer.trainable_params]
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.prepare_learning()
+    sync()
+    experience_s = time.perf_counter() - t0
+    stats, step_s = [], []
+    for batch in list(trainer.create_train_dataloader())[:2]:
+        t1 = time.perf_counter()
+        stats.append(trainer.train_step(batch))
+        sync()
+        step_s.append(time.perf_counter() - t1)
+    launches = _kernels.launches()
+    L, num_mb = trainer.model_config.num_layers, TRAIN_B // TRAIN_MB
+    got_bytes, want_bytes = state_bytes(trainer.optimizer), fs_state_bytes_formula(name, trainer.trainable_params)
+    report = {
+        "optimizer": name, "kwargs": dict(lr=FS_OPT_LR, **FS_OPTIMIZERS[name]), "card": ctx.get("smi"),
+        "experience_s": experience_s, "step_s": step_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
+        "state_bytes": got_bytes, "state_bytes_formula": want_bytes,
+        "trained_params": sum(p.numel() for p in trainer.trainable_params),
+        "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats], "launches": launches,
+    }
+    checks = {
+        "2 learner steps": len(stats) == 2,
+        "losses finite": all(np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/")),
+        "params moved": any(not torch.equal(a, p.detach()) for a, p in zip(params0, trainer.trainable_params)),
+        "state bytes == formula": got_bytes == want_bytes,
+        "K2 and K3 once per layer and microbatch": launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 2 * L * num_mb,
+        "K1 launched": launches["flash_fwd"] > 0,
+        "no paged kernel": launches["paged_decode"] == launches["paged_verify"] == 0,
+    }
+    shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+    del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    return report, checks, launches
+
+
+def fs_optimizers(ctx):
+    """Leg ``optimizers``: :func:`fs_optimizer_run` for sgd (momentum 0.9,
+    decay 0.01), lion, adafactor and rmsprop, every recorded K1/K2/K3 shape
+    held against the plain versions, then each on the card against the CPU
+    (``train_parity``'s 2-layer f32 trainer at lr 1e-3: tokens identical,
+    experience within 1e-4, losses/* within 1e-3 relative)."""
+    seen, checks, launches = {}, {}, {}
+    restore = record_kernel_shapes(seen)
+    try:
+        for name in FS_OPTIMIZERS:
+            report, run_checks, run_launches = fs_optimizer_run(ctx, name)
+            emit({"phase": "families_seq2seq", "leg": "optimizers", **report})
+            checks.update({f"{name}: {k}": ok for k, ok in run_checks.items()})
+            launches = {k: launches.get(k, 0) + v for k, v in run_launches.items()}
+    finally:
+        restore()
+    check_main_path_shapes(ctx, seen, "families_seq2seq", ("flash_fwd", "flash_bwd"))
+    for name, kwargs in FS_OPTIMIZERS.items():
+        report, ok = train_parity_report({}, optimizer=(name, dict(lr=1e-3, **kwargs)))
+        emit({"phase": "families_seq2seq", "leg": "optimizers", "check": f"{name} card against CPU", **report})
+        checks[f"{name}: card against CPU (tokens, experience 1e-4, losses 1e-3)"] = ok
+    return checks, launches
+
+
+def fs_bloom_config(ckpt_dir, model_path="bigscience/bloom-560m", overrides=None):
+    """PPO on bloom: the preset's widths (24 layers, hidden 1024, 16 heads,
+    vocab 250880) unless ``overrides``, flash attention asked for (ALiBi
+    keeps it off the kernel), bf16 compute, f32 params, the bytes tokenizer."""
+    return ppo_config(**{
+        "model.model_path": model_path, "model.model_overrides": {"attention_impl": "flash", **(overrides or {})},
+        "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32", "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": 32 + FS_BLOOM_NEW, "train.batch_size": FS_BLOOM_B, "train.minibatch_size": FS_BLOOM_MB,
+        "train.total_steps": 2, "train.eval_interval": 100, "train.checkpoint_interval": 100,
+        "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
+        "train.checkpoint_dir": ckpt_dir, "train.seed": SEED,
+        "method.num_rollouts": FS_BLOOM_PROMPTS, "method.chunk_size": FS_BLOOM_PROMPTS, "method.ppo_epochs": 1,
+        "method.gen_kwargs": dict(max_new_tokens=FS_BLOOM_NEW, do_sample=True, top_k=0, top_p=1.0),
+    })
+
+
+def fs_drive_ppo(trainer, prompts, steps=2, sync=None):
+    """prepare_learning (one experience phase) on ``prompts``, then
+    ``steps`` learner steps; returns (stats, seconds)."""
+    from trlx_tpu_torch.pipeline import PromptPipeline
+
+    trainer.add_prompt_pipeline(PromptPipeline(prompts, 64, trainer.tokenizer))
+    t0 = time.perf_counter()
+    trainer.prepare_learning()
+    stats = [trainer.train_step(b) for b in list(trainer.create_train_dataloader())[:steps]]
+    if sync is not None:
+        sync()
+    return stats, time.perf_counter() - t0
+
+
+def fs_bloom(ctx, device="cuda", model_path="bigscience/bloom-560m", overrides=None):
+    """Leg ``bloom``: PPO on bloom-560m (seed-0 random init) for 2 learner
+    steps through the padded generate; ``save_pretrained`` then
+    ``load_pretrained`` gives logits ``torch.equal`` to the trained trunk's;
+    no kernel launches (ALiBi runs on the plain path, as the JAX package
+    routes it); then a narrow f32 bloom on the card against the CPU: greedy
+    tokens identical, logits within 1e-5."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.models.hf_loading import load_pretrained
+    from trlx_tpu_torch.models.presets import PRESETS
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.ops.generation import generate, left_pad_batch
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fs_bloom_")
+    _kernels.reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = get_trainer("PPOTrainer")(config=fs_bloom_config(tmp + "/ckpts", model_path, overrides),
+                                        reward_fn=byte_share_reward, device=device)
+    build_s = time.perf_counter() - t0
+    params0 = [p.detach().clone() for p in trainer.trainable_params[:4]]
+    stats, run_s = fs_drive_ppo(trainer, byte_prompts(FS_BLOOM_PROMPTS, 8, 32, SEED + 7), sync=sync)
+    t1 = time.perf_counter()
+    trainer.save_pretrained(tmp + "/hf")
+    cfg2, state2, family = load_pretrained(tmp + "/hf", {"compute_dtype": trainer.compute_dtype,
+                                                          "attention_impl": "flash"})
+    with torch.device(device):
+        reloaded = TransformerLM(cfg2)
+    reloaded.load_state_dict(state2)
+    ids, mask = left_pad_batch([np.asarray(trainer.tokenizer(p).input_ids, np.int32)
+                                for p in byte_prompts(4, 8, 32, SEED + 8)], trainer.tokenizer.pad_token_id, 32)
+    ids_t, mask_t = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+    with torch.no_grad():
+        same_logits = torch.equal(reloaded(ids_t, mask_t)[0], trainer.model.transformer(ids_t, mask_t)[0])
+    export_s = time.perf_counter() - t1
+    launches = _kernels.launches()
+    report = {"model": "bloom-560m widths" if overrides is None else overrides, "card": ctx.get("smi"),
+              "params": sum(p.numel() for p in trainer.model.parameters()), "build_s": build_s,
+              "experience_and_2_steps_s": run_s, "export_reload_s": export_s,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
+              "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats],
+              "launches": launches, "family": family}
+    checks = {
+        "2 learner steps, losses finite": len(stats) == 2 and all(
+            np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/")),
+        "params moved": any(not torch.equal(a, p.detach()) for a, p in zip(params0, trainer.trainable_params)),
+        "exported bloom reloads (model_type bloom, ALiBi)": family == "bloom" and cfg2.pos_embedding == "alibi",
+        "reloaded logits torch.equal": same_logits,
+        "K1-K5 launched 0 times": not any(launches.values()),
+    }
+    del trainer, reloaded
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the narrow bloom: card against the CPU, f32, the same weights
+    cfg = PRESETS["bloom"].replace(**FS_NARROW_BLOOM, compute_dtype=torch.float32, attention_impl="flash")
+    cpu = TransformerLM(cfg).init_params(SEED)
+    cpu.load_state_dict({k: v * 3 for k, v in cpu.state_dict().items()})  # sharper logits: no greedy near-ties
+    with torch.device(device):
+        card = TransformerLM(cfg)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(4, 17))).astype(np.int32) for _ in range(8)]
+    ids, mask = left_pad_batch(prompts, 0, 16)
+    outs, logits = [], []
+    for model, dev in ((cpu, "cpu"), (card, device)):
+        def step(i, m, pos, cache, model=model):
+            out, hidden, _, cache = model(i, m, pos, cache)
+            return out, hidden, cache
+
+        ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+        out = generate(step, lambda b, s, model=model: model.init_cache(b, s), ids_t, mask_t, None, 16,
+                       do_sample=False, pad_token_id=0)
+        outs.append(out["sequences"].cpu())
+        with torch.no_grad():
+            logits.append(model(ids_t, mask_t)[0].cpu())
+    valid = torch.from_numpy(mask).bool()
+    err = (logits[0] - logits[1])[valid].abs().max().item()
+    checks.update({"narrow bloom: greedy tokens identical": torch.equal(outs[0], outs[1]),
+                   "narrow bloom: logits within 1e-5": err <= 1e-5})
+    report["narrow_bloom"] = {"max_abs_err": err, "tokens": list(outs[1].shape)}
+    launches = _kernels.launches()
+    checks["K1-K5 launched 0 times (narrow bloom too)"] = not any(launches.values())
+    emit({"phase": "families_seq2seq", "leg": "bloom", **report})
+    return checks, launches
+
+
+def fs_t5_config(base, ckpt_dir, overrides=None, compute="bfloat16", **over):
+    """A seq2seq (T5) config: t5-small widths from the seed unless
+    ``overrides``, bf16 compute (``compute``), f32 params, the bytes
+    tokenizer."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    return TRLConfig.update(base, {
+        "model.model_path": "t5-small", "model.model_arch_type": "seq2seq", "model.num_layers_unfrozen": -1,
+        "model.model_overrides": overrides, "mesh.compute_dtype": compute, "mesh.param_dtype": "float32",
+        "tokenizer.tokenizer_path": "bytes", "train.seq_length": 128, "train.batch_size": FS_T5_B,
+        "train.minibatch_size": FS_T5_MB, "train.total_steps": 4, "train.eval_interval": 100,
+        "train.checkpoint_interval": 100, "train.save_best": False, "train.save_optimizer": False,
+        "train.tracker": None, "train.checkpoint_dir": ckpt_dir, "train.seed": SEED, **over,
+    })
+
+
+def fs_t5_ppo(ctx, device, n_unfrozen, overrides=None, compute="bfloat16", state=None, lr=1e-5, greedy=False):
+    """A seq2seq PPOTrainer (``state`` replaces its initial weights), one
+    experience phase of FS_T5_PROMPTS prompts and FS_T5_NEW new tokens, 2
+    learner steps. Returns (trainer, stats, seconds, initial params)."""
+    import tempfile
+
+    import torch
+
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+    from trlx_tpu_torch.models.policy import t5_branch_param_subtree
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = fs_t5_config(default_ppo_config(), tempfile.mkdtemp(prefix="chip_smoke_fs_t5ppo_"), overrides, compute, **{
+        "model.num_layers_unfrozen": n_unfrozen, "method.num_rollouts": FS_T5_PROMPTS,
+        "method.chunk_size": FS_T5_PROMPTS, "method.ppo_epochs": 1,
+        "method.gen_kwargs": dict(max_new_tokens=FS_T5_NEW, do_sample=not greedy, top_k=0, top_p=1.0),
+        "optimizer.kwargs": dict(lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6),
+    })
+    trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
+    if state is not None:
+        trainer.model.load_state_dict(state)
+        if trainer.frozen_branch is not None:
+            trainer.frozen_branch.load_state_dict(t5_branch_param_subtree(
+                trainer.model.t5.state_dict(), trainer.branch_start, trainer.model_config))
+        else:
+            trainer.ref_model.load_state_dict(trainer.model.t5.state_dict())
+    params0 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    sync = torch.cuda.synchronize if device != "cpu" else None
+    stats, seconds = fs_drive_ppo(trainer, byte_prompts(FS_T5_PROMPTS, 16, 64, SEED + 11), sync=sync)
+    return trainer, stats, seconds, params0
+
+
+def fs_seq2seq(ctx, device="cuda", overrides=None):
+    """Leg ``seq2seq`` at t5-small widths (seed-0 random init, bf16
+    compute): seq2seq SFT 4 steps, exported (``save_pretrained`` -> the T5
+    HF layout) and reloaded to logits ``torch.equal`` to the trained
+    model's; PPO 2 steps with a full frozen reference, then 2 with
+    ``num_layers_unfrozen=1`` (the decoder-top branch: the encoder, the
+    embedding, the lower decoder blocks and the branch bit-identical after);
+    ILQL 4 steps; greedy decode with the int8 decoder KV cache against
+    bf16 (every row that differs splits at a near tie of the bf16 model:
+    <= 2e-2 x max(1, |logit|)); then PPO at 2 + 2 layers f32 on the card
+    against the CPU (tokens identical, experience 1e-4, losses 1e-3
+    relative). No kernel launches anywhere (T5 attends on the plain path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.data.default_configs import default_ilql_config, default_sft_config
+    from trlx_tpu_torch.models.hf_loading import load_pretrained_seq2seq
+    from trlx_tpu_torch.models.t5 import T5LM
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.ops.generation import generate_seq2seq, left_pad_batch
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    finite = lambda stats: all(np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/"))
+    losses = lambda stats: [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats]
+    _kernels.reset_launches()
+    report, checks = {"card": ctx.get("smi")}, {}
+
+    # SFT, 4 steps, then the export round trip
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fs_t5_")
+    sft = get_trainer("SFTTrainer")(config=fs_t5_config(default_sft_config(), tmp + "/sft", overrides, **{
+        "optimizer.kwargs": dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6)}), device=device)
+    t0 = time.perf_counter()
+    sft.make_experience(byte_dialogues(48, SEED + 12), sft.config.train.seq_length)
+    sft.prepare_learning()
+    stats = []
+    while len(stats) < 4:
+        for batch in sft.create_train_dataloader():
+            stats.append(sft.train_step(batch))
+            if len(stats) == 4:
+                break
+    sync()
+    report["sft"] = {"s": time.perf_counter() - t0, "losses": losses(stats),
+                     "params": sum(p.numel() for p in sft.model.parameters())}
+    sft.save_pretrained(tmp + "/hf")
+    cfg2, state2 = load_pretrained_seq2seq(tmp + "/hf", {"compute_dtype": sft.compute_dtype})
+    with torch.device(device):
+        reloaded = T5LM(cfg2)
+    reloaded.load_state_dict(state2)
+    ids, mask = left_pad_batch([np.asarray(sft.tokenizer(p).input_ids, np.int32)
+                                for p in byte_prompts(4, 8, 32, SEED + 13)], 0, 32)
+    ids_t, mask_t = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+    dec = ids_t[:, :16]
+    with torch.no_grad():
+        same = torch.equal(reloaded(ids_t, mask_t, dec)[0], sft.model.t5(ids_t, mask_t, dec)[0])
+    checks.update({"sft: 4 steps, losses finite": len(stats) == 4 and finite(stats),
+                   "sft: exported T5 reloads to torch.equal logits": same})
+    del sft, reloaded
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # PPO, full frozen reference then the decoder-top branch
+    for n_unfrozen in (-1, 1):
+        trainer, stats, seconds, params0 = fs_t5_ppo(ctx, device, n_unfrozen, overrides)
+        state = trainer.model.state_dict()
+        moved = [k for k in state if not torch.equal(params0[k], state[k])]
+        report[f"ppo_unfrozen_{n_unfrozen}"] = {"s": seconds, "losses": losses(stats), "moved_tensors": len(moved),
+                                                "reference": "decoder-top branch" if trainer.frozen_branch
+                                                is not None else "full copy"}
+        checks[f"ppo (num_layers_unfrozen {n_unfrozen}): 2 steps, losses finite"] = len(stats) == 2 and finite(stats)
+        checks[f"ppo (num_layers_unfrozen {n_unfrozen}): params moved"] = bool(moved)
+        if n_unfrozen > 0:
+            L = trainer.model_config.num_decoder_layers
+            trained = [k for k in state if k.startswith((f"t5.decoder_blocks_{L - 1}.", "t5.decoder_ln.",
+                                                         "v_head_mlp."))]
+            checks["ppo hydra: exactly the top block, the final norm and the value head moved"] = (
+                sorted(moved) == sorted(k for k in trained if k in moved) and bool(moved))
+            checks["ppo hydra: the branch is decoder block L-1, the norm and the tied head"] = (
+                trainer.branch_start == L - 1 and trainer.ref_model is None)
+        del trainer
+
+    # ILQL, 4 steps
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fs_t5ilql_")
+    ilql = get_trainer("ILQLTrainer")(config=fs_t5_config(default_ilql_config(), tmp, overrides, **{
+        "method.steps_for_target_q_sync": 2,
+        "method.gen_kwargs": dict(max_new_tokens=FS_T5_NEW, top_k=20, beta=4.0, temperature=1.0)}), device=device)
+    rng = np.random.default_rng(SEED + 14)
+    t0 = time.perf_counter()
+    ilql.make_experience(byte_dialogues(32, SEED + 15), rng.normal(size=32).tolist(), ilql.config.train.seq_length)
+    ilql.prepare_learning()
+    stats = []
+    while len(stats) < 4:
+        for batch in ilql.create_train_dataloader():
+            stats.append(ilql.train_step(batch))
+            ilql.iter_count += 1
+            ilql.post_backward_callback()
+            if len(stats) == 4:
+                break
+    samples, resp_mask, pad_len = ilql.generate([np.asarray(ilql.tokenizer(p).input_ids, np.int32)
+                                                 for p in byte_prompts(8, 8, 32, SEED + 16)], eval_mode=True)
+    sync()
+    report["ilql"] = {"s": time.perf_counter() - t0, "losses": losses(stats), "eval_tokens": int(resp_mask.sum())}
+    checks["ilql: 4 steps, losses finite"] = len(stats) == 4 and finite(stats)
+    checks["ilql: advantage-shaped eval decode, start token first"] = bool(
+        pad_len == 1 and (samples[:, 0] == ilql.decoder_start_token_id).all() and resp_mask.sum() > 0)
+    del ilql
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the int8 decoder KV cache against bf16, greedy, the same weights
+    from trlx_tpu_torch.models.t5 import T5Config
+
+    base = T5Config(compute_dtype=torch.bfloat16) if overrides is None else T5Config(**overrides)
+    with torch.device(device):
+        bf = T5LM(base).init_params(SEED)
+        q8 = T5LM(base.replace(kv_cache_quant=True))
+    q8.load_state_dict(bf.state_dict())
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [rng.integers(3, 259, int(rng.integers(8, 33))).astype(np.int32) for _ in range(16)]
+    ids, mask = left_pad_batch(prompts, 0, 32)
+    ids_t, mask_t = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+    rows, step_logits = [], []
+    for model, record in ((bf, True), (q8, False)):
+        seen_logits = []
+
+        def keep(hidden, logits, prev, seen_logits=seen_logits, record=record):
+            if record:
+                seen_logits.append(logits.float())
+            return logits
+
+        out = generate_seq2seq(model.encode, model.precompute_cross_kv, model.decode, model.init_cache, ids_t, mask_t,
+                               None, FS_T5_NEW, do_sample=False, logits_processor=keep)
+        rows.append(out["sequences"].cpu().numpy())
+        step_logits.append(seen_logits)
+    differ = [int(b) for b in np.nonzero((rows[0] != rows[1]).any(axis=1))[0]]
+    splits = []
+    for b in differ:
+        j = int(np.nonzero(rows[0][b] != rows[1][b])[0][0])  # slot j = decode step j - 1
+        lg = step_logits[0][j - 1][b]
+        a, c = int(rows[0][b, j]), int(rows[1][b, j])
+        gap = float(lg[a] - lg[c])
+        splits.append({"row": b, "position": j, "gap": gap, "tol": 2e-2 * max(1.0, abs(float(lg[a])))})
+    report["int8_kv"] = {"rows": len(prompts), "rows_differing": len(differ), "splits": splits}
+    checks["int8 KV: every differing row splits at a near tie"] = all(s["gap"] <= s["tol"] for s in splits)
+    del bf, q8
+
+    # PPO at 2 + 2 layers f32: the card against the CPU from the same weights
+    from trlx_tpu_torch.models.policy import Seq2SeqLMWithValueHead
+
+    narrow = dict(FS_NARROW_T5, compute_dtype="float32")
+    # T5's init already gives logits of std ~1 (the embedding's std is 1); scaling
+    # it up as the gpt2 parity does would put scores at ~1e3 (no 1/sqrt(d)), where
+    # f32's summation order alone moves the softmax by 1e-4
+    state = Seq2SeqLMWithValueHead(T5Config(**FS_NARROW_T5, compute_dtype=torch.float32)).init_params(SEED).state_dict()
+    runs = {}
+    for dev in (device, "cpu"):
+        trainer, stats, _, _ = fs_t5_ppo(ctx, dev, -1, narrow, "float32", state=state, lr=1e-3, greedy=True)
+        runs[dev] = (list(trainer.store.history), stats)
+        del trainer
+    (ce, cs), (pe, ps) = runs[device], runs["cpu"]
+    same_tokens = len(ce) == len(pe) and all(np.array_equal(a.response_tensor, b.response_tensor)
+                                             for a, b in zip(ce, pe))
+    elem_err = max((float(np.abs(getattr(a, f) - getattr(b, f)).max()) for a, b in zip(ce, pe)
+                    for f in ("logprobs", "values", "rewards")), default=float("nan")) if same_tokens else None
+    loss_ok = same_tokens and len(cs) == len(ps) == 2 and all(
+        abs(x[k] - y[k]) <= 1e-3 * abs(y[k]) + 1e-6 for x, y in zip(cs, ps) for k in y if k.startswith("losses/"))
+    report["card_vs_cpu"] = {"identical_tokens": same_tokens, "max_element_abs_err": elem_err,
+                             "losses_card": losses(cs), "losses_cpu": losses(ps)}
+    checks.update({"card vs CPU (2+2 layers, f32): greedy tokens identical": same_tokens,
+                   "card vs CPU: experience within 1e-4": elem_err is not None and elem_err <= 1e-4,
+                   "card vs CPU: losses within 1e-3 relative": loss_ok})
+    launches = _kernels.launches()
+    checks["K1-K5 launched 0 times"] = not any(launches.values())
+    report["launches"] = launches
+    emit({"phase": "families_seq2seq", "leg": "seq2seq", **report})
+    if on_card:
+        torch.cuda.empty_cache()
+    return checks, launches
+
+
+#: the sweep leg's 2-trial grid; each trial is the randomwalks recipe, cut short
+FS_SWEEP_GRID = """tune_config:
+  mode: "max"
+  metric: "reward/mean"
+  search_alg: "grid"
+method.init_kl_coef:
+  strategy: "choice"
+  values: [0.0, 0.01]
+pretrain_steps:
+  strategy: "choice"
+  values: [20]
+train.total_steps:
+  strategy: "choice"
+  values: [4]
+train.eval_interval:
+  strategy: "choice"
+  values: [2]
+train.tracker:
+  strategy: "choice"
+  values: [null]
+train.checkpoint_dir:
+  strategy: "choice"
+  values: ["{ckpt}"]
+"""
+
+
+def fs_sweep(ctx, device="cuda"):
+    """Leg ``sweep``: ``python -m trlx_tpu_torch.sweep
+    scripts/torch_ppo_randomwalks.py`` over a 2-trial grid (20 SFT steps, 4
+    PPO steps, evals at 0, 2 and 4), one trial at a time on the card: the
+    results jsonl holds both trials, each with rc 0 and its reward/mean, and
+    the markdown report is written."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fs_sweep_")
+    grid = FS_SWEEP_GRID.replace("{ckpt}", tmp + "/ckpts")
+    if device == "cpu":
+        grid += 'device:\n  strategy: "choice"\n  values: ["cpu"]\n'
+    with open(tmp + "/grid.yml", "w") as f:
+        f.write(grid)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trlx_tpu_torch.sweep", "scripts/torch_ppo_randomwalks.py", "--config",
+         tmp + "/grid.yml", "--output", tmp + "/results.jsonl"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    records = []
+    if os.path.exists(tmp + "/results.jsonl"):
+        with open(tmp + "/results.jsonl") as f:
+            records = [json.loads(line) for line in f]
+    report_written = os.path.exists(tmp + "/results.md")
+    emit({"phase": "families_seq2seq", "leg": "sweep", "card": ctx.get("smi"), "s": seconds,
+          "returncode": proc.returncode, "records": records, "stdout_tail": proc.stdout[-1500:],
+          "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
+    shutil.rmtree(tmp, ignore_errors=True)
+    checks = {
+        "sweep exits 0": proc.returncode == 0,
+        "both trials recorded, rc 0, with reward/mean": len(records) == 2 and all(
+            r["returncode"] == 0 and "reward/mean" in r.get("metrics", {}) for r in records),
+        "each trial reported its evals": len(records) == 2 and all(r["num_reports"] >= 2 for r in records),
+        "the report is written": report_written,
+    }
+    return checks, {}
+
+
+def phase_families_seq2seq(ctx):
+    """A main path: the optimizers, ALiBi and bloom, seq2seq and the sweep
+    (:func:`fs_optimizers`, :func:`fs_bloom`, :func:`fs_seq2seq`,
+    :func:`fs_sweep`). Each leg counts launches from 0: K1, K2 and K3 in
+    the optimizer legs (the gpt2 trainer), exactly 0 of every kernel in the
+    bloom and T5 legs."""
+    from trlx_tpu_torch.ops import _kernels
+
+    legs, failed, total = {}, [], {name: 0 for name in _kernels.launches()}
+    for name, leg in (("optimizers", fs_optimizers), ("bloom", fs_bloom), ("seq2seq", fs_seq2seq),
+                      ("sweep", fs_sweep)):
+        t0 = time.perf_counter()
+        checks, launches = leg(ctx)
+        legs[name] = {"s": time.perf_counter() - t0, "launches": launches}
+        total = {k: total[k] + launches.get(k, 0) for k in total}
+        emit({"phase": "families_seq2seq", "leg": name, "checks": checks})
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    ctx["families_seq2seq_launches"] = total
+    emit({"phase": "families_seq2seq", "legs": legs, "launches": total, "card": ctx.get("smi")})
+    if failed:
+        raise AssertionError(f"families_seq2seq phase: {failed}")
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -5669,7 +6278,8 @@ def kernel_table(ctx):
              "async": ctx["async_launches"], "resilience": ctx["resilience_launches"],
              "observability": ctx["observability_launches"],
              "production_serving": ctx["production_serving_launches"],
-             "serving_fleet": ctx["serving_fleet_launches"]}
+             "serving_fleet": ctx["serving_fleet_launches"],
+             "families_seq2seq": ctx["families_seq2seq_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -5718,7 +6328,7 @@ def main(argv=None) -> int:
                "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
                "observability": phase_observability, "production_serving": phase_production_serving,
-               "serving_fleet": phase_serving_fleet}
+               "serving_fleet": phase_serving_fleet, "families_seq2seq": phase_families_seq2seq}
     phase_env(ctx)
     try:
         for name in phases:

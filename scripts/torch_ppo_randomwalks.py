@@ -10,6 +10,17 @@ Usage (on a CUDA host; ``--device cpu`` runs the plain CPU path)::
 
     python3 scripts/torch_ppo_randomwalks.py [--pretrain-steps 300] [--ppo-steps 120]
         [--num-layers-unfrozen 2] [--async-max-staleness 1] [--device cpu]
+    python3 scripts/torch_ppo_randomwalks.py '{"method.init_kl_coef": 0.01, "pretrain_steps": 50}'
+
+The second form is the sweep's trial contract (``python -m
+trlx_tpu_torch.sweep scripts/torch_ppo_randomwalks.py --config ...``): a
+JSON object of dotted hparams merged into the example's ``default_config``
+as ``examples/randomwalks/ppo_randomwalks.py``'s ``main`` merges them
+(``pretrain_steps`` and ``pretrain_lr`` set the SFT stage, ``device`` the
+device; none of the three is a config field), then the example's two
+stages run as it runs them, with no gate. Under ``TRLX_SWEEP`` the PPO
+trainer prints the ``SWEEP_METRIC`` / ``SWEEP_RESULT`` lines the sweep
+reads.
 
 Prints one JSON line: the eval ``reward/mean`` curve, the SFT stage's final
 loss, the seconds of each stage, and whether the first eval at or after
@@ -116,9 +127,10 @@ def recording(cls, name, sink):
         setattr(cls, name, original)
 
 
-def pretrain_on_walks(config, sample_walks, out_dir: str, steps: int, device=None, report=None) -> str:
+def pretrain_on_walks(config, sample_walks, out_dir: str, steps: int, device=None, report=None,
+                      lr: float = 1e-3) -> str:
     """The example's SFT warm start (``ppo_randomwalks.pretrain_on_walks``):
-    ``steps`` SFT steps at lr 1e-3 on the walks, every layer trained, then
+    ``steps`` SFT steps at ``lr`` on the walks, every layer trained, then
     ``save_pretrained``. Returns the exported directory; fills ``report``
     with the stage's seconds and first and final losses."""
     import trlx_tpu_torch
@@ -130,7 +142,7 @@ def pretrain_on_walks(config, sample_walks, out_dir: str, steps: int, device=Non
     d["method"] = SFTConfig(gen_kwargs=dict(max_new_tokens=9, top_k=1)).to_dict()
     d["train"].update(trainer="SFTTrainer", total_steps=steps, epochs=100, eval_interval=steps,
                       checkpoint_interval=10 * steps, checkpoint_dir=out_dir + "/sft_ckpts")
-    d["optimizer"]["kwargs"]["lr"] = 1e-3
+    d["optimizer"]["kwargs"]["lr"] = lr
     d["model"]["num_layers_unfrozen"] = -1
     t0 = time.perf_counter()
     with recording(SFTTrainer, "train_step", []) as losses:
@@ -200,7 +212,45 @@ def run_gate(pretrain_steps=300, ppo_steps=120, device=None, num_layers_unfrozen
     return report
 
 
+def config_from_hparams(hparams, alphabet: str):
+    """The sweep trial contract: (config, pretrain_steps, pretrain_lr,
+    device) from a dict of dotted hparams, as the example's ``main``:
+    ``pretrain_steps`` (default 300), ``pretrain_lr`` (1e-3) and ``device``
+    come out first, the rest merges into ``default_config``."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    hparams = dict(hparams)
+    pretrain_steps = int(hparams.pop("pretrain_steps", 300))
+    pretrain_lr = float(hparams.pop("pretrain_lr", 1e-3))
+    device = hparams.pop("device", None)
+    return TRLConfig.update(default_config(alphabet).to_dict(), hparams), pretrain_steps, pretrain_lr, device
+
+
+def run_trial(hparams) -> None:
+    """One sweep trial: the example's SFT warm start into the config's
+    checkpoint directory, then PPO from the export on the merged config."""
+    import trlx_tpu_torch
+    from examples.randomwalks import generate_random_walks
+
+    metric_fn, prompts, sample_walks, _, alphabet = generate_random_walks(seed=1002)
+    config, pretrain_steps, pretrain_lr, device = config_from_hparams(hparams, alphabet)
+    hf_dir = pretrain_on_walks(config, sample_walks, config.train.checkpoint_dir, pretrain_steps, device,
+                               lr=pretrain_lr)
+    config.model.model_path = hf_dir
+    config.model.model_overrides = None  # the architecture comes from the export's config.json
+    trlx_tpu_torch.train(
+        reward_fn=lambda samples, **kwargs: metric_fn(samples)["optimality"],
+        prompts=prompts, eval_prompts=prompts,
+        metric_fn=lambda samples, **kwargs: metric_fn(samples),
+        config=config, device=device,
+    )
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0].lstrip().startswith("{"):
+        run_trial(json.loads(argv[0]))
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pretrain-steps", type=int, default=300)
     ap.add_argument("--ppo-steps", type=int, default=120)

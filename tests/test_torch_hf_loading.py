@@ -1,7 +1,7 @@
 """Port parity for HF-format checkpoints: ``trlx_tpu_torch.models.hf_loading``
 against ``trlx_tpu.models.hf_loading`` and against ``transformers`` /
-``safetensors`` themselves, for the six families the port runs (gpt2,
-llama, gpt_neox, gptj, opt, gpt_bigcode) at the tiny sizes of
+``safetensors`` themselves, for the seven families the port runs (gpt2,
+llama, gpt_neox, gptj, opt, gpt_bigcode, bloom) at the tiny sizes of
 ``test_hf_parity.py``, all in f32:
 
 - a directory the JAX ``save_pretrained_hf`` wrote loads into the port with
@@ -17,8 +17,9 @@ llama, gpt_neox, gptj, opt, gpt_bigcode) at the tiny sizes of
 - the port's safetensors writer gives the library's bytes and reads back
   through ``safetensors.safe_open``; its reader reads library-written
   single, sharded and ``pytorch_model.bin`` checkpoints;
-- bloom and native-store directories raise naming their slices, and the
-  checkpoint path runs with ``transformers`` and ``safetensors`` blocked.
+- a bloom directory written by ``transformers`` loads to its logits, a
+  native-store directory raises naming its slice, and the checkpoint path
+  runs with ``transformers`` and ``safetensors`` blocked.
 """
 
 import dataclasses
@@ -37,7 +38,7 @@ import jax.numpy as jnp
 pytestmark = pytest.mark.torch_port
 
 ROOT = Path(__file__).resolve().parent.parent
-FAMILIES = ["gpt2", "llama", "gpt_neox", "gptj", "opt", "gpt_bigcode"]
+FAMILIES = ["gpt2", "llama", "gpt_neox", "gptj", "opt", "gpt_bigcode", "bloom"]
 TINY = dict(vocab=61, hidden=32, layers=2, heads=4, positions=64)
 LOGIT_TOL = dict(rtol=0, atol=1e-5)
 
@@ -252,10 +253,15 @@ def test_bloom_and_native_store_raise_naming_their_slice(tmp_path):
 
     from trlx_tpu_torch.models.hf_loading import load_pretrained
 
+    # bloom no longer raises: it loads as the other families (ALiBi ported)
     bloom = tmp_path / "bloom"
-    hf_model("bloom").save_pretrained(bloom)
-    with pytest.raises(NotImplementedError, match="model-families slice"):
-        load_pretrained(str(bloom))
+    hf = hf_model("bloom")
+    hf.save_pretrained(bloom)
+    model, model_type = port_model(str(bloom))
+    assert model_type == "bloom" and model.config.pos_embedding == "alibi"
+    with torch.no_grad():
+        ref = hf(torch.from_numpy(_ids())).logits.numpy()
+    np.testing.assert_allclose(port_logits(model), ref, atol=2e-3, rtol=1e-3)
     native = convert_hf_to_native(jax_export("gpt2", str(tmp_path / "gpt2")), str(tmp_path / "native"))
     with pytest.raises(NotImplementedError, match="scale-out slice"):
         load_pretrained(native)

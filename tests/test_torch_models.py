@@ -151,7 +151,7 @@ def test_paged_decode_token_by_token(family, quant):
 
 def test_unsupported_config_raises():
     for over in (dict(scan_layers=True), dict(attention_impl="ring"), dict(lora_r=4),
-                 dict(pos_embedding="alibi"), dict(peft_type="prefix"), dict(sequence_sharding=True)):
+                 dict(peft_type="prefix"), dict(sequence_sharding=True)):
         with pytest.raises(NotImplementedError):
             TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], **over))
 

@@ -4,9 +4,17 @@ tokenizer, greedy, 2 optimizer steps with an eval after each) print the same
 ``SWEEP_METRIC`` lines (same keys, same step numbers) and one
 ``SWEEP_RESULT`` line with the same keys; with ``TRLX_SWEEP_STOP_FILE``
 pointing at an existing file both stop at the same step, after printing
-the result line; without ``TRLX_SWEEP`` neither prints a sweep line."""
+the result line; without ``TRLX_SWEEP`` neither prints a sweep line.
+
+The sweep runner and the comparison harness: ``trlx_tpu_torch.sweep``
+draws the JAX runner's trials (grid and random, same seed) and, over a
+fake trial script, records the same ASHA decisions and trial records;
+``trlx_tpu_torch.reference.diff`` prints the JAX harness's line for the
+same two records; and ``scripts/torch_ppo_randomwalks.py``'s hparams
+argument changes the config as the JAX example's ``main`` does."""
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -130,3 +138,120 @@ def test_no_sweep_lines_without_the_env(tmp_path, capsys, monkeypatch):
     monkeypatch.delenv("TRLX_SWEEP", raising=False)
     _learn_port(tmp_path)
     assert _sweep_lines(capsys.readouterr().out) == ([], [])
+
+
+# ------------------------------------------------------- the sweep runner
+
+FAKE_TRIAL = """
+import json, os, sys, time
+hp = json.loads(sys.argv[1])
+stop = os.environ.get("TRLX_SWEEP_STOP_FILE")
+last = 0.0
+for step in range(1, 6):
+    last = hp["method.q"] * step
+    print("SWEEP_METRIC " + json.dumps({"step": step, "reward/mean": last}), flush=True)
+    time.sleep(0.05)
+    if stop and os.path.exists(stop):
+        break
+print("SWEEP_RESULT " + json.dumps({"reward/mean": last}), flush=True)
+"""
+
+GRID = {
+    "tune_config": {"search_alg": "grid"},
+    "train.seed": {"strategy": "choice", "values": [1, 2]},
+    "method.gamma": {"strategy": "choice", "values": [0.9, 0.99]},
+}
+RANDOM = {
+    "tune_config": {"search_alg": "random", "num_samples": 16},
+    "method.init_kl_coef": {"strategy": "loguniform", "values": [1e-4, 1e-1]},
+    "optimizer.kwargs.lr": {"strategy": "uniform", "values": [1e-5, 1e-3]},
+    "train.seed": {"strategy": "int", "values": [0, 100]},
+    "train.batch_size": {"strategy": "choice", "values": [8, 16]},
+}
+
+
+@pytest.mark.parametrize("sweep_config", [GRID, RANDOM], ids=["grid", "random"])
+def test_generate_trials_as_jax(sweep_config):
+    from trlx_tpu.sweep import generate_trials as jax_generate
+    from trlx_tpu_torch.sweep import generate_trials
+
+    for seed in (0, 1):
+        assert generate_trials(sweep_config, seed) == jax_generate(sweep_config, seed)
+
+
+def test_asha_run_records_as_jax(tmp_path):
+    """Sequential ASHA over the fake trial: the same early stops, reports,
+    metrics and return codes as the JAX runner (seconds aside), and both
+    reports name the stopped trials."""
+    from trlx_tpu import sweep as jsweep
+    from trlx_tpu_torch import sweep as tsweep
+
+    script = tmp_path / "fake_trial.py"
+    script.write_text(FAKE_TRIAL)
+    trials = [{"method.q": 2.0}, {"method.q": 1.0}, {"method.q": 0.1}]
+    records = []
+    for name, mod in (("jax", jsweep), ("port", tsweep)):
+        sched = mod.AshaScheduler("reward/mean", "max", grace_steps=1, eta=2)
+        out = str(tmp_path / f"{name}.jsonl")
+        with ThreadPoolExecutor(max_workers=1) as pool:  # the trial subprocesses get 60 s in all
+            got = pool.submit(mod.run_trials, str(script), trials, out, "reward/mean", "max", max_concurrent=1,
+                              scheduler=sched, report_path=str(tmp_path / f"{name}.md"),
+                              extra_env={"JAX_PLATFORMS": "cpu"}).result(timeout=60)
+        with open(out) as f:
+            assert [json.loads(line) for line in f] == got
+        records.append([{k: v for k, v in r.items() if k != "seconds"} for r in got])
+        assert "early-stopped" in (tmp_path / f"{name}.md").read_text()
+    assert records[1] == records[0]
+    assert [r["early_stopped"] for r in records[1]] == [False, True, True]
+
+
+def test_harness_diff_prints_the_jax_line(tmp_path, capsys):
+    from trlx_tpu import reference as jref
+    from trlx_tpu_torch import reference as tref
+
+    paths = []
+    for i, value in enumerate((0.85, 0.95)):
+        path = tmp_path / f"rw_{i}.json"
+        path.write_text(json.dumps({"rev": "HEAD", "tree_hash": f"{i}" * 40, "seconds": 1.0, "returncode": 0,
+                                    "metrics": {"metric": "reward/mean@gate", "value": value}}))
+        paths.append(str(path))
+    jref.diff(*paths)
+    want = capsys.readouterr().out
+    assert tref.diff(*paths) + "\n" == capsys.readouterr().out == want
+    assert want.startswith("reward/mean@gate: 0.85 (00000000) -> 0.95 (11111111)  x1.118")
+    report = {"gate_eval": [100, 0.9], "ok": True, "sft_seconds": 1.0, "ppo_seconds": 2.0}
+    assert tref.metrics_of(report)["value"] == 0.9 and tref.metrics_of({})["value"] is None
+
+
+def test_randomwalks_hparams_merge_as_the_jax_example():
+    """The trial contract of scripts/torch_ppo_randomwalks.py: the hparams
+    JSON changes exactly the fields the JAX example's main changes."""
+    import os
+    import sys
+
+    from examples.randomwalks import generate_random_walks
+    from examples.randomwalks.ppo_randomwalks import default_config as jax_default
+    from trlx_tpu.data.configs import TRLConfig as JaxConfig
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    try:
+        import torch_ppo_randomwalks as rw
+    finally:
+        sys.path.pop(0)
+    *_, alphabet = generate_random_walks(seed=1002)
+    hparams = {"method.init_kl_coef": 0.05, "optimizer.kwargs.lr": 2e-4, "train.seed": 1001,
+               "train.total_steps": 7, "pretrain_steps": 11, "pretrain_lr": 5e-4, "device": "cpu"}
+    config, steps, lr, device = rw.config_from_hparams(hparams, alphabet)
+    assert (steps, lr, device) == (11, 5e-4, "cpu")
+    base = rw.default_config(alphabet)
+    jax_cfg = JaxConfig.update(jax_default(alphabet).to_dict(), {k: v for k, v in hparams.items()
+                                                                 if k not in ("pretrain_steps", "pretrain_lr",
+                                                                              "device")})
+    for dotted in ("method.init_kl_coef", "optimizer.kwargs.lr", "train.seed", "train.total_steps"):
+        section, *rest = dotted.split(".")
+        got, want = getattr(config, section), getattr(jax_cfg, section)
+        for key in rest:
+            got, want = (got[key], want[key]) if isinstance(got, dict) else (getattr(got, key), getattr(want, key))
+        assert got == want == hparams[dotted]
+    assert config.method.gamma == base.method.gamma and config.train.batch_size == base.train.batch_size
+    assert rw.config_from_hparams({}, alphabet)[1:] == (300, 1e-3, None)

@@ -166,7 +166,6 @@ UNPORTED = [
     ("mesh.sequence_shard", True, "scale-out slice"),
     ("model.peft_config", {"r": 4}, "peft slice"),
     ("model.offload_ref", True, "training-memory slice"),
-    ("model.model_arch_type", "seq2seq", "seq2seq slice"),
     ("optimizer.name", "adamw_8bit_bnb", "int8 optimizer-state slice"),
     ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
 ]
@@ -196,6 +195,7 @@ PORTED = [
     ("train.serving_tenancy.enabled", True),
     ("train.serving_fleet.enabled", True),
     ("train.islands.enabled", True),
+    ("model.model_arch_type", "seq2seq"),
 ]
 
 
@@ -203,10 +203,11 @@ PORTED = [
 def test_ported_config_blocks_build(tmp_path, key, value):
     """The blocks that raised until the async / online slice, the
     resilience slice, the observability slice, the production-serving
-    slice and the serving-fleet slice build the CPU trainer
-    (``train.online`` with the GRPO method it belongs to; ``wandb``, not
-    installed, falls back to the jsonl tracker; the serving blocks with
-    ``train.serving`` on, the fleet resolving its replicas)."""
+    slice, the serving-fleet slice and the seq2seq slice build the CPU
+    trainer (``train.online`` with the GRPO method it belongs to; ``wandb``,
+    not installed, falls back to the jsonl tracker; the serving blocks with
+    ``train.serving`` on, the fleet resolving its replicas; seq2seq with a
+    tiny T5)."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.utils.loading import get_trainer
 
@@ -214,11 +215,18 @@ def test_ported_config_blocks_build(tmp_path, key, value):
     if key == "train.online.enabled":
         d["method"].update(name="GRPOConfig", group_size=2)
         d["train"].update(trainer="GRPOTrainer", online=dict(group_size=2))
+    if key == "model.model_arch_type":
+        d["model"]["model_overrides"] = dict(vocab_size=len(ALPHABET) + 3, d_model=32, d_kv=8, d_ff=64,
+                                             num_layers=2, num_decoder_layers=2, num_heads=4)
     over = {key: value}
     if key.startswith("train.serving"):
         over["train.serving.enabled"] = True
     cfg = TRLConfig.update(TRLConfig.from_dict(d), over)
     trainer = get_trainer(cfg.train.trainer)(config=cfg, reward_fn=reward_fn, device="cpu")
+    if key == "model.model_arch_type":
+        from trlx_tpu_torch.models.policy import Seq2SeqLMWithValueHead
+
+        assert trainer.is_seq2seq and isinstance(trainer.model, Seq2SeqLMWithValueHead)
     if key == "train.online.enabled":
         assert trainer.online_buffer is not None
     if key == "train.async_rollouts.length_bucket_lookahead":
@@ -263,8 +271,6 @@ def test_unported_training_rows_raise_naming_their_slice(tmp_path):
     from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
     from trlx_tpu_torch.utils.loading import get_trainer
 
-    from trlx_tpu_torch.data.default_configs import default_ilql_config
-
     # the GRPO rows resolve since the GRPO / online slice
     d = _config_dict(tmp_path)
     d["method"].update(name="GRPOConfig", group_size=2)
@@ -274,10 +280,6 @@ def test_unported_training_rows_raise_naming_their_slice(tmp_path):
     assert get_trainer("GRPOTrainer") is GRPOTrainer
     env = SyntheticEnvironment(vocab_size=len(ALPHABET) + 3, prompt_len=3, target_token=3)
     assert isinstance(trlx_tpu_torch.train(environment=env, prompts=PROMPTS, config=cfg, device="cpu"), GRPOTrainer)
-    ilql = TRLConfig.update(default_ilql_config(), {
-        "model.model_arch_type": "seq2seq", "tokenizer.tokenizer_path": f"char://{ALPHABET}"})
-    with pytest.raises(NotImplementedError, match="seq2seq slice"):
-        trlx_tpu_torch.train(samples=[["a", "b"]], rewards=[1.0], config=ilql, device="cpu")
     native = tmp_path / "native"
     native.mkdir()
     (native / "native_config.json").write_text("{}")

@@ -57,7 +57,8 @@ class ILQLConfig(MethodConfig):
 
     def loss(self, outputs, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """``outputs = (logits_at_actions, (qs, target_qs, vs))``; ``batch`` is
-        an :class:`~trlx_tpu_torch.data.ilql_types.ILQLBatch` of tensors.
+        an :class:`~trlx_tpu_torch.data.ilql_types.ILQLBatch` (or
+        ``ILQLSeq2SeqBatch``) of tensors.
 
         Shapes: qs / target_qs tuples of [B, A, V] at action positions; vs
         [B, A+1, 1] at state positions; ``batch.rewards`` [B, A];
@@ -68,8 +69,13 @@ class ILQLConfig(MethodConfig):
         terminal_mask = batch.dones[:, :-1].to(vs.dtype)
         n_nonterminal = torch.clamp(terminal_mask.sum(dtype=f32), min=1.0)
 
-        # the token taken at each action position: input_ids shifted left
-        actions = torch.gather(batch.input_ids[:, 1:], 1, batch.actions_ixs.long())
+        # the token taken at each action position: causal, input_ids shifted
+        # left and gathered at the actions; seq2seq, the decoder tokens after
+        # the first
+        if hasattr(batch, "decoder_input_ids"):
+            actions = batch.decoder_input_ids[:, 1:]
+        else:
+            actions = torch.gather(batch.input_ids[:, 1:], 1, batch.actions_ixs.long())
 
         Q = [_take(q, actions) for q in qs]
         targetQ = reduce(torch.minimum, [_take(q, actions).detach() for q in target_qs])

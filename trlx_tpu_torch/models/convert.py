@@ -1,6 +1,8 @@
 """Carry a JAX ``TransformerLM``, ``CausalLMWithValueHead`` (with its value
 branch, ``value_blocks_{i}`` and ``value_ln``) or ``CausalLMWithILQLHeads``
-(``ilql_heads``) parameter tree across to the port.
+(``ilql_heads``) parameter tree across to the port, and the seq2seq ones:
+a ``T5LM`` trunk, ``Seq2SeqLMWithValueHead`` (``t5``, ``v_head_mlp``) and
+``Seq2SeqLMWithILQLHeads`` (``t5``, ``ilql_heads``).
 
 The port's modules keep the flax names (``layers_{i}``, ``kernel [in, out]``,
 ``bias``, ``scale``, ``embedding``), so conversion is a flatten of the nested
@@ -54,15 +56,36 @@ def params_from_jax(params: Mapping[str, Any], config: TransformerConfig) -> Dic
     return _state_from_tree(params, TransformerLM(config), config.param_dtype)
 
 
-def policy_params_from_jax(tree: Mapping[str, Any], config: TransformerConfig) -> Dict[str, torch.Tensor]:
+def t5_params_from_jax(params: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """Nested numpy parameter tree of a JAX ``T5LM`` -> ``state_dict`` for
+    :class:`~trlx_tpu_torch.models.t5.T5LM` in ``config.param_dtype``."""
+    from trlx_tpu_torch.models.t5 import T5LM
+
+    return _state_from_tree(params, T5LM(config), config.param_dtype)
+
+
+def policy_params_from_jax(tree: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
     """The numpy tree of a JAX policy -> ``state_dict`` for its port in
     ``config.param_dtype``: ``CausalLMWithValueHead`` (``transformer``,
     ``v_head``, and a value branch ``value_blocks_{i}`` / ``value_ln`` when
     the tree has one) or, for a tree with ``ilql_heads``,
-    ``CausalLMWithILQLHeads`` (one or two Q heads, as the tree has). Raises
-    on any leaf that does not match."""
-    from trlx_tpu_torch.models.policy import CausalLMWithILQLHeads, CausalLMWithValueHead
+    ``CausalLMWithILQLHeads`` (one or two Q heads, as the tree has); a tree
+    with a ``t5`` trunk (``config`` a ``T5Config``) gives
+    ``Seq2SeqLMWithValueHead`` or ``Seq2SeqLMWithILQLHeads``. Raises on any
+    leaf that does not match."""
+    from trlx_tpu_torch.models.policy import (
+        CausalLMWithILQLHeads,
+        CausalLMWithValueHead,
+        Seq2SeqLMWithILQLHeads,
+        Seq2SeqLMWithValueHead,
+    )
 
+    if "t5" in tree:
+        if "ilql_heads" in tree:
+            model = Seq2SeqLMWithILQLHeads(config, two_qs="q_heads_1" in tree["ilql_heads"])
+        else:
+            model = Seq2SeqLMWithValueHead(config)
+        return _state_from_tree(tree, model, config.param_dtype)
     if "ilql_heads" in tree:
         model = CausalLMWithILQLHeads(config, two_qs="q_heads_1" in tree["ilql_heads"])
     else:

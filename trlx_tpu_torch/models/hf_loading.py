@@ -8,16 +8,18 @@ A model path is one of:
   a sharded ``model.safetensors.index.json``, or ``pytorch_model.bin[.index.json]``):
   the config converts through :func:`~trlx_tpu_torch.models.presets.from_hf_config`
   and the weights through the per-family converters (gpt2, llama, gpt_neox,
-  gptj, opt, gpt_bigcode), copied from the JAX package;
+  gptj, opt, gpt_bigcode, bloom), copied from the JAX package;
 - a local directory without ``config.json``: ``FileNotFoundError``;
 - anything else, such as a hub name: the family preset at its published
   widths with random weights, which the caller initialises from a seed.
 
 The port reads and writes safetensors and ``config.json`` itself
 (:mod:`~trlx_tpu_torch.models.safetensors_io`, :func:`make_hf_config`): it
-needs neither ``transformers`` nor ``safetensors``. A bloom directory (ALiBi)
-and the JAX package's native pre-converted store raise
-``NotImplementedError`` naming their slices.
+needs neither ``transformers`` nor ``safetensors``. Bloom (ALiBi) loads as
+the other families do. T5 checkpoints load through
+:func:`load_pretrained_seq2seq` and export through ``save_pretrained_hf(...,
+"t5", ...)``. The JAX package's native pre-converted store raises
+``NotImplementedError`` naming its slice.
 
 Parameter trees here are nested dicts of numpy arrays in the flax layout
 (``layers_{i}.attn.q_proj.kernel``, kernels ``[in, out]``), which are the
@@ -381,6 +383,68 @@ def _opt_from_params(p, c):
     return sd
 
 
+def _bloom_to_params(sd, c):
+    """Bloom: ALiBi, the embedding LayerNorm, and a fused qkv interleaved per
+    head (``[heads, 3, head_dim, hidden]`` rows)."""
+    pre0 = "transformer." if "transformer.word_embeddings.weight" in sd else ""
+    p = {
+        "embed_tokens": {"embedding": sd[f"{pre0}word_embeddings.weight"]},
+        "embed_layernorm": _ln(sd, f"{pre0}word_embeddings_layernorm"),
+        "ln_f": _ln(sd, f"{pre0}ln_f"),
+    }
+    heads, hd, H = c.num_heads, c.dim_per_head, c.hidden_size
+    for i in range(c.num_layers):
+        pre = f"{pre0}h.{i}"
+        w = sd[f"{pre}.self_attention.query_key_value.weight"].reshape(heads, 3, hd, H)
+        b = sd[f"{pre}.self_attention.query_key_value.bias"].reshape(heads, 3, hd)
+        mk_w = lambda j: w[:, j].reshape(heads * hd, H).T
+        mk_b = lambda j: b[:, j].reshape(heads * hd)
+        p[f"layers_{i}"] = {
+            "ln_1": _ln(sd, f"{pre}.input_layernorm"),
+            "ln_2": _ln(sd, f"{pre}.post_attention_layernorm"),
+            "attn": {
+                "q_proj": {"kernel": mk_w(0), "bias": mk_b(0)},
+                "k_proj": {"kernel": mk_w(1), "bias": mk_b(1)},
+                "v_proj": {"kernel": mk_w(2), "bias": mk_b(2)},
+                "o_proj": _linear(sd, f"{pre}.self_attention.dense"),
+            },
+            "mlp": {
+                "up_proj": _linear(sd, f"{pre}.mlp.dense_h_to_4h"),
+                "down_proj": _linear(sd, f"{pre}.mlp.dense_4h_to_h"),
+            },
+        }
+    return p
+
+
+def _bloom_from_params(p, c):
+    sd = {
+        "transformer.word_embeddings.weight": p["embed_tokens"]["embedding"],
+        "transformer.word_embeddings_layernorm.weight": p["embed_layernorm"]["scale"],
+        "transformer.word_embeddings_layernorm.bias": p["embed_layernorm"]["bias"],
+        "transformer.ln_f.weight": p["ln_f"]["scale"],
+        "transformer.ln_f.bias": p["ln_f"]["bias"],
+    }
+    heads, hd, H = c.num_heads, c.dim_per_head, c.hidden_size
+    for i in range(c.num_layers):
+        L = p[f"layers_{i}"]
+        pre = f"transformer.h.{i}"
+        sd[f"{pre}.input_layernorm.weight"] = L["ln_1"]["scale"]
+        sd[f"{pre}.input_layernorm.bias"] = L["ln_1"]["bias"]
+        sd[f"{pre}.post_attention_layernorm.weight"] = L["ln_2"]["scale"]
+        sd[f"{pre}.post_attention_layernorm.bias"] = L["ln_2"]["bias"]
+        ws = [L["attn"][k]["kernel"].T.reshape(heads, hd, H) for k in ("q_proj", "k_proj", "v_proj")]
+        bs = [L["attn"][k]["bias"].reshape(heads, hd) for k in ("q_proj", "k_proj", "v_proj")]
+        sd[f"{pre}.self_attention.query_key_value.weight"] = np.stack(ws, axis=1).reshape(3 * H, H)
+        sd[f"{pre}.self_attention.query_key_value.bias"] = np.stack(bs, axis=1).reshape(3 * H)
+        sd[f"{pre}.self_attention.dense.weight"] = L["attn"]["o_proj"]["kernel"].T
+        sd[f"{pre}.self_attention.dense.bias"] = L["attn"]["o_proj"]["bias"]
+        sd[f"{pre}.mlp.dense_h_to_4h.weight"] = L["mlp"]["up_proj"]["kernel"].T
+        sd[f"{pre}.mlp.dense_h_to_4h.bias"] = L["mlp"]["up_proj"]["bias"]
+        sd[f"{pre}.mlp.dense_4h_to_h.weight"] = L["mlp"]["down_proj"]["kernel"].T
+        sd[f"{pre}.mlp.dense_4h_to_h.bias"] = L["mlp"]["down_proj"]["bias"]
+    return sd
+
+
 def _bigcode_to_params(sd, c):
     """GPTBigCode: multi-query attention — c_attn packs [q(H) | k(hd) | v(hd)].
 
@@ -458,6 +522,7 @@ CONVERTERS = {
     "gptj": (_gptj_to_params, _gptj_from_params),
     "opt": (_opt_to_params, _opt_from_params),
     "gpt_bigcode": (_bigcode_to_params, _bigcode_from_params),
+    "bloom": (_bloom_to_params, _bloom_from_params),
 }
 
 
@@ -605,11 +670,6 @@ def load_pretrained(
         with open(config_path) as f:
             hf_config = json.load(f)
         model_type = hf_config.get("model_type")
-        if model_type == "bloom":
-            raise NotImplementedError(
-                f"trlx_tpu_torch does not run bloom checkpoints ({model_path!r}) yet: ALiBi, "
-                "model-families slice"
-            )
         config = from_hf_config(hf_config, overrides)
         params = hf_state_dict_to_params(model_type, _read_hf_weights(model_path), config)
         state = {k: torch.from_numpy(v) for k, v in state_from_params(params).items()}
@@ -688,6 +748,145 @@ def make_hf_config(model_type: str, c: TransformerConfig) -> Dict[str, Any]:
             multi_query=c.kv_heads == 1, activation_function="gelu_pytorch_tanh",
             tie_word_embeddings=True,
         )
+    elif model_type == "bloom":
+        fields = dict(
+            vocab_size=c.vocab_size, hidden_size=c.hidden_size, n_layer=c.num_layers,
+            n_head=c.num_heads, layer_norm_epsilon=c.norm_eps, tie_word_embeddings=True,
+            apply_residual_connection_post_layernorm=False,
+        )
+    elif model_type == "t5":
+        fields = dict(
+            vocab_size=c.vocab_size, d_model=c.d_model, d_kv=c.d_kv, d_ff=c.d_ff,
+            num_layers=c.num_layers, num_decoder_layers=c.num_decoder_layers, num_heads=c.num_heads,
+            relative_attention_num_buckets=c.relative_attention_num_buckets,
+            relative_attention_max_distance=c.relative_attention_max_distance,
+            layer_norm_epsilon=c.layer_norm_epsilon,
+            feed_forward_proj="gated-gelu" if c.is_gated else "relu",
+            tie_word_embeddings=c.tie_word_embeddings, decoder_start_token_id=c.decoder_start_token_id,
+            is_encoder_decoder=True,
+        )
     else:
         raise ValueError(f"No HF config factory for {model_type!r}")
     return {"model_type": model_type, **fields}
+
+
+# ------------------------------------------------------------------- T5 (seq2seq)
+
+
+def _t5_attn_to_params(sd, pre, has_bias):
+    p = {k: {"kernel": sd[f"{pre}.{k}.weight"].T} for k in ("q", "k", "v", "o")}
+    if has_bias:
+        p["relative_attention_bias"] = {"embedding": sd[f"{pre}.relative_attention_bias.weight"]}
+    return p
+
+
+def _t5_ffn_to_params(sd, pre, gated):
+    names = ("wi_0", "wi_1", "wo") if gated else ("wi", "wo")
+    return {k: {"kernel": sd[f"{pre}.{k}.weight"].T} for k in names}
+
+
+def t5_state_dict_to_params(sd: Dict[str, np.ndarray], config) -> Dict[str, Any]:
+    """HF T5 state dict -> the ``T5LM`` parameter tree (f32 numpy)."""
+    gated = config.is_gated
+    p: Dict[str, Any] = {
+        "shared": {"embedding": sd["shared.weight"]},
+        "encoder_ln": {"scale": sd["encoder.final_layer_norm.weight"]},
+        "decoder_ln": {"scale": sd["decoder.final_layer_norm.weight"]},
+    }
+    if not config.tie_word_embeddings and "lm_head.weight" in sd:
+        p["lm_head"] = {"kernel": sd["lm_head.weight"].T}
+    for i in range(config.num_layers):
+        pre = f"encoder.block.{i}"
+        p[f"encoder_blocks_{i}"] = {
+            "ln_1": {"scale": sd[f"{pre}.layer.0.layer_norm.weight"]},
+            "attn": _t5_attn_to_params(sd, f"{pre}.layer.0.SelfAttention", i == 0),
+            "ln_2": {"scale": sd[f"{pre}.layer.1.layer_norm.weight"]},
+            "mlp": _t5_ffn_to_params(sd, f"{pre}.layer.1.DenseReluDense", gated),
+        }
+    for i in range(config.num_decoder_layers):
+        pre = f"decoder.block.{i}"
+        p[f"decoder_blocks_{i}"] = {
+            "ln_1": {"scale": sd[f"{pre}.layer.0.layer_norm.weight"]},
+            "self_attn": _t5_attn_to_params(sd, f"{pre}.layer.0.SelfAttention", i == 0),
+            "ln_cross": {"scale": sd[f"{pre}.layer.1.layer_norm.weight"]},
+            "cross_attn": _t5_attn_to_params(sd, f"{pre}.layer.1.EncDecAttention", False),
+            "ln_2": {"scale": sd[f"{pre}.layer.2.layer_norm.weight"]},
+            "mlp": _t5_ffn_to_params(sd, f"{pre}.layer.2.DenseReluDense", gated),
+        }
+    return _tree_map(lambda x: np.asarray(x, np.float32), p)
+
+
+def _t5_attn_from_params(p, pre, sd):
+    for k in ("q", "k", "v", "o"):
+        sd[f"{pre}.{k}.weight"] = p[k]["kernel"].T
+    if "relative_attention_bias" in p:
+        sd[f"{pre}.relative_attention_bias.weight"] = p["relative_attention_bias"]["embedding"]
+
+
+def _t5_ffn_from_params(p, pre, sd):
+    for name in ("wi", "wi_0", "wi_1", "wo"):
+        if name in p:
+            sd[f"{pre}.{name}.weight"] = p[name]["kernel"].T
+
+
+def _t5_from_params(p: Dict[str, Any], c) -> Dict[str, np.ndarray]:
+    """The ``T5LM`` parameter tree -> an HF T5 state dict (the reverse of
+    :func:`t5_state_dict_to_params`; the tied embedding under all three of
+    HF's names)."""
+    sd = {
+        "shared.weight": p["shared"]["embedding"],
+        "encoder.embed_tokens.weight": p["shared"]["embedding"],
+        "decoder.embed_tokens.weight": p["shared"]["embedding"],
+        "encoder.final_layer_norm.weight": p["encoder_ln"]["scale"],
+        "decoder.final_layer_norm.weight": p["decoder_ln"]["scale"],
+    }
+    if "lm_head" in p:
+        sd["lm_head.weight"] = p["lm_head"]["kernel"].T
+    for i in range(c.num_layers):
+        pre, L = f"encoder.block.{i}", p[f"encoder_blocks_{i}"]
+        sd[f"{pre}.layer.0.layer_norm.weight"] = L["ln_1"]["scale"]
+        _t5_attn_from_params(L["attn"], f"{pre}.layer.0.SelfAttention", sd)
+        sd[f"{pre}.layer.1.layer_norm.weight"] = L["ln_2"]["scale"]
+        _t5_ffn_from_params(L["mlp"], f"{pre}.layer.1.DenseReluDense", sd)
+    for i in range(c.num_decoder_layers):
+        pre, L = f"decoder.block.{i}", p[f"decoder_blocks_{i}"]
+        sd[f"{pre}.layer.0.layer_norm.weight"] = L["ln_1"]["scale"]
+        _t5_attn_from_params(L["self_attn"], f"{pre}.layer.0.SelfAttention", sd)
+        sd[f"{pre}.layer.1.layer_norm.weight"] = L["ln_cross"]["scale"]
+        _t5_attn_from_params(L["cross_attn"], f"{pre}.layer.1.EncDecAttention", sd)
+        sd[f"{pre}.layer.2.layer_norm.weight"] = L["ln_2"]["scale"]
+        _t5_ffn_from_params(L["mlp"], f"{pre}.layer.2.DenseReluDense", sd)
+    return sd
+
+
+CONVERTERS["t5"] = (t5_state_dict_to_params, _t5_from_params)
+
+
+def load_pretrained_seq2seq(model_path: str, overrides: Optional[Dict[str, Any]] = None):
+    """(T5Config, T5LM state or None) for a seq2seq model path: a local HF
+    T5 directory converts as :func:`load_pretrained` does (a directory
+    without ``config.json`` raises ``FileNotFoundError``); anything else
+    gives the random-init ``T5Config()`` (t5-small widths) with
+    ``overrides``, as the JAX package. The native store raises."""
+    from trlx_tpu_torch.models.t5 import T5Config, from_hf_t5_config
+
+    overrides = dict(overrides or {})
+    for key in _DTYPE_FIELDS:
+        if key in overrides:
+            overrides[key] = torch_dtype(overrides[key])
+    if os.path.isdir(model_path) and os.path.exists(os.path.join(model_path, NATIVE_CONFIG)):
+        raise NotImplementedError(
+            f"trlx_tpu_torch does not read the native pre-converted store ({model_path!r}) yet: "
+            "scale-out slice; export it in HF format (save_pretrained) instead"
+        )
+    config_path = os.path.join(model_path, "config.json")
+    if os.path.isdir(model_path):
+        if not os.path.exists(config_path):
+            raise FileNotFoundError(f"{model_path!r} is a directory without config.json")
+        with open(config_path) as f:
+            config = from_hf_t5_config(json.load(f), overrides)
+        params = t5_state_dict_to_params(_read_hf_weights(model_path), config)
+        return config, {k: torch.from_numpy(v) for k, v in state_from_params(params).items()}
+    config = T5Config().replace(**overrides)
+    logger.warning(f"No local checkpoint at {model_path!r}; using random-init T5 config")
+    return config, None

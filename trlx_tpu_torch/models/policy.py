@@ -10,8 +10,10 @@
   runs it from the activation ``forward(..., branch_layer=start)`` captured.
 - :class:`CausalLMWithILQLHeads`: trunk + ILQL heads read at gathered
   state / action positions.
-
-The seq2seq models come with the seq2seq slice.
+- The seq2seq (T5) counterparts: :class:`Seq2SeqLMWithValueHead` (a value
+  MLP over the decoder's hidden states; its decoder-top hydra reference is
+  :class:`~trlx_tpu_torch.models.t5.T5Branch`, loaded from
+  :func:`t5_branch_param_subtree`) and :class:`Seq2SeqLMWithILQLHeads`.
 """
 
 from typing import Dict, Optional
@@ -20,7 +22,8 @@ import torch
 from torch import nn
 
 from trlx_tpu_torch.methods.ilql import batched_index_select
-from trlx_tpu_torch.models.heads import ILQLHeads, ValueHead
+from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead, ValueHead
+from trlx_tpu_torch.models.t5 import T5Config, T5LM
 from trlx_tpu_torch.models.transformer import (
     Block,
     Dense,
@@ -31,7 +34,7 @@ from trlx_tpu_torch.models.transformer import (
     TransformerLM,
     forward_from,
     init_params,
-    make_causal_bias,
+    make_attn_bias,
 )
 
 
@@ -100,7 +103,7 @@ class CausalLMWithValueHead(nn.Module):
 
     def _value_branch(self, hidden, attention_mask, positions):
         B, T, _ = hidden.shape
-        default_positions, mask_bias = make_causal_bias(attention_mask, B, T, hidden.device)
+        default_positions, mask_bias = make_attn_bias(self.config, attention_mask, B, T, hidden.device)
         if positions is None:
             positions = default_positions
         x = hidden
@@ -251,3 +254,99 @@ def branch_param_subtree(
         for name, value in trunk_state.items()
         if any(name.startswith(prefix) for prefix in keep)
     }
+
+
+def t5_branch_param_subtree(
+    t5_state: Dict[str, torch.Tensor], start_layer: int, config: T5Config
+) -> Dict[str, torch.Tensor]:
+    """The frozen decoder-top branch's tensors from a :class:`T5LM`
+    ``state_dict``: decoder blocks from ``start_layer`` up, the final decoder
+    norm and the head (the tied ``shared`` embedding or ``lm_head``), as
+    detached copies that a :class:`~trlx_tpu_torch.models.t5.T5Branch`
+    loads."""
+    keep = [f"decoder_blocks_{i}." for i in range(start_layer, config.num_decoder_layers)]
+    keep += ["decoder_ln.", "shared." if config.tie_word_embeddings else "lm_head."]
+    return {
+        name: value.detach().clone()
+        for name, value in t5_state.items()
+        if any(name.startswith(prefix) for prefix in keep)
+    }
+
+
+def _t5_head_cfg(t5_config: T5Config) -> TransformerConfig:
+    """The head modules read ``hidden_size``, the vocabulary and the dtypes:
+    a :class:`TransformerConfig` with the T5 config's."""
+    return TransformerConfig(
+        vocab_size=t5_config.vocab_size, hidden_size=t5_config.d_model,
+        param_dtype=t5_config.param_dtype, compute_dtype=t5_config.compute_dtype,
+    )
+
+
+class Seq2SeqLMWithValueHead(nn.Module):
+    """T5 + a scalar value MLP over the decoder hidden states. Parameter
+    names follow the flax tree: ``t5.*`` and ``v_head_mlp.{fc_in,fc_out}.*``.
+    Generation runs ``self.t5`` directly (``MeshRLTrainer.seq2seq_gen_fns``)."""
+
+    def __init__(self, config: T5Config):
+        super().__init__()
+        self.config = config
+        self.t5 = T5LM(config)
+        self.v_head_mlp = MLPHead(_t5_head_cfg(config), out_dim=1)
+
+    @property
+    def device(self) -> torch.device:
+        return self.t5.device
+
+    def init_params(self, seed: int = 0) -> "Seq2SeqLMWithValueHead":
+        return init_params(self, seed)
+
+    def forward(self, input_ids, attention_mask, decoder_input_ids, decoder_attention_mask=None):
+        """(logits, values [B, T] f32, encoder states)."""
+        logits, hidden, enc = self.t5(input_ids, attention_mask, decoder_input_ids, decoder_attention_mask)
+        return logits, self.v_head_mlp(hidden)[..., 0], enc
+
+    def forward_with_branch(self, input_ids, attention_mask, decoder_input_ids, decoder_attention_mask,
+                            branch_layer: int):
+        """(logits, values, encoder states, branch activation, relative
+        bias): the scoring forward beside the decoder-top hydra reference."""
+        logits, hidden, enc, branch_hidden, position_bias = self.t5.forward_with_branch(
+            input_ids, attention_mask, decoder_input_ids, decoder_attention_mask, branch_layer
+        )
+        return logits, self.v_head_mlp(hidden)[..., 0], enc, branch_hidden, position_bias
+
+
+class Seq2SeqLMWithILQLHeads(nn.Module):
+    """T5 + ILQL {V, Q, target-Q} heads over the decoder hidden states.
+    Parameter names follow the flax tree: ``t5.*`` and ``ilql_heads.*``."""
+
+    def __init__(self, config: T5Config, two_qs: bool = True):
+        super().__init__()
+        self.config = config
+        self.t5 = T5LM(config)
+        self.ilql_heads = ILQLHeads(_t5_head_cfg(config), two_qs=two_qs)
+
+    @property
+    def device(self) -> torch.device:
+        return self.t5.device
+
+    def init_params(self, seed: int = 0) -> "Seq2SeqLMWithILQLHeads":
+        return init_params(self, seed)
+
+    def forward(self, input_ids, attention_mask, decoder_input_ids, decoder_attention_mask=None,
+                actions_ixs=None, states_ixs=None):
+        """(logits, qs, target_qs, vs): the heads read the decoder hidden
+        states at ``states_ixs`` (V) and ``actions_ixs`` (Q), or at every
+        position."""
+        logits, hidden, _ = self.t5(input_ids, attention_mask, decoder_input_ids, decoder_attention_mask)
+        if states_ixs is not None:
+            states_hs = batched_index_select(hidden, states_ixs)
+            actions_hs = batched_index_select(hidden, actions_ixs)
+        else:
+            states_hs = actions_hs = hidden
+        qs, target_qs, vs = self.ilql_heads(states_hs, actions_hs)
+        return logits, qs, target_qs, vs
+
+    def heads_only(self, hidden: torch.Tensor):
+        """The ILQL heads on decoder hidden states (the advantage-shaped
+        decode's processor)."""
+        return self.ilql_heads(hidden, hidden)

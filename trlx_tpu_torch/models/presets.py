@@ -94,13 +94,14 @@ HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
                   rope_theta=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=False),
     "gpt_bigcode": dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12, n_inner=None, n_positions=1024,
                         layer_norm_epsilon=1e-5, multi_query=True, tie_word_embeddings=True),
+    "bloom": dict(vocab_size=250880, hidden_size=64, n_layer=2, n_head=8, layer_norm_epsilon=1e-5,
+                  tie_word_embeddings=True),
 }
 
 
 def from_hf_config(hf_config: Dict[str, Any], overrides: Optional[Dict[str, Any]] = None) -> TransformerConfig:
     """Convert an HF ``config.json`` dict to TransformerConfig (a missing
-    key reads as its family's :data:`HF_DEFAULTS` entry). Bloom, whose
-    ALiBi the port does not run, is not converted."""
+    key reads as its family's :data:`HF_DEFAULTS` entry)."""
     mt = hf_config.get("model_type")
     if mt not in HF_DEFAULTS:
         raise ValueError(f"Unsupported HF model_type {mt!r}")
@@ -144,6 +145,12 @@ def from_hf_config(hf_config: Dict[str, Any], overrides: Optional[Dict[str, Any]
             intermediate_size=h["intermediate_size"],
             max_position_embeddings=h["max_position_embeddings"],
             rope_theta=h["rope_theta"], norm_eps=h["rms_norm_eps"],
+            tie_word_embeddings=h["tie_word_embeddings"],
+        )
+    elif mt == "bloom":
+        config = PRESETS["bloom"].replace(
+            vocab_size=h["vocab_size"], hidden_size=h.get("n_embed") or h["hidden_size"],
+            num_layers=h["n_layer"], num_heads=h["n_head"], norm_eps=h["layer_norm_epsilon"],
             tie_word_embeddings=h["tie_word_embeddings"],
         )
     else:  # gpt_bigcode

@@ -29,8 +29,13 @@ The hydra reference branch reads the activation entering a layer
 the final norm and the head from it (:meth:`TransformerLM.forward_from`,
 through the flash kernel with ``attention_impl="flash"``).
 
+ALiBi (bloom) adds its bias to the mask bias of every plain-path forward
+(:func:`make_attn_bias`, and the cached forward's slot bias); the flash
+kernel takes no additive bias, so an ALiBi model never enters it (the JAX
+package's routing), and the paged cache refuses ALiBi.
+
 Not ported yet (each raises ``NotImplementedError``): stacked layouts
-(``scan_layers`` / ``pipeline_stages > 1``), ring attention, ALiBi, LoRA and
+(``scan_layers`` / ``pipeline_stages > 1``), ring attention, LoRA and
 prompt/prefix tuning, sequence sharding and ``remat``.
 """
 
@@ -140,7 +145,6 @@ def check_supported(c: TransformerConfig) -> None:
     unsupported = [
         (c.stacked, "stacked layouts (scan_layers / pipeline_stages > 1): pipeline slice"),
         (c.attention_impl == "ring", "attention_impl='ring': scale-out slice"),
-        (c.pos_embedding == "alibi", "pos_embedding='alibi': model-families slice"),
         (c.peft_type in ("prompt", "prefix"), "peft prompt/prefix tuning: peft slice"),
         (c.lora_r > 0, "LoRA (lora_r > 0): peft slice"),
         (c.sequence_sharding, "sequence_sharding: scale-out slice"),
@@ -179,6 +183,48 @@ def make_causal_bias(
 def _bias_from_mask(mask: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.float32, device=mask.device)
     return torch.where(mask, zero, torch.full_like(zero, -1e9))
+
+
+def make_attn_bias(
+    config: TransformerConfig, attention_mask: Optional[torch.Tensor], B: int, T: int, device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positions, additive mask bias with ALiBi folded in when the config
+    says ``pos_embedding="alibi"``) for a cache-free forward: every
+    cache-free call site takes its bias from here, so none can miss ALiBi."""
+    positions, bias = make_causal_bias(attention_mask, B, T, device)
+    if config.pos_embedding == "alibi":
+        bias = bias + alibi_bias(config, attention_mask, B, T, device)
+    return positions, bias
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes, f32 (HF ``build_alibi_tensor``'s algorithm:
+    powers of 2^-(8/closest) for the largest power of two ``closest`` <=
+    ``num_heads``, then every other power of the next base for the rest)."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        num_rem = min(closest, num_heads - closest)
+        slopes += [extra_base ** i for i in range(1, 1 + 2 * num_rem, 2)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def alibi_bias(
+    config: TransformerConfig, attention_mask: Optional[torch.Tensor], B: int, S: int, device
+) -> torch.Tensor:
+    """[B, H, 1, S] additive ALiBi bias over key slots: slope times the key's
+    position, where positions count the valid tokens (a left-padded row
+    starts at 0 on its first real token). Softmax ignores the relative
+    form's ``-slope * q_pos`` term, constant along a query's row."""
+    if attention_mask is not None:
+        m = attention_mask.float()
+        key_pos = (torch.cumsum(m, dim=1) - 1).clamp(min=0) * m
+    else:
+        key_pos = torch.arange(S, dtype=torch.float32, device=device)[None, :].expand(B, S)
+    slopes = alibi_slopes(config.num_heads).to(key_pos.device)
+    return slopes[None, :, None, None] * key_pos[:, None, None, :]
 
 
 def make_rotary(config: TransformerConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -366,6 +412,10 @@ class Attention(nn.Module):
             k = apply_rotary(k, cos, sin, c.rope_style)
 
         if cache is not None and "block_tables" in cache:
+            # no mask bias reaches the paged kernels: a position-dependent
+            # score bias (ALiBi) does not fit them, as in the JAX package
+            if c.pos_embedding == "alibi":
+                raise ValueError("paged decode does not support alibi or prefix tuning")
             # paged step (serving engine). T == 1 is decode: the new row
             # lands at position context_lens, then attention runs over
             # context_lens + 1 tokens gathered through the block table.
@@ -392,7 +442,8 @@ class Attention(nn.Module):
         if cache is not None:
             write_kv_cache(cache, k.transpose(1, 2), v.transpose(1, 2), cache["index"])
 
-        use_flash = c.attention_impl == "flash" and kv_valid is not None and T > 1
+        # the kernel takes no additive bias: ALiBi attends on the plain path
+        use_flash = c.attention_impl == "flash" and kv_valid is not None and T > 1 and c.pos_embedding != "alibi"
         k_row_scale = v_row_scale = None
         if use_flash:
             out = flash_attention(
@@ -496,7 +547,7 @@ def forward_from(model: nn.Module, hidden, attention_mask, positions, start_laye
     With ``attention_impl="flash"`` every layer attends through the flash
     kernel under the key mask ``attention_mask``."""
     B, T, _ = hidden.shape
-    default_positions, mask_bias = make_causal_bias(attention_mask, B, T, hidden.device)
+    default_positions, mask_bias = make_attn_bias(model.config, attention_mask, B, T, hidden.device)
     if positions is None:
         positions = default_positions
     x = hidden
@@ -627,11 +678,13 @@ class TransformerLM(nn.Module):
             if attention_mask is not None:
                 causal = causal & attention_mask[:, None, None, :].bool()
             mask_bias = _bias_from_mask(causal)
+            if self.config.pos_embedding == "alibi":
+                mask_bias = mask_bias + alibi_bias(self.config, attention_mask, B, S, dev)
             # prefill from slot 0: the flash path may attend over this
             # forward's k/v alone (every later cache slot is still empty)
             kv_valid = attention_mask[:, :T] if T > 1 and attention_mask is not None and idx == 0 else None
         else:
-            default_positions, mask_bias = make_causal_bias(attention_mask, B, T, dev)
+            default_positions, mask_bias = make_attn_bias(self.config, attention_mask, B, T, dev)
             if positions is None:
                 positions = default_positions
             kv_valid = attention_mask

@@ -13,6 +13,10 @@ ILQL's advantage-shaped decoding plugs in as a ``logits_processor(hidden,
 logits, prev_token) -> logits`` hook, evaluated on the last position's
 hidden state after the prefill and after every decode step. Without it the
 output is unchanged.
+
+:func:`generate_seq2seq` is the encoder-decoder loop (T5): encode once,
+cross-attention K/V once, then one decoder token a step over the decoder's
+cache, on the plain attention path.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -137,5 +141,79 @@ def generate(
         response_mask = response_mask * (~after_eos & written).to(torch.int32)
         seqs = torch.cat(
             [seqs[:, :P], torch.where(response_mask > 0, resp, torch.full_like(resp, pad_token_id))], dim=1
+        )
+    return {"sequences": seqs, "response_mask": response_mask}
+
+
+@torch.no_grad()
+def generate_seq2seq(
+    encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    cross_kv_fn: Callable[[torch.Tensor], Any],
+    decode_fn: Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]],
+    init_cache_fn: Callable[[int, int], Any],
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    generator: Optional[torch.Generator],
+    max_new_tokens: int,
+    decoder_start_token_id: int = 0,
+    eos_token_id: Optional[int] = None,
+    pad_token_id: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    do_sample: bool = True,
+    top_k_impl: str = "approx",
+    min_new_tokens: int = 0,
+    logits_processor: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Seq2seq generation: encode once, compute the cross-attention K/V once,
+    then one decoder token a step over a preallocated self-attention cache,
+    exiting early once every row has finished (the JAX ``while_loop``).
+
+    ``decode_fn(tok [B, 1], enc, enc_mask, dec_mask [B, 1+N], positions,
+    cache, cross_kvs) -> (logits, hidden, cache)``. Returns ``sequences``
+    [B, 1+N] (the decoder start token, then the generation, ``pad_token_id``
+    after eos) and ``response_mask`` [B, N], as the JAX function."""
+    B = input_ids.shape[0]
+    N = int(max_new_tokens)
+    dev = input_ids.device
+    enc = encode_fn(input_ids, attention_mask)
+    cross_kvs = cross_kv_fn(enc)
+    cache = init_cache_fn(B, N + 1)
+    seqs = torch.full((B, N + 1), pad_token_id, dtype=torch.int32, device=dev)
+    seqs[:, 0] = decoder_start_token_id
+    dec_mask = torch.zeros((B, N + 1), dtype=torch.int32, device=dev)
+    dec_mask[:, 0] = 1
+    tok = torch.full((B,), decoder_start_token_id, dtype=torch.int32, device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    vocab = None
+    step = 0
+    while step < N and not bool(finished.all()):
+        logits, hidden, cache = decode_fn(tok[:, None], enc, attention_mask, dec_mask, None, cache, cross_kvs)
+        step_logits = logits[:, -1, :]
+        if logits_processor is not None:
+            step_logits = logits_processor(hidden[:, -1, :], step_logits, tok)
+        if eos_token_id is not None and step < min_new_tokens:
+            if vocab is None:
+                vocab = torch.arange(step_logits.shape[-1], device=dev)
+            step_logits = torch.where((vocab == eos_token_id)[None, :], torch.full_like(step_logits, -1e9),
+                                      step_logits)
+        new_tok = sample_token(generator, step_logits, temperature, top_k, top_p, do_sample, top_k_impl)
+        tok = torch.where(finished, torch.full_like(new_tok, pad_token_id), new_tok).to(torch.int32)
+        if eos_token_id is not None:
+            finished = finished | (tok == eos_token_id)
+        seqs[:, step + 1] = tok
+        dec_mask[:, step + 1] = 1
+        step += 1
+
+    response_mask = dec_mask[:, 1:]
+    if eos_token_id is not None:
+        resp = seqs[:, 1:]
+        is_eos = (resp == eos_token_id).to(torch.int32)
+        after_eos = torch.cumsum(torch.nn.functional.pad(is_eos[:, :-1], (1, 0)), dim=1) > 0
+        written = torch.arange(N, device=dev)[None, :] < step
+        response_mask = response_mask * (~after_eos & written).to(torch.int32)
+        seqs = torch.cat(
+            [seqs[:, :1], torch.where(response_mask > 0, resp, torch.full_like(resp, pad_token_id))], dim=1
         )
     return {"sequences": seqs, "response_mask": response_mask}

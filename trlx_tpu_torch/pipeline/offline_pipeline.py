@@ -10,7 +10,7 @@ from typing import Any, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
 
-from trlx_tpu_torch.data.ilql_types import ILQLBatch, ILQLElement
+from trlx_tpu_torch.data.ilql_types import ILQLBatch, ILQLElement, ILQLSeq2SeqBatch, ILQLSeq2SeqElement
 from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, NumpyLoader, register_datapipeline
 
 
@@ -206,3 +206,46 @@ class ILQLRolloutStorage(BaseRolloutStore):
         """Batches of ``batch_size`` (the last partial one dropped), each
         pass shuffled from ``seed`` + pass number, as the JAX loader."""
         return NumpyLoader(self, batch_size, ilql_collate_fn, shuffle=shuffle, drop_last=drop_last, seed=seed)
+
+
+def ilql_seq2seq_collate_fn(elems: Iterable[ILQLSeq2SeqElement]) -> ILQLSeq2SeqBatch:
+    """Right-pad every field of the seq2seq elements into one
+    :class:`ILQLSeq2SeqBatch` (tokens with 0, as the causal collate)."""
+    elems = list(elems)
+    return ILQLSeq2SeqBatch(
+        _rpad_stack([x.input_ids for x in elems], 0),
+        _rpad_stack([x.attention_mask for x in elems], 0),
+        _rpad_stack([x.decoder_input_ids for x in elems], 0),
+        _rpad_stack([x.rewards for x in elems], 0.0),
+        _rpad_stack([x.states_ixs for x in elems], 0),
+        _rpad_stack([x.actions_ixs for x in elems], 0),
+        _rpad_stack([x.dones for x in elems], 0),
+    )
+
+
+class ILQLSeq2SeqRolloutStorage(BaseRolloutStore):
+    """Offline seq2seq ILQL storage: encoder and decoder tokens per sample."""
+
+    def __init__(self, input_ids, attention_mask, decoder_input_ids, rewards, states_ixs, actions_ixs, dones):
+        super().__init__()
+        self.input_ids = input_ids
+        self.attention_mask = attention_mask
+        self.decoder_input_ids = decoder_input_ids
+        self.rewards = rewards
+        self.states_ixs = states_ixs
+        self.actions_ixs = actions_ixs
+        self.dones = dones
+
+    def __getitem__(self, ix: int) -> ILQLSeq2SeqElement:
+        return ILQLSeq2SeqElement(
+            self.input_ids[ix], self.attention_mask[ix], self.decoder_input_ids[ix],
+            self.rewards[ix], self.states_ixs[ix], self.actions_ixs[ix], self.dones[ix],
+        )
+
+    def __len__(self) -> int:
+        return len(self.input_ids)
+
+    def create_loader(self, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                      seed: int = 0) -> NumpyLoader:
+        return NumpyLoader(self, batch_size, ilql_seq2seq_collate_fn, shuffle=shuffle, drop_last=drop_last,
+                           seed=seed)

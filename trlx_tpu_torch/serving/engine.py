@@ -267,6 +267,9 @@ class ServingEngine:
         prefix ``close()`` clears): a fleet gives each replica
         ``serving/replica/<i>/``. ``replica_id`` tags typed errors with the
         raising replica (None outside a fleet)."""
+        if trunk.config.pos_embedding == "alibi":
+            # the paged kernels take no position-dependent score bias
+            raise NotImplementedError("serving engine does not support alibi")
         self.spec_k = int(spec_k)
         self.spec_ngram = int(spec_ngram)
         self.prefill_chunk = int(prefill_chunk)

@@ -55,10 +55,18 @@ import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models import safetensors_io
-from trlx_tpu_torch.models.hf_loading import load_pretrained, merge_loaded_state, save_pretrained_hf, torch_dtype
+from trlx_tpu_torch.models.hf_loading import (
+    load_pretrained,
+    load_pretrained_seq2seq,
+    merge_loaded_state,
+    save_pretrained_hf,
+    torch_dtype,
+)
+from trlx_tpu_torch.models.transformer import init_params
 from trlx_tpu_torch.native import find_stop_positions
 from trlx_tpu_torch.obs import Observability, batch_token_count
 from trlx_tpu_torch.ops.generation import generate as generate_op
+from trlx_tpu_torch.ops.generation import generate_seq2seq
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
 from trlx_tpu_torch.resilience import Resilience, chaos_poison_batch, find_latest_committed, host_snapshot
@@ -114,7 +122,6 @@ def check_port_config(config: TRLConfig) -> None:
         (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
         (mesh.remat != "none", f"mesh.remat={mesh.remat!r}", "training-memory slice"),
         (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice"),
-        (m.model_arch_type != "causal", f"model.model_arch_type={m.model_arch_type!r}", "seq2seq slice"),
         (bool(m.peft_config), "model.peft_config", "peft slice"),
         # with a hydra reference the trainer warns and ignores it, as the JAX one
         (m.offload_ref and m.num_layers_unfrozen <= 0, "model.offload_ref", "training-memory slice"),
@@ -149,6 +156,8 @@ class MeshRLTrainer(BaseRLTrainer):
         self.tokenizer = load_tokenizer(config.tokenizer)
         self.compute_dtype = torch_dtype(config.mesh.compute_dtype)
         self.param_dtype = torch_dtype(config.mesh.param_dtype)
+        #: model.model_arch_type == "seq2seq": a T5 trunk under ``t5.*``
+        self.is_seq2seq = config.model.model_arch_type == "seq2seq"
 
         self.setup_model()
         self.setup_optimizer()
@@ -215,6 +224,25 @@ class MeshRLTrainer(BaseRLTrainer):
             module.init_params(self.config.train.seed)
         if trunk_state is not None:
             merge_loaded_state(getattr(module, "transformer", module), trunk_state)
+        return module
+
+    def load_t5(self, build: Callable[[Any], torch.nn.Module]) -> torch.nn.Module:
+        """The seq2seq :meth:`load_trunk`: ``build(config)`` on the device for
+        the :class:`~trlx_tpu_torch.models.t5.T5Config` of
+        ``load_pretrained_seq2seq(model.model_path)`` (also set as
+        ``self.model_config``; ``self.model_type`` is ``"t5"`` and
+        ``self.decoder_start_token_id`` the config's), random weights from
+        the seed, then a loaded checkpoint over the module's ``t5``."""
+        overrides = dict(self.config.model.model_overrides or {})
+        overrides.setdefault("param_dtype", self.param_dtype)
+        overrides.setdefault("compute_dtype", self.compute_dtype)
+        self.model_config, t5_state = load_pretrained_seq2seq(self.config.model.model_path, overrides)
+        self.model_type = "t5"
+        self.decoder_start_token_id = self.model_config.decoder_start_token_id
+        with torch.device(self.device):
+            module = init_params(build(self.model_config), self.config.train.seed)
+        if t5_state is not None:
+            merge_loaded_state(module.t5, t5_state)
         return module
 
     def trainable_path_predicate(self, path: str) -> bool:
@@ -351,6 +379,14 @@ class MeshRLTrainer(BaseRLTrainer):
         rather than the generation loop (ILQL's ``beta``)."""
         return {}
 
+    def seq2seq_gen_fns(self, policy=None) -> Dict[str, Callable]:
+        """The encode / cross_kv / decode / init_cache functions of
+        :func:`generate_seq2seq` over ``policy`` (default ``self.model``):
+        a module with a ``t5`` trunk."""
+        t5 = (self.model if policy is None else policy).t5
+        return {"encode": t5.encode, "cross_kv": t5.precompute_cross_kv, "decode": t5.decode,
+                "init_cache": t5.init_cache}
+
     @abstractmethod
     def gen_step_fn(self, policy=None):
         """Return step_fn(ids, mask, positions, cache) -> (logits, hidden,
@@ -365,7 +401,8 @@ class MeshRLTrainer(BaseRLTrainer):
         prompts left-padded to a pow2 bucket, one padded ``generate`` on the
         trainer's device. ``policy`` and ``generator`` replace the model and
         the sampling stream (the async producer passes its own). Returns
-        host ``(sequences, response_mask, P)``."""
+        host ``(sequences, response_mask, P)``; for a seq2seq model the
+        sequences are the decoder start token and the response, so P is 1."""
         gen_kwargs = dict(self.generate_kwargs)
         if not eval_mode and self.generate_experience_kwargs:
             gen_kwargs = dict(self.generate_experience_kwargs)
@@ -377,19 +414,27 @@ class MeshRLTrainer(BaseRLTrainer):
 
         P = pad_to_bucket(max(len(p) for p in prompts_ids), POW2_BUCKETS)
         ids, mask = left_pad_batch(prompts_ids, gen_kwargs["pad_token_id"], P)
-        step_fn, init_cache_fn = self.gen_step_fn(policy)
+        ids_t, mask_t = torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+        generator = self.generator if generator is None else generator
+        processor = self.gen_logits_processor(**proc_kwargs)
         # the span closes after the host fetch: decode runs asynchronously
         # until it, so timing the launches alone would undercount
         with self.obs.span("generate"):
-            out = generate_op(
-                step_fn, init_cache_fn,
-                torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
-                self.generator if generator is None else generator, max_new,
-                logits_processor=self.gen_logits_processor(**proc_kwargs), **gen_kwargs,
-            )
+            if self.is_seq2seq:
+                fns = self.seq2seq_gen_fns(policy)
+                out = generate_seq2seq(
+                    fns["encode"], fns["cross_kv"], fns["decode"], fns["init_cache"], ids_t, mask_t, generator,
+                    max_new, decoder_start_token_id=self.decoder_start_token_id, logits_processor=processor,
+                    **gen_kwargs,
+                )
+            else:
+                step_fn, init_cache_fn = self.gen_step_fn(policy)
+                out = generate_op(step_fn, init_cache_fn, ids_t, mask_t, generator, max_new,
+                                  logits_processor=processor, **gen_kwargs)
             sequences = out["sequences"].cpu().numpy()
             response_mask = out["response_mask"].cpu().numpy()
-        return sequences, response_mask, P
+        # seq2seq sequences are [decoder start] + response: decode()'s pad length is 1
+        return sequences, response_mask, 1 if self.is_seq2seq else P
 
     def decode(
         self,
@@ -940,7 +985,7 @@ class MeshRLTrainer(BaseRLTrainer):
         logger.info(f"Restored checkpoint from {path} (iter {self.iter_count})")
 
     def save_pretrained(self, directory: str):
-        """Export the trunk (``model.transformer``) as an HF-format directory
+        """Export the trunk (``model.transformer``, or ``model.t5``) as an HF-format directory
         (``model.safetensors`` + ``config.json``) that ``load_pretrained`` of
         either package reads, and the heads (the value head) to
         ``heads.safetensors`` under their ``state_dict`` names. Nothing reads
@@ -949,8 +994,9 @@ class MeshRLTrainer(BaseRLTrainer):
         converter), this warns and writes the heads only, as the JAX
         package does."""
         state = self.model.state_dict()
-        trunk = {k[len("transformer."):]: v for k, v in state.items() if k.startswith("transformer.")}
-        heads = {k: v for k, v in state.items() if not k.startswith("transformer.")}
+        prefix = "t5." if self.is_seq2seq else "transformer."
+        trunk = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        heads = {k: v for k, v in state.items() if not k.startswith(prefix)}
         os.makedirs(directory, exist_ok=True)
         try:
             save_pretrained_hf(directory, self.model_type, trunk, self.model_config)

@@ -60,8 +60,17 @@ shares the island's round gate, the engine swaps each committed version at
 its own round boundaries (the producer installs nothing), and the train
 step and the publish are the learner island's busy intervals.
 
-Not ported yet, each raising ``NotImplementedError`` naming its slice:
-seq2seq models and peft.
+Seq2seq (``model.model_arch_type="seq2seq"``): the policy is T5 with a
+value MLP over the decoder (:class:`~trlx_tpu_torch.models.policy.Seq2SeqLMWithValueHead`),
+rollouts come from the encoder-decoder ``generate_seq2seq``, the scoring
+and loss forwards read the response through the decoder (the start token
+and the response shifted right), and the KL reference is a full frozen T5
+copy or, with ``0 < num_layers_unfrozen < num_decoder_layers``, the
+decoder-top branch (:class:`~trlx_tpu_torch.models.t5.T5Branch`), with the
+encoder and the lower decoder blocks frozen. T5 attends on the plain path;
+the serving engine does not serve it (the padded generate runs instead).
+
+Not ported yet, raising ``NotImplementedError`` naming its slice: peft.
 """
 
 import copy
@@ -83,9 +92,12 @@ from trlx_tpu_torch.methods.ppo import PPOConfig
 from trlx_tpu_torch.models.policy import (
     CausalLMWithValueHead,
     ModelBranch,
+    Seq2SeqLMWithValueHead,
     branch_param_subtree,
     init_value_branch_from_trunk,
+    t5_branch_param_subtree,
 )
+from trlx_tpu_torch.models.t5 import T5LM, T5Branch
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.obs import span
 from trlx_tpu_torch.obs.flight import flight
@@ -233,6 +245,8 @@ class PPOTrainer(MeshRLTrainer):
         0`` the hydra branch (``frozen_branch``, a copy of the top N layers,
         the final norm and the head, started at ``branch_start``), otherwise
         a full copy of the trunk (``ref_model``)."""
+        if self.is_seq2seq:
+            return self._setup_seq2seq_model()
         n_unfrozen = self.config.model.num_layers_unfrozen
         n_value = self.config.method.num_value_layers_unfrozen
 
@@ -267,6 +281,59 @@ class PPOTrainer(MeshRLTrainer):
                 self.ref_model = TransformerLM(self.model_config)
             self.ref_model.load_state_dict(self.model.transformer.state_dict())
             self.ref_model.requires_grad_(False)
+
+    def _setup_seq2seq_model(self):
+        """T5 + value MLP, random weights from the seed, a loaded T5
+        checkpoint over the trunk, and the frozen reference: with ``0 <
+        num_layers_unfrozen < num_decoder_layers`` the decoder-top branch
+        (``frozen_branch``, started at ``branch_start``), otherwise a full
+        frozen T5 copy (``ref_model``): with every decoder block trained the
+        branch would reuse a relative bias that trains."""
+        n_unfrozen = self.config.model.num_layers_unfrozen
+        self.model = self.load_t5(Seq2SeqLMWithValueHead)
+        n_dec = self.model_config.num_decoder_layers
+        if n_unfrozen > n_dec:
+            raise ValueError(f"num_layers_unfrozen={n_unfrozen} exceeds num_decoder_layers={n_dec}")
+        if self.config.model.offload_ref and 0 < n_unfrozen < n_dec:
+            logger.warning("offload_ref ignored: the seq2seq reference is a decoder branch, not a full copy")
+        self.ref_model = self.frozen_branch = self.branch_start = None
+        if 0 < n_unfrozen < n_dec:
+            self.branch_start = n_dec - n_unfrozen
+            with torch.device(self.device):
+                self.frozen_branch = T5Branch(self.model_config, self.branch_start)
+            self.frozen_branch.load_state_dict(
+                t5_branch_param_subtree(self.model.t5.state_dict(), self.branch_start, self.model_config)
+            )
+            self.frozen_branch.requires_grad_(False)
+        else:
+            with torch.device(self.device):
+                self.ref_model = T5LM(self.model_config)
+            self.ref_model.load_state_dict(self.model.t5.state_dict())
+            self.ref_model.requires_grad_(False)
+
+    def _new_policy(self):
+        """An untrained module shaped like ``self.model`` on the device (the
+        async producer's copy)."""
+        with torch.device(self.device):
+            if self.is_seq2seq:
+                return Seq2SeqLMWithValueHead(self.model_config)
+            return CausalLMWithValueHead(self.model_config,
+                                         num_value_layers=self.method.num_value_layers_unfrozen)
+
+    def trainable_path_predicate(self, path: str) -> bool:
+        """Seq2seq with ``num_layers_unfrozen = N >= 0``: the top N decoder
+        blocks, the final decoder norm and the value head train; the
+        encoder, the embedding (and so the tied head) and the lower decoder
+        blocks are frozen."""
+        n_unfrozen = self.config.model.num_layers_unfrozen
+        if not self.is_seq2seq:
+            return super().trainable_path_predicate(path)
+        if n_unfrozen < 0 or not path.startswith("t5."):
+            return True
+        if "decoder_blocks_" in path:
+            layer = int(path.split("decoder_blocks_")[1].split(".")[0])
+            return layer >= self.model_config.num_decoder_layers - n_unfrozen
+        return "decoder_ln" in path
 
     def gen_step_fn(self, policy=None):
         trunk = (self.model if policy is None else policy).transformer
@@ -331,6 +398,36 @@ class PPOTrainer(MeshRLTrainer):
             ref_logits, _, _, _ = self.ref_model(seq_t, mask_t)
         ref_logprobs = logprobs_of_labels(ref_logits[:, P - 1:P - 1 + R], labels)
         return logprobs, values, ref_logprobs
+
+    def _decoder_inputs(self, responses: torch.Tensor, response_mask: torch.Tensor):
+        """The decoder's input for reading ``responses`` back (teacher
+        forcing): the start token, then the responses shifted right; and its
+        mask."""
+        ones = torch.ones_like(responses[:, :1])
+        return (torch.cat([ones * self.decoder_start_token_id, responses[:, :-1]], dim=1),
+                torch.cat([ones, response_mask[:, :-1]], dim=1))
+
+    @torch.no_grad()
+    def score_s2s(self, q_ids, q_mask, r_ids, r_mask, policy=None):
+        """The seq2seq :meth:`score`: the decoder reads the start token and
+        the response shifted right; policy logprobs and values and the
+        reference's logprobs of the response tokens, host f32 [B, R]. The
+        decoder-top reference runs from the activation the policy forward
+        captured at ``branch_start``, with the policy's encoder states and
+        relative bias (the encoder and lower blocks are frozen)."""
+        policy = self.model if policy is None else policy
+        q, qm, r, rm = (torch.from_numpy(x).to(self.device) for x in (q_ids, q_mask, r_ids, r_mask))
+        dec_in, dec_mask = self._decoder_inputs(r, rm)
+        if self.frozen_branch is not None:
+            logits, values, enc, branch_hidden, pos_bias = policy.forward_with_branch(
+                q, qm, dec_in, dec_mask, self.branch_start)
+            ref_logits = self.frozen_branch.forward_branch(branch_hidden, enc, qm, dec_mask, pos_bias,
+                                                           self.branch_start)
+        else:
+            logits, values, _ = policy(q, qm, dec_in, dec_mask)
+            ref_logits, _, _ = self.ref_model(q, qm, dec_in, dec_mask)
+        out = (logprobs_of_labels(logits, r), values.float(), logprobs_of_labels(ref_logits, r))
+        return tuple(x.cpu().numpy() for x in out)
 
     # ---------------------------------------------------------------- serving
 
@@ -909,9 +1006,13 @@ class PPOTrainer(MeshRLTrainer):
         # the span includes score()'s host fetch: the forwards run
         # asynchronously until it
         with span("score"):
-            logprobs, values, ref_logprobs = self.score(
-                np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R, policy=policy
-            )
+            if self.is_seq2seq:
+                logprobs, values, ref_logprobs = self.score_s2s(q_ids, q_mask, r_ids, r_mask, policy=policy)
+            else:
+                logprobs, values, ref_logprobs = self.score(
+                    np.concatenate([q_ids, r_ids], axis=1), np.concatenate([q_mask, r_mask], axis=1), P, R,
+                    policy=policy,
+                )
         self._phase_time["score"] += time.perf_counter() - t0
 
         # per-token KL penalty & reward assembly (k3 estimator)
@@ -993,10 +1094,7 @@ class PPOTrainer(MeshRLTrainer):
         else:
             publisher = ParameterPublisher()
         self._policy_version = publisher.publish(self.model.state_dict())
-        with torch.device(self.device):
-            self._producer_model = CausalLMWithValueHead(
-                self.model_config, num_value_layers=self.method.num_value_layers_unfrozen
-            )
+        self._producer_model = self._new_policy()
         self._producer_model.requires_grad_(False)
         self._producer_params = None
         # the producer's own sampling stream: evaluate() keeps self.generator
@@ -1134,14 +1232,22 @@ class PPOTrainer(MeshRLTrainer):
         """(loss, flat stats) of one device microbatch: the policy forward
         over prompt + response, logprobs and values over the response window,
         GAE, and the clipped PPO loss; under the async engine with
-        ``staleness_correction``, the batch's staleness and the IS clip."""
-        seq = torch.cat([mb.query_tensors, mb.response_tensors], dim=1)
-        mask = torch.cat([mb.attention_mask, mb.response_mask], dim=1)
-        logits, values_pred, _, _ = self.model(seq, mask)
-        start = mb.query_tensors.shape[1] - 1
-        R = mb.response_tensors.shape[1]
-        logprobs = logprobs_of_labels(logits[:, start:start + R], seq[:, start + 1:start + 1 + R])
-        values_pred = values_pred[:, start:start + R].float()
+        ``staleness_correction``, the batch's staleness and the IS clip.
+        Seq2seq: the query through the encoder, the response through the
+        decoder (start token, response shifted right)."""
+        if self.is_seq2seq:
+            dec_in, dec_mask = self._decoder_inputs(mb.response_tensors, mb.response_mask)
+            logits, values_pred, _ = self.model(mb.query_tensors, mb.attention_mask, dec_in, dec_mask)
+            logprobs = logprobs_of_labels(logits, mb.response_tensors)
+            values_pred = values_pred.float()
+        else:
+            seq = torch.cat([mb.query_tensors, mb.response_tensors], dim=1)
+            mask = torch.cat([mb.attention_mask, mb.response_mask], dim=1)
+            logits, values_pred, _, _ = self.model(seq, mask)
+            start = mb.query_tensors.shape[1] - 1
+            R = mb.response_tensors.shape[1]
+            logprobs = logprobs_of_labels(logits[:, start:start + R], seq[:, start + 1:start + 1 + R])
+            values_pred = values_pred[:, start:start + R].float()
         advantages, returns = self.method.get_advantages_and_returns(
             mb.values, mb.rewards, mb.response_mask
         )

@@ -91,9 +91,16 @@ def get_optimizer_class(name) -> Callable:
     ``adamw`` is ``torch.optim.AdamW``, the same update as optax's ``adamw``
     (bias-corrected moments, eps outside the root, decoupled decay applied
     to every trained parameter) with the JAX package's default
-    ``weight_decay=0``; ``adam`` is ``torch.optim.Adam`` (no decay). The
-    others raise, naming the slice that brings them.
+    ``weight_decay=0``; ``adam`` is ``torch.optim.Adam`` (no decay).
+    ``sgd``, ``lion``, ``adafactor`` and ``rmsprop`` are optax's, written
+    out in :mod:`trlx_tpu_torch.utils.optim`, with the JAX registry's
+    arguments: ``sgd(momentum, weight_decay)`` with the decay chained before
+    it, ``lion(betas=(0.9, 0.99), weight_decay=0)``, and ``adafactor`` and
+    ``rmsprop`` with optax's keyword arguments and defaults. The 8-bit
+    optimizers raise, naming the slice that brings them.
     """
+    from trlx_tpu_torch.utils import optim
+
     name = OptimizerName(name.lower() if isinstance(name, str) else name)
 
     if name == OptimizerName.ADAMW:
@@ -117,9 +124,13 @@ def get_optimizer_class(name) -> Callable:
         raise NotImplementedError(
             f"trlx_tpu_torch does not port optimizer {name.value!r} yet: int8 optimizer-state slice"
         )
-    raise NotImplementedError(
-        f"trlx_tpu_torch does not port optimizer {name.value!r} yet: optimizers slice"
-    )
+    if name == OptimizerName.SGD:
+        return lambda params, learning_rate, **kw: optim.SGD(params, lr=learning_rate, **kw)
+    if name == OptimizerName.LION:
+        return lambda params, learning_rate, **kw: optim.Lion(params, lr=learning_rate, **kw)
+    if name == OptimizerName.ADAFACTOR:
+        return lambda params, learning_rate, **kw: optim.Adafactor(params, lr=learning_rate, **kw)
+    return lambda params, learning_rate, **kw: optim.RMSprop(params, lr=learning_rate, **kw)
 
 
 # ----------------------------- schedulers ------------------------------------

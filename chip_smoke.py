@@ -204,7 +204,7 @@ Phases, each printing one JSON line:
                   ``train.self_healing`` at full gpt2 width with ``train``'s
                   traffic (:func:`phase_resilience`): a real SIGTERM, the
                   emergency checkpoint and an auto-resume equal to an
-                  uninterrupted 8-step run (parameters, AdamW state and
+                  uninterrupted 4-step run (parameters, AdamW state and
                   stats); the learner's stall per save, sync against
                   async, and the async checkpoint equal to the state at its
                   save; ``checkpoint:1``; ``nan-loss:2`` skipped and rolled
@@ -214,9 +214,9 @@ Phases, each printing one JSON line:
                   recorded shape.
 30. ``observability`` — a main path: ``train.observability`` and
                   ``train.profile_dir`` at full gpt2 width with ``train``'s
-                  traffic (:func:`phase_observability`): four 4-step runs in
-                  turns (off, on, on, off) with ``losses/*`` equal across
-                  them; spans, step-time percentiles, throughput and MFU
+                  traffic (:func:`phase_observability`): two 4-step runs
+                  (off, then on) with ``losses/*`` equal across them;
+                  spans, step-time percentiles, throughput and MFU
                   against the card's data-sheet peak, CUDA-allocator memory
                   gauges (no host RSS), ``trace.json``, the series and
                   Prometheus exports; request flights on the
@@ -241,7 +241,7 @@ Phases, each printing one JSON line:
                   on the CPU (2 layers, hidden 64); ``stream_overlap``
                   (``train_serving``'s trainer with ``stream_overlap`` and
                   ``serving_resilience``, greedy, a 30 ms reward a sample):
-                  serial and streamed phases in turns with the same tokens,
+                  a serial and a streamed phase with the same tokens,
                   store order and raw scores, logprobs and values within
                   2e-2, a serialized phase with a lower overlap fraction, a
                   chaos phase with one reward call per rollout, and one PPO
@@ -277,7 +277,8 @@ Phases, each printing one JSON line:
                   the sweep (:func:`phase_families_seq2seq`). ``optimizers``:
                   the ``train`` phase's gpt2 trainer at full width with
                   each of sgd (momentum 0.9, decay 0.01), lion, adafactor
-                  and rmsprop, one experience phase and 2 steps: losses
+                  and rmsprop, 2 steps each from the same initial weights
+                  on one shared experience phase: losses
                   finite, parameters moved, the optimizer state's bytes
                   equal to the formula of ``fs_state_bytes_formula``, K2
                   and K3 once per layer and microbatch, every recorded
@@ -300,6 +301,33 @@ Phases, each printing one JSON line:
                   -m trlx_tpu_torch.sweep scripts/torch_ppo_randomwalks.py``
                   over a 2-trial grid: both trials recorded with their
                   metric, and the report written.
+34. ``peft_memory`` — a main path: peft and the training-memory options at
+                  gpt2 full width with ``train``'s trainer
+                  (:func:`phase_peft_memory`). ``peft_parity``: LoRA, prefix
+                  and prompt tuning on the card against the CPU
+                  (``train_parity``'s trainer and limits). ``lora_ppo``:
+                  r 8 / alpha 16 on q_proj and v_proj, 4 steps through
+                  ``train.serving``: no reference copy, the trunk
+                  ``torch.equal`` to its initial weights with no gradient
+                  or optimizer state, AdamW's moments (294,912 + 1,182,721)
+                  x 8 B, the merged export against the adapter forward and
+                  the adapter file reloaded ``torch.equal``.
+                  ``prompt_prefix``: 2 steps each, prompt tuning on K1-K3,
+                  prefix tuning on none. ``remat``: one learner batch under
+                  none and each policy, losses and gradients
+                  ``torch.equal``, K1 twice per layer under remat, peak
+                  memory and seconds. ``offload_ref``: a streamed phase
+                  uploads the pinned host reference once and releases it;
+                  ``memory_allocated`` moves by exactly its 497,759,232 B;
+                  scoring ``torch.equal`` to a resident copy.
+                  ``rollout_dtype``: bf16 rollout parameters on the card
+                  against the CPU, then one cast per experience phase and
+                  none inside a step over 4 steps, device operations per
+                  decode step with and without the copy. ``adamw_8bit``:
+                  on the card against the CPU, then full fine-tuning with
+                  state bytes equal to the formula and a checkpoint resumed
+                  ``torch.equal``. Launches counted from 0 per full-width
+                  leg and summed.
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -309,6 +337,7 @@ line needs all of them).
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -323,7 +352,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability", "production_serving", "serving_fleet", "families_seq2seq")
+          "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1295,14 +1324,18 @@ def phase_engine(ctx):
 
 def engine_passes(ctx, prompts, budgets, quant, state):
     """phase_engine's warm-up and measured pass of one KV layout, their
-    report lines and checks; returns the weights for the next engine."""
+    report lines and checks; returns the weights for the next engine. The
+    warm-up serves the traffic's first ``SLOTS`` requests (one wave of every
+    slot; the whole traffic until PR 14, cut for the script's time limit),
+    the measured pass all of it."""
     import torch
 
     from trlx_tpu_torch.ops import _kernels
 
     eng, state = full_width_engine(quant, state)
     L = eng.trunk.config.num_layers
-    for label in ("warmup", "measured"):
+    for label, prompts, budgets in (("warmup", prompts[:SLOTS], budgets[:SLOTS]),
+                                    ("measured", prompts, budgets)):
         before = dict(_kernels.launches())
         waves0, steps0 = eng.stats.prefill_waves, eng.stats.decode_steps
         prefill0, decode0 = eng.stats.prefill_s, eng.stats.decode_s
@@ -1796,8 +1829,11 @@ def parity_trainer(device, state=None, optimizer=None, **over):
         if trainer.frozen_branch is not None:
             trainer.frozen_branch.load_state_dict(
                 branch_param_subtree(trunk, trainer.branch_start, trainer.model_config))
-        else:
+        elif trainer.ref_model is not None:
             trainer.ref_model.load_state_dict(trunk)
+        elif trainer._ref_host is not None:  # offload_ref: the host copy
+            trainer._setup_ref_offload(trunk)
+        # peft: the reference is the trunk itself, adapters disabled
     prompts = PromptPipeline(byte_prompts(16, 8, 40, SEED + 3), 48, trainer.tokenizer)
     trainer.add_prompt_pipeline(prompts)
     return trainer
@@ -1826,7 +1862,7 @@ def phase_hydra_parity(ctx):
         raise AssertionError(f"hydra PPOTrainer on the card disagrees with the CPU trainer: {report}")
 
 
-def train_parity_report(over, tie_dtype=None, optimizer=None):
+def train_parity_report(over, tie_dtype=None, optimizer=None, state_fn=None):
     """(report, ok) of parity_trainer (with ``over``) on the card against the
     CPU: prepare_learning (one experience phase), then 2 optimizer steps.
     Tokens must be identical — or, with ``tie_dtype``, may split at a near
@@ -1835,7 +1871,8 @@ def train_parity_report(over, tie_dtype=None, optimizer=None):
     tokens are identical (``elements_compared``); losses/* within 1e-3
     relative + 1e-6 when every token is identical (after a split the two
     learners train on different batches: ``losses_compared`` false). Also:
-    no blocks left in a serving engine."""
+    no blocks left in a serving engine. ``state_fn`` edits the shared
+    initial weights (after the x3)."""
     import shutil
 
     import numpy as np
@@ -1844,6 +1881,8 @@ def train_parity_report(over, tie_dtype=None, optimizer=None):
     cpu = parity_trainer("cpu", optimizer=optimizer, **over)
     # sharper logits than the 0.02 init, so greedy ties are far above float noise
     state = {k: v * 3 if v.is_floating_point() else v for k, v in cpu.model.state_dict().items()}
+    if state_fn is not None:
+        state = state_fn(state)
     cpu = parity_trainer("cpu", state, optimizer=optimizer, **over)
     card = parity_trainer("cuda", state, optimizer=optimizer, **over)
     runs, blocks = {}, []
@@ -2507,11 +2546,18 @@ def phase_sft_parity(ctx):
         raise AssertionError(f"SFTTrainer on the card disagrees with the CPU trainer: {report}")
 
 
+#: the PPO gates' last step: the gate reads the eval at step 100, which a run
+#: to step 100 still makes (its final eval); 120 until PR 14 cut the 20
+#: steps past the gate for the script's time limit
+GATE_PPO_STEPS = 100
+
+
 def phase_randomwalks(ctx):
     """The North star's gate run by the port alone
     (``scripts/torch_ppo_randomwalks.py``): the randomwalks example's recipe
     on the card, f32 — 300 SFT steps at lr 1e-3 on the sampled walks,
-    ``save_pretrained``, then PPO from the exported directory to step 120.
+    ``save_pretrained``, then PPO from the exported directory to step
+    ``GATE_PPO_STEPS`` (100).
     The eval ``reward/mean`` at the first eval at or after step 100 must be
     >= 0.7. Prints the whole eval curve beside the JAX package's recorded
     one, the SFT stage's final loss and the seconds."""
@@ -2524,7 +2570,7 @@ def phase_randomwalks(ctx):
     # the SFT export is kept for randomwalks_hydra, whose recipe has the same SFT stage
     export = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_walks_"), "sft_model")
     t0 = time.perf_counter()
-    report = run_gate(pretrain_steps=300, ppo_steps=120, export_to=export)
+    report = run_gate(pretrain_steps=300, ppo_steps=GATE_PPO_STEPS, export_to=export)
     ctx["randomwalks_export"] = export
     torch.cuda.synchronize()
     emit({"phase": "randomwalks", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
@@ -2546,7 +2592,7 @@ def phase_randomwalks_hydra(ctx):
     from scripts.torch_ppo_randomwalks import run_gate
 
     t0 = time.perf_counter()
-    report = run_gate(pretrain_steps=300, ppo_steps=120, num_layers_unfrozen=2,
+    report = run_gate(pretrain_steps=300, ppo_steps=GATE_PPO_STEPS, num_layers_unfrozen=2,
                       warm_start=ctx.get("randomwalks_export"))
     torch.cuda.synchronize()
     emit({"phase": "randomwalks_hydra", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
@@ -3440,7 +3486,7 @@ def phase_randomwalks_async(ctx):
     from scripts.torch_ppo_randomwalks import run_gate
 
     t0 = time.perf_counter()
-    report = run_gate(pretrain_steps=300, ppo_steps=120, warm_start=ctx.get("randomwalks_export"),
+    report = run_gate(pretrain_steps=300, ppo_steps=GATE_PPO_STEPS, warm_start=ctx.get("randomwalks_export"),
                       async_max_staleness=1)
     torch.cuda.synchronize()
     emit({"phase": "randomwalks_async", "card": ctx.get("smi"), "seconds": time.perf_counter() - t0, **report})
@@ -3449,12 +3495,16 @@ def phase_randomwalks_async(ctx):
         raise AssertionError(f"randomwalks_async phase: below the bar: {report['gate_eval']}")
 
 
-#: the resilience phase's preempt leg: 8 steps, a checkpoint every 4, and an
-#: eval every 3 (64 rollouts are two learner batches, so an experience epoch
-#: ends at every even step; the SIGTERM is sent during the eval after step
-#: 3, and the flag is polled after step 4, the end of an epoch: only there
-#: does the reference's resume continue the same experience)
-RES_STEPS, RES_CKPT_EVERY, RES_EVAL_EVERY = 8, 4, 3
+#: the resilience phase's preempt leg: 4 steps, a checkpoint every 2, and an
+#: eval every step (64 rollouts are two learner batches, so an experience
+#: epoch ends at every even step; the SIGTERM is sent during the eval after
+#: step 1, and the flag is polled after step 2, the end of an epoch: only
+#: there does the reference's resume continue the same experience). PR 14
+#: halved it from 8 steps (a checkpoint every 4, an eval every 3) to keep
+#: the whole script inside its time limit.
+RES_STEPS, RES_CKPT_EVERY, RES_EVAL_EVERY = 4, 2, 1
+#: the preempted run stops at the end of the first experience epoch
+RES_STOP = RES_STEPS // 2
 #: the supervisor leg's wedge timer: above a full-width produce iteration
 RES_WEDGE_TIMEOUT_S = 6.0
 
@@ -3510,15 +3560,15 @@ def phase_resilience(ctx):
     width with the train phase's traffic (:func:`resilience_config`). Four
     legs:
 
-    1. Preempt and resume: an uninterrupted run of 8 steps (a checkpoint
-       every 4); the same run with resilience on (and ``reward:2``, retried),
+    1. Preempt and resume: an uninterrupted run of 4 steps (a checkpoint
+       every 2); the same run with resilience on (and ``reward:2``, retried),
        whose reward_fn sends a real SIGTERM to its own process during the
-       eval after step 3, so the run writes a committed emergency checkpoint
-       at step 4 (a blocking write through the async writer, timed against
+       eval after step 1, so the run writes a committed emergency checkpoint
+       at step 2 (a blocking write through the async writer, timed against
        ``grace_period_s``) and returns; a fresh trainer auto-resumes and
-       finishes to step 8. Bar: the parameters and AdamW state at step 8
-       and the stats of steps 5-8 equal to the uninterrupted run's
-       (``torch.equal`` / ``==``), and the interrupted run's steps 1-4
+       finishes to step 4. Bar: the parameters and AdamW state at step 4
+       and the stats of steps 3-4 equal to the uninterrupted run's
+       (``torch.equal`` / ``==``), and the interrupted run's steps 1-2
        equal to the uninterrupted run's (the retried reward faults change
        nothing). On a mismatch a second uninterrupted run tells a
        non-deterministic op (the two uninterrupted runs differ) from a
@@ -3616,7 +3666,7 @@ def phase_resilience(ctx):
 
         def signalling_reward(samples, prompts, outputs, **kw):
             calls["n"] += 1
-            if calls["n"] == 6:  # eval@0, 2 + 2 rollout chunks, then the eval after step 3
+            if calls["n"] == 4:  # eval@0, 2 rollout chunks, then the eval after step 1
                 if not isinstance(getattr(signal.getsignal(signal.SIGTERM), "__self__", None), PreemptionHandler):
                     raise AssertionError("SIGTERM is not trapped by the PreemptionHandler: not sending it")
                 os.kill(os.getpid(), signal.SIGTERM)
@@ -3634,19 +3684,20 @@ def phase_resilience(ctx):
         resumed = train("resumed", resilience_config(ckpt, **{"train.resilience": res_cfg}))
         resumed_state = learner_state(resumed)
         exact = {
-            "params and AdamW at step 8": same_state(whole_state, resumed_state),
-            "stats of steps 5-8": stats_of("resumed") == stats_of("whole")[4:],
-            "stats of steps 1-4 (reward:2 retried)": stats_of("first") == stats_of("whole")[:4],
+            f"params and AdamW at step {RES_STEPS}": same_state(whole_state, resumed_state),
+            f"stats of steps {RES_STOP + 1}-{RES_STEPS}": stats_of("resumed") == stats_of("whole")[RES_STOP:],
+            f"stats of steps 1-{RES_STOP} (reward:2 retried)": stats_of("first") == stats_of("whole")[:RES_STOP],
         }
         leg1 = {"leg": "preempt_resume", "seconds": time.perf_counter() - t0, "emergency_checkpoint": emergency,
                 "final_iter": resumed.iter_count, "exact": exact,
-                "stats_max_rel_diff_5_8": max_rel_diff(stats_of("whole")[4:], stats_of("resumed"))}
+                "stats_max_rel_diff_resumed": max_rel_diff(stats_of("whole")[RES_STOP:], stats_of("resumed"))}
         checks.update({
-            "a real SIGTERM stopped the run at step 4": emergency["iter"] == 4 and "SIGTERM" in (emergency["reason"] or ""),
-            "the emergency checkpoint is committed": is_committed(os.path.join(ckpt, "checkpoint_4")),
+            f"a real SIGTERM stopped the run at step {RES_STOP}": emergency["iter"] == RES_STOP
+            and "SIGTERM" in (emergency["reason"] or ""),
+            "the emergency checkpoint is committed": is_committed(os.path.join(ckpt, f"checkpoint_{RES_STOP}")),
             "the emergency write fits the grace window": emergency["seconds"] < emergency["grace_period_s"],
             "reward:2 retried": emergency["retries"] == 2.0,
-            "the resumed run finished at step 8": resumed.iter_count == RES_STEPS,
+            f"the resumed run finished at step {RES_STEPS}": resumed.iter_count == RES_STEPS,
         })
         if all(exact.values()):
             checks["resume exact (torch.equal)"] = True
@@ -3660,7 +3711,7 @@ def phase_resilience(ctx):
             # a resume fault if the card repeats itself; else the op that does not
             # is recorded and the leg is held to the trainer-parity limit
             checks["resume exact, or the card is not deterministic and within 1e-3"] = (
-                not deterministic and leg1["stats_max_rel_diff_5_8"] <= 1e-3)
+                not deterministic and leg1["stats_max_rel_diff_resumed"] <= 1e-3)
         emit({**report, **leg1})
 
         # ---- leg 2: async checkpoint under steps (the resumed trainer)
@@ -3911,8 +3962,9 @@ def phase_observability(ctx):
     and traffic (64 sampled rollouts of 128 tokens, 4 steps of 32 in 2
     microbatches, bf16 compute, f32 params and AdamW). Three legs:
 
-    1. Inert, then on: four 4-step runs in turns (off, on, on, off). Bar:
-       every ``losses/*`` stat ``==`` across the four runs, step for step;
+    1. Inert, then on: two 4-step runs (off, then on; four in turns until
+       PR 14 cut them for time). Bar: every ``losses/*`` stat ``==`` across
+       the two runs, step for step;
        with the layer on, the span, step-time, throughput and memory stats
        present (``mfu`` in (0, 1] and ``model_tflops_per_sec / mfu`` the
        table's peak for the card's name), no host RSS, the accountant's
@@ -4090,9 +4142,10 @@ def phase_observability(ctx):
     checks, report = {}, {"phase": "observability", "card": smi, "device_kind": kind, "peak_tflops": peak}
     t_phase = time.perf_counter()
     try:
-        # ---- leg 1: inert, then on (off, on, on, off)
+        # ---- leg 1: inert, then on (off, on; cut from off, on, on, off in
+        # PR 14 to keep the whole script inside its time limit)
         t0 = time.perf_counter()
-        order = ("off_1", "on_1", "on_2", "off_2")
+        order = ("off_1", "on_1")
         with _LogCapture() as logs:
             for name in order:
                 trainer = train(name, obs_config(os.path.join(root, name), name.startswith("on")))
@@ -4106,11 +4159,11 @@ def phase_observability(ctx):
         series = read_jsonl_series(os.path.join(logs_dir, "series.jsonl"))
         prom = read_prometheus(os.path.join(logs_dir, "metrics.prom"))
         checks.update({
-            "4 runs of 4 steps": all(len(runs[name]["steps"]) == 4 for name in order),
-            "losses/* equal across off, on, on, off": all(losses_of(name) == losses_of("off_1") for name in order)
+            "2 runs of 4 steps": all(len(runs[name]["steps"]) == 4 for name in order),
+            "losses/* equal across off, on": all(losses_of(name) == losses_of("off_1") for name in order)
             and all(losses_of("off_1")),
-            "off: no obs stats asked": runs["off_1"]["obs"] == runs["off_2"]["obs"] == [],
-            **obs_checks(("on_1", "on_2")),
+            "off: no obs stats asked": runs["off_1"]["obs"] == [],
+            **obs_checks(("on_1",)),
             "accountant's parameter count = the trained module's": accountant is not None
             and accountant.n_params == n_params == n_module,
             "trace.json: generate, learn, score": {"generate", "learn", "score"} <= span_names,
@@ -4120,9 +4173,8 @@ def phase_observability(ctx):
         for name in order:
             emit_steps(name, "inert_then_on")
         emit({**report, "leg": "inert_then_on", "seconds": time.perf_counter() - t0, "order": order,
-              "n_params": n_params, **run_summary(order), "mfu": mfu_by_kind(("on_1", "on_2")),
-              "tokens_per_sec_learner_only": [runs[name]["obs"][1]["throughput/tokens_per_sec"]
-                                              for name in ("on_1", "on_2")],
+              "n_params": n_params, **run_summary(order), "mfu": mfu_by_kind(("on_1",)),
+              "tokens_per_sec_learner_only": [runs["on_1"]["obs"][1]["throughput/tokens_per_sec"]],
               "bytes_limit_gib": runs["on_1"]["obs"][-1]["mem/bytes_limit_gb"],
               "span_names": sorted(span_names), "series_keys": len(series), "losses_step_1": losses_of("off_1")[0]})
 
@@ -4547,8 +4599,8 @@ def ps_stream_overlap(ctx):
     block 16) with ``stream_overlap`` (2 reward workers, microbuckets of
     chunk_size) and ``serving_resilience`` (the supervisor wraps the
     engine), the reward stand-in sleeping PS_REWARD_SLEEP_S a sample. A
-    warm-up phase (prepare_learning), then serial and streamed experience
-    phases in turns on the same weights and prompts, a serialized phase
+    warm-up phase (prepare_learning), then a serial and a streamed
+    experience phase on the same weights and prompts, a serialized phase
     (TRLX_OVERLAP_SEED_REGRESSION=serialize), a streamed phase under
     ``serving-decode:1,producer-wedge:1``, and one PPO epoch consuming the
     staged learner batches of that phase."""
@@ -4612,10 +4664,10 @@ def ps_stream_overlap(ctx):
             runs.append(run)
             return run
 
+        # one serial and one streamed phase (in turns with a repeat of each
+        # until PR 14 cut them for the script's time limit)
         serial = experience("serial", False)
         streamed = experience("streamed", True)
-        streamed2 = experience("streamed", True)
-        serial2 = experience("serial", False)
         serialized = experience("serialize", True, serialize=True)
         chaotic = experience("chaos", True, chaos_spec="serving-decode:1,producer-wedge:1")
         # one PPO epoch over the chaos phase's store, consuming its staged batches
@@ -4655,9 +4707,9 @@ def ps_stream_overlap(ctx):
           "learner_steps": len(steps), "staged_batches": staged0, "consumed_from_stage": sum(p is not None for p in pops),
           "chaos_rows_differing_from_serial": differing, "losses": {k: v for k, v in steps[-1].items()
                                                                     if k.startswith("losses/")}})
-    frac = [r["overlap"]["fraction"] for r in (streamed, streamed2)]
+    frac = [streamed["overlap"]["fraction"]]
     checks = {
-        "streamed tokens and store order == serial": dump(streamed) == ref == dump(streamed2) == dump(serial2),
+        "streamed tokens and store order == serial": dump(streamed) == ref,
         "raw scores == serial": streamed["calls"] == serial["calls"] and len(serial["calls"]) == n,
         "logprobs and values within 2e-2 x max(1, |ref|)": close(streamed, serial),
         "serialize: fraction below the streamed runs' and 0.5": serialized["overlap"]["fraction"] < min(
@@ -5563,73 +5615,91 @@ def fs_state_bytes_formula(name, params):
     return 4 * total
 
 
-def fs_optimizer_run(ctx, name, device="cuda"):
-    """The train phase's gpt2 trainer at full width with optimizer ``name``:
-    one experience phase (64 rollouts of 128 sampled tokens), then 2 learner
-    steps of 32 rollouts in 2 microbatches; launch counts from 0 over the
-    run. Returns (report, checks, launches)."""
+def fs_optimizer_runs(ctx, device="cuda"):
+    """The train phase's gpt2 trainer at full width: one experience phase
+    (64 rollouts of 128 sampled tokens), then for each optimizer of
+    ``FS_OPTIMIZERS`` the initial weights restored, the optimizer block
+    replaced and ``setup_optimizer`` rebuilding the optimizer and its
+    schedule, and 2 learner steps of 32 rollouts in 2 microbatches on the
+    phase's first two batches (each optimizer ran its own experience phase
+    until PR 14, which shared it to keep the whole script inside its time
+    limit). Launch counts from 0 over each optimizer's steps, the experience
+    phase's with the first. Returns {name: (report, checks, launches)}."""
     import shutil
     import tempfile
 
     import numpy as np
     import torch
 
-    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.configs import OptimizerConfig
     from trlx_tpu_torch.ops import _kernels
     from trlx_tpu_torch.pipeline import PromptPipeline
     from trlx_tpu_torch.utils.loading import get_trainer
     from trlx_tpu_torch.utils.optim import state_bytes
 
-    cfg = with_optimizer(full_width_train_config(tempfile.mkdtemp(prefix=f"chip_smoke_fs_{name}_")), name,
-                         dict(lr=FS_OPT_LR, **FS_OPTIMIZERS[name]))
+    first = next(iter(FS_OPTIMIZERS))
+    cfg = with_optimizer(full_width_train_config(tempfile.mkdtemp(prefix="chip_smoke_fs_optimizers_")), first,
+                         dict(lr=FS_OPT_LR, **FS_OPTIMIZERS[first]))
     trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
     trainer.add_prompt_pipeline(PromptPipeline(byte_prompts(64, 64, 128, SEED + 1), TRAIN_P, trainer.tokenizer))
-    params0 = [p.detach().clone() for p in trainer.trainable_params]
+    state0 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     on_card = device != "cpu"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     sync()
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
     t0 = time.perf_counter()
     trainer.prepare_learning()
     sync()
     experience_s = time.perf_counter() - t0
-    stats, step_s = [], []
-    for batch in list(trainer.create_train_dataloader())[:2]:
-        t1 = time.perf_counter()
-        stats.append(trainer.train_step(batch))
-        sync()
-        step_s.append(time.perf_counter() - t1)
-    launches = _kernels.launches()
+    batches = list(trainer.create_train_dataloader())[:2]
     L, num_mb = trainer.model_config.num_layers, TRAIN_B // TRAIN_MB
-    got_bytes, want_bytes = state_bytes(trainer.optimizer), fs_state_bytes_formula(name, trainer.trainable_params)
-    report = {
-        "optimizer": name, "kwargs": dict(lr=FS_OPT_LR, **FS_OPTIMIZERS[name]), "card": ctx.get("smi"),
-        "experience_s": experience_s, "step_s": step_s,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
-        "state_bytes": got_bytes, "state_bytes_formula": want_bytes,
-        "trained_params": sum(p.numel() for p in trainer.trainable_params),
-        "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats], "launches": launches,
-    }
-    checks = {
-        "2 learner steps": len(stats) == 2,
-        "losses finite": all(np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/")),
-        "params moved": any(not torch.equal(a, p.detach()) for a, p in zip(params0, trainer.trainable_params)),
-        "state bytes == formula": got_bytes == want_bytes,
-        "K2 and K3 once per layer and microbatch": launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 2 * L * num_mb,
-        "K1 launched": launches["flash_fwd"] > 0,
-        "no paged kernel": launches["paged_decode"] == launches["paged_verify"] == 0,
-    }
+    out = {}
+    for name, kwargs in FS_OPTIMIZERS.items():
+        if name != first:
+            _kernels.reset_launches()
+            trainer.model.load_state_dict(state0)
+            trainer.config.optimizer = OptimizerConfig(name=name, kwargs=dict(lr=FS_OPT_LR, **kwargs))
+            trainer.setup_optimizer()
+            trainer._train_step_fn = None
+        params0 = [p.detach().clone() for p in trainer.trainable_params]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        stats, step_s = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            stats.append(trainer.train_step(batch))
+            sync()
+            step_s.append(time.perf_counter() - t1)
+        launches = _kernels.launches()
+        got_bytes, want_bytes = state_bytes(trainer.optimizer), fs_state_bytes_formula(name, trainer.trainable_params)
+        report = {
+            "optimizer": name, "kwargs": dict(lr=FS_OPT_LR, **kwargs), "card": ctx.get("smi"),
+            "experience_s": experience_s if name == first else None, "step_s": step_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
+            "state_bytes": got_bytes, "state_bytes_formula": want_bytes,
+            "trained_params": sum(p.numel() for p in trainer.trainable_params),
+            "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats], "launches": launches,
+        }
+        checks = {
+            "2 learner steps": len(stats) == 2,
+            "losses finite": all(np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/")),
+            "params moved": any(not torch.equal(a, p.detach()) for a, p in zip(params0, trainer.trainable_params)),
+            "state bytes == formula": got_bytes == want_bytes,
+            "K2 and K3 once per layer and microbatch":
+                launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 2 * L * num_mb,
+            "K1 launched": launches["flash_fwd"] > 0,
+            "no paged kernel": launches["paged_decode"] == launches["paged_verify"] == 0,
+        }
+        out[name] = (report, checks, launches)
     shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
     del trainer
     if on_card:
         torch.cuda.empty_cache()
-    return report, checks, launches
+    return out
 
 
 def fs_optimizers(ctx):
-    """Leg ``optimizers``: :func:`fs_optimizer_run` for sgd (momentum 0.9,
+    """Leg ``optimizers``: :func:`fs_optimizer_runs` for sgd (momentum 0.9,
     decay 0.01), lion, adafactor and rmsprop, every recorded K1/K2/K3 shape
     held against the plain versions, then each on the card against the CPU
     (``train_parity``'s 2-layer f32 trainer at lr 1e-3: tokens identical,
@@ -5637,8 +5707,7 @@ def fs_optimizers(ctx):
     seen, checks, launches = {}, {}, {}
     restore = record_kernel_shapes(seen)
     try:
-        for name in FS_OPTIMIZERS:
-            report, run_checks, run_launches = fs_optimizer_run(ctx, name)
+        for name, (report, run_checks, run_launches) in fs_optimizer_runs(ctx).items():
             emit({"phase": "families_seq2seq", "leg": "optimizers", **report})
             checks.update({f"{name}: {k}": ok for k, ok in run_checks.items()})
             launches = {k: launches.get(k, 0) + v for k, v in run_launches.items()}
@@ -6018,13 +6087,13 @@ method.init_kl_coef:
   values: [0.0, 0.01]
 pretrain_steps:
   strategy: "choice"
-  values: [20]
+  values: [5]
 train.total_steps:
   strategy: "choice"
-  values: [4]
+  values: [2]
 train.eval_interval:
   strategy: "choice"
-  values: [2]
+  values: [1]
 train.tracker:
   strategy: "choice"
   values: [null]
@@ -6036,8 +6105,9 @@ train.checkpoint_dir:
 
 def fs_sweep(ctx, device="cuda"):
     """Leg ``sweep``: ``python -m trlx_tpu_torch.sweep
-    scripts/torch_ppo_randomwalks.py`` over a 2-trial grid (20 SFT steps, 4
-    PPO steps, evals at 0, 2 and 4), one trial at a time on the card: the
+    scripts/torch_ppo_randomwalks.py`` over a 2-trial grid (5 SFT steps, 2
+    PPO steps, evals at 0, 1 and 2; 20, 4 and every 2 until PR 14 cut them
+    for the script's time limit), one trial at a time on the card: the
     results jsonl holds both trials, each with rc 0 and its reward/mean, and
     the markdown report is written."""
     import shutil
@@ -6096,6 +6166,607 @@ def phase_families_seq2seq(ctx):
     emit({"phase": "families_seq2seq", "legs": legs, "launches": total, "card": ctx.get("smi")})
     if failed:
         raise AssertionError(f"families_seq2seq phase: {failed}")
+
+
+# --------------------------------------------------------------- peft_memory
+
+#: ``examples/ppo_sentiments_peft.py``'s adapter config, and prefix / prompt tuning
+PM_LORA = {"peft_type": "LORA", "r": 8, "lora_alpha": 16, "target_modules": ["q_proj", "v_proj"]}
+PM_PEFT = {"lora": PM_LORA, "prefix": {"peft_type": "PREFIX_TUNING", "num_virtual_tokens": 8},
+           "prompt": {"peft_type": "PROMPT_TUNING", "num_virtual_tokens": 8}}
+PM_ADAPTERS = ("lora_a", "lora_b", "prefix_k", "prefix_v", "prompt_embeddings")
+PM_REMAT = ("full", "per_layer", "nothing_saveable", "dots_saveable")
+#: gpt2-small's trunk: 124,439,808 f32 parameters, the full-copy reference's bytes
+PM_REF_BYTES = 124_439_808 * 4
+PM_8BIT = dict(lr=1e-5, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6)
+
+
+def pm_trainer(tag, over, device="cuda", optimizer=None):
+    """The train phase's gpt2 trainer at full width (64 rollouts of 128
+    sampled tokens a phase, steps of 32 in 2 microbatches) with ``over``;
+    ``optimizer`` = (name, kwargs) replaces the optimizer block."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.update(full_width_train_config(tempfile.mkdtemp(prefix=f"chip_smoke_pm_{tag}_")), over)
+    if optimizer is not None:
+        cfg = with_optimizer(cfg, *optimizer)
+    trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
+    trainer.add_prompt_pipeline(PromptPipeline(byte_prompts(64, 64, 128, SEED + 1), TRAIN_P, trainer.tokenizer))
+    return trainer
+
+
+def pm_drive(trainer, steps, on_step=None):
+    """prepare_learning (one experience phase), then ``steps`` learner
+    steps, a new experience phase whenever the store's batches run out.
+    Returns (stats, step seconds, experience seconds)."""
+    import torch
+
+    stats, step_s, exp_s = [], [], []
+    t0 = time.perf_counter()
+    trainer.prepare_learning()
+    torch.cuda.synchronize()
+    exp_s.append(time.perf_counter() - t0)
+    while True:
+        for batch in list(trainer.create_train_dataloader()):
+            t1 = time.perf_counter()
+            stats.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            trainer.iter_count += 1
+            if on_step is not None:
+                on_step(trainer)
+            if len(stats) == steps:
+                return stats, step_s, exp_s
+        t0 = time.perf_counter()
+        trainer.post_epoch_callback(0)
+        torch.cuda.synchronize()
+        exp_s.append(time.perf_counter() - t0)
+
+
+def pm_trunk(trainer):
+    """Copies of the trunk's non-adapter parameters."""
+    return {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+            if n.startswith("transformer.") and n.rsplit(".", 1)[-1] not in PM_ADAPTERS}
+
+
+def pm_trunk_unchanged(trainer, trunk0):
+    """The trunk ``torch.equal`` to ``trunk0``, with no gradient and no
+    optimizer state."""
+    import torch
+
+    named = dict(trainer.model.named_parameters())
+    return all(torch.equal(named[n], v) and named[n].grad is None and named[n] not in trainer.optimizer.state
+               for n, v in trunk0.items())
+
+
+def pm_finite(stats):
+    import numpy as np
+
+    return all(np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/"))
+
+
+def pm_seeded_lora_b(state):
+    """The parity runs' initial weights with every ``lora_b`` drawn from the
+    seed (at init it is 0 and LoRA a no-op)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    return {k: (torch.randn(v.shape, generator=gen) * 0.05 if k.endswith(".lora_b") else v) for k, v in state.items()}
+
+
+def pm_peft_parity(ctx):
+    """Leg ``peft_parity``: each peft type on the card against the CPU with
+    ``train_parity``'s trainer (2 layers, f32, greedy, ``lora_b`` drawn from
+    the seed): one experience phase (its forwards) and 2 steps, held to the
+    hydra-parity limits. Not a main path: its launches are not counted."""
+    reports, checks = {}, {}
+    for kind, peft in PM_PEFT.items():
+        report, ok = train_parity_report({"model.peft_config": peft}, state_fn=pm_seeded_lora_b)
+        reports[kind] = report
+        checks[f"{kind}: card == CPU"] = ok
+    return checks, None, reports
+
+
+def pm_lora_ppo(ctx):
+    """Leg ``lora_ppo``: LoRA (r 8, alpha 16, q_proj and v_proj) at gpt2
+    full width through ``train.serving``, 4 steps (two experience phases):
+    no reference copy, the trunk ``torch.equal`` to its initial weights with
+    no gradient and no optimizer state, AdamW's moments 8 B per adapter and
+    head parameter; the export merges the adapters (its logits against the
+    adapter forward, f32, within the f32 kernel-agreement limit) and its
+    adapter file reloads ``torch.equal``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trlx_tpu_torch.models.hf_loading import load_adapters, load_pretrained
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.ops import _kernels
+
+    tr = pm_trainer("lora", {"model.peft_config": PM_LORA, "train.serving": {"enabled": True, "block_size": 16}})
+    trunk0 = pm_trunk(tr)
+    named = dict(tr.model.named_parameters())
+    n_adapter = sum(p.numel() for n, p in named.items() if n.rsplit(".", 1)[-1] in PM_ADAPTERS)
+    n_head = sum(p.numel() for n, p in named.items() if not n.startswith("transformer."))
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    stats, step_s, exp_s = pm_drive(tr, 4)
+    launches = _kernels.launches()
+    peak = torch.cuda.max_memory_allocated() - start
+    moments = sum(v.numel() * v.element_size() for st in tr.optimizer.state.values() for k, v in st.items()
+                  if k in ("exp_avg", "exp_avg_sq"))
+    L, num_mb = tr.model_config.num_layers, TRAIN_B // TRAIN_MB
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_pm_export_")
+    t0 = time.perf_counter()
+    tr.save_pretrained(out)
+    save_s = time.perf_counter() - t0
+    f32 = {"compute_dtype": "float32", "attention_impl": "flash"}
+    config, state, _ = load_pretrained(out, f32)
+    with torch.device(tr.device):
+        merged = TransformerLM(config)
+        adapter = TransformerLM(tr.model_config.replace(compute_dtype=torch.float32))
+    merged.load_state_dict(state)
+    adapter.load_state_dict(tr.model.transformer.state_dict())
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    ids = torch.randint(0, 256, (8, 96), device=tr.device, generator=gen, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[1, :30] = 0
+    with torch.no_grad():
+        lm, la = merged(ids, mask)[0], adapter(ids, mask)[0]
+    keep = mask.bool()
+    merge_err = float((lm - la)[keep].abs().max())
+    merge_limit = 1e-4 * max(1.0, float(la[keep].abs().max()))
+    full = tr.model.state_dict()
+    restored = load_adapters(out, {k: torch.zeros_like(v) for k, v in full.items()})
+    adapters_equal = all(torch.equal(restored[k], v) for k, v in full.items() if k.rsplit(".", 1)[-1] in PM_ADAPTERS)
+    shutil.rmtree(out, ignore_errors=True)
+    report = {"steps": len(stats), "step_s": step_s, "experience_s": exp_s, "peak_above_start_gib": peak / 2 ** 30,
+              "adapter_params": n_adapter, "head_params": n_head, "adamw_moment_bytes": moments,
+              "adamw_moment_bytes_formula": 8 * (294_912 + 1_182_721), "export_s": save_s,
+              "merged_vs_adapter_max_abs_err_f32": merge_err, "merge_limit": merge_limit,
+              "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats],
+              "serving_blocks_in_use": tr._serving_engine.allocator.blocks_in_use, "launches": launches}
+    checks = {
+        "4 steps, finite losses": len(stats) == 4 and pm_finite(stats),
+        "no reference copy, no branch": tr.ref_model is None and tr.frozen_branch is None and tr.peft_base_ref,
+        "trunk torch.equal, no grad, no state": pm_trunk_unchanged(tr, trunk0),
+        "adapters 294,912 and head 1,182,721 parameters": n_adapter == 294_912 and n_head == 1_182_721,
+        "AdamW moments == (294,912 + 1,182,721) x 8 B": moments == 8 * (294_912 + 1_182_721),
+        "merged export == adapter forward (f32)": merge_err <= merge_limit,
+        "adapters file reloads torch.equal": adapters_equal,
+        "K2 and K3 once per layer and microbatch":
+            launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 4 * L * num_mb,
+        "K1 and K4 launched (engine prefill and decode, scoring, loss)":
+            launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+        "no block left": tr._serving_engine.allocator.blocks_in_use == 0,
+    }
+    tr.on_learn_end()
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr, merged, adapter
+    torch.cuda.empty_cache()
+    return checks, launches, report
+
+
+def pm_prompt_prefix(ctx):
+    """Leg ``prompt_prefix``: prompt tuning and prefix tuning (8 virtual
+    tokens) at gpt2 full width, 2 steps each (the padded generate: the
+    engine refuses virtual rows): prompt tuning runs K1, K2 and K3 (K2 / K3
+    once per layer and microbatch); under prefix tuning the policy's layers
+    attend on the plain path (no K2, no K3, no K1 in generation or the
+    loss), and K1 runs only in the KL reference's forward, the base model
+    with its prefixes disabled, as the reference's base module runs its
+    flash kernel; the trunk unchanged."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    report, checks, total = {}, {}, None
+    num_mb = TRAIN_B // TRAIN_MB
+    for kind in ("prompt", "prefix"):
+        tr = pm_trainer(kind, {"model.peft_config": PM_PEFT[kind]})
+        L = tr.model_config.num_layers
+        trunk0 = pm_trunk(tr)
+        scored = []
+        real_score = tr._score_device
+
+        def counted_score(*a, _real=real_score, **k):
+            scored.append(1)
+            return _real(*a, **k)
+
+        tr._score_device = counted_score
+        n_trained = sum(p.numel() for p in tr.trainable_params)
+        _kernels.reset_launches()
+        stats, step_s, exp_s = pm_drive(tr, 2)
+        launches = _kernels.launches()
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+        report[kind] = {"step_s": step_s, "experience_s": exp_s, "trained_params": n_trained,
+                        "launches": launches, "scoring_calls": len(scored),
+                        "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats]}
+        checks[f"{kind}: 2 steps, finite losses"] = len(stats) == 2 and pm_finite(stats)
+        checks[f"{kind}: trunk unchanged"] = pm_trunk_unchanged(tr, trunk0)
+        checks[f"{kind}: no paged kernel"] = launches["paged_decode"] == launches["paged_verify"] == 0
+        if kind == "prompt":
+            checks["prompt: K1 launched, K2 and K3 per layer and microbatch"] = (
+                launches["flash_fwd"] > 0 and launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 2 * L * num_mb)
+        else:
+            # the policy's layers attend on the plain path; the KL reference
+            # is the base model (prefixes disabled), which the reference
+            # runs through its flash kernel: K1 once per layer and scoring call
+            checks["prefix: no K2 or K3; K1 only in the reference's scoring forward"] = (
+                launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == 0
+                and launches["flash_fwd"] == L * len(scored) > 0)
+        shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+        del tr
+        torch.cuda.empty_cache()
+    return checks, total, report
+
+
+def pm_set_remat(model, policy):
+    """Set every block's remat policy (``run_block`` reads it per call)."""
+    from trlx_tpu_torch.models.transformer import Block
+
+    for m in model.modules():
+        if isinstance(m, Block):
+            m.config = m.config.replace(remat=policy)
+
+
+def pm_remat(ctx):
+    """Leg ``remat``: the train phase's trainer (full fine-tuning), one
+    experience phase, then the same learner batch's forward and backward
+    (2 microbatches, no optimizer step) under ``none`` and each policy, in
+    turns (none first and last): losses and every gradient ``torch.equal``
+    to ``none``'s; K1 launches, peak memory and seconds per policy."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    tr = pm_trainer("remat", {})
+    _kernels.reset_launches()
+    tr.prepare_learning()
+    torch.cuda.synchronize()
+    launches = _kernels.launches()
+    batch = list(tr.create_train_dataloader())[0].to(tr.device)
+    runs, ref = [], None
+    for policy in ("none",) + PM_REMAT + ("none",):
+        pm_set_remat(tr.model, policy)
+        tr.optimizer.zero_grad(set_to_none=True)  # the last run's gradients go
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for mb in batch.split(tr.num_mb):
+            loss, _ = tr.loss_fn(mb)
+            loss.backward()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        run_launches = _kernels.launches()
+        launches = {k: launches[k] + run_launches[k] for k in launches}
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in tr.trainable_params]
+        row = {"policy": policy, "fwd_bwd_s": seconds, "K1": run_launches["flash_fwd"],
+               "K2": run_launches["flash_bwd_dkv"], "K3": run_launches["flash_bwd_dq"],
+               "peak_above_start_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+        if ref is None:
+            ref = ([x.clone() for x in losses], [g.detach().clone() for g in grads])
+        else:
+            row["losses_equal"] = all(torch.equal(a, b) for a, b in zip(ref[0], losses))
+            row["grads_equal"] = all(torch.equal(a, b) for a, b in zip(ref[1], grads))
+            row["grads_max_rel"] = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                                       for a, b in zip(ref[1], grads))
+        runs.append(row)
+        del grads, losses  # nothing but the parameters may hold the gradients into the next run
+    pm_set_remat(tr.model, "none")
+    L, num_mb = tr.model_config.num_layers, TRAIN_B // TRAIN_MB
+    checks = {"losses and gradients torch.equal to none's":
+              all(r.get("losses_equal", True) and r.get("grads_equal", True) for r in runs),
+              "K1 runs again in the backward under every policy":
+                  all(r["K1"] == (2 if r["policy"] != "none" else 1) * L * num_mb for r in runs),
+              "K2 and K3 once per layer and microbatch": all(r["K2"] == r["K3"] == L * num_mb for r in runs)}
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr, batch, ref
+    torch.cuda.empty_cache()
+    return checks, launches, {"runs": runs}
+
+
+def pm_offload_ref(ctx):
+    """Leg ``offload_ref``: the full-copy reference in pinned host memory,
+    the experience phase streamed through the engine (``stream_overlap``):
+    one upload for the phase, released before the learner steps. An upload
+    raises ``memory_allocated`` by the reference's 497,759,232 B (plus the
+    caching allocator's block slack, under 1 MiB a tensor) and its release
+    lowers it by exactly as much (nothing keeps the copy alive); a learner
+    step starts that much lower (within 16 MiB) with the reference released
+    than held; the
+    reference's scoring through the uploaded copy is ``torch.equal`` to a
+    resident copy's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.ops.generation import left_pad_batch
+
+    tr = pm_trainer("offload", {"model.offload_ref": True, "train.serving": {
+        "enabled": True, "block_size": 16, "stream_overlap": True}})
+    pinned = all(v.is_pinned() for v in tr._ref_host.values())
+    ref_bytes = sum(v.numel() * v.element_size() for v in tr._ref_host.values())
+    # the caching allocator hands a tensor its whole block when the rest
+    # would be under 1 MiB, so an upload may count up to 1 MiB a tensor more
+    slack = len(tr._ref_host) * 2 ** 20
+    _kernels.reset_launches()
+    stats, step_s, exp_s = pm_drive(tr, 1)
+    uploads_after_phase, released = tr.ref_uploads, tr._ref_dev is None
+
+    def allocated():
+        gc.collect()  # a collectable cycle freed mid-reading would blur the deltas
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def measured_step(batch):
+        start = allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stats.append(tr.train_step(batch))
+        torch.cuda.synchronize()
+        return start, torch.cuda.max_memory_allocated()
+
+    batches = list(tr.create_train_dataloader())
+    start_released, peak_released = measured_step(batches[0])
+    launches = _kernels.launches()
+    a = allocated()
+    ref = tr._ref_scoring_model()
+    b = allocated()
+    uploaded_equal = all(torch.equal(v.cpu(), tr._ref_host[k]) for k, v in ref.state_dict().items())
+    del ref
+    tr._release_ref()
+    c = allocated()
+    # the reference's scoring: uploaded against a resident copy
+    with torch.device(tr.device):
+        resident = TransformerLM(tr.model_config)
+    resident.load_state_dict(tr._ref_host)
+    resident.requires_grad_(False)
+    elems = list(tr.store.history)[:8]
+    P = max(len(e.query_tensor) for e in elems)
+    R = max(len(e.response_tensor) for e in elems)
+    q, qm = left_pad_batch([e.query_tensor for e in elems], tr.tokenizer.pad_token_id, P)
+    r = np.full((len(elems), R), tr.tokenizer.pad_token_id, np.int32)
+    rm = np.zeros((len(elems), R), np.int32)
+    for i, e in enumerate(elems):
+        r[i, :len(e.response_tensor)] = e.response_tensor
+        rm[i, :len(e.response_tensor)] = 1
+    seq, mask = np.concatenate([q, r], axis=1), np.concatenate([qm, rm], axis=1)
+    _, _, rlp_offload = tr.score(seq, mask, P, R)
+    tr._release_ref()
+    host = tr._ref_host
+    tr._ref_host, tr.ref_model = None, resident
+    _, _, rlp_resident = tr.score(seq, mask, P, R)
+    tr._ref_host, tr.ref_model = host, None
+    del resident
+    # the same step with the reference held on the card
+    tr._pin_ref()
+    start_held, peak_held = measured_step(batches[1])
+    tr._unpin_ref()
+    tr._release_ref()
+    report = {"upload_s": tr.ref_upload_s, "uploads": tr.ref_uploads, "step_s": step_s, "experience_s": exp_s,
+              "ref_bytes": ref_bytes, "ref_tensors": len(tr._ref_host), "alloc_rise_at_upload": b - a,
+              "alloc_fall_at_release": b - c,
+              "step_start_alloc_gib": {"released": start_released / 2 ** 30, "held": start_held / 2 ** 30},
+              "step_peak_gib": {"released": peak_released / 2 ** 30, "held": peak_held / 2 ** 30},
+              "overlap": tr.last_overlap, "launches": launches}
+    checks = {
+        "reference held pinned on the host, none on the card": pinned and tr.ref_model is None,
+        "a streamed phase uploads once and releases": uploads_after_phase == 1 and released,
+        "the reference is gpt2's 124,439,808 f32 parameters": ref_bytes == PM_REF_BYTES,
+        "an upload allocates the reference's bytes (+ <= 1 MiB a tensor)": ref_bytes <= b - a <= ref_bytes + slack,
+        "the release frees all of it": b - c == b - a,
+        "a step starts lower by the upload with the reference released (16 MiB)":
+            abs(start_held - start_released - (b - a)) <= 2 ** 24,
+        "uploaded copy == host copy": uploaded_equal,
+        "scoring torch.equal to a resident reference": bool(np.array_equal(rlp_offload, rlp_resident)),
+        "finite losses": pm_finite(stats),
+        "K1, K2, K3, K4 launched": all(launches[k] > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                                                                 "paged_decode")),
+    }
+    tr.on_learn_end()
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+    return checks, launches, report
+
+
+def pm_decode_kernels(trainer, policy, n_prompts=8):
+    """Device operations per decode step of the padded generate with
+    ``policy`` (torch.profiler's CUDA events for 9 greedy tokens minus 1,
+    over 8), after a warm-up."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = [np.asarray(trainer.tokenizer(p).input_ids, np.int32) for p in byte_prompts(n_prompts, 16, 32, SEED + 5)]
+
+    def run(n):
+        trainer.generate(prompts, eval_mode=True, policy=policy, max_new_tokens=n, min_new_tokens=n,
+                         do_sample=False)
+        torch.cuda.synchronize()
+
+    run(9)
+    counts = {}
+    for n in (1, 9):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(n)
+        counts[n] = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (counts[9] - counts[1]) / 8
+
+
+def pm_rollout_dtype(ctx):
+    """Leg ``rollout_dtype``: ``train.rollout_param_dtype=bfloat16`` on the
+    card against the CPU (``train_parity``'s trainer: tokens identical but
+    at f32 near ties), then at gpt2 full width through ``train.serving``, 4
+    steps: the engine's trunk in bf16, one cast per experience phase and
+    none inside a step; device operations per decode step of the padded
+    generate with the bf16 copy and with the f32 masters (a finding)."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    parity, parity_ok = train_parity_report({"train.rollout_param_dtype": "bfloat16"}, tie_dtype="float32")
+    tr = pm_trainer("rollout", {"train.rollout_param_dtype": "bfloat16",
+                                "train.serving": {"enabled": True, "block_size": 16}})
+    casts_in_steps = []
+
+    def on_step(t):
+        casts_in_steps.append((t.rollout_casts, t._rollout_model is None))
+
+    _kernels.reset_launches()
+    stats, step_s, exp_s = pm_drive(tr, 4, on_step=on_step)
+    launches = _kernels.launches()
+    engine_bf16 = all(p.dtype == torch.bfloat16 for p in tr._serving_engine.trunk.parameters())
+    casts = tr.rollout_casts
+    tr.on_learn_end()
+    per_step_copy = pm_decode_kernels(tr, tr.generation_model())
+    per_step_f32 = pm_decode_kernels(tr, tr.model)
+    report = {"parity": parity, "casts": casts, "casts_seen_after_each_step": casts_in_steps,
+              "step_s": step_s, "experience_s": exp_s,
+              "device_ops_per_decode_step": {"bf16_copy": per_step_copy, "f32_masters": per_step_f32},
+              "launches": launches}
+    checks = {
+        "card == CPU under the setting": parity_ok,
+        "engine trunk bf16, masters f32": engine_bf16 and all(p.dtype == torch.float32 for p in tr.model.parameters()),
+        "one cast per experience phase (2 phases)": casts == 2,
+        "none inside a step, the copy dropped": [c for c, _ in casts_in_steps] == [1, 1, 2, 2] and all(
+            d for _, d in casts_in_steps),
+        "finite losses": pm_finite(stats),
+    }
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+    return checks, launches, report
+
+
+def pm_8bit_formula(params):
+    """The 8-bit AdamW's state bytes: per tensor ceil(n / 256) blocks of 256
+    int8 + 4 (m's scale) + 256 uint8 + 8 (v's log range), plus the int32
+    count."""
+    return sum(-(-p.numel() // 256) * (256 + 4 + 256 + 8) for p in params) + 4
+
+
+def pm_adamw_8bit(ctx):
+    """Leg ``adamw_8bit``: the 8-bit AdamW on the card against the CPU
+    (``train_parity``'s trainer, its limits), then full fine-tuning at gpt2
+    full width: state bytes equal the formula (AdamW's f32 moments beside
+    it), and a checkpoint after the first step resumed in a second trainer
+    makes the second step ``torch.equal`` (parameters and int8 / uint8
+    state)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.utils.optim import state_bytes
+
+    parity, parity_ok = train_parity_report({}, optimizer=("adamw_8bit_bnb", PM_8BIT))
+    over = {"train.save_optimizer": True}
+    a = pm_trainer("8bit_a", over, optimizer=("adamw_8bit_bnb", PM_8BIT))
+    _kernels.reset_launches()
+    stats, step_s, exp_s = pm_drive(a, 1)
+    batch = list(a.create_train_dataloader())[1]
+    ck = tempfile.mkdtemp(prefix="chip_smoke_pm_8bit_ck_")
+    t0 = time.perf_counter()
+    a.save(ck)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sa = a.train_step(batch)
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t0)
+    launches = _kernels.launches()
+    b = pm_trainer("8bit_b", over, optimizer=("adamw_8bit_bnb", PM_8BIT))
+    b.load(ck)
+    b.num_mb, b.rollout_stats = a.num_mb, a.rollout_stats
+    sb = b.train_step(batch)
+    got, want = state_bytes(a.optimizer), pm_8bit_formula(a.trainable_params)
+    n = sum(p.numel() for p in a.trainable_params)
+    same_state = all(
+        torch.equal(a.optimizer.state[pa][k], b.optimizer.state[pb][k]) and
+        a.optimizer.state[pa][k].dtype == b.optimizer.state[pb][k].dtype
+        for pa, pb in zip(a.trainable_params, b.trainable_params) for k in ("m_q", "m_scale", "v_q", "v_scale"))
+    report = {"parity": parity, "state_bytes": got, "state_bytes_formula": want, "adamw_moment_bytes": 8 * n,
+              "trained_params": n, "step_s": step_s, "experience_s": exp_s, "checkpoint_s": save_s,
+              "launches": launches}
+    checks = {
+        "card == CPU": parity_ok,
+        "state bytes == formula": got == want,
+        "resume torch.equal": {k: v for k, v in sa.items() if not k.startswith("time/")} == {
+            k: v for k, v in sb.items() if not k.startswith("time/")} and same_state and all(
+            torch.equal(pa, pb) for pa, pb in zip(a.model.parameters(), b.model.parameters())),
+        "finite losses": pm_finite(stats + [sa]),
+    }
+    for t in (a, b):
+        shutil.rmtree(t.config.train.checkpoint_dir, ignore_errors=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return checks, launches, report
+
+
+def phase_peft_memory(ctx):
+    """A main path: peft and the training-memory options at gpt2 full width
+    (:func:`pm_peft_parity`, :func:`pm_lora_ppo`, :func:`pm_prompt_prefix`,
+    :func:`pm_remat`, :func:`pm_offload_ref`, :func:`pm_rollout_dtype`,
+    :func:`pm_adamw_8bit`). Each full-width leg counts launches from 0 and
+    the phase's path sums them; the card-against-CPU runs are not counted.
+    Every kernel call shape of the full-width legs is recorded and, after
+    the counts are read, held against the plain versions
+    (:func:`check_main_path_shapes`)."""
+    from trlx_tpu_torch.ops import _kernels
+
+    legs, failed, total = {}, [], {name: 0 for name in _kernels.launches()}
+    seen = {}
+    restore = None
+    try:
+        for name, leg in (("peft_parity", pm_peft_parity), ("lora_ppo", pm_lora_ppo),
+                          ("prompt_prefix", pm_prompt_prefix), ("remat", pm_remat), ("offload_ref", pm_offload_ref),
+                          ("rollout_dtype", pm_rollout_dtype), ("adamw_8bit", pm_adamw_8bit)):
+            if restore is None and name != "peft_parity":
+                restore = record_kernel_shapes(seen)  # every call shape of the full-width legs
+            t0 = time.perf_counter()
+            checks, launches, report = leg(ctx)
+            legs[name] = {"s": time.perf_counter() - t0, "launches": launches}
+            if launches is not None:
+                total = {k: total[k] + launches.get(k, 0) for k in total}
+            emit({"phase": "peft_memory", "leg": name, "checks": checks, "report": report, "card": ctx.get("smi")})
+            failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    finally:
+        if restore is not None:
+            restore()
+    ctx["peft_memory_launches"] = total
+    emit({"phase": "peft_memory", "legs": legs, "launches": total, "kernel_shapes": kernel_shapes(seen),
+          "card": ctx.get("smi")})
+    # after the counts are read: each kernel at every shape the legs gave it
+    try:
+        check_main_path_shapes(ctx, seen, "peft_memory", ("flash_fwd", "flash_bwd", "paged_decode"))
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError(f"peft_memory phase: {failed}")
 
 
 def record_kernel_shapes(seen, dead_rows=None):
@@ -6279,7 +6950,8 @@ def kernel_table(ctx):
              "observability": ctx["observability_launches"],
              "production_serving": ctx["production_serving_launches"],
              "serving_fleet": ctx["serving_fleet_launches"],
-             "families_seq2seq": ctx["families_seq2seq_launches"]}
+             "families_seq2seq": ctx["families_seq2seq_launches"],
+             "peft_memory": ctx["peft_memory_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -6328,7 +7000,8 @@ def main(argv=None) -> int:
                "online_grpo": phase_online_grpo, "async": phase_async, "grpo_synthetic": phase_grpo_synthetic,
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
                "observability": phase_observability, "production_serving": phase_production_serving,
-               "serving_fleet": phase_serving_fleet, "families_seq2seq": phase_families_seq2seq}
+               "serving_fleet": phase_serving_fleet, "families_seq2seq": phase_families_seq2seq,
+               "peft_memory": phase_peft_memory}
     phase_env(ctx)
     try:
         for name in phases:

@@ -150,10 +150,15 @@ def test_paged_decode_token_by_token(family, quant):
 
 
 def test_unsupported_config_raises():
-    for over in (dict(scan_layers=True), dict(attention_impl="ring"), dict(lora_r=4),
-                 dict(peft_type="prefix"), dict(sequence_sharding=True)):
+    for over in (dict(scan_layers=True), dict(attention_impl="ring"), dict(sequence_sharding=True)):
         with pytest.raises(NotImplementedError):
             TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], **over))
+    # peft and remat build since the peft / training-memory slice
+    # (tests/test_torch_peft.py, tests/test_torch_training_memory.py)
+    for over in (dict(lora_r=4), dict(peft_type="prefix", num_virtual_tokens=2), dict(remat="dots_saveable")):
+        TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], **over))
+    with pytest.raises(ValueError, match="remat"):
+        TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], remat="everything"))
 
 
 def test_init_params_is_seeded_and_finite():

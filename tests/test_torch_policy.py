@@ -123,12 +123,18 @@ def test_policy_params_from_jax_rejects_mismatched_trees():
 
 
 def test_unported_branches_raise_naming_their_slice():
+    """Stacked layouts still raise; remat and LoRA build since the peft /
+    training-memory slice (a value branch gets adapters as the trunk does,
+    as the JAX policy's value blocks do)."""
     cfg = PRESETS["gpt2"].replace(vocab_size=11, hidden_size=8, num_layers=2, num_heads=2)
-    with pytest.raises(NotImplementedError, match="training-memory slice"):
-        CausalLMWithValueHead(cfg.replace(remat="full"))
     with pytest.raises(NotImplementedError, match="pipeline slice"):
         CausalLMWithValueHead(cfg.replace(scan_layers=True))
-    with pytest.raises(NotImplementedError, match="peft slice"):
-        CausalLMWithValueHead(cfg.replace(lora_r=4))
     with pytest.raises(ValueError, match="exceeds num_layers"):
         CausalLMWithValueHead(cfg, num_value_layers=3)
+    model = CausalLMWithValueHead(cfg.replace(remat="full", lora_r=4), num_value_layers=1).init_params(0)
+    names = [n for n, _ in model.named_parameters()]
+    assert "transformer.layers_0.attn.q_proj.lora_a" in names and "value_blocks_0.attn.v_proj.lora_b" in names
+    ids = torch.tensor([[1, 2, 3, 4]])
+    logits, values, _, _ = model(ids, torch.ones_like(ids))
+    (logits.float().square().mean() + values.square().mean()).backward()
+    assert model.transformer.layers_0.attn.q_proj.lora_b.grad is not None

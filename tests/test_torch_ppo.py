@@ -274,10 +274,15 @@ def test_optimizer_with_cosine_schedule_matches_optax(opt, opt_kwargs):
 
 
 def test_unported_optimizers_raise_naming_their_slice():
+    """Every registry name resolves: the 8-bit AdamW since the
+    training-memory slice (tests/test_torch_training_memory.py), the others
+    since the optimizers slice (tests/test_torch_optimizers.py)."""
+    from trlx_tpu_torch.ops.quantized_adam import AdamW8bit
+
     for name in ("adamw_8bit_bnb", "adam_8bit_bnb"):
-        with pytest.raises(NotImplementedError, match="int8 optimizer-state slice"):
-            tutils.get_optimizer_class(name)
-    for name in ("sgd", "lion", "adafactor", "rmsprop"):  # ported (tests/test_torch_optimizers.py)
+        opt = tutils.get_optimizer_class(name)([torch.nn.Parameter(torch.zeros(3))], learning_rate=1.0)
+        assert isinstance(opt, AdamW8bit)
+    for name in ("sgd", "lion", "adafactor", "rmsprop"):
         assert callable(tutils.get_optimizer_class(name))
 
 

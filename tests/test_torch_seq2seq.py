@@ -6,8 +6,8 @@ trlx_tpu's, on a tiny T5 (2+2 layers, d_model 32, char tokenizer, f32) from
 the same weights (``policy_params_from_jax`` / ``t5_params_from_jax``):
 collated batches identical, experience within 1e-4, every step's stats
 within rtol 1e-3, greedy generations identical. Also: ``check_port_config``
-accepts seq2seq and still raises for peft on T5, and the SFT export loads
-back through both packages' seq2seq loaders."""
+accepts seq2seq and T5 LoRA, T5 refuses prompt tuning, and the SFT export
+loads back through both packages' seq2seq loaders."""
 
 import numpy as np
 import pytest
@@ -202,5 +202,9 @@ def test_check_port_config_accepts_seq2seq_but_not_t5_peft(tmp_path):
     d = _config_dict(tmp_path, "SFTTrainer", dict(name="SFTConfig"))
     check_port_config(TRLConfig.from_dict(d))
     d["model"]["peft_config"] = {"peft_type": "LORA", "r": 4}
-    with pytest.raises(NotImplementedError, match="peft slice"):
-        check_port_config(TRLConfig.from_dict(d))
+    check_port_config(TRLConfig.from_dict(d))  # T5 LoRA: ported (tests/test_torch_peft_trainers.py)
+    d["model"]["peft_config"] = {"peft_type": "PROMPT_TUNING"}
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    with pytest.raises(NotImplementedError, match="LORA"):  # T5 takes LoRA only, as in the JAX package
+        get_trainer("SFTTrainer")(config=TRLConfig.from_dict(d), device="cpu")

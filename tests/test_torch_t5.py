@@ -125,8 +125,11 @@ def test_hydra_branch_matches_jax():
 
 
 def test_lora_raises_naming_the_peft_slice():
-    with pytest.raises(NotImplementedError, match="peft slice"):
-        tt5.T5LM(tt5.T5Config(**SMALL, lora_r=4))
+    """T5 LoRA builds since the peft slice (parity: tests/test_torch_peft.py):
+    adapters on the default targets q and v only."""
+    model = tt5.T5LM(tt5.T5Config(**SMALL, lora_r=4))
+    lora = [n for n, _ in model.named_parameters() if "lora_" in n]
+    assert lora and {n.split(".")[-2] for n in lora} == {"q", "v"}
 
 
 def _hf_model(ffn):

@@ -160,13 +160,8 @@ def test_default_device_is_the_card(tmp_path):
 
 UNPORTED = [
     ("train.learner_overlap.enabled", True, "scale-out slice"),
-    ("train.rollout_param_dtype", "bfloat16", "mixed-precision rollout slice"),
-    ("mesh.remat", "full", "training-memory slice"),
     ("mesh.fsdp", 2, "scale-out slice"),
     ("mesh.sequence_shard", True, "scale-out slice"),
-    ("model.peft_config", {"r": 4}, "peft slice"),
-    ("model.offload_ref", True, "training-memory slice"),
-    ("optimizer.name", "adamw_8bit_bnb", "int8 optimizer-state slice"),
     ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
 ]
 
@@ -196,6 +191,11 @@ PORTED = [
     ("train.serving_fleet.enabled", True),
     ("train.islands.enabled", True),
     ("model.model_arch_type", "seq2seq"),
+    ("train.rollout_param_dtype", "bfloat16"),
+    ("mesh.remat", "full"),
+    ("model.peft_config", {"r": 4}),
+    ("model.offload_ref", True),
+    ("optimizer.name", "adamw_8bit_bnb"),
 ]
 
 
@@ -258,6 +258,18 @@ def test_ported_config_blocks_build(tmp_path, key, value):
         trainer.on_learn_end()  # retires every replica
     if key == "train.islands.enabled":
         assert trainer.config.train.islands.enabled and trainer._island is None  # wired by the async start
+    if key == "train.rollout_param_dtype":
+        assert trainer.rollout_dtype == torch.bfloat16 and trainer.generation_model() is not trainer.model
+    if key == "mesh.remat":
+        assert trainer.model_config.remat == "full"
+    if key == "model.peft_config":
+        assert trainer.peft_base_ref and trainer.ref_model is None and trainer.model_config.lora_r == 4
+    if key == "model.offload_ref":
+        assert trainer.ref_model is None and trainer._ref_host is not None
+    if key == "optimizer.name":
+        from trlx_tpu_torch.ops.quantized_adam import AdamW8bit
+
+        assert isinstance(trainer.optimizer, AdamW8bit)
     trainer.resilience.close()  # releases the signal handlers learn() would release
     trainer.obs.close()  # and what the obs layer holds
 

@@ -32,9 +32,14 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def _state_from_tree(tree: Mapping[str, Any], model: torch.nn.Module, dtype) -> Dict[str, torch.Tensor]:
     """Flatten ``tree`` and match it leaf for leaf against ``model``'s
-    ``state_dict``: raises on any leaf the module has no parameter for (LoRA
-    adapters, prompt/prefix embeddings, value-branch blocks), on any
-    parameter the tree lacks, and on any shape that differs."""
+    ``state_dict``: raises on any leaf the module has no parameter for (an
+    adapter, ``prefix_k`` / ``prefix_v`` or ``prompt_embeddings`` leaf under
+    a config without that peft, value-branch blocks), on any parameter the
+    tree lacks (a config with adapters the tree has not), and on any shape
+    that differs. Under the matching peft config the adapters carry across
+    like any other leaf (``lora_a [in, r]``, ``lora_b [r, out]``,
+    ``prefix_k`` / ``prefix_v [nv, Hkv, D]``, ``prompt_embeddings [nv,
+    hidden]``)."""
     flat = _flatten(tree)
     expected = model.state_dict()
     extra = sorted(set(flat) - set(expected))

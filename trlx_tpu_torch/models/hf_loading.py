@@ -25,6 +25,15 @@ Parameter trees here are nested dicts of numpy arrays in the flax layout
 (``layers_{i}.attn.q_proj.kernel``, kernels ``[in, out]``), which are the
 port's ``state_dict`` names once flattened with ``.``
 (:func:`state_from_params` / :func:`params_from_state`).
+
+peft: :func:`peft_overrides` / :func:`t5_peft_overrides` map a reference
+peft config to model overrides, and :func:`save_adapters` /
+:func:`load_adapters` write and read the adapters alone. The JAX package
+writes them as ``adapters.msgpack`` (flax serialization); the port writes
+``adapters.safetensors`` through its own reader and writer, as it writes
+``heads.safetensors`` for the JAX package's ``heads.msgpack``, since the
+card's machine has no msgpack. A checkpoint without adapters loads over a
+peft model and keeps the adapters' seed init (:func:`merge_loaded_state`).
 """
 
 import json
@@ -890,3 +899,89 @@ def load_pretrained_seq2seq(model_path: str, overrides: Optional[Dict[str, Any]]
     config = T5Config().replace(**overrides)
     logger.warning(f"No local checkpoint at {model_path!r}; using random-init T5 config")
     return config, None
+
+
+# ------------------------------------------------------------------- peft
+
+#: the leaf names that belong to peft adapters (LoRA / prefix / prompt)
+ADAPTER_PARAM_NAMES = ("lora_a", "lora_b", "prefix_k", "prefix_v", "prompt_embeddings")
+
+#: the file :func:`save_adapters` writes next to an export
+ADAPTERS_FILE = "adapters.safetensors"
+
+
+def extract_adapter_params(state: Mapping[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+    """The adapter-only entries of a ``state_dict`` (None when it has none):
+    the reference saves peft adapters and heads instead of the whole model."""
+    out = {name: value for name, value in state.items() if name.rsplit(".", 1)[-1] in ADAPTER_PARAM_NAMES}
+    return out or None
+
+
+def save_adapters(path: str, state: Mapping[str, torch.Tensor]) -> bool:
+    """Write the adapters of ``state`` to ``adapters.safetensors`` under
+    ``path``; False (and no file) when there are none."""
+    adapters = extract_adapter_params(state)
+    if not adapters:
+        return False
+    os.makedirs(path, exist_ok=True)
+    safetensors_io.save_file(adapters, os.path.join(path, ADAPTERS_FILE))
+    return True
+
+
+def load_adapters(path: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``state`` with the adapters of ``path``'s ``adapters.safetensors``
+    laid over it (on each entry's device and in its dtype); an adapter
+    ``state`` lacks, or of another shape, raises."""
+    adapters = safetensors_io.load_file(os.path.join(path, ADAPTERS_FILE))
+    out = dict(state)
+    for name, value in adapters.items():
+        if name not in out:
+            raise ValueError(f"adapter {name!r} has no parameter in the model")
+        if tuple(value.shape) != tuple(out[name].shape):
+            raise ValueError(f"{name}: adapter shape {tuple(value.shape)} != {tuple(out[name].shape)}")
+        out[name] = value.to(device=out[name].device, dtype=out[name].dtype)
+    return out
+
+
+def peft_overrides(peft_config: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """A reference-style peft config dict as model overrides (LORA,
+    PREFIX_TUNING, PROMPT_TUNING), as the JAX package maps it."""
+    if not peft_config:
+        return {}
+    ptype = str(peft_config.get("peft_type", "LORA")).upper()
+    if ptype == "LORA":
+        out = {"lora_r": int(peft_config.get("r", 8)),
+               "lora_alpha": float(peft_config.get("lora_alpha", peft_config.get("alpha", 16)))}
+        targets = peft_config.get("target_modules")
+        if targets:
+            out["lora_targets"] = tuple(targets)
+        return out
+    if ptype in ("PREFIX_TUNING", "PREFIX"):
+        return {"peft_type": "prefix", "num_virtual_tokens": int(peft_config.get("num_virtual_tokens", 8))}
+    if ptype in ("PROMPT_TUNING", "PROMPT"):
+        return {"peft_type": "prompt", "num_virtual_tokens": int(peft_config.get("num_virtual_tokens", 8))}
+    raise ValueError(f"Unsupported peft_type {ptype!r} (LORA / PREFIX_TUNING / PROMPT_TUNING)")
+
+
+#: the T5 projections LoRA may target
+T5_LORA_TARGETS = ("q", "k", "v", "o", "wi", "wi_0", "wi_1", "wo")
+
+
+def t5_peft_overrides(peft_config: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """:func:`peft_overrides` for T5: LoRA only, targets ``("q", "v")`` by
+    default, and a target list naming no T5 projection (a causal model's
+    ``q_proj``) raises rather than building no adapter and a frozen trunk."""
+    peft = peft_overrides(peft_config)
+    if not peft:
+        return {}
+    if "lora_r" not in peft:
+        raise NotImplementedError(
+            "seq2seq (T5) peft supports LORA adapters; prefix/prompt tuning "
+            "is implemented for causal models only")
+    peft.setdefault("lora_targets", ("q", "v"))
+    unknown = set(peft["lora_targets"]) - set(T5_LORA_TARGETS)
+    if unknown:
+        raise ValueError(
+            f"peft target_modules {sorted(unknown)} match no T5 module; "
+            f"valid targets: {T5_LORA_TARGETS}")
+    return peft

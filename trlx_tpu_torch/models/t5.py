@@ -21,8 +21,13 @@ every attention here is the plain einsum path, on the card too.
 
 The decoder-top hydra branch (:class:`T5Branch`) holds copies of the top
 decoder blocks, the final decoder norm and the head, and runs them from the
-activation :meth:`T5LM.forward_with_branch` captured. LoRA (``lora_r >
-0``) raises, naming the peft slice.
+activation :meth:`T5LM.forward_with_branch` captured.
+
+LoRA (``lora_r > 0``) adds adapters to the projections named in
+``lora_targets`` (``q``, ``k``, ``v``, ``o``, ``wi``, ``wi_0``, ``wi_1``,
+``wo``; ``("q", "v")`` by default, as HF peft's for T5), through the same
+:class:`~trlx_tpu_torch.models.transformer.Dense` as the causal model, and
+:func:`~trlx_tpu_torch.models.transformer.disable_adapters` turns them off.
 """
 
 import math
@@ -148,8 +153,10 @@ class T5LayerNorm(nn.Module):
         return (xf * torch.rsqrt(var + self.eps) * self.scale.float()).to(self.dtype)
 
 
-def _dense(c: T5Config, i: int, o: int, std: float) -> Dense:
-    return Dense(i, o, False, c.compute_dtype, c.param_dtype, std)
+def _dense(c: T5Config, name: str, i: int, o: int, std: float) -> Dense:
+    """A bias-free projection; LoRA adapters when ``name`` is a target."""
+    return Dense(i, o, False, c.compute_dtype, c.param_dtype, std,
+                 lora_r=c.lora_r if name in c.lora_targets else 0, lora_alpha=c.lora_alpha)
 
 
 class T5Attention(nn.Module):
@@ -158,10 +165,10 @@ class T5Attention(nn.Module):
         c = self.config = config
         self.bidirectional = bidirectional
         inner, std = c.num_heads * c.d_kv, c.initializer_factor * c.d_model ** -0.5
-        self.q = _dense(c, c.d_model, inner, std)
-        self.k = _dense(c, c.d_model, inner, std)
-        self.v = _dense(c, c.d_model, inner, std)
-        self.o = _dense(c, inner, c.d_model, std)
+        self.q = _dense(c, "q", c.d_model, inner, std)
+        self.k = _dense(c, "k", c.d_model, inner, std)
+        self.v = _dense(c, "v", c.d_model, inner, std)
+        self.o = _dense(c, "o", inner, c.d_model, std)
         if has_relative_bias:
             self.relative_attention_bias = Embed(
                 c.relative_attention_num_buckets, c.num_heads, c.compute_dtype, c.param_dtype, std
@@ -212,11 +219,11 @@ class T5FFN(nn.Module):
         c = self.config = config
         std = c.initializer_factor * c.d_model ** -0.5
         if c.is_gated:
-            self.wi_0 = _dense(c, c.d_model, c.d_ff, std)
-            self.wi_1 = _dense(c, c.d_model, c.d_ff, std)
+            self.wi_0 = _dense(c, "wi_0", c.d_model, c.d_ff, std)
+            self.wi_1 = _dense(c, "wi_1", c.d_model, c.d_ff, std)
         else:
-            self.wi = _dense(c, c.d_model, c.d_ff, std)
-        self.wo = _dense(c, c.d_ff, c.d_model, std)
+            self.wi = _dense(c, "wi", c.d_model, c.d_ff, std)
+        self.wo = _dense(c, "wo", c.d_ff, c.d_model, std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.is_gated:
@@ -259,11 +266,6 @@ class T5DecoderBlock(nn.Module):
         """Cross-attention K/V from the encoder states, [B, H, S, D]."""
         return self.cross_attn.heads(self.cross_attn.k, enc_states), self.cross_attn.heads(self.cross_attn.v,
                                                                                             enc_states)
-
-
-def check_supported(c: T5Config) -> None:
-    if c.lora_r > 0:
-        raise NotImplementedError("trlx_tpu_torch does not port LoRA (lora_r > 0) yet: peft slice")
 
 
 def self_bias_nocache(T: int, decoder_attention_mask: Optional[torch.Tensor], device) -> torch.Tensor:
@@ -311,7 +313,6 @@ class T5LM(nn.Module):
 
     def __init__(self, config: T5Config):
         super().__init__()
-        check_supported(config)
         c = self.config = config
         self.shared = Embed(c.vocab_size, c.d_model, c.compute_dtype, c.param_dtype, c.initializer_factor)
         for i in range(c.num_layers):

@@ -34,18 +34,50 @@ ALiBi (bloom) adds its bias to the mask bias of every plain-path forward
 kernel takes no additive bias, so an ALiBi model never enters it (the JAX
 package's routing), and the paged cache refuses ALiBi.
 
+peft, as the JAX package's:
+
+- LoRA (``lora_r > 0``): every :class:`Dense` named in ``lora_targets``
+  carries ``lora_a [in, r]`` (normal(1/r)) and ``lora_b [r, out]`` (zeros)
+  and adds ``(x A) B * alpha / r``; :func:`merge_lora_state` folds them into
+  the kernels for export.
+- Prefix tuning (``peft_type="prefix"``): per-layer ``prefix_k`` /
+  ``prefix_v [nv, Hkv, D]`` prepended to whatever a layer attends over,
+  never cached, without rotary and under a zero bias. It keeps the layer on
+  the plain path (the flash kernel's causal index has no room for them), an
+  int8 cache on its dequant-on-read path, and the paged cache refuses it.
+- Prompt tuning (``peft_type="prompt"``): ``prompt_embeddings [nv, hidden]``
+  prepended inside :meth:`TransformerLM.forward`, real positions shifted by
+  ``nv``, masks extended and the outputs sliced back to the caller's T; it
+  stays on the flash kernel. Cached forwards are prefill from slot 0 or
+  single-token steps; :meth:`TransformerLM.init_cache` adds ``nv`` slots.
+
+Inside :func:`disable_adapters` every module runs as its base model on the
+same parameters (adapters, prefixes and virtual tokens ignored): the PPO
+trainer's peft KL reference, with no second copy of the trunk.
+
+``remat`` (``full``, ``per_layer``, ``nothing_saveable``, ``dots_saveable``)
+recomputes each block in the backward of a cache-free forward that builds a
+graph (:func:`run_block`): the first three keep only the block's inputs,
+``dots_saveable`` also keeps the matrix products' outputs. The flash forward
+is not a matrix product, so it runs again in the backward under every
+policy, as the ``pallas_call`` does under XLA's ``dots_saveable``.
+
 Not ported yet (each raises ``NotImplementedError``): stacked layouts
-(``scan_layers`` / ``pipeline_stages > 1``), ring attention, LoRA and
-prompt/prefix tuning, sequence sharding and ``remat``.
+(``scan_layers`` / ``pipeline_stages > 1``), ring attention and sequence
+sharding.
 """
 
+import contextlib
+import functools
 import math
+import threading
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from trlx_tpu_torch.ops.attention import flash_attention
 from trlx_tpu_torch.ops.paged_attention import (
@@ -99,7 +131,7 @@ class TransformerConfig:
     depth_scaled_init: bool = True
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: str = "none"  # training-memory option: no effect on inference
+    remat: str = "none"  # "none" | "full" | "per_layer" | "nothing_saveable" | "dots_saveable"
     attention_impl: str = "xla"  # "xla" (plain) | "flash" (kernel) | "ring" (later slice)
     kv_cache_quant: bool = False
     paged_attention_impl: str = "auto"  # "auto" | "pallas" (both: kernel) | "xla" (plain)
@@ -140,21 +172,81 @@ class TransformerConfig:
         return replace(self, **kw)
 
 
+REMAT_POLICIES = ("none", "full", "per_layer", "nothing_saveable", "dots_saveable")
+
+
 def check_supported(c: TransformerConfig) -> None:
     """Raise for the config features later slices of the port bring."""
     unsupported = [
         (c.stacked, "stacked layouts (scan_layers / pipeline_stages > 1): pipeline slice"),
         (c.attention_impl == "ring", "attention_impl='ring': scale-out slice"),
-        (c.peft_type in ("prompt", "prefix"), "peft prompt/prefix tuning: peft slice"),
-        (c.lora_r > 0, "LoRA (lora_r > 0): peft slice"),
         (c.sequence_sharding, "sequence_sharding: scale-out slice"),
-        (c.remat != "none", f"remat={c.remat!r}: training-memory slice"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"trlx_tpu_torch does not port {what} yet")
     if c.attention_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
+    if c.remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {c.remat!r} (one of {REMAT_POLICIES})")
+    if c.peft_type not in ("none", "prefix", "prompt"):
+        raise ValueError(f"unknown peft_type {c.peft_type!r}")
+
+
+_ADAPTERS = threading.local()
+
+
+def adapters_enabled() -> bool:
+    """False inside :func:`disable_adapters` (on this thread)."""
+    return not getattr(_ADAPTERS, "off", False)
+
+
+@contextlib.contextmanager
+def disable_adapters():
+    """Run every module as its base model on the same parameters: LoRA
+    adds nothing, no prefix is prepended and no virtual token embedded (the
+    JAX package's module built with ``lora_r=0, peft_type="none"`` over the
+    same tree). Per thread, so a forward on another thread is unaffected."""
+    prev = getattr(_ADAPTERS, "off", False)
+    _ADAPTERS.off = True
+    try:
+        yield
+    finally:
+        _ADAPTERS.off = prev
+
+
+def _virtual_tokens(c: "TransformerConfig", kind: str) -> int:
+    """``num_virtual_tokens`` when ``peft_type`` is ``kind`` and adapters are on."""
+    return c.num_virtual_tokens if c.peft_type == kind and adapters_enabled() else 0
+
+
+_DOT_OPS = (
+    torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_saveable``: keep the matrix products' outputs, recompute the rest
+    (the flash kernel's output buffer among them: nothing K1 writes into is
+    a saved tensor)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_block(block: nn.Module, x, mask_bias, positions, cache=None, kv_valid=None):
+    """``block(x, ...)`` under its config's ``remat`` policy (the JAX
+    package's ``nn.remat(Block, policy=remat_policy(...))``): a cache-free
+    forward that builds a graph keeps only the block's inputs (``full``,
+    ``per_layer``, ``nothing_saveable``) or also the matrix products
+    (``dots_saveable``), and recomputes the rest in the backward. Cached
+    and no-grad forwards run the block as it is."""
+    policy = block.config.remat
+    if policy == "none" or cache is not None or not torch.is_grad_enabled():
+        return block(x, mask_bias, positions, cache, kv_valid)
+    kw = {}
+    if policy == "dots_saveable":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(block, x, mask_bias, positions, None, kv_valid, use_reentrant=False, **kw)
 
 
 def _act(name: str):
@@ -314,20 +406,48 @@ def kv_cache_layout(shape: Tuple[int, ...], dtype, quant: bool) -> Dict[str, Tup
 
 class Dense(nn.Module):
     """flax ``Dense`` layout: ``kernel [in, out]`` and ``bias [out]``,
-    computed as ``x @ kernel`` in ``dtype`` with the parameters cast per call."""
+    computed as ``x @ kernel`` in ``dtype`` with the parameters cast per call
+    (a no-op for parameters already in ``dtype``). With ``lora_r > 0`` the
+    JAX ``LoraDense``: ``lora_a [in, r]`` and ``lora_b [r, out]`` add ``(x A)
+    B * lora_alpha / lora_r``, unless adapters are disabled."""
 
-    def __init__(self, in_features: int, features: int, use_bias: bool, dtype, param_dtype, init_std: float):
+    def __init__(self, in_features: int, features: int, use_bias: bool, dtype, param_dtype, init_std: float,
+                 lora_r: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
+        self.lora_r, self.lora_alpha = lora_r, lora_alpha
         self.kernel = nn.Parameter(torch.empty(in_features, features, dtype=param_dtype))
         self.bias = nn.Parameter(torch.zeros(features, dtype=param_dtype)) if use_bias else None
+        if lora_r > 0:
+            self.lora_a = nn.Parameter(torch.empty(in_features, lora_r, dtype=param_dtype))
+            self.lora_b = nn.Parameter(torch.zeros(lora_r, features, dtype=param_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        x = x.to(self.dtype)
+        y = x @ self.kernel.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
+        if self.lora_r > 0 and adapters_enabled():
+            y = y + (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * (self.lora_alpha / self.lora_r)
         return y
+
+
+def merge_lora_state(state: Mapping[str, torch.Tensor], lora_alpha: float, lora_r: int) -> Dict[str, torch.Tensor]:
+    """Fold every adapter into its kernel (``W + A B * alpha / r``, in f32)
+    and drop the ``lora_a`` / ``lora_b`` entries: the JAX package's
+    ``merge_lora_params`` on a ``state_dict`` (peft's ``merge_and_unload``),
+    for the HF export."""
+    out = {}
+    for name, value in state.items():
+        if name.endswith((".lora_a", ".lora_b")):
+            continue
+        if name.endswith(".kernel") and name[:-len("kernel")] + "lora_a" in state:
+            base = name[:-len("kernel")]
+            a, b = state[base + "lora_a"].float(), state[base + "lora_b"].float()
+            value = (value.float() + (a @ b) * (lora_alpha / lora_r)).to(value.dtype)
+        out[name] = value
+    return out
 
 
 class Norm(nn.Module):
@@ -377,14 +497,21 @@ class Attention(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         c = self.config = config
-        dense = lambda i, o, bias, std=c.initializer_range: Dense(
-            i, o, bias, c.compute_dtype, c.param_dtype, std
+        dense = lambda name, i, o, bias, std=c.initializer_range: Dense(
+            i, o, bias, c.compute_dtype, c.param_dtype, std,
+            lora_r=c.lora_r if name in c.lora_targets else 0, lora_alpha=c.lora_alpha,
         )
         qd, kd = c.num_heads * c.dim_per_head, c.kv_heads * c.dim_per_head
-        self.q_proj = dense(c.hidden_size, qd, c.attn_bias)
-        self.k_proj = dense(c.hidden_size, kd, c.attn_bias)
-        self.v_proj = dense(c.hidden_size, kd, c.attn_bias)
-        self.o_proj = dense(qd, c.hidden_size, c.attn_bias, c.residual_init_std())
+        self.q_proj = dense("q_proj", c.hidden_size, qd, c.attn_bias)
+        self.k_proj = dense("k_proj", c.hidden_size, kd, c.attn_bias)
+        self.v_proj = dense("v_proj", c.hidden_size, kd, c.attn_bias)
+        self.o_proj = dense("o_proj", qd, c.hidden_size, c.attn_bias, c.residual_init_std())
+        if c.peft_type == "prefix" and c.num_virtual_tokens > 0:
+            # prefix tuning: learned per-layer K/V, never cached (parity: peft
+            # PREFIX_TUNING past_key_values)
+            shape = (c.num_virtual_tokens, c.kv_heads, c.dim_per_head)
+            self.prefix_k = nn.Parameter(torch.empty(shape, dtype=c.param_dtype))
+            self.prefix_v = nn.Parameter(torch.empty(shape, dtype=c.param_dtype))
 
     def forward(
         self,
@@ -403,6 +530,7 @@ class Attention(nn.Module):
         c = self.config
         B, T, _ = x.shape
         scale = 1.0 / math.sqrt(c.dim_per_head)
+        n_prefix = _virtual_tokens(c, "prefix")
         q = self.q_proj(x).reshape(B, T, c.num_heads, c.dim_per_head)
         k = self.k_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
         v = self.v_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
@@ -413,8 +541,9 @@ class Attention(nn.Module):
 
         if cache is not None and "block_tables" in cache:
             # no mask bias reaches the paged kernels: a position-dependent
-            # score bias (ALiBi) does not fit them, as in the JAX package
-            if c.pos_embedding == "alibi":
+            # score bias (ALiBi) and scale-less prepended rows (prefix tuning)
+            # do not fit them, as in the JAX package
+            if c.pos_embedding == "alibi" or n_prefix:
                 raise ValueError("paged decode does not support alibi or prefix tuning")
             # paged step (serving engine). T == 1 is decode: the new row
             # lands at position context_lens, then attention runs over
@@ -442,8 +571,10 @@ class Attention(nn.Module):
         if cache is not None:
             write_kv_cache(cache, k.transpose(1, 2), v.transpose(1, 2), cache["index"])
 
-        # the kernel takes no additive bias: ALiBi attends on the plain path
-        use_flash = c.attention_impl == "flash" and kv_valid is not None and T > 1 and c.pos_embedding != "alibi"
+        # the kernel takes no additive bias: ALiBi attends on the plain path;
+        # prefix keys break its causal index math
+        use_flash = (c.attention_impl == "flash" and kv_valid is not None and T > 1
+                     and c.pos_embedding != "alibi" and not n_prefix)
         k_row_scale = v_row_scale = None
         if use_flash:
             out = flash_attention(
@@ -455,7 +586,7 @@ class Attention(nn.Module):
         else:
             if cache is not None:
                 # attend over the cache (prefill on the plain path)
-                if "k_scale" in cache:
+                if "k_scale" in cache and not n_prefix:
                     # int8 cache: bare dtype convert; the per-row scales fold
                     # into the scores (k) and the softmax weights (v)
                     kh = cache["k"].to(c.compute_dtype)
@@ -467,6 +598,13 @@ class Attention(nn.Module):
             else:
                 kh = k.transpose(1, 2)
                 vh = v.transpose(1, 2)
+            if n_prefix:
+                # visible to every query (zero bias), no positions, no rotary;
+                # prefixed rows carry no int8 scale, so the cache dequantized above
+                shape = (B, c.kv_heads, n_prefix, c.dim_per_head)
+                kh = torch.cat([self.prefix_k.to(kh.dtype).transpose(0, 1)[None].expand(shape), kh], dim=2)
+                vh = torch.cat([self.prefix_v.to(vh.dtype).transpose(0, 1)[None].expand(shape), vh], dim=2)
+                mask_bias = torch.cat([mask_bias.new_zeros(mask_bias.shape[:-1] + (n_prefix,)), mask_bias], dim=-1)
             if c.kv_heads != c.num_heads:
                 rep = c.num_heads // c.kv_heads
                 qg = q.reshape(B, T, c.kv_heads, rep, c.dim_per_head)
@@ -500,13 +638,14 @@ class MLP(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         c = self.config = config
-        dense = lambda i, o, std=c.initializer_range: Dense(
-            i, o, c.mlp_bias, c.compute_dtype, c.param_dtype, std
+        dense = lambda name, i, o, std=c.initializer_range: Dense(
+            i, o, c.mlp_bias, c.compute_dtype, c.param_dtype, std,
+            lora_r=c.lora_r if name in c.lora_targets else 0, lora_alpha=c.lora_alpha,
         )
         if c.glu:
-            self.gate_proj = dense(c.hidden_size, c.ffn_dim)
-        self.up_proj = dense(c.hidden_size, c.ffn_dim)
-        self.down_proj = dense(c.ffn_dim, c.hidden_size, c.residual_init_std())
+            self.gate_proj = dense("gate_proj", c.hidden_size, c.ffn_dim)
+        self.up_proj = dense("up_proj", c.hidden_size, c.ffn_dim)
+        self.down_proj = dense("down_proj", c.ffn_dim, c.hidden_size, c.residual_init_std())
         self.act = _act(c.activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -552,7 +691,7 @@ def forward_from(model: nn.Module, hidden, attention_mask, positions, start_laye
         positions = default_positions
     x = hidden
     for i in range(start_layer, model.config.num_layers):
-        x, _ = getattr(model, f"layers_{i}")(x, mask_bias, positions, None, attention_mask)
+        x, _ = run_block(getattr(model, f"layers_{i}"), x, mask_bias, positions, None, attention_mask)
     logits, _ = model._final(x)
     return logits
 
@@ -562,8 +701,9 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random weights for every submodule of ``model`` from ``seed`` (a
     ``torch.Generator`` on the parameters' device): normal(initializer_range)
     embeddings and dense kernels, residual-out kernels at
-    ``residual_init_std``, zero biases, unit norm scales — the JAX module's
-    initializers, not its bits."""
+    ``residual_init_std``, zero biases, unit norm scales, LoRA ``lora_a``
+    normal(1/r) and ``lora_b`` zeros, normal(initializer_range) prefixes and
+    prompt embeddings — the JAX module's initializers, not its bits."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(int(seed))
     for module in model.modules():
@@ -571,6 +711,14 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
             module.kernel.normal_(0.0, module.init_std, generator=gen)
             if module.bias is not None:
                 module.bias.zero_()
+            if module.lora_r > 0:
+                module.lora_a.normal_(0.0, 1.0 / module.lora_r, generator=gen)
+                module.lora_b.zero_()
+        elif isinstance(module, Attention) and hasattr(module, "prefix_k"):
+            module.prefix_k.normal_(0.0, module.config.initializer_range, generator=gen)
+            module.prefix_v.normal_(0.0, module.config.initializer_range, generator=gen)
+        elif isinstance(module, TransformerLM) and hasattr(module, "prompt_embeddings"):
+            module.prompt_embeddings.normal_(0.0, module.config.initializer_range, generator=gen)
         elif isinstance(module, Embed):
             module.embedding.normal_(0.0, module.init_std, generator=gen)
         elif isinstance(module, Norm):
@@ -593,6 +741,11 @@ class TransformerLM(nn.Module):
         )
         if c.embed_ln:
             self.embed_layernorm = Norm(c)
+        if c.peft_type == "prompt" and c.num_virtual_tokens > 0:
+            # prompt tuning: learned virtual-token embeddings prepended to the
+            # input (parity: peft PROMPT_TUNING)
+            self.prompt_embeddings = nn.Parameter(
+                torch.empty(c.num_virtual_tokens, c.hidden_size, dtype=c.param_dtype))
         if c.pos_embedding == "learned":
             self.embed_positions = Embed(
                 c.max_position_embeddings + c.pos_offset, c.hidden_size,
@@ -663,32 +816,72 @@ class TransformerLM(nn.Module):
         kernels' backward. ``branch_layer`` captures the activation entering
         a layer for the hydra branches: an int returns that layer's input in
         the third slot, a tuple a dict of them by layer."""
+        c = self.config
         B, T = input_ids.shape
         dev = input_ids.device
+        # prompt tuning prepends nv virtual rows here; the caller's contract
+        # (T-length outputs, T- or S-length masks) holds: masks are extended
+        # and the outputs sliced. Virtual rows take slots and positions
+        # 0..nv-1; real positions shift by +nv.
+        nv = _virtual_tokens(c, "prompt")
+        nv_rows = 0  # virtual rows in this forward's activations
         if cache is not None:
             S = cache["k"][0].shape[2]
             idx = int(cache["index"])
+            prompt_prefill = nv > 0 and idx == 0
+            if nv > 0 and not (prompt_prefill or T == 1):
+                raise ValueError(
+                    "prompt-tuning cached forwards support only prefill-from-zero or single-token decode steps")
+            ext_mask = attention_mask
+            if nv and attention_mask is not None:
+                ext_mask = torch.cat([attention_mask.new_ones((B, nv)), attention_mask], dim=1)
             if positions is None:
+                # decode positions from the cache index already count the
+                # virtual slots: shift only at prefill
                 positions = idx + torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+                if prompt_prefill:
+                    positions = positions + nv
+            elif nv:
+                positions = positions + nv
+            nv_rows = nv if prompt_prefill else 0
+            T_eff = T + nv_rows
             # causal structure over cache *slots* (left padding repeats
             # position values under the pad mask; slot order is temporal)
             kv_slot = torch.arange(S, device=dev)[None, None, None, :]
-            q_slot = (idx + torch.arange(T, device=dev))[None, None, :, None]
+            q_slot = (idx + torch.arange(T_eff, device=dev))[None, None, :, None]
             causal = kv_slot <= q_slot
-            if attention_mask is not None:
-                causal = causal & attention_mask[:, None, None, :].bool()
+            if ext_mask is not None:
+                causal = causal & ext_mask[:, None, None, :].bool()
             mask_bias = _bias_from_mask(causal)
-            if self.config.pos_embedding == "alibi":
-                mask_bias = mask_bias + alibi_bias(self.config, attention_mask, B, S, dev)
+            if c.pos_embedding == "alibi":
+                mask_bias = mask_bias + alibi_bias(c, ext_mask, B, S, dev)
+            x = self.embed(input_ids, positions)
+            layer_positions = positions
+            if nv_rows:
+                virt = torch.arange(nv, dtype=torch.int32, device=dev)[None, :].expand(B, nv)
+                layer_positions = torch.cat([virt, positions], dim=1)
+                x = torch.cat([self.prompt_embeddings.to(x.dtype)[None].expand(B, nv, c.hidden_size), x], dim=1)
             # prefill from slot 0: the flash path may attend over this
             # forward's k/v alone (every later cache slot is still empty)
-            kv_valid = attention_mask[:, :T] if T > 1 and attention_mask is not None and idx == 0 else None
+            kv_valid = ext_mask[:, :T_eff] if T_eff > 1 and ext_mask is not None and idx == 0 else None
+        elif nv:
+            nv_rows = nv
+            mask_in = attention_mask if attention_mask is not None else torch.ones(
+                (B, T), dtype=torch.int32, device=dev)
+            ext_mask = torch.cat([mask_in.new_ones((B, nv)), mask_in], dim=1)
+            default_positions, mask_bias = make_attn_bias(c, ext_mask, B, T + nv, dev)
+            positions = default_positions[:, nv:] if positions is None else positions + nv
+            layer_positions = torch.cat([default_positions[:, :nv], positions], dim=1)
+            pe = self.prompt_embeddings.to(c.compute_dtype)[None].expand(B, nv, c.hidden_size)
+            x = torch.cat([pe, self.embed(input_ids, positions)], dim=1)
+            kv_valid = ext_mask
         else:
-            default_positions, mask_bias = make_attn_bias(self.config, attention_mask, B, T, dev)
+            default_positions, mask_bias = make_attn_bias(c, attention_mask, B, T, dev)
             if positions is None:
                 positions = default_positions
+            x = self.embed(input_ids, positions)
+            layer_positions = positions
             kv_valid = attention_mask
-        x = self.embed(input_ids, positions)
         capture_set = ()
         if branch_layer is not None:
             capture_set = branch_layer if isinstance(branch_layer, tuple) else (branch_layer,)
@@ -700,12 +893,14 @@ class TransformerLM(nn.Module):
             if cache is not None:
                 layer_cache = {key: cache[key][i] for key in cache if key != "index"}
                 layer_cache["index"] = cache["index"]
-            x, _ = layer(x, mask_bias, positions, layer_cache, kv_valid)
+            x, _ = run_block(layer, x, mask_bias, layer_positions, layer_cache, kv_valid)
         if last_only:
             x = x[:, -1:]
+        elif nv_rows:
+            x = x[:, nv_rows:]  # drop the virtual rows: outputs are [B, T, ...]
         logits, hidden = self._final(x)
         if cache is not None:
-            cache["index"] = int(cache["index"]) + T
+            cache["index"] = int(cache["index"]) + T + nv_rows
         if isinstance(branch_layer, tuple):
             branch_out = captures
         else:
@@ -721,8 +916,11 @@ class TransformerLM(nn.Module):
         return forward_from(self, hidden, attention_mask, positions, start_layer)
 
     def init_cache(self, batch_size: int, max_length: int, dtype=None) -> KVCache:
-        """Contiguous per-layer cache buffers on the model's device (zeros)."""
+        """Contiguous per-layer cache buffers on the model's device (zeros);
+        prompt tuning's virtual rows take ``num_virtual_tokens`` more slots."""
         c = self.config
+        if c.peft_type == "prompt":
+            max_length += c.num_virtual_tokens
         shape = (batch_size, c.kv_heads, max_length, c.dim_per_head)
         per_layer = kv_cache_layout(shape, dtype or c.compute_dtype, c.kv_cache_quant)
         out = {

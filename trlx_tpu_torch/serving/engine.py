@@ -270,6 +270,9 @@ class ServingEngine:
         if trunk.config.pos_embedding == "alibi":
             # the paged kernels take no position-dependent score bias
             raise NotImplementedError("serving engine does not support alibi")
+        if trunk.config.peft_type in ("prompt", "prefix"):
+            # virtual rows in the cache do not fit the paged layout (LoRA serves)
+            raise NotImplementedError("serving engine does not support peft prompt/prefix")
         self.spec_k = int(spec_k)
         self.spec_ngram = int(spec_ngram)
         self.prefill_chunk = int(prefill_chunk)

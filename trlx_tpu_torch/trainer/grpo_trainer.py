@@ -183,6 +183,7 @@ class GRPOTrainer(PPOTrainer):
         if self.log_rollouts:
             self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)
         self.push_to_store(elements[:num_rollouts])
+        self._release_ref()
 
     # ------------------------------------------------------------- reporting
 

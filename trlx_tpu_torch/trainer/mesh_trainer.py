@@ -37,11 +37,22 @@ hooks; the sweep runner itself is not ported yet). The staged learn seam
 (:meth:`MeshRLTrainer._pop_staged_learn`) hands ``train_step`` a device
 copy of its batch staged during a streamed experience phase.
 
+peft (``model.peft_config``: LoRA, prefix or prompt tuning; LoRA for T5)
+trains the adapters and the heads only: the trunk's parameters get no
+gradient and no optimizer state (:meth:`MeshRLTrainer.trainable_path_predicate`),
+and ``save_pretrained`` exports the trunk with LoRA merged plus
+``adapters.safetensors``. ``mesh.remat`` recomputes each block in the
+backward (:func:`~trlx_tpu_torch.models.transformer.run_block`).
+``train.rollout_param_dtype`` generates from a copy of the policy in that
+dtype (:meth:`MeshRLTrainer.generation_model`), cast once per experience
+phase and dropped before every learner step and on restore.
+
 Config blocks of the JAX package that this port does not run yet raise
 ``NotImplementedError`` naming their slice (:func:`check_port_config`);
 none is silently ignored.
 """
 
+import copy
 import dataclasses
 import json
 import os
@@ -56,13 +67,17 @@ import torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models import safetensors_io
 from trlx_tpu_torch.models.hf_loading import (
+    ADAPTER_PARAM_NAMES,
     load_pretrained,
     load_pretrained_seq2seq,
     merge_loaded_state,
+    peft_overrides,
+    save_adapters,
     save_pretrained_hf,
+    t5_peft_overrides,
     torch_dtype,
 )
-from trlx_tpu_torch.models.transformer import init_params
+from trlx_tpu_torch.models.transformer import init_params, merge_lora_state
 from trlx_tpu_torch.native import find_stop_positions
 from trlx_tpu_torch.obs import Observability, batch_token_count
 from trlx_tpu_torch.ops.generation import generate as generate_op
@@ -116,15 +131,10 @@ def resolve_device(device, who: str = "trlx_tpu_torch.train") -> torch.device:
 def check_port_config(config: TRLConfig) -> None:
     """Raise ``NotImplementedError`` for every enabled config block that a
     later slice of the port brings, naming that slice."""
-    t, m, mesh = config.train, config.model, config.mesh
+    t, mesh = config.train, config.mesh
     later = [
         (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
-        (t.rollout_param_dtype is not None, "train.rollout_param_dtype", "mixed-precision rollout slice"),
-        (mesh.remat != "none", f"mesh.remat={mesh.remat!r}", "training-memory slice"),
         (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice"),
-        (bool(m.peft_config), "model.peft_config", "peft slice"),
-        # with a hydra reference the trainer warns and ignores it, as the JAX one
-        (m.offload_ref and m.num_layers_unfrozen <= 0, "model.offload_ref", "training-memory slice"),
     ]
     for axis in ("data", "fsdp", "pipe", "model"):
         size = getattr(mesh, axis)
@@ -158,6 +168,13 @@ class MeshRLTrainer(BaseRLTrainer):
         self.param_dtype = torch_dtype(config.mesh.param_dtype)
         #: model.model_arch_type == "seq2seq": a T5 trunk under ``t5.*``
         self.is_seq2seq = config.model.model_arch_type == "seq2seq"
+        #: train.rollout_param_dtype (None: generate from the masters)
+        self.rollout_dtype = None if config.train.rollout_param_dtype is None else torch_dtype(
+            config.train.rollout_param_dtype)
+        # the cached low-precision policy copy generation reads, and how many
+        # times one was cast (generation_model)
+        self._rollout_model = None
+        self.rollout_casts = 0
 
         self.setup_model()
         self.setup_optimizer()
@@ -218,6 +235,7 @@ class MeshRLTrainer(BaseRLTrainer):
         overrides.setdefault("compute_dtype", self.compute_dtype)
         overrides.setdefault("remat", self.config.mesh.remat)
         overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
+        overrides.update(peft_overrides(self.config.model.peft_config))
         self.model_config, trunk_state, self.model_type = load_pretrained(self.config.model.model_path, overrides)
         with torch.device(self.device):
             module = build(self.model_config)
@@ -236,6 +254,7 @@ class MeshRLTrainer(BaseRLTrainer):
         overrides = dict(self.config.model.model_overrides or {})
         overrides.setdefault("param_dtype", self.param_dtype)
         overrides.setdefault("compute_dtype", self.compute_dtype)
+        overrides.update(t5_peft_overrides(self.config.model.peft_config))
         self.model_config, t5_state = load_pretrained_seq2seq(self.config.model.model_path, overrides)
         self.model_type = "t5"
         self.decoder_start_token_id = self.model_config.decoder_start_token_id
@@ -246,9 +265,15 @@ class MeshRLTrainer(BaseRLTrainer):
         return module
 
     def trainable_path_predicate(self, path: str) -> bool:
-        """Which params receive gradients: with num_layers_unfrozen = N >= 0,
-        only the top N transformer layers and all heads train; -1 trains
-        everything. ``path`` is a ``state_dict`` name."""
+        """Which params receive gradients: with ``model.peft_config`` only the
+        adapters (LoRA, prefix K/V, prompt embeddings) and the heads, over
+        ``num_layers_unfrozen``; else with num_layers_unfrozen = N >= 0 only
+        the top N transformer layers and all heads; -1 trains everything.
+        ``path`` is a ``state_dict`` name."""
+        if self.config.model.peft_config:
+            if path.rsplit(".", 1)[-1] in ADAPTER_PARAM_NAMES:
+                return True
+            return path.split(".", 1)[0] not in ("transformer", "t5")
         n_unfrozen = self.config.model.num_layers_unfrozen
         if n_unfrozen < 0:
             return True
@@ -307,7 +332,8 @@ class MeshRLTrainer(BaseRLTrainer):
         optimizer step. ``loss_fn(microbatch) -> (loss, flat stats)``. The
         step returns the stats averaged over microbatches, plus
         ``learning_rate_group_0``: the schedule at the step count before the
-        update, the rate the update used.
+        update, the rate the update used. It first drops the rollout copy
+        (:meth:`generation_model`).
 
         Every trained parameter takes part in every step, as optax's update
         over the "train" partition does: one that the loss does not reach
@@ -327,6 +353,9 @@ class MeshRLTrainer(BaseRLTrainer):
         guard = self.health
 
         def step(batch) -> Dict[str, float]:
+            # the rollout copy goes BEFORE the step: the step is the memory
+            # peak, and the copy is stale after it
+            self._rollout_model = None
             self.optimizer.zero_grad(set_to_none=True)
             per_mb, losses = [], []
             for mb in batch.split(num_mb):
@@ -395,6 +424,23 @@ class MeshRLTrainer(BaseRLTrainer):
         ``self.model``)."""
         ...
 
+    def generation_model(self) -> torch.nn.Module:
+        """The module ``generate`` samples from: ``self.model``, or under
+        ``train.rollout_param_dtype`` a copy of it with every floating
+        parameter in that dtype (norm scales too), cast at the first call
+        after a learner step or a restore (one cast per experience phase) and
+        cached until the next: decode then reads half the bytes and casts no
+        parameter per call."""
+        if self.rollout_dtype is None:
+            return self.model
+        if self._rollout_model is None:
+            with torch.no_grad():
+                memo = {id(p): torch.nn.Parameter(p.detach().to(self.rollout_dtype), requires_grad=False)
+                        for p in self.model.parameters() if p.is_floating_point()}
+                self._rollout_model = copy.deepcopy(self.model, memo)
+            self.rollout_casts += 1
+        return self._rollout_model
+
     def generate(self, prompts_ids: List[np.ndarray], eval_mode: bool = False, policy=None, generator=None,
                  **kwargs):
         """Generate continuations for a list of ragged prompt id arrays:
@@ -417,6 +463,8 @@ class MeshRLTrainer(BaseRLTrainer):
         ids_t, mask_t = torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
         generator = self.generator if generator is None else generator
         processor = self.gen_logits_processor(**proc_kwargs)
+        if policy is None:
+            policy = self.generation_model()
         # the span closes after the host fetch: decode runs asynchronously
         # until it, so timing the launches alone would undercount
         with self.obs.span("generate"):
@@ -965,6 +1013,7 @@ class MeshRLTrainer(BaseRLTrainer):
         # leaving its step counts on the CPU where a fresh optimizer has them
         ckpt = torch.load(os.path.join(path, PAYLOAD_FILE), map_location="cpu", weights_only=False)
         self.model.load_state_dict(ckpt["params"])
+        self._rollout_model = None  # cast from the restored masters when next asked
         if "optimizer" in ckpt and self.config.train.save_optimizer:
             self.optimizer.load_state_dict(ckpt["optimizer"])
             self.scheduler.load_state_dict(ckpt["scheduler"])
@@ -992,10 +1041,14 @@ class MeshRLTrainer(BaseRLTrainer):
         the heads file back, as nothing reads the JAX package's
         ``heads.msgpack``. When the HF export fails (a family with no
         converter), this warns and writes the heads only, as the JAX
-        package does."""
+        package does. Under LoRA the exported trunk has the adapters merged
+        into its kernels, and with ``model.peft_config`` the adapters
+        themselves go to ``adapters.safetensors`` (:func:`save_adapters`)."""
         state = self.model.state_dict()
         prefix = "t5." if self.is_seq2seq else "transformer."
         trunk = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        if getattr(self.model_config, "lora_r", 0):
+            trunk = merge_lora_state(trunk, self.model_config.lora_alpha, self.model_config.lora_r)
         heads = {k: v for k, v in state.items() if not k.startswith(prefix)}
         os.makedirs(directory, exist_ok=True)
         try:
@@ -1004,3 +1057,5 @@ class MeshRLTrainer(BaseRLTrainer):
             logger.warning(f"HF export unavailable ({e}); saving native params only")
         if heads:
             safetensors_io.save_file(heads, os.path.join(directory, "heads.safetensors"))
+        if self.config.model.peft_config:
+            save_adapters(directory, state)

@@ -70,7 +70,20 @@ decoder-top branch (:class:`~trlx_tpu_torch.models.t5.T5Branch`), with the
 encoder and the lower decoder blocks frozen. T5 attends on the plain path;
 the serving engine does not serve it (the padded generate runs instead).
 
-Not ported yet, raising ``NotImplementedError`` naming its slice: peft.
+peft (``model.peft_config``; LoRA only for T5): the adapters and the heads
+train, and the KL reference is the same trunk run with its adapters
+disabled (:func:`~trlx_tpu_torch.models.transformer.disable_adapters`): no
+copy of the trunk and no hydra branch, whatever ``num_layers_unfrozen``
+says. Prompt and prefix tuning roll out through the padded ``generate``
+(the engine's paged cache has no room for virtual rows); LoRA serves.
+
+``model.offload_ref`` with the full-copy reference keeps that copy in host
+memory (pinned on the card) and uploads it once per experience phase, for
+scoring, releasing it before the learner steps; a streamed phase pins the
+uploaded copy for its whole window (:meth:`PPOTrainer._pin_ref`). With peft
+or a hydra branch it warns and is ignored, as in the JAX package.
+``train.rollout_param_dtype`` builds the engine's trunk in that dtype, so
+each phase's install is the one cast.
 """
 
 import copy
@@ -98,7 +111,7 @@ from trlx_tpu_torch.models.policy import (
     t5_branch_param_subtree,
 )
 from trlx_tpu_torch.models.t5 import T5LM, T5Branch
-from trlx_tpu_torch.models.transformer import TransformerLM
+from trlx_tpu_torch.models.transformer import TransformerLM, disable_adapters
 from trlx_tpu_torch.obs import span
 from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.obs.overlap import OverlapWindow
@@ -244,7 +257,15 @@ class PPOTrainer(MeshRLTrainer):
         0``), and the frozen KL reference: with ``num_layers_unfrozen = N >
         0`` the hydra branch (``frozen_branch``, a copy of the top N layers,
         the final norm and the head, started at ``branch_start``), otherwise
-        a full copy of the trunk (``ref_model``)."""
+        a full copy of the trunk (``ref_model``, or with ``model.offload_ref``
+        a host copy uploaded per experience phase). With ``model.peft_config``
+        the reference is the policy's own trunk with its adapters disabled
+        (``peft_base_ref``): no copy, no branch."""
+        self._ref_host = self._ref_dev = None
+        self._ref_pinned = False
+        #: host -> device uploads of the offloaded reference, and their seconds
+        self.ref_uploads, self.ref_upload_s = 0, []
+        self.peft_base_ref = bool(self.config.model.peft_config)
         if self.is_seq2seq:
             return self._setup_seq2seq_model()
         n_unfrozen = self.config.model.num_layers_unfrozen
@@ -259,7 +280,7 @@ class PPOTrainer(MeshRLTrainer):
         if n_value > 0:
             state = init_value_branch_from_trunk(self.model.state_dict(), self.model_config, n_value)
             self.model.load_state_dict(state)
-        if self.config.model.offload_ref and n_unfrozen > 0:
+        if self.config.model.offload_ref and (self.peft_base_ref or n_unfrozen > 0):
             # only the FULL-copy reference lives in HBM at size worth offloading;
             # the hydra ref is already the cheap option — say so instead of
             # silently ignoring the flag
@@ -268,7 +289,9 @@ class PPOTrainer(MeshRLTrainer):
                 "adapter view (num_layers_unfrozen > 0 or peft), not a full copy"
             )
         self.ref_model = self.frozen_branch = self.branch_start = None
-        if n_unfrozen > 0:
+        if self.peft_base_ref:
+            pass  # the reference is the trunk itself, adapters disabled
+        elif n_unfrozen > 0:
             self.branch_start = self.model_config.num_layers - n_unfrozen
             with torch.device(self.device):
                 self.frozen_branch = ModelBranch(self.model_config, self.branch_start)
@@ -276,6 +299,8 @@ class PPOTrainer(MeshRLTrainer):
                 branch_param_subtree(self.model.transformer.state_dict(), self.branch_start, self.model_config)
             )
             self.frozen_branch.requires_grad_(False)
+        elif self.config.model.offload_ref:
+            self._setup_ref_offload(self.model.transformer.state_dict())
         else:
             with torch.device(self.device):
                 self.ref_model = TransformerLM(self.model_config)
@@ -287,17 +312,22 @@ class PPOTrainer(MeshRLTrainer):
         checkpoint over the trunk, and the frozen reference: with ``0 <
         num_layers_unfrozen < num_decoder_layers`` the decoder-top branch
         (``frozen_branch``, started at ``branch_start``), otherwise a full
-        frozen T5 copy (``ref_model``): with every decoder block trained the
-        branch would reuse a relative bias that trains."""
+        frozen T5 copy (``ref_model``, or the offloaded host copy): with every
+        decoder block trained the branch would reuse a relative bias that
+        trains. With T5 LoRA the reference is the policy's T5 with its
+        adapters disabled."""
         n_unfrozen = self.config.model.num_layers_unfrozen
         self.model = self.load_t5(Seq2SeqLMWithValueHead)
         n_dec = self.model_config.num_decoder_layers
         if n_unfrozen > n_dec:
             raise ValueError(f"num_layers_unfrozen={n_unfrozen} exceeds num_decoder_layers={n_dec}")
-        if self.config.model.offload_ref and 0 < n_unfrozen < n_dec:
-            logger.warning("offload_ref ignored: the seq2seq reference is a decoder branch, not a full copy")
+        if self.config.model.offload_ref and (self.peft_base_ref or 0 < n_unfrozen < n_dec):
+            logger.warning("offload_ref ignored: the seq2seq reference is a decoder branch / disabled-adapter "
+                           "view, not a full copy")
         self.ref_model = self.frozen_branch = self.branch_start = None
-        if 0 < n_unfrozen < n_dec:
+        if self.peft_base_ref:
+            pass  # the reference is the T5 itself, adapters disabled
+        elif 0 < n_unfrozen < n_dec:
             self.branch_start = n_dec - n_unfrozen
             with torch.device(self.device):
                 self.frozen_branch = T5Branch(self.model_config, self.branch_start)
@@ -305,11 +335,67 @@ class PPOTrainer(MeshRLTrainer):
                 t5_branch_param_subtree(self.model.t5.state_dict(), self.branch_start, self.model_config)
             )
             self.frozen_branch.requires_grad_(False)
+        elif self.config.model.offload_ref:
+            self._setup_ref_offload(self.model.t5.state_dict())
         else:
             with torch.device(self.device):
                 self.ref_model = T5LM(self.model_config)
             self.ref_model.load_state_dict(self.model.t5.state_dict())
             self.ref_model.requires_grad_(False)
+
+    # ------------------------------------------------------- offloaded reference
+
+    def _setup_ref_offload(self, trunk_state):
+        """``model.offload_ref``: the full frozen reference held in host
+        memory (pinned on a CUDA trainer, so each upload is one DMA; plain
+        on the CPU, where ``pin_memory`` needs CUDA), uploaded by
+        :meth:`_ref_scoring_model` once per experience phase and released by
+        :meth:`_release_ref` before the learner steps: the reference's NeMo
+        CPU-pinned policy/ref swap."""
+        pin = self.device.type == "cuda"
+        self._ref_host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pin).copy_(v)
+                          for k, v in trunk_state.items()}
+        logger.info(f"offload_ref: frozen reference held in {'pinned' if pin else 'plain'} host memory")
+
+    def _ref_scoring_model(self):
+        """The full-copy reference for the scoring forwards: ``ref_model``,
+        or the offloaded copy uploaded on first use in a phase (built on the
+        meta device, its tensors assigned from the upload; the upload's
+        seconds land in ``ref_upload_s``)."""
+        if self._ref_host is None:
+            return self.ref_model
+        if self._ref_dev is None:
+            t0 = time.perf_counter()
+            with torch.device("meta"):
+                ref = T5LM(self.model_config) if self.is_seq2seq else TransformerLM(self.model_config)
+            ref.load_state_dict({k: v.to(self.device, non_blocking=True) for k, v in self._ref_host.items()},
+                                assign=True)
+            ref.requires_grad_(False)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._ref_dev = ref
+            self.ref_uploads += 1
+            self.ref_upload_s.append(time.perf_counter() - t0)
+        return self._ref_dev
+
+    def _pin_ref(self):
+        """Hold the uploaded reference for a whole streamed window: upload it
+        once now, and make :meth:`_release_ref` a no-op until
+        :meth:`_unpin_ref`."""
+        self._ref_pinned = True
+        if self._ref_host is not None:
+            self._ref_scoring_model()
+
+    def _unpin_ref(self):
+        """End of the streamed window: release is allowed again."""
+        self._ref_pinned = False
+
+    def _release_ref(self):
+        """Free the uploaded reference after an experience phase (before the
+        learner steps, where memory peaks); a no-op without offload or while
+        a streamed window holds the pin."""
+        if not self._ref_pinned:
+            self._ref_dev = None
 
     def _new_policy(self):
         """An untrained module shaped like ``self.model`` on the device (the
@@ -326,7 +412,8 @@ class PPOTrainer(MeshRLTrainer):
         encoder, the embedding (and so the tied head) and the lower decoder
         blocks are frozen."""
         n_unfrozen = self.config.model.num_layers_unfrozen
-        if not self.is_seq2seq:
+        if not self.is_seq2seq or self.config.model.peft_config:
+            # peft: adapters and heads (the base predicate)
             return super().trainable_path_predicate(path)
         if n_unfrozen < 0 or not path.startswith("t5."):
             return True
@@ -390,12 +477,16 @@ class PPOTrainer(MeshRLTrainer):
         logprobs = logprobs_of_labels(logits[:, P - 1:P - 1 + R], labels)
         values = values[:, P - 1:P - 1 + R].float()
         del logits
-        if self.frozen_branch is not None:
+        if self.peft_base_ref:
+            # the same (frozen) trunk with its adapters disabled
+            with disable_adapters():
+                ref_logits = policy.transformer(seq_t, mask_t)[0]
+        elif self.frozen_branch is not None:
             ref_logits = policy.forward_branch(
                 branch_hidden, mask_t, None, self.branch_start, branch=self.frozen_branch
             )
         else:
-            ref_logits, _, _, _ = self.ref_model(seq_t, mask_t)
+            ref_logits, _, _, _ = self._ref_scoring_model()(seq_t, mask_t)
         ref_logprobs = logprobs_of_labels(ref_logits[:, P - 1:P - 1 + R], labels)
         return logprobs, values, ref_logprobs
 
@@ -425,7 +516,11 @@ class PPOTrainer(MeshRLTrainer):
                                                            self.branch_start)
         else:
             logits, values, _ = policy(q, qm, dec_in, dec_mask)
-            ref_logits, _, _ = self.ref_model(q, qm, dec_in, dec_mask)
+            if self.peft_base_ref:
+                with disable_adapters():
+                    ref_logits, _, _ = policy.t5(q, qm, dec_in, dec_mask)
+            else:
+                ref_logits, _, _ = self._ref_scoring_model()(q, qm, dec_in, dec_mask)
         out = (logprobs_of_labels(logits, r), values.float(), logprobs_of_labels(ref_logits, r))
         return tuple(x.cpu().numpy() for x in out)
 
@@ -445,6 +540,8 @@ class PPOTrainer(MeshRLTrainer):
 
         if self.config.model.model_arch_type != "causal":
             return fallback("seq2seq generation is not paged")
+        if self.model_config.peft_type in ("prompt", "prefix"):
+            return fallback("prompt/prefix peft puts virtual rows in the cache")
         if self.gen_logits_processor() is not None:
             return fallback("decode-time logits processor in use")
         gen_kwargs = dict(self.generate_experience_kwargs or self.generate_kwargs)
@@ -464,6 +561,9 @@ class PPOTrainer(MeshRLTrainer):
             ),
             paged_attention_impl=cfg.attention_impl,
         )
+        if self.rollout_dtype is not None:
+            # the engine's trunk IS the rollout copy: each install casts once
+            trunk_config = trunk_config.replace(param_dtype=self.rollout_dtype)
         num_slots = cfg.num_slots or (self.method.decode_batch_size or self.method.chunk_size)
         svr = self.config.train.serving_resilience
         policy = None
@@ -564,7 +664,7 @@ class PPOTrainer(MeshRLTrainer):
         swaps to the newest committed broadcast at its own round boundaries,
         and the producer's snapshot stays the behavior-scoring policy."""
         if self._island is None and params is not None and params is not self._serving_param_ref:
-            self._serving_engine.set_params(self._trunk_state(params))
+            self._install_serving_params(self._trunk_state(params))
             self._serving_param_ref = params
         # the engine's rounds end in host fetches: the span times the decode
         with self.obs.span("generate"):
@@ -572,6 +672,14 @@ class PPOTrainer(MeshRLTrainer):
         if self._serving_autoscaler is not None:
             self._serving_autoscaler.observe()
         return out
+
+    def _install_serving_params(self, trunk_state):
+        """Install trunk weights in the engine (which flushes its prefix
+        cache); under ``train.rollout_param_dtype`` the install casts them
+        into the engine's low-precision trunk, counted in ``rollout_casts``."""
+        self._serving_engine.set_params(trunk_state)
+        if self.rollout_dtype is not None:
+            self.rollout_casts += 1
 
     def on_learn_end(self):
         """Stop and join the rollout producer (no thread left, whatever path
@@ -649,7 +757,7 @@ class PPOTrainer(MeshRLTrainer):
         if self._serving_engine is not None:
             # the policy changed since the last phase: install it (the
             # engine flushes its prefix cache, computed under the old weights)
-            self._serving_engine.set_params(self.model.transformer.state_dict())
+            self._install_serving_params(self.model.transformer.state_dict())
         if self._serving_client is not None and self.config.train.serving.stream_overlap:
             self._make_experience_streamed(num_rollouts, iter_count, ppo_rl_elements, accumulated_kl,
                                            all_scores_log)
@@ -680,6 +788,8 @@ class PPOTrainer(MeshRLTrainer):
         if self.log_rollouts:
             self.store.export_history(location=self.rollout_logging_dir, tokenizer=self.tokenizer)
         self.push_to_store(ppo_rl_elements[:num_rollouts])
+        # an offloaded reference leaves the device before the learner steps
+        self._release_ref()
 
     def _make_experience_streamed(self, num_rollouts, iter_count, ppo_rl_elements, accumulated_kl,
                                   all_scores_log):
@@ -885,44 +995,49 @@ class PPOTrainer(MeshRLTrainer):
         self._clear_staged_learn()
         generated = 0
         t_phase = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=max(1, int(cfg.overlap_reward_workers)),
-                                thread_name_prefix="overlap-reward") as pool:
-            while generated < num_rollouts:
-                batch = next(self.prompt_iterator)
-                self._prompt_batches_drawn += 1
-                prompts = batch["input_ids"]
-                metadata = {k: v for k, v in batch.items() if k != "input_ids"}
-                base = generated
-                generated += len(prompts)
-                cur["P"] = pad_to_bucket(max((len(p) for p in prompts), default=1), POW2_BUCKETS)
+        # one reference upload for the whole window (offload_ref)
+        self._pin_ref()
+        try:
+            with ThreadPoolExecutor(max_workers=max(1, int(cfg.overlap_reward_workers)),
+                                    thread_name_prefix="overlap-reward") as pool:
+                while generated < num_rollouts:
+                    batch = next(self.prompt_iterator)
+                    self._prompt_batches_drawn += 1
+                    prompts = batch["input_ids"]
+                    metadata = {k: v for k, v in batch.items() if k != "input_ids"}
+                    base = generated
+                    generated += len(prompts)
+                    cur["P"] = pad_to_bucket(max((len(p) for p in prompts), default=1), POW2_BUCKETS)
 
-                def on_finish(i, req, _base=base, _prompts=prompts, _meta=metadata):
-                    prompt = np.asarray(_prompts[i], np.int32)
-                    gen = np.asarray(req.generated, np.int32)
-                    str_samples, str_prompts, str_outputs, out_ids = self.decode(
-                        [prompt], np.concatenate([prompt, gen])[None, :], len(prompt), append_eos=True,
-                        response_masks=np.ones((1, len(gen)), np.int32),
-                    )
-                    kw = dict(samples=str_samples, prompts=str_prompts, outputs=str_outputs,
-                              tokenizer=self._reward_tokenizer, **{k: [v[i]] for k, v in _meta.items()})
-                    fut = pool.submit(stream_reward, kw)
-                    if flight.enabled:
-                        flight.record(req.uid, "reward_dispatch", t=flight_clock())
-                    pending.append((_base + i, fut, prompt, out_ids[0], req.uid))
-                    if serialize:
-                        fut.result()  # the seeded regression: serial consumption
-                    pump()
+                    def on_finish(i, req, _base=base, _prompts=prompts, _meta=metadata):
+                        prompt = np.asarray(_prompts[i], np.int32)
+                        gen = np.asarray(req.generated, np.int32)
+                        str_samples, str_prompts, str_outputs, out_ids = self.decode(
+                            [prompt], np.concatenate([prompt, gen])[None, :], len(prompt), append_eos=True,
+                            response_masks=np.ones((1, len(gen)), np.int32),
+                        )
+                        kw = dict(samples=str_samples, prompts=str_prompts, outputs=str_outputs,
+                                  tokenizer=self._reward_tokenizer, **{k: [v[i]] for k, v in _meta.items()})
+                        fut = pool.submit(stream_reward, kw)
+                        if flight.enabled:
+                            flight.record(req.uid, "reward_dispatch", t=flight_clock())
+                        pending.append((_base + i, fut, prompt, out_ids[0], req.uid))
+                        if serialize:
+                            fut.result()  # the seeded regression: serial consumption
+                        pump()
 
-                t0 = time.perf_counter()
-                with self.obs.span("decode"):
-                    self._serving_client.stream_batch(prompts, self._serving_max_new, on_finish,
-                                                      on_step=window.note_decode)
-                self._phase_time["generate"] += time.perf_counter() - t0
-                # drain before the next batch can change the prompt bucket
-                pump(block=True)
-                if ready:
-                    dispatch([ready.popleft() for _ in range(len(ready))])
-                harvest()
+                    t0 = time.perf_counter()
+                    with self.obs.span("decode"):
+                        self._serving_client.stream_batch(prompts, self._serving_max_new, on_finish,
+                                                          on_step=window.note_decode)
+                    self._phase_time["generate"] += time.perf_counter() - t0
+                    # drain before the next batch can change the prompt bucket
+                    pump(block=True)
+                    if ready:
+                        dispatch([ready.popleft() for _ in range(len(ready))])
+                    harvest()
+        finally:
+            self._unpin_ref()
         self._serving_engine.note_overlap(window.decode_busy_s, window.overlapped_s)
         self._serving_engine.export_gauges()
         if self._serving_autoscaler is not None:

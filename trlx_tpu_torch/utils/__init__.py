@@ -96,8 +96,10 @@ def get_optimizer_class(name) -> Callable:
     out in :mod:`trlx_tpu_torch.utils.optim`, with the JAX registry's
     arguments: ``sgd(momentum, weight_decay)`` with the decay chained before
     it, ``lion(betas=(0.9, 0.99), weight_decay=0)``, and ``adafactor`` and
-    ``rmsprop`` with optax's keyword arguments and defaults. The 8-bit
-    optimizers raise, naming the slice that brings them.
+    ``rmsprop`` with optax's keyword arguments and defaults.
+    ``adamw_8bit_bnb`` / ``adam_8bit_bnb`` are the JAX package's
+    blockwise-quantized AdamW (:mod:`trlx_tpu_torch.ops.quantized_adam`;
+    ``adam_8bit_bnb`` drops ``weight_decay``, as the JAX registry does).
     """
     from trlx_tpu_torch.utils import optim
 
@@ -120,10 +122,23 @@ def get_optimizer_class(name) -> Callable:
             return torch.optim.Adam(params, lr=learning_rate, betas=tuple(betas), eps=eps)
 
         return make_adam
-    if name in (OptimizerName.ADAM_8BIT, OptimizerName.ADAMW_8BIT):
-        raise NotImplementedError(
-            f"trlx_tpu_torch does not port optimizer {name.value!r} yet: int8 optimizer-state slice"
-        )
+    if name == OptimizerName.ADAMW_8BIT:
+        from trlx_tpu_torch.ops.quantized_adam import AdamW8bit
+
+        def make_adamw_8bit(params, learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
+            return AdamW8bit(params, lr=learning_rate, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+
+        return make_adamw_8bit
+    if name == OptimizerName.ADAM_8BIT:
+        from trlx_tpu_torch.ops.quantized_adam import adam_8bit
+
+        def make_adam_8bit(params, learning_rate, betas=(0.9, 0.999), eps=1e-8, **kw):
+            kw.pop("weight_decay", None)
+            if kw:
+                raise TypeError(f"adam_8bit_bnb: unexpected kwargs {sorted(kw)}")
+            return adam_8bit(params, lr=learning_rate, betas=tuple(betas), eps=eps)
+
+        return make_adam_8bit
     if name == OptimizerName.SGD:
         return lambda params, learning_rate, **kw: optim.SGD(params, lr=learning_rate, **kw)
     if name == OptimizerName.LION:

@@ -30,9 +30,12 @@ def _grad(p: torch.Tensor) -> torch.Tensor:
 
 
 def state_bytes(optimizer: torch.optim.Optimizer) -> int:
-    """Bytes of every tensor in the optimizer's per-parameter state."""
-    return sum(v.numel() * v.element_size() for s in optimizer.state.values() for v in s.values()
-               if isinstance(v, torch.Tensor))
+    """Bytes of every tensor in the optimizer's per-parameter state, and of
+    any tensor its parameter groups hold (the 8-bit AdamW's step count)."""
+    per_param = sum(v.numel() * v.element_size() for s in optimizer.state.values() for v in s.values()
+                    if isinstance(v, torch.Tensor))
+    return per_param + sum(v.numel() * v.element_size() for g in optimizer.param_groups for k, v in g.items()
+                           if k != "params" and isinstance(v, torch.Tensor))
 
 
 class SGD(torch.optim.Optimizer):

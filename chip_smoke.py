@@ -352,7 +352,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory")
+          "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory", "analysis")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1640,11 +1640,17 @@ def engine_spec_pass(ctx, eng, prompts, budgets, label, L):
     return first
 
 
+#: requests of engine_spec's pass: the first two slot-fulls of the traffic
+#: (all 768 before the script's time limit forced the cut)
+ES_REQUESTS = 2 * SLOTS
+
+
 def phase_engine_spec(ctx):
     """A main path: the engine at full gpt2 width, int8 KV, spec_k=4 and
     prefill_chunk=64, under the JAX package's spec-leg traffic (bench.py
-    ``_serving_perf``: 768 requests of a 64-token shared prefix plus 1..64
-    own tokens, every budget 128, greedy), one measured pass.
+    ``_serving_perf``: the first ES_REQUESTS of its 768 requests of a
+    64-token shared prefix plus 1..64 own tokens, every budget 128, greedy),
+    one measured pass.
     Launch counts are reset just before and read just after: K5 on every
     verify round and chunk append, K1 on every prefill wave, K4 never. Then
     every kernel call shape of the pass against the plain versions
@@ -1666,6 +1672,7 @@ def phase_engine_spec(ctx):
     from trlx_tpu_torch.ops import _kernels
 
     prompts, _ = serving_traffic(gpt2_config(12, torch.bfloat16).vocab_size)
+    prompts = prompts[:ES_REQUESTS]
     budgets = [MAX_NEW] * len(prompts)
     eng, state = full_width_engine(True, spec_k=4, prefill_chunk=PROMPT_CAP // 2)
     L = eng.trunk.config.num_layers
@@ -1939,6 +1946,8 @@ def train_parity_report(over, tie_dtype=None, optimizer=None, state_fn=None):
 
 #: the full-width train phase's shape (bench.py's gpt2 train leg: B=32, P=N=128)
 TRAIN_B, TRAIN_P, TRAIN_N, TRAIN_MB = 32, 128, 128, 16
+#: the train phase's stop sequences: its rollouts go through the data plane's stop scan
+TRAIN_STOPS = ["e ", "zz"]
 
 
 def full_width_train_config(ckpt_dir):
@@ -1965,15 +1974,58 @@ def phase_train(ctx):
     bf16 compute, f32 params and AdamW state, flash attention, a full-copy
     reference (``num_layers_unfrozen=-1``); 64 rollouts of 128 sampled
     tokens per experience phase, 4 optimizer steps of 32 rollouts in 2
-    microbatches. Every prefill and scoring forward must have launched K1
-    once per layer and model, and every learner step K1, K2 and K3 once per
-    layer and microbatch (:func:`ppo_main_path`)."""
+    microbatches, stop sequences on. Every prefill and scoring forward must
+    have launched K1 once per layer and model, and every learner step K1, K2
+    and K3 once per layer and microbatch (:func:`ppo_main_path`). Every call
+    of the host data plane the run makes (prompt padding, collates, stop
+    scans) is recorded for phase ``analysis`` (:func:`an_data_plane`)."""
     import tempfile
 
+    from trlx_tpu_torch import native
+
     L, num_mb = 12, TRAIN_B // TRAIN_MB
-    ctx["train_summary"], ctx["train_launches"] = ppo_main_path(
-        ctx, "train", full_width_train_config(tempfile.mkdtemp(prefix="chip_smoke_train_")),
-        {"loss_fwd": L * num_mb, "bwd": L * num_mb, "prefill": L, "score": 2 * L})
+    seen, restore = record_data_plane()
+    native.reset_calls()
+    try:
+        ctx["train_summary"], ctx["train_launches"] = ppo_main_path(
+            ctx, "train", full_width_train_config(tempfile.mkdtemp(prefix="chip_smoke_train_")),
+            {"loss_fwd": L * num_mb, "bwd": L * num_mb, "prefill": L, "score": 2 * L},
+            train_kwargs=dict(reward_fn=byte_share_reward, prompts=byte_prompts(64, 64, 128, SEED + 1),
+                              eval_prompts=byte_prompts(32, 64, 128, SEED + 2), stop_sequences=TRAIN_STOPS))
+    finally:
+        restore()
+    ctx["train_data_plane"] = {"seen": seen, "calls": native.calls()}
+
+
+def record_data_plane():
+    """Wrap the host data plane where the main path calls it (the collate,
+    the prompt padding, the stop scan) so that every call's inputs and
+    output are kept. Returns ({function: [(args, kwargs, out)]}, the
+    function that restores the call sites)."""
+    from trlx_tpu_torch.ops import generation
+    from trlx_tpu_torch.pipeline import ppo_pipeline
+    from trlx_tpu_torch.trainer import mesh_trainer
+
+    seen = {"pad_collate_i32": [], "pad_collate_f32": [], "find_stop_positions": []}
+    sites = [(ppo_pipeline, "pad_collate_i32"), (ppo_pipeline, "pad_collate_f32"), (generation, "pad_collate_i32"),
+             (mesh_trainer, "find_stop_positions")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+
+    def recorder(name, fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen[name].append((args, kwargs, out))
+            return out
+        return wrapped
+
+    for mod, name, fn in saved:
+        setattr(mod, name, recorder(name, fn))
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return seen, restore
 
 
 def phase_hydra(ctx):
@@ -3338,7 +3390,7 @@ ASYNC_STEPS = 8
 
 def phase_async(ctx):
     """A main path: the train phase's configuration and traffic (gpt2 full
-    width, 64 sampled rollouts of 128 tokens per refill, steps of 32 in 2
+    width, 64 sampled rollouts of SHORT_N tokens per refill, steps of 32 in 2
     microbatches) with ``train.async_rollouts`` on (max_staleness 2,
     publish_interval 1, staleness_correction), 8 learner steps. The producer
     thread generates and scores on its snapshot copy while the learner
@@ -3350,7 +3402,8 @@ def phase_async(ctx):
     == consumed + dropped_stale + leftover + dropped_shutdown); at least one
     step trained on a batch with staleness >= 1 (the IS branch ran). Prints
     per-step staleness, collect wait and overlap, and the seconds per step
-    beside the synchronous train phase's."""
+    beside the synchronous train phase's (whose rollouts are twice as
+    long)."""
     import shutil
     import tempfile
     import threading
@@ -3365,7 +3418,7 @@ def phase_async(ctx):
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_async_")
     cfg = TRLConfig.update(full_width_train_config(ckpt_dir), {
-        "train.total_steps": ASYNC_STEPS, "train.async_rollouts": dict(
+        **short_traffic(do_sample=True), "train.total_steps": ASYNC_STEPS, "train.async_rollouts": dict(
             enabled=True, max_staleness=2, publish_interval=1, staleness_correction=True)})
     num_mb, L = TRAIN_B // TRAIN_MB, 12
     lock, counts, steps = threading.Lock(), {"generate": 0, "score": 0}, []
@@ -3503,6 +3556,17 @@ def phase_randomwalks_async(ctx):
 #: halved it from 8 steps (a checkpoint every 4, an eval every 3) to keep
 #: the whole script inside its time limit.
 RES_STEPS, RES_CKPT_EVERY, RES_EVAL_EVERY = 4, 2, 1
+#: new tokens per rollout and eval sample in the phases that repeat the
+#: train phase's traffic at half its length (resilience, observability, the
+#: stream leg, the fleet and islands trainers, async, peft_memory: TRAIN_N
+#: before the script's time limit forced the cut)
+SHORT_N = 64
+
+
+def short_traffic(do_sample):
+    """Dotted overrides cutting the train phase's traffic to SHORT_N new tokens."""
+    return {"train.seq_length": TRAIN_P + SHORT_N,
+            "method.gen_kwargs": dict(max_new_tokens=SHORT_N, do_sample=do_sample, top_k=0, top_p=1.0)}
 #: the preempted run stops at the end of the first experience epoch
 RES_STOP = RES_STEPS // 2
 #: the supervisor leg's wedge timer: above a full-width produce iteration
@@ -3510,9 +3574,10 @@ RES_WEDGE_TIMEOUT_S = 6.0
 
 
 def resilience_config(ckpt_dir, **over):
-    """The train phase's model and traffic (64 sampled rollouts of 128
-    tokens, steps of 32 in 2 microbatches, bf16 compute, f32 params and
-    AdamW) with the optimizer saved, greedy evaluation (``gen_kwargs``) and
+    """The train phase's model and traffic, cut to SHORT_N new tokens (64
+    sampled rollouts of SHORT_N tokens, steps of 32 in 2 microbatches, bf16
+    compute, f32 params and AdamW) with the optimizer saved, greedy
+    evaluation (``gen_kwargs``) and
     sampled rollouts (``gen_experience_kwargs``): a greedy eval draws
     nothing from the sampling generator, so a resumed run's first eval
     leaves the stream where the uninterrupted run has it. ``over`` merges
@@ -3522,8 +3587,8 @@ def resilience_config(ckpt_dir, **over):
     return TRLConfig.update(full_width_train_config(ckpt_dir), {
         "train.total_steps": RES_STEPS, "train.checkpoint_interval": RES_CKPT_EVERY,
         "train.eval_interval": RES_EVAL_EVERY, "train.save_optimizer": True,
-        "method.gen_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=False),
-        "method.gen_experience_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=True, top_k=0, top_p=1.0),
+        **short_traffic(do_sample=False),
+        "method.gen_experience_kwargs": dict(max_new_tokens=SHORT_N, do_sample=True, top_k=0, top_p=1.0),
         **over})
 
 
@@ -3913,8 +3978,9 @@ class _LogCapture:
 
 
 def obs_config(ckpt_dir, on, profile=False, **over):
-    """The train phase's model and traffic (:func:`full_width_train_config`)
-    with the jsonl tracker under the checkpoint dir's ``logs`` and, ``on``,
+    """The train phase's model and traffic (:func:`full_width_train_config`),
+    cut to SHORT_N new tokens (:func:`short_traffic`), with the jsonl
+    tracker under the checkpoint dir's ``logs`` and, ``on``,
     ``train.observability`` with every output: the span trace, the series
     and Prometheus exports, memory gauges every step, the watchdog at
     ``OBS_WATCHDOG_S`` and MFU's peak detected from the card's name;
@@ -3930,7 +3996,7 @@ def obs_config(ckpt_dir, on, profile=False, **over):
         train.update({"train.profile_dir": os.path.join(ckpt_dir, "profile"),
                       "train.profile_start_step": OBS_PROFILE_WINDOW[0],
                       "train.profile_end_step": OBS_PROFILE_WINDOW[1]})
-    return TRLConfig.update(full_width_train_config(ckpt_dir), {**train, **over})
+    return TRLConfig.update(full_width_train_config(ckpt_dir), {**short_traffic(do_sample=True), **train, **over})
 
 
 def profiled_learn_kernels(profile_dir):
@@ -3959,8 +4025,9 @@ def profiled_learn_kernels(profile_dir):
 def phase_observability(ctx):
     """A main path: ``train.observability`` and ``train.profile_dir`` through
     ``trlx_tpu_torch.train`` at gpt2 full width with the train phase's model
-    and traffic (64 sampled rollouts of 128 tokens, 4 steps of 32 in 2
-    microbatches, bf16 compute, f32 params and AdamW). Three legs:
+    and traffic at SHORT_N new tokens (64 sampled rollouts of 64 tokens, 4
+    steps of 32 in 2 microbatches, bf16 compute, f32 params and AdamW).
+    Three legs:
 
     1. Inert, then on: two 4-step runs (off, then on; four in turns until
        PR 14 cut them for time). Bar: every ``losses/*`` stat ``==`` across
@@ -4595,7 +4662,7 @@ def ps_scenario_legs(ctx, cpu_refs):
 
 def ps_stream_overlap(ctx):
     """Leg stream_overlap: train_serving's trainer (gpt2 full width, bf16
-    compute, 64 greedy rollouts of 128 tokens, spec_k 4, prefill_chunk 64,
+    compute, 64 greedy rollouts of SHORT_N tokens, spec_k 4, prefill_chunk 64,
     block 16) with ``stream_overlap`` (2 reward workers, microbuckets of
     chunk_size) and ``serving_resilience`` (the supervisor wraps the
     engine), the reward stand-in sleeping PS_REWARD_SLEEP_S a sample. A
@@ -4621,7 +4688,7 @@ def ps_stream_overlap(ctx):
         "train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64,
                           "stream_overlap": True, "overlap_reward_workers": 2, "overlap_microbucket": 0},
         "train.serving_resilience": {"enabled": True, "max_restarts": 4},
-        "method.gen_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=False)})
+        **short_traffic(do_sample=False)})
     calls, lock = [], threading.Lock()
 
     def reward_fn(samples, prompts, outputs, **kw):
@@ -4985,7 +5052,7 @@ def sf_fleet_scenario(ctx, cpu_facts, runs):
 
 def sf_fleet_trainer(ctx, runs):
     """Leg fleet_trainer: train_serving's trainer (gpt2 full width, 64 greedy
-    rollouts of 128 tokens, spec_k 4, prefill_chunk 64, block 16) with
+    rollouts of SHORT_N tokens, spec_k 4, prefill_chunk 64, block 16) with
     ``train.serving_fleet`` (2 replicas, autoscale on, at most 2, no
     tenant stickiness) and ``serving_resilience``, through
     ``trlx_tpu_torch.train`` for 2 steps.
@@ -5017,8 +5084,7 @@ def sf_fleet_trainer(ctx, runs):
     def config(fleet, **weights):
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_sf_trainer_")
         over = {"train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64},
-                "method.gen_kwargs": dict(max_new_tokens=TRAIN_N, do_sample=False),
-                "train.total_steps": SF_FLEET_STEPS}
+                **short_traffic(do_sample=False), "train.total_steps": SF_FLEET_STEPS}
         if fleet:
             over.update({"train.serving_fleet": dict(enabled=True, num_replicas=2, autoscale=True, max_replicas=2,
                                                      **weights),
@@ -5440,7 +5506,7 @@ def sf_islands_bubble(ctx, runs):
 
 def sf_islands_trainer(ctx, runs):
     """Leg islands_trainer: the async phase's trainer (gpt2 full width, 64
-    sampled rollouts of 128 tokens, max_staleness 2, publish_interval 1) with
+    sampled rollouts of SHORT_N tokens, max_staleness 2, publish_interval 1) with
     train_serving's engine (spec_k 4, prefill_chunk 64) and ``train.islands``
     (chunk_layers 2), 4 steps through ``trlx_tpu_torch.train``: the producer
     thread generates through the engine while the learner publishes chunked
@@ -5462,7 +5528,7 @@ def sf_islands_trainer(ctx, runs):
     threads0 = {t.ident for t in threading.enumerate()}
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_sf_islands_")
     cfg = TRLConfig.update(full_width_train_config(ckpt), {
-        "train.total_steps": SF_ISLAND_STEPS,
+        **short_traffic(do_sample=True), "train.total_steps": SF_ISLAND_STEPS,
         "train.async_rollouts": dict(enabled=True, max_staleness=2, publish_interval=1, staleness_correction=True),
         "train.serving": {"enabled": True, "block_size": 16, "spec_k": 4, "prefill_chunk": 64},
         "train.islands": dict(enabled=True, chunk_layers=2)})
@@ -6182,7 +6248,7 @@ PM_8BIT = dict(lr=1e-5, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6)
 
 
 def pm_trainer(tag, over, device="cuda", optimizer=None):
-    """The train phase's gpt2 trainer at full width (64 rollouts of 128
+    """The train phase's gpt2 trainer at full width (64 rollouts of SHORT_N
     sampled tokens a phase, steps of 32 in 2 microbatches) with ``over``;
     ``optimizer`` = (name, kwargs) replaces the optimizer block."""
     import tempfile
@@ -6191,7 +6257,8 @@ def pm_trainer(tag, over, device="cuda", optimizer=None):
     from trlx_tpu_torch.pipeline import PromptPipeline
     from trlx_tpu_torch.utils.loading import get_trainer
 
-    cfg = TRLConfig.update(full_width_train_config(tempfile.mkdtemp(prefix=f"chip_smoke_pm_{tag}_")), over)
+    cfg = TRLConfig.update(full_width_train_config(tempfile.mkdtemp(prefix=f"chip_smoke_pm_{tag}_")),
+                           {**short_traffic(do_sample=True), **over})
     if optimizer is not None:
         cfg = with_optimizer(cfg, *optimizer)
     trainer = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=device)
@@ -6769,6 +6836,121 @@ def phase_peft_memory(ctx):
         raise AssertionError(f"peft_memory phase: {failed}")
 
 
+AN_SEED_REGRESSION = "extra_item"
+
+
+def an_data_plane(ctx):
+    """Leg ``data_plane``: the C++ host data plane held against its numpy
+    versions on the train phase's main path (gpt2 full width, 64 sampled
+    rollouts of 128 tokens, 4 steps of 32, stop sequences on): every
+    prompt padding, collate and stop scan that run made was recorded
+    (:func:`record_data_plane`) and is recomputed here by the ``plain_*``
+    versions on the same inputs (exact), and the library's call counts
+    show the run went through it. Needs phase ``train`` in the same run."""
+    import numpy as np
+
+    from trlx_tpu_torch import native
+
+    rec = ctx.get("train_data_plane")
+    if rec is None:
+        return {"phase train ran before (its data plane calls are held here)": False}, {}
+    seen, calls = rec["seen"], rec["calls"]
+    plain = {"pad_collate_i32": native.plain_pad_collate_i32, "pad_collate_f32": native.plain_pad_collate_f32,
+             "find_stop_positions": native.plain_find_stop_positions}
+    mismatches = []
+    for name, records in seen.items():
+        for i, (args, kwargs, out) in enumerate(records):
+            want = plain[name](*args, **kwargs)
+            got, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+            if not all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want)):
+                mismatches.append(f"{name} call {i}")
+    report = {"library": native.lib_path().name, "calls": calls, "mismatches": mismatches,
+              "recorded": {n: len(r) for n, r in seen.items()},
+              "rows_collated": sum(len(a[0]) for a, _, _ in seen["pad_collate_i32"]),
+              "stop_rows_scanned": sum(int(a[0].shape[0]) for a, _, _ in seen["find_stop_positions"]),
+              "out_shapes": {n: sorted({str(list((o[0] if isinstance(o, tuple) else o).shape)) for _, _, o in r})
+                             for n, r in seen.items()}}
+    checks = {
+        "the run's collate and stop scan went through the library": all(calls[n] > 0 for n in calls),
+        "every call recorded on the path counted by the library": all(
+            calls[n] >= len(seen[n]) for n in calls),
+        "library == numpy on every recorded call": not mismatches and all(seen.values()),
+    }
+    return checks, report
+
+
+def an_census(ctx, device="cuda"):
+    """Leg ``census``: :func:`an_census_run` in a fresh process, as ``python
+    -m trlx_tpu_torch.analysis.census`` measured the committed budget. The
+    census counts launches through CUPTI's one subscriber, which this
+    process's earlier ``torch.profiler`` windows hold."""
+    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.an_census_run({device!r})"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith('{"checks"')]
+    if proc.returncode != 0 or not lines:
+        return {"the census process ran": False}, {"returncode": proc.returncode, "stderr": proc.stderr[-3000:]}
+    result = json.loads(lines[-1])
+    return result["checks"], result["report"]
+
+
+def an_census_run(device="cuda"):
+    """The census of every registered entry at gpt2 full width on the card,
+    held to the committed ``name@cuda`` budget entries; then one seeded
+    regression (``TRLX_CENSUS_SEED_REGRESSION=extra_item``: a host read in
+    every decode iteration) must fail the same gate. Prints the checks and
+    the report as one JSON line."""
+    from trlx_tpu_torch.analysis.census import budget as census_budget
+    from trlx_tpu_torch.analysis.census import cli as census_cli
+    from trlx_tpu_torch.analysis.census import seeds as census_seeds
+    from trlx_tpu_torch.analysis.census.entrypoints import load_all
+
+    shared = {}
+    try:
+        measured = census_cli.run_census(device, shared=shared)
+        committed = census_budget.load()
+        violations = census_budget.compare(measured, committed)
+        os.environ[census_seeds.ENV_VAR] = AN_SEED_REGRESSION
+        try:
+            seeded = census_cli.run_census(device, ["decode_step"], shared=shared)
+        finally:
+            del os.environ[census_seeds.ENV_VAR]
+        seeded_violations = census_budget.compare(seeded, committed)
+    finally:
+        shared.clear()
+        import torch
+
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    per_entry = {key: {"launches": m.get("launches"), "launch_apis": m.get("launch_apis"),
+                       "round_trips": m["round_trips"], "syncs": m.get("syncs"),
+                       "peak_mib": m.get("peak_bytes", 0) / 2 ** 20, "warmup_shapes": m["warmup_shapes"],
+                       "steady_new_shapes": m["steady_new_shapes"], "ops": m["ops"],
+                       "heavy_f32": m["heavy_f32"], "kernel_launches": m.get("kernel_launches")}
+                 for key, m in measured.items()}
+    report = {"census": per_entry, "violations": violations,
+              "seeded": {"seed": AN_SEED_REGRESSION, "violations": seeded_violations}}
+    checks = {
+        "every registered entry measured": len(measured) == len(load_all()),
+        "the census within the committed cuda entries": not violations,
+        f"seeded {AN_SEED_REGRESSION} fails closed": any("round_trips" in v for v in seeded_violations),
+    }
+    print(json.dumps({"checks": checks, "report": report}), flush=True)
+
+
+def phase_analysis(ctx):
+    """The host data plane on the train phase's run and the census of the
+    hot entrypoints (:func:`an_data_plane`, :func:`an_census`), last."""
+    failed = []
+    for name, leg in (("data_plane", an_data_plane), ("census", an_census)):
+        t0 = time.perf_counter()
+        checks, report = leg(ctx)
+        emit({"phase": "analysis", "leg": name, "s": time.perf_counter() - t0, "checks": checks, "report": report,
+              "card": ctx.get("smi")})
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"analysis phase: {failed}")
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -7001,7 +7183,7 @@ def main(argv=None) -> int:
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
                "observability": phase_observability, "production_serving": phase_production_serving,
                "serving_fleet": phase_serving_fleet, "families_seq2seq": phase_families_seq2seq,
-               "peft_memory": phase_peft_memory}
+               "peft_memory": phase_peft_memory, "analysis": phase_analysis}
     phase_env(ctx)
     try:
         for name in phases:

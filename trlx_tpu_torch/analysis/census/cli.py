@@ -1,0 +1,101 @@
+"""``python -m trlx_tpu_torch.analysis.census``: run the census of every
+registered hot entrypoint and hold it to the committed budget.
+
+Usage::
+
+    python -m trlx_tpu_torch.analysis.census [--device cuda|cpu]
+        [--entries decode_step,ppo_train_step] [--write-budget] [--budget FILE] [--json OUT]
+
+``--device`` defaults to the card (``cuda``: gpt2's published widths,
+budget keys ``name@cuda``), as the port's entry points do; ``--device cpu``
+runs the tiny configuration on the CPU (keys ``name@cpu``). Exit 1 on any
+violation (and so under a seeded regression the gate catches), 2 on a
+usage error.
+"""
+
+import argparse
+import json
+import sys
+import time
+from typing import Dict, List, Optional
+
+from trlx_tpu_torch.analysis.census import budget as budget_mod
+
+
+#: the configuration each device runs (analysis/census/fixtures.py)
+SIZES = {"cpu": "tiny", "cuda": "full"}
+
+
+def run_census(device: str = "cpu", names: Optional[List[str]] = None,
+               verbose: bool = False, shared: Optional[Dict] = None) -> Dict[str, Dict]:
+    """Build and measure each selected entry; ``{budget key: census}``.
+    Entries share trainers and engines through one memo (``shared``: the
+    caller's to keep and drop; by default a fresh one, dropped at the end)."""
+    import torch
+
+    from trlx_tpu_torch.analysis.census.entrypoints import load_all
+    from trlx_tpu_torch.analysis.census.measure import measure
+
+    dev = torch.device(device)
+    size = SIZES[dev.type]
+    registry = load_all()
+    selected = list(names) if names else list(registry)
+    unknown = [n for n in selected if n not in registry]
+    if unknown:
+        raise ValueError(f"unknown entrypoint(s) {unknown}; known: {list(registry)}")
+    own = shared is None
+    shared = {} if own else shared
+    out: Dict[str, Dict] = {}
+    try:
+        for name in selected:
+            t0 = time.perf_counter()
+            entry = registry[name].factory(dev, size, shared)
+            m = measure(entry, dev)
+            out[f"{name}@{dev.type}"] = m
+            if verbose:
+                print(f"[census] {name}: {json.dumps(m)} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    finally:
+        if own:
+            shared.clear()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m trlx_tpu_torch.analysis.census", description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--entries", default=None, help="comma-separated entrypoint names (default: all)")
+    ap.add_argument("--budget", default=str(budget_mod.DEFAULT_BUDGET))
+    ap.add_argument("--write-budget", action="store_true")
+    ap.add_argument("--json", default=None, help="also write the measurements to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("census: no CUDA device; pass --device cpu for the CPU census", file=sys.stderr)
+        return 2
+    names = [n.strip() for n in args.entries.split(",") if n.strip()] if args.entries else None
+    try:
+        measurements = run_census(args.device, names, verbose=True)
+    except ValueError as e:
+        print(f"census: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(measurements, f, indent=1)
+    if args.write_budget:
+        n = budget_mod.write(args.budget, measurements, keep=budget_mod.load(args.budget))
+        print(f"census: wrote {n} budget entries to {args.budget}")
+        return 0
+    violations = budget_mod.compare(measurements, budget_mod.load(args.budget))
+    for line in violations:
+        print(f"census: VIOLATION {line}")
+    print(f"census: {len(measurements)} entr{'y' if len(measurements) == 1 else 'ies'}, "
+          f"{len(violations)} violation(s)")
+    return 1 if violations else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -150,7 +150,7 @@ class FleetLedger:
                     req.tenant_id, deque(maxlen=_WINDOW)
                 ).append(req.latency_s)
         # outside the ledger lock: the store has its own (lock order stays flat)
-        self.series.append(SLO_BAD_KEY, 0.0 if reason in _SUCCESS else 1.0)
+        self.series.append(SLO_BAD_KEY, 0.0 if reason in _SUCCESS else 1.0)  # graftcheck: noqa[CC001] — SeriesStore is internally locked; appending outside the ledger lock keeps the lock order flat
 
     # --------------------------------------------------------------- reading
 

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.data.method_configs import register_method
 from trlx_tpu_torch.methods.ppo import PPOConfig, gae_advantages_and_returns
 from trlx_tpu_torch.rollout.staleness import staleness_importance_weights
@@ -174,3 +175,39 @@ class GRPOConfig(PPOConfig):
                 is_weight_mean=torch.sum(is_weights * mask, dtype=f32) / n,
             )
         return loss, stats
+
+
+# -- the census (python -m trlx_tpu_torch.analysis.census) ---------------------
+
+
+@register_entrypoint(
+    "grpo_train_step",
+    roots=(
+        "trlx_tpu_torch.trainer.grpo_trainer.GRPOTrainer.train_step",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.train_step",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.loss_fn",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.clip_grads",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.global_grad_norm",
+        "trlx_tpu_torch.data.ppo_types.PPORLBatch.*",
+        "trlx_tpu_torch.methods.grpo.GRPOConfig.loss",
+        "trlx_tpu_torch.models.policy.CausalLMWithValueHead.*",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.*",
+        "trlx_tpu_torch.utils.modeling.logprobs_of_labels",
+        "trlx_tpu_torch.utils.modeling.masked_mean",
+    ),
+    readback={
+        # the step's stats, one transfer (one site per health-guard branch)
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
+    },
+)
+def build_grpo_train_step(device, size, shared):
+    """One GRPO optimizer step on a collated learner batch
+    (``GRPOTrainer.train_step``; the reference's ``grpo_train_step``,
+    ``trlx_tpu/methods/grpo.py:223``)."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    tr = fixtures.trainer("grpo", device, size, shared)
+    batches = fixtures.ppo_batches(size, tr.tokenizer.pad_token_id)
+    return Entry(step=lambda k: tr.train_step(batches[k]))

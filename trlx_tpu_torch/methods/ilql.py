@@ -12,6 +12,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.utils.modeling import masked_mean
 
@@ -108,3 +109,35 @@ class ILQLConfig(MethodConfig):
             awac_weight=dict(mean=masked_mean(awac_weight, terminal_mask)),
         )
         return loss, stats
+
+
+# -- the census (python -m trlx_tpu_torch.analysis.census) ---------------------
+
+
+@register_entrypoint(
+    "ilql_train_step",
+    roots=(
+        "trlx_tpu_torch.trainer.ilql_trainer.ILQLTrainer.train_step",
+        "trlx_tpu_torch.trainer.ilql_trainer.ILQLTrainer.loss_fn",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.clip_grads",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.global_grad_norm",
+        "trlx_tpu_torch.methods.ilql.*",
+        "trlx_tpu_torch.models.policy.CausalLMWithILQLHeads.*",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.*",
+    ),
+    readback={
+        # the step's stats, one transfer (one site per health-guard branch)
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
+    },
+)
+def build_ilql_train_step(device, size, shared):
+    """One ILQL optimizer step (``ILQLTrainer.train_step``: bucket padding,
+    the copy to the device, the loss over the Q, target-Q and V heads; the
+    reference's ``ilql_train_step``, ``trlx_tpu/methods/ilql.py:135``)."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    tr = fixtures.trainer("ilql", device, size, shared)
+    batches = fixtures.ilql_batches(size)
+    return Entry(step=lambda k: tr.train_step(batches[k]))

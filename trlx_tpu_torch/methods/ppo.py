@@ -9,6 +9,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.rollout.staleness import staleness_importance_weights
 from trlx_tpu_torch.utils.modeling import masked_mean, whiten
@@ -173,7 +174,8 @@ class PPOConfig(MethodConfig):
 
         loss = pg_loss + self.vf_coef * vf_loss
 
-        inf = torch.tensor(float("inf"), dtype=values.dtype, device=values.device)
+        # filled on the device: torch.tensor(inf, device=...) would copy a host scalar and wait for it
+        inf = values.new_full((), float("inf"))
         values_mean = masked_mean(values, mask)
         returns_mean = masked_mean(returns, mask)
         stats = dict(
@@ -204,3 +206,42 @@ class PPOConfig(MethodConfig):
                 is_weight_mean=torch.sum(is_weights * mask, dtype=f32) / n,
             )
         return loss, stats
+
+
+# -- the census (python -m trlx_tpu_torch.analysis.census) ---------------------
+
+
+@register_entrypoint(
+    "ppo_train_step",
+    roots=(
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.train_step",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.loss_fn",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.clip_grads",
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.global_grad_norm",
+        "trlx_tpu_torch.data.ppo_types.PPORLBatch.*",
+        "trlx_tpu_torch.methods.ppo.*",
+        "trlx_tpu_torch.models.policy.CausalLMWithValueHead.*",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.*",
+        "trlx_tpu_torch.utils.modeling.logprobs_of_labels",
+        "trlx_tpu_torch.utils.modeling.masked_mean",
+        "trlx_tpu_torch.utils.modeling.masked_var",
+        "trlx_tpu_torch.utils.modeling.whiten",
+    ),
+    readback={
+        # the step's stats reach the host in one transfer (one site per health-guard branch)
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
+    },
+)
+def build_ppo_train_step(device, size, shared):
+    """One PPO optimizer step on a collated learner batch, as the training
+    loop takes it (the reference's ``ppo_train_step``,
+    ``trlx_tpu/methods/ppo.py:244``): ``PPOTrainer.train_step`` — the
+    host-to-device copy, the microbatch forward and backward, the clip and
+    the AdamW update, the stats to the host."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    tr = fixtures.trainer("ppo", device, size, shared)
+    batches = fixtures.ppo_batches(size, tr.tokenizer.pad_token_id)
+    return Entry(step=lambda k: tr.train_step(batches[k]))

@@ -24,6 +24,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
+from trlx_tpu_torch.native import pad_collate_i32
 from trlx_tpu_torch.ops.sampling import sample_token
 
 # step_fn(ids[B,T], mask[B,S], positions[B,T], cache) -> (logits[B,T',V],
@@ -43,16 +45,9 @@ def left_pad_batch(
     ids_list: List[np.ndarray], pad_token_id: int, target_len: int
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Left-pad a ragged list of prompt id arrays to ``[B, target_len]``:
-    (int32 ids, int32 0/1 mask). Rows longer than ``target_len`` keep their
-    last ``target_len`` tokens."""
-    B = len(ids_list)
-    out = np.full((B, target_len), pad_token_id, np.int32)
-    mask = np.zeros((B, target_len), np.int32)
-    for i, r in enumerate(ids_list):
-        r = np.asarray(r, np.int32)[-target_len:]
-        out[i, target_len - len(r):] = r
-        mask[i, target_len - len(r):] = 1
-    return out, mask
+    (int32 ids, int32 0/1 mask), through the host data plane. Rows longer
+    than ``target_len`` keep their last ``target_len`` tokens."""
+    return pad_collate_i32(ids_list, target_len, pad_token_id, pad_left=True)
 
 
 @torch.no_grad()
@@ -217,3 +212,65 @@ def generate_seq2seq(
             [seqs[:, :1], torch.where(response_mask > 0, resp, torch.full_like(resp, pad_token_id))], dim=1
         )
     return {"sequences": seqs, "response_mask": response_mask}
+
+
+# -- the census (python -m trlx_tpu_torch.analysis.census) ---------------------
+
+
+@register_entrypoint(
+    "decode_step",
+    roots=(
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.generate",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.gen_step_fn",
+        "trlx_tpu_torch.ops.generation.generate",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.flash_attention",
+        "trlx_tpu_torch.ops.sampling.*",
+    ),
+    readback={
+        # the host fetch of sequences and mask
+        "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.generate": 2,
+        # the early exit once every row has finished: one read a token
+        "trlx_tpu_torch.ops.generation.generate": 1,
+        "trlx_tpu_torch.ops.generation.generate_seq2seq": 1,
+    },
+)
+def build_decode_step(device, size, shared):
+    """The rollout decode as the trainer runs it (the reference's
+    ``decode_step``, ``trlx_tpu/ops/generation.py:262``):
+    ``MeshRLTrainer.generate`` of a prompt batch, greedy, ``N`` new tokens
+    every row (eos held off by ``min_new_tokens``, so the loop never exits
+    early), over the PPO trainer's policy. Variants: the same prompt lengths
+    with other tokens."""
+    from trlx_tpu_torch.analysis.census import fixtures, seeds
+
+    tr = fixtures.trainer("ppo", device, size, shared)
+    d = fixtures.shapes(size, "decode")
+    rng = np.random.default_rng(fixtures.SEED)
+    lens = rng.integers(d["lo"], d["hi"] + 1, size=d["B"])
+    prompts = {k: [np.random.default_rng(100 + k).integers(1, 250, size=n).astype(np.int32) for n in lens]
+               for k in range(4)}
+    seed = seeds.active()
+    if seed in ("f32_upcast", "extra_item"):
+        real = tr.gen_step_fn
+
+        def seeded_gen_step_fn(policy=None):
+            step_fn, init_cache = real(policy)
+
+            def seeded(ids, mask, positions, cache):
+                logits, hidden, cache = step_fn(ids, mask, positions, cache)
+                if seed == "f32_upcast":  # an f32 copy of the vocab projection
+                    emb = tr.model.transformer.embed_tokens.embedding
+                    logits = torch.matmul(hidden.float(), emb.float().t())
+                else:  # a host read every decode iteration
+                    logits[0, -1, 0].item()
+                return logits, hidden, cache
+
+            return seeded, init_cache
+
+        tr.gen_step_fn = seeded_gen_step_fn
+
+    def step(k):
+        tr.generate(prompts[k], eval_mode=True, max_new_tokens=d["N"], min_new_tokens=d["N"], do_sample=False)
+
+    return Entry(step=step)

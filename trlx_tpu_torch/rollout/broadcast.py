@@ -166,7 +166,7 @@ class ChunkedParameterPublisher:
 
         Wiring-time only: called once while the island is assembled, before
         the learner thread ever publishes — no publish can be in flight."""
-        self._observer = observer
+        self._observer = observer  # graftcheck: noqa[CC001] — wiring-time only
 
     # -------------------------------------------------------------- publish
 

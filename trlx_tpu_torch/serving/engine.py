@@ -95,6 +95,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.ops.sampling import count_accepted_drafts, sample_token
@@ -348,7 +349,7 @@ class ServingEngine:
 
     @property
     def _pool_keys(self) -> List[str]:
-        return [k for k in self.cache if k not in ("block_tables", "context_lens")]
+        return [k for k in self.cache if k not in ("block_tables", "context_lens")]  # graftcheck: noqa[TH001,CC001] — read by step()'s round helpers and _pack, all under step()'s lock
 
     # -- device programs -----------------------------------------------------
 
@@ -361,7 +362,7 @@ class ServingEngine:
 
     @torch.no_grad()
     def _decode_step(self, tok: torch.Tensor, new_counts: torch.Tensor) -> torch.Tensor:
-        logits, _, self.cache = self.trunk.paged_decode(tok[:, None], self.cache)
+        logits, _, self.cache = self.trunk.paged_decode(tok[:, None], self.cache)  # graftcheck: noqa[TH001] — under step()'s lock
         return self._sample(logits[:, -1, :], new_counts)
 
     def _sample_positions(self, logits: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -385,12 +386,12 @@ class ServingEngine:
         (rejected-draft KV past the new frontier stays invisible to the mask
         and is rewritten before it can become valid, so rollback is free).
         Returns (sampled [S, K+1], accepted [S]) on the device."""
-        lens0 = self.cache["context_lens"]
-        logits, _, self.cache = self.trunk.paged_verify(tok, self.cache)
+        lens0 = self.cache["context_lens"]  # graftcheck: noqa[TH001] — under step()'s lock
+        logits, _, self.cache = self.trunk.paged_verify(tok, self.cache)  # graftcheck: noqa[TH001] — under step()'s lock
         counts = new_counts[:, None] + torch.arange(tok.shape[1], dtype=torch.int32, device=tok.device)[None, :]
         y = self._sample_positions(logits, counts)
         accepted = count_accepted_drafts(y, tok)
-        self.cache["context_lens"] = lens0 + accepted + 1
+        self.cache["context_lens"] = lens0 + accepted + 1  # graftcheck: noqa[TH001] — under step()'s lock
         return y, accepted
 
     @torch.no_grad()
@@ -404,7 +405,7 @@ class ServingEngine:
         prefilled frontier. Pad positions write garbage KV past the prompt,
         which the first decode / verify round overwrites before the mask can
         expose it."""
-        logits, _, _ = self.trunk.paged_verify(ids, cache)
+        logits, _, _ = self.trunk.paged_verify(ids, cache)  # graftcheck: noqa[TH001] — under step()'s lock
         last = logits[torch.arange(ids.shape[0], device=ids.device), last_idx.long()]
         return self._sample(last, new_counts)
 
@@ -413,9 +414,9 @@ class ServingEngine:
         """Left-padded contiguous prefill from slot 0; returns (first sampled
         token per row, the filled contiguous cache)."""
         B, P = ids.shape
-        cache = self.trunk.init_cache(B, P)
+        cache = self.trunk.init_cache(B, P)  # graftcheck: noqa[TH001] — under step()'s lock
         positions = (torch.cumsum(mask, dim=1) - 1).clamp(min=0).to(torch.int32)
-        logits, _, _, cache = self.trunk(ids, mask, positions, cache, last_only=True)
+        logits, _, _, cache = self.trunk(ids, mask, positions, cache, last_only=True)  # graftcheck: noqa[TH001] — under step()'s lock
         return self._sample(logits[:, -1, :], new_counts), cache
 
     @torch.no_grad()
@@ -432,7 +433,7 @@ class ServingEngine:
                                  shared=self.allocator.prefix_caching)
         flat, src = self._to_device(dest), self._to_device(src)
         for key in self._pool_keys:
-            for pool, cl in zip(self.cache[key], cont[key]):
+            for pool, cl in zip(self.cache[key], cont[key]):  # graftcheck: noqa[TH001] — under step()'s lock
                 if key.endswith("_scale"):
                     cl = cl[..., 0]  # [n,Hkv,P,1] -> [n,Hkv,P]
                 # cont [n, Hkv, P, ...] -> rows [n*P, Hkv, ...]
@@ -459,7 +460,7 @@ class ServingEngine:
                 f"prompt {len(prompt)} + max_new {max_new_tokens} exceeds "
                 f"engine max_seq_len {self.max_seq_len}"
             )
-        worst = self.allocator.blocks_needed(len(prompt) + max_new_tokens)
+        worst = self.allocator.blocks_needed(len(prompt) + max_new_tokens)  # graftcheck: noqa[CC001] — pure arithmetic on the immutable block size: no allocator state is read
         if worst > self.num_blocks - 1:
             raise RequestTooLarge(
                 f"request needs {worst} KV blocks worst-case but the pool "
@@ -493,8 +494,8 @@ class ServingEngine:
         Called only on a quiescent engine: at wiring time before the first
         step, or by the supervisor on a freshly built successor before it
         adopts the replay state."""
-        self._island = island
-        self._island_version = -1
+        self._island = island  # graftcheck: noqa[CC001] — wiring-time only, on a quiescent engine
+        self._island_version = -1  # graftcheck: noqa[CC001] — wiring-time only, on a quiescent engine
 
     @property
     def serving_version(self) -> int:
@@ -628,7 +629,7 @@ class ServingEngine:
             row = np.zeros((1, self.max_blocks_per_seq), np.int32)
             blocks = req.seq_blocks.blocks
             row[0, : len(blocks)] = blocks
-            cache1 = {key: self.cache[key] for key in self._pool_keys}
+            cache1 = {key: self.cache[key] for key in self._pool_keys}  # graftcheck: noqa[TH001] — under step()'s lock
             cache1["block_tables"] = self._to_device(row)
             cache1["context_lens"] = self._to_device(np.array([start], np.int32))
             tok = self._chunk_step(
@@ -761,8 +762,8 @@ class ServingEngine:
         if prefill_active:
             tables[self._prefilling] = 0
             lens[self._prefilling] = 0
-        self.cache["block_tables"] = self._to_device(tables)
-        self.cache["context_lens"] = self._to_device(lens)
+        self.cache["block_tables"] = self._to_device(tables)  # graftcheck: noqa[TH001] — under step()'s lock
+        self.cache["context_lens"] = self._to_device(lens)  # graftcheck: noqa[TH001] — under step()'s lock
         self._tables_dirty = prefill_active
 
     def _decode_round(self) -> List[Request]:
@@ -851,7 +852,7 @@ class ServingEngine:
         """Unstick a wedged step (the supervisor's wedge timer or the
         watchdog's escalation, from their threads). Never takes the engine
         lock: the wedged step holds it."""
-        self._abort_evt.set()
+        self._abort_evt.set()  # graftcheck: noqa[TH001] — recovery must never take the lock the wedged step holds
 
     def step(self) -> List[Request]:
         """One engine round: admissions (bucketed prefill), one chunk per
@@ -877,7 +878,7 @@ class ServingEngine:
                 # a wedged device loop: no progress, no exception, the lock
                 # held, until someone aborts it
                 logger.warning("chaos: serving step wedged, waiting for abort")
-                self._abort_evt.wait()
+                self._abort_evt.wait()  # graftcheck: noqa[CC005] — blocking under the lock IS the modelled wedge
                 self._abort_evt.clear()
                 raise EngineWedgedError("engine step loop wedged and was aborted")
             t0 = time.perf_counter()
@@ -1035,3 +1036,154 @@ class ServingEngine:
     def close(self) -> None:
         """Clear every gauge under this engine's prefix."""
         gauges.clear(prefix=self.gauge_prefix)
+
+
+# -- the census (python -m trlx_tpu_torch.analysis.census) ---------------------
+# The engine's device programs, each driven on its own at the shapes a round
+# gives it (the reference's rt probes track the same five jitted programs,
+# trlx_tpu/analysis/rt/probes.py:82-210; paged_decode_step and
+# spec_verify_step are its ir entries, trlx_tpu/ops/paged_attention.py:638,
+# 723). The engines are fixtures.engine's: every slot admitted and decoding.
+
+
+def _census_tokens(eng: "ServingEngine", shape, size_hint: int = 4):
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    vocab = eng.trunk.config.vocab_size
+    return {k: fixtures.tokens(k, shape, vocab, eng.device) for k in range(size_hint)}
+
+
+@register_entrypoint(
+    "paged_decode_step",
+    roots=(
+        "trlx_tpu_torch.serving.engine.ServingEngine._decode_step",
+        "trlx_tpu_torch.serving.engine.ServingEngine._sample",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.paged_attention.*",
+        "trlx_tpu_torch.ops.sampling.*",
+    ),
+)
+def build_paged_decode_step(device, size, shared):
+    """One token per slot through the trunk's paged decode and greedy
+    sampling: the plain engine's ``_decode_step``."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    eng = fixtures.engine(device, size, shared, spec=False)
+    eng._push_mirrors()
+    toks = _census_tokens(eng, (eng.num_slots,))
+    counts = torch.zeros(eng.num_slots, dtype=torch.int32, device=eng.device)
+    return Entry(step=lambda k: eng._decode_step(toks[k], counts))
+
+
+@register_entrypoint(
+    "spec_verify_step",
+    roots=(
+        "trlx_tpu_torch.serving.engine.ServingEngine._verify_step",
+        "trlx_tpu_torch.serving.engine.ServingEngine._sample_positions",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.paged_attention.*",
+        "trlx_tpu_torch.ops.sampling.*",
+    ),
+)
+def build_spec_verify_step(device, size, shared):
+    """``spec_k + 1`` tokens per slot (the pending token and the drafts)
+    through the trunk's paged verify, per-position sampling and the
+    on-device accept count: the speculative engine's ``_verify_step``."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    eng = fixtures.engine(device, size, shared, spec=True)
+    eng._push_mirrors()
+    toks = _census_tokens(eng, (eng.num_slots, eng.spec_k + 1))
+    counts = torch.zeros(eng.num_slots, dtype=torch.int32, device=eng.device)
+    return Entry(step=lambda k: eng._verify_step(toks[k], counts))
+
+
+def _census_wave(eng: "ServingEngine", size: str, k: int):
+    """Variant ``k`` of a full prefill wave: one prompt per slot at fixed
+    lengths, left-padded to their bucket, as ``_admit`` builds it."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    lo, hi = fixtures.shapes(size, "engine")["prompt"]
+    lens = np.random.default_rng(fixtures.SEED).integers(lo, hi + 1, size=eng.num_slots)
+    rng = np.random.default_rng(200 + k)
+    ids_list = [rng.integers(1, 250, size=int(n)).astype(np.int32) for n in lens]
+    P_b = pad_to_bucket(int(lens.max()), PREFILL_LEN_BUCKETS)
+    ids, mask = left_pad_batch(ids_list, eng.pad_token_id, P_b)
+    return ids, mask, lens
+
+
+@register_entrypoint(
+    "serving_prefill",
+    roots=(
+        "trlx_tpu_torch.serving.engine.ServingEngine._prefill",
+        "trlx_tpu_torch.serving.engine.ServingEngine._sample",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.flash_attention",
+        "trlx_tpu_torch.ops.sampling.*",
+    ),
+)
+def build_serving_prefill(device, size, shared):
+    """A full prefill wave (one prompt per slot, one length bucket) through
+    the contiguous flash prefill and first-token sampling: ``_prefill``."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    eng = fixtures.engine(device, size, shared, spec=False)
+    waves = {}
+    for k in range(4):
+        ids, mask, _ = _census_wave(eng, size, k)
+        waves[k] = (eng._to_device(ids), eng._to_device(mask))
+    counts = torch.zeros(eng.num_slots, dtype=torch.int32, device=eng.device)
+    return Entry(step=lambda k: eng._prefill(waves[k][0], waves[k][1], counts))
+
+
+@register_entrypoint(
+    "serving_pack_step",
+    roots=(
+        "trlx_tpu_torch.serving.engine.ServingEngine._pack",
+        "trlx_tpu_torch.serving.engine.pack_targets",
+    ),
+    readback={
+        # dest and src row indices computed on the host, pushed as copies
+        "trlx_tpu_torch.serving.engine.ServingEngine._pack": 0,
+    },
+)
+def build_serving_pack_step(device, size, shared):
+    """Scattering a prefill wave's contiguous K/V into the block pools in
+    place: ``_pack`` over the wave's table rows."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    eng = fixtures.engine(device, size, shared, spec=False)
+    counts = torch.zeros(eng.num_slots, dtype=torch.int32, device=eng.device)
+    conts = {}
+    for k in range(4):
+        ids, mask, lens = _census_wave(eng, size, k)
+        conts[k] = (eng._prefill(eng._to_device(ids), eng._to_device(mask), counts)[1], lens.astype(np.int32))
+    rows = np.array(eng._tables)
+    return Entry(step=lambda k: eng._pack(conts[k][0], rows, conts[k][1]))
+
+
+@register_entrypoint(
+    "serving_chunk_step",
+    roots=(
+        "trlx_tpu_torch.serving.engine.ServingEngine._chunk_step",
+        "trlx_tpu_torch.serving.engine.ServingEngine._sample",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.paged_attention.*",
+        "trlx_tpu_torch.ops.sampling.*",
+    ),
+)
+def build_serving_chunk_step(device, size, shared):
+    """One chunked-prefill append (batch 1, ``prefill_chunk`` positions)
+    through slot 0's table row into the shared pools: the speculative
+    engine's ``_chunk_step``."""
+    from trlx_tpu_torch.analysis.census import fixtures
+
+    eng = fixtures.engine(device, size, shared, spec=True)
+    C = eng.prefill_chunk
+    cache1 = {key: eng.cache[key] for key in eng._pool_keys}
+    cache1["block_tables"] = eng._to_device(np.array(eng._tables[:1]))
+    cache1["context_lens"] = eng._to_device(np.zeros(1, np.int32))
+    toks = _census_tokens(eng, (1, C))
+    last = eng._to_device(np.array([C - 1], np.int32))
+    counts = eng._to_device(np.zeros(1, np.int32))
+    return Entry(step=lambda k: eng._chunk_step(toks[k], cache1, last, counts))

@@ -75,7 +75,7 @@ class GenerationIsland:
 
         Wiring-time only: runs once while the island is assembled, before
         the engine steps or the learner publishes."""
-        self.publisher = publisher
+        self.publisher = publisher  # graftcheck: noqa[CC001] — wiring-time only
         publisher.attach_observer(self)
 
     def open_window(self) -> float:

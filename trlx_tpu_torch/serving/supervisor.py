@@ -274,10 +274,22 @@ class ServingSupervisor:
             # the replay queue — those requests were live and drain lets them
             # finish
             new.begin_drain(shed_pending=False)
-        # restarts run on the one driving thread (only step/run/drain reach here, all on
-        # the driving thread): nobody else can have swapped _engine since the
-        # snapshot above — the lock publishes the handle, it does not arbitrate
+        # restarts run on the one driving thread (only step/run/drain reach
+        # here), so the handle the snapshot read is still the live one. But
+        # set_params / attach_island / begin_drain may come from other
+        # threads (the learner publishes weights while rollouts step), and
+        # one that landed since the snapshot reached the dead engine, not
+        # `new`: re-validate under the lock and bring `new` up to date
+        # before publishing it.
         with self._lock:
+            if self._engine is not old:
+                raise RuntimeError("serving engine replaced during a restart: restarts run on one thread")
+            if self._params_set and (not params_set or self._params is not params):
+                new.set_params(self._params)
+            if self._island is not None and self._island is not island:
+                new.attach_island(self._island)
+            if self._draining and not draining:
+                new.begin_drain(shed_pending=False)
             self._engine = new
 
     # ------------------------------------------------------------------ stepping

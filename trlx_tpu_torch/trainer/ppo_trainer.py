@@ -98,6 +98,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.ppo_types import PPORLBatch, PPORLElement
 from trlx_tpu_torch.fleet import FleetAutoscaler, fleet_factory
@@ -1465,3 +1466,61 @@ class PPOTrainer(MeshRLTrainer):
             with self._engine.paused():
                 return super().evaluate()
         return super().evaluate()
+
+
+# -- the census (python -m trlx_tpu_torch.analysis.census) ---------------------
+
+#: raw completion lengths: each ladder bucket once in the warmup, then only
+#: already-dispatched buckets (the reference's probe, trlx_tpu/analysis/rt/probes.py:164-210)
+_CENSUS_WARMUP_LENS = (5, 20, 50, 100)
+_CENSUS_STEADY_LENS = (7, 25, 60, 90, 13)
+
+
+@register_entrypoint(
+    "stream_score_bucket",
+    roots=(
+        "trlx_tpu_torch.trainer.ppo_trainer.overlap_r_buckets",
+        "trlx_tpu_torch.trainer.ppo_trainer.quantize_stream_response",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.score",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer._score_device",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer._ref_scoring_model",
+        "trlx_tpu_torch.models.policy.CausalLMWithValueHead.*",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.flash_attention",
+        "trlx_tpu_torch.utils.modeling.logprobs_of_labels",
+    ),
+    readback={
+        # logprobs, values and reference logprobs to the host
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.score": 1,
+        # model.offload_ref: the upload of the host reference completes before its first read
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer._ref_scoring_model": 1,
+    },
+)
+def build_stream_score_bucket(device, size, shared):
+    """The streamed scoring of a microbucket: a raw completion length
+    snapped onto the streaming ladder (``overlap_r_buckets`` +
+    ``quantize_stream_response``), then the policy and reference scoring
+    forwards at that length (``PPOTrainer.score``). One warmup step per
+    ladder bucket; steady lengths land on those buckets only. Under
+    ``TRLX_CENSUS_SEED_REGRESSION=shape_churn`` the raw lengths go through."""
+    from trlx_tpu_torch.analysis.census import fixtures, seeds
+
+    tr = fixtures.trainer("ppo", device, size, shared)
+    s = fixtures.shapes(size, "score")
+    B, P = s["B"], s["P"]
+    ladder = overlap_r_buckets(s["max_new"])
+    churn = seeds.active() == "shape_churn"
+    lens = _CENSUS_WARMUP_LENS + _CENSUS_STEADY_LENS
+    batches = {}
+    for k, raw in enumerate(lens):
+        R = raw if churn else quantize_stream_response(raw, ladder)
+        g = np.random.default_rng(500 + k)
+        seq = g.integers(1, 250, (B, P + R)).astype(np.int32)
+        batches[k] = (seq, np.ones_like(seq), R)
+
+    def step(k):
+        seq, mask, R = batches[k]
+        tr.score(seq, mask, P, R)
+
+    n = len(_CENSUS_WARMUP_LENS)
+    return Entry(step=step, warmup=tuple(range(n)), steady=tuple(range(n, len(lens))))

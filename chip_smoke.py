@@ -352,7 +352,8 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory", "analysis")
+          "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory", "stacked",
+          "analysis")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -5593,11 +5594,36 @@ def sf_islands_trainer(ctx, runs):
     }
 
 
+def sf_lora_islands(ctx, runs):
+    """Leg lora_islands: LoRA PPO (``peft_memory``'s adapters) at gpt2 full
+    width under ``train.islands`` (async rollouts, max_staleness 1, through
+    the plain engine as the generation island, chunk_layers 2), 2 steps
+    (:func:`async_ppo_leg`); the island's and the broadcast's gauges empty
+    after."""
+    import shutil
+
+    from trlx_tpu_torch.utils.metrics import gauges
+
+    tr = pm_trainer("sf_lora_islands", {"model.peft_config": PM_LORA,
+                                        "train.async_rollouts": {"enabled": True, "max_staleness": 1},
+                                        "train.serving": {"enabled": True, "block_size": 16},
+                                        "train.islands": {"enabled": True, "chunk_layers": 2}})
+    with runs.count("lora_islands"):
+        checks, report = async_ppo_leg(tr)
+    checks["the engine served as the generation island"] = report["island"]
+    checks["island and broadcast gauges empty after"] = (gauges.snapshot("serving/island/") == {}
+                                                         and gauges.snapshot("rollout/broadcast/") == {})
+    emit({"phase": "serving_fleet", "leg": "lora_islands", "card": ctx.get("smi"), **report})
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    return checks
+
+
 def phase_serving_fleet(ctx):
     """A main path: serving across engines at gpt2 full width
     (:func:`sf_fleet_of_one`, :func:`sf_fleet_scenario`,
     :func:`sf_fleet_trainer`, :func:`sf_online_fleet`,
-    :func:`sf_islands_bubble`, :func:`sf_islands_trainer`). The CPU
+    :func:`sf_islands_bubble`, :func:`sf_islands_trainer`,
+    :func:`sf_lora_islands`). The CPU
     reference of the fleet scenario runs first. Each run on the path (a
     router, a fleet trainer, an island) is counted from 0 (:class:`SfRuns`);
     a leg's references (bare engines, the single-engine trainer, warm-ups)
@@ -5623,7 +5649,8 @@ def phase_serving_fleet(ctx):
                           ("fleet_trainer", lambda: sf_fleet_trainer(ctx, runs)),
                           ("online_fleet", lambda: sf_online_fleet(ctx, runs)),
                           ("islands_bubble", lambda: sf_islands_bubble(ctx, runs)),
-                          ("islands_trainer", lambda: sf_islands_trainer(ctx, runs))):
+                          ("islands_trainer", lambda: sf_islands_trainer(ctx, runs)),
+                          ("lora_islands", lambda: sf_lora_islands(ctx, runs))):
             mem0 = sf_memory()
             counted, t1 = set(runs.runs), time.perf_counter()
             checks = leg()  # its engines, routers and trainers are garbage once it returns
@@ -5803,6 +5830,43 @@ def fs_bloom_config(ckpt_dir, model_path="bigscience/bloom-560m", overrides=None
     })
 
 
+def async_ppo_leg(trainer, steps=2):
+    """An async-rollouts PPO run, cut short: ``prepare_learning`` (the
+    producer thread starts and the first store fills at version 0), then
+    ``steps`` learner steps, then ``on_learn_end`` (the producer drained and
+    joined). Returns (checks, report): the run completed on the card with
+    finite experience and losses, and the drain ledger balances."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    try:
+        trainer.prepare_learning()
+        producer = trainer._producer_model
+        island = trainer._island is not None
+        stats = [trainer.train_step(b) for b in list(trainer.create_train_dataloader())[:steps]]
+        torch.cuda.synchronize()
+    finally:
+        trainer.on_learn_end()
+    elements = list(trainer.store.history)
+    ledger = trainer.rollout_engine_summary or {}
+    balanced = ledger.get("produced") == sum(ledger.get(k, 0) for k in (
+        "consumed", "dropped_stale", "leftover", "dropped_shutdown"))
+    report = {"s": time.perf_counter() - t0, "elements": len(elements), "ledger": ledger, "island": island,
+              "producer": type(producer).__name__,
+              "losses": [{k: v for k, v in s.items() if k.startswith("losses/")} for s in stats]}
+    checks = {
+        f"{steps} steps, finite losses": len(stats) == steps and all(
+            np.isfinite(v) for s in stats for k, v in s.items() if k.startswith("losses/")),
+        "the store filled by the producer at version 0, finite": len(elements) == trainer.method.num_rollouts
+        and all(e.policy_version == 0 and all(np.isfinite(getattr(e, f)).all() for f in ("logprobs", "values",
+                                                                                          "rewards"))
+                for e in elements),
+        "the drain ledger balances": balanced and trainer._engine is None,
+    }
+    return checks, report
+
+
 def fs_drive_ppo(trainer, prompts, steps=2, sync=None):
     """prepare_learning (one experience phase) on ``prompts``, then
     ``steps`` learner steps; returns (stats, seconds)."""
@@ -5967,8 +6031,9 @@ def fs_seq2seq(ctx, device="cuda", overrides=None):
     HF layout) and reloaded to logits ``torch.equal`` to the trained
     model's; PPO 2 steps with a full frozen reference, then 2 with
     ``num_layers_unfrozen=1`` (the decoder-top branch: the encoder, the
-    embedding, the lower decoder blocks and the branch bit-identical after);
-    ILQL 4 steps; greedy decode with the int8 decoder KV cache against
+    embedding, the lower decoder blocks and the branch bit-identical after),
+    and 2 under ``train.async_rollouts`` (:func:`async_ppo_leg`); ILQL 4
+    steps; greedy decode with the int8 decoder KV cache against
     bf16 (every row that differs splits at a near tie of the bf16 model:
     <= 2e-2 x max(1, |logit|)); then PPO at 2 + 2 layers f32 on the card
     against the CPU (tokens identical, experience 1e-4, losses 1e-3
@@ -6044,6 +6109,22 @@ def fs_seq2seq(ctx, device="cuda", overrides=None):
             checks["ppo hydra: the branch is decoder block L-1, the norm and the tied head"] = (
                 trainer.branch_start == L - 1 and trainer.ref_model is None)
         del trainer
+
+    # PPO under train.async_rollouts: the producer thread's copy of the T5 policy
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+    from trlx_tpu_torch.pipeline import PromptPipeline
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fs_t5async_")
+    trainer = get_trainer("PPOTrainer")(config=fs_t5_config(default_ppo_config(), tmp, overrides, **{
+        "method.num_rollouts": FS_T5_PROMPTS, "method.chunk_size": FS_T5_PROMPTS // 2, "method.ppo_epochs": 1,
+        "method.gen_kwargs": dict(max_new_tokens=FS_T5_NEW, do_sample=True, top_k=0, top_p=1.0),
+        "train.async_rollouts": dict(enabled=True, max_staleness=1)}), reward_fn=byte_share_reward, device=device)
+    trainer.add_prompt_pipeline(PromptPipeline(byte_prompts(FS_T5_PROMPTS, 16, 64, SEED + 11), 64, trainer.tokenizer))
+    async_checks, report["ppo_async"] = async_ppo_leg(trainer)
+    checks.update({f"ppo async: {k}": ok for k, ok in async_checks.items()})
+    checks["ppo async: the producer holds a T5 policy"] = report["ppo_async"]["producer"] == "Seq2SeqLMWithValueHead"
+    del trainer
+    shutil.rmtree(tmp, ignore_errors=True)
 
     # ILQL, 4 steps
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fs_t5ilql_")
@@ -6422,6 +6503,34 @@ def pm_lora_ppo(ctx):
     return checks, launches, report
 
 
+def pm_lora_async(ctx):
+    """Leg ``lora_async``: LoRA PPO (the ``lora_ppo`` adapters) under
+    ``train.async_rollouts`` at gpt2 full width, 2 steps
+    (:func:`async_ppo_leg`): the producer's copy carries the adapters and
+    scores its KL reference with them disabled; the trunk stays
+    ``torch.equal`` to its initial weights."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    tr = pm_trainer("lora_async", {"model.peft_config": PM_LORA,
+                                   "train.async_rollouts": {"enabled": True, "max_staleness": 1}})
+    trunk0 = pm_trunk(tr)
+    _kernels.reset_launches()
+    checks, report = async_ppo_leg(tr)
+    launches = _kernels.launches()
+    checks["trunk torch.equal, no grad, no state"] = pm_trunk_unchanged(tr, trunk0)
+    checks["the producer's copy carries the adapters"] = any(
+        n.endswith(".lora_a") for n in tr._producer_model.state_dict())
+    report["launches"] = launches
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+    return checks, launches, report
+
+
 def pm_prompt_prefix(ctx):
     """Leg ``prompt_prefix``: prompt tuning and prefix tuning (8 virtual
     tokens) at gpt2 full width, 2 steps each (the padded generate: the
@@ -6796,7 +6905,7 @@ def pm_adamw_8bit(ctx):
 
 def phase_peft_memory(ctx):
     """A main path: peft and the training-memory options at gpt2 full width
-    (:func:`pm_peft_parity`, :func:`pm_lora_ppo`, :func:`pm_prompt_prefix`,
+    (:func:`pm_peft_parity`, :func:`pm_lora_ppo`, :func:`pm_lora_async`, :func:`pm_prompt_prefix`,
     :func:`pm_remat`, :func:`pm_offload_ref`, :func:`pm_rollout_dtype`,
     :func:`pm_adamw_8bit`). Each full-width leg counts launches from 0 and
     the phase's path sums them; the card-against-CPU runs are not counted.
@@ -6810,7 +6919,7 @@ def phase_peft_memory(ctx):
     restore = None
     try:
         for name, leg in (("peft_parity", pm_peft_parity), ("lora_ppo", pm_lora_ppo),
-                          ("prompt_prefix", pm_prompt_prefix), ("remat", pm_remat), ("offload_ref", pm_offload_ref),
+                          ("lora_async", pm_lora_async), ("prompt_prefix", pm_prompt_prefix), ("remat", pm_remat), ("offload_ref", pm_offload_ref),
                           ("rollout_dtype", pm_rollout_dtype), ("adamw_8bit", pm_adamw_8bit)):
             if restore is None and name != "peft_parity":
                 restore = record_kernel_shapes(seen)  # every call shape of the full-width legs
@@ -6834,6 +6943,512 @@ def phase_peft_memory(ctx):
         failed.append(str(e))
     if failed:
         raise AssertionError(f"peft_memory phase: {failed}")
+
+
+# ------------------------------------------------------------------ stacked
+
+#: phase stacked: the reference's GPT-2-XL audit blueprints over stacked
+#: layers (``decode_step``'s and ``spec_verify_step``'s ``xl`` specs,
+#: trlx_tpu/ops/generation.py and trlx_tpu/ops/paged_attention.py)
+ST_XL = dict(vocab_size=50257, hidden_size=1600, num_layers=48, num_heads=25, intermediate_size=6400,
+             max_position_embeddings=1024, attention_impl="flash")
+ST_B, ST_P, ST_N, ST_FWD_T = 8, 128, 16, 144
+ST_NB, ST_BS, ST_MB, ST_Q = 64, 16, 16, 5
+ST_SFT_B, ST_SFT_T = 4, 128
+#: the stacked SFT step's peak memory against the listed one's
+ST_PEAK_RATIO = 1.10
+#: where the phase runs (a CPU rehearsal sets "cpu" and shrinks ST_XL)
+ST_DEVICE = "cuda"
+
+
+def st_models():
+    """The stacked GPT-2-XL trunk (f32 parameters from the seed, bf16
+    compute, flash) and its listed twin, whose parameters are
+    ``unstack_layer_params`` of the stacked ones (views: no copy)."""
+    import torch
+
+    from trlx_tpu_torch.models.presets import PRESETS
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.parallel.pipeline import unstack_layer_params
+
+    cfg = PRESETS["gpt2"].replace(compute_dtype=torch.bfloat16, param_dtype=torch.float32, scan_layers=True,
+                                  **ST_XL)
+    with torch.device(ST_DEVICE):
+        stacked = TransformerLM(cfg).init_params(SEED)
+    listed = TransformerLM(cfg.replace(scan_layers=False), device="meta")
+    listed.load_state_dict(unstack_layer_params(stacked.state_dict(), cfg.num_layers), assign=True)
+    return stacked, listed
+
+
+def st_share(model, **over):
+    """``model`` under a config with ``over`` on the same parameters."""
+    from trlx_tpu_torch.models.transformer import TransformerLM
+
+    other = TransformerLM(model.config.replace(**over), device="meta")
+    other.load_state_dict(model.state_dict(), assign=True)
+    return other
+
+
+def st_close(a, b):
+    """(max abs difference, limit): bf16 kernel agreement, 2e-2 x max(1, |b|)."""
+    err = float((a.float() - b.float()).abs().max())
+    return err, TOL["bfloat16"] * max(1.0, float(b.float().abs().max()))
+
+
+def st_prompts(vocab, B, P, seed):
+    """``B`` left-padded prompts of P/2..P tokens, the attention mask."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.ops.generation import left_pad_batch
+
+    rng = np.random.default_rng(seed)
+    ids, mask = left_pad_batch([rng.integers(1, vocab, int(n)).astype(np.int32)
+                                for n in rng.integers(P // 2, P + 1, size=B)], 0, P)
+    return torch.from_numpy(np.asarray(ids)).to(ST_DEVICE), torch.from_numpy(np.asarray(mask)).to(ST_DEVICE)
+
+
+class StPath:
+    """Phase stacked's path: the stacked layout's runs, each counted from 0
+    (the counts set to 0 just before it, read just after) and summed. The
+    listed twin's runs and the plain replays are comparisons and count for
+    no path."""
+
+    def __init__(self):
+        from trlx_tpu_torch.ops import _kernels
+
+        self.total = {name: 0 for name in _kernels.launches()}
+
+    @contextlib.contextmanager
+    def count(self):
+        from trlx_tpu_torch.ops import _kernels
+
+        _kernels.reset_launches()
+        try:
+            yield
+        finally:
+            got = _kernels.launches()
+            self.total = {k: self.total[k] + got[k] for k in self.total}
+
+
+def st_forward(ctx, path, stacked, listed):
+    """Leg forward: one cache-free forward of B=8 x T=144 left-padded
+    tokens in both layouts."""
+    import torch
+
+    ids, mask = st_prompts(ST_XL["vocab_size"], ST_B, ST_FWD_T, SEED + 31)
+    with torch.no_grad():
+        with path.count():
+            a = stacked(ids, mask)[0]
+        b = listed(ids, mask)[0]
+    err, tol = st_close(a, b)
+    report = {"logits_max_abs_err": err, "tol": tol, "identical": bool(torch.equal(a, b))}
+    return {"stacked logits == listed (bf16 tolerance)": err <= tol and bool(torch.isfinite(a).all())}, report
+
+
+def st_generate(ctx, path, stacked, listed):
+    """Leg generate: greedy ``generate`` at B=8, P=128, N=16 over a bf16
+    and an int8 cache in both layouts; the stacked tokens ``==`` the listed
+    ones."""
+    import torch
+
+    from trlx_tpu_torch.ops.generation import generate
+
+    ids, mask = st_prompts(ST_XL["vocab_size"], ST_B, ST_P, SEED + 32)
+    checks, report = {}, {}
+    for cache in ("bf16", "int8"):
+        pair = (stacked, listed) if cache == "bf16" else (st_share(stacked, kv_cache_quant=True),
+                                                         st_share(listed, kv_cache_quant=True))
+        seqs = []
+        for model, window in zip(pair, (path.count, contextlib.nullcontext)):
+            def step(i, m, pos, c, model=model):
+                logits, hidden, _, c = model(i, m, pos, c, last_only=True)
+                return logits, hidden, c
+
+            with torch.no_grad(), window():
+                out = generate(step, model.init_cache, ids, mask, None, ST_N, pad_token_id=0, do_sample=False)
+            seqs.append(out["sequences"])
+        leaf = pair[0].init_cache(ST_B, ST_P + ST_N)["k"]
+        report[cache] = {"tokens_equal": bool(torch.equal(seqs[0], seqs[1])), "cache_leaf": list(leaf.shape),
+                         "cache_dtype": str(leaf.dtype)}
+        checks[f"{cache} cache: stacked tokens == listed"] = report[cache]["tokens_equal"]
+        checks[f"{cache} cache: one [L, B, Hkv, S, D] leaf"] = list(leaf.shape) == [
+            ST_XL["num_layers"], ST_B, ST_XL["num_heads"], ST_P + ST_N, ST_XL["hidden_size"] // ST_XL["num_heads"]]
+    return checks, report
+
+
+def st_decode_launches_start():
+    """Start :func:`st_decode_launches_run` in a fresh process: this
+    process's profiler windows hold CUPTI's one subscriber. It counts
+    launches and times nothing, so it runs beside the phase's other legs."""
+    return subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.st_decode_launches_run()"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def st_decode_launches(ctx, proc):
+    """Leg decode_launches: the device launches of one decode step in each
+    layout (bf16 and int8 caches), counted through CUPTI by ``proc``
+    (:func:`st_decode_launches_start`). Equal counts: a stacked step writes
+    and reads views of the ``[L, ...]`` leaves and restacks nothing."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    lines = [line for line in out.splitlines() if line.startswith('{"decode_launches"')]
+    if proc.returncode != 0 or not lines:
+        return {"the counting process ran": False}, {"returncode": proc.returncode, "stderr": err[-3000:]}
+    report = json.loads(lines[-1])["decode_launches"]
+    checks = {f"{cache} cache: a stacked decode step launches what a listed one does":
+              counts["stacked"] == counts["listed"] and counts["stacked"] > 0 for cache, counts in report.items()}
+    return checks, report
+
+
+def st_decode_launches_run():
+    """Prefill B=8 x P=128 into each layout's cache, one warm-up decode
+    step, then one decode step counted through CUPTI; prints one JSON
+    line."""
+    import torch
+
+    from trlx_tpu_torch.analysis.census import api_counter
+
+    stacked, listed = st_models()
+    ids, mask = st_prompts(ST_XL["vocab_size"], ST_B, ST_P, SEED + 32)
+    out = {}
+    for cache_kind in ("bf16", "int8"):
+        pair = (stacked, listed) if cache_kind == "bf16" else (st_share(stacked, kv_cache_quant=True),
+                                                              st_share(listed, kv_cache_quant=True))
+        counts = {}
+        for name, model in zip(("stacked", "listed"), pair):
+            cache = model.init_cache(ST_B, ST_P + 2)
+            full = torch.cat([mask, torch.zeros_like(mask[:, :2])], dim=1)
+            tok = ids[:, -1:]
+            with torch.no_grad():
+                model(ids, full, None, cache, last_only=True)
+                full[:, ST_P] = 1
+                model(tok, full, None, cache, last_only=True)  # warm-up
+                full[:, ST_P + 1] = 1
+                torch.cuda.synchronize()
+                with api_counter.counting() as calls:
+                    model(tok, full, None, cache, last_only=True)
+                    torch.cuda.synchronize()
+            counts[name] = calls["launches"]
+        out[cache_kind] = counts
+    print(json.dumps({"decode_launches": out}), flush=True)
+
+
+def st_verify(ctx, path, stacked, listed):
+    """Leg verify: one ``paged_verify`` round at the ``spec_verify_step``
+    ``xl`` dims (B=8, Q=5, NB=64, BS=16, MB=16) over int8 pools filled from
+    quantized normals: stacked ``[L, ...]`` pools against per-layer copies.
+    Logits and the written pools agree; every K5 launch of the leg is held
+    against its plain version on the same inputs, and each stacked launch
+    reads ``pool[l]`` at its own offset (a view, no copy)."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.models.transformer import quantize_kv_rows
+    from trlx_tpu_torch.ops import paged_attention as paged
+
+    sq, lq = st_share(stacked, kv_cache_quant=True), st_share(listed, kv_cache_quant=True)
+    L, H = ST_XL["num_layers"], ST_XL["num_heads"]
+    D = ST_XL["hidden_size"] // H
+    gen = torch.Generator(device=ST_DEVICE).manual_seed(SEED + 33)
+    cache = sq.init_paged_cache(ST_NB, ST_BS, ST_MB, ST_B)
+    for key in ("k", "v"):
+        q, s = quantize_kv_rows(torch.randn((L, ST_NB, ST_BS, H, D), generator=gen, device=ST_DEVICE))
+        cache[key].copy_(q)
+        cache[f"{key}_scale"].copy_(s[..., 0])
+    rng = np.random.default_rng(SEED + 34)
+    tables = rng.integers(ST_B + 1, ST_NB, size=(ST_B, ST_MB)).astype(np.int32)
+    tables[:, 6] = np.arange(1, ST_B + 1)  # each slot writes a block of its own
+    lens = (6 * ST_BS + rng.integers(0, ST_BS - ST_Q, size=ST_B)).astype(np.int32)
+    cache["block_tables"] = torch.from_numpy(tables).to(ST_DEVICE)
+    cache["context_lens"] = torch.from_numpy(lens).to(ST_DEVICE)
+    listed_cache = {k: (v.clone() if k in ("block_tables", "context_lens") else [t.clone() for t in v.unbind(0)])
+                    for k, v in cache.items()}
+    toks = torch.from_numpy(rng.integers(1, ST_XL["vocab_size"], size=(ST_B, ST_Q)).astype(np.int32)).to(ST_DEVICE)
+    calls = {"stacked": [], "listed": []}
+    kernel = paged.paged_verify_attention_kernel
+
+    def recording(layout):
+        def run(q, k_pool, v_pool, block_tables, context_lens, **kw):
+            out = kernel(q, k_pool, v_pool, block_tables, context_lens, **kw)
+            calls[layout].append((q, k_pool, v_pool, block_tables, context_lens, kw, out))
+            return out
+        return run
+
+    logits = []
+    try:
+        for layout, model, c, window in (("stacked", sq, cache, path.count),
+                                         ("listed", lq, listed_cache, contextlib.nullcontext)):
+            paged.paged_verify_attention_kernel = recording(layout)
+            with torch.no_grad(), window():
+                logits.append(model.paged_verify(toks, c)[0])
+    finally:
+        paged.paged_verify_attention_kernel = kernel
+    err, tol = st_close(logits[0], logits[1])
+    pools_equal = all(torch.equal(cache[k][l], listed_cache[k][l]) for k in ("k", "v", "k_scale", "v_scale")
+                      for l in range(L))
+    errs, layer_elems = ctx.setdefault("max_abs_err", {}), ST_NB * ST_BS * H * D
+    errs.setdefault("paged_verify", 0.0)
+    worst, in_place = 0.0, True
+    for layout, recorded in calls.items():
+        for l, (q, kp, vp, bt, cl, kw, out) in enumerate(recorded):
+            ref = paged.paged_verify_attention_reference(q, kp, vp, bt, cl, **kw)
+            e, t = st_close(out, ref)
+            worst = max(worst, e / t)
+            errs["paged_verify"] = max(errs["paged_verify"], e)
+            if layout == "stacked":  # int8 pools: one byte an element
+                in_place = in_place and kp.storage_offset() == l * layer_elems and (
+                    kp.data_ptr() == cache["k"].data_ptr() + l * layer_elems)
+    torch.cuda.synchronize()
+    report = {"logits_max_abs_err": err, "tol": tol, "logits_identical": bool(torch.equal(logits[0], logits[1])),
+              "pools_equal": pools_equal, "k5_launches": {k: len(v) for k, v in calls.items()},
+              "k5_worst_err_over_tol": worst}
+    checks = {
+        "stacked logits == listed (bf16 tolerance)": err <= tol and bool(torch.isfinite(logits[0]).all()),
+        "written pools equal": pools_equal,
+        "one K5 launch a layer in each layout": all(len(v) == L for v in calls.values()),
+        "every K5 launch == its plain version": worst <= 1.0,
+        "each stacked K5 launch reads pool[l] in place": in_place,
+    }
+    return checks, report
+
+
+def st_sft_trainer(scan_layers, state=None):
+    """The SFT trainer at GPT-2-XL (bf16 compute, f32 parameters and
+    AdamW, remat per_layer), B=4 x T=128 in one microbatch; ``state``
+    replaces the trunk's initial weights."""
+    import tempfile
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    cfg = TRLConfig.update(full_width_sft_config(tempfile.mkdtemp(prefix="chip_smoke_st_sft_")), {
+        "model.model_overrides": dict(ST_XL, scan_layers=scan_layers), "mesh.remat": "per_layer",
+        "train.seq_length": ST_SFT_T, "train.batch_size": ST_SFT_B, "train.minibatch_size": ST_SFT_B})
+    trainer = get_trainer("SFTTrainer")(config=cfg, device=ST_DEVICE)
+    if state is not None:
+        trainer.model.transformer.load_state_dict(state)
+    trainer.make_experience(byte_dialogues(16, SEED + 35), ST_SFT_T)
+    trainer.prepare_learning()
+    return trainer
+
+
+def st_sft_steps(trainer, window, steps=2):
+    """``steps`` SFT steps from the peak-memory counter's reset, inside
+    ``window``: (losses, peak bytes, launches)."""
+    import torch
+
+    from trlx_tpu_torch.ops import _kernels
+
+    batches = list(trainer.create_train_dataloader())[:steps]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with window():
+        losses = [trainer.train_step(b)["losses/loss"] for b in batches]
+        launches = _kernels.launches()
+    torch.cuda.synchronize()
+    return losses, torch.cuda.max_memory_allocated(), launches
+
+
+def st_train(ctx, path):
+    """Leg train: two SFT steps at GPT-2-XL with ``remat="per_layer"``,
+    stacked then listed from the same weights and data: losses within 1e-3
+    relative, each stacked gradient the stack of the listed ones (bf16
+    tolerance), the stacked peak allocated memory <= 1.10 x the listed one
+    (a ``select`` backward or a restack would add an ``[L, ...]`` tensor a
+    layer), K2 and K3 launched equally."""
+    import gc
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.parallel.pipeline import unstack_layer_params
+
+    L = ST_XL["num_layers"]
+    tr = st_sft_trainer(True)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in tr.model.transformer.state_dict().items()}
+    s_losses, s_peak, s_launches = st_sft_steps(tr, path.count)
+    s_grads = {n[len("transformer."):]: p.grad.detach().to("cpu", copy=True) for n, p in tr.model.named_parameters()}
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = st_sft_trainer(False, unstack_layer_params(init, L))
+    del init
+    l_losses, l_peak, l_launches = st_sft_steps(tr, contextlib.nullcontext)
+    l_grads = {n[len("transformer."):]: p.grad for n, p in tr.model.named_parameters()}
+    worst = 0.0
+    for name, g in unstack_layer_params(s_grads, L).items():
+        e, t = st_close(g.to(ST_DEVICE), l_grads[name])
+        worst = max(worst, e / t)
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    del tr, l_grads, s_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(s_losses, l_losses))
+    report = {"losses_stacked": s_losses, "losses_listed": l_losses, "loss_max_rel_err": rel,
+              "grad_worst_err_over_tol": worst, "peak_mib_stacked": s_peak / 2 ** 20,
+              "peak_mib_listed": l_peak / 2 ** 20, "launches_stacked": s_launches, "launches_listed": l_launches}
+    checks = {
+        "2 steps, losses within 1e-3 relative": len(s_losses) == 2 and rel <= 1e-3,
+        "each stacked gradient == the stack of the listed ones": worst <= 1.0,
+        f"stacked peak <= {ST_PEAK_RATIO} x listed": s_peak <= ST_PEAK_RATIO * l_peak,
+        "K2 and K3 launched equally, once a layer a step": s_launches["flash_bwd_dkv"] == l_launches["flash_bwd_dkv"]
+        == s_launches["flash_bwd_dq"] == l_launches["flash_bwd_dq"] == 2 * L,
+    }
+    return checks, report
+
+
+def st_policy_unstacked(state, L):
+    """A stacked policy ``state_dict`` with its trunk (``transformer.*``)
+    unstacked."""
+    from trlx_tpu_torch.parallel.pipeline import unstack_layer_params
+
+    trunk = {k[len("transformer."):]: v for k, v in state.items() if k.startswith("transformer.")}
+    out = {k: v for k, v in state.items() if not k.startswith("transformer.")}
+    out.update({f"transformer.{k}": v for k, v in unstack_layer_params(trunk, L).items()})
+    return out
+
+
+def st_ppo(ctx, path):
+    """Leg ppo: two PPO steps at gpt2 full width with ``scan_layers`` and
+    ``num_layers_unfrozen=-1`` (the full reference copy, stacked too),
+    greedy, 32 rollouts of SHORT_N tokens, against the listed run from the
+    same weights: experience within 1e-4, step stats within 1e-3 relative.
+    ``train.serving`` is on in the stacked run: it falls back to the padded
+    generate with the JAX package's warning."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer import ppo_trainer
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    def trainer(scan_layers, state=None):
+        cfg = TRLConfig.update(full_width_train_config(tempfile.mkdtemp(prefix="chip_smoke_st_ppo_")), {
+            "model.model_overrides": {"attention_impl": "flash", "scan_layers": scan_layers},
+            "train.seq_length": TRAIN_P + SHORT_N, "train.batch_size": 16, "train.minibatch_size": 8,
+            "method.num_rollouts": 32, "method.chunk_size": 32,
+            "method.gen_kwargs": dict(max_new_tokens=SHORT_N, do_sample=False),
+            "train.serving": {"enabled": scan_layers, "block_size": 16}})
+        tr = get_trainer("PPOTrainer")(config=cfg, reward_fn=byte_share_reward, device=ST_DEVICE)
+        if state is not None:
+            tr.model.load_state_dict(state)
+            tr.ref_model.load_state_dict(tr.model.transformer.state_dict())
+        tr.add_prompt_pipeline(PromptPipeline(byte_prompts(32, 64, 128, SEED + 36), TRAIN_P, tr.tokenizer))
+        return tr
+
+    warned = []
+    warning = ppo_trainer.logger.warning
+
+    def capture(msg, *a, **kw):
+        warned.append(str(msg))
+        return warning(msg, *a, **kw)
+
+    ppo_trainer.logger.warning = capture
+    runs = {}
+    try:
+        stacked = trainer(True)
+        listed = trainer(False, st_policy_unstacked(stacked.model.state_dict(), stacked.model_config.num_layers))
+        for name, tr, window in (("stacked", stacked, path.count), ("listed", listed, contextlib.nullcontext)):
+            _kernels.reset_launches()
+            with window():
+                tr.prepare_learning()
+                steps = [tr.train_step(b) for b in list(tr.create_train_dataloader())[:2]]
+                torch.cuda.synchronize()
+                launches = _kernels.launches()
+            runs[name] = (list(tr.store.history), steps, launches, tr._serving_client is None)
+            shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+        del stacked, listed, tr
+    finally:
+        ppo_trainer.logger.warning = warning
+    torch.cuda.empty_cache()
+    (se, ss, s_launches, fell_back), (le, ls, l_launches, _) = runs["stacked"], runs["listed"]
+    same = len(se) == len(le) == 32 and all(np.array_equal(a.query_tensor, b.query_tensor) and np.array_equal(
+        a.response_tensor, b.response_tensor) for a, b in zip(se, le))
+    elem_err = max((float(np.abs(getattr(a, f) - getattr(b, f)).max()) for a, b in zip(se, le)
+                    for f in ("logprobs", "values", "rewards")), default=float("nan")) if same else None
+    keys = [k for k in ls[0] if k.split("/")[0] in ("losses", "values", "returns", "policy", "ratio")]
+    stat_err = max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-3) for a, b in zip(ss, ls) for k in keys), default=None)
+    report = {"identical_tokens": same, "max_element_abs_err": elem_err, "max_stat_rel_err": stat_err,
+              "stats_compared": len(keys), "launches_stacked": s_launches, "launches_listed": l_launches,
+              "fallback_warning": [w for w in warned if "stacked" in w]}
+    checks = {
+        "greedy tokens identical": same,
+        "experience within 1e-4": elem_err is not None and elem_err <= 1e-4,
+        "step stats within 1e-3 relative": bool(keys) and len(ss) == 2 and all(
+            abs(a[k] - b[k]) <= 1e-3 * abs(b[k]) + 1e-6 for a, b in zip(ss, ls) for k in keys),
+        "train.serving fell back with the JAX package's warning": fell_back and any(
+            "stacked/pipelined layouts keep the contiguous cache" in w for w in warned),
+        "launches equal between layouts": s_launches == l_launches,
+    }
+    return checks, report
+
+
+def phase_stacked(ctx):
+    """A main path: the stacked layer layout on one device (``scan_layers``)
+    at GPT-2-XL width (gpt2 width for PPO), each leg against the listed
+    layout on the same weights (:func:`st_forward`, :func:`st_generate`,
+    :func:`st_verify`, :func:`st_train`, :func:`st_ppo`, and
+    :func:`st_decode_launches`, whose process runs beside the others).
+    Every stacked run counts from 0 and the path's
+    launches are their sum (:class:`StPath`); K1, K2, K3 and K5 must launch
+    on it. Every kernel call shape of the legs is held against the plain
+    versions after the counts are read."""
+    import gc
+
+    import torch
+
+    path, legs, failed, seen = StPath(), {}, [], {}
+    counting = st_decode_launches_start()
+    restore = record_kernel_shapes(seen)
+    try:
+        models = st_models()
+        plan = [("forward", lambda: st_forward(ctx, path, *models)),
+                ("generate", lambda: st_generate(ctx, path, *models)),
+                ("verify", lambda: st_verify(ctx, path, *models)),
+                ("train", lambda: st_train(ctx, path)),
+                ("ppo", lambda: st_ppo(ctx, path)),
+                ("decode_launches", lambda: st_decode_launches(ctx, counting))]
+        for name, leg in plan:
+            if name == "train":  # the XL pair's 6.2 GB go before the trainers
+                del models
+                gc.collect()
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            checks, report = leg()
+            torch.cuda.synchronize()
+            legs[name] = {"s": time.perf_counter() - t0, "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+            emit({"phase": "stacked", "leg": name, **legs[name], "checks": checks, "report": report,
+                  "card": ctx.get("smi")})
+            failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    finally:
+        restore()
+        if counting.poll() is None:
+            counting.kill()
+            counting.communicate()
+    ctx["stacked_launches"] = path.total
+    emit({"phase": "stacked", "legs": legs, "launches": path.total, "kernel_shapes": kernel_shapes(seen),
+          "card": ctx.get("smi")})
+    missing = [k for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_verify") if path.total[k] == 0]
+    if missing:
+        failed.append(f"kernels never launched on the path: {missing}")
+    try:
+        check_main_path_shapes(ctx, seen, "stacked", ("flash_fwd", "flash_bwd", "paged_verify"))
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError(f"stacked phase: {failed}")
 
 
 AN_SEED_REGRESSION = "extra_item"
@@ -6879,16 +7494,29 @@ def an_data_plane(ctx):
     return checks, report
 
 
-def an_census(ctx, device="cuda"):
-    """Leg ``census``: :func:`an_census_run` in a fresh process, as ``python
-    -m trlx_tpu_torch.analysis.census`` measured the committed budget. The
+def an_census_start(device="cuda"):
+    """Start :func:`an_census_run` in a fresh process, as ``python -m
+    trlx_tpu_torch.analysis.census`` measured the committed budget: the
     census counts launches through CUPTI's one subscriber, which this
     process's earlier ``torch.profiler`` windows hold."""
-    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.an_census_run({device!r})"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=900)
-    lines = [line for line in proc.stdout.splitlines() if line.startswith('{"checks"')]
+    return subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.an_census_run({device!r})"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def an_census(ctx, device="cuda"):
+    """Leg ``census``: the result of :func:`an_census_run`'s process, the
+    one :func:`main` started beside phase ``stacked`` (the census counts
+    per process and times nothing, so another process's work leaves its
+    counts alone) or a new one."""
+    proc = ctx.pop("census_proc", None) or an_census_start(device)
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    lines = [line for line in out.splitlines() if line.startswith('{"checks"')]
     if proc.returncode != 0 or not lines:
-        return {"the census process ran": False}, {"returncode": proc.returncode, "stderr": proc.stderr[-3000:]}
+        return {"the census process ran": False}, {"returncode": proc.returncode, "stderr": err[-3000:]}
     result = json.loads(lines[-1])
     return result["checks"], result["report"]
 
@@ -7133,7 +7761,7 @@ def kernel_table(ctx):
              "production_serving": ctx["production_serving_launches"],
              "serving_fleet": ctx["serving_fleet_launches"],
              "families_seq2seq": ctx["families_seq2seq_launches"],
-             "peft_memory": ctx["peft_memory_launches"]}
+             "peft_memory": ctx["peft_memory_launches"], "stacked": ctx["stacked_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -7183,15 +7811,23 @@ def main(argv=None) -> int:
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
                "observability": phase_observability, "production_serving": phase_production_serving,
                "serving_fleet": phase_serving_fleet, "families_seq2seq": phase_families_seq2seq,
-               "peft_memory": phase_peft_memory, "analysis": phase_analysis}
+               "peft_memory": phase_peft_memory, "stacked": phase_stacked, "analysis": phase_analysis}
     phase_env(ctx)
     try:
         for name in phases:
+            if name == "stacked" and "analysis" in phases:
+                # the census process runs beside phase stacked: after every
+                # phase that times a kernel, and it times nothing itself
+                ctx["census_proc"] = an_census_start()
             if name != "env":
                 t0 = time.perf_counter()
                 runners[name](ctx)
                 ctx["phase_seconds"][name] = time.perf_counter() - t0
     finally:
+        census = ctx.pop("census_proc", None)
+        if census is not None and census.poll() is None:  # a phase failed before analysis
+            census.kill()
+            census.communicate()
         if "randomwalks_export" in ctx:  # the randomwalks SFT export, shared by the later gates
             import shutil
 

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
               "trlx_tpu_torch.fleet", "trlx_tpu_torch.fleet.router", "trlx_tpu_torch.fleet.ledger",
               "trlx_tpu_torch.fleet.autoscaler", "trlx_tpu_torch.fleet.scenario", "trlx_tpu_torch.rollout.broadcast",
               "trlx_tpu_torch.serving.island", "trlx_tpu_torch.obs.islands", "trlx_tpu_torch.parallel",
-              "trlx_tpu_torch.parallel.mesh", "trlx_tpu_torch.native", "trlx_tpu_torch.analysis",
+              "trlx_tpu_torch.parallel.mesh", "trlx_tpu_torch.parallel.pipeline", "trlx_tpu_torch.native",
+              "trlx_tpu_torch.analysis",
               "trlx_tpu_torch.analysis.__main__", "trlx_tpu_torch.analysis.cli",
               "trlx_tpu_torch.analysis.callgraph", "trlx_tpu_torch.analysis.rules_torch",
               "trlx_tpu_torch.analysis.conc", "trlx_tpu_torch.analysis.conc.model",

@@ -13,7 +13,8 @@ device list, the ledger's numbers on the same intervals, one prefix flush
 per swapped version on the tiny engine (tokens equal to the JAX engine's),
 the supervised re-attach, the idle-bubble proof (and its inversion under
 ``TRLX_ISLAND_SEED_REGRESSION=blocking_broadcast``), and the trainer
-wiring (``train.islands`` with async rollouts and the engine). An island
+wiring (``train.islands`` with async rollouts and the engine, and LoRA PPO under
+it against the JAX trainer). An island
 over a ``FleetRouter`` raises in both packages.
 
 Timing thresholds are the JAX file's (host clock, seconds). Each test
@@ -568,6 +569,28 @@ def test_trainer_islands_requires_async_rollouts(tmp_path, monkeypatch):
     assert trainer._serving_engine._island is None and trainer._serving_engine.serving_version == -1
     assert len(trainer.store.history) == d["method"]["num_rollouts"]
     trainer.on_learn_end()
+
+
+def test_lora_ppo_under_islands_matches_jax(tmp_path, monkeypatch):
+    """LoRA PPO with ``train.islands`` (async rollouts through the serving
+    engine as the generation island, the chunked publisher) in both
+    packages from the same weights: the first store and two learner steps
+    agree within the trainer-parity limits, and each package's island
+    leaves its gauges empty."""
+    from tests.test_torch_peft_trainers import _elements_close, _stats_close, async_lora_ppo_runs
+    from trlx_tpu.parallel import mesh as mesh_lib
+
+    real = mesh_lib.make_mesh
+    monkeypatch.setattr(mesh_lib, "mesh_from_config",
+                        lambda cfg, devices=None: real(data=1, fsdp=1, model=1, devices=jax.devices()[:1]))
+    train = dict(async_rollouts=dict(enabled=True, max_staleness=1), serving=dict(SERVING),
+                 islands=dict(enabled=True, chunk_layers=2))
+    ((je, js), (pe, ps)), pt = async_lora_ppo_runs(tmp_path, train)
+    assert pt._island is None  # closed by on_learn_end
+    _elements_close(je, pe)
+    _stats_close(js, ps, ("losses", "values", "returns", "policy", "ratio", "learning_rate_group_0"))
+    for registry in (jax_gauges, gauges):
+        assert registry.snapshot("serving/island/") == {} and registry.snapshot("rollout/broadcast/") == {}
 
 
 def test_trainer_islands_wiring(tmp_path, monkeypatch):

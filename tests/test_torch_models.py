@@ -150,7 +150,8 @@ def test_paged_decode_token_by_token(family, quant):
 
 
 def test_unsupported_config_raises():
-    for over in (dict(scan_layers=True), dict(attention_impl="ring"), dict(sequence_sharding=True)):
+    # stacked layouts build since the stacked-layout slice (tests/test_torch_stacked.py)
+    for over in (dict(attention_impl="ring"), dict(sequence_sharding=True)):
         with pytest.raises(NotImplementedError):
             TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], **over))
     # peft and remat build since the peft / training-memory slice

@@ -7,7 +7,9 @@ non-zero from a seed in both packages before anything runs. Checked, after
 reference being the same trunk with the adapters disabled), every step's
 stats within rtol 1e-3, greedy generations identical, no reference copy and
 no trunk gradient or optimizer state, the trunk unchanged by training, and
-the export's merged trunk and adapter file."""
+the export's merged trunk and adapter file; LoRA PPO also under
+``train.async_rollouts`` (and, in ``tests/test_torch_islands.py``, under
+``train.islands``)."""
 
 import numpy as np
 import pytest
@@ -42,7 +44,7 @@ def reward_fn(samples, **kw):
     return [float(s.count("a")) + 0.25 * s.count(" ") for s in samples]
 
 
-def _config_dict(tmp_path, trainer, method, peft, seq2seq=False):
+def _config_dict(tmp_path, trainer, method, peft, seq2seq=False, train=None):
     model = dict(model_path="gpt2", num_layers_unfrozen=2, model_overrides=dict(CAUSAL), peft_config=peft)
     if seq2seq:
         model.update(model_path="t5", model_arch_type="seq2seq", model_overrides=dict(T5))
@@ -50,7 +52,8 @@ def _config_dict(tmp_path, trainer, method, peft, seq2seq=False):
         method=method,
         train=dict(seq_length=16, epochs=4, total_steps=3, batch_size=4, minibatch_size=2,
                    checkpoint_interval=100, eval_interval=100, checkpoint_dir=str(tmp_path / "ckpts"),
-                   pipeline="PromptPipeline", trainer=trainer, tracker=None, seed=3, save_best=False),
+                   pipeline="PromptPipeline", trainer=trainer, tracker=None, seed=3, save_best=False,
+                   **(train or {})),
         model=model,
         tokenizer=dict(tokenizer_path=f"char://{ALPHABET}"),
         optimizer=dict(name="adamw", kwargs=dict(lr=3e-2, betas=(0.9, 0.95), weight_decay=1e-4, max_grad_norm=1.0)),
@@ -82,9 +85,10 @@ def _seeded(tree, seed):
     return walk(tree)
 
 
-def _trainers(tmp_path, trainer, method, peft, seq2seq=False):
+def _trainers(tmp_path, trainer, method, peft, seq2seq=False, train=None):
     """Both packages' trainers, the JAX adapters re-drawn non-zero from a
-    seed and the port loaded from the JAX params."""
+    seed and the port loaded from the JAX params (``train``: more
+    ``train`` config keys)."""
     import trlx_tpu.methods  # noqa: F401  (registers the method configs)
     from trlx_tpu.data.configs import TRLConfig as JaxConfig
     from trlx_tpu.utils.loading import get_trainer as jax_get_trainer
@@ -94,10 +98,10 @@ def _trainers(tmp_path, trainer, method, peft, seq2seq=False):
 
     extra = dict(reward_fn=reward_fn) if trainer == "PPOTrainer" else {}
     jt = jax_get_trainer(trainer)(
-        config=JaxConfig.from_dict(_config_dict(tmp_path / "jax", trainer, method, peft, seq2seq)), **extra)
+        config=JaxConfig.from_dict(_config_dict(tmp_path / "jax", trainer, method, peft, seq2seq, train)), **extra)
     pt = get_trainer(trainer)(
-        config=TRLConfig.from_dict(_config_dict(tmp_path / "port", trainer, method, peft, seq2seq)), device="cpu",
-        **extra)
+        config=TRLConfig.from_dict(_config_dict(tmp_path / "port", trainer, method, peft, seq2seq, train)),
+        device="cpu", **extra)
     jparams = _seeded(jax.tree.map(np.asarray, jax.device_get(jt.params)), 5)
     jt.params = jax.tree.map(lambda new, old: jax.device_put(jnp.asarray(new), old.sharding), jparams, jt.params)
     if trainer == "SFTTrainer":
@@ -193,6 +197,54 @@ def test_ppo_peft_matches_jax(tmp_path, single_device_mesh, kind):
         pt.config.train.serving.enabled = True
         pt._resolve_serving()
         assert pt._serving_client is None
+
+
+PPO_METHOD = dict(name="PPOConfig", num_rollouts=8, chunk_size=4, ppo_epochs=1, init_kl_coef=0.05, target=None,
+                  gen_kwargs=dict(max_new_tokens=5, do_sample=False))
+
+
+def async_lora_ppo_runs(tmp_path, train):
+    """LoRA PPO in both packages under ``train`` (async rollouts, and
+    whatever else the caller adds): the first store, filled by the producer
+    at version 0 (no staleness), and two learner steps on it. Returns
+    (JAX, port) as ((elements, stats), ...) and the port trainer, each
+    trainer's producer stopped."""
+    from trlx_tpu.pipeline.offline_pipeline import PromptPipeline as JaxPipeline
+    from trlx_tpu_torch.pipeline import PromptPipeline
+
+    jt, pt = _trainers(tmp_path, "PPOTrainer", PPO_METHOD, PEFT["lora"], train=train)
+    assert pt.peft_base_ref and pt.ref_model is None
+    for tr, cls in ((jt, JaxPipeline), (pt, PromptPipeline)):
+        tr.add_prompt_pipeline(cls(PROMPTS, 11, tr.tokenizer))
+    runs = []
+    try:
+        for tr in (jt, pt):
+            tr.prepare_learning()
+            assert tr._engine is not None
+            assert (tr._island is not None) == ("islands" in train)
+            batches = list(tr.create_train_dataloader())[:2]
+            runs.append((list(tr.store.history), [tr.train_step(b) for b in batches]))
+    finally:
+        jt.on_learn_end()
+        pt.on_learn_end()
+    for elements, stats in runs:
+        assert all(e.policy_version == 0 for e in elements)
+        for step in stats:
+            # the producer's most recent chunk's KL: which chunk that is
+            # depends on the producer thread's progress, in both packages
+            step.pop("policy/sqrt_kl")
+    return runs, pt
+
+
+def test_ppo_lora_async_rollouts_matches_jax(tmp_path, single_device_mesh):
+    """LoRA PPO under ``train.async_rollouts``: the producer's copy of the
+    policy carries the adapters and scores its KL reference with them
+    disabled, as the learner's does."""
+    ((je, js), (pe, ps)), pt = async_lora_ppo_runs(
+        tmp_path, dict(async_rollouts=dict(enabled=True, max_staleness=1)))
+    assert any(n.endswith("lora_a") for n in pt._producer_model.state_dict())
+    _elements_close(je, pe)
+    _stats_close(js, ps, ("losses", "values", "returns", "policy", "ratio", "learning_rate_group_0"))
 
 
 def test_ppo_t5_lora_matches_jax(tmp_path, single_device_mesh):

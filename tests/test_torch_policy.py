@@ -123,12 +123,11 @@ def test_policy_params_from_jax_rejects_mismatched_trees():
 
 
 def test_unported_branches_raise_naming_their_slice():
-    """Stacked layouts still raise; remat and LoRA build since the peft /
-    training-memory slice (a value branch gets adapters as the trunk does,
-    as the JAX policy's value blocks do)."""
+    """Remat and LoRA build since the peft / training-memory slice (a value
+    branch gets adapters as the trunk does, as the JAX policy's value blocks
+    do); stacked layouts since the stacked-layout slice
+    (tests/test_torch_stacked.py)."""
     cfg = PRESETS["gpt2"].replace(vocab_size=11, hidden_size=8, num_layers=2, num_heads=2)
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        CausalLMWithValueHead(cfg.replace(scan_layers=True))
     with pytest.raises(ValueError, match="exceeds num_layers"):
         CausalLMWithValueHead(cfg, num_value_layers=3)
     model = CausalLMWithValueHead(cfg.replace(remat="full", lora_r=4), num_value_layers=1).init_params(0)

@@ -5,7 +5,9 @@
 trlx_tpu's, on a tiny T5 (2+2 layers, d_model 32, char tokenizer, f32) from
 the same weights (``policy_params_from_jax`` / ``t5_params_from_jax``):
 collated batches identical, experience within 1e-4, every step's stats
-within rtol 1e-3, greedy generations identical. Also: ``check_port_config``
+within rtol 1e-3, greedy generations identical; PPO also under
+``train.async_rollouts`` (the producer's copy of the T5 policy fills the
+first store at version 0). Also: ``check_port_config``
 accepts seq2seq and T5 LoRA, T5 refuses prompt tuning, and the SFT export
 loads back through both packages' seq2seq loaders."""
 
@@ -31,12 +33,13 @@ def reward_fn(samples, **kw):
     return [float(s.count("a")) + 0.25 * s.count(" ") for s in samples]
 
 
-def _config_dict(tmp_path, trainer, method, n_unfrozen=-1, **model):
+def _config_dict(tmp_path, trainer, method, n_unfrozen=-1, train=None, **model):
     return dict(
         method=method,
         train=dict(seq_length=16, epochs=4, total_steps=3, batch_size=4, minibatch_size=2,
                    checkpoint_interval=100, eval_interval=100, checkpoint_dir=str(tmp_path / "ckpts"),
-                   pipeline="PromptPipeline", trainer=trainer, tracker=None, seed=3, save_best=False),
+                   pipeline="PromptPipeline", trainer=trainer, tracker=None, seed=3, save_best=False,
+                   **(train or {})),
         model=dict(model_path="t5", model_arch_type="seq2seq", num_layers_unfrozen=n_unfrozen, model_overrides=dict(
             vocab_size=len(ALPHABET) + 3, d_model=32, d_kv=8, d_ff=64, num_layers=2, num_decoder_layers=2,
             num_heads=4, relative_attention_num_buckets=8, decoder_start_token_id=1), **model),
@@ -167,6 +170,49 @@ def test_ppo_seq2seq_matches_jax(tmp_path, single_device_mesh, n_unfrozen):
                                        **ELEMENT_TOL)
     _stats_close(js, ps, ("losses", "values", "returns", "policy", "ratio", "learning_rate_group_0"))
     _greedy_equal(jt, pt)
+
+
+def test_ppo_seq2seq_async_rollouts_matches_jax(tmp_path, single_device_mesh):
+    """``train.async_rollouts``: each producer thread generates, scores and
+    queues from its copy of the T5 policy; the first store (version 0, so
+    no staleness) and two learner steps on it match the JAX trainer's."""
+    from trlx_tpu.pipeline.offline_pipeline import PromptPipeline as JaxPipeline
+    from trlx_tpu_torch.models.policy import Seq2SeqLMWithValueHead
+    from trlx_tpu_torch.pipeline import PromptPipeline
+
+    method = dict(name="PPOConfig", num_rollouts=8, chunk_size=4, ppo_epochs=1, init_kl_coef=0.05, target=None,
+                  gen_kwargs=dict(max_new_tokens=5, do_sample=False))
+    jt, pt, jparams = _trainers(tmp_path, "PPOTrainer", method,
+                                train=dict(async_rollouts=dict(enabled=True, max_staleness=1)))
+    pt.model.load_state_dict(policy_params_from_jax(jparams, pt.model_config))
+    pt.ref_model.load_state_dict(pt.model.t5.state_dict())
+    for tr, cls in ((jt, JaxPipeline), (pt, PromptPipeline)):
+        tr.add_prompt_pipeline(cls(PROMPTS, 11, tr.tokenizer))
+    runs = []
+    try:
+        for tr in (jt, pt):
+            tr.prepare_learning()
+            batches = list(tr.create_train_dataloader())[:2]
+            runs.append((list(tr.store.history), [tr.train_step(b) for b in batches]))
+        assert isinstance(pt._producer_model, Seq2SeqLMWithValueHead) and pt._engine is not None
+    finally:
+        jt.on_learn_end()
+        pt.on_learn_end()
+    (je, js), (pe, ps) = runs
+    for step in js + ps:
+        # the producer's most recent chunk's KL: which chunk that is depends
+        # on the producer thread's progress, in both packages
+        step.pop("policy/sqrt_kl")
+    assert len(pe) == len(je) == 8
+    for a, b in zip(je, pe):
+        assert b.policy_version == a.policy_version == 0
+        np.testing.assert_array_equal(b.query_tensor, np.asarray(a.query_tensor))
+        np.testing.assert_array_equal(b.response_tensor, np.asarray(a.response_tensor))
+        for field in ("logprobs", "values", "rewards"):
+            np.testing.assert_allclose(getattr(b, field), np.asarray(getattr(a, field)), err_msg=field,
+                                       **ELEMENT_TOL)
+    _stats_close(js, ps, ("losses", "values", "returns", "policy", "ratio", "learning_rate_group_0"))
+    assert pt._engine is None and pt.rollout_engine_summary["produced"] >= 8
 
 
 def test_ilql_seq2seq_matches_jax(tmp_path, single_device_mesh):

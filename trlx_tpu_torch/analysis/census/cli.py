@@ -3,12 +3,15 @@ registered hot entrypoint and hold it to the committed budget.
 
 Usage::
 
-    python -m trlx_tpu_torch.analysis.census [--device cuda|cpu]
+    python -m trlx_tpu_torch.analysis.census [--device cuda|cpu] [--size xl]
         [--entries decode_step,ppo_train_step] [--write-budget] [--budget FILE] [--json OUT]
 
 ``--device`` defaults to the card (``cuda``: gpt2's published widths,
 budget keys ``name@cuda``), as the port's entry points do; ``--device cpu``
-runs the tiny configuration on the CPU (keys ``name@cpu``). Exit 1 on any
+runs the tiny configuration on the CPU (keys ``name@cpu``). ``--size xl``
+(the card only) runs ``decode_step`` and ``spec_verify_step`` at the
+reference's GPT-2-XL blueprints over stacked layers (keys
+``name@cuda:xl``). Exit 1 on any
 violation (and so under a seeded regression the gate catches), 2 on a
 usage error.
 """
@@ -27,17 +30,31 @@ SIZES = {"cpu": "tiny", "cuda": "full"}
 
 
 def run_census(device: str = "cpu", names: Optional[List[str]] = None,
-               verbose: bool = False, shared: Optional[Dict] = None) -> Dict[str, Dict]:
+               verbose: bool = False, shared: Optional[Dict] = None, size: Optional[str] = None) -> Dict[str, Dict]:
     """Build and measure each selected entry; ``{budget key: census}``.
     Entries share trainers and engines through one memo (``shared``: the
-    caller's to keep and drop; by default a fresh one, dropped at the end)."""
+    caller's to keep and drop; by default a fresh one, dropped at the end).
+    ``size="xl"`` measures :data:`~trlx_tpu_torch.analysis.census.fixtures.XL_ENTRIES`
+    on the card, keyed ``name@cuda:xl``."""
     import torch
 
     from trlx_tpu_torch.analysis.census.entrypoints import load_all
+    from trlx_tpu_torch.analysis.census.fixtures import XL_ENTRIES
     from trlx_tpu_torch.analysis.census.measure import measure
 
     dev = torch.device(device)
-    size = SIZES[dev.type]
+    suffix = ""
+    if size == "xl":
+        if dev.type != "cuda":
+            raise ValueError("--size xl runs on the card only")
+        suffix = ":xl"
+        unknown = [n for n in names or () if n not in XL_ENTRIES]
+        if unknown:
+            raise ValueError(f"no xl size for {unknown}; xl entries: {list(XL_ENTRIES)}")
+        names = list(names or XL_ENTRIES)
+    elif size is not None:
+        raise ValueError(f"unknown size {size!r}")
+    size = size or SIZES[dev.type]
     registry = load_all()
     selected = list(names) if names else list(registry)
     unknown = [n for n in selected if n not in registry]
@@ -51,7 +68,7 @@ def run_census(device: str = "cpu", names: Optional[List[str]] = None,
             t0 = time.perf_counter()
             entry = registry[name].factory(dev, size, shared)
             m = measure(entry, dev)
-            out[f"{name}@{dev.type}"] = m
+            out[f"{name}@{dev.type}{suffix}"] = m
             if verbose:
                 print(f"[census] {name}: {json.dumps(m)} ({time.perf_counter() - t0:.1f}s)", flush=True)
     finally:
@@ -65,6 +82,8 @@ def run_census(device: str = "cpu", names: Optional[List[str]] = None,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m trlx_tpu_torch.analysis.census", description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--size", default=None, choices=["xl"],
+                    help="xl: decode_step and spec_verify_step at GPT-2-XL over stacked layers (the card only)")
     ap.add_argument("--entries", default=None, help="comma-separated entrypoint names (default: all)")
     ap.add_argument("--budget", default=str(budget_mod.DEFAULT_BUDGET))
     ap.add_argument("--write-budget", action="store_true")
@@ -78,7 +97,7 @@ def main(argv=None) -> int:
         return 2
     names = [n.strip() for n in args.entries.split(",") if n.strip()] if args.entries else None
     try:
-        measurements = run_census(args.device, names, verbose=True)
+        measurements = run_census(args.device, names, verbose=True, size=args.size)
     except ValueError as e:
         print(f"census: {e}", file=sys.stderr)
         return 2

@@ -1,9 +1,13 @@
 """Seeded set-ups shared by the census factories.
 
-Two sizes: ``tiny`` (2 layers, hidden 32, the bytes tokenizer's 259 ids:
-seconds on the CPU) and ``full`` (the gpt2 preset at its published widths:
+Three sizes: ``tiny`` (2 layers, hidden 32, the bytes tokenizer's 259 ids:
+seconds on the CPU), ``full`` (the gpt2 preset at its published widths:
 12 layers, hidden 768, 12 heads, vocab 50257, on the card, at the shapes of
-``chip_smoke.py``'s main paths: see ``SIZES``). Both compute in
+``chip_smoke.py``'s main paths: see ``SIZES``) and ``xl`` (on the card: the
+reference's GPT-2-XL audit blueprints, ``decode_step``'s and
+``spec_verify_step``'s ``xl`` specs in ``trlx_tpu/ops/generation.py`` and
+``trlx_tpu/ops/paged_attention.py``: hidden 1600, 48 stacked layers, 25
+heads, vocab 50257; those two entries only). All compute in
 bf16 with flash attention, the trainers over f32 parameters (their main
 path) and the engines over bf16 ones (a serving deployment); weights are
 random from seed 0 and decoding is greedy. Trainers and
@@ -45,7 +49,20 @@ SIZES: Dict[str, Dict[str, Any]] = {
         engine=dict(slots=256, block=16, max_len=256, prompt=(65, 128), spec_k=4, chunk=64),
         score=dict(B=32, P=128, max_new=128),
     ),
+    # the reference's xl blueprints: decode B=8, P=128, N=16 (the trainer's
+    # batch of 8 rollouts); verify over stacked int8 pools, NB=64, BS=16,
+    # MB=16, spec_k=4
+    "xl": dict(
+        model=dict(vocab_size=50257, hidden_size=1600, num_layers=48, num_heads=25, intermediate_size=6400,
+                   max_position_embeddings=1024, attention_impl="flash", scan_layers=True),
+        decode=dict(B=8, lo=128, hi=128, N=16),
+        train=dict(B=8, MB=8, P=128, R=16),
+        verify=dict(B=8, num_blocks=64, block_size=16, max_blocks=16, spec_k=4),
+    ),
 }
+
+#: the entries the ``xl`` size measures
+XL_ENTRIES = ("decode_step", "spec_verify_step")
 
 
 def shapes(size: str, part: str) -> Dict[str, Any]:

@@ -6,7 +6,10 @@ a ``T5LM`` trunk, ``Seq2SeqLMWithValueHead`` (``t5``, ``v_head_mlp``) and
 
 The port's modules keep the flax names (``layers_{i}``, ``kernel [in, out]``,
 ``bias``, ``scale``, ``embedding``), so conversion is a flatten of the nested
-tree with ``.`` joins plus a dtype cast — no transposes. The tree arrives as
+tree with ``.`` joins plus a dtype cast — no transposes. A stacked tree
+(``scan_layers`` / ``pipeline_stages > 1``: ``layers_scan`` with a leading
+``[L]`` dim on every block leaf) maps the same way onto the port's
+``layers_scan.<block path>`` tensors. The tree arrives as
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), so this
 module imports nothing of JAX.
 """

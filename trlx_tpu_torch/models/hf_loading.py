@@ -47,6 +47,7 @@ import torch
 from trlx_tpu_torch.models import safetensors_io
 from trlx_tpu_torch.models.presets import from_hf_config, get_preset
 from trlx_tpu_torch.models.transformer import TransformerConfig
+from trlx_tpu_torch.parallel.pipeline import is_stacked, unstack_layer_params
 
 logger = logging.getLogger(__name__)
 
@@ -697,7 +698,10 @@ def save_pretrained_hf(
 ) -> None:
     """Export a :class:`TransformerLM` ``state_dict`` as an HF-format
     directory: ``model.safetensors`` (f32) and ``config.json``
-    (:func:`make_hf_config`)."""
+    (:func:`make_hf_config`). A stacked trunk (``layers_scan.*``) is
+    unstacked first: the directory is the listed layout's."""
+    if is_stacked(state):
+        state = unstack_layer_params(state, config.num_layers)
     os.makedirs(out_dir, exist_ok=True)
     sd = params_to_hf_state_dict(model_type, params_from_state(state), config)
     safetensors_io.save_file(sd, os.path.join(out_dir, "model.safetensors"), metadata={"format": "pt"})

@@ -25,6 +25,7 @@ from trlx_tpu_torch.methods.ilql import batched_index_select
 from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead, ValueHead
 from trlx_tpu_torch.models.t5 import T5Config, T5LM
 from trlx_tpu_torch.models.transformer import (
+    STACKED_CAPTURE_ERROR,
     Block,
     Dense,
     Embed,
@@ -84,6 +85,10 @@ class CausalLMWithValueHead(nn.Module):
             raise ValueError(
                 f"num_value_layers_unfrozen={num_value_layers} exceeds num_layers={config.num_layers}"
             )
+        if num_value_layers > 0 and config.stacked:
+            # the JAX module raises this at init, its first forward: the
+            # value branch reads a mid-stack activation
+            raise NotImplementedError(STACKED_CAPTURE_ERROR)
         self.config = config
         self.num_value_layers = num_value_layers
         self.transformer = TransformerLM(config)

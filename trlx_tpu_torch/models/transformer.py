@@ -62,9 +62,23 @@ graph (:func:`run_block`): the first three keep only the block's inputs,
 is not a matrix product, so it runs again in the backward under every
 policy, as the ``pallas_call`` does under XLA's ``dots_saveable``.
 
-Not ported yet (each raises ``NotImplementedError``): stacked layouts
-(``scan_layers`` / ``pipeline_stages > 1``), ring attention and sequence
-sharding.
+Stacked layouts (``scan_layers``, or ``pipeline_stages > 1`` with no pipe
+axis: the JAX package's ``layers_scan``) keep every block parameter as one
+``[L, ...]`` tensor under ``layers_scan.<block path>`` (:class:`StackedBlock`),
+so a JAX ``layers_scan`` tree loads name for name. Each forward takes the
+per-layer views with one ``unbind(0)`` per stacked parameter (its backward is
+one ``stack``; ``p[l]`` per layer would make ``select``'s backward write a
+zero-filled ``[L, ...]`` tensor per layer) and runs the one :class:`Block`'s
+code over each layer's views under ``run_block``'s remat policy. The dense
+cache is one ``[L, B, Hkv, S, D]`` tensor per leaf and the paged pools one
+``[L, NB, BS, Hkv, D]`` per leaf: each layer reads and writes ``leaf[l]`` in
+place, a view, so a stacked step launches what a listed one does. As in the
+JAX package, ``paged_decode``, hydra branch capture and ``forward_from``
+refuse a stacked model; the GPipe schedule over a pipe axis is the
+scale-out slice's (:mod:`trlx_tpu_torch.parallel.pipeline`).
+
+Not ported yet (each raises ``NotImplementedError``): ring attention and
+sequence sharding.
 """
 
 import contextlib
@@ -176,9 +190,25 @@ REMAT_POLICIES = ("none", "full", "per_layer", "nothing_saveable", "dots_saveabl
 
 
 def check_supported(c: TransformerConfig) -> None:
-    """Raise for the config features later slices of the port bring."""
+    """The JAX module's checks of a pipelined stack, then a raise for the
+    config features later slices of the port bring."""
+    if c.pipeline_stages > 1:
+        if c.num_layers % c.pipeline_stages != 0:
+            raise ValueError(
+                f"num_layers={c.num_layers} not divisible by pipeline_stages={c.pipeline_stages}")
+        if c.attention_impl == "ring":
+            raise ValueError(
+                "pipeline_stages > 1 cannot nest ring attention's shard_map; "
+                "use attention_impl='xla' or 'flash'"
+            )
+        if c.sequence_sharding:
+            raise ValueError(
+                "pipeline_stages > 1 does not apply sequence-sharding "
+                "constraints inside the pipelined stack; set "
+                "sequence_sharding=False (the trainer does this automatically "
+                "when mesh.pipe > 1)"
+            )
     unsupported = [
-        (c.stacked, "stacked layouts (scan_layers / pipeline_stages > 1): pipeline slice"),
         (c.attention_impl == "ring", "attention_impl='ring': scale-out slice"),
         (c.sequence_sharding, "sequence_sharding: scale-out slice"),
     ]
@@ -233,20 +263,33 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def run_block(block: nn.Module, x, mask_bias, positions, cache=None, kv_valid=None):
+def run_block(block: nn.Module, x, mask_bias, positions, cache=None, kv_valid=None, params=None):
     """``block(x, ...)`` under its config's ``remat`` policy (the JAX
     package's ``nn.remat(Block, policy=remat_policy(...))``): a cache-free
     forward that builds a graph keeps only the block's inputs (``full``,
     ``per_layer``, ``nothing_saveable``) or also the matrix products
     (``dots_saveable``), and recomputes the rest in the backward. Cached
-    and no-grad forwards run the block as it is."""
+    and no-grad forwards run the block as it is. ``params`` (one layer's
+    views of a :class:`StackedBlock`) runs the block's code over them."""
+    fn = block if params is None else functools.partial(_call_layer, block, params)
     policy = block.config.remat
     if policy == "none" or cache is not None or not torch.is_grad_enabled():
-        return block(x, mask_bias, positions, cache, kv_valid)
+        return fn(x, mask_bias, positions, cache, kv_valid)
     kw = {}
     if policy == "dots_saveable":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    return checkpoint(block, x, mask_bias, positions, None, kv_valid, use_reentrant=False, **kw)
+    return checkpoint(fn, x, mask_bias, positions, None, kv_valid, use_reentrant=False, **kw)
+
+
+# functional_call swaps a module's parameters for the call: one stacked
+# layer runs at a time, whatever thread calls it (a remat recompute runs on
+# the autograd thread)
+_LAYER_CALL = threading.RLock()
+
+
+def _call_layer(block: nn.Module, params: Dict[str, torch.Tensor], *args):
+    with _LAYER_CALL:
+        return torch.func.functional_call(block, params, args)
 
 
 def _act(name: str):
@@ -605,6 +648,10 @@ class Attention(nn.Module):
                 kh = torch.cat([self.prefix_k.to(kh.dtype).transpose(0, 1)[None].expand(shape), kh], dim=2)
                 vh = torch.cat([self.prefix_v.to(vh.dtype).transpose(0, 1)[None].expand(shape), vh], dim=2)
                 mask_bias = torch.cat([mask_bias.new_zeros(mask_bias.shape[:-1] + (n_prefix,)), mask_bias], dim=-1)
+            # a cache in another dtype (a bf16 cache under f32 compute):
+            # both products run in the promoted dtype, as JAX's einsum does
+            dt = q.dtype if kh.dtype == q.dtype else torch.promote_types(q.dtype, kh.dtype)
+            q, kh, vh = q.to(dt), kh.to(dt), vh.to(dt)
             if c.kv_heads != c.num_heads:
                 rep = c.num_heads // c.kv_heads
                 qg = q.reshape(B, T, c.kv_heads, rep, c.dim_per_head)
@@ -619,7 +666,7 @@ class Attention(nn.Module):
                 probs = torch.softmax(scores + bias, dim=-1)
                 if v_row_scale is not None:
                     probs = probs * v_row_scale[..., 0][:, :, None, None, :]
-                probs = probs.to(c.compute_dtype)
+                probs = probs.to(c.compute_dtype).to(dt)
                 out = torch.einsum("bkrts,bksd->btkrd", probs, vh)
             else:
                 scores = torch.einsum("bthd,bhsd->bhts", q, kh).float() * scale
@@ -628,7 +675,7 @@ class Attention(nn.Module):
                 probs = torch.softmax(scores + mask_bias, dim=-1)
                 if v_row_scale is not None:
                     probs = probs * v_row_scale[..., 0][:, :, None, :]
-                probs = probs.to(c.compute_dtype)
+                probs = probs.to(c.compute_dtype).to(dt)
                 out = torch.einsum("bhts,bhsd->bthd", probs, vh)
         out = out.reshape(B, T, c.num_heads * c.dim_per_head)
         return self.o_proj(out), cache
@@ -679,12 +726,50 @@ class Block(nn.Module):
         return x, cache
 
 
+class StackedBlock(Block):
+    """The stacked layout's ``layers_scan``: one :class:`Block` whose every
+    parameter carries a leading ``[num_layers]`` dim (flax's ``nn.scan``
+    with ``variable_axes={"params": 0}``), so its ``state_dict`` names are
+    ``layers_scan.<block path>``. Never called as a module: a forward takes
+    :meth:`layer_params` once and runs each layer through
+    :func:`run_block` with its views."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__(config)
+        L = config.num_layers
+        for module in self.modules():
+            for name, p in list(module.named_parameters(recurse=False)):
+                setattr(module, name, nn.Parameter(p.detach().new_empty((L,) + tuple(p.shape))))
+
+    def layer_params(self) -> List[Dict[str, torch.Tensor]]:
+        """Per layer, ``{name: view}``: one ``unbind(0)`` per parameter
+        (under the lock: another thread's layer call swaps them)."""
+        with _LAYER_CALL:
+            names, stacks = zip(*self.named_parameters())
+        return [dict(zip(names, views)) for views in zip(*(p.unbind(0) for p in stacks))]
+
+
+#: the JAX module's messages for what a stacked layout refuses
+STACKED_CAPTURE_ERROR = (
+    "stacked/pipelined models do not support hydra branch capture "
+    "(per-layer activations are internal to the stage scan); use a "
+    "separate reference model (num_layers_unfrozen=-1) and "
+    "num_value_layers_unfrozen=0"
+)
+STACKED_BRANCH_ERROR = (
+    "hydra branch forwards need per-layer params; stacked models "
+    "use a separate reference model (num_layers_unfrozen=-1)"
+)
+
+
 def forward_from(model: nn.Module, hidden, attention_mask, positions, start_layer: int) -> torch.Tensor:
     """``layers_{start_layer}`` .. ``layers_{L-1}`` of ``model`` (a
     :class:`TransformerLM`, or the hydra branch that holds only those
     layers), then its final norm and head, from the activation ``hidden``.
     With ``attention_impl="flash"`` every layer attends through the flash
     kernel under the key mask ``attention_mask``."""
+    if model.config.stacked:
+        raise NotImplementedError(STACKED_BRANCH_ERROR)
     B, T, _ = hidden.shape
     default_positions, mask_bias = make_attn_bias(model.config, attention_mask, B, T, hidden.device)
     if positions is None:
@@ -751,9 +836,12 @@ class TransformerLM(nn.Module):
                 c.max_position_embeddings + c.pos_offset, c.hidden_size,
                 c.compute_dtype, c.param_dtype, c.initializer_range,
             )
-        # flax names the listed layers layers_0 .. layers_{L-1}
-        for i in range(c.num_layers):
-            setattr(self, f"layers_{i}", Block(c))
+        if c.stacked:
+            self.layers_scan = StackedBlock(c)
+        else:
+            # flax names the listed layers layers_0 .. layers_{L-1}
+            for i in range(c.num_layers):
+                setattr(self, f"layers_{i}", Block(c))
         if c.final_norm:
             self.ln_f = Norm(c)
         if not c.tie_word_embeddings:
@@ -766,7 +854,28 @@ class TransformerLM(nn.Module):
 
     @property
     def layers(self) -> List[Block]:
+        """The listed layers (none in a stacked layout: :meth:`_run_layers`)."""
+        if self.config.stacked:
+            return []
         return [getattr(self, f"layers_{i}") for i in range(self.config.num_layers)]
+
+    def _run_layers(self, x, mask_bias, positions, layer_cache, kv_valid, capture_set=(), captures=None):
+        """Every layer in turn; ``layer_cache(i)`` gives layer i's cache
+        (None for a cache-free forward). A stacked layout runs the one block
+        over each layer's parameter views and cache views (leaves written in
+        place), listed layers each their own block."""
+        if self.config.stacked:
+            if capture_set:
+                raise NotImplementedError(STACKED_CAPTURE_ERROR)
+            block = self.layers_scan
+            for i, params in enumerate(block.layer_params()):
+                x, _ = run_block(block, x, mask_bias, positions, layer_cache(i), kv_valid, params=params)
+            return x
+        for i, layer in enumerate(self.layers):
+            if i in capture_set:
+                captures[i] = x
+            x, _ = run_block(layer, x, mask_bias, positions, layer_cache(i), kv_valid)
+        return x
 
     @property
     def device(self) -> torch.device:
@@ -886,14 +995,16 @@ class TransformerLM(nn.Module):
         if branch_layer is not None:
             capture_set = branch_layer if isinstance(branch_layer, tuple) else (branch_layer,)
         captures = {}
-        for i, layer in enumerate(self.layers):
-            if i in capture_set:
-                captures[i] = x
-            layer_cache = None
-            if cache is not None:
-                layer_cache = {key: cache[key][i] for key in cache if key != "index"}
-                layer_cache["index"] = cache["index"]
-            x, _ = run_block(layer, x, mask_bias, layer_positions, layer_cache, kv_valid)
+
+        def layer_cache(i):
+            if cache is None:
+                return None
+            # a list entry, or a view of the stacked [L, ...] leaf
+            out = {key: cache[key][i] for key in cache if key != "index"}
+            out["index"] = cache["index"]
+            return out
+
+        x = self._run_layers(x, mask_bias, layer_positions, layer_cache, kv_valid, capture_set, captures)
         if last_only:
             x = x[:, -1:]
         elif nv_rows:
@@ -915,18 +1026,24 @@ class TransformerLM(nn.Module):
         logits [B, T, V]."""
         return forward_from(self, hidden, attention_mask, positions, start_layer)
 
+    def _layer_buffers(self, layout: Dict[str, Tuple]) -> Dict[str, Any]:
+        """Zeros per ``{key: (shape, dtype)}``: one ``[L, *shape]`` tensor a
+        key in a stacked layout, else a list of L tensors."""
+        L, dev = self.config.num_layers, self.device
+        if self.config.stacked:
+            return {key: torch.zeros((L,) + tuple(shp), dtype=dt, device=dev) for key, (shp, dt) in layout.items()}
+        return {key: [torch.zeros(shp, dtype=dt, device=dev) for _ in range(L)] for key, (shp, dt) in layout.items()}
+
     def init_cache(self, batch_size: int, max_length: int, dtype=None) -> KVCache:
-        """Contiguous per-layer cache buffers on the model's device (zeros);
-        prompt tuning's virtual rows take ``num_virtual_tokens`` more slots."""
+        """Contiguous cache buffers on the model's device (zeros): per layer
+        ``[B, Hkv, S, D]``, or one ``[L, B, Hkv, S, D]`` a leaf in a stacked
+        layout; prompt tuning's virtual rows take ``num_virtual_tokens``
+        more slots."""
         c = self.config
         if c.peft_type == "prompt":
             max_length += c.num_virtual_tokens
         shape = (batch_size, c.kv_heads, max_length, c.dim_per_head)
-        per_layer = kv_cache_layout(shape, dtype or c.compute_dtype, c.kv_cache_quant)
-        out = {
-            key: [torch.zeros(shp, dtype=dt, device=self.device) for _ in range(c.num_layers)]
-            for key, (shp, dt) in per_layer.items()
-        }
+        out = self._layer_buffers(kv_cache_layout(shape, dtype or c.compute_dtype, c.kv_cache_quant))
         out["index"] = 0
         return out
 
@@ -936,18 +1053,16 @@ class TransformerLM(nn.Module):
     ) -> KVCache:
         """Block-pool cache for the serving engine: per-layer k/v pools
         ``[num_blocks, block_size, Hkv, D]`` (int8 + f32 row scales under
-        ``kv_cache_quant``) plus shared ``block_tables`` ``[B,
-        max_blocks_per_seq]`` and ``context_lens`` ``[B]``, int32. Block 0
-        is the allocator's reserved null block; fresh tables point at it."""
+        ``kv_cache_quant``; one ``[L, ...]`` pool a leaf in a stacked layout,
+        which only :meth:`paged_verify` walks) plus shared ``block_tables``
+        ``[B, max_blocks_per_seq]`` and ``context_lens`` ``[B]``, int32.
+        Block 0 is the allocator's reserved null block; fresh tables point
+        at it."""
         c = self.config
-        layout = paged_pool_layout(
+        out = self._layer_buffers(paged_pool_layout(
             num_blocks, block_size, c.kv_heads, c.dim_per_head,
             dtype or c.compute_dtype, c.kv_cache_quant,
-        )
-        out = {
-            key: [torch.zeros(shp, dtype=dt, device=self.device) for _ in range(c.num_layers)]
-            for key, (shp, dt) in layout.items()
-        }
+        ))
         out["block_tables"] = torch.zeros((batch_size, max_blocks_per_seq), dtype=torch.int32, device=self.device)
         out["context_lens"] = torch.zeros((batch_size,), dtype=torch.int32, device=self.device)
         return out
@@ -958,6 +1073,8 @@ class TransformerLM(nn.Module):
         returns (logits [B, 1, V], hidden [B, 1, Hid], cache with
         ``context_lens`` replaced by lens + 1). Idle slots (len 0 with a null
         table row) still produce finite output, which the engine discards."""
+        if self.config.stacked:
+            raise NotImplementedError("paged decode: per-layer list layout only")
         B, T = input_ids.shape
         if T != 1:
             raise ValueError("paged_decode is a single-token step")
@@ -977,8 +1094,9 @@ class TransformerLM(nn.Module):
         cache with ``context_lens`` UNCHANGED): the caller decides how far
         the frontier advances (speculative accept count, chunk length). KV
         rows written past the accepted frontier stay invisible to the
-        attention mask and are rewritten before they can become valid. The
-        per-layer list layout only (stacked layouts raise at construction)."""
+        attention mask and are rewritten before they can become valid. In a
+        stacked layout each layer writes its rows into ``pool[l]`` in place,
+        the tables and lens shared by every layer."""
         lens = cache["context_lens"]
         Q = input_ids.shape[1]
         positions = lens[:, None].to(torch.int32) + torch.arange(Q, dtype=torch.int32, device=lens.device)[None, :]
@@ -1003,8 +1121,8 @@ class TransformerLM(nn.Module):
         if input_ids.shape[1] > 1:  # every layer appends to the same rows
             shared["write_rows"] = paged_write_rows(
                 cache["block_tables"], cache["context_lens"], input_ids.shape[1], cache["k"][0].shape[1])
-        for i, layer in enumerate(self.layers):
-            layer_cache = {key: cache[key][i] for key in pool_keys}
-            layer_cache.update(shared)
-            x, _ = layer(x, None, positions, layer_cache, None)
-        return x
+
+        def layer_cache(i):
+            return {**{key: cache[key][i] for key in pool_keys}, **shared}
+
+        return self._run_layers(x, None, positions, layer_cache, None)

@@ -139,7 +139,10 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, context_lens, k_scale,
     Q, H, D]`` (verify) in f32 or bf16 on a CUDA device (bf16: a head dim in
     :data:`PAGED_MMA_HEAD_DIMS`); pools of q's dtype, or int8 with f32
     scales; int32 tables ``[B, MB]`` and lens ``[B]``; everything contiguous
-    on q's device. Raises ``ValueError`` otherwise."""
+    on q's device. A pool may be a view at an offset (one layer's
+    ``pool[l]`` of a stacked ``[L, ...]`` pool): the kernels take its
+    ``data_ptr()``, which must lie on a 16-byte boundary (the kernels copy
+    pool rows and q in 16-byte pieces). Raises ``ValueError`` otherwise."""
     if q.device.type != "cuda":
         raise ValueError(f"paged attention: no kernel for device {q.device}")
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
@@ -157,6 +160,8 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, context_lens, k_scale,
             raise ValueError(f"paged attention: {name} on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"paged attention: {name} must be contiguous")
+        if name in ("q", "k_pool", "v_pool") and x.data_ptr() % 16:
+            raise ValueError(f"paged attention: {name} must start on a 16-byte boundary")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"paged attention: q must be float32 or bfloat16, got {q.dtype}")
     kv_ok = k_pool.dtype == torch.int8 if quant else k_pool.dtype == q.dtype

@@ -268,6 +268,9 @@ class ServingEngine:
         prefix ``close()`` clears): a fleet gives each replica
         ``serving/replica/<i>/``. ``replica_id`` tags typed errors with the
         raising replica (None outside a fleet)."""
+        if trunk.config.stacked:
+            # the paged decode step walks per-layer pools (the JAX engine's rule)
+            raise NotImplementedError("serving engine: per-layer list layout only")
         if trunk.config.pos_embedding == "alibi":
             # the paged kernels take no position-dependent score bias
             raise NotImplementedError("serving engine does not support alibi")
@@ -1088,14 +1091,56 @@ def build_paged_decode_step(device, size, shared):
 def build_spec_verify_step(device, size, shared):
     """``spec_k + 1`` tokens per slot (the pending token and the drafts)
     through the trunk's paged verify, per-position sampling and the
-    on-device accept count: the speculative engine's ``_verify_step``."""
+    on-device accept count: the speculative engine's ``_verify_step``. At
+    ``size="xl"`` the trunk is stacked, which the engine refuses, so the
+    round runs on the trunk as the reference's ``xl`` blueprint does
+    (:func:`_census_xl_verify`)."""
     from trlx_tpu_torch.analysis.census import fixtures
 
+    if size == "xl":
+        return _census_xl_verify(device, shared)
     eng = fixtures.engine(device, size, shared, spec=True)
     eng._push_mirrors()
     toks = _census_tokens(eng, (eng.num_slots, eng.spec_k + 1))
     counts = torch.zeros(eng.num_slots, dtype=torch.int32, device=eng.device)
     return Entry(step=lambda k: eng._verify_step(toks[k], counts))
+
+
+def _census_xl_verify(device, shared):
+    """The reference's ``spec_verify_step`` ``xl`` round on a stacked
+    GPT-2-XL trunk (f32 parameters, bf16 compute, int8 stacked pools):
+    ``trunk.paged_verify`` of the pending token and ``spec_k`` drafts a slot,
+    greedy per-position sampling, the accept count and the frontier's
+    advance. Slots read shared blocks and each writes its own frontier
+    block: every round starts from ``lens`` of 96-103, inside block 6."""
+    from trlx_tpu_torch.analysis.census import fixtures
+    from trlx_tpu_torch.models.presets import PRESETS
+    from trlx_tpu_torch.models.transformer import TransformerLM
+
+    v = fixtures.shapes("xl", "verify")
+    B, K, NB, BS, MB = v["B"], v["spec_k"], v["num_blocks"], v["block_size"], v["max_blocks"]
+    cfg = PRESETS["gpt2"].replace(compute_dtype=torch.bfloat16, param_dtype=torch.float32, kv_cache_quant=True,
+                                  **fixtures.SIZES["xl"]["model"])
+    with torch.device(device):
+        trunk = TransformerLM(cfg).init_params(fixtures.SEED)
+    cache = trunk.init_paged_cache(NB, BS, MB, B)
+    rng = np.random.default_rng(fixtures.SEED)
+    tables = rng.integers(B + 1, NB, size=(B, MB)).astype(np.int32)
+    lens = (6 * BS + rng.integers(0, BS - 2 * K, size=B)).astype(np.int32)
+    tables[:, 6] = np.arange(1, B + 1)  # the frontier blocks: one a slot
+    cache["block_tables"] = torch.from_numpy(tables).to(device)
+    lens0 = torch.from_numpy(lens).to(device)
+    toks = {k: fixtures.tokens(k, (B, K + 1), cfg.vocab_size, device) for k in range(4)}
+
+    @torch.no_grad()
+    def step(k):
+        cache["context_lens"] = lens0.clone()
+        logits, _, _ = trunk.paged_verify(toks[k], cache)
+        y = sample_token(None, logits, do_sample=False)
+        cache["context_lens"] = lens0 + count_accepted_drafts(y, toks[k]) + 1
+
+    shared[("xl_trunk", str(device))] = trunk
+    return Entry(step=step)
 
 
 def _census_wave(eng: "ServingEngine", size: str, k: int):

@@ -47,6 +47,11 @@ backward (:func:`~trlx_tpu_torch.models.transformer.run_block`).
 dtype (:meth:`MeshRLTrainer.generation_model`), cast once per experience
 phase and dropped before every learner step and on restore.
 
+A stacked trunk (``scan_layers``, or ``pipeline_stages > 1`` with no pipe
+axis) loads an HF checkpoint stacked (:meth:`MeshRLTrainer.maybe_stack_loaded`),
+exports it unstacked, and trains every layer: ``num_layers_unfrozen >= 0``
+raises, as the JAX trainer's freezing predicate does.
+
 Config blocks of the JAX package that this port does not run yet raise
 ``NotImplementedError`` naming their slice (:func:`check_port_config`);
 none is silently ignored.
@@ -83,6 +88,7 @@ from trlx_tpu_torch.obs import Observability, batch_token_count
 from trlx_tpu_torch.ops.generation import generate as generate_op
 from trlx_tpu_torch.ops.generation import generate_seq2seq
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
+from trlx_tpu_torch.parallel.pipeline import stack_layer_params
 from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
 from trlx_tpu_torch.resilience import Resilience, chaos_poison_batch, find_latest_committed, host_snapshot
 from trlx_tpu_torch.resilience.checkpoint import (
@@ -237,12 +243,24 @@ class MeshRLTrainer(BaseRLTrainer):
         overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
         overrides.update(peft_overrides(self.config.model.peft_config))
         self.model_config, trunk_state, self.model_type = load_pretrained(self.config.model.model_path, overrides)
+        trunk_state = self.maybe_stack_loaded(trunk_state)
         with torch.device(self.device):
             module = build(self.model_config)
             module.init_params(self.config.train.seed)
         if trunk_state is not None:
             merge_loaded_state(getattr(module, "transformer", module), trunk_state)
+        if self.model_config.stacked and not self.config.model.peft_config:
+            # the JAX trainer raises this from its freezing predicate; here
+            # before a hydra branch is cut from per-layer names
+            self.trainable_path_predicate("transformer.layers_scan")
         return module
+
+    def maybe_stack_loaded(self, trunk_state):
+        """A loaded per-layer trunk ``state_dict`` in the stacked layout when
+        the built model uses it (``scan_layers`` or ``pipeline_stages > 1``)."""
+        if self.model_config.stacked and trunk_state is not None:
+            return stack_layer_params(trunk_state, self.model_config.num_layers)
+        return trunk_state
 
     def load_t5(self, build: Callable[[Any], torch.nn.Module]) -> torch.nn.Module:
         """The seq2seq :meth:`load_trunk`: ``build(config)`` on the device for
@@ -279,6 +297,13 @@ class MeshRLTrainer(BaseRLTrainer):
             return True
         if not path.startswith("transformer."):
             return True  # heads always train
+        if "layers_scan" in path:
+            # stacked blocks have no per-layer paths: partial freezing
+            # cannot be honoured
+            raise ValueError(
+                "num_layers_unfrozen >= 0 cannot be applied to a stacked "
+                "(pipeline_stages > 1) model; set num_layers_unfrozen=-1"
+            )
         if "layers_" in path:
             layer = int(path.split("layers_")[1].split(".")[0])
             return layer >= self.model_config.num_layers - n_unfrozen

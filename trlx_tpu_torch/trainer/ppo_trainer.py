@@ -541,6 +541,8 @@ class PPOTrainer(MeshRLTrainer):
 
         if self.config.model.model_arch_type != "causal":
             return fallback("seq2seq generation is not paged")
+        if self.model_config.stacked:
+            return fallback("stacked/pipelined layouts keep the contiguous cache")
         if self.model_config.peft_type in ("prompt", "prefix"):
             return fallback("prompt/prefix peft puts virtual rows in the cache")
         if self.gen_logits_processor() is not None:

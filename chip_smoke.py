@@ -328,6 +328,25 @@ Phases, each printing one JSON line:
                   state bytes equal to the formula and a checkpoint resumed
                   ``torch.equal``. Launches counted from 0 per full-width
                   leg and summed.
+35. ``scale_out`` — a main path across ranks (:func:`phase_scale_out`): (a)
+                  one rank over NCCL (``TRLX_NUM_PROCESSES=1``,
+                  ``mesh.data=-1``): ``train_parity``'s trainer, its stats
+                  ``==`` the card trainer's in this process, then PPO at
+                  gpt2 full width in f32 compute for 2 steps through
+                  ``trlx_tpu_torch.train`` (and again with half the
+                  minibatch: the reference of the overlapped step, whose
+                  statistics are per rank-microbatch); (b), at the same
+                  time, two processes sharing ``cuda:0`` over gloo:
+                  ``data=2``, ``fsdp=2`` with
+                  ``train.learner_overlap`` and ``model=2``, each the same
+                  PPO run, stats within 1e-3 relative (+1e-6) of (a). Per
+                  rank and run: parameter plus optimizer bytes (at
+                  ``fsdp=2`` <= 0.55 of (a)'s), peak memory, step seconds,
+                  backend, collectives staged through host memory; K1, K2
+                  and K3 launched on every rank, and held against their
+                  plain versions at every shape the ranks gave them (6
+                  heads under ``model=2``, half the rows under ``data`` and
+                  ``fsdp``).
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -353,7 +372,7 @@ PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity"
           "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
           "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory", "stacked",
-          "analysis")
+          "scale_out", "analysis")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -7579,6 +7598,290 @@ def phase_analysis(ctx):
         raise AssertionError(f"analysis phase: {failed}")
 
 
+# ------------------------------------------------------------------ scale-out
+
+#: the scale-out runs' shape: 8 greedy rollouts of 16 tokens after prompts of
+#: 16..32 bytes, 2 steps of 8 rows in 2 microbatches, gpt2 full width in f32
+SO_B, SO_N, SO_MB, SO_STEPS = 8, 16, 4, 2
+#: the per-rank bytes bar at fsdp=2, against one rank's
+SO_FSDP_BYTES = 0.55
+#: the stats (b) is held to, against (a)
+SO_STAT_KEYS = ("losses/", "values/", "old_values/", "returns/", "policy/", "ratio", "padding_percentage")
+
+
+def so_config(ckpt_dir, mesh, minibatch=SO_MB, overlap=False):
+    """The scale-out PPO run: gpt2 at full width, flash attention, f32
+    compute and params, the bytes tokenizer, a full-copy reference,
+    ``SO_B`` greedy rollouts, ``SO_STEPS`` steps on ``mesh``."""
+    return ppo_config(**{
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "mesh.compute_dtype": "float32", "mesh.param_dtype": "float32",
+        "mesh.data": mesh.get("data", 1), "mesh.fsdp": mesh.get("fsdp", 1), "mesh.model": mesh.get("model", 1),
+        "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": 32 + SO_N, "train.batch_size": SO_B, "train.minibatch_size": minibatch,
+        "train.total_steps": SO_STEPS, "train.eval_interval": 100, "train.checkpoint_interval": 100,
+        "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
+        "train.checkpoint_dir": ckpt_dir, "train.seed": SEED, "train.learner_overlap.enabled": overlap,
+        "method.num_rollouts": SO_B, "method.chunk_size": SO_B, "method.ppo_epochs": 1,
+        "method.gen_kwargs": dict(max_new_tokens=SO_N, do_sample=False),
+    })
+
+
+def so_parity_steps(device):
+    """``train_parity``'s trainer on ``device`` from its shared weights (the
+    seeded init x3): one experience phase, 2 steps; the step stats."""
+    import shutil
+
+    cpu = parity_trainer("cpu")
+    state = {k: v * 3 if v.is_floating_point() else v for k, v in cpu.model.state_dict().items()}
+    shutil.rmtree(cpu.config.train.checkpoint_dir, ignore_errors=True)
+    tr = parity_trainer(device, state)
+    tr.prepare_learning()
+    steps = [tr.train_step(batch) for batch in list(tr.create_train_dataloader())[:2]]
+    shutil.rmtree(tr.config.train.checkpoint_dir, ignore_errors=True)
+    return [{k: v for k, v in st.items() if not k.startswith("time/")} for st in steps]
+
+
+def so_run(label, mesh, minibatch=SO_MB, overlap=False):
+    """One scale-out PPO run on this rank through ``trlx_tpu_torch.train``:
+    launch counts reset just before and read just after, each kernel call
+    shape recorded, then every shape held against the plain versions. Its
+    step stats and seconds, parameter plus optimizer bytes, peak memory,
+    backend and staged collectives."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.parallel import collectives as coll
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.optim import state_bytes
+
+    ckpt = tempfile.mkdtemp(prefix=f"chip_smoke_so_{label}_")
+    cfg = so_config(ckpt, mesh, minibatch, overlap)
+    steps, seconds = [], []
+    original = PPOTrainer.train_step
+
+    def timed(self, batch):
+        t0 = time.perf_counter()
+        out = original(self, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        steps.append({k: v for k, v in out.items() if not k.startswith("time/")})
+        return out
+
+    seen = {}
+    PPOTrainer.train_step = timed
+    restore = record_kernel_shapes(seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    coll.reset_counts()
+    _kernels.reset_launches()
+    try:
+        trainer = trlx_tpu_torch.train(config=cfg, reward_fn=byte_share_reward,
+                                       prompts=byte_prompts(SO_B, 16, 32, SEED + 1),
+                                       eval_prompts=byte_prompts(SO_B, 16, 32, SEED + 2))
+    finally:
+        PPOTrainer.train_step = original
+        restore()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = _kernels.launches()
+    staged = coll.staged()
+    out = {
+        "run": label, "rank": trainer.mesh.rank, "mesh": {k: v for k, v in trainer.mesh.shape.items()},
+        "device": str(trainer.device), "backend": dist.get_backend() if dist.is_initialized() else None,
+        "overlap": trainer.overlap, "steps": steps, "step_s": seconds,
+        "param_opt_bytes": sum(p.numel() * p.element_size() for p in trainer.trainable_params)
+        + state_bytes(trainer.optimizer),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+        "staged_collectives": staged["calls"], "staged_bytes": staged["bytes"],
+        "collectives": coll.collective_calls(), "kernel_shapes": kernel_shapes(seen),
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    local = {}
+    try:
+        check_main_path_shapes(local, seen, f"scale_out {label}", ("flash_fwd", "flash_bwd"))
+        out["holds_ok"] = True
+    except AssertionError as e:
+        out["holds_ok"], out["holds_error"] = False, str(e)[:2000]
+    out["max_abs_err"] = local.get("max_abs_err", {})
+    return out
+
+
+def so_rank_main(jobs_path, out_path):
+    """A scale-out rank's body (started by :func:`phase_scale_out`): TF32
+    off, then every job of the list in order, the results as JSON."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from trlx_tpu_torch.parallel.mesh import initialize_distributed, process_index
+
+    initialize_distributed()
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    results = []
+    for job in jobs:
+        if job["kind"] == "parity":
+            results.append({"run": "parity", "steps": so_parity_steps("cuda")})
+        else:
+            results.append(so_run(job["label"], job["mesh"], job.get("minibatch", SO_MB), job.get("overlap", False)))
+    with open(f"{out_path}.{process_index()}.json", "w") as f:
+        json.dump(results, f)
+
+
+class SoRanks:
+    """``n`` rank processes running ``jobs`` (:func:`so_rank_main`) with the
+    ``TRLX_*`` launch contract on 127.0.0.1; :meth:`results` waits for them
+    (their results by rank) and :meth:`stop` ends any still running."""
+
+    def __init__(self, n, jobs, tmp, timeout):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.n, self.tmp, self.deadline = n, tmp, time.perf_counter() + timeout
+        jobs_path, self.out_path = os.path.join(tmp, f"jobs{n}.json"), os.path.join(tmp, f"out{n}")
+        with open(jobs_path, "w") as f:
+            json.dump(jobs, f)
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                f"chip_smoke.so_rank_main({jobs_path!r}, {self.out_path!r})")
+        self.procs = []
+        try:
+            for rank in range(n):
+                env = dict(os.environ, TRLX_NUM_PROCESSES=str(n), TRLX_PROCESS_ID=str(rank),
+                           TRLX_DIST_TIMEOUT_S="300")
+                if n > 1:
+                    env["TRLX_COORDINATOR"] = f"127.0.0.1:{port}"
+                with open(self.log(rank), "w") as log:
+                    self.procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, stdout=log,
+                                                       stderr=subprocess.STDOUT, cwd=ROOT))
+        except BaseException:
+            self.stop()
+            raise
+
+    def log(self, rank):
+        return os.path.join(self.tmp, f"rank{self.n}.{rank}.log")
+
+    def results(self):
+        try:
+            for rank, p in enumerate(self.procs):
+                rc = p.wait(timeout=max(1.0, self.deadline - time.perf_counter()))
+                if rc != 0:
+                    with open(self.log(rank)) as f:
+                        tail = f.read()[-4000:]
+                    raise AssertionError(f"scale_out: rank {rank} of {self.n} exited {rc}:\n{tail}")
+        finally:
+            self.stop()
+        out = []
+        for rank in range(self.n):
+            with open(f"{self.out_path}.{rank}.json") as f:
+                out.append(json.load(f))
+        return out
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def so_close(a, b):
+    """|a - b| <= 1e-3 |b| + 1e-6 over the compared stats of two step lists."""
+    bad = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        for k, v in y.items():
+            if k.startswith(SO_STAT_KEYS) and not abs(x[k] - v) <= 1e-3 * abs(v) + 1e-6:
+                bad.append((i + 1, k, x[k], v))
+    return len(a) == len(b) == SO_STEPS and not bad, bad
+
+
+def phase_scale_out(ctx):
+    """(a) one rank over NCCL and, at the same time, (b) two ranks sharing
+    the card over gloo (``data=2``, ``fsdp=2`` + ``train.learner_overlap``,
+    ``model=2``); the module docstring's entry 35 has the checks. The
+    kernels are built here first, so no two ranks build them at once."""
+    import shutil
+    import tempfile
+
+    from trlx_tpu_torch.ops import _kernels
+
+    _kernels.build()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_out_")
+    t0 = time.perf_counter()
+    groups = []
+    try:
+        card = so_parity_steps("cuda")
+        # (a) and (b) share the card at the same time: their step seconds
+        # include each other's load
+        groups.append(SoRanks(1, [{"kind": "parity"},
+                                  {"kind": "ppo", "label": "one_rank", "mesh": {"data": -1}},
+                                  {"kind": "ppo", "label": "one_rank_half_mb", "mesh": {"data": -1},
+                                   "minibatch": SO_MB // 2}], tmp, timeout=400))
+        groups.append(SoRanks(2, [{"kind": "ppo", "label": "data2", "mesh": {"data": 2}},
+                                  {"kind": "ppo", "label": "fsdp2_overlap", "mesh": {"data": 1, "fsdp": 2},
+                                   "overlap": True},
+                                  {"kind": "ppo", "label": "model2", "mesh": {"data": 1, "model": 2}}],
+                          tmp, timeout=600))
+        (one,) = groups[0].results()
+        t_a = time.perf_counter() - t0
+        two = groups[1].results()
+    finally:
+        for g in groups:
+            g.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    parity, a, a_half = one
+    runs = {"data2": a, "fsdp2_overlap": a_half, "model2": a}
+    checks = {
+        "(a) NCCL on one rank": a["backend"] == "nccl",
+        "(a) stats == train_parity's card trainer": parity["steps"] == card,
+    }
+    launches = {k: 0 for k in a["launches"]}
+    errs = ctx.setdefault("max_abs_err", {})
+    for r in [a, a_half] + [x for rank in two for x in rank]:
+        emit({"phase": "scale_out", "card": ctx.get("smi"), **{k: v for k, v in r.items() if k != "steps"},
+              "losses": [{k: v for k, v in st.items() if k.startswith("losses/")} for st in r["steps"]]})
+        for k, v in r["launches"].items():
+            launches[k] += v
+        for k, v in r["max_abs_err"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        checks[f"{r['run']} rank {r['rank']}: K1, K2 and K3 launched"] = all(
+            r["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+        checks[f"{r['run']} rank {r['rank']}: kernels hold at its shapes"] = r["holds_ok"]
+    for i, label in enumerate(("data2", "fsdp2_overlap", "model2")):
+        r0, r1 = two[0][i], two[1][i]
+        ok, bad = so_close(r0["steps"], runs[label]["steps"])
+        checks[f"(b) {label}: gloo on the shared card"] = r0["backend"] == r1["backend"] == "gloo" and (
+            r0["device"] == r1["device"] == "cuda:0")
+        checks[f"(b) {label}: both ranks report the same stats"] = r0["steps"] == r1["steps"]
+        checks[f"(b) {label}: within 1e-3 of (a)"] = ok
+        if bad:
+            emit({"phase": "scale_out", "run": label, "stats_off": bad[:20]})
+        flash = [sh for sh in r0["kernel_shapes"] if sh["kernel"] in ("flash_fwd", "flash_bwd")]
+        if label == "model2":
+            checks["(b) model2: 6 of gpt2's 12 heads per rank"] = bool(flash) and all(sh["q"][1] == 6 for sh in flash)
+        else:
+            checks[f"(b) {label}: half a microbatch's rows per rank"] = {
+                sh["q"][0] for sh in flash if sh["kernel"] == "flash_bwd"} == {SO_MB // 2}
+    fsdp = two[0][1]
+    ratio = fsdp["param_opt_bytes"] / a["param_opt_bytes"]
+    checks["(b) fsdp2: overlapped step"] = fsdp["overlap"] is True and two[1][1]["overlap"] is True
+    checks[f"(b) fsdp2: parameter + optimizer bytes <= {SO_FSDP_BYTES} x one rank's"] = all(
+        two[r][1]["param_opt_bytes"] <= SO_FSDP_BYTES * a["param_opt_bytes"] for r in (0, 1))
+    ctx["scale_out_launches"] = launches
+    emit({"phase": "scale_out", "card": ctx.get("smi"), "one_rank_s": t_a, "seconds": time.perf_counter() - t0,
+          "fsdp2_bytes_ratio": ratio, "launches": launches, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"scale_out phase: {failed}")
+
+
 def record_kernel_shapes(seen, dead_rows=None):
     """Wrap the CUDA entry points of K1 (``attention._flash_cuda``) and K2/K3
     (``_flash_bwd_cuda``) and the wrappers of K4 and K5 so that every
@@ -7761,7 +8064,8 @@ def kernel_table(ctx):
              "production_serving": ctx["production_serving_launches"],
              "serving_fleet": ctx["serving_fleet_launches"],
              "families_seq2seq": ctx["families_seq2seq_launches"],
-             "peft_memory": ctx["peft_memory_launches"], "stacked": ctx["stacked_launches"]}
+             "peft_memory": ctx["peft_memory_launches"], "stacked": ctx["stacked_launches"],
+             "scale_out": ctx["scale_out_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -7811,7 +8115,8 @@ def main(argv=None) -> int:
                "randomwalks_async": phase_randomwalks_async, "resilience": phase_resilience,
                "observability": phase_observability, "production_serving": phase_production_serving,
                "serving_fleet": phase_serving_fleet, "families_seq2seq": phase_families_seq2seq,
-               "peft_memory": phase_peft_memory, "stacked": phase_stacked, "analysis": phase_analysis}
+               "peft_memory": phase_peft_memory, "stacked": phase_stacked, "scale_out": phase_scale_out,
+               "analysis": phase_analysis}
     phase_env(ctx)
     try:
         for name in phases:

@@ -159,9 +159,8 @@ def test_default_device_is_the_card(tmp_path):
 
 
 UNPORTED = [
-    ("train.learner_overlap.enabled", True, "scale-out slice"),
-    ("mesh.fsdp", 2, "scale-out slice"),
-    ("mesh.sequence_shard", True, "scale-out slice"),
+    ("mesh.pipe", 2, "scale-out slice 2"),
+    ("mesh.sequence_shard", True, "scale-out slice 2"),
     ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
 ]
 
@@ -196,6 +195,7 @@ PORTED = [
     ("model.peft_config", {"r": 4}),
     ("model.offload_ref", True),
     ("optimizer.name", "adamw_8bit_bnb"),
+    ("train.learner_overlap.enabled", True),
 ]
 
 

@@ -36,6 +36,7 @@ from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoin
 from trlx_tpu_torch.data.method_configs import register_method
 from trlx_tpu_torch.methods.ppo import PPOConfig, gae_advantages_and_returns
 from trlx_tpu_torch.rollout.staleness import staleness_importance_weights
+from trlx_tpu_torch.parallel.collectives import batch_max, batch_mean, batch_sum
 from trlx_tpu_torch.utils.modeling import masked_mean
 
 #: guard for the group-std division — centered residuals of a constant
@@ -136,12 +137,12 @@ class GRPOConfig(PPOConfig):
         ``policy_delta`` = mean |ratio - 1|."""
         f32 = torch.float32
         mask = mask.to(logprobs.dtype)
-        n = torch.clamp(mask.sum(dtype=f32), min=1.0)
+        n = torch.clamp(batch_sum(mask.sum(dtype=f32)), min=1.0)
 
         log_ratio = (logprobs - old_logprobs) * mask
         ratio = torch.exp(log_ratio)
         # k3 estimator of approximate KL: mean(exp(-lr) - 1 + lr)
-        approx_kl = torch.sum((torch.exp(-log_ratio) - 1.0 + log_ratio) * mask, dtype=f32) / n
+        approx_kl = batch_sum(torch.sum((torch.exp(-log_ratio) - 1.0 + log_ratio) * mask, dtype=f32)) / n
 
         is_weights = None
         if staleness is not None and is_ratio_clip is not None:
@@ -150,14 +151,14 @@ class GRPOConfig(PPOConfig):
 
         pg_loss1 = -advantages * ratio
         pg_loss2 = -advantages * torch.clamp(ratio, 1.0 - self.cliprange, 1.0 + self.cliprange)
-        pg_loss = torch.sum(torch.maximum(pg_loss1, pg_loss2) * mask, dtype=f32) / n
-        pg_clipfrac = torch.sum((pg_loss2 > pg_loss1).to(mask.dtype) * mask, dtype=f32) / n
+        pg_loss = batch_sum(torch.sum(torch.maximum(pg_loss1, pg_loss2) * mask, dtype=f32)) / n
+        pg_clipfrac = batch_sum(torch.sum((pg_loss2 > pg_loss1).to(mask.dtype) * mask, dtype=f32)) / n
 
         loss = pg_loss
 
         adv_mean = masked_mean(advantages, mask)
         adv_std = torch.sqrt(masked_mean((advantages - adv_mean) ** 2, mask))
-        policy_delta = torch.sum(torch.abs(ratio - 1.0) * mask, dtype=f32) / n
+        policy_delta = batch_sum(torch.sum(torch.abs(ratio - 1.0) * mask, dtype=f32)) / n
 
         stats = dict(
             losses=dict(
@@ -165,14 +166,14 @@ class GRPOConfig(PPOConfig):
             ),
             policy=dict(approx_kl=approx_kl, clipfrac=pg_clipfrac),
             group=dict(adv_mean=adv_mean, adv_std=adv_std, policy_delta=policy_delta),
-            ratio=torch.sum(ratio * mask, dtype=f32) / n,
+            ratio=batch_sum(torch.sum(ratio * mask, dtype=f32)) / n,
             padding_percentage=1.0 - n / mask.numel(),
         )
         if is_weights is not None:
             stats["staleness"] = dict(
-                mean=torch.mean(staleness.to(f32)),
-                max=torch.max(staleness),
-                is_weight_mean=torch.sum(is_weights * mask, dtype=f32) / n,
+                mean=batch_mean(staleness.to(f32)),
+                max=batch_max(torch.max(staleness)),
+                is_weight_mean=batch_sum(torch.sum(is_weights * mask, dtype=f32)) / n,
             )
         return loss, stats
 
@@ -200,6 +201,8 @@ class GRPOConfig(PPOConfig):
     readback={
         # the step's stats, one transfer (one site per health-guard branch)
         "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
+        # the overlapped FSDP step's stats, one transfer
+        "trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step.step": 1,
     },
 )
 def build_grpo_train_step(device, size, shared):

@@ -14,6 +14,7 @@ import torch
 
 from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
+from trlx_tpu_torch.parallel.collectives import batch_sum
 from trlx_tpu_torch.utils.modeling import masked_mean
 
 
@@ -68,7 +69,7 @@ class ILQLConfig(MethodConfig):
         logits, (qs, target_qs, vs) = outputs
         f32 = torch.float32
         terminal_mask = batch.dones[:, :-1].to(vs.dtype)
-        n_nonterminal = torch.clamp(terminal_mask.sum(dtype=f32), min=1.0)
+        n_nonterminal = torch.clamp(batch_sum(terminal_mask.sum(dtype=f32)), min=1.0)
 
         # the token taken at each action position: causal, input_ids shifted
         # left and gathered at the actions; seq2seq, the decoder tokens after
@@ -85,20 +86,20 @@ class ILQLConfig(MethodConfig):
         Vnext = vs[:, 1:, 0] * batch.dones[:, 1:].to(vs.dtype)
         Q_ = batch.rewards + self.gamma * Vnext.detach()
 
-        loss_q = sum(torch.sum(((Qi - Q_) * terminal_mask) ** 2, dtype=f32) / n_nonterminal for Qi in Q)
+        loss_q = sum(batch_sum(torch.sum(((Qi - Q_) * terminal_mask) ** 2, dtype=f32)) / n_nonterminal for Qi in Q)
 
         expectile_w = torch.where(targetQ >= V, self.tau, 1.0 - self.tau).to(vs.dtype)
-        loss_v = torch.sum(expectile_w * (targetQ - V) ** 2 * terminal_mask, dtype=f32) / n_nonterminal
+        loss_v = batch_sum(torch.sum(expectile_w * (targetQ - V) ** 2 * terminal_mask, dtype=f32)) / n_nonterminal
 
         def cql_loss(q):
             nll = -_take(torch.log_softmax(q, dim=-1), actions)
-            return torch.sum(nll * terminal_mask, dtype=f32) / n_nonterminal
+            return batch_sum(torch.sum(nll * terminal_mask, dtype=f32)) / n_nonterminal
 
         loss_cql = sum(cql_loss(q) for q in qs)
 
         ce = -_take(torch.log_softmax(logits, dim=-1), actions)
         awac_weight = torch.exp(self.beta * (targetQ - V)).detach()
-        loss_awac = torch.sum(ce * awac_weight * terminal_mask, dtype=f32) / n_nonterminal
+        loss_awac = batch_sum(torch.sum(ce * awac_weight * terminal_mask, dtype=f32)) / n_nonterminal
 
         loss = loss_q + loss_v + self.cql_scale * loss_cql + self.awac_scale * loss_awac
 
@@ -130,6 +131,8 @@ class ILQLConfig(MethodConfig):
     readback={
         # the step's stats, one transfer (one site per health-guard branch)
         "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
+        # the overlapped FSDP step's stats, one transfer
+        "trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step.step": 1,
     },
 )
 def build_ilql_train_step(device, size, shared):

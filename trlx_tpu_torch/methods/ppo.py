@@ -11,6 +11,7 @@ import torch
 
 from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
+from trlx_tpu_torch.parallel.collectives import batch_count, batch_max, batch_mean, batch_min, batch_sum
 from trlx_tpu_torch.rollout.staleness import staleness_importance_weights
 from trlx_tpu_torch.utils.modeling import masked_mean, whiten
 
@@ -144,20 +145,20 @@ class PPOConfig(MethodConfig):
         path's bit for bit."""
         f32 = torch.float32
         mask = mask.to(values.dtype)
-        n = torch.clamp(mask.sum(dtype=f32), min=1.0)
+        n = torch.clamp(batch_sum(mask.sum(dtype=f32)), min=1.0)
 
         values_clipped = torch.clamp(
             values, old_values - self.cliprange_value, old_values + self.cliprange_value
         )
         vf_loss1 = (values - returns) ** 2
         vf_loss2 = (values_clipped - returns) ** 2
-        vf_loss = 0.5 * torch.sum(torch.maximum(vf_loss1, vf_loss2) * mask, dtype=f32) / n
-        vf_clipfrac = torch.sum((vf_loss2 > vf_loss1).to(mask.dtype) * mask, dtype=f32) / n
+        vf_loss = 0.5 * batch_sum(torch.sum(torch.maximum(vf_loss1, vf_loss2) * mask, dtype=f32)) / n
+        vf_clipfrac = batch_sum(torch.sum((vf_loss2 > vf_loss1).to(mask.dtype) * mask, dtype=f32)) / n
 
         log_ratio = (logprobs - old_logprobs) * mask
         ratio = torch.exp(log_ratio)
         # k3 estimator of approximate KL: mean(exp(-lr) - 1 + lr)
-        approx_kl = torch.sum((torch.exp(-log_ratio) - 1.0 + log_ratio) * mask, dtype=f32) / n
+        approx_kl = batch_sum(torch.sum((torch.exp(-log_ratio) - 1.0 + log_ratio) * mask, dtype=f32)) / n
 
         is_weights = None
         if staleness is not None and is_ratio_clip is not None:
@@ -169,8 +170,8 @@ class PPOConfig(MethodConfig):
 
         pg_loss1 = -advantages * ratio
         pg_loss2 = -advantages * torch.clamp(ratio, 1.0 - self.cliprange, 1.0 + self.cliprange)
-        pg_loss = torch.sum(torch.maximum(pg_loss1, pg_loss2) * mask, dtype=f32) / n
-        pg_clipfrac = torch.sum((pg_loss2 > pg_loss1).to(mask.dtype) * mask, dtype=f32) / n
+        pg_loss = batch_sum(torch.sum(torch.maximum(pg_loss1, pg_loss2) * mask, dtype=f32)) / n
+        pg_clipfrac = batch_sum(torch.sum((pg_loss2 > pg_loss1).to(mask.dtype) * mask, dtype=f32)) / n
 
         loss = pg_loss + self.vf_coef * vf_loss
 
@@ -183,11 +184,11 @@ class PPOConfig(MethodConfig):
             values=dict(
                 get_tensor_stats=dict(
                     mean=values_mean,
-                    min=torch.min(torch.where(mask > 0, values, inf)),
-                    max=torch.max(torch.where(mask > 0, values, -inf)),
+                    min=batch_min(torch.min(torch.where(mask > 0, values, inf))),
+                    max=batch_max(torch.max(torch.where(mask > 0, values, -inf))),
                     std=torch.sqrt(masked_mean((values - values_mean) ** 2, mask)),
                 ),
-                values_error=torch.sum(((values - returns) * mask) ** 2, dtype=f32) / n,
+                values_error=batch_sum(torch.sum(((values - returns) * mask) ** 2, dtype=f32)) / n,
                 clipfrac=vf_clipfrac,
             ),
             old_values=dict(mean=masked_mean(old_values, mask)),
@@ -196,14 +197,14 @@ class PPOConfig(MethodConfig):
                 std=torch.sqrt(masked_mean((returns - returns_mean) ** 2, mask)),
             ),
             policy=dict(approx_kl=approx_kl, clipfrac=pg_clipfrac),
-            ratio=torch.sum(ratio * mask, dtype=f32) / n,
-            padding_percentage=1.0 - n / mask.numel(),
+            ratio=batch_sum(torch.sum(ratio * mask, dtype=f32)) / n,
+            padding_percentage=1.0 - n / batch_count(mask.numel()),
         )
         if is_weights is not None:
             stats["staleness"] = dict(
-                mean=torch.mean(staleness.to(f32)),
-                max=torch.max(staleness),
-                is_weight_mean=torch.sum(is_weights * mask, dtype=f32) / n,
+                mean=batch_mean(staleness.to(f32)),
+                max=batch_max(torch.max(staleness)),
+                is_weight_mean=batch_sum(torch.sum(is_weights * mask, dtype=f32)) / n,
             )
         return loss, stats
 
@@ -232,6 +233,8 @@ class PPOConfig(MethodConfig):
     readback={
         # the step's stats reach the host in one transfer (one site per health-guard branch)
         "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
+        # the overlapped FSDP step's stats, one transfer
+        "trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step.step": 1,
     },
 )
 def build_ppo_train_step(device, size, shared):

@@ -8,6 +8,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
+from trlx_tpu_torch.parallel.collectives import batch_sum
 
 
 @register_method
@@ -27,6 +28,6 @@ class SFTConfig(MethodConfig):
         shift_mask = loss_mask[:, 1:].to(shift_logits.dtype)
         logprobs = torch.log_softmax(shift_logits, dim=-1)
         nll = -torch.gather(logprobs, -1, shift_labels[..., None].long())[..., 0]
-        n = torch.clamp(shift_mask.sum(), min=1.0)
-        loss = torch.sum(nll * shift_mask) / n
+        n = torch.clamp(batch_sum(shift_mask.sum()), min=1.0)
+        loss = batch_sum(torch.sum(nll * shift_mask)) / n
         return loss, dict(losses=dict(loss=loss))

@@ -106,3 +106,42 @@ def load_jax_params(model: TransformerLM, params: Mapping[str, Any]) -> Transfor
     """Copy a JAX parameter tree into ``model`` (on whatever device it lives)."""
     model.load_state_dict(params_from_jax(params, model.config))
     return model
+
+
+def shard_state(full: Mapping[str, torch.Tensor], mesh, rank: int = None, rules=None) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s blocks (default the mesh's own rank) of a whole
+    ``state_dict`` by the JAX package's partition rules: each tensor cut on
+    the dims its spec shards, at the rank's mesh coordinates (the block the
+    JAX array holds on the device with those coordinates)."""
+    from trlx_tpu_torch.parallel.mesh import MESH_AXES, Mesh
+    from trlx_tpu_torch.parallel.sharding import make_param_specs, shard_tensor
+
+    at = Mesh([mesh.shape[a] for a in MESH_AXES], mesh.rank if rank is None else rank)
+    specs = make_param_specs(full, mesh, rules)
+    return {name: shard_tensor(t, specs[name], at).clone() for name, t in full.items()}
+
+
+def gather_state(shards, mesh, shapes: Mapping[str, Any], rules=None) -> Dict[str, torch.Tensor]:
+    """The whole ``state_dict`` back from every rank's blocks (``shards[r]``
+    is :func:`shard_state` at rank ``r``; ``shapes`` the whole shapes, which
+    decide the specs): blocks concatenated along each sharded dim in mesh
+    order."""
+    from trlx_tpu_torch.parallel.mesh import MESH_AXES, Mesh
+    from trlx_tpu_torch.parallel.sharding import _entry_axes, make_param_specs
+
+    sizes = [mesh.shape[a] for a in MESH_AXES]
+    coords = [tuple(Mesh(sizes, r).coords[a] for a in MESH_AXES) for r in range(len(shards))]
+    specs = make_param_specs({name: tuple(shape) for name, shape in shapes.items()}, mesh, rules)
+    out = {}
+    for name, spec in specs.items():
+        blocks = {c: s[name] for c, s in zip(coords, shards)}
+        dims = [(i, a) for i, entry in enumerate(spec) for a in _entry_axes(entry)]
+
+        def assemble(k, fixed):
+            if k == len(dims):
+                return blocks[tuple(fixed.get(a, 0) for a in MESH_AXES)]
+            i, a = dims[k]
+            return torch.cat([assemble(k + 1, {**fixed, a: c}) for c in range(mesh.shape[a])], dim=i)
+
+        out[name] = assemble(0, {})
+    return out

@@ -75,10 +75,17 @@ cache is one ``[L, B, Hkv, S, D]`` tensor per leaf and the paged pools one
 place, a view, so a stacked step launches what a listed one does. As in the
 JAX package, ``paged_decode``, hydra branch capture and ``forward_from``
 refuse a stacked model; the GPipe schedule over a pipe axis is the
-scale-out slice's (:mod:`trlx_tpu_torch.parallel.pipeline`).
+scale-out slice 2 (:mod:`trlx_tpu_torch.parallel.pipeline`).
 
-Not ported yet (each raises ``NotImplementedError``): ring attention and
-sequence sharding.
+Tensor parallelism over a mesh's ``model`` axis (:func:`set_tensor_parallel`,
+applied by :func:`trlx_tpu_torch.parallel.sharding.apply_tensor_parallel`):
+``Dense`` layers run column- or row-parallel by the dim the partition rules
+shard, attention runs this rank's heads (through the flash kernels, on plain
+local tensors) and reads the key / value heads they need, and a vocab-split
+embedding looks up and projects its rows, the logits gathered whole.
+
+Not ported yet (each raises ``NotImplementedError`` naming scale-out slice
+2): ring attention and sequence sharding.
 """
 
 import contextlib
@@ -94,6 +101,12 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from trlx_tpu_torch.ops.attention import flash_attention
+from trlx_tpu_torch.parallel.collectives import (
+    copy_to_group,
+    gather_from_group,
+    gather_reduce_scatter,
+    reduce_from_group,
+)
 from trlx_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_pool_layout,
@@ -209,8 +222,8 @@ def check_supported(c: TransformerConfig) -> None:
                 "when mesh.pipe > 1)"
             )
     unsupported = [
-        (c.attention_impl == "ring", "attention_impl='ring': scale-out slice"),
-        (c.sequence_sharding, "sequence_sharding: scale-out slice"),
+        (c.attention_impl == "ring", "attention_impl='ring': scale-out slice 2"),
+        (c.sequence_sharding, "sequence_sharding: scale-out slice 2"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -452,7 +465,16 @@ class Dense(nn.Module):
     computed as ``x @ kernel`` in ``dtype`` with the parameters cast per call
     (a no-op for parameters already in ``dtype``). With ``lora_r > 0`` the
     JAX ``LoraDense``: ``lora_a [in, r]`` and ``lora_b [r, out]`` add ``(x A)
-    B * lora_alpha / lora_r``, unless adapters are disabled."""
+    B * lora_alpha / lora_r``, unless adapters are disabled.
+
+    Under tensor parallelism (:func:`set_tensor_parallel`) ``tp`` is
+    ``"column"`` (this rank's output features; the input enters through
+    ``copy_to_group``), ``"row"`` (this rank's input features; the partial
+    product is all-reduced before the bias) or ``"column_gather"`` (a
+    column-parallel head whose output slices are gathered whole)."""
+
+    tp: Optional[str] = None
+    tp_group = None
 
     def __init__(self, in_features: int, features: int, use_bias: bool, dtype, param_dtype, init_std: float,
                  lora_r: int = 0, lora_alpha: float = 16.0):
@@ -468,11 +490,17 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.tp is not None and self.tp != "row":
+            x = copy_to_group(x, self.tp_group)
         y = x @ self.kernel.to(self.dtype)
+        if self.tp == "row":
+            y = reduce_from_group(y, self.tp_group)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.lora_r > 0 and adapters_enabled():
             y = y + (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * (self.lora_alpha / self.lora_r)
+        if self.tp == "column_gather":
+            y = gather_from_group(y, self.tp_group, -1)
         return y
 
 
@@ -524,7 +552,12 @@ class Norm(nn.Module):
 
 class Embed(nn.Module):
     """flax ``Embed`` layout: ``embedding [num, features]``, looked up then
-    cast to ``dtype``."""
+    cast to ``dtype``. Vocab-parallel (``tp_group`` set): this rank holds
+    rows ``[tp_vocab_start, tp_vocab_start + rows)``, looks up the ids that
+    fall there (zeros elsewhere) and the group sums the lookups."""
+
+    tp_group = None
+    tp_vocab_start = 0
 
     def __init__(self, num: int, features: int, dtype, param_dtype, init_std: float = 0.02):
         super().__init__()
@@ -533,10 +566,33 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num, features, dtype=param_dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        if self.tp_group is None:
+            return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        local = ids.long() - self.tp_vocab_start
+        inside = (local >= 0) & (local < self.embedding.shape[0])
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), self.embedding)
+        return reduce_from_group(rows * inside[..., None].to(rows.dtype), self.tp_group).to(self.dtype)
+
+    def attend(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """Logits of the tied head, ``x @ embedding.T`` (gathered whole over
+        the vocab-parallel group)."""
+        if self.tp_group is None:
+            return x @ self.embedding.to(dtype).T
+        logits = copy_to_group(x, self.tp_group) @ self.embedding.to(dtype).T
+        return gather_from_group(logits, self.tp_group, -1)
 
 
 class Attention(nn.Module):
+    """Under tensor parallelism ``config`` holds this rank's head counts;
+    ``tp_heads`` is its slice of the global heads (for a per-head score
+    bias), and ``tp_kv = (mode, index, group)`` rebuilds the key / value
+    heads its query heads read when they are not its own slice: ``mode``
+    ``"gather"`` (model-sharded k/v features gathered whole) or ``"copy"``
+    (replicated k/v), then ``index`` picks the heads."""
+
+    tp_heads: Optional[slice] = None
+    tp_kv = None
+
     def __init__(self, config: TransformerConfig):
         super().__init__()
         c = self.config = config
@@ -575,8 +631,13 @@ class Attention(nn.Module):
         scale = 1.0 / math.sqrt(c.dim_per_head)
         n_prefix = _virtual_tokens(c, "prefix")
         q = self.q_proj(x).reshape(B, T, c.num_heads, c.dim_per_head)
-        k = self.k_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
-        v = self.v_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
+        if self.tp_kv is None:
+            k = self.k_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
+            v = self.v_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
+        else:
+            k, v = (self._tp_kv_heads(proj(x)) for proj in (self.k_proj, self.v_proj))
+        if self.tp_heads is not None and mask_bias is not None and mask_bias.shape[1] > 1:
+            mask_bias = mask_bias[:, self.tp_heads]
         if c.pos_embedding == "rotary":
             cos, sin = make_rotary(c, positions)
             q = apply_rotary(q, cos, sin, c.rope_style)
@@ -681,6 +742,16 @@ class Attention(nn.Module):
         return self.o_proj(out), cache
 
 
+    def _tp_kv_heads(self, kv: torch.Tensor) -> torch.Tensor:
+        """[B, T, features] of a k or v projection -> the [B, T, heads, D]
+        this rank's query heads read."""
+        mode, index, group = self.tp_kv
+        B, T, _ = kv.shape
+        kv = gather_reduce_scatter(kv, group, -1) if mode == "gather" else copy_to_group(kv, group)
+        kv = kv.reshape(B, T, -1, self.config.dim_per_head)
+        return kv if index is None else kv.index_select(2, index.to(kv.device))
+
+
 class MLP(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -781,6 +852,76 @@ def forward_from(model: nn.Module, hidden, attention_mask, positions, start_laye
     return logits
 
 
+def _model_dim(spec) -> int:
+    for i, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+            return i
+    return -1
+
+
+def set_tensor_parallel(module: nn.Module, specs: Mapping[str, Any], group) -> None:
+    """Switch every layer of ``module`` to its tensor-parallel forward over
+    ``group`` (the ``model`` axis) from the parameter ``specs`` (full
+    shapes): Dense layers column / row parallel by the dim their kernel
+    shards over ``model``, attention to this rank's heads, a vocab-sharded
+    embedding to the vocab-parallel lookup and tied head. The caller then
+    slices the parameters (:func:`trlx_tpu_torch.parallel.sharding.apply_tensor_parallel`).
+    Raises for a layout the port does not split: query heads that do not
+    divide the axis, a stacked trunk."""
+    m, r = group.size, group.index
+    names = dict(module.named_modules())
+    for pre, sub in names.items():
+        key = f"{pre}." if pre else ""
+        if isinstance(sub, StackedBlock):
+            raise NotImplementedError("tensor parallelism over a stacked trunk: scale-out slice 2")
+        if isinstance(sub, Dense):
+            dim = _model_dim(specs[key + "kernel"])
+            if dim >= 0:
+                sub.tp, sub.tp_group = ("row" if dim == 0 else "column"), group
+                if pre.endswith("lm_head"):
+                    sub.tp = "column_gather"
+        elif isinstance(sub, Embed) and _model_dim(specs[key + "embedding"]) == 0:
+            sub.tp_group = group
+            sub.tp_vocab_start = r * (sub.embedding.shape[0] // m)
+        elif isinstance(sub, Attention):
+            _tp_attention(sub, specs, key, group)
+    kv = {a.config.kv_heads for a in module.modules() if isinstance(a, Attention)}
+    for sub in module.modules():
+        if isinstance(sub, TransformerLM) and kv:
+            sub.tp_kv_heads = max(kv)
+
+
+def _tp_attention(attn: Attention, specs, key: str, group) -> None:
+    c = attn.config
+    m, r = group.size, group.index
+    H, Hkv, D = c.num_heads, c.kv_heads, c.dim_per_head
+    q_sharded = _model_dim(specs[key + "q_proj.kernel"]) == 1
+    kv_sharded = _model_dim(specs[key + "k_proj.kernel"]) == 1
+    if not q_sharded:
+        # the query heads stay whole on every rank: so must the keys
+        if kv_sharded:
+            attn.tp_kv = ("gather", None, group)
+        return
+    if H % m:
+        raise NotImplementedError(f"{H} query heads over model={m}: heads must divide the model axis")
+    Hl = H // m
+    attn.tp_heads = slice(r * Hl, (r + 1) * Hl)
+    g = H // Hkv
+    if kv_sharded and Hkv % m == 0:
+        kv_local = Hkv // m  # aligned: this rank's k/v heads are its query heads' groups
+    else:
+        heads = list(range(r * Hl, (r + 1) * Hl))
+        if Hl % g == 0:
+            index = sorted({h // g for h in heads})
+        elif g % Hl == 0:
+            index = [heads[0] // g]
+        else:
+            index = [h // g for h in heads]  # one k/v row per query head
+        attn.tp_kv = ("gather" if kv_sharded else "copy", torch.tensor(index, dtype=torch.long), group)
+        kv_local = len(index)
+    attn.config = c.replace(num_heads=Hl, num_kv_heads=kv_local, head_dim=D)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random weights for every submodule of ``model`` from ``seed`` (a
@@ -815,7 +956,11 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
 
 class TransformerLM(nn.Module):
     """Decoder-only LM. ``forward`` returns (logits, final_hidden,
-    branch activation, cache) as the JAX module's ``__call__`` does."""
+    branch activation, cache) as the JAX module's ``__call__`` does.
+    ``tp_kv_heads`` is the rank's key / value head count under tensor
+    parallelism (its cache's width)."""
+
+    tp_kv_heads: Optional[int] = None
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -891,7 +1036,7 @@ class TransformerLM(nn.Module):
         if c.final_norm:
             x = self.ln_f(x)
         if c.tie_word_embeddings:
-            logits = x @ self.embed_tokens.embedding.to(c.compute_dtype).T
+            logits = self.embed_tokens.attend(x, c.compute_dtype)
         else:
             logits = self.lm_head(x)
         return logits, x
@@ -1042,7 +1187,7 @@ class TransformerLM(nn.Module):
         c = self.config
         if c.peft_type == "prompt":
             max_length += c.num_virtual_tokens
-        shape = (batch_size, c.kv_heads, max_length, c.dim_per_head)
+        shape = (batch_size, self.tp_kv_heads or c.kv_heads, max_length, c.dim_per_head)
         out = self._layer_buffers(kv_cache_layout(shape, dtype or c.compute_dtype, c.kv_cache_quant))
         out["index"] = 0
         return out

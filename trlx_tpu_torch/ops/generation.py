@@ -27,6 +27,7 @@ import torch
 from trlx_tpu_torch.analysis.census.entrypoints import Entry, register_entrypoint
 from trlx_tpu_torch.native import pad_collate_i32
 from trlx_tpu_torch.ops.sampling import sample_token
+from trlx_tpu_torch.parallel.collectives import all_reduce
 
 # step_fn(ids[B,T], mask[B,S], positions[B,T], cache) -> (logits[B,T',V],
 # hidden[B,T',H], cache); T' may be 1 (the last position only)
@@ -67,6 +68,8 @@ def generate(
     top_k_impl: str = "approx",
     min_new_tokens: int = 0,
     logits_processor: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    rows: Optional[Tuple[int, int]] = None,
+    sync_group=None,
 ) -> Dict[str, torch.Tensor]:
     """Generate continuations for left-padded prompts.
 
@@ -74,7 +77,13 @@ def generate(
     after eos) and ``response_mask`` [B, N] (1 on generated tokens up to and
     including eos), as the JAX function. ``logits_processor(hidden [B, H],
     logits [B, V], prev_token [B])`` reshapes each step's logits before
-    sampling (ILQL's advantage shaping)."""
+    sampling (ILQL's advantage shaping).
+
+    On a mesh: ``rows = (offset, total)`` places these rows in the global
+    batch, so the draws are the global batch's (the same tokens on any rank
+    count), and ``sync_group`` makes the early exit the whole group's (every
+    rank steps until every rank's rows have finished, as the JAX loop stops
+    on the global batch: under fsdp or model each step is a collective)."""
     B, P = input_ids.shape
     N = int(max_new_tokens)
     dev = input_ids.device
@@ -100,8 +109,12 @@ def generate(
     def sample_step(step: int, logits: torch.Tensor, finished: torch.Tensor) -> torch.Tensor:
         if eos_token_id is not None and step < min_new_tokens:
             logits = torch.where((vocab == eos_token_id)[None, :], torch.full_like(logits, -1e9), logits)
-        tok = sample_token(generator, logits, temperature, top_k, top_p, do_sample, top_k_impl)
+        tok = sample_token(generator, logits, temperature, top_k, top_p, do_sample, top_k_impl, rows)
         return torch.where(finished, torch.full_like(tok, pad_token_id), tok)
+
+    def all_finished(finished: torch.Tensor) -> torch.Tensor:
+        done = finished.all()
+        return done if sync_group is None else all_reduce(done.to(torch.int32), sync_group, "min")
 
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     tok = sample_step(0, last_logits, finished)
@@ -111,7 +124,7 @@ def generate(
     full_mask[:, P] = 1
 
     step = 1
-    while step < N and not bool(finished.all()):
+    while step < N and not bool(all_finished(finished)):
         # `tok` sits at sequence slot P+step-1, per-sample position prompt_len+step-1
         pos = (prompt_lens + step - 1)[:, None]
         logits, hidden, cache = step_fn(tok[:, None], full_mask, pos, cache)

@@ -19,6 +19,11 @@ state's ``count``). The formulas are the JAX module's, line for line; torch
 and XLA both round half to even, but their f32 ``log`` / ``exp`` may differ
 by an ulp, so a code can differ by one at a boundary.
 
+On a mesh the optimizer is given each leaf's master: this rank's fsdp
+shard (:class:`~trlx_tpu_torch.parallel.fsdp.ShardedParams`), so the blocks
+tile the local shard and never straddle ranks, as the JAX module's do
+inside the overlapped step's ``shard_map``.
+
 Plain tensor ops on both devices: the JAX module is XLA code, not a Pallas
 kernel. A fused kernel is later speed work.
 """

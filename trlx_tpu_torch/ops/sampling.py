@@ -49,10 +49,21 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(logits < cutoff, torch.full_like(logits, NEG_INF), logits)
 
 
-def _categorical(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+def _categorical(generator: torch.Generator, logits: torch.Tensor, rows=None) -> torch.Tensor:
+    """One draw per row. ``rows = (offset, total)`` marks ``logits`` as rows
+    ``[offset, offset + B)`` of a ``total``-row batch: the draw is made over
+    all ``total`` rows (the others uniform) and this slice kept, so every
+    rank of a mesh consumes the same stream and samples what one rank would
+    for those rows (``multinomial`` draws one exponential per element)."""
     probs = torch.softmax(logits, dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
-    choice = torch.multinomial(flat, 1, generator=generator)[:, 0]
+    if rows is not None:
+        offset, total = rows
+        full = torch.ones((total, flat.shape[-1]), dtype=flat.dtype, device=flat.device)
+        full[offset:offset + flat.shape[0]] = flat
+        choice = torch.multinomial(full, 1, generator=generator)[offset:offset + flat.shape[0], 0]
+    else:
+        choice = torch.multinomial(flat, 1, generator=generator)[:, 0]
     return choice.reshape(probs.shape[:-1])
 
 
@@ -64,13 +75,15 @@ def sample_token(
     top_p: float = 1.0,
     do_sample: bool = True,
     top_k_impl: str = "exact",
+    rows=None,
 ) -> torch.Tensor:
     """Sample (or argmax) next tokens from [..., V] logits -> [...] int32.
 
     With ``0 < top_k < V`` the top-k / top-p / categorical pipeline runs in
     the k-candidate space: select (values, indices), nucleus-mask the sorted
     values, draw over k, gather the token id. ``top_k_impl`` is accepted for
-    the JAX signature; selection is exact either way (module docstring)."""
+    the JAX signature; selection is exact either way (module docstring).
+    ``rows`` places a rank's rows in the global batch (:func:`_categorical`)."""
     if top_k_impl not in ("approx", "exact"):
         raise ValueError(f"unknown top_k_impl {top_k_impl!r}")
     if not do_sample:
@@ -80,9 +93,9 @@ def sample_token(
         vals, idx = torch.topk(logits, top_k, dim=-1)
         if top_p < 1.0:
             vals = torch.where(_nucleus_keep(vals, top_p), vals, torch.full_like(vals, NEG_INF))
-        choice = _categorical(generator, vals)
+        choice = _categorical(generator, vals, rows)
         return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
-    return _categorical(generator, apply_top_p(logits, top_p)).to(torch.int32)
+    return _categorical(generator, apply_top_p(logits, top_p), rows).to(torch.int32)
 
 
 def count_accepted_drafts(sampled: torch.Tensor, proposed: torch.Tensor) -> torch.Tensor:

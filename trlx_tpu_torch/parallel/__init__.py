@@ -1,7 +1,23 @@
-"""Device placement (counterpart of ``trlx_tpu/parallel``): the island carve
-of the Sebulba split. The JAX package's meshes and shardings come with the
-scale-out slice."""
+"""Device placement (counterpart of ``trlx_tpu/parallel``): the mesh over
+``torch.distributed`` ranks (:mod:`~trlx_tpu_torch.parallel.mesh`), the
+partition rules (:mod:`~trlx_tpu_torch.parallel.sharding`), the collectives
+(:mod:`~trlx_tpu_torch.parallel.collectives`), the ZeRO storage and the
+overlapped FSDP step (:mod:`~trlx_tpu_torch.parallel.fsdp`), the stacked
+layouts (:mod:`~trlx_tpu_torch.parallel.pipeline`) and the island carve.
+The ``pipe`` axis and sequence sharding come with scale-out slice 2."""
 
-from trlx_tpu_torch.parallel.mesh import IslandPlacement, carve_islands
+from trlx_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    MESH_AXES,
+    IslandPlacement,
+    Mesh,
+    carve_islands,
+    dp_size,
+    initialize_distributed,
+    make_mesh,
+    mesh_from_config,
+    put_batch,
+)
 
-__all__ = ["IslandPlacement", "carve_islands"]
+__all__ = ["BATCH_AXES", "MESH_AXES", "IslandPlacement", "Mesh", "carve_islands", "dp_size",
+           "initialize_distributed", "make_mesh", "mesh_from_config", "put_batch"]

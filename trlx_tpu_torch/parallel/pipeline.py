@@ -12,7 +12,7 @@ stacked model, and exporting one).
 With no pipe axis ``pipeline_stages > 1`` is simply the stacked layout and
 ``pipeline_microbatches`` is ignored, as in the JAX package. The GPipe
 schedule over a pipe axis (the reference's ``pipeline_apply``, which
-:func:`pick_microbatches` sizes) comes with the scale-out slice.
+:func:`pick_microbatches` sizes) comes with scale-out slice 2.
 """
 
 import re

@@ -52,6 +52,24 @@ axis) loads an HF checkpoint stacked (:meth:`MeshRLTrainer.maybe_stack_loaded`),
 exports it unstacked, and trains every layer: ``num_layers_unfrozen >= 0``
 raises, as the JAX trainer's freezing predicate does.
 
+Across ranks (``TRLX_NUM_PROCESSES`` > 1, :func:`~trlx_tpu_torch.parallel.mesh.
+initialize_distributed` first) the trainer builds the ``data × fsdp × model``
+mesh of ``config.mesh``: tensor parallelism over ``model``
+(:func:`~trlx_tpu_torch.parallel.sharding.apply_tensor_parallel`), ZeRO
+storage over ``fsdp`` (:class:`~trlx_tpu_torch.parallel.fsdp.ShardedParams`,
+gathered for each forward phase), gradients summed over ``data × fsdp`` and
+the global-norm clip and health norm over every shard. Every rank holds the
+same host data (the same prompts, samples and rollout store); each generates,
+scores and trains on its rows of every batch (the rows the JAX ``put_batch``
+gives its mesh position) and the results are gathered, so each rank's store
+and stats are the same. The loss statistics are global over the batch ranks
+(:func:`~trlx_tpu_torch.parallel.collectives.batch_group`). Process 0 alone
+calls ``reward_fn`` under ``reward_on_process_zero`` (on by default across
+ranks) and alone writes logs, checkpoints and the sweep lines; checkpoints
+hold the gathered state and load back resharded. ``train.learner_overlap``
+replaces the step by the overlapped FSDP step
+(:func:`~trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step`).
+
 Config blocks of the JAX package that this port does not run yet raise
 ``NotImplementedError`` naming their slice (:func:`check_port_config`);
 none is silently ignored.
@@ -88,7 +106,16 @@ from trlx_tpu_torch.obs import Observability, batch_token_count
 from trlx_tpu_torch.ops.generation import generate as generate_op
 from trlx_tpu_torch.ops.generation import generate_seq2seq
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
+from trlx_tpu_torch.parallel import collectives as coll
+from trlx_tpu_torch.parallel import mesh as mesh_lib
+from trlx_tpu_torch.parallel.fsdp import (
+    ShardedParams,
+    can_overlap,
+    global_norm_sharded,
+    make_overlapped_grad_accum_step,
+)
 from trlx_tpu_torch.parallel.pipeline import stack_layer_params
+from trlx_tpu_torch.parallel.sharding import apply_tensor_parallel, spec_dim
 from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
 from trlx_tpu_torch.resilience import Resilience, chaos_poison_batch, find_latest_committed, host_snapshot
 from trlx_tpu_torch.resilience.checkpoint import (
@@ -113,7 +140,7 @@ from trlx_tpu_torch.utils import (
     set_seed,
     significant,
 )
-from trlx_tpu_torch.utils.trackers import make_tracker
+from trlx_tpu_torch.utils.trackers import BaseTracker, make_tracker
 
 logger = logging.get_logger(__name__)
 
@@ -123,7 +150,8 @@ POW2_BUCKETS = [2 ** i for i in range(3, 14)]
 
 def resolve_device(device, who: str = "trlx_tpu_torch.train") -> torch.device:
     """``None`` means the card: with no CUDA the caller must ask for the
-    CPU explicitly (``device="cpu"``); nothing falls back silently."""
+    CPU explicitly (``device="cpu"``); nothing falls back silently. In a
+    process group, ``"cuda"`` is the rank's card, ``cuda:<rank % count>``."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -131,20 +159,35 @@ def resolve_device(device, who: str = "trlx_tpu_torch.train") -> torch.device:
                 "pass device='cpu' to run the plain CPU path"
             )
         device = "cuda"
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and mesh_lib.process_count() > 1:
+        device = mesh_lib.rank_device(mesh_lib.process_index())
+    return device
+
+
+def check_mesh_config(config: TRLConfig) -> None:
+    """Raise for what the port does not yet run on more than one rank."""
+    later = [
+        (config.model.model_arch_type == "seq2seq", "seq2seq (T5) models"),
+        (bool(config.model.peft_config), "model.peft_config"),
+        (bool((config.model.model_overrides or {}).get("scan_layers"))
+         or (config.model.model_overrides or {}).get("pipeline_stages", 1) > 1, "stacked layer layouts"),
+        (config.model.offload_ref, "model.offload_ref"),
+    ]
+    for enabled, what in later:
+        if enabled:
+            raise NotImplementedError(f"trlx_tpu_torch does not run {what} on a mesh of more than one rank yet: "
+                                      "scale-out slice 2")
 
 
 def check_port_config(config: TRLConfig) -> None:
     """Raise ``NotImplementedError`` for every enabled config block that a
     later slice of the port brings, naming that slice."""
-    t, mesh = config.train, config.mesh
+    mesh = config.mesh
     later = [
-        (t.learner_overlap.enabled, "train.learner_overlap", "scale-out slice"),
-        (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice"),
+        (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice 2"),
+        (mesh.pipe not in (1, -1), f"mesh.pipe={mesh.pipe}", "scale-out slice 2"),
     ]
-    for axis in ("data", "fsdp", "pipe", "model"):
-        size = getattr(mesh, axis)
-        later.append((size not in (1, -1), f"mesh.{axis}={size}", "scale-out slice (one device)"))
     for enabled, what, slice_name in later:
         if enabled:
             raise NotImplementedError(f"trlx_tpu_torch does not port {what} yet: {slice_name}")
@@ -164,8 +207,19 @@ class MeshRLTrainer(BaseRLTrainer):
 
     def __init__(self, config: TRLConfig, device=None, **kwargs):
         super().__init__(config, **kwargs)
+        # the process group before anything that picks a device
+        mesh_lib.initialize_distributed(device=device)
         check_port_config(config)
         self.device = resolve_device(device, type(self).__name__)
+        self.mesh = mesh_lib.mesh_from_config(config.mesh, self.device)
+        self.multi_rank = self.mesh.size > 1
+        self.is_main_process = mesh_lib.process_index() == 0
+        if self.multi_rank:
+            check_mesh_config(config)
+            logger.info(f"rank {self.mesh.rank} of {self.mesh.size} on {self.device}, "
+                        f"backend {mesh_lib.backend_name()}, coordinates {self.mesh.coords}", ranks=[-1])
+        #: the ZeRO storage over fsdp (None on one rank): setup_sharding
+        self.shards = None
         self.np_rng = set_seed(config.train.seed)
         # sampling stream of generate(), one per trainer (the JAX rng key)
         self.generator = torch.Generator(device=self.device).manual_seed(int(config.train.seed))
@@ -183,6 +237,7 @@ class MeshRLTrainer(BaseRLTrainer):
         self.rollout_casts = 0
 
         self.setup_model()
+        self.setup_sharding()
         self.setup_optimizer()
 
         self.iter_count = 0
@@ -196,7 +251,8 @@ class MeshRLTrainer(BaseRLTrainer):
             config.train.run_name = (
                 f"{config.model.model_path.split('/')[-1]}/{self.device.type}"
             ).replace("/", "_")
-        self.tracker = make_tracker(config.train, config.to_dict())
+        # process 0 logs; the others keep a tracker that writes nothing
+        self.tracker = make_tracker(config.train, config.to_dict()) if self.is_main_process else BaseTracker()
         # observability (span tracing / MFU / memory gauges / watchdog /
         # flights); disabled, every obs call is a near-no-op
         self.obs = Observability(
@@ -207,7 +263,7 @@ class MeshRLTrainer(BaseRLTrainer):
         # resilience (async atomic checkpointing / preemption handling /
         # auto-resume / reward retries); disabled, every hook is a no-op and
         # reward_fn is wrapped only with the free chaos check
-        self.resilience = Resilience(config.train.resilience)
+        self.resilience = Resilience(config.train.resilience, multiprocess=mesh_lib.process_count() > 1)
         self.reward_fn = self.resilience.wrap_reward_fn(self.reward_fn)
         # the health guard (skip -> rollback -> halt); None when disabled,
         # and the optimizer step is then the unguarded one
@@ -310,11 +366,78 @@ class MeshRLTrainer(BaseRLTrainer):
         # embeddings / final norm / lm_head of the trunk
         return False
 
+    def sharded_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules whose parameters live on the mesh, by name prefix
+        (PPO adds its frozen reference)."""
+        return {"": self.model}
+
+    def setup_sharding(self):
+        """On more than one rank: tensor parallelism over ``model`` and the
+        ZeRO storage over ``fsdp`` of :meth:`sharded_modules`, by the JAX
+        package's rules (every rank holds the same full parameters here)."""
+        if not self.multi_rank:
+            return
+        modules = self.sharded_modules()
+        specs = {}
+        for prefix, module in modules.items():
+            for name, spec in apply_tensor_parallel(module, self.mesh).items():
+                specs[f"{prefix}.{name}" if prefix else name] = spec
+        self.shards = ShardedParams(modules, specs, self.mesh)
+        logger.info(f"mesh {self.mesh.shape}: {sum(leaf.sharded for leaf in self.shards.leaves)} leaves sharded "
+                    f"over fsdp, {sum(spec_dim(leaf.spec, 'model') >= 0 for leaf in self.shards.leaves)} over model")
+
+    @torch.no_grad()
+    def load_full_params(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy whole parameters (``{name: tensor}``, names as in
+        :meth:`sharded_modules`, the policy's without a prefix) into the
+        trainer, each rank keeping its blocks."""
+        if self.shards is not None:
+            self.shards.load_full_state(state)
+            return
+        for prefix, module in self.sharded_modules().items():
+            pre = f"{prefix}." if prefix else ""
+            # strict=False: the policy's pass sees the reference's names too
+            module.load_state_dict({k[len(pre):]: v for k, v in state.items() if k.startswith(pre)}, strict=False)
+        self._rollout_model = None
+
+    def params_gathered(self):
+        """Every fsdp-sharded parameter whole for the enclosed forwards
+        (nothing to do on one rank)."""
+        return self.shards.gathered() if self.shards is not None else _null_context()
+
+    def _learner_overlap_active(self) -> bool:
+        """Whether the overlapped FSDP step (``train.learner_overlap``)
+        replaces the default step: on a pure data / fsdp mesh and without the
+        health guard; otherwise it warns and keeps the default step, as the
+        JAX trainer does."""
+        cfg = self.config.train.learner_overlap
+        if not cfg.enabled:
+            return False
+        if not can_overlap(self.mesh):
+            logger.warning(
+                "train.learner_overlap requires a pure data/fsdp mesh "
+                f"(model=1, pipe=1), got {dict(self.mesh.shape)}: falling back "
+                "to the default train step"
+            )
+            return False
+        if self.config.train.self_healing.enabled:
+            logger.warning(
+                "train.learner_overlap is incompatible with the self-healing "
+                "health guard (the skip lives in the default step): "
+                "falling back to the default train step"
+            )
+            return False
+        return True
+
     def setup_optimizer(self):
         """Optimizer and schedule from the registries over the trainable
         parameters (frozen ones get no gradient and no update, as optax's
         ``set_to_zero`` partition). The optimizer's base rate is 1 and the
-        schedule sets the rate per step (``make_lr_scheduler``)."""
+        schedule sets the rate per step (``make_lr_scheduler``). On a mesh
+        the optimizer updates each leaf's master (its fsdp shard, or the
+        whole leaf), so its state is sharded like the parameters; under
+        ``train.learner_overlap.int8_opt_state`` an Adam-family optimizer
+        becomes the 8-bit one, its blocks over the local shard."""
         kwargs = dict(self.config.optimizer.kwargs)
         lr = kwargs.pop("lr", 1e-5)
         sched_kwargs = dict(self.config.scheduler.kwargs)
@@ -323,22 +446,46 @@ class MeshRLTrainer(BaseRLTrainer):
             learning_rate=sched_lr, **sched_kwargs
         )
         self.max_grad_norm = kwargs.pop("max_grad_norm", None)
-        self.trainable_params = []
+        self.overlap = self._learner_overlap_active()
+        opt_name = str(self.config.optimizer.name).lower()
+        if self.overlap and self.config.train.learner_overlap.int8_opt_state:
+            if opt_name in ("adam", "adamw", "adamw_8bit_bnb"):
+                opt_name = "adamw_8bit_bnb"
+            else:
+                logger.warning(f"learner_overlap.int8_opt_state ignored: optimizer {opt_name!r} is not adam-family")
+        # the module parameters that train, and the tensors the optimizer
+        # updates for them (their masters on a mesh)
+        self._leaf_params = []
         for name, p in self.model.named_parameters():
             if self.trainable_path_predicate(name):
-                self.trainable_params.append(p)
+                self._leaf_params.append(p)
             else:
                 p.requires_grad_(False)
-        self.optimizer = get_optimizer_class(self.config.optimizer.name)(
+        if self.shards is None:
+            self.trainable_params = list(self._leaf_params)
+        else:
+            leaves = [self.shards.by_param[id(p)] for p in self._leaf_params]
+            for leaf in leaves:
+                leaf.master.requires_grad_(True)
+            self.trainable_params = [leaf.master for leaf in leaves]
+            split = any(leaf.sharded or spec_dim(leaf.spec, "model") >= 0 for leaf in leaves)
+            blockwise = opt_name in ("adamw_8bit_bnb", "adam_8bit_bnb") and not self.overlap
+            if split and (blockwise or opt_name == "adafactor"):
+                raise NotImplementedError(
+                    f"optimizer {opt_name!r} over sharded leaves in the default step (its state spans the whole "
+                    "leaf): scale-out slice 2; use learner_overlap.int8_opt_state for 8-bit AdamW over fsdp")
+        self.optimizer = get_optimizer_class(opt_name)(
             self.trainable_params, learning_rate=1.0, **kwargs
         )
         self.scheduler = make_lr_scheduler(self.optimizer, self.lr_schedule)
 
     # -------------------------------------------------------------- train step
 
-    @staticmethod
-    def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-        """optax.global_norm: the f32 L2 norm over every gradient."""
+    def global_grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm: the f32 L2 norm over every gradient (of
+        :attr:`trainable_params`; on a mesh over every shard of them)."""
+        if self.shards is not None:
+            return global_norm_sharded([self.shards.by_param[id(p)] for p in self._leaf_params], grads, self.mesh)
         return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
 
     def clip_grads(self, grads: List[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
@@ -376,6 +523,13 @@ class MeshRLTrainer(BaseRLTrainer):
         schedule stay as they were). It reports ``health/grad_norm`` and
         ``health/update_applied``."""
         guard = self.health
+        if self.overlap:
+            logger.info(
+                f"learner_overlap: overlapped FSDP step active (fsdp={self.mesh.shape['fsdp']}, "
+                f"num_microbatches={num_mb}, optimizer={type(self.optimizer).__name__}, "
+                f"max_grad_norm={self.max_grad_norm})")
+            return make_overlapped_grad_accum_step(self, loss_fn, num_mb)
+        dp = self.mesh.axis_size(mesh_lib.BATCH_AXES)
 
         def step(batch) -> Dict[str, float]:
             # the rollout copy goes BEFORE the step: the step is the memory
@@ -383,13 +537,27 @@ class MeshRLTrainer(BaseRLTrainer):
             self._rollout_model = None
             self.optimizer.zero_grad(set_to_none=True)
             per_mb, losses = [], []
-            for mb in batch.split(num_mb):
-                loss, stats = loss_fn(mb)
-                loss.backward()
-                if guard is not None:
-                    losses.append(loss.detach().float())
-                per_mb.append({k: torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
-                               for k, v in stats.items()})
+            replicated = False
+            with self.params_gathered():
+                for mb in batch.split(num_mb):
+                    # the JAX step's layout: the global batch splits into
+                    # microbatches first, and each microbatch is sharded
+                    group = None
+                    if dp > 1:
+                        rows = mesh_lib.local_rows(self.mesh, mesh_lib.batch_rows(mb))
+                        replicated = rows is None
+                        if not replicated:
+                            mb, group = mb.split(dp)[self.mesh.axis_index(mesh_lib.BATCH_AXES)], self.mesh.batch_group
+                    with coll.batch_group(group):
+                        loss, stats = loss_fn(mb)
+                    loss.backward()
+                    if guard is not None:
+                        losses.append(loss.detach().float())
+                    per_mb.append({k: torch.as_tensor(v, dtype=torch.float32, device=self.device).detach()
+                                   for k, v in stats.items()})
+                if self.shards is not None:
+                    # each rank's replicated batch gives the whole gradient: average
+                    self.shards.reduce_grads(1.0 / dp if replicated else 1.0)
             for p in self.trainable_params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -485,14 +653,23 @@ class MeshRLTrainer(BaseRLTrainer):
 
         P = pad_to_bucket(max(len(p) for p in prompts_ids), POW2_BUCKETS)
         ids, mask = left_pad_batch(prompts_ids, gen_kwargs["pad_token_id"], P)
+        # on a mesh each rank decodes its rows (all of them when the batch
+        # does not split) and the ranks step in lockstep
+        B = len(ids)
+        rows = mesh_lib.local_rows(self.mesh, B) if self.multi_rank else None
+        if rows is not None:
+            ids, mask = ids[rows], mask[rows]
+            gen_kwargs["rows"] = (rows.start, B)
+        if self.multi_rank:
+            gen_kwargs["sync_group"] = self.mesh.world_group
         ids_t, mask_t = torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
         generator = self.generator if generator is None else generator
         processor = self.gen_logits_processor(**proc_kwargs)
-        if policy is None:
-            policy = self.generation_model()
         # the span closes after the host fetch: decode runs asynchronously
         # until it, so timing the launches alone would undercount
-        with self.obs.span("generate"):
+        with self.obs.span("generate"), self.params_gathered():
+            if policy is None:
+                policy = self.generation_model()
             if self.is_seq2seq:
                 fns = self.seq2seq_gen_fns(policy)
                 out = generate_seq2seq(
@@ -504,6 +681,8 @@ class MeshRLTrainer(BaseRLTrainer):
                 step_fn, init_cache_fn = self.gen_step_fn(policy)
                 out = generate_op(step_fn, init_cache_fn, ids_t, mask_t, generator, max_new,
                                   logits_processor=processor, **gen_kwargs)
+            if rows is not None:
+                out = {k: coll.all_gather(v, self.mesh.batch_group, 0) for k, v in out.items()}
             sequences = out["sequences"].cpu().numpy()
             response_mask = out["response_mask"].cpu().numpy()
         # seq2seq sequences are [decoder start] + response: decode()'s pad length is 1
@@ -578,8 +757,30 @@ class MeshRLTrainer(BaseRLTrainer):
 
     # -------------------------------------------------------------- evaluation
 
+    @property
+    def reward_on_process_zero(self) -> bool:
+        """Resolved ``train.reward_on_process_zero``: None (the default) means
+        on exactly when the run has more than one process."""
+        flag = self.config.train.reward_on_process_zero
+        if flag is None:
+            return mesh_lib.process_count() > 1
+        return bool(flag)
+
     def call_reward_fn(self, **kwargs):
-        return self.reward_fn(**kwargs)
+        """``reward_fn``; under :attr:`reward_on_process_zero` only process 0
+        calls it and its scores are broadcast to every rank. Every rank must
+        reach this call at the same point (the broadcast is a collective):
+        the main thread only."""
+        if not self.reward_on_process_zero or mesh_lib.process_count() == 1:
+            return self.reward_fn(**kwargs)
+        scores = self.reward_fn(**kwargs) if self.is_main_process else None
+        return self.broadcast_scores(scores)
+
+    def broadcast_scores(self, scores):
+        """Process 0's scores on every rank (main thread only: a collective)."""
+        if scores is not None:
+            scores = [np.asarray(s, np.float32) if np.ndim(s) > 0 else float(s) for s in scores]
+        return coll.broadcast_object(scores, self.mesh.world_group)
 
     def evaluate(self) -> Dict[str, Any]:
         """Generate on eval prompts, score with reward_fn/metric_fn, log a
@@ -855,14 +1056,18 @@ class MeshRLTrainer(BaseRLTrainer):
         this trial to stop. One process, so the decision needs no broadcast."""
         if not os.environ.get("TRLX_SWEEP"):
             return False
-        print("SWEEP_METRIC " + json.dumps({"step": self.iter_count, **filter_non_scalars(results or {})}),
-              flush=True)
+        if self.is_main_process:
+            print("SWEEP_METRIC " + json.dumps({"step": self.iter_count, **filter_non_scalars(results or {})}),
+                  flush=True)
+        # the stop decision is collective: process 0 reads the file and
+        # every rank leaves learn() together
         stop_file = os.environ.get("TRLX_SWEEP_STOP_FILE")
-        return bool(stop_file and os.path.exists(stop_file))
+        stop = bool(stop_file and os.path.exists(stop_file)) if self.is_main_process else False
+        return bool(coll.broadcast_object(stop, self.mesh.world_group))
 
     def _report_sweep_result(self, results):
         """The final-metrics line a sweep runner reads (``SWEEP_RESULT {json}``)."""
-        if os.environ.get("TRLX_SWEEP"):
+        if os.environ.get("TRLX_SWEEP") and self.is_main_process:
             print("SWEEP_RESULT " + json.dumps(filter_non_scalars(results or {})), flush=True)
 
     def _start_profiler(self, profile_dir: str):
@@ -917,11 +1122,60 @@ class MeshRLTrainer(BaseRLTrainer):
         ``train.save_optimizer`` the optimizer and the scheduler. The values
         are the live ``state_dict()`` tensors: the async path hands the
         writer a :func:`host_snapshot` of this, never the dict itself."""
+        if self.shards is not None:
+            return self._gathered_payload()
         payload = {"params": self.model.state_dict()}
         if self.config.train.save_optimizer:
             payload["optimizer"] = self.optimizer.state_dict()
             payload["scheduler"] = self.scheduler.state_dict()
         return payload
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """``self.model``'s whole ``state_dict`` (gathered over the mesh: a
+        collective on every rank)."""
+        if self.shards is None:
+            return self.model.state_dict()
+        full = self.shards.full_state()
+        return {name: full[name] for name, _ in self.model.named_parameters()}
+
+    def _gathered_payload(self) -> Dict[str, Any]:
+        """The one-rank payload of a sharded trainer, gathered on every rank
+        (a collective): whole parameters, and each optimizer state tensor
+        shaped like its master gathered as its parameter is (8-bit blocks
+        concatenated in fsdp order)."""
+        payload = {"params": self.model_state_dict()}
+        if self.config.train.save_optimizer:
+            opt = self.optimizer.state_dict()
+            leaves = [self.shards.by_param[id(p)] for p in self._leaf_params]
+            state = {}
+            for idx, leaf in enumerate(leaves):
+                state[idx] = {k: self._gather_state_tensor(leaf, v) for k, v in opt["state"].get(idx, {}).items()}
+            payload["optimizer"] = {"state": state, "param_groups": opt["param_groups"]}
+            payload["scheduler"] = self.scheduler.state_dict()
+        return payload
+
+    def _gather_state_tensor(self, leaf, v):
+        if not torch.is_tensor(v) or v.dim() == 0:
+            return v
+        if tuple(v.shape) == tuple(leaf.master.shape):
+            return self.shards.full_tensor(leaf, v)
+        # blockwise state: [blocks, ...] over the local shard
+        return coll.all_gather(v, self.shards.fsdp, 0) if leaf.sharded else v
+
+    def _scatter_state_tensor(self, leaf, v):
+        if not torch.is_tensor(v) or v.dim() == 0:
+            return v
+        if tuple(v.shape) == self._full_shape(leaf):
+            return self.shards.local_block(leaf, v).clone()
+        return coll.local_slice(v, self.shards.fsdp, 0).clone() if leaf.sharded else v
+
+    def _full_shape(self, leaf):
+        shape = list(leaf.master.shape)
+        for axis in ("fsdp", "model"):
+            d = spec_dim(leaf.spec, axis)
+            if d >= 0 and (axis == "model" or leaf.sharded):
+                shape[d] *= self.mesh.shape[axis]
+        return tuple(shape)
 
     def _save_checkpoint(self, directory: str, block: bool = False):
         """Route one checkpoint through the resilience async writer when
@@ -1012,14 +1266,18 @@ class MeshRLTrainer(BaseRLTrainer):
         tell a whole directory from a torn one. A sentinel left by an
         earlier save of the same directory is removed first."""
         path = os.path.abspath(directory)
-        os.makedirs(path, exist_ok=True)
-        sentinel = os.path.join(path, COMMITTED_SENTINEL)
-        if os.path.exists(sentinel):
-            os.remove(sentinel)
-        write_payload(path, self._checkpoint_payload())
-        write_json_atomic(os.path.join(path, STATE_FILE), self._state_dict())
-        mark_committed(path)
-        logger.info(f"Saved checkpoint to {path}")
+        # gathered on every rank (a collective); process 0 writes, then all wait
+        payload = self._checkpoint_payload()
+        if self.is_main_process:
+            os.makedirs(path, exist_ok=True)
+            sentinel = os.path.join(path, COMMITTED_SENTINEL)
+            if os.path.exists(sentinel):
+                os.remove(sentinel)
+            write_payload(path, payload)
+            write_json_atomic(os.path.join(path, STATE_FILE), self._state_dict())
+            mark_committed(path)
+            logger.info(f"Saved checkpoint to {path}")
+        coll.barrier(self.mesh.world_group)
 
     def load(self, directory: str):
         """Restore a checkpoint written by :meth:`save` or the async writer,
@@ -1037,10 +1295,20 @@ class MeshRLTrainer(BaseRLTrainer):
         # live tensors and moves AdamW's moments to their parameters' device,
         # leaving its step counts on the CPU where a fresh optimizer has them
         ckpt = torch.load(os.path.join(path, PAYLOAD_FILE), map_location="cpu", weights_only=False)
-        self.model.load_state_dict(ckpt["params"])
+        if self.shards is not None:
+            # every rank reads the whole state and keeps its blocks
+            self.shards.load_full_state({name: ckpt["params"][name] for name, _ in self.model.named_parameters()})
+        else:
+            self.model.load_state_dict(ckpt["params"])
         self._rollout_model = None  # cast from the restored masters when next asked
         if "optimizer" in ckpt and self.config.train.save_optimizer:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            opt = ckpt["optimizer"]
+            if self.shards is not None:
+                leaves = [self.shards.by_param[id(p)] for p in self._leaf_params]
+                opt = {"state": {idx: {k: self._scatter_state_tensor(leaves[idx], v) for k, v in st.items()}
+                                 for idx, st in opt["state"].items()},
+                       "param_groups": opt["param_groups"]}
+            self.optimizer.load_state_dict(opt)
             self.scheduler.load_state_dict(ckpt["scheduler"])
         state_path = os.path.join(path, STATE_FILE)
         if os.path.exists(state_path):
@@ -1069,7 +1337,9 @@ class MeshRLTrainer(BaseRLTrainer):
         package does. Under LoRA the exported trunk has the adapters merged
         into its kernels, and with ``model.peft_config`` the adapters
         themselves go to ``adapters.safetensors`` (:func:`save_adapters`)."""
-        state = self.model.state_dict()
+        state = self.model_state_dict()
+        if not self.is_main_process:
+            return
         prefix = "t5." if self.is_seq2seq else "transformer."
         trunk = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
         if getattr(self.model_config, "lora_r", 0):
@@ -1084,3 +1354,9 @@ class MeshRLTrainer(BaseRLTrainer):
             safetensors_io.save_file(heads, os.path.join(directory, "heads.safetensors"))
         if self.config.model.peft_config:
             save_adapters(directory, state)
+
+
+def _null_context():
+    import contextlib
+
+    return contextlib.nullcontext()

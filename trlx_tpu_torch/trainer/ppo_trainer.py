@@ -139,6 +139,8 @@ from trlx_tpu_torch.serving import (
     ServingSupervisor,
 )
 from trlx_tpu_torch.trainer import register_trainer
+from trlx_tpu_torch.parallel import collectives as coll
+from trlx_tpu_torch.parallel import mesh as mesh_lib
 from trlx_tpu_torch.trainer.mesh_trainer import POW2_BUCKETS, MeshRLTrainer
 from trlx_tpu_torch.utils import infinite_loader, logging
 from trlx_tpu_torch.utils.metrics import gauges
@@ -398,6 +400,16 @@ class PPOTrainer(MeshRLTrainer):
         if not self._ref_pinned:
             self._ref_dev = None
 
+    def sharded_modules(self):
+        """The policy and the frozen reference (the full copy or the hydra
+        branch), placed on the mesh alike."""
+        modules = {"": self.model}
+        if self.ref_model is not None:
+            modules["ref_model"] = self.ref_model
+        if self.frozen_branch is not None:
+            modules["frozen_branch"] = self.frozen_branch
+        return modules
+
     def _new_policy(self):
         """An untrained module shaped like ``self.model`` on the device (the
         async producer's copy)."""
@@ -462,8 +474,14 @@ class PPOTrainer(MeshRLTrainer):
         the frozen branch from the activation the policy forward captured at
         ``branch_start``. ``policy`` replaces ``self.model`` (the async
         producer passes its snapshot copy)."""
-        out = self._score_device(torch.from_numpy(seq).to(self.device), torch.from_numpy(mask).to(self.device),
-                                 P, R, policy=policy)
+        rows = mesh_lib.local_rows(self.mesh, len(seq)) if self.multi_rank else None
+        if rows is not None:  # this rank's rows, then the whole batch on every rank
+            seq, mask = seq[rows], mask[rows]
+        with self.params_gathered():
+            out = self._score_device(torch.from_numpy(seq).to(self.device), torch.from_numpy(mask).to(self.device),
+                                     P, R, policy=policy)
+        if rows is not None:
+            out = [coll.all_gather(x, self.mesh.batch_group, 0) for x in out]
         return tuple(x.cpu().numpy() for x in out)
 
     @torch.no_grad()
@@ -545,6 +563,8 @@ class PPOTrainer(MeshRLTrainer):
             return fallback("stacked/pipelined layouts keep the contiguous cache")
         if self.model_config.peft_type in ("prompt", "prefix"):
             return fallback("prompt/prefix peft puts virtual rows in the cache")
+        if self.multi_rank:
+            return fallback("multi-device mesh (the paged step is single-device)")
         if self.gen_logits_processor() is not None:
             return fallback("decode-time logits processor in use")
         gen_kwargs = dict(self.generate_experience_kwargs or self.generate_kwargs)
@@ -767,20 +787,27 @@ class PPOTrainer(MeshRLTrainer):
         elif self.method.overlap_reward_scoring:
             if not hasattr(self, "_reward_tokenizer"):
                 self._reward_tokenizer = copy.deepcopy(self.tokenizer)
+            # across ranks under reward_on_process_zero, process 0's worker
+            # calls reward_fn and the broadcast (a collective) runs here on
+            # the main thread, at each drain, in the same order on every rank
+            broadcasting = self.reward_on_process_zero and mesh_lib.process_count() > 1
             generated = 0  # counted at generation time: ppo_rl_elements lags
             with ThreadPoolExecutor(max_workers=1) as pool:
                 pending = deque()
                 while generated < num_rollouts or pending:
                     new = []
                     if generated < num_rollouts:
-                        new = [(chunk, pool.submit(self._timed_reward_fn, **kw))
+                        new = [(chunk, pool.submit(self._timed_local_reward_fn, broadcasting, **kw))
                                for chunk, kw in self._generate_chunks(self._reward_tokenizer)]
                         generated += sum(len(chunk[0]) for chunk, _ in new)
                     # store the previous generation's chunks while this one's
                     # rewards run behind the next device generation
                     while pending:
                         chunk, fut = pending.popleft()
-                        self._score_and_store(chunk, fut.result(), ppo_rl_elements, accumulated_kl, all_scores_log)
+                        scores = fut.result()
+                        if broadcasting:
+                            scores = self.broadcast_scores(scores)
+                        self._score_and_store(chunk, scores, ppo_rl_elements, accumulated_kl, all_scores_log)
                     pending.extend(new)
         else:
             while len(ppo_rl_elements) < num_rollouts:
@@ -1062,6 +1089,20 @@ class PPOTrainer(MeshRLTrainer):
         self._phase_time["reward"] += time.perf_counter() - t0
         return scores
 
+    def _timed_local_reward_fn(self, broadcasting: bool, **kwargs):
+        """The overlap worker's reward call: with ``broadcasting``, process 0
+        alone calls ``reward_fn`` (the others return None) and the main
+        thread broadcasts; otherwise :meth:`_timed_reward_fn`."""
+        if not broadcasting:
+            return self._timed_reward_fn(**kwargs)
+        if not self.is_main_process:
+            return None
+        t0 = time.perf_counter()
+        with span("reward"):
+            scores = self.reward_fn(**kwargs)
+        self._phase_time["reward"] += time.perf_counter() - t0
+        return scores
+
     def _collect_chunks(self, elements, kls, scores_log, policy=None, generator=None, params=None):
         """One decode batch of generate -> reward_fn -> score, its elements,
         per-sequence KLs and raw scores appended to the three lists.
@@ -1178,6 +1219,13 @@ class PPOTrainer(MeshRLTrainer):
         if cfg.max_staleness <= 0:
             logger.warning(
                 "async_rollouts.max_staleness=0 requests fully on-policy data: running the synchronous rollout path"
+            )
+            return None
+        if mesh_lib.process_count() > 1:
+            logger.warning(
+                "async_rollouts is single-process only (cross-host reward "
+                "broadcast ordering is undefined off the main thread): "
+                "running the synchronous rollout path"
             )
             return None
         return cfg

@@ -22,6 +22,11 @@ the ``reward_fn`` row.
 
 ``device=None`` runs on the CUDA device and raises when there is none;
 ``device="cpu"`` runs the plain CPU path.
+
+Across ranks, launch one process per rank with ``TRLX_NUM_PROCESSES``,
+``TRLX_COORDINATOR`` (``host:port``) and ``TRLX_PROCESS_ID`` set; ``train``
+joins the process group first (:func:`~trlx_tpu_torch.parallel.mesh.
+initialize_distributed`) and ``config.mesh`` lays the ranks out.
 """
 
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
@@ -34,6 +39,7 @@ from trlx_tpu_torch.data.default_configs import (
     default_sft_config,
 )
 from trlx_tpu_torch.online.environment import environment_reward_fn
+from trlx_tpu_torch.parallel.mesh import initialize_distributed
 from trlx_tpu_torch.utils import logging, set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -59,6 +65,8 @@ def train(
     and ``rewards``, or with SFT from ``samples`` (strings or (prompt,
     output, ...) dialogues): the JAX package's surface plus ``device``.
     Returns the trainer."""
+    # the process group before anything that picks a device
+    initialize_distributed(device=device)
     if reward_fn is not None and environment is not None:
         raise ValueError(
             "`reward_fn` and `environment` are mutually exclusive: an environment IS the reward source"

@@ -1,14 +1,19 @@
 """Model/numeric helpers: logprobs, masked statistics, whitening, running
 moments, dict flattening (counterpart of ``trlx_tpu/utils/modeling.py``).
 
-On one device every reduction is already global, so the JAX package's
-named-axis variants for ``shard_map`` regions have no counterpart here.
+Under a batch group (:func:`~trlx_tpu_torch.parallel.collectives.batch_group`,
+set by the train step over ``data × fsdp``) ``masked_mean``, ``masked_var``
+and ``whiten`` reduce numerator and denominator over the group's ranks, as
+the JAX step's statistics cover the global microbatch; with none they are
+the one-device functions.
 """
 
 from typing import Any, Dict, MutableMapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from trlx_tpu_torch.parallel.collectives import batch_count, batch_sum, current_batch_group
 
 
 def logprobs_of_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -24,7 +29,7 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None) -> torch.Tensor:
     """Mean of ``x`` over positions where ``mask`` is 1."""
     mask = mask.to(x.dtype)
     if axis is None:
-        return (x * mask).sum() / torch.clamp(mask.sum(), min=1e-8)
+        return batch_sum((x * mask).sum()) / torch.clamp(batch_sum(mask.sum()), min=1e-8)
     return (x * mask).sum(dim=axis) / torch.clamp(mask.sum(dim=axis), min=1e-8)
 
 
@@ -42,6 +47,10 @@ def whiten(xs: torch.Tensor, shift_mean: bool = True, mask: Optional[torch.Tenso
     if mask is not None:
         mean = masked_mean(xs, mask)
         var = masked_var(xs, mask, mean)
+    elif current_batch_group() is not None:
+        n = batch_count(xs.numel())
+        mean = batch_sum(xs.sum()) / n
+        var = batch_sum(((xs - mean) ** 2).sum()) / n
     else:
         mean, var = xs.mean(), xs.var(unbiased=False)
     whitened = (xs - mean) * torch.rsqrt(var + 1e-8)

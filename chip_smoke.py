@@ -346,7 +346,20 @@ Phases, each printing one JSON line:
                   and K3 launched on every rank, and held against their
                   plain versions at every shape the ranks gave them (6
                   heads under ``model=2``, half the rows under ``data`` and
-                  ``fsdp``).
+                  ``fsdp``). (c), at the same time, two more processes on
+                  ``cuda:0`` over gloo, PPO at 15 new tokens (an even
+                  length, so the sequence path runs): ``pipe=2`` (2
+                  microbatches, the full reference copy pipelined too),
+                  ``model=2`` with ``mesh.sequence_shard`` and ``model=2``
+                  with ring attention, each within 1e-3 relative (+1e-6) of
+                  its one-rank baseline in (a) at the same lengths (the
+                  same stacked trunk; flash), both ranks' stats ``==``;
+                  the pipe ranks' parameter plus optimizer bytes <= 0.70 of
+                  one rank's; sequence scatters and ring rotations > 0; K1,
+                  K2 and K3 held at the stage's microbatch rows and, under
+                  sequence sharding, at 6 heads and the whole length (the
+                  ring run launches none: the reference keeps ring
+                  attention off the flash kernels).
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -515,9 +528,15 @@ def phase_env(ctx):
     smi = nvidia_smi_line()
     print(smi, flush=True)
     ctx["smi"] = smi
+    try:  # the native store's reader would need it (ROADMAP: the pre-converted store)
+        import tensorstore  # noqa: F401
+
+        tensorstore_ok = True
+    except ImportError:
+        tensorstore_ok = False
     emit({"phase": "env", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0], "tensorstore_imports": tensorstore_ok})
 
 
 def ptxas_per_function(log):
@@ -7603,27 +7622,36 @@ def phase_analysis(ctx):
 #: the scale-out runs' shape: 8 greedy rollouts of 16 tokens after prompts of
 #: 16..32 bytes, 2 steps of 8 rows in 2 microbatches, gpt2 full width in f32
 SO_B, SO_N, SO_MB, SO_STEPS = 8, 16, 4, 2
-#: the per-rank bytes bar at fsdp=2, against one rank's
+#: group (c)'s rollouts: 15 tokens, so the learner's and the scorer's
+#: length (the 32-byte prompt bucket + 15 + the appended eos = 48) divides
+#: model=2 and the sequence path runs
+SO_N_EVEN = 15
+#: the per-rank bytes bar at fsdp=2, and at pipe=2, against one rank's
 SO_FSDP_BYTES = 0.55
+SO_PIPE_BYTES = 0.70
 #: the stats (b) is held to, against (a)
 SO_STAT_KEYS = ("losses/", "values/", "old_values/", "returns/", "policy/", "ratio", "padding_percentage")
 
 
-def so_config(ckpt_dir, mesh, minibatch=SO_MB, overlap=False):
-    """The scale-out PPO run: gpt2 at full width, flash attention, f32
-    compute and params, the bytes tokenizer, a full-copy reference,
-    ``SO_B`` greedy rollouts, ``SO_STEPS`` steps on ``mesh``."""
+def so_config(ckpt_dir, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, new_tokens=SO_N):
+    """The scale-out PPO run: gpt2 at full width, flash attention (or
+    ``model_overrides``), f32 compute and params, the bytes tokenizer, a
+    full-copy reference, ``SO_B`` greedy rollouts of ``new_tokens``,
+    ``SO_STEPS`` steps on ``mesh`` (its ``pipe`` in 2 microbatches,
+    ``sequence_shard``)."""
     return ppo_config(**{
-        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash"},
+        "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash", **(model_overrides or {})},
         "mesh.compute_dtype": "float32", "mesh.param_dtype": "float32",
         "mesh.data": mesh.get("data", 1), "mesh.fsdp": mesh.get("fsdp", 1), "mesh.model": mesh.get("model", 1),
+        "mesh.pipe": mesh.get("pipe", 1), "mesh.pipeline_microbatches": 2,
+        "mesh.sequence_shard": mesh.get("sequence_shard", False),
         "tokenizer.tokenizer_path": "bytes",
-        "train.seq_length": 32 + SO_N, "train.batch_size": SO_B, "train.minibatch_size": minibatch,
+        "train.seq_length": 32 + new_tokens, "train.batch_size": SO_B, "train.minibatch_size": minibatch,
         "train.total_steps": SO_STEPS, "train.eval_interval": 100, "train.checkpoint_interval": 100,
         "train.save_best": False, "train.save_optimizer": False, "train.tracker": None,
         "train.checkpoint_dir": ckpt_dir, "train.seed": SEED, "train.learner_overlap.enabled": overlap,
         "method.num_rollouts": SO_B, "method.chunk_size": SO_B, "method.ppo_epochs": 1,
-        "method.gen_kwargs": dict(max_new_tokens=SO_N, do_sample=False),
+        "method.gen_kwargs": dict(max_new_tokens=new_tokens, do_sample=False),
     })
 
 
@@ -7642,12 +7670,13 @@ def so_parity_steps(device):
     return [{k: v for k, v in st.items() if not k.startswith("time/")} for st in steps]
 
 
-def so_run(label, mesh, minibatch=SO_MB, overlap=False):
+def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, new_tokens=SO_N):
     """One scale-out PPO run on this rank through ``trlx_tpu_torch.train``:
     launch counts reset just before and read just after, each kernel call
     shape recorded, then every shape held against the plain versions. Its
     step stats and seconds, parameter plus optimizer bytes, peak memory,
-    backend and staged collectives."""
+    backend, staged collectives (point-to-point included), the sequence
+    scatters and ring rotations."""
     import shutil
     import tempfile
 
@@ -7661,7 +7690,7 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False):
     from trlx_tpu_torch.utils.optim import state_bytes
 
     ckpt = tempfile.mkdtemp(prefix=f"chip_smoke_so_{label}_")
-    cfg = so_config(ckpt, mesh, minibatch, overlap)
+    cfg = so_config(ckpt, mesh, minibatch, overlap, model_overrides, new_tokens)
     steps, seconds = [], []
     original = PPOTrainer.train_step
 
@@ -7691,6 +7720,7 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False):
     torch.cuda.synchronize()
     launches = _kernels.launches()
     staged = coll.staged()
+    seq = coll.sequence_counts()
     out = {
         "run": label, "rank": trainer.mesh.rank, "mesh": {k: v for k, v in trainer.mesh.shape.items()},
         "device": str(trainer.device), "backend": dist.get_backend() if dist.is_initialized() else None,
@@ -7700,12 +7730,18 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False):
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
         "staged_collectives": staged["calls"], "staged_bytes": staged["bytes"],
         "collectives": coll.collective_calls(), "kernel_shapes": kernel_shapes(seen),
+        "seq_scatters": seq["scatters"], "ring_rotations": seq["rotations"],
+        "pipe": trainer.model_config.pipeline_stages, "sequence_sharding": trainer.model_config.sequence_sharding,
+        "attention_impl": trainer.model_config.attention_impl,
     }
     del trainer
     torch.cuda.empty_cache()
     local = {}
     try:
-        check_main_path_shapes(local, seen, f"scale_out {label}", ("flash_fwd", "flash_bwd"))
+        # ring attention bypasses the flash kernels, as the reference's routing does
+        kinds = () if out["attention_impl"] == "ring" else ("flash_fwd", "flash_bwd")
+        if seen or kinds:
+            check_main_path_shapes(local, seen, f"scale_out {label}", kinds)
         out["holds_ok"] = True
     except AssertionError as e:
         out["holds_ok"], out["holds_error"] = False, str(e)[:2000]
@@ -7730,7 +7766,8 @@ def so_rank_main(jobs_path, out_path):
         if job["kind"] == "parity":
             results.append({"run": "parity", "steps": so_parity_steps("cuda")})
         else:
-            results.append(so_run(job["label"], job["mesh"], job.get("minibatch", SO_MB), job.get("overlap", False)))
+            results.append(so_run(job["label"], job["mesh"], job.get("minibatch", SO_MB), job.get("overlap", False),
+                                  job.get("model_overrides"), job.get("new_tokens", SO_N)))
     with open(f"{out_path}.{process_index()}.json", "w") as f:
         json.dump(results, f)
 
@@ -7740,14 +7777,15 @@ class SoRanks:
     ``TRLX_*`` launch contract on 127.0.0.1; :meth:`results` waits for them
     (their results by rank) and :meth:`stop` ends any still running."""
 
-    def __init__(self, n, jobs, tmp, timeout):
+    def __init__(self, n, jobs, tmp, timeout, tag=None):
         import socket
 
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
         self.n, self.tmp, self.deadline = n, tmp, time.perf_counter() + timeout
-        jobs_path, self.out_path = os.path.join(tmp, f"jobs{n}.json"), os.path.join(tmp, f"out{n}")
+        self.tag = tag or str(n)
+        jobs_path, self.out_path = os.path.join(tmp, f"jobs{self.tag}.json"), os.path.join(tmp, f"out{self.tag}")
         with open(jobs_path, "w") as f:
             json.dump(jobs, f)
         code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
@@ -7767,7 +7805,7 @@ class SoRanks:
             raise
 
     def log(self, rank):
-        return os.path.join(self.tmp, f"rank{self.n}.{rank}.log")
+        return os.path.join(self.tmp, f"rank{self.tag}.{rank}.log")
 
     def results(self):
         try:
@@ -7805,8 +7843,10 @@ def so_close(a, b):
 def phase_scale_out(ctx):
     """(a) one rank over NCCL and, at the same time, (b) two ranks sharing
     the card over gloo (``data=2``, ``fsdp=2`` + ``train.learner_overlap``,
-    ``model=2``); the module docstring's entry 35 has the checks. The
-    kernels are built here first, so no two ranks build them at once."""
+    ``model=2``) and (c) two more (``pipe=2``, ``model=2`` with
+    ``mesh.sequence_shard``, ``model=2`` with ring attention); the module
+    docstring's entry 35 has the checks. The kernels are built here first,
+    so no two ranks build them at once."""
     import shutil
     import tempfile
 
@@ -7823,20 +7863,34 @@ def phase_scale_out(ctx):
         groups.append(SoRanks(1, [{"kind": "parity"},
                                   {"kind": "ppo", "label": "one_rank", "mesh": {"data": -1}},
                                   {"kind": "ppo", "label": "one_rank_half_mb", "mesh": {"data": -1},
-                                   "minibatch": SO_MB // 2}], tmp, timeout=400))
+                                   "minibatch": SO_MB // 2},
+                                  # (c)'s baselines at its lengths: the same stacked trunk on one
+                                  # rank, and flash
+                                  {"kind": "ppo", "label": "one_rank_stacked", "mesh": {"data": -1},
+                                   "model_overrides": {"pipeline_stages": 2}, "new_tokens": SO_N_EVEN},
+                                  {"kind": "ppo", "label": "one_rank_even", "mesh": {"data": -1},
+                                   "new_tokens": SO_N_EVEN}], tmp, timeout=400))
         groups.append(SoRanks(2, [{"kind": "ppo", "label": "data2", "mesh": {"data": 2}},
                                   {"kind": "ppo", "label": "fsdp2_overlap", "mesh": {"data": 1, "fsdp": 2},
                                    "overlap": True},
                                   {"kind": "ppo", "label": "model2", "mesh": {"data": 1, "model": 2}}],
                           tmp, timeout=600))
+        groups.append(SoRanks(2, [{"kind": "ppo", "label": "pipe2", "mesh": {"data": 1, "pipe": 2},
+                                   "new_tokens": SO_N_EVEN},
+                                  {"kind": "ppo", "label": "seq_model2",
+                                   "mesh": {"data": 1, "model": 2, "sequence_shard": True}, "new_tokens": SO_N_EVEN},
+                                  {"kind": "ppo", "label": "ring_model2", "mesh": {"data": 1, "model": 2},
+                                   "model_overrides": {"attention_impl": "ring"}, "new_tokens": SO_N_EVEN}],
+                          tmp, timeout=600, tag="c"))
         (one,) = groups[0].results()
         t_a = time.perf_counter() - t0
         two = groups[1].results()
+        three = groups[2].results()
     finally:
         for g in groups:
             g.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    parity, a, a_half = one
+    parity, a, a_half, a_stacked, a_even = one
     runs = {"data2": a, "fsdp2_overlap": a_half, "model2": a}
     checks = {
         "(a) NCCL on one rank": a["backend"] == "nccl",
@@ -7844,15 +7898,20 @@ def phase_scale_out(ctx):
     }
     launches = {k: 0 for k in a["launches"]}
     errs = ctx.setdefault("max_abs_err", {})
-    for r in [a, a_half] + [x for rank in two for x in rank]:
+    for r in [a, a_half, a_stacked, a_even] + [x for rank in two + three for x in rank]:
         emit({"phase": "scale_out", "card": ctx.get("smi"), **{k: v for k, v in r.items() if k != "steps"},
               "losses": [{k: v for k, v in st.items() if k.startswith("losses/")} for st in r["steps"]]})
         for k, v in r["launches"].items():
             launches[k] += v
         for k, v in r["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0.0), v)
-        checks[f"{r['run']} rank {r['rank']}: K1, K2 and K3 launched"] = all(
-            r["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+        if r["attention_impl"] == "ring":
+            # the reference keeps ring attention off the flash kernels
+            checks[f"{r['run']} rank {r['rank']}: the ring ran, no flash launch"] = r["ring_rotations"] > 0 and not any(
+                r["launches"][k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+        else:
+            checks[f"{r['run']} rank {r['rank']}: K1, K2 and K3 launched"] = all(
+                r["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
         checks[f"{r['run']} rank {r['rank']}: kernels hold at its shapes"] = r["holds_ok"]
     for i, label in enumerate(("data2", "fsdp2_overlap", "model2")):
         r0, r1 = two[0][i], two[1][i]
@@ -7869,6 +7928,29 @@ def phase_scale_out(ctx):
         else:
             checks[f"(b) {label}: half a microbatch's rows per rank"] = {
                 sh["q"][0] for sh in flash if sh["kernel"] == "flash_bwd"} == {SO_MB // 2}
+    bases = {"pipe2": a_stacked, "seq_model2": a_even, "ring_model2": a_even}
+    even_T = {sh["q"][2] for sh in a_even["kernel_shapes"] if sh["kernel"] == "flash_fwd"}
+    for i, label in enumerate(("pipe2", "seq_model2", "ring_model2")):
+        r0, r1 = three[0][i], three[1][i]
+        ok, bad = so_close(r0["steps"], bases[label]["steps"])
+        checks[f"(c) {label}: gloo on the shared card"] = r0["backend"] == r1["backend"] == "gloo" and (
+            r0["device"] == r1["device"] == "cuda:0")
+        checks[f"(c) {label}: both ranks report the same stats"] = r0["steps"] == r1["steps"]
+        checks[f"(c) {label}: within 1e-3 of its one-rank baseline"] = ok
+        if bad:
+            emit({"phase": "scale_out", "run": label, "stats_off": bad[:20]})
+    pipe_ratio = max(three[r][0]["param_opt_bytes"] for r in (0, 1)) / a_stacked["param_opt_bytes"]
+    checks["(c) pipe2: two stages"] = all(three[r][0]["pipe"] == 2 for r in (0, 1))
+    checks[f"(c) pipe2: parameter + optimizer bytes <= {SO_PIPE_BYTES} x one rank's"] = pipe_ratio <= SO_PIPE_BYTES
+    for r in (0, 1):
+        sp, ring = three[r][1], three[r][2]
+        checks[f"(c) seq_model2 rank {r}: sequence scatters > 0"] = sp["sequence_sharding"] and sp["seq_scatters"] > 0
+        checks[f"(c) ring_model2 rank {r}: ring rotations > 0"] = ring["ring_rotations"] > 0
+        flash = [sh for sh in sp["kernel_shapes"] if sh["kernel"] in ("flash_fwd", "flash_bwd")]
+        # under SP the kernels see the gathered T and this rank's heads
+        checks[f"(c) seq_model2 rank {r}: K1-K3 at 6 heads and the whole T"] = bool(flash) and all(
+            sh["q"][1] == 6 for sh in flash) and {sh["q"][2] for sh in flash
+                                                   if sh["kernel"] == "flash_fwd"} == even_T
     fsdp = two[0][1]
     ratio = fsdp["param_opt_bytes"] / a["param_opt_bytes"]
     checks["(b) fsdp2: overlapped step"] = fsdp["overlap"] is True and two[1][1]["overlap"] is True
@@ -7876,7 +7958,7 @@ def phase_scale_out(ctx):
         two[r][1]["param_opt_bytes"] <= SO_FSDP_BYTES * a["param_opt_bytes"] for r in (0, 1))
     ctx["scale_out_launches"] = launches
     emit({"phase": "scale_out", "card": ctx.get("smi"), "one_rank_s": t_a, "seconds": time.perf_counter() - t0,
-          "fsdp2_bytes_ratio": ratio, "launches": launches, "checks": checks})
+          "fsdp2_bytes_ratio": ratio, "pipe2_bytes_ratio": pipe_ratio, "launches": launches, "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"scale_out phase: {failed}")

@@ -107,6 +107,11 @@ def child_main():
         results.append(getattr(importlib.import_module(module), fn)(**kwargs))
     with open(os.path.join(out, f"result{mesh_lib.process_index()}.pkl"), "wb") as f:
         pickle.dump(results, f)
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # every rank done before any tears its connections down
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 # -- make_mesh -------------------------------------------------------------------

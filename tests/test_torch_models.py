@@ -150,10 +150,13 @@ def test_paged_decode_token_by_token(family, quant):
 
 
 def test_unsupported_config_raises():
-    # stacked layouts build since the stacked-layout slice (tests/test_torch_stacked.py)
+    # stacked layouts build since the stacked-layout slice (tests/test_torch_stacked.py);
+    # ring attention and sequence sharding since scale-out part two
+    # (tests/test_torch_ring_attention.py, tests/test_torch_sequence_shard.py)
     for over in (dict(attention_impl="ring"), dict(sequence_sharding=True)):
-        with pytest.raises(NotImplementedError):
-            TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], **over))
+        TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], **over))
+    with pytest.raises(ValueError, match="attention_impl"):
+        TransformerLM(PRESETS["gpt2"].replace(**FAMILIES["gpt2"][1], attention_impl="splash"))
     # peft and remat build since the peft / training-memory slice
     # (tests/test_torch_peft.py, tests/test_torch_training_memory.py)
     for over in (dict(lora_r=4), dict(peft_type="prefix", num_virtual_tokens=2), dict(remat="dots_saveable")):

@@ -12,7 +12,7 @@ do not depend on the rank count, ``reward_fn`` on process 0 only under
 ``reward_on_process_zero``, a 2-rank resume equal to the uninterrupted
 run, and the refusals a multi-rank run makes (async rollouts, the serving
 engine and async checkpointing fall back with the reference's warnings; T5
-and peft raise naming scale-out slice 2). ``fsdp=2``, ``model=2`` and
+and peft raise naming scale-out slice 3). ``fsdp=2``, ``model=2`` and
 ``data=2 x fsdp=2`` have a file each (:func:`shape_fixture`).
 """
 
@@ -124,7 +124,11 @@ def port_train(kind, mesh, init, ckpt_dir, overrides=None, do_sample=False):
     trainer = get_trainer(cfg.train.trainer)(config=cfg, device="cpu", **kw)
     if init is not None:
         trainer.load_full_params({k: torch.from_numpy(v) for k, v in init.items()})
+    from trlx_tpu_torch.parallel import collectives as coll
+
+    coll.reset_counts()
     rec = _drive(trainer, kind, PromptPipeline)
+    rec["seq_counts"] = coll.sequence_counts()
     rec["params"] = {k: v.numpy() for k, v in trainer.model_state_dict().items()}
     rec["reward_calls"] = _REWARD_CALLS[0]
     rec["iter_count"] = trainer.iter_count
@@ -161,8 +165,10 @@ def jax_trainer(kind, mesh, n, ckpt_dir):
         jt = jax_get_trainer(config_dict(kind, mesh, ckpt_dir)["train"]["trainer"])(
             config=JaxConfig.from_dict(config_dict(kind, mesh, ckpt_dir)), **kw)
     params = jax.tree.map(np.asarray, jax.device_get(jt.params))
+    # the JAX trainer's layout: stacked on a pipe axis
     cfg = PRESETS["gpt2"].replace(**config_dict(kind, mesh, ckpt_dir)["model"]["model_overrides"],
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32, pipeline_stages=jt.model_config.pipeline_stages,
+                                  scan_layers=jt.model_config.scan_layers)
     if kind == "sft":
         init = {f"transformer.{k}": v for k, v in params_from_jax(params["transformer"], cfg).items()}
     else:
@@ -337,7 +343,7 @@ def test_data2_sampling_reward_on_process_zero_resume_and_refusals(tmp_path):
     for r in ranks:
         _, _, ref = r
         assert ref["async"] and ref["serving"] and ref["async_ckpt"]
-        assert "scale-out slice 2" in ref["t5"] and "scale-out slice 2" in ref["peft"]
+        assert "scale-out slice 3" in ref["t5"] and "scale-out slice 3" in ref["peft"]
         assert ref["mismatch"] == "Mesh [4, 1, 1, 1] does not match device count 2"
     log = "\n".join(refused["log"])  # the library logs on process 0
     assert "async_rollouts is single-process only" in log

@@ -596,14 +596,24 @@ def test_scale_out_stays_refused(tmp_path, case):
     from trlx_tpu_torch.trainer.mesh_trainer import check_port_config
 
     if case == "mesh.pipe":
+        # the pipe axis is ported: one rank cannot hold a mesh of two stages
         d = _trainer_config(tmp_path, "SFTTrainer", SFT)
         d["mesh"]["pipe"] = 2
-        with pytest.raises(NotImplementedError, match="mesh.pipe=2 yet: scale-out slice"):
-            check_port_config(TRLConfig.from_dict(d))
+        check_port_config(TRLConfig.from_dict(d))
+        from trlx_tpu_torch.utils.loading import get_trainer
+
+        with pytest.raises(ValueError, match="does not match device count 1"):
+            get_trainer("SFTTrainer")(config=TRLConfig.from_dict(d), device="cpu")
         return
     if case == "ring":
-        with pytest.raises(NotImplementedError, match="ring.*scale-out slice"):
-            TransformerLM(PRESETS["gpt2"].replace(**DIMS, scan_layers=True, attention_impl="ring"))
+        # ring attention is ported: with no mesh it takes the plain path
+        ring = TransformerLM(PRESETS["gpt2"].replace(**DIMS, scan_layers=True, attention_impl="ring"))
+        plain = TransformerLM(PRESETS["gpt2"].replace(**DIMS, scan_layers=True))
+        ring.init_params(0)
+        plain.load_state_dict(ring.state_dict())
+        ids = torch.randint(1, DIMS["vocab_size"], (2, 8), generator=torch.Generator().manual_seed(0))
+        mask = torch.ones_like(ids)
+        assert torch.equal(ring(ids, mask)[0], plain(ids, mask)[0])
         return
     over = dict(attention_impl="ring", pipeline_stages=3) if case == "ring_pipelined" else dict(pipeline_stages=2)
     jcfg = JAX_PRESETS["gpt2"].replace(**DIMS, **over)

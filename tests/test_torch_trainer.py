@@ -158,19 +158,27 @@ def test_default_device_is_the_card(tmp_path):
                              config=TRLConfig.from_dict(_config_dict(tmp_path)))
 
 
+#: (key, value, what a one-rank trainer does): the pipe axis and the
+#: sequence dimension are ported, so they raise what the JAX trainer raises
+#: on one device (a two-stage mesh), or build (sequence sharding over a
+#: model axis of 1 shards nothing)
 UNPORTED = [
-    ("mesh.pipe", 2, "scale-out slice 2"),
-    ("mesh.sequence_shard", True, "scale-out slice 2"),
-    ("tokenizer.tokenizer_path", "gpt2", "HF-hub slice"),
+    ("mesh.pipe", 2, (ValueError, "does not match device count 1")),
+    ("mesh.sequence_shard", True, None),
+    ("tokenizer.tokenizer_path", "gpt2", (NotImplementedError, "HF-hub slice")),
 ]
 
 
-@pytest.mark.parametrize("key,value,slice_name", UNPORTED, ids=[u[0] for u in UNPORTED])
-def test_unported_config_blocks_raise_naming_their_slice(tmp_path, key, value, slice_name):
+@pytest.mark.parametrize("key,value,expect", UNPORTED, ids=[u[0] for u in UNPORTED])
+def test_unported_config_blocks_raise_naming_their_slice(tmp_path, key, value, expect):
     overrides = {key: value}
     if key.startswith("train.serving."):  # a knob of an enabled engine
         overrides["train.serving.enabled"] = True
-    with pytest.raises(NotImplementedError, match=slice_name):
+    if expect is None:
+        trainer = _port_trainer(tmp_path, **overrides)
+        assert trainer.model_config.sequence_sharding is True
+        return
+    with pytest.raises(expect[0], match=expect[1]):
         _port_trainer(tmp_path, **overrides)
 
 

@@ -402,7 +402,6 @@ def test_check_port_config_accepts_the_memory_rows(tmp_path):
     # mesh checks the world size when it is built)
     for over in ({"train.learner_overlap.enabled": True}, {"mesh.fsdp": 2}):
         check_port_config(TRLConfig.update(base, over))
-    for over, slice_name in (({"mesh.pipe": 2}, "scale-out slice 2"),
-                             ({"mesh.sequence_shard": True}, "scale-out slice 2")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            check_port_config(TRLConfig.update(base, over))
+    # so are the pipe axis and the sequence dimension (scale-out part two)
+    for over in ({"mesh.pipe": 2}, {"mesh.sequence_shard": True}):
+        check_port_config(TRLConfig.update(base, over))

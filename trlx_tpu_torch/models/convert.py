@@ -12,6 +12,12 @@ tree with ``.`` joins plus a dtype cast — no transposes. A stacked tree
 ``layers_scan.<block path>`` tensors. The tree arrives as
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), so this
 module imports nothing of JAX.
+
+:func:`shard_state` / :func:`gather_state` cut a whole ``state_dict`` into
+a rank's blocks by the partition rules and put them back, over every mesh
+axis: a ``layers_scan`` leaf on a ``pipe`` axis keeps its stage's layers
+(its ``fsdp`` / ``model`` dims cut as the rule names), every other leaf
+stays whole over ``pipe``.
 """
 
 from typing import Any, Dict, Mapping

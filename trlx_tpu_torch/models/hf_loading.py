@@ -667,7 +667,7 @@ def load_pretrained(
     if os.path.isdir(model_path) and os.path.exists(os.path.join(model_path, NATIVE_CONFIG)):
         raise NotImplementedError(
             f"trlx_tpu_torch does not read the native pre-converted store ({model_path!r}) yet: "
-            "scale-out slice 2; export it in HF format (save_pretrained) instead"
+            "scale-out slice 3; export it in HF format (save_pretrained) instead"
         )
     config_path = os.path.join(model_path, "config.json")
     if os.path.isdir(model_path):
@@ -890,7 +890,7 @@ def load_pretrained_seq2seq(model_path: str, overrides: Optional[Dict[str, Any]]
     if os.path.isdir(model_path) and os.path.exists(os.path.join(model_path, NATIVE_CONFIG)):
         raise NotImplementedError(
             f"trlx_tpu_torch does not read the native pre-converted store ({model_path!r}) yet: "
-            "scale-out slice 2; export it in HF format (save_pretrained) instead"
+            "scale-out slice 3; export it in HF format (save_pretrained) instead"
         )
     config_path = os.path.join(model_path, "config.json")
     if os.path.isdir(model_path):

@@ -33,10 +33,12 @@ from trlx_tpu_torch.models.transformer import (
     Norm,
     TransformerConfig,
     TransformerLM,
+    capture_seq_group,
     forward_from,
     init_params,
     make_attn_bias,
 )
+from trlx_tpu_torch.parallel.sharding import constrain_gathered, sequence_parallel
 
 
 class ModelBranch(nn.Module):
@@ -45,6 +47,9 @@ class ModelBranch(nn.Module):
     ``embed_tokens`` when the embedding is tied) of a :class:`TransformerLM`,
     under the trunk's parameter names. It holds its own tensors: load it from
     :func:`branch_param_subtree`, never from views of the trained trunk."""
+
+    #: the ``model`` group a sequence-sharded capture is split over
+    seq_group = None
 
     def __init__(self, config: TransformerConfig, start_layer: int):
         super().__init__()
@@ -77,7 +82,12 @@ class CausalLMWithValueHead(nn.Module):
     ``transformer.*``, ``v_head.value_head.{fc_in,fc_out}.*`` and, with a
     value branch, ``value_blocks_{i}.*`` and ``value_ln.*``.
     ``branch_layer`` (when set in a call) returns the activation entering
-    that layer, for the hydra reference branch."""
+    that layer, for the hydra reference branch. Under ``sequence_sharding``
+    the value branch runs on the trunk's sequence-sharded capture and
+    gathers before ``value_ln``."""
+
+    #: the ``model`` group a sequence-sharded capture is split over
+    seq_group = None
 
     def __init__(self, config: TransformerConfig, num_value_layers: int = 0):
         super().__init__()
@@ -107,13 +117,17 @@ class CausalLMWithValueHead(nn.Module):
         return init_params(self, seed)
 
     def _value_branch(self, hidden, attention_mask, positions):
-        B, T, _ = hidden.shape
+        sp = capture_seq_group(self, hidden, attention_mask)
+        B, T = hidden.shape[0], hidden.shape[1] * (sp.size if sp is not None else 1)
         default_positions, mask_bias = make_attn_bias(self.config, attention_mask, B, T, hidden.device)
         if positions is None:
             positions = default_positions
         x = hidden
-        for i in range(self.num_value_layers):
-            x, _ = getattr(self, f"value_blocks_{i}")(x, mask_bias, positions, None, attention_mask)
+        with sequence_parallel(sp):
+            for i in range(self.num_value_layers):
+                x, _ = getattr(self, f"value_blocks_{i}")(x, mask_bias, positions, None, attention_mask)
+        if sp is not None:
+            x = constrain_gathered(x, sp)
         return self.v_head(self.value_ln(x))
 
     def forward(

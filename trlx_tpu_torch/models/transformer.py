@@ -74,18 +74,37 @@ cache is one ``[L, B, Hkv, S, D]`` tensor per leaf and the paged pools one
 ``[L, NB, BS, Hkv, D]`` per leaf: each layer reads and writes ``leaf[l]`` in
 place, a view, so a stacked step launches what a listed one does. As in the
 JAX package, ``paged_decode``, hydra branch capture and ``forward_from``
-refuse a stacked model; the GPipe schedule over a pipe axis is the
-scale-out slice 2 (:mod:`trlx_tpu_torch.parallel.pipeline`).
+refuse a stacked model. On a mesh whose ``pipe`` axis is > 1
+(:func:`set_pipeline`) each rank holds its stage's layers: a cache-free
+forward runs the GPipe schedule and a cached one runs stage by stage
+(:mod:`trlx_tpu_torch.parallel.pipeline`).
 
 Tensor parallelism over a mesh's ``model`` axis (:func:`set_tensor_parallel`,
 applied by :func:`trlx_tpu_torch.parallel.sharding.apply_tensor_parallel`):
 ``Dense`` layers run column- or row-parallel by the dim the partition rules
 shard, attention runs this rank's heads (through the flash kernels, on plain
 local tensors) and reads the key / value heads they need, and a vocab-split
-embedding looks up and projects its rows, the logits gathered whole.
+embedding looks up and projects its rows, the logits gathered whole. A
+stacked trunk splits the same way, each layer's views holding this rank's
+heads and MLP slice.
 
-Not ported yet (each raises ``NotImplementedError`` naming scale-out slice
-2): ring attention and sequence sharding.
+The sequence dimension over the same ``model`` ranks, cache-free forwards
+only (decode never shards the sequence):
+
+- ``sequence_sharding`` (Megatron-SP): the embedding output is scattered
+  over ``T`` (:func:`~trlx_tpu_torch.parallel.sharding.constrain_seq`) and
+  the residual stream stays sharded through every block; attention and the
+  MLP all-gather ``T`` in front of their column-parallel layers (the
+  backward reduce-scatters) and their row-parallel layers reduce-scatter
+  over ``T`` instead of all-reducing; the stream is gathered before the
+  heads. The flash kernels see the whole ``T`` and this rank's heads. A
+  hydra capture and the value branch's input are sharded likewise.
+- ``attention_impl="ring"``: under the reference's conditions (no cache, a
+  key mask, not ALiBi, not prefix tuning, ``model > 1``, ``T`` and the batch
+  dividing) attention runs :func:`~trlx_tpu_torch.ops.ring_attention.ring_attention`
+  on ``T / model`` rows of every head (q/k/v moved from this rank's heads to
+  its sequence shard and back by an all-to-all); otherwise it takes the
+  plain path, never the flash kernel, as the reference's routing does.
 """
 
 import contextlib
@@ -101,11 +120,25 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from trlx_tpu_torch.ops.attention import flash_attention
+from trlx_tpu_torch.ops.ring_attention import ring_attention
 from trlx_tpu_torch.parallel.collectives import (
+    all_to_all_op,
     copy_to_group,
     gather_from_group,
     gather_reduce_scatter,
     reduce_from_group,
+    reduce_scatter_to_group,
+    scale_grad,
+    scatter_to_group,
+)
+from trlx_tpu_torch.parallel.sharding import (
+    constrain_gathered,
+    constrain_seq,
+    restore_seq_state,
+    seq_parallel_group,
+    seq_shardable,
+    seq_state,
+    sequence_parallel,
 )
 from trlx_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
@@ -159,7 +192,7 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     remat: str = "none"  # "none" | "full" | "per_layer" | "nothing_saveable" | "dots_saveable"
-    attention_impl: str = "xla"  # "xla" (plain) | "flash" (kernel) | "ring" (later slice)
+    attention_impl: str = "xla"  # "xla" (plain) | "flash" (kernel) | "ring" (sequence-parallel)
     kv_cache_quant: bool = False
     paged_attention_impl: str = "auto"  # "auto" | "pallas" (both: kernel) | "xla" (plain)
     pipeline_stages: int = 1
@@ -203,8 +236,7 @@ REMAT_POLICIES = ("none", "full", "per_layer", "nothing_saveable", "dots_saveabl
 
 
 def check_supported(c: TransformerConfig) -> None:
-    """The JAX module's checks of a pipelined stack, then a raise for the
-    config features later slices of the port bring."""
+    """The JAX module's checks of a pipelined stack and of the options."""
     if c.pipeline_stages > 1:
         if c.num_layers % c.pipeline_stages != 0:
             raise ValueError(
@@ -221,14 +253,7 @@ def check_supported(c: TransformerConfig) -> None:
                 "sequence_sharding=False (the trainer does this automatically "
                 "when mesh.pipe > 1)"
             )
-    unsupported = [
-        (c.attention_impl == "ring", "attention_impl='ring': scale-out slice 2"),
-        (c.sequence_sharding, "sequence_sharding: scale-out slice 2"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"trlx_tpu_torch does not port {what} yet")
-    if c.attention_impl not in ("xla", "flash"):
+    if c.attention_impl not in ("xla", "flash", "ring"):
         raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
     if c.remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {c.remat!r} (one of {REMAT_POLICIES})")
@@ -291,7 +316,15 @@ def run_block(block: nn.Module, x, mask_bias, positions, cache=None, kv_valid=No
     kw = {}
     if policy == "dots_saveable":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    return checkpoint(fn, x, mask_bias, positions, None, kv_valid, use_reentrant=False, **kw)
+    # the recompute runs in the backward, on the autograd thread: it takes
+    # this forward's sequence state with it
+    return checkpoint(functools.partial(_with_seq_state, seq_state(), fn), x, mask_bias, positions, None, kv_valid,
+                      use_reentrant=False, **kw)
+
+
+def _with_seq_state(state, fn, *args):
+    with restore_seq_state(state):
+        return fn(*args)
 
 
 # functional_call swaps a module's parameters for the call: one stacked
@@ -471,7 +504,11 @@ class Dense(nn.Module):
     ``"column"`` (this rank's output features; the input enters through
     ``copy_to_group``), ``"row"`` (this rank's input features; the partial
     product is all-reduced before the bias) or ``"column_gather"`` (a
-    column-parallel head whose output slices are gathered whole)."""
+    column-parallel head whose output slices are gathered whole). Inside
+    :func:`~trlx_tpu_torch.parallel.sharding.sequence_parallel` a column
+    layer's input is the gathered ``T`` (:func:`_sp_gather`, whose backward
+    sums the ranks' partial gradients) and a row layer reduce-scatters its
+    partial product over ``T``."""
 
     tp: Optional[str] = None
     tp_group = None
@@ -490,13 +527,17 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        if self.tp is not None and self.tp != "row":
+        sp = seq_parallel_group() if self.tp is not None else None
+        if self.tp is not None and self.tp != "row" and sp is None:
             x = copy_to_group(x, self.tp_group)
         y = x @ self.kernel.to(self.dtype)
         if self.tp == "row":
-            y = reduce_from_group(y, self.tp_group)
+            y = reduce_from_group(y, self.tp_group) if sp is None else reduce_scatter_to_group(y, sp, 1)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            bias = self.bias
+            if self.tp == "row" and sp is not None:
+                bias = copy_to_group(bias, sp)  # added to this rank's rows: its gradient sums the ranks'
+            y = y + bias.to(self.dtype)
         if self.lora_r > 0 and adapters_enabled():
             y = y + (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * (self.lora_alpha / self.lora_r)
         if self.tp == "column_gather":
@@ -524,7 +565,9 @@ def merge_lora_state(state: Mapping[str, torch.Tensor], lora_alpha: float, lora_
 class Norm(nn.Module):
     """flax LayerNorm / RMSNorm: statistics in f32 with the one-pass variance
     ``E[x^2] - E[x]^2`` (clipped at 0), ``(x - mean) * (rsqrt(var + eps) *
-    scale) + bias``, output in ``dtype``."""
+    scale) + bias``, output in ``dtype``. On sequence-sharded rows the
+    parameters' gradients are summed over the ranks (Megatron-SP's
+    all-reduce of the sequence-parallel gradients)."""
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -544,9 +587,14 @@ class Norm(nn.Module):
             mean = xf.mean(dim=-1, keepdim=True)
             var = (mean2 - mean * mean).clamp(min=0.0)
             y = xf - mean
-        y = y * (torch.rsqrt(var + self.eps) * self.scale.float())
-        if self.bias is not None:
-            y = y + self.bias.float()
+        sp = seq_parallel_group()
+        scale, bias = self.scale, self.bias
+        if sp is not None:
+            scale = copy_to_group(scale, sp)
+            bias = None if bias is None else copy_to_group(bias, sp)
+        y = y * (torch.rsqrt(var + self.eps) * scale.float())
+        if bias is not None:
+            y = y + bias.float()
         return y.to(self.dtype)
 
 
@@ -588,10 +636,12 @@ class Attention(nn.Module):
     bias), and ``tp_kv = (mode, index, group)`` rebuilds the key / value
     heads its query heads read when they are not its own slice: ``mode``
     ``"gather"`` (model-sharded k/v features gathered whole) or ``"copy"``
-    (replicated k/v), then ``index`` picks the heads."""
+    (replicated k/v), then ``index`` picks the heads. ``seq_group`` is the
+    ``model`` group ring attention runs over."""
 
     tp_heads: Optional[slice] = None
     tp_kv = None
+    seq_group = None
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -627,15 +677,22 @@ class Attention(nn.Module):
         prefill from slot 0: with ``attention_impl="flash"`` it attends
         through the flash kernel over this forward's own k/v."""
         c = self.config
+        sp = seq_parallel_group()
+        x = _sp_gather(x, sp)
         B, T, _ = x.shape
         scale = 1.0 / math.sqrt(c.dim_per_head)
         n_prefix = _virtual_tokens(c, "prefix")
-        q = self.q_proj(x).reshape(B, T, c.num_heads, c.dim_per_head)
+        # the reference's ring conditions: otherwise the plain path below
+        ring = (c.attention_impl == "ring" and cache is None and kv_valid is not None
+                and c.pos_embedding != "alibi" and c.peft_type != "prefix" and seq_shardable(self.seq_group, T))
+        q = self.q_proj(_sp_in(self.q_proj, x, sp)).reshape(B, T, c.num_heads, c.dim_per_head)
+        kf, vf = (proj(_sp_in(proj, x, sp)) for proj in (self.k_proj, self.v_proj))
         if self.tp_kv is None:
-            k = self.k_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
-            v = self.v_proj(x).reshape(B, T, c.kv_heads, c.dim_per_head)
+            k = kf.reshape(B, T, c.kv_heads, c.dim_per_head)
+            v = vf.reshape(B, T, c.kv_heads, c.dim_per_head)
         else:
-            k, v = (self._tp_kv_heads(proj(x)) for proj in (self.k_proj, self.v_proj))
+            # ring attention reads every key / value head of its shard
+            k, v = (self._tp_kv_heads(f, index=not ring) for f in (kf, vf))
         if self.tp_heads is not None and mask_bias is not None and mask_bias.shape[1] > 1:
             mask_bias = mask_bias[:, self.tp_heads]
         if c.pos_embedding == "rotary":
@@ -671,6 +728,9 @@ class Attention(nn.Module):
                 )
             out = out.reshape(B, T, c.num_heads * c.dim_per_head).to(c.compute_dtype)
             return self.o_proj(out), cache
+
+        if ring:
+            return self._ring(q, k, v, kv_valid, scale, sp), cache
 
         if cache is not None:
             write_kv_cache(cache, k.transpose(1, 2), v.transpose(1, 2), cache["index"])
@@ -739,17 +799,62 @@ class Attention(nn.Module):
                 probs = probs.to(c.compute_dtype).to(dt)
                 out = torch.einsum("bhts,bhsd->bthd", probs, vh)
         out = out.reshape(B, T, c.num_heads * c.dim_per_head)
-        return self.o_proj(out), cache
+        return _sp_out(self.o_proj, self.o_proj(out), sp), cache
 
+    def _ring(self, q, k, v, kv_valid, scale, sp):
+        """Ring attention over ``seq_group``: q/k/v [B, T, heads, D] to
+        every head of this rank's ``T / n`` rows (an all-to-all from this
+        rank's heads, a slice of whole heads), the ring, and back."""
+        c, g = self.config, self.seq_group
+        B, T = q.shape[:2]
+        q_local = self.tp_heads is not None
+        kv_local = q_local and self.tp_kv is None
 
-    def _tp_kv_heads(self, kv: torch.Tensor) -> torch.Tensor:
+        def to_seq(t, local):
+            # [B, T, h, D] -> [B, heads, T/n, D]
+            t = all_to_all_op(t, g, 1, 2) if local else scatter_to_group(t, g, 1)
+            return t.transpose(1, 2)
+
+        n = T // g.size
+        valid = kv_valid.to(torch.int32).narrow(1, g.index * n, n)
+        out = ring_attention(to_seq(q, q_local), to_seq(k, kv_local), to_seq(v, kv_local), g, True, scale, valid)
+        out = out.transpose(1, 2)
+        out = all_to_all_op(out, g, 2, 1) if q_local else gather_from_group(out, g, 1)
+        out = out.reshape(B, T, c.num_heads * c.dim_per_head).to(c.compute_dtype)
+        return _sp_out(self.o_proj, self.o_proj(out), sp)
+
+    def _tp_kv_heads(self, kv: torch.Tensor, index: bool = True) -> torch.Tensor:
         """[B, T, features] of a k or v projection -> the [B, T, heads, D]
-        this rank's query heads read."""
-        mode, index, group = self.tp_kv
+        this rank's query heads read (every head with ``index=False``)."""
+        mode, heads, group = self.tp_kv
         B, T, _ = kv.shape
+        if not index:
+            # every rank reads every head (of its rows): whole gradients, nothing summed
+            kv = gather_from_group(kv, group, -1) if mode == "gather" else kv
+            return kv.reshape(B, T, -1, self.config.dim_per_head)
         kv = gather_reduce_scatter(kv, group, -1) if mode == "gather" else copy_to_group(kv, group)
         kv = kv.reshape(B, T, -1, self.config.dim_per_head)
-        return kv if index is None else kv.index_select(2, index.to(kv.device))
+        return kv if heads is None else kv.index_select(2, heads.to(kv.device))
+
+
+def _sp_gather(x: torch.Tensor, sp) -> torch.Tensor:
+    """Inside sequence parallelism: the whole ``T`` of a sequence-sharded
+    activation for the layers that consume it (the backward reduce-scatters
+    their gradients back to this rank's rows)."""
+    return x if sp is None else gather_reduce_scatter(x, sp, 1)
+
+
+def _sp_in(dense: "Dense", x: torch.Tensor, sp) -> torch.Tensor:
+    """A replicated layer's share of the gathered input's gradient: its
+    gradient is whole on every rank, and the gather's reduce-scatter sums
+    the ranks."""
+    return x if sp is None or dense.tp is not None else scale_grad(x, 1.0 / sp.size)
+
+
+def _sp_out(dense: "Dense", y: torch.Tensor, sp) -> torch.Tensor:
+    """Back to this rank's rows after a layer whose output is whole (a row
+    layer reduce-scatters by itself)."""
+    return y if sp is None or dense.tp == "row" else scatter_to_group(y, sp, 1)
 
 
 class MLP(nn.Module):
@@ -767,11 +872,13 @@ class MLP(nn.Module):
         self.act = _act(c.activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sp = seq_parallel_group()
+        x = _sp_gather(x, sp)
         if self.config.glu:
-            h = self.act(self.gate_proj(x)) * self.up_proj(x)
+            h = self.act(self.gate_proj(_sp_in(self.gate_proj, x, sp))) * self.up_proj(_sp_in(self.up_proj, x, sp))
         else:
-            h = self.act(self.up_proj(x))
-        return self.down_proj(h)
+            h = self.act(self.up_proj(_sp_in(self.up_proj, x, sp)))
+        return _sp_out(self.down_proj, self.down_proj(h), sp)
 
 
 class Block(nn.Module):
@@ -841,15 +948,30 @@ def forward_from(model: nn.Module, hidden, attention_mask, positions, start_laye
     kernel under the key mask ``attention_mask``."""
     if model.config.stacked:
         raise NotImplementedError(STACKED_BRANCH_ERROR)
-    B, T, _ = hidden.shape
+    sp = capture_seq_group(model, hidden, attention_mask)
+    B, T = hidden.shape[0], hidden.shape[1] * (sp.size if sp is not None else 1)
     default_positions, mask_bias = make_attn_bias(model.config, attention_mask, B, T, hidden.device)
     if positions is None:
         positions = default_positions
     x = hidden
-    for i in range(start_layer, model.config.num_layers):
-        x, _ = run_block(getattr(model, f"layers_{i}"), x, mask_bias, positions, None, attention_mask)
+    with sequence_parallel(sp):
+        for i in range(start_layer, model.config.num_layers):
+            x, _ = run_block(getattr(model, f"layers_{i}"), x, mask_bias, positions, None, attention_mask)
+    if sp is not None:
+        x = constrain_gathered(x, sp)
     logits, _ = model._final(x)
     return logits
+
+
+def capture_seq_group(model: nn.Module, hidden: torch.Tensor, attention_mask: Optional[torch.Tensor]):
+    """The group a captured activation is sequence-sharded over (a hydra
+    capture, the value branch's input, under ``sequence_sharding``), or
+    None: its rows are ``T / model`` of the key mask's ``T``."""
+    group = getattr(model, "seq_group", None)
+    if not model.config.sequence_sharding or group is None or attention_mask is None:
+        return None
+    T = attention_mask.shape[1]
+    return group if hidden.shape[1] * group.size == T and seq_shardable(group, T) else None
 
 
 def _model_dim(spec) -> int:
@@ -865,38 +987,42 @@ def set_tensor_parallel(module: nn.Module, specs: Mapping[str, Any], group) -> N
     shapes): Dense layers column / row parallel by the dim their kernel
     shards over ``model``, attention to this rank's heads, a vocab-sharded
     embedding to the vocab-parallel lookup and tied head. The caller then
-    slices the parameters (:func:`trlx_tpu_torch.parallel.sharding.apply_tensor_parallel`).
-    Raises for a layout the port does not split: query heads that do not
-    divide the axis, a stacked trunk."""
+    slices the parameters (:func:`trlx_tpu_torch.parallel.sharding.apply_mesh`).
+    A stacked trunk's leaves carry the layer dim first: its specs name the
+    same dims one further on. Every module with a ``seq_group`` takes the
+    group (sequence sharding and ring attention run over it). Raises for
+    query heads that do not divide the axis."""
     m, r = group.size, group.index
     names = dict(module.named_modules())
     for pre, sub in names.items():
         key = f"{pre}." if pre else ""
-        if isinstance(sub, StackedBlock):
-            raise NotImplementedError("tensor parallelism over a stacked trunk: scale-out slice 2")
+        # a stacked leaf's spec leads with its layer dim
+        off = 1 if "layers_scan" in pre.split(".") else 0
+        if hasattr(type(sub), "seq_group"):
+            sub.seq_group = group
         if isinstance(sub, Dense):
             dim = _model_dim(specs[key + "kernel"])
             if dim >= 0:
-                sub.tp, sub.tp_group = ("row" if dim == 0 else "column"), group
+                sub.tp, sub.tp_group = ("row" if dim == off else "column"), group
                 if pre.endswith("lm_head"):
                     sub.tp = "column_gather"
         elif isinstance(sub, Embed) and _model_dim(specs[key + "embedding"]) == 0:
             sub.tp_group = group
             sub.tp_vocab_start = r * (sub.embedding.shape[0] // m)
-        elif isinstance(sub, Attention):
-            _tp_attention(sub, specs, key, group)
+        if isinstance(sub, Attention):
+            _tp_attention(sub, specs, key, group, off)
     kv = {a.config.kv_heads for a in module.modules() if isinstance(a, Attention)}
     for sub in module.modules():
         if isinstance(sub, TransformerLM) and kv:
             sub.tp_kv_heads = max(kv)
 
 
-def _tp_attention(attn: Attention, specs, key: str, group) -> None:
+def _tp_attention(attn: Attention, specs, key: str, group, off: int = 0) -> None:
     c = attn.config
     m, r = group.size, group.index
     H, Hkv, D = c.num_heads, c.kv_heads, c.dim_per_head
-    q_sharded = _model_dim(specs[key + "q_proj.kernel"]) == 1
-    kv_sharded = _model_dim(specs[key + "k_proj.kernel"]) == 1
+    q_sharded = _model_dim(specs[key + "q_proj.kernel"]) == 1 + off
+    kv_sharded = _model_dim(specs[key + "k_proj.kernel"]) == 1 + off
     if not q_sharded:
         # the query heads stay whole on every rank: so must the keys
         if kv_sharded:
@@ -920,6 +1046,29 @@ def _tp_attention(attn: Attention, specs, key: str, group) -> None:
         attn.tp_kv = ("gather" if kv_sharded else "copy", torch.tensor(index, dtype=torch.long), group)
         kv_local = len(index)
     attn.config = c.replace(num_heads=Hl, num_kv_heads=kv_local, head_dim=D)
+
+
+def set_pipeline(module: nn.Module, mesh) -> None:
+    """Give every :class:`TransformerLM` in ``module`` its place on the
+    mesh's ``pipe`` axis (> 1): a stacked trunk with ``pipeline_stages``
+    equal to the axis (each rank keeps ``num_layers / pipe`` layers: the
+    caller slices them). Raises for a trunk that cannot split: a listed or
+    otherwise staged trunk, or layers the axis does not divide."""
+    from trlx_tpu_torch.parallel.pipeline import stage_of
+
+    stages = mesh.shape["pipe"]
+    for sub in module.modules():
+        if not isinstance(sub, TransformerLM):
+            continue
+        c = sub.config
+        if c.pipeline_stages != stages:
+            raise ValueError(
+                f"pipeline_stages={c.pipeline_stages} does not match the mesh's "
+                f"pipe axis size {stages}"
+            )
+        if c.num_layers % stages:
+            raise ValueError(f"num_layers={c.num_layers} not divisible by pipeline_stages={stages}")
+        sub.pipe = stage_of(mesh)
 
 
 @torch.no_grad()
@@ -958,9 +1107,13 @@ class TransformerLM(nn.Module):
     """Decoder-only LM. ``forward`` returns (logits, final_hidden,
     branch activation, cache) as the JAX module's ``__call__`` does.
     ``tp_kv_heads`` is the rank's key / value head count under tensor
-    parallelism (its cache's width)."""
+    parallelism (its cache's width), ``seq_group`` the ``model`` group the
+    sequence shards over, ``pipe`` the trunk's
+    :class:`~trlx_tpu_torch.parallel.pipeline.PipeStage` on a pipe axis."""
 
     tp_kv_heads: Optional[int] = None
+    seq_group = None
+    pipe = None
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -1013,6 +1166,12 @@ class TransformerLM(nn.Module):
             if capture_set:
                 raise NotImplementedError(STACKED_CAPTURE_ERROR)
             block = self.layers_scan
+            if self.pipe is not None:
+                from trlx_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_decode
+
+                if layer_cache(0) is None:
+                    return pipeline_apply(self.config, block, x, mask_bias, positions, kv_valid, self.pipe)
+                return pipeline_decode(block, x, mask_bias, positions, layer_cache, kv_valid, self.pipe)
             for i, params in enumerate(block.layer_params()):
                 x, _ = run_block(block, x, mask_bias, positions, layer_cache(i), kv_valid, params=params)
             return x
@@ -1025,6 +1184,11 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed_tokens.embedding.device
+
+    @property
+    def local_layers(self) -> int:
+        """The layers this rank holds (its stage's on a pipe axis)."""
+        return self.config.num_layers // (self.pipe.stages if self.pipe is not None else 1)
 
     def init_params(self, seed: int = 0) -> "TransformerLM":
         """Random weights from ``seed`` (:func:`init_params`)."""
@@ -1149,7 +1313,16 @@ class TransformerLM(nn.Module):
             out["index"] = cache["index"]
             return out
 
-        x = self._run_layers(x, mask_bias, layer_positions, layer_cache, kv_valid, capture_set, captures)
+        # Megatron-SP (cache-free forwards): the stream stays sharded over T
+        # through every block and is gathered before the heads
+        sp = None
+        if c.sequence_sharding and cache is None:
+            sharded = constrain_seq(x, self.seq_group)
+            sp, x = (self.seq_group if sharded is not x else None), sharded
+        with sequence_parallel(sp):
+            x = self._run_layers(x, mask_bias, layer_positions, layer_cache, kv_valid, capture_set, captures)
+        if sp is not None:
+            x = constrain_gathered(x, sp)
         if last_only:
             x = x[:, -1:]
         elif nv_rows:
@@ -1174,7 +1347,7 @@ class TransformerLM(nn.Module):
     def _layer_buffers(self, layout: Dict[str, Tuple]) -> Dict[str, Any]:
         """Zeros per ``{key: (shape, dtype)}``: one ``[L, *shape]`` tensor a
         key in a stacked layout, else a list of L tensors."""
-        L, dev = self.config.num_layers, self.device
+        L, dev = self.local_layers, self.device
         if self.config.stacked:
             return {key: torch.zeros((L,) + tuple(shp), dtype=dt, device=dev) for key, (shp, dt) in layout.items()}
         return {key: [torch.zeros(shp, dtype=dt, device=dev) for _ in range(L)] for key, (shp, dt) in layout.items()}

@@ -3,8 +3,8 @@
 partition rules (:mod:`~trlx_tpu_torch.parallel.sharding`), the collectives
 (:mod:`~trlx_tpu_torch.parallel.collectives`), the ZeRO storage and the
 overlapped FSDP step (:mod:`~trlx_tpu_torch.parallel.fsdp`), the stacked
-layouts (:mod:`~trlx_tpu_torch.parallel.pipeline`) and the island carve.
-The ``pipe`` axis and sequence sharding come with scale-out slice 2."""
+layouts and the GPipe schedule over the ``pipe`` axis
+(:mod:`~trlx_tpu_torch.parallel.pipeline`) and the island carve."""
 
 from trlx_tpu_torch.parallel.mesh import (
     BATCH_AXES,

@@ -24,7 +24,18 @@ same on every rank and is not summed again.
 - :func:`gather_from_group`: forward all-gather, backward the local slice
   (local slices becoming replicated: vocab-parallel logits);
 - :func:`gather_reduce_scatter`: forward all-gather, backward
-  reduce-scatter (local slices each rank then uses differently).
+  reduce-scatter (local slices each rank then uses differently);
+- :func:`scatter_to_group`: forward the local slice, backward all-gather
+  (a replicated activation entering rank-local rows: Megatron-SP's scatter);
+- :func:`reduce_scatter_to_group`: forward reduce-scatter, backward
+  all-gather (row-parallel partial sums onto sequence-sharded rows).
+
+Point-to-point traffic (the pipe axis, the ring's rotation) goes through
+:func:`exchange`: NCCL's ``batch_isend_irecv`` on the tensors, gloo on host
+copies (pinned on a card) when the tensors live on CUDA, counted by
+:func:`staged` like the collectives. :func:`sequence_counts` counts the
+sequence-parallel scatters and the ring rotations, so a run can show that
+the sequence path ran.
 """
 
 import contextlib
@@ -35,6 +46,7 @@ import torch
 
 _STAGED = {"calls": 0, "bytes": 0}
 _CALLS = {"calls": 0}
+_SEQ = {"scatters": 0, "rotations": 0}
 _LOCK = threading.Lock()
 
 
@@ -50,10 +62,28 @@ def collective_calls() -> int:
         return _CALLS["calls"]
 
 
+def sequence_counts() -> Dict[str, int]:
+    """Sequence-parallel scatters (:func:`count_scatter`) and ring
+    rotations (:func:`count_rotation`) so far."""
+    with _LOCK:
+        return dict(_SEQ)
+
+
+def count_scatter() -> None:
+    with _LOCK:
+        _SEQ["scatters"] += 1
+
+
+def count_rotation() -> None:
+    with _LOCK:
+        _SEQ["rotations"] += 1
+
+
 def reset_counts() -> None:
     with _LOCK:
         _STAGED.update(calls=0, bytes=0)
         _CALLS["calls"] = 0
+        _SEQ.update(scatters=0, rotations=0)
 
 
 def _dist():
@@ -212,6 +242,87 @@ def barrier(group) -> None:
     all_reduce(torch.zeros(1, device=_barrier_device(group)), group)
 
 
+def broadcast(x: torch.Tensor, group, src_index: int) -> torch.Tensor:
+    """Group member ``src_index``'s ``x`` on every member (a new tensor on
+    the others; ``x`` gives the shape and dtype there)."""
+    if group is None or group.size == 1:
+        return x
+    dist = _dist()
+    src = dist.get_global_rank(group.pg, src_index) if group.pg is not dist.group.WORLD else src_index
+
+    def fn(t):
+        t = t.clone() if t is x else t
+        dist.broadcast(t, src=src, group=group.pg)
+        return t
+
+    return _run(fn, x.contiguous(), group)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """``x`` cut into ``group.size`` equal chunks along ``split_dim``, chunk
+    ``j`` sent to member ``j``, the received chunks concatenated along
+    ``cat_dim`` in member order."""
+    if group is None or group.size == 1:
+        return x
+    dist = _dist()
+    n = group.size
+
+    def fn(t):
+        # one flat exchange (gloo has all_to_all_single, not the list form)
+        send = torch.stack(t.chunk(n, dim=split_dim)).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group.pg)
+        return torch.cat(recv.unbind(0), dim=cat_dim)
+
+    return _run(fn, x.contiguous(), group)
+
+
+def global_rank(group, index: int) -> int:
+    """The world rank of group member ``index``."""
+    dist = _dist()
+    return dist.get_global_rank(group.pg, index) if group.pg is not dist.group.WORLD else index
+
+
+def exchange(sends, recvs, group) -> list:
+    """Point-to-point traffic over ``group``'s process group:
+    ``sends`` = [(tensor, world rank)], ``recvs`` = [(like, world rank)]
+    (``like`` a tensor whose shape, dtype and device the message takes),
+    posted together and waited on. Returns the received tensors. On gloo
+    a CUDA message goes through a host copy (pinned), counted by
+    :func:`staged`; NCCL takes the tensors as they are."""
+    dist = _dist()
+    if not sends and not recvs:
+        return []
+    cuda = any(t.device.type == "cuda" for t, _ in list(sends) + list(recvs))
+    staged_now = cuda and dist.get_backend(group.pg) == "gloo"
+    nbytes = sum(t.numel() * t.element_size() for t, _ in list(sends) + list(recvs))
+    with _LOCK:
+        _CALLS["calls"] += 1
+        if staged_now:
+            _STAGED["calls"] += 1
+            _STAGED["bytes"] += nbytes
+    if staged_now:
+        # gloo kills the sender on send / recv of CUDA tensors: host copies
+        # (no path with one rank or NCCL reaches this line)
+        out_sends = [(_pinned(t).copy_(t), r) for t, r in sends]  # graftcheck: noqa[TX002] gloo takes host tensors
+        bufs = [_pinned(like) for like, _ in recvs]
+    else:
+        out_sends = [(t.contiguous(), r) for t, r in sends]
+        bufs = [torch.empty(like.shape, dtype=like.dtype, device=like.device) for like, _ in recvs]
+    ops = [dist.P2POp(dist.isend, t, r, group.pg) for t, r in out_sends]
+    ops += [dist.P2POp(dist.irecv, b, r, group.pg) for b, (_, r) in zip(bufs, recvs)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged_now:
+        # the received host copies back to the card
+        return [b.to(like.device) for b, (like, _) in zip(bufs, recvs)]  # graftcheck: noqa[TX002]
+    return bufs
+
+
+def _pinned(like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(like.shape, dtype=like.dtype, device="cpu", pin_memory=True)
+
+
 def _barrier_device(group):
     if _dist().get_backend(group.pg) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
@@ -264,6 +375,51 @@ class _GatherReduceScatter(torch.autograd.Function):
         return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return local_slice(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim):
+        ctx.group, ctx.dims = group, (split_dim, cat_dim)
+        return all_to_all(x, group, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return all_to_all(g.contiguous(), ctx.group, cat_dim, split_dim), None, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 def _active(group) -> bool:
     return group is not None and group.size > 1
 
@@ -282,6 +438,26 @@ def gather_from_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
 
 def gather_reduce_scatter(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     return _GatherReduceScatter.apply(x, group, dim % x.dim()) if _active(group) else x
+
+
+def scatter_to_group(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    return _ScatterToGroup.apply(x, group, dim % x.dim()) if _active(group) else x
+
+
+def reduce_scatter_to_group(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    return _ReduceScatterToGroup.apply(x, group, dim % x.dim()) if _active(group) else x
+
+
+def all_to_all_op(x: torch.Tensor, group, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all` with its inverse as the backward (heads <-> sequence relayouts)."""
+    if not _active(group):
+        return x
+    return _AllToAll.apply(x, group, split_dim % x.dim(), cat_dim % x.dim())
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Forward identity, backward the gradient times ``scale``."""
+    return _ScaleGrad.apply(x, scale) if scale != 1.0 else x
 
 
 # -- batch-global statistics ---------------------------------------------------

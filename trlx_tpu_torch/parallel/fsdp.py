@@ -8,9 +8,14 @@ rank's shard (``master``, what the optimizer updates), and the module's
 parameter is empty between uses; :meth:`ShardedParams.gathered` all-gathers
 every such leaf for a forward and frees them after. Leaves sharded over
 ``model`` are already this rank's slice (:func:`~trlx_tpu_torch.parallel.
-sharding.apply_tensor_parallel`). The gradient of a full leaf reaches its
-master through :meth:`ShardedParams.reduce_grads`: reduce-scatter over
-``fsdp``, all-reduce over ``data``.
+sharding.apply_mesh`), and so are a stacked trunk's leaves over ``pipe``
+(this stage's layers); the fsdp shard is cut from that block on the dim
+the rule names, so the gathers and reduce-scatters work per stage. The
+gradient of a full leaf reaches its master through
+:meth:`ShardedParams.reduce_grads`: reduce-scatter over ``fsdp``,
+all-reduce over ``data``; nothing is summed over ``pipe`` (each stage's
+layers are its own, and the leaves whole over ``pipe`` get the same whole
+gradient on every stage: :mod:`~trlx_tpu_torch.parallel.pipeline`).
 
 The overlapped step (:func:`make_overlapped_grad_accum_step`) is the
 reference's explicit schedule:
@@ -201,21 +206,21 @@ class ShardedParams:
 
     def full_tensor(self, leaf: Leaf, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor of a leaf-shaped local block (gathered over
-        ``fsdp`` then ``model``): a collective."""
+        ``fsdp``, then ``model`` and ``pipe``): a collective."""
         out = local
         if leaf.sharded:
             out = coll.all_gather(out, self.fsdp, leaf.fsdp_dim)
-        mdim = spec_dim(leaf.spec, MODEL_AXIS)
-        if mdim >= 0:
-            out = coll.all_gather(out, self.mesh.group(MODEL_AXIS), mdim)
+        for axis in (MODEL_AXIS, PIPE_AXIS):
+            d = spec_dim(leaf.spec, axis)
+            if d >= 0:
+                out = coll.all_gather(out, self.mesh.group(axis), d)
         return out
 
     def local_block(self, leaf: Leaf, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of a full tensor (the master's shape)."""
         from trlx_tpu_torch.parallel.sharding import shard_tensor
 
-        axes = [MODEL_AXIS] + ([FSDP_AXIS] if leaf.sharded else [])
-        return shard_tensor(full, leaf.spec, self.mesh, axes)
+        return shard_tensor(full, leaf.spec, self.mesh, split_axes(leaf))
 
     def full_state(self) -> Dict[str, torch.Tensor]:
         """``{name: full tensor}`` of every leaf (a collective)."""
@@ -229,6 +234,13 @@ class ShardedParams:
                 leaf.master.data.copy_(self.local_block(leaf, state[leaf.name].to(leaf.master.device)))
 
 
+def split_axes(leaf: Leaf) -> List[str]:
+    """The axes a leaf's master is split over: ``model`` and ``pipe`` where
+    its spec names them, ``fsdp`` where it is sharded."""
+    axes = [a for a in (MODEL_AXIS, PIPE_AXIS) if spec_dim(leaf.spec, a) >= 0]
+    return axes + ([FSDP_AXIS] if leaf.sharded else [])
+
+
 def global_norm_sharded(leaves: List[Leaf], grads: List[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """``optax.global_norm`` over gradients held as shards: a leaf's squares
     count on the ranks whose coordinates are 0 on every axis the leaf is
@@ -236,9 +248,7 @@ def global_norm_sharded(leaves: List[Leaf], grads: List[torch.Tensor], mesh: Mes
     dev = grads[0].device if grads else torch.device("cpu")
     total = torch.zeros((), dtype=torch.float32, device=dev)
     for leaf, g in zip(leaves, grads):
-        split = {FSDP_AXIS} if leaf.sharded else set()
-        if spec_dim(leaf.spec, MODEL_AXIS) >= 0:
-            split.add(MODEL_AXIS)
+        split = set(split_axes(leaf))
         if all(mesh.coords[a] == 0 for a in MESH_AXES if a not in split):
             total = total + torch.sum(torch.square(g.float()))
     return torch.sqrt(coll.all_reduce(total, mesh.world_group))

@@ -12,8 +12,12 @@ group per axis set the collectives need.
 - ``data``: pure data parallelism (gradients summed over the axis);
 - ``fsdp``: parameters and optimizer state sharded (ZeRO), gathered before
   use, gradients reduce-scattered;
-- ``model``: tensor parallelism (column / row parallel layers, Megatron);
-- ``pipe``: not ported yet (scale-out slice 2).
+- ``model``: tensor parallelism (column / row parallel layers, Megatron),
+  and the sequence dimension over the same ranks (``mesh.sequence_shard``,
+  ring attention);
+- ``pipe``: pipeline stages (a stacked trunk's layers split in ``pipe``
+  contiguous blocks, the GPipe schedule of
+  :func:`~trlx_tpu_torch.parallel.pipeline.pipeline_apply`).
 
 Launch contract, as the JAX package's: ``TRLX_NUM_PROCESSES``,
 ``TRLX_COORDINATOR`` (``host:port``, the ``tcp://`` rendezvous) and
@@ -42,7 +46,7 @@ MESH_AXES = (DATA_AXIS, FSDP_AXIS, PIPE_AXIS, MODEL_AXIS)
 # batch dims are sharded over both data axes (data + fsdp act as one data axis for inputs)
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 #: the axis sets a process group is built for (every rank builds them all, in this order)
-GROUP_AXES = ((DATA_AXIS,), (FSDP_AXIS,), (MODEL_AXIS,), BATCH_AXES, MESH_AXES)
+GROUP_AXES = ((DATA_AXIS,), (FSDP_AXIS,), (MODEL_AXIS,), (PIPE_AXIS,), BATCH_AXES, MESH_AXES)
 
 #: seconds a rank waits for the rendezvous and for each collective
 DEFAULT_TIMEOUT_S = 600.0
@@ -211,6 +215,20 @@ class Mesh:
         return self._groups[axes]
 
     @property
+    def pipe_group(self) -> AxisGroup:
+        return self.group(PIPE_AXIS)
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (its ``pipe`` coordinate)."""
+        return self.coords[PIPE_AXIS]
+
+    def stage_rank(self, stage: int) -> int:
+        """The world rank of pipeline stage ``stage`` at this rank's other
+        coordinates (the previous and next stages' ranks: ``stage -+ 1``)."""
+        return self.ranks_with({**{a: self.coords[a] for a in MESH_AXES if a != PIPE_AXIS}, PIPE_AXIS: stage})[0]
+
+    @property
     def batch_group(self) -> AxisGroup:
         return self.group(BATCH_AXES)
 
@@ -255,7 +273,8 @@ def mesh_from_config(mesh_config, device=None) -> Mesh:
 
 
 def batch_spec(extra_dims: int = 0) -> Tuple:
-    """The partition of a batch-leading array: dim 0 over the combined data axes."""
+    """The partition of a batch-leading array: dim 0 over the combined data
+    axes (replicated over ``pipe`` and ``model``)."""
     return (BATCH_AXES,) + (None,) * extra_dims
 
 

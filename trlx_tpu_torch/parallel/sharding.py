@@ -10,12 +10,27 @@ column / row parallel layers; :func:`_clip_spec` drops an axis that does not
 divide its dim (gpt2's 50,257-row embedding stays whole over ``model``).
 
 :func:`shard_tensor` cuts a rank's block out of a full tensor by its spec,
-and :func:`apply_tensor_parallel` turns a module's ``model``-sharded leaves
-into the rank's slices and switches its layers to their column / row
-parallel forwards (:mod:`trlx_tpu_torch.models.transformer`).
+and :func:`apply_mesh` turns a module's ``model``- and ``pipe``-sharded
+leaves into the rank's blocks (a stacked trunk keeps its stage's layers),
+switches its layers to their column / row parallel forwards and gives its
+trunks their pipeline stage (:mod:`trlx_tpu_torch.models.transformer`).
+
+The sequence dimension (Megatron-SP, ``mesh.sequence_shard``):
+:func:`constrain_seq` scatters an activation's sequence dim over ``model``
+(this rank keeps ``T / model`` rows; the backward all-gathers) and
+:func:`constrain_gathered` gathers it back before the heads (the backward
+keeps the local rows). Both keep the JAX functions' no-op conditions: no
+group (no mesh, or ``model == 1``), ``T % model != 0``, or a batch that
+does not divide the batch axes (:func:`replicated_batch`: the trainer
+keeps such a batch whole on every rank). Inside
+:func:`sequence_parallel` the layers know their residual stream is
+sharded: column-parallel layers gather ``T`` in front, row-parallel layers
+reduce-scatter over ``T`` instead of all-reducing.
 """
 
+import contextlib
 import re
+import threading
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -146,17 +161,81 @@ def batch_divisible(mesh: Mesh, batch_size: int) -> bool:
     return batch_size % int(np.prod([mesh.shape.get(a, 1) for a in BATCH_AXES])) == 0
 
 
-def constrain_gathered(x: torch.Tensor) -> torch.Tensor:
-    """The JAX function's sequence-dim gather before the heads. A no-op:
-    the port shards no sequence dim until the sequence-shard slice
-    (scale-out slice 2)."""
-    return x
+_SEQ = threading.local()
 
 
-def constrain_seq(x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
-    """The JAX function's sequence-parallel activation constraint. A no-op
-    until the sequence-shard slice (scale-out slice 2)."""
-    return x
+@contextlib.contextmanager
+def replicated_batch(on: bool = True):
+    """Mark the enclosed forwards' batch as kept whole on every rank (it
+    does not divide the batch axes): sequence sharding and ring attention
+    then fall through, as the JAX functions do for such a batch."""
+    prev = getattr(_SEQ, "replicated", False)
+    _SEQ.replicated = bool(on)
+    try:
+        yield
+    finally:
+        _SEQ.replicated = prev
+
+
+@contextlib.contextmanager
+def sequence_parallel(group):
+    """The enclosed layers run on sequence-sharded rows over ``group``
+    (None: not sharded)."""
+    prev = getattr(_SEQ, "group", None)
+    _SEQ.group = group
+    try:
+        yield
+    finally:
+        _SEQ.group = prev
+
+
+def seq_parallel_group():
+    """The group the residual stream is sequence-sharded over, or None."""
+    return getattr(_SEQ, "group", None)
+
+
+def seq_state():
+    """This thread's sequence state (group, replicated), for code that runs
+    a forward again elsewhere (a remat recompute on the autograd thread)."""
+    return getattr(_SEQ, "group", None), getattr(_SEQ, "replicated", False)
+
+
+@contextlib.contextmanager
+def restore_seq_state(state):
+    group, replicated = state
+    with replicated_batch(replicated), sequence_parallel(group):
+        yield
+
+
+def seq_shardable(group, length: int) -> bool:
+    """Whether a sequence of ``length`` shards over ``group``: the JAX
+    functions' conditions (a group of size > 1, the length divides it, the
+    batch divides the batch axes)."""
+    return (group is not None and group.size > 1 and length % group.size == 0
+            and not getattr(_SEQ, "replicated", False))
+
+
+def constrain_gathered(x: torch.Tensor, group, seq_dim: int = 1) -> torch.Tensor:
+    """Gather a sequence-sharded activation's ``seq_dim`` back over
+    ``group`` before the heads (Megatron's
+    ``gather_from_sequence_parallel_region``); the backward keeps this
+    rank's rows. The caller gathers only what :func:`constrain_seq` scattered."""
+    from trlx_tpu_torch.parallel.collectives import gather_from_group
+
+    return gather_from_group(x, group, seq_dim)
+
+
+def constrain_seq(x: torch.Tensor, group, seq_dim: int = 1) -> torch.Tensor:
+    """Megatron-SP's scatter: this rank's ``T / group.size`` rows of a
+    replicated activation (the backward all-gathers), counted by
+    ``collectives.sequence_counts()``. A no-op where
+    :func:`seq_shardable` says no."""
+    from trlx_tpu_torch.parallel.collectives import count_scatter, scatter_to_group
+
+    if not seq_shardable(group, x.shape[seq_dim]):
+        return x
+    count_scatter()
+    return scatter_to_group(x, group, seq_dim)
 
 
 def spec_dim(spec: PartitionSpec, axis: str) -> int:
@@ -181,22 +260,29 @@ def shard_tensor(full: torch.Tensor, spec: PartitionSpec, mesh: Mesh, axes: Sequ
     return out
 
 
-def apply_tensor_parallel(module: torch.nn.Module, mesh: Mesh, rules: Optional[Sequence[Rule]] = None
-                          ) -> Dict[str, PartitionSpec]:
-    """Tensor parallelism over ``model`` on a module holding full parameters
-    (identical on every rank): each ``model``-sharded leaf becomes this
-    rank's slice, and the layers read their modes from the specs
-    (:func:`trlx_tpu_torch.models.transformer.set_tensor_parallel`).
+def apply_mesh(module: torch.nn.Module, mesh: Mesh, rules: Optional[Sequence[Rule]] = None
+               ) -> Dict[str, PartitionSpec]:
+    """Tensor parallelism over ``model`` and pipeline stages over ``pipe``
+    on a module holding full parameters (identical on every rank): each
+    ``model``- or ``pipe``-sharded leaf becomes this rank's block (a
+    ``layers_scan`` leaf keeps layers ``[s L / p, (s + 1) L / p)`` on stage
+    ``s``; every other leaf stays whole over ``pipe``), the layers read
+    their modes from the specs
+    (:func:`trlx_tpu_torch.models.transformer.set_tensor_parallel`) and the
+    trunks their stage (:func:`~trlx_tpu_torch.models.transformer.set_pipeline`).
     Returns the module's specs over the full shapes."""
-    from trlx_tpu_torch.models.transformer import set_tensor_parallel
+    from trlx_tpu_torch.models.transformer import set_pipeline, set_tensor_parallel
 
     specs = make_param_specs(dict(module.named_parameters()), mesh, rules)
-    if mesh.shape[MODEL_AXIS] == 1:
+    axes = tuple(a for a in (MODEL_AXIS, PIPE_AXIS) if mesh.shape[a] > 1)
+    if not axes:
         return specs
-    group = mesh.group(MODEL_AXIS)
-    set_tensor_parallel(module, specs, group)
+    if mesh.shape[MODEL_AXIS] > 1:
+        set_tensor_parallel(module, specs, mesh.group(MODEL_AXIS))
+    if mesh.shape[PIPE_AXIS] > 1:
+        set_pipeline(module, mesh)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if spec_dim(specs[name], MODEL_AXIS) >= 0:
-                p.data = shard_tensor(p.data, specs[name], mesh, (MODEL_AXIS,)).clone()
+            if any(spec_dim(specs[name], a) >= 0 for a in axes):
+                p.data = shard_tensor(p.data, specs[name], mesh, axes).clone()
     return specs

@@ -53,9 +53,13 @@ exports it unstacked, and trains every layer: ``num_layers_unfrozen >= 0``
 raises, as the JAX trainer's freezing predicate does.
 
 Across ranks (``TRLX_NUM_PROCESSES`` > 1, :func:`~trlx_tpu_torch.parallel.mesh.
-initialize_distributed` first) the trainer builds the ``data × fsdp × model``
-mesh of ``config.mesh``: tensor parallelism over ``model``
-(:func:`~trlx_tpu_torch.parallel.sharding.apply_tensor_parallel`), ZeRO
+initialize_distributed` first) the trainer builds the ``data × fsdp × pipe
+× model`` mesh of ``config.mesh``: tensor parallelism over ``model`` and
+each stage's layers over ``pipe``
+(:func:`~trlx_tpu_torch.parallel.sharding.apply_mesh`; ``mesh.pipe > 1``
+stacks the trunk and runs the GPipe schedule, with the JAX trainer's
+refusals: :meth:`MeshRLTrainer.pipeline_overrides`), the sequence
+dimension over ``model`` under ``mesh.sequence_shard`` or ring attention, ZeRO
 storage over ``fsdp`` (:class:`~trlx_tpu_torch.parallel.fsdp.ShardedParams`,
 gathered for each forward phase), gradients summed over ``data × fsdp`` and
 the global-norm clip and health norm over every shard. Every rank holds the
@@ -71,7 +75,8 @@ replaces the step by the overlapped FSDP step
 (:func:`~trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step`).
 
 Config blocks of the JAX package that this port does not run yet raise
-``NotImplementedError`` naming their slice (:func:`check_port_config`);
+``NotImplementedError`` naming their slice (:func:`check_mesh_config`:
+T5, peft and ``offload_ref`` on more than one rank, scale-out slice 3);
 none is silently ignored.
 """
 
@@ -113,9 +118,10 @@ from trlx_tpu_torch.parallel.fsdp import (
     can_overlap,
     global_norm_sharded,
     make_overlapped_grad_accum_step,
+    split_axes,
 )
 from trlx_tpu_torch.parallel.pipeline import stack_layer_params
-from trlx_tpu_torch.parallel.sharding import apply_tensor_parallel, spec_dim
+from trlx_tpu_torch.parallel.sharding import apply_mesh, replicated_batch, spec_dim
 from trlx_tpu_torch.pipeline.tokenization import load_tokenizer
 from trlx_tpu_torch.resilience import Resilience, chaos_poison_batch, find_latest_committed, host_snapshot
 from trlx_tpu_torch.resilience.checkpoint import (
@@ -170,27 +176,17 @@ def check_mesh_config(config: TRLConfig) -> None:
     later = [
         (config.model.model_arch_type == "seq2seq", "seq2seq (T5) models"),
         (bool(config.model.peft_config), "model.peft_config"),
-        (bool((config.model.model_overrides or {}).get("scan_layers"))
-         or (config.model.model_overrides or {}).get("pipeline_stages", 1) > 1, "stacked layer layouts"),
         (config.model.offload_ref, "model.offload_ref"),
     ]
     for enabled, what in later:
         if enabled:
             raise NotImplementedError(f"trlx_tpu_torch does not run {what} on a mesh of more than one rank yet: "
-                                      "scale-out slice 2")
+                                      "scale-out slice 3")
 
 
 def check_port_config(config: TRLConfig) -> None:
-    """Raise ``NotImplementedError`` for every enabled config block that a
-    later slice of the port brings, naming that slice."""
-    mesh = config.mesh
-    later = [
-        (mesh.sequence_shard, "mesh.sequence_shard", "scale-out slice 2"),
-        (mesh.pipe not in (1, -1), f"mesh.pipe={mesh.pipe}", "scale-out slice 2"),
-    ]
-    for enabled, what, slice_name in later:
-        if enabled:
-            raise NotImplementedError(f"trlx_tpu_torch does not port {what} yet: {slice_name}")
+    """Warn for the config keys that configure XLA alone (every mesh axis,
+    ``mesh.sequence_shard`` and ring attention run in the port)."""
     for what in ("train.compilation_cache_dir", "mesh.compilation_cache_dir"):
         section, key = what.split(".")
         if getattr(getattr(config, section), key):
@@ -210,6 +206,8 @@ class MeshRLTrainer(BaseRLTrainer):
         # the process group before anything that picks a device
         mesh_lib.initialize_distributed(device=device)
         check_port_config(config)
+        # the pipe axis' refusals first, as the JAX trainers raise them in setup
+        self._pipeline_overrides = self.pipeline_overrides()
         self.device = resolve_device(device, type(self).__name__)
         self.mesh = mesh_lib.mesh_from_config(config.mesh, self.device)
         self.multi_rank = self.mesh.size > 1
@@ -298,6 +296,7 @@ class MeshRLTrainer(BaseRLTrainer):
         overrides.setdefault("remat", self.config.mesh.remat)
         overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
         overrides.update(peft_overrides(self.config.model.peft_config))
+        overrides.update(self._pipeline_overrides)
         self.model_config, trunk_state, self.model_type = load_pretrained(self.config.model.model_path, overrides)
         trunk_state = self.maybe_stack_loaded(trunk_state)
         with torch.device(self.device):
@@ -310,6 +309,39 @@ class MeshRLTrainer(BaseRLTrainer):
             # before a hydra branch is cut from per-layer names
             self.trainable_path_predicate("transformer.layers_scan")
         return module
+
+    def pipeline_overrides(self) -> Dict[str, Any]:
+        """Model overrides enabling pipeline parallelism when ``mesh.pipe >
+        1`` (the stacked layout and the GPipe schedule,
+        :mod:`trlx_tpu_torch.parallel.pipeline`), with the JAX trainer's
+        refusals: stacked layers have no per-layer parameter paths, so
+        partial layer freezing and the hydra / value branches (which capture
+        a mid-stack activation) are unavailable, and PPO uses the full
+        reference copy it uses at ``num_layers_unfrozen=-1``."""
+        mc = self.config.mesh
+        if mc.pipe <= 1:
+            return {}
+        if self.config.model.model_arch_type == "seq2seq":
+            raise ValueError("pipeline parallelism (mesh.pipe > 1) is causal-LM only")
+        if self.config.model.num_layers_unfrozen >= 0:
+            raise ValueError(
+                "mesh.pipe > 1 requires num_layers_unfrozen=-1: pipelined models "
+                "keep block params stacked and cannot freeze or branch at a layer "
+                "boundary (PPO then uses a full reference copy automatically)"
+            )
+        if getattr(self.config.method, "num_value_layers_unfrozen", 0):
+            raise ValueError("mesh.pipe > 1 requires num_value_layers_unfrozen=0")
+        overrides: Dict[str, Any] = {
+            "pipeline_stages": mc.pipe,
+            "pipeline_microbatches": mc.pipeline_microbatches,
+        }
+        if mc.sequence_shard:
+            logger.warning(
+                "mesh.sequence_shard is disabled under pipeline parallelism: "
+                "the pipelined stack applies no sequence-sharding constraints"
+            )
+            overrides["sequence_sharding"] = False
+        return overrides
 
     def maybe_stack_loaded(self, trunk_state):
         """A loaded per-layer trunk ``state_dict`` in the stacked layout when
@@ -380,7 +412,7 @@ class MeshRLTrainer(BaseRLTrainer):
         modules = self.sharded_modules()
         specs = {}
         for prefix, module in modules.items():
-            for name, spec in apply_tensor_parallel(module, self.mesh).items():
+            for name, spec in apply_mesh(module, self.mesh).items():
                 specs[f"{prefix}.{name}" if prefix else name] = spec
         self.shards = ShardedParams(modules, specs, self.mesh)
         logger.info(f"mesh {self.mesh.shape}: {sum(leaf.sharded for leaf in self.shards.leaves)} leaves sharded "
@@ -473,7 +505,7 @@ class MeshRLTrainer(BaseRLTrainer):
             if split and (blockwise or opt_name == "adafactor"):
                 raise NotImplementedError(
                     f"optimizer {opt_name!r} over sharded leaves in the default step (its state spans the whole "
-                    "leaf): scale-out slice 2; use learner_overlap.int8_opt_state for 8-bit AdamW over fsdp")
+                    "leaf): scale-out slice 3; use learner_overlap.int8_opt_state for 8-bit AdamW over fsdp")
         self.optimizer = get_optimizer_class(opt_name)(
             self.trainable_params, learning_rate=1.0, **kwargs
         )
@@ -548,7 +580,8 @@ class MeshRLTrainer(BaseRLTrainer):
                         replicated = rows is None
                         if not replicated:
                             mb, group = mb.split(dp)[self.mesh.axis_index(mesh_lib.BATCH_AXES)], self.mesh.batch_group
-                    with coll.batch_group(group):
+                    # a batch kept whole on every rank shards no sequence
+                    with coll.batch_group(group), replicated_batch(replicated):
                         loss, stats = loss_fn(mb)
                     loss.backward()
                     if guard is not None:
@@ -667,7 +700,8 @@ class MeshRLTrainer(BaseRLTrainer):
         processor = self.gen_logits_processor(**proc_kwargs)
         # the span closes after the host fetch: decode runs asynchronously
         # until it, so timing the launches alone would undercount
-        with self.obs.span("generate"), self.params_gathered():
+        replicated = self.multi_rank and rows is None and mesh_lib.dp_size(self.mesh) > 1
+        with self.obs.span("generate"), self.params_gathered(), replicated_batch(replicated):
             if policy is None:
                 policy = self.generation_model()
             if self.is_seq2seq:
@@ -1171,10 +1205,8 @@ class MeshRLTrainer(BaseRLTrainer):
 
     def _full_shape(self, leaf):
         shape = list(leaf.master.shape)
-        for axis in ("fsdp", "model"):
-            d = spec_dim(leaf.spec, axis)
-            if d >= 0 and (axis == "model" or leaf.sharded):
-                shape[d] *= self.mesh.shape[axis]
+        for axis in split_axes(leaf):
+            shape[spec_dim(leaf.spec, axis)] *= self.mesh.shape[axis]
         return tuple(shape)
 
     def _save_checkpoint(self, directory: str, block: bool = False):

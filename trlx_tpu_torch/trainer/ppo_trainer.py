@@ -118,6 +118,7 @@ from trlx_tpu_torch.obs.flight import flight
 from trlx_tpu_torch.obs.overlap import OverlapWindow
 from trlx_tpu_torch.ops.generation import left_pad_batch, pad_to_bucket
 from trlx_tpu_torch.parallel.mesh import carve_islands
+from trlx_tpu_torch.parallel.sharding import replicated_batch
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage, ppo_collate_fn
 from trlx_tpu_torch.resilience.chaos import chaos
 from trlx_tpu_torch.resilience.quarantine import ExperienceQuarantine, chaos_corrupt_elements
@@ -477,7 +478,8 @@ class PPOTrainer(MeshRLTrainer):
         rows = mesh_lib.local_rows(self.mesh, len(seq)) if self.multi_rank else None
         if rows is not None:  # this rank's rows, then the whole batch on every rank
             seq, mask = seq[rows], mask[rows]
-        with self.params_gathered():
+        replicated = self.multi_rank and rows is None and mesh_lib.dp_size(self.mesh) > 1
+        with self.params_gathered(), replicated_batch(replicated):
             out = self._score_device(torch.from_numpy(seq).to(self.device), torch.from_numpy(mask).to(self.device),
                                      P, R, policy=policy)
         if rows is not None:

@@ -359,7 +359,36 @@ Phases, each printing one JSON line:
                   K2 and K3 held at the stage's microbatch rows and, under
                   sequence sharding, at 6 heads and the whole length (the
                   ring run launches none: the reference keeps ring
-                  attention off the flash kernels).
+                  attention off the flash kernels). (d), at the same
+                  time, a second one-rank process and two more groups of
+                  two: the native store (the CLI converts gpt2 from seed
+                  0 in bf16 through ``--dtype`` in the background,
+                  ``inspect``; the port's writer stores the card trainer's
+                  own seed-0 init in f32; each restored onto ``cuda:0``
+                  ``torch.equal`` to its source; PPO from the f32 store
+                  ``==`` (a)'s, and its ``fsdp=2`` / ``model=2`` blocks
+                  ``torch.equal`` their slices, with the chunk bytes each
+                  rank read), LoRA r 8 on ``fsdp=2`` and ``model=2``
+                  (within 1e-3 of one rank, the trunk and the adapter
+                  export ``torch.equal``), t5-small on ``model=2``
+                  (sampled; within 1e-3, no launch), ``offload_ref`` on
+                  ``fsdp=2`` (scoring ``==`` (b)'s resident sharded
+                  reference, host bytes ~half the reference's), 8-bit
+                  AdamW and Adafactor on ``fsdp=2`` (state bytes a rank
+                  = the formula, this rank's blocks; Adafactor's
+                  parameters within 1e-5 of one rank, 8-bit's within
+                  twice f32 AdamW's own two-rank difference, since the
+                  ranks sum gradients in another order; and, after the
+                  run, each rank's whole-leaf step within 1e-6 of the
+                  plain optimizer's step on the same seeded gradient and
+                  state, 8-bit's codes within 1 of it and at most 0.1%
+                  differing).
+
+The learning gates (14, 20, 21, 22, 28: tiny models, no launch counts, no
+time held to a bar) run in this order in a child process started after
+``serving_fleet``, beside ``families_seq2seq`` to ``analysis``, none of
+which holds a time to a bar; their lines are printed when the child ends
+(``gates_child`` and ``gates_wait`` in the phase seconds).
 
 Then the seconds of each phase (``{"phase_seconds": {...}}``), the kernel
 table (``{"kernels": [...]}``) and, last, the result line
@@ -380,12 +409,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity", "engine_spec",
-          "train_parity", "train", "train_serving", "sft_parity", "sft", "randomwalks",
+          "train_parity", "train", "train_serving", "sft_parity", "sft",
           "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
-          "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft",
-          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "randomwalks_async", "resilience",
-          "observability", "production_serving", "serving_fleet", "families_seq2seq", "peft_memory", "stacked",
-          "scale_out", "analysis")
+          "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "resilience",
+          "observability", "production_serving", "serving_fleet",
+          "randomwalks", "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft", "randomwalks_async",
+          "families_seq2seq", "peft_memory", "stacked", "scale_out", "analysis")
+#: the learning gates: tiny models, no launch counts and no timing bar. In a
+#: whole run they run in order in a child process (:func:`gates_start`)
+#: beside the phases after them, none of which holds a time to a bar
+GATE_PHASES = ("randomwalks", "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft", "randomwalks_async")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -528,15 +561,13 @@ def phase_env(ctx):
     smi = nvidia_smi_line()
     print(smi, flush=True)
     ctx["smi"] = smi
-    try:  # the native store's reader would need it (ROADMAP: the pre-converted store)
-        import tensorstore  # noqa: F401
+    # the native store's zstd (libzstd through ctypes); without it the port writes uncompressed stores
+    from trlx_tpu_torch.store import zstd
 
-        tensorstore_ok = True
-    except ImportError:
-        tensorstore_ok = False
     emit({"phase": "env", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0], "tensorstore_imports": tensorstore_ok})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0], "libzstd_loads": zstd.available(),
+          "libzstd_version": zstd.version()})
 
 
 def ptxas_per_function(log):
@@ -6272,13 +6303,13 @@ method.init_kl_coef:
   values: [0.0, 0.01]
 pretrain_steps:
   strategy: "choice"
-  values: [5]
+  values: [2]
 train.total_steps:
   strategy: "choice"
   values: [2]
 train.eval_interval:
   strategy: "choice"
-  values: [1]
+  values: [2]
 train.tracker:
   strategy: "choice"
   values: [null]
@@ -6290,9 +6321,9 @@ train.checkpoint_dir:
 
 def fs_sweep(ctx, device="cuda"):
     """Leg ``sweep``: ``python -m trlx_tpu_torch.sweep
-    scripts/torch_ppo_randomwalks.py`` over a 2-trial grid (5 SFT steps, 2
-    PPO steps, evals at 0, 1 and 2; 20, 4 and every 2 until PR 14 cut them
-    for the script's time limit), one trial at a time on the card: the
+    scripts/torch_ppo_randomwalks.py`` over a 2-trial grid (2 SFT steps, 2
+    PPO steps, evals at 0 and 2: cut for the script's time limit), one
+    trial at a time on the card: the
     results jsonl holds both trials, each with rc 0 and its reward/mean, and
     the markdown report is written."""
     import shutil
@@ -7633,13 +7664,198 @@ SO_PIPE_BYTES = 0.70
 SO_STAT_KEYS = ("losses/", "values/", "old_values/", "returns/", "policy/", "ratio", "padding_percentage")
 
 
-def so_config(ckpt_dir, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, new_tokens=SO_N):
+#: group (d)'s two-rank runs: (label, leg, mesh); the first three in one
+#: group of two ranks, the rest in another
+SO_D_RUNS = [("lora_fsdp2", "lora", {"fsdp": 2}), ("lora_model2", "lora", {"model": 2}),
+             ("t5_model2", "t5", {"model": 2}), ("offload_ref_fsdp2", "offload_ref", {"fsdp": 2}),
+             ("adamw8bit_fsdp2", "adamw8bit", {"fsdp": 2}), ("adafactor_fsdp2", "adafactor", {"fsdp": 2})]
+#: how many of SO_D_RUNS the first (d) group runs
+SO_D1 = 3
+#: gpt2's trunk in f32: the reference's bytes (phase ``peft_memory``'s offload leg)
+GPT2_TRUNK_BYTES = 497_759_232
+#: the legs with a one-rank baseline in (a), in this order (the store's first)
+SO_D_ONE_RANK = ("lora", "t5", "adamw8bit", "adafactor")
+
+
+def so_d_legs(store):
+    """Group (d)'s settings (``so_config``'s ``extra``), by leg: the store,
+    LoRA r 8 on q and v, t5-small's published widths (random weights), the
+    offloaded and the resident reference, 8-bit AdamW and Adafactor (optax's
+    defaults at the PPO rate)."""
+    return {
+        "store": {"model.model_path": store},
+        "lora": {"model.peft_config": PM_LORA},
+        # sampled: greedy rollouts of a random T5 repeat one token, so that the decoder self-attention's
+        # query and key get a zero gradient and AdamW (eps 1e-8) steps on its rounding noise
+        "t5": {"model.model_path": "t5-small", "model.model_arch_type": "seq2seq", "model.model_overrides": {},
+               "method.gen_kwargs": dict(max_new_tokens=SO_N, do_sample=True, top_k=0, top_p=1.0)},
+        "offload_ref": {"model.offload_ref": True},
+        "adamw8bit": {"optimizer.name": "adamw_8bit_bnb"},
+        "adafactor": {"optimizer": {"name": "adafactor", "kwargs": {"lr": 3e-5}}},
+    }
+
+
+def so_d_job(label, leg, mesh, store, tmp):
+    """A (d) run's job: the optimizers' runs save their parameters, LoRA's
+    export its initial adapters; none writes an end-of-run checkpoint."""
+    job = {"kind": "ppo", "label": label, "mesh": mesh, "extra": so_d_legs(store)[leg], "checkpoint": False}
+    if leg in ("adamw8bit", "adafactor"):
+        job["save"] = os.path.join(tmp, f"{label}.pt")
+    if leg == "lora":
+        job["export"] = os.path.join(tmp, f"{label}.adapters")
+    return job
+
+
+def so_d_checks(tmp, ones, d1, d2, two):
+    """Group (d)'s checks and report from the one-rank baselines (``ones``,
+    in :data:`SO_D_ONE_RANK`'s order), the two groups' ranks, and (b)'s
+    ranks (``fsdp2_overlap``: the resident sharded reference)."""
+    import math
+
+    import torch
+
+    import types
+
+    from trlx_tpu_torch.models import safetensors_io
+    from trlx_tpu_torch.models.hf_loading import ADAPTERS_FILE
+    from trlx_tpu_torch.parallel.sharding import make_param_specs, spec_dim
+    from trlx_tpu_torch.utils.optim import factored_dims
+
+    base = dict(zip(SO_D_ONE_RANK, ones))
+    checks, report = {}, {"runs": {}}
+    for r in ones:
+        report["runs"][r["run"]] = {"step_s": r["step_s"], "opt_state_bytes": r["opt_state_bytes"],
+                                    "peak_mem_bytes": r["peak_mem_bytes"]}
+    for i, mesh in enumerate(({"fsdp": 2}, {"model": 2})):
+        for rank in (0, 1):
+            r = d1[rank][i]
+            name = f"(d) native_store {'fsdp2' if 'fsdp' in mesh else 'model2'} rank {rank}"
+            checks[f"{name}: blocks torch.equal to the whole's slices"] = r["equal"] and r["sharded_leaves"] > 0
+            report[f"{name} bytes_read"], report[f"{name} restore_s"] = r["bytes_read"], r["restore_s"]
+    runs = {label: (d1, j + 2) if j < SO_D1 else (d2, j - SO_D1) for j, (label, _, _) in enumerate(SO_D_RUNS)}
+    for label, leg, mesh in SO_D_RUNS:
+        group, j = runs[label]
+        r0, r1 = group[0][j], group[1][j]
+        report["runs"][label] = {"step_s": [r0["step_s"], r1["step_s"]], "peak_mem_bytes": [
+            r0["peak_mem_bytes"], r1["peak_mem_bytes"]], "opt_state_bytes": [r0["opt_state_bytes"],
+                                                                             r1["opt_state_bytes"]],
+            "staged_bytes": r0["staged_bytes"], "ref_host_bytes": [r0["ref_host_bytes"], r1["ref_host_bytes"]]}
+        checks[f"(d) {label}: gloo on the shared card"] = r0["backend"] == r1["backend"] == "gloo"
+        checks[f"(d) {label}: both ranks report the same stats"] = r0["steps"] == r1["steps"]
+        if leg in ("lora", "t5"):
+            ok, bad = so_close(r0["steps"], base[leg]["steps"])
+            checks[f"(d) {label}: within 1e-3 of the one-rank run"] = ok
+            if bad:
+                emit({"phase": "scale_out", "run": label, "stats_off": bad[:20]})
+        if leg == "lora":
+            checks[f"(d) {label}: the trunk torch.equal its initial blocks"] = (
+                r0["trunk_equal"] and r1["trunk_equal"] and base["lora"]["trunk_equal"])
+            mine = safetensors_io.load_file(os.path.join(tmp, f"{label}.adapters", ADAPTERS_FILE))
+            one = safetensors_io.load_file(os.path.join(tmp, "one_rank_lora.adapters", ADAPTERS_FILE))
+            checks[f"(d) {label}: the adapter export torch.equal the one-rank export"] = (
+                set(mine) == set(one) and len(one) > 0 and all(torch.equal(mine[k], one[k]) for k in one))
+    off = runs["offload_ref_fsdp2"]
+    for rank in (0, 1):
+        # (b)'s fsdp2 run scores its first phase with the same sharded policy and a resident reference
+        o, r = off[0][rank][off[1]], two[rank][1]
+        checks[f"(d) offload_ref_fsdp2 rank {rank}: scoring == the resident sharded reference"] = (
+            len(o["experience"]) >= SO_B and o["experience"][:SO_B] == r["experience"][:SO_B])
+        checks[f"(d) offload_ref_fsdp2 rank {rank}: host bytes ~ half the reference's"] = (
+            0.45 * GPT2_TRUNK_BYTES <= o["ref_host_bytes"] <= 0.55 * GPT2_TRUNK_BYTES and o["ref_uploads"] >= 1)
+        report[f"offload_ref_fsdp2 rank {rank} host_bytes_ratio"] = o["ref_host_bytes"] / GPT2_TRUNK_BYTES
+    param_err = {}
+    for leg, label in (("adamw", "data2"), ("adamw8bit", "adamw8bit_fsdp2"), ("adafactor", "adafactor_fsdp2")):
+        want = torch.load(os.path.join(tmp, f"one_rank_{leg}.pt"))
+        got = torch.load(os.path.join(tmp, f"{label}.pt"))
+        # a key bias shifts all of a query's scores alike: softmax cancels it, its gradient is rounding,
+        # and Adam (eps 1e-8) steps it by up to the rate: held to two steps' worth of it
+        noise = {k for k in want if k.endswith("attn.k_proj.bias")}
+        if leg == "adamw8bit":
+            # the moments' codes against the one-rank run's, counted (v's log-space codes resolve the
+            # rounding of small gradients that the ranks sum in another order)
+            c_one, c_two = (torch.load(os.path.join(tmp, f"{n}.pt.codes")) for n in (f"one_rank_{leg}", label))
+            n_codes = n_off = 0
+            worst, by_leaf = {"m_q": 0, "v_q": 0}, {}
+            for k in want:
+                d = torch.zeros(want[k].numel(), dtype=torch.int64)
+                for code in ("m_q", "v_q"):
+                    diff = (c_two[k][code].long() - c_one[k][code].long()).abs().reshape(-1)
+                    worst[code] = max(worst[code], int(diff.max()))
+                    d = torch.maximum(d, diff[:want[k].numel()])
+                n_codes, n_off = n_codes + 2 * d.numel(), n_off + int((d > 0).sum())
+                by_leaf[k] = (int((d > 0).sum()), d.numel(), int(d.max()))
+            report[f"{label} codes_off_by_leaf"] = sorted(by_leaf.items(), key=lambda kv: -kv[1][0])[:8]
+            report[f"{label} codes_off"], report[f"{label} codes"], report[f"{label} worst_code_diff"] = (
+                n_off, n_codes, worst)
+        diffs = {k: float((got[k] - want[k]).abs().max()) for k in want}
+        param_err[leg] = err = max(v for k, v in diffs.items() if k not in noise)
+        report[f"{label} max_abs_param_diff"] = err
+        report[f"{label} max_abs_key_bias_diff"] = max((diffs[k] for k in noise), default=0.0)
+        if leg == "adamw":
+            f32 = {k: (got[k] - want[k]).abs() for k in want}
+            continue
+        if leg == "adamw8bit":
+            # Adam's step is m / sqrt(v): an element whose gradient is a small sum of large terms moves by
+            # the rate's order when the ranks sum its terms in another order, in f32 AdamW as in 8-bit, so
+            # the trainers' parameters are held to f32 AdamW's own two-rank difference ((b)'s data2); the
+            # elements f32 AdamW's two ranks agree on to 1e-6 are reported, and the optimizer itself is held
+            # on the same gradient and state below
+            checks[f"(d) {label}: parameters as close to one rank as f32 AdamW's on two ranks (or 1e-5)"] = (
+                set(got) == set(want) and err <= max(1e-5, 2 * param_err["adamw"]))
+            settled = {k: f32[k] < 1e-6 for k in want if k not in noise}
+            report[f"{label} settled_elements"] = sum(int(m.sum()) for m in settled.values())
+            report[f"{label} settled_max_abs_param_diff"] = max(
+                float((got[k] - want[k]).abs()[m].max()) if m.any() else 0.0 for k, m in settled.items())
+        elif leg == "adafactor":
+            checks[f"(d) {label}: parameters within 1e-5 of the one-rank run"] = set(got) == set(want) and (
+                err <= 1e-5 and all(diffs[k] <= 4 * 3e-5 for k in noise))
+        group, j = runs[label]
+        for rank in (0, 1):
+            same = group[rank][j]["same_grads"]
+            report[f"{label} rank {rank} same_grads"] = same
+            # one step of a rate of 3e-5 moves an element by up to about 3e-5: 1e-6 is a few f32 ulps of
+            # the weights, and a wrong block range, scale or gather moves elements by the step's order
+            checks[f"(d) {label} rank {rank}: the whole-leaf step within 1e-6 of the plain step on the same "
+                   f"gradient and state"] = same["max_abs_param_diff"] <= 1e-6
+            if leg == "adamw8bit":
+                checks[f"(d) {label} rank {rank}: its codes within 1 of the plain step's, at most 0.1% differ"] = (
+                    same["codes"] > 0 and same["worst_code_diff"] <= 1 and same["codes_off"] <= 1e-3 * same["codes"])
+        shapes = [tuple(v.shape) for v in want.values()]
+        if leg == "adamw8bit":
+            nbs = [math.ceil(math.prod(s) / 256) for s in shapes]
+            formula = sum(524 * (nb // 2 if nb % 2 == 0 else nb) for nb in nbs) + 4
+            one_formula = sum(524 * nb for nb in nbs) + 4
+        else:
+            def fbytes(s, local):
+                # factored by the whole shape, held as this rank's block (the fsdp dim halved)
+                dims = factored_dims(s, True, 128)
+                n = math.prod(local)
+                return 4 * (n // local[dims[1]] + n // local[dims[0]]) if dims else 4 * n
+
+            fsdp2 = types.SimpleNamespace(shape={"data": 1, "fsdp": 2, "pipe": 1, "model": 1})
+            specs = make_param_specs({k: v.shape for k, v in want.items()}, fsdp2)
+            blocks = [tuple(n // 2 if i == spec_dim(specs[k], "fsdp") else n for i, n in enumerate(v.shape))
+                      for k, v in want.items()]
+            formula = sum(fbytes(s, loc) for s, loc in zip(shapes, blocks))
+            one_formula = sum(fbytes(s, s) for s in shapes)
+        got_bytes = [group[rank][j]["opt_state_bytes"] for rank in (0, 1)]
+        report[f"{label} state_bytes_per_rank"], report[f"{label} state_bytes_formula"] = got_bytes, formula
+        checks[f"(d) {label}: state bytes per rank = the formula"] = (
+            got_bytes == [formula, formula] and base[leg]["opt_state_bytes"] == one_formula)
+        checks[f"(d) {label}: the whole-leaf step ran"] = all(group[rank][j]["whole_leaf"] for rank in (0, 1))
+    return checks, report
+
+
+def so_config(ckpt_dir, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, new_tokens=SO_N, extra=None):
     """The scale-out PPO run: gpt2 at full width, flash attention (or
     ``model_overrides``), f32 compute and params, the bytes tokenizer, a
     full-copy reference, ``SO_B`` greedy rollouts of ``new_tokens``,
     ``SO_STEPS`` steps on ``mesh`` (its ``pipe`` in 2 microbatches,
-    ``sequence_shard``)."""
-    return ppo_config(**{
+    ``sequence_shard``); ``extra``: dotted keys replaced, not merged
+    (group (d)'s model, peft, optimizer and reference settings)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    cfg = ppo_config(**{
         "model.model_path": "gpt2", "model.model_overrides": {"attention_impl": "flash", **(model_overrides or {})},
         "mesh.compute_dtype": "float32", "mesh.param_dtype": "float32",
         "mesh.data": mesh.get("data", 1), "mesh.fsdp": mesh.get("fsdp", 1), "mesh.model": mesh.get("model", 1),
@@ -7653,6 +7869,16 @@ def so_config(ckpt_dir, mesh, minibatch=SO_MB, overlap=False, model_overrides=No
         "method.num_rollouts": SO_B, "method.chunk_size": SO_B, "method.ppo_epochs": 1,
         "method.gen_kwargs": dict(max_new_tokens=new_tokens, do_sample=False),
     })
+    if not extra:
+        return cfg
+    d = cfg.to_dict()
+    for key, value in extra.items():
+        node = d
+        *path, leaf = key.split(".")
+        for k in path:
+            node = node[k]
+        node[leaf] = value
+    return TRLConfig.from_dict(d)
 
 
 def so_parity_steps(device):
@@ -7670,13 +7896,22 @@ def so_parity_steps(device):
     return [{k: v for k, v in st.items() if not k.startswith("time/")} for st in steps]
 
 
-def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, new_tokens=SO_N):
+def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, new_tokens=SO_N, extra=None,
+           save=None, export=None, checkpoint=True):
     """One scale-out PPO run on this rank through ``trlx_tpu_torch.train``:
     launch counts reset just before and read just after, each kernel call
     shape recorded, then every shape held against the plain versions. Its
     step stats and seconds, parameter plus optimizer bytes, peak memory,
     backend, staged collectives (point-to-point included), the sequence
-    scatters and ring rotations."""
+    scatters and ring rotations, and (group (d)) the experience's
+    logprobs, values and rewards, the trunk's equality with its initial
+    blocks, the reference's host bytes, the optimizer's state bytes, and
+    after a whole-leaf optimizer's run its same-gradient check
+    (:func:`so_whole_leaf_same_grads`); with
+    ``save``, process 0 writes the gathered parameters (and 8-bit moment
+    codes) to ``save``, with ``export`` the adapter file of the initial
+    weights to that directory; ``checkpoint=False`` skips the end-of-run
+    checkpoint (group (d): the save path runs in (a)-(c))."""
     import shutil
     import tempfile
 
@@ -7684,15 +7919,17 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, ne
     import torch.distributed as dist
 
     import trlx_tpu_torch
+    from trlx_tpu_torch.models.hf_loading import ADAPTER_PARAM_NAMES, save_adapters
     from trlx_tpu_torch.ops import _kernels
     from trlx_tpu_torch.parallel import collectives as coll
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
     from trlx_tpu_torch.utils.optim import state_bytes
 
     ckpt = tempfile.mkdtemp(prefix=f"chip_smoke_so_{label}_")
-    cfg = so_config(ckpt, mesh, minibatch, overlap, model_overrides, new_tokens)
-    steps, seconds = [], []
-    original = PPOTrainer.train_step
+    cfg = so_config(ckpt, mesh, minibatch, overlap, model_overrides, new_tokens, extra)
+    steps, seconds, experience, trunk0 = [], [], [], {}
+    original, original_push, original_prepare = PPOTrainer.train_step, PPOTrainer.push_to_store, \
+        PPOTrainer.prepare_learning
 
     def timed(self, batch):
         t0 = time.perf_counter()
@@ -7702,8 +7939,27 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, ne
         steps.append({k: v for k, v in out.items() if not k.startswith("time/")})
         return out
 
+    def push(self, data):
+        experience.extend([[x.tolist() for x in (e.logprobs, e.values, e.rewards)] for e in data])
+        return original_push(self, data)
+
+    def prepare(self):
+        # the trunk's blocks before any step, and the initial adapters' export
+        trunk0.update({n: p.detach().clone() for n, p in so_local_params(self).items()
+                       if n.split(".", 1)[0] in ("transformer", "t5")
+                       and n.rsplit(".", 1)[-1] not in ADAPTER_PARAM_NAMES})
+        if export:
+            state = self.model_state_dict()
+            if self.is_main_process:
+                os.makedirs(export, exist_ok=True)
+                save_adapters(export, state)
+        return original_prepare(self)
+
     seen = {}
-    PPOTrainer.train_step = timed
+    original_ckpt = PPOTrainer._save_checkpoint
+    PPOTrainer.train_step, PPOTrainer.push_to_store, PPOTrainer.prepare_learning = timed, push, prepare
+    if not checkpoint:
+        PPOTrainer._save_checkpoint = lambda self, *a, **k: None
     restore = record_kernel_shapes(seen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7714,11 +7970,23 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, ne
                                        prompts=byte_prompts(SO_B, 16, 32, SEED + 1),
                                        eval_prompts=byte_prompts(SO_B, 16, 32, SEED + 2))
     finally:
-        PPOTrainer.train_step = original
+        PPOTrainer.train_step, PPOTrainer.push_to_store, PPOTrainer.prepare_learning = \
+            original, original_push, original_prepare
+        PPOTrainer._save_checkpoint = original_ckpt
         restore()
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.synchronize()
     launches = _kernels.launches()
+    local = so_local_params(trainer)
+    trunk_equal = bool(trunk0) and all(torch.equal(local[n], v) for n, v in trunk0.items())
+    whole_leaf = getattr(trainer, "whole_leaf", None)
+    if save:
+        state = trainer.model_state_dict()
+        codes = so_moment_codes(trainer)
+        if trainer.is_main_process:
+            torch.save({k: v.cpu() for k, v in state.items()}, save)
+            if codes:
+                torch.save(codes, save + ".codes")
     staged = coll.staged()
     seq = coll.sequence_counts()
     out = {
@@ -7731,15 +7999,22 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, ne
         "staged_collectives": staged["calls"], "staged_bytes": staged["bytes"],
         "collectives": coll.collective_calls(), "kernel_shapes": kernel_shapes(seen),
         "seq_scatters": seq["scatters"], "ring_rotations": seq["rotations"],
-        "pipe": trainer.model_config.pipeline_stages, "sequence_sharding": trainer.model_config.sequence_sharding,
-        "attention_impl": trainer.model_config.attention_impl,
+        "pipe": getattr(trainer.model_config, "pipeline_stages", 1),
+        "sequence_sharding": getattr(trainer.model_config, "sequence_sharding", False),
+        "attention_impl": getattr(trainer.model_config, "attention_impl", "t5"),
+        "experience": experience, "trunk_equal": trunk_equal, "ref_host_bytes": trainer.ref_host_bytes,
+        "ref_uploads": trainer.ref_uploads, "opt_state_bytes": state_bytes(trainer.optimizer),
+        "whole_leaf": whole_leaf is not None,
+        "block_sharded": sum(whole_leaf.block_sharded) if whole_leaf is not None else 0,
     }
-    del trainer
+    if whole_leaf is not None:
+        out["same_grads"] = so_whole_leaf_same_grads(trainer)
+    del trainer, local
     torch.cuda.empty_cache()
     local = {}
     try:
-        # ring attention bypasses the flash kernels, as the reference's routing does
-        kinds = () if out["attention_impl"] == "ring" else ("flash_fwd", "flash_bwd")
+        # ring attention bypasses the flash kernels, as the reference's routing does, and T5 runs on none
+        kinds = () if out["attention_impl"] in ("ring", "t5") else ("flash_fwd", "flash_bwd")
         if seen or kinds:
             check_main_path_shapes(local, seen, f"scale_out {label}", kinds)
         out["holds_ok"] = True
@@ -7747,6 +8022,172 @@ def so_run(label, mesh, minibatch=SO_MB, overlap=False, model_overrides=None, ne
         out["holds_ok"], out["holds_error"] = False, str(e)[:2000]
     out["max_abs_err"] = local.get("max_abs_err", {})
     return out
+
+
+def so_whole_leaf_same_grads(trainer):
+    """The whole-leaf step held against the plain optimizer on the same
+    input, after the run (its parameters already saved): every rank makes
+    the same seeded whole gradient of each trained leaf on the card; the
+    whole-leaf optimizer steps this rank's blocks from the run's state, and
+    a plain optimizer of the same class steps the whole leaves from that
+    state gathered whole (the checkpoint layout), on each rank. The largest
+    parameter difference and, for 8-bit, the moment codes that differ and
+    by how much (a collective)."""
+    import torch
+
+    from trlx_tpu_torch.utils import get_optimizer_class
+
+    wl, sh = trainer.whole_leaf, trainer.shards
+    kwargs = dict(trainer.config.optimizer.kwargs)
+    kwargs.pop("lr", None)
+    kwargs.pop("max_grad_norm", None)
+    sd = wl.optimizer.state_dict()
+    # copies: a plain tensor of the live state would be stepped twice
+    sd["state"] = {i: {k: wl.gather_state(i, k, v.clone()) if torch.is_tensor(v) else v for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    ref_params = [torch.nn.Parameter(sh.full_tensor(leaf, leaf.master.data).clone()) for leaf in wl.leaves]
+    ref = get_optimizer_class(str(trainer.config.optimizer.name).lower())(ref_params, learning_rate=1.0, **kwargs)
+    ref.load_state_dict(sd)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    for leaf, p in zip(wl.leaves, ref_params):
+        g = 1e-3 * torch.randn(p.shape, generator=gen, device=p.device)
+        leaf.master.grad, p.grad = sh.local_block(leaf, g).clone(), g
+    wl.step()
+    ref.step()
+    out = {"lr": sd["param_groups"][0]["lr"], "max_abs_param_diff": max(
+        float((sh.full_tensor(leaf, leaf.master.data) - p).abs().max()) for leaf, p in zip(wl.leaves, ref_params)),
+        "codes": 0, "codes_off": 0, "worst_code_diff": 0}
+    for i, (proxy, p) in enumerate(zip(wl.proxies, ref_params)):
+        st, want = wl.optimizer.state[proxy], ref.state[p]
+        for code in ("m_q", "v_q"):
+            if code in want:
+                diff = (wl.gather_state(i, code, st[code]).long() - want[code].long()).abs().reshape(-1)[:p.numel()]
+                out["codes"] += diff.numel()
+                out["codes_off"] += int((diff > 0).sum())
+                out["worst_code_diff"] = max(out["worst_code_diff"], int(diff.max()))
+    return out
+
+
+def so_moment_codes(trainer):
+    """The 8-bit moments' codes (``m_q``, ``v_q``) of every trained leaf,
+    whole (gathered over ``fsdp`` where the blocks are split; a collective),
+    by name; {} for another optimizer."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    if trainer.shards is not None:
+        names.update({id(leaf.master): leaf.name for leaf in trainer.shards.leaves})
+    wl = trainer.whole_leaf
+    if wl is not None:
+        pairs = [(leaf.name, proxy, i) for i, (leaf, proxy) in enumerate(zip(wl.leaves, wl.proxies))]
+        opt = wl.optimizer
+    else:
+        pairs = [(names[id(p)], p, None) for p in trainer.trainable_params]
+        opt = trainer.optimizer
+    out = {}
+    for name, p, i in pairs:
+        st = opt.state.get(p, {})
+        if "m_q" in st:
+            out[name] = {k: (wl.gather_state(i, k, st[k]) if i is not None else st[k]).cpu() for k in ("m_q", "v_q")}
+    return out
+
+
+def so_local_params(trainer):
+    """The policy's tensors as this rank holds them (each leaf's master: its
+    block), by ``state_dict`` name."""
+    if trainer.shards is None:
+        return dict(trainer.model.named_parameters())
+    return {leaf.name: leaf.master for leaf in trainer.shards.leaves
+            if not leaf.name.startswith(("ref_model.", "frozen_branch."))}
+
+
+def so_store_shards(store, mesh):
+    """A rank's restore of its blocks of ``store`` onto its device under
+    ``mesh`` (``fsdp=2`` or ``model=2``): each block ``torch.equal`` to its
+    slice of the whole restore, the chunk bytes read and the seconds."""
+    import torch
+
+    from trlx_tpu_torch.checkpointing import restore_native
+    from trlx_tpu_torch.parallel.mesh import make_mesh, process_index
+    from trlx_tpu_torch.parallel.sharding import make_param_specs, shard_tensor
+
+    m = make_mesh(data=mesh.get("data", 1), fsdp=mesh.get("fsdp", 1), model=mesh.get("model", 1))
+    stats = {}
+    _, blocks, _ = restore_native(store, mesh=m, device=torch.device("cuda", 0), stats=stats)
+    _, whole, _ = restore_native(store)
+    specs = make_param_specs(whole, m)
+    equal = all(torch.equal(blocks[n].cpu(), shard_tensor(whole[n], specs[n], m)) for n in whole)
+    sharded = sum(blocks[n].numel() < whole[n].numel() for n in whole)
+    return {"run": "store_shards", "mesh": mesh, "rank": process_index(), "equal": equal, "sharded_leaves": sharded,
+            "bytes_read": stats["bytes_read"], "restore_s": stats["seconds"],
+            "block_bytes": sum(b.numel() * b.element_size() for b in blocks.values())}
+
+
+def so_store_of_card_init(tmp):
+    """The store (d)'s PPO and block legs read: the PPO trainer's seed-0
+    trunk as it initialises it on the card, written by the port's writer
+    (``save_native``), so that PPO from the store can be held ``==`` to
+    (a)'s PPO from the same weights in memory."""
+    import torch
+
+    from trlx_tpu_torch.checkpointing import save_native
+    from trlx_tpu_torch.models.presets import get_preset
+    from trlx_tpu_torch.models.transformer import TransformerLM
+
+    config = get_preset("gpt2")
+    with torch.device("cuda"):
+        model = TransformerLM(config)
+    model.init_params(SEED)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    t0 = time.perf_counter()
+    path = save_native(os.path.join(tmp, "store_card_init"), state, config, "gpt2", "gpt2")
+    return path, time.perf_counter() - t0, state
+
+
+def so_convert_start(tmp):
+    """The CLI's conversion of gpt2 from seed 0 in bf16 (``--dtype``), in
+    the background (its seconds overlap (a)-(d); the f32 store is the card
+    init's, :func:`so_store_of_card_init`)."""
+    path = os.path.join(tmp, "store_bfloat16")
+    cmd = [sys.executable, "-m", "trlx_tpu_torch.checkpointing", "convert", "gpt2", path, "--allow-random",
+           "--dtype", "bfloat16"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    return {"path": path, "proc": proc, "t0": time.perf_counter()}
+
+
+def so_convert_finish(conv, store, card_state):
+    """Wait for the bf16 conversion; restore it and the f32 store onto
+    ``cuda:0``, each against the weights it was written from (the port's
+    seed-0 initialisation on the host for the CLI's, the card's for the
+    f32 store), and ``inspect`` the bf16 store."""
+    import torch
+
+    from trlx_tpu_torch.checkpointing import restore_native, store_bytes
+    from trlx_tpu_torch.models.presets import get_preset
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.store import zstd
+
+    out, checks = {"libzstd": zstd.version()}, {}
+    rc = conv["proc"].wait(timeout=600)
+    out["bfloat16_convert_s"] = time.perf_counter() - conv["t0"]  # an upper bound: waited for after (a)-(d)
+    checks["native_store: the CLI converts in bf16"] = rc == 0
+    host = TransformerLM(get_preset("gpt2")).init_params(SEED).state_dict()
+    sources = {"float32": (store, card_state)}
+    if rc == 0:
+        sources["bfloat16"] = (conv["path"], {k: v.bfloat16() for k, v in host.items()})
+    for dtype, (path, want) in sources.items():
+        out[f"{dtype}_store_bytes"] = store_bytes(path)
+        stats = {}
+        _, state, model_type = restore_native(path, device=torch.device("cuda", 0), stats=stats)
+        out[f"{dtype}_restore_s"], out[f"{dtype}_bytes_read"] = stats["seconds"], stats["bytes_read"]
+        checks[f"native_store {dtype}: restored onto cuda:0 torch.equal to the source"] = (
+            model_type == "gpt2" and set(state) == set(want)
+            and all(state[k].device.type == "cuda" and torch.equal(state[k].cpu(), want[k]) for k in want))
+    shown = subprocess.run([sys.executable, "-m", "trlx_tpu_torch.checkpointing", "inspect", conv["path"]],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300).stdout
+    print(shown, flush=True)
+    checks["native_store: inspect prints the metadata"] = '"model_type": "gpt2"' in shown and (
+        '"dtype": "bfloat16"' in shown and '"hidden_size": 768' in shown)
+    return out, checks
 
 
 def so_rank_main(jobs_path, out_path):
@@ -7765,9 +8206,12 @@ def so_rank_main(jobs_path, out_path):
     for job in jobs:
         if job["kind"] == "parity":
             results.append({"run": "parity", "steps": so_parity_steps("cuda")})
+        elif job["kind"] == "store_shards":
+            results.append(so_store_shards(job["store"], job["mesh"]))
         else:
             results.append(so_run(job["label"], job["mesh"], job.get("minibatch", SO_MB), job.get("overlap", False),
-                                  job.get("model_overrides"), job.get("new_tokens", SO_N)))
+                                  job.get("model_overrides"), job.get("new_tokens", SO_N), job.get("extra"),
+                                  job.get("save"), job.get("export"), job.get("checkpoint", True)))
     with open(f"{out_path}.{process_index()}.json", "w") as f:
         json.dump(results, f)
 
@@ -7811,6 +8255,7 @@ class SoRanks:
         try:
             for rank, p in enumerate(self.procs):
                 rc = p.wait(timeout=max(1.0, self.deadline - time.perf_counter()))
+                self.done_s = time.perf_counter()
                 if rc != 0:
                     with open(self.log(rank)) as f:
                         tail = f.read()[-4000:]
@@ -7857,11 +8302,15 @@ def phase_scale_out(ctx):
     t0 = time.perf_counter()
     groups = []
     try:
+        # (d)'s store first: the one-rank run from it starts with (a); the CLI's conversions meanwhile
+        converts = so_convert_start(tmp)
+        store, store_write_s, card_state = so_store_of_card_init(tmp)
         card = so_parity_steps("cuda")
         # (a) and (b) share the card at the same time: their step seconds
         # include each other's load
         groups.append(SoRanks(1, [{"kind": "parity"},
-                                  {"kind": "ppo", "label": "one_rank", "mesh": {"data": -1}},
+                                  {"kind": "ppo", "label": "one_rank", "mesh": {"data": -1},
+                                   "save": os.path.join(tmp, "one_rank_adamw.pt")},
                                   {"kind": "ppo", "label": "one_rank_half_mb", "mesh": {"data": -1},
                                    "minibatch": SO_MB // 2},
                                   # (c)'s baselines at its lengths: the same stacked trunk on one
@@ -7869,8 +8318,15 @@ def phase_scale_out(ctx):
                                   {"kind": "ppo", "label": "one_rank_stacked", "mesh": {"data": -1},
                                    "model_overrides": {"pipeline_stages": 2}, "new_tokens": SO_N_EVEN},
                                   {"kind": "ppo", "label": "one_rank_even", "mesh": {"data": -1},
-                                   "new_tokens": SO_N_EVEN}], tmp, timeout=400))
-        groups.append(SoRanks(2, [{"kind": "ppo", "label": "data2", "mesh": {"data": 2}},
+                                   "new_tokens": SO_N_EVEN},
+                                  # (d): PPO from the store, against one_rank
+                                  {"kind": "ppo", "label": "one_rank_store", "mesh": {"data": -1},
+                                   "extra": {"model.model_path": store}}], tmp, timeout=700))
+        # (d)'s other one-rank baselines, a second process beside (a)
+        groups.append(SoRanks(1, [so_d_job(f"one_rank_{leg}", leg, {"data": -1}, store, tmp)
+                                  for leg in SO_D_ONE_RANK], tmp, timeout=700, tag="a2"))
+        groups.append(SoRanks(2, [{"kind": "ppo", "label": "data2", "mesh": {"data": 2},
+                                   "save": os.path.join(tmp, "data2.pt")},
                                   {"kind": "ppo", "label": "fsdp2_overlap", "mesh": {"data": 1, "fsdp": 2},
                                    "overlap": True},
                                   {"kind": "ppo", "label": "model2", "mesh": {"data": 1, "model": 2}}],
@@ -7882,24 +8338,46 @@ def phase_scale_out(ctx):
                                   {"kind": "ppo", "label": "ring_model2", "mesh": {"data": 1, "model": 2},
                                    "model_overrides": {"attention_impl": "ring"}, "new_tokens": SO_N_EVEN}],
                           tmp, timeout=600, tag="c"))
+        # (d): the store's blocks, LoRA, T5, the offloaded reference, the
+        # whole-leaf optimizers, over two groups of two ranks
+        groups.append(SoRanks(2, [{"kind": "store_shards", "store": store, "mesh": {"fsdp": 2}},
+                                  {"kind": "store_shards", "store": store, "mesh": {"model": 2}}]
+                              + [so_d_job(label, leg, mesh, store, tmp) for label, leg, mesh in SO_D_RUNS[:SO_D1]],
+                              tmp, timeout=700, tag="d1"))
+        groups.append(SoRanks(2, [so_d_job(label, leg, mesh, store, tmp) for label, leg, mesh in SO_D_RUNS[SO_D1:]],
+                              tmp, timeout=700, tag="d2"))
         (one,) = groups[0].results()
         t_a = time.perf_counter() - t0
-        two = groups[1].results()
-        three = groups[2].results()
+        (ones,) = groups[1].results()
+        two = groups[2].results()
+        three = groups[3].results()
+        d1, d2 = groups[4].results(), groups[5].results()
+        # when each group's results were collected (in this order: an upper bound on when it ended)
+        group_s = {g.tag: g.done_s - t0 for g in groups}
+        store_out, store_checks = so_convert_finish(converts, store, card_state)
+        del card_state
+        store_out["card_init_write_s"] = store_write_s
+        d_checks, d_report = so_d_checks(tmp, ones, d1, d2, two)
     finally:
         for g in groups:
             g.stop()
+        if "converts" in locals() and converts["proc"].poll() is None:
+            converts["proc"].kill()
         shutil.rmtree(tmp, ignore_errors=True)
-    parity, a, a_half, a_stacked, a_even = one
+    parity, a, a_half, a_stacked, a_even, a_store = one
     runs = {"data2": a, "fsdp2_overlap": a_half, "model2": a}
     checks = {
         "(a) NCCL on one rank": a["backend"] == "nccl",
         "(a) stats == train_parity's card trainer": parity["steps"] == card,
+        **store_checks, **d_checks,
+        "(d) native_store: PPO from the store == PPO from the same weights in memory": a_store["steps"] == a["steps"],
     }
     launches = {k: 0 for k in a["launches"]}
     errs = ctx.setdefault("max_abs_err", {})
-    for r in [a, a_half, a_stacked, a_even] + [x for rank in two + three for x in rank]:
-        emit({"phase": "scale_out", "card": ctx.get("smi"), **{k: v for k, v in r.items() if k != "steps"},
+    d_runs = [a_store] + ones + [x for rank in d1 + d2 for x in rank if x["run"] != "store_shards"]
+    for r in [a, a_half, a_stacked, a_even] + [x for rank in two + three for x in rank] + d_runs:
+        emit({"phase": "scale_out", "card": ctx.get("smi"),
+              **{k: v for k, v in r.items() if k not in ("steps", "experience")},
               "losses": [{k: v for k, v in st.items() if k.startswith("losses/")} for st in r["steps"]]})
         for k, v in r["launches"].items():
             launches[k] += v
@@ -7909,6 +8387,9 @@ def phase_scale_out(ctx):
             # the reference keeps ring attention off the flash kernels
             checks[f"{r['run']} rank {r['rank']}: the ring ran, no flash launch"] = r["ring_rotations"] > 0 and not any(
                 r["launches"][k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+        elif r["attention_impl"] == "t5":
+            # T5 attention runs on no kernel in either package
+            checks[f"{r['run']} rank {r['rank']}: no kernel launch"] = not any(r["launches"].values())
         else:
             checks[f"{r['run']} rank {r['rank']}: K1, K2 and K3 launched"] = all(
                 r["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
@@ -7957,6 +8438,8 @@ def phase_scale_out(ctx):
     checks[f"(b) fsdp2: parameter + optimizer bytes <= {SO_FSDP_BYTES} x one rank's"] = all(
         two[r][1]["param_opt_bytes"] <= SO_FSDP_BYTES * a["param_opt_bytes"] for r in (0, 1))
     ctx["scale_out_launches"] = launches
+    emit({"phase": "scale_out", "group": "d", "card": ctx.get("smi"), "native_store": store_out, "group_s": group_s,
+          **d_report})
     emit({"phase": "scale_out", "card": ctx.get("smi"), "one_rank_s": t_a, "seconds": time.perf_counter() - t0,
           "fsdp2_bytes_ratio": ratio, "pipe2_bytes_ratio": pipe_ratio, "launches": launches, "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
@@ -8166,10 +8649,58 @@ def kernel_table(ctx):
     return {"kernels": table, "not_yet_ported": []}
 
 
+def gates_start(ctx, gates):
+    """Start the learning gates ``gates`` in order in a child process
+    (``--gates-child``: this script, its output to files); :func:`gates_finish`
+    reads it. Their SFT export lives in the child."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+    log = open(os.path.join(out, "stdout"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gates-child", "--phases", ",".join(gates)],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    ctx["gates"] = {"proc": proc, "dir": out, "names": gates, "t0": time.perf_counter()}
+
+
+def gates_finish(ctx):
+    """Wait for the gates' child: print its gate reports, take its phase
+    seconds (the wait beside them is ``gates_wait``), and fail as a gate
+    phase would when the child failed."""
+    import shutil
+
+    gates = ctx.pop("gates")
+    t0 = time.perf_counter()
+    try:
+        rc = gates["proc"].wait(timeout=900)
+    finally:
+        if gates["proc"].poll() is None:
+            gates["proc"].kill()
+            gates["proc"].wait()
+    with open(os.path.join(gates["dir"], "stdout")) as f:
+        lines = f.read().splitlines()
+    shutil.rmtree(gates["dir"], ignore_errors=True)
+    ctx["phase_seconds"]["gates_wait"] = time.perf_counter() - t0
+    ctx["phase_seconds"]["gates_child"] = time.perf_counter() - gates["t0"]
+    for ln in lines:
+        try:
+            rec = json.loads(ln) if ln.startswith("{") else {}
+        except ValueError:
+            rec = {}
+        if rec.get("phase") in gates["names"]:
+            print(ln, flush=True)
+        elif "phase_seconds" in rec:
+            ctx["phase_seconds"].update(rec["phase_seconds"])
+    if rc != 0:
+        tail = "\n".join(lines[-40:])
+        raise AssertionError(f"the gates' child exited {rc}:\n{tail}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--gates-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -8200,8 +8731,15 @@ def main(argv=None) -> int:
                "peft_memory": phase_peft_memory, "stacked": phase_stacked, "scale_out": phase_scale_out,
                "analysis": phase_analysis}
     phase_env(ctx)
+    # a run with more than the gates runs them in a child beside the phases after them
+    gates = [] if args.gates_child else [p for p in phases if p in GATE_PHASES]
     try:
         for name in phases:
+            if name in gates:
+                if "gates" not in ctx and len(gates) < len(phases):
+                    gates_start(ctx, gates)
+                if "gates" in ctx:
+                    continue
             if name == "stacked" and "analysis" in phases:
                 # the census process runs beside phase stacked: after every
                 # phase that times a kernel, and it times nothing itself
@@ -8210,7 +8748,12 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 runners[name](ctx)
                 ctx["phase_seconds"][name] = time.perf_counter() - t0
+        if "gates" in ctx:
+            gates_finish(ctx)
     finally:
+        if "gates" in ctx and ctx["gates"]["proc"].poll() is None:  # a phase failed beside the gates
+            ctx["gates"]["proc"].kill()
+            ctx["gates"]["proc"].wait()
         census = ctx.pop("census_proc", None)
         if census is not None and census.poll() is None:  # a phase failed before analysis
             census.kill()

@@ -18,7 +18,7 @@ llama, gpt_neox, gptj, opt, gpt_bigcode, bloom) at the tiny sizes of
   through ``safetensors.safe_open``; its reader reads library-written
   single, sharded and ``pytorch_model.bin`` checkpoints;
 - a bloom directory written by ``transformers`` loads to its logits, a
-  native-store directory raises naming its slice, and the checkpoint path
+  native-store directory restores to the JAX restore's tensors, and the checkpoint path
   runs with ``transformers`` and ``safetensors`` blocked.
 """
 
@@ -262,9 +262,17 @@ def test_bloom_and_native_store_raise_naming_their_slice(tmp_path):
     with torch.no_grad():
         ref = hf(torch.from_numpy(_ids())).logits.numpy()
     np.testing.assert_allclose(port_logits(model), ref, atol=2e-3, rtol=1e-3)
+    # the native store restores (it raised until the port read it): the JAX restore's tensors, bit for bit
+    from trlx_tpu.checkpointing import restore_native
+    from trlx_tpu_torch.models.hf_loading import state_from_params
+
     native = convert_hf_to_native(jax_export("gpt2", str(tmp_path / "gpt2")), str(tmp_path / "native"))
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        load_pretrained(native)
+    config, state, model_type = load_pretrained(native)
+    _, want, _ = restore_native(native)
+    want = state_from_params(want)
+    assert model_type == "gpt2" and set(state) == set(want)
+    for name, value in state.items():
+        np.testing.assert_array_equal(value.numpy(), np.asarray(want[name]), err_msg=name)
     # a hub name keeps the preset fallback
     config, state, model_type = load_pretrained("lvwerra/gpt2-imdb")
     assert state is None and model_type == "gpt2" and config.hidden_size == 768

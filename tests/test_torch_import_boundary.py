@@ -1,6 +1,6 @@
 """The port's import boundary: trlx_tpu_torch imports torch and numpy, never
-jax, jaxlib, flax, optax or any module of trlx_tpu (whose name it shares as a
-prefix, so module names are matched exactly). Also: the engine's entry point
+jax, jaxlib, flax, optax, orbax, tensorstore or any module of trlx_tpu
+(whose name it shares as a prefix, so module names are matched exactly). Also: the engine's entry point
 runs on the card unless the caller asks for the CPU."""
 
 import ast
@@ -27,12 +27,14 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax") or name == "trlx_tpu" or name.startswith("trlx_tpu.")
+    # orbax imports JAX, and tensorstore is not on the card's machine: the store is read natively
+    return (top in ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore") or name == "trlx_tpu"
+            or name.startswith("trlx_tpu."))
 
 
 def test_forbidden_predicate_uses_exact_names():
     assert _forbidden("trlx_tpu") and _forbidden("trlx_tpu.serving") and _forbidden("jax.numpy")
-    assert _forbidden("optax")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint") and _forbidden("tensorstore")
     assert not _forbidden("trlx_tpu_torch") and not _forbidden("trlx_tpu_torch.serving.engine")
 
 
@@ -49,6 +51,7 @@ def test_importing_every_module_loads_no_jax_and_no_trlx_tpu():
               "trlx_tpu_torch.fleet.autoscaler", "trlx_tpu_torch.fleet.scenario", "trlx_tpu_torch.rollout.broadcast",
               "trlx_tpu_torch.serving.island", "trlx_tpu_torch.obs.islands", "trlx_tpu_torch.parallel",
               "trlx_tpu_torch.parallel.mesh", "trlx_tpu_torch.parallel.pipeline", "trlx_tpu_torch.native",
+              "trlx_tpu_torch.checkpointing", "trlx_tpu_torch.store.ocdbt", "trlx_tpu_torch.store.zarr",
               "trlx_tpu_torch.analysis",
               "trlx_tpu_torch.analysis.__main__", "trlx_tpu_torch.analysis.cli",
               "trlx_tpu_torch.analysis.callgraph", "trlx_tpu_torch.analysis.rules_torch",

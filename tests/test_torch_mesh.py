@@ -398,3 +398,58 @@ def test_axis_groups_are_shared_by_copies():
 
     g = AxisGroup(object(), 2, 1, ("model",))
     assert copy.deepcopy({"g": g})["g"] is g
+
+
+# -- island meshes ---------------------------------------------------------------
+
+ISLANDS = [(4, 1, dict(data=-1)), (4, 2, dict(data=1, fsdp=2)), (8, 2, dict(data=3, fsdp=2)),
+           (8, 4, dict(fsdp=2, model=2)), (1, 1, dict(data=1))]
+
+
+@pytest.mark.parametrize("n,gen,axes", ISLANDS, ids=[f"{n}-{g}-{a}" for n, g, a in ISLANDS])
+def test_island_meshes_match_jax(n, gen, axes):
+    """The generation and learner meshes over a carve: their rank sets are
+    the JAX meshes' device ids, with the same axis sizes, disjoint unless
+    the carve is shared (one device)."""
+    import jax
+
+    from trlx_tpu.parallel import mesh as jax_mesh
+    from trlx_tpu_torch.parallel.mesh import MESH_AXES, carve_islands, island_meshes
+
+    jg, jl = jax_mesh.island_meshes(jax_mesh.carve_islands(gen, jax.devices()[:n]), **axes)
+    placement = carve_islands(gen, list(range(n)))
+    for rank in range(n):
+        g, learn = island_meshes(placement, rank=rank, build_groups=False, **axes)
+        for mine, want in ((g, jg), (learn, jl)):
+            assert mine.ranks == tuple(int(d.id) for d in want.devices.flatten())
+            assert mine.shape == dict(want.shape)
+            assert mine.member == (rank in mine.ranks)
+            if mine.member:
+                pos = mine.ranks.index(rank)
+                coords = tuple(int(c) for c in np.argwhere(want.devices == jax.devices()[rank])[0])
+                assert tuple(mine.coords[a] for a in MESH_AXES) == coords and mine.rank == pos
+        assert placement.shared or not set(g.ranks) & set(learn.ranks)
+
+
+def island_sums():
+    """A rank's all-reduce of its rank over each island's whole mesh (a job)."""
+    import torch
+
+    from trlx_tpu_torch.parallel import collectives as coll
+    from trlx_tpu_torch.parallel.mesh import carve_islands, island_meshes, process_count, process_index
+
+    g, learn = island_meshes(carve_islands(2, list(range(process_count()))), data=1, fsdp=2)
+    me = torch.tensor([float(process_index())])
+    mesh = g if g.member else learn
+    return {"gen": g.member, "sum": float(coll.all_reduce(me, mesh.world_group)[0]),
+            "fsdp_index": mesh.group("fsdp").index, "data": float(coll.all_reduce(me, mesh.group("data"))[0])}
+
+
+def test_island_meshes_groups_hold_their_own_ranks(tmp_path):
+    """On 4 gloo ranks, carve 2 for generation: each island's groups sum
+    over its own ranks only (learner 0 + 1, generation 2 + 3)."""
+    ranks = [r[0] for r in run_ranks(4, [("tests.test_torch_mesh:island_sums", {})], tmp_path, timeout=120)]
+    assert [r["gen"] for r in ranks] == [False, False, True, True]
+    assert [r["sum"] for r in ranks] == [1.0, 1.0, 5.0, 5.0]
+    assert [r["fsdp_index"] for r in ranks[:2]] == [0, 1]
+    assert [r["data"] for r in ranks] == [0.0, 1.0, 5.0, 5.0]

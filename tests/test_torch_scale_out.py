@@ -10,9 +10,9 @@ gathered parameters after 2 steps (within 1e-5), and every rank's stats
 This file runs ``data=2`` and the checks around it: sampled rollouts that
 do not depend on the rank count, ``reward_fn`` on process 0 only under
 ``reward_on_process_zero``, a 2-rank resume equal to the uninterrupted
-run, and the refusals a multi-rank run makes (async rollouts, the serving
+run, and what a multi-rank run refuses or runs (async rollouts, the serving
 engine and async checkpointing fall back with the reference's warnings; T5
-and peft raise naming scale-out slice 3). ``fsdp=2``, ``model=2`` and
+and peft build and take a step). ``fsdp=2``, ``model=2`` and
 ``data=2 x fsdp=2`` have a file each (:func:`shape_fixture`).
 """
 
@@ -51,7 +51,18 @@ def metric_fn(samples, **kw):
     return {"a_share": [s.count("a") / max(len(s), 1) for s in samples]}
 
 
-def config_dict(kind, mesh, ckpt_dir, do_sample=False):
+def patched(d, patch):
+    """``d`` with each dotted key of ``patch`` replaced (not merged)."""
+    for key, value in (patch or {}).items():
+        node = d
+        *path, leaf = key.split(".")
+        for k in path:
+            node = node[k]
+        node[leaf] = value
+    return d
+
+
+def config_dict(kind, mesh, ckpt_dir, do_sample=False, patch=None):
     model = dict(model_path="gpt2", num_layers_unfrozen=-1, model_overrides=dict(
         vocab_size=len(ALPHABET) + 3, hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
         max_position_embeddings=64, attention_impl="flash"))
@@ -69,13 +80,13 @@ def config_dict(kind, mesh, ckpt_dir, do_sample=False):
         method = dict(name="ILQLConfig", steps_for_target_q_sync=1, two_qs=True, alpha=0.1, beta=0.5,
                       gen_kwargs=dict(max_new_tokens=4, top_k=4, beta=1.0, do_sample=False))
         train.update(trainer="ILQLTrainer")
-    return dict(
+    return patched(dict(
         method=method, train=train, model=model, tokenizer=dict(tokenizer_path=f"char://{ALPHABET}"),
         optimizer=dict(name="adamw", kwargs=dict(lr=3e-3, betas=(0.9, 0.95), eps=1e-6, weight_decay=1e-4,
                                                   max_grad_norm=1.0)),
         scheduler=dict(name="cosine_annealing", kwargs=dict(T_max=4, eta_min=1e-4)),
         mesh=dict(compute_dtype="float32", **mesh),
-    )
+    ), patch)
 
 
 def _drive(trainer, kind, pipeline_cls):
@@ -111,14 +122,19 @@ def _drive(trainer, kind, pipeline_cls):
     return rec
 
 
-def port_train(kind, mesh, init, ckpt_dir, overrides=None, do_sample=False):
+def port_train(kind, mesh, init, ckpt_dir, overrides=None, do_sample=False, patch=None, probe=None):
     """A rank's run of one trainer (a :func:`run_ranks` job): the recorded
-    phases and steps, the gathered parameters, its reward_fn calls."""
+    phases and steps, the gathered parameters, its reward_fn calls
+    (``patch``: config keys replaced, as :func:`config_dict`; ``probe``:
+    ``"module:function"`` called with the trainer after learning, its
+    result under ``"probe"``)."""
+    import importlib
+
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.pipeline import PromptPipeline
     from trlx_tpu_torch.utils.loading import get_trainer
 
-    cfg = TRLConfig.update(TRLConfig.from_dict(config_dict(kind, mesh, ckpt_dir, do_sample)), overrides or {})
+    cfg = TRLConfig.update(TRLConfig.from_dict(config_dict(kind, mesh, ckpt_dir, do_sample, patch)), overrides or {})
     kw = dict(reward_fn=reward_fn) if kind == "ppo" else {}
     _REWARD_CALLS[0] = 0
     trainer = get_trainer(cfg.train.trainer)(config=cfg, device="cpu", **kw)
@@ -132,6 +148,9 @@ def port_train(kind, mesh, init, ckpt_dir, overrides=None, do_sample=False):
     rec["params"] = {k: v.numpy() for k, v in trainer.model_state_dict().items()}
     rec["reward_calls"] = _REWARD_CALLS[0]
     rec["iter_count"] = trainer.iter_count
+    if probe is not None:
+        module, fn = probe.split(":")
+        rec["probe"] = getattr(importlib.import_module(module), fn)(trainer)
     return rec
 
 
@@ -149,33 +168,69 @@ def jax_mesh_of(n):
         yield
 
 
-def jax_trainer(kind, mesh, n, ckpt_dir):
+#: peft leaves, re-drawn non-zero in the JAX trainer before anything runs
+ADAPTERS = ("lora_a", "lora_b", "prefix_k", "prefix_v", "prompt_embeddings")
+
+
+def _seeded_adapters(tree, seed=5):
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    ((0.3 * rng.standard_normal(np.shape(v))).astype(np.float32) if k in ADAPTERS else v))
+                for k, v in t.items()}
+
+    return walk(tree)
+
+
+def jax_trainer(kind, mesh, n, ckpt_dir, patch=None):
     """(JAX trainer, its initial parameters in the port's names; PPO's
-    reference as ``ref_model.*``)."""
+    reference as ``ref_model.*`` and a T5 decoder branch as
+    ``frozen_branch.*``). peft adapters are re-drawn non-zero from a seed
+    first, so the adapters act from the first forward."""
     import jax
+    import jax.numpy as jnp
 
     import trlx_tpu.methods  # noqa: F401  (registers the method configs)
     from trlx_tpu.data.configs import TRLConfig as JaxConfig
     from trlx_tpu.utils.loading import get_trainer as jax_get_trainer
-    from trlx_tpu_torch.models.convert import params_from_jax, policy_params_from_jax
+    from trlx_tpu_torch.models.convert import params_from_jax, policy_params_from_jax, t5_params_from_jax
     from trlx_tpu_torch.models.presets import PRESETS
 
+    cd = config_dict(kind, mesh, ckpt_dir, patch=patch)
     with jax_mesh_of(n):
         kw = dict(reward_fn=reward_fn) if kind == "ppo" else {}
-        jt = jax_get_trainer(config_dict(kind, mesh, ckpt_dir)["train"]["trainer"])(
-            config=JaxConfig.from_dict(config_dict(kind, mesh, ckpt_dir)), **kw)
+        jt = jax_get_trainer(cd["train"]["trainer"])(config=JaxConfig.from_dict(cd), **kw)
     params = jax.tree.map(np.asarray, jax.device_get(jt.params))
-    # the JAX trainer's layout: stacked on a pipe axis
-    cfg = PRESETS["gpt2"].replace(**config_dict(kind, mesh, ckpt_dir)["model"]["model_overrides"],
-                                  compute_dtype=torch.float32, pipeline_stages=jt.model_config.pipeline_stages,
-                                  scan_layers=jt.model_config.scan_layers)
+    if cd["model"].get("peft_config"):
+        params = _seeded_adapters(params)
+        jt.params = jax.tree.map(lambda new, old: jax.device_put(jnp.asarray(new), old.sharding), params, jt.params)
+    seq2seq = cd["model"].get("model_arch_type") == "seq2seq"
+    trunk = "t5" if seq2seq else "transformer"
+    if seq2seq:
+        from trlx_tpu_torch.models.t5 import T5Config
+
+        cfg = T5Config(**cd["model"]["model_overrides"], compute_dtype=torch.float32,
+                       **{k: getattr(jt.model_config, k) for k in ("lora_r", "lora_alpha", "lora_targets")})
+    else:
+        # the JAX trainer's layout: stacked on a pipe axis
+        cfg = PRESETS["gpt2"].replace(**{**cd["model"]["model_overrides"], "compute_dtype": torch.float32, **{
+            k: getattr(jt.model_config, k) for k in ("pipeline_stages", "scan_layers", "lora_r", "lora_alpha",
+                                                     "lora_targets", "peft_type", "num_virtual_tokens")}})
     if kind == "sft":
-        init = {f"transformer.{k}": v for k, v in params_from_jax(params["transformer"], cfg).items()}
+        conv = t5_params_from_jax if seq2seq else params_from_jax
+        init = {f"{trunk}.{k}": v for k, v in conv(params[trunk], cfg).items()}
     else:
         init = policy_params_from_jax(params, cfg)
     if kind == "ppo":
-        init.update({f"ref_model.{k[len('transformer.'):]}": v for k, v in init.items()
-                     if k.startswith("transformer.")})
+        init.update({f"ref_model.{k[len(trunk) + 1:]}": v for k, v in init.items() if k.startswith(trunk + ".")})
+        start = getattr(jt, "branch_start", None)
+        if seq2seq and start is not None:
+            from trlx_tpu_torch.models.policy import t5_branch_param_subtree
+
+            trunk_state = {k[len(trunk) + 1:]: v for k, v in init.items() if k.startswith(trunk + ".")}
+            init.update({f"frozen_branch.{k}": v
+                         for k, v in t5_branch_param_subtree(trunk_state, start, cfg).items()})
     return jt, {k: v.numpy() for k, v in init.items()}
 
 
@@ -187,8 +242,13 @@ def jax_params_in_port_names(jt):
     return {k: np.asarray(v) for k, v in _flatten(jax.tree.map(np.asarray, jax.device_get(jt.params))).items()}
 
 
-def compare(kind, jrec, jt, ranks):
-    """The port's ranks against the JAX run."""
+def compare(kind, jrec, jt, ranks, noise=(), slack=None):
+    """The port's ranks against the JAX run. ``noise``: parameter names
+    whose gradient is zero in exact arithmetic on this data, so that AdamW
+    turns rounding noise into steps of ``lr |g| / eps``: they are held to
+    two steps' worth of the rate instead of 1e-5. ``slack``: per parameter,
+    an elementwise bound added to the 1e-5 (the JAX package's own
+    difference between two layouts of the same run)."""
     prec = ranks[0]
     assert len(prec["steps"]) == len(jrec["steps"]) == 2
     for r in ranks[1:]:  # every rank reports the same numbers
@@ -209,7 +269,15 @@ def compare(kind, jrec, jt, ranks):
         for key in keys:
             np.testing.assert_allclose(ps[key], js[key], err_msg=f"step {i + 1} {key}", **STAT_TOL)
     want = jax_params_in_port_names(jt)
+    lr = jt.config.optimizer.kwargs["lr"]
     for name, value in prec["params"].items():
+        if name in noise:
+            assert np.abs(value - want[name]).max() <= 2 * lr, name
+            continue
+        if slack is not None and name in slack:
+            bound = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * np.abs(want[name]) + slack[name]
+            assert np.all(np.abs(value - want[name]) <= bound), name
+            continue
         np.testing.assert_allclose(value, want[name], err_msg=name, **PARAM_TOL)
     for r in ranks[1:]:
         for name, value in r["params"].items():
@@ -283,13 +351,21 @@ def refusals(tmp):
         out["serving"] = t._serving_client is None
         t = build(**{"train.resilience.enabled": True, "train.resilience.async_checkpointing": True})
         out["async_ckpt"] = t.resilience.writer is None
-        for key, over in (("t5", {"model.model_arch_type": "seq2seq"}),
-                          ("peft", {"model.peft_config": {"peft_type": "LORA", "r": 4}})):
-            try:
-                build(**over)
-                out[key] = "built"
-            except NotImplementedError as e:
-                out[key] = str(e)
+        # T5 and peft build and run on data=2 (they raised naming their slice until it was ported)
+        from trlx_tpu_torch.pipeline import PromptPipeline
+
+        for key, patch in (("t5", {"model.model_path": "t5", "model.model_arch_type": "seq2seq",
+                                   "model.model_overrides": dict(
+                                       vocab_size=12, d_model=32, d_kv=8, d_ff=64, num_layers=2,
+                                       num_decoder_layers=2, num_heads=4, relative_attention_num_buckets=8)}),
+                           ("peft", {"model.peft_config": {"peft_type": "LORA", "r": 4}})):
+            cfg = TRLConfig.update(TRLConfig.from_dict(config_dict("ppo", dict(data=2), f"{tmp}/{key}", patch=patch)),
+                                   {"train.total_steps": 1})
+            t = get_trainer("PPOTrainer")(config=cfg, reward_fn=reward_fn, device="cpu")
+            t.add_prompt_pipeline(PromptPipeline(PROMPTS, 11, t.tokenizer))
+            t.add_eval_pipeline(PromptPipeline(PROMPTS[:2], 11, t.tokenizer))
+            t.learn()
+            out[key] = t.iter_count
         try:
             make_mesh(data=4)
             out["mismatch"] = "built"
@@ -343,7 +419,7 @@ def test_data2_sampling_reward_on_process_zero_resume_and_refusals(tmp_path):
     for r in ranks:
         _, _, ref = r
         assert ref["async"] and ref["serving"] and ref["async_ckpt"]
-        assert "scale-out slice 3" in ref["t5"] and "scale-out slice 3" in ref["peft"]
+        assert ref["t5"] == ref["peft"] == 1
         assert ref["mismatch"] == "Mesh [4, 1, 1, 1] does not match device count 2"
     log = "\n".join(refused["log"])  # the library logs on process 0
     assert "async_rollouts is single-process only" in log

@@ -300,11 +300,15 @@ def test_unported_training_rows_raise_naming_their_slice(tmp_path):
     assert get_trainer("GRPOTrainer") is GRPOTrainer
     env = SyntheticEnvironment(vocab_size=len(ALPHABET) + 3, prompt_len=3, target_token=3)
     assert isinstance(trlx_tpu_torch.train(environment=env, prompts=PROMPTS, config=cfg, device="cpu"), GRPOTrainer)
-    native = tmp_path / "native"
-    native.mkdir()
-    (native / "native_config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="scale-out slice"):
-        _port_trainer(tmp_path, **{"model.model_path": str(native)})
+    # the native store loads since it was ported (it raised naming its slice before): the trunk is the store's
+    from trlx_tpu_torch.checkpointing import convert_hf_to_native, restore_native
+
+    native = convert_hf_to_native("gpt2", str(tmp_path / "native"), allow_random=True,
+                                  overrides=_config_dict(tmp_path)["model"]["model_overrides"])
+    trainer = _port_trainer(tmp_path, **{"model.model_path": native})
+    _, stored, _ = restore_native(native)
+    trunk = trainer.model.transformer.state_dict()
+    assert set(stored) == set(trunk) and all(torch.equal(trunk[k], v) for k, v in stored.items())
     bare = tmp_path / "bare"
     bare.mkdir()
     with pytest.raises(FileNotFoundError, match="config.json"):

@@ -31,7 +31,9 @@ runs every statement every step, there is no trace to run once), JX006
 data-dependent output shapes: there is no compile cache to churn; the
 census' steady-state shape count stands in for the last, see
 :mod:`trlx_tpu_torch.analysis.census`). JX005, JX008 and the rest of
-``rules_spmd.py`` wait for scale-out slice 3.
+``rules_spmd.py`` wait for the next slice, analysis on a mesh (with the
+collective census and the ``ppo_train_step_overlap`` /
+``ppo_train_step_unsharded_opt`` census entries on ``data=2 x fsdp=2``).
 
 The tensor tests are syntactic, as in the reference: an expression is
 tensor-valued when it calls ``torch.*`` or a tensor reduction method, or

@@ -18,8 +18,8 @@ The port reads and writes safetensors and ``config.json`` itself
 needs neither ``transformers`` nor ``safetensors``. Bloom (ALiBi) loads as
 the other families do. T5 checkpoints load through
 :func:`load_pretrained_seq2seq` and export through ``save_pretrained_hf(...,
-"t5", ...)``. The JAX package's native pre-converted store raises
-``NotImplementedError`` naming its slice.
+"t5", ...)``. A native pre-converted store (``native_config.json``)
+restores through :mod:`trlx_tpu_torch.checkpointing`.
 
 Parameter trees here are nested dicts of numpy arrays in the flax layout
 (``layers_{i}.attn.q_proj.kernel``, kernels ``[in, out]``), which are the
@@ -52,9 +52,6 @@ from trlx_tpu_torch.parallel.pipeline import is_stacked, unstack_layer_params
 logger = logging.getLogger(__name__)
 
 _DTYPE_FIELDS = ("param_dtype", "compute_dtype")
-
-#: the file that marks the JAX package's native pre-converted store (trlx_tpu/checkpointing.py)
-NATIVE_CONFIG = "native_config.json"
 
 def torch_dtype(x) -> torch.dtype:
     """A torch dtype from a torch dtype or its name (``"bfloat16"``)."""
@@ -653,22 +650,22 @@ def load_pretrained(
 ) -> Tuple[TransformerConfig, Optional[Dict[str, torch.Tensor]], str]:
     """(config, trunk state or None, model_type) for a model path.
 
-    A local dir with ``config.json`` and weights gives the converted
-    checkpoint as a ``state_dict`` of f32 CPU tensors for
-    :class:`TransformerLM` (lay it over a seed-initialised model with
-    :func:`merge_loaded_state`); a dir without ``config.json`` raises
-    ``FileNotFoundError``. Anything else gives the family preset and None:
-    the caller random-inits. Dtype overrides may be torch dtypes or
-    their names."""
+    A native pre-converted store (:mod:`trlx_tpu_torch.checkpointing`)
+    restores in its stored layout and dtype. A local dir with
+    ``config.json`` and weights gives the converted checkpoint as a
+    ``state_dict`` of f32 CPU tensors for :class:`TransformerLM` (lay it
+    over a seed-initialised model with :func:`merge_loaded_state`); a dir
+    without ``config.json`` raises ``FileNotFoundError``. Anything else
+    gives the family preset and None: the caller random-inits. Dtype
+    overrides may be torch dtypes or their names."""
+    from trlx_tpu_torch import checkpointing
+
     overrides = dict(overrides or {})
     for key in _DTYPE_FIELDS:
         if key in overrides:
             overrides[key] = torch_dtype(overrides[key])
-    if os.path.isdir(model_path) and os.path.exists(os.path.join(model_path, NATIVE_CONFIG)):
-        raise NotImplementedError(
-            f"trlx_tpu_torch does not read the native pre-converted store ({model_path!r}) yet: "
-            "scale-out slice 3; export it in HF format (save_pretrained) instead"
-        )
+    if checkpointing.is_native_checkpoint(model_path):
+        return checkpointing.restore_native(model_path, overrides, expect_seq2seq=False)
     config_path = os.path.join(model_path, "config.json")
     if os.path.isdir(model_path):
         if not os.path.exists(config_path):
@@ -876,22 +873,22 @@ CONVERTERS["t5"] = (t5_state_dict_to_params, _t5_from_params)
 
 
 def load_pretrained_seq2seq(model_path: str, overrides: Optional[Dict[str, Any]] = None):
-    """(T5Config, T5LM state or None) for a seq2seq model path: a local HF
-    T5 directory converts as :func:`load_pretrained` does (a directory
+    """(T5Config, T5LM state or None) for a seq2seq model path: a native
+    store restores and a local HF T5
+    directory converts as :func:`load_pretrained` does (a directory
     without ``config.json`` raises ``FileNotFoundError``); anything else
     gives the random-init ``T5Config()`` (t5-small widths) with
-    ``overrides``, as the JAX package. The native store raises."""
+    ``overrides``, as the JAX package."""
+    from trlx_tpu_torch import checkpointing
     from trlx_tpu_torch.models.t5 import T5Config, from_hf_t5_config
 
     overrides = dict(overrides or {})
     for key in _DTYPE_FIELDS:
         if key in overrides:
             overrides[key] = torch_dtype(overrides[key])
-    if os.path.isdir(model_path) and os.path.exists(os.path.join(model_path, NATIVE_CONFIG)):
-        raise NotImplementedError(
-            f"trlx_tpu_torch does not read the native pre-converted store ({model_path!r}) yet: "
-            "scale-out slice 3; export it in HF format (save_pretrained) instead"
-        )
+    if checkpointing.is_native_checkpoint(model_path):
+        config, state, _ = checkpointing.restore_native(model_path, overrides, expect_seq2seq=True)
+        return config, state
     config_path = os.path.join(model_path, "config.json")
     if os.path.isdir(model_path):
         if not os.path.exists(config_path):

@@ -46,6 +46,8 @@ from trlx_tpu_torch.models.transformer import (
     read_kv_cache,
     write_kv_cache,
 )
+from trlx_tpu_torch.parallel.collectives import copy_to_group
+from trlx_tpu_torch.parallel.sharding import spec_dim
 
 
 @dataclass(frozen=True)
@@ -160,6 +162,15 @@ def _dense(c: T5Config, name: str, i: int, o: int, std: float) -> Dense:
 
 
 class T5Attention(nn.Module):
+    """Under tensor parallelism (:meth:`set_tensor_parallel`) ``config``
+    holds this rank's head count, ``tp_heads`` its slice of the global
+    heads: q / k / v column-parallel, ``o`` row-parallel, and the relative
+    bias (a replicated leaf) read at this rank's head columns, its gradient
+    summed over ``model``."""
+
+    tp_heads: Optional[slice] = None
+    tp_group = None
+
     def __init__(self, config: T5Config, has_relative_bias: bool = False, bidirectional: bool = True):
         super().__init__()
         c = self.config = config
@@ -181,7 +192,23 @@ class T5Attention(nn.Module):
             k_pos[None, :] - q_pos[:, None], self.bidirectional, c.relative_attention_num_buckets,
             c.relative_attention_max_distance,
         )
-        return self.relative_attention_bias(buckets).permute(2, 0, 1)[None]
+        emb = self.relative_attention_bias
+        if self.tp_heads is None:
+            return emb(buckets).permute(2, 0, 1)[None]
+        table = copy_to_group(emb.embedding, self.tp_group)[:, self.tp_heads]
+        return F.embedding(buckets.long(), table).to(emb.dtype).permute(2, 0, 1)[None]
+
+    def set_tensor_parallel(self, specs, key: str, group) -> None:
+        """This rank's heads when the rules shard q over ``model``
+        (:func:`~trlx_tpu_torch.models.transformer.set_tensor_parallel`)."""
+        if spec_dim(specs[key + "q.kernel"], "model") != 1:
+            return
+        H, m = self.config.num_heads, group.size
+        if H % m:
+            raise NotImplementedError(f"{H} T5 heads over model={m}: heads must divide the model axis")
+        Hl = H // m
+        self.tp_heads, self.tp_group = slice(group.index * Hl, (group.index + 1) * Hl), group
+        self.config = self.config.replace(num_heads=Hl)
 
     def heads(self, proj: Dense, src: torch.Tensor) -> torch.Tensor:
         """``proj(src)`` as [B, H, S, D], the cache layout."""
@@ -287,7 +314,7 @@ def _head(model: nn.Module, hidden: torch.Tensor) -> torch.Tensor:
     the tied embedding after scaling by ``d_model ** -0.5``, or ``lm_head``."""
     c = model.config
     if c.tie_word_embeddings:
-        return (hidden * c.d_model ** -0.5) @ model.shared.embedding.to(c.compute_dtype).T
+        return model.shared.attend(hidden * c.d_model ** -0.5, c.compute_dtype)
     return model.lm_head(hidden)
 
 
@@ -430,7 +457,8 @@ class T5LM(nn.Module):
         """Per-layer decoder self-attention buffers (zeros) on the model's
         device, ``index`` 0."""
         c = self.config
-        shape = (batch_size, c.num_heads, max_length, c.d_kv)
+        # this rank's heads under tensor parallelism
+        shape = (batch_size, self.decoder_blocks_0.self_attn.config.num_heads, max_length, c.d_kv)
         per_layer = kv_cache_layout(shape, dtype or c.compute_dtype, c.kv_cache_quant)
         out: Dict[str, Any] = {
             key: [torch.zeros(shp, dtype=dt, device=self.device) for _ in range(c.num_decoder_layers)]

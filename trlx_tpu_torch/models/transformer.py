@@ -532,17 +532,37 @@ class Dense(nn.Module):
             x = copy_to_group(x, self.tp_group)
         y = x @ self.kernel.to(self.dtype)
         if self.tp == "row":
+            if self.lora_r > 0 and adapters_enabled():
+                y = y + self._lora(x)  # this rank's partial product, summed with the kernel's
             y = reduce_from_group(y, self.tp_group) if sp is None else reduce_scatter_to_group(y, sp, 1)
         if self.bias is not None:
             bias = self.bias
             if self.tp == "row" and sp is not None:
                 bias = copy_to_group(bias, sp)  # added to this rank's rows: its gradient sums the ranks'
             y = y + bias.to(self.dtype)
-        if self.lora_r > 0 and adapters_enabled():
-            y = y + (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * (self.lora_alpha / self.lora_r)
+        if self.tp != "row" and self.lora_r > 0 and adapters_enabled():
+            y = y + self._lora(x)
         if self.tp == "column_gather":
             y = gather_from_group(y, self.tp_group, -1)
         return y
+
+
+    def _lora(self, x: torch.Tensor) -> torch.Tensor:
+        """``(x A) B * alpha / r`` on this rank's features: under tensor
+        parallelism the adapters stay whole (replicated leaves), a column
+        layer takes ``B``'s columns of its output slice and a row layer
+        ``A``'s rows of its input slice (its partial product joins the
+        kernel's before the all-reduce); their gradients sum over ``model``."""
+        a, b = self.lora_a, self.lora_b
+        if self.tp is not None:
+            a, b = copy_to_group(a, self.tp_group), copy_to_group(b, self.tp_group)
+            if self.tp == "row":
+                n = self.kernel.shape[0]
+                a = a.narrow(0, self.tp_group.index * n, n)
+            else:
+                n = self.kernel.shape[1]
+                b = b.narrow(1, self.tp_group.index * n, n)
+        return (x @ a.to(self.dtype)) @ b.to(self.dtype) * (self.lora_alpha / self.lora_r)
 
 
 def merge_lora_state(state: Mapping[str, torch.Tensor], lora_alpha: float, lora_r: int) -> Dict[str, torch.Tensor]:
@@ -641,6 +661,7 @@ class Attention(nn.Module):
 
     tp_heads: Optional[slice] = None
     tp_kv = None
+    tp_group = None
     seq_group = None
 
     def __init__(self, config: TransformerConfig):
@@ -766,8 +787,9 @@ class Attention(nn.Module):
                 # visible to every query (zero bias), no positions, no rotary;
                 # prefixed rows carry no int8 scale, so the cache dequantized above
                 shape = (B, c.kv_heads, n_prefix, c.dim_per_head)
-                kh = torch.cat([self.prefix_k.to(kh.dtype).transpose(0, 1)[None].expand(shape), kh], dim=2)
-                vh = torch.cat([self.prefix_v.to(vh.dtype).transpose(0, 1)[None].expand(shape), vh], dim=2)
+                pk, pv = (self._local_prefix(p) for p in (self.prefix_k, self.prefix_v))
+                kh = torch.cat([pk.to(kh.dtype).transpose(0, 1)[None].expand(shape), kh], dim=2)
+                vh = torch.cat([pv.to(vh.dtype).transpose(0, 1)[None].expand(shape), vh], dim=2)
                 mask_bias = torch.cat([mask_bias.new_zeros(mask_bias.shape[:-1] + (n_prefix,)), mask_bias], dim=-1)
             # a cache in another dtype (a bf16 cache under f32 compute):
             # both products run in the promoted dtype, as JAX's einsum does
@@ -822,6 +844,20 @@ class Attention(nn.Module):
         out = all_to_all_op(out, g, 2, 1) if q_local else gather_from_group(out, g, 1)
         out = out.reshape(B, T, c.num_heads * c.dim_per_head).to(c.compute_dtype)
         return _sp_out(self.o_proj, self.o_proj(out), sp)
+
+    def _local_prefix(self, prefix: torch.Tensor) -> torch.Tensor:
+        """The prefix-tuning keys or values ``[nv, Hkv, D]`` of the key /
+        value heads this rank's query heads read (whole when the query heads
+        are): the prefix is a replicated leaf, and its gradient sums over
+        ``model`` where each rank reads a part of it."""
+        if self.tp_heads is None:
+            return prefix
+        prefix = copy_to_group(prefix, self.tp_group)
+        if self.tp_kv is None:
+            n = self.config.kv_heads
+            return prefix.narrow(1, self.tp_group.index * n, n)
+        heads = self.tp_kv[1]
+        return prefix if heads is None else prefix.index_select(1, heads.to(prefix.device))
 
     def _tp_kv_heads(self, kv: torch.Tensor, index: bool = True) -> torch.Tensor:
         """[B, T, features] of a k or v projection -> the [B, T, heads, D]
@@ -1011,6 +1047,8 @@ def set_tensor_parallel(module: nn.Module, specs: Mapping[str, Any], group) -> N
             sub.tp_vocab_start = r * (sub.embedding.shape[0] // m)
         if isinstance(sub, Attention):
             _tp_attention(sub, specs, key, group, off)
+        elif hasattr(sub, "set_tensor_parallel"):
+            sub.set_tensor_parallel(specs, key, group)
     kv = {a.config.kv_heads for a in module.modules() if isinstance(a, Attention)}
     for sub in module.modules():
         if isinstance(sub, TransformerLM) and kv:
@@ -1031,7 +1069,7 @@ def _tp_attention(attn: Attention, specs, key: str, group, off: int = 0) -> None
     if H % m:
         raise NotImplementedError(f"{H} query heads over model={m}: heads must divide the model axis")
     Hl = H // m
-    attn.tp_heads = slice(r * Hl, (r + 1) * Hl)
+    attn.tp_heads, attn.tp_group = slice(r * Hl, (r + 1) * Hl), group
     g = H // Hkv
     if kv_sharded and Hkv % m == 0:
         kv_local = Hkv // m  # aligned: this rank's k/v heads are its query heads' groups

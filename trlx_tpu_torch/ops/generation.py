@@ -173,10 +173,14 @@ def generate_seq2seq(
     top_k_impl: str = "approx",
     min_new_tokens: int = 0,
     logits_processor: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    rows: Optional[Tuple[int, int]] = None,
+    sync_group=None,
 ) -> Dict[str, torch.Tensor]:
     """Seq2seq generation: encode once, compute the cross-attention K/V once,
     then one decoder token a step over a preallocated self-attention cache,
     exiting early once every row has finished (the JAX ``while_loop``).
+    ``rows`` and ``sync_group`` are :func:`generate`'s (a mesh's rows of
+    the global batch, and the group whose rows all end the loop).
 
     ``decode_fn(tok [B, 1], enc, enc_mask, dec_mask [B, 1+N], positions,
     cache, cross_kvs) -> (logits, hidden, cache)``. Returns ``sequences``
@@ -196,7 +200,12 @@ def generate_seq2seq(
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     vocab = None
     step = 0
-    while step < N and not bool(finished.all()):
+
+    def all_finished() -> torch.Tensor:
+        done = finished.all()
+        return done if sync_group is None else all_reduce(done.to(torch.int32), sync_group, "min")
+
+    while step < N and not bool(all_finished()):
         logits, hidden, cache = decode_fn(tok[:, None], enc, attention_mask, dec_mask, None, cache, cross_kvs)
         step_logits = logits[:, -1, :]
         if logits_processor is not None:
@@ -206,7 +215,7 @@ def generate_seq2seq(
                 vocab = torch.arange(step_logits.shape[-1], device=dev)
             step_logits = torch.where((vocab == eos_token_id)[None, :], torch.full_like(step_logits, -1e9),
                                       step_logits)
-        new_tok = sample_token(generator, step_logits, temperature, top_k, top_p, do_sample, top_k_impl)
+        new_tok = sample_token(generator, step_logits, temperature, top_k, top_p, do_sample, top_k_impl, rows)
         tok = torch.where(finished, torch.full_like(new_tok, pad_token_id), new_tok).to(torch.int32)
         if eos_token_id is not None:
             finished = finished | (tok == eos_token_id)

@@ -40,7 +40,7 @@ the sequence path ran.
 
 import contextlib
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -273,6 +273,23 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, cat_dim: int) -> torch.Te
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=group.pg)
         return torch.cat(recv.unbind(0), dim=cat_dim)
+
+    return _run(fn, x.contiguous(), group)
+
+
+def all_to_all_flat(x: torch.Tensor, group, send_counts: Sequence[int], recv_counts: Sequence[int]) -> torch.Tensor:
+    """1-D ``x`` cut into consecutive pieces of ``send_counts`` elements,
+    piece ``j`` sent to member ``j``; the pieces received (``recv_counts``
+    elements from each member) concatenated in member order."""
+    if group is None or group.size == 1:
+        return x
+    dist = _dist()
+
+    def fn(t):
+        recv = t.new_empty(int(sum(recv_counts)))
+        dist.all_to_all_single(recv, t, output_split_sizes=list(recv_counts), input_split_sizes=list(send_counts),
+                               group=group.pg)
+        return recv
 
     return _run(fn, x.contiguous(), group)
 

@@ -53,7 +53,7 @@ from trlx_tpu_torch.parallel.mesh import (
     Mesh,
     batch_rows,
 )
-from trlx_tpu_torch.parallel.sharding import PartitionSpec, make_param_specs, spec_dim
+from trlx_tpu_torch.parallel.sharding import PartitionSpec, make_param_specs, shard_tensor, spec_dim
 
 
 def can_overlap(mesh: Mesh) -> bool:
@@ -87,10 +87,18 @@ class Leaf:
     fsdp_dim: int
     master: torch.nn.Parameter
     full_shape: Tuple[int, ...]
+    #: the host copy of an offloaded leaf (:meth:`ShardedParams.offload`)
+    host: Optional[torch.Tensor] = None
 
     @property
     def sharded(self) -> bool:
         return self.fsdp_dim >= 0
+
+    @property
+    def offloaded(self) -> bool:
+        """Held on the host only (not uploaded)."""
+        return (self.host is not None and self.master.device == self.host.device
+                and self.master.data_ptr() == self.host.data_ptr())
 
 
 @dataclass
@@ -159,7 +167,7 @@ class ShardedParams:
 
     def gather(self) -> None:
         for leaf in self.leaves:
-            if leaf.sharded and leaf.param.numel() == 0:
+            if leaf.sharded and leaf.param.numel() == 0 and not leaf.offloaded:
                 leaf.param.data = coll.all_gather(leaf.master.data, self.fsdp, leaf.fsdp_dim)
 
     def release(self) -> None:
@@ -181,6 +189,38 @@ class ShardedParams:
             self._depth -= 1
             if self._depth == 0:
                 self.release()
+
+    # -- host offload -------------------------------------------------------------
+
+    def offload(self, prefix: str, pin: bool) -> int:
+        """Hold the leaves named ``<prefix>.*`` (frozen ones: the offloaded
+        reference) in host memory as this rank's blocks, pinned when
+        ``pin``, and free their device copies; returns the host bytes."""
+        for leaf in self._under(prefix):
+            if leaf.host is None:
+                src = leaf.master.data
+                leaf.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin).copy_(src)
+        self.release_upload(prefix)
+        return sum(leaf.host.numel() * leaf.host.element_size() for leaf in self._under(prefix))
+
+    def upload(self, prefix: str, device) -> None:
+        """Copy the offloaded leaves under ``prefix`` to ``device`` (inside
+        :meth:`gathered`, their fsdp shards are gathered at once)."""
+        for leaf in self._under(prefix):
+            if leaf.offloaded:
+                leaf.master.data = leaf.host.to(device, non_blocking=True)
+                if leaf.sharded and self._depth > 0:
+                    leaf.param.data = coll.all_gather(leaf.master.data, self.fsdp, leaf.fsdp_dim)
+
+    def release_upload(self, prefix: str) -> None:
+        """Drop the device copies of the offloaded leaves under ``prefix``."""
+        for leaf in self._under(prefix):
+            leaf.master.data = leaf.host
+            if leaf.sharded:
+                leaf.param.data = leaf.param.data.new_empty(0)
+
+    def _under(self, prefix: str) -> List[Leaf]:
+        return [leaf for leaf in self.leaves if leaf.name.startswith(prefix + ".")]
 
     # -- gradients --------------------------------------------------------------
 
@@ -222,16 +262,22 @@ class ShardedParams:
 
         return shard_tensor(full, leaf.spec, self.mesh, split_axes(leaf))
 
-    def full_state(self) -> Dict[str, torch.Tensor]:
-        """``{name: full tensor}`` of every leaf (a collective)."""
-        return {leaf.name: self.full_tensor(leaf, leaf.master.data) for leaf in self.leaves}
+    def full_state(self, names=None) -> Dict[str, torch.Tensor]:
+        """``{name: full tensor}`` of every leaf, or of those in ``names``
+        (a collective)."""
+        return {leaf.name: self.full_tensor(leaf, leaf.master.data) for leaf in self.leaves
+                if names is None or leaf.name in names}
 
     @torch.no_grad()
     def load_full_state(self, state: Mapping[str, torch.Tensor]) -> None:
-        """Copy this rank's blocks of full tensors into the masters."""
+        """Copy this rank's blocks of full tensors into the masters (and the
+        host copies of offloaded leaves)."""
         for leaf in self.leaves:
             if leaf.name in state:
-                leaf.master.data.copy_(self.local_block(leaf, state[leaf.name].to(leaf.master.device)))
+                block = self.local_block(leaf, state[leaf.name])
+                leaf.master.data.copy_(block.to(leaf.master.device))
+                if leaf.host is not None and not leaf.offloaded:
+                    leaf.host.copy_(block.to(leaf.host.device))
 
 
 def split_axes(leaf: Leaf) -> List[str]:
@@ -267,6 +313,244 @@ def _clip_by_global_norm_sharded(leaves: Optional[List[Leaf]], grads: List[torch
     for g in grads:
         g.mul_(scale.to(g.dtype))
     return norm
+
+
+class _FlatRanges:
+    """Where the whole leaf's flat ranges lie in its fsdp shards, for a leaf
+    sharded over ``fsdp`` on dim ``d`` whose 8-bit blocks split over
+    ``fsdp``: member ``q`` owns whole-leaf elements ``[lo_q, hi_q)``, and
+    member ``r`` holds the fsdp shard ``T_r`` (the leaf narrowed on ``d``,
+    whole over the other axes). Viewing the leaf as ``[outer, D * inner]``,
+    ``T_r`` is the column window ``[r c, (r + 1) c)`` (``c = D / f *
+    inner``), and an element's whole index grows with its place in
+    ``T_r``'s flat order, so the elements of ``T_r`` that fall in ``[lo_q,
+    hi_q)`` are one run of ``T_r``'s flat order: ``counts[r][q]`` long, and
+    the runs of ``r`` for ``q = 0, 1, ...`` follow each other. Moving a
+    shard to its ranges is then one all-to-all of ``T_r`` as it lies."""
+
+    def __init__(self, shape: Tuple[int, ...], d: int, ranges: List[Tuple[int, int]]):
+        f = len(ranges)
+        inner = int(np.prod(shape[d + 1:]))
+        self.row, self.c, self.f, self.ranges = shape[d] * inner, shape[d] // f * inner, f, ranges
+
+        def before(r, x):  # elements of T_r whose whole index is below x
+            return (x // self.row) * self.c + min(max(x % self.row - r * self.c, 0), self.c)
+
+        self.counts = [[before(r, hi) - before(r, lo) for lo, hi in ranges] for r in range(f)]
+        #: the first of T_r's elements in member q's range, counted from the first row q's range touches
+        self.offsets = [[before(r, lo) - (lo // self.row) * self.c for lo, _ in ranges] for r in range(f)]
+        #: each range is its member's shard, in the same order: no exchange
+        self.aligned = all(self.counts[r][q] == 0 for r in range(f) for q in range(f) if q != r)
+
+    def _rows(self, q: int) -> Tuple[int, int, int]:
+        lo, hi = self.ranges[q]
+        first = lo // self.row
+        return first, (hi - 1) // self.row - first + 1, lo - first * self.row
+
+    def to_range(self, shard: torch.Tensor, group) -> torch.Tensor:
+        """This member's range of the whole leaf from the members' shards
+        (``shard``: this member's ``T``)."""
+        q = group.index
+        flat = shard.reshape(-1)
+        if self.aligned:
+            return flat
+        got = coll.all_to_all_flat(flat, group, self.counts[q], [self.counts[r][q] for r in range(self.f)])
+        _, nrows, start = self._rows(q)
+        rows = flat.new_empty(nrows, self.row)
+        window = flat.new_empty(nrows * self.c)
+        for r, piece in enumerate(got.split([self.counts[r][q] for r in range(self.f)])):
+            window[self.offsets[r][q]:self.offsets[r][q] + piece.numel()] = piece
+            rows[:, r * self.c:(r + 1) * self.c] = window.view(nrows, self.c)
+        lo, hi = self.ranges[q]
+        return rows.view(-1)[start:start + hi - lo]
+
+    def to_shard(self, rng: torch.Tensor, group, shape) -> torch.Tensor:
+        """The inverse of :meth:`to_range`: this member's shard (``shape``)
+        from every member's range."""
+        q = group.index
+        if self.aligned:
+            return rng.reshape(shape)
+        _, nrows, start = self._rows(q)
+        rows = rng.new_empty(nrows, self.row)
+        rows.view(-1)[start:start + rng.numel()] = rng
+        pieces = [rows[:, r * self.c:(r + 1) * self.c].reshape(-1)[self.offsets[r][q]:self.offsets[r][q]
+                                                                  + self.counts[r][q]] for r in range(self.f)]
+        back = coll.all_to_all_flat(torch.cat(pieces), group, [self.counts[r][q] for r in range(self.f)],
+                                    self.counts[q])
+        return back.reshape(shape)
+
+
+class _BlockLayout:
+    """A leaf held as blocks, as :class:`~trlx_tpu_torch.utils.optim.
+    Adafactor` reads it: ``shape`` is the whole leaf's, and :meth:`sum`
+    completes a partial sum of this rank's block over the ranks that hold
+    the leaf's other blocks along ``dim`` (along every dim when None)."""
+
+    def __init__(self, leaf: Leaf, mesh: Mesh):
+        self.shape = full_shape(leaf, mesh)
+        self.groups = {}
+        for axis in split_axes(leaf):
+            d = leaf.fsdp_dim if axis == FSDP_AXIS else spec_dim(leaf.spec, axis)
+            self.groups.setdefault(d, []).append(mesh.group(axis))
+
+    def sum(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        groups = [g for d, gs in self.groups.items() for g in gs] if dim is None else self.groups.get(dim, [])
+        for g in groups:
+            x = coll.all_reduce(x, g)
+        return x
+
+
+class WholeLeafOptimizer:
+    """An optimizer whose update of a leaf reads the whole leaf (8-bit
+    Adam(W)'s blocks of :data:`~trlx_tpu_torch.ops.quantized_adam.BLOCK`
+    elements of the flattened leaf, Adafactor's factoring by the leaf's
+    shape, its row / column means and its RMS clips and scales) run over
+    leaves held as blocks (fsdp shards, ``model`` / ``pipe`` slices), with
+    the numbers of the unsharded formula, as the JAX package's GSPMD step
+    computes them. ``make(params, **kwargs)`` builds the inner optimizer
+    (``optimizer``, which the schedule drives).
+
+    - ``blockwise`` (8-bit): the inner optimizer runs over one proxy per
+      leaf, this rank's contiguous range of the whole leaf's blocks. The
+      block dim shards over ``fsdp`` where the block count divides it (the
+      JAX state rule, :func:`~trlx_tpu_torch.parallel.sharding.
+      make_state_shardings`), else every rank holds every block. A step
+      gathers the gradient and the parameter over ``model`` / ``pipe``
+      (where the leaf is split there), moves them from the fsdp shards to
+      the ranges with one all-to-all over ``fsdp`` each (:class:`_FlatRanges`:
+      a rank sends only the elements of its shard that lie in another's
+      range; nothing where the ranges are the shards), steps, and moves the
+      updated ranges back. Leaves that are not fsdp-sharded take their range
+      locally; where the blocks do not split, every rank gathers the whole
+      leaf. The proxies hold data only inside a step;
+    - otherwise (Adafactor): the inner optimizer runs over the masters,
+      told each sharded leaf's :class:`_BlockLayout`: it factors by the
+      whole shape, and its row / column means and its sums of squares are
+      partial sums all-reduced over the axes the leaf is split on. Its state
+      is this rank's block of the whole-leaf state."""
+
+    def __init__(self, make: Callable, leaves: List[Leaf], shards: "ShardedParams", blockwise: bool, **kwargs):
+        from trlx_tpu_torch.ops.quantized_adam import BLOCK
+
+        self.leaves, self.shards, self.blockwise = leaves, shards, blockwise
+        mesh, f = shards.mesh, shards.fsdp.size
+        self.ranges, self.block_sharded, self.flat = [], [], []
+        if not blockwise:
+            self.proxies = [leaf.master for leaf in leaves]
+            self.optimizer = make(self.proxies, **kwargs)
+            self.optimizer.layouts = {leaf.master: _BlockLayout(leaf, mesh) for leaf in leaves if split_axes(leaf)}
+            self.block_sharded = [False] * len(leaves)
+            return
+        self.proxies = []
+        for leaf in leaves:
+            shape = full_shape(leaf, mesh)
+            n = int(np.prod(shape))
+            nb = -(-n // BLOCK)
+            split = f > 1 and nb % f == 0
+            bounds = [(i * (nb // f) * BLOCK, min((i + 1) * (nb // f) * BLOCK, n)) for i in range(f)] if split \
+                else [(0, n)]
+            own = bounds[shards.fsdp.index] if split else bounds[0]
+            self.ranges.append(own + ((nb // f if split else nb) * BLOCK,))
+            self.block_sharded.append(split)
+            # the exchange where the fsdp dim is the leaf's own (not shared with model or pipe)
+            fdim = leaf.fsdp_dim
+            alone = fdim >= 0 and all(spec_dim(leaf.spec, a) != fdim for a in (MODEL_AXIS, PIPE_AXIS))
+            self.flat.append(_FlatRanges(shape, fdim, bounds) if split and alone else None)
+            # the proxies hold data only inside a step
+            self.proxies.append(torch.nn.Parameter(leaf.master.new_empty(0), requires_grad=False))
+        self.optimizer = make(self.proxies, **kwargs)
+
+    def _over_model(self, leaf: Leaf, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (the master's shape) gathered over ``model`` and ``pipe``."""
+        for axis in (MODEL_AXIS, PIPE_AXIS):
+            d = spec_dim(leaf.spec, axis)
+            if d >= 0:
+                x = coll.all_gather(x, self.shards.mesh.group(axis), d)
+        return x
+
+    @torch.no_grad()
+    def step(self) -> None:
+        if not self.blockwise:
+            self.optimizer.step()
+            return
+        sh = self.shards
+        for leaf, proxy, rng, flat in zip(self.leaves, self.proxies, self.ranges, self.flat):
+            g = leaf.master.grad if leaf.master.grad is not None else torch.zeros_like(leaf.master)
+            if flat is not None:
+                proxy.data = flat.to_range(self._over_model(leaf, leaf.master.data), sh.fsdp).clone()
+                proxy.grad = flat.to_range(self._over_model(leaf, g), sh.fsdp).clone()
+                continue
+            if leaf.sharded:
+                full_g, full_p = sh.full_tensor(leaf, g), sh.full_tensor(leaf, leaf.master.data)
+            else:
+                full_g, full_p = self._over_model(leaf, g), self._over_model(leaf, leaf.master.data)
+            proxy.data = full_p.reshape(-1)[rng[0]:rng[1]].clone()
+            proxy.grad = full_g.reshape(-1)[rng[0]:rng[1]].clone()
+        self.optimizer.step()
+        model_axes = [MODEL_AXIS, PIPE_AXIS]
+        for leaf, proxy, rng, split, flat in zip(self.leaves, self.proxies, self.ranges, self.block_sharded,
+                                                 self.flat):
+            shape = full_shape(leaf, sh.mesh)
+            if flat is not None:
+                fshape = list(shape)
+                fshape[leaf.fsdp_dim] //= sh.fsdp.size
+                new = flat.to_shard(proxy.data, sh.fsdp, fshape)
+                new = shard_tensor(new, leaf.spec, sh.mesh, model_axes)
+            else:
+                whole = proxy.data
+                if split:
+                    whole = coll.all_gather(torch.nn.functional.pad(whole, (0, rng[2] - whole.numel())), sh.fsdp, 0)
+                new = sh.local_block(leaf, whole[:int(np.prod(shape))].reshape(shape))
+            leaf.master.data.copy_(new)
+            proxy.grad = leaf.master.grad = None
+            proxy.data = proxy.data.new_empty(0)
+
+    def _state_leaf(self, index: int, key: str) -> Optional[Leaf]:
+        """The layout of Adafactor's state ``key`` of leaf ``index`` as a
+        :class:`Leaf` (its spec without the dim a factored moment
+        reduces), or None where the state is not laid out as its leaf."""
+        from trlx_tpu_torch.utils.optim import factored_dims
+
+        leaf = self.leaves[index]
+        if self.blockwise or not split_axes(leaf):
+            return None
+        if key in ("v_row", "v_col"):
+            group = self.optimizer.param_groups[0]
+            d1, d0 = factored_dims(full_shape(leaf, self.shards.mesh), group["factored"],
+                                   group["min_dim_size_to_factor"])
+            drop = d0 if key == "v_row" else d1
+            spec = PartitionSpec(*[e for i, e in enumerate(leaf.spec) if i != drop])
+            fdim = fsdp_shard_dim(spec) if leaf.sharded else -1
+            return Leaf(leaf.name, leaf.param, spec, fdim, leaf.master, ())
+        return leaf
+
+    def gather_state(self, index: int, key: str, v):
+        """A state tensor of leaf ``index`` as one rank holds it whole (the
+        checkpoint payload): 8-bit blocks concatenated over ``fsdp`` when
+        split, Adafactor's blocks gathered as their leaf's."""
+        if not torch.is_tensor(v) or not v.dim():
+            return v
+        if self.blockwise:
+            return coll.all_gather(v, self.shards.fsdp, 0) if self.block_sharded[index] else v
+        layout = self._state_leaf(index, key)
+        return self.shards.full_tensor(layout, v) if layout is not None else v
+
+    def scatter_state(self, index: int, key: str, v):
+        """The inverse of :meth:`gather_state` (a checkpoint load)."""
+        if not torch.is_tensor(v) or not v.dim():
+            return v
+        if self.blockwise:
+            return coll.local_slice(v, self.shards.fsdp, 0).clone() if self.block_sharded[index] else v
+        layout = self._state_leaf(index, key)
+        return self.shards.local_block(layout, v).clone() if layout is not None else v
+
+
+def full_shape(leaf: Leaf, mesh: Mesh) -> Tuple[int, ...]:
+    """The whole shape of a leaf whose master is its block."""
+    shape = list(leaf.master.shape)
+    for axis in split_axes(leaf):
+        shape[spec_dim(leaf.spec, axis)] *= mesh.shape[axis]
+    return tuple(shape)
 
 
 class _Prefetcher:

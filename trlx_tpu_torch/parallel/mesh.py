@@ -151,16 +151,24 @@ class AxisGroup(NamedTuple):
 
 
 class Mesh:
-    """``data × fsdp × pipe × model`` over the world's ranks.
+    """``data × fsdp × pipe × model`` over the world's ranks, or over the
+    world ranks ``ranks`` (an island: mesh position ``i`` is world rank
+    ``ranks[i]``).
 
-    ``shape`` maps each axis to its size, ``coords`` this rank's position;
-    :meth:`group` gives the :class:`AxisGroup` of an axis set."""
+    ``shape`` maps each axis to its size, ``rank`` is this process's mesh
+    position and ``coords`` its coordinates (``member`` False, ``rank``
+    None and no coordinates for a process outside ``ranks``); :meth:`group`
+    gives the :class:`AxisGroup` of an axis set."""
 
-    def __init__(self, sizes: Sequence[int], rank: int = 0, device=None):
+    def __init__(self, sizes: Sequence[int], rank: Optional[int] = 0, device=None,
+                 ranks: Optional[Sequence[int]] = None):
         self.shape: Dict[str, int] = dict(zip(MESH_AXES, (int(s) for s in sizes)))
         self.size = int(np.prod(sizes))
-        self.rank = int(rank)
-        self.coords: Dict[str, int] = dict(zip(MESH_AXES, (int(c) for c in np.unravel_index(rank, tuple(sizes)))))
+        self.ranks = tuple(range(self.size)) if ranks is None else tuple(int(r) for r in ranks)
+        self.member = rank is not None
+        self.rank = int(rank) if self.member else None
+        self.coords: Dict[str, int] = (
+            dict(zip(MESH_AXES, (int(c) for c in np.unravel_index(rank, tuple(sizes))))) if self.member else {})
         self.device = device
         self._groups: Dict[Tuple[str, ...], AxisGroup] = {}
 
@@ -192,9 +200,11 @@ class Mesh:
 
     def build_groups(self) -> None:
         """Create the process groups of :data:`GROUP_AXES` (a collective
-        call: every rank builds every group in the same order)."""
+        call: every rank of the world, member or not, builds every group in
+        the same order)."""
         import torch.distributed as dist
 
+        whole_world = self.ranks == tuple(range(process_count()))
         for axes in GROUP_AXES:
             size = self.axis_size(axes)
             others = [a for a in MESH_AXES if a not in axes]
@@ -203,10 +213,11 @@ class Mesh:
                 # one group per setting of the other axes, all built everywhere
                 for fixed in np.ndindex(*[self.shape[a] for a in others]):
                     members = self.ranks_with(dict(zip(others, fixed)))
-                    pg = dist.new_group(list(members)) if size < self.size else dist.group.WORLD
+                    world = [self.ranks[m] for m in members]
+                    pg = dist.group.WORLD if size == self.size and whole_world else dist.new_group(world)
                     if self.rank in members:
                         mine = pg
-            self._groups[axes] = AxisGroup(mine, size, self.axis_index(axes), axes)
+            self._groups[axes] = AxisGroup(mine, size, self.axis_index(axes) if self.member else 0, axes)
 
     def group(self, axes) -> AxisGroup:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -238,13 +249,22 @@ class Mesh:
 
 
 def make_mesh(data: int = -1, fsdp: int = 1, model: int = 1, pipe: int = 1, world_size: Optional[int] = None,
-              rank: Optional[int] = None, device=None, build_groups: bool = True) -> Mesh:
+              rank: Optional[int] = None, device=None, build_groups: bool = True,
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
     """The ``data × fsdp × pipe × model`` mesh over ``world_size`` ranks
-    (default: the process group's). At most one axis may be -1, inferred
-    from the world size; the product must equal it (the JAX function's
-    checks, with ranks for devices)."""
-    n = process_count() if world_size is None else int(world_size)
-    rank = process_index() if rank is None else int(rank)
+    (default: the process group's), or over the world ranks ``ranks`` (an
+    island; this process's position is its index there, and a process
+    outside it is no member). At most one axis may be -1, inferred from the
+    rank count; the product must equal it (the JAX function's checks, with
+    ranks for devices)."""
+    if ranks is not None:
+        ranks = [int(r) for r in ranks]
+        n = len(ranks)
+        me = process_index() if rank is None else int(rank)
+        rank = ranks.index(me) if me in ranks else None
+    else:
+        n = process_count() if world_size is None else int(world_size)
+        rank = process_index() if rank is None else int(rank)
     sizes = [data, fsdp, pipe, model]
     unknown = [i for i, s in enumerate(sizes) if s == -1]
     if len(unknown) > 1:
@@ -256,7 +276,7 @@ def make_mesh(data: int = -1, fsdp: int = 1, model: int = 1, pipe: int = 1, worl
         sizes[unknown[0]] = n // known
     if int(np.prod(sizes)) != n:
         raise ValueError(f"Mesh {sizes} does not match device count {n}")
-    mesh = Mesh(sizes, rank, device)
+    mesh = Mesh(sizes, rank, device, ranks)
     if build_groups:
         if n > 1:
             mesh.build_groups()
@@ -360,3 +380,26 @@ def carve_islands(gen_devices: int = 1, devices: Optional[Sequence] = None) -> I
             f"needs at least one device per island"
         )
     return IslandPlacement(tuple(devices[n - g:]), tuple(devices[:n - g]), False)
+
+
+def _island_rank(member) -> int:
+    """A carve member as a world rank: a rank, or a card (``cuda:i`` is
+    rank ``i``'s device when each rank has its own card)."""
+    return int(member.index) if isinstance(member, torch.device) else int(member)
+
+
+def island_meshes(placement: IslandPlacement, data: int = -1, fsdp: int = 1, model: int = 1, pipe: int = 1,
+                  rank: Optional[int] = None, build_groups: bool = True) -> Tuple[Mesh, Mesh]:
+    """``(gen_mesh, learn_mesh)`` over a carve from :func:`carve_islands`
+    (the JAX function's layout, with ranks for devices): the generation
+    mesh is pure ``data`` over the generation island's ranks, the learner
+    mesh the requested ``data × fsdp × pipe × model`` over the learner
+    island's. Each mesh's process groups hold its own ranks only; every
+    rank of the world calls this (the groups are built collectively), and
+    is a member of one mesh (of both when the carve is ``shared``)."""
+    gen = [_island_rank(d) for d in placement.gen]
+    learn = [_island_rank(d) for d in placement.learn]
+    gen_mesh = make_mesh(data=len(gen), fsdp=1, model=1, pipe=1, ranks=gen, rank=rank, build_groups=build_groups)
+    learn_mesh = make_mesh(data=data, fsdp=fsdp, model=model, pipe=pipe, ranks=learn, rank=rank,
+                           build_groups=build_groups)
+    return gen_mesh, learn_mesh

@@ -73,11 +73,12 @@ ranks) and alone writes logs, checkpoints and the sweep lines; checkpoints
 hold the gathered state and load back resharded. ``train.learner_overlap``
 replaces the step by the overlapped FSDP step
 (:func:`~trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step`).
-
-Config blocks of the JAX package that this port does not run yet raise
-``NotImplementedError`` naming their slice (:func:`check_mesh_config`:
-T5, peft and ``offload_ref`` on more than one rank, scale-out slice 3);
-none is silently ignored.
+T5, peft (LoRA, prefix and prompt tuning) and ``model.offload_ref`` (each
+rank's reference blocks in its host memory) run on a mesh too; 8-bit
+Adam(W) and Adafactor over sharded leaves step through
+:class:`~trlx_tpu_torch.parallel.fsdp.WholeLeafOptimizer` (the unsharded
+formula). A native pre-converted store restores onto the mesh, each rank
+reading only its blocks' chunks (:mod:`trlx_tpu_torch.checkpointing`).
 """
 
 import copy
@@ -115,7 +116,9 @@ from trlx_tpu_torch.parallel import collectives as coll
 from trlx_tpu_torch.parallel import mesh as mesh_lib
 from trlx_tpu_torch.parallel.fsdp import (
     ShardedParams,
+    WholeLeafOptimizer,
     can_overlap,
+    full_shape,
     global_norm_sharded,
     make_overlapped_grad_accum_step,
     split_axes,
@@ -171,19 +174,6 @@ def resolve_device(device, who: str = "trlx_tpu_torch.train") -> torch.device:
     return device
 
 
-def check_mesh_config(config: TRLConfig) -> None:
-    """Raise for what the port does not yet run on more than one rank."""
-    later = [
-        (config.model.model_arch_type == "seq2seq", "seq2seq (T5) models"),
-        (bool(config.model.peft_config), "model.peft_config"),
-        (config.model.offload_ref, "model.offload_ref"),
-    ]
-    for enabled, what in later:
-        if enabled:
-            raise NotImplementedError(f"trlx_tpu_torch does not run {what} on a mesh of more than one rank yet: "
-                                      "scale-out slice 3")
-
-
 def check_port_config(config: TRLConfig) -> None:
     """Warn for the config keys that configure XLA alone (every mesh axis,
     ``mesh.sequence_shard`` and ring attention run in the port)."""
@@ -213,7 +203,6 @@ class MeshRLTrainer(BaseRLTrainer):
         self.multi_rank = self.mesh.size > 1
         self.is_main_process = mesh_lib.process_index() == 0
         if self.multi_rank:
-            check_mesh_config(config)
             logger.info(f"rank {self.mesh.rank} of {self.mesh.size} on {self.device}, "
                         f"backend {mesh_lib.backend_name()}, coordinates {self.mesh.coords}", ranks=[-1])
         #: the ZeRO storage over fsdp (None on one rank): setup_sharding
@@ -297,7 +286,8 @@ class MeshRLTrainer(BaseRLTrainer):
         overrides.setdefault("sequence_sharding", self.config.mesh.sequence_shard)
         overrides.update(peft_overrides(self.config.model.peft_config))
         overrides.update(self._pipeline_overrides)
-        self.model_config, trunk_state, self.model_type = load_pretrained(self.config.model.model_path, overrides)
+        path = self.config.model.model_path
+        self.model_config, trunk_state, self.model_type = load_pretrained(path, overrides)
         trunk_state = self.maybe_stack_loaded(trunk_state)
         with torch.device(self.device):
             module = build(self.model_config)
@@ -361,7 +351,8 @@ class MeshRLTrainer(BaseRLTrainer):
         overrides.setdefault("param_dtype", self.param_dtype)
         overrides.setdefault("compute_dtype", self.compute_dtype)
         overrides.update(t5_peft_overrides(self.config.model.peft_config))
-        self.model_config, t5_state = load_pretrained_seq2seq(self.config.model.model_path, overrides)
+        path = self.config.model.model_path
+        self.model_config, t5_state = load_pretrained_seq2seq(path, overrides)
         self.model_type = "t5"
         self.decoder_start_token_id = self.model_config.decoder_start_token_id
         with torch.device(self.device):
@@ -479,6 +470,8 @@ class MeshRLTrainer(BaseRLTrainer):
         )
         self.max_grad_norm = kwargs.pop("max_grad_norm", None)
         self.overlap = self._learner_overlap_active()
+        #: the whole-leaf adapter of 8-bit Adam(W) / Adafactor over sharded leaves (None otherwise)
+        self.whole_leaf = None
         opt_name = str(self.config.optimizer.name).lower()
         if self.overlap and self.config.train.learner_overlap.int8_opt_state:
             if opt_name in ("adam", "adamw", "adamw_8bit_bnb"):
@@ -500,18 +493,30 @@ class MeshRLTrainer(BaseRLTrainer):
             for leaf in leaves:
                 leaf.master.requires_grad_(True)
             self.trainable_params = [leaf.master for leaf in leaves]
-            split = any(leaf.sharded or spec_dim(leaf.spec, "model") >= 0 for leaf in leaves)
-            blockwise = opt_name in ("adamw_8bit_bnb", "adam_8bit_bnb") and not self.overlap
-            if split and (blockwise or opt_name == "adafactor"):
-                raise NotImplementedError(
-                    f"optimizer {opt_name!r} over sharded leaves in the default step (its state spans the whole "
-                    "leaf): scale-out slice 3; use learner_overlap.int8_opt_state for 8-bit AdamW over fsdp")
+            split = any(split_axes(leaf) for leaf in leaves)
+            blockwise = opt_name in ("adamw_8bit_bnb", "adam_8bit_bnb")
+            if split and not self.overlap and (blockwise or opt_name == "adafactor"):
+                # the update reads the whole leaf: the unsharded formula over blocks
+                self.whole_leaf = WholeLeafOptimizer(get_optimizer_class(opt_name), leaves, self.shards, blockwise,
+                                                     learning_rate=1.0, **kwargs)
+                self.optimizer = self.whole_leaf.optimizer
+                self.scheduler = make_lr_scheduler(self.optimizer, self.lr_schedule)
+                return
         self.optimizer = get_optimizer_class(opt_name)(
             self.trainable_params, learning_rate=1.0, **kwargs
         )
         self.scheduler = make_lr_scheduler(self.optimizer, self.lr_schedule)
 
     # -------------------------------------------------------------- train step
+
+    def optimizer_step(self) -> None:
+        """One optimizer update of the trained leaves (through
+        :class:`~trlx_tpu_torch.parallel.fsdp.WholeLeafOptimizer` where the
+        update reads whole leaves held as blocks)."""
+        if self.whole_leaf is not None:
+            self.whole_leaf.step()
+        else:
+            self.optimizer.step()
 
     def global_grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """optax.global_norm: the f32 L2 norm over every gradient (of
@@ -603,7 +608,7 @@ class MeshRLTrainer(BaseRLTrainer):
             if guard is None:
                 if self.max_grad_norm:
                     self.clip_grads(grads)
-                self.optimizer.step()
+                self.optimizer_step()
                 self.scheduler.step()
                 mean_stats = dict(zip(keys, torch.stack(means).tolist()))
             else:
@@ -615,7 +620,7 @@ class MeshRLTrainer(BaseRLTrainer):
                 if mean_stats["health/update_applied"] >= 0.5:
                     if self.max_grad_norm:
                         self.clip_grads(grads, norm)
-                    self.optimizer.step()
+                    self.optimizer_step()
                     self.scheduler.step()
             mean_stats["learning_rate_group_0"] = float(lr)
             return mean_stats
@@ -1169,8 +1174,9 @@ class MeshRLTrainer(BaseRLTrainer):
         collective on every rank)."""
         if self.shards is None:
             return self.model.state_dict()
-        full = self.shards.full_state()
-        return {name: full[name] for name, _ in self.model.named_parameters()}
+        names = [name for name, _ in self.model.named_parameters()]
+        full = self.shards.full_state(set(names))
+        return {name: full[name] for name in names}
 
     def _gathered_payload(self) -> Dict[str, Any]:
         """The one-rank payload of a sharded trainer, gathered on every rank
@@ -1183,12 +1189,14 @@ class MeshRLTrainer(BaseRLTrainer):
             leaves = [self.shards.by_param[id(p)] for p in self._leaf_params]
             state = {}
             for idx, leaf in enumerate(leaves):
-                state[idx] = {k: self._gather_state_tensor(leaf, v) for k, v in opt["state"].get(idx, {}).items()}
+                state[idx] = {k: self._gather_state_tensor(leaf, k, v) for k, v in opt["state"].get(idx, {}).items()}
             payload["optimizer"] = {"state": state, "param_groups": opt["param_groups"]}
             payload["scheduler"] = self.scheduler.state_dict()
         return payload
 
-    def _gather_state_tensor(self, leaf, v):
+    def _gather_state_tensor(self, leaf, key, v):
+        if self.whole_leaf is not None:
+            return self.whole_leaf.gather_state(self.whole_leaf.leaves.index(leaf), key, v)
         if not torch.is_tensor(v) or v.dim() == 0:
             return v
         if tuple(v.shape) == tuple(leaf.master.shape):
@@ -1196,7 +1204,9 @@ class MeshRLTrainer(BaseRLTrainer):
         # blockwise state: [blocks, ...] over the local shard
         return coll.all_gather(v, self.shards.fsdp, 0) if leaf.sharded else v
 
-    def _scatter_state_tensor(self, leaf, v):
+    def _scatter_state_tensor(self, leaf, key, v):
+        if self.whole_leaf is not None:
+            return self.whole_leaf.scatter_state(self.whole_leaf.leaves.index(leaf), key, v)
         if not torch.is_tensor(v) or v.dim() == 0:
             return v
         if tuple(v.shape) == self._full_shape(leaf):
@@ -1204,10 +1214,7 @@ class MeshRLTrainer(BaseRLTrainer):
         return coll.local_slice(v, self.shards.fsdp, 0).clone() if leaf.sharded else v
 
     def _full_shape(self, leaf):
-        shape = list(leaf.master.shape)
-        for axis in split_axes(leaf):
-            shape[spec_dim(leaf.spec, axis)] *= self.mesh.shape[axis]
-        return tuple(shape)
+        return full_shape(leaf, self.mesh)
 
     def _save_checkpoint(self, directory: str, block: bool = False):
         """Route one checkpoint through the resilience async writer when
@@ -1337,7 +1344,7 @@ class MeshRLTrainer(BaseRLTrainer):
             opt = ckpt["optimizer"]
             if self.shards is not None:
                 leaves = [self.shards.by_param[id(p)] for p in self._leaf_params]
-                opt = {"state": {idx: {k: self._scatter_state_tensor(leaves[idx], v) for k, v in st.items()}
+                opt = {"state": {idx: {k: self._scatter_state_tensor(leaves[idx], k, v) for k, v in st.items()}
                                  for idx, st in opt["state"].items()},
                        "param_groups": opt["param_groups"]}
             self.optimizer.load_state_dict(opt)

@@ -267,6 +267,8 @@ class PPOTrainer(MeshRLTrainer):
         (``peft_base_ref``): no copy, no branch."""
         self._ref_host = self._ref_dev = None
         self._ref_pinned = False
+        #: on a mesh, the offloaded reference's blocks on this rank's host (bytes), else None
+        self.ref_host_bytes = None
         #: host -> device uploads of the offloaded reference, and their seconds
         self.ref_uploads, self.ref_upload_s = 0, []
         self.peft_base_ref = bool(self.config.model.peft_config)
@@ -303,7 +305,7 @@ class PPOTrainer(MeshRLTrainer):
                 branch_param_subtree(self.model.transformer.state_dict(), self.branch_start, self.model_config)
             )
             self.frozen_branch.requires_grad_(False)
-        elif self.config.model.offload_ref:
+        elif self.config.model.offload_ref and not self.multi_rank:
             self._setup_ref_offload(self.model.transformer.state_dict())
         else:
             with torch.device(self.device):
@@ -339,7 +341,7 @@ class PPOTrainer(MeshRLTrainer):
                 t5_branch_param_subtree(self.model.t5.state_dict(), self.branch_start, self.model_config)
             )
             self.frozen_branch.requires_grad_(False)
-        elif self.config.model.offload_ref:
+        elif self.config.model.offload_ref and not self.multi_rank:
             self._setup_ref_offload(self.model.t5.state_dict())
         else:
             with torch.device(self.device):
@@ -361,20 +363,36 @@ class PPOTrainer(MeshRLTrainer):
                           for k, v in trunk_state.items()}
         logger.info(f"offload_ref: frozen reference held in {'pinned' if pin else 'plain'} host memory")
 
+    def setup_sharding(self):
+        """The mesh's placement, then on a mesh with ``model.offload_ref``
+        the reference's blocks move to this rank's host memory (pinned on a
+        card): each rank holds the shard the rules give the resident
+        reference, as the JAX package's pinned-host placement does."""
+        super().setup_sharding()
+        if self.multi_rank and self.config.model.offload_ref and self.ref_model is not None:
+            self.ref_host_bytes = self.shards.offload("ref_model", pin=self.device.type == "cuda")
+            logger.info(f"offload_ref: this rank's reference blocks held in host memory "
+                        f"({self.ref_host_bytes} bytes)", ranks=[-1])
+
     def _ref_scoring_model(self):
         """The full-copy reference for the scoring forwards: ``ref_model``,
         or the offloaded copy uploaded on first use in a phase (built on the
-        meta device, its tensors assigned from the upload; the upload's
-        seconds land in ``ref_upload_s``)."""
-        if self._ref_host is None:
+        meta device, its tensors assigned from the upload; on a mesh, this
+        rank's blocks copied back into ``ref_model``; the upload's seconds
+        land in ``ref_upload_s``)."""
+        if self._ref_host is None and self.ref_host_bytes is None:
             return self.ref_model
         if self._ref_dev is None:
             t0 = time.perf_counter()
-            with torch.device("meta"):
-                ref = T5LM(self.model_config) if self.is_seq2seq else TransformerLM(self.model_config)
-            ref.load_state_dict({k: v.to(self.device, non_blocking=True) for k, v in self._ref_host.items()},
-                                assign=True)
-            ref.requires_grad_(False)
+            if self.ref_host_bytes is not None:
+                self.shards.upload("ref_model", self.device)
+                ref = self.ref_model
+            else:
+                with torch.device("meta"):
+                    ref = T5LM(self.model_config) if self.is_seq2seq else TransformerLM(self.model_config)
+                ref.load_state_dict({k: v.to(self.device, non_blocking=True) for k, v in self._ref_host.items()},
+                                    assign=True)
+                ref.requires_grad_(False)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._ref_dev = ref
@@ -387,7 +405,7 @@ class PPOTrainer(MeshRLTrainer):
         once now, and make :meth:`_release_ref` a no-op until
         :meth:`_unpin_ref`."""
         self._ref_pinned = True
-        if self._ref_host is not None:
+        if self._ref_host is not None or self.ref_host_bytes is not None:
             self._ref_scoring_model()
 
     def _unpin_ref(self):
@@ -399,6 +417,8 @@ class PPOTrainer(MeshRLTrainer):
         learner steps, where memory peaks); a no-op without offload or while
         a streamed window holds the pin."""
         if not self._ref_pinned:
+            if self.ref_host_bytes is not None and self._ref_dev is not None:
+                self.shards.release_upload("ref_model")
             self._ref_dev = None
 
     def sharded_modules(self):
@@ -526,9 +546,22 @@ class PPOTrainer(MeshRLTrainer):
         reference's logprobs of the response tokens, host f32 [B, R]. The
         decoder-top reference runs from the activation the policy forward
         captured at ``branch_start``, with the policy's encoder states and
-        relative bias (the encoder and lower blocks are frozen)."""
+        relative bias (the encoder and lower blocks are frozen). On a mesh
+        each rank scores its rows and the ranks gather the batch, as
+        :meth:`score`."""
+        rows = mesh_lib.local_rows(self.mesh, len(q_ids)) if self.multi_rank else None
+        arrays = (q_ids, q_mask, r_ids, r_mask)
+        if rows is not None:
+            arrays = tuple(x[rows] for x in arrays)
+        replicated = self.multi_rank and rows is None and mesh_lib.dp_size(self.mesh) > 1
+        with self.params_gathered(), replicated_batch(replicated):
+            out = self._score_s2s_device(*(torch.from_numpy(x).to(self.device) for x in arrays), policy=policy)
+        if rows is not None:
+            out = [coll.all_gather(x, self.mesh.batch_group, 0) for x in out]
+        return tuple(x.cpu().numpy() for x in out)
+
+    def _score_s2s_device(self, q, qm, r, rm, policy=None):
         policy = self.model if policy is None else policy
-        q, qm, r, rm = (torch.from_numpy(x).to(self.device) for x in (q_ids, q_mask, r_ids, r_mask))
         dec_in, dec_mask = self._decoder_inputs(r, rm)
         if self.frozen_branch is not None:
             logits, values, enc, branch_hidden, pos_bias = policy.forward_with_branch(
@@ -542,8 +575,7 @@ class PPOTrainer(MeshRLTrainer):
                     ref_logits, _, _ = policy.t5(q, qm, dec_in, dec_mask)
             else:
                 ref_logits, _, _ = self._ref_scoring_model()(q, qm, dec_in, dec_mask)
-        out = (logprobs_of_labels(logits, r), values.float(), logprobs_of_labels(ref_logits, r))
-        return tuple(x.cpu().numpy() for x in out)
+        return logprobs_of_labels(logits, r), values.float(), logprobs_of_labels(ref_logits, r)
 
     # ---------------------------------------------------------------- serving
 

@@ -29,6 +29,7 @@ from trlx_tpu_torch.methods.sft import SFTConfig
 from trlx_tpu_torch.models.t5 import T5LM
 from trlx_tpu_torch.models.transformer import TransformerLM
 from trlx_tpu_torch.ops.generation import pad_to_bucket
+from trlx_tpu_torch.parallel.collectives import batch_sum
 from trlx_tpu_torch.pipeline import NumpyLoader
 from trlx_tpu_torch.pipeline.offline_pipeline import DialogStore, tokenize_dialogue
 from trlx_tpu_torch.trainer import register_trainer
@@ -176,7 +177,8 @@ class SFTTrainer(MeshRLTrainer):
         logprobs = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logprobs, -1, safe.long()[..., None])[..., 0]
         mask = valid.float()
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        # the mean over the global batch's target tokens on a mesh (batch_sum: the batch ranks')
+        loss = batch_sum((nll * mask).sum()) / torch.clamp(batch_sum(mask.sum()), min=1.0)
         return loss, flatten_dict(dict(losses=dict(loss=loss)))
 
     def train_step(self, batch) -> Dict[str, float]:

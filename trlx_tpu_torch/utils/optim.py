@@ -110,7 +110,14 @@ class Adafactor(torch.optim.Optimizer):
     added to ``g**2``), block-RMS clipping of the update at
     ``clipping_threshold``, the learning rate, the update times the
     parameter's RMS (floor 1e-3), an optional momentum (an EMA without
-    debiasing), optional decayed weights, then ``p -= u``."""
+    debiasing), optional decayed weights, then ``p -= u``.
+
+    A parameter in :attr:`layouts` is a block of a larger leaf (a mesh's
+    shard: :class:`~trlx_tpu_torch.parallel.fsdp.WholeLeafOptimizer`): it
+    is factored by the whole leaf's ``shape``, and each mean is its block's
+    partial sum completed by the layout's ``sum(x, dim)`` over the ranks
+    holding the leaf's other blocks along ``dim`` (every dim when None),
+    divided by the whole leaf's count."""
 
     def __init__(self, params: Iterable, lr: float, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, decay_offset: int = 0, multiply_by_parameter_scale: bool = True,
@@ -121,6 +128,17 @@ class Adafactor(torch.optim.Optimizer):
             decay_offset=decay_offset, multiply_by_parameter_scale=multiply_by_parameter_scale,
             clipping_threshold=clipping_threshold, momentum=momentum, weight_decay_rate=weight_decay_rate,
             eps=eps, factored=factored))
+        #: {parameter: layout} of the parameters held as blocks of a larger leaf
+        self.layouts = {}
+
+    def _mean(self, p: torch.Tensor, x: torch.Tensor, dim=None, leaf_dim=None, keepdim=False) -> torch.Tensor:
+        """The mean of ``x`` over its ``dim`` (every dim when None), which
+        is ``p``'s dim ``leaf_dim``: over the whole leaf where ``p`` is a block."""
+        layout = self.layouts.get(p)
+        if layout is None:
+            return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+        part = x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+        return layout.sum(part, leaf_dim) / (int(np.prod(layout.shape)) if leaf_dim is None else layout.shape[leaf_dim])
 
     @staticmethod
     def _init_state(p: torch.Tensor, dims) -> dict:
@@ -140,7 +158,9 @@ class Adafactor(torch.optim.Optimizer):
         for group in self.param_groups:
             for p in group["params"]:
                 g = _grad(p)
-                dims = factored_dims(tuple(p.shape), group["factored"], group["min_dim_size_to_factor"])
+                layout = self.layouts.get(p)
+                shape = layout.shape if layout is not None else tuple(p.shape)
+                dims = factored_dims(shape, group["factored"], group["min_dim_size_to_factor"])
                 state = self.state[p]
                 if not state:
                     state.update(self._init_state(p, dims))
@@ -153,10 +173,10 @@ class Adafactor(torch.optim.Optimizer):
                 if dims is not None:
                     d1, d0 = dims
                     v_row, v_col = state["v_row"], state["v_col"]
-                    v_row.copy_(decay * v_row + (1.0 - decay) * grad_sqr.mean(dim=d0))
-                    v_col.copy_(decay * v_col + (1.0 - decay) * grad_sqr.mean(dim=d1))
+                    v_row.copy_(decay * v_row + (1.0 - decay) * self._mean(p, grad_sqr, d0, d0))
+                    v_col.copy_(decay * v_col + (1.0 - decay) * self._mean(p, grad_sqr, d1, d1))
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                    row_factor = (v_row / self._mean(p, v_row, reduced_d1, d1, keepdim=True)) ** -0.5
                     col_factor = v_col ** -0.5
                     u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
                 else:
@@ -164,10 +184,10 @@ class Adafactor(torch.optim.Optimizer):
                     v.copy_(decay * v + (1.0 - decay) * grad_sqr)
                     u = g * v ** -0.5
                 if group["clipping_threshold"] is not None:
-                    u = u / torch.clamp(torch.sqrt((u * u).mean()) / group["clipping_threshold"], min=1.0)
+                    u = u / torch.clamp(torch.sqrt(self._mean(p, u * u)) / group["clipping_threshold"], min=1.0)
                 u = u * group["lr"]
                 if group["multiply_by_parameter_scale"]:
-                    rms = torch.sqrt((p * p).mean())
+                    rms = torch.sqrt(self._mean(p, p * p))
                     u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
                 if group["momentum"] is not None:
                     ema = state["ema"]

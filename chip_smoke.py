@@ -7563,39 +7563,66 @@ def an_data_plane(ctx):
     return checks, report
 
 
-def an_census_start(device="cuda"):
-    """Start :func:`an_census_run` in a fresh process, as ``python -m
-    trlx_tpu_torch.analysis.census`` measured the committed budget: the
-    census counts launches through CUPTI's one subscriber, which this
-    process's earlier ``torch.profiler`` windows hold."""
-    return subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.an_census_run({device!r})"],
-                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+def an_census_start(device="cuda", run="an_census_run"):
+    """Start :func:`an_census_run` (or :func:`an_mesh_census_run`) in a
+    fresh process, as ``python -m trlx_tpu_torch.analysis.census`` measured
+    the committed budget: the census counts launches through CUPTI's one
+    subscriber, which this process's earlier ``torch.profiler`` windows
+    hold. The process leads its own group, so :func:`stop_group` stops
+    the rank processes it starts with it."""
+    return subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.{run}({device!r})"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
 
 
-def an_census(ctx, device="cuda"):
-    """Leg ``census``: the result of :func:`an_census_run`'s process, the
-    one :func:`main` started beside phase ``stacked`` (the census counts
-    per process and times nothing, so another process's work leaves its
-    counts alone) or a new one."""
-    proc = ctx.pop("census_proc", None) or an_census_start(device)
+def stop_group(proc) -> None:
+    """Kill ``proc``'s process group (it and what it started) and reap it."""
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.communicate()
+
+
+def _census_result(proc, what):
     try:
         out, err = proc.communicate(timeout=900)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        out, err = proc.communicate()
+        stop_group(proc)
+        return {f"the {what} process ran": False}, {"error": "timed out after 900 s"}
     lines = [line for line in out.splitlines() if line.startswith('{"checks"')]
     if proc.returncode != 0 or not lines:
-        return {"the census process ran": False}, {"returncode": proc.returncode, "stderr": err[-3000:]}
+        return {f"the {what} process ran": False}, {"returncode": proc.returncode, "stderr": err[-3000:]}
     result = json.loads(lines[-1])
     return result["checks"], result["report"]
 
 
+def an_census(ctx, device="cuda"):
+    """Leg ``census``: the results of :func:`an_mesh_census_run`'s process
+    and :func:`an_census_run`'s, the ones :func:`main` started beside
+    phases ``stacked`` and ``scale_out`` (the census counts per process and
+    times nothing, so another process's work leaves its counts alone), or
+    new ones."""
+    mesh = ctx.pop("mesh_census_result", None)
+    proc = ctx.pop("census_proc", None) or an_census_start(device)
+    if mesh is None:
+        mesh = _census_result(ctx.pop("mesh_census_proc", None) or an_census_start(device, "an_mesh_census_run"),
+                              "mesh census")
+    checks, report = _census_result(proc, "census")
+    report["mesh"] = mesh[1]
+    checks.update(mesh[0])
+    return checks, report
+
+
 def an_census_run(device="cuda"):
-    """The census of every registered entry at gpt2 full width on the card,
-    held to the committed ``name@cuda`` budget entries; then one seeded
-    regression (``TRLX_CENSUS_SEED_REGRESSION=extra_item``: a host read in
-    every decode iteration) must fail the same gate. Prints the checks and
-    the report as one JSON line."""
+    """The census of every registered one-device entry at gpt2 full width
+    on the card, held to the committed ``name@cuda`` budget entries; then
+    one seeded regression (``TRLX_CENSUS_SEED_REGRESSION=extra_item``: a
+    host read in every decode iteration) must fail the same gate. Prints
+    the checks and the report as one JSON line."""
     from trlx_tpu_torch.analysis.census import budget as census_budget
     from trlx_tpu_torch.analysis.census import cli as census_cli
     from trlx_tpu_torch.analysis.census import seeds as census_seeds
@@ -7627,9 +7654,71 @@ def an_census_run(device="cuda"):
     report = {"census": per_entry, "violations": violations,
               "seeded": {"seed": AN_SEED_REGRESSION, "violations": seeded_violations}}
     checks = {
-        "every registered entry measured": len(measured) == len(load_all()),
+        "every registered one-device entry measured": len(measured) == sum(
+            ep.mesh is None for ep in load_all().values()),
         "the census within the committed cuda entries": not violations,
         f"seeded {AN_SEED_REGRESSION} fails closed": any("round_trips" in v for v in seeded_violations),
+    }
+    print(json.dumps({"checks": checks, "report": report}), flush=True)
+
+
+#: the mesh census's seeded regression: the overlapped step's reduce-scatter as a full-gradient all-reduce
+AN_MESH_SEED = "allreduce_under_fsdp"
+#: the hand-written kernels every rank of a mesh learner step launches
+AN_MESH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def an_mesh_census_run(device="cuda"):
+    """The ``--mesh`` census on the card: ``ppo_train_step_overlap`` and its
+    memory comparator ``ppo_train_step_unsharded_opt`` on ``data=2 x
+    fsdp=2``, four rank processes on the one card over gloo (collectives
+    staged through host memory), gpt2 full width, each rank counting its
+    own launches through CUPTI; then :data:`AN_MESH_SEED` in the same ranks.
+    The checks: within the committed ``@cuda`` entries, the ranks counting
+    alike, K1-K3 launched on every rank, the overlap entry's peak below the
+    comparator's on every rank, the seed failing closed; a rank that fails
+    fails them (its log in the report). Prints the checks and the report as
+    one JSON line."""
+    from trlx_tpu_torch.analysis.census import budget as census_budget
+    from trlx_tpu_torch.analysis.census import cli as census_cli
+    from trlx_tpu_torch.analysis.census import ranks as census_ranks
+
+    committed = census_budget.load()
+
+    keys = [f"ppo_train_step_overlap@{device}", f"ppo_train_step_unsharded_opt@{device}"]
+    t0 = time.perf_counter()
+    try:
+        measured, seeded = census_cli.run_mesh_census(device, seeded=[("ppo_train_step_overlap", AN_MESH_SEED)])
+        differ = None
+    except census_ranks.RanksDiffer as e:
+        measured, seeded, differ = {}, {}, str(e)
+    except RuntimeError as e:  # a rank failed: its log is the report
+        print(json.dumps({"checks": {"the mesh census's ranks ran": False}, "report": {"error": str(e)[-4000:]}}),
+              flush=True)
+        return
+    seconds = time.perf_counter() - t0
+    violations = census_budget.compare(measured, committed)
+    seeded_violations = census_budget.compare(seeded.get(AN_MESH_SEED, {}), committed)
+    report = {"seconds": seconds, "ranks_differ": differ, "violations": violations,
+              "seeded": {"seed": AN_MESH_SEED, "violations": seeded_violations}, "entries": {
+                  key: {"collectives": m["collectives"], "staged": m["staged"], "launches": m.get("launches"),
+                        "syncs": m.get("syncs"), "round_trips": m["round_trips"], "ops": m["ops"],
+                        "kernel_launches": m.get("kernel_launches"), "state_bytes": m.get("state_bytes"),
+                        "peak_mib_per_rank": [b / 2 ** 20 for b in m.get("peak_bytes", [])],
+                        "seconds": m["seconds"]}
+                  for key, m in measured.items()}}
+    overlap, comparator = (measured.get(k, {}) for k in keys)
+    peaks = list(zip(overlap.get("peak_bytes", []), comparator.get("peak_bytes", [])))
+    checks = {
+        "every rank's counts are ==": differ is None,
+        "the mesh entries within the committed cuda entries": sorted(measured) == sorted(keys) and not violations,
+        "K1-K3 launched on every rank": all(
+            (m.get("kernel_launches") or {}).get(n, 0) > 0 for m in (overlap, comparator) for n in AN_MESH_KERNELS),
+        "the overlap entry's peak below the comparator's on every rank": len(peaks) == 4 and all(
+            o < c for o, c in peaks),
+        "the overlap entry's optimizer state below the comparator's": overlap.get("state_bytes", 1) < comparator.get(
+            "state_bytes", 0),
+        f"seeded {AN_MESH_SEED} fails closed": any("NEW collective all-reduce:fsdp" in v for v in seeded_violations),
     }
     print(json.dumps({"checks": checks, "report": report}), flush=True)
 
@@ -8740,9 +8829,18 @@ def main(argv=None) -> int:
                     gates_start(ctx, gates)
                 if "gates" in ctx:
                     continue
-            if name == "stacked" and "analysis" in phases:
-                # the census process runs beside phase stacked: after every
-                # phase that times a kernel, and it times nothing itself
+            if name in ("peft_memory", "stacked") and "analysis" in phases and "mesh_census_proc" not in ctx:
+                # the mesh census's process runs beside phases peft_memory and
+                # stacked: after every phase that times a kernel, beside none
+                # that holds a time to a bar, and it times nothing itself
+                ctx["mesh_census_proc"] = an_census_start(run="an_mesh_census_run")
+            if name == "scale_out" and "mesh_census_proc" in ctx:
+                # its four ranks end before scale_out's need the card's memory
+                # (beside them, the card ran out); the one-device census runs
+                # beside scale_out
+                t0 = time.perf_counter()
+                ctx["mesh_census_result"] = _census_result(ctx.pop("mesh_census_proc"), "mesh census")
+                ctx["phase_seconds"]["mesh_census_wait"] = time.perf_counter() - t0
                 ctx["census_proc"] = an_census_start()
             if name != "env":
                 t0 = time.perf_counter()
@@ -8754,10 +8852,10 @@ def main(argv=None) -> int:
         if "gates" in ctx and ctx["gates"]["proc"].poll() is None:  # a phase failed beside the gates
             ctx["gates"]["proc"].kill()
             ctx["gates"]["proc"].wait()
-        census = ctx.pop("census_proc", None)
-        if census is not None and census.poll() is None:  # a phase failed before analysis
-            census.kill()
-            census.communicate()
+        for key in ("census_proc", "mesh_census_proc"):  # a phase failed before the census leg
+            census = ctx.pop(key, None)
+            if census is not None:
+                stop_group(census)
         if "randomwalks_export" in ctx:  # the randomwalks SFT export, shared by the later gates
             import shutil
 

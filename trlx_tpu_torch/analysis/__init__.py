@@ -21,8 +21,12 @@ CC005   blocking call (queue put/get, Event.wait, Thread.join, file I/O)
 TX001   sampling op with no generator= (the process-global RNG)
 TX002   host round-trip reachable from a registered hot entrypoint
         beyond its declared readback
+TX005   mesh axis as a string literal (a hard-coded known axis, or an
+        unknown one), not a constant of parallel/mesh.py
 TX007   reduction over bf16/f16 without dtype=, or a narrowing-then-
         widening .to() round trip
+TX008   PartitionSpec with an axis outside the vocabulary, an axis on two
+        dims, or a rank off the sharding table
 ======  ==============================================================
 
 TH and CC are the reference's rules copied rule for rule: over either
@@ -35,7 +39,8 @@ memory as a must-fail gate self-test.
 The dynamic half, the counterpart of the reference's ``analysis/ir`` and
 ``analysis/rt``, is :mod:`trlx_tpu_torch.analysis.census`: a per-step op,
 launch, round-trip, shape and memory census of the registered hot
-entrypoints, held to a committed budget.
+entrypoints (on a mesh also its collectives by kind and axes, one process
+per rank), held to a committed budget.
 
 Run: ``python -m trlx_tpu_torch.analysis PATH...`` (exit 1 on new findings).
 Suppress per line with ``# graftcheck: noqa[RULE]``; grandfather with a

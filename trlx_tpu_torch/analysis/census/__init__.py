@@ -10,6 +10,11 @@ kernel launches, synchronizing calls and peak memory
 (:mod:`~trlx_tpu_torch.analysis.census.measure`), for every registered hot
 entrypoint (:mod:`~trlx_tpu_torch.analysis.census.entrypoints`), held to
 the committed ``budget.json`` (:mod:`~trlx_tpu_torch.analysis.census.budget`)
-by ``python -m trlx_tpu_torch.analysis.census``. Seeded regressions
-(:mod:`~trlx_tpu_torch.analysis.census.seeds`) prove the gate fails closed.
+by ``python -m trlx_tpu_torch.analysis.census``. On a mesh (``--mesh``,
+one process per rank: :mod:`~trlx_tpu_torch.analysis.census.ranks`) each
+step also records its collectives by ``<kind>:<axes>`` with their bytes
+(the reference's IR005), what it staged through host memory and the
+optimizer state it holds, and the ranks must count alike. Seeded
+regressions (:mod:`~trlx_tpu_torch.analysis.census.seeds`) prove the gate
+fails closed.
 """

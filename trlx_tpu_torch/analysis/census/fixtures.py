@@ -13,6 +13,13 @@ path) and the engines over bf16 ones (a serving deployment); weights are
 random from seed 0 and decoding is greedy. Trainers and
 engines are memoized in the factories' ``shared`` dict, so the entries of one
 census run share them.
+
+On a mesh (``shared["mesh"]``: axis sizes, set by
+:mod:`~trlx_tpu_torch.analysis.census.ranks`) the trainers run on it, over
+the process group the rank launcher joined; ``tiny`` then takes
+:data:`MESH_ROWS` times its learner rows, so that each microbatch splits
+over the four batch ranks (``full``'s 32 rows in microbatches of 16 already
+do: 4 rows a rank a microbatch).
 """
 
 import tempfile
@@ -63,13 +70,15 @@ SIZES: Dict[str, Dict[str, Any]] = {
 
 #: the entries the ``xl`` size measures
 XL_ENTRIES = ("decode_step", "spec_verify_step")
+#: per size, the factor of the learner rows (batch and microbatch) on a mesh
+MESH_ROWS = {"tiny": 2, "full": 1}
 
 
 def shapes(size: str, part: str) -> Dict[str, Any]:
     return SIZES[size][part]
 
 
-def _config(kind: str, size: str):
+def _config(kind: str, size: str, mesh=None, overlap: bool = False):
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.data.default_configs import default_grpo_config, default_ilql_config, default_ppo_config
 
@@ -79,6 +88,8 @@ def _config(kind: str, size: str):
         t = dict(B=shapes(size, "ilql")["B"], MB=shapes(size, "ilql")["B"] // 2)
     else:
         t = shapes(size, "train")
+    if mesh:
+        t = dict(B=t["B"] * MESH_ROWS[size], MB=t["MB"] * MESH_ROWS[size])
     over = {
         "model.model_path": "gpt2", "model.model_overrides": dict(SIZES[size]["model"]),
         "mesh.compute_dtype": "bfloat16", "mesh.param_dtype": "float32",
@@ -89,19 +100,24 @@ def _config(kind: str, size: str):
     }
     if kind != "ilql":
         over.update({"method.num_rollouts": t["B"], "method.chunk_size": t["B"], "method.ppo_epochs": 1})
+    if mesh:
+        over.update({f"mesh.{axis}": n for axis, n in mesh.items()})
+        over["train.learner_overlap.enabled"] = overlap
     return TRLConfig.update(base, over)
 
 
-def trainer(kind: str, device, size: str, shared: Dict):
+def trainer(kind: str, device, size: str, shared: Dict, overlap: bool = False):
     """The memoized ``PPOTrainer`` / ``GRPOTrainer`` / ``ILQLTrainer`` of
-    ``size`` on ``device``."""
-    key = ("trainer", kind, str(device), size)
+    ``size`` on ``device``, on ``shared["mesh"]`` when it is set (with
+    ``train.learner_overlap`` when ``overlap``)."""
+    mesh = shared.get("mesh")
+    key = ("trainer", kind, str(device), size, tuple(sorted((mesh or {}).items())), overlap)
     if key not in shared:
         from trlx_tpu_torch.utils.loading import get_trainer
 
         name = {"ppo": "PPOTrainer", "grpo": "GRPOTrainer", "ilql": "ILQLTrainer"}[kind]
         kw = {} if kind == "ilql" else {"reward_fn": lambda samples, **_: [0.0] * len(samples)}
-        tr = get_trainer(name)(config=_config(kind, size), device=device, **kw)
+        tr = get_trainer(name)(config=_config(kind, size, mesh, overlap), device=device, **kw)
         bs = tr.config.train.batch_size
         tr.num_mb = max(1, bs // (tr.config.train.minibatch_size or bs))  # as prepare_learning sets it
         shared[key] = tr
@@ -148,18 +164,18 @@ def tokens(k: int, shape, vocab: int, device) -> torch.Tensor:
     return torch.tensor(g.integers(1, min(vocab, 250), size=shape), dtype=torch.int32, device=device)
 
 
-def ppo_batches(size: str, pad_token_id: int, n: int = 4):
-    """Content variants 0..n-1 of a learner batch, collated by the trainer's
-    own ``ppo_collate_fn`` from seeded rollouts: the same query and
-    response lengths in every variant (one bucketed shape), other tokens,
-    logprobs, values and rewards."""
+def ppo_batches(size: str, tr, n: int = 4):
+    """Content variants 0..n-1 of a learner batch of trainer ``tr``'s rows,
+    collated by its own ``ppo_collate_fn`` from seeded rollouts: the same
+    query and response lengths in every variant (one bucketed shape), other
+    tokens, logprobs, values and rewards."""
     from trlx_tpu_torch.data.ppo_types import PPORLElement
     from trlx_tpu_torch.pipeline.ppo_pipeline import ppo_collate_fn
 
-    t = shapes(size, "train")
+    t, B, pad_token_id = shapes(size, "train"), tr.config.train.batch_size, tr.tokenizer.pad_token_id
     rng = np.random.default_rng(SEED)
-    q_lens = rng.integers(t["P"] // 2, t["P"] + 1, size=t["B"])
-    r_lens = rng.integers(t["R"] // 2, t["R"] + 1, size=t["B"])
+    q_lens = rng.integers(t["P"] // 2, t["P"] + 1, size=B)
+    r_lens = rng.integers(t["R"] // 2, t["R"] + 1, size=B)
     q_lens[0], r_lens[0] = t["P"], t["R"]
     out = {}
     for k in range(n):
@@ -175,13 +191,13 @@ def ppo_batches(size: str, pad_token_id: int, n: int = 4):
     return out
 
 
-def ilql_batches(size: str, n: int = 4):
-    """Content variants of an ILQL learner batch (right-padded, the same
-    lengths in every variant)."""
+def ilql_batches(size: str, tr, n: int = 4):
+    """Content variants of an ILQL learner batch of trainer ``tr``'s rows
+    (right-padded, the same lengths in every variant)."""
     from trlx_tpu_torch.data.ilql_types import ILQLBatch
 
     s = shapes(size, "ilql")
-    B, T, A = s["B"], s["T"], s["A"]
+    B, T, A = tr.config.train.batch_size, s["T"], s["A"]
     out = {}
     for k in range(n):
         g = np.random.default_rng(400 + k)

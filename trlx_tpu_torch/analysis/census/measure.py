@@ -16,11 +16,23 @@ On any device, a :class:`Census` (a ``TorchDispatchMode`` under a
   boolean-mask indexing, ``unique``...). On the card each of these is one
   synchronizing runtime call; on the CPU, where every tensor is a host
   tensor, the census tracks which tensors came from host data to tell them
-  apart;
+  apart. The modes see the thread that entered the census only: a
+  collective staged through host memory on another thread (the autograd
+  engine runs a CUDA backward's hooks on its device thread, where the
+  overlapped FSDP step starts its reduce-scatters) reports its copies
+  itself (``collectives.add_transfer_listener``);
 - ``shapes``: the (op, input shapes and dtypes) signatures the step
   dispatched. A CUDA-graph capture of the warmup replays only what the
   warmup dispatched, so steady state must bring no signature the warmup
   lacked — the reference's zero-recompile promise (``analysis/rt``).
+
+On every device, :func:`measure` adds per step the collectives the step
+issued, ``{"<kind>:<axes>": {"count", "bytes"}}`` as
+:func:`~trlx_tpu_torch.parallel.collectives.collective_table` counts them
+(the reference's IR005; ``{}`` on one device), the collectives ``staged``
+through host memory (calls and bytes), and, for an entry that names its
+optimizer, ``state_bytes``: the bytes of the optimizer state this rank
+holds after the steps (a count of its tensors, not a measurement).
 
 On the card, :func:`measure` adds per step the kernel launches and the
 synchronizing runtime calls (which must equal ``round_trips``) the step
@@ -32,6 +44,7 @@ bytes above the step's start (the reference's IR006).
 
 import contextlib
 import gc
+import threading
 import weakref
 from typing import Any, Dict, List, Optional, Set, Tuple
 
@@ -192,20 +205,60 @@ class Census:
                 step.round_trips += 1
 
     def __enter__(self):
+        from trlx_tpu_torch.parallel import collectives
+
         self.step = _Step()
+        self._others = _OtherThreads()
+        collectives.add_transfer_listener(self._others)
         for mode in self._modes:
             mode.__enter__()
         return self
 
     def __exit__(self, *exc):
+        from trlx_tpu_torch.parallel import collectives
+
         for mode in reversed(self._modes):
             mode.__exit__(*exc)
+        collectives.remove_transfer_listener(self._others)
+        self.step.round_trips += self._others.count()
         return False
+
+
+class _OtherThreads:
+    """The blocking copies staged collectives report (``fn(n)``) from
+    threads other than the one that made this counter."""
+
+    def __init__(self):
+        self.owner = threading.get_ident()
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def __call__(self, n: int) -> None:
+        if threading.get_ident() != self.owner:
+            with self._lock:
+                self._n += n
+
+    def count(self) -> int:
+        with self._lock:
+            return self._n
 
 
 def _same(values: List[Any]) -> Any:
     """The one value of a list whose entries must agree, else the list."""
     return values[0] if all(v == values[0] for v in values) else list(values)
+
+
+def _table_delta(before: Dict[str, Dict[str, int]], after: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    """The collectives issued between two :func:`collective_table` reads."""
+    zero = {"count": 0, "bytes": 0}
+    return {k: {f: after[k][f] - before.get(k, zero)[f] for f in zero} for k in after
+            if after[k]["count"] != before.get(k, zero)["count"]}
+
+
+def optimizer_state_bytes(optimizer) -> int:
+    """The bytes of every tensor in ``optimizer.state`` (this rank's)."""
+    return sum(v.numel() * v.element_size() for state in optimizer.state.values() for v in state.values()
+               if torch.is_tensor(v))
 
 
 def measure(entry, device) -> Dict[str, Any]:
@@ -214,6 +267,7 @@ def measure(entry, device) -> Dict[str, Any]:
     each steady step's CUDA API calls are counted as well."""
     from trlx_tpu_torch.analysis.census import api_counter
     from trlx_tpu_torch.ops import _kernels
+    from trlx_tpu_torch.parallel import collectives as coll
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -226,16 +280,18 @@ def measure(entry, device) -> Dict[str, Any]:
     if cuda:
         torch.cuda.synchronize(dev)
     steady: List[_Step] = []
-    peaks, launches, api = [], [], []
+    peaks, launches, api, colls, staged = [], [], [], [], []
     for k in entry.steady:
         gc.collect()  # garbage of earlier steps (autograd cycles) freed now, not inside the step
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             base = torch.cuda.memory_allocated(dev)
-        before = _kernels.launches()
+        before, table, stage = _kernels.launches(), coll.collective_table(), coll.staged()
         with census, (api_counter.counting() if cuda else contextlib.nullcontext({})) as calls:
             entry.step(k)
+        colls.append(_table_delta(table, coll.collective_table()))
+        staged.append({f: n - stage[f] for f, n in coll.staged().items()})
         if cuda:
             torch.cuda.synchronize(dev)
             peaks.append(torch.cuda.max_memory_allocated(dev) - base)
@@ -250,7 +306,11 @@ def measure(entry, device) -> Dict[str, Any]:
         "round_trips": _same([s.round_trips for s in steady]),
         "warmup_shapes": len(warm_shapes),
         "steady_new_shapes": len(new_shapes),
+        "collectives": _same(colls),
+        "staged": _same(staged),
     }
+    if entry.optimizer is not None:
+        out["state_bytes"] = optimizer_state_bytes(entry.optimizer)
     if cuda:
         out["kernel_launches"] = _same(launches)
         out["peak_bytes"] = max(peaks)

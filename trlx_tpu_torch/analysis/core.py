@@ -172,7 +172,7 @@ def load_rules() -> Dict[str, "Rule"]:
     """The full registry: the rule modules register on import, so importing
     them here makes ``from analysis.core import run`` (or ``check_file``)
     enough on its own."""
-    from trlx_tpu_torch.analysis import rules_threads, rules_torch  # noqa: F401
+    from trlx_tpu_torch.analysis import rules_spmd, rules_threads, rules_torch  # noqa: F401
     from trlx_tpu_torch.analysis.conc import rules_conc  # noqa: F401
 
     return RULES

@@ -24,16 +24,18 @@ TX007  a ``sum`` / ``mean`` / ``cumsum`` / ``softmax`` / ``log_softmax``
        narrow type, or a ``.to()`` round trip that narrows then widens
        (``x.bfloat16().float()``), which has already lost the mantissa.
 
+JX005 and JX008 (mesh-axis names, PartitionSpecs) are TX005 and TX008 in
+:mod:`trlx_tpu_torch.analysis.rules_spmd`; the reference's IR005 (the
+collective census) is the census's ``collectives`` on a mesh
+(:mod:`trlx_tpu_torch.analysis.census`).
+
 No counterpart in eager PyTorch: JX003 (impure ops under jit: eager code
 runs every statement every step, there is no trace to run once), JX006
 (reading a donated buffer: eager PyTorch does not donate) and SH002-SH004
 (jit-cache churn from weak types, unstable static arguments and
 data-dependent output shapes: there is no compile cache to churn; the
 census' steady-state shape count stands in for the last, see
-:mod:`trlx_tpu_torch.analysis.census`). JX005, JX008 and the rest of
-``rules_spmd.py`` wait for the next slice, analysis on a mesh (with the
-collective census and the ``ppo_train_step_overlap`` /
-``ppo_train_step_unsharded_opt`` census entries on ``data=2 x fsdp=2``).
+:mod:`trlx_tpu_torch.analysis.census`).
 
 The tensor tests are syntactic, as in the reference: an expression is
 tensor-valued when it calls ``torch.*`` or a tensor reduction method, or

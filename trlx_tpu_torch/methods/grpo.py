@@ -212,5 +212,5 @@ def build_grpo_train_step(device, size, shared):
     from trlx_tpu_torch.analysis.census import fixtures
 
     tr = fixtures.trainer("grpo", device, size, shared)
-    batches = fixtures.ppo_batches(size, tr.tokenizer.pad_token_id)
-    return Entry(step=lambda k: tr.train_step(batches[k]))
+    batches = fixtures.ppo_batches(size, tr)
+    return Entry(step=lambda k: tr.train_step(batches[k]), optimizer=tr.optimizer)

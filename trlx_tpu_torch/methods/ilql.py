@@ -142,5 +142,5 @@ def build_ilql_train_step(device, size, shared):
     from trlx_tpu_torch.analysis.census import fixtures
 
     tr = fixtures.trainer("ilql", device, size, shared)
-    batches = fixtures.ilql_batches(size)
-    return Entry(step=lambda k: tr.train_step(batches[k]))
+    batches = fixtures.ilql_batches(size, tr)
+    return Entry(step=lambda k: tr.train_step(batches[k]), optimizer=tr.optimizer)

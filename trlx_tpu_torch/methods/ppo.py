@@ -235,6 +235,8 @@ class PPOConfig(MethodConfig):
         "trlx_tpu_torch.trainer.mesh_trainer.MeshRLTrainer.make_grad_accum_step.step": 2,
         # the overlapped FSDP step's stats, one transfer
         "trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step.step": 1,
+        # the census comparator's stats (a def of this module), one transfer
+        "trlx_tpu_torch.methods.ppo.build_ppo_train_step_unsharded_opt.step": 1,
     },
 )
 def build_ppo_train_step(device, size, shared):
@@ -242,9 +244,179 @@ def build_ppo_train_step(device, size, shared):
     loop takes it (the reference's ``ppo_train_step``,
     ``trlx_tpu/methods/ppo.py:244``): ``PPOTrainer.train_step`` — the
     host-to-device copy, the microbatch forward and backward, the clip and
-    the AdamW update, the stats to the host."""
-    from trlx_tpu_torch.analysis.census import fixtures
+    the AdamW update, the stats to the host.
+
+    Seed ``allgather`` (on a mesh): the policy's logits are gathered whole
+    over the batch ranks in every forward of the step, each rank keeping
+    its own rows."""
+    from trlx_tpu_torch.analysis.census import fixtures, seeds
+    from trlx_tpu_torch.parallel import collectives as coll
 
     tr = fixtures.trainer("ppo", device, size, shared)
-    batches = fixtures.ppo_batches(size, tr.tokenizer.pad_token_id)
-    return Entry(step=lambda k: tr.train_step(batches[k]))
+    batches = fixtures.ppo_batches(size, tr)
+
+    def gather_logits(module, args, out):
+        group = tr.mesh.batch_group
+        whole = coll.gather_from_group(out[0], group, dim=0)
+        return (coll.local_slice(whole, group, 0),) + tuple(out[1:])
+
+    def step(k):
+        if seeds.active() != "allgather":
+            return tr.train_step(batches[k])
+        hook = tr.model.register_forward_hook(gather_logits)
+        try:
+            return tr.train_step(batches[k])
+        finally:
+            hook.remove()
+
+    return Entry(step=step, optimizer=tr.optimizer)
+
+
+#: the reference's mesh of its two overlap audit entries (``trlx_tpu/methods/ppo.py:400, 488``)
+DATA2_FSDP2 = {"data": 2, "fsdp": 2, "pipe": 1, "model": 1}
+
+
+@register_entrypoint(
+    "ppo_train_step_overlap",
+    mesh=DATA2_FSDP2,
+    roots=(
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.train_step",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.loss_fn",
+        "trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step",
+        "trlx_tpu_torch.parallel.fsdp._Prefetcher.*",
+        "trlx_tpu_torch.parallel.fsdp.global_norm_sharded",
+        "trlx_tpu_torch.parallel.fsdp._clip_by_global_norm_sharded",
+        "trlx_tpu_torch.parallel.collectives.*",
+        "trlx_tpu_torch.data.ppo_types.PPORLBatch.*",
+        "trlx_tpu_torch.methods.ppo.*",
+        "trlx_tpu_torch.models.policy.CausalLMWithValueHead.*",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.*",
+        "trlx_tpu_torch.utils.modeling.logprobs_of_labels",
+        "trlx_tpu_torch.utils.modeling.masked_mean",
+        "trlx_tpu_torch.utils.modeling.masked_var",
+        "trlx_tpu_torch.utils.modeling.whiten",
+    ),
+    readback={
+        # the overlapped FSDP step's stats, one transfer
+        "trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step.step": 1,
+        # the comparator's stats, one transfer
+        "trlx_tpu_torch.methods.ppo.build_ppo_train_step_unsharded_opt.step": 1,
+    },
+)
+def build_ppo_train_step_overlap(device, size, shared):
+    """One learner step of ``train.learner_overlap`` on ``data=2 x fsdp=2``
+    (the reference's ``ppo_train_step_overlap``, ``trlx_tpu/methods/
+    ppo.py:400``): :func:`~trlx_tpu_torch.parallel.fsdp.make_overlapped_grad_accum_step`
+    through ``PPOTrainer.train_step``, each leaf gathered over ``fsdp`` a
+    unit ahead of its forward, its gradient reduce-scattered over ``fsdp``
+    as the backward reaches it, AdamW over this rank's shard.
+
+    Seed ``allreduce_under_fsdp``: the reduce-scatter becomes a full-gradient
+    all-reduce over ``fsdp`` and a local slice."""
+    from unittest import mock
+
+    from trlx_tpu_torch.analysis.census import fixtures, seeds
+    from trlx_tpu_torch.parallel import collectives as coll
+
+    tr = fixtures.trainer("ppo", device, size, shared, overlap=True)
+    batches = fixtures.ppo_batches(size, tr)
+
+    def all_reduce_then_slice(x, group, dim=0):
+        total = coll.all_reduce(x, group)
+        return lambda: coll.local_slice(total, group, dim).contiguous()
+
+    def step(k):
+        if seeds.active() != "allreduce_under_fsdp":
+            return tr.train_step(batches[k])
+        with mock.patch.object(coll, "reduce_scatter_async", all_reduce_then_slice):
+            return tr.train_step(batches[k])
+
+    return Entry(step=step, optimizer=tr.optimizer)
+
+
+@register_entrypoint(
+    "ppo_train_step_unsharded_opt",
+    mesh=DATA2_FSDP2,
+    roots=(
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.train_step",
+        "trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer.loss_fn",
+        "trlx_tpu_torch.parallel.fsdp.ShardedParams.*",
+        "trlx_tpu_torch.parallel.fsdp._clip_by_global_norm_sharded",
+        "trlx_tpu_torch.parallel.collectives.*",
+        "trlx_tpu_torch.data.ppo_types.PPORLBatch.*",
+        "trlx_tpu_torch.methods.ppo.*",
+        "trlx_tpu_torch.models.policy.CausalLMWithValueHead.*",
+        "trlx_tpu_torch.models.transformer.*",
+        "trlx_tpu_torch.ops.attention.*",
+        "trlx_tpu_torch.utils.modeling.logprobs_of_labels",
+        "trlx_tpu_torch.utils.modeling.masked_mean",
+        "trlx_tpu_torch.utils.modeling.masked_var",
+        "trlx_tpu_torch.utils.modeling.whiten",
+    ),
+    readback={
+        # the comparator's stats, one transfer
+        "trlx_tpu_torch.methods.ppo.build_ppo_train_step_unsharded_opt.step": 1,
+    },
+)
+def build_ppo_train_step_unsharded_opt(device, size, shared):
+    """The memory comparator of :func:`build_ppo_train_step_overlap` (the
+    reference's ``ppo_train_step_unsharded_opt``, ``trlx_tpu/methods/
+    ppo.py:488``): the plain mesh step on the same mesh with AdamW's state
+    whole on every rank. The leaves are gathered over ``fsdp`` for the
+    microbatches, each whole gradient is all-reduced over ``data+fsdp``,
+    every rank steps the whole leaves (AdamW over whole-leaf proxies) and
+    keeps its shard of the result. Built here from the port's pieces: no
+    trainer runs it (the step takes the batch to the device as
+    ``train_step`` does, then runs in its place)."""
+    from trlx_tpu_torch.analysis.census import fixtures
+    from trlx_tpu_torch.parallel import collectives as coll
+    from trlx_tpu_torch.parallel import mesh as mesh_lib
+    from trlx_tpu_torch.parallel.fsdp import _clip_by_global_norm_sharded
+    from trlx_tpu_torch.utils import get_optimizer_class, make_lr_scheduler
+
+    # the overlap entry's trainer holds the modules and their shards; its
+    # learner_overlap setting selects a step this entry does not run
+    tr = fixtures.trainer("ppo", device, size, shared, overlap=True)
+    batches = fixtures.ppo_batches(size, tr)
+    mesh, num_mb = tr.mesh, tr.num_mb
+    dp, group = mesh.axis_size(mesh_lib.BATCH_AXES), mesh.batch_group
+    leaves = [tr.shards.by_param[id(p)] for p in tr._leaf_params]
+    whole = [torch.nn.Parameter(leaf.master.new_empty(0), requires_grad=False) for leaf in leaves]
+    kwargs = dict(tr.config.optimizer.kwargs)
+    kwargs.pop("lr", None)
+    kwargs.pop("max_grad_norm", None)
+    optimizer = get_optimizer_class(tr.config.optimizer.name)(whole, learning_rate=1.0, **kwargs)
+    scheduler = make_lr_scheduler(optimizer, tr.lr_schedule)
+
+    def step(batch) -> Dict[str, float]:
+        tr._rollout_model = None
+        per_mb = []
+        with tr.params_gathered():
+            for mb in batch.split(num_mb):
+                with coll.batch_group(group):
+                    loss, stats = tr.loss_fn(mb.split(dp)[mesh.axis_index(mesh_lib.BATCH_AXES)])
+                loss.backward()
+                per_mb.append({k: torch.as_tensor(v, dtype=torch.float32, device=tr.device).detach()
+                               for k, v in stats.items()})
+            for leaf, proxy in zip(leaves, whole):
+                g = leaf.param.grad if leaf.param.grad is not None else torch.zeros_like(leaf.param)
+                proxy.data, proxy.grad = leaf.param.data, coll.all_reduce(g, group) / num_mb
+                leaf.param.grad = None
+        if tr.max_grad_norm:
+            _clip_by_global_norm_sharded(None, [p.grad for p in whole], mesh, tr.max_grad_norm)
+        keys = list(per_mb[0])
+        means = torch.stack([torch.stack([s[k] for s in per_mb]).mean() for k in keys])
+        lr = scheduler.get_last_lr()[0]
+        optimizer.step()
+        scheduler.step()
+        with torch.no_grad():
+            for leaf, proxy in zip(leaves, whole):
+                if leaf.sharded:
+                    leaf.master.copy_(coll.local_slice(proxy.data, tr.shards.fsdp, leaf.fsdp_dim))
+                proxy.data, proxy.grad = proxy.data.new_empty(0), None
+        out = dict(zip(keys, means.tolist()))
+        out["learning_rate_group_0"] = float(lr)
+        return out
+
+    return Entry(step=lambda k: step(batches[k].to(tr.device)), optimizer=optimizer)

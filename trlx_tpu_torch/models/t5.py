@@ -47,6 +47,7 @@ from trlx_tpu_torch.models.transformer import (
     write_kv_cache,
 )
 from trlx_tpu_torch.parallel.collectives import copy_to_group
+from trlx_tpu_torch.parallel.mesh import MODEL_AXIS
 from trlx_tpu_torch.parallel.sharding import spec_dim
 
 
@@ -201,7 +202,7 @@ class T5Attention(nn.Module):
     def set_tensor_parallel(self, specs, key: str, group) -> None:
         """This rank's heads when the rules shard q over ``model``
         (:func:`~trlx_tpu_torch.models.transformer.set_tensor_parallel`)."""
-        if spec_dim(specs[key + "q.kernel"], "model") != 1:
+        if spec_dim(specs[key + "q.kernel"], MODEL_AXIS) != 1:
             return
         H, m = self.config.num_heads, group.size
         if H % m:

@@ -131,6 +131,7 @@ from trlx_tpu_torch.parallel.collectives import (
     scale_grad,
     scatter_to_group,
 )
+from trlx_tpu_torch.parallel.mesh import MODEL_AXIS, PIPE_AXIS
 from trlx_tpu_torch.parallel.sharding import (
     constrain_gathered,
     constrain_seq,
@@ -1012,7 +1013,7 @@ def capture_seq_group(model: nn.Module, hidden: torch.Tensor, attention_mask: Op
 
 def _model_dim(spec) -> int:
     for i, entry in enumerate(spec):
-        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+        if entry == MODEL_AXIS or (isinstance(entry, tuple) and MODEL_AXIS in entry):
             return i
     return -1
 
@@ -1094,7 +1095,7 @@ def set_pipeline(module: nn.Module, mesh) -> None:
     otherwise staged trunk, or layers the axis does not divide."""
     from trlx_tpu_torch.parallel.pipeline import stage_of
 
-    stages = mesh.shape["pipe"]
+    stages = mesh.shape[PIPE_AXIS]
     for sub in module.modules():
         if not isinstance(sub, TransformerLM):
             continue

@@ -36,16 +36,33 @@ copies (pinned on a card) when the tensors live on CUDA, counted by
 :func:`staged` like the collectives. :func:`sequence_counts` counts the
 sequence-parallel scatters and the ring rotations, so a run can show that
 the sequence path ran.
+
+Every entry point counts what it issues in :func:`collective_table`, keyed
+``<kind>:<axes>`` as the reference's collective census
+(``trlx_tpu/analysis/ir/lowering.py::parse_collectives``) keys the compiled
+program's: ``all-reduce``, ``all-gather``, ``reduce-scatter`` (NCCL's, or
+gloo's all-reduce and slice: the same exchange to the caller),
+``all-to-all``, ``collective-permute`` (:func:`exchange`), and kinds the
+reference has no name for: ``broadcast``, ``barrier``, ``object``
+(:func:`broadcast_object`). ``<axes>`` is the group's
+:attr:`~trlx_tpu_torch.parallel.mesh.AxisGroup.label`. Each key holds a
+``count`` and the ``bytes`` of the outputs on this rank (the reference's
+per-device output bytes; a received object's pickle is not measured: 0).
 """
 
 import contextlib
 import threading
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 _STAGED = {"calls": 0, "bytes": 0}
 _CALLS = {"calls": 0}
+_TABLE: Dict[str, Dict[str, int]] = {}
+#: callables told ``fn(n)`` of ``n`` blocking copies between host and card a
+#: staged collective is about to make, on the thread that makes them (the
+#: census counts them as host round-trips where its modes cannot see them)
+_TRANSFER_LISTENERS: List[Callable[[int], None]] = []
 _SEQ = {"scatters": 0, "rotations": 0}
 _LOCK = threading.Lock()
 
@@ -60,6 +77,48 @@ def collective_calls() -> int:
     """Collectives issued over groups of size > 1 so far."""
     with _LOCK:
         return _CALLS["calls"]
+
+
+def collective_table() -> Dict[str, Dict[str, int]]:
+    """``{"<kind>:<axes>": {"count", "bytes"}}`` of the collectives issued
+    so far (see the module docstring)."""
+    with _LOCK:
+        return {k: dict(v) for k, v in sorted(_TABLE.items())}
+
+
+def _count(kind: str, group, nbytes: int, staged_bytes: Optional[int] = None) -> None:
+    """One collective of ``kind`` over ``group`` with ``nbytes`` of output
+    on this rank; ``staged_bytes`` (each way) when it went through host memory."""
+    key = f"{kind}:{group.label or '+'.join(group.axes)}"
+    with _LOCK:
+        _CALLS["calls"] += 1
+        slot = _TABLE.setdefault(key, {"count": 0, "bytes": 0})
+        slot["count"] += 1
+        slot["bytes"] += int(nbytes)
+        if staged_bytes is not None:
+            _STAGED["calls"] += 1
+            _STAGED["bytes"] += int(staged_bytes)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def add_transfer_listener(fn: Callable[[int], None]) -> None:
+    with _LOCK:
+        _TRANSFER_LISTENERS.append(fn)
+
+
+def remove_transfer_listener(fn: Callable[[int], None]) -> None:
+    with _LOCK:
+        _TRANSFER_LISTENERS.remove(fn)
+
+
+def _transfers(n: int) -> None:
+    with _LOCK:
+        listeners = list(_TRANSFER_LISTENERS)
+    for fn in listeners:
+        fn(n)
 
 
 def sequence_counts() -> Dict[str, int]:
@@ -83,6 +142,7 @@ def reset_counts() -> None:
     with _LOCK:
         _STAGED.update(calls=0, bytes=0)
         _CALLS["calls"] = 0
+        _TABLE.clear()
         _SEQ.update(scatters=0, rotations=0)
 
 
@@ -92,28 +152,31 @@ def _dist():
     return dist
 
 
-def _stage(x: torch.Tensor, group, out_factor: int = 1):
+def _stage(x: torch.Tensor, group, kind: str, out_bytes: int, out_factor: int = 1):
     """The gloo branch's staging: ``(t, back)`` where ``t`` is what the
     collective runs on (a host copy of a CUDA tensor under gloo, else ``x``
     itself) and ``back(result)`` returns a result to ``x``'s device.
-    Counts the collective, and a staged one with its bytes (``x`` out and
-    ``out_factor`` times ``x`` back)."""
+    Counts the collective (``kind``, ``out_bytes`` of output), and a staged
+    one with its bytes (``x`` out and ``out_factor`` times ``x`` back)."""
     staged_now = x.device.type == "cuda" and _dist().get_backend(group.pg) == "gloo"
-    with _LOCK:
-        _CALLS["calls"] += 1
-        if staged_now:
-            _STAGED["calls"] += 1
-            _STAGED["bytes"] += (1 + out_factor) * x.numel() * x.element_size()
+    _count(kind, group, out_bytes, (1 + out_factor) * _nbytes(x) if staged_now else None)
     if not staged_now:
         return x, lambda r: r
+
+    def back(r):
+        _transfers(1)
+        return r.to(x.device)  # graftcheck: noqa[TX002] the staged result back to the card
+
+    _transfers(1)
     # gloo takes host tensors: ranks sharing a card stage through host memory,
     # counted above (no path with one rank or NCCL reaches this line)
-    return x.detach().to("cpu", copy=True), lambda r: r.to(x.device)  # graftcheck: noqa[TX002]
+    return x.detach().to("cpu", copy=True), back  # graftcheck: noqa[TX002]
 
 
-def _run(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, group, out_factor: int = 1) -> torch.Tensor:
+def _run(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, group, kind: str, out_bytes: int,
+         out_factor: int = 1) -> torch.Tensor:
     """``fn(t)`` on ``x``, staged through the host when gloo meets a CUDA tensor."""
-    t, back = _stage(x, group, out_factor)
+    t, back = _stage(x, group, kind, out_bytes, out_factor)
     return back(fn(t))
 
 
@@ -122,6 +185,12 @@ _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The reduction of ``x`` over the group (a new tensor; ``x`` is left as it was)."""
+    return _all_reduce(x, group, op, "all-reduce", None)
+
+
+def _all_reduce(x: torch.Tensor, group, op: str, kind: str, out_bytes) -> torch.Tensor:
+    """:func:`all_reduce`, counted as ``kind`` with ``out_bytes`` (None:
+    ``x``'s bytes)."""
     if group is None or group.size == 1:
         return x
     dist = _dist()
@@ -132,7 +201,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         dist.all_reduce(t, op=red, group=group.pg)
         return t
 
-    return _run(fn, x.contiguous(), group)
+    return _run(fn, x.contiguous(), group, kind, _nbytes(x) if out_bytes is None else out_bytes)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -146,7 +215,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         dist.all_gather(parts, t, group=group.pg)
         return torch.cat(parts, dim=dim)
 
-    return _run(fn, x.contiguous(), group, group.size)
+    return _run(fn, x.contiguous(), group, "all-gather", group.size * _nbytes(x), group.size)
 
 
 def local_slice(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -164,13 +233,13 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         return x
     dist = _dist()
     if dist.get_backend(group.pg) == "nccl":
-        with _LOCK:
-            _CALLS["calls"] += 1
+        _count("reduce-scatter", group, _nbytes(x) // group.size)
         moved = x.movedim(dim, 0).contiguous()
         out = torch.empty((moved.shape[0] // group.size,) + tuple(moved.shape[1:]), dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, moved, group=group.pg)
         return out.movedim(0, dim)
-    return local_slice(all_reduce(x, group), group, dim).contiguous()
+    return local_slice(_all_reduce(x, group, "sum", "reduce-scatter", _nbytes(x) // group.size), group,
+                       dim).contiguous()
 
 
 def all_gather_async(x: torch.Tensor, group, dim: int = 0) -> Callable[[], torch.Tensor]:
@@ -178,7 +247,7 @@ def all_gather_async(x: torch.Tensor, group, dim: int = 0) -> Callable[[], torch
     the current stream waits on the collective's event) and returns the
     concatenation."""
     dist = _dist()
-    t, back = _stage(x.contiguous(), group, group.size)
+    t, back = _stage(x.contiguous(), group, "all-gather", group.size * _nbytes(x), group.size)
     parts = [torch.empty_like(t) for _ in range(group.size)]
     work = dist.all_gather(parts, t, group=group.pg, async_op=True)
 
@@ -194,8 +263,7 @@ def reduce_scatter_async(x: torch.Tensor, group, dim: int = 0) -> Callable[[], t
     this rank's slice of the sum."""
     dist = _dist()
     if dist.get_backend(group.pg) == "nccl":
-        with _LOCK:
-            _CALLS["calls"] += 1
+        _count("reduce-scatter", group, _nbytes(x) // group.size)
         moved = x.movedim(dim, 0).contiguous()
         out = torch.empty((moved.shape[0] // group.size,) + tuple(moved.shape[1:]), dtype=x.dtype, device=x.device)
         work = dist.reduce_scatter_tensor(out, moved, group=group.pg, async_op=True)
@@ -205,7 +273,7 @@ def reduce_scatter_async(x: torch.Tensor, group, dim: int = 0) -> Callable[[], t
             return out.movedim(0, dim)
 
         return wait_nccl
-    t, back = _stage(x.detach(), group)
+    t, back = _stage(x.detach(), group, "reduce-scatter", _nbytes(x) // group.size)
     if t.data_ptr() == x.data_ptr():
         t = t.clone()
     work = dist.all_reduce(t, group=group.pg, async_op=True)
@@ -225,8 +293,7 @@ def broadcast_object(obj, group, src_index: int = 0):
     dist = _dist()
     src = dist.get_global_rank(group.pg, src_index) if group.pg is not dist.group.WORLD else src_index
     box = [obj]
-    with _LOCK:
-        _CALLS["calls"] += 1
+    _count("object", group, 0)
     device = None
     if dist.get_backend(group.pg) == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -239,7 +306,7 @@ def barrier(group) -> None:
         return
     # an all-reduce of a one-element host tensor: works on gloo and stays
     # off the card's streams on NCCL alike
-    all_reduce(torch.zeros(1, device=_barrier_device(group)), group)
+    _all_reduce(torch.zeros(1, device=_barrier_device(group)), group, "sum", "barrier", None)
 
 
 def broadcast(x: torch.Tensor, group, src_index: int) -> torch.Tensor:
@@ -255,7 +322,7 @@ def broadcast(x: torch.Tensor, group, src_index: int) -> torch.Tensor:
         dist.broadcast(t, src=src, group=group.pg)
         return t
 
-    return _run(fn, x.contiguous(), group)
+    return _run(fn, x.contiguous(), group, "broadcast", _nbytes(x))
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int, cat_dim: int) -> torch.Tensor:
@@ -274,7 +341,7 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, cat_dim: int) -> torch.Te
         dist.all_to_all_single(recv, send, group=group.pg)
         return torch.cat(recv.unbind(0), dim=cat_dim)
 
-    return _run(fn, x.contiguous(), group)
+    return _run(fn, x.contiguous(), group, "all-to-all", _nbytes(x))
 
 
 def all_to_all_flat(x: torch.Tensor, group, send_counts: Sequence[int], recv_counts: Sequence[int]) -> torch.Tensor:
@@ -291,7 +358,7 @@ def all_to_all_flat(x: torch.Tensor, group, send_counts: Sequence[int], recv_cou
                                group=group.pg)
         return recv
 
-    return _run(fn, x.contiguous(), group)
+    return _run(fn, x.contiguous(), group, "all-to-all", int(sum(recv_counts)) * x.element_size())
 
 
 def global_rank(group, index: int) -> int:
@@ -312,15 +379,12 @@ def exchange(sends, recvs, group) -> list:
         return []
     cuda = any(t.device.type == "cuda" for t, _ in list(sends) + list(recvs))
     staged_now = cuda and dist.get_backend(group.pg) == "gloo"
-    nbytes = sum(t.numel() * t.element_size() for t, _ in list(sends) + list(recvs))
-    with _LOCK:
-        _CALLS["calls"] += 1
-        if staged_now:
-            _STAGED["calls"] += 1
-            _STAGED["bytes"] += nbytes
+    nbytes = sum(_nbytes(t) for t, _ in list(sends) + list(recvs))
+    _count("collective-permute", group, sum(_nbytes(like) for like, _ in recvs), nbytes if staged_now else None)
     if staged_now:
         # gloo kills the sender on send / recv of CUDA tensors: host copies
         # (no path with one rank or NCCL reaches this line)
+        _transfers(len(sends))
         out_sends = [(_pinned(t).copy_(t), r) for t, r in sends]  # graftcheck: noqa[TX002] gloo takes host tensors
         bufs = [_pinned(like) for like, _ in recvs]
     else:
@@ -331,6 +395,7 @@ def exchange(sends, recvs, group) -> list:
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     if staged_now:
+        _transfers(len(recvs))
         # the received host copies back to the card
         return [b.to(like.device) for b, (like, _) in zip(bufs, recvs)]  # graftcheck: noqa[TX002]
     return bufs

@@ -137,12 +137,16 @@ def backend_name() -> Optional[str]:
 class AxisGroup(NamedTuple):
     """The process group of one axis set as seen from this rank: ``pg``
     (None when the set has size 1: every collective over it is a no-op),
-    its ``size`` and this rank's ``index`` in it (row-major over the set)."""
+    its ``size``, this rank's ``index`` in it (row-major over the set) and
+    its ``label``: the set's axes of size > 1 joined with ``+`` in
+    :data:`MESH_AXES` order, as the reference's collective census names a
+    replica group (``data+fsdp`` for the world of ``data=2 x fsdp=2``)."""
 
     pg: object
     size: int
     index: int
     axes: Tuple[str, ...]
+    label: str = ""
 
     def __deepcopy__(self, memo):
         # a process group is not copied: a copied module (the bf16 rollout
@@ -217,7 +221,8 @@ class Mesh:
                     pg = dist.group.WORLD if size == self.size and whole_world else dist.new_group(world)
                     if self.rank in members:
                         mine = pg
-            self._groups[axes] = AxisGroup(mine, size, self.axis_index(axes) if self.member else 0, axes)
+            label = "+".join(a for a in MESH_AXES if a in axes and self.shape[a] > 1)
+            self._groups[axes] = AxisGroup(mine, size, self.axis_index(axes) if self.member else 0, axes, label)
 
     def group(self, axes) -> AxisGroup:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)

@@ -43,6 +43,7 @@ from typing import Dict, Mapping, NamedTuple, Optional
 import torch
 
 from trlx_tpu_torch.parallel import collectives as coll
+from trlx_tpu_torch.parallel.mesh import PIPE_AXIS
 from trlx_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
@@ -121,7 +122,7 @@ class PipeStage(NamedTuple):
 
 
 def stage_of(mesh) -> PipeStage:
-    s, p = mesh.stage, mesh.shape["pipe"]
+    s, p = mesh.stage, mesh.shape[PIPE_AXIS]
     return PipeStage(mesh.pipe_group, s, p, mesh.stage_rank(s - 1) if s > 0 else None,
                      mesh.stage_rank(s + 1) if s < p - 1 else None)
 

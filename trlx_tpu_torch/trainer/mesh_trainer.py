@@ -33,7 +33,8 @@ with a diagnostics bundle). Both off leave the step as it was; the plain
 Under ``TRLX_SWEEP`` the loop prints a ``SWEEP_METRIC {json}`` line at each
 eval and a ``SWEEP_RESULT {json}`` line at the end, and returns early when
 the file ``TRLX_SWEEP_STOP_FILE`` names exists (the JAX package's sweep
-hooks; the sweep runner itself is not ported yet). The staged learn seam
+hooks, which the port's sweep runner, :mod:`trlx_tpu_torch.sweep`, reads).
+The staged learn seam
 (:meth:`MeshRLTrainer._pop_staged_learn`) hands ``train_step`` a device
 copy of its batch staged during a streamed experience phase.
 
@@ -406,8 +407,9 @@ class MeshRLTrainer(BaseRLTrainer):
             for name, spec in apply_mesh(module, self.mesh).items():
                 specs[f"{prefix}.{name}" if prefix else name] = spec
         self.shards = ShardedParams(modules, specs, self.mesh)
+        over_model = sum(spec_dim(leaf.spec, mesh_lib.MODEL_AXIS) >= 0 for leaf in self.shards.leaves)
         logger.info(f"mesh {self.mesh.shape}: {sum(leaf.sharded for leaf in self.shards.leaves)} leaves sharded "
-                    f"over fsdp, {sum(spec_dim(leaf.spec, 'model') >= 0 for leaf in self.shards.leaves)} over model")
+                    f"over fsdp, {over_model} over model")
 
     @torch.no_grad()
     def load_full_params(self, state: Dict[str, torch.Tensor]) -> None:
@@ -562,7 +564,7 @@ class MeshRLTrainer(BaseRLTrainer):
         guard = self.health
         if self.overlap:
             logger.info(
-                f"learner_overlap: overlapped FSDP step active (fsdp={self.mesh.shape['fsdp']}, "
+                f"learner_overlap: overlapped FSDP step active (fsdp={self.mesh.shape[mesh_lib.FSDP_AXIS]}, "
                 f"num_microbatches={num_mb}, optimizer={type(self.optimizer).__name__}, "
                 f"max_grad_norm={self.max_grad_norm})")
             return make_overlapped_grad_accum_step(self, loss_fn, num_mb)

@@ -1,4 +1,4 @@
-"""Process-local runtime gauges and the repo-wide percentile definition.
+"""Process-local runtime gauges, the repo-wide percentile definition and ROUGE.
 
 Runtime gauges (:class:`GaugeRegistry` / the module-level :data:`gauges`) are
 thread-safe named floats that subsystems set from worker threads — the
@@ -11,14 +11,21 @@ serving engine exports ``serving/*`` through them. Besides plain
 trackers). ``clear(prefix=...)`` drops a subsystem's gauges when it shuts
 down.
 
+Text-overlap metrics (ROUGE, :func:`rouge`, :func:`rouge_scores`,
+:func:`rouge_per_sample`): the summarize_rlhf example's quality numbers,
+from scratch with rouge_score's default tokenization (lowercase, runs of
+``[a-z0-9]``) and no stemming: ROUGE-N F-measure on n-gram multiset overlap
+and ROUGE-L F-measure on the longest common subsequence.
+
 Copied from ``trlx_tpu/utils/metrics.py`` (the port imports nothing of the
-JAX package); the ROUGE scorers there belong to a later slice.
+JAX package).
 """
 
 import math
+import re
 import threading
-from collections import deque
-from typing import Dict, Sequence
+from collections import Counter, deque
+from typing import Dict, List, Sequence
 
 
 def nearest_rank(sorted_values: Sequence[float], q: float) -> float:
@@ -115,3 +122,75 @@ class GaugeRegistry:
 
 #: Process-global registry; subsystems set, consumers snapshot.
 gauges = GaugeRegistry()
+
+
+_TOKEN_RE = re.compile(r"[a-z0-9]+")
+
+
+def _tokenize(text: str) -> List[str]:
+    return _TOKEN_RE.findall(text.lower())
+
+
+def _f_measure(p: float, r: float) -> float:
+    return 0.0 if p + r == 0 else 2 * p * r / (p + r)
+
+
+def _rouge_n(pred: List[str], ref: List[str], n: int) -> float:
+    pred_ngrams = Counter(tuple(pred[i:i + n]) for i in range(len(pred) - n + 1))
+    ref_ngrams = Counter(tuple(ref[i:i + n]) for i in range(len(ref) - n + 1))
+    if not pred_ngrams or not ref_ngrams:
+        return 0.0
+    overlap = sum((pred_ngrams & ref_ngrams).values())
+    return _f_measure(overlap / max(1, sum(pred_ngrams.values())), overlap / max(1, sum(ref_ngrams.values())))
+
+
+def _lcs_len(a: List[str], b: List[str]) -> int:
+    if not a or not b:
+        return 0
+    # one-row DP; O(len(a)*len(b)) time, O(len(b)) space: summaries are short
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0]
+        for j, y in enumerate(b, 1):
+            cur.append(prev[j - 1] + 1 if x == y else max(prev[j], cur[-1]))
+        prev = cur
+    return prev[-1]
+
+
+def _rouge_l(pred: List[str], ref: List[str]) -> float:
+    if not pred or not ref:
+        return 0.0
+    lcs = _lcs_len(pred, ref)
+    return _f_measure(lcs / len(pred), lcs / len(ref))
+
+
+def rouge(pred: str, ref: str) -> Dict[str, float]:
+    """ROUGE-1/2/L F-measures for one (prediction, reference) pair."""
+    p, r = _tokenize(pred), _tokenize(ref)
+    return {"rouge1": _rouge_n(p, r, 1), "rouge2": _rouge_n(p, r, 2), "rougeL": _rouge_l(p, r)}
+
+
+def rouge_scores(predictions: Sequence[str], references: Sequence[str]) -> Dict[str, float]:
+    """Corpus ROUGE: per-pair F-measures averaged (what ``evaluate``'s rouge
+    returns), plus ``rouge_avg``, the mean over 1/2/L (the summarize_rlhf
+    README's "Average")."""
+    if len(predictions) != len(references):
+        raise ValueError(f"{len(predictions)} predictions for {len(references)} references")
+    if not predictions:
+        return {"rouge1": 0.0, "rouge2": 0.0, "rougeL": 0.0, "rouge_avg": 0.0}
+    totals = Counter()
+    for pred, ref in zip(predictions, references):
+        totals.update(rouge(pred, ref))
+    n = len(predictions)
+    out = {k: totals[k] / n for k in ("rouge1", "rouge2", "rougeL")}
+    out["rouge_avg"] = (out["rouge1"] + out["rouge2"] + out["rougeL"]) / 3
+    return out
+
+
+def rouge_per_sample(predictions: Sequence[str], references: Sequence[str]) -> Dict[str, List[float]]:
+    """Per-sample ROUGE lists, shaped for a trainer ``metric_fn`` (each
+    metric becomes a table column and a mean stat)."""
+    rows = [rouge(p, r) for p, r in zip(predictions, references)]
+    out: Dict[str, List[float]] = {k: [row[k] for row in rows] for k in ("rouge1", "rouge2", "rougeL")}
+    out["rouge_avg"] = [(a + b + c) / 3 for a, b, c in zip(out["rouge1"], out["rouge2"], out["rougeL"])]
+    return out

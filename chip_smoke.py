@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                   (tensor-core) instructions per kernel instance of every
                   source from ``cuobjdump --dump-sass``: every bf16 instance
                   of the flash forward, the flash backward and the paged
-                  body must have some, and the D=64 ones no spill.
+                  body (7 head dims, the paged body per pool type) must have
+                  some, and the D=64 and D=256 ones no spill; every spill
+                  is listed.
 3. ``kernels``  — each kernel against its plain PyTorch version on the card
                   at the main paths' shapes: flash prefill (K1) in bf16 and
                   f32, paged decode (K4) in bf16 and int8 at block sizes 8,
@@ -35,9 +37,13 @@ Phases, each printing one JSON line:
                   for bit at B=256, B=1, GQA and D=128 (f32, bf16, int8),
                   and every row j of a Q=5 round equal to K4 at lens + j + 1;
                   two launches of K1, K4 and K5 on the same inputs equal bit
-                  for bit. Max abs error within 1e-4 (f32) / 2e-2 (bf16)
-                  times max(1, max|reference|); K1 and this phase's K4
-                  cases within 1e-4 / 2e-2 absolute.
+                  for bit. The wide head dims: K1-K5 at D=80 and D=256
+                  (GPT-J), f32 and bf16, MHA, GQA and MQA at 16 : 1, int8
+                  pools, block sizes 8 to 128 (the f32 paged body's staged
+                  blocks), ragged T, dead tiles and fully masked rows. Max
+                  abs error within 1e-4 (f32) / 2e-2 (bf16) times max(1,
+                  max|reference|); K1 and this phase's K4 cases within 1e-4
+                  / 2e-2 absolute.
 4. ``timing``   — CUDA-event times of kernel, plain version and the library
                   yardstick (SDPA's forward for K1, SDPA's backward for K2
                   and K3, each with its backend pinned to the fastest that
@@ -51,7 +57,9 @@ Phases, each printing one JSON line:
                   learner's (five rounds of >= 200 launches and >= 50 ms
                   each, as median, min and max); K4 at the gpt2 decode
                   shape, K5 at the engine's verify shape and a chunk
-                  append.
+                  append; and at D=256 (16 heads) K1 at a prefill wave,
+                  K2/K3 at B=16 T=S=128 (with SDPA's backward), K4 at
+                  B=256 and K5 at a verify round.
 5. ``parity``   — the engine on the card against the same engine on the CPU
                   (plain versions): gpt2 widths at 2 layers, f32, 8 prompts x
                   16 greedy tokens must be identical.
@@ -187,7 +195,7 @@ Phases, each printing one JSON line:
                   launched; K1, K2/K3 and K4 held against their plain
                   versions at the path's shapes.
 26. ``async``   — a main path: ``train``'s run with
-                  ``train.async_rollouts`` (max_staleness 2), 8 steps; no
+                  ``train.async_rollouts`` (max_staleness 2), 6 steps; no
                   producer thread left, the drain ledger balanced, a batch
                   trained at staleness >= 1; K1/K2/K3 totals exact across
                   both threads.
@@ -265,7 +273,7 @@ Phases, each printing one JSON line:
                   ``set_params`` to every replica, the next wave at version
                   1. ``islands_bubble``: a saturated 64-slot engine as a
                   ``GenerationIsland`` beside a learner publishing chunked
-                  broadcasts, 3 s windows in turns (chunked, blocking,
+                  broadcasts, 2 s windows in turns (chunked, blocking,
                   chunked, blocking): no torn version, one flush per swap,
                   a ``broadcast-chunk:1`` abort that burns its version.
                   ``islands_trainer``: the ``async`` trainer with the
@@ -384,6 +392,23 @@ Phases, each printing one JSON line:
                   state, 8-bit's codes within 1 of it and at most 0.1%
                   differing).
 
+36. ``gptj``    — a main path at GPT-J's width (run after ``hydra``;
+                  :func:`phase_gptj`): the ``gptj`` preset (vocab 50,400,
+                  hidden 4,096, 16 heads of 256, gptj rotary over 64 dims,
+                  parallel residual, untied head) cut to 4 layers, under
+                  examples/hh/ppo_hh.py's traffic, hydra PPO through
+                  ``trlx_tpu_torch.train`` and the engine, each run
+                  ``ppo_main_path``'s (exact launch counts, no KV block
+                  left, the frozen layers and branch bit-identical, every
+                  kernel shape replayed against its plain version): (a)
+                  bf16 compute, 2 steps over bf16 pools (K4) and 2 over
+                  int8 pools with spec_k 4 (K5), K1-K3 in both, finite
+                  losses; (b) f32 and greedy, once through the kernels and
+                  once through the plain versions from the same weights:
+                  tokens identical but at near ties (1e-3), experience
+                  within 1e-4, losses/* within 1e-3 relative. Step seconds
+                  and peak memory beside the card.
+
 The learning gates (14, 20, 21, 22, 28: tiny models, no launch counts, no
 time held to a bar) run in this order in a child process started after
 ``serving_fleet``, beside ``families_seq2seq`` to ``analysis``, none of
@@ -397,6 +422,7 @@ line needs all of them).
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -410,7 +436,7 @@ sys.path.insert(0, ROOT)
 
 PHASES = ("env", "build", "kernels", "timing", "parity", "engine", "spec_parity", "engine_spec",
           "train_parity", "train", "train_serving", "sft_parity", "sft",
-          "hydra_parity", "hydra", "ilql_parity", "ilql", "rft",
+          "hydra_parity", "hydra", "gptj", "ilql_parity", "ilql", "rft",
           "grpo_parity", "grpo", "online_grpo", "async", "grpo_synthetic", "resilience",
           "observability", "production_serving", "serving_fleet",
           "randomwalks", "randomwalks_hydra", "randomwalks_ilql", "randomwalks_rft", "randomwalks_async",
@@ -609,20 +635,24 @@ def sass_hmma_counts(lib_path):
 
 
 #: the tensor-core (bf16) kernels per source: {stem: {kernel name: instances}}
-#: (one per head dim; the paged body also per pool type, bf16 and int8)
+#: (one per head dim of FLASH_HEAD_DIMS / PAGED_MMA_HEAD_DIMS, 7; the paged
+#: body also per pool type, bf16 and int8)
 MMA_KERNELS = {
-    "flash_fwd": {"fwd_mma_kernel": 5},
-    "flash_bwd": {"dkv_mma_kernel": 5, "dq_mma_kernel": 5},
-    "paged_decode": {"paged_mma_kernel": 10},
+    "flash_fwd": {"fwd_mma_kernel": 7},
+    "flash_bwd": {"dkv_mma_kernel": 7, "dq_mma_kernel": 7},
+    "paged_decode": {"paged_mma_kernel": 14},
 }
+#: bf16 instances that must not spill: the gpt2 head dim and GPT-J's
+NO_SPILL_DIMS = (64, 256)
 
 
 def phase_build(ctx):
     """Build every source; report ptxas's registers and spills per function
     and the tensor-core (HMMA) instruction count per kernel instance of
     every source. Fails when a bf16 (tensor-core) instance of the flash
-    forward, the flash backward or the paged body has no HMMA, or a D=64 one
-    spills."""
+    forward, the flash backward or the paged body has no HMMA, or a D=64 or
+    D=256 one spills; every other instance's spills are reported
+    (``spills``)."""
     from trlx_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -630,19 +660,22 @@ def phase_build(ctx):
     for name in _kernels.KERNELS:
         _kernels.library(name)  # load, so a bad library fails here
     ptxas = {stem: ptxas_per_function(log) for stem, log in _kernels.BUILD_LOG.items()}
-    hmma = {stem: sass_hmma_counts(_kernels._lib_path(f"{stem}.cu")) for stem in MMA_KERNELS}
+    with concurrent.futures.ThreadPoolExecutor(len(MMA_KERNELS)) as pool:  # one cuobjdump a library, together
+        hmma = dict(zip(MMA_KERNELS, pool.map(lambda stem: sass_hmma_counts(_kernels._lib_path(f"{stem}.cu")),
+                                              MMA_KERNELS)))
+    spilled = {f: p for funcs in ptxas.values() for f, p in funcs.items()
+               if p.get("spill_stores", 0) + p.get("spill_loads", 0) > 0}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": per_kernel, "ptxas": ptxas, "hmma": hmma})
-    bad, spills = {}, {}
+          "per_kernel_s": per_kernel, "ptxas": ptxas, "hmma": hmma, "spills": spilled})
+    bad = {}
     for stem, kernels in MMA_KERNELS.items():
         for kernel, instances in kernels.items():
             with_hmma = sum(n > 0 for f, n in hmma[stem].items() if kernel in f)
             if with_hmma != instances:
                 bad[kernel] = {f: n for f, n in hmma[stem].items() if kernel in f}
-        spills.update({f: p for f, p in ptxas.get(stem, {}).items()
-                       if "_mma_kernelILi64E" in f and p.get("spill_stores", 0) + p.get("spill_loads", 0) > 0})
-    if bad or spills:
-        raise AssertionError(f"bf16 tensor-core instances: missing HMMA {bad}; D=64 spills {spills}")
+    gated = {f: p for f, p in spilled.items() if any(f"_mma_kernelILi{d}E" in f for d in NO_SPILL_DIMS)}
+    if bad or gated:
+        raise AssertionError(f"bf16 tensor-core instances: missing HMMA {bad}; D=64 / D=256 spills {gated}")
 
 
 def phase_kernels(ctx):
@@ -659,12 +692,19 @@ def phase_kernels(ctx):
                               pad=[int(x) for x in torch.randint(0, 96, (16,), generator=gen, device=dev)])),
         ("gqa_d128_t200", dict(B=2, H=32, Hkv=8, T=200, D=128, pad=(0, 37))),
         ("fully_masked_row", dict(B=2, H=4, Hkv=4, T=70, D=64, pad=(70, 5))),
+        # the wide head dims: 80 (Pythia-2.8B, OPT-2.7B) and 256 (GPT-J)
+        ("d80_gqa_t150", dict(B=2, H=8, Hkv=2, T=150, D=80, pad=(0, 41))),
+        ("d80_fully_masked_row", dict(B=2, H=4, Hkv=4, T=70, D=80, pad=(70, 5))),
+        ("gptj_prefill_d256", dict(B=4, H=16, Hkv=16, T=128,
+                                   D=256, pad=[int(x) for x in torch.randint(0, 96, (4,), generator=gen, device=dev)])),
+        ("d256_mqa_16_1_t200", dict(B=2, H=16, Hkv=1, T=200, D=256, pad=(64, 0))),
+        ("d256_fully_masked_row", dict(B=2, H=4, Hkv=2, T=70, D=256, pad=(70, 5))),
     ]
     for name, shape in flash_cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, valid = flash_case(torch, gen, dtype=dtype, dev=dev, **shape)
             results.append(compare_fwd(torch, name, q, k, v, valid, errs,
-                                       zero_row=name == "fully_masked_row"))
+                                       zero_row=name.endswith("fully_masked_row")))
     # K1 at the trainer's shapes, with its mask: left-padded prompts plus
     # right-padded responses
     for name, B, P, R, r_max in TRAIN_FWD_CASES:
@@ -678,6 +718,14 @@ def phase_kernels(ctx):
         # block sizes other than one k16 step: the walk goes through the table per position
         ("gpt2_decode_bs8", dict(B=64, H=12, Hkv=12, D=64, BS=8, MB=32)),
         ("gqa_12_3_bs32", dict(B=64, H=12, Hkv=3, D=64, BS=32, MB=8)),
+        # the wide head dims at block sizes 8, 16 and 32, MHA, GQA and MQA at
+        # gpt_bigcode's 16 : 1 (every 16th slot idle at len 1 on the null block)
+        ("gptj_decode_d256", dict(B=64, H=16, Hkv=16, D=256, BS=16, MB=16)),
+        ("d256_mqa_16_1_bs8", dict(B=32, H=16, Hkv=1, D=256, BS=8, MB=32)),
+        ("d256_gqa_16_4_bs32", dict(B=32, H=16, Hkv=4, D=256, BS=32, MB=8)),
+        ("d80_gqa_32_8_bs8", dict(B=64, H=32, Hkv=8, D=80, BS=8, MB=32)),
+        ("d80_mqa_16_1_bs16", dict(B=32, H=16, Hkv=1, D=80, BS=16, MB=16)),
+        ("d80_bs32", dict(B=32, H=32, Hkv=32, D=80, BS=32, MB=8)),
     ]
     for name, shape in paged_cases:
         for quant in (False, True):
@@ -690,11 +738,22 @@ def phase_kernels(ctx):
             results.append({"kernel": "paged_decode", "case": name, "kv": "int8" if quant else "bf16",
                             "max_abs_err": err, "tol": TOL["bfloat16"], "ok": ok})
             errs["paged_decode"] = max(errs["paged_decode"], err)
-    # f32 pools with f32 queries at the gpt2 decode shape: the tight tolerance
-    case = paged_case(torch, gen, quant=False, dev=dev, dtype=torch.float32, **paged_cases[0][1])
-    err = (paged_call(paged_attention_kernel, case) - paged_call(paged_attention_reference, case)).abs().max().item()
-    results.append({"kernel": "paged_decode", "case": "gpt2_decode", "kv": "f32",
-                    "max_abs_err": err, "tol": TOL["float32"], "ok": err <= TOL["float32"]})
+    # f32 queries (f32 pools, and int8 pools under f32 queries) at the gpt2
+    # decode shape and the wide head dims: the tight tolerance. At D = 256
+    # the block sizes 64 and 128 make the f32 body stage a block in parts
+    # (its tiles would not fit the CTA's shared memory whole)
+    f32_cases = [("gpt2_decode", paged_cases[0][1], False),
+                 ("d80_gqa_32_8_bs8", dict(B=16, H=32, Hkv=8, D=80, BS=8, MB=32), True),
+                 ("d256_bs64", dict(B=16, H=16, Hkv=4, D=256, BS=64, MB=4), True),
+                 ("d256_mqa_16_1_bs128", dict(B=8, H=16, Hkv=1, D=256, BS=128, MB=2), True)]
+    for name, shape, with_int8 in f32_cases:
+        for quant in (False, True) if with_int8 else (False,):
+            case = paged_case(torch, gen, quant=quant, dev=dev, dtype=torch.float32, **shape)
+            out = paged_call(paged_attention_kernel, case)
+            err = (out - paged_call(paged_attention_reference, case)).abs().max().item()
+            results.append({"kernel": "paged_decode", "case": name, "kv": "int8, f32 q" if quant else "f32",
+                            "max_abs_err": err, "tol": TOL["float32"],
+                            "ok": err <= TOL["float32"] and bool(torch.isfinite(out).all())})
     results += check_flash_backward(torch, gen, dev, errs)
     results += check_paged_verify(torch, gen, dev, errs)
     results += check_two_launches(torch, gen, dev)
@@ -786,10 +845,20 @@ BWD_CASES = [
     ("d96_gqa", 2, 4, 2, 80, 80, 96, (9, 0)),
     ("mqa_rep12", 2, 12, 1, 130, 130, 64, (0, 70)),
     ("dead_tiles", 2, 4, 4, 200, 200, 64, (64, 130)),
+    # the wide head dims: 80, and 256 (the split of each 16-row group over
+    # two warps, the f32 body's 32-row tiles) at GPT-J's learner shape, MQA
+    # at 16 : 1, dead tiles, ragged T and a fully masked row
+    ("d80_gqa_t100", 2, 8, 2, 100, 100, 80, (17, 0)),
+    ("d80_ragged_t37", 3, 4, 4, 37, 37, 80, (0, 3, 36)),
+    ("gptj_learner_d256", 16, 16, 16, 96, 96, 256, ("train", 48, 48)),
+    ("d256_mqa_16_1_dead_tiles", 2, 16, 1, 200, 200, 256, (64, 130)),
+    ("d256_t17", 2, 4, 2, 17, 17, 256, (3, 0)),
+    ("d256_fully_masked_row", 2, 4, 2, 70, 70, 256, (70, 9)),
 ]
 #: non-causal flash backward cases (the same fields)
 BWD_CASES_NONCAUSAL = [
     ("noncausal_gqa_t70_s130", 2, 6, 2, 70, 130, 64, (0, 66)),
+    ("noncausal_d256_t70_s130", 2, 4, 2, 70, 130, 256, (0, 66)),
 ]
 
 
@@ -826,7 +895,7 @@ def check_flash_backward(torch, gen, dev, errs):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, g, valid = bwd_case(torch, gen, B, H, Hkv, T, S, D, pad, dtype, dev)
                 results += compare_bwd(torch, name, q, k, v, g, valid, errs, causal=causal,
-                                       zero_row=name == "fully_masked_row")
+                                       zero_row=name.endswith("fully_masked_row"))
     # determinism: no atomics, so two launches on the same inputs give the same bits
     for dtype in (torch.float32, torch.bfloat16):
         name, B, H, Hkv, T, S, D, pad = BWD_CASES[0]
@@ -868,6 +937,15 @@ VERIFY_CASES = [
     ("gpt2_verify_q5_bs8", 64, 5, 12, 12, 64, 8, 32),
     ("gpt2_chunk_q64_bs32", 4, 64, 12, 12, 64, 32, 8),
     ("gqa_12_3_q5_bs32", 64, 5, 12, 3, 64, 32, 8),
+    # the wide head dims: a GPT-J verify round, MQA at 16 : 1, a chunk append
+    # over two row tiles, block sizes 8 and 32 (and 64 for the f32 body's
+    # staging of a block in parts)
+    ("gptj_verify_q5_d256", 64, 5, 16, 16, 256, 16, 16),
+    ("d256_mqa_16_1_q5_bs8", 32, 5, 16, 1, 256, 8, 32),
+    ("d256_chunk_q64_bs32", 4, 64, 16, 4, 256, 32, 8),
+    ("d256_q3_bs64", 16, 3, 16, 16, 256, 64, 4),
+    ("d80_gqa_32_8_q3", 32, 3, 32, 8, 80, 16, 16),
+    ("d80_mqa_16_1_q64_bs8", 4, 64, 16, 1, 80, 8, 32),
 ]
 #: K5 at Q=1 against K4 at lens + 1: (name, B, H, Hkv, D, lens of every
 #: slot or None for verify_case's ragged mix)
@@ -876,6 +954,8 @@ Q1_EQUAL_CASES = [
     ("b1", 1, 12, 12, 64, 219),
     ("gqa_12_3", 64, 12, 3, 64, None),
     ("gqa_32_8_d128", 16, 32, 8, 128, None),
+    ("gptj_d256", 64, 16, 16, 256, None),
+    ("mqa_16_1_d80", 16, 16, 1, 80, None),
 ]
 
 
@@ -970,23 +1050,47 @@ def phase_timing(ctx):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     timings = {"flash_fwd": time_flash_fwd(torch, F, gen, dev)}
     for quant in (False, True):
-        case = paged_case(torch, gen, B=256, H=12, Hkv=12, D=64, BS=16, MB=16, quant=quant, dev=dev)
-        byts, flops = paged_bound(case)
-        b_ms, b_by = bound_ms(byts, flops)
         key = "paged_decode" if not quant else "paged_decode_int8"
-        timings[key] = {
-            "shape": f"B=256 H=12 D=64 BS=16 MB=16 {'int8' if quant else 'bf16'} KV, "
-                     f"{int(case['context_lens'].sum())} live tokens",
-            **device_and_eager_ms(torch, lambda: paged_call(paged_attention_kernel, case)),
-            "plain_ms": cuda_time_ms(lambda: paged_call(paged_attention_reference, case)),
-            "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops,
-        }
+        timings[key] = time_paged_decode(torch, gen, dev, quant)
     timings.update(time_flash_backward(torch, F, gen, dev))
     timings.update(time_paged_verify(torch, gen, dev))
+    # GPT-J's head dim (D = 256, 16 heads): a prefill wave, a learner-sized
+    # backward, a decode step and a verify round, beside their bounds (and the
+    # library's time for K1-K3)
+    d256 = {"flash_fwd": time_flash_fwd(torch, F, gen, dev, H=16, D=256, train_shapes=False),
+            "paged_decode": time_paged_decode(torch, gen, dev, False, H=16, D=256)}
+    d256.update(time_flash_backward_at(torch, F, gen, dev, 16, 64, 64, H=16, D=256))
+    d256["paged_verify"] = time_paged_verify(torch, gen, dev, H=16, D=256, shapes=("paged_verify",))["paged_verify"]
     for name, t in timings.items():
         emit({"phase": "timing", "kernel": name, "card": ctx.get("smi"), **t})
-    ctx["timings"] = timings
+    for name, t in d256.items():
+        emit({"phase": "timing", "kernel": name, "head_dim": 256, "card": ctx.get("smi"), **t})
+    ctx["timings"], ctx["timings_d256"] = timings, d256
+
+
+def time_paged_decode(torch, gen, dev, quant, H=12, D=64):
+    """K4 at the engine's decode step (B=256 slots, MB=16 blocks of 16,
+    ragged lens) as device time per launch (:func:`graphed`), beside the
+    eager time, its plain version and its bound; no PyTorch call reads K/V
+    through block tables. The timed output is held against the plain one
+    with the kernels phase's tolerance."""
+    from trlx_tpu_torch.ops.paged_attention import paged_attention_kernel, paged_attention_reference
+
+    case = paged_case(torch, gen, B=256, H=H, Hkv=H, D=D, BS=16, MB=16, quant=quant, dev=dev)
+    out, ref = paged_call(paged_attention_kernel, case), paged_call(paged_attention_reference, case)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"paged_decode disagrees with its plain version at D={D}: {err}")
+    byts, flops = paged_bound(case)
+    b_ms, b_by = bound_ms(byts, flops)
+    return {
+        "shape": f"B=256 H={H} D={D} BS=16 MB=16 {'int8' if quant else 'bf16'} KV, "
+                 f"{int(case['context_lens'].sum())} live tokens",
+        **device_and_eager_ms(torch, lambda: paged_call(paged_attention_kernel, case)),
+        "plain_ms": cuda_time_ms(lambda: paged_call(paged_attention_reference, case)),
+        "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": byts, "flops": flops, "max_abs_err": err,
+    }
 
 
 #: launches captured per CUDA graph when a kernel is timed by graph replays
@@ -1039,7 +1143,7 @@ def sdpa_forward_call(torch, F, q, k, v, mask):
     return calls[best], best, probes
 
 
-def time_flash_fwd(torch, F, gen, dev, H=12, D=64):
+def time_flash_fwd(torch, F, gen, dev, H=12, D=64, train_shapes=True):
     """K1 in bf16 at the engine's prefill wave (B=16, T=S=128, left-padded)
     and at the trainer's two shapes (TRAIN_FWD_CASES: scoring [32, 384] and
     the loss forward [16, 257], their PPO masks), each against the SDPA
@@ -1050,11 +1154,11 @@ def time_flash_fwd(torch, F, gen, dev, H=12, D=64):
     wrapper, the plain version's and the bound stand beside them. The timed
     output is held against the plain one with the kernels phase's
     tolerance. Returns the B=16 row with the other shapes under
-    ``at_<name>``."""
+    ``at_<name>`` (``train_shapes``: the prefill wave alone when false)."""
     from trlx_tpu_torch.ops.attention import attention_reference, flash_attention
 
     shapes = [("gpt2_prefill", 16, 128, None)] + [(name, B, P + R, (P, R, r_max))
-                                                  for name, B, P, R, r_max in TRAIN_FWD_CASES]
+                                                  for name, B, P, R, r_max in TRAIN_FWD_CASES if train_shapes]
     rows = {}
     for name, B, T, train in shapes:
         if train is None:
@@ -1094,23 +1198,24 @@ def time_flash_fwd(torch, F, gen, dev, H=12, D=64):
     return {**first, **{f"at_{name}": row for name, row in rows.items()}}
 
 
-def time_paged_verify(torch, gen, dev):
+def time_paged_verify(torch, gen, dev, H=12, D=64, shapes=None):
     """K5 at the engine's verify shape (256 slots, the pending token + 4
     drafts, MB=16 blocks of 16, bf16 and int8 KV) and at a chunk append (one
     slot, 64 tokens onto 64 already there), beside its plain version and its
     bound; no single PyTorch call computes it. The timed outputs are held
-    against the plain ones with the kernels phase's tolerance."""
+    against the plain ones with the kernels phase's tolerance. ``shapes``
+    names a subset."""
     from trlx_tpu_torch.ops.paged_attention import paged_verify_attention_kernel, paged_verify_attention_reference
 
     timings = {}
-    shapes = [
+    rows = [
         ("paged_verify", dict(B=256, Q=5, quant=False), None),
         ("paged_verify_int8", dict(B=256, Q=5, quant=True), None),
         ("paged_verify_chunk", dict(B=1, Q=64, quant=False), 64),
     ]
-    for key, shp, lens in shapes:
+    for key, shp, lens in [row for row in rows if shapes is None or row[0] in shapes]:
         lens = None if lens is None else torch.full((shp["B"],), lens, dtype=torch.int32, device=dev)
-        case = verify_case(torch, gen, shp["B"], shp["Q"], 12, 12, 64, 16, 16, shp["quant"], dev, lens=lens)
+        case = verify_case(torch, gen, shp["B"], shp["Q"], H, H, D, 16, 16, shp["quant"], dev, lens=lens)
         out = paged_call(paged_verify_attention_kernel, case)
         ref = paged_call(paged_verify_attention_reference, case)
         err = (out.float() - ref.float()).abs().max().item()
@@ -1121,7 +1226,7 @@ def time_paged_verify(torch, gen, dev):
         b_ms, b_by = bound_ms(byts, flops)
         live = int((case["context_lens"].long() + shp["Q"]).clamp(max=256).sum())
         timings[key] = {
-            "shape": f"B={shp['B']} Q={shp['Q']} H=12 D=64 BS=16 MB=16 "
+            "shape": f"B={shp['B']} Q={shp['Q']} H={H} D={D} BS=16 MB=16 "
                      f"{'int8' if shp['quant'] else 'bf16'} KV, {live} live tokens",
             **device_and_eager_ms(torch, lambda: paged_call(paged_verify_attention_kernel, case)),
             "plain_ms": cuda_time_ms(lambda: paged_call(paged_verify_attention_reference, case)),
@@ -2128,19 +2233,184 @@ def phase_hydra(ctx):
              for who, d in (("hydra", summary), ("full_copy", full))}})
 
 
-def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
+#: GPT-J at its published width (the ``gptj`` preset: vocab 50,400, hidden
+#: 4,096, 16 heads of 256, gptj rotary over 64 dims, parallel residual, an
+#: untied head with a bias), depth cut from 28 layers to GPTJ_LAYERS, random
+#: init from the seed; the traffic of examples/hh/ppo_hh.py, the reference's
+#: HH setting: its four prompts x 8, seq_length 96, batch 16, chunk 16, 32
+#: rollouts of up to 32 new tokens, its stop sequences, hydra with 2 unfrozen
+#: layers
+GPTJ_LAYERS = 4
+HH_PROMPTS = [
+    "Human: How do I bake bread? Assistant:",
+    "Human: What is a good way to learn piano? Assistant:",
+    "Human: My laptop is slow, what can I do? Assistant:",
+    "Human: How can I sleep better? Assistant:",
+]
+HH_STOPS = ["Human:", "human:"]
+
+
+def gptj_config(ckpt_dir, compute="bfloat16", greedy=False, plain=False, serving=None):
+    """The gptj phase's config (``plain``: every attention through its plain
+    version, the serving engine's paged attention too)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    return TRLConfig.update(default_ppo_config(), {
+        "model.model_path": "gptj", "model.num_layers_unfrozen": 2,
+        "model.model_overrides": {"num_layers": GPTJ_LAYERS, "attention_impl": "xla" if plain else "flash"},
+        "mesh.compute_dtype": compute, "mesh.param_dtype": "float32",
+        "tokenizer.tokenizer_path": "bytes",
+        "train.seq_length": 96, "train.batch_size": 16, "train.total_steps": 2, "train.eval_interval": 100,
+        "train.checkpoint_interval": 100, "train.save_best": False, "train.save_optimizer": False,
+        "train.tracker": None, "train.checkpoint_dir": ckpt_dir, "train.seed": SEED,
+        "train.serving": {"enabled": True, "block_size": 16, "attention_impl": "xla" if plain else "auto",
+                          **(serving or {})},
+        "method.chunk_size": 16, "method.num_rollouts": 32, "method.init_kl_coef": 0.05, "method.target": 6.0,
+        "method.gen_kwargs": dict(max_new_tokens=32, top_k=0, top_p=1.0, do_sample=not greedy),
+    })
+
+
+def phase_gptj(ctx):
+    """A main path at GPT-J's width: hydra PPO through ``trlx_tpu_torch.train``
+    on the ``gptj`` preset cut to GPTJ_LAYERS layers, HH traffic, rollouts
+    through the serving engine (block 16), so K1-K5 run at D = 256. Every
+    run is :func:`ppo_main_path`'s: exact launch counts per layer, learner
+    step, scoring call, prefill wave and engine round, no KV block left,
+    the lower layers and the frozen branch bit-identical, every recorded
+    kernel shape held against its plain version afterwards; the trainer's
+    final checkpoint (4.9 GB) is noted but not written.
+
+    (a) bf16 compute, f32 parameters, flash attention, sampled: 2 steps over
+    bf16 pools (K1 prefill, K4 decode, K2/K3), then 2 over int8 pools with
+    spec_k 4 (K5 verify rounds and chunk appends), with finite losses.
+
+    (b) f32 compute, greedy, spec_k 4 over f32 pools: once through the
+    kernels and once through the plain versions (``attention_impl="xla"``,
+    the engine's ``attention_impl="xla"``, ``TRLX_FLASH_BWD=xla``) from the
+    same initial weights (``torch.equal``): the plain run launches nothing;
+    tokens identical but at near ties (the plain model prefers its token by
+    <= 1e-3, ``spec_parity``'s limit), the experience of every identical
+    element within 1e-4, and with every token identical ``losses/*`` within
+    1e-3 relative (+1e-6), the trainer-parity limits."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.ops import attention as attn
+
+    L, n_unfrozen = GPTJ_LAYERS, 2
+
+    def run(label, kinds, keep=None, init=None, plain=False, **kw):
+        cfg = gptj_config(tempfile.mkdtemp(prefix="chip_smoke_gptj_"), plain=plain, **kw)
+        assert cfg.model.num_layers_unfrozen == n_unfrozen and not cfg.method.num_value_layers_unfrozen
+        num_mb = cfg.train.batch_size // (cfg.train.minibatch_size or cfg.train.batch_size)
+        n = 0 if plain else 1
+        expect = {"loss_fwd": n * L * num_mb, "bwd": n * n_unfrozen * num_mb, "prefill": n * L,
+                  "score": n * (L + n_unfrozen), "paged": n * L, "steps": 2}
+        return ppo_main_path(ctx, f"gptj ({label})", cfg, expect, kinds=kinds, init=init, keep=keep,
+                             checkpoint=False, train_kwargs=dict(
+                                 reward_fn=byte_share_reward, prompts=HH_PROMPTS * 8, eval_prompts=HH_PROMPTS,
+                                 stop_sequences=HH_STOPS))
+
+    flash = ("flash_fwd", "flash_bwd")
+    a, a_launches = run("bf16_pools", flash + ("paged_decode",), serving={"kv_cache_quant": False})
+    b, b_launches = run("int8_pools_spec4", flash + ("paged_verify",), serving={"kv_cache_quant": True, "spec_k": 4})
+    checks = {
+        "(a) every rollout through the engine": bool(a["engine_generations"] and b["engine_generations"]),
+        "(a) K4 over bf16 pools": a_launches["paged_decode"] > 0 and a_launches["paged_verify"] == 0,
+        "(a) K5 over int8 pools with spec_k 4": b_launches["paged_verify"] > 0,
+        "(a) losses finite": a["losses_finite"] and b["losses_finite"],
+    }
+
+    greedy = dict(compute="float32", greedy=True, serving={"spec_k": 4})
+    kern, plain = {}, {}
+    k, k_launches = run("f32_kernels", flash + ("paged_verify",), keep=kern, **greedy)
+    prev = attn.set_flash_backward("xla")
+    try:
+        p, _ = run("f32_plain", (), keep=plain, init=kern["init"], plain=True, **greedy)
+    finally:
+        attn.set_flash_backward(prev)
+    ke, pe = kern["store"], plain["store"]
+    same_elem = [np.array_equal(x.query_tensor, y.query_tensor) and np.array_equal(x.response_tensor, y.response_tensor)
+                 for x, y in zip(ke, pe)] if len(ke) == len(pe) else []
+    same_tokens = bool(same_elem) and all(same_elem)
+    parity = {"elements": len(ke), "identical_tokens": same_tokens, "elements_compared": sum(same_elem)}
+    splits_ok = same_tokens
+    if not same_tokens and same_elem:
+        # the arbiter: the plain run's trunk at the initial weights its rollouts came from
+        ref = gptj_reference_trunk(kern["init"], plain["model_config"])
+        splits = tie_aware_splits(ref, [y.query_tensor for y in pe], [x.response_tensor for x in ke],
+                                  [y.response_tensor for y in pe])
+        del ref
+        parity["splits"] = splits
+        splits_ok = all(near_tie(x, "float32") for x in splits)
+    kern.clear()
+    torch.cuda.empty_cache()
+    elem_errs = [float(np.abs(getattr(x, f) - getattr(y, f)).max()) for (x, y), same in zip(zip(ke, pe), same_elem)
+                 if same for f in ("logprobs", "values", "rewards")]
+    parity["max_element_abs_err"] = max(elem_errs) if elem_errs else None
+    loss_ok = True
+    if same_tokens:
+        pairs = [(x[key], y[key]) for x, y in zip(k["step_stats"], p["step_stats"]) for key in y
+                 if key.startswith("losses/")]
+        parity["max_loss_rel_err"] = max(abs(x - y) / max(abs(y), 1e-3) for x, y in pairs)
+        loss_ok = all(abs(x - y) <= 1e-3 * abs(y) + 1e-6 for x, y in pairs)
+    emit({"phase": "gptj", "check": "(b) kernels against the plain versions, f32 greedy", **parity})
+    checks.update({
+        "(b) every rollout through the engine": bool(k["engine_generations"] and p["engine_generations"]),
+        "(b) tokens identical but at near ties (<= 1e-3)": bool(same_elem) and splits_ok,
+        "(b) experience within 1e-4": bool(elem_errs) and all(e <= 1e-4 for e in elem_errs),
+        "(b) losses within 1e-3 relative": loss_ok,
+    })
+    runs = {"bf16_pools": a, "int8_pools_spec4": b, "f32_kernels": k, "f32_plain": p}
+    ctx["gptj_launches"] = {name: a_launches[name] + b_launches[name] + k_launches[name] for name in a_launches}
+    emit({"phase": "gptj", "card": ctx.get("smi"), "launches": ctx["gptj_launches"],
+          "step_s": {label: r["learn_s"] for label, r in runs.items()},
+          "peak_mem_gib": {label: r["peak_mem_gib"] for label, r in runs.items()},
+          "peak_over_start_gib": {label: r["peak_over_start_gib"] for label, r in runs.items()},
+          "checks": checks})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gptj phase: {failed}")
+
+
+def gptj_reference_trunk(state0, config):
+    """A trunk of ``config`` (the plain run's: f32, plain attention) on the
+    card holding the policy trunk of ``state0``: the arbiter of a token split
+    in the gptj phase's leg (b)."""
+    from trlx_tpu_torch.models.transformer import TransformerLM
+
+    trunk = TransformerLM(config.replace(attention_impl="xla"), device="cuda")
+    trunk.load_state_dict({k[len("transformer."):]: v for k, v in state0.items() if k.startswith("transformer.")})
+    return trunk.eval()
+
+
+def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None, kinds=("flash_fwd", "flash_bwd"), init=None,
+                  keep=None, checkpoint=True):
     """Drive ``trlx_tpu_torch.train`` (PPO, or GRPO: ``train_kwargs``
     replaces the default ``reward_fn`` and prompts) with ``cfg`` on the card once:
     launch counts reset just before and read just after; per learner step
     K1 ``expect["loss_fwd"]`` times and K2, K3 ``expect["bwd"]`` times, K1
     ``expect["prefill"]`` times per generate and ``expect["score"]`` times
-    per scoring call, and nothing outside them. The run records each kernel
-    call's shape and the first mask of each shape; afterwards every shape is
-    held against the plain versions (:func:`check_main_path_shapes`). With
-    ``model.num_layers_unfrozen = N > 0`` the trunk's lower layers,
-    embeddings and final norm and the frozen branch must be bit-identical
-    after the run, and every trainable tensor but the seed-init value head
-    must have moved. Returns (summary, launches)."""
+    per scoring call, and nothing outside them; ``expect.get("steps", 4)``
+    optimizer steps. Through the serving engine (``train.serving``) K1 runs
+    ``expect["prefill"]`` times per prefill wave, K4 ``expect["paged"]``
+    times per plain decode round and K5 as often per verify round and chunk
+    append (the engine's own counts), and no KV block stays in use after a
+    generation. The run records each kernel call's shape and the first mask
+    of each shape; afterwards every shape is held against the plain versions
+    (:func:`check_main_path_shapes`; ``kinds`` must each have been
+    recorded, none for a plain run). With ``model.num_layers_unfrozen = N >
+    0`` the trunk's lower layers, embeddings and final norm and the frozen
+    branch must be bit-identical after the run, and every trainable tensor
+    but the seed-init value head must have moved. ``init``: the initial
+    weights (policy, and ``frozen_branch.``-prefixed branch) the run must
+    start from, ``torch.equal``. ``keep``, where given, receives the run's
+    experience (``store``), its initial weights (``init``) and its
+    ``model_config``. ``checkpoint=False`` notes the trainer's final
+    checkpoint but does not write it. Returns (summary, launches)."""
     import shutil
 
     import numpy as np
@@ -2151,8 +2421,12 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
     ckpt_dir = cfg.train.checkpoint_dir
-    calls = []  # (kind, seconds, launch deltas, train_step stats, [B, T] of the call)
-    originals = {name: getattr(PPOTrainer, name) for name in ("generate", "score", "train_step")}
+    calls = []  # (kind, seconds, launch deltas, train_step stats or engine counts, [B, T] of the call)
+    store, saves = [], []
+    originals = {name: getattr(PPOTrainer, name) for name in (
+        "generate", "_serving_generate", "score", "train_step", "prepare_learning", "push_to_store",
+        "_save_checkpoint")}
+    engine_keys = ("prefill_waves", "decode_steps", "spec_rounds", "chunk_appends")
 
     def call_shape(name, arg):
         if name == "train_step":  # the collated batch; its microbatches share its T
@@ -2166,12 +2440,19 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
 
         def timed(self, *a, **kw):
             before = dict(_kernels.launches())
+            counts = self._serving_engine.summary() if name == "_serving_generate" else None
             t0 = time.perf_counter()
             out = fn(self, *a, **kw)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             delta = {k: _kernels.launches()[k] - before[k] for k in before}
-            calls.append((name, seconds, delta, out if name == "train_step" else None, call_shape(name, a[0])))
+            if name == "_serving_generate":  # the engine's rounds in this call, and its blocks after it
+                after = self._serving_engine.summary()
+                info = {**{k: int(after[k] - counts[k]) for k in engine_keys},
+                        "blocks_in_use": self._serving_engine.allocator.blocks_in_use}
+            else:
+                info = out if name == "train_step" else None
+            calls.append((name, seconds, delta, info, call_shape(name, a[0])))
             return out
 
         return timed
@@ -2184,12 +2465,19 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
             params0.update({k: v.detach().clone() for k, v in self.model.state_dict().items()})
             if self.frozen_branch is not None:
                 branch0.update({k: v.detach().clone() for k, v in self.frozen_branch.state_dict().items()})
-        return originals_prepare(self, *a, **kw)
+        return originals["prepare_learning"](self, *a, **kw)
 
-    originals_prepare = PPOTrainer.prepare_learning
-    for name in originals:
+    def push_to_store(self, data):
+        store.extend(data)
+        return originals["push_to_store"](self, data)
+
+    for name in ("generate", "_serving_generate", "score", "train_step"):
         setattr(PPOTrainer, name, wrap(name))
     PPOTrainer.prepare_learning = snapshot_init
+    if keep is not None:
+        PPOTrainer.push_to_store = push_to_store
+    if not checkpoint:
+        PPOTrainer._save_checkpoint = lambda self, directory, block=False: saves.append(os.path.basename(directory))
     restore_kernels = record_kernel_shapes(seen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2203,7 +2491,6 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
     finally:
         for name, fn in originals.items():
             setattr(PPOTrainer, name, fn)
-        PPOTrainer.prepare_learning = originals_prepare
         restore_kernels()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
@@ -2213,6 +2500,7 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
 
     steps = [(sec, d, out, shp) for kind, sec, d, out, shp in calls if kind == "train_step"]
     gens = [(sec, d, shp) for kind, sec, d, _, shp in calls if kind == "generate"]
+    serves = [(sec, d, eng) for kind, sec, d, eng, _ in calls if kind == "_serving_generate"]
     scores = [(sec, d, shp) for kind, sec, d, _, shp in calls if kind == "score"]
     # learner tokens: the padded positions the step computes, B x (P + R)
     for i, (sec, d, out, shp) in enumerate(steps):
@@ -2224,7 +2512,7 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
                                                 "time/rollout_score", "time/rollout_time")},
               "launches": d})
     state = trainer.model.state_dict()
-    n_unfrozen = cfg.model.num_layers_unfrozen
+    n_unfrozen, n_steps = cfg.model.num_layers_unfrozen, expect.get("steps", 4)
     frozen = [k for k in state if not any(p.data_ptr() == state[k].data_ptr() for p in trainer.trainable_params)]
     moved = [k for k in state if k not in frozen and not torch.equal(params0[k], state[k])]
     finite = all(np.isfinite(v) for _, _, out, _ in steps for k, v in out.items() if k.startswith("losses/"))
@@ -2233,29 +2521,43 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
         "num_layers_unfrozen": n_unfrozen, "reference": "hydra branch" if trainer.frozen_branch is not None
         else "full copy",
         "generate_calls": len(gens), "generate_s": [g[0] for g in gens],
+        "engine_generations": [{"s": sec, **eng} for sec, _, eng in serves],
         "score_calls": len(scores), "score_s": [c[0] for c in scores], "score_shapes": [c[2] for c in scores],
         "learn_s": [st[0] for st in steps], "learn_batch_shapes": [st[3] for st in steps],
         "learner_tok_s_mean": sum(st[3][0] * st[3][1] for st in steps) / max(sum(st[0] for st in steps), 1e-9),
         "peak_mem_gib": peak / 2 ** 30, "peak_over_start_gib": (peak - start_mem) / 2 ** 30,
         "launches": launches, "frozen_tensors": len(frozen), "trained_tensors_moved": len(moved),
-        "losses_finite": finite, "kernel_shapes": kernel_shapes(seen),
+        "losses_finite": finite, "kernel_shapes": kernel_shapes(seen), "checkpoints_skipped": saves,
         "step_stats": [{k: v for k, v in out.items() if k.split("/")[0] in ("losses", "group", "time")}
                        for _, _, out, _ in steps],
     }
     emit(summary)
+    paged = expect.get("paged", 0)
     checks = {
-        "4 optimizer steps": len(steps) == 4,
+        f"{n_steps} optimizer steps": len(steps) == n_steps,
         "losses finite": finite,
         "params changed": bool(moved),
         "K2 and K3 per step": all(
             d["flash_bwd_dkv"] == expect["bwd"] and d["flash_bwd_dq"] == expect["bwd"] for _, d, _, _ in steps),
         "K1 on every loss forward": all(d["flash_fwd"] == expect["loss_fwd"] for _, d, _, _ in steps),
-        "K1 on every prefill": bool(gens) and all(d["flash_fwd"] == expect["prefill"] for _, d, _ in gens),
+        "K1 on every prefill": bool(gens or serves) and all(d["flash_fwd"] == expect["prefill"] for _, d, _ in gens)
+        and all(d["flash_fwd"] == expect["prefill"] * eng["prefill_waves"] for _, d, eng in serves),
         "K1 on every scoring forward (policy + reference)": bool(scores) and all(
             d["flash_fwd"] == expect["score"] for _, d, _ in scores),
         "no kernel outside generate / score / train_step": all(
             launches[k] == sum(c[2][k] for c in calls) for k in launches),
     }
+    if serves:
+        checks.update({
+            "K4 on every plain decode round, K5 on every verify round and chunk append": all(
+                d["paged_decode"] == paged * (eng["decode_steps"] - eng["spec_rounds"])
+                and d["paged_verify"] == paged * (eng["spec_rounds"] + eng["chunk_appends"]) for _, d, eng in serves),
+            "no KV block left after any generation": not any(eng["blocks_in_use"] for _, _, eng in serves),
+        })
+    start = {**params0, **{f"frozen_branch.{k}": v for k, v in branch0.items()}}
+    if init is not None:
+        checks["the same initial weights"] = init.keys() == start.keys() and all(
+            torch.equal(init[k], v) for k, v in start.items())
     if n_unfrozen > 0:
         L = trainer.model_config.num_layers
         lower = [k for k in state if k.startswith("transformer.") and not any(
@@ -2272,11 +2574,15 @@ def ppo_main_path(ctx, phase, cfg, expect, train_kwargs=None):
         })
     failed = [k for k, ok in checks.items() if not ok]
     emit({"phase": phase, "checks": checks})
-    del trainer
+    if keep is not None:
+        keep.update(store=store, init=start, model_config=trainer.model_config)
+    del trainer, state, start, params0, branch0
+    gc.collect()  # a trainer's cycles hold its parameters and optimizer state
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"{phase} phase: {failed}")
-    check_main_path_shapes(ctx, seen, phase, ("flash_fwd", "flash_bwd"))
+    if kinds:
+        check_main_path_shapes(ctx, seen, phase, kinds)
     return summary, launches
 
 
@@ -3455,14 +3761,14 @@ def phase_online_grpo(ctx):
 
 
 #: the async phase's learner steps
-ASYNC_STEPS = 8
+ASYNC_STEPS = 6
 
 
 def phase_async(ctx):
     """A main path: the train phase's configuration and traffic (gpt2 full
     width, 64 sampled rollouts of SHORT_N tokens per refill, steps of 32 in 2
     microbatches) with ``train.async_rollouts`` on (max_staleness 2,
-    publish_interval 1, staleness_correction), 8 learner steps. The producer
+    publish_interval 1, staleness_correction), 6 learner steps. The producer
     thread generates and scores on its snapshot copy while the learner
     trains. Launch counts reset just before and read just after: K2 and K3
     exactly once per layer and microbatch in every step (only the learner
@@ -4923,7 +5229,7 @@ SF_CHAOS_SPEC = "fleet-replica-kill:1,fleet-route:2"
 SF_ONLINE_REPLICAS, SF_ONLINE_SLOTS = 2, 64
 #: leg islands_bubble: slots of the saturated engine, each request's budget,
 #: the measured window (s), chunk_layers and the pause between chunks (s)
-SF_BUBBLE_SLOTS, SF_BUBBLE_N, SF_BUBBLE_WINDOW_S, SF_BUBBLE_CHUNKS, SF_BUBBLE_PAUSE_S = 64, 64, 3.0, 2, 0.002
+SF_BUBBLE_SLOTS, SF_BUBBLE_N, SF_BUBBLE_WINDOW_S, SF_BUBBLE_CHUNKS, SF_BUBBLE_PAUSE_S = 64, 64, 2.0, 2, 0.002
 #: leg islands_trainer and fleet_trainer: learner steps
 SF_ISLAND_STEPS, SF_FLEET_STEPS = 4, 2
 #: after each leg, device memory must be back within this many bytes of
@@ -8707,8 +9013,13 @@ def kernel_table(ctx):
     """One row per ported TPU kernel; ``launches`` is the count from the main
     path that runs it (the engine for K1 and K4, the trainer for K2 and K3,
     the speculative engine for K5), with every main path's count beside it
-    in ``launches_by_path``."""
-    t, errs = ctx["timings"], ctx["max_abs_err"]
+    in ``launches_by_path``; ``head_dims`` the dims its wrapper launches for
+    (f32 and bf16; the paged f32 body takes any D), and ``d256`` its timing
+    at GPT-J's head dim with its launches in phase ``gptj``."""
+    from trlx_tpu_torch.ops.attention import FLASH_HEAD_DIMS
+    from trlx_tpu_torch.ops.paged_attention import PAGED_MMA_HEAD_DIMS
+
+    t, errs, t256 = ctx["timings"], ctx["max_abs_err"], ctx["timings_d256"]
     paths = {"engine": ctx["main_path_launches"], "engine_spec": ctx["spec_path_launches"],
              "train": ctx["train_launches"], "train_serving": ctx["serving_train_launches"],
              "sft": ctx["sft_launches"], "hydra": ctx["hydra_launches"], "ilql": ctx["ilql_launches"],
@@ -8719,7 +9030,7 @@ def kernel_table(ctx):
              "serving_fleet": ctx["serving_fleet_launches"],
              "families_seq2seq": ctx["families_seq2seq_launches"],
              "peft_memory": ctx["peft_memory_launches"], "stacked": ctx["stacked_launches"],
-             "scale_out": ctx["scale_out_launches"]}
+             "scale_out": ctx["scale_out_launches"], "gptj": ctx["gptj_launches"]}
     rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_fwd.cu", "trlx_tpu/ops/attention.py:72", "engine"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_bwd.cu", "trlx_tpu/ops/attention.py:263", "train"),
@@ -8734,7 +9045,11 @@ def kernel_table(ctx):
                       "launches": paths[path][name], "max_abs_err": errs[name],
                       "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
                       "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"],
-                      "launches_by_path": {p: counts[name] for p, counts in paths.items()}})
+                      "launches_by_path": {p: counts[name] for p, counts in paths.items()},
+                      "head_dims": list(PAGED_MMA_HEAD_DIMS if name.startswith("paged") else FLASH_HEAD_DIMS),
+                      "d256": {"shape": t256[name]["shape"], "launches": paths["gptj"][name],
+                               **{k: t256[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                             "library_ms")}}})
     return {"kernels": table, "not_yet_ported": []}
 
 
@@ -8810,6 +9125,7 @@ def main(argv=None) -> int:
                "train_parity": phase_train_parity, "train": phase_train,
                "train_serving": phase_train_serving, "sft_parity": phase_sft_parity, "sft": phase_sft,
                "randomwalks": phase_randomwalks, "hydra_parity": phase_hydra_parity, "hydra": phase_hydra,
+               "gptj": phase_gptj,
                "ilql_parity": phase_ilql_parity, "ilql": phase_ilql, "rft": phase_rft,
                "randomwalks_hydra": phase_randomwalks_hydra, "randomwalks_ilql": phase_randomwalks_ilql,
                "randomwalks_rft": phase_randomwalks_rft, "grpo_parity": phase_grpo_parity, "grpo": phase_grpo,

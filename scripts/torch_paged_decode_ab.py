@@ -8,7 +8,7 @@ with the same C entry points) with the package's nvcc flags into ``trlx_tpu_torc
 source as the package builds it. Both get the same seeded inputs. In f32
 their outputs must be equal bit for bit; in bf16 (and int8 KV) this
 checkout's output must lie within the kernels phase's tolerance (2e-2 x
-max(1, max|ref|)) of the plain version, and both are timed in the order
+max(1, max|ref|)) of the plain version. Both are timed in the order
 baseline, current, current, baseline, as device time per launch: CUDA
 events around replays of a CUDA graph of ``chip_smoke.GRAPH_LAUNCHES``
 launches, so the host's launch overhead is not timed.
@@ -171,15 +171,16 @@ def compare(chip_smoke, row, calls, ref, dtype, args):
     torch.cuda.synchronize()
     row["max_abs_diff_to_baseline"] = max((a.float() - b.float()).abs().max().item() for a, b in zip(base, cur))
     if dtype == torch.float32:
-        row["outputs_equal"] = all(torch.equal(a, b) for a, b in zip(base, cur))
-        return row["outputs_equal"]
-    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(cur, ref)]
-    tols = [chip_smoke.TOL["bfloat16"] * max(1.0, b.float().abs().max().item()) for b in ref]
-    row.update(max_abs_err=max(errs), tol=max(tols), within_tol=all(e <= t for e, t in zip(errs, tols)))
+        row["outputs_equal"] = ok = all(torch.equal(a, b) for a, b in zip(base, cur))
+    else:
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(cur, ref)]
+        tols = [chip_smoke.TOL["bfloat16"] * max(1.0, b.float().abs().max().item()) for b in ref]
+        row.update(max_abs_err=max(errs), tol=max(tols), within_tol=all(e <= t for e, t in zip(errs, tols)))
+        ok = row["within_tol"]  # a NaN fails here
     times = ab_times(chip_smoke, calls, args.iters)
     row.update(iters=args.iters, baseline_ms=times["baseline"], current_ms=times["current"],
                speedup=sum(times["baseline"]) / sum(times["current"]))
-    return row["within_tol"]  # a NaN fails here
+    return ok
 
 
 def run_paged(chip_smoke, libs, smi, args):

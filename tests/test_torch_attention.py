@@ -35,6 +35,9 @@ CASES = {
     "odd_37": dict(B=2, H=2, Hkv=2, T=37, S=37, D=8, pad=(3, 0)),
     "t144": dict(B=1, H=2, Hkv=2, T=144, S=144, D=16, pad=(16,)),
     "gqa_8_2": dict(B=2, H=8, Hkv=2, T=24, S=24, D=8, pad=(0, 7)),
+    # the wide head dims of the kernels' set: 80 (Pythia-2.8B, OPT-2.7B) and 256 (GPT-J)
+    "d80_gqa": dict(B=2, H=4, Hkv=2, T=40, S=40, D=80, pad=(0, 9)),
+    "d256_mqa": dict(B=2, H=4, Hkv=1, T=24, S=24, D=256, pad=(5, 0)),
 }
 
 
@@ -59,6 +62,21 @@ def test_fully_masked_row_is_zero_with_neg_inf_lse():
     assert torch.equal(out[1], torch.zeros_like(out[1]))
     assert torch.equal(out[0, :, :4], torch.zeros_like(out[0, :, :4]))
     assert (lse[1] == NEG_INF).all() and (lse[0, :, :4] == NEG_INF).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_fully_masked_row_at_wide_head_dims(D):
+    """As above at the head dims 80 and 256, with grouped heads: a batch row
+    with no valid key gives 0 and lse NEG_INF, padding-only query rows too."""
+    q, k, v, valid = _inputs(B=2, H=4, Hkv=2, T=20, S=20, D=D, pad=(6, 20), seed=D)
+    out, lse = flash_attention(*map(torch.from_numpy, (q, k, v, valid)), return_lse=True)
+    jout, jlse = _flash_forward(
+        *map(jnp.asarray, (q, k, v, valid)), True, 1.0 / np.sqrt(D), 128, 128, True, with_lse=True
+    )
+    assert torch.equal(out[1], torch.zeros_like(out[1])) and (lse[1] == NEG_INF).all()
+    assert torch.equal(out[0, :, :6], torch.zeros_like(out[0, :, :6])) and (lse[0, :, :6] == NEG_INF).all()
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
 

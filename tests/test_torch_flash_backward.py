@@ -7,8 +7,9 @@ Inputs come from numpy with a fixed seed; f32; tolerance atol 2e-4 /
 rtol 1e-4 (the Pallas backward's own grad-parity tolerance). Besides the
 Pallas tests' own cases, the shapes the Hopper kernels' 64-row tiling makes
 into edges: T = S below one tile (16, 17), every head dim of
-``FLASH_HEAD_DIMS``, query-head groups of 1, 3 and 12, and a key tile with
-no valid key beside a query tile of rows that see no key."""
+``FLASH_HEAD_DIMS`` (80 and 256 too), query-head groups of 1, 3 and 12,
+and a key tile with no valid key beside a query tile of rows that see no
+key."""
 
 import functools
 
@@ -46,6 +47,12 @@ CASES = {
     # row 0: keys 0..63 invalid (one whole 64-key tile), so query rows 0..63
     # see no key (one whole 64-row tile of lse == NEG_INF)
     "dead_tiles": (2, 2, 2, 100, 100, 0.64),
+    # the wide head dims: 80 with grouped heads; 256 with MHA, and with MQA
+    # over a dead key tile and a dead query tile (the D = 256 kernels split
+    # each 16-row group over two warps)
+    "d80_gqa": (1, 4, 2, 40, 40, 0.1, 80),
+    "d256": (1, 2, 2, 40, 40, 0.1, 256),
+    "d256_mqa_dead_tiles": (2, 4, 1, 100, 100, 0.64, 256),
 }
 
 
@@ -126,6 +133,21 @@ def test_fully_masked_rows_have_zero_grads():
         assert np.isfinite(g).all()
         assert (g[0] == 0).all()
     assert (got[0][1, :, :5] == 0).all()  # dq of the padding-only rows
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, **TOL)
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_fully_masked_rows_have_zero_grads_at_wide_head_dims(D):
+    """The fully-masked-row case at the head dims 80 and 256."""
+    q, k, v, valid, w = _inputs(2, 4, 2, 16, 16, 0.0, D)
+    valid[0] = 0
+    valid[1, :5] = 0
+    got = _torch_grads(q, k, v, valid, w)
+    ref = _jax_grads(q, k, v, valid, w)
+    for g in got:
+        assert np.isfinite(g).all() and (g[0] == 0).all()
+    assert (got[0][1, :, :5] == 0).all()
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, **TOL)
 

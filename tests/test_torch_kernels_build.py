@@ -141,3 +141,43 @@ def test_bf16_head_dims_outside_the_tensor_core_set_raise(monkeypatch, entry):
     fn = paged_attention_kernel if entry == "decode" else paged_verify_attention_kernel
     with pytest.raises(ValueError, match="head dim 40"):
         fn(q, pool, pool, tables, lens)
+
+
+def _switch_head_dims(source):
+    """The head dims of every ``switch (D)`` block of a CUDA source: its
+    ``case N:`` labels or ``..._CASE(N)`` lines, one tuple a block."""
+    import re
+
+    text = (_kernels.CSRC / source).read_text()
+    blocks = re.findall(r"switch \(D\) \{(.*?)default:", text, re.S)
+    return [tuple(int(n) for n in re.findall(r"(?:case |_CASE\()(\d+)", block)) for block in blocks]
+
+
+@pytest.mark.parametrize("source, blocks", [("flash_fwd.cu", 2), ("flash_bwd.cu", 2), ("paged_decode.cu", 1)])
+def test_switch_head_dims_equal_the_wrappers_sets(source, blocks):
+    """The dispatch in the CUDA sources and the wrappers' checks name the same
+    head dims: the flash forward's f32 and bf16 switches and the backward's
+    two equal ``FLASH_HEAD_DIMS``, the paged tensor-core switch
+    ``PAGED_MMA_HEAD_DIMS`` (the paged f32 body takes any D at run time)."""
+    from trlx_tpu_torch.ops.attention import FLASH_HEAD_DIMS
+    from trlx_tpu_torch.ops.paged_attention import PAGED_MMA_HEAD_DIMS
+
+    want = PAGED_MMA_HEAD_DIMS if source == "paged_decode.cu" else FLASH_HEAD_DIMS
+    assert _switch_head_dims(source) == [want] * blocks
+    assert FLASH_HEAD_DIMS == PAGED_MMA_HEAD_DIMS == (16, 32, 64, 80, 96, 128, 256)
+
+
+@pytest.mark.parametrize("D", [48, 112, 160, 192, 264])
+def test_flash_head_dims_outside_the_set_raise(monkeypatch, D):
+    """A head dim no switch holds raises before any build on a tensor that
+    passes for a CUDA one, f32 and bf16 alike."""
+    from trlx_tpu_torch.ops.attention import flash_attention
+
+    fake = _FakeCuda()
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: fake))
+    monkeypatch.setattr(_kernels, "library", lambda name: pytest.fail("no build for an unsupported head dim"))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 2, 8, D), dtype=dtype)
+        valid = torch.ones((1, 8), dtype=torch.int32)
+        with pytest.raises(ValueError, match=f"head dim {D} not in"):
+            flash_attention(q, q, q, valid)

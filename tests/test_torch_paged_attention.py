@@ -124,3 +124,33 @@ def test_write_paged_kv_bit_exact(quant):
     assert tout is tcache  # in place
     for key in pools:
         np.testing.assert_array_equal(tout[key].numpy(), np.asarray(jout[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (16, 1)], ids=["mha", "gqa", "mqa16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8kv"])
+@pytest.mark.parametrize("d", [80, 256])
+def test_paged_plain_matches_jax_at_wide_head_dims(d, quant, heads):
+    """The decode parity above at the head dims 80 and 256 of the kernels'
+    set, over MHA, GQA and MQA at ``gpt_bigcode``'s 16 : 1; the same tables
+    (a prefix-shared block, a replaced slot, an idle slot at len 1 on the
+    null block)."""
+    H, hkv = heads
+    rng = np.random.default_rng(d + H)
+    kf = rng.standard_normal((NB, BS, hkv, d)).astype(np.float32)
+    vf = rng.standard_normal((NB, BS, hkv, d)).astype(np.float32)
+    _, tables, lens = _pools(rng, False)
+    pools = dict(k=kf, v=vf)
+    if quant:
+        (kq, ks), (vq, vs) = jax_quantize(jnp.asarray(kf)), jax_quantize(jnp.asarray(vf))
+        pools = dict(k=np.array(kq), v=np.array(vq), k_scale=np.array(ks[..., 0]), v_scale=np.array(vs[..., 0]))
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    jkw = {k: jnp.asarray(pools[k]) for k in ("k_scale", "v_scale") if k in pools}
+    tkw = {k: torch.from_numpy(pools[k]) for k in ("k_scale", "v_scale") if k in pools}
+    jargs = (jnp.asarray(q), jnp.asarray(pools["k"]), jnp.asarray(pools["v"]),
+             jnp.asarray(tables), jnp.asarray(lens))
+    out = paged_attention_kernel(torch.from_numpy(q), torch.from_numpy(pools["k"]), torch.from_numpy(pools["v"]),
+                                 torch.from_numpy(tables), torch.from_numpy(lens), **tkw).numpy()
+    np.testing.assert_allclose(out, np.asarray(paged_attention_pallas(*jargs, **jkw, interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(paged_attention_xla(*jargs, **jkw)), rtol=1e-5, atol=1e-5)
+    assert np.isfinite(out[3]).all()

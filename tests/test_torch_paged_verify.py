@@ -210,3 +210,32 @@ def test_count_accepted_drafts_matches_jax():
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
         assert (got.numpy()[::4] == K).all()
+
+
+@pytest.mark.parametrize("heads", [(2, 2), (16, 1)], ids=["mha", "mqa16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8kv"])
+@pytest.mark.parametrize("d", [80, 256])
+def test_verify_plain_matches_jax_at_wide_head_dims(d, quant, heads):
+    """The verify parity above at the head dims 80 and 256, Q = 3, MHA and
+    MQA at 16 : 1; the same tables (a query run crossing a block edge, the
+    table's end, an idle slot at len 0), and at Q = 1 the decode at lens + 1
+    bit for bit."""
+    H, hkv = heads
+    rng = np.random.default_rng(3 * d + H)
+    kf = rng.standard_normal((NB, BS, hkv, d)).astype(np.float32)
+    vf = rng.standard_normal((NB, BS, hkv, d)).astype(np.float32)
+    pools = dict(k=kf, v=vf)
+    if quant:
+        (kq, ks), (vq, vs) = jax_quantize(jnp.asarray(kf)), jax_quantize(jnp.asarray(vf))
+        pools = dict(k=np.array(kq), v=np.array(vq), k_scale=np.array(ks[..., 0]), v_scale=np.array(vs[..., 0]))
+    lens = np.minimum(LENS, MB * BS - 3)
+    q = rng.standard_normal((B, 3, H, d)).astype(np.float32)
+    jargs, jkw, targs, tkw = _args(pools, q, lens=lens)
+    out = paged_verify_attention_kernel(*targs, **tkw).numpy()
+    np.testing.assert_allclose(out, np.asarray(paged_verify_attention_xla(*jargs, **jkw)), **TOL)
+    np.testing.assert_allclose(out, np.asarray(paged_verify_attention_pallas(*jargs, **jkw, interpret=True)), **TOL)
+    assert np.isfinite(out[3]).all()
+    _, _, t1, _ = _args(pools, q[:, :1].copy(), lens=lens)
+    verify = paged_verify_attention_reference(*t1, **tkw)
+    decode = paged_attention_reference(t1[0][:, 0], *t1[1:4], t1[4] + 1, **tkw)
+    assert torch.equal(verify[:, 0], decode)

@@ -65,6 +65,15 @@
 //   by cp.async and masked; the host pads nothing.
 // - Numerics: P and dS are rounded to bf16 before the second products, as
 //   every tensor-core flash backward does; accumulators are f32.
+// - D = 256 (GPT-J): a warp's dK and dV alone would be 256 f32 registers, so
+//   the warps of a row group split the work (Split below): in dkv four warps
+//   share each 16-key group of a 32-key tile (8 warps), each forms S^T and
+//   dP^T for 16 of the 64 queries at the full D, the four trade their bf16
+//   P^T / dS^T fragments through shared memory, and each accumulates 64 of
+//   dK's and dV's columns (64 registers); in dq two warps share each 16-query
+//   group, 32 keys and 128 of dQ's columns each. The f32 instances step
+//   through 32-query (dkv) and 32-key (dq) tiles there: four [64][D+1] f32
+//   tiles alone would take 263 KB, over the 227 KB a CTA may have.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,32 +99,45 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 // The f32 instances: every product as f32 FMAs out of f32 shared memory
 // (this file's first design, unchanged, so f32 results stay bit for bit).
 
-// Stage rows [r0, r0 + 64) of a row-major [len][D] matrix into shared memory
-// as f32 with row stride D + 1; rows at or past len are zero.
-template <typename T, int D>
+// The SIMT tiles: 64 keys by 64 queries up to D = 128. At D = 256 four
+// [64][D+1] f32 tiles alone take 263 KB, over the 227 KB a CTA may have, so
+// dK/dV steps through 32-query tiles and dQ through 32-key tiles there
+// (214.5 KB and 206 KB).
+template <int D>
+struct Simt {
+  static constexpr int QR = D > 128 ? 32 : 64;  // dkv: query rows a step
+  static constexpr int KR = D > 128 ? 32 : 64;  // dq: keys a tile
+};
+
+// Stage rows [r0, r0 + ROWS) of a row-major [len][D] matrix into shared
+// memory as f32 with row stride D + 1; rows at or past len are zero.
+template <typename T, int D, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int len) {
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int rr = r0 + r;
     dst[r * (D + 1) + d] = rr < len ? to_f32(src[(size_t)rr * D + d]) : 0.f;
   }
 }
 
-// P and dS of one 64x64 tile for this thread's query row `row` (global slot
-// t) and keys j = sub + TPR*jj (global slot k0 + j). Writes P (when p_out is
-// not null) and dS into shared [BQ][PS] tiles.
-template <int D>
+// P and dS of one ROWS x KEYS tile, THREADS / ROWS threads a query row: this
+// thread's row `row` (global slot t), keys j = sub + (THREADS/ROWS)*jj
+// (global slot k0 + j). Writes P (when p_out is not null) and dS into shared
+// [ROWS][KEYS+1] tiles.
+template <int D, int ROWS = 64, int KEYS = BK>
 __device__ __forceinline__ void tile_p_ds(const float* q_s, const float* do_s, const float* k_s,
                                           const float* v_s, const int* valid_s, float lse,
                                           float delta, int row, int sub, int t, int k0, int T_len,
                                           int causal, float scale, float* p_out, float* ds_out) {
   constexpr int DQ = D + 1;
+  constexpr int TP = THREADS / ROWS;  // threads per query row
+  constexpr int RS = KEYS + 1;        // row stride of the score tiles
   // rows with no visible key carry lse = NEG_INF; their mask is all false,
   // and the guard keeps exp() away from inf
   const float lse_safe = lse > NEG_INF / 2 ? lse : 0.f;
 #pragma unroll 4
-  for (int jj = 0; jj < BK / TPR; ++jj) {
-    const int j = sub + TPR * jj;
+  for (int jj = 0; jj < KEYS / TP; ++jj) {
+    const int j = sub + TP * jj;
     float s = 0.f, dp = 0.f;
 #pragma unroll 16
     for (int d = 0; d < D; ++d) {
@@ -125,19 +147,24 @@ __device__ __forceinline__ void tile_p_ds(const float* q_s, const float* do_s, c
     const int sk = k0 + j;
     const bool ok = valid_s[j] && t < T_len && (!causal || sk <= t);
     const float p = ok ? expf(s * scale - lse_safe) : 0.f;
-    if (p_out != nullptr) p_out[row * PS + j] = p;
-    ds_out[row * PS + j] = p * (dp - delta) * scale;
+    if (p_out != nullptr) p_out[row * RS + j] = p;
+    ds_out[row * RS + j] = p * (dp - delta) * scale;
   }
 }
 
-size_t dkv_smem_bytes(int D) {
-  // k_s, v_s, q_s, do_s [64][D+1]; p_s, ds_s [64][BK+1]; lse_s, delta_s [BQ]; valid_s [BK]
-  return sizeof(float) * (size_t)(4 * 64 * (D + 1) + 2 * BQ * PS + 2 * BQ) + sizeof(int) * BK;
+template <int D>
+size_t dkv_smem_bytes() {
+  // k_s, v_s [64][D+1]; q_s, do_s [QR][D+1]; p_s, ds_s [QR][BK+1]; lse_s, delta_s [QR]; valid_s [BK]
+  constexpr int QR = Simt<D>::QR;
+  return sizeof(float) * (size_t)(2 * 64 * (D + 1) + 2 * QR * (D + 1) + 2 * QR * PS + 2 * QR) +
+         sizeof(int) * BK;
 }
 
-size_t dq_smem_bytes(int D) {
-  // q_s, do_s, k_s, v_s [64][D+1]; ds_s [BQ][BK+1]; valid_s [BK]
-  return sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * PS) + sizeof(int) * BK;
+template <int D>
+size_t dq_smem_bytes() {
+  // q_s, do_s [64][D+1]; k_s, v_s [KR][D+1]; ds_s [BQ][KR+1]; valid_s [KR]
+  constexpr int KR = Simt<D>::KR;
+  return sizeof(float) * (size_t)(2 * 64 * (D + 1) + 2 * KR * (D + 1) + BQ * (KR + 1)) + sizeof(int) * KR;
 }
 
 template <typename T, int D>
@@ -149,24 +176,27 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      int causal, float scale) {
   constexpr int DQ = D + 1;
   constexpr int DPT = D / TPR;  // output columns per thread
+  constexpr int QR = Simt<D>::QR;
+  constexpr int TPQ = THREADS / QR;  // threads per query row of the P / dS tile
   extern __shared__ float smem[];
   float* k_s = smem;               // [BK][DQ]
   float* v_s = k_s + BK * DQ;      // [BK][DQ]
-  float* q_s = v_s + BK * DQ;      // [BQ][DQ]
-  float* do_s = q_s + BQ * DQ;     // [BQ][DQ]
-  float* p_s = do_s + BQ * DQ;     // [BQ][PS]
-  float* ds_s = p_s + BQ * PS;     // [BQ][PS]
-  float* lse_s = ds_s + BQ * PS;   // [BQ]
-  float* delta_s = lse_s + BQ;     // [BQ]
-  int* valid_s = reinterpret_cast<int*>(delta_s + BQ);  // [BK]
+  float* q_s = v_s + BK * DQ;      // [QR][DQ]
+  float* do_s = q_s + QR * DQ;     // [QR][DQ]
+  float* p_s = do_s + QR * DQ;     // [QR][PS]
+  float* ds_s = p_s + QR * PS;     // [QR][PS]
+  float* lse_s = ds_s + QR * PS;   // [QR]
+  float* delta_s = lse_s + QR;     // [QR]
+  int* valid_s = reinterpret_cast<int*>(delta_s + QR);  // [BK]
 
   const int k0 = blockIdx.x * BK;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / Hkv;
   const int tid = threadIdx.x;
-  const int row = tid / TPR;
+  const int row = tid / TPR;  // this thread's key row of dK / dV
   const int sub = tid % TPR;
+  const int prow = tid / TPQ, psub = tid % TPQ;  // its query row and keys of the P / dS tile
   const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
 
   load_tile<T, D>(k_s, k + kv_base, k0, S);
@@ -182,27 +212,27 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   // under causality no query slot before k0 sees this tile: start at the
   // q tile holding slot k0
-  const int q_start = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_start; q0 < T_len; q0 += BQ) {
+  const int q_start = causal ? (k0 / QR) * QR : 0;
+  for (int q0 = q_start; q0 < T_len; q0 += QR) {
     for (int r = 0; r < rep; ++r) {
       const int h = hk * rep + r;
       const size_t row_base = (size_t)(b * H + h) * T_len;
       const size_t q_base = row_base * D;
       __syncthreads();  // the previous tile's readers are done (and k_s/v_s are written)
-      load_tile<T, D>(q_s, q + q_base, q0, T_len);
-      load_tile<T, D>(do_s, dout + q_base, q0, T_len);
-      for (int i = tid; i < BQ; i += THREADS) {
+      load_tile<T, D, QR>(q_s, q + q_base, q0, T_len);
+      load_tile<T, D, QR>(do_s, dout + q_base, q0, T_len);
+      for (int i = tid; i < QR; i += THREADS) {
         const int tt = q0 + i;
         lse_s[i] = tt < T_len ? lse[row_base + tt] : NEG_INF;
         delta_s[i] = tt < T_len ? delta[row_base + tt] : 0.f;
       }
       __syncthreads();
-      tile_p_ds<D>(q_s, do_s, k_s, v_s, valid_s, lse_s[row], delta_s[row], row, sub, q0 + row,
-                   k0, T_len, causal, scale, p_s, ds_s);
+      tile_p_ds<D, QR>(q_s, do_s, k_s, v_s, valid_s, lse_s[prow], delta_s[prow], prow, psub, q0 + prow,
+                       k0, T_len, causal, scale, p_s, ds_s);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q for key row `row`
 #pragma unroll 4
-      for (int t = 0; t < BQ; ++t) {
+      for (int t = 0; t < QR; ++t) {
         const float p = p_s[t * PS + row];
         const float ds = ds_s[t * PS + row];
 #pragma unroll
@@ -235,13 +265,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     float scale) {
   constexpr int DQ = D + 1;
   constexpr int DPT = D / TPR;
+  constexpr int KR = Simt<D>::KR;
+  constexpr int RS = KR + 1;  // row stride of ds_s
   extern __shared__ float smem[];
   float* q_s = smem;               // [BQ][DQ]
   float* do_s = q_s + BQ * DQ;     // [BQ][DQ]
-  float* k_s = do_s + BQ * DQ;     // [BK][DQ]
-  float* v_s = k_s + BK * DQ;      // [BK][DQ]
-  float* ds_s = v_s + BK * DQ;     // [BQ][PS]
-  int* valid_s = reinterpret_cast<int*>(ds_s + BQ * PS);  // [BK]
+  float* k_s = do_s + BQ * DQ;     // [KR][DQ]
+  float* v_s = k_s + KR * DQ;      // [KR][DQ]
+  float* ds_s = v_s + KR * DQ;     // [BQ][RS]
+  int* valid_s = reinterpret_cast<int*>(ds_s + BQ * RS);  // [KR]
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -266,22 +298,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   // keys past the tile's last query slot are all causally masked: skip them
   const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = 0; k0 < kv_end; k0 += KR) {
     __syncthreads();  // the previous tile's readers are done (and q_s/do_s are written)
-    load_tile<T, D>(k_s, k + kv_base, k0, S);
-    load_tile<T, D>(v_s, v + kv_base, k0, S);
-    for (int i = tid; i < BK; i += THREADS) {
+    load_tile<T, D, KR>(k_s, k + kv_base, k0, S);
+    load_tile<T, D, KR>(v_s, v + kv_base, k0, S);
+    for (int i = tid; i < KR; i += THREADS) {
       const int s = k0 + i;
       valid_s[i] = (s < S) && kv_valid[(size_t)b * S + s] > 0;
     }
     __syncthreads();
-    tile_p_ds<D>(q_s, do_s, k_s, v_s, valid_s, lse_t, delta_t, row, sub, t, k0, T_len, causal,
-                 scale, nullptr, ds_s);
+    tile_p_ds<D, BQ, KR>(q_s, do_s, k_s, v_s, valid_s, lse_t, delta_t, row, sub, t, k0, T_len, causal,
+                         scale, nullptr, ds_s);
     __syncwarp();  // the row's 4 threads are adjacent lanes of one warp
     // dQ += dS K for query row `row`
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float ds = ds_s[row * PS + j];
+    for (int j = 0; j < KR; ++j) {
+      const float ds = ds_s[row * RS + j];
 #pragma unroll
       for (int c = 0; c < DPT; ++c) dq_acc[c] = fmaf(ds, k_s[j * DQ + sub + TPR * c], dq_acc[c]);
     }
@@ -304,28 +336,65 @@ namespace tc {
 using namespace ::sm90;
 using sm90::THREADS;
 
-size_t smem_bytes(int row_bytes) {
-  // dkv: K, V + 2 stages of (Q, dO, lse and delta [64] each);
-  // dq: Q, dO + 2 stages of (K, V, key flags [64])
-  return (size_t)6 * TILE * row_bytes + 2 * 2 * TILE * sizeof(float);
+// How a CTA's warps share its tile: RG groups of 16 rows (keys in dkv,
+// queries in dq), each owned by N warps. Up to D = 128 one warp owns its 16
+// rows alone (N = 1, RG = 4: a 64-row tile). At D = 256 a warp's dK and dV
+// accumulators alone would be 256 f32 registers, over the 255 a thread may
+// have, so N warps share each row group: each forms the scores over 64 / N
+// of the other axis (queries in dkv, keys in dq) at the full D, they hand
+// each other their bf16 P / dS fragments through shared memory
+// (put_frags), and each accumulates D / N of the output's columns. dkv
+// takes N = 4 over 32-key tiles (RG = 2; dK + dV 64 registers a thread),
+// dq N = 2 over 64-query tiles (dQ 64 registers); 8 warps either way.
+template <int D, int N_, int RG_>
+struct Split {
+  static constexpr int N = N_, RG = RG_;
+  static constexpr int ROWS = 16 * RG;          // rows of the CTA's tile
+  static constexpr int NTH = 32 * N * RG;       // threads of a CTA
+  static constexpr int DC = D / N;              // output columns a warp
+  static constexpr int CW = TILE / N;           // score columns a warp
+  static constexpr int KCW = CW / 16;           // their k16 chunks
+  // the fragment exchange: a slot of P and dS a warp (dq uses half)
+  static constexpr int SLOT = 2 * KCW * 4 * 32;  // words
+  static constexpr int XCH = N > 1 ? N * RG * SLOT * 4 : 0;
+};
+template <int D>
+using DkvSplit = Split<D, (D > 128 ? 4 : 1), (D > 128 ? 2 : 4)>;
+template <int D>
+using DqSplit = Split<D, (D > 128 ? 2 : 1), 4>;
+
+template <int D>
+size_t dkv_smem_bytes() {
+  // K, V [ROWS] + 2 stages of (Q, dO [64], lse and delta [64] each) + the exchange
+  using SP = DkvSplit<D>;
+  return (size_t)2 * SP::ROWS * Tile<D>::ROW_BYTES + 2 * (2 * Tile<D>::BYTES + 2 * TILE * sizeof(float)) + SP::XCH;
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+size_t dq_smem_bytes() {
+  // Q, dO + 2 stages of (K, V, key flags [64]) + the exchange
+  return (size_t)2 * Tile<D>::BYTES + 2 * (2 * Tile<D>::BYTES + TILE * sizeof(int32_t)) + DqSplit<D>::XCH;
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvSplit<D>::NTH)
 dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                const int32_t* __restrict__ kv_valid, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
                int Hkv, int T_len, int S, int causal, float scale) {
   using TL = Tile<D>;
+  using SP = DkvSplit<D>;
   constexpr int STAGE = 2 * TL::BYTES + 2 * TILE * 4;  // Q, dO, lse, delta
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int k0 = blockIdx.x * TILE, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * SP::ROWS, hk = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  // row group; which part of the split (0 without one)
+  const int rg = SP::N > 1 ? warp % SP::RG : warp, part = SP::N > 1 ? warp / SP::RG : 0;
   const size_t kv_base = (size_t)(b * Hkv + hk) * S * D;
   // this thread's two key rows (the C fragment's rows g and g + 8)
-  const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+  const int key_lo = k0 + 16 * rg + g, key_hi = key_lo + 8;
   const bool valid_lo = key_lo < S && kv_valid[(size_t)b * S + key_lo] > 0;
   const bool valid_hi = key_hi < S && kv_valid[(size_t)b * S + key_hi] > 0;
   // under causality no query slot before k0 sees this tile: start at the q
@@ -333,36 +402,41 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const int q_start = causal ? k0 : 0;
   const int n_items = q_start < T_len ? (T_len - q_start + TILE - 1) / TILE * rep : 0;
   if (!__syncthreads_or(valid_lo || valid_hi) || n_items == 0) {
-    zero_rows<D>(dk + kv_base, k0, S);
-    zero_rows<D>(dv + kv_base, k0, S);
+    zero_rows<D, SP::NTH, SP::ROWS>(dk + kv_base, k0, S);
+    zero_rows<D, SP::NTH, SP::ROWS>(dv + kv_base, k0, S);
     return;
   }
   const bool keys_all_valid = __syncthreads_and(valid_lo && valid_hi);
 
-  const uint32_t k_s = smem_addr(smem), v_s = k_s + TL::BYTES, stages = v_s + TL::BYTES;
+  const uint32_t k_s = smem_addr(smem), v_s = k_s + SP::ROWS * TL::ROW_BYTES, stages = v_s + SP::ROWS * TL::ROW_BYTES;
   auto issue = [&](int item, int st) {
     const int q0 = q_start + (item / rep) * TILE;
     const size_t row_base = (size_t)(b * H + hk * rep + item % rep) * T_len;
     const uint32_t base = stages + st * STAGE;
-    load_tile_async<D>(base, q + row_base * D, q0, T_len);
-    load_tile_async<D>(base + TL::BYTES, dout + row_base * D, q0, T_len);
+    load_tile_async<D, SP::NTH>(base, q + row_base * D, q0, T_len);
+    load_tile_async<D, SP::NTH>(base + TL::BYTES, dout + row_base * D, q0, T_len);
     // lse by threads 0..63, delta by 64..127
-    const int t = q0 + threadIdx.x % TILE;
-    cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4,
-               (threadIdx.x < TILE ? lse : delta) + row_base + (t < T_len ? t : 0), t < T_len);
+    if (SP::NTH == 2 * TILE || threadIdx.x < 2 * TILE) {
+      const int t = q0 + threadIdx.x % TILE;
+      cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4,
+                 (threadIdx.x < TILE ? lse : delta) + row_base + (t < T_len ? t : 0), t < T_len);
+    }
   };
-  load_tile_async<D>(k_s, k + kv_base, k0, S);
-  load_tile_async<D>(v_s, v + kv_base, k0, S);
+  load_tile_async<D, SP::NTH, SP::ROWS>(k_s, k + kv_base, k0, S);
+  load_tile_async<D, SP::NTH, SP::ROWS>(v_s, v + kv_base, k0, S);
   issue(0, 0);
   cp_async_commit();
 
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+  float acc_dk[SP::DC / 8][4], acc_dv[SP::DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < SP::DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
   const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
-  const uint32_t warp_rows = 16 * warp * TL::ROW_BYTES;
+  const uint32_t warp_rows = 16 * rg * TL::ROW_BYTES;
+  const int q_own = part * SP::CW;             // this warp's queries of S^T, dP^T
+  const uint32_t col_off = part * SP::DC * 2;  // its columns of dK, dV (bytes)
+  uint32_t* xch = reinterpret_cast<uint32_t*>(smem + (stages - k_s) + 2 * STAGE);  // [warp][P, dS]
   const float scale_log2 = scale * LOG2E;
 
   for (int it = 0; it < n_items; ++it) {
@@ -374,25 +448,26 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     const uint32_t q_s = stages + (it & 1) * STAGE, do_s = q_s + TL::BYTES;
     const float* lse_s = reinterpret_cast<const float*>(smem + (q_s - k_s) + 2 * TL::BYTES);
     const float* delta_s = lse_s + TILE;
-    // a row is live when it exists and sees a key (lse > -1e30)
+    // a row is live when it exists and sees a key (lse > -1e30); the same
+    // on every warp, so the branch below (and its barrier) is the CTA's
     const bool live0 = q0 + lane < T_len && lse_s[lane] > NEG_INF / 2;
     const bool live1 = q0 + lane + 32 < T_len && lse_s[lane + 32] > NEG_INF / 2;
     if (__any_sync(FULL, live0 || live1)) {
       const bool masked = !keys_all_valid || !__all_sync(FULL, live0 && live1) ||
-                          (causal && q0 < k0 + TILE - 1);
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-      float s[8][4], dp[8][4];
+                          (causal && q0 < k0 + SP::ROWS - 1);
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x its CW queries
+      float s[SP::CW / 8][4], dp[SP::CW / 8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < SP::CW / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<D, 8>(s, k_s + warp_rows + la, q_s + lb);
-      mma_abt<D, 8>(dp, v_s + warp_rows + la, do_s + lb);
+      mma_abt<D, SP::CW / 8>(s, k_s + warp_rows + la, q_s + q_own * TL::ROW_BYTES + lb);
+      mma_abt<D, SP::CW / 8>(dp, v_s + warp_rows + la, do_s + q_own * TL::ROW_BYTES + lb);
       // P^T and dS^T, rounded to bf16 as A fragments (k = query)
-      uint32_t pa[4][4], dsa[4][4];
+      uint32_t pa[SP::KCW][4], dsa[SP::KCW][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * tq;  // this thread's query columns c, c + 1
+      for (int j = 0; j < SP::CW / 8; ++j) {
+        const int c = q_own + 8 * j + 2 * tq;  // this thread's query columns c, c + 1
         float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -411,29 +486,48 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
         dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
         dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      mma_ab<D>(acc_dv, pa, do_s + la);  // dV += P^T dO
-      mma_ab<D>(acc_dk, dsa, q_s + la);  // dK += dS^T Q
+      if constexpr (SP::N > 1) {
+        put_frags<SP::KCW>(xch + warp * SP::SLOT, pa, lane);
+        put_frags<SP::KCW>(xch + warp * SP::SLOT + SP::SLOT / 2, dsa, lane);
+      }
+      mma_ab<D, SP::KCW, SP::DC>(acc_dv, pa, do_s + q_own * TL::ROW_BYTES + la + col_off);  // dV += P^T dO
+      mma_ab<D, SP::KCW, SP::DC>(acc_dk, dsa, q_s + q_own * TL::ROW_BYTES + la + col_off);  // dK += dS^T Q
+      if constexpr (SP::N > 1) {
+        // the other queries: the row group's other warps' P^T and dS^T fragments
+        __syncthreads();
+#pragma unroll
+        for (int o = 1; o < SP::N; ++o) {
+          const int other = (part + o) % SP::N, w = other * SP::RG + rg, q_other = other * SP::CW;
+          get_frags<SP::KCW>(pa, xch + w * SP::SLOT, lane);
+          get_frags<SP::KCW>(dsa, xch + w * SP::SLOT + SP::SLOT / 2, lane);
+          mma_ab<D, SP::KCW, SP::DC>(acc_dv, pa, do_s + q_other * TL::ROW_BYTES + la + col_off);
+          mma_ab<D, SP::KCW, SP::DC>(acc_dk, dsa, q_s + q_other * TL::ROW_BYTES + la + col_off);
+        }
+      }
     }
-    __syncthreads();  // this stage's readers are done before it is refilled
+    __syncthreads();  // this stage's (and the exchange's) readers are done before it is refilled
   }
 
-  store_rows<D>(dk + kv_base, acc_dk, key_lo, S, tq);
-  store_rows<D>(dv + kv_base, acc_dv, key_lo, S, tq);
+  store_rows<D, SP::DC>(dk + kv_base, acc_dk, key_lo, S, tq, part * SP::DC);
+  store_rows<D, SP::DC>(dv + kv_base, acc_dv, key_lo, S, tq, part * SP::DC);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DqSplit<D>::NTH)
 dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
               const int32_t* __restrict__ kv_valid, bf16* __restrict__ dq, int H, int Hkv, int T_len, int S,
               int causal, float scale) {
   using TL = Tile<D>;
+  using SP = DqSplit<D>;
   constexpr int STAGE = 2 * TL::BYTES + TILE * 4;  // K, V, key flags
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  // row group; which part of the split (0 without one)
+  const int rg = SP::N > 1 ? warp % SP::RG : warp, part = SP::N > 1 ? warp / SP::RG : 0;
   const size_t row_base = (size_t)(b * H + h) * T_len;
   const size_t q_base = row_base * D, kv_base = (size_t)(b * Hkv + hk) * S * D;
   // this thread's two query rows (the C fragment's rows g and g + 8)
@@ -442,7 +536,7 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   bool live[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    t[half] = q0 + 16 * warp + g + 8 * half;
+    t[half] = q0 + 16 * rg + g + 8 * half;
     const float l = t[half] < T_len ? lse[row_base + t[half]] : NEG_INF;
     live[half] = l > NEG_INF / 2;
     lse2[half] = l * LOG2E;
@@ -452,7 +546,7 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   const int kv_end = causal ? min(S, q0 + TILE) : S;
   const int n_tiles = (kv_end + TILE - 1) / TILE;
   if (!__syncthreads_or(live[0] || live[1]) || n_tiles == 0) {
-    zero_rows<D>(dq + q_base, q0, T_len);
+    zero_rows<D, SP::NTH>(dq + q_base, q0, T_len);
     return;
   }
   const bool rows_all_live = __syncthreads_and(live[0] && live[1]);
@@ -461,25 +555,28 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   auto issue = [&](int tile, int st) {
     const int k0 = tile * TILE;
     const uint32_t base = stages + st * STAGE;
-    load_tile_async<D>(base, k + kv_base, k0, S);
-    load_tile_async<D>(base + TL::BYTES, v + kv_base, k0, S);
+    load_tile_async<D, SP::NTH>(base, k + kv_base, k0, S);
+    load_tile_async<D, SP::NTH>(base + TL::BYTES, v + kv_base, k0, S);
     if (threadIdx.x < TILE) {
       const int s = k0 + threadIdx.x;
       cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4, kv_valid + (size_t)b * S + (s < S ? s : 0), s < S);
     }
   };
-  load_tile_async<D>(q_s, q + q_base, q0, T_len);
-  load_tile_async<D>(do_s, dout + q_base, q0, T_len);
+  load_tile_async<D, SP::NTH>(q_s, q + q_base, q0, T_len);
+  load_tile_async<D, SP::NTH>(do_s, dout + q_base, q0, T_len);
   issue(0, 0);
   cp_async_commit();
 
-  float acc[D / 8][4];
+  float acc[SP::DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < SP::DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
-  const uint32_t warp_rows = 16 * warp * TL::ROW_BYTES;
+  const uint32_t warp_rows = 16 * rg * TL::ROW_BYTES;
+  const int k_own = part * SP::CW;  // this warp's keys of S, dP
+  const uint32_t col_off = part * SP::DC * 2;  // its columns of dQ (bytes)
+  uint32_t* xch = reinterpret_cast<uint32_t*>(smem + (stages - q_s) + 2 * STAGE);  // [warp][dS]
   const float scale_log2 = scale * LOG2E;
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -490,22 +587,23 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     const int k0 = it * TILE;
     const uint32_t k_s = stages + (it & 1) * STAGE, v_s = k_s + TL::BYTES;
     const int* valid_s = reinterpret_cast<const int*>(smem + (k_s - q_s) + 2 * TL::BYTES);
+    // the same on every warp, so the branch below (and its barrier) is the CTA's
     const bool v0 = valid_s[lane] > 0, v1 = valid_s[lane + 32] > 0;  // zero past S
     if (__any_sync(FULL, v0 || v1)) {
       const bool masked = !rows_all_live || !__all_sync(FULL, v0 && v1) || (causal && k0 + TILE - 1 > q0);
-      // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-      float s[8][4], dp[8][4];
+      // S = Q K^T and dP = dO V^T: this warp's 16 queries x its CW keys
+      float s[SP::CW / 8][4], dp[SP::CW / 8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < SP::CW / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<D, 8>(s, q_s + warp_rows + la, k_s + lb);
-      mma_abt<D, 8>(dp, do_s + warp_rows + la, v_s + lb);
+      mma_abt<D, SP::CW / 8>(s, q_s + warp_rows + la, k_s + k_own * TL::ROW_BYTES + lb);
+      mma_abt<D, SP::CW / 8>(dp, do_s + warp_rows + la, v_s + k_own * TL::ROW_BYTES + lb);
       // dS, rounded to bf16 as A fragments (k = key)
-      uint32_t dsa[4][4];
+      uint32_t dsa[SP::KCW][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * tq;  // this thread's key columns c, c + 1
+      for (int j = 0; j < SP::CW / 8; ++j) {
+        const int c = k_own + 8 * j + 2 * tq;  // this thread's key columns c, c + 1
         float ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -520,12 +618,23 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
         dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
         dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      mma_ab<D>(acc, dsa, k_s + la);  // dQ += dS K
+      if constexpr (SP::N > 1) put_frags<SP::KCW>(xch + warp * SP::SLOT, dsa, lane);
+      mma_ab<D, SP::KCW, SP::DC>(acc, dsa, k_s + k_own * TL::ROW_BYTES + la + col_off);  // dQ += dS K
+      if constexpr (SP::N > 1) {
+        // the other keys: the row group's other warps' dS fragments
+        __syncthreads();
+#pragma unroll
+        for (int o = 1; o < SP::N; ++o) {
+          const int other = (part + o) % SP::N;
+          get_frags<SP::KCW>(dsa, xch + (other * SP::RG + rg) * SP::SLOT, lane);
+          mma_ab<D, SP::KCW, SP::DC>(acc, dsa, k_s + other * SP::CW * TL::ROW_BYTES + la + col_off);
+        }
+      }
     }
-    __syncthreads();  // this stage's readers are done before it is refilled
+    __syncthreads();  // this stage's (and the exchange's) readers are done before it is refilled
   }
 
-  store_rows<D>(dq + q_base, acc, t[0], T_len, tq);
+  store_rows<D, SP::DC>(dq + q_base, acc, t[0], T_len, tq, part * SP::DC);
 }
 
 }  // namespace tc
@@ -542,7 +651,7 @@ struct Args {
 
 template <typename T, int D>
 int launch_dkv(const Args& a) {
-  const size_t smem = dkv_smem_bytes(D);
+  const size_t smem = dkv_smem_bytes<D>();
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -557,7 +666,7 @@ int launch_dkv(const Args& a) {
 
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  const size_t smem = dq_smem_bytes(D);
+  const size_t smem = dq_smem_bytes<D>();
   auto kernel = flash_bwd_dq_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -573,13 +682,13 @@ int launch_dq(const Args& a) {
 template <int D>
 int launch_dkv_mma(const Args& a) {
   using tc::bf16;
-  const size_t smem = tc::smem_bytes(tc::Tile<D>::ROW_BYTES);
+  const size_t smem = tc::dkv_smem_bytes<D>();
   auto kernel = tc::dkv_mma_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + tc::TILE - 1) / tc::TILE, a.Hkv, a.B);
-  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+  dim3 grid((a.S + tc::DkvSplit<D>::ROWS - 1) / tc::DkvSplit<D>::ROWS, a.Hkv, a.B);
+  kernel<<<grid, tc::DkvSplit<D>::NTH, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const bf16*>(a.dout), a.lse, a.delta, a.kv_valid, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.H, a.Hkv, a.T_len, a.S, a.causal, a.scale);
@@ -589,13 +698,13 @@ int launch_dkv_mma(const Args& a) {
 template <int D>
 int launch_dq_mma(const Args& a) {
   using tc::bf16;
-  const size_t smem = tc::smem_bytes(tc::Tile<D>::ROW_BYTES);
+  const size_t smem = tc::dq_smem_bytes<D>();
   auto kernel = tc::dq_mma_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.T_len + tc::TILE - 1) / tc::TILE, a.H, a.B);
-  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+  kernel<<<grid, tc::DqSplit<D>::NTH, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const bf16*>(a.dout), a.lse, a.delta, a.kv_valid, static_cast<bf16*>(a.dq), a.H,
       a.Hkv, a.T_len, a.S, a.causal, a.scale);
@@ -612,8 +721,10 @@ int dispatch_d(int which, int D, const Args& a) {
     TRLX_BWD_CASE(16)
     TRLX_BWD_CASE(32)
     TRLX_BWD_CASE(64)
+    TRLX_BWD_CASE(80)
     TRLX_BWD_CASE(96)
     TRLX_BWD_CASE(128)
+    TRLX_BWD_CASE(256)
     default: return -1;
   }
 #undef TRLX_BWD_CASE
@@ -626,8 +737,10 @@ int dispatch_mma(int which, int D, const Args& a) {
     TRLX_MMA_CASE(16)
     TRLX_MMA_CASE(32)
     TRLX_MMA_CASE(64)
+    TRLX_MMA_CASE(80)
     TRLX_MMA_CASE(96)
     TRLX_MMA_CASE(128)
+    TRLX_MMA_CASE(256)
     default: return -1;
   }
 #undef TRLX_MMA_CASE

@@ -38,10 +38,19 @@
 // its probability to 0, never multiplied. Shared rows are padded by 16
 // bytes (conflict-free ldmatrix); the host pads nothing.
 //
+// Head dims: every multiple of 16 the switches below name (FLASH_HEAD_DIMS
+// of ops/attention.py). At D = 256 (GPT-J) one warp's O would be 128 f32
+// registers beside S (32), P (32) and Q's fragments (64): over the 255 a
+// thread may have. So there Q stays in shared memory (its fragments read
+// again for each key tile) and two warps share each 16-query group (8
+// warps, FwdSplit): both form the group's S and softmax state, each
+// accumulates half of O's columns; 169,472 bytes of shared memory, one CTA
+// an SM.
+//
 // The f32 instances stay this file's first design, bit for bit: every
 // product as f32 FMAs on the CUDA cores out of f32 shared memory (256
 // threads, 4 per query row), since TF32 keeps too few digits for the f32
-// contract.
+// contract (214,016 bytes of shared memory at D = 256).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -210,8 +219,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const int32_t* kv_va
     case 16: return launch<T, 16>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
     case 96: return launch<T, 96>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, kv_valid, o, lse, B, H, Hkv, T_len, S, causal, scale, stream);
     default: return -1;  // the wrapper checks D first
   }
 }
@@ -232,18 +243,34 @@ size_t fwd_smem_bytes() {
   return (size_t)Tile<D>::BYTES + 2 * (2 * Tile<D>::BYTES + TILE * sizeof(int32_t));
 }
 
+// Warps owning a 16-query group: one up to D = 128. At D = 256 O alone is
+// 128 f32 registers a thread, and beside S, P and the fragment loads the
+// compiler spills at 255, so two warps share each group (8 warps): both
+// form the group's S and softmax state on the same values (the same bits),
+// and each accumulates half of O's columns (64 registers). The tensor cores
+// compute S twice; the kernel is bound by bytes, not by their issue rate.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+struct FwdSplit {
+  static constexpr int N = D > 128 ? 2 : 1;
+  static constexpr int NTH = THREADS * N;
+  static constexpr int DC = D / N;  // O's columns a warp
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdSplit<D>::NTH)
 fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                const int32_t* __restrict__ kv_valid, bf16* __restrict__ o, float* __restrict__ lse, int H,
                int Hkv, int T_len, int S, int causal, float scale) {
   using TL = Tile<D>;
+  using SP = FwdSplit<D>;
   constexpr int STAGE = 2 * TL::BYTES + TILE * 4;  // K, V, key flags
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  // query group; which half of O's columns (0 without a split)
+  const int rg = SP::N > 1 ? warp % WARPS : warp, part = SP::N > 1 ? warp / WARPS : 0;
   const size_t row_base = (size_t)(b * H + h) * T_len;
   const size_t q_base = row_base * D, kv_base = (size_t)(b * Hkv + hk) * S * D;
   // keys past the tile's last query slot are all causally masked: skip them
@@ -254,32 +281,38 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   auto issue = [&](int tile, int st) {
     const int k0 = tile * TILE;
     const uint32_t base = stages + st * STAGE;
-    load_tile_async<D>(base, k + kv_base, k0, S);
-    load_tile_async<D>(base + TL::BYTES, v + kv_base, k0, S);
+    load_tile_async<D, SP::NTH>(base, k + kv_base, k0, S);
+    load_tile_async<D, SP::NTH>(base + TL::BYTES, v + kv_base, k0, S);
     if (threadIdx.x < TILE) {
       const int s = k0 + threadIdx.x;
       cp_async_4(base + 2 * TL::BYTES + threadIdx.x * 4, kv_valid + (size_t)b * S + (s < S ? s : 0), s < S);
     }
   };
-  load_tile_async<D>(q_s, q + q_base, q0, T_len);
+  load_tile_async<D, SP::NTH>(q_s, q + q_base, q0, T_len);
   cp_async_commit();  // group 0: Q
   if (n_tiles > 0) issue(0, 0);
   cp_async_commit();  // group 1: kv tile 0
 
   // this thread's two query rows (the C fragment's rows g and g + 8)
-  const int t_lo = q0 + 16 * warp + g, t_hi = t_lo + 8;
+  const int t_lo = q0 + 16 * rg + g, t_hi = t_lo + 8;
   const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
   cp_async_wait_1();  // Q has landed (tile 0 may still be in flight)
   __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_a_frags<D>(qa, q_s + 16 * warp * TL::ROW_BYTES + la);
+  // Q's A fragments stay in registers up to D = 128; at D = 256 (64
+  // registers) they are read again from the resident Q tile for each key
+  // tile (FlashAttention-2's choice at that head dim)
+  constexpr bool Q_REGS = D <= 128;
+  const uint32_t q_warp = q_s + 16 * rg * TL::ROW_BYTES + la;
+  uint32_t qa[Q_REGS ? D / 16 : 1][4];
+  if constexpr (Q_REGS) load_a_frags<D>(qa, q_warp);
+  const uint32_t col_off = part * SP::DC * 2;  // this warp's columns of V and O (bytes)
 
   // running max (log2 units: scores times scale * log2 e), this thread's
   // share of the running sum, and the rescaled output, per row half
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[SP::DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < SP::DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   const float scale_log2 = scale * LOG2E;
@@ -301,7 +334,10 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      mma_abt_regs<D, 8>(s, qa, k_s + lb);
+      if constexpr (Q_REGS)
+        mma_abt_regs<D, 8>(s, qa, k_s + lb);
+      else
+        mma_abt<D, 8>(s, q_warp, k_s + lb);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -340,10 +376,10 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
         pack_bf16_split(p[2], p[3], ph[j / 2][(j % 2) * 2 + 1], pl[j / 2][(j % 2) * 2 + 1]);
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < SP::DC / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e / 2];
-      mma_ab_split<D>(acc, ph, pl, v_s + la);  // O += P V
+      mma_ab_split<D, 4, SP::DC>(acc, ph, pl, v_s + la + col_off);  // O += P V
     }
     __syncthreads();  // this stage's readers are done before it is refilled
   }
@@ -354,15 +390,15 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     const float lt = quad_sum(l[half]);
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < SP::DC / 8; ++j) {
       acc[j][2 * half] *= inv;
       acc[j][2 * half + 1] *= inv;
     }
     const int t = half ? t_hi : t_lo;
-    if (lse != nullptr && tq == 0 && t < T_len)
+    if (lse != nullptr && tq == 0 && part == 0 && t < T_len)
       lse[row_base + t] = lt > 0.f ? m[half] * LN2 + logf(lt) : NEG_INF;
   }
-  store_rows<D>(o + q_base, acc, t_lo, T_len, tq);
+  store_rows<D, SP::DC>(o + q_base, acc, t_lo, T_len, tq, part * SP::DC);
 }
 
 template <int D>
@@ -373,7 +409,7 @@ int launch_mma(const void* q, const void* k, const void* v, const int32_t* kv_va
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T_len + TILE - 1) / TILE, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+  kernel<<<grid, FwdSplit<D>::NTH, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                           static_cast<const bf16*>(v), kv_valid, static_cast<bf16*>(o), lse,
                                           H, Hkv, T_len, S, causal, scale);
   return (int)cudaGetLastError();
@@ -391,8 +427,10 @@ int dispatch_mma(const void* q, const void* k, const void* v, const int32_t* kv_
     TRLX_FWD_CASE(16)
     TRLX_FWD_CASE(32)
     TRLX_FWD_CASE(64)
+    TRLX_FWD_CASE(80)
     TRLX_FWD_CASE(96)
     TRLX_FWD_CASE(128)
+    TRLX_FWD_CASE(256)
     default: return -1;  // the wrapper checks D first
   }
 #undef TRLX_FWD_CASE

@@ -32,14 +32,15 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Shared layout of a [rows][D] bf16 tile: rows padded by 8 elements (16
-// bytes). A row is then D/8 + 1 16-byte units; for D in {16, 32, 64, 96,
-// 128} that is odd, so the 8 rows one ldmatrix phase reads start in 8
-// distinct 4-bank groups.
+// bytes). A row is then D/8 + 1 16-byte units; D is a multiple of 16 (one
+// k16 step of mma, two 16-byte ldmatrix columns), so D/8 is even and the
+// unit count odd for every such D (80: 11, 256: 33), and the 8 rows one
+// ldmatrix phase reads start in 8 distinct 4-bank groups.
 template <int D>
 struct Tile {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "head dim: a multiple of 16 up to 256");
   static constexpr int ROW_BYTES = (D + 8) * 2;
   static constexpr int BYTES = TILE * ROW_BYTES;
-  static constexpr int CHUNKS = TILE * D / 8;  // 16-byte copies per tile
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -101,14 +102,16 @@ __device__ __forceinline__ void pack_bf16_split(float a, float b, uint32_t& hi, 
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Rows [r0, r0 + TILE) of a row-major [len][D] bf16 matrix into a shared
-// tile at `dst`, asynchronously; rows at or past len are zero-filled.
-template <int D>
+// Rows [r0, r0 + ROWS) of a row-major [len][D] bf16 matrix into a shared
+// tile at `dst` (Tile<D>'s row stride), asynchronously, by the NTH threads
+// of the CTA; rows at or past len are zero-filled.
+template <int D, int NTH = THREADS, int ROWS = TILE>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* __restrict__ src, int r0, int len) {
-  constexpr int PER_ROW = D / 8;
+  constexpr int PER_ROW = D / 8, CHUNKS = ROWS * PER_ROW;
 #pragma unroll
-  for (int j = 0; j < Tile<D>::CHUNKS / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
+  for (int j = 0; j < (CHUNKS + NTH - 1) / NTH; ++j) {
+    const int i = threadIdx.x + j * NTH;
+    if (CHUNKS % NTH != 0 && i >= CHUNKS) break;
     const int r = i / PER_ROW, c = i % PER_ROW;
     const bool ok = r0 + r < len;
     cp_async_16(dst + r * Tile<D>::ROW_BYTES + c * 16, src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok);
@@ -158,15 +161,16 @@ __device__ __forceinline__ void mma_abt_regs(float (&acc)[NT][4], const uint32_t
   }
 }
 
-// acc[D/8][4] += A B for this warp: A is 16 rows x 16*KC given as KC
-// k-chunks of A fragments (from registers), B is 16*KC rows x D of a shared
-// tile read transposed (lane address b_addr, from lane_a).
-template <int D, int KC>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KC][4], uint32_t b_addr) {
+// acc[NC/8][4] += A B for this warp: A is 16 rows x 16*KC given as KC
+// k-chunks of A fragments (from registers), B is 16*KC rows x NC columns of
+// a shared tile of row width D read transposed (lane address b_addr, from
+// lane_a, plus 2 bytes a column where NC < D takes columns from c0).
+template <int D, int KC, int NC = D>
+__device__ __forceinline__ void mma_ab(float (&acc)[NC / 8][4], const uint32_t (&a)[KC][4], uint32_t b_addr) {
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < NC / 16; ++dp) {
       uint32_t b[4];
       ldsm_x4_trans(b, b_addr + kc * 16 * Tile<D>::ROW_BYTES + dp * 32);
       mma_16816(acc[2 * dp], a[kc], b[0], b[1]);
@@ -177,13 +181,13 @@ __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&
 
 // mma_ab with A given as hi + lo parts (pack_bf16_split): each B fragment
 // is loaded once and multiplied by both.
-template <int D, int KC>
-__device__ __forceinline__ void mma_ab_split(float (&acc)[D / 8][4], const uint32_t (&hi)[KC][4],
+template <int D, int KC, int NC = D>
+__device__ __forceinline__ void mma_ab_split(float (&acc)[NC / 8][4], const uint32_t (&hi)[KC][4],
                                              const uint32_t (&lo)[KC][4], uint32_t b_addr) {
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < NC / 16; ++dp) {
       uint32_t b[4];
       ldsm_x4_trans(b, b_addr + kc * 16 * Tile<D>::ROW_BYTES + dp * 32);
       mma_16816(acc[2 * dp], lo[kc], b[0], b[1]);
@@ -210,29 +214,53 @@ __device__ __forceinline__ uint32_t lane_b(int lane) {
   return ((lane % 8) + 8 * (lane / 16)) * Tile<D>::ROW_BYTES + ((lane / 8) % 2) * 16;
 }
 
-// Zero rows [r0, min(r0 + TILE, len)) of a row-major [len][D] bf16 matrix.
-template <int D>
+// Zero rows [r0, min(r0 + ROWS, len)) of a row-major [len][D] bf16 matrix,
+// by the NTH threads of the CTA.
+template <int D, int NTH = THREADS, int ROWS = TILE>
 __device__ __forceinline__ void zero_rows(bf16* __restrict__ dst, int r0, int len) {
-  const int n = min(TILE, len - r0) * D / 8;
+  const int n = min(ROWS, len - r0) * D / 8;
   uint4* p = reinterpret_cast<uint4*>(dst + (size_t)r0 * D);
-  for (int i = threadIdx.x; i < n; i += THREADS) p[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < n; i += NTH) p[i] = make_uint4(0, 0, 0, 0);
 }
 
-// Store an accumulator tile (16 rows x D, C fragments) as bf16: rows r_lo and
-// r_lo + 8 of a row-major [len][D] matrix, skipping rows at or past len.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4], int r_lo,
-                                           int len, int tq) {
+// Store an accumulator tile (16 rows x NC columns from column c0, C
+// fragments) as bf16: rows r_lo and r_lo + 8 of a row-major [len][D]
+// matrix, skipping rows at or past len.
+template <int D, int NC = D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[NC / 8][4], int r_lo,
+                                           int len, int tq, int c0 = 0) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < NC / 8; ++j) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = r_lo + 8 * half;
       if (r < len)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + 8 * j + 2 * tq) =
+        *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + c0 + 8 * j + 2 * tq) =
             pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
     }
   }
+}
+
+// A fragments handed between the warps of a CTA through shared memory (the
+// D = 256 kernels split a product's k range over two warps): a slot holds
+// KC k-chunks as [KC][4][32] words, one word a register and lane, so a warp
+// writes or reads 128 contiguous bytes a register (no bank conflict), and a
+// warp reading another warp's slot by its own lane gets exactly the
+// fragments that warp's lanes held.
+template <int KC>
+__device__ __forceinline__ void put_frags(uint32_t* slot, const uint32_t (&a)[KC][4], int lane) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) slot[(kc * 4 + e) * 32 + lane] = a[kc][e];
+}
+
+template <int KC>
+__device__ __forceinline__ void get_frags(uint32_t (&a)[KC][4], const uint32_t* slot, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kc][e] = slot[(kc * 4 + e) * 32 + lane];
 }
 
 // Max and sum over the 4 lanes of a quad (the lanes sharing C-fragment rows).

@@ -62,10 +62,15 @@
 //   P V keeps ~16 bits of each probability (bf16(p) alone keeps 8): the
 //   output differs from the f32 reference by summation order, not by a bf16
 //   rounding of P; the extra mma instructions cost no bytes.
+// - D = 256 (GPT-J): Q's A fragments (64 registers beside O's 128) are read
+//   again from the resident Q tile for each step instead of held in
+//   registers.
 // f32 queries (f32 or int8 pools) keep the first design (below), bit for bit:
 // one CTA per (slot, kv head, row tile) converting each block's K/V rows to
 // f32 in shared memory, one score per thread as an f32 FMA chain, the
 // softmax one warp per row, the running max / sum / output in shared memory.
+// Where a block's f32 tiles do not fit the CTA's shared memory (D = 256 at
+// block sizes from 64), the walk stages part of a block at a time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,28 +94,33 @@ __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
-size_t smem_bytes(int rows, int D, int BS) {
-  // q_s [rows][D], acc_s [rows][D], k_s [BS][D+1], v_s [BS][D], p_s [rows][BS],
-  // ks_s/vs_s [BS], m_s/l_s/alpha_s [rows]
+size_t smem_bytes(int rows, int D, int KT) {
+  // q_s [rows][D], acc_s [rows][D], k_s [KT][D+1], v_s [KT][D], p_s [rows][KT],
+  // ks_s/vs_s [KT], m_s/l_s/alpha_s [rows]
   return sizeof(float) *
-         (size_t)(2 * rows * D + BS * (D + 1) + BS * D + rows * BS + 2 * BS + 3 * rows);
+         (size_t)(2 * rows * D + KT * (D + 1) + KT * D + rows * KT + 2 * KT + 3 * rows);
 }
 
-// grid (B, Hkv, row tiles); q/out [B, Q, H, D]. The decode instance
-// (VERIFY false) takes q/out [B, H, D] and ignores Q and tile_rows.
-template <typename QT, typename KVT, bool QUANT, bool VERIFY>
+// grid (B, Hkv, row tiles of tile_rows rows); q/out [B, Q, H, D] (decode:
+// [B, H, D], Q = 1, one tile of rep rows). The walk stages KT positions at a
+// time, KT a divisor of BS, so a step is KT consecutive rows of one block:
+// KT = BS wherever that fits, and every block is one step as in this body's
+// first design (STEPPED false: its code, and its speed); the dispatch takes
+// smaller divisors of BS (and then fewer rows a tile) until the f32 tiles
+// fit the CTA's shared memory (D = 256 at BS = 64 would take 280 KB).
+template <typename QT, typename KVT, bool QUANT, bool VERIFY, bool STEPPED>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
                   const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
                   const int32_t* __restrict__ lens, QT* __restrict__ out, int Q, int H, int Hkv,
-                  int D, int BS, int MB, int tile_rows, float scale) {
+                  int D, int BS, int MB, int tile_rows, int KT, float scale) {
   constexpr int OFFSET = VERIFY ? 1 : 0;
   const int b = blockIdx.x;
   const int hk = blockIdx.y;
   const int rep = H / Hkv;
-  const int r0 = VERIFY ? blockIdx.z * tile_rows : 0;  // first row of this tile in [0, Q*rep)
-  const int rows = VERIFY ? min(tile_rows, Q * rep - r0) : rep;
+  const int r0 = blockIdx.z * tile_rows;  // first row of this tile in [0, Q*rep)
+  const int rows = min(tile_rows, Q * rep - r0);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int DK = D + 1;
@@ -118,24 +128,26 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
   extern __shared__ float smem[];
   float* q_s = smem;                 // [rows][D]
   float* acc_s = q_s + rows * D;     // [rows][D]
-  float* k_s = acc_s + rows * D;     // [BS][D+1]
-  float* v_s = k_s + BS * DK;        // [BS][D]
-  float* p_s = v_s + BS * D;         // [rows][BS]
-  float* ks_s = p_s + rows * BS;     // [BS]
-  float* vs_s = ks_s + BS;           // [BS]
-  float* m_s = vs_s + BS;            // [rows]
+  float* k_s = acc_s + rows * D;     // [KT][D+1]
+  float* v_s = k_s + KT * DK;        // [KT][D]
+  float* p_s = v_s + KT * D;         // [rows][KT]
+  float* ks_s = p_s + rows * KT;     // [KT]
+  float* vs_s = ks_s + KT;           // [KT]
+  float* m_s = vs_s + KT;            // [rows]
   float* l_s = m_s + rows;           // [rows]
   float* alpha_s = l_s + rows;       // [rows]
 
   const int len = lens[b];
-  // row r sees positions below its limit; the tile's last row sees the most
+  // row r sees positions below its limit (decode: len, without a divide in
+  // the score loop); the tile's last row sees the most
   auto row_limit = [&](int r) -> int { return VERIFY ? len + (r0 + r) / rep + OFFSET : len; };
-  const int n_blocks = min((row_limit(rows - 1) + BS - 1) / BS, MB);
+  const int n_steps = min((row_limit(rows - 1) + KT - 1) / KT, MB * (BS / KT));
+  const int32_t* table = tables + (size_t)b * MB;
 
   // element i = r * D + d of the tile in q/out: row r is query (r0 + r) / rep,
-  // head hk*rep + (r0 + r) % rep (decode: the CTA's rep heads, contiguous)
+  // head hk*rep + (r0 + r) % rep (decode: head hk*rep + r0 + r, contiguous)
   auto qo_index = [&](int i) -> size_t {
-    if (!VERIFY) return ((size_t)b * H + (size_t)hk * rep) * D + i;
+    if (!VERIFY) return ((size_t)b * H + (size_t)hk * rep + r0) * D + i;
     const int gr = r0 + i / D;
     return (((size_t)b * Q + gr / rep) * H + (size_t)hk * rep + gr % rep) * D + i % D;
   };
@@ -149,49 +161,51 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     l_s[r] = 0.f;
   }
 
-  for (int j = 0; j < n_blocks; ++j) {
-    __syncthreads();  // previous block's readers are done (and q_s/acc_s are set)
-    const size_t row0 = (size_t)tables[(size_t)b * MB + j] * BS;  // first pool row
-    for (int i = tid; i < BS * D; i += THREADS) {
+  for (int j = 0; j < n_steps; ++j) {
+    __syncthreads();  // previous step's readers are done (and q_s/acc_s are set)
+    const int p0 = j * KT;
+    // the step's first pool row: KT divides BS, so a step is rows of one block
+    const size_t row0 = STEPPED ? (size_t)table[p0 / BS] * BS + p0 % BS : (size_t)table[j] * BS;
+    for (int i = tid; i < KT * D; i += THREADS) {
       const int t = i / D, d = i % D;
       const size_t src = ((row0 + t) * Hkv + hk) * D + d;
       k_s[t * DK + d] = to_f32(k_pool[src]);
       v_s[t * D + d] = to_f32(v_pool[src]);
     }
     if (QUANT) {
-      for (int t = tid; t < BS; t += THREADS) {
+      for (int t = tid; t < KT; t += THREADS) {
         ks_s[t] = k_scale[(row0 + t) * Hkv + hk];
         vs_s[t] = v_scale[(row0 + t) * Hkv + hk];
       }
     }
     __syncthreads();
 
-    // scores [rows][BS]; tokens at or past the row's limit are masked
-    for (int i = tid; i < rows * BS; i += THREADS) {
-      const int r = i / BS, t = i % BS;
+    // scores [rows][KT]; tokens at or past the row's limit are masked
+    for (int i = tid; i < rows * KT; i += THREADS) {
+      const int r = i / KT, t = i % KT;
       float dot = 0.f;
       for (int d = 0; d < D; ++d) dot = fmaf(q_s[r * D + d], k_s[t * DK + d], dot);
       float s = dot * scale;
       if (QUANT) s *= ks_s[t];
-      p_s[i] = j * BS + t < row_limit(r) ? s : NEG_INF;
+      p_s[i] = p0 + t < row_limit(r) ? s : NEG_INF;
     }
     __syncthreads();
 
     // online-softmax update, one warp per query row
     for (int r = warp; r < rows; r += WARPS) {
       float m_cur = NEG_INF;
-      for (int t = lane; t < BS; t += 32) m_cur = fmaxf(m_cur, p_s[r * BS + t]);
+      for (int t = lane; t < KT; t += 32) m_cur = fmaxf(m_cur, p_s[r * KT + t]);
       for (int off = 16; off > 0; off >>= 1)
         m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, m_cur);
       float p_sum = 0.f;
-      for (int t = lane; t < BS; t += 32) {
-        // fully-masked blocks keep m == NEG_INF; exp(s - m) would be exp(0) there
-        float p = m_new > NEG_INF / 2 ? expf(p_s[r * BS + t] - m_new) : 0.f;
+      for (int t = lane; t < KT; t += 32) {
+        // fully-masked steps keep m == NEG_INF; exp(s - m) would be exp(0) there
+        float p = m_new > NEG_INF / 2 ? expf(p_s[r * KT + t] - m_new) : 0.f;
         p_sum += p;  // l sums p BEFORE the v_scale fold
         if (QUANT) p *= vs_s[t];
-        p_s[r * BS + t] = p;
+        p_s[r * KT + t] = p;
       }
       for (int off = 16; off > 0; off >>= 1)
         p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
@@ -207,7 +221,7 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     for (int i = tid; i < rows * D; i += THREADS) {
       const int r = i / D, d = i % D;
       float a = acc_s[i] * alpha_s[r];
-      for (int t = 0; t < BS; ++t) a = fmaf(p_s[r * BS + t], v_s[t * D + d], a);
+      for (int t = 0; t < KT; ++t) a = fmaf(p_s[r * KT + t], v_s[t * D + d], a);
       acc_s[i] = a;
     }
   }
@@ -219,14 +233,32 @@ paged_attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
   }
 }
 
+// The dynamic shared memory a CTA may opt into on this device (232,448 B on the H100).
+int smem_cap() {
+  static const int cap = [] {
+    int dev = 0, bytes = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return bytes;
+  }();
+  return cap;
+}
+
 template <typename QT, typename KVT, bool QUANT, bool VERIFY>
 int launch(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
            const float* v_scale, const int32_t* tables, const int32_t* lens, void* out, int B,
            int Q, int H, int Hkv, int D, int BS, int MB, int tile_rows, float scale,
            cudaStream_t stream) {
   const int total_rows = Q * (H / Hkv);
-  const size_t smem = smem_bytes(tile_rows, D, BS);
-  auto kernel = paged_attn_kernel<QT, KVT, QUANT, VERIFY>;
+  int kt = BS;  // the next smaller divisor of BS while the tiles do not fit (BS / 2 for a power of two)
+  while (smem_bytes(tile_rows, D, kt) > (size_t)smem_cap() && kt > 16) {
+    do --kt; while (BS % kt);
+  }
+  while (smem_bytes(tile_rows, D, kt) > (size_t)smem_cap() && tile_rows > 1) tile_rows = (tile_rows + 1) / 2;
+  const size_t smem = smem_bytes(tile_rows, D, kt);
+  // a block in one step (KT = BS) walks the table as this body's first design did
+  auto kernel = kt < BS ? paged_attn_kernel<QT, KVT, QUANT, VERIFY, true>
+                        : paged_attn_kernel<QT, KVT, QUANT, VERIFY, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -234,7 +266,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const float* k
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), k_scale, v_scale, tables, lens, static_cast<QT*>(out),
-      Q, H, Hkv, D, BS, MB, tile_rows, scale);
+      Q, H, Hkv, D, BS, MB, tile_rows, kt, scale);
   return (int)cudaGetLastError();
 }
 
@@ -356,8 +388,12 @@ paged_mma_kernel(const bf16* __restrict__ q, const unsigned char* __restrict__ k
   const uint32_t la = lane_a<D>(lane), lb = lane_b<D>(lane);
   cp_async_wait_1();  // Q has landed
   __syncthreads();
-  uint32_t qa[D / 16][4];  // every warp holds the same 16 rows
-  load_a_frags<D>(qa, q_s + la);
+  // every warp holds the same 16 rows' A fragments, in registers up to D =
+  // 128; at D = 256 (64 registers beside O's 128) they are read again from
+  // the resident Q tile for each step, as flash_fwd.cu does
+  constexpr bool Q_REGS = D <= 128;
+  uint32_t qa[Q_REGS ? D / 16 : 1][4];
+  if constexpr (Q_REGS) load_a_frags<D>(qa, q_s + la);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // log2 units; l is this thread's share
   float acc[D / 8][4];
@@ -394,7 +430,10 @@ paged_mma_kernel(const bf16* __restrict__ q, const unsigned char* __restrict__ k
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      mma_abt_regs<D, 2>(s, qa, k_t + lb);
+      if constexpr (Q_REGS)
+        mma_abt_regs<D, 2>(s, qa, k_t + lb);
+      else
+        mma_abt<D, 2>(s, q_s + la, k_t + lb);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -523,8 +562,10 @@ int dispatch_mma(int D, bool quant, const Args& a) {
     TRLX_PAGED_CASE(16)
     TRLX_PAGED_CASE(32)
     TRLX_PAGED_CASE(64)
+    TRLX_PAGED_CASE(80)
     TRLX_PAGED_CASE(96)
     TRLX_PAGED_CASE(128)
+    TRLX_PAGED_CASE(256)
     default: return -1;  // the wrapper checks D first
   }
 #undef TRLX_PAGED_CASE

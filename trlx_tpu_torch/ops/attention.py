@@ -31,8 +31,9 @@ from trlx_tpu_torch.ops import _kernels
 
 NEG_INF = -1e30
 
-#: head dims the kernels are instantiated for (dispatch_d in csrc/flash_fwd.cu and flash_bwd.cu)
-FLASH_HEAD_DIMS = (16, 32, 64, 96, 128)
+#: head dims the kernels are instantiated for (the ``switch (D)`` of csrc/flash_fwd.cu and
+#: flash_bwd.cu, f32 and bf16 alike; tests/test_torch_kernels_build.py reads them)
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 
 # "pallas" (default) or "xla": which backward flash_attention runs. The names
 # are the JAX package's, so configs carry over: "pallas" is the hand-written

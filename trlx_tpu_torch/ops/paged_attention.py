@@ -45,8 +45,9 @@ from trlx_tpu_torch.ops import _kernels
 
 NEG_INF = -1e30  # kernel-internal mask value (f32 exact, like ops/attention.py)
 
-#: head dims of the tensor-core body (bf16 queries; dispatch_mma in csrc/paged_decode.cu)
-PAGED_MMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+#: head dims of the tensor-core body (bf16 queries; the ``switch (D)`` of dispatch_mma in
+#: csrc/paged_decode.cu; tests/test_torch_kernels_build.py reads it). The f32 body takes any D.
+PAGED_MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 
 
 def paged_attention_reference(
